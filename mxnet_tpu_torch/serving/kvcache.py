@@ -1,0 +1,214 @@
+"""Block-paged KV cache for generative serving (PagedAttention-style).
+
+The port of ``mxnet_tpu/serving/kvcache.py``.  Keys and values of every
+active sequence live in fixed-size **blocks** inside one pool per layer,
+and a per-sequence **block table** names which pool blocks hold its
+tokens (vLLM's PagedAttention, SOSP'23).  Two halves:
+
+- **Device pools**: per layer one K and one V tensor shaped
+  ``(num_blocks, block_size, num_heads, head_dim)`` on the engine's
+  device.  ``CachedMultiHeadAttention`` writes into them in place and
+  returns them, and :meth:`PagedKVCache.set_pools` installs what a step
+  returned.
+- **Host allocator**: a free list of block ids with reserve-at-admission
+  semantics.  A sequence's whole budget, ``ceil((prompt_len +
+  max_new_tokens) / block_size)`` blocks, is claimed at admission;
+  a short free list raises :class:`CacheExhausted` (structured
+  backpressure) instead of failing mid-decode.
+
+Block 0 is the **trash block**: never allocated, never read unmasked.
+Padded batch rows and padded prompt positions route their writes to it.
+
+The defaults are the JAX package's: 256 pool blocks (trash block
+included), 32 tokens a block, 64 new tokens a request.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as _np
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["KVCacheConfig", "PagedKVCache", "CacheExhausted", "TRASH_BLOCK",
+           "DEFAULT_KV_BLOCKS", "DEFAULT_KV_BLOCK_SIZE",
+           "DEFAULT_MAX_NEW_TOKENS"]
+
+#: block id reserved as the write target for padded positions/rows;
+#: never allocated to a sequence, never read by attention
+TRASH_BLOCK = 0
+DEFAULT_KV_BLOCKS = 256
+DEFAULT_KV_BLOCK_SIZE = 32
+DEFAULT_MAX_NEW_TOKENS = 64
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class CacheExhausted(MXNetError):
+    """Admission-time block-budget rejection, carrying ``blocks_free``."""
+
+    def __init__(self, blocks_needed, blocks_free, blocks_total):
+        self.blocks_needed = int(blocks_needed)
+        self.blocks_free = int(blocks_free)
+        self.blocks_total = int(blocks_total)
+        super(CacheExhausted, self).__init__(
+            "kv cache exhausted: need %d blocks, %d free of %d"
+            % (self.blocks_needed, self.blocks_free, self.blocks_total))
+
+    def to_dict(self):
+        return {"error": "kv_cache_exhausted",
+                "blocks_needed": self.blocks_needed,
+                "blocks_free": self.blocks_free,
+                "blocks_total": self.blocks_total}
+
+
+class KVCacheConfig(object):
+    """Static shape of one model's cache: pool and table geometry.
+
+    ``max_seq_len`` is the per-sequence ceiling (prompt + generated); it
+    fixes the block-table width.  ``dtype`` is ``"float32"`` or
+    ``"bfloat16"`` (the types the flash-decode kernel reads).
+    """
+
+    def __init__(self, num_layers, num_heads, head_dim, max_seq_len,
+                 num_blocks=None, block_size=None, dtype="float32"):
+        self.num_layers = int(num_layers)
+        self.num_heads = int(num_heads)
+        self.head_dim = int(head_dim)
+        self.max_seq_len = int(max_seq_len)
+        self.block_size = int(block_size or DEFAULT_KV_BLOCK_SIZE)
+        self.num_blocks = int(num_blocks or DEFAULT_KV_BLOCKS)
+        if str(dtype) not in _TORCH_DTYPES:
+            raise MXNetError("kv cache dtype must be one of %s, got %r"
+                             % (sorted(_TORCH_DTYPES), dtype))
+        self.dtype = str(dtype)
+        if self.block_size < 1 or self.num_blocks < 2:
+            raise MXNetError(
+                "kv cache needs block_size >= 1 and num_blocks >= 2 "
+                "(block 0 is reserved), got block_size=%d num_blocks=%d"
+                % (self.block_size, self.num_blocks))
+        self.blocks_per_seq = -(-self.max_seq_len // self.block_size)
+
+    @property
+    def pool_shape(self):
+        return (self.num_blocks, self.block_size, self.num_heads,
+                self.head_dim)
+
+    @property
+    def torch_dtype(self):
+        return _TORCH_DTYPES[self.dtype]
+
+    def blocks_for(self, n_tokens):
+        """Blocks covering ``n_tokens`` cache slots."""
+        return max(1, -(-int(n_tokens) // self.block_size))
+
+    def to_dict(self):
+        return {"num_layers": self.num_layers,
+                "num_heads": self.num_heads, "head_dim": self.head_dim,
+                "max_seq_len": self.max_seq_len,
+                "block_size": self.block_size,
+                "num_blocks": self.num_blocks,
+                "blocks_per_seq": self.blocks_per_seq,
+                "dtype": self.dtype}
+
+
+class _Sequence(object):
+    __slots__ = ("seq_id", "blocks", "table_row")
+
+    def __init__(self, seq_id, blocks, table_row):
+        self.seq_id = seq_id
+        self.blocks = blocks
+        self.table_row = table_row
+
+
+class PagedKVCache(object):
+    """Host-side block allocator + owner of the device pools.
+
+    Thread-safe.  The pools are zero tensors on ``device``, allocated
+    here once; steps update them in place.
+    """
+
+    def __init__(self, config, device):
+        self.config = config
+        self._lock = threading.Lock()
+        self._free = list(range(config.num_blocks - 1, TRASH_BLOCK, -1))
+        self._seqs = {}
+        self._high_water = 0
+        shape, dt = config.pool_shape, config.torch_dtype
+        self.k_pools = [torch.zeros(shape, dtype=dt, device=device)
+                        for _ in range(config.num_layers)]
+        self.v_pools = [torch.zeros(shape, dtype=dt, device=device)
+                        for _ in range(config.num_layers)]
+
+    # -- allocation --------------------------------------------------------
+
+    def blocks_total(self):
+        return self.config.num_blocks - 1          # trash block excluded
+
+    def blocks_free(self):
+        with self._lock:
+            return len(self._free)
+
+    def allocate(self, seq_id, n_tokens):
+        """Reserve the whole ``n_tokens`` block budget for ``seq_id`` and
+        return its block-table row (``(blocks_per_seq,)`` int32, unused
+        slots pointing at the trash block).  Raises
+        :class:`CacheExhausted` without side effects when the free list
+        is short."""
+        need = self.config.blocks_for(n_tokens)
+        if n_tokens > self.config.max_seq_len:
+            raise MXNetError(
+                "sequence of %d tokens exceeds max_seq_len %d"
+                % (n_tokens, self.config.max_seq_len))
+        with self._lock:
+            if seq_id in self._seqs:
+                raise MXNetError("sequence %r already allocated" % (seq_id,))
+            if need > len(self._free):
+                raise CacheExhausted(need, len(self._free),
+                                     self.blocks_total())
+            blocks = [self._free.pop() for _ in range(need)]
+            row = _np.full((self.config.blocks_per_seq,), TRASH_BLOCK,
+                           dtype=_np.int32)
+            row[:need] = blocks
+            self._seqs[seq_id] = _Sequence(seq_id, blocks, row)
+            self._high_water = max(
+                self._high_water, self.blocks_total() - len(self._free))
+            return row.copy()
+
+    def free(self, seq_id):
+        """Return a finished sequence's blocks to the free list (LIFO);
+        freeing an unknown id is a bookkeeping bug and raises."""
+        with self._lock:
+            seq = self._seqs.pop(seq_id, None)
+            if seq is None:
+                raise MXNetError("unknown sequence %r" % (seq_id,))
+            self._free.extend(reversed(seq.blocks))
+            return len(seq.blocks)
+
+    # -- device pools ------------------------------------------------------
+
+    def set_pools(self, k_pools, v_pools):
+        """Install the pools a prefill/decode step returned (the same
+        tensors, updated in place, in the port)."""
+        if len(k_pools) != self.config.num_layers \
+                or len(v_pools) != self.config.num_layers:
+            raise MXNetError("pool update has %d/%d layers, want %d"
+                             % (len(k_pools), len(v_pools),
+                                self.config.num_layers))
+        self.k_pools = list(k_pools)
+        self.v_pools = list(v_pools)
+
+    # -- stats -------------------------------------------------------------
+
+    def stats(self):
+        with self._lock:
+            total = self.blocks_total()
+            used = total - len(self._free)
+            return {"blocks_total": total, "blocks_used": used,
+                    "blocks_free": len(self._free),
+                    "occupancy": round(used / float(total), 4)
+                    if total else 0.0,
+                    "seqs_active": len(self._seqs),
+                    "blocks_high_water": self._high_water,
+                    "block_size": self.config.block_size}

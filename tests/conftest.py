@@ -40,3 +40,9 @@ _locktrace.maybe_install()
 from mxnet_tpu.observability import retrace as _retrace  # noqa: E402
 
 _retrace.maybe_install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
+                   "skips without one")
