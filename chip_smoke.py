@@ -10,7 +10,8 @@ in order; any failure ends the run with a non-zero exit and no result
 line:
 
 1. the device, ``nvidia-smi``'s name and power limit, and the build of
-   every CUDA kernel of the slice from ``mxnet_tpu_torch/csrc``;
+   every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, started together);
 2. flash-decode, kernel vs its plain PyTorch version, on the card, at the
    slice's shapes (B in {1, 8}, H=8, D=64, 32-token blocks, a 256-block
    pool, 32 table slots), in float32 and bfloat16, with times of the
@@ -28,6 +29,27 @@ line:
    (launch counts reset just before each run), that the float32 logits
    agree with a plain full-sequence forward written here, and that the
    int8 logits keep a cosine >= 0.999 against float32 at every step.
+5. the flash-attention forward of training, kernel vs plain (``o`` and
+   ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 and
+   bfloat16, and at a ragged S=1000, with times of the kernel, the plain
+   version, ``F.scaled_dot_product_attention`` (a yardstick only) and
+   the bound (operations at 67 TFLOP/s float32 or 989 TFLOP/s bfloat16,
+   or bytes at 3.35 TB/s, whichever is larger);
+6. the fused optimizer sweep, kernel vs plain, on a 64 MB float32 bucket
+   (SGD with momentum: bitwise; Adam: within 2 ulp) and on each bucket
+   of the full-width model, with times of the kernel, the plain
+   version, ``torch.optim.SGD``/``Adam(fused=True)`` on the same buffer
+   (a yardstick only) and the bytes bound;
+7. training at full width: ``ShardedTrainer(ctx=gpu(0))`` on the
+   transformer LM (vocab 8192, 8 layers, 8 heads, dim 512, seq_len
+   1024, batch 8, SGD lr 0.1 momentum 0.9, rescale_grad 1/8192, seeded
+   numpy weights) with ``MXTPU_FUSED_OPT=kernel``: 3 float32 steps (TF32
+   off), each step and the three together no further from a plain
+   training step written here, run in float64, than twice as far as the
+   same plain step in float32 is; bit for bit equal to the same steps
+   with the leafwise update; then bfloat16 compute.  It checks the flash
+   forward ran once a layer a step and the sweep once a bucket a step,
+   and prints ms a step and tokens/s.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -47,10 +69,12 @@ import traceback
 
 import numpy as np
 
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s
-#: and float32 FMA-pipe operations/s (no tensor cores)
+#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
+#: float32 FMA-pipe operations/s (no tensor cores) and dense bfloat16
+#: tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 #: where every tensor of the run lives (a CPU rehearsal of the control
 #: flow may set "cpu"; the kernels then take their plain versions)
@@ -60,6 +84,13 @@ MODEL = dict(vocab_size=8192, num_layers=8, num_heads=8, dim=512,
              max_seq_len=1024, ffn_mult=4)
 N_PROMPTS = 8
 MAX_NEW = 64
+
+#: the training slice's full width: bench.py's chip configuration
+#: (bench.py:913-930) of the same LM, batch 8 of 1024 tokens
+TRAIN = dict(vocab_size=8192, num_layers=8, num_heads=8, dim=512,
+             seq_len=1024, ffn_mult=4)
+TRAIN_BATCH = 8
+TRAIN_SGD = dict(learning_rate=0.1, momentum=0.9)
 
 
 def log(*parts):
@@ -106,9 +137,9 @@ class Timer(object):
                                 for s, e in zip(starts, ends)]))
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -393,6 +424,451 @@ def phase_engine(torch, seed):
             "identical_token_steps": same}
 
 
+# ----------------------------------------------------------------------
+# phase 5: flash-attention forward
+# ----------------------------------------------------------------------
+def _bf16_close(torch, got, want):
+    """Max |got - want| and whether every element is within one
+    bfloat16 ulp of ``want`` (2**-7 |want|, plus 1e-5 near zero): the
+    kernel and the plain version both compute in float32 and round the
+    output once, so a float32 difference can flip that rounding by one
+    ulp, no more."""
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= want.float().abs() * 2.0 ** -7 + 1e-5).all())
+    return float(d.max()), ok
+
+
+def phase_flash_attention(torch, timer, seed):
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.RandomState(seed + 3)
+    B, H, D = TRAIN_BATCH, TRAIN["num_heads"], \
+        TRAIN["dim"] // TRAIN["num_heads"]
+    S = TRAIN["seq_len"]
+    #: float32 o: the same float32 online softmax as the plain version,
+    #: summed over 1024 keys in another order; lse (about 7 to 12) to
+    #: float32 rounding of exp/log sums; bfloat16 o: one bfloat16 ulp
+    tol_o, tol_lse = 2e-5, 1e-4
+    cases = [(S, causal, dt) for dt in (torch.float32, torch.bfloat16)
+             for causal in (True, False)]
+    cases += [(1000, True, torch.float32), (1000, True, torch.bfloat16)]
+    rows = []
+    for s_len, causal, dtype in cases:
+        q, k, v = [torch.from_numpy(rng.randn(B, H, s_len, D).astype(
+            np.float32)).to(DEVICE, dtype) for _ in range(3)]
+        scale = 1.0 / math.sqrt(D)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                            scale=scale)
+        ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=causal,
+                                                      scale=scale)
+        torch.cuda.synchronize()
+        lse_err = float((lse - rl).abs().max())
+        if dtype == torch.float32:
+            err = float((o - ro).abs().max())
+            ok = err <= tol_o
+        else:
+            err, ok = _bf16_close(torch, o, ro)
+        if not (ok and lse_err <= tol_lse):
+            raise AssertionError(
+                "flash_attention S=%d causal=%s %s: max |kernel - plain| o "
+                "%g, lse %g" % (s_len, causal, dtype, err, lse_err))
+        pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
+        n_ops = 4 * B * H * pairs * D
+        item = q.element_size()
+        n_bytes = 4 * B * H * s_len * D * item + B * H * s_len * 4
+        b_ms, b_by = bound_ms(n_bytes, n_ops,
+                              F32_OPS_PER_S if dtype == torch.float32
+                              else BF16_OPS_PER_S)
+        row = {"B": B, "H": H, "S": s_len, "D": D, "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tol": tol_o if dtype == torch.float32 else "1 bf16 ulp",
+               "ms": timer(lambda: fa.flash_attention_forward(
+                   q, k, v, causal=causal, scale=scale)),
+               "plain_ms": timer(lambda: fa.flash_attention_forward_reference(
+                   q, k, v, causal=causal, scale=scale)),
+               "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, scale=scale)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+               "ops": n_ops}
+        rows.append(row)
+        log("flash_attention S=%-4d causal=%-5s %-8s err o=%.3g lse=%.3g "
+            "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
+            % (s_len, causal, row["dtype"], err, lse_err, row["ms"],
+               row["plain_ms"], row["library_ms"], b_ms, b_by))
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 6: the fused optimizer sweep
+# ----------------------------------------------------------------------
+def train_param_shapes():
+    from mxnet_tpu_torch.models import transformer as tf
+    sym = tf.get_symbol(**TRAIN)
+    S = TRAIN["seq_len"]
+    shapes, _, _ = sym.infer_shape(data=(TRAIN_BATCH, S),
+                                   softmax_label=(TRAIN_BATCH, S))
+    return {n: s for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+
+
+def _library_optimizer(torch, kind, w, g, states):
+    """One fused PyTorch optimizer step on the same buffer (a timing
+    yardstick; its formula differs, its bytes do not)."""
+    p = torch.nn.Parameter(w.clone())
+    p.grad = g.clone()
+    if kind == "sgd":
+        opt = torch.optim.SGD([p], lr=0.1, momentum=0.9, fused=True)
+    else:
+        opt = torch.optim.Adam([p], lr=0.01, fused=True)
+    opt.step()          # creates the state
+    return opt.step
+
+
+def phase_fused_opt(torch, timer, seed):
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    rng = np.random.RandomState(seed + 4)
+    shapes = train_param_shapes()
+    metas = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
+    sizes = [sum(int(np.prod(shapes[n])) for n in b)
+             for b in fo.plan_buckets(metas)]
+    cases = [("sgd", 16 * 1024 * 1024), ("adam", 16 * 1024 * 1024)]
+    cases += [("sgd", n) for n in sizes]
+    rows = []
+    for kind, n in cases:
+        opt = opt_mod.create(kind, rescale_grad=1.0 / (TRAIN_BATCH *
+                                                        TRAIN["seq_len"]),
+                             **(TRAIN_SGD if kind == "sgd" else {}))
+
+        def vec(scale=1.0):
+            return torch.from_numpy(
+                (rng.randn(n) * scale).astype(np.float32)).to(DEVICE)
+
+        w, g = vec(0.02), vec(1e-3)
+        states = [vec(1e-4)] if kind == "sgd" else [vec(1e-4),
+                                                    vec(1e-6).abs()]
+        lr = opt.lr
+        want_w, want_s = fo.sweep_reference(opt, w, g, states, lr, 0.0, 3)
+        fo.sweep(opt, w, g, states, lr, 0.0, 3)
+        torch.cuda.synchronize()
+        errs, ulps = [], []
+        for got, want in zip([w] + states, [want_w] + want_s):
+            errs.append(float((got - want).abs().max()))
+            ulps.append(float(((got - want).abs()
+                               / (want.abs() * 2.0 ** -23 + 1e-38)).max()))
+        if kind == "sgd" and max(errs) != 0.0:
+            raise AssertionError("fused sweep sgd n=%d: not bitwise equal "
+                                 "to the plain version (max err %g)"
+                                 % (n, max(errs)))
+        if kind == "adam" and max(ulps) > 2.0:
+            raise AssertionError("fused sweep adam n=%d: %g ulp > 2 from "
+                                 "the plain version" % (n, max(ulps)))
+        n_bytes = (5 if kind == "sgd" else 7) * 4 * n
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        lib_step = _library_optimizer(torch, kind, w, g, states)
+        row = {"optimizer": kind + ("_momentum" if kind == "sgd" else ""),
+               "n": n, "mbytes": 4 * n / 2 ** 20, "max_abs_err": max(errs),
+               "max_ulp": max(ulps),
+               "tol": "bitwise" if kind == "sgd" else "2 ulp",
+               "ms": timer(lambda: fo.sweep(opt, w, g, states, lr, 0.0, 3)),
+               "plain_ms": timer(lambda: fo.sweep_reference(
+                   opt, w, g, states, lr, 0.0, 3)),
+               "library_ms": timer(lib_step),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+        rows.append(row)
+        log("fused_opt %-12s n=%-9d (%.1f MB) err=%.3g (%.3g ulp) "
+            "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
+            % (row["optimizer"], n, row["mbytes"], row["max_abs_err"],
+               row["max_ulp"], row["ms"], row["plain_ms"], row["library_ms"],
+               b_ms, b_by))
+    return rows, sizes
+
+
+# ----------------------------------------------------------------------
+# phase 7: training at full width
+# ----------------------------------------------------------------------
+def seeded_train_params(seed):
+    """Random weights of the training graph, from ``seed`` with numpy:
+    N(0, 0.02) matrices and embeddings, zero biases, unit LayerNorm."""
+    rng = np.random.RandomState(seed)
+    params = {}
+    for name, shape in train_param_shapes().items():
+        if name.endswith("_gamma"):
+            params[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_bias", "_beta")):
+            params[name] = np.zeros(shape, np.float32)
+        else:
+            params[name] = (rng.randn(*shape) * 0.02).astype(np.float32)
+    return params
+
+
+def train_batch(seed):
+    rng = np.random.RandomState(seed + 5)
+    shape = (TRAIN_BATCH, TRAIN["seq_len"])
+    return {"data": rng.randint(0, TRAIN["vocab_size"], shape)
+            .astype(np.float32),
+            "softmax_label": rng.randint(0, TRAIN["vocab_size"], shape)
+            .astype(np.float32)}
+
+
+def plain_train(torch, params, batch, steps, momentum=None):
+    """``steps`` plain training steps of the same LM, written here with
+    no module of the port: autograd through softmax attention (scores
+    masked with -1e30), a summed cross entropy, whose gradient is
+    SoftmaxOutput's p - onehot, and a leafwise SGD with momentum.
+    ``params`` and ``momentum`` (None: zeros) are numpy arrays or
+    tensors, left unchanged.  Returns the last step's softmax outputs,
+    the parameters and the momentum."""
+    F = torch.nn.functional
+    E, H = TRAIN["dim"], TRAIN["num_heads"]
+    D, S = E // H, TRAIN["seq_len"]
+    rescale = 1.0 / (TRAIN_BATCH * S)
+    lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
+    p = {k: torch.as_tensor(v, device=DEVICE).clone().requires_grad_()
+         for k, v in params.items()}
+    m = {k: torch.zeros_like(v) if momentum is None
+         else torch.as_tensor(momentum[k], device=DEVICE).clone()
+         for k, v in p.items()}
+    ids = torch.from_numpy(batch["data"]).to(DEVICE).long()
+    label = torch.from_numpy(batch["softmax_label"]).to(DEVICE).long()
+    keep = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+    for _ in range(steps):
+        x = p["tok_embed_weight"][ids] + p["pos_embed_weight"][None]
+        for i in range(TRAIN["num_layers"]):
+            n = "layer%d_" % i
+            h = F.layer_norm(x, (E,), p[n + "ln1_gamma"], p[n + "ln1_beta"])
+            qkv = h @ p[n + "att_qkv_weight"].t() + p[n + "att_qkv_bias"]
+            q, k, v = (t.reshape(TRAIN_BATCH, S, H, D).transpose(1, 2)
+                       for t in qkv.split(E, dim=-1))
+            s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+            s = torch.where(keep, s, torch.full_like(s, -1e30))
+            a = (torch.softmax(s, dim=-1) @ v).transpose(1, 2) \
+                .reshape(TRAIN_BATCH, S, E)
+            x = x + a @ p[n + "att_out_weight"].t() + p[n + "att_out_bias"]
+            h = F.layer_norm(x, (E,), p[n + "ln2_gamma"], p[n + "ln2_beta"])
+            h = torch.relu(h @ p[n + "ffn1_weight"].t() + p[n + "ffn1_bias"])
+            x = x + h @ p[n + "ffn2_weight"].t() + p[n + "ffn2_bias"]
+        x = F.layer_norm(x, (E,), p["final_ln_gamma"], p["final_ln_beta"])
+        logits = (x @ p["lm_head_weight"].t() + p["lm_head_bias"]) \
+            .reshape(-1, TRAIN["vocab_size"])
+        loss = F.cross_entropy(logits, label.reshape(-1), reduction="sum")
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            for (k, w), g in zip(p.items(), grads):
+                m[k] = mom * m[k] - lr * (g * rescale)
+                w += m[k]
+    with torch.no_grad():
+        probs = torch.softmax(logits, dim=-1)
+    return probs.detach(), {k: v.detach() for k, v in p.items()}, m
+
+
+def _f64(torch, state):
+    """A numpy or tensor state dict (or None) in float64 on the card."""
+    if state is None:
+        return None
+    return {k: torch.as_tensor(v, device=DEVICE).double()
+            for k, v in state.items()}
+
+
+def _diff(torch, o_a, p_a, o_b, p_b, before):
+    """[max |o_a - o_b|, max |p_a - p_b| over every parameter]."""
+    return [float((o_a.double() - o_b.double()).abs().max()),
+            _param_err(torch, p_a, p_b, before)[0]]
+
+
+def ulp_witness(torch, params, batch, steps):
+    """How far the plain float32 trajectory moves from itself when every
+    starting weight moves by one ulp: ``{steps: [outputs, parameters]}``
+    after 1 step and after ``steps``.  Logged, not gated: it shows how
+    much the trajectory amplifies a rounding-sized difference."""
+    ulp = {k: np.nextafter(v, np.float32(np.inf)) for k, v in params.items()}
+    got = {}
+    for n in sorted({1, steps}):
+        o, p, _m = plain_train(torch, params, batch, n)
+        o_u, p_u, _m = plain_train(torch, ulp, batch, n)
+        got[n] = _diff(torch, o_u, p_u, o, p, params)
+    return got
+
+
+def _param_err(torch, got, want, before):
+    """Max |got - want| over every parameter, and the largest update
+    ``want - before`` made (the scale the difference is judged on)."""
+    err, upd = 0.0, 0.0
+    for n, w in want.items():
+        err = max(err, float((got[n] - w).abs().max()))
+        upd = max(upd, float((w - torch.as_tensor(before[n], device=DEVICE))
+                             .abs().max()))
+    return err, upd
+
+
+def run_trainer(torch, params, batch, steps, mode, compute_dtype=None,
+                timed_steps=0, snapshots=False):
+    """``steps`` steps of the port's ShardedTrainer on the GPU with
+    ``MXTPU_FUSED_OPT=mode``; launch counts cover exactly these steps.
+    Then ``timed_steps`` more, each ended by a synchronize, for the step
+    time.  Returns the outputs of the last counted step, the parameters
+    after it, a dict of counts and times, and (with ``snapshots``) each
+    counted step's outputs, parameters and momentum."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.models import transformer as tf
+    os.environ["MXTPU_FUSED_OPT"] = mode
+    S = TRAIN["seq_len"]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (TRAIN_BATCH * S),
+                              **TRAIN_SGD)
+    tr = mx.parallel.ShardedTrainer(tf.get_symbol(**TRAIN), opt,
+                                    ctx=torch.device(DEVICE),
+                                    compute_dtype=compute_dtype)
+    p = tf.params_from_numpy(params, ctx=torch.device(DEVICE))
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    aux = {}
+    b = tr.shard_batch(batch)
+    torch.cuda.synchronize()
+    fa.flash_attention_forward.launches = 0
+    fo.sweep.launches = 0
+    t0 = time.perf_counter()
+    trail = []          # (outputs, params after, momentum after) a step
+    for _ in range(steps):
+        p, st, aux, outs = tr.step(p, st, aux, b)
+        if snapshots:
+            trail.append((outs[0], {n: w.clone() for n, w in p.items()},
+                          {n: m.clone() for n, m in st.items()}))
+    torch.cuda.synchronize()
+    info = {"mode": mode, "compute_dtype": str(compute_dtype or "float32"),
+            "steps": steps, "first_steps_s": time.perf_counter() - t0,
+            "launches": {"flash_attention": fa.flash_attention_forward.launches,
+                         "fused_opt": fo.sweep.launches},
+            "buckets": len(fo.plan_buckets({n: p[n]
+                                            for n in tr.param_names}))}
+    out = outs[0]
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("trainer %s: non-finite outputs" % info)
+    counted = {n: w.clone() for n, w in p.items()}
+    if timed_steps:
+        times = []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            p, st, aux, _o = tr.step(p, st, aux, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        info["step_ms"] = float(np.median(times)) * 1e3
+        info["step_ms_all"] = [t * 1e3 for t in times]
+        info["tokens_per_s"] = TRAIN_BATCH * S / (info["step_ms"] / 1e3)
+    return out, counted, info, trail
+
+
+#: phase 7's precision gate: the port may come at most this many times as
+#: far from the float64 steps as the plain float32 step does
+PRECISION_FACTOR = 2.0
+
+
+def precision_check(torch, what, batch, steps, before, mom, outs, p_after):
+    """The port's outputs ``outs`` and parameters ``p_after`` after
+    ``steps`` steps from ``before``/``mom``, against the plain steps from
+    the same state in float32 and in float64.  Each reading is
+    ``[max |diff| outputs, max |diff| parameters]``; ``ok`` when the
+    port's distance from float64 is within ``PRECISION_FACTOR`` times
+    the plain float32 step's, in both."""
+    o32, p32, _m = plain_train(torch, before, batch, steps, mom)
+    o64, p64, _m = plain_train(torch, _f64(torch, before), batch, steps,
+                               _f64(torch, mom))
+    got = {"what": what,
+           "port_vs_plain32": _diff(torch, outs, p_after, o32, p32, before),
+           "port_vs_plain64": _diff(torch, outs, p_after, o64, p64, before),
+           "plain32_vs_plain64": _diff(torch, o32, p32, o64, p64, before),
+           "largest_update": _param_err(torch, p_after, p64, before)[1]}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["port_vs_plain64"], got["plain32_vs_plain64"]))
+    return got
+
+
+def phase_train(torch, seed, smi):
+    log("train: float32 products in full float32: "
+        "torch.backends.cuda.matmul.allow_tf32=%s, "
+        "torch.backends.cudnn.allow_tf32=%s"
+        % (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32))
+    params = seeded_train_params(seed)
+    batch = train_batch(seed)
+    steps = 3
+    out_k, p_k, kern, trail = run_trainer(torch, params, batch, steps,
+                                          "kernel", timed_steps=5,
+                                          snapshots=True)
+    n_layers = TRAIN["num_layers"]
+    want = {"flash_attention": n_layers * steps,
+            "fused_opt": kern["buckets"] * steps}
+    if kern["launches"] != want:
+        raise AssertionError("float32 training launches %s, want %s "
+                             "(flash forward once a layer a step, the sweep "
+                             "once a bucket a step)" % (kern["launches"], want))
+    # the same steps leafwise: bit for bit the same parameters
+    _o, p_l, leaf, _t = run_trainer(torch, params, batch, steps, "")
+    if leaf["launches"]["fused_opt"] != 0:
+        raise AssertionError("leafwise run launched the sweep")
+    diff = [n for n in p_k if not torch.equal(p_k[n], p_l[n])]
+    if diff:
+        raise AssertionError("fused-kernel and leafwise parameters differ "
+                             "after %d steps: %s" % (steps, diff[:5]))
+    del p_l, _o
+    # Precision, against the same steps in float64: each step from the
+    # port's state before it, and the three steps free-running from the
+    # same weights.  The port must come no further from float64 than
+    # PRECISION_FACTOR times the plain float32 step does, in the outputs
+    # and in every parameter.  A fixed bound does not fit: SGD at lr 0.1
+    # with momentum 0.9 amplifies rounding along the trajectory (a
+    # one-ulp start grows about 1000x in the outputs over 3 steps; see
+    # ulp_witness), and bias gradients that sum 8192 tokens with heavy
+    # cancellation leave the plain float32 step itself about 1e-3 of the
+    # largest update away from float64 after one step.
+    checks = []
+    before, mom = params, None
+    for k, (outs, p_after, m_after) in enumerate(trail):
+        checks.append(precision_check(torch, "step %d" % (k + 1), batch, 1,
+                                      before, mom, outs, p_after))
+        before, mom = p_after, m_after
+    del trail
+    checks.append(precision_check(torch, "%d free-running steps" % steps,
+                                  batch, steps, params, None, out_k, p_k))
+    del out_k, p_k
+    ulp = ulp_witness(torch, params, batch, steps)
+    torch.cuda.empty_cache()
+    for c in checks:
+        log("train precision %s: %s" % (c["what"], json.dumps(c)))
+    log("train one-ulp start, plain float32 against itself [outputs, "
+        "parameters] by steps: %s" % json.dumps(ulp))
+    bad = [c["what"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(
+            "float32 training %s: the port is more than %g times as far "
+            "from the float64 steps as the plain float32 step (readings "
+            "above)" % (", ".join(bad), PRECISION_FACTOR))
+    out_b, _p, bf16, _t = run_trainer(torch, params, batch, steps, "kernel",
+                                      compute_dtype="bfloat16", timed_steps=5)
+    want_b = {"flash_attention": n_layers * steps,
+              "fused_opt": bf16["buckets"] * steps}
+    if bf16["launches"] != want_b:
+        raise AssertionError("bfloat16 training launches %s, want %s"
+                             % (bf16["launches"], want_b))
+    if out_b.dtype != torch.bfloat16:
+        raise AssertionError("bfloat16 outputs came back %s" % out_b.dtype)
+    del _p, out_b
+    torch.cuda.empty_cache()
+    for r in (kern, bf16):
+        log("train %-8s MXTPU_FUSED_OPT=%s: %.3f ms/step (median of %d), "
+            "%.1f tokens/s, launches in %d steps %s (%d buckets); on %s"
+            % (r["compute_dtype"], r["mode"], r["step_ms"],
+               len(r["step_ms_all"]), r["tokens_per_s"], r["steps"],
+               r["launches"], r["buckets"], smi))
+    log("train checks: fused kernel == leafwise bitwise over %d steps; "
+        "precision within %g times the plain float32 step's, per step and "
+        "free-running" % (steps, PRECISION_FACTOR))
+    return {"float32": kern, "bfloat16": bf16, "leafwise": leaf,
+            "precision": checks, "ulp_witness": ulp}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -443,6 +919,9 @@ def main(argv=None):
         fd_rows = phase_flash_decode(torch, timer, args.seed)
         qmm_rows = phase_quantized_matmul(torch, timer, args.seed)
         eng = phase_engine(torch, args.seed)
+        fa_rows = phase_flash_attention(torch, timer, args.seed)
+        fo_rows, bucket_sizes = phase_fused_opt(torch, timer, args.seed)
+        train = phase_train(torch, args.seed, smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -456,22 +935,37 @@ def main(argv=None):
                     == (8, 512, 8192) and r["dtype"] == "float32")
     launches = {k: eng["float32"]["launches"][k] + eng["int8"]["launches"][k]
                 for k in ("flash_decode", "quantized_matmul")}
+    launches.update({k: train["float32"]["launches"][k]
+                     + train["bfloat16"]["launches"][k]
+                     for k in ("flash_attention", "fused_opt")})
+    # flash attention at the training shape (causal, float32); the sweep
+    # at the model's largest bucket (SGD with momentum, as trained)
+    fa_main = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
+                   and r["causal"] and r["dtype"] == "float32")
+    fo_main = next(r for r in fo_rows if r["n"] == max(bucket_sizes)
+                   and r["optimizer"] == "sgd_momentum")
     kernels = []
     for name, src, repl, main_row, rows in (
             ("flash_decode", "mxnet_tpu_torch/csrc/flash_decode.cu",
              "mxnet_tpu/kernels/flash_decode.py:100", fd_main, fd_rows),
             ("quantized_matmul", "mxnet_tpu_torch/csrc/quantized_matmul.cu",
-             "mxnet_tpu/kernels/quantize.py:230", qmm_main, qmm_rows)):
+             "mxnet_tpu/kernels/quantize.py:230", qmm_main, qmm_rows),
+            ("flash_attention", "mxnet_tpu_torch/csrc/flash_attention.cu",
+             "mxnet_tpu/parallel/ring_attention.py:128", fa_main, fa_rows),
+            ("fused_opt", "mxnet_tpu_torch/csrc/fused_opt.cu",
+             "mxnet_tpu/kernels/fused_opt.py:112", fo_main, fo_rows)):
+        f32_rows = [r for r in rows if r.get("dtype", "float32") == "float32"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "float32"),
+            "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "shape": {k: main_row[k] for k in ("B", "M", "K", "N", "dtype")
+            "shape": {k: main_row[k] for k in ("B", "M", "K", "N", "H", "S",
+                                               "D", "causal", "n",
+                                               "optimizer", "dtype")
                       if k in main_row}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -480,8 +974,10 @@ def main(argv=None):
             json.dump({"device": kind, "nvidia_smi": smi,
                        "build": {n: i["seconds"] for n, i in info.items()},
                        "flash_decode": fd_rows, "quantized_matmul": qmm_rows,
-                       "engine": eng, "kernels": kernels}, f, indent=1)
-    log("kernels: flash_decode, quantized_matmul")
+                       "engine": eng, "flash_attention": fa_rows,
+                       "fused_opt": fo_rows, "train": train,
+                       "kernels": kernels}, f, indent=1)
+    log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
-"""Executor: a bound symbol, evaluated forward by a topological walk.
+"""Executor: a bound symbol, evaluated by a topological walk.
 
-The port's forward-only counterpart of ``mxnet_tpu/executor.py``.  Where
-the JAX package traces the whole graph into one jitted function, the
-port runs each node's ``forward`` eagerly on torch tensors in post-DFS
-order.  :meth:`Executor._forward_raw` is the counterpart of
-``_jit_forward``: tensors in, tensors out, no NDArray bookkeeping —
-what ``GenerationEngine.run_async`` calls on every step.  Backward, the
-fused training step, mirroring and the program registry belong to the
-training slices.
+The port's counterpart of ``mxnet_tpu/executor.py``.  Where the JAX
+package traces the whole graph into one jitted function, the port runs
+each node's ``forward`` eagerly on torch tensors in post-DFS order.
+
+- :func:`build_program` is the counterpart of
+  ``_build_program(symbol, {}).trace``: the one graph walk, with
+  autograd on, which ``parallel.trainer.ShardedTrainer`` differentiates.
+- :class:`Executor` is forward only: :meth:`Executor._forward_raw` is
+  the counterpart of ``_jit_forward`` (tensors in, tensors out, no
+  NDArray bookkeeping): the same walk under ``torch.no_grad``, what
+  ``GenerationEngine.run_async`` calls on every step.
+
+``simple_bind``, backward through the Executor, mirroring and the
+program registry belong to later slices.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from .base import MXNetError
 from .context import resolve
 from .ndarray import NDArray
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "build_program"]
 
 
 def _as_list(obj, names, what):
@@ -30,6 +36,56 @@ def _as_list(obj, names, what):
         raise MXNetError("%s: expected %d arrays, got %d"
                          % (what, len(names), len(obj)))
     return obj
+
+
+class Program:
+    """A symbol's graph walk: ``trace(arg_values, aux_values, rng,
+    is_train) -> (outputs, aux_updates)`` on name -> tensor dicts, with
+    autograd on, and ``needs_rng``: whether an op of the graph declares
+    ``need_rng``.  ``rng`` is a ``torch.Generator`` (or None), handed to
+    every such op."""
+
+    __slots__ = ("trace", "needs_rng")
+
+    def __init__(self, trace, needs_rng):
+        self.trace = trace
+        self.needs_rng = needs_rng
+
+
+def build_program(symbol):
+    """The counterpart of ``mxnet_tpu.executor._build_program(symbol,
+    {})``: flatten the graph into one schedule, once."""
+    topo = symbol._topo()
+    variables = [n for n in topo if n.is_variable]
+    op_nodes = [n for n in topo if not n.is_variable]
+    heads = list(symbol._heads)
+    needs_rng = any(getattr(n.op, "need_rng", False) for n in op_nodes)
+    for node in op_nodes:
+        if node.attrs.get("force_mirroring") or "mirror_stage" in node.attrs:
+            raise MXNetError("%s: mirrored (recomputed) segments are not "
+                             "ported yet" % node.name)
+
+    def trace(arg_values, aux_values, rng, is_train):
+        values = {}
+        aux_out = dict(aux_values)
+        for node in variables:
+            values[(id(node), 0)] = arg_values[node.name]
+        for node in op_nodes:
+            op = node.op
+            ins = [values[(id(c), ci)] for c, ci in node.inputs]
+            aux_names = ["%s_%s" % (node.name, a)
+                         for a in op.list_auxiliary_states()]
+            aux_in = [aux_values[a] for a in aux_names]
+            key = rng if getattr(op, "need_rng", False) else None
+            outs, aux_updates = op.forward(ins, aux_in, is_train, key)
+            for i, o in enumerate(outs):
+                values[(id(node), i)] = o
+            if aux_updates is not None:
+                for a, u in zip(aux_names, aux_updates):
+                    aux_out[a] = u
+        return [values[(id(n), i)] for n, i in heads], aux_out
+
+    return Program(trace, needs_rng)
 
 
 class Executor:
@@ -57,32 +113,21 @@ class Executor:
         self.aux_arrays = aux_list
         self.aux_dict = dict(zip(self._aux_names, aux_list))
 
-        topo = symbol._topo()
-        self._variables = [n for n in topo if n.is_variable]
-        self._op_nodes = [n for n in topo if not n.is_variable]
-        self._heads = list(symbol._heads)
+        self._program = build_program(symbol)
         self.outputs = [None] * len(self._out_names)
         self._n_forward = 0
 
     def _forward_raw(self, arg_values, aux_values=None, is_train=False):
         """Evaluate the graph on a name->tensor dict; returns the head
-        tensors as a list (caller-owned; ``forward`` wraps them)."""
+        tensors as a list (caller-owned; ``forward`` wraps them).  The
+        walk's aux updates are dropped (forward only), and no generator
+        is handed to ops: the inference graphs draw no random numbers."""
         aux_values = aux_values or {n: a.data
                                     for n, a in self.aux_dict.items()}
-        values = {}
-        for node in self._variables:
-            values[(id(node), 0)] = arg_values[node.name]
         with torch.no_grad():
-            for node in self._op_nodes:
-                op = node.op
-                ins = [values[(id(c), ci)] for c, ci in node.inputs]
-                aux_in = [aux_values["%s_%s" % (node.name, a)]
-                          for a in op.list_auxiliary_states()]
-                # no op of the inference graphs draws random numbers
-                outs, _aux_updates = op.forward(ins, aux_in, is_train, None)
-                for i, o in enumerate(outs):
-                    values[(id(node), i)] = o
-        return [values[(id(n), i)] for n, i in self._heads]
+            outs, _aux_updates = self._program.trace(
+                arg_values, aux_values, None, is_train)
+        return outs
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; ``kwargs`` overwrite bound arguments first.

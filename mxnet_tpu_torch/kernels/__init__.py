@@ -4,6 +4,10 @@
   (``csrc/flash_decode.cu``);
 - :mod:`.quantize` — int8 weight-only quantization and the int8 matmul
   behind ``QuantizedDense`` (``csrc/quantized_matmul.cu``);
-- :mod:`._build` — builds both with ``nvcc`` at first use.
+- :mod:`.flash_attention` — the flash-attention forward of training
+  (``csrc/flash_attention.cu``);
+- :mod:`.fused_opt` — the fused optimizer sweep of ``ShardedTrainer``
+  (``csrc/fused_opt.cu``);
+- :mod:`._build` — builds them with ``nvcc`` at first use.
 """
-from . import flash_decode, quantize   # noqa: F401
+from . import flash_decode, quantize, flash_attention, fused_opt  # noqa: F401

@@ -33,6 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
 SOURCES = {
     "flash_decode": "flash_decode.cu",
     "quantized_matmul": "quantized_matmul.cu",
+    "flash_attention": "flash_attention.cu",
+    "fused_opt": "fused_opt.cu",
 }
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,12 +69,19 @@ def _lib_path(name):
 def _declare(lib, name):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
-        lib.mxtt_flash_decode.argtypes = [i, i, vp, vp, vp, vp, vp, vp,
-                                          i, i, i, i, i, f, vp]
-        lib.mxtt_flash_decode.restype = i
+        fn, args = lib.mxtt_flash_decode, [i, i, vp, vp, vp, vp, vp, vp,
+                                           i, i, i, i, i, f, vp]
+    elif name == "quantized_matmul":
+        fn, args = lib.mxtt_quantized_matmul, [i, vp, vp, vp, vp, i, i, i, vp]
+    elif name == "flash_attention":
+        fn, args = lib.mxtt_flash_attention_forward, [i, vp, vp, vp, vp, vp,
+                                                      i, i, i, i, i, f, vp]
     else:
-        lib.mxtt_quantized_matmul.argtypes = [i, vp, vp, vp, vp, i, i, i, vp]
-        lib.mxtt_quantized_matmul.restype = i
+        fn, args = lib.mxtt_fused_opt_sweep, ([i, vp, vp, vp, vp,
+                                               ctypes.c_longlong]
+                                              + [f] * 11 + [vp])
+    fn.argtypes = args
+    fn.restype = i
     lib.mxtt_error_string.argtypes = [i]
     lib.mxtt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,19 +1,79 @@
-"""Decoder-only transformer LM: the generation graphs.
+"""Decoder-only transformer LM: the training graph and the generation
+graphs.
 
-The port's slice of ``mxnet_tpu/models/transformer.py``: the prefill and
-decode symbols over the paged KV cache, with the JAX package's weight
-names and ``(out, in)`` layouts, so one checkpoint serves both packages;
-:func:`params_from_numpy` moves such a checkpoint onto a device, and
+The port of ``mxnet_tpu/models/transformer.py``: :func:`get_symbol` (the
+training LM, dense FFN, SoftmaxOutput head) and the prefill and decode
+symbols over the paged KV cache, all with the JAX package's weight names
+and ``(out, in)`` layouts, so one checkpoint serves both packages and
+every graph; :func:`params_from_numpy` and :func:`opt_state_from_numpy`
+move such a checkpoint and its optimizer state onto a device, and
 :func:`generate` is the one-shot greedy convenience.
 """
 from __future__ import annotations
 
 from .. import ndarray as nd
 from .. import symbol as sym
+from ..base import MXNetError
 from ..context import resolve
 
-__all__ = ["get_prefill_symbol", "get_decode_symbol", "params_from_numpy",
+__all__ = ["transformer_block", "get_symbol", "get_prefill_symbol",
+           "get_decode_symbol", "params_from_numpy", "opt_state_from_numpy",
            "generate"]
+
+
+def transformer_block(x, name, num_heads, dim, seq_len, ffn_mult=4,
+                      dropout=0.0, causal=True, num_experts=0,
+                      moe_top_k=1, moe_capacity_factor=0.0):
+    """One decoder layer: pre-LayerNorm causal self-attention and a dense
+    ReLU FFN, each with a residual.  ``num_experts > 0`` (the routed MoE
+    FFN) is not ported yet and raises."""
+    if num_experts:
+        raise MXNetError("transformer_block: the MoE FFN (num_experts=%d) "
+                         "is not ported yet; it comes with the multi-GPU "
+                         "training slice" % num_experts)
+    ln1 = sym.LayerNorm(data=x, name="%s_ln1" % name)
+    att = sym.MultiHeadAttention(data=ln1, num_heads=num_heads,
+                                 causal=causal, dropout=dropout,
+                                 name="%s_att" % name)
+    x = x + att
+    ln2 = sym.LayerNorm(data=x, name="%s_ln2" % name)
+    h = sym.FullyConnected(data=sym.Reshape(data=ln2, shape=(-1, dim)),
+                           num_hidden=ffn_mult * dim, name="%s_ffn1" % name)
+    h = sym.Activation(data=h, act_type="relu")
+    h = sym.FullyConnected(data=h, num_hidden=dim, name="%s_ffn2" % name)
+    h = sym.Reshape(data=h, shape=(-1, seq_len, dim),
+                    name="%s_ffn_out" % name)
+    return x + h
+
+
+def get_symbol(vocab_size=32000, num_layers=4, num_heads=8, dim=256,
+               seq_len=512, ffn_mult=4, dropout=0.0, mirror_blocks=False,
+               num_experts=0, moe_top_k=1, moe_capacity_factor=0.0):
+    """LM symbol: data (B, S) token ids, softmax_label (B, S) next tokens
+    (the graph of ``mxnet_tpu.models.transformer.get_symbol``, node for
+    node).  ``mirror_blocks=True`` (per-layer recompute) and
+    ``num_experts > 0`` (MoE) are not ported yet and raise."""
+    if mirror_blocks:
+        raise MXNetError("get_symbol: mirror_blocks (per-layer recompute) "
+                         "is not ported yet; it comes with the executor's "
+                         "mirroring")
+    data = sym.Variable("data")
+    pos = sym.Variable("pos_embed_weight", shape=(seq_len, dim))
+    tok = sym.Embedding(data=data, input_dim=vocab_size, output_dim=dim,
+                        name="tok_embed")
+    x = sym.broadcast_add(tok, sym.expand_dims(pos, axis=0))
+    for i in range(num_layers):
+        x = transformer_block(x, "layer%d" % i, num_heads, dim, seq_len,
+                              ffn_mult=ffn_mult, dropout=dropout,
+                              num_experts=num_experts, moe_top_k=moe_top_k,
+                              moe_capacity_factor=moe_capacity_factor)
+    x = sym.LayerNorm(data=x, name="final_ln")
+    logits = sym.FullyConnected(
+        data=sym.Reshape(data=x, shape=(-1, dim)),
+        num_hidden=vocab_size, name="lm_head")
+    label = sym.Reshape(data=sym.Variable("softmax_label"),
+                        shape=(-1,), name="label_flat")
+    return sym.SoftmaxOutput(data=logits, label=label, name="softmax")
 
 
 def _cached_lm(seq_len, mode, vocab_size, num_layers, num_heads, dim,
@@ -88,10 +148,32 @@ def params_from_numpy(params, ctx=None):
     for name, value in params.items():
         if name.startswith(("arg:", "aux:")):
             name = name[4:]
-        if hasattr(value, "asnumpy") and not isinstance(value, nd.NDArray):
-            value = value.asnumpy()
-        out[name] = nd.array(value, ctx=device).data
+        out[name] = nd.array(_host(value), ctx=device).data
     return out
+
+
+def opt_state_from_numpy(opt_state, ctx=None):
+    """Optimizer state ``{name: array | (array, ...) | None}`` (SGD's
+    momentum, Adam's ``(mean, var)``, as the JAX trainer keeps it) ->
+    the same structure of tensors on ``ctx``'s device (``None`` =
+    ``gpu(0)``)."""
+    device = resolve(ctx)
+    out = {}
+    for name, value in opt_state.items():
+        if value is None:
+            out[name] = None
+        elif isinstance(value, (tuple, list)):
+            out[name] = tuple(nd.array(_host(a), ctx=device).data
+                              for a in value)
+        else:
+            out[name] = nd.array(_host(value), ctx=device).data
+    return out
+
+
+def _host(value):
+    if hasattr(value, "asnumpy") and not isinstance(value, nd.NDArray):
+        return value.asnumpy()
+    return value
 
 
 def generate(params, prompts, vocab_size=32000, num_layers=4, num_heads=8,

@@ -1,2 +1,2 @@
 """Operators of the port; importing this package registers them."""
-from . import registry, tensor, nn, attention   # noqa: F401
+from . import registry, tensor, nn, attention, loss   # noqa: F401

@@ -1,11 +1,15 @@
-"""Transformer operators of the generation graphs: LayerNorm and
-CachedMultiHeadAttention.
+"""Transformer operators: LayerNorm, MultiHeadAttention (training) and
+CachedMultiHeadAttention (generation).
 
-The port's slice of ``mxnet_tpu/ops/attention.py``.  Prefill attention is
-a plain causal softmax (:func:`attention_reference`, as the JAX package
-computes it with its jnp reference); decode attention goes through the
-port's flash-decode kernel (``kernels/flash_decode.py``), which on a GPU
-tensor always launches the CUDA kernel.
+The port of ``mxnet_tpu/ops/attention.py``.  ``MultiHeadAttention``
+lowers to :func:`parallel.ring_attention.sharded_self_attention`, whose
+forward is the port's flash-attention kernel on a GPU tensor.  Prefill
+attention of the generation graphs is a plain causal softmax
+(:func:`attention_reference`, as the JAX package computes it with its
+jnp reference); decode attention goes through the flash-decode kernel
+(``kernels/flash_decode.py``), which on a GPU tensor always launches the
+CUDA kernel.  ``attention_reference`` lives in
+``parallel/ring_attention.py`` and is re-exported here.
 """
 from __future__ import annotations
 
@@ -15,9 +19,8 @@ import torch
 
 from ..base import MXNetError
 from ..dparam import Field, ParamStruct
+from ..parallel.ring_attention import attention_reference  # noqa: F401
 from .registry import OperatorProperty, register_op, require_known
-
-_NEG_INF = -1e30
 
 
 class _LayerNormParam(ParamStruct):
@@ -51,19 +54,68 @@ class LayerNorm(OperatorProperty):
         return [y * gamma.reshape(shape) + beta.reshape(shape)], None
 
 
-def attention_reference(q, k, v, causal=False, scale=None):
-    """Plain softmax attention; q (..., Sq, D), k/v (..., Sk, D) — the
-    port of ``mxnet_tpu/parallel/ring_attention.py:attention_reference``
-    (positions masked with -1e30, not -inf)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if causal:
-        qpos = torch.arange(q.shape[-2], device=q.device)[:, None]
-        kpos = torch.arange(k.shape[-2], device=q.device)[None, :]
-        s = torch.where(qpos >= kpos, s, torch.full_like(s, _NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v.to(p.dtype)).to(q.dtype)
+class _MHAParam(ParamStruct):
+    num_heads = Field(int, required=True, lower=1)
+    causal = Field(bool, default=False)
+    dropout = Field(float, default=0.0)
+    use_flash = Field(bool, default=True)
+
+
+@register_op("MultiHeadAttention")
+class MultiHeadAttention(OperatorProperty):
+    """Fused self-attention block: qkv projection + attention + out proj.
+
+    data (B, S, E); qkv_weight (3E, E), out_weight (E, E) in the
+    reference's (out_features, in_features) layout.  ``use_flash`` runs
+    :func:`flash_attention` (the CUDA kernel on a GPU), else the plain
+    :func:`attention_reference`.  Dropout on the attention output draws
+    from the generator the trainer passes as ``rng``; the op declares
+    ``need_rng`` as in the JAX package, so the trainer passes one even
+    at ``dropout=0``.
+    """
+    param_cls = _MHAParam
+    need_rng = True
+
+    def list_arguments(self):
+        return ["data", "qkv_weight", "qkv_bias", "out_weight", "out_bias"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            require_known("MultiHeadAttention", in_shapes[:1], ["data"])
+        if len(data) != 3:
+            raise MXNetError("MultiHeadAttention: data must be (B, S, E)")
+        E = data[2]
+        if E % self.param.num_heads:
+            raise MXNetError("embed dim %d not divisible by num_heads %d"
+                             % (E, self.param.num_heads))
+        return ([data, (3 * E, E), (3 * E,), (E, E), (E,)],
+                [data], [])
+
+    def forward(self, inputs, aux, is_train, rng):
+        x, wqkv, bqkv, wo, bo = inputs
+        B, S, E = x.shape
+        H = self.param.num_heads
+        D = E // H
+        qkv = torch.matmul(x, wqkv.t()) + bqkv          # (B, S, 3E)
+        q, k, v = qkv.split(E, dim=-1)
+
+        def heads(t):  # (B, S, E) -> (B, H, S, D)
+            return t.reshape(B, S, H, D).transpose(1, 2)
+
+        if self.param.use_flash:
+            from ..parallel.ring_attention import sharded_self_attention
+            o = sharded_self_attention(heads(q), heads(k), heads(v),
+                                       causal=self.param.causal)
+        else:
+            o = attention_reference(heads(q), heads(k), heads(v),
+                                    causal=self.param.causal)
+        o = o.transpose(1, 2).reshape(B, S, E)
+        if is_train and self.param.dropout > 0.0 and rng is not None:
+            keep = 1.0 - self.param.dropout
+            mask = torch.rand(o.shape, generator=rng, device=o.device) < keep
+            o = torch.where(mask, o / keep, torch.zeros_like(o))
+        return [torch.matmul(o, wo.t()) + bo], None
 
 
 class _CachedMHAParam(ParamStruct):

@@ -186,6 +186,8 @@ class Embedding(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         # ids arrive as float32 (the reference's data layout); cast
-        # before indexing, as mxnet_tpu casts with astype(int32)
+        # before indexing, as mxnet_tpu casts with astype(int32).
+        # F.embedding's backward on a GPU sorts the ids and sums each
+        # row's gradients in a fixed order: runs repeat bit for bit
         ids = inputs[0].to(torch.int64)
-        return [inputs[1][ids]], None
+        return [torch.nn.functional.embedding(ids, inputs[1])], None

@@ -3,9 +3,10 @@
 The port's counterpart of ``mxnet_tpu/ops/registry.py`` (the reference's
 ``OperatorProperty``, ``include/mxnet/operator.h:165-480``).  An operator
 is metadata (argument/output/aux names, shape and type inference) plus a
-``forward`` on torch tensors.  This slice serves inference only, so
-there is no backward; the static-analysis hooks of the JAX package
-(sharding transfer, roofline costs) are not ported.
+``forward`` on torch tensors.  Backward is autograd through ``forward``
+(ops whose reference backward differs, like SoftmaxOutput, wrap a
+``torch.autograd.Function``); the static-analysis hooks of the JAX
+package (sharding transfer, roofline costs) are not ported.
 """
 from __future__ import annotations
 
@@ -50,11 +51,13 @@ class OperatorProperty:
 
     ``forward(inputs, aux, is_train, rng) -> (outputs, aux_updates)``
     takes and returns torch tensors; ``aux_updates`` is None or aligns
-    with ``list_auxiliary_states()``.  ``rng`` is None: no op of this
-    slice draws random numbers.
+    with ``list_auxiliary_states()``.  ``rng`` is a ``torch.Generator``
+    for ops that set ``need_rng`` (the trainer passes its device's), and
+    None otherwise.
     """
 
     op_name = None          # filled by register_op
+    need_rng = False        # True: forward draws from ``rng``
     param_cls = None        # optional ParamStruct subclass
     hint = None             # name hint for auto naming (defaults to lowercased op)
 

@@ -1,7 +1,8 @@
-"""Elementwise tensor operators used by the generation graphs.
+"""Tensor operators of the transformer graphs.
 
 The port's slice of ``mxnet_tpu/ops/tensor.py``: ``_Plus`` and its
-aliases (``Symbol.__add__`` builds it).
+aliases (``Symbol.__add__`` builds it; the training graph broadcasts the
+position table with ``broadcast_add``) and ``expand_dims``.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from ..dparam import Field, ParamStruct
 from .registry import OperatorProperty, register_op, require_known
 
 
@@ -46,3 +48,26 @@ def _make_binary(op_name, fn, aliases=()):
 
 _make_binary("_Plus", torch.add,
              aliases=("elemwise_add", "broadcast_plus", "broadcast_add"))
+
+
+class _ExpandDimsParam(ParamStruct):
+    axis = Field(int, required=True)
+
+
+@register_op("expand_dims")
+class ExpandDims(OperatorProperty):
+    """Insert a size-1 axis at ``axis`` (negative counts from the end of
+    the output shape)."""
+    param_cls = _ExpandDimsParam
+
+    def infer_shape(self, in_shapes):
+        require_known("expand_dims", in_shapes, self.list_arguments())
+        s = list(in_shapes[0])
+        ax = self.param.axis
+        if ax < 0:
+            ax += len(s) + 1
+        s.insert(ax, 1)
+        return in_shapes, [tuple(s)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [torch.unsqueeze(inputs[0], self.param.axis)], None

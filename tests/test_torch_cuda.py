@@ -149,3 +149,124 @@ def test_engine_on_gpu_uses_both_kernels(cuda):
     assert [len(t) for t in out] == [4, 4]
     assert fd.flash_decode_attention.launches == 3       # 3 decode steps
     assert qz.quantized_matmul.launches == 2 * 3 + 3 * 3  # prefills + steps
+
+
+# ----------------------------------------------------------------------
+# the training slice: flash-attention forward and the fused sweep
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,rel,atol", [(torch.float32, 0.0, 2e-5),
+                                            (torch.bfloat16, 2.0 ** -7, 1e-5)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,D", [(256, 64), (200, 64), (77, 32), (130, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, rel, atol, causal,
+                                              S, D):
+    """o and lse of the CUDA kernel against the plain version, ragged
+    S included (200, 77, 130 are no multiple of the 64-row tile).
+    Each element of o is held to ``rel * |plain| + atol``.  float32:
+    another summation order, 2e-5 absolute.  bfloat16: both compute in
+    float32 and round o once, so a float32 difference can flip that
+    rounding by one bfloat16 ulp (2**-7 |plain|, plus 1e-5 near zero),
+    no more.  lse stays float32 and within 1e-4 either way."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.RandomState(S + D)
+    q, k, v = [torch.from_numpy(rng.randn(2, 3, S, D).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3)]
+    before = fa.flash_attention_forward.launches
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_forward.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert tuple(lse.shape) == (2, 3, S)
+    d = (o.float() - ro.float()).abs()
+    assert bool((d <= ro.float().abs() * rel + atol).all()), float(d.max())
+    assert float((lse - rl).abs().max()) <= 1e-4
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 2, 64, 48, device=cuda)
+    with pytest.raises(MXNetError, match="head dims"):
+        fa.flash_attention_forward(q, q, q)
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    with pytest.raises(MXNetError, match="contiguous"):
+        fa.flash_attention_forward(q.transpose(2, 3), q, q)
+    with pytest.raises(MXNetError):
+        fa.flash_attention_forward(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adam"])
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1001, 0), (4099, 1)])
+def test_fused_sweep_kernel_matches_plain(cuda, name, n, offset):
+    """The CUDA sweep against its plain version on the card: SGD bit
+    for bit (every operation rounded as PyTorch rounds it), Adam within
+    2 ulp (powf against PyTorch's pow in the bias corrections).  Sizes
+    that are no multiple of 4 and a misaligned start (offset 1: the
+    scalar path) included."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    kind = "adam" if name == "adam" else "sgd"
+    kw = {"sgd": {}, "sgd_momentum": {"momentum": 0.9}, "adam": {}}[name]
+    opt = opt_mod.create(kind, learning_rate=0.05, rescale_grad=0.5,
+                         clip_gradient=1.5, **kw)
+    rng = np.random.RandomState(n)
+
+    def vec(scale=1.0, positive=False):
+        a = rng.randn(n + offset).astype(np.float32) * scale
+        a = np.abs(a) if positive else a
+        return torch.from_numpy(a).to(cuda)[offset:]
+
+    w, g = vec(), vec()
+    states = {"sgd": [], "sgd_momentum": [vec(0.1)],
+              "adam": [vec(0.1), vec(0.1, positive=True)]}[name]
+    want_w, want_s = fo.sweep_reference(opt, w, g, states, 0.05, 0.01, 3)
+    before = fo.sweep.launches
+    fo.sweep(opt, w, g, states, 0.05, 0.01, 3)
+    torch.cuda.synchronize()
+    assert fo.sweep.launches == before + 1
+    for got, want in zip([w] + states, [want_w] + want_s):
+        if kind == "sgd":
+            assert torch.equal(got, want)
+        else:
+            ulp = torch.abs(want) * 2.0 ** -23 + 1e-38
+            assert float(((got - want).abs() / ulp).max()) <= 2.0
+
+
+def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch):
+    """A 2-layer transformer trained 2 steps on the GPU (both kernels)
+    against the same trainer on the CPU (their plain versions):
+    parameters within 1e-5; the flash forward ran once per layer a step
+    and the sweep once per bucket a step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.models import transformer as tf
+    monkeypatch.setenv("MXTPU_FUSED_OPT", "kernel")
+    monkeypatch.setenv("MXTPU_FUSED_OPT_BUCKET_MB", "0.25")
+    dims = dict(vocab_size=300, num_layers=2, num_heads=2, dim=64,
+                seq_len=96)
+    rng = np.random.RandomState(0)
+    batch = {"data": rng.randint(0, 300, (2, 96)).astype(np.float32),
+             "softmax_label": rng.randint(0, 300, (2, 96)).astype(np.float32)}
+    got = {}
+    for dev in (cuda, mx.cpu()):
+        mx.random.seed(5)
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                  rescale_grad=1.0 / 192)
+        tr = mx.parallel.ShardedTrainer(tf.get_symbol(**dims), opt, ctx=dev)
+        p, s, a = tr.init_params({"data": (2, 96)},
+                                 label_shapes={"softmax_label": (2, 96)})
+        b = tr.shard_batch(batch)
+        fa.flash_attention_forward.launches = 0
+        fo.sweep.launches = 0
+        for _ in range(2):
+            p, s, a, _o = tr.step(p, s, a, b)
+        if dev is cuda:
+            n_buckets = len(fo.plan_buckets(p))
+            assert n_buckets > 1
+            assert fa.flash_attention_forward.launches == 2 * 2
+            assert fo.sweep.launches == 2 * n_buckets
+        got[str(dev)] = {n: w.cpu() for n, w in p.items()}
+    for n, w in got["cpu(0)"].items():
+        assert float((got[str(cuda)][n] - w).abs().max()) <= 1e-5, n
