@@ -49,7 +49,17 @@ line:
    same plain step in float32 is; bit for bit equal to the same steps
    with the leafwise update; then bfloat16 compute.  It checks the flash
    forward ran once a layer a step and the sweep once a bucket a step,
-   and prints ms a step and tokens/s.
+   and prints ms a step and tokens/s;
+8. the imperative surface and runtime-compiled kernels: NDArrays made
+   under ``with mx.gpu(0):`` with no ``ctx`` at (4096, 4096) float32,
+   arithmetic, views that write through, in-place operators, registered
+   functions, ``random.uniform(out=)``, and five CUDA C kernel bodies
+   (``kernels/rtc_kernels.py``) pushed through ``mx.rtc.Rtc`` (NVRTC),
+   each against numpy, with the Rtc launch count reset just before;
+   then each kernel against its plain PyTorch version on the card, the
+   error paths (an NVRTC compile error, a 2048-thread block, a CPU
+   tensor), and times (kernel, plain, one-call library, the bytes
+   bound, NVRTC's compile time per key, the host time of a cached push).
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -113,9 +123,14 @@ class Timer(object):
     streams every layer's weights and cache between two calls of one
     kernel, so each call finds its inputs cold."""
 
-    def __init__(self, torch, iters):
+    def __init__(self, torch, iters, lead_cycles=0):
         self.torch = torch
         self.iters = iters
+        #: a spin of this many clock cycles after the flush keeps the
+        #: card busy while the host enqueues a launch whose Python path
+        #: is slower than the flush (phase 8's ``Rtc.push``), so the
+        #: host's time stays out of the events' interval
+        self.lead_cycles = lead_cycles
         self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                                  device=DEVICE)
 
@@ -129,6 +144,8 @@ class Timer(object):
                 for _ in range(self.iters)]
         for s, e in zip(starts, ends):
             self.flush.zero_()
+            if self.lead_cycles:
+                torch.cuda._sleep(self.lead_cycles)
             s.record()
             fn()
             e.record()
@@ -869,6 +886,307 @@ def phase_train(torch, seed, smi):
             "precision": checks, "ulp_witness": ulp}
 
 
+# ----------------------------------------------------------------------
+# phase 8: the imperative NDArray surface and runtime-compiled kernels
+# ----------------------------------------------------------------------
+#: phase 8's arrays, and the element count its elementwise kernels are
+#: timed at (2^24 float32: 64 MiB an array)
+IMPERATIVE_SHAPE = (4096, 4096)
+RTC_TIMED_N = 1 << 24
+#: the spin before each timed launch of phase 8 (about 100 us at the
+#: H100's 1.98 GHz boost clock)
+RTC_LEAD_CYCLES = 200000
+
+
+def _ulps(torch, got, want):
+    """Largest |got - want| in units of the float32 spacing at want."""
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return float(((got - want).abs() / spacing).max())
+
+
+def _np_ulps(got, want):
+    a = np.abs(want)
+    spacing = np.nextafter(a, np.float32(np.inf)) - a
+    return float(np.max(np.abs(got - want) / spacing))
+
+
+def _gelu_torch(x):
+    """tanh-GELU on tensors (``example/rtc/pallas_kernel.py``'s)."""
+    c = 0.7978845608
+    return 0.5 * x * (1.0 + (c * (x + 0.044715 * x ** 3)).tanh())
+
+
+def phase_imperative(torch, seed):
+    """The user's path of the imperative surface, at (4096, 4096) float32:
+    NDArrays made under ``with mx.gpu(0):`` with no ``ctx``, arithmetic,
+    views that write through, in-place operators, registered functions,
+    a sampler with ``out=`` into a view, the kernels (a)-(e) pushed
+    through ``mx.rtc.Rtc`` with their grid and block, and a function
+    pushed with ``pallas=False``; each result is held against numpy.
+    Returns the Rtc launches of this run (the counter is reset first)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc as rtc_mod
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    rng = np.random.default_rng(seed + 8)
+    rows, cols = IMPERATIVE_SHAPE
+    xn = rng.random((rows, cols), dtype=np.float32)
+    yn = rng.random((rows, cols), dtype=np.float32)
+    vn = rng.random((cols, 256), dtype=np.float32)
+    idx_n = rng.integers(0, cols, rows).astype(np.float32)
+    xb_n, yb_n = (torch.from_numpy(a * 4 - 2).bfloat16().float().numpy()
+                  for a in (xn, yn))
+    errs = {}
+
+    def check(what, got, want, tol, how="abs"):
+        """``how``: 'abs' max |diff|, 'rel' max |diff| / max |want|,
+        'ulp' float32 ulps at want; tol 0 means bit for bit."""
+        got = got.asnumpy() if hasattr(got, "asnumpy") else got
+        want = np.asarray(want, dtype=np.float32)
+        if got.shape != want.shape:
+            raise AssertionError("imperative %s: shape %s, want %s"
+                                 % (what, got.shape, want.shape))
+        if how == "ulp":
+            err = _np_ulps(got, want)
+        else:
+            err = float(np.max(np.abs(got - want)))
+            if how == "rel":
+                err /= float(np.max(np.abs(want)))
+        errs[what] = err
+        if not err <= tol:
+            raise AssertionError("imperative %s: error %g > %g (%s)"
+                                 % (what, err, tol, how))
+
+    grid = ((rows * cols + 255) // 256, 1, 1)
+    rtc_mod.launches = 0
+    t0 = time.perf_counter()
+    with mx.gpu(0):
+        x, y, v, idx = (mx.nd.array(a) for a in (xn, yn, vn, idx_n))
+        if x.context != mx.gpu(0) or x.data.device.type != DEVICE:
+            raise AssertionError("an array made under gpu(0) with no ctx "
+                                 "lies on %s" % x.context)
+        # arithmetic and comparisons: the same IEEE float32 operations
+        # as numpy, bit for bit
+        check("arithmetic", (x * y + 1) / (y + 0.5) - x,
+              (xn * yn + 1) / (yn + 0.5) - xn, 0)
+        check("comparisons", (x > y) * 3 - (x <= 0.25),
+              (xn > yn) * 3.0 - (xn <= 0.25), 0)
+        # views write through; in-place operators
+        w, wn = mx.nd.array(xn), xn.copy()
+        w[1:3][:] = 7.0
+        wn[1:3] = 7.0
+        w.reshape((rows * 2, cols // 2))[5][:] = -1.0
+        wn.reshape(rows * 2, cols // 2)[5] = -1.0
+        part = w[10:20]
+        part += y[10:20]
+        wn[10:20] += yn[10:20]
+        w *= 2
+        w -= 1
+        w /= 4
+        wn = (wn * 2 - 1) / 4
+        check("views and in-place", w, wn, 0)
+        # registered functions: products and sums in another order than
+        # numpy's float64 (relative to the largest value), the rest exact
+        check("dot", mx.nd.dot(x, v), xn.astype(np.float64) @ vn, 1e-5,
+              "rel")
+        check("sum", mx.nd.sum(x, axis=1), xn.astype(np.float64).sum(1),
+              1e-5, "rel")
+        check("argmax", mx.nd.argmax(x, axis=1), np.argmax(xn, axis=1), 0)
+        oh = mx.nd.zeros((rows, cols))
+        mx.nd.onehot_encode(idx, oh)
+        check("onehot_encode", oh, np.eye(cols, dtype=np.float32)[
+            idx_n.astype(np.int64)], 0)
+        check("choose_element_0index", mx.nd.choose_element_0index(x, idx),
+              xn[np.arange(rows), idx_n.astype(np.int64)], 0)
+        u = mx.nd.zeros((rows, cols))
+        mx.random.uniform(-1.0, 2.0, out=u[100:200])
+        un = u.asnumpy()
+        drawn = un[100:200]
+        if not (drawn.min() >= -1.0 and drawn.max() < 2.0
+                and abs(drawn.mean() - 0.5) < 0.01
+                and not un[:100].any() and not un[200:].any()):
+            raise AssertionError("random.uniform(out=view): range [%g, %g], "
+                                 "mean %g" % (drawn.min(), drawn.max(),
+                                              drawn.mean()))
+        # the kernels, pushed as a user would: one element a thread at
+        # [0, 1) inputs (NVRTC's FMA against numpy's two roundings:
+        # 1 ulp), expf (2 ulp from exact, 2.5 from the rounded float64
+        # value), and the bfloat16 and transpose kernels bit for bit
+        (a_out,) = mx.rtc.Rtc(rk.XY_PLUS_ONE, pallas=True).push(
+            [x, y], grid, (256, 1, 1))
+        check("rtc x*y+1", a_out, xn * yn + 1, 1.0, "ulp")
+        (b_out,) = mx.rtc.Rtc(rk.SAXPY, pallas=True).push(
+            [x, y], grid, (256, 1, 1))
+        check("rtc 2.5x+y", b_out, 2.5 * xn + yn, 1.0, "ulp")
+        e = x[0].slice(0, 10) * 2 - 1
+        en = xn[0, :10] * 2 - 1
+        (c_out,) = mx.rtc.Rtc(rk.EXP_SHARED, pallas=True).push(
+            [e], (1, 1, 1), (10, 1, 1))
+        check("rtc exp(5x) shared", c_out,
+              np.exp((en * np.float32(5)).astype(np.float64)), 2.5, "ulp")
+        xb = mx.nd.array(xb_n, dtype=torch.bfloat16)
+        yb = mx.nd.array(yb_n, dtype=torch.bfloat16)
+        d0, d1 = mx.rtc.Rtc(rk.ADD_MUL_BF16, n_outputs=2, pallas=True,
+                            out_dtypes=["float32", "float32"]).push(
+            [xb, yb], grid, (256, 1, 1))
+        check("rtc bf16 x+y", d0, xb_n + yb_n, 0)
+        check("rtc bf16 x*y", d1, xb_n * yb_n, 0)
+        (e_out,) = mx.rtc.Rtc(rk.TRANSPOSE, pallas=True,
+                              out_shapes=[(cols, rows)]).push(
+            [x], ((cols + 31) // 32, (rows + 31) // 32, 1), (32, 8, 1))
+        check("rtc transpose", e_out, xn.T, 0)
+        (g_out,) = mx.rtc.Rtc(_gelu_torch).push([x])
+        xd = xn.astype(np.float64)
+        check("rtc pallas=False gelu", g_out, 0.5 * xd * (1 + np.tanh(
+            0.7978845608 * (xd + 0.044715 * xd ** 3))), 2e-6)
+        mx.nd.waitall()
+    seconds = time.perf_counter() - t0
+    launches = rtc_mod.launches
+    if launches != 5:
+        raise AssertionError("the imperative path launched %d Rtc kernels, "
+                             "want 5 (one each of (a)-(e))" % launches)
+    log("imperative (4096, 4096) float32 on gpu(0): %.2f s, Rtc launches "
+        "%d; errors %s" % (seconds, launches, ", ".join(
+            "%s %.3g" % kv for kv in errs.items())))
+    return {"launches": launches, "seconds": seconds, "errors": errs}
+
+
+def phase_rtc_kernels(torch, timer, seed):
+    """Kernels (a)-(e) against their plain versions on the card (these
+    launches are not the main path's), the error paths, and the times:
+    kernel, plain and one-call library time, the bound, NVRTC's compile
+    time of each key, and the host time of a cached push."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    gpu = mx.gpu(0)
+
+    def arr(shape, dtype=torch.float32, lo=0.0, hi=1.0):
+        t = torch.rand(shape, generator=gen, device=DEVICE)
+        return mx.nd.array((t * (hi - lo) + lo).to(dtype), ctx=gpu)
+
+    one = torch.ones((), device=DEVICE)
+    cases = [("xy_plus_one", (8, 8)), ("xy_plus_one", IMPERATIVE_SHAPE),
+             ("saxpy", (128, 128)), ("saxpy", (RTC_TIMED_N,)),
+             ("exp_shared", (10,)), ("add_mul_bf16", IMPERATIVE_SHAPE),
+             ("transpose", IMPERATIVE_SHAPE)]
+    #: (check, tolerance): 'ulp' float32 ulps at the plain value, or
+    #: 'bitwise'
+    tols = {"xy_plus_one": ("ulp", 1.0), "saxpy": ("ulp", 1.0),
+            "exp_shared": ("ulp", 2.0), "add_mul_bf16": ("bitwise", 0.0),
+            "transpose": ("bitwise", 0.0)}
+    rows = []
+    for name, shape in cases:
+        if name == "exp_shared":
+            ins = [arr(shape, lo=-1.0)]
+        elif name == "add_mul_bf16":
+            ins = [arr(shape, torch.bfloat16, -2.0, 2.0) for _ in range(2)]
+        elif name == "transpose":
+            ins = [arr(shape)]
+        else:
+            ins = [arr(shape), arr(shape)]
+        kernel = getattr(rk, name)
+        plain = getattr(rk, name + "_reference")
+        ts = [a.data for a in ins]
+        got = [o.data for o in kernel(*ins)]
+        want = plain(*ts)
+        want = list(want) if isinstance(want, tuple) else [want]
+        torch.cuda.synchronize()
+        how, tol = tols[name]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if how == "ulp":
+            meas = max(_ulps(torch, g, w) for g, w in zip(got, want))
+        else:
+            meas = err
+        if not meas <= tol:
+            raise AssertionError("rtc %s %s: %g %s > %g from the plain "
+                                 "version" % (name, shape, meas, how, tol))
+        n_bytes = (sum(t.numel() * t.element_size() for t in ts)
+                   + sum(t.numel() * t.element_size() for t in want))
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        x = ts[0]
+        library = {"xy_plus_one": lambda: torch.addcmul(one, ts[0], ts[1]),
+                   "saxpy": lambda: torch.add(ts[1], ts[0], alpha=2.5),
+                   "transpose": lambda: x.t().contiguous()}.get(name)
+        row = {"kernel": name, "shape": list(shape), "n": x.numel(),
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "max_abs_err": err, "check": how, "measured": meas,
+               "tol": tol,
+               "ms": timer(lambda: kernel(*ins)),
+               "plain_ms": timer(lambda: plain(*ts)),
+               "library_ms": timer(library) if library else None,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+        rows.append(row)
+        log("rtc %-12s %-13s %-8s err=%.3g (%s %g, tol %g) kernel_ms=%.4f "
+            "plain_ms=%.4f library_ms=%s bound_ms=%.5f (%s)"
+            % (name, "x".join(str(d) for d in shape), row["dtype"], err,
+               how, meas, tol, row["ms"], row["plain_ms"],
+               "%.4f" % row["library_ms"] if library else "null", b_ms,
+               b_by))
+
+    # the error paths: each must raise MXNetError, with the reason
+    x = arr((64,))
+    errors = {}
+    for what, call, needle in (
+            ("syntax error",
+             lambda: mx.rtc.Rtc("out0[threadIdx.x] = in0[threadIdx.x] +;",
+                                pallas=True).push([x], (1, 1, 1),
+                                                  (64, 1, 1)),
+             "NVRTC could not compile"),
+            ("block of 2048 threads",
+             lambda: mx.rtc.Rtc(rk.SAXPY.replace("in1[i]", "0.0f"),
+                                pallas=True).push([x], (1, 1, 1),
+                                                  (2048, 1, 1)),
+             "more than the kernel's limit"),
+            ("CPU tensor",
+             lambda: mx.rtc.Rtc(rk.SAXPY, pallas=True).push(
+                 [x.copyto(mx.cpu()), x.copyto(mx.cpu())], (1, 1, 1),
+                 (64, 1, 1)),
+             "cannot run on the CPU")):
+        try:
+            call()
+        except mx.MXNetError as err:
+            if needle not in str(err):
+                raise AssertionError("rtc %s raised without %r: %s"
+                                     % (what, needle, err))
+            errors[what] = str(err).splitlines()[0]
+            if what == "syntax error" and "error" not in str(err).split(
+                    "--- source ---")[0].split("\n", 1)[1]:
+                raise AssertionError("rtc syntax error: no NVRTC log in %s"
+                                     % err)
+        else:
+            raise AssertionError("rtc %s did not raise" % what)
+    log("rtc error paths raise: %s" % "; ".join(
+        "%s -> %s" % kv for kv in errors.items()))
+
+    # the host time of a cached push against one torch.add of the size
+    a, b = arr((128, 128)), arr((128, 128))
+    r = mx.rtc.Rtc(rk.SAXPY, pallas=True)
+    dims = ((128 * 128 + 255) // 256, 1, 1), (256, 1, 1)
+    host = {}
+    for what, fn in (("push", lambda: r.push([a, b], *dims)),
+                     ("torch_add", lambda: torch.add(b.data, a.data,
+                                                     alpha=2.5))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        n = 500
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host[what + "_us"] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    compile_s = sorted(
+        k.compile_seconds for rt in list(rk._RTCS.values()) + [r]
+        for k in rt._compiled.values())
+    log("rtc host time of a cached push at 128x128: %.2f us; torch.add: "
+        "%.2f us; NVRTC compile per key: %s s"
+        % (host["push_us"], host["torch_add_us"],
+           ", ".join("%.3f" % c for c in compile_s)))
+    return {"rows": rows, "errors": errors, "host": host,
+            "compile_s": compile_s}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -922,6 +1240,9 @@ def main(argv=None):
         fa_rows = phase_flash_attention(torch, timer, args.seed)
         fo_rows, bucket_sizes = phase_fused_opt(torch, timer, args.seed)
         train = phase_train(torch, args.seed, smi)
+        imperative = phase_imperative(torch, args.seed)
+        rtc_res = phase_rtc_kernels(
+            torch, Timer(torch, args.iters, RTC_LEAD_CYCLES), args.seed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -967,6 +1288,21 @@ def main(argv=None):
                                                "D", "causal", "n",
                                                "optimizer", "dtype")
                       if k in main_row}})
+    # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
+    # its launches are the imperative path's (phase 8)
+    rtc_main = next(r for r in rtc_res["rows"] if r["kernel"] == "saxpy"
+                    and r["n"] == RTC_TIMED_N)
+    kernels.append({
+        "name": "rtc", "route": "cuda", "compiler": "nvrtc",
+        "source": "mxnet_tpu_torch/kernels/rtc_kernels.py",
+        "replaces": "mxnet_tpu/rtc.py:79",
+        "launches": imperative["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rtc_res["rows"]
+                           if r["dtype"] == "float32"),
+        "ms": rtc_main["ms"], "plain_ms": rtc_main["plain_ms"],
+        "bound_ms": rtc_main["bound_ms"], "bound_by": rtc_main["bound_by"],
+        "library_ms": rtc_main["library_ms"],
+        "shape": {"kernel": "saxpy", "n": RTC_TIMED_N, "dtype": "float32"}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -976,6 +1312,7 @@ def main(argv=None):
                        "flash_decode": fd_rows, "quantized_matmul": qmm_rows,
                        "engine": eng, "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
+                       "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))

@@ -6,17 +6,27 @@ Mirrors ``include/mxnet/base.h:85-170`` (Context) and the reference's
 the reference MXNet.  ``tpu()`` raises: the port has no TPU.
 
 :func:`resolve` is the one place that turns a caller's ``ctx`` into a
-``torch.device``.  ``ctx=None`` means ``gpu(0)``, and a GPU context with
-no CUDA device raises: an entry point runs on the CPU only when the
-caller asks for ``cpu()``.
+``torch.device``.  ``ctx=None`` means :func:`current_context`, and a
+GPU context with no CUDA device raises: an entry point runs on the CPU
+only when the caller asks for ``cpu()``, by argument or with a
+``with mx.cpu():`` scope.
+
+``with ctx:`` sets the default context of the calling thread, as in the
+reference (``python/mxnet/context.py``).  A thread with no scope gets
+``gpu(0)``, where the JAX package's default is ``cpu(0)``.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "resolve"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "resolve"]
+
+#: per thread: the stack of contexts entered with ``with``
+_SCOPE = threading.local()
 
 
 class Context:
@@ -74,6 +84,26 @@ class Context:
 
     __repr__ = __str__
 
+    # -- `with` scoping (python/mxnet/context.py:40-58) --------------------
+    def __enter__(self):
+        _stack().append(self)
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        _stack().pop()
+
+
+def _stack():
+    if not hasattr(_SCOPE, "stack"):
+        _SCOPE.stack = []
+    return _SCOPE.stack
+
+
+def current_context() -> Context:
+    """The innermost ``with`` context of this thread, else ``gpu(0)``."""
+    stack = _stack()
+    return stack[-1] if stack else Context("gpu", 0)
+
 
 def cpu(device_id=0) -> Context:
     return Context("cpu", device_id)
@@ -93,10 +123,11 @@ def resolve(ctx=None):
     """``ctx`` (None, a Context, a device string or a ``torch.device``)
     -> ``torch.device``.
 
-    ``None`` means ``gpu(0)``.  A GPU context raises when CUDA has no
-    such device, so an entry point never drops silently to the CPU."""
+    ``None`` means :func:`current_context` (``gpu(0)`` outside any
+    ``with`` scope).  A GPU context raises when CUDA has no such device,
+    so an entry point never drops silently to the CPU."""
     if ctx is None:
-        ctx = gpu(0)
+        ctx = current_context()
     elif isinstance(ctx, torch.device):
         ctx = Context.from_device(ctx)
     elif not isinstance(ctx, Context):

@@ -8,6 +8,11 @@
   (``csrc/flash_attention.cu``);
 - :mod:`.fused_opt` — the fused optimizer sweep of ``ShardedTrainer``
   (``csrc/fused_opt.cu``);
-- :mod:`._build` — builds them with ``nvcc`` at first use.
+- :mod:`.rtc_kernels` — CUDA C kernel bodies compiled at runtime through
+  ``rtc.Rtc``;
+- :mod:`._build` — builds the ``csrc/`` kernels with ``nvcc`` at first
+  use; :mod:`.nvrtc` — the NVRTC and CUDA driver binding behind
+  ``rtc.Rtc`` (imported only when a kernel is compiled or launched).
 """
 from . import flash_decode, quantize, flash_attention, fused_opt  # noqa: F401
+from . import rtc_kernels                                          # noqa: F401

@@ -139,7 +139,7 @@ def get_decode_symbol(vocab_size=32000, num_layers=4, num_heads=8,
 
 def params_from_numpy(params, ctx=None):
     """``{name: array}`` -> ``{name: torch.Tensor}`` on ``ctx``'s device
-    (``None`` = ``gpu(0)``).  Values may be numpy arrays, NDArrays (of
+    (``None`` = the current context).  Values may be numpy arrays, NDArrays (of
     either package's ``nd.load``, through ``asnumpy``) or tensors; the
     ``arg:``/``aux:`` prefixes of a saved checkpoint are stripped.  The
     names and ``(out, in)`` layouts are the JAX package's."""
@@ -155,8 +155,8 @@ def params_from_numpy(params, ctx=None):
 def opt_state_from_numpy(opt_state, ctx=None):
     """Optimizer state ``{name: array | (array, ...) | None}`` (SGD's
     momentum, Adam's ``(mean, var)``, as the JAX trainer keeps it) ->
-    the same structure of tensors on ``ctx``'s device (``None`` =
-    ``gpu(0)``)."""
+    the same structure of tensors on ``ctx``'s device (``None`` = the
+    current context)."""
     device = resolve(ctx)
     out = {}
     for name, value in opt_state.items():
@@ -182,7 +182,7 @@ def generate(params, prompts, vocab_size=32000, num_layers=4, num_heads=8,
              kv_blocks=None, kv_block_size=None, ctx=None):
     """Greedy generation for a batch of prompts — the one-shot
     convenience over :class:`mxnet_tpu_torch.serving.generate.
-    GenerationEngine`.  ``ctx=None`` runs on ``gpu(0)``.  Returns
+    GenerationEngine`.  ``ctx=None`` runs on the current context.  Returns
     ``[generated token list per prompt]``."""
     from ..serving.generate import GenerationEngine
     engine = GenerationEngine(

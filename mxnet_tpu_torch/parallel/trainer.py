@@ -17,7 +17,8 @@ eagerly on the one device of its mesh:
 ``zero1``, ``fsdp``, ``remat``, ``seq_axis`` (ring attention), the
 in-step sentinel, the step watchdog and the checkpoint methods belong to
 later slices and raise; none is ignored.  With no ``ctx`` and no mesh,
-the trainer runs on ``gpu(0)``.
+the trainer runs on the current context (``gpu(0)`` outside a ``with``
+scope).
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ class ShardedTrainer:
     compute_dtype : dtype of the forward and backward (params, opt state
         and aux stay in their own dtype; gradients arrive in it).
     ctx : the device (a context, a ``torch.device`` or a string); None
-        means the mesh's device, else ``gpu(0)``.
+        means the mesh's device, else the current context.
 
     :meth:`step` updates ``params``, ``opt_state`` and ``aux`` IN PLACE:
     it replaces the entries of the dicts it is given (with the fused

@@ -12,7 +12,7 @@ import os
 from .base import MXNetError
 from . import ndarray as nd
 from . import symbol as sym
-from .context import resolve
+from .context import Context, resolve
 
 __all__ = ["Predictor"]
 
@@ -43,8 +43,11 @@ class Predictor(object):
             self.symbol = sym.load_json(symbol_json)
         self._device = resolve(ctx)
 
-        raw = param_file if isinstance(param_file, dict) \
-            else nd.load(os.fspath(param_file))
+        if isinstance(param_file, dict):
+            raw = param_file
+        else:
+            with Context.from_device(self._device):
+                raw = nd.load(os.fspath(param_file))
         arg_params, aux_params = {}, {}
         for k, v in raw.items():
             if k.startswith("aux:"):

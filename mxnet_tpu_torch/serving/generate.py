@@ -14,8 +14,9 @@ The port of ``GenerationEngine`` and ``TokenStream`` from
 Admission reserves a sequence's whole block budget up front
 (:class:`~mxnet_tpu_torch.serving.kvcache.PagedKVCache`), so cache
 pressure is a :class:`CacheExhausted` at admission, never a failure
-mid-decode.  ``ctx=None`` runs on ``gpu(0)`` and raises when there is no
-CUDA device; the CPU runs only on ``ctx=cpu()``.
+mid-decode.  ``ctx=None`` runs on the current context (``gpu(0)``
+outside a ``with`` scope) and raises when there is no CUDA device; the
+CPU runs only on ``ctx=cpu()`` or under ``with cpu():``.
 
 As in the JAX package, every step copies its whole logits block to the
 host (31 MB for a 960-token prompt at vocab 8192).

@@ -270,3 +270,142 @@ def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch):
         got[str(dev)] = {n: w.cpu() for n, w in p.items()}
     for n, w in got["cpu(0)"].items():
         assert float((got[str(cuda)][n] - w).abs().max()) <= 1e-5, n
+
+
+# ---------------------------------------------------------------------------
+# runtime-compiled kernels (rtc.Rtc over NVRTC) and the NDArray surface
+# ---------------------------------------------------------------------------
+def _ulps(got, want):
+    """Largest |got - want| in units of the float32 spacing at want."""
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return float(((got - want).abs() / spacing).max())
+
+
+def _rand(dev, shape, seed, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    import mxnet_tpu_torch as mx
+    return mx.nd.array(rng.rand(*shape).astype(np.float32), ctx=dev,
+                       dtype=dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (4096, 4096), (3, 1001)])
+@pytest.mark.parametrize("name", ["xy_plus_one", "saxpy"])
+def test_rtc_elementwise_kernel_matches_plain(cuda, name, shape):
+    """x*y + 1 and 2.5*x + y on [0, 1) inputs: NVRTC contracts the
+    product and the sum into one FMA, the plain version rounds twice;
+    with no cancellation the two stay within 1 ulp."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x, y = _rand(cuda, shape, 0), _rand(cuda, shape, 1)
+    before = rtc.launches
+    (got,) = getattr(rk, name)(x, y)
+    want = getattr(rk, name + "_reference")(x.data, y.data)
+    torch.cuda.synchronize()
+    assert rtc.launches == before + 1
+    assert got.shape == shape and got.dtype == torch.float32
+    assert got.context == x.context
+    assert _ulps(got.data, want) <= 1.0
+
+
+def test_rtc_shared_memory_kernel_matches_plain(cuda):
+    """The reference MXNet's NVRTC test: grid (1,1,1), block (10,1,1),
+    a static __shared__ array; expf within 2 ulp of torch.exp."""
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x = _rand(cuda, (10,), 2) * 2 - 1
+    (got,) = rk.exp_shared(x)
+    want = rk.exp_shared_reference(x.data)
+    torch.cuda.synchronize()
+    assert _ulps(got.data, want) <= 2.0
+
+
+def test_rtc_bfloat16_inputs_two_outputs_bitwise(cuda):
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x = _rand(cuda, (37, 129), 3, torch.bfloat16) * 4 - 2
+    y = _rand(cuda, (37, 129), 4, torch.bfloat16) * 4 - 2
+    got = rk.add_mul_bf16(x, y)
+    want = rk.add_mul_bf16_reference(x.data, y.data)
+    torch.cuda.synchronize()
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g.data, w)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (100, 70)])
+def test_rtc_transpose_2d_grid_bitwise(cuda, shape):
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x = _rand(cuda, shape, 5)
+    (got,) = rk.transpose(x)
+    torch.cuda.synchronize()
+    assert got.shape == shape[::-1]
+    assert torch.equal(got.data, rk.transpose_reference(x.data))
+
+
+def test_rtc_errors_on_the_card(cuda):
+    """A compile error carries NVRTC's log; a block over the kernel's
+    thread limit and a grid dimension of 0 raise before launching."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x = _rand(cuda, (64,), 6)
+    bad = mx.rtc.Rtc("out0[threadIdx.x] = in0[threadIdx.x] +;", pallas=True)
+    with pytest.raises(mx.MXNetError, match="NVRTC could not compile"
+                       "(.|\n)*error"):
+        bad.push([x], (1, 1, 1), (64, 1, 1))
+    ok = mx.rtc.Rtc(rk.SAXPY.replace("in1[i]", "0.0f"), pallas=True)
+    with pytest.raises(mx.MXNetError, match="more than the kernel's limit"):
+        ok.push([x], (1, 1, 1), (2048, 1, 1))
+    with pytest.raises(mx.MXNetError, match="at least 1"):
+        ok.push([x], (0, 1, 1), (64, 1, 1))
+    assert ok.launches == 0
+    (out,) = ok.push([x], (1, 1, 1), (64, 1, 1))
+    torch.cuda.synchronize()
+    assert ok.launches == 1
+    assert torch.equal(out.data, 2.5 * x.data)
+
+
+def test_rtc_compiles_once_per_key_and_runs_from_a_new_thread(cuda):
+    """One NVRTC compile per (shapes, dtypes); a push from a thread that
+    has never touched CUDA finds no current context and sets the
+    primary one."""
+    import threading
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    rtc = mx.rtc.Rtc(rk.XY_PLUS_ONE, pallas=True)
+    x, y = _rand(cuda, (300,), 7), _rand(cuda, (300,), 8)
+    for _ in range(3):
+        rtc.push([x, y], (2, 1, 1), (256, 1, 1))
+    rtc.push([x[:100], y[:100]], (1, 1, 1), (128, 1, 1))
+    assert len(rtc._compiled) == 2 and rtc.launches == 4
+    box = {}
+
+    def worker():
+        try:
+            box["out"] = rtc.push([x, y], (2, 1, 1), (256, 1, 1))[0]
+        except Exception as err:    # reported in the main thread
+            box["err"] = err
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "err" not in box, box.get("err")
+    torch.cuda.synchronize()
+    assert _ulps(box["out"].data, x.data * y.data + 1.0) <= 1.0
+
+
+def test_imperative_surface_defaults_to_the_gpu(cuda):
+    """No ctx and no scope: arrays and samples land on gpu(0); views
+    write through; waitall synchronises."""
+    import mxnet_tpu_torch as mx
+    a = mx.nd.zeros((4, 3))
+    assert a.context == mx.gpu(0) and a.data.is_cuda
+    a[1:3][:] = 5
+    a.reshape((3, 4))[0][:] = 1
+    u = mx.random.uniform(0, 1, shape=(1000,))
+    assert u.data.is_cuda
+    mx.nd.waitall()
+    want = np.zeros((4, 3), np.float32)
+    want[1:3] = 5
+    want.reshape(3, 4)[0] = 1
+    np.testing.assert_array_equal(a.asnumpy(), want)
+    with mx.cpu():
+        assert mx.nd.ones((2,)).context == mx.cpu()

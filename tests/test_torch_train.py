@@ -260,8 +260,10 @@ def test_initializers_are_seeded_and_bounded():
 
 def test_training_runs_without_jax():
     """In a fresh interpreter where ``import jax`` fails: every module of
-    the port imports, and the trainer takes two steps on the CPU with the
-    fused sweep in kernel mode, touching no module of mxnet_tpu."""
+    the port imports (``rtc`` and ``kernels.nvrtc`` among them), the
+    trainer takes two steps on the CPU with the fused sweep in kernel
+    mode, and an NDArray goes through ``Rtc(pallas=False)``, touching no
+    module of mxnet_tpu."""
     code = textwrap.dedent("""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -283,6 +285,11 @@ def test_training_runs_without_jax():
         for _ in range(2):
             p, s, a, out = tr.step(p, s, a, b)
         assert out[0].shape == (32, 32), out[0].shape
+        with mx.cpu():
+            a = mx.nd.array(np.arange(6.0).reshape(2, 3))
+            (o,) = mx.rtc.Rtc(lambda x: x * 2.0 + 1.0).push([a])
+        assert o.asnumpy().tolist() == [[1, 3, 5], [7, 9, 11]], o.asnumpy()
+        import mxnet_tpu_torch.kernels.nvrtc, mxnet_tpu_torch.rtc
         bad = sorted(m for m in sys.modules if m == "mxnet_tpu"
                      or m.startswith("mxnet_tpu."))
         assert not bad, bad
