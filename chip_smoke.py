@@ -17,24 +17,29 @@ line:
    pool, 32 table slots), in float32 and bfloat16, with times of the
    kernel, the plain version, ``F.scaled_dot_product_attention`` on the
    gathered cache (a yardstick only) and the bandwidth bound;
-3. the int8 weight-only matmul, kernel vs plain, at M in {1, 8, 240, 960}
-   and the three (K, N) of the model, with the same four times
+3. the int8 weight-only matmul, kernel vs plain, at M in {1, 8, 16, 17,
+   33, 240, 960} and the three (K, N) of the model: M <= 16 runs the
+   split-K GEMV body, larger M the wgmma body (float32 x as three
+   bfloat16 pieces), each within 1e-4; with the same four times
    (``torch.matmul`` against the dequantized float32 weight is the
-   yardstick);
+   yardstick; the wgmma rows' bound counts their bfloat16 tensor work);
 4. the slice end to end at full width: ``GenerationEngine(ctx=gpu(0))``
    for the transformer LM the repo benchmarks (vocab 8192, 8 layers, 8
    heads, dim 512, max_seq_len 1024, seeded random weights) generates 64
    tokens for 8 prompts of 17 to 900 tokens, in float32 and then with
    ``quantize="int8"``.  It checks that both kernels ran on that path
-   (launch counts reset just before each run), that the float32 logits
-   agree with a plain full-sequence forward written here, and that the
-   int8 logits keep a cosine >= 0.999 against float32 at every step.
+   (launch counts reset just before each run), the int8 run through
+   both int8 bodies (prefill: wgmma, decode: GEMV; counted by body),
+   that the float32 logits agree with a plain full-sequence forward
+   written here, and that the int8 logits keep a cosine >= 0.999 against
+   float32 at every step.
 5. the flash-attention forward of training, kernel vs plain (``o`` and
-   ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 and
-   bfloat16, and at a ragged S=1000, with times of the kernel, the plain
-   version, ``F.scaled_dot_product_attention`` (a yardstick only) and
-   the bound (operations at 67 TFLOP/s float32 or 989 TFLOP/s bfloat16,
-   or bytes at 3.35 TB/s, whichever is larger);
+   ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 (the FMA
+   body) and bfloat16 (the wgmma body), at a ragged S=1000, and in
+   bfloat16 at D=32 and D=128 and S=77, with times of the kernel, the
+   plain version, ``F.scaled_dot_product_attention`` (a yardstick only)
+   and the bound (operations at 67 TFLOP/s float32 or 989 TFLOP/s
+   bfloat16, or bytes at 3.35 TB/s, whichever is larger);
 6. the fused optimizer sweep, kernel vs plain, on a 64 MB float32 bucket
    (SGD with momentum: bitwise; Adam: within 2 ulp) and on each bucket
    of the full-width model, with times of the kernel, the plain
@@ -48,8 +53,9 @@ line:
    training step written here, run in float64, than twice as far as the
    same plain step in float32 is; bit for bit equal to the same steps
    with the leafwise update; then bfloat16 compute.  It checks the flash
-   forward ran once a layer a step and the sweep once a bucket a step,
-   and prints ms a step and tokens/s;
+   forward ran once a layer a step (the FMA body in float32, the wgmma
+   body in bfloat16, counted by dtype) and the sweep once a bucket a
+   step, and prints ms a step and tokens/s;
 8. the imperative surface and runtime-compiled kernels: NDArrays made
    under ``with mx.gpu(0):`` with no ``ctx`` at (4096, 4096) float32,
    arithmetic, views that write through, in-place operators, registered
@@ -128,8 +134,9 @@ class Timer(object):
         self.iters = iters
         #: a spin of this many clock cycles after the flush keeps the
         #: card busy while the host enqueues a launch whose Python path
-        #: is slower than the flush (phase 8's ``Rtc.push``), so the
-        #: host's time stays out of the events' interval
+        #: is slower than the flush (a wrapper's checks, plan and
+        #: allocations; phase 8's ``Rtc.push``), so the host's time stays
+        #: out of the events' interval
         self.lead_cycles = lead_cycles
         self.flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                                  device=DEVICE)
@@ -247,12 +254,23 @@ def phase_quantized_matmul(torch, timer, seed):
     from mxnet_tpu_torch.kernels import quantize as qz
     rng = np.random.RandomState(seed + 1)
     rows = []
-    #: float32 sums over K <= 2048 in another order; bfloat16 output
-    #: rounding (8 mantissa bits) of values of order 1
+    #: float32 sums over K <= 16384 in another order (the wgmma body: x as
+    #: three bfloat16 pieces holding all 24 bits, exact products summed
+    #: in float32); bfloat16 output rounding (8 mantissa bits) of values
+    #: of order 1
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    cases = [(m, k, n, torch.float32) for m in (1, 8, 240, 960)
+    #: M <= 16 takes the GEMV body (one instance per M rounded up to a
+    #: power of two: 1, 2, 4 and 8 are the decode buckets, 3 is ragged),
+    #: larger M the wgmma body: 16 and 17 straddle the threshold, 33 is
+    #: ragged, 240 and 960 are prompt buckets
+    cases = [(m, k, n, torch.float32)
+             for m in (1, 2, 3, 4, 8, 16, 17, 33, 240, 960)
              for k, n in ((512, 2048), (2048, 512), (512, 8192))]
-    cases.append((8, 512, 8192, torch.bfloat16))
+    # a wider model's ffn2 and lm_head at decode: K that the GEMV splits
+    # so x fits its shared memory
+    cases += [(8, 16384, 4096, torch.float32), (16, 4096, 8192, torch.float32)]
+    cases += [(8, 512, 8192, torch.bfloat16), (240, 512, 2048, torch.bfloat16)]
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     for m, k, n, dtype in cases:
         q, scale = qz.quantize_array(
             (rng.randn(n, k) * 0.02).astype(np.float32))
@@ -260,32 +278,48 @@ def phase_quantized_matmul(torch, timer, seed):
             DEVICE, dtype)
         wq = torch.from_numpy(q).to(DEVICE)
         sc = torch.from_numpy(scale).to(DEVICE)
+        plan = qz.plan_quantized_matmul(m, n, k, sms)
         got = qz.quantized_matmul(x, wq, sc)
         want = qz.quantized_matmul_reference(x, wq, sc)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if not err <= tols[dtype]:
             raise AssertionError(
-                "quantized_matmul M=%d K=%d N=%d %s: max |kernel - plain| "
-                "= %g > %g" % (m, k, n, dtype, err, tols[dtype]))
+                "quantized_matmul M=%d K=%d N=%d %s (%s): max |kernel - "
+                "plain| = %g > %g" % (m, k, n, dtype, plan["route"], err,
+                                      tols[dtype]))
         w_deq = (wq.float() * sc[:, None]).to(dtype)
         n_bytes = (m * k * x.element_size() + n * k + n * 4
                    + m * n * x.element_size())
-        b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k)
+        if plan["route"] == "gemv":
+            # float32 FMAs on the CUDA cores
+            pieces = 0
+            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k)
+        else:
+            # the function's 2 M N K operations at the bfloat16 tensor
+            # rate; the three products a float32 x takes are the kernel's
+            # design, not work the function needs (row's "tensor_ops")
+            pieces = 3 if dtype == torch.float32 else 1
+            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, BF16_OPS_PER_S)
         row = {"M": m, "K": k, "N": n,
                "dtype": str(dtype).replace("torch.", ""),
+               "route": plan["route"], "splits": plan["splits"],
+               "bf16_pieces": pieces,
                "max_abs_err": err, "tol": tols[dtype],
                "ms": timer(lambda: qz.quantized_matmul(x, wq, sc)),
                "plain_ms": timer(lambda: qz.quantized_matmul_reference(
                    x, wq, sc)),
                "library_ms": timer(lambda: torch.matmul(x, w_deq.t())),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-               "ops": 2 * m * n * k}
+               "ops": 2 * m * n * k,
+               "tensor_ops": pieces * 2 * m * n * k}
         rows.append(row)
-        log("quantized_matmul M=%-4d K=%-4d N=%-4d %-8s err=%.3g (tol %g) "
-            "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
-            % (m, k, n, row["dtype"], err, tols[dtype], row["ms"],
-               row["plain_ms"], row["library_ms"], b_ms, b_by))
+        log("quantized_matmul M=%-4d K=%-4d N=%-4d %-8s %-5s splits=%-2d "
+            "err=%.3g (tol %g) kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+            "bound_ms=%.5f (%s)"
+            % (m, k, n, row["dtype"], plan["route"], plan["splits"], err,
+               tols[dtype], row["ms"], row["plain_ms"], row["library_ms"],
+               b_ms, b_by))
     return rows
 
 
@@ -365,6 +399,7 @@ def run_engine(torch, params, prompts, quantize):
     # launch counts cover the generate() run only
     fd.flash_decode_attention.launches = 0
     qz.quantized_matmul.launches = 0
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
     t0 = time.perf_counter()
     tokens = eng.generate(prompts)
     torch.cuda.synchronize()
@@ -380,12 +415,16 @@ def run_engine(torch, params, prompts, quantize):
            "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
            "decode_steps": st["decode_steps"],
            "launches": {"flash_decode": fd.flash_decode_attention.launches,
-                        "quantized_matmul": qz.quantized_matmul.launches}}
+                        "quantized_matmul": qz.quantized_matmul.launches},
+           "quantized_matmul_by_route":
+               dict(qz.quantized_matmul.launches_by_route)}
     log("engine %-7s buckets prompt=%s decode=%s: prefill %.3f ms/prompt, "
-        "decode %.3f ms/step over %d steps, %.1f tokens/s, launches %s"
+        "decode %.3f ms/step over %d steps, %.1f tokens/s, launches %s, "
+        "int8 matmul by body %s"
         % (res["quantize"], res["prompt_buckets"], res["decode_buckets"],
            res["prefill_ms_per_prompt"], res["decode_ms_per_step"],
-           res["decode_steps"], res["tokens_per_s"], res["launches"]))
+           res["decode_steps"], res["tokens_per_s"], res["launches"],
+           res["quantized_matmul_by_route"]))
     for toks, rows in zip(tokens, eng.last_logits):
         if len(toks) != MAX_NEW or len(rows) != MAX_NEW:
             raise AssertionError("%s: %d tokens / %d logit rows, want %d"
@@ -410,6 +449,10 @@ def phase_engine(torch, seed):
         raise AssertionError("flash_decode kernel did not run on the path")
     if i8["launches"]["quantized_matmul"] < 1:
         raise AssertionError("int8 kernel did not run on the path")
+    if min(i8["quantized_matmul_by_route"].values()) < 1:
+        raise AssertionError("generate() did not run both int8 bodies "
+                             "(decode GEMV, prefill wgmma): %s"
+                             % i8["quantized_matmul_by_route"])
 
     # float32 engine vs a plain full-sequence forward, shortest prompt:
     # logits rows n_prompt-1 .. end come from the paged cache + kernel
@@ -466,11 +509,14 @@ def phase_flash_attention(torch, timer, seed):
     #: summed over 1024 keys in another order; lse (about 7 to 12) to
     #: float32 rounding of exp/log sums; bfloat16 o: one bfloat16 ulp
     tol_o, tol_lse = 2e-5, 1e-4
-    cases = [(S, causal, dt) for dt in (torch.float32, torch.bfloat16)
+    cases = [(S, D, causal, dt) for dt in (torch.float32, torch.bfloat16)
              for causal in (True, False)]
-    cases += [(1000, True, torch.float32), (1000, True, torch.bfloat16)]
+    cases += [(1000, D, True, torch.float32), (1000, D, True, torch.bfloat16)]
+    # the bfloat16 (wgmma) body at its other head dims and a ragged S
+    cases += [(S, 32, True, torch.bfloat16), (S, 128, True, torch.bfloat16),
+              (77, D, False, torch.bfloat16)]
     rows = []
-    for s_len, causal, dtype in cases:
+    for s_len, D, causal, dtype in cases:
         q, k, v = [torch.from_numpy(rng.randn(B, H, s_len, D).astype(
             np.float32)).to(DEVICE, dtype) for _ in range(3)]
         scale = 1.0 / math.sqrt(D)
@@ -487,8 +533,9 @@ def phase_flash_attention(torch, timer, seed):
             err, ok = _bf16_close(torch, o, ro)
         if not (ok and lse_err <= tol_lse):
             raise AssertionError(
-                "flash_attention S=%d causal=%s %s: max |kernel - plain| o "
-                "%g, lse %g" % (s_len, causal, dtype, err, lse_err))
+                "flash_attention S=%d D=%d causal=%s %s: max |kernel - "
+                "plain| o %g, lse %g" % (s_len, D, causal, dtype, err,
+                                         lse_err))
         pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
         n_ops = 4 * B * H * pairs * D
         item = q.element_size()
@@ -509,9 +556,10 @@ def phase_flash_attention(torch, timer, seed):
                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
                "ops": n_ops}
         rows.append(row)
-        log("flash_attention S=%-4d causal=%-5s %-8s err o=%.3g lse=%.3g "
-            "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
-            % (s_len, causal, row["dtype"], err, lse_err, row["ms"],
+        log("flash_attention S=%-4d D=%-3d causal=%-5s %-8s err o=%.3g "
+            "lse=%.3g kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+            "bound_ms=%.5f (%s)"
+            % (s_len, D, causal, row["dtype"], err, lse_err, row["ms"],
                row["plain_ms"], row["library_ms"], b_ms, b_by))
     return rows
 
@@ -745,6 +793,7 @@ def run_trainer(torch, params, batch, steps, mode, compute_dtype=None,
     b = tr.shard_batch(batch)
     torch.cuda.synchronize()
     fa.flash_attention_forward.launches = 0
+    fa.flash_attention_forward.launches_by_dtype.update(float32=0, bfloat16=0)
     fo.sweep.launches = 0
     t0 = time.perf_counter()
     trail = []          # (outputs, params after, momentum after) a step
@@ -758,6 +807,8 @@ def run_trainer(torch, params, batch, steps, mode, compute_dtype=None,
             "steps": steps, "first_steps_s": time.perf_counter() - t0,
             "launches": {"flash_attention": fa.flash_attention_forward.launches,
                          "fused_opt": fo.sweep.launches},
+            "flash_attention_by_dtype":
+                dict(fa.flash_attention_forward.launches_by_dtype),
             "buckets": len(fo.plan_buckets({n: p[n]
                                             for n in tr.param_names}))}
     out = outs[0]
@@ -817,10 +868,14 @@ def phase_train(torch, seed, smi):
     n_layers = TRAIN["num_layers"]
     want = {"flash_attention": n_layers * steps,
             "fused_opt": kern["buckets"] * steps}
-    if kern["launches"] != want:
-        raise AssertionError("float32 training launches %s, want %s "
-                             "(flash forward once a layer a step, the sweep "
-                             "once a bucket a step)" % (kern["launches"], want))
+    if kern["launches"] != want or kern["flash_attention_by_dtype"] != {
+            "float32": n_layers * steps, "bfloat16": 0}:
+        raise AssertionError("float32 training launches %s (flash forward "
+                             "by dtype %s), want %s (flash forward once a "
+                             "layer a step, the FMA body; the sweep once a "
+                             "bucket a step)" % (kern["launches"],
+                                                 kern["flash_attention_by_dtype"],
+                                                 want))
     # the same steps leafwise: bit for bit the same parameters
     _o, p_l, leaf, _t = run_trainer(torch, params, batch, steps, "")
     if leaf["launches"]["fused_opt"] != 0:
@@ -866,19 +921,25 @@ def phase_train(torch, seed, smi):
                                       compute_dtype="bfloat16", timed_steps=5)
     want_b = {"flash_attention": n_layers * steps,
               "fused_opt": bf16["buckets"] * steps}
-    if bf16["launches"] != want_b:
-        raise AssertionError("bfloat16 training launches %s, want %s"
-                             % (bf16["launches"], want_b))
+    if bf16["launches"] != want_b or bf16["flash_attention_by_dtype"] != {
+            "float32": 0, "bfloat16": n_layers * steps}:
+        raise AssertionError("bfloat16 training launches %s (flash forward "
+                             "by dtype %s), want %s, every flash forward "
+                             "on the tensor-core body"
+                             % (bf16["launches"],
+                                bf16["flash_attention_by_dtype"], want_b))
     if out_b.dtype != torch.bfloat16:
         raise AssertionError("bfloat16 outputs came back %s" % out_b.dtype)
     del _p, out_b
     torch.cuda.empty_cache()
     for r in (kern, bf16):
         log("train %-8s MXTPU_FUSED_OPT=%s: %.3f ms/step (median of %d), "
-            "%.1f tokens/s, launches in %d steps %s (%d buckets); on %s"
+            "%.1f tokens/s, launches in %d steps %s (%d buckets), flash "
+            "forward by dtype %s; on %s"
             % (r["compute_dtype"], r["mode"], r["step_ms"],
                len(r["step_ms_all"]), r["tokens_per_s"], r["steps"],
-               r["launches"], r["buckets"], smi))
+               r["launches"], r["buckets"], r["flash_attention_by_dtype"],
+               smi))
     log("train checks: fused kernel == leafwise bitwise over %d steps; "
         "precision within %g times the plain float32 step's, per step and "
         "free-running" % (steps, PRECISION_FACTOR))
@@ -893,9 +954,9 @@ def phase_train(torch, seed, smi):
 #: timed at (2^24 float32: 64 MiB an array)
 IMPERATIVE_SHAPE = (4096, 4096)
 RTC_TIMED_N = 1 << 24
-#: the spin before each timed launch of phase 8 (about 100 us at the
-#: H100's 1.98 GHz boost clock)
-RTC_LEAD_CYCLES = 200000
+#: the spin before each timed launch (about 100 us at the H100's 1.98 GHz
+#: boost clock): every phase's timer has it
+LEAD_CYCLES = 200000
 
 
 def _ulps(torch, got, want):
@@ -1230,10 +1291,11 @@ def main(argv=None):
                       for n, i in sorted(info.items()))))
         for name, i in sorted(info.items()):
             for line in i["log"].splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line \
+                        or "Performance Loss" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
         torch.manual_seed(args.seed)
-        timer = Timer(torch, args.iters)
+        timer = Timer(torch, args.iters, LEAD_CYCLES)
         fd_rows = phase_flash_decode(torch, timer, args.seed)
         qmm_rows = phase_quantized_matmul(torch, timer, args.seed)
         eng = phase_engine(torch, args.seed)
@@ -1242,7 +1304,7 @@ def main(argv=None):
         train = phase_train(torch, args.seed, smi)
         imperative = phase_imperative(torch, args.seed)
         rtc_res = phase_rtc_kernels(
-            torch, Timer(torch, args.iters, RTC_LEAD_CYCLES), args.seed)
+            torch, timer, args.seed)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1254,6 +1316,10 @@ def main(argv=None):
                    and r["dtype"] == "float32")
     qmm_main = next(r for r in qmm_rows if (r["M"], r["K"], r["N"])
                     == (8, 512, 8192) and r["dtype"] == "float32")
+    # the int8 matmul's prefill row: the wgmma body at the largest prompt
+    # bucket (M=960, the lm_head shape, float32 x)
+    qmm_prefill = next(r for r in qmm_rows if (r["M"], r["K"], r["N"])
+                       == (960, 512, 8192) and r["dtype"] == "float32")
     launches = {k: eng["float32"]["launches"][k] + eng["int8"]["launches"][k]
                 for k in ("flash_decode", "quantized_matmul")}
     launches.update({k: train["float32"]["launches"][k]
@@ -1263,6 +1329,9 @@ def main(argv=None):
     # at the model's largest bucket (SGD with momentum, as trained)
     fa_main = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
                    and r["causal"] and r["dtype"] == "float32")
+    fa_bf16 = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
+                   and r["D"] == TRAIN["dim"] // TRAIN["num_heads"]
+                   and r["causal"] and r["dtype"] == "bfloat16")
     fo_main = next(r for r in fo_rows if r["n"] == max(bucket_sizes)
                    and r["optimizer"] == "sgd_momentum")
     kernels = []
@@ -1288,6 +1357,27 @@ def main(argv=None):
                                                "D", "causal", "n",
                                                "optimizer", "dtype")
                       if k in main_row}})
+    # the bodies beside the main rows: the flash forward's bfloat16
+    # (wgmma) row at the training shape, the int8 matmul's prefill
+    # (wgmma) row; and the launches of the main paths by body
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "max_abs_err")
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
+                                 shape={"B": fa_bf16["B"], "H": fa_bf16["H"],
+                                        "S": fa_bf16["S"], "D": fa_bf16["D"],
+                                        "causal": True})
+            k["launches_by_dtype"] = {
+                d: train["float32"]["flash_attention_by_dtype"][d]
+                + train["bfloat16"]["flash_attention_by_dtype"][d]
+                for d in ("float32", "bfloat16")}
+        elif k["name"] == "quantized_matmul":
+            k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
+                                shape={"M": 960, "K": 512, "N": 8192,
+                                       "dtype": "float32"})
+            k["launches_by_route"] = dict(
+                eng["int8"]["quantized_matmul_by_route"])
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
     # its launches are the imperative path's (phase 8)
     rtc_main = next(r for r in rtc_res["rows"] if r["kernel"] == "saxpy"

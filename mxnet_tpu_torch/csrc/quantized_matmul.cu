@@ -3,149 +3,457 @@
 // Replaces the TPU kernel mxnet_tpu/kernels/quantize.py:_qmm_kernel (a Pallas
 // grid over (m, n, k) blocks that widens int8 weight blocks in registers,
 // accumulates in float32 across k and applies the per-channel scale on the
-// last k step).  Here one thread block computes a 64 x 64 tile of y with 256
-// threads, each thread a 4 x 4 register tile.  It walks K in steps of 32: it
-// loads a 64 x 32 tile of x and a 64 x 32 tile of w_q (int8) into shared
-// memory, widening both to float32 on load, and accumulates with float32 FMA.
-// The next step's tiles load into registers while this step's FMAs run.
-// The scale is applied once, after the last k step, and the result is cast
-// to x's type.  Loads and stores are masked at every edge, so any M, N and K
-// work (the Pallas kernel needed block sizes that divide the problem,
-// mxnet_tpu/kernels/common.py:pick_block).
+// last k step).  Two bodies; the wrapper (kernels/quantize.py) picks one by
+// M and plans the split of K:
 //
-// Bound on this card: at decode (M <= 8) the call must read the N * K bytes
-// of w_q, so it is bound by HBM bandwidth; at prefill (M = prompt length, up
-// to 960 here) it does 2 * M * N * K float32 operations, bound by the float32
-// FMA rate (67 TFLOP/s on an H100 SXM, outside the tensor cores).  This
-// kernel uses no tensor cores; a wgmma int8/bf16 path is later work.
+// Decode, M <= 16 (qmm_gemv): bound by reading the N * K weight bytes (4.2 MB
+// at the lm_head, 1.25 us at 3.35 TB/s); its 2 * M * N * K FMAs take about
+// as long on the float32 pipes, so tensor cores buy nothing.  Exact float32
+// arithmetic on the CUDA cores: a group of 8 lanes walks 128 contiguous
+// bytes of two weight rows per step (one 16-byte load each, widened in
+// registers) against x staged in shared memory as float32.  K is split so
+// every model shape puts about 2 CTAs on each SM, and so a CTA's x fits in
+// 48 KB of shared memory at any K; split partial sums go to a float32
+// workspace and a second small pass (qmm_reduce) adds them in split
+// order and applies the scale -- no float atomics, so a result is the same
+// run to run.
+//
+// Prefill, M > 16 (qmm_wgmma): bound by the 2 * M * N * K operations, which
+// the old kernel ran on the float32 FMA pipes (67 TFLOP/s).  Here the tensor
+// cores run them in bfloat16 with A and B swapped: a CTA computes a 64 x TN
+// tile of y^T, the int8 weight tile as wgmma's A operand -- TMA brings it
+// into shared memory (64-byte swizzle), each thread widens its fragment to
+// bfloat16 in registers (every int8 is exact in bfloat16) -- and x as the B
+// operand from shared memory (K-major, 128-byte swizzle), so the tokens sit
+// on wgmma's N side (TN = 64 or 240: the 240/480/960-row prompt buckets need
+// no padding).  float32 x keeps float32 accuracy: qmm_split writes it as
+// three bfloat16 pieces hi + mid + lo (hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid), which hold all 24 bits of the significand), and
+// the three products go into one float32 accumulator; bfloat16 x is one
+// product.  One producer warp keeps a 2-stage ring of TMA loads ahead of the
+// consumer warpgroup (full/empty mbarriers).  When the (n, token) tiles are
+// too few to fill the card, K is split as at decode.
 //
 // Layout: x (M, K) row-major, float32 or bfloat16; w_q (N, K) int8 row-major;
-// scale (N,) float32; y (M, N) in x's type.  All contiguous.
+// scale (N,) float32; y (M, N) in x's type.  All contiguous, K a multiple of
+// 16 (the wrapper pads), pointers 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <algorithm>
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+#include "hopper.cuh"
+#include "wgmma.cuh"
+
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-constexpr int kPer = kBM * kBK / kThreads;  // tile elements a thread loads
-static_assert(kBM == kBN && kPer * kThreads == kBM * kBK, "tile split");
+// ---------------------------------------------------------------------------
+// decode: split-K GEMV on the CUDA cores
+// ---------------------------------------------------------------------------
+constexpr int kGvThreads = 128;                      // 16 groups of 8 lanes
+constexpr int kGvRows = 2 * kGvThreads / 8;          // 2 rows a group: 32 a CTA
+constexpr int kGvStep = 8 * 16;                      // k bytes a group reads a step
+// x in shared memory: each 16 floats of a row padded to 20, so the 8 lanes
+// of a group (16 floats apart in k) read conflict-free float4s
+constexpr int kGvChunk = 20;
 
-// Load this thread's kPer elements of the x tile and of the w_q tile at
-// k0 into registers, widened to float32, zero outside the matrices.
-// Consecutive threads take consecutive k: coalesced row reads.
-template <typename T>
-__device__ __forceinline__ void load_tiles(const T* __restrict__ x,
-                                           const int8_t* __restrict__ w,
-                                           int M, int N, int K, int m0, int n0,
-                                           int k0, float (&xr)[kPer],
-                                           float (&wr)[kPer]) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / kBK, c = e % kBK;
-    const int gk = k0 + c;
-    xr[i] = (m0 + r < M && gk < K) ? to_f32(x[(size_t)(m0 + r) * K + gk]) : 0.f;
-    wr[i] = (n0 + r < N && gk < K) ? (float)w[(size_t)(n0 + r) * K + gk] : 0.f;
-  }
-}
+// the most x a CTA stages: the default dynamic shared memory limit (no
+// opt-in), so four CTAs fit an SM; the wrapper splits K until x fits
+constexpr size_t kGvSmemMax = 48 * 1024;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-quantized_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                        const float* __restrict__ scale, T* __restrict__ y,
-                        int M, int N, int K) {
-  // k-major tiles; the +1 pad keeps the transposing stores free of bank
-  // conflicts
-  __shared__ float xs[kBK][kBM + 1];
-  __shared__ float ws[kBK][kBN + 1];
+__host__ __device__ constexpr int gv_row_floats(int kchunk) { return kchunk / 16 * kGvChunk; }
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns n0 + tx + 16 * j
-  const int ty = tid / 16;  // output rows    m0 + ty + 16 * i
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  float acc[4][4];
+__device__ __forceinline__ void widen16(const int4 v, float (&w)[16]) {
+  const int words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int b = 0; b < 4; ++b)
+      w[4 * i + b] = (float)(int8_t)((words[i] >> (8 * b)) & 0xff);
+}
 
-  // register double buffer: the loads of tile k0 + kBK are in flight
-  // while the FMAs of tile k0 run
-  float xr[kPer], wr[kPer];
-  load_tiles(x, w, M, N, K, m0, n0, 0, xr, wr);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      xs[e % kBK][e / kBK] = xr[i];
-      ws[e % kBK][e / kBK] = wr[i];
-    }
-    __syncthreads();
-    if (k0 + kBK < K) load_tiles(x, w, M, N, K, m0, n0, k0 + kBK, xr, wr);
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// CTA (blockIdx.x, blockIdx.y): rows [32 * x, 32 * x + 32) of w_q, k range
+// [y * kchunk, (y + 1) * kchunk).  MT >= M rows of x, the rest zero.
+template <typename T, int MT>
+__global__ void __launch_bounds__(kGvThreads)
+qmm_gemv(const T* __restrict__ x, const int8_t* __restrict__ w,
+         const float* __restrict__ scale, T* __restrict__ y,
+         float* __restrict__ partial, int M, int N, int K, int kchunk) {
+  extern __shared__ float4 xs4[];
+  float* xs = reinterpret_cast<float*>(xs4);  // MT x kchunk, padded chunks
+  const int row = gv_row_floats(kchunk);
+  const int kb = blockIdx.y * kchunk;
+  const int klen = min(kchunk, K - kb);
+  const int g = threadIdx.x / 8, gl = threadIdx.x % 8;
+  const int n_a = blockIdx.x * kGvRows + g, n_b = n_a + kGvRows / 2;
+  const int8_t* wa = w + (size_t)min(n_a, N - 1) * K + kb;
+  const int8_t* wb = w + (size_t)min(n_b, N - 1) * K + kb;
+  // the first weight step is in flight while x is staged
+  int4 next_a = make_int4(0, 0, 0, 0), next_b = next_a;
+  if (gl * 16 < klen) {
+    next_a = __ldg(reinterpret_cast<const int4*>(wa + gl * 16));
+    next_b = __ldg(reinterpret_cast<const int4*>(wb + gl * 16));
   }
+  for (int e = threadIdx.x; e < MT * kchunk; e += kGvThreads) {
+    const int m = e / kchunk, c = e - m * kchunk;
+    xs[m * row + (c / 16) * kGvChunk + c % 16] =
+        (m < M && c < klen) ? to_f32(x[(size_t)m * K + kb + c]) : 0.f;
+  }
+  __syncthreads();
 
+  float acc_a[MT], acc_b[MT];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int gn = n0 + tx + 16 * j;
-    if (gn >= N) continue;
-    const float s = scale[gn];
+  for (int m = 0; m < MT; ++m) acc_a[m] = acc_b[m] = 0.f;
+
+#pragma unroll 2
+  for (int c = gl * 16; c < klen; c += kGvStep) {
+    float va[16], vb[16];
+    widen16(next_a, va);
+    widen16(next_b, vb);
+    if (c + kGvStep < klen) {
+      next_a = __ldg(reinterpret_cast<const int4*>(wa + c + kGvStep));
+      next_b = __ldg(reinterpret_cast<const int4*>(wb + c + kGvStep));
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gm = m0 + ty + 16 * i;
-      if (gm < M) store_as(y + (size_t)gm * N + gn, acc[i][j] * s);
+    for (int m = 0; m < MT; ++m) {
+      const float4* xr =
+          reinterpret_cast<const float4*>(xs + m * row + (c / 16) * kGvChunk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 xv = xr[i];
+        acc_a[m] = fmaf(xv.x, va[4 * i], acc_a[m]);
+        acc_a[m] = fmaf(xv.y, va[4 * i + 1], acc_a[m]);
+        acc_a[m] = fmaf(xv.z, va[4 * i + 2], acc_a[m]);
+        acc_a[m] = fmaf(xv.w, va[4 * i + 3], acc_a[m]);
+        acc_b[m] = fmaf(xv.x, vb[4 * i], acc_b[m]);
+        acc_b[m] = fmaf(xv.y, vb[4 * i + 1], acc_b[m]);
+        acc_b[m] = fmaf(xv.z, vb[4 * i + 2], acc_b[m]);
+        acc_b[m] = fmaf(xv.w, vb[4 * i + 3], acc_b[m]);
+      }
+    }
+  }
+  // sum over the 8 lanes of the group (a fixed tree); lane gl stores the
+  // rows m with m % 8 == gl
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int off = 4; off >= 1; off >>= 1) {
+      acc_a[m] += __shfl_xor_sync(0xffffffffu, acc_a[m], off);
+      acc_b[m] += __shfl_xor_sync(0xffffffffu, acc_b[m], off);
+    }
+  }
+  const bool direct = gridDim.y == 1;
+  float* part = partial + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if ((m & 7) != gl || m >= M) continue;
+    if (n_a < N) {
+      if (direct) store_as(y + (size_t)m * N + n_a, acc_a[m] * scale[n_a]);
+      else part[(size_t)m * N + n_a] = acc_a[m];
+    }
+    if (n_b < N) {
+      if (direct) store_as(y + (size_t)m * N + n_b, acc_b[m] * scale[n_b]);
+      else part[(size_t)m * N + n_b] = acc_b[m];
     }
   }
 }
 
+// y[m, n] = scale[n] * sum over splits s, in order, of partial[s, m, n]
+template <typename T>
+__global__ void qmm_reduce(const float* __restrict__ partial,
+                           const float* __restrict__ scale, T* __restrict__ y,
+                           int M, int N, int splits) {
+  const size_t mn = (size_t)M * N;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < mn;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int i = 0; i < splits; ++i) s += partial[i * mn + e];
+    store_as(y + e, s * scale[e % N]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill: wgmma with the int8 weight tile as A (from registers)
+// ---------------------------------------------------------------------------
+constexpr int kTcBN = 64;      // output channels a CTA (wgmma M)
+constexpr int kTcBK = 64;      // k a stage: 64 int8 bytes, 128 bf16 bytes a row
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 160;  // one consumer warpgroup + one producer warp
+
+template <int TN, int P>
+struct QmmCfg {
+  static constexpr int W_BYTES = kTcBN * kTcBK;          // int8 tile
+  static constexpr int X_BYTES = TN * kTcBK * 2;         // one bf16 piece
+  static constexpr int STAGE = W_BYTES + P * X_BYTES;    // multiples of 1024
+  static constexpr int SMEM = 1024 + kTcStages * STAGE + 8 * 2 * kTcStages;
+};
+
+// x (M, K) float32 -> pieces (3, M, K) bfloat16 with hi + mid + lo == x
+__global__ void qmm_split(const float* __restrict__ x, __nv_bfloat16* __restrict__ pieces,
+                          size_t n) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const float v = x[e];
+    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+    const float r1 = v - __bfloat162float(hi);
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+    pieces[e] = hi;
+    pieces[n + e] = mid;
+    pieces[2 * n + e] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  }
+}
+
+// one int8 pair of the 64 x 64 weight tile (64-byte swizzle) as bf16x2
+__device__ __forceinline__ uint32_t w_pair(const uint8_t* tile, int r, int c) {
+  const int lin = r * kTcBK + c;
+  const int phys = lin ^ (((lin >> 7) & 3) << 4);
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(tile + phys);
+  return mxtt::pack_bf16((float)(int8_t)(v & 0xff), (float)(int8_t)(v >> 8));
+}
+
+// CTA (blockIdx.x, blockIdx.y, blockIdx.z): channels [64 x, 64 x + 64),
+// tokens [TN y, TN y + TN), k tiles [z * kt_per, (z + 1) * kt_per).
+template <typename T, int TN, int P>
+__global__ void __launch_bounds__(kTcThreads, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap wmap,
+          const __grid_constant__ CUtensorMap xmap,
+          const float* __restrict__ scale, T* __restrict__ y,
+          float* __restrict__ partial, int M, int N, int K, int kt_per) {
+  using C = QmmCfg<TN, P>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (mxtt::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTcStages * C::STAGE);
+  uint64_t* empty = full + kTcStages;
+  const int n0 = blockIdx.x * kTcBN, m0 = blockIdx.y * TN;
+  const int kt0 = blockIdx.z * kt_per;
+  const int kt1 = min((K + kTcBK - 1) / kTcBK, kt0 + kt_per);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mxtt::mbar_init(&full[s], 1);
+      mxtt::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    mxtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = kt0; t < kt1; ++t) {
+        mxtt::mbar_wait(&empty[stage], phase ^ 1);
+        mxtt::mbar_expect_tx(&full[stage], C::STAGE);
+        uint8_t* st = ring + stage * C::STAGE;
+        mxtt::tma_load_2d(st, &wmap, &full[stage], t * kTcBK, n0);
+        for (int p = 0; p < P; ++p)
+          mxtt::tma_load_3d(st + C::W_BYTES + p * C::X_BYTES, &xmap, &full[stage],
+                            t * kTcBK, m0, p);
+        if (++stage == kTcStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread holds channels r and r + 8 of the
+  // tile, tokens 8 * i + 2 * (lane % 4) + {0, 1} of every 8
+  const int r = 16 * warp + lane / 4;
+  const int qd = lane % 4;
+  float acc[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = kt0; t < kt1; ++t) {
+    mxtt::mbar_wait(&full[stage], phase);
+    const uint8_t* st = ring + stage * C::STAGE;
+    uint32_t a[kTcBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const int c = 16 * kk + 2 * qd;
+      a[kk][0] = w_pair(st, r, c);
+      a[kk][1] = w_pair(st, r + 8, c);
+      a[kk][2] = w_pair(st, r, c + 8);
+      a[kk][3] = w_pair(st, r + 8, c + 8);
+    }
+    const uint32_t x_addr = mxtt::smem_addr(st + C::W_BYTES);
+    mxtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        mxtt::wgmma_rs(acc, a[kk],
+                       mxtt::make_desc(x_addr + p * C::X_BYTES + kk * 32, 16, 1024,
+                                       mxtt::kSwizzle128B),
+                       1);
+    mxtt::wgmma_commit();
+    mxtt::wgmma_wait<0>();
+    mxtt::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) mxtt::fence_regs(a[kk]);
+    __syncwarp();
+    if (lane == 0) mxtt::mbar_arrive(&empty[stage]);
+    if (++stage == kTcStages) { stage = 0; phase ^= 1; }
+  }
+
+  const bool direct = gridDim.z == 1;
+  float* part = partial + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + r + 8 * h;
+    if (n >= N) continue;
+    const float s = direct ? scale[n] : 1.f;
+#pragma unroll
+    for (int i = 0; i < TN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * i + 2 * qd + e;
+        if (m >= M) continue;
+        const float v = acc[4 * i + 2 * h + e];
+        if (direct) store_as(y + (size_t)m * N + n, v * s);
+        else part[(size_t)m * N + n] = v;
+      }
+  }
+}
+
+template <typename T>
+cudaError_t reduce(const float* partial, const float* scale, void* y, int M, int N,
+                   int splits, cudaStream_t s) {
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)std::min<size_t>((mn + 255) / 256, 4096);
+  qmm_reduce<T><<<blocks, 256, 0, s>>>(partial, scale, static_cast<T*>(y), M, N, splits);
+  return cudaSuccess;
+}
+
+template <typename T, int MT>
+cudaError_t launch_gemv(const void* x, const int8_t* w, const float* scale, void* y,
+                        float* partial, int M, int N, int K, int splits, cudaStream_t s) {
+  const int kchunk = ((K + splits - 1) / splits + kGvStep - 1) / kGvStep * kGvStep;
+  const size_t smem = (size_t)MT * gv_row_floats(kchunk) * sizeof(float);
+  if (smem > kGvSmemMax) return cudaErrorInvalidValue;
+  const dim3 grid((N + kGvRows - 1) / kGvRows, (K + kchunk - 1) / kchunk);
+  qmm_gemv<T, MT><<<grid, kGvThreads, smem, s>>>(
+      static_cast<const T*>(x), w, scale, static_cast<T*>(y), partial, M, N, K, kchunk);
+  if ((int)grid.y > 1) return reduce<T>(partial, scale, y, M, N, (int)grid.y, s);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t gemv(const void* x, const int8_t* w, const float* scale, void* y,
+                 float* partial, int M, int N, int K, int splits, cudaStream_t s) {
+  if (M <= 1) return launch_gemv<T, 1>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 2) return launch_gemv<T, 2>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 4) return launch_gemv<T, 4>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 8) return launch_gemv<T, 8>(x, w, scale, y, partial, M, N, K, splits, s);
+  return launch_gemv<T, 16>(x, w, scale, y, partial, M, N, K, splits, s);
+}
+
+template <typename T, int TN, int P>
+cudaError_t launch_wgmma(const void* xb, const int8_t* w, const float* scale, void* y,
+                         float* partial, int M, int N, int K, int splits,
+                         cudaStream_t s) {
+  using C = QmmCfg<TN, P>;
+  CUtensorMap wm, xm;
+  const uint64_t wdims[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t wbox[2] = {kTcBK, kTcBN};
+  const uint64_t xdims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)P};
+  const uint32_t xbox[3] = {kTcBK, TN, 1};
+  if (!mxtt::encode_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims, K, 0, wbox,
+                        CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !mxtt::encode_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, xb, xdims,
+                        (uint64_t)K * 2, (uint64_t)M * K * 2, xbox,
+                        CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static uint64_t smem_set = 0;
+  const cudaError_t err = mxtt::max_smem_once(qmm_wgmma<T, TN, P>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int k_tiles = (K + kTcBK - 1) / kTcBK;
+  const int kt_per = (k_tiles + splits - 1) / splits;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + TN - 1) / TN, (k_tiles + kt_per - 1) / kt_per);
+  qmm_wgmma<T, TN, P><<<grid, kTcThreads, C::SMEM, s>>>(
+      wm, xm, scale, static_cast<T*>(y), partial, M, N, K, kt_per);
+  if ((int)grid.z > 1) return reduce<T>(partial, scale, y, M, N, (int)grid.z, s);
+  return cudaSuccess;
+}
+
+template <typename T, int P>
+cudaError_t wgmma_tn(int tn, const void* xb, const int8_t* w, const float* scale, void* y,
+                     float* partial, int M, int N, int K, int splits, cudaStream_t s) {
+  if (tn == 64) return launch_wgmma<T, 64, P>(xb, w, scale, y, partial, M, N, K, splits, s);
+  if (tn == 240) return launch_wgmma<T, 240, P>(xb, w, scale, y, partial, M, N, K, splits, s);
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// dtype code of x and y: 0 float32, 1 bfloat16.  Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for an unknown
-// dtype code or an empty or too-large grid.
-extern "C" int mxtt_quantized_matmul(int x_dtype, const void* x, const void* w_q,
-                                     const void* scale, void* y, int M, int N,
-                                     int K, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (M + kBM - 1) / kBM > 65535)
+// Both entry points: x_dtype 0 float32, 1 bfloat16 (x and y); K a multiple
+// of 16; `partial` a float32 workspace of splits * M * N (unused when
+// splits == 1).  They return cudaGetLastError() after the launches (0 on
+// success), or cudaErrorInvalidValue / cudaErrorMisalignedAddress for
+// arguments the kernels do not take (the GEMV: a split of K whose x,
+// MT * kchunk * 5 bytes, exceeds 48 KB).
+
+// decode body, M <= 16
+extern "C" int mxtt_qmm_gemv(int x_dtype, const void* x, const void* w_q,
+                             const void* scale, void* y, void* partial, int M, int N,
+                             int K, int splits, void* stream) {
+  if (M < 1 || M > 16 || N < 1 || K < 16 || K % 16 != 0 || splits < 1 ||
+      (K + kGvStep - 1) / kGvStep < splits)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  if (!aligned16(x) || !aligned16(w_q)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wp = static_cast<const int8_t*>(w_q);
   const float* sp = static_cast<const float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  cudaError_t err;
   if (x_dtype == 0)
-    quantized_matmul_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), wp, sp, static_cast<float*>(y), M, N, K);
+    err = gemv<float>(x, wp, sp, y, pp, M, N, K, splits, s);
   else if (x_dtype == 1)
-    quantized_matmul_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wp, sp,
-        static_cast<__nv_bfloat16*>(y), M, N, K);
+    err = gemv<__nv_bfloat16>(x, wp, sp, y, pp, M, N, K, splits, s);
   else
     return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// prefill body: `pieces` is a bfloat16 workspace of 3 * M * K for float32
+// x (the split is written there first); bfloat16 x is read as it is.
+// tn: the token tile, 64 or 240.
+extern "C" int mxtt_qmm_wgmma(int x_dtype, const void* x, const void* w_q,
+                              const void* scale, void* y, void* pieces, void* partial,
+                              int M, int N, int K, int tn, int splits, void* stream) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || splits < 1 ||
+      (M + tn - 1) / (tn > 0 ? tn : 1) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(w_q) || (x_dtype == 0 && !aligned16(pieces)))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* wp = static_cast<const int8_t*>(w_q);
+  const float* sp = static_cast<const float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  cudaError_t err;
+  if (x_dtype == 0) {
+    const size_t n = (size_t)M * K;
+    const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+    qmm_split<<<blocks, 256, 0, s>>>(static_cast<const float*>(x),
+                                     static_cast<__nv_bfloat16*>(pieces), n);
+    err = wgmma_tn<float, 3>(tn, pieces, wp, sp, y, pp, M, N, K, splits, s);
+  } else if (x_dtype == 1) {
+    err = wgmma_tn<__nv_bfloat16, 1>(tn, x, wp, sp, y, pp, M, N, K, splits, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,10 @@ Each source under ``mxnet_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, and
 loaded with ``ctypes``.  The build happens at first use, into
 ``build/mxnet_tpu_torch/`` at the root of the checkout (listed in
-``.gitignore``); a library's file name carries a hash of its source, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``); a library's file name carries a hash of its source, of
+every header under ``csrc/`` and of the flags, so an edited source or
+shared header (``hopper.cuh``, ``wgmma.cuh``) is rebuilt and an
+unchanged one is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per missing library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -58,12 +60,31 @@ def _nvcc():
     return found
 
 
+#: CUTLASS's headers on the GPU machine; passed to nvcc only for a source
+#: that includes CuTe or CUTLASS
+CUTLASS_INCLUDE = "/usr/local/cutlass/include"
+
+
+def _flags(src_text):
+    flags = list(_NVCC_FLAGS)
+    if "#include <cute/" in src_text or "#include <cutlass/" in src_text:
+        flags += ["-I", CUTLASS_INCLUDE]
+    return flags
+
+
 def _lib_path(name):
+    """(source path, library path, nvcc flags) of kernel ``name``; the
+    library's name hashes the source, every ``csrc/*.cuh`` and the flags."""
     src = os.path.join(_CSRC, SOURCES[name])
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR, "%s-%s.so" % (name,
-                                                       digest.hexdigest()[:16]))
+        text = f.read()
+    flags = _flags(text.decode())
+    digest = hashlib.sha256(text + " ".join(flags).encode())
+    for header in sorted(h for h in os.listdir(_CSRC) if h.endswith(".cuh")):
+        with open(os.path.join(_CSRC, header), "rb") as f:
+            digest.update(header.encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, "%s-%s.so" % (
+        name, digest.hexdigest()[:16])), flags
 
 
 def _declare(lib, name):
@@ -72,7 +93,10 @@ def _declare(lib, name):
         fn, args = lib.mxtt_flash_decode, [i, i, vp, vp, vp, vp, vp, vp,
                                            i, i, i, i, i, f, vp]
     elif name == "quantized_matmul":
-        fn, args = lib.mxtt_quantized_matmul, [i, vp, vp, vp, vp, i, i, i, vp]
+        lib.mxtt_qmm_gemv.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        lib.mxtt_qmm_gemv.restype = i
+        fn, args = lib.mxtt_qmm_wgmma, [i, vp, vp, vp, vp, vp, vp, i, i, i,
+                                        i, i, vp]
     elif name == "flash_attention":
         fn, args = lib.mxtt_flash_attention_forward, [i, vp, vp, vp, vp, vp,
                                                       i, i, i, i, i, f, vp]
@@ -95,13 +119,13 @@ def build_all():
         procs = {}
         os.makedirs(BUILD_DIR, exist_ok=True)
         for name in pending:
-            src, out = _lib_path(name)
+            src, out, flags = _lib_path(name)
             if os.path.exists(out):
                 BUILD_INFO[name] = {"seconds": 0.0, "log": "cached"}
                 continue
             tmp = "%s.%d.tmp.so" % (out[:-3], os.getpid())
             procs[name] = (subprocess.Popen(
-                [_nvcc()] + _NVCC_FLAGS + ["-o", tmp, src],
+                [_nvcc()] + flags + ["-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp, out, time.perf_counter())
         failed = []

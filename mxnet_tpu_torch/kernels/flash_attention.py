@@ -12,11 +12,15 @@ the JAX kernel.
   (the whole score matrix, float32).  It runs for tensors on the CPU,
   and it is what the CUDA kernel is compared with on the GPU.
 - :func:`flash_attention_forward` is the wrapper of the hand-written
-  CUDA kernel ``csrc/flash_attention.cu`` (grid ``(B*H, ceil(Sq/64))``,
-  an online softmax over 64-key tiles staged in shared memory, causal
-  tiles above the diagonal skipped, the ragged edge masked so any S
-  works).  For CUDA tensors it launches the kernel or raises.
-  ``flash_attention_forward.launches`` counts its launches.
+  CUDA kernels ``csrc/flash_attention.cu``: for bfloat16 inputs a
+  tensor-core kernel (``wgmma`` fed by TMA, 128 q rows a CTA, p issued
+  as a bfloat16 hi and lo part so o keeps float32 accuracy), for float32
+  inputs an FMA kernel (grid ``(B*H, ceil(Sq/64))``, 64-key tiles staged
+  in shared memory).  Both run an online softmax, skip causal tiles
+  above the diagonal and mask the ragged edge, so any S works.  For
+  CUDA tensors it launches a kernel or raises.
+  ``flash_attention_forward.launches`` counts its launches and
+  ``.launches_by_dtype`` them by input dtype (so by body).
 """
 from __future__ import annotations
 
@@ -80,8 +84,8 @@ def flash_attention_forward(q, k, v, causal=False, scale=None):
     """Attention forward with :func:`flash_attention_forward_reference`'s
     signature and semantics.  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/flash_attention.cu`` (and raise on inputs it
-    does not take: other dtypes, head dims outside 32/64/128, strided
-    tensors)."""
+    does not take: other dtypes, head dims outside 32/64/128, strided or
+    misaligned tensors)."""
     if not q.is_cuda:
         return flash_attention_forward_reference(q, k, v, causal=causal,
                                                  scale=scale)
@@ -102,8 +106,13 @@ def flash_attention_forward(q, k, v, causal=False, scale=None):
             float(scale), stream)
     check(lib, code, "flash_attention")
     flash_attention_forward.launches += 1
+    flash_attention_forward.launches_by_dtype[
+        str(q.dtype).replace("torch.", "")] += 1
     return o, lse
 
 
-#: launches of the CUDA kernel in this process (callers may reset it)
+#: launches of the CUDA kernels in this process, in all and by input dtype:
+#: "bfloat16" is the tensor-core body, "float32" the FMA body (callers may
+#: reset them)
 flash_attention_forward.launches = 0
+flash_attention_forward.launches_by_dtype = {"float32": 0, "bfloat16": 0}

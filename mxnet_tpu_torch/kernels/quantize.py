@@ -12,9 +12,13 @@ are later work):
   nodes become ``QuantizedDense`` with a ``<weight>_scale`` variable
   spliced in (the same JSON text as the JAX package produces).
 - :func:`quantized_matmul` — the wrapper of the hand-written CUDA
-  kernel ``csrc/quantized_matmul.cu``; :func:`quantized_matmul_reference`
+  kernels ``csrc/quantized_matmul.cu``; :func:`quantized_matmul_reference`
   is its plain PyTorch version (widen, matmul, scale), which CPU tensors
-  take.  ``quantized_matmul.launches`` counts kernel launches.
+  take.  On the GPU it picks a body by M (:func:`plan_quantized_matmul`):
+  a split-K GEMV on the CUDA cores at decode (M <= 16), a ``wgmma``
+  tensor-core GEMM at prefill (float32 x as three bfloat16 pieces).
+  ``quantized_matmul.launches`` counts kernel calls and
+  ``quantized_matmul.launches_by_route`` them by body.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from ..base import MXNetError
 
 __all__ = ["QDTYPES", "quantize_array", "dequantize_array",
            "quantize_params", "quantizable_weights", "quantize_symbol",
-           "quantized_matmul", "quantized_matmul_reference"]
+           "quantized_matmul", "quantized_matmul_reference",
+           "plan_quantized_matmul", "split_bf16"]
 
 #: supported weight dtypes -> symmetric clip range max
 QDTYPES = {"int8": 127.0}
@@ -182,6 +187,21 @@ def quantized_matmul_reference(x, w_q, scale):
     return (y * scale.float()[None, :]).to(x.dtype)
 
 
+def split_bf16(x):
+    """The plain version of the wgmma body's prologue (``qmm_split``):
+    float32 ``x`` as three bfloat16 pieces stacked on a new first axis,
+    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``,
+    each rounded to nearest even.  ``hi + mid + lo == x`` exactly for
+    every finite ``x`` whose pieces stay normal: three 8-bit significands
+    hold its 24 bits.  Each piece times an int8 weight is exact in
+    float32, so the three products carry float32 accuracy."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r1 - mid.float()).to(torch.bfloat16)])
+
+
 def _check_inputs(x, w_q, scale):
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[1] \
             or tuple(scale.shape) != (w_q.shape[0],):
@@ -203,27 +223,101 @@ def _check_inputs(x, w_q, scale):
                              % name)
 
 
+#: the largest M the decode body (GEMV) takes; larger M goes to wgmma
+GEMV_MAX_M = 16
+#: the GEMV stages its CTA's range of K of x in shared memory as float32,
+#: every 16 floats padded to 20: ``MT * kchunk * 5`` bytes, MT being M
+#: rounded up to a power of two.  K is split until that fits in 48 KB,
+#: the most a kernel takes without opting in (four such CTAs fit an SM)
+GEMV_SMEM_BYTES = 48 * 1024
+
+
+def plan_quantized_matmul(m, n, k, sms):
+    """The body and the split of K for an ``(m, k) @ (n, k).T`` call on a
+    GPU of ``sms`` streaming multiprocessors: ``{"route": "gemv" |
+    "wgmma", "splits": s, "tn": t}``.
+
+    ``k`` is the padded depth (a multiple of 16).  The GEMV's CTA covers
+    32 weight rows and steps through K 128 bytes at a time; when those
+    CTAs fill less than half of the SMs, K is split (at least 128 of it a
+    split) for about two CTAs an SM, and in any case until the CTA's x
+    fits :data:`GEMV_SMEM_BYTES`.  The wgmma CTA covers 64 output
+    channels by ``tn`` tokens (64 up to M = 64, else 240, the prompt
+    buckets' divisor) and 64 of K a stage; it holds an SM alone, so K is
+    split (at least 256 of it a split) only when the tiles fill less than
+    a third of the card, for about one CTA an SM.  Split partial sums
+    cost a second pass over ``splits * M * N`` floats, which a fuller
+    grid does not repay.
+    """
+    if m <= GEMV_MAX_M:
+        base, steps, route, tn = -(-n // 32), -(-k // 128), "gemv", 0
+        split = 2 * base < sms
+        target = -(-2 * sms // base)
+        mt = 1 << (m - 1).bit_length()
+        kmax = GEMV_SMEM_BYTES // (5 * mt) // 128 * 128
+        least = -(-k // kmax)
+    else:
+        tn = 64 if m <= 64 else 240
+        base = -(-n // 64) * -(-m // tn)
+        steps, route = max(1, -(-k // 64) // 4), "wgmma"
+        split = 3 * base < sms
+        target = -(-sms // base)
+        least = 1
+    splits = max(1, min(steps, target)) if split else 1
+    return {"route": route, "splits": max(splits, least), "tn": tn}
+
+
 def quantized_matmul(x, w_q, scale):
     """Weight-only int8 matmul ``x (M, K) @ w_q (N, K).T * scale``.
     CPU tensors take :func:`quantized_matmul_reference`; CUDA tensors
-    launch ``csrc/quantized_matmul.cu`` (and raise on inputs it does not
-    take).  Both accumulate in float32 and return x's dtype."""
+    launch the body :func:`plan_quantized_matmul` picks from
+    ``csrc/quantized_matmul.cu`` (and raise on inputs it does not take).
+    Both accumulate in float32 and return x's dtype.  A K that is no
+    multiple of 16 is zero-padded (a copy of x and w_q) for the kernels'
+    16-byte loads."""
     if not x.is_cuda:
         return quantized_matmul_reference(x, w_q, scale)
     from ._build import check, library
     _check_inputs(x, w_q, scale)
     (m, k), n = x.shape, w_q.shape[0]
+    if k % 16:
+        pad = 16 - k % 16
+        x = torch.nn.functional.pad(x, (0, pad))
+        w_q = torch.nn.functional.pad(w_q, (0, pad))
+        k += pad
+    plan = plan_quantized_matmul(
+        m, n, k, torch.cuda.get_device_properties(x.device)
+        .multi_processor_count)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # workspaces, held until the launch (no pointer: the body does not
+    # use one): split-K partial sums, the wgmma body's bfloat16 pieces of
+    # float32 x
+    partial = torch.empty((plan["splits"], m, n) if plan["splits"] > 1
+                          else (0,), dtype=torch.float32, device=x.device)
+    pieces = torch.empty((3, m, k) if plan["route"] == "wgmma"
+                         and x.dtype == torch.float32 else (0,),
+                         dtype=torch.bfloat16, device=x.device)
     lib = library("quantized_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.mxtt_quantized_matmul(
-            _X_DTYPE_CODES[x.dtype], x.data_ptr(), w_q.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), m, n, k, stream)
-    check(lib, code, "quantized_matmul")
+        if plan["route"] == "gemv":
+            code = lib.mxtt_qmm_gemv(
+                _X_DTYPE_CODES[x.dtype], x.data_ptr(), w_q.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), partial.data_ptr(), m, n,
+                k, plan["splits"], stream)
+        else:
+            code = lib.mxtt_qmm_wgmma(
+                _X_DTYPE_CODES[x.dtype], x.data_ptr(), w_q.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), pieces.data_ptr(),
+                partial.data_ptr(), m, n, k, plan["tn"], plan["splits"],
+                stream)
+    check(lib, code, "quantized_matmul (%s)" % plan["route"])
     quantized_matmul.launches += 1
+    quantized_matmul.launches_by_route[plan["route"]] += 1
     return out
 
 
-#: launches of the CUDA kernel in this process (callers may reset it)
+#: calls that launched a CUDA body in this process, in all and by body
+#: (callers may reset them)
 quantized_matmul.launches = 0
+quantized_matmul.launches_by_route = {"gemv": 0, "wgmma": 0}

@@ -78,20 +78,58 @@ def test_flash_decode_kernel_rejects_bad_inputs(cuda):
     (1, 512, 2048, torch.float32, 1e-4),
     (67, 100, 130, torch.float32, 1e-4),      # ragged on every dim
     (8, 2048, 512, torch.float32, 1e-4),
-    (33, 512, 96, torch.bfloat16, 2e-2)])
+    (33, 512, 96, torch.bfloat16, 2e-2),
+    # both sides of the route threshold (M <= 16: GEMV, else wgmma)
+    (16, 2048, 512, torch.float32, 1e-4),
+    (17, 512, 2048, torch.float32, 1e-4),
+    (240, 512, 2048, torch.float32, 1e-4),    # wgmma with split K
+    (960, 512, 8192, torch.float32, 1e-4),    # a prefill bucket, lm_head
+    (8, 512, 8192, torch.bfloat16, 2e-2),
+    (240, 2048, 512, torch.bfloat16, 2e-2),
+    # the GEMV's instances for the decode buckets 2 and 4, and a ragged M
+    (2, 512, 8192, torch.float32, 1e-4),
+    (3, 2048, 512, torch.float32, 1e-4),
+    (4, 512, 2048, torch.float32, 1e-4),
+    # K that the GEMV splits so the CTA's x fits its shared memory: a
+    # dim-4096 model's ffn2 at decode, a wide lm_head at M = 16
+    (8, 16384, 4096, torch.float32, 1e-4),
+    (16, 4096, 8192, torch.float32, 1e-4)])
 def test_quantized_matmul_kernel_matches_plain(cuda, m, k, n, dtype, tol):
+    """Both int8 bodies against the plain version.  float32 x: the GEMV
+    sums in float32, the wgmma body takes x as three bfloat16 pieces
+    (all 24 bits) whose exact products add up in float32, so either
+    stays within 1e-4.  bfloat16 x: the output's rounding."""
     from mxnet_tpu_torch.kernels import quantize as qz
     rng = np.random.RandomState(m * n)
     q, scale = qz.quantize_array((rng.randn(n, k) * 0.02).astype(np.float32))
     x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda, dtype)
     wq, sc = torch.from_numpy(q).to(cuda), torch.from_numpy(scale).to(cuda)
+    route = "gemv" if m <= qz.GEMV_MAX_M else "wgmma"
     before = qz.quantized_matmul.launches
+    before_route = qz.quantized_matmul.launches_by_route[route]
     got = qz.quantized_matmul(x, wq, sc)
     want = qz.quantized_matmul_reference(x, wq, sc)
     torch.cuda.synchronize()
     assert qz.quantized_matmul.launches == before + 1
+    assert qz.quantized_matmul.launches_by_route[route] == before_route + 1
     assert got.dtype == dtype and got.shape == (m, n)
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_quantized_matmul_is_the_same_run_to_run(cuda):
+    """Split-K sums go through a fixed-order second pass, no float
+    atomics: two calls give the same bits, on both bodies."""
+    from mxnet_tpu_torch.kernels import quantize as qz
+    rng = np.random.RandomState(5)
+    q, scale = qz.quantize_array((rng.randn(512, 2048) * 0.02)
+                                 .astype(np.float32))
+    wq, sc = torch.from_numpy(q).to(cuda), torch.from_numpy(scale).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (8, 240):
+        assert qz.plan_quantized_matmul(m, 512, 2048, sms)["splits"] > 1
+        x = torch.from_numpy(rng.randn(m, 2048).astype(np.float32)).to(cuda)
+        assert torch.equal(qz.quantized_matmul(x, wq, sc),
+                           qz.quantized_matmul(x, wq, sc))
 
 
 DIMS = dict(vocab_size=64, num_layers=1, num_heads=2, dim=32,
@@ -139,16 +177,47 @@ def test_engine_gpu_matches_cpu(cuda, quantize, cache_dtype):
 
 
 def test_engine_on_gpu_uses_both_kernels(cuda):
-    """A tiny int8 engine on the GPU launches both kernels."""
+    """A tiny int8 engine on the GPU launches both kernels, and the int8
+    matmul through both bodies: the 8-token prompt bucket is at most
+    the GEMV's 16 rows, so here only the GEMV runs; prompts past 16
+    tokens take the wgmma body (chip_smoke.py phase 4 runs both)."""
     from mxnet_tpu_torch.kernels import flash_decode as fd
     from mxnet_tpu_torch.kernels import quantize as qz
     eng = _engine(cuda, "int8")
     fd.flash_decode_attention.launches = 0
     qz.quantized_matmul.launches = 0
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
     out = eng.generate([[1, 2, 3], [4, 5]])
     assert [len(t) for t in out] == [4, 4]
     assert fd.flash_decode_attention.launches == 3       # 3 decode steps
     assert qz.quantized_matmul.launches == 2 * 3 + 3 * 3  # prefills + steps
+    assert qz.quantized_matmul.launches_by_route == {"gemv": 15, "wgmma": 0}
+
+
+def test_engine_on_gpu_runs_both_int8_bodies(cuda):
+    """A 32-token prompt bucket (more than the GEMV's 16 rows) sends the
+    prefill's int8 matmuls to the wgmma body and the decode steps' to the
+    GEMV; tokens and logits as on the CPU (float32 sums on both bodies,
+    within 1e-4)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import quantize as qz
+
+    def engine(ctx):
+        eng = mx.serving.GenerationEngine(
+            _params(), ctx=ctx, quantize="int8", max_new_tokens=4,
+            prompt_buckets=(32,), decode_buckets=(1,), kv_blocks=8,
+            kv_block_size=8, **DIMS)
+        eng.collect_logits = True
+        return eng
+
+    prompt = [list(range(1, 21))]
+    gpu, cpu = engine(cuda), engine(mx.cpu())
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+    assert gpu.generate(prompt) == cpu.generate(prompt)
+    assert qz.quantized_matmul.launches_by_route == {"gemv": 3 * 3,
+                                                     "wgmma": 3}
+    for g, c in zip(gpu.last_logits[0], cpu.last_logits[0]):
+        np.testing.assert_allclose(g, c, atol=1e-4, rtol=0)
 
 
 # ----------------------------------------------------------------------
@@ -157,11 +226,13 @@ def test_engine_on_gpu_uses_both_kernels(cuda):
 @pytest.mark.parametrize("dtype,rel,atol", [(torch.float32, 0.0, 2e-5),
                                             (torch.bfloat16, 2.0 ** -7, 1e-5)])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("S,D", [(256, 64), (200, 64), (77, 32), (130, 128)])
+@pytest.mark.parametrize("S,D", [(256, 64), (200, 64), (77, 32), (130, 128),
+                                 (1000, 64), (1024, 32), (333, 128)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, rel, atol, causal,
                                               S, D):
-    """o and lse of the CUDA kernel against the plain version, ragged
-    S included (200, 77, 130 are no multiple of the 64-row tile).
+    """o and lse of the CUDA kernels (float32: the FMA body; bfloat16:
+    the wgmma body) against the plain version, ragged S included (200,
+    77, 130, 1000, 333 are no multiple of the 64- or 128-row tiles).
     Each element of o is held to ``rel * |plain| + atol``.  float32:
     another summation order, 2e-5 absolute.  bfloat16: both compute in
     float32 and round o once, so a float32 difference can flip that
@@ -171,11 +242,15 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, rel, atol, causal,
     rng = np.random.RandomState(S + D)
     q, k, v = [torch.from_numpy(rng.randn(2, 3, S, D).astype(np.float32))
                .to(cuda, dtype) for _ in range(3)]
+    body = str(dtype).replace("torch.", "")
     before = fa.flash_attention_forward.launches
+    before_body = fa.flash_attention_forward.launches_by_dtype[body]
     o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_forward.launches == before + 1
+    assert fa.flash_attention_forward.launches_by_dtype[body] \
+        == before_body + 1
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert tuple(lse.shape) == (2, 3, S)
     d = (o.float() - ro.float()).abs()
@@ -233,11 +308,21 @@ def test_fused_sweep_kernel_matches_plain(cuda, name, n, offset):
             assert float(((got - want).abs() / ulp).max()) <= 2.0
 
 
-def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch):
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch,
+                                                     compute_dtype):
     """A 2-layer transformer trained 2 steps on the GPU (both kernels)
-    against the same trainer on the CPU (their plain versions):
-    parameters within 1e-5; the flash forward ran once per layer a step
-    and the sweep once per bucket a step."""
+    against the same trainer on the CPU (their plain versions); the flash
+    forward ran once per layer a step, on the body of the compute dtype
+    (float32: FMA, bfloat16: wgmma), and the sweep once per bucket a step.
+
+    float32: parameters within 1e-5 (summation orders only).  bfloat16:
+    the two runs round their bfloat16 intermediates in different places
+    (cuBLAS against the CPU's products, the wgmma kernel's o against the
+    plain version's), so each parameter of the GPU run may be at most
+    twice as far from the CPU run as the CPU's bfloat16 run is from its
+    own float32 run (that distance is the size of bfloat16's rounding on
+    this trajectory)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import flash_attention as fa
     from mxnet_tpu_torch.kernels import fused_opt as fo
@@ -249,16 +334,24 @@ def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch):
     rng = np.random.RandomState(0)
     batch = {"data": rng.randint(0, 300, (2, 96)).astype(np.float32),
              "softmax_label": rng.randint(0, 300, (2, 96)).astype(np.float32)}
+    bf16 = compute_dtype == "bfloat16"
+    runs = [(cuda, compute_dtype), (mx.cpu(), compute_dtype)]
+    if bf16:
+        runs.append((mx.cpu(), "float32"))
     got = {}
-    for dev in (cuda, mx.cpu()):
+    for dev, dt in runs:
         mx.random.seed(5)
         opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
                                   rescale_grad=1.0 / 192)
-        tr = mx.parallel.ShardedTrainer(tf.get_symbol(**dims), opt, ctx=dev)
+        tr = mx.parallel.ShardedTrainer(
+            tf.get_symbol(**dims), opt, ctx=dev,
+            compute_dtype="bfloat16" if dt == "bfloat16" else None)
         p, s, a = tr.init_params({"data": (2, 96)},
                                  label_shapes={"softmax_label": (2, 96)})
         b = tr.shard_batch(batch)
         fa.flash_attention_forward.launches = 0
+        fa.flash_attention_forward.launches_by_dtype.update(float32=0,
+                                                            bfloat16=0)
         fo.sweep.launches = 0
         for _ in range(2):
             p, s, a, _o = tr.step(p, s, a, b)
@@ -266,10 +359,18 @@ def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch):
             n_buckets = len(fo.plan_buckets(p))
             assert n_buckets > 1
             assert fa.flash_attention_forward.launches == 2 * 2
+            assert fa.flash_attention_forward.launches_by_dtype == {
+                "float32": 0 if bf16 else 4, "bfloat16": 4 if bf16 else 0}
             assert fo.sweep.launches == 2 * n_buckets
-        got[str(dev)] = {n: w.cpu() for n, w in p.items()}
-    for n, w in got["cpu(0)"].items():
-        assert float((got[str(cuda)][n] - w).abs().max()) <= 1e-5, n
+        got[(str(dev), dt)] = {n: w.cpu().float() for n, w in p.items()}
+    gpu, cpu = got[(str(cuda), compute_dtype)], got[("cpu(0)", compute_dtype)]
+    for n, w in cpu.items():
+        err = float((gpu[n] - w).abs().max())
+        if bf16:
+            witness = float((w - got[("cpu(0)", "float32")][n]).abs().max())
+            assert err <= 2.0 * witness, (n, err, witness)
+        else:
+            assert err <= 1e-5, n
 
 
 # ---------------------------------------------------------------------------

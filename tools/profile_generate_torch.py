@@ -36,7 +36,9 @@ def _group(name):
     low = name.lower()
     if "flash_decode" in low:
         return "flash_decode"
-    if "quantized_matmul" in low:
+    if "quantized_matmul" in low or "qmm_" in low:
+        # csrc/quantized_matmul.cu: qmm_gemv, qmm_wgmma, qmm_split and
+        # qmm_reduce (this test comes before the "gemv" of cuBLAS below)
         return "quantized_matmul"
     if "gemm" in low or "gemv" in low or "sgemm" in low or "cutlass" in low:
         return "other matmul"
