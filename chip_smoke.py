@@ -13,10 +13,14 @@ line:
    every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
 2. flash-decode, kernel vs its plain PyTorch version, on the card, at the
-   slice's shapes (B in {1, 8}, H=8, D=64, 32-token blocks, a 256-block
-   pool, 32 table slots), in float32 and bfloat16, with times of the
-   kernel, the plain version, ``F.scaled_dot_product_attention`` on the
-   gathered cache (a yardstick only) and the bandwidth bound;
+   slice's shapes (the decode buckets B in {1, 2, 4, 8} and a ragged B=3,
+   H=8, D=64, 32-token blocks, a 256-block pool, 32 table slots), in
+   float32, bfloat16 and float32 q over a bfloat16 pool, at mixed
+   positions and at every edge of the kernel's split (each case run twice
+   and required to repeat bit for bit), with the plan (splits, thread
+   blocks) and times of the kernel, the plain version,
+   ``F.scaled_dot_product_attention`` on the gathered cache (a yardstick
+   only) and the bandwidth bound;
 3. the int8 weight-only matmul, kernel vs plain, at M in {1, 8, 16, 17,
    33, 240, 960} and the three (K, N) of the model: M <= 16 runs the
    split-K GEMV body, larger M the wgmma body (float32 x as three
@@ -62,7 +66,8 @@ line:
    functions, ``random.uniform(out=)``, and five CUDA C kernel bodies
    (``kernels/rtc_kernels.py``) pushed through ``mx.rtc.Rtc`` (NVRTC),
    each against numpy, with the Rtc launch count reset just before;
-   then each kernel against its plain PyTorch version on the card, the
+   then each kernel against its plain PyTorch version on the card (saxpy
+   also at 2^24 + 3 elements and on views offset by one element), the
    error paths (an NVRTC compile error, a 2048-thread block, a CPU
    tensor), and times (kernel, plain, one-call library, the bytes
    bound, NVRTC's compile time per key, the host time of a cached push).
@@ -171,66 +176,113 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 # ----------------------------------------------------------------------
 # phase 2: flash-decode
 # ----------------------------------------------------------------------
-def flash_decode_case(torch, rng, B, dtype, NB=256, BS=32, H=8, D=64, MB=32):
-    """Mixed positions (0, 31, 32, 1023 among them), each row's live
-    blocks distinct random pool blocks, trailing slots on trash block 0;
-    the whole pool (block 0 included) holds random values."""
-    pos = np.array([0, 31, 32, 1023, 17, 300, 640, 900][:B] if B > 1
-                   else [700], np.int32)
+def flash_decode_case(torch, rng, pos, dtype, kv_dtype=None, NB=256, BS=32,
+                      H=8, D=64, MB=32):
+    """One row a position of ``pos``, each row's live blocks distinct
+    random pool blocks, trailing slots on trash block 0; the whole pool
+    (block 0 included) holds random values.  ``kv_dtype``: the pools'
+    type (q's by default)."""
+    pos = np.asarray(pos, np.int32)
+    B = len(pos)
     free = list(rng.permutation(np.arange(1, NB)))
     table = np.zeros((B, MB), np.int32)
     for b in range(B):
         n = int(pos[b]) // BS + 1
         table[b, :n] = [free.pop() for _ in range(n)]
     dev = DEVICE
+    kv_dtype = kv_dtype or dtype
     q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32))
     k = torch.from_numpy(rng.randn(NB, BS, H, D).astype(np.float32))
     v = torch.from_numpy(rng.randn(NB, BS, H, D).astype(np.float32))
-    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+    return (q.to(dev, dtype), k.to(dev, kv_dtype), v.to(dev, kv_dtype),
             torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev))
 
 
+#: phase 2's positions: the decode batch of 8 (0, 31, 32 and 1023 among
+#: them) and, at B=1, one deep row
+FD_POSITIONS = [0, 31, 32, 1023, 17, 300, 640, 900]
+FD_POS_B1 = [700]
+
+
+def _fd_check(torch, fd, case, scale, tol, what):
+    """Kernel vs plain on one case, twice: the two kernel results must be
+    equal bit for bit.  Returns max |kernel - plain|."""
+    q, k, v, table, pos = case
+    got = fd.flash_decode_attention(q, k, v, table, pos, scale=scale)
+    again = fd.flash_decode_attention(q, k, v, table, pos, scale=scale)
+    want = fd.decode_attention_reference(q, k, v, table, pos, scale=scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:
+        raise AssertionError("flash_decode %s: max |kernel - plain| = %g > %g"
+                             % (what, err, tol))
+    if not torch.equal(got, again):
+        raise AssertionError("flash_decode %s: two runs differ" % what)
+    return err
+
+
 def phase_flash_decode(torch, timer, seed):
+    """The decode buckets B in {1, 2, 4, 8} and a ragged B=3, float32,
+    bfloat16 and float32 q over a bfloat16 pool: kernel vs plain (and a
+    bitwise repeat) at phase 2's positions, timed, and at every split edge
+    of the B's plan (0, BS-1, BS, blocks_per_split*BS - 1,
+    blocks_per_split*BS, MB*BS - 1), B rows at a time."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.kernels import flash_decode as fd
     rows = []
     rng = np.random.RandomState(seed)
-    #: float32: same arithmetic, other summation order; bfloat16: the
-    #: plain version rounds scores and probabilities to bfloat16
+    #: float32: same arithmetic, other summation order (a float32 q over
+    #: a bfloat16 pool too: the plain version widens the pool); bfloat16:
+    #: the plain version rounds scores and probabilities to bfloat16
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    for B in (1, 8):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, table, pos = flash_decode_case(torch, rng, B, dtype)
-            H, D = q.shape[1], q.shape[2]
-            BS, MB = k.shape[1], table.shape[1]
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    BS, H, D, MB = 32, 8, 64, 32
+    for B in (1, 2, 3, 4, 8):
+        plan = fd.plan_flash_decode(B, H, MB, BS, D, sms)
+        span = plan["blocks_per_split"] * BS
+        edges = [0, BS - 1, BS, span - 1, span, MB * BS - 1]
+        pos_main = FD_POSITIONS[:B] if B > 1 else FD_POS_B1
+        for dtype, kv_dtype in ((torch.float32, torch.float32),
+                                (torch.bfloat16, torch.bfloat16),
+                                (torch.float32, torch.bfloat16)):
+            tol = tols[dtype]
+            what = "B=%d q %s pool %s" % (B, dtype, kv_dtype)
             scale = 1.0 / math.sqrt(D)
-            got = fd.flash_decode_attention(q, k, v, table, pos, scale=scale)
-            want = fd.decode_attention_reference(q, k, v, table, pos,
-                                                 scale=scale)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if not err <= tols[dtype]:
-                raise AssertionError(
-                    "flash_decode B=%d %s: max |kernel - plain| = %g > %g"
-                    % (B, dtype, err, tols[dtype]))
+            edge_err = 0.0
+            for i in range(0, len(edges), B):
+                chunk = (edges[i:i + B] + pos_main)[:B]
+                edge_err = max(edge_err, _fd_check(
+                    torch, fd, flash_decode_case(torch, rng, chunk, dtype,
+                                                 kv_dtype), scale, tol,
+                    what + " at positions %s" % chunk))
+            case = flash_decode_case(torch, rng, pos_main, dtype, kv_dtype)
+            q, k, v, table, pos = case
+            err = _fd_check(torch, fd, case, scale, tol, what)
             # yardstick: SDPA on the gathered cache (gather not timed)
             kk = k[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
             vv = v[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
-            kk, vv = kk.contiguous(), vv.contiguous()
+            kk, vv = kk.to(dtype).contiguous(), vv.to(dtype).contiguous()
             mask = (torch.arange(MB * BS, device=DEVICE)[None, :]
                     <= pos.long()[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
+            want = fd.decode_attention_reference(q, k, v, table, pos,
+                                                 scale=scale)
             lib = F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
                                                  scale=scale)[:, :, 0]
             lib_err = float((lib.float() - want.float()).abs().max())
             n_tok = int((pos.long() + 1).sum())
-            item = q.element_size()
-            n_bytes = (2 * n_tok * H * D * item + 2 * q.numel() * item
+            n_bytes = (2 * n_tok * H * D * k.element_size()
+                       + 2 * q.numel() * q.element_size()
                        + table.numel() * 4 + pos.numel() * 4)
             b_ms, b_by = bound_ms(n_bytes, 4 * n_tok * H * D)
             row = {
                 "B": B, "dtype": str(dtype).replace("torch.", ""),
-                "pos": pos.tolist(), "max_abs_err": err, "tol": tols[dtype],
+                "kv_dtype": str(kv_dtype).replace("torch.", ""),
+                "pos": pos.tolist(), "edges": edges,
+                "plan": {key: plan[key] for key in (
+                    "splits", "blocks_per_split", "ctas")},
+                "max_abs_err": max(err, edge_err), "edge_max_abs_err": edge_err,
+                "tol": tol, "repeat_bitwise": True,
                 "library_max_abs_err": lib_err,
                 "ms": timer(lambda: fd.flash_decode_attention(
                     q, k, v, table, pos, scale=scale)),
@@ -240,9 +292,12 @@ def phase_flash_decode(torch, timer, seed):
                     q4, kk, vv, attn_mask=mask, scale=scale)),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
             rows.append(row)
-            log("flash_decode B=%d %-8s err=%.3g (tol %g) kernel_ms=%.4f "
-                "plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
-                % (B, row["dtype"], err, tols[dtype], row["ms"],
+            log("flash_decode B=%d q %-8s pool %-8s splits=%d ctas=%d "
+                "err=%.3g edges err=%.3g (tol %g) repeat bitwise "
+                "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
+                "bound_ms=%.5f (%s)"
+                % (B, row["dtype"], row["kv_dtype"], plan["splits"],
+                   plan["ctas"], err, edge_err, tol, row["ms"],
                    row["plain_ms"], row["library_ms"], b_ms, b_by))
     return rows
 
@@ -1112,6 +1167,13 @@ def phase_imperative(torch, seed):
     return {"launches": launches, "seconds": seconds, "errors": errs}
 
 
+#: a one-input body for the error path of a block over the kernel's limit
+ONE_INPUT_BODY = r"""
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < out0_size) out0[i] = 2.5f * in0[i] + 0.0f;
+"""
+
+
 def phase_rtc_kernels(torch, timer, seed):
     """Kernels (a)-(e) against their plain versions on the card (these
     launches are not the main path's), the error paths, and the times:
@@ -1126,19 +1188,28 @@ def phase_rtc_kernels(torch, timer, seed):
         t = torch.rand(shape, generator=gen, device=DEVICE)
         return mx.nd.array((t * (hi - lo) + lo).to(dtype), ctx=gpu)
 
+    def view(shape, offset):
+        """A 1-D view that starts ``offset`` elements into a larger array
+        (not 16-byte aligned for offset 1: saxpy's scalar path)."""
+        return arr((shape[0] + offset,))[offset:offset + shape[0]]
+
     one = torch.ones((), device=DEVICE)
-    cases = [("xy_plus_one", (8, 8)), ("xy_plus_one", IMPERATIVE_SHAPE),
-             ("saxpy", (128, 128)), ("saxpy", (RTC_TIMED_N,)),
-             ("exp_shared", (10,)), ("add_mul_bf16", IMPERATIVE_SHAPE),
-             ("transpose", IMPERATIVE_SHAPE)]
+    #: (kernel, shape, offset of the inputs into a larger array)
+    cases = [("xy_plus_one", (8, 8), 0), ("xy_plus_one", IMPERATIVE_SHAPE, 0),
+             ("saxpy", (128, 128), 0), ("saxpy", (RTC_TIMED_N,), 0),
+             ("saxpy", (RTC_TIMED_N + 3,), 0), ("saxpy", (RTC_TIMED_N,), 1),
+             ("exp_shared", (10,), 0), ("add_mul_bf16", IMPERATIVE_SHAPE, 0),
+             ("transpose", IMPERATIVE_SHAPE, 0)]
     #: (check, tolerance): 'ulp' float32 ulps at the plain value, or
     #: 'bitwise'
     tols = {"xy_plus_one": ("ulp", 1.0), "saxpy": ("ulp", 1.0),
             "exp_shared": ("ulp", 2.0), "add_mul_bf16": ("bitwise", 0.0),
             "transpose": ("bitwise", 0.0)}
     rows = []
-    for name, shape in cases:
-        if name == "exp_shared":
+    for name, shape, offset in cases:
+        if offset:
+            ins = [view(shape, offset), view(shape, offset)]
+        elif name == "exp_shared":
             ins = [arr(shape, lo=-1.0)]
         elif name == "add_mul_bf16":
             ins = [arr(shape, torch.bfloat16, -2.0, 2.0) for _ in range(2)]
@@ -1169,7 +1240,8 @@ def phase_rtc_kernels(torch, timer, seed):
         library = {"xy_plus_one": lambda: torch.addcmul(one, ts[0], ts[1]),
                    "saxpy": lambda: torch.add(ts[1], ts[0], alpha=2.5),
                    "transpose": lambda: x.t().contiguous()}.get(name)
-        row = {"kernel": name, "shape": list(shape), "n": x.numel(),
+        row = {"kernel": name, "shape": list(shape), "offset": offset,
+               "n": x.numel(),
                "dtype": str(x.dtype).replace("torch.", ""),
                "max_abs_err": err, "check": how, "measured": meas,
                "tol": tol,
@@ -1180,7 +1252,8 @@ def phase_rtc_kernels(torch, timer, seed):
         rows.append(row)
         log("rtc %-12s %-13s %-8s err=%.3g (%s %g, tol %g) kernel_ms=%.4f "
             "plain_ms=%.4f library_ms=%s bound_ms=%.5f (%s)"
-            % (name, "x".join(str(d) for d in shape), row["dtype"], err,
+            % (name, "x".join(str(d) for d in shape)
+               + ("+%d" % offset if offset else ""), row["dtype"], err,
                how, meas, tol, row["ms"], row["plain_ms"],
                "%.4f" % row["library_ms"] if library else "null", b_ms,
                b_by))
@@ -1195,9 +1268,8 @@ def phase_rtc_kernels(torch, timer, seed):
                                                   (64, 1, 1)),
              "NVRTC could not compile"),
             ("block of 2048 threads",
-             lambda: mx.rtc.Rtc(rk.SAXPY.replace("in1[i]", "0.0f"),
-                                pallas=True).push([x], (1, 1, 1),
-                                                  (2048, 1, 1)),
+             lambda: mx.rtc.Rtc(ONE_INPUT_BODY, pallas=True).push(
+                 [x], (1, 1, 1), (2048, 1, 1)),
              "more than the kernel's limit"),
             ("CPU tensor",
              lambda: mx.rtc.Rtc(rk.SAXPY, pallas=True).push(
@@ -1313,7 +1385,7 @@ def main(argv=None):
     # one row per kernel: flash-decode at the decode batch of 8 (float32),
     # the int8 matmul at the decode lm_head shape (M=8, K=512, N=8192)
     fd_main = next(r for r in fd_rows if r["B"] == 8
-                   and r["dtype"] == "float32")
+                   and r["dtype"] == "float32" and r["kv_dtype"] == "float32")
     qmm_main = next(r for r in qmm_rows if (r["M"], r["K"], r["N"])
                     == (8, 512, 8192) and r["dtype"] == "float32")
     # the int8 matmul's prefill row: the wgmma body at the largest prompt
@@ -1381,7 +1453,7 @@ def main(argv=None):
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
     # its launches are the imperative path's (phase 8)
     rtc_main = next(r for r in rtc_res["rows"] if r["kernel"] == "saxpy"
-                    and r["n"] == RTC_TIMED_N)
+                    and r["n"] == RTC_TIMED_N and not r["offset"])
     kernels.append({
         "name": "rtc", "route": "cuda", "compiler": "nvrtc",
         "source": "mxnet_tpu_torch/kernels/rtc_kernels.py",

@@ -90,8 +90,8 @@ def _lib_path(name):
 def _declare(lib, name):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
-        fn, args = lib.mxtt_flash_decode, [i, i, vp, vp, vp, vp, vp, vp,
-                                           i, i, i, i, i, f, vp]
+        fn, args = lib.mxtt_flash_decode, ([i, i] + [vp] * 8
+                                           + [i] * 6 + [f, vp])
     elif name == "quantized_matmul":
         lib.mxtt_qmm_gemv.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.mxtt_qmm_gemv.restype = i

@@ -9,9 +9,11 @@ block-table row (serving/kvcache.py), with positions ``> pos`` masked.
   signature.  It runs for tensors on the CPU, and it is what the CUDA
   kernel is compared with on the GPU.
 - :func:`flash_decode_attention` is the wrapper of the hand-written
-  CUDA kernel ``csrc/flash_decode.cu`` (grid ``(B, H)``, an online
-  softmax over the blocks ``j <= pos // block_size``).  For CUDA tensors
-  it launches the kernel or raises; there is no flag that turns it off.
+  CUDA kernel ``csrc/flash_decode.cu``: each row's cache blocks split
+  across thread blocks (:func:`plan_flash_decode`), partial softmax
+  states combined in split order by the last block of each (row, head)
+  to finish, in one launch.  For CUDA tensors it launches the
+  kernel or raises; there is no flag that turns it off.
   ``flash_decode_attention.launches`` counts its launches.
 """
 from __future__ import annotations
@@ -22,16 +24,32 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["decode_attention_reference", "flash_decode_attention"]
+__all__ = ["decode_attention_reference", "flash_decode_attention",
+           "plan_flash_decode"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the widest head the kernel takes: every attention model of the JAX
+#: package fits (``models/transformer.py`` and ``transformer_moe.py``:
+#: dim / num_heads, 256 / 8 = 32 by default, 512 / 8 = 64 as benchmarked)
+MAX_HEAD_DIM = 256
+#: thread blocks an SM the split aims at when every row is full
+CTAS_PER_SM = 4
 
 
 def decode_attention_reference(q, k_pool, v_pool, table, pos, scale=None):
     """Gather + softmax decode attention.  ``q (B, H, D)``, pools
     ``(NB, BS, H, D)``, ``table (B, MB)`` int, ``pos (B,)`` int (the
-    newest token's index).  Returns ``(B, H, D)`` in q's dtype."""
+    newest token's index).  Returns ``(B, H, D)`` in q's dtype.
+
+    ``pos`` is meant to be >= 0, as the engine's always is.  For a row
+    with ``pos < 0`` every slot is masked alike, so this version (like
+    the JAX package's reference and its Pallas kernel) returns the plain
+    average of ``v`` over every slot of the row's table, while the CUDA
+    kernel reads no slot and returns 0: it reads only the table entries
+    up to ``pos // BS``, so that entries past them need not name a
+    block."""
     B, H, D = q.shape
     BS = k_pool.shape[1]
     MB = table.shape[1]
@@ -81,15 +99,75 @@ def _check_inputs(q, k_pool, v_pool, table, pos):
             raise MXNetError("flash_decode: %s must be contiguous" % name)
 
 
+def plan_flash_decode(B, H, MB, BS, D, sms):
+    """The kernel's grid, from the shapes and the card's SM count alone
+    (never from ``pos``, which lives on the card).
+
+    Each thread block takes ``blocks_per_split`` of a row's ``MB`` table
+    slots (``BS`` tokens each) for one head; a row has ``splits =
+    ceil(MB / blocks_per_split)`` of them.  The split is the coarsest
+    that gives ``CTAS_PER_SM`` blocks an SM when every row is full, with
+    at least one slot a block.  Returns a dict: ``splits``,
+    ``blocks_per_split``, ``grid`` (``(splits, H, B)``), ``ctas``, the
+    ``workspace`` floats and the ``counters`` it needs (none when
+    ``splits`` is 1)."""
+    wanted = min(MB, -(-CTAS_PER_SM * sms // (B * H)))
+    blocks_per_split = -(-MB // wanted)
+    splits = -(-MB // blocks_per_split)
+    multi = splits > 1
+    return {"splits": splits, "blocks_per_split": blocks_per_split,
+            "grid": (splits, H, B), "ctas": splits * H * B,
+            "workspace": B * H * splits * (D + 2) if multi else 0,
+            "counters": B * H if multi else 0}
+
+
+_PLANS = {}     # (device index, B, H, MB, BS, D) -> plan_flash_decode's plan
+#: (device index, stream) -> [int32 counters, all 0 between calls;
+#: float32 workspace].  Streams come from PyTorch's fixed pool of a few
+#: dozen a device (or are the default one), so the entries stay few.
+_SCRATCH = {}
+
+
+def _plan(dev, B, H, MB, BS, D):
+    """The plan for these shapes on ``dev``, made once."""
+    key = (dev.index, B, H, MB, BS, D)
+    plan = _PLANS.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _PLANS[key] = plan_flash_decode(B, H, MB, BS, D, sms)
+    return plan
+
+
+def _scratch(dev, stream, plan):
+    """The counters and the workspace of calls on ``stream``.  The
+    counters are cleared once, when made or grown: every launch leaves
+    them at zero.  Calls on one stream run in order, so they can share
+    both; one entry a stream keeps calls on two streams apart."""
+    key = (dev.index, stream)
+    entry = _SCRATCH.get(key)
+    if entry is None:
+        entry = _SCRATCH[key] = [
+            torch.zeros(64, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float32, device=dev)]
+    if entry[0].numel() < plan["counters"]:
+        entry[0] = torch.zeros(plan["counters"], dtype=torch.int32,
+                               device=dev)
+    if entry[1].numel() < plan["workspace"]:
+        entry[1] = torch.empty(plan["workspace"], dtype=torch.float32,
+                               device=dev)
+    return entry
+
+
 def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
     """Decode attention with :func:`decode_attention_reference`'s
     signature and semantics.  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/flash_decode.cu`` (and raise on inputs it
-    does not take).  ``table`` and ``pos`` must be int32 on the GPU, and
-    every table entry the kernel reads (slots ``<= pos // BS``) must name
-    a pool block: the kernel does not bound-check them (that would cost
-    a device-to-host sync per call); the cache's allocator hands out
-    only valid ids."""
+    tensors launch ``csrc/flash_decode.cu`` once, with the grid of
+    :func:`plan_flash_decode` (and raise on inputs it does not take).
+    ``table`` and ``pos`` must be int32 on the GPU, and every table
+    entry the kernel reads (slots ``<= pos // BS``) must name a pool
+    block: the kernel does not bound-check them (that would cost a
+    device-to-host sync per call); the cache's allocator hands out only
+    valid ids."""
     if not q.is_cuda:
         return decode_attention_reference(q, k_pool, v_pool, table, pos,
                                           scale=scale)
@@ -98,17 +176,29 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
     B, H, D = q.shape
     BS = k_pool.shape[1]
     MB = table.shape[1]
+    if D > MAX_HEAD_DIM:
+        raise MXNetError("flash_decode: head width D=%d is more than the "
+                         "kernel's %d (every attention model of the repo "
+                         "has D <= 64)" % (D, MAX_HEAD_DIM))
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    pl = _plan(dev, B, H, MB, BS, D)
     out = torch.empty_like(q)
     lib = library("flash_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if pl["splits"] > 1:
+            counters, ws = _scratch(dev, stream, pl)
+            ws_ptr, cnt_ptr = ws.data_ptr(), counters.data_ptr()
+        else:
+            ws_ptr = cnt_ptr = None
         code = lib.mxtt_flash_decode(
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, H, D, BS, MB, float(scale), stream)
+            table.data_ptr(), pos.data_ptr(), out.data_ptr(), ws_ptr,
+            cnt_ptr, B, H, D, BS, MB, pl["blocks_per_split"], float(scale),
+            stream)
     check(lib, code, "flash_decode")
     flash_decode_attention.launches += 1
     return out

@@ -16,10 +16,13 @@ kernels that reach the rest of the kernel branch:
   tiles, 2-D grid and 2-D blocks.
 
 The elementwise ones are bound by bytes (each input read once, each
-output written once): one element a thread, consecutive threads on
-consecutive addresses.  The transpose reads and writes whole 128-byte
-rows of a tile; the tile's padded column keeps the transposed reads of
-shared memory free of bank conflicts.
+output written once).  :data:`XY_PLUS_ONE` and :data:`ADD_MUL_BF16` take
+one element a thread, consecutive threads on consecutive addresses, the
+simplest form of a body; :data:`SAXPY` moves 16-byte vectors in a
+grid-stride loop over a grid sized from the card (:func:`saxpy_dims`).
+The transpose reads and writes whole 128-byte rows of a tile; the
+tile's padded column keeps the transposed reads of shared memory free
+of bank conflicts.
 
 Each wrapper takes NDArrays.  On arrays that lie on the CPU it runs the
 plain version (a CUDA body cannot run there); on a GPU it pushes the
@@ -33,7 +36,7 @@ from ..ndarray import NDArray
 from ..rtc import Rtc
 
 __all__ = ["XY_PLUS_ONE", "SAXPY", "EXP_SHARED", "ADD_MUL_BF16",
-           "TRANSPOSE", "xy_plus_one", "saxpy", "exp_shared",
+           "TRANSPOSE", "xy_plus_one", "saxpy", "saxpy_dims", "exp_shared",
            "add_mul_bf16", "transpose", "xy_plus_one_reference",
            "saxpy_reference", "exp_shared_reference",
            "add_mul_bf16_reference", "transpose_reference"]
@@ -44,8 +47,44 @@ XY_PLUS_ONE = r"""
 """
 
 SAXPY = r"""
+    // 16-byte loads and stores in a grid-stride loop over tiles of
+    // 8 x blockDim.x vectors: each thread has eight vectors in flight,
+    // blockDim.x apart, so a block reads and writes one contiguous tile at
+    // a time; a scalar tail for the last out0_size % 4 elements, and a
+    // scalar loop when an array does not start on a 16-byte boundary (a
+    // view can start anywhere)
+    const long long n = out0_size, n4 = n / 4;
+    const long long tile = 8LL * blockDim.x;
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < out0_size) out0[i] = 2.5f * in0[i] + in1[i];
+    if (((unsigned long long)in0 | (unsigned long long)in1
+         | (unsigned long long)out0) % 16 == 0) {
+        const float4* x4 = reinterpret_cast<const float4*>(in0);
+        const float4* y4 = reinterpret_cast<const float4*>(in1);
+        float4* o4 = reinterpret_cast<float4*>(out0);
+        for (long long t0 = (long long)blockIdx.x * tile; t0 < n4;
+             t0 += (long long)gridDim.x * tile) {
+            float4 x[8], y[8];
+            #pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const long long j = t0 + threadIdx.x + u * blockDim.x;
+                if (j < n4) {
+                    x[u] = x4[j];
+                    y[u] = y4[j];
+                }
+            }
+            #pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const long long j = t0 + threadIdx.x + u * blockDim.x;
+                if (j < n4)
+                    o4[j] = make_float4(
+                        2.5f * x[u].x + y[u].x, 2.5f * x[u].y + y[u].y,
+                        2.5f * x[u].z + y[u].z, 2.5f * x[u].w + y[u].w);
+            }
+        }
+        i += n4 * 4;
+    }
+    for (; i < n; i += (long long)gridDim.x * blockDim.x)
+        out0[i] = 2.5f * in0[i] + in1[i];
 """
 
 EXP_SHARED = r"""
@@ -99,6 +138,19 @@ def _elementwise_dims(n):
     return ((n + _THREADS - 1) // _THREADS, 1, 1), (_THREADS, 1, 1)
 
 
+#: thread blocks an SM for :data:`SAXPY`: 8 of 256 threads fill an SM
+SAXPY_BLOCKS_PER_SM = 8
+
+
+def saxpy_dims(n, sms):
+    """Grid and block of :data:`SAXPY` over ``n`` elements on a card
+    with ``sms`` SMs: ``SAXPY_BLOCKS_PER_SM`` blocks of 256 threads an
+    SM, fewer when ``n`` fills fewer tiles of 8 x 256 vectors (the
+    grid-stride loop takes whatever is beyond one tile a block)."""
+    blocks = min(sms * SAXPY_BLOCKS_PER_SM, -(-n // (4 * 8 * _THREADS)))
+    return (max(1, blocks), 1, 1), (_THREADS, 1, 1)
+
+
 def _on_cpu(arrays):
     return all(a.data.device.type == "cpu" for a in arrays)
 
@@ -142,9 +194,12 @@ def xy_plus_one(x, y):
 
 
 def saxpy(x, y):
+    """``2.5 x + y`` on float32 arrays; on a GPU with the grid of
+    :func:`saxpy_dims` for the card."""
     if _on_cpu((x, y)):
         return _wrap([saxpy_reference(x.data, y.data)], x)
-    grid, block = _elementwise_dims(x.size)
+    grid, block = saxpy_dims(x.size, torch.cuda.get_device_properties(
+        x.data.device).multi_processor_count)
     return _rtc(SAXPY).push([x, y], grid, block)
 
 

@@ -74,6 +74,149 @@ def test_flash_decode_kernel_rejects_bad_inputs(cuda):
         fd.flash_decode_attention(q.half(), k.half(), v.half(), table, pos)
 
 
+#: the split edges of a plan: first slot, last of the first block, first
+#: of the second, last and first of a split's span, the last slot
+def _edges(bs, bps, mb):
+    return [0, bs - 1, bs, bps * bs - 1, bps * bs, mb * bs - 1]
+
+
+def _split_case(dev, dtype, kv_dtype, pos, h=8, d=64, bs=32, mb=32,
+                seed=0):
+    rng = np.random.RandomState(seed)
+    pos = np.asarray(pos, np.int32)
+    b = len(pos)
+    nb = b * mb + 1
+    free = list(rng.permutation(np.arange(1, nb)))
+    table = np.zeros((b, mb), np.int32)
+    for i in range(b):
+        n = min(mb, int(pos[i]) // bs + 1)
+        table[i, :n] = [free.pop() for _ in range(n)]
+    q = torch.from_numpy(rng.randn(b, h, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(nb, bs, h, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(nb, bs, h, d).astype(np.float32))
+    return (q.to(dev, dtype), k.to(dev, kv_dtype), v.to(dev, kv_dtype),
+            torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 2e-5)])
+def test_flash_decode_split_edges(cuda, b, d, dtype, kv_dtype, tol):
+    """Every split edge of the card's plan, B rows at a time, at the
+    serving shapes (H=8, 32-token blocks, 32 slots): within the
+    tolerance, no NaN, and the same bits on a second call."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fd.plan_flash_decode(b, 8, 32, 32, d, sms)
+    assert plan["splits"] > 1
+    edges = _edges(32, plan["blocks_per_split"], 32)
+    for i in range(0, len(edges), b):
+        pos = (edges[i:i + b] + [700, 300, 17, 900, 640, 1000, 5])[:b]
+        q, k, v, table, p = _split_case(cuda, dtype, kv_dtype, pos, d=d,
+                                        seed=i)
+        got = fd.flash_decode_attention(q, k, v, table, p)
+        again = fd.flash_decode_attention(q, k, v, table, p)
+        want = fd.decode_attention_reference(q, k, v, table, p)
+        torch.cuda.synchronize()
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, again), pos
+        assert float((got.float() - want.float()).abs().max()) <= tol, pos
+
+
+@pytest.mark.parametrize("sms", [16, 176, 512])
+def test_flash_decode_other_plans(cuda, monkeypatch, sms):
+    """The kernel is right under any plan the planner makes for another
+    card (B=8, H=8, 32 slots): no split (16 SMs), uneven splits of 3
+    slots (176), one slot a split (512)."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    plan_fn = fd.plan_flash_decode
+    monkeypatch.setattr(fd, "plan_flash_decode",
+                        lambda B, H, MB, BS, D, _sms: plan_fn(B, H, MB, BS,
+                                                              D, sms))
+    monkeypatch.setattr(fd, "_PLANS", {})
+    q, k, v, table, p = _split_case(cuda, torch.float32, torch.float32,
+                                    _edges(32, 3, 32) + [700, 1000])
+    got = fd.flash_decode_attention(q, k, v, table, p)
+    again = fd.flash_decode_attention(q, k, v, table, p)
+    want = fd.decode_attention_reference(q, k, v, table, p)
+    torch.cuda.synchronize()
+    assert fd._PLANS[(cuda.index, 8, 8, 32, 32, 64)] == plan_fn(
+        8, 8, 32, 32, 64, sms)
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_flash_decode_negative_pos_gives_zero(cuda):
+    """pos < 0 is outside the engine's use: the kernel reads no slot of
+    such a row and gives 0 (the plain versions average every slot, see
+    decode_attention_reference); the other rows are unaffected."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    q, k, v, table, p = _split_case(cuda, torch.float32, torch.float32,
+                                    [5, 700, 0])
+    p[0] = -1
+    got = fd.flash_decode_attention(q, k, v, table, p)
+    want = fd.decode_attention_reference(q, k, v, table, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert float((got[1:] - want[1:]).abs().max()) <= 2e-5
+
+
+def test_flash_decode_one_kernel_a_call(cuda):
+    """torch.profiler sees exactly one kernel for each call (no memset of
+    the counters, no combine launch), and the counters are back at zero
+    after two calls in a row."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    q, k, v, table, p = _split_case(cuda, torch.float32, torch.float32,
+                                    [0, 31, 32, 1023, 17, 300, 640, 900])
+    fd.flash_decode_attention(q, k, v, table, p)        # counters made
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fd.flash_decode_attention(q, k, v, table, p)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and "memcpy" not in e.name.lower()]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all("flash_decode" in e.name for e in kernels)
+    fd.flash_decode_attention(q, k, v, table, p)
+    fd.flash_decode_attention(q, k, v, table, p)
+    torch.cuda.synchronize()
+    assert fd._SCRATCH and all(int(c.abs().sum()) == 0
+                               for c, _ws in fd._SCRATCH.values())
+
+
+def test_flash_decode_two_streams(cuda):
+    """Calls on two streams at once keep their counters apart."""
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    case = _split_case(cuda, torch.float32, torch.float32, [1023] * 8)
+    want = fd.decode_attention_reference(*case)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append([fd.flash_decode_attention(*case) for _ in range(4)])
+    torch.cuda.synchronize()
+    for o in outs:
+        for got in o:
+            assert float((got - want).abs().max()) <= 2e-5
+    keys = {key for key in fd._SCRATCH if key[0] == cuda.index}
+    assert {s.cuda_stream for s in streams} <= {key[1] for key in keys}
+
+
+def test_flash_decode_rejects_wide_heads(cuda):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    q, k, v, table, p = _split_case(cuda, torch.float32, torch.float32,
+                                    [5], h=1, d=264, mb=2)
+    with pytest.raises(MXNetError, match="D=264"):
+        fd.flash_decode_attention(q, k, v, table, p)
+
+
 @pytest.mark.parametrize("m,k,n,dtype,tol", [
     (1, 512, 2048, torch.float32, 1e-4),
     (67, 100, 130, torch.float32, 1e-4),      # ragged on every dim
@@ -409,6 +552,23 @@ def test_rtc_elementwise_kernel_matches_plain(cuda, name, shape):
     assert _ulps(got.data, want) <= 1.0
 
 
+@pytest.mark.parametrize("n,offset", [((1 << 24) + 3, 0), (1 << 20, 1),
+                                      (1001, 1), (7, 0)])
+def test_rtc_saxpy_ragged_and_offset(cuda, n, offset):
+    """The vector body's scalar tail (n % 4 != 0) and its scalar path (a
+    view that starts one element into its array, not 16-byte aligned):
+    within 1 ulp of the plain version."""
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    x = _rand(cuda, (n + offset,), 9)[offset:offset + n]
+    y = _rand(cuda, (n + offset,), 10)[offset:offset + n]
+    assert (x.data.data_ptr() % 16 == 0) == (offset == 0)
+    (got,) = rk.saxpy(x, y)
+    want = rk.saxpy_reference(x.data, y.data)
+    torch.cuda.synchronize()
+    assert got.shape == (n,)
+    assert _ulps(got.data, want) <= 1.0
+
+
 def test_rtc_shared_memory_kernel_matches_plain(cuda):
     """The reference MXNet's NVRTC test: grid (1,1,1), block (10,1,1),
     a static __shared__ array; expf within 2 ulp of torch.exp."""
@@ -442,17 +602,23 @@ def test_rtc_transpose_2d_grid_bitwise(cuda, shape):
     assert torch.equal(got.data, rk.transpose_reference(x.data))
 
 
+#: 2.5 x from one input, one element a thread
+ONE_INPUT_BODY = r"""
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < out0_size) out0[i] = 2.5f * in0[i] + 0.0f;
+"""
+
+
 def test_rtc_errors_on_the_card(cuda):
     """A compile error carries NVRTC's log; a block over the kernel's
     thread limit and a grid dimension of 0 raise before launching."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.kernels import rtc_kernels as rk
     x = _rand(cuda, (64,), 6)
     bad = mx.rtc.Rtc("out0[threadIdx.x] = in0[threadIdx.x] +;", pallas=True)
     with pytest.raises(mx.MXNetError, match="NVRTC could not compile"
                        "(.|\n)*error"):
         bad.push([x], (1, 1, 1), (64, 1, 1))
-    ok = mx.rtc.Rtc(rk.SAXPY.replace("in1[i]", "0.0f"), pallas=True)
+    ok = mx.rtc.Rtc(ONE_INPUT_BODY, pallas=True)
     with pytest.raises(mx.MXNetError, match="more than the kernel's limit"):
         ok.push([x], (1, 1, 1), (2048, 1, 1))
     with pytest.raises(mx.MXNetError, match="at least 1"):

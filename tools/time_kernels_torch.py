@@ -14,10 +14,12 @@ It imports ``mxnet_tpu_torch`` from ``--tree`` (its kernels build into
 that tree's ``build/``) and times, with ``chip_smoke.py``'s timer of this
 checkout (CUDA events, the L2 flushed and a spin before every launch),
 the int8 weight-only matmul at the decode ``lm_head`` (M=8) and the
-largest prompt bucket (M=960), K=512, N=8192, float32 x, and the
+largest prompt bucket (M=960), K=512, N=8192, float32 x, the
 flash-attention forward at the training shape (B=8, H=8, S=1024, D=64,
-causal) in bfloat16 and float32.  Each result is checked against the
-plain version of the same tree first.  Then it times ``--train-steps``
+causal) in bfloat16 and float32, flash-decode at ``chip_smoke.py``
+phase 2's shapes and positions (B=8 float32 and bfloat16, B=1 float32)
+and the Rtc saxpy body (``2.5 x + y``) at 2^24 float32 elements.  Each
+result is checked against the plain version of the same tree first.  Then it times ``--train-steps``
 steps (after two warm-up steps, each ended by a synchronize, on the host
 clock) of ``chip_smoke.py``'s full-width training run through the
 tree's ``ShardedTrainer``, in float32 (TF32 off; the control: its kernels
@@ -57,7 +59,9 @@ def main(argv=None):
     for mod in [m for m in sys.modules if m.startswith("mxnet_tpu_torch")]:
         del sys.modules[mod]
     from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import flash_decode as fd
     from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
     if not fa.__file__.startswith(tree):
         raise RuntimeError("imported %s, not from %s" % (fa.__file__, tree))
     timer = chip_smoke.Timer(torch, args.iters, chip_smoke.LEAD_CYCLES)
@@ -86,6 +90,30 @@ def main(argv=None):
         out[name] = timer(lambda: fa.flash_attention_forward(q, k, v,
                                                              causal=True))
     del q, k, v
+    for B, dtype in ((8, torch.float32), (8, torch.bfloat16),
+                     (1, torch.float32)):
+        pos = chip_smoke.FD_POSITIONS if B == 8 else chip_smoke.FD_POS_B1
+        q, k, v, table, p = chip_smoke.flash_decode_case(torch, rng, pos,
+                                                         dtype)
+        err = float((fd.flash_decode_attention(q, k, v, table, p).float()
+                     - fd.decode_attention_reference(q, k, v, table, p)
+                     .float()).abs().max())
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        if not err <= tol:
+            raise AssertionError("flash_decode B=%d %s: %g from plain"
+                                 % (B, dtype, err))
+        name = "flash_decode_B%d_%s_ms" % (B, str(dtype).replace("torch.",
+                                                                 ""))
+        out[name] = timer(lambda: fd.flash_decode_attention(q, k, v, table,
+                                                            p))
+    import mxnet_tpu_torch as mx
+    x, y = (mx.nd.array(torch.rand(1 << 24, device="cuda"), ctx=mx.gpu(0))
+            for _ in range(2))
+    (got,) = rk.saxpy(x, y)
+    if not torch.allclose(got.data, rk.saxpy_reference(x.data, y.data),
+                          rtol=2.0 ** -23, atol=0):
+        raise AssertionError("saxpy: more than 1 ulp from plain")
+    out["saxpy_2e24_ms"] = timer(lambda: rk.saxpy(x, y))
     if args.train_steps > 0:
         params = chip_smoke.seeded_train_params(args.seed)
         batch = chip_smoke.train_batch(args.seed)
