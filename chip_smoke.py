@@ -11,14 +11,17 @@ line:
 
 1. the device, ``nvidia-smi``'s name and power limit, and the build of
    every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` per source, started together), with each kernel's registers
+   and spills from ``ptxas`` (the float32 flash forward at D=64 must not
+   spill);
 2. flash-decode, kernel vs its plain PyTorch version, on the card, at the
    slice's shapes (the decode buckets B in {1, 2, 4, 8} and a ragged B=3,
    H=8, D=64, 32-token blocks, a 256-block pool, 32 table slots), in
    float32, bfloat16 and float32 q over a bfloat16 pool, at mixed
    positions and at every edge of the kernel's split (each case run twice
-   and required to repeat bit for bit), with the plan (splits, thread
-   blocks) and times of the kernel, the plain version,
+   and required to repeat bit for bit), and with a row at pos < 0 (the
+   mean of v over its table, as the plain version), with the plan
+   (splits, thread blocks) and times of the kernel, the plain version,
    ``F.scaled_dot_product_attention`` on the gathered cache (a yardstick
    only) and the bandwidth bound;
 3. the int8 weight-only matmul, kernel vs plain, at M in {1, 8, 16, 17,
@@ -39,11 +42,13 @@ line:
    float32 at every step.
 5. the flash-attention forward of training, kernel vs plain (``o`` and
    ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 (the FMA
-   body) and bfloat16 (the wgmma body), at a ragged S=1000, and in
-   bfloat16 at D=32 and D=128 and S=77, with times of the kernel, the
-   plain version, ``F.scaled_dot_product_attention`` (a yardstick only)
-   and the bound (operations at 67 TFLOP/s float32 or 989 TFLOP/s
-   bfloat16, or bytes at 3.35 TB/s, whichever is larger);
+   body, also required to repeat bit for bit) and bfloat16 (the wgmma
+   body), each also at a ragged S=1000, at D=32 and D=128 and at S=77,
+   and (checked, not timed) at Sq != Sk (200 and 77 queries against 77
+   and 200 keys), with times of the kernel, the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick only) and the bound
+   (operations at 67 TFLOP/s float32 or 989 TFLOP/s bfloat16, or bytes at
+   3.35 TB/s, whichever is larger);
 6. the fused optimizer sweep, kernel vs plain, on a 64 MB float32 bucket
    (SGD with momentum: bitwise; Adam: within 2 ulp) and on each bucket
    of the full-width model, with times of the kernel, the plain
@@ -80,9 +85,11 @@ name and power limit, and the one before that the per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +173,46 @@ class Timer(object):
                                 for s, e in zip(starts, ends)]))
 
 
+def ptxas_functions(text):
+    """(entry function, registers, spill store bytes, spill load bytes)
+    of each kernel in an ``nvcc -Xptxas -v`` log."""
+    out, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
+
+
+#: kernels that must build without spills: the float32 flash forward at
+#: the training head dim (``flash_forward_fma<64>``)
+NO_SPILL = {"flash_attention": "flash_forward_fmaILi64E"}
+
+
+def check_no_spills(info):
+    """Fail when a kernel of NO_SPILL spills, or its build log (kept
+    beside a cached library) does not say."""
+    for lib, marker in NO_SPILL.items():
+        found = [f for f in ptxas_functions(info[lib]["log"])
+                 if marker in f[0]]
+        if not found:
+            raise AssertionError("ptxas log of %s has no %s" % (lib, marker))
+        for fn, regs, st, ld in found:
+            if st or ld:
+                raise AssertionError("%s spills: %d bytes stored, %d loaded"
+                                     % (fn, st, ld))
+            log("  no spills: %s, %d registers" % (fn, regs))
+
+
 def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -202,6 +249,9 @@ def flash_decode_case(torch, rng, pos, dtype, kv_dtype=None, NB=256, BS=32,
 #: them) and, at B=1, one deep row
 FD_POSITIONS = [0, 31, 32, 1023, 17, 300, 640, 900]
 FD_POS_B1 = [700]
+#: a row with pos < 0, which the engine never passes: the kernel must give
+#: the mean of v over the row's table, as the plain version does
+FD_POS_NEGATIVE = [-1, 700, 0]
 
 
 def _fd_check(torch, fd, case, scale, tol, what):
@@ -227,7 +277,6 @@ def phase_flash_decode(torch, timer, seed):
     bitwise repeat) at phase 2's positions, timed, and at every split edge
     of the B's plan (0, BS-1, BS, blocks_per_split*BS - 1,
     blocks_per_split*BS, MB*BS - 1), B rows at a time."""
-    import torch.nn.functional as F
     from mxnet_tpu_torch.kernels import flash_decode as fd
     rows = []
     rng = np.random.RandomState(seed)
@@ -256,50 +305,88 @@ def phase_flash_decode(torch, timer, seed):
                                                  kv_dtype), scale, tol,
                     what + " at positions %s" % chunk))
             case = flash_decode_case(torch, rng, pos_main, dtype, kv_dtype)
-            q, k, v, table, pos = case
-            err = _fd_check(torch, fd, case, scale, tol, what)
-            # yardstick: SDPA on the gathered cache (gather not timed)
-            kk = k[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
-            vv = v[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
-            kk, vv = kk.to(dtype).contiguous(), vv.to(dtype).contiguous()
-            mask = (torch.arange(MB * BS, device=DEVICE)[None, :]
-                    <= pos.long()[:, None])[:, None, None, :]
-            q4 = q[:, :, None, :]
-            want = fd.decode_attention_reference(q, k, v, table, pos,
-                                                 scale=scale)
-            lib = F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
-                                                 scale=scale)[:, :, 0]
-            lib_err = float((lib.float() - want.float()).abs().max())
-            n_tok = int((pos.long() + 1).sum())
-            n_bytes = (2 * n_tok * H * D * k.element_size()
-                       + 2 * q.numel() * q.element_size()
-                       + table.numel() * 4 + pos.numel() * 4)
-            b_ms, b_by = bound_ms(n_bytes, 4 * n_tok * H * D)
-            row = {
-                "B": B, "dtype": str(dtype).replace("torch.", ""),
-                "kv_dtype": str(kv_dtype).replace("torch.", ""),
-                "pos": pos.tolist(), "edges": edges,
-                "plan": {key: plan[key] for key in (
-                    "splits", "blocks_per_split", "ctas")},
-                "max_abs_err": max(err, edge_err), "edge_max_abs_err": edge_err,
-                "tol": tol, "repeat_bitwise": True,
-                "library_max_abs_err": lib_err,
-                "ms": timer(lambda: fd.flash_decode_attention(
-                    q, k, v, table, pos, scale=scale)),
-                "plain_ms": timer(lambda: fd.decode_attention_reference(
-                    q, k, v, table, pos, scale=scale)),
-                "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                    q4, kk, vv, attn_mask=mask, scale=scale)),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
-            rows.append(row)
-            log("flash_decode B=%d q %-8s pool %-8s splits=%d ctas=%d "
-                "err=%.3g edges err=%.3g (tol %g) repeat bitwise "
-                "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
-                "bound_ms=%.5f (%s)"
-                % (B, row["dtype"], row["kv_dtype"], plan["splits"],
-                   plan["ctas"], err, edge_err, tol, row["ms"],
-                   row["plain_ms"], row["library_ms"], b_ms, b_by))
+            rows.append(_fd_timed_row(torch, fd, timer, plan, case, scale,
+                                      tol, what, edge_err, edges))
+    # a row with pos < 0 (outside the engine's use): every slot of its
+    # table weighs alike, as in the plain version and the JAX package
+    for dtype, kv_dtype in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.bfloat16)):
+        pos_neg = FD_POS_NEGATIVE
+        plan = fd.plan_flash_decode(len(pos_neg), H, MB, BS, D, sms)
+        case = flash_decode_case(torch, rng, pos_neg, dtype, kv_dtype)
+        q, k, v, table, pos = case
+        scale = 1.0 / math.sqrt(D)
+        what = "B=%d q %s pool %s at positions %s" % (
+            len(pos_neg), dtype, kv_dtype, pos_neg)
+        got = fd.flash_decode_attention(q, k, v, table, pos, scale=scale)
+        mean = v[table[0].long()].float().reshape(MB * BS, H, D).mean(0)
+        mean_err = float((got[0].float() - mean).abs().max())
+        if not mean_err <= tols[dtype]:
+            raise AssertionError("flash_decode %s: row 0 is %g from the mean "
+                                 "of v over its table" % (what, mean_err))
+        row = _fd_timed_row(torch, fd, timer, plan, case, scale, tols[dtype],
+                            what, 0.0, [])
+        row["mean_max_abs_err"] = mean_err
+        rows.append(row)
     return rows
+
+
+def _fd_timed_row(torch, fd, timer, plan, case, scale, tol, what, edge_err,
+                  edges):
+    """Kernel vs plain on ``case`` (twice, bitwise), then the times of the
+    kernel, the plain version, SDPA on the gathered cache and the bytes
+    bound.  A row with pos < 0 reads its whole table; SDPA gets -1e30
+    additive masks there so that it weighs every slot alike too."""
+    import torch.nn.functional as F
+    q, k, v, table, pos = case
+    B, H, D = q.shape
+    NB, BS = k.shape[:2]
+    MB = table.shape[1]
+    err = _fd_check(torch, fd, case, scale, tol, what)
+    # yardstick: SDPA on the gathered cache (gather not timed)
+    kk = k[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
+    vv = v[table.long()].reshape(B, MB * BS, H, D).transpose(1, 2)
+    kk, vv = kk.to(q.dtype).contiguous(), vv.to(q.dtype).contiguous()
+    mask = (torch.arange(MB * BS, device=DEVICE)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    if bool((pos < 0).any()):
+        mask = torch.where(mask | (pos < 0)[:, None, None, None],
+                           torch.zeros((), device=DEVICE),
+                           torch.full((), -1e30, device=DEVICE)).to(q.dtype)
+    q4 = q[:, :, None, :]
+    want = fd.decode_attention_reference(q, k, v, table, pos, scale=scale)
+    lib = F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
+                                         scale=scale)[:, :, 0]
+    lib_err = float((lib.float() - want.float()).abs().max())
+    n_tok = int(torch.where(pos < 0, MB * BS, pos.long() + 1).sum())
+    n_bytes = (2 * n_tok * H * D * k.element_size()
+               + 2 * q.numel() * q.element_size()
+               + table.numel() * 4 + pos.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * n_tok * H * D)
+    row = {
+        "B": B, "dtype": str(q.dtype).replace("torch.", ""),
+        "kv_dtype": str(k.dtype).replace("torch.", ""),
+        "pos": pos.tolist(), "edges": edges,
+        "plan": {key: plan[key] for key in (
+            "splits", "blocks_per_split", "ctas")},
+        "max_abs_err": max(err, edge_err), "edge_max_abs_err": edge_err,
+        "tol": tol, "repeat_bitwise": True,
+        "library_max_abs_err": lib_err,
+        "ms": timer(lambda: fd.flash_decode_attention(
+            q, k, v, table, pos, scale=scale)),
+        "plain_ms": timer(lambda: fd.decode_attention_reference(
+            q, k, v, table, pos, scale=scale)),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=mask, scale=scale)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+    log("flash_decode B=%d q %-8s pool %-8s pos %s splits=%d ctas=%d "
+        "err=%.3g edges err=%.3g (tol %g) repeat bitwise "
+        "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
+        % (B, row["dtype"], row["kv_dtype"], row["pos"] if B <= 3 else "...",
+           plan["splits"], plan["ctas"], err, edge_err, tol, row["ms"],
+           row["plain_ms"], row["library_ms"], b_ms, b_by))
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -566,10 +653,11 @@ def phase_flash_attention(torch, timer, seed):
     tol_o, tol_lse = 2e-5, 1e-4
     cases = [(S, D, causal, dt) for dt in (torch.float32, torch.bfloat16)
              for causal in (True, False)]
-    cases += [(1000, D, True, torch.float32), (1000, D, True, torch.bfloat16)]
-    # the bfloat16 (wgmma) body at its other head dims and a ragged S
-    cases += [(S, 32, True, torch.bfloat16), (S, 128, True, torch.bfloat16),
-              (77, D, False, torch.bfloat16)]
+    # both bodies at a ragged S, at their other head dims and at a short,
+    # ragged, non-causal S
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [(1000, D, True, dt), (S, 32, True, dt), (S, 128, True, dt),
+                  (77, D, False, dt)]
     rows = []
     for s_len, D, causal, dtype in cases:
         q, k, v = [torch.from_numpy(rng.randn(B, H, s_len, D).astype(
@@ -584,6 +672,14 @@ def phase_flash_attention(torch, timer, seed):
         if dtype == torch.float32:
             err = float((o - ro).abs().max())
             ok = err <= tol_o
+            # the FMA body has no atomics and a fixed order of every sum
+            o2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal,
+                                                  scale=scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(
+                    "flash_attention S=%d D=%d causal=%s float32: two runs "
+                    "differ" % (s_len, D, causal))
         else:
             err, ok = _bf16_close(torch, o, ro)
         if not (ok and lse_err <= tol_lse):
@@ -602,6 +698,7 @@ def phase_flash_attention(torch, timer, seed):
                "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "lse_max_abs_err": lse_err,
                "tol": tol_o if dtype == torch.float32 else "1 bf16 ulp",
+               "repeat_bitwise": dtype == torch.float32,
                "ms": timer(lambda: fa.flash_attention_forward(
                    q, k, v, causal=causal, scale=scale)),
                "plain_ms": timer(lambda: fa.flash_attention_forward_reference(
@@ -616,6 +713,34 @@ def phase_flash_attention(torch, timer, seed):
             "bound_ms=%.5f (%s)"
             % (s_len, D, causal, row["dtype"], err, lse_err, row["ms"],
                row["plain_ms"], row["library_ms"], b_ms, b_by))
+    # Sq != Sk: q and k tiles that do not line up (checked, not timed)
+    D = TRAIN["dim"] // TRAIN["num_heads"]
+    for (sq, sk), causal, dtype in itertools.product(
+            ((200, 77), (77, 200)), (True, False),
+            (torch.float32, torch.bfloat16)):
+        q = torch.from_numpy(rng.randn(B, H, sq, D).astype(np.float32)).to(
+            DEVICE, dtype)
+        k, v = [torch.from_numpy(rng.randn(B, H, sk, D).astype(
+            np.float32)).to(DEVICE, dtype) for _ in range(2)]
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+        ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        lse_err = float((lse - rl).abs().max())
+        if dtype == torch.float32:
+            err = float((o - ro).abs().max())
+            ok = err <= tol_o and torch.equal(o, o2) \
+                and torch.equal(lse, lse2)
+        else:
+            err, ok = _bf16_close(torch, o, ro)
+        if not (ok and lse_err <= tol_lse):
+            raise AssertionError(
+                "flash_attention Sq=%d Sk=%d D=%d causal=%s %s: max |kernel "
+                "- plain| o %g, lse %g (or float32 runs differ)"
+                % (sq, sk, D, causal, dtype, err, lse_err))
+        log("flash_attention Sq=%d Sk=%d D=%d causal=%-5s %-8s err o=%.3g "
+            "lse=%.3g" % (sq, sk, D, causal, str(dtype).replace("torch.", ""),
+                          err, lse_err))
     return rows
 
 
@@ -1362,10 +1487,13 @@ def main(argv=None):
             ", ".join("%s %.2f s" % (n, i["seconds"])
                       for n, i in sorted(info.items()))))
         for name, i in sorted(info.items()):
+            for fn, regs, st, ld in ptxas_functions(i["log"]):
+                log("  ptxas %s: %s: %d registers, %d bytes spill stores, "
+                    "%d bytes spill loads" % (name, fn, regs, st, ld))
             for line in i["log"].splitlines():
-                if "registers" in line or "spill" in line \
-                        or "Performance Loss" in line:
+                if "Performance Loss" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
+        check_no_spills(info)
         torch.manual_seed(args.seed)
         timer = Timer(torch, args.iters, LEAD_CYCLES)
         fd_rows = phase_flash_decode(torch, timer, args.seed)
@@ -1400,6 +1528,7 @@ def main(argv=None):
     # flash attention at the training shape (causal, float32); the sweep
     # at the model's largest bucket (SGD with momentum, as trained)
     fa_main = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
+                   and r["D"] == TRAIN["dim"] // TRAIN["num_heads"]
                    and r["causal"] and r["dtype"] == "float32")
     fa_bf16 = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
                    and r["D"] == TRAIN["dim"] // TRAIN["num_heads"]

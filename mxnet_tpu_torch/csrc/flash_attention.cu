@@ -35,34 +35,51 @@
 // the longest causal walks first, with q double-buffered so the next
 // item's loads overlap this item's last tiles and its epilogue.
 //
-// float32 inputs keep the FMA kernel (flash_forward_kernel below): it is
-// already faster than PyTorch's float32 attention, and a TF32 tensor-core
-// path would round q and k to 10 mantissa bits and change the numerics.
-// Grid (B*H, ceil(Sq/64)): one thread block of 128 threads holds a 64-row q
-// tile and loops over 64-row k/v tiles staged in shared memory.  The
-// statistics m (running max) and l (running sum) and the output rows o are
-// float32 registers.
+// float32 inputs: an FMA kernel (flash_forward_fma below).  It stays in
+// float32 on the FMA pipes: TF32 would round q and k to 10 mantissa bits.
+// Bound on this card: the arithmetic, 4*Sq*Sk*D operations per (b, h)
+// (half of that causal) at 67 TFLOP/s, 0.128 ms at B=8, H=8, S=1024, D=64
+// causal.  What the design does about it (FmaCfg<D> below):
 //
-// Thread layout: thread (ty, tx) = (tid / 8, tid % 8) owns q rows
-// 4*ty .. 4*ty+3 of the tile and, of the score tile, the 8 columns
-// {32*g + 4*tx + u : g < 2, u < 4}; of the output, the D/8 columns
-// {32*g + 4*tx + u : g < D/32, u < 4}.  The 8 threads of a row group are
-// 8 neighbouring lanes, so row maxima and sums reduce with 3 shuffles.  q
-// and k tiles are stored transposed (d-major, rows padded to 68 floats) so
-// that every inner-loop read is a conflict-free float4; probabilities go
-// through shared memory (transposed) from the score layout to the output
-// layout.
+// - A CTA of 128 threads (16 row groups of 8 lanes) holds BQ = 128 q rows
+//   (64 at D=128) and walks 64-key tiles.  Thread (ty, tx) = (tid / 8,
+//   tid % 8) owns q rows ty + 16 i (i < BQ / 16) and, of a score tile,
+//   keys tx + 8 j (j < 8): an 8x8 register micro-tile, whose inner loop
+//   reads 16 floats of shared memory for 64 FMAs.  Of the output it owns
+//   the same rows and columns 4 tx + 32 g + u (u < 4), an 8x8 tile at D=64,
+//   whose loop reads p and v at the same rate.  Register-bound: 255 a
+//   thread, no spills (chip_smoke.py checks the build log at D=64).
+// - k and v tiles arrive by cp.async (16 bytes a copy, zero-filled past
+//   Sk) into a ring of 2 stages: tile j + 1 loads while tile j computes,
+//   one __syncthreads a tile.  Tiles are row-major as in memory, q and k
+//   rows padded to D + 4 floats, so the float4 reads along d of 4 rows
+//   (q) or 8 rows (k) of a warp fall in distinct banks; v's float4 reads
+//   along a row are conflict-free unpadded.  q is loaded once per work
+//   item and pre-scaled by scale * log2(e) as it lands, so the softmax is
+//   exp2 of a difference.
+// - p = exp2(s - m) moves from the score layout to the output layout
+//   through shared memory, 16 keys at a time.  The lanes that hold a row's
+//   keys and the lanes that need them are the same warp, so each warp has
+//   its own 32 rows of p (padded to 24 floats: conflict-free writes and
+//   float4 reads) and a __syncwarp is the only barrier.  The CTA stays at
+//   112 KB: two CTAs an SM at D <= 64, each thread at up to 255 registers.
+// - The mask (-1e30, as the reference) is applied only on a tile that
+//   crosses the causal diagonal or the ragged edge, a branch uniform over
+//   the CTA; causal tiles wholly above the diagonal are not visited, and
+//   on the last tile of a 128-row item (keys from q0 + 64 on) the products
+//   of rows q0 .. q0 + 63, all masked there, are skipped.  The row max
+//   reduces over the 8 lanes by 3 shuffles; the row sum stays a per-lane
+//   partial until the epilogue.  O is rescaled only when a row max of the
+//   warp moved (exact: exp2(0) = 1).
+// - Work items (batch*head, q tile) run the longest causal walks first, on
+//   a plain grid of one CTA an item: the hardware hands the next item to
+//   the first free slot.  A persistent grid of one or two CTAs an SM
+//   measured slower at B=8, H=8, S=1024, D=64 (tools/ablate_flash_torch.py).
+//   No atomics and a fixed order of every sum, so results repeat bit for
+//   bit.
 //
-// Masks: a key at or past Sk (the ragged edge), or above the diagonal when
-// causal, scores -1e30 as in the reference -- not -inf -- and so adds
-// exp(-1e30 - m) = 0.  With causal, k tiles that lie wholly above the
-// diagonal are not visited at all, which is exact for the same reason.
-// Rows at or past Sq are computed on zeros and not stored.  So the kernel
-// takes any Sq and Sk, where the Pallas kernel needs multiples of its block.
-//
-// Bound of the float32 body: the arithmetic, 4*Sq*Sk*D flops per (b, h)
-// (half of that causal), on the float32 FMA pipes (67 TFLOP/s on an H100
-// SXM); 3 shared float4 loads per 32 FMAs in both inner loops.
+// Rows at or past Sq are computed on zeros and not stored, so both bodies
+// take any Sq and Sk, where the Pallas kernel needs multiples of its block.
 //
 // Layout: q (BH, Sq, D), k and v (BH, Sk, D), o (BH, Sq, D) in the input
 // type; lse (BH, Sq) float32.  All contiguous, 16-byte aligned.
@@ -76,199 +93,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;          // q rows per tile
-constexpr int kBK = 64;          // k rows per tile
-constexpr int kThreads = 128;
-constexpr int kLD = kBQ + 4;     // padded stride of the transposed tiles
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float group8_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-}
-
-__device__ __forceinline__ float group8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 4);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Sk, int causal,
-                     float scale) {
-  constexpr int OG = D / 32;     // float4 groups of output columns a thread
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // D x kLD: q tile, transposed
-  float* kt = qt + D * kLD;                     // D x kLD: k tile, transposed
-  float* vs = kt + D * kLD;                     // kBK x D: v tile
-  float* pt = vs + kBK * D;                     // kBK x kLD: p, transposed
-
-  const int bh = blockIdx.x;
-  const int n_qtiles = gridDim.y;
-  const int q0 = (n_qtiles - 1 - blockIdx.y) * kBQ;  // longest causal walks first
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const size_t qbase = (size_t)bh * Sq * D;
-  const size_t kbase = (size_t)bh * Sk * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    qt[d * kLD + r] = (q0 + r < Sq) ? to_f32(q[qbase + (size_t)(q0 + r) * D + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][4 * OG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * OG; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_ktiles = (Sk + kBK - 1) / kBK;
-  if (causal) {
-    const int last = (q0 + kBQ - 1) / kBK + 1;  // tiles touching the diagonal
-    if (last < n_ktiles) n_ktiles = last;
-  }
-
-  for (int j = 0; j < n_ktiles; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's kt, vs and pt are no longer read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e - c * D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < Sk) {
-        const size_t off = kbase + (size_t)(k0 + c) * D + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      kt[d * kLD + c] = kx;
-      vs[c * D + d] = vx;
-    }
-    __syncthreads();
-
-    // scores of this thread's 4 rows x 8 columns
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * kLD + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&kt[d * kLD + tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&kt[d * kLD + 32 + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) s[i][c] = fmaf(av[i], bv[c], s[i][c]);
-    }
-
-    // online softmax over the tile, row by row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = k0 + (c >> 2) * 32 + tx * 4 + (c & 3);
-        float x = s[i][c] * scale;
-        if (col >= Sk || (causal && col > r)) x = kNegInf;
-        s[i][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], group8_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[i][c] = expf(s[i][c] - m_new);
-        sum += s[i][c];
-      }
-      l[i] = l[i] * corr + group8_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * OG; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = (c >> 2) * 32 + tx * 4 + (c & 3);
-      *reinterpret_cast<float4*>(&pt[col * kLD + ty * 4]) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    }
-    __syncthreads();
-
-    // o += p v over the tile's keys
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pt[c * kLD + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int g = 0; g < OG; ++g) {
-        const float4 w4 = *reinterpret_cast<const float4*>(&vs[c * D + g * 32 + tx * 4]);
-        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            acc[i][g * 4 + u] = fmaf(pv[i], wv[u], acc[i][g * 4 + u]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= Sq) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-    T* orow = o + qbase + (size_t)r * D;
-#pragma unroll
-    for (int g = 0; g < OG; ++g)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) store_as(orow + g * 32 + tx * 4 + u, acc[i][g * 4 + u] / ls);
-    if (tx == 0) lse[(size_t)bh * Sq + r] = m[i] + logf(ls);
-  }
-}
-
-constexpr size_t smem_bytes(int D) {
-  return (size_t)(2 * D * kLD + kBK * D + kBK * kLD) * sizeof(float);
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int BH, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_forward_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-  flash_forward_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, causal, scale);
-  return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, void* lse,
-                     int BH, int Sq, int Sk, int causal, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 inputs: the tensor-core body (wgmma fed by TMA into an mbarrier
@@ -619,9 +443,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, v
 cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, void* o,
                            void* lse, int BH, int Sq, int Sk, int causal, float scale,
                            cudaStream_t s) {
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
-    return cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned tensors
   switch (D) {
     case 32: return launch_wgmma<32>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
     case 64: return launch_wgmma<64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
@@ -630,23 +451,319 @@ cudaError_t dispatch_wgmma(int D, const void* q, const void* k, const void* v, v
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 inputs: the FMA body (cp.async ring, 8x8 register micro-tiles;
+// see the head of this file)
+// ---------------------------------------------------------------------------
+template <int D>
+struct FmaCfg {
+  static constexpr int THREADS = 128;             // 16 row groups of 8 lanes
+  static constexpr int BQ = D == 128 ? 64 : 128;  // q rows a CTA
+  static constexpr int BK = 64;                   // keys a tile
+  static constexpr int RM = BQ / 16;              // q rows a thread
+  static constexpr int KN = BK / 8;               // keys a thread, of a tile
+  static constexpr int OG = D / 32;               // float4 column groups of o a thread
+  static constexpr int QLD = D + 4;               // padded row stride of q and k (floats)
+  static constexpr int VLD = D;                   // row stride of v
+  static constexpr int CH = D / 4;                // 16-byte pieces a row
+  static constexpr int STAGES = 2;
+  static constexpr int DU = D == 128 ? 2 : 1;     // unroll of the score loop over d
+  static constexpr int PK = 16;                   // keys of p exchanged at a time
+  static constexpr int PLD = PK + 8;              // row stride of p (floats)
+  static constexpr int WROWS = 4 * RM;            // q rows of a warp
+  static constexpr int SMEM =
+      (BQ * QLD + STAGES * BK * (QLD + VLD) + THREADS / 32 * WROWS * PLD) * 4;
+  static constexpr int MIN_CTAS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;  // CTAs an SM
+};
+
+// one k and one v tile of keys k0 .. k0 + BK - 1 into a stage, by cp.async;
+// rows at or past Sk are zero-filled (v must be: p = 0 times garbage could
+// be NaN)
+template <int D>
+__device__ __forceinline__ void load_kv_tile(float* sk, float* sv, const float* kb,
+                                             const float* vb, int k0, int Sk) {
+  using C = FmaCfg<D>;
+#pragma unroll
+  for (int it = 0; it < C::BK * C::CH / C::THREADS; ++it) {
+    const int e = threadIdx.x + it * C::THREADS;
+    const int r = e / C::CH, c = e % C::CH;
+    const bool ok = k0 + r < Sk;
+    const size_t off = (size_t)(ok ? k0 + r : 0) * D + c * 4;
+    mxtt::cp_async16(sk + r * C::QLD + c * 4, kb + off, ok);
+    mxtt::cp_async16(sv + r * C::VLD + c * 4, vb + off, ok);
+  }
+}
+
+__device__ __forceinline__ float group8_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+
+__device__ __forceinline__ float group8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// s = q k^T of one tile for this thread's rows ty + 16 i (i >= I0) and keys
+// tx + 8 jj; rows i < I0 are left 0 (the caller masks them)
+template <int D, int I0>
+__device__ __forceinline__ void score_tile(float (&s)[FmaCfg<D>::RM][FmaCfg<D>::KN],
+                                           const float* sq, const float* kt, int ty, int tx) {
+  using C = FmaCfg<D>;
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < C::KN; ++jj) s[i][jj] = 0.f;
+#pragma unroll C::DU
+  for (int d = 0; d < D; d += 4) {
+    float4 a[C::RM];
+#pragma unroll
+    for (int i = I0; i < C::RM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(sq + (ty + 16 * i) * C::QLD + d);
+#pragma unroll
+    for (int jj = 0; jj < C::KN; ++jj) {
+      const float4 b = *reinterpret_cast<const float4*>(kt + (tx + 8 * jj) * C::QLD + d);
+#pragma unroll
+      for (int i = I0; i < C::RM; ++i) {
+        s[i][jj] = fmaf(a[i].x, b.x, s[i][jj]);
+        s[i][jj] = fmaf(a[i].y, b.y, s[i][jj]);
+        s[i][jj] = fmaf(a[i].z, b.z, s[i][jj]);
+        s[i][jj] = fmaf(a[i].w, b.w, s[i][jj]);
+      }
+    }
+  }
+}
+
+// o += p v over one tile for rows i >= I0.  p moves from the score layout
+// (lane tx holds keys tx + 8 jj) to the output layout through this warp's
+// rows of shared memory, PK keys at a time: lane (tl, tx) writes its
+// keys of rows tl + 4 i, reads 4 keys of a row as one float4.
+template <int D, int I0>
+__device__ __forceinline__ void pv_tile(float (&acc)[FmaCfg<D>::RM][4 * FmaCfg<D>::OG],
+                                        const float (&s)[FmaCfg<D>::RM][FmaCfg<D>::KN],
+                                        float* pw, const float* vt, int tl, int tx) {
+  using C = FmaCfg<D>;
+  constexpr int JP = C::PK / 8;  // score columns jj a round
+#pragma unroll
+  for (int h = 0; h < C::KN / JP; ++h) {
+    __syncwarp();  // the last round's p is read
+#pragma unroll
+    for (int i = I0; i < C::RM; ++i)
+#pragma unroll
+      for (int jp = 0; jp < JP; ++jp) pw[(tl + 4 * i) * C::PLD + 8 * jp + tx] = s[i][JP * h + jp];
+    __syncwarp();
+#pragma unroll
+    for (int kc = 0; kc < C::PK; kc += 4) {
+      float4 p4[C::RM];
+#pragma unroll
+      for (int i = I0; i < C::RM; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(pw + (tl + 4 * i) * C::PLD + kc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* vr = vt + (C::PK * h + kc + kk) * C::VLD + 4 * tx;
+#pragma unroll
+        for (int g = 0; g < C::OG; ++g) {
+          const float4 w = *reinterpret_cast<const float4*>(vr + 32 * g);
+#pragma unroll
+          for (int i = I0; i < C::RM; ++i) {
+            const float p = kk == 0 ? p4[i].x : kk == 1 ? p4[i].y : kk == 2 ? p4[i].z : p4[i].w;
+            acc[i][4 * g] = fmaf(p, w.x, acc[i][4 * g]);
+            acc[i][4 * g + 1] = fmaf(p, w.y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p, w.z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p, w.w, acc[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One CTA a work item: CTA t takes (bh = t % BH, q tile n_qtiles - 1 -
+// t / BH), the longest causal walks first (kernels/flash_attention.py:
+// plan_flash_forward gives the same tiles and order; tests/
+// test_torch_flash_f32.py reads them out of this file).
+template <int D>
+__global__ void __launch_bounds__(FmaCfg<D>::THREADS, FmaCfg<D>::MIN_CTAS)
+flash_forward_fma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int BH, int Sq, int Sk, int causal,
+                  float scale_log2) {
+  using C = FmaCfg<D>;
+  constexpr int RM = C::RM, KN = C::KN, OG = C::OG;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);  // BQ x QLD: q, pre-scaled
+  float* sk = sq + C::BQ * C::QLD;              // STAGES x BK x QLD: k tiles
+  float* sv = sk + C::STAGES * C::BK * C::QLD;  // STAGES x BK x VLD: v tiles
+  float* sp = sv + C::STAGES * C::BK * C::VLD;  // a warp's WROWS x PLD: p
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7, ty = tid >> 3;
+  float* pw = sp + (tid >> 5) * C::WROWS * C::PLD;
+  const int n_qtiles = (Sq + C::BQ - 1) / C::BQ;
+
+  const int t = blockIdx.x;
+  const int bh = t % BH, q0 = (n_qtiles - 1 - t / BH) * C::BQ;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
+  int n_tiles = (Sk + C::BK - 1) / C::BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + C::BQ - 1) / C::BK + 1);
+
+  load_kv_tile<D>(sk, sv, kb, vb, 0, Sk);
+  mxtt::cp_async_commit();
+  const float* qb = q + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int it = 0; it < C::BQ * C::CH / C::THREADS; ++it) {
+    const int e = tid + it * C::THREADS;
+    const int r = e / C::CH, c = e % C::CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) x = __ldg(reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D) + c);
+    x.x *= scale_log2;
+    x.y *= scale_log2;
+    x.z *= scale_log2;
+    x.w *= scale_log2;
+    *reinterpret_cast<float4*>(sq + r * C::QLD + c * 4) = x;
+  }
+
+  float m[RM], l[RM], acc[RM][4 * OG];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;  // this lane's part of the row sum
+#pragma unroll
+    for (int c = 0; c < 4 * OG; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    const int k0 = j * C::BK;
+    mxtt::cp_async_wait<0>();
+    __syncthreads();  // tile j (and q) visible to all; tile j - 1's stage is free
+    if (j + 1 < n_tiles)
+      load_kv_tile<D>(sk + (st ^ 1) * C::BK * C::QLD, sv + (st ^ 1) * C::BK * C::VLD, kb,
+                      vb, k0 + C::BK, Sk);
+    mxtt::cp_async_commit();
+    const float* kt = sk + st * C::BK * C::QLD;
+    const float* vt = sv + st * C::BK * C::VLD;
+    // causal, 128 q rows: a tile past row q0 + 63 is wholly masked for
+    // rows i < RM / 2 (ty + 16 i < 64), whose products are skipped
+    const bool half = RM == 8 && causal && k0 >= q0 + 64;
+
+    float s[RM][KN];
+    if (half)
+      score_tile<D, RM / 2>(s, sq, kt, ty, tx);
+    else
+      score_tile<D, 0>(s, sq, kt, ty, tx);
+
+    // the mask, only on a tile that crosses the ragged edge or the diagonal
+    if (k0 + C::BK > Sk || (causal && k0 + C::BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < KN; ++jj) {
+          const int col = k0 + tx + 8 * jj;
+          if (col >= Sk || (causal && col > q0 + ty + 16 * i)) s[i][jj] = kNegInf;
+        }
+    }
+
+    // online softmax in the log2 domain: p = 2^(s - m) in place
+    float corr[RM];
+    bool moved = false;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int jj = 1; jj < KN; ++jj) mx = fmaxf(mx, s[i][jj]);
+      const float m_new = fmaxf(m[i], group8_max(mx));
+      moved |= m_new != m[i];
+      corr[i] = mxtt::exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KN; ++jj) {
+        s[i][jj] = mxtt::exp2_approx(s[i][jj] - m_new);
+        sum += s[i][jj];
+      }
+      l[i] = fmaf(l[i], corr[i], sum);
+    }
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * OG; ++c) acc[i][c] *= corr[i];
+    }
+
+    // o += p v
+    if (half)
+      pv_tile<D, RM / 2>(acc, s, pw, vt, ty & 3, tx);
+    else
+      pv_tile<D, 0>(acc, s, pw, vt, ty & 3, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = q0 + ty + 16 * i;
+    const float ls = fmaxf(group8_sum(l[i]), 1e-30f);
+    if (r >= Sq) continue;
+    const float rl = 1.f / ls;  // one division a row, not D
+    float* orow = o + ((size_t)bh * Sq + r) * D + 4 * tx;
+#pragma unroll
+    for (int g = 0; g < OG; ++g)
+      *reinterpret_cast<float4*>(orow + 32 * g) =
+          make_float4(acc[i][4 * g] * rl, acc[i][4 * g + 1] * rl, acc[i][4 * g + 2] * rl,
+                      acc[i][4 * g + 3] * rl);
+    if (tx == 0) lse[(size_t)bh * Sq + r] = m[i] * kLn2 + logf(ls);
+  }
+}
+
+template <int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int BH, int Sq, int Sk, int causal, float scale,
+                       cudaStream_t stream) {
+  using C = FmaCfg<D>;
+  static uint64_t smem_set = 0;
+  const cudaError_t err = mxtt::max_smem_once(flash_forward_fma<D>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)BH * ((Sq + C::BQ - 1) / C::BQ);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_forward_fma<D><<<(int)items, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), BH, Sq, Sk, causal, scale * kLog2e);
+  return cudaSuccess;
+}
+
+cudaError_t dispatch_fma(int D, const void* q, const void* k, const void* v, void* o,
+                         void* lse, int BH, int Sq, int Sk, int causal, float scale,
+                         cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_fma<32>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    case 64: return launch_fma<64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    case 128: return launch_fma<128>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype codes: 0 float32 (the FMA body), 1 bfloat16 (the wgmma body).  Head
-// dims 32, 64 and 128.  Returns cudaGetLastError() after the launch (0 on
-// success), cudaErrorInvalidValue for an unknown dtype code, a shape the
-// kernel does not take or a tensor map the driver refuses, or
-// cudaErrorMisalignedAddress for bfloat16 inputs not 16-byte aligned.
+// dims 32, 64 and 128.
+// Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for an unknown dtype code, a shape the kernel does
+// not take or a tensor map the driver refuses, or cudaErrorMisalignedAddress
+// for tensors not 16-byte aligned.
 extern "C" int mxtt_flash_attention_forward(int dtype, const void* q, const void* k,
                                             const void* v, void* o, void* lse, int BH,
                                             int Sq, int Sk, int D, int causal, float scale,
                                             void* stream) {
-  if (BH < 1 || Sq < 1 || Sk < 1 || (Sq + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (BH < 1 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;  // 16-byte loads, stores and TMA
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(D, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    err = dispatch_fma(D, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
   else if (dtype == 1)
     err = dispatch_wgmma(D, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
   else

@@ -21,9 +21,13 @@
 //   alone (kernels/flash_decode.py:plan_flash_decode), never from pos,
 //   which lives on the card.  A CTA whose span starts past pos[b] is
 //   dead: it writes m = -1e30, l = 0 and no o.  A live CTA reads only the
-//   tokens <= pos[b] of its span.  (A row with pos < 0 has no live split
-//   and gets 0, where the plain versions average every slot of the row's
-//   table; see decode_attention_reference.  The engine never passes one.)
+//   tokens <= pos[b] of its span.
+// - A row with pos < 0 (the engine never passes one) gets what the
+//   reference and its Pallas kernel give: every slot is masked alike, so
+//   every slot weighs exp2(0) = 1 and the result is the mean of v over the
+//   row's MB * BS slots.  Each of its CTAs takes its whole span and sets
+//   every score to -1e30.  Table entries are clamped into [0, NB), as the
+//   reference's gather clamps, so no table entry reads outside the pool.
 // - Inside a CTA, a group of G lanes (G a power of two, at most a warp)
 //   takes one token at a time: lane j holds elements of 16-byte
 //   pieces j, j + G, ... of the head's D values, loaded with one 16-byte
@@ -132,7 +136,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                     const TKV* __restrict__ v_pool, const int* __restrict__ table,
                     const int* __restrict__ pos, TQ* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ counters,
-                    int H, int D, int BS, int MB, int bps, int G, bool vec,
+                    int H, int D, int BS, int MB, int NB, int bps, int G, bool vec,
                     float scale_log2) {
   constexpr int N = Piece<TKV>::N;
   constexpr int E = NV * N;  // elements a lane holds
@@ -155,8 +159,9 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   // anything waits on one of them
   const int t_begin = split * bps * BS;
   for (int j = tid; j < bps && split * bps + j < MB; j += kThreads)
-    s_tab[j] = table[(size_t)b * MB + split * bps + j];
+    s_tab[j] = min(max(table[(size_t)b * MB + split * bps + j], 0), NB - 1);
   const int p = pos[b];
+  const bool all_masked = p < 0;  // every slot of the row, each scoring -1e30
   float qr[E], o[E];
   const TQ* qp = q + ((size_t)b * H + h) * D;
 #pragma unroll
@@ -167,8 +172,9 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
       qr[c * N + e] = d < D ? to_f32(qp[d]) * scale_log2 : 0.f;
       o[c * N + e] = 0.f;
     }
-  const int t_end = min(min(t_begin + bps * BS, MB * BS), p + 1);
-  const bool live = t_begin < t_end;  // false for every CTA when p < 0
+  const int span_end = min(t_begin + bps * BS, MB * BS);
+  const int t_end = all_masked ? span_end : min(span_end, p + 1);
+  const bool live = t_begin < t_end;
 
   const size_t row = (size_t)b * H + h;  // this (row, head)
   const size_t part = row * splits + split;
@@ -214,7 +220,8 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 #pragma unroll
           for (int e = 0; e < N; ++e) part_s = fmaf(qr[c * N + e], x[e], part_s);
         }
-        s[u] = group_sum(part_s, G);
+        const float dot = group_sum(part_s, G);
+        s[u] = all_masked ? kNegInf : dot;
         if (base + gid + u * ngroups < t_end) m_new = fmaxf(m_new, s[u]);
       }
       const float corr = exp2f(m - m_new);
@@ -336,8 +343,8 @@ int pow2_at_least(int n) {
 template <typename TQ, typename TKV, int NV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* table,
                    const void* pos, void* out, void* ws, void* counters, int B,
-                   int H, int D, int BS, int MB, int bps, int G, bool vec, float scale,
-                   cudaStream_t stream) {
+                   int H, int D, int BS, int MB, int NB, int bps, int G, bool vec,
+                   float scale, cudaStream_t stream) {
   const int splits = (MB + bps - 1) / bps;
   const int ngroups = kThreads / G;
   const int tile = ngroups * D > 2 * splits ? ngroups * D : 2 * splits;
@@ -346,15 +353,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
   flash_decode_kernel<TQ, TKV, NV><<<dim3(splits, H, B), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<const int*>(table), static_cast<const int*>(pos), static_cast<TQ*>(out),
-      static_cast<float*>(ws), static_cast<int*>(counters), H, D, BS, MB, bps, G, vec,
-      scale * kLog2e);
+      static_cast<float*>(ws), static_cast<int*>(counters), H, D, BS, MB, NB, bps, G,
+      vec, scale * kLog2e);
   return cudaSuccess;
 }
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* table,
                      const void* pos, void* out, void* ws, void* counters, int B, int H,
-                     int D, int BS, int MB, int bps, float scale, cudaStream_t stream) {
+                     int D, int BS, int MB, int NB, int bps, float scale,
+                     cudaStream_t stream) {
   constexpr int N = Piece<TKV>::N;
   const int pieces = (D + N - 1) / N;
   const int G = pieces < 32 ? pow2_at_least(pieces) : 32;
@@ -362,38 +370,39 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* ta
   const bool vec = (D * sizeof(TKV)) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   if (nv == 1)
-    return launch<TQ, TKV, 1>(q, k, v, table, pos, out, ws, counters, B, H, D, BS, MB, bps,
-                              G, vec, scale, stream);
+    return launch<TQ, TKV, 1>(q, k, v, table, pos, out, ws, counters, B, H, D, BS, MB, NB,
+                              bps, G, vec, scale, stream);
   if constexpr (N == 4) {
     if (nv == 2)
       return launch<TQ, TKV, 2>(q, k, v, table, pos, out, ws, counters, B, H, D, BS, MB,
-                                bps, G, vec, scale, stream);
+                                NB, bps, G, vec, scale, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16.  `ws` holds B * H * splits * (D + 2)
-// floats and `counters` B * H int32 zeros, where splits =
-// ceil(MB / blocks_per_split); both may be null when splits is 1.  Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown dtype code or a shape the kernel
-// does not take (D outside 1..256).
+// dtype codes: 0 float32, 1 bfloat16.  NB: the pools' blocks, which table
+// entries are clamped to.  `ws` holds B * H * splits * (D + 2) floats and
+// `counters` B * H int32 zeros, where splits = ceil(MB / blocks_per_split);
+// both may be null when splits is 1.  Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for an unknown dtype code
+// or a shape the kernel does not take (D outside 1..256).
 extern "C" int mxtt_flash_decode(int q_dtype, int kv_dtype, const void* q,
                                  const void* k_pool, const void* v_pool,
                                  const void* table, const void* pos, void* out,
                                  void* ws, void* counters, int B, int H, int D,
-                                 int BS, int MB, int blocks_per_split, float scale,
-                                 void* stream) {
-  if (D < 1 || D > 256 || BS < 1 || B < 1 || H < 1 || MB < 1 || blocks_per_split < 1 ||
+                                 int BS, int MB, int NB, int blocks_per_split,
+                                 float scale, void* stream) {
+  if (D < 1 || D > 256 || BS < 1 || B < 1 || H < 1 || MB < 1 || NB < 1 ||
+      blocks_per_split < 1 ||
       B > 65535 || H > 65535 ||
       (blocks_per_split < MB && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 #define MXTT_FD_ARGS q, k_pool, v_pool, table, pos, out, ws, counters, B, H, D, BS, MB, \
-                     blocks_per_split, scale, s
+                     NB, blocks_per_split, scale, s
   if (q_dtype == 0 && kv_dtype == 0)
     err = dispatch<float, float>(MXTT_FD_ARGS);
   else if (q_dtype == 0 && kv_dtype == 1)

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma fences and shared-memory matrix
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile loads, cp.async copies, wgmma fences and shared-memory matrix
 // descriptors, and the host-side encoding of TMA tensor maps.  Raw PTX in
 // one small header (no CuTe), so a kernel that includes it builds in
 // seconds.  The wgmma instructions themselves are in wgmma.cuh.
@@ -78,6 +78,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async: 16 bytes from global into shared memory, through L2 only;
+// with `valid` false the 16 bytes are zero-filled and `src` is not read.
+// Each thread's copies since its last commit form one group; wait<N>
+// returns once at most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -7,7 +7,9 @@ loaded with ``ctypes``.  The build happens at first use, into
 ``.gitignore``); a library's file name carries a hash of its source, of
 every header under ``csrc/`` and of the flags, so an edited source or
 shared header (``hopper.cuh``, ``wgmma.cuh``) is rebuilt and an
-unchanged one is loaded as it is.
+unchanged one is loaded as it is.  ``nvcc``'s output (with ``ptxas``'s
+registers and spills) is kept beside each library as ``.log``, so a
+cached library reports the same build log as a fresh one.
 :func:`build_all` starts one ``nvcc`` per missing library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -44,7 +46,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS = {}          # name -> ctypes.CDLL, loaded once per process
-#: name -> {"seconds": build time or 0.0 when cached, "log": nvcc output}
+#: name -> {"seconds": build time or 0.0 when cached, "log": nvcc output
+#: (of the build that made a cached library)}
 BUILD_INFO = {}
 
 
@@ -91,7 +94,7 @@ def _declare(lib, name):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
         fn, args = lib.mxtt_flash_decode, ([i, i] + [vp] * 8
-                                           + [i] * 6 + [f, vp])
+                                           + [i] * 7 + [f, vp])
     elif name == "quantized_matmul":
         lib.mxtt_qmm_gemv.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.mxtt_qmm_gemv.restype = i
@@ -120,12 +123,14 @@ def build_all():
         os.makedirs(BUILD_DIR, exist_ok=True)
         for name in pending:
             src, out, flags = _lib_path(name)
-            if os.path.exists(out):
-                BUILD_INFO[name] = {"seconds": 0.0, "log": "cached"}
+            log_path = out[:-3] + ".log"
+            if os.path.exists(out) and os.path.exists(log_path):
+                with open(log_path) as f:
+                    BUILD_INFO[name] = {"seconds": 0.0, "log": f.read()}
                 continue
-            tmp = "%s.%d.tmp.so" % (out[:-3], os.getpid())
+            tmp = "%s.%d.tmp" % (out[:-3], os.getpid())
             procs[name] = (subprocess.Popen(
-                [_nvcc()] + flags + ["-o", tmp, src],
+                [_nvcc()] + flags + ["-o", tmp + ".so", src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp, out, time.perf_counter())
         failed = []
@@ -137,7 +142,10 @@ def build_all():
                 failed.append("%s (nvcc exit %d):\n%s"
                               % (name, proc.returncode, log))
             else:
-                os.replace(tmp, out)
+                with open(tmp + ".log", "w") as f:
+                    f.write(log)
+                os.replace(tmp + ".log", out[:-3] + ".log")
+                os.replace(tmp + ".so", out)
         if failed:
             raise MXNetError("kernel build failed: " + "\n".join(failed))
         for name in pending:

@@ -15,9 +15,12 @@ the JAX kernel.
   CUDA kernels ``csrc/flash_attention.cu``: for bfloat16 inputs a
   tensor-core kernel (``wgmma`` fed by TMA, 128 q rows a CTA, p issued
   as a bfloat16 hi and lo part so o keeps float32 accuracy), for float32
-  inputs an FMA kernel (grid ``(B*H, ceil(Sq/64))``, 64-key tiles staged
-  in shared memory).  Both run an online softmax, skip causal tiles
-  above the diagonal and mask the ragged edge, so any S works.  For
+  inputs an FMA kernel (128 q rows a CTA, 64 at D=128, 64-key tiles by
+  ``cp.async`` into a two-stage ring, 8x8 register micro-tiles, one CTA
+  a work item; :func:`plan_flash_forward` states its tiles and work
+  order).  Both run an
+  online softmax, skip causal tiles above the diagonal and mask only
+  the tiles on the diagonal or the ragged edge, so any S works.  For
   CUDA tensors it launches a kernel or raises.
   ``flash_attention_forward.launches`` counts its launches and
   ``.launches_by_dtype`` them by input dtype (so by body).
@@ -30,11 +33,51 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention_forward_reference", "flash_attention_forward"]
+__all__ = ["flash_attention_forward_reference", "flash_attention_forward",
+           "plan_flash_forward", "work_item"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+
+#: the float32 body's tiles (``FmaCfg<D>`` in ``csrc/flash_attention.cu``):
+#: q rows a CTA by head dim, and keys a tile
+F32_BLOCK_Q = {32: 128, 64: 128, 128: 64}
+F32_BLOCK_K = 64
+
+
+def work_item(t, bh_count, n_qtiles, block_q):
+    """``(bh, q0)`` of the float32 body's work item ``t``: items walk the
+    q tiles from the last (the longest causal walk) down, every
+    batch*head at each, as the kernel does."""
+    return t % bh_count, (n_qtiles - 1 - t // bh_count) * block_q
+
+
+def plan_flash_forward(BH, Sq, Sk, D, causal):
+    """The float32 body's tiles and work items, from the shapes.
+
+    Each work item is one batch*head and one tile of ``block_q`` q rows,
+    which walks ``k_tiles(q0)`` tiles of ``block_k`` keys (causal: up to
+    the diagonal).  The kernel runs one CTA an item, CTA ``t`` taking
+    :func:`work_item` ``t``, longest walk first: the card hands each next
+    item to the first free slot.  The kernel keeps its own copy of these
+    numbers and expressions (``FmaCfg<D>``, ``flash_forward_fma``);
+    ``tests/test_torch_flash_f32.py`` reads them out of the source and
+    holds them to this function.
+    Returns a dict: ``block_q``, ``block_k``, ``n_qtiles``, ``items`` and
+    ``k_tiles`` (a function of ``q0``)."""
+    bq = F32_BLOCK_Q[D]
+    n_qtiles = -(-Sq // bq)
+    items = BH * n_qtiles
+    all_tiles = -(-Sk // F32_BLOCK_K)
+
+    def k_tiles(q0):
+        if causal:
+            return min(all_tiles, (q0 + bq - 1) // F32_BLOCK_K + 1)
+        return all_tiles
+
+    return {"block_q": bq, "block_k": F32_BLOCK_K, "n_qtiles": n_qtiles,
+            "items": items, "k_tiles": k_tiles}
 
 
 def flash_attention_forward_reference(q, k, v, causal=False, scale=None):

@@ -44,18 +44,17 @@ def decode_attention_reference(q, k_pool, v_pool, table, pos, scale=None):
     newest token's index).  Returns ``(B, H, D)`` in q's dtype.
 
     ``pos`` is meant to be >= 0, as the engine's always is.  For a row
-    with ``pos < 0`` every slot is masked alike, so this version (like
-    the JAX package's reference and its Pallas kernel) returns the plain
-    average of ``v`` over every slot of the row's table, while the CUDA
-    kernel reads no slot and returns 0: it reads only the table entries
-    up to ``pos // BS``, so that entries past them need not name a
-    block."""
+    with ``pos < 0`` every slot is masked alike, so this version, the
+    CUDA kernel, and the JAX package's reference and Pallas kernel all
+    return the plain average of ``v`` over every slot of the row's
+    table.  Table entries are clamped into ``[0, NB)``, as the JAX
+    reference's gather clamps those past the pool."""
     B, H, D = q.shape
     BS = k_pool.shape[1]
     MB = table.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    t = table.long()
+    t = table.long().clamp(0, k_pool.shape[0] - 1)
     kk = k_pool[t].reshape(B, MB * BS, H, D).to(q.dtype)
     vv = v_pool[t].reshape(B, MB * BS, H, D).to(q.dtype)
     s = torch.einsum("bhd,bthd->bht", q, kk) * scale
@@ -163,11 +162,10 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
     signature and semantics.  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/flash_decode.cu`` once, with the grid of
     :func:`plan_flash_decode` (and raise on inputs it does not take).
-    ``table`` and ``pos`` must be int32 on the GPU, and every table
-    entry the kernel reads (slots ``<= pos // BS``) must name a pool
-    block: the kernel does not bound-check them (that would cost a
-    device-to-host sync per call); the cache's allocator hands out only
-    valid ids."""
+    ``table`` and ``pos`` must be int32 on the GPU.  The kernel reads
+    the table entries up to slot ``pos // BS`` (every slot of a row with
+    ``pos < 0``) and clamps each into the pool, as the plain version
+    does."""
     if not q.is_cuda:
         return decode_attention_reference(q, k_pool, v_pool, table, pos,
                                           scale=scale)
@@ -197,8 +195,8 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             table.data_ptr(), pos.data_ptr(), out.data_ptr(), ws_ptr,
-            cnt_ptr, B, H, D, BS, MB, pl["blocks_per_split"], float(scale),
-            stream)
+            cnt_ptr, B, H, D, BS, MB, k_pool.shape[0], pl["blocks_per_split"],
+            float(scale), stream)
     check(lib, code, "flash_decode")
     flash_decode_attention.launches += 1
     return out

@@ -149,19 +149,31 @@ def test_flash_decode_other_plans(cuda, monkeypatch, sms):
     assert float((got - want).abs().max()) <= 2e-5
 
 
-def test_flash_decode_negative_pos_gives_zero(cuda):
-    """pos < 0 is outside the engine's use: the kernel reads no slot of
-    such a row and gives 0 (the plain versions average every slot, see
-    decode_attention_reference); the other rows are unaffected."""
+@pytest.mark.parametrize("dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 2e-5)])
+@pytest.mark.parametrize("pos", [[-1, 700, 0], [-7], [-1, -3, 1023, 31]])
+def test_flash_decode_negative_pos_averages_every_slot(cuda, pos, dtype,
+                                                       kv_dtype, tol):
+    """pos < 0 is outside the engine's use: such a row gets, as from the
+    plain version and the JAX package, the mean of v over every slot of
+    its table (here a row with pos < 0 names trash block 0 in every
+    slot, so one last entry is set past the pool: it is clamped); every
+    row equals the plain version, bit for bit from run to run."""
     from mxnet_tpu_torch.kernels import flash_decode as fd
-    q, k, v, table, p = _split_case(cuda, torch.float32, torch.float32,
-                                    [5, 700, 0])
-    p[0] = -1
+    q, k, v, table, p = _split_case(cuda, dtype, kv_dtype, pos)
+    table[0, -1] = k.shape[0] + 3
     got = fd.flash_decode_attention(q, k, v, table, p)
+    again = fd.flash_decode_attention(q, k, v, table, p)
     want = fd.decode_attention_reference(q, k, v, table, p)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
-    assert float((got[1:] - want[1:]).abs().max()) <= 2e-5
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    slots = table[0].long().clamp(0, k.shape[0] - 1)
+    mean = v[slots].float().reshape(-1, *v.shape[2:]).mean(0)
+    assert float((got[0].float() - mean).abs().max()) <= tol
 
 
 def test_flash_decode_one_kernel_a_call(cuda):
@@ -399,6 +411,44 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, rel, atol, causal,
     d = (o.float() - ro.float()).abs()
     assert bool((d <= ro.float().abs() * rel + atol).all()), float(d.max())
     assert float((lse - rl).abs().max()) <= 1e-4
+    if dtype == torch.float32:
+        # no atomics and a fixed order of every sum: bit for bit
+        o2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype,rel,atol", [(torch.float32, 0.0, 2e-5),
+                                            (torch.bfloat16, 2.0 ** -7, 1e-5)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Sq,Sk,D", [(200, 77, 64), (77, 200, 64),
+                                     (130, 1000, 128), (1000, 130, 32),
+                                     (1, 300, 64), (300, 1, 64)])
+def test_flash_attention_kernel_unequal_lengths(cuda, dtype, rel, atol,
+                                                causal, Sq, Sk, D):
+    """Sq != Sk: the tile-level mask tests (the ragged edge at Sk, the
+    causal diagonal at row q0 of each q tile) and the float32 body's
+    skip of a 128-row item's first 64 rows on its last causal tile hold
+    where q and k tiles do not line up.  Tolerances as
+    test_flash_attention_kernel_matches_plain; float32 repeats bit for
+    bit."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.RandomState(Sq + 3 * Sk + D)
+    q = torch.from_numpy(rng.randn(2, 3, Sq, D).astype(np.float32))
+    k, v = [torch.from_numpy(rng.randn(2, 3, Sk, D).astype(np.float32))
+            for _ in range(2)]
+    q, k, v = (x.to(cuda, dtype) for x in (q, k, v))
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tuple(o.shape) == (2, 3, Sq, D) and tuple(lse.shape) == (2, 3, Sq)
+    d = (o.float() - ro.float()).abs()
+    assert bool((d <= ro.float().abs() * rel + atol).all()), float(d.max())
+    assert float((lse - rl).abs().max()) <= 1e-4
+    if dtype == torch.float32:
+        o2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):

@@ -91,11 +91,14 @@ def split_combine_model(q, k_pool, v_pool, table, pos, scale, bps, gph=4,
     ``scale * log2(e)``) over every ``gph``-th token up to ``pos``,
     ``tokens`` at a time; the groups meet by their max; the splits
     combine in order, dead ones skipped.  A dead split's ``o`` is left as
-    NaN, as an uninitialised workspace may hold."""
+    NaN, as an uninitialised workspace may hold.  A row with ``pos < 0``
+    takes every slot of its table, each score set to -1e30.  Table
+    entries are clamped into the pool."""
     B, H, D = q.shape
-    BS, MB = k_pool.shape[1], table.shape[1]
+    NB, BS, MB = k_pool.shape[0], k_pool.shape[1], table.shape[1]
     splits = -(-MB // bps)
     qs = q.float() * (scale * LOG2E)
+    table = table.clamp(0, NB - 1)
     out = torch.empty(B, H, D)
     for b in range(B):
         p = int(pos[b])
@@ -104,7 +107,9 @@ def split_combine_model(q, k_pool, v_pool, table, pos, scale, bps, gph=4,
         ws_o = torch.full((splits, H, D), float("nan"))
         for sp in range(splits):
             t_begin = sp * bps * BS
-            t_end = min(t_begin + bps * BS, MB * BS, p + 1)
+            t_end = min(t_begin + bps * BS, MB * BS)
+            if p >= 0:
+                t_end = min(t_end, p + 1)
             if t_begin >= t_end:
                 continue                      # dead: m = -1e30, l = 0
             gm = torch.full((gph, H), NEG_INF)
@@ -121,6 +126,8 @@ def split_combine_model(q, k_pool, v_pool, table, pos, scale, bps, gph=4,
                     kk = k_pool[blk, off].float()          # (n, H, D)
                     vv = v_pool[blk, off].float()
                     s = torch.einsum("hd,nhd->nh", qs[b], kk)
+                    if p < 0:
+                        s = torch.full_like(s, NEG_INF)
                     m_new = torch.maximum(gm[tg], s.max(0).values)
                     corr = torch.exp2(gm[tg] - m_new)
                     pu = torch.exp2(s - m_new)
@@ -224,13 +231,44 @@ def test_fully_masked_splits_contribute_nothing():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("bps,gph", [(1, 4), (3, 2), (8, 4)])
+@pytest.mark.parametrize("pos", [[-1], [-5, 40], [-1, 700 % 64, 0]])
+def test_split_model_negative_pos_matches_jax(pos, bps, gph):
+    """pos < 0 (outside the engine's use): the split arithmetic, whose
+    every split of such a row is live with all scores at -1e30, gives
+    the JAX Pallas kernel's result (interpret) and its reference's, the
+    mean of v over every slot of the row's table, atol 1e-5; a table
+    entry past the pool is clamped as the JAX gather clamps it."""
+    q, k_pool, v_pool, table, pos = _case(pos, seed=len(pos) + bps)
+    table[0, -1] = k_pool.shape[0] + 5             # past the pool
+    case = q, k_pool, v_pool, table, pos
+    targs = [torch.from_numpy(a) for a in case]
+    got = split_combine_model(*targs, scale=0.25, bps=bps, gph=gph)
+    assert not torch.isnan(got).any()
+    jargs = [jnp.asarray(a) for a in case]
+    kern = jfd.flash_decode_attention(*jargs, scale=0.25, interpret=True)
+    ref = jfd.decode_attention_reference(*jargs, scale=0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    plain = tfd.flash_decode_attention(*targs, scale=0.25)   # CPU: plain
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5,
+                               rtol=0)
+    bs, mb = v_pool.shape[1], table.shape[1]
+    rows = np.minimum(table[0], k_pool.shape[0] - 1)
+    avg = v_pool[rows].reshape(mb * bs, *v_pool.shape[2:]).mean(0)
+    np.testing.assert_allclose(got[0].numpy(), avg, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("pos", [[-1], [-5, 40]])
 def test_negative_pos_plain_versions_agree(pos):
     """pos < 0 is outside the engine's use (decode_attention_reference's
     docstring): the port's plain version then gives, as the JAX
     reference and its Pallas kernel (interpret) do, the plain average of
-    v over every slot of the row's table (the CUDA kernel gives 0, pinned
-    by tests/test_torch_cuda.py); rows with pos >= 0 are unaffected."""
+    v over every slot of the row's table (as the CUDA kernel does:
+    tests/test_torch_cuda.py, and the split model above); rows with
+    pos >= 0 are unaffected."""
     case = _case(pos, seed=11)
     targs = [torch.from_numpy(a) for a in case]
     got = tfd.flash_decode_attention(*targs, scale=0.25)     # CPU: plain

@@ -291,3 +291,34 @@ def test_build_declares_both_int8_entry_points():
     assert len(lib.mxtt_qmm_gemv.argtypes) == 11
     assert len(lib.mxtt_qmm_wgmma.argtypes) == 13
     assert lib.mxtt_qmm_gemv.restype is lib.mxtt_qmm_wgmma.restype
+
+
+def test_build_keeps_the_log_beside_a_cached_library(tmp_path, monkeypatch):
+    """A library built once is loaded from the cache later with the
+    ptxas lines of the build that made it (chip_smoke.py checks spills
+    on every run); a library whose log is missing is built again."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nwhile [ \"$1\" != -o ]; do shift; done\n"
+                    "echo lib > \"$2\"\n"
+                    "echo \"ptxas info    : Used 40 registers\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(_build, "_declare", lambda lib, name: lib)
+    fresh = {n: dict(i) for n, i in _build.build_all().items()}
+    assert all(i["seconds"] > 0 and "Used 40 registers" in i["log"]
+               for i in fresh.values())
+    _build._LIBS.clear()
+    cached = _build.build_all()
+    assert {n: i["log"] for n, i in cached.items()} \
+        == {n: i["log"] for n, i in fresh.items()}
+    assert all(i["seconds"] == 0.0 for i in cached.values())
+    os.remove(_build._lib_path("fused_opt")[1][:-3] + ".log")
+    _build._LIBS.clear()
+    assert _build.build_all()["fused_opt"]["seconds"] > 0
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        _build._lib_path(n)[1].rsplit("/", 1)[1][:-3] + ext
+        for n in _build.SOURCES for ext in (".so", ".log"))

@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with a CUDA device:
 
     python3 tools/profile_train_torch.py [--seed N] [--steps N]
-                                         [--out profile.json]
+                                         [--dtype both|float32|bfloat16]
+                                         [--tree DIR] [--out profile.json]
 
 It builds ``chip_smoke.py``'s full-width training run (the transformer
 LM of ``bench.py``'s chip configuration, batch 8 of 1024 tokens, SGD
@@ -20,6 +21,11 @@ and CUDA activities), and prints for each:
   copies, everything else) and the device busy share (kernel time over
   traced wall time: the rest is the device waiting for the host);
 - the ten kernels with the most device time.
+
+``--dtype`` profiles one of the two only; ``--tree`` profiles the
+``mxnet_tpu_torch`` of another checkout (an older commit unpacked with
+``git archive`` into a directory ``.gitignore`` lists), so two trees can
+be compared in one run on one card.
 
 The profiler adds host time, so the busy share it reports is a lower
 bound of the untraced one.  Imports neither JAX nor ``mxnet_tpu``.
@@ -113,6 +119,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--dtype", choices=("both", "float32", "bfloat16"),
+                    default="both")
+    ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     import torch
@@ -121,13 +130,20 @@ def main(argv=None):
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import mxnet_tpu_torch
+    if not mxnet_tpu_torch.__file__.startswith(tree):
+        raise RuntimeError("imported %s, not from %s"
+                           % (mxnet_tpu_torch.__file__, tree))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = cs.seeded_train_params(args.seed)
     batch = cs.train_batch(args.seed)
-    results = {"device": torch.cuda.get_device_name(0),
+    results = {"device": torch.cuda.get_device_name(0), "tree": tree,
                "nvidia_smi": cs.nvidia_smi_line(), "runs": []}
-    for dtype in (None, "bfloat16"):
+    for dtype in {"both": (None, "bfloat16"), "float32": (None,),
+                  "bfloat16": ("bfloat16",)}[args.dtype]:
         r = profile_one(torch, params, batch, dtype, args.steps)
         results["runs"].append(r)
         print("%s: step %.2f ms untraced, %.2f ms traced; device busy "

@@ -16,7 +16,8 @@ checkout (CUDA events, the L2 flushed and a spin before every launch),
 the int8 weight-only matmul at the decode ``lm_head`` (M=8) and the
 largest prompt bucket (M=960), K=512, N=8192, float32 x, the
 flash-attention forward at the training shape (B=8, H=8, S=1024, D=64,
-causal) in bfloat16 and float32, flash-decode at ``chip_smoke.py``
+causal) in bfloat16 and float32 (float32 also at phase 5's other shapes:
+non-causal, S=1000, D=32, D=128, S=77), flash-decode at ``chip_smoke.py``
 phase 2's shapes and positions (B=8 float32 and bfloat16, B=1 float32)
 and the Rtc saxpy body (``2.5 x + y``) at 2^24 float32 elements.  Each
 result is checked against the plain version of the same tree first.  Then it times ``--train-steps``
@@ -89,6 +90,21 @@ def main(argv=None):
         name = "flash_%s_ms" % str(dtype).replace("torch.", "")
         out[name] = timer(lambda: fa.flash_attention_forward(q, k, v,
                                                              causal=True))
+    # the float32 body at chip_smoke.py phase 5's other shapes
+    for S, D, causal in ((1024, 64, False), (1000, 64, True),
+                         (1024, 32, True), (1024, 128, True), (77, 64, False)):
+        q, k, v = [torch.from_numpy(rng.randn(8, 8, S, D).astype(
+            np.float32)).cuda() for _ in range(3)]
+        o, _l = fa.flash_attention_forward(q, k, v, causal=causal)
+        ro, _l = fa.flash_attention_forward_reference(q, k, v, causal=causal)
+        err = float((o - ro).abs().max())
+        if not err <= 2e-5:
+            raise AssertionError("flash float32 S=%d D=%d: %g from plain"
+                                 % (S, D, err))
+        name = "flash_float32_S%d_D%d_%s_ms" % (
+            S, D, "causal" if causal else "full")
+        out[name] = timer(lambda: fa.flash_attention_forward(
+            q, k, v, causal=causal))
     del q, k, v
     for B, dtype in ((8, torch.float32), (8, torch.bfloat16),
                      (1, torch.float32)):
