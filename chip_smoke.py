@@ -30,6 +30,9 @@ line:
    bfloat16 pieces), each within 1e-4; with the same four times
    (``torch.matmul`` against the dequantized float32 weight is the
    yardstick; the wgmma rows' bound counts their bfloat16 tensor work);
+   then with fp8 e4m3 weights at K=512, N=8192 and M in {8, 17, 960}
+   (the GEMV, then the wgmma body); every row the same bits on a second
+   call;
 4. the slice end to end at full width: ``GenerationEngine(ctx=gpu(0))``
    for the transformer LM the repo benchmarks (vocab 8192, 8 layers, 8
    heads, dim 512, max_seq_len 1024, seeded random weights) generates 64
@@ -40,6 +43,23 @@ line:
    that the float32 logits agree with a plain full-sequence forward
    written here, and that the int8 logits keep a cosine >= 0.999 against
    float32 at every step.
+4b. the in-process ``ModelServer`` at the same full width: one server
+   holds ``lm-f32`` and ``lm-fp8`` (``quantize="fp8_e4m3"``), both at
+   the engine's defaults, and ``mlp`` (``models.mlp``, 128 inputs,
+   buckets 1, 2, 4, 8).  Four client threads send 16 prompts to each LM
+   (phase 4's 8 and 8 more, 64 new tokens, two with an ``eos_id``,
+   retrying after a 429) and 200 MLP requests of sizes 1:60, 2:25,
+   4:10, 8:5.  Gates: every generated token's logit within 1e-3 of its
+   row's maximum in a plain float32 forward over prompt and tokens
+   (``lm-fp8``: over its dequantized weights); MLP results equal to a
+   serial ``Predictor`` (rtol 1e-5, atol 1e-6); no lowering after
+   warmup; flash-decode once a layer on every decode step; the fp8
+   model through both fp8 bodies; a second server with a 40-block pool
+   answers a second 900-token request with a 429 carrying
+   ``blocks_free`` while the first finishes.  Printed: tokens/s, TTFT
+   and ITL p50/p99, decode ms a step (``serve`` telemetry), the MLP's
+   req/s and p50/p99 latency, ``engine.generate()`` of the same prompts,
+   the fp8 logits' cosine against float32 (a report, not a gate).
 5. the flash-attention forward of training, kernel vs plain (``o`` and
    ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 (the FMA
    body, also required to repeat bit for bit) and bfloat16 (the wgmma
@@ -405,31 +425,41 @@ def phase_quantized_matmul(torch, timer, seed):
     #: power of two: 1, 2, 4 and 8 are the decode buckets, 3 is ragged),
     #: larger M the wgmma body: 16 and 17 straddle the threshold, 33 is
     #: ragged, 240 and 960 are prompt buckets
-    cases = [(m, k, n, torch.float32)
+    cases = [(m, k, n, torch.float32, "int8")
              for m in (1, 2, 3, 4, 8, 16, 17, 33, 240, 960)
              for k, n in ((512, 2048), (2048, 512), (512, 8192))]
     # a wider model's ffn2 and lm_head at decode: K that the GEMV splits
     # so x fits its shared memory
-    cases += [(8, 16384, 4096, torch.float32), (16, 4096, 8192, torch.float32)]
-    cases += [(8, 512, 8192, torch.bfloat16), (240, 512, 2048, torch.bfloat16)]
+    cases += [(8, 16384, 4096, torch.float32, "int8"),
+              (16, 4096, 8192, torch.float32, "int8")]
+    cases += [(8, 512, 8192, torch.bfloat16, "int8"),
+              (240, 512, 2048, torch.bfloat16, "int8")]
+    # fp8 e4m3 weights at the lm_head shape: decode (the GEMV), just past
+    # the GEMV's 16 rows and the largest prompt bucket (wgmma)
+    cases += [(m, 512, 8192, torch.float32, "fp8_e4m3") for m in (8, 17, 960)]
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
-    for m, k, n, dtype in cases:
+    for m, k, n, dtype, qdtype in cases:
         q, scale = qz.quantize_array(
-            (rng.randn(n, k) * 0.02).astype(np.float32))
+            (rng.randn(n, k) * 0.02).astype(np.float32), qdtype=qdtype)
         x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(
             DEVICE, dtype)
-        wq = torch.from_numpy(q).to(DEVICE)
+        wq = torch.as_tensor(q).to(DEVICE)
         sc = torch.from_numpy(scale).to(DEVICE)
         plan = qz.plan_quantized_matmul(m, n, k, sms)
         got = qz.quantized_matmul(x, wq, sc)
+        again = qz.quantized_matmul(x, wq, sc)
         want = qz.quantized_matmul_reference(x, wq, sc)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if not err <= tols[dtype]:
             raise AssertionError(
-                "quantized_matmul M=%d K=%d N=%d %s (%s): max |kernel - "
-                "plain| = %g > %g" % (m, k, n, dtype, plan["route"], err,
-                                      tols[dtype]))
+                "quantized_matmul M=%d K=%d N=%d %s %s (%s): max |kernel - "
+                "plain| = %g > %g" % (m, k, n, dtype, qdtype, plan["route"],
+                                      err, tols[dtype]))
+        if not torch.equal(got, again):
+            raise AssertionError(
+                "quantized_matmul M=%d K=%d N=%d %s %s (%s): a second call "
+                "gave other bits" % (m, k, n, dtype, qdtype, plan["route"]))
         w_deq = (wq.float() * sc[:, None]).to(dtype)
         n_bytes = (m * k * x.element_size() + n * k + n * 4
                    + m * n * x.element_size())
@@ -444,7 +474,7 @@ def phase_quantized_matmul(torch, timer, seed):
             pieces = 3 if dtype == torch.float32 else 1
             b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, BF16_OPS_PER_S)
         row = {"M": m, "K": k, "N": n,
-               "dtype": str(dtype).replace("torch.", ""),
+               "dtype": str(dtype).replace("torch.", ""), "qdtype": qdtype,
                "route": plan["route"], "splits": plan["splits"],
                "bf16_pieces": pieces,
                "max_abs_err": err, "tol": tols[dtype],
@@ -456,12 +486,12 @@ def phase_quantized_matmul(torch, timer, seed):
                "ops": 2 * m * n * k,
                "tensor_ops": pieces * 2 * m * n * k}
         rows.append(row)
-        log("quantized_matmul M=%-4d K=%-4d N=%-4d %-8s %-5s splits=%-2d "
-            "err=%.3g (tol %g) kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f "
-            "bound_ms=%.5f (%s)"
-            % (m, k, n, row["dtype"], plan["route"], plan["splits"], err,
-               tols[dtype], row["ms"], row["plain_ms"], row["library_ms"],
-               b_ms, b_by))
+        log("quantized_matmul M=%-4d K=%-4d N=%-4d %-8s %-8s %-5s "
+            "splits=%-2d err=%.3g (tol %g, bitwise on repeat) kernel_ms=%.4f "
+            "plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
+            % (m, k, n, row["dtype"], qdtype, plan["route"], plan["splits"],
+               err, tols[dtype], row["ms"], row["plain_ms"],
+               row["library_ms"], b_ms, b_by))
     return rows
 
 
@@ -578,13 +608,23 @@ def run_engine(torch, params, prompts, quantize):
     return res, tokens, eng.last_logits
 
 
-def phase_engine(torch, seed):
+def make_prompts(seed, n_more=0):
+    """Phase 4's prompts (17 to 900 tokens), then ``n_more`` drawn after
+    them from the same generator."""
     rng = np.random.RandomState(seed + 2)
-    params = seeded_params(seed)
     lengths = [17, 900] + sorted(int(n) for n in
                                  rng.randint(18, 900, size=N_PROMPTS - 2))
     prompts = [rng.randint(0, MODEL["vocab_size"], size=n).tolist()
                for n in lengths]
+    for n in rng.randint(17, 901, size=n_more):
+        prompts.append(rng.randint(0, MODEL["vocab_size"], size=n).tolist())
+    return prompts
+
+
+def phase_engine(torch, seed):
+    params = seeded_params(seed)
+    prompts = make_prompts(seed)
+    lengths = [len(p) for p in prompts]
     f32, f_tok, f_logits = run_engine(torch, params, prompts, None)
     i8, q_tok, q_logits = run_engine(torch, params, prompts, "int8")
     if f32["launches"]["flash_decode"] < 1 or i8["launches"]["flash_decode"] < 1:
@@ -623,7 +663,367 @@ def phase_engine(torch, seed):
     return {"float32": f32, "int8": i8, "prompt_lengths": lengths,
             "float32_vs_plain_max_abs_diff": ref_err,
             "int8_min_cosine": worst, "cosine_steps": steps,
-            "identical_token_steps": same}
+            "identical_token_steps": same, "float32_tokens": f_tok}
+
+
+# ----------------------------------------------------------------------
+# phase 4b: the in-process ModelServer at full width
+# ----------------------------------------------------------------------
+#: phase 4's 8 prompts and 8 more, to each LM of the server
+SERVE_PROMPTS = 16
+#: the MLP's traffic: request sizes by weight (tools/serve_bench.py's
+#: histogram for its toy MLP) and the number of requests
+MLP_HIST = {1: 60, 2: 25, 4: 10, 8: 5}
+MLP_REQUESTS = 200
+CLIENTS = 4
+
+
+def dequantized_params(params, qdtype):
+    """The float32 weights that the quantized model computes with:
+    each quantized weight replaced by float(q) * scale."""
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.models import transformer as tf
+    names = qz.quantizable_weights(tf.get_decode_symbol(**MODEL).tojson())
+    out = dict(params)
+    for name in names:
+        q, scale = qz.quantize_array(params[name], qdtype=qdtype)
+        out[name] = qz.dequantize_array(q, scale)
+    return out
+
+
+def _telemetry_records(directory):
+    records = []
+    for path in sorted(os.listdir(directory)):
+        if path.startswith("events-rank") and path.endswith(".jsonl"):
+            with open(os.path.join(directory, path)) as f:
+                records.extend(json.loads(line) for line in f)
+    return records
+
+
+def _client_threads(jobs):
+    """Run ``jobs`` (callables) on CLIENTS threads, round robin; returns
+    each job's result in order.  A job's exception fails the phase."""
+    import threading
+    results, errors = [None] * len(jobs), []
+
+    def worker(idx):
+        try:
+            for i in range(idx, len(jobs), CLIENTS):
+                results[i] = jobs[i]()
+        except Exception as exc:             # raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _submit_generation(srv, model, prompt, eos_id, busy):
+    """Admit one generation, retrying after a 429 (KV-cache pressure) as
+    its ``retry_after_ms`` says; returns the request's future."""
+    from mxnet_tpu_torch.serving import ServerBusy
+    while True:
+        try:
+            future, _stream = srv.generate(model, prompt, eos_id=eos_id)
+            return future
+        except ServerBusy as exc:
+            if exc.code != 429:
+                raise
+            busy[model] = busy.get(model, 0) + 1
+            time.sleep(exc.retry_after_ms / 1e3)
+
+
+def check_generated(torch, model, params, prompts, results):
+    """Gate (a): every generated token's logit within 1e-3 of the
+    maximum of its row of a plain full-sequence float32 forward over
+    prompt + generated tokens (``params``: the weights the model
+    computes with).  Returns the worst gap."""
+    worst = 0.0
+    for prompt, res in zip(prompts, results):
+        toks = res["tokens"]
+        if not toks or len(toks) > MAX_NEW:
+            raise AssertionError("%s: %d tokens generated" % (model,
+                                                               len(toks)))
+        logits = plain_lm_logits(torch, params, prompt + toks[:-1])[
+            len(prompt) - 1:]
+        if logits.shape != (len(toks), MODEL["vocab_size"]) \
+                or not np.isfinite(logits).all():
+            raise AssertionError("%s: bad plain logits" % model)
+        gap = float((logits.max(axis=1) - logits[np.arange(len(toks)),
+                                                 toks]).max())
+        worst = max(worst, gap)
+    if not worst <= 1e-3:
+        raise AssertionError("%s: a generated token's logit is %g below "
+                             "its row's maximum (> 1e-3)" % (model, worst))
+    return worst
+
+
+def phase_serve(torch, seed, smi, phase4_tokens):
+    """The in-process ModelServer at full width: two LMs (float32 and
+    fp8 e4m3 weights) and the MLP on one server, CLIENTS client threads,
+    then a small-pool server for the 429 path."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import program_registry_stats
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.observability import events, percentile
+    from mxnet_tpu_torch.serving import ModelServer, ServerBusy, serve_report
+    here = os.path.dirname(os.path.abspath(__file__))
+    tel_dir = os.path.join(here, "build", "chip_smoke_telemetry")
+    if os.path.isdir(tel_dir):
+        for f in os.listdir(tel_dir):
+            os.remove(os.path.join(tel_dir, f))
+    os.environ["MXTPU_TELEMETRY"] = "1"
+    os.environ["MXTPU_TELEMETRY_DIR"] = tel_dir
+    events.refresh()
+    # ctx=None: the server's default, the current context (gpu(0))
+    ctx = None if DEVICE == "cuda" else torch.device(DEVICE)
+    params = seeded_params(seed)
+    prompts = make_prompts(seed, SERVE_PROMPTS - N_PROMPTS)
+    # two requests stop at an eos_id: the token phase 4's float32 engine
+    # generated 20th for the same prompt
+    eos = {0: phase4_tokens[0][19], 1: phase4_tokens[1][19]}
+    rng = np.random.RandomState(seed + 5)
+    net = mx.models.get_mlp(num_classes=10, hidden=(128, 64))
+    arg_shapes = net.infer_shape(data=(1, 128))[0]
+    mlp_params = {"arg:" + n: (rng.randn(*sh) * 0.1).astype(np.float32)
+                  for n, sh in zip(net.list_arguments(), arg_shapes)
+                  if n not in ("data", "softmax_label")}
+    sizes = rng.choice(sorted(MLP_HIST), size=MLP_REQUESTS,
+                       p=np.array([MLP_HIST[k] for k in sorted(MLP_HIST)],
+                                  np.float64) / sum(MLP_HIST.values()))
+    mlp_inputs = [rng.rand(int(n), 128).astype(np.float32) for n in sizes]
+
+    t0 = time.perf_counter()
+    srv = ModelServer()
+    engines = {
+        "lm-f32": srv.add_generative_model("lm-f32", params, ctx=ctx,
+                                           **MODEL),
+        "lm-fp8": srv.add_generative_model("lm-fp8", params, ctx=ctx,
+                                           quantize="fp8_e4m3", **MODEL)}
+    srv.add_model("mlp", net.tojson(), mlp_params, {"data": (128,)},
+                  buckets=(1, 2, 4, 8), ctx=ctx)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for name, eng in engines.items():
+        st = eng.stats()
+        if (st["block_size"], st["blocks_total"] + 1, eng.max_new) \
+                != (32, 256, MAX_NEW):
+            raise AssertionError("%s: not the engine's defaults: %s"
+                                 % (name, st))
+    lowerings = program_registry_stats()["lowerings"]
+    fd.flash_decode_attention.launches = 0
+    qz.quantized_matmul.launches = 0
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+    qz.quantized_matmul.launches_by_qdtype.update(int8=0, fp8_e4m3=0)
+    busy = {}
+    gen_jobs = [(model, i) for i in range(SERVE_PROMPTS)
+                for model in engines]
+    mlp_lat = []
+
+    def gen_job(model, i):
+        return lambda: _submit_generation(srv, model, prompts[i],
+                                          eos.get(i), busy)
+
+    def mlp_job(x):
+        def run():
+            t = time.perf_counter()
+            out = srv.submit("mlp", x).result(timeout=600)
+            mlp_lat.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    t_start = time.perf_counter()
+    futures = _client_threads([gen_job(m, i) for m, i in gen_jobs])
+    mlp_out = _client_threads([mlp_job(x) for x in mlp_inputs])
+    t_mlp = time.perf_counter() - t_start
+    gen_res = [f.result(timeout=900) for f in futures]
+    t_window = time.perf_counter() - t_start
+    srv.drain(timeout=600)
+    torch.cuda.synchronize()
+    launches = {"flash_decode": fd.flash_decode_attention.launches,
+                "quantized_matmul": qz.quantized_matmul.launches,
+                "quantized_matmul_by_route":
+                    dict(qz.quantized_matmul.launches_by_route),
+                "quantized_matmul_by_qdtype":
+                    dict(qz.quantized_matmul.launches_by_qdtype)}
+    stats = srv.stats()
+    events.flush()
+    records = _telemetry_records(tel_dir)
+
+    # (c) zero lowerings after warmup (each model's lowerings_since_warmup
+    # counts from its own add_*, so only the last added reads 0 here)
+    if program_registry_stats()["lowerings"] != lowerings \
+            or stats["models"]["mlp"]["lowerings_since_warmup"]:
+        raise AssertionError("lowerings after warmup: %d -> %d"
+                             % (lowerings,
+                                program_registry_stats()["lowerings"]))
+    if stats["failed"]:
+        raise AssertionError("%d requests failed" % stats["failed"])
+    # (e) flash-decode once a layer on every decode step of either LM;
+    # the fp8 model through both bodies of the weight-only kernel
+    decode_steps = sum(1 for r in records if r.get("kind") == "serve"
+                       and r.get("phase") == "decode")
+    if launches["flash_decode"] != decode_steps * MODEL["num_layers"]:
+        raise AssertionError(
+            "flash_decode launched %d times over %d decode steps of %d "
+            "layers" % (launches["flash_decode"], decode_steps,
+                        MODEL["num_layers"]))
+    if launches["quantized_matmul_by_qdtype"]["fp8_e4m3"] < 1 \
+            or launches["quantized_matmul_by_qdtype"]["int8"] \
+            or min(launches["quantized_matmul_by_route"].values()) < 1:
+        raise AssertionError("the fp8 model did not run both fp8 bodies: "
+                             "%s" % launches)
+    # (a) generated tokens against a plain forward
+    by_model = {m: [r for (mm, _i), r in zip(gen_jobs, gen_res) if mm == m]
+                for m in engines}
+    gaps = {}
+    gaps["lm-f32"] = check_generated(
+        torch, "lm-f32", params, prompts, by_model["lm-f32"])
+    fp8_params = dequantized_params(params, "fp8_e4m3")
+    gaps["lm-fp8"] = check_generated(
+        torch, "lm-fp8", fp8_params, prompts, by_model["lm-fp8"])
+    finish = {m: [r["finish_reason"] for r in by_model[m]] for m in engines}
+    for m in engines:
+        for i, r in enumerate(by_model[m]):
+            stop = eos.get(i)
+            if r["finish_reason"] == "eos" and r["tokens"][-1] != stop \
+                    or r["finish_reason"] == "length" \
+                    and len(r["tokens"]) != MAX_NEW:
+                raise AssertionError("%s request %d: finished %s with %d "
+                                     "tokens" % (m, i, r["finish_reason"],
+                                                 len(r["tokens"])))
+    # (f) report: the fp8 model's plain logits against float32's plain
+    # logits over the same (fp8-generated) sequences
+    cos = 1.0
+    for prompt, res in zip(prompts, by_model["lm-fp8"]):
+        f32 = plain_lm_logits(torch, params, prompt + res["tokens"][:-1])[
+            len(prompt) - 1:]
+        f8 = plain_lm_logits(torch, fp8_params,
+                             prompt + res["tokens"][:-1])[len(prompt) - 1:]
+        cos = min(cos, min(_cosine(a, b) for a, b in zip(f32, f8)))
+    # (b) MLP against a serial Predictor
+    mlp_err = 0.0
+    preds = {}
+    for x, out in zip(mlp_inputs, mlp_out):
+        pred = preds.get(x.shape[0])
+        if pred is None:
+            pred = preds[x.shape[0]] = mx.Predictor(
+                net.tojson(), mlp_params, {"data": x.shape}, ctx=ctx)
+        ref = pred.forward(data=x)[0]
+        np.testing.assert_allclose(out[0], ref, rtol=1e-5, atol=1e-6)
+        mlp_err = max(mlp_err, float(np.abs(out[0] - ref).max()))
+
+    rep = serve_report(records)
+    res = {"build_s": build_s, "window_s": t_window, "retries_429": busy,
+           "finish_reasons": finish,
+           "launches": launches, "decode_steps": decode_steps,
+           "token_logit_gap": gaps, "fp8_min_cosine": cos,
+           "mlp_max_abs_err": mlp_err, "models": {}}
+    for name in engines:
+        recs = [r for r in records if r.get("kind") == "serve"
+                and r.get("model") == name]
+        ttft = [v for r in recs for v in r.get("ttft_ms") or ()]
+        itl = [v for r in recs for v in r.get("itl_ms") or ()]
+        dec = [r["device_ms"] for r in recs if r.get("phase") == "decode"]
+        n_tok = sum(len(r["tokens"]) for r in by_model[name])
+        m = {"tokens": n_tok, "tokens_per_s": n_tok / t_window,
+             "ttft_ms": {"p50": percentile(ttft, 50),
+                         "p99": percentile(ttft, 99)},
+             "itl_ms": {"p50": percentile(itl, 50),
+                        "p99": percentile(itl, 99)},
+             "decode_ms_per_step": float(np.mean(dec)),
+             "decode_steps": len(dec),
+             "decode_batch_mean": float(np.mean(
+                 [r["n_samples"] for r in recs
+                  if r.get("phase") == "decode"])),
+             "serve_report": rep["models"].get(name)}
+        res["models"][name] = m
+        log("serve %-7s %d tokens in %.3f s: %.1f tokens/s; TTFT p50 %.1f "
+            "p99 %.1f ms; ITL p50 %.2f p99 %.2f ms; decode %.3f ms a step "
+            "over %d steps (mean batch %.2f); logit gap <= %.3g (%s)"
+            % (name, n_tok, t_window, m["tokens_per_s"], m["ttft_ms"]["p50"],
+               m["ttft_ms"]["p99"], m["itl_ms"]["p50"], m["itl_ms"]["p99"],
+               m["decode_ms_per_step"], m["decode_steps"],
+               m["decode_batch_mean"], gaps[name], smi))
+    mrep = rep["models"]["mlp"]
+    res["models"]["mlp"] = {
+        "requests": len(mlp_inputs), "req_per_s": len(mlp_inputs) / t_mlp,
+        "latency_ms": {"p50": percentile(mlp_lat, 50),
+                       "p99": percentile(mlp_lat, 99)},
+        "serve_report": mrep}
+    log("serve mlp     %d requests in %.3f s: %.1f req/s; client latency "
+        "p50 %.3f p99 %.3f ms (batcher: p50 %s p99 %s ms, occupancy %s); "
+        "max |server - Predictor| %.3g (%s)"
+        % (len(mlp_inputs), t_mlp, res["models"]["mlp"]["req_per_s"],
+           res["models"]["mlp"]["latency_ms"]["p50"],
+           res["models"]["mlp"]["latency_ms"]["p99"],
+           mrep["latency_ms"]["p50"], mrep["latency_ms"]["p99"],
+           mrep["occupancy"], mlp_err, smi))
+    log("serve checks: lowerings after warmup 0; flash_decode %d launches "
+        "= %d decode steps x %d layers; weight-only matmul %s by body %s "
+        "by type %s; 429 retries %s; fp8 vs float32 plain logits min "
+        "cosine %.6f (reported, not gated)"
+        % (launches["flash_decode"], decode_steps, MODEL["num_layers"],
+           launches["quantized_matmul"],
+           launches["quantized_matmul_by_route"],
+           launches["quantized_matmul_by_qdtype"], busy, cos))
+
+    # the same prompts through engine.generate() on the same engines, the
+    # server closed first (its scheduler would step the engine's active
+    # sequences); eight prompts a call, as phase 4 (sixteen outgrow the
+    # 255-block pool at admission)
+    srv.close()
+    for name, eng in engines.items():
+        t = time.perf_counter()
+        toks = (eng.generate(prompts[:N_PROMPTS])
+                + eng.generate(prompts[N_PROMPTS:]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_tok = sum(len(x) for x in toks)
+        same = sum(a == b["tokens"] for a, b, i in zip(
+            toks, by_model[name], range(SERVE_PROMPTS)) if i not in eos)
+        res["models"][name]["generate_s"] = wall
+        res["models"][name]["generate_tokens_per_s"] = n_tok / wall
+        res["models"][name]["same_tokens_as_generate"] = same
+        log("serve %-7s engine.generate() of the same prompts: %.3f s, "
+            "%.1f tokens/s; %d of %d requests without eos_id gave the "
+            "same tokens through the server (printed, not gated)"
+            % (name, wall, n_tok / wall, same, SERVE_PROMPTS - len(eos)))
+
+    # (d) KV-cache pressure: a pool of 40 blocks holds one 900-token
+    # request (31 blocks) and not a second
+    small = ModelServer()
+    small.add_generative_model("lm-small", params, ctx=ctx, kv_blocks=40,
+                               prompt_buckets=(960,), decode_buckets=(1,),
+                               **MODEL)
+    first, _s = small.generate("lm-small", prompts[1])
+    try:
+        small.generate("lm-small", prompts[1])
+    except ServerBusy as exc:
+        doc = exc.to_dict()
+        if exc.code != 429 or "blocks_free" not in doc:
+            raise AssertionError("429 without blocks_free: %s" % doc)
+        res["busy_429"] = doc
+    else:
+        raise AssertionError("a second 900-token request was admitted "
+                             "into a 39-block pool")
+    done = first.result(timeout=300)
+    if len(done["tokens"]) != MAX_NEW:
+        raise AssertionError("the admitted request did not finish: %s"
+                             % done)
+    small.close()
+    log("serve 429 under KV-cache pressure: %s; the admitted request "
+        "finished with %d tokens" % (res["busy_429"], len(done["tokens"])))
+    del os.environ["MXTPU_TELEMETRY"], os.environ["MXTPU_TELEMETRY_DIR"]
+    events.refresh()
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -1499,6 +1899,7 @@ def main(argv=None):
         fd_rows = phase_flash_decode(torch, timer, args.seed)
         qmm_rows = phase_quantized_matmul(torch, timer, args.seed)
         eng = phase_engine(torch, args.seed)
+        serve = phase_serve(torch, args.seed, smi, eng["float32_tokens"])
         fa_rows = phase_flash_attention(torch, timer, args.seed)
         fo_rows, bucket_sizes = phase_fused_opt(torch, timer, args.seed)
         train = phase_train(torch, args.seed, smi)
@@ -1515,12 +1916,18 @@ def main(argv=None):
     fd_main = next(r for r in fd_rows if r["B"] == 8
                    and r["dtype"] == "float32" and r["kv_dtype"] == "float32")
     qmm_main = next(r for r in qmm_rows if (r["M"], r["K"], r["N"])
-                    == (8, 512, 8192) and r["dtype"] == "float32")
+                    == (8, 512, 8192) and r["dtype"] == "float32"
+                    and r["qdtype"] == "int8")
     # the int8 matmul's prefill row: the wgmma body at the largest prompt
     # bucket (M=960, the lm_head shape, float32 x)
     qmm_prefill = next(r for r in qmm_rows if (r["M"], r["K"], r["N"])
-                       == (960, 512, 8192) and r["dtype"] == "float32")
+                       == (960, 512, 8192) and r["dtype"] == "float32"
+                       and r["qdtype"] == "int8")
+    # its fp8 e4m3 rows at the same shapes
+    qmm_fp8 = {r["M"]: r for r in qmm_rows if r["qdtype"] == "fp8_e4m3"}
+    # the generation paths: phase 4's two engines and the serve phase
     launches = {k: eng["float32"]["launches"][k] + eng["int8"]["launches"][k]
+                + serve["launches"][k]
                 for k in ("flash_decode", "quantized_matmul")}
     launches.update({k: train["float32"]["launches"][k]
                      + train["bfloat16"]["launches"][k]
@@ -1577,8 +1984,19 @@ def main(argv=None):
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
                                 shape={"M": 960, "K": 512, "N": 8192,
                                        "dtype": "float32"})
-            k["launches_by_route"] = dict(
-                eng["int8"]["quantized_matmul_by_route"])
+            k["qdtypes"] = ["int8", "fp8_e4m3"]
+            k["fp8_e4m3"] = {
+                "M%d" % m: dict({t: r[t] for t in timing_keys},
+                                route=r["route"])
+                for m, r in sorted(qmm_fp8.items())}
+            k["launches_by_route"] = {
+                r: eng["int8"]["quantized_matmul_by_route"][r]
+                + serve["launches"]["quantized_matmul_by_route"][r]
+                for r in ("gemv", "wgmma")}
+            k["launches_by_qdtype"] = {
+                "int8": eng["int8"]["launches"]["quantized_matmul"],
+                "fp8_e4m3": serve["launches"]["quantized_matmul_by_qdtype"][
+                    "fp8_e4m3"]}
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
     # its launches are the imperative path's (phase 8)
     rtc_main = next(r for r in rtc_res["rows"] if r["kernel"] == "saxpy"
@@ -1601,7 +2019,8 @@ def main(argv=None):
             json.dump({"device": kind, "nvidia_smi": smi,
                        "build": {n: i["seconds"] for n, i in info.items()},
                        "flash_decode": fd_rows, "quantized_matmul": qmm_rows,
-                       "engine": eng, "flash_attention": fa_rows,
+                       "engine": eng, "serve": serve,
+                       "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -2,12 +2,15 @@
 
 A second package beside ``mxnet_tpu`` (the JAX reference), with the same
 module names and layout, running on an NVIDIA GPU.  It imports ``torch``
-and never ``jax`` or ``mxnet_tpu``.  Three slices are ported:
+and never ``jax`` or ``mxnet_tpu``.  Four slices are ported:
 
 - greedy generation of the transformer LM: ``Symbol -> Predictor ->
   Executor`` and ``serving.GenerationEngine`` over a paged KV cache,
   with hand-written CUDA kernels for flash-decode attention and the
-  int8 weight-only matmul;
+  weight-only matmul (int8 or fp8 e4m3 weights);
+- the in-process ``serving.ModelServer``: a continuous batcher that
+  serves Symbol models and generative LMs side by side, with 429
+  backpressure and ``serve`` telemetry (``observability``);
 - training of the transformer LM on one GPU through
   ``parallel.ShardedTrainer``, with hand-written CUDA kernels for the
   flash-attention forward and the fused optimizer sweep;
@@ -20,7 +23,8 @@ The kernels (``csrc/``) are built with ``nvcc`` at first use.
 
 ``import mxnet_tpu_torch as mx``: ``mx.gpu(0)`` is a CUDA device, and
 arrays and the entry points (``Predictor``, ``GenerationEngine``,
-``models.transformer.generate``, ``parallel.ShardedTrainer``) run on
+``serving.ModelServer``, ``models.transformer.generate``,
+``parallel.ShardedTrainer``) run on
 :func:`current_context`: ``gpu(0)`` unless a ``ctx`` argument or a
 ``with mx.cpu():`` scope says otherwise.
 """
@@ -33,6 +37,7 @@ from . import ndarray as nd                       # noqa: F401
 from . import symbol as sym                       # noqa: F401
 from .predictor import Predictor                  # noqa: F401
 from . import kernels, models, serving            # noqa: F401
+from . import observability, resilience           # noqa: F401
 from . import optimizer, random, parallel         # noqa: F401
 from . import initializer                         # noqa: F401
 from . import initializer as init                 # noqa: F401

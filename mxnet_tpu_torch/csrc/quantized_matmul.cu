@@ -1,10 +1,16 @@
-// Weight-only int8 matmul: y = (x @ dequant(w_q)^T), y[m, n] = scale[n] * sum_k x[m, k] * w_q[n, k].
+// Weight-only int8 or fp8 (e4m3) matmul: y = (x @ dequant(w_q)^T),
+// y[m, n] = scale[n] * sum_k x[m, k] * w_q[n, k].
 //
 // Replaces the TPU kernel mxnet_tpu/kernels/quantize.py:_qmm_kernel (a Pallas
-// grid over (m, n, k) blocks that widens int8 weight blocks in registers,
-// accumulates in float32 across k and applies the per-channel scale on the
-// last k step).  Two bodies; the wrapper (kernels/quantize.py) picks one by
-// M and plans the split of K:
+// grid over (m, n, k) blocks that widens int8 or fp8 e4m3 weight blocks in
+// registers, accumulates in float32 across k and applies the per-channel
+// scale on the last k step).  Two bodies, each a template over the weight
+// type (WInt8, WE4M3: one byte a weight either way, so the same loads and
+// tiles); the wrapper (kernels/quantize.py) picks one by M and plans the
+// split of K.  Every e4m3 value is exact in float16 (cvt.rn.f16x2.e4m3x2
+// widens a pair) and so in float32 and in bfloat16 (a 4-bit significand,
+// exponents -9..8): both bodies compute the same function for e4m3 as for
+// int8, and never round x to fp8 (Hopper's fp8 wgmma would):
 //
 // Decode, M <= 16 (qmm_gemv): bound by reading the N * K weight bytes (4.2 MB
 // at the lm_head, 1.25 us at 3.35 TB/s); its 2 * M * N * K FMAs take about
@@ -21,24 +27,28 @@
 // Prefill, M > 16 (qmm_wgmma): bound by the 2 * M * N * K operations, which
 // the old kernel ran on the float32 FMA pipes (67 TFLOP/s).  Here the tensor
 // cores run them in bfloat16 with A and B swapped: a CTA computes a 64 x TN
-// tile of y^T, the int8 weight tile as wgmma's A operand -- TMA brings it
-// into shared memory (64-byte swizzle), each thread widens its fragment to
-// bfloat16 in registers (every int8 is exact in bfloat16) -- and x as the B
+// tile of y^T, the weight tile as wgmma's A operand -- TMA brings it into
+// shared memory (64-byte swizzle), each thread widens its fragment to
+// bfloat16 in registers (every int8 and every e4m3 is exact in bfloat16) --
+// and x as the B
 // operand from shared memory (K-major, 128-byte swizzle), so the tokens sit
 // on wgmma's N side (TN = 64 or 240: the 240/480/960-row prompt buckets need
 // no padding).  float32 x keeps float32 accuracy: qmm_split writes it as
 // three bfloat16 pieces hi + mid + lo (hi = bf16(x), mid = bf16(x - hi),
 // lo = bf16(x - hi - mid), which hold all 24 bits of the significand), and
-// the three products go into one float32 accumulator; bfloat16 x is one
-// product.  One producer warp keeps a 2-stage ring of TMA loads ahead of the
+// the three products go into one float32 accumulator (a piece's 8-bit
+// significand times a weight's 8 bits (int8) or 4 bits (e4m3) is exact in
+// float32); bfloat16 x is one product.  One producer warp keeps a 2-stage ring of TMA loads ahead of the
 // consumer warpgroup (full/empty mbarriers).  When the (n, token) tiles are
 // too few to fill the card, K is split as at decode.
 //
-// Layout: x (M, K) row-major, float32 or bfloat16; w_q (N, K) int8 row-major;
+// Layout: x (M, K) row-major, float32 or bfloat16; w_q (N, K) int8 or e4m3
+// (its bytes) row-major;
 // scale (N,) float32; y (M, N) in x's type.  All contiguous, K a multiple of
 // 16 (the wrapper pads), pointers 16-byte aligned.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,20 +80,51 @@ constexpr size_t kGvSmemMax = 48 * 1024;
 
 __host__ __device__ constexpr int gv_row_floats(int kchunk) { return kchunk / 16 * kGvChunk; }
 
-__device__ __forceinline__ void widen16(const int4 v, float (&w)[16]) {
-  const int words[4] = {v.x, v.y, v.z, v.w};
+// The weight types: how 16 weight bytes widen to float32 (the GEMV) and how
+// two widen to a bfloat16 pair (the wgmma A fragment).  Both exact.
+struct WInt8 {
+  static __device__ __forceinline__ void widen16(const int4 v, float (&w)[16]) {
+    const int words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      w[4 * i + b] = (float)(int8_t)((words[i] >> (8 * b)) & 0xff);
-}
+      for (int b = 0; b < 4; ++b)
+        w[4 * i + b] = (float)(int8_t)((words[i] >> (8 * b)) & 0xff);
+  }
+  static __device__ __forceinline__ uint32_t bf16_pair(uint16_t v) {
+    return mxtt::pack_bf16((float)(int8_t)(v & 0xff), (float)(int8_t)(v >> 8));
+  }
+};
+
+struct WE4M3 {
+  // bytes (lo, hi) -> (float(lo), float(hi)): one cvt.rn.f16x2.e4m3x2, exact
+  static __device__ __forceinline__ float2 pair(uint16_t v) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)v, __NV_E4M3);
+    return __half22float2(__half2(h));
+  }
+  static __device__ __forceinline__ void widen16(const int4 v, float (&w)[16]) {
+    const int words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 lo = pair((uint16_t)(words[i] & 0xffff));
+      const float2 hi = pair((uint16_t)((uint32_t)words[i] >> 16));
+      w[4 * i] = lo.x;
+      w[4 * i + 1] = lo.y;
+      w[4 * i + 2] = hi.x;
+      w[4 * i + 3] = hi.y;
+    }
+  }
+  static __device__ __forceinline__ uint32_t bf16_pair(uint16_t v) {
+    const float2 f = pair(v);
+    return mxtt::pack_bf16(f.x, f.y);
+  }
+};
 
 // CTA (blockIdx.x, blockIdx.y): rows [32 * x, 32 * x + 32) of w_q, k range
 // [y * kchunk, (y + 1) * kchunk).  MT >= M rows of x, the rest zero.
-template <typename T, int MT>
+template <typename T, typename W, int MT>
 __global__ void __launch_bounds__(kGvThreads)
-qmm_gemv(const T* __restrict__ x, const int8_t* __restrict__ w,
+qmm_gemv(const T* __restrict__ x, const uint8_t* __restrict__ w,
          const float* __restrict__ scale, T* __restrict__ y,
          float* __restrict__ partial, int M, int N, int K, int kchunk) {
   extern __shared__ float4 xs4[];
@@ -93,8 +134,8 @@ qmm_gemv(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int klen = min(kchunk, K - kb);
   const int g = threadIdx.x / 8, gl = threadIdx.x % 8;
   const int n_a = blockIdx.x * kGvRows + g, n_b = n_a + kGvRows / 2;
-  const int8_t* wa = w + (size_t)min(n_a, N - 1) * K + kb;
-  const int8_t* wb = w + (size_t)min(n_b, N - 1) * K + kb;
+  const uint8_t* wa = w + (size_t)min(n_a, N - 1) * K + kb;
+  const uint8_t* wb = w + (size_t)min(n_b, N - 1) * K + kb;
   // the first weight step is in flight while x is staged
   int4 next_a = make_int4(0, 0, 0, 0), next_b = next_a;
   if (gl * 16 < klen) {
@@ -115,8 +156,8 @@ qmm_gemv(const T* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll 2
   for (int c = gl * 16; c < klen; c += kGvStep) {
     float va[16], vb[16];
-    widen16(next_a, va);
-    widen16(next_b, vb);
+    W::widen16(next_a, va);
+    W::widen16(next_b, vb);
     if (c + kGvStep < klen) {
       next_a = __ldg(reinterpret_cast<const int4*>(wa + c + kGvStep));
       next_b = __ldg(reinterpret_cast<const int4*>(wb + c + kGvStep));
@@ -180,16 +221,16 @@ __global__ void qmm_reduce(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// prefill: wgmma with the int8 weight tile as A (from registers)
+// prefill: wgmma with the weight tile as A (from registers)
 // ---------------------------------------------------------------------------
 constexpr int kTcBN = 64;      // output channels a CTA (wgmma M)
-constexpr int kTcBK = 64;      // k a stage: 64 int8 bytes, 128 bf16 bytes a row
+constexpr int kTcBK = 64;      // k a stage: 64 weight bytes, 128 bf16 bytes a row
 constexpr int kTcStages = 2;
 constexpr int kTcThreads = 160;  // one consumer warpgroup + one producer warp
 
 template <int TN, int P>
 struct QmmCfg {
-  static constexpr int W_BYTES = kTcBN * kTcBK;          // int8 tile
+  static constexpr int W_BYTES = kTcBN * kTcBK;          // weight tile (bytes)
   static constexpr int X_BYTES = TN * kTcBK * 2;         // one bf16 piece
   static constexpr int STAGE = W_BYTES + P * X_BYTES;    // multiples of 1024
   static constexpr int SMEM = 1024 + kTcStages * STAGE + 8 * 2 * kTcStages;
@@ -210,17 +251,17 @@ __global__ void qmm_split(const float* __restrict__ x, __nv_bfloat16* __restrict
   }
 }
 
-// one int8 pair of the 64 x 64 weight tile (64-byte swizzle) as bf16x2
+// one weight pair of the 64 x 64 weight tile (64-byte swizzle) as bf16x2
+template <typename W>
 __device__ __forceinline__ uint32_t w_pair(const uint8_t* tile, int r, int c) {
   const int lin = r * kTcBK + c;
   const int phys = lin ^ (((lin >> 7) & 3) << 4);
-  const uint16_t v = *reinterpret_cast<const uint16_t*>(tile + phys);
-  return mxtt::pack_bf16((float)(int8_t)(v & 0xff), (float)(int8_t)(v >> 8));
+  return W::bf16_pair(*reinterpret_cast<const uint16_t*>(tile + phys));
 }
 
 // CTA (blockIdx.x, blockIdx.y, blockIdx.z): channels [64 x, 64 x + 64),
 // tokens [TN y, TN y + TN), k tiles [z * kt_per, (z + 1) * kt_per).
-template <typename T, int TN, int P>
+template <typename T, typename W, int TN, int P>
 __global__ void __launch_bounds__(kTcThreads, 1)
 qmm_wgmma(const __grid_constant__ CUtensorMap wmap,
           const __grid_constant__ CUtensorMap xmap,
@@ -279,10 +320,10 @@ qmm_wgmma(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk) {
       const int c = 16 * kk + 2 * qd;
-      a[kk][0] = w_pair(st, r, c);
-      a[kk][1] = w_pair(st, r + 8, c);
-      a[kk][2] = w_pair(st, r, c + 8);
-      a[kk][3] = w_pair(st, r + 8, c + 8);
+      a[kk][0] = w_pair<W>(st, r, c);
+      a[kk][1] = w_pair<W>(st, r + 8, c);
+      a[kk][2] = w_pair<W>(st, r, c + 8);
+      a[kk][3] = w_pair<W>(st, r + 8, c + 8);
     }
     const uint32_t x_addr = mxtt::smem_addr(st + C::W_BYTES);
     mxtt::wgmma_fence();
@@ -333,31 +374,31 @@ cudaError_t reduce(const float* partial, const float* scale, void* y, int M, int
   return cudaSuccess;
 }
 
-template <typename T, int MT>
-cudaError_t launch_gemv(const void* x, const int8_t* w, const float* scale, void* y,
+template <typename T, typename W, int MT>
+cudaError_t launch_gemv(const void* x, const uint8_t* w, const float* scale, void* y,
                         float* partial, int M, int N, int K, int splits, cudaStream_t s) {
   const int kchunk = ((K + splits - 1) / splits + kGvStep - 1) / kGvStep * kGvStep;
   const size_t smem = (size_t)MT * gv_row_floats(kchunk) * sizeof(float);
   if (smem > kGvSmemMax) return cudaErrorInvalidValue;
   const dim3 grid((N + kGvRows - 1) / kGvRows, (K + kchunk - 1) / kchunk);
-  qmm_gemv<T, MT><<<grid, kGvThreads, smem, s>>>(
+  qmm_gemv<T, W, MT><<<grid, kGvThreads, smem, s>>>(
       static_cast<const T*>(x), w, scale, static_cast<T*>(y), partial, M, N, K, kchunk);
   if ((int)grid.y > 1) return reduce<T>(partial, scale, y, M, N, (int)grid.y, s);
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t gemv(const void* x, const int8_t* w, const float* scale, void* y,
+template <typename T, typename W>
+cudaError_t gemv(const void* x, const uint8_t* w, const float* scale, void* y,
                  float* partial, int M, int N, int K, int splits, cudaStream_t s) {
-  if (M <= 1) return launch_gemv<T, 1>(x, w, scale, y, partial, M, N, K, splits, s);
-  if (M <= 2) return launch_gemv<T, 2>(x, w, scale, y, partial, M, N, K, splits, s);
-  if (M <= 4) return launch_gemv<T, 4>(x, w, scale, y, partial, M, N, K, splits, s);
-  if (M <= 8) return launch_gemv<T, 8>(x, w, scale, y, partial, M, N, K, splits, s);
-  return launch_gemv<T, 16>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 1) return launch_gemv<T, W, 1>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 2) return launch_gemv<T, W, 2>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 4) return launch_gemv<T, W, 4>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (M <= 8) return launch_gemv<T, W, 8>(x, w, scale, y, partial, M, N, K, splits, s);
+  return launch_gemv<T, W, 16>(x, w, scale, y, partial, M, N, K, splits, s);
 }
 
-template <typename T, int TN, int P>
-cudaError_t launch_wgmma(const void* xb, const int8_t* w, const float* scale, void* y,
+template <typename T, typename W, int TN, int P>
+cudaError_t launch_wgmma(const void* xb, const uint8_t* w, const float* scale, void* y,
                          float* partial, int M, int N, int K, int splits,
                          cudaStream_t s) {
   using C = QmmCfg<TN, P>;
@@ -373,22 +414,38 @@ cudaError_t launch_wgmma(const void* xb, const int8_t* w, const float* scale, vo
                         CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   static uint64_t smem_set = 0;
-  const cudaError_t err = mxtt::max_smem_once(qmm_wgmma<T, TN, P>, C::SMEM, smem_set);
+  const cudaError_t err = mxtt::max_smem_once(qmm_wgmma<T, W, TN, P>, C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const int k_tiles = (K + kTcBK - 1) / kTcBK;
   const int kt_per = (k_tiles + splits - 1) / splits;
   const dim3 grid((N + kTcBN - 1) / kTcBN, (M + TN - 1) / TN, (k_tiles + kt_per - 1) / kt_per);
-  qmm_wgmma<T, TN, P><<<grid, kTcThreads, C::SMEM, s>>>(
+  qmm_wgmma<T, W, TN, P><<<grid, kTcThreads, C::SMEM, s>>>(
       wm, xm, scale, static_cast<T*>(y), partial, M, N, K, kt_per);
   if ((int)grid.z > 1) return reduce<T>(partial, scale, y, M, N, (int)grid.z, s);
   return cudaSuccess;
 }
 
-template <typename T, int P>
-cudaError_t wgmma_tn(int tn, const void* xb, const int8_t* w, const float* scale, void* y,
+template <typename T, typename W, int P>
+cudaError_t wgmma_tn(int tn, const void* xb, const uint8_t* w, const float* scale, void* y,
                      float* partial, int M, int N, int K, int splits, cudaStream_t s) {
-  if (tn == 64) return launch_wgmma<T, 64, P>(xb, w, scale, y, partial, M, N, K, splits, s);
-  if (tn == 240) return launch_wgmma<T, 240, P>(xb, w, scale, y, partial, M, N, K, splits, s);
+  if (tn == 64) return launch_wgmma<T, W, 64, P>(xb, w, scale, y, partial, M, N, K, splits, s);
+  if (tn == 240) return launch_wgmma<T, W, 240, P>(xb, w, scale, y, partial, M, N, K, splits, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int P>
+cudaError_t wgmma_w(int w_dtype, int tn, const void* xb, const uint8_t* w, const float* scale,
+                    void* y, float* partial, int M, int N, int K, int splits, cudaStream_t s) {
+  if (w_dtype == 0) return wgmma_tn<T, WInt8, P>(tn, xb, w, scale, y, partial, M, N, K, splits, s);
+  if (w_dtype == 1) return wgmma_tn<T, WE4M3, P>(tn, xb, w, scale, y, partial, M, N, K, splits, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t gemv_w(int w_dtype, const void* x, const uint8_t* w, const float* scale, void* y,
+                   float* partial, int M, int N, int K, int splits, cudaStream_t s) {
+  if (w_dtype == 0) return gemv<T, WInt8>(x, w, scale, y, partial, M, N, K, splits, s);
+  if (w_dtype == 1) return gemv<T, WE4M3>(x, w, scale, y, partial, M, N, K, splits, s);
   return cudaErrorInvalidValue;
 }
 
@@ -396,15 +453,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// Both entry points: x_dtype 0 float32, 1 bfloat16 (x and y); K a multiple
-// of 16; `partial` a float32 workspace of splits * M * N (unused when
+// Both entry points: x_dtype 0 float32, 1 bfloat16 (x and y); w_dtype 0
+// int8, 1 fp8 e4m3 (float8_e4m3fn: 0x7f and 0xff are NaN, which quantizing
+// never writes); K a multiple of 16; `partial` a float32 workspace of splits * M * N (unused when
 // splits == 1).  They return cudaGetLastError() after the launches (0 on
 // success), or cudaErrorInvalidValue / cudaErrorMisalignedAddress for
 // arguments the kernels do not take (the GEMV: a split of K whose x,
 // MT * kchunk * 5 bytes, exceeds 48 KB).
 
 // decode body, M <= 16
-extern "C" int mxtt_qmm_gemv(int x_dtype, const void* x, const void* w_q,
+extern "C" int mxtt_qmm_gemv(int x_dtype, int w_dtype, const void* x, const void* w_q,
                              const void* scale, void* y, void* partial, int M, int N,
                              int K, int splits, void* stream) {
   if (M < 1 || M > 16 || N < 1 || K < 16 || K % 16 != 0 || splits < 1 ||
@@ -412,14 +470,14 @@ extern "C" int mxtt_qmm_gemv(int x_dtype, const void* x, const void* w_q,
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w_q)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* wp = static_cast<const int8_t*>(w_q);
+  const uint8_t* wp = static_cast<const uint8_t*>(w_q);
   const float* sp = static_cast<const float*>(scale);
   float* pp = static_cast<float*>(partial);
   cudaError_t err;
   if (x_dtype == 0)
-    err = gemv<float>(x, wp, sp, y, pp, M, N, K, splits, s);
+    err = gemv_w<float>(w_dtype, x, wp, sp, y, pp, M, N, K, splits, s);
   else if (x_dtype == 1)
-    err = gemv<__nv_bfloat16>(x, wp, sp, y, pp, M, N, K, splits, s);
+    err = gemv_w<__nv_bfloat16>(w_dtype, x, wp, sp, y, pp, M, N, K, splits, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
@@ -429,7 +487,7 @@ extern "C" int mxtt_qmm_gemv(int x_dtype, const void* x, const void* w_q,
 // prefill body: `pieces` is a bfloat16 workspace of 3 * M * K for float32
 // x (the split is written there first); bfloat16 x is read as it is.
 // tn: the token tile, 64 or 240.
-extern "C" int mxtt_qmm_wgmma(int x_dtype, const void* x, const void* w_q,
+extern "C" int mxtt_qmm_wgmma(int x_dtype, int w_dtype, const void* x, const void* w_q,
                               const void* scale, void* y, void* pieces, void* partial,
                               int M, int N, int K, int tn, int splits, void* stream) {
   if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || splits < 1 ||
@@ -438,7 +496,7 @@ extern "C" int mxtt_qmm_wgmma(int x_dtype, const void* x, const void* w_q,
   if (!aligned16(x) || !aligned16(w_q) || (x_dtype == 0 && !aligned16(pieces)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* wp = static_cast<const int8_t*>(w_q);
+  const uint8_t* wp = static_cast<const uint8_t*>(w_q);
   const float* sp = static_cast<const float*>(scale);
   float* pp = static_cast<float*>(partial);
   cudaError_t err;
@@ -447,9 +505,9 @@ extern "C" int mxtt_qmm_wgmma(int x_dtype, const void* x, const void* w_q,
     const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
     qmm_split<<<blocks, 256, 0, s>>>(static_cast<const float*>(x),
                                      static_cast<__nv_bfloat16*>(pieces), n);
-    err = wgmma_tn<float, 3>(tn, pieces, wp, sp, y, pp, M, N, K, splits, s);
+    err = wgmma_w<float, 3>(w_dtype, tn, pieces, wp, sp, y, pp, M, N, K, splits, s);
   } else if (x_dtype == 1) {
-    err = wgmma_tn<__nv_bfloat16, 1>(tn, x, wp, sp, y, pp, M, N, K, splits, s);
+    err = wgmma_w<__nv_bfloat16, 1>(w_dtype, tn, x, wp, sp, y, pp, M, N, K, splits, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

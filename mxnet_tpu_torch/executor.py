@@ -12,10 +12,20 @@ each node's ``forward`` eagerly on torch tensors in post-DFS order.
   NDArray bookkeeping): the same walk under ``torch.no_grad``, what
   ``GenerationEngine.run_async`` calls on every step.
 
-``simple_bind``, backward through the Executor, mirroring and the
-program registry belong to later slices.
+Executors share programs through a registry keyed like the JAX
+package's ``_lookup_program``: graph fingerprint, device and
+``MXNET_COMPUTE_DTYPE``.  ``build_program`` runs once a key, so the
+per-bucket binds of one model share one program, and
+:func:`program_registry_stats` counts the builds ("lowerings") and the
+hits: a warmed server performs zero lowerings.
+
+``simple_bind``, backward through the Executor and mirroring belong to
+later slices.
 """
 from __future__ import annotations
+
+import os
+import threading
 
 import torch
 
@@ -23,7 +33,7 @@ from .base import MXNetError
 from .context import resolve
 from .ndarray import NDArray
 
-__all__ = ["Executor", "build_program"]
+__all__ = ["Executor", "build_program", "program_registry_stats"]
 
 
 def _as_list(obj, names, what):
@@ -88,6 +98,38 @@ def build_program(symbol):
     return Program(trace, needs_rng)
 
 
+#: (graph fingerprint, device, compute dtype) -> Program
+_PROGRAM_REGISTRY = {}
+_REGISTRY_LOCK = threading.Lock()
+
+
+def program_registry_stats():
+    """``{"hits", "misses", "lowerings", "programs"}``: the compile-cache
+    counters (a lowering is one ``build_program``) and the registry's
+    size.  "Zero lowerings after warmup" is a delta of these."""
+    from .parallel import overlap as _overlap
+    stats = _overlap.compile_cache_stats()
+    with _REGISTRY_LOCK:
+        stats["programs"] = len(_PROGRAM_REGISTRY)
+    return stats
+
+
+def _lookup_program(symbol, device):
+    """The registry's program for ``symbol`` on ``device``, built on a
+    miss."""
+    from .parallel import overlap as _overlap
+    key = (_overlap.graph_fingerprint(symbol), str(device),
+           os.environ.get("MXNET_COMPUTE_DTYPE", ""))
+    with _REGISTRY_LOCK:
+        prog = _PROGRAM_REGISTRY.get(key)
+        if prog is None:
+            _overlap.note_lowering()
+            prog = _PROGRAM_REGISTRY[key] = build_program(symbol)
+        else:
+            _overlap.note_hit()
+    return prog
+
+
 class Executor:
     """Parity: include/mxnet/symbolic.h:323 + python/mxnet/executor.py,
     forward only."""
@@ -113,7 +155,7 @@ class Executor:
         self.aux_arrays = aux_list
         self.aux_dict = dict(zip(self._aux_names, aux_list))
 
-        self._program = build_program(symbol)
+        self._program = _lookup_program(symbol, self._device)
         self.outputs = [None] * len(self._out_names)
         self._n_forward = 0
 

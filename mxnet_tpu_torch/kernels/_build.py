@@ -96,10 +96,11 @@ def _declare(lib, name):
         fn, args = lib.mxtt_flash_decode, ([i, i] + [vp] * 8
                                            + [i] * 7 + [f, vp])
     elif name == "quantized_matmul":
-        lib.mxtt_qmm_gemv.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        lib.mxtt_qmm_gemv.argtypes = [i, i, vp, vp, vp, vp, vp, i, i, i, i,
+                                      vp]
         lib.mxtt_qmm_gemv.restype = i
-        fn, args = lib.mxtt_qmm_wgmma, [i, vp, vp, vp, vp, vp, vp, i, i, i,
-                                        i, i, vp]
+        fn, args = lib.mxtt_qmm_wgmma, [i, i, vp, vp, vp, vp, vp, vp, i, i,
+                                        i, i, i, vp]
     elif name == "flash_attention":
         fn, args = lib.mxtt_flash_attention_forward, [i, vp, vp, vp, vp, vp,
                                                       i, i, i, i, i, f, vp]

@@ -19,6 +19,7 @@ block-table row (serving/kvcache.py), with positions ``> pos`` masked.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -125,15 +126,19 @@ _PLANS = {}     # (device index, B, H, MB, BS, D) -> plan_flash_decode's plan
 #: float32 workspace].  Streams come from PyTorch's fixed pool of a few
 #: dozen a device (or are the default one), so the entries stay few.
 _SCRATCH = {}
+#: guards the first fill of both: a server binds models on one thread
+#: while its dispatch worker launches on another
+_CACHE_LOCK = threading.Lock()
 
 
 def _plan(dev, B, H, MB, BS, D):
     """The plan for these shapes on ``dev``, made once."""
     key = (dev.index, B, H, MB, BS, D)
-    plan = _PLANS.get(key)
-    if plan is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = _PLANS[key] = plan_flash_decode(B, H, MB, BS, D, sms)
+    with _CACHE_LOCK:
+        plan = _PLANS.get(key)
+        if plan is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = _PLANS[key] = plan_flash_decode(B, H, MB, BS, D, sms)
     return plan
 
 
@@ -143,18 +148,19 @@ def _scratch(dev, stream, plan):
     them at zero.  Calls on one stream run in order, so they can share
     both; one entry a stream keeps calls on two streams apart."""
     key = (dev.index, stream)
-    entry = _SCRATCH.get(key)
-    if entry is None:
-        entry = _SCRATCH[key] = [
-            torch.zeros(64, dtype=torch.int32, device=dev),
-            torch.empty(0, dtype=torch.float32, device=dev)]
-    if entry[0].numel() < plan["counters"]:
-        entry[0] = torch.zeros(plan["counters"], dtype=torch.int32,
-                               device=dev)
-    if entry[1].numel() < plan["workspace"]:
-        entry[1] = torch.empty(plan["workspace"], dtype=torch.float32,
-                               device=dev)
-    return entry
+    with _CACHE_LOCK:
+        entry = _SCRATCH.get(key)
+        if entry is None:
+            entry = _SCRATCH[key] = [
+                torch.zeros(64, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.float32, device=dev)]
+        if entry[0].numel() < plan["counters"]:
+            entry[0] = torch.zeros(plan["counters"], dtype=torch.int32,
+                                   device=dev)
+        if entry[1].numel() < plan["workspace"]:
+            entry[1] = torch.empty(plan["workspace"], dtype=torch.float32,
+                                   device=dev)
+        return list(entry)
 
 
 def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):

@@ -1,12 +1,15 @@
-"""Weight-only int8 quantization: per-channel params + the int8 matmul.
+"""Weight-only quantization: per-channel params + the weight-only matmul.
 
-The port of ``mxnet_tpu/kernels/quantize.py``, int8 only (fp8 weights
-are later work):
+The port of ``mxnet_tpu/kernels/quantize.py``, int8 and fp8 (e4m3):
 
 - :func:`quantize_array` / :func:`quantize_params` — per-output-channel
-  symmetric quantization in numpy, bitwise the same as the JAX
-  package's: ``w (N, K)`` -> ``(q (N, K) int8, scale (N,) float32)``
-  with ``scale = absmax / 127``.
+  symmetric quantization, bitwise the same as the JAX package's:
+  ``w (N, K)`` -> ``(q (N, K), scale (N,) float32)`` with ``scale =
+  absmax / 127`` (int8: q is numpy int8) or ``absmax / 448`` (fp8: q
+  is a ``torch.float8_e4m3fn`` tensor, the cast of ``w / scale`` that
+  the JAX package makes with ``ml_dtypes``, saturating at 448; numpy
+  has no fp8 type, so where numpy must hold q it holds its bytes,
+  ``q.view(torch.uint8)``).
 - :func:`quantizable_weights` / :func:`quantize_symbol` — the graph
   rewrite over the reference JSON layout: matched ``FullyConnected``
   nodes become ``QuantizedDense`` with a ``<weight>_scale`` variable
@@ -16,9 +19,10 @@ are later work):
   is its plain PyTorch version (widen, matmul, scale), which CPU tensors
   take.  On the GPU it picks a body by M (:func:`plan_quantized_matmul`):
   a split-K GEMV on the CUDA cores at decode (M <= 16), a ``wgmma``
-  tensor-core GEMM at prefill (float32 x as three bfloat16 pieces).
-  ``quantized_matmul.launches`` counts kernel calls and
-  ``quantized_matmul.launches_by_route`` them by body.
+  tensor-core GEMM at prefill (float32 x as three bfloat16 pieces); both
+  take int8 and e4m3 weights.  ``quantized_matmul.launches`` counts
+  kernel calls, ``quantized_matmul.launches_by_route`` them by body and
+  ``quantized_matmul.launches_by_qdtype`` by weight type.
 """
 from __future__ import annotations
 
@@ -30,30 +34,42 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["QDTYPES", "quantize_array", "dequantize_array",
+__all__ = ["QDTYPES", "STORAGE_DTYPES", "storage_dtype", "quantize_array",
+           "dequantize_array",
            "quantize_params", "quantizable_weights", "quantize_symbol",
            "quantized_matmul", "quantized_matmul_reference",
-           "plan_quantized_matmul", "split_bf16"]
+           "plan_quantized_matmul", "pad_depth", "split_bf16"]
 
 #: supported weight dtypes -> symmetric clip range max
-QDTYPES = {"int8": 127.0}
+QDTYPES = {"int8": 127.0, "fp8_e4m3": 448.0}
+#: the torch dtype that stores each
+STORAGE_DTYPES = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
 
 #: default rule set: every FullyConnected weight (attention projections
 #: live inside the fused attention ops and stay wide)
 DEFAULT_RULES = (r".*",)
 
 _X_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_W_DTYPE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+_QDTYPE_OF = {t: name for name, t in STORAGE_DTYPES.items()}
 
 
-def _check_qdtype(qdtype):
-    if qdtype not in QDTYPES:
-        raise MXNetError("quantize: the port supports %s, got %r"
-                         % (sorted(QDTYPES), qdtype))
+def storage_dtype(qdtype):
+    """The torch dtype storing quantized weights of ``qdtype``."""
+    if qdtype not in STORAGE_DTYPES:
+        raise MXNetError("quantize: unknown qdtype %r (have: %s)"
+                         % (qdtype, sorted(QDTYPES)))
+    return STORAGE_DTYPES[qdtype]
 
 
 def _to_numpy(v):
+    """Host numpy data of ``v``; an fp8 tensor gives its bytes (uint8),
+    since numpy has no fp8 type."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.float8_e4m3fn:
+            v = v.view(torch.uint8)
+        return v.numpy()
     if hasattr(v, "asnumpy"):
         return v.asnumpy()
     return _np.asarray(v)
@@ -62,11 +78,14 @@ def _to_numpy(v):
 def quantize_array(w, qdtype="int8"):
     """Per-output-channel symmetric quantization of a 2-D weight.
 
-    ``w (N, K)`` -> ``(q (N, K) int8, scale (N,) float32)`` with
-    ``dequant = q.astype(f32) * scale[:, None]``.  All-zero rows get
-    scale 1.0.
+    ``w (N, K)`` -> ``(q (N, K), scale (N,) float32)`` with ``dequant =
+    float(q) * scale[:, None]``; q is numpy int8 for ``"int8"`` and a CPU
+    ``torch.float8_e4m3fn`` tensor for ``"fp8_e4m3"`` (saturating at
+    448, as ``ml_dtypes``' cast).  All-zero rows get scale 1.0.
     """
-    _check_qdtype(qdtype)
+    st = storage_dtype(qdtype)
+    if isinstance(w, torch.Tensor):
+        w = w.float()                 # a bfloat16 or fp8 weight's values
     w = _np.asarray(_to_numpy(w), dtype=_np.float32)
     if w.ndim != 2:
         raise MXNetError("quantize_array wants a 2-D weight, got shape %s"
@@ -74,12 +93,18 @@ def quantize_array(w, qdtype="int8"):
     qmax = QDTYPES[qdtype]
     absmax = _np.max(_np.abs(w), axis=1)
     scale = _np.where(absmax > 0, absmax / qmax, 1.0).astype(_np.float32)
-    q = _np.clip(_np.rint(w / scale[:, None]), -qmax, qmax).astype(_np.int8)
+    scaled = w / scale[:, None]
+    if qdtype == "int8":
+        q = _np.clip(_np.rint(scaled), -qmax, qmax).astype(_np.int8)
+    else:
+        q = torch.from_numpy(_np.ascontiguousarray(scaled)).to(st)
     return q, scale
 
 
 def dequantize_array(q, scale):
-    """Inverse of :func:`quantize_array` (float32)."""
+    """Inverse of :func:`quantize_array` (float32 numpy)."""
+    if isinstance(q, torch.Tensor):
+        q = q.detach().cpu().float().numpy()
     return _np.asarray(q, dtype=_np.float32) * \
         _np.asarray(scale, dtype=_np.float32)[:, None]
 
@@ -114,7 +139,7 @@ def quantize_symbol(symbol_json, rules=None, qdtype="int8"):
     between weight and bias; node indices are remapped.  Returns
     ``(new_json_str, quantized_weight_names)``.
     """
-    _check_qdtype(qdtype)
+    storage_dtype(qdtype)
     data = json.loads(symbol_json)
     names = set(quantizable_weights(symbol_json, rules))
     if not names:
@@ -152,24 +177,30 @@ def quantize_symbol(symbol_json, rules=None, qdtype="int8"):
     return json.dumps(data, indent=2), tuple(sorted(names))
 
 
-def _is_int8(v):
-    return str(getattr(v, "dtype", "")) in ("int8", "torch.int8")
+def _dtype_of(v):
+    """A value's dtype as a torch dtype or numpy's name, read without a
+    copy to the host."""
+    if hasattr(v, "data") and isinstance(v.data, torch.Tensor):
+        v = v.data                        # an NDArray
+    dt = getattr(v, "dtype", None)
+    return dt if isinstance(dt, torch.dtype) else str(dt)
 
 
 def quantize_params(params, names, qdtype="int8"):
     """Quantize the listed weights of a params dict (name -> array).
 
-    Returns a NEW dict where each listed weight is replaced by its int8
-    numpy array and a ``<name>_scale`` float32 entry rides next to it;
-    everything else passes through untouched.  Idempotent: a weight
-    already int8 with its scale present is skipped (without a copy to
-    the host)."""
-    _check_qdtype(qdtype)
+    Returns a NEW dict where each listed weight is replaced by its
+    quantized weight (:func:`quantize_array`'s q) and a ``<name>_scale``
+    float32 entry rides next to it; everything else passes through
+    untouched.  Idempotent: a weight already in the storage dtype with
+    its scale present is skipped (without a copy to the host)."""
+    st = storage_dtype(qdtype)
     out = dict(params)
     for name in names:
         if name not in out:
             continue
-        if _is_int8(out[name]) and (name + "_scale") in out:
+        if _dtype_of(out[name]) in (st, str(st).replace("torch.", "")) \
+                and (name + "_scale") in out:
             continue
         q, scale = quantize_array(out[name], qdtype=qdtype)
         out[name] = q
@@ -182,7 +213,8 @@ def quantize_params(params, names, qdtype="int8"):
 # ----------------------------------------------------------------------
 def quantized_matmul_reference(x, w_q, scale):
     """Plain version: widen, contract in float32, scale.  ``x (M, K)``,
-    ``w_q (N, K)`` int8, ``scale (N,)`` -> ``(M, N)`` in x's dtype."""
+    ``w_q (N, K)`` int8 or float8_e4m3fn, ``scale (N,)`` -> ``(M, N)`` in
+    x's dtype."""
     y = torch.matmul(x.float(), w_q.float().t())
     return (y * scale.float()[None, :]).to(x.dtype)
 
@@ -193,8 +225,8 @@ def split_bf16(x):
     ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``,
     each rounded to nearest even.  ``hi + mid + lo == x`` exactly for
     every finite ``x`` whose pieces stay normal: three 8-bit significands
-    hold its 24 bits.  Each piece times an int8 weight is exact in
-    float32, so the three products carry float32 accuracy."""
+    hold its 24 bits.  Each piece times an int8 or e4m3 weight is exact
+    in float32, so the three products carry float32 accuracy."""
     x = x.float()
     hi = x.to(torch.bfloat16)
     r1 = x - hi.float()
@@ -209,10 +241,10 @@ def _check_inputs(x, w_q, scale):
                          "scale (N,), got %s, %s, %s"
                          % (tuple(x.shape), tuple(w_q.shape),
                             tuple(scale.shape)))
-    if x.dtype not in _X_DTYPE_CODES or w_q.dtype != torch.int8 \
+    if x.dtype not in _X_DTYPE_CODES or w_q.dtype not in _W_DTYPE_CODES \
             or scale.dtype != torch.float32:
         raise MXNetError("quantized_matmul: want x float32/bfloat16, w_q "
-                         "int8, scale float32, got %s, %s, %s"
+                         "int8/float8_e4m3fn, scale float32, got %s, %s, %s"
                          % (x.dtype, w_q.dtype, scale.dtype))
     for name, t in (("x", x), ("w_q", w_q), ("scale", scale)):
         if not t.is_cuda or t.device != x.device:
@@ -267,24 +299,33 @@ def plan_quantized_matmul(m, n, k, sms):
     return {"route": route, "splits": max(splits, least), "tn": tn}
 
 
+def pad_depth(x, w_q):
+    """``x (M, K)`` and ``w_q (N, K)`` with K zero-padded to a multiple
+    of 16 (copies; as they are when it is one).  w_q is padded through
+    its bytes, so an fp8 weight needs no fp8 support of ``F.pad``: 0x00
+    is +0 in int8 and in e4m3."""
+    pad = -x.shape[1] % 16
+    if not pad:
+        return x, w_q
+    return (torch.nn.functional.pad(x, (0, pad)),
+            torch.nn.functional.pad(w_q.view(torch.uint8),
+                                    (0, pad)).view(w_q.dtype))
+
+
 def quantized_matmul(x, w_q, scale):
-    """Weight-only int8 matmul ``x (M, K) @ w_q (N, K).T * scale``.
-    CPU tensors take :func:`quantized_matmul_reference`; CUDA tensors
-    launch the body :func:`plan_quantized_matmul` picks from
+    """Weight-only matmul ``x (M, K) @ w_q (N, K).T * scale``, w_q int8 or
+    float8_e4m3fn.  CPU tensors take :func:`quantized_matmul_reference`;
+    CUDA tensors launch the body :func:`plan_quantized_matmul` picks from
     ``csrc/quantized_matmul.cu`` (and raise on inputs it does not take).
     Both accumulate in float32 and return x's dtype.  A K that is no
-    multiple of 16 is zero-padded (a copy of x and w_q) for the kernels'
-    16-byte loads."""
+    multiple of 16 is zero-padded (a copy of x and of w_q's bytes, 0x00
+    being +0 in either type) for the kernels' 16-byte loads."""
     if not x.is_cuda:
         return quantized_matmul_reference(x, w_q, scale)
     from ._build import check, library
     _check_inputs(x, w_q, scale)
+    x, w_q = pad_depth(x, w_q)
     (m, k), n = x.shape, w_q.shape[0]
-    if k % 16:
-        pad = 16 - k % 16
-        x = torch.nn.functional.pad(x, (0, pad))
-        w_q = torch.nn.functional.pad(w_q, (0, pad))
-        k += pad
     plan = plan_quantized_matmul(
         m, n, k, torch.cuda.get_device_properties(x.device)
         .multi_processor_count)
@@ -302,22 +343,26 @@ def quantized_matmul(x, w_q, scale):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan["route"] == "gemv":
             code = lib.mxtt_qmm_gemv(
-                _X_DTYPE_CODES[x.dtype], x.data_ptr(), w_q.data_ptr(),
+                _X_DTYPE_CODES[x.dtype], _W_DTYPE_CODES[w_q.dtype],
+                x.data_ptr(), w_q.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), partial.data_ptr(), m, n,
                 k, plan["splits"], stream)
         else:
             code = lib.mxtt_qmm_wgmma(
-                _X_DTYPE_CODES[x.dtype], x.data_ptr(), w_q.data_ptr(),
+                _X_DTYPE_CODES[x.dtype], _W_DTYPE_CODES[w_q.dtype],
+                x.data_ptr(), w_q.data_ptr(),
                 scale.data_ptr(), out.data_ptr(), pieces.data_ptr(),
                 partial.data_ptr(), m, n, k, plan["tn"], plan["splits"],
                 stream)
     check(lib, code, "quantized_matmul (%s)" % plan["route"])
     quantized_matmul.launches += 1
     quantized_matmul.launches_by_route[plan["route"]] += 1
+    quantized_matmul.launches_by_qdtype[_QDTYPE_OF[w_q.dtype]] += 1
     return out
 
 
-#: calls that launched a CUDA body in this process, in all and by body
-#: (callers may reset them)
+#: calls that launched a CUDA body in this process, in all, by body and
+#: by weight type (callers may reset them)
 quantized_matmul.launches = 0
 quantized_matmul.launches_by_route = {"gemv": 0, "wgmma": 0}
+quantized_matmul.launches_by_qdtype = {"int8": 0, "fp8_e4m3": 0}

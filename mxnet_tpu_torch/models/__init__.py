@@ -1,2 +1,3 @@
 """Model builders of the port."""
-from . import transformer   # noqa: F401
+from . import mlp, transformer           # noqa: F401
+from .mlp import get_symbol as get_mlp   # noqa: F401

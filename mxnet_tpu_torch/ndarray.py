@@ -178,10 +178,11 @@ class NDArray:
     # host interop
     # ------------------------------------------------------------------
     def asnumpy(self):
-        """Blocking copy to host numpy.  numpy has no bfloat16, so a
-        bfloat16 array comes back as float32."""
+        """Blocking copy to host numpy.  numpy has no bfloat16 and no
+        fp8, so a bfloat16 or float8_e4m3fn array (a quantized weight)
+        comes back as float32, exactly."""
         t = self._data.detach()
-        if t.dtype == torch.bfloat16:
+        if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
             t = t.float()
         return t.cpu().numpy()
 

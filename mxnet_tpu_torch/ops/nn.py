@@ -1,10 +1,11 @@
 """Neural-network operators of the generation graphs.
 
 The port's slice of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
-Reshape (with MXNet's ``0``/``-1`` codes), Embedding and the weight-only
-QuantizedDense.  Plain matrix products go to ``torch.matmul``, as the
-JAX package left them to XLA; QuantizedDense goes through the port's
-int8 kernel (``kernels/quantize.py``).
+Flatten, Reshape (with MXNet's ``0``/``-1`` codes), Embedding and the
+weight-only QuantizedDense.  Plain matrix products go to
+``torch.matmul``, as the JAX package left them to XLA; QuantizedDense
+goes through the port's weight-only kernel (``kernels/quantize.py``),
+int8 or fp8 e4m3.
 """
 from __future__ import annotations
 
@@ -90,9 +91,10 @@ class QuantizedDense(OperatorProperty):
     """Weight-only quantized FullyConnected: y = x_2d · dequant(Wq)ᵀ + b.
 
     Produced by ``kernels.quantize.quantize_symbol``; the weight rides
-    in int8 with a per-output-channel float32 ``scale`` argument at
-    index 2.  Forward is ``kernels.quantize.quantized_matmul``: the CUDA
-    kernel for a tensor on the GPU, its plain version on the CPU.
+    in ``qdtype`` (int8 or ``torch.float8_e4m3fn``) with a
+    per-output-channel float32 ``scale`` argument at index 2.  Forward
+    is ``kernels.quantize.quantized_matmul``: the CUDA kernel for a
+    tensor on the GPU, its plain version on the CPU.
     """
     param_cls = _QuantizedDenseParam
 
@@ -106,10 +108,12 @@ class QuantizedDense(OperatorProperty):
         return _dense_shapes(self, in_shapes, extra_args=("scale",))
 
     def forward(self, inputs, aux, is_train, rng):
-        from ..kernels.quantize import quantized_matmul
-        if self.param.qdtype != "int8":
-            raise MXNetError("QuantizedDense: the port serves int8 weights "
-                             "only, got qdtype=%r" % self.param.qdtype)
+        from ..kernels.quantize import STORAGE_DTYPES, quantized_matmul
+        if inputs[1].dtype != STORAGE_DTYPES[self.param.qdtype]:
+            raise MXNetError("QuantizedDense: qdtype=%r wants %s weights, "
+                             "got %s" % (self.param.qdtype,
+                                         STORAGE_DTYPES[self.param.qdtype],
+                                         inputs[1].dtype))
         x = inputs[0].reshape(inputs[0].shape[0], -1).contiguous()
         y = quantized_matmul(x, inputs[1], inputs[2])
         if not self.param.no_bias:
@@ -118,8 +122,22 @@ class QuantizedDense(OperatorProperty):
 
 
 # ----------------------------------------------------------------------
-# Reshape
+# Flatten / Reshape
 # ----------------------------------------------------------------------
+@register_op("Flatten")
+class Flatten(OperatorProperty):
+    """(B, ...) -> (B, prod(...))."""
+
+    def infer_shape(self, in_shapes):
+        require_known("Flatten", in_shapes, ["data"])
+        d = in_shapes[0]
+        return in_shapes, [(d[0], int(_np.prod(d[1:], dtype=_np.int64)))], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [inputs[0].reshape(inputs[0].shape[0], -1)], None
+
+
+
 class _ReshapeParam(ParamStruct):
     shape = Field(tuple, default=None, doc="0 keeps input dim, -1 infers")
     target_shape = Field(tuple, default=None, doc="legacy exact shape")

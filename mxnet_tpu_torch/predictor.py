@@ -3,11 +3,16 @@
 The port's counterpart of ``mxnet_tpu/predictor.py`` (the reference's
 ``c_predict_api.cc`` surface: load symbol JSON + params, set inputs,
 forward, read outputs).  ``ctx=None`` means ``gpu(0)``, and with no CUDA
-device that raises: pass ``ctx=cpu()`` to predict on the CPU.
+device that raises: pass ``ctx=cpu()`` to predict on the CPU.  Predictors
+of one symbol on one device share one program through the executor's
+registry (:meth:`Predictor.compile_stats`); :meth:`Predictor.forward_async`
+is the serving batcher's launch.
 """
 from __future__ import annotations
 
 import os
+
+import torch
 
 from .base import MXNetError
 from . import ndarray as nd
@@ -28,9 +33,10 @@ class Predictor(object):
         numpy arrays, tensors or NDArrays
     input_shapes : dict name -> shape
     ctx : Context or None (the default, ``gpu(0)``)
-    quantize : None | "int8" — weight-only quantization: rewrite the
-        FullyConnected nodes to QuantizedDense and quantize their
-        weights.  Idempotent on an already-quantized params dict.
+    quantize : None | "int8" | "fp8_e4m3" — weight-only quantization:
+        rewrite the FullyConnected nodes to QuantizedDense and quantize
+        their weights.  Defaults to the ``MXTPU_QUANTIZE`` environment
+        variable.  Idempotent on an already-quantized params dict.
     """
 
     def __init__(self, symbol_json, param_file, input_shapes, ctx=None,
@@ -55,6 +61,8 @@ class Predictor(object):
             else:
                 arg_params[k[4:] if k.startswith("arg:") else k] = v
 
+        if quantize is None:
+            quantize = os.environ.get("MXTPU_QUANTIZE", "") or None
         self._quantize = quantize
         if quantize:
             from .kernels import quantize as _q
@@ -87,9 +95,11 @@ class Predictor(object):
                 raise MXNetError("Predictor: missing aux state %r" % name)
             aux[name] = nd.array(aux_params[name], ctx=self._device)
         self._exec = self.symbol.bind(self._device, args, aux_states=aux)
+        self._ctx = self._device
+        self._arg_params = arg_params
+        self._aux_params = aux_params
 
-    def set_input(self, name, value):
-        """Parity MXPredSetInput (incl. its size validation)."""
+    def _check_input(self, name, value):
         if name not in self._input_names:
             raise MXNetError("unknown input %r (inputs: %s)"
                              % (name, self._input_names))
@@ -98,6 +108,10 @@ class Predictor(object):
             raise MXNetError(
                 "input %r has shape %s but the predictor was bound with %s"
                 % (name, tuple(value.shape), want))
+
+    def set_input(self, name, value):
+        """Parity MXPredSetInput (incl. its size validation)."""
+        self._check_input(name, value)
         self._exec.arg_dict[name][:] = value
 
     def forward(self, **inputs):
@@ -106,6 +120,43 @@ class Predictor(object):
             self.set_input(k, v)
         return [o.asnumpy() for o in self._exec.forward(is_train=False)]
 
+    def forward_async(self, **inputs):
+        """Launch one forward without waiting for the device and return
+        the raw output tensors.
+
+        The inputs go to the device as new tensors (the bound argument
+        slots are not written) and the outputs are new tensors of this
+        call, never the executor's ``outputs``: a pipeline may launch
+        batch N+1 while batch N's results are still being read (the
+        serving batcher's overlap).  Reading them (``.cpu()``) waits for
+        the device."""
+        ex = self._exec
+        values = {n: a.data for n, a in ex.arg_dict.items()}
+        for name, value in inputs.items():
+            t = torch.as_tensor(value)
+            self._check_input(name, t)
+            values[name] = t.to(device=self._device,
+                                dtype=ex.arg_dict[name].dtype)
+        ex._n_forward += 1
+        return ex._forward_raw(values)
+
+    @staticmethod
+    def compile_stats():
+        """The program registry's counters (``{"hits", "misses",
+        "lowerings", "programs"}``): a second Predictor of the same
+        symbol on the same device counts a hit and no lowering."""
+        from .executor import program_registry_stats
+        return program_registry_stats()
+
     def get_output(self, index):
         """Parity MXPredGetOutput."""
         return self._exec.outputs[index].asnumpy()
+
+    def reshape(self, input_shapes):
+        """Parity MXPredReshape: a Predictor of the same symbol and
+        parameters for new input shapes (it shares the program)."""
+        return Predictor(self.symbol.tojson(),
+                         dict(self._arg_params,
+                              **{"aux:" + k: v
+                                 for k, v in self._aux_params.items()}),
+                         input_shapes, self._ctx)

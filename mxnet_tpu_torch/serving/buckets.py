@@ -17,18 +17,30 @@ both m and n (the attention S² term of the prompt-length axis).
 """
 from __future__ import annotations
 
+import os as _os
+
 import numpy as _np
 
 from ..base import MXNetError
 
 __all__ = ["plan_buckets", "BucketPlan", "plan_cost", "padded_flops",
-           "useful_flops", "bucket_for", "pow2_buckets", "parse_histogram",
-           "parse_buckets", "mxu_padding_waste", "min_tile"]
+           "useful_flops", "request_waste", "bucket_for", "pow2_buckets",
+           "parse_histogram", "parse_buckets", "mxu_padding_waste",
+           "min_tile", "model_matmul_dims", "default_max_buckets"]
 
 #: fallback per-sample matmul dims when the model's are unknown
 DEFAULT_MATS = ((1, 128, 128),)
 #: planner bucket budget (the JAX package's default)
 DEFAULT_MAX_BUCKETS = 4
+
+
+def default_max_buckets():
+    """Planner bucket budget (``MXTPU_SERVE_MAX_BUCKETS``, default 4)."""
+    try:
+        return max(1, int(_os.environ.get("MXTPU_SERVE_MAX_BUCKETS",
+                                          str(DEFAULT_MAX_BUCKETS))))
+    except ValueError:
+        return DEFAULT_MAX_BUCKETS
 
 #: TPU tile granules of the cost model (mxnet_tpu/analysis/tiling.py)
 LANES = 128
@@ -140,6 +152,14 @@ def padded_flops(batch, mats=DEFAULT_MATS, compute_dtype="float32",
     return done / (1.0 - waste)
 
 
+def request_waste(n, bucket, mats=DEFAULT_MATS, compute_dtype="float32",
+                  quad_mats=()):
+    """Fraction of the bucket's padded work that is NOT the ``n``
+    requested samples (batch-fill padding + tile padding combined)."""
+    padded = padded_flops(bucket, mats, compute_dtype, quad_mats)
+    return 1.0 - useful_flops(n, mats, quad_mats) / padded
+
+
 def plan_cost(buckets, histogram, mats=DEFAULT_MATS,
               compute_dtype="float32", quad_mats=()):
     """Total padded MXU work of serving ``histogram`` (each request of
@@ -202,6 +222,16 @@ class BucketPlan(object):
         self.pow2_waste = 1.0 - self.useful / self.pow2_cost \
             if self.pow2_cost else 0.0
 
+    def bucket_for(self, n):
+        return bucket_for(n, self.buckets)
+
+    def admissible(self, n):
+        return bucket_for(n, self.buckets) is not None
+
+    @property
+    def max_batch(self):
+        return self.buckets[-1]
+
     def to_dict(self):
         return {"buckets": list(self.buckets),
                 "waste": round(self.waste, 6),
@@ -233,7 +263,7 @@ def plan_buckets(histogram, mats=None, max_buckets=None,
     hist = parse_histogram(histogram)
     mats = tuple(mats) if mats else DEFAULT_MATS
     quad_mats = tuple(quad_mats)
-    k_max = max_buckets or DEFAULT_MAX_BUCKETS
+    k_max = max_buckets or default_max_buckets()
     sizes = sorted(set(hist) | {int(s) for s in include})
     weights = [hist.get(s, 0.0) for s in sizes]
     n = len(sizes)
@@ -274,3 +304,49 @@ def plan_buckets(histogram, mats=None, max_buckets=None,
         k -= 1
     return BucketPlan(sorted(chosen), hist, mats, compute_dtype,
                       quad_mats=quad_mats)
+
+
+def _mxu_dims(op, in_shapes):
+    """``(m, k, n)`` rows of one op's matrix products, as the JAX
+    package's ``cost_mxu_dims`` gives them, or None."""
+    name = type(op).op_name
+    if name in ("FullyConnected", "QuantizedDense"):
+        data = in_shapes[0]
+        return [(int(data[0]), int(_np.prod(data[1:], dtype=_np.int64)),
+                 int(op.param.num_hidden))]
+    if name in ("MultiHeadAttention", "CachedMultiHeadAttention"):
+        B, S, E = in_shapes[0]
+        D = E // op.param.num_heads
+        T = S
+        if name == "CachedMultiHeadAttention" and op.param.mode == "decode":
+            T = int(in_shapes[7][1]) * int(in_shapes[5][1])
+        return [(B * S, E, 3 * E), (B * S, E, E), (S, D, T), (S, T, D)]
+    return None
+
+
+def model_matmul_dims(symbol, input_shapes, batch=1):
+    """Per-sample ``(m, k, n)`` rows of ``symbol``'s matrix products at
+    ``input_shapes`` (whose batch dim is ``batch``; ``m`` is divided
+    back out to per-sample), the same rows as the JAX package's
+    ``model_matmul_dims`` for the ops the port has.  None when the graph
+    has none (the planner then prices occupancy alone)."""
+    try:
+        arg_shapes, _, _ = symbol.infer_shape_partial(**dict(input_shapes))
+    except Exception:
+        return None
+    known = dict(zip(symbol.list_arguments(), arg_shapes or ()))
+    shapes, mats = {}, []
+    for node in symbol._topo():
+        if node.is_variable:
+            shapes[(id(node), 0)] = known.get(node.name)
+            continue
+        in_shapes = [shapes.get((id(c), ci)) for c, ci in node.inputs]
+        if any(sh is None for sh in in_shapes):
+            return None
+        _, outs, _ = node.op.infer_shape(in_shapes)
+        for i, sh in enumerate(outs):
+            shapes[(id(node), i)] = tuple(sh)
+        for m, k, n in _mxu_dims(node.op, in_shapes) or ():
+            mats.append((max(1, int(m) // max(1, int(batch))), int(k),
+                         int(n)))
+    return tuple(mats) or None

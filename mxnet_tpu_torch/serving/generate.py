@@ -1,7 +1,8 @@
-"""Generative serving: the prefill/decode engine.
+"""Generative serving: the prefill/decode engine and the batcher entry.
 
-The port of ``GenerationEngine`` and ``TokenStream`` from
-``mxnet_tpu/serving/generate.py``.  Two families of Predictors per model:
+The port of ``GenerationEngine``, ``TokenStream`` and ``GenerativeEntry``
+from ``mxnet_tpu/serving/generate.py``.  Two families of Predictors per
+model:
 
 - **prefill**, one per prompt-length bucket: one sequence a dispatch,
   causal attention over the prompt, its k/v scattered into the paged
@@ -14,7 +15,10 @@ The port of ``GenerationEngine`` and ``TokenStream`` from
 Admission reserves a sequence's whole block budget up front
 (:class:`~mxnet_tpu_torch.serving.kvcache.PagedKVCache`), so cache
 pressure is a :class:`CacheExhausted` at admission, never a failure
-mid-decode.  ``ctx=None`` runs on the current context (``gpu(0)``
+mid-decode; :class:`GenerativeEntry` turns it into a 429
+:class:`~mxnet_tpu_torch.serving.batcher.ServerBusy` carrying
+``blocks_free`` and streams tokens to the caller as the batcher's decode
+iterations land.  ``ctx=None`` runs on the current context (``gpu(0)``
 outside a ``with`` scope) and raises when there is no CUDA device; the
 CPU runs only on ``ctx=cpu()`` or under ``with cpu():``.
 
@@ -34,9 +38,12 @@ from ..base import MXNetError
 from ..context import resolve
 from .buckets import (BucketPlan, bucket_for, parse_buckets,
                       parse_histogram, plan_buckets)
-from .kvcache import (DEFAULT_MAX_NEW_TOKENS, KVCacheConfig, PagedKVCache)
+from .batcher import ServerBusy
+from .kvcache import (CacheExhausted, KVCacheConfig, PagedKVCache,
+                      max_new_tokens as _max_new_tokens)
 
-__all__ = ["GenerationEngine", "TokenStream", "generation_mats"]
+__all__ = ["GenerationEngine", "GenerativeEntry", "TokenStream",
+           "generation_mats"]
 
 
 def generation_mats(vocab_size, num_layers, num_heads, dim, ffn_mult=4):
@@ -133,11 +140,13 @@ class GenerationEngine(object):
     """Paged-cache greedy generation over bucketed prefill/decode
     Predictors.
 
-    No threads: :meth:`generate` drives it.  Methods that touch the
-    sequence map are locked; step execution (``run_async`` +
-    ``finish_*``) must be serialized by the caller.  ``quantize="int8"``
-    serves int8 weight-only FullyConnected layers through the int8
-    kernel.  Setting ``collect_logits = True`` keeps each step's logits
+    No threads: :meth:`generate` or the batcher (through
+    :class:`GenerativeEntry`) drives it.  Methods that touch the sequence
+    map are locked; step execution (``run_async`` + ``finish_*``) must be
+    serialized by the caller, which the batcher's one-job-per-entry gate
+    does.  ``quantize="int8"`` or ``"fp8_e4m3"`` (default: the
+    ``MXTPU_QUANTIZE`` environment variable) serves weight-only quantized
+    FullyConnected layers through the weight-only kernel.  Setting ``collect_logits = True`` keeps each step's logits
     row per sequence in ``last_logits`` (the int8-vs-float32 gate's
     input).
     """
@@ -149,9 +158,12 @@ class GenerationEngine(object):
                  kv_blocks=None, kv_block_size=None,
                  cache_dtype="float32", compute_dtype="float32",
                  max_buckets=None, ctx=None, quantize=None):
+        import os
         from ..predictor import Predictor
         from ..models import transformer as _tf
         self.device = resolve(ctx)
+        if quantize is None:
+            quantize = os.environ.get("MXTPU_QUANTIZE", "") or None
         self.quantize = quantize
         #: the dtype tokens are computed at
         self.serving_dtype = quantize or compute_dtype
@@ -162,7 +174,7 @@ class GenerationEngine(object):
         self.num_heads = int(num_heads)
         self.dim = int(dim)
         self.max_seq_len = int(max_seq_len)
-        self.max_new = int(max_new_tokens or DEFAULT_MAX_NEW_TOKENS)
+        self.max_new = _max_new_tokens(max_new_tokens)
         linear, quad = generation_mats(vocab_size, num_layers, num_heads,
                                        dim, ffn_mult)
 
@@ -228,7 +240,7 @@ class GenerationEngine(object):
         params = _tf.params_from_numpy(params, self.device)
         if quantize:
             # quantize once up front; each Predictor's own rewrite then
-            # finds the weights already int8 (quantize_params is
+            # finds the weights already quantized (quantize_params is
             # idempotent)
             from ..kernels import quantize as _q
             qnames = _q.quantizable_weights(dec_json)
@@ -303,6 +315,13 @@ class GenerationEngine(object):
             self._seqs[seq_id] = state
         return state
 
+    def abort(self, seq_id):
+        """Drop a sequence that never ran (admission succeeded but the
+        queue submit failed): free its blocks."""
+        with self._lock:
+            self._seqs.pop(seq_id, None)
+        self.cache.free(seq_id)
+
     def release(self, seq_id):
         """Finish bookkeeping: free cache blocks, drop state."""
         with self._lock:
@@ -314,6 +333,18 @@ class GenerationEngine(object):
     def state(self, seq_id):
         with self._lock:
             return self._seqs[seq_id]
+
+    def decode_candidates(self, limit=None):
+        """Active (prefilled, unfinished) sequence ids, oldest-admitted
+        first, capped at ``limit``: one decode iteration's batch."""
+        with self._lock:
+            ids = [s for s, st in self._seqs.items()
+                   if st.started and not st.done]
+        ids.sort()
+        return ids[:limit] if limit else ids
+
+    def has_active(self):
+        return bool(self.decode_candidates(limit=1))
 
     # -- step construction -------------------------------------------------
 
@@ -478,4 +509,178 @@ class GenerationEngine(object):
             s["seqs_known"] = len(self._seqs)
             s["tokens_generated"] = self._tokens_out
             s.update(self._step_time)
+        return s
+
+
+class _GenRequest(object):
+    __slots__ = ("seq_id", "stream", "future", "t_admit", "t_first",
+                 "t_last")
+
+    def __init__(self, seq_id):
+        self.seq_id = seq_id
+        self.stream = TokenStream()
+        self.future = None
+        self.t_admit = time.perf_counter()
+        self.t_first = None
+        self.t_last = None
+
+
+class GenerativeEntry(object):
+    """The batcher's duck-typed entry for a generative model (the port
+    of the JAX package's, unchanged).
+
+    ``buckets`` are PROMPT-LENGTH buckets (admission checks the prompt
+    against them); decode work is surfaced through the generative
+    extensions (``has_decode_work``/``pack_decode``/``complete``) the
+    batcher's scheduler drives at iteration granularity.  The batcher
+    serializes jobs per generative entry (decode step N+1 consumes
+    step N's tokens), so engine step execution needs no internal lock.
+    """
+
+    generative = True
+
+    def __init__(self, name, engine, priority=0):
+        self.name = name
+        self.engine = engine
+        self.priority = int(priority)
+        self.buckets = engine.prompt_buckets
+        self.decode_buckets = engine.decode_buckets
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._reqs = {}                 # seq_id -> _GenRequest
+        self.prefer_prefill = False     # round-robin fairness flag
+
+    # -- admission (server-side, before batcher.submit) --------------------
+
+    def new_request(self, prompt_tokens, max_new=None, eos_id=None):
+        """Admit one generation request: reserve its whole cache-block
+        budget now.  Raises :class:`ServerBusy` (429 with
+        ``blocks_free`` in the payload) when blocks are short — the
+        structured form of cache exhaustion; running decodes are
+        untouched.  Returns ``(seq_id, stream)``."""
+        with self._lock:
+            seq_id = self._next_id
+            self._next_id += 1
+        try:
+            self.engine.admit(seq_id, prompt_tokens, max_new=max_new,
+                              eos_id=eos_id)
+        except CacheExhausted as exc:
+            raise ServerBusy(
+                self.name, 0, 0, code=429, reason="kv cache exhausted",
+                retry_after_ms=100.0, extra=exc.to_dict())
+        req = _GenRequest(seq_id)
+        with self._lock:
+            self._reqs[seq_id] = req
+        return seq_id, req.stream
+
+    def abort(self, seq_id):
+        with self._lock:
+            self._reqs.pop(seq_id, None)
+        self.engine.abort(seq_id)
+
+    # -- batcher protocol: prefill rides the normal request path ----------
+
+    def pack(self, requests, bucket):
+        """Prefill pack (one sequence per dispatch — requests is a
+        single-element list by the scheduler's generative popping
+        rule)."""
+        req = requests[0]
+        seq_id = req.payload["seq_id"]
+        with self._lock:
+            gen = self._reqs[seq_id]
+            gen.future = req.future
+        pred, inputs, _b = self.engine.start_prefill(seq_id, bucket)
+        return {"phase": "prefill", "pred": pred, "inputs": inputs,
+                "seq_ids": [seq_id]}
+
+    def has_decode_work(self):
+        return self.engine.has_active()
+
+    def pack_decode(self):
+        """One decode iteration over the active set (host pack on the
+        scheduler thread)."""
+        seq_ids = self.engine.decode_candidates(
+            limit=self.decode_buckets[-1])
+        pred, inputs, bucket = self.engine.start_decode(seq_ids)
+        return ({"phase": "decode", "pred": pred, "inputs": inputs,
+                 "seq_ids": seq_ids}, bucket, len(seq_ids))
+
+    def launch(self, payload, bucket):
+        t0 = time.perf_counter()
+        outs = self.engine.run_async(payload["pred"], payload["inputs"])
+        return outs, t0, payload
+
+    def complete(self, handle, batch):
+        """Unpack-side: block on the step, stream tokens, settle
+        finished sequences, free their blocks.  Returns the telemetry
+        fields for the batch's ``serve`` record."""
+        outs, t0, payload = handle
+        phase = payload["phase"]
+        seq_ids = payload["seq_ids"]
+        if phase == "prefill":
+            tok, done = self.engine.finish_prefill(seq_ids[0], outs)
+            results = [(seq_ids[0], tok, done)]
+        else:
+            results = self.engine.finish_decode(seq_ids, outs)
+        t1 = time.perf_counter()
+        now = t1
+        tel = {"phase": phase, "tokens": len(results),
+               "device_ms": (t1 - t0) * 1e3, "lat_ms": [],
+               "ttft_ms": [], "itl_ms": [], "n_seqs": len(seq_ids)}
+        for sid, tok, done in results:
+            with self._lock:
+                gen = self._reqs[sid]
+            if gen.t_first is None:
+                gen.t_first = now
+                tel["ttft_ms"].append((now - gen.t_admit) * 1e3)
+            elif gen.t_last is not None:
+                tel["itl_ms"].append((now - gen.t_last) * 1e3)
+            gen.t_last = now
+            gen.stream._put(tok)
+            if done:
+                state = self.engine.release(sid)
+                with self._lock:
+                    self._reqs.pop(sid, None)
+                tel["lat_ms"].append((now - gen.t_admit) * 1e3)
+                gen.stream._close()
+                if gen.future is not None:
+                    gen.future._set({
+                        "tokens": state.generated(),
+                        "n_prompt": state.n_prompt,
+                        "finish_reason": state.finish_reason})
+        kv = self.engine.cache.stats()
+        tel["kv_occupancy"] = kv["occupancy"]
+        tel["kv_blocks_used"] = kv["blocks_used"]
+        tel["dtype"] = self.engine.serving_dtype
+        tel["kernel"] = self.engine.kernel_path()
+        tel["unpack_ms"] = (time.perf_counter() - t1) * 1e3
+        return tel
+
+    def fail_inflight(self, exc, payload):
+        """A prefill/decode step died: fail every sequence it carried
+        (stream + future) and free their blocks.  Other sequences and
+        the cache pools are untouched — the entry stays serviceable."""
+        for sid in payload.get("seq_ids", ()):
+            with self._lock:
+                gen = self._reqs.pop(sid, None)
+            try:
+                self.engine.release(sid)
+            except MXNetError:
+                pass
+            if gen is not None:
+                gen.stream._fail(exc)
+                if gen.future is not None:
+                    gen.future._fail(exc)
+
+    def waste(self, n_samples, bucket):
+        # generative batches report occupancy-based padding directly
+        # in their telemetry record; the planner-cost hook is a no-op
+        return 1.0 - n_samples / float(bucket)
+
+    def stats(self):
+        s = self.engine.stats()
+        with self._lock:
+            s["requests_open"] = len(self._reqs)
+        s["prompt_plan"] = self.engine.prompt_plan.to_dict()
+        s["decode_plan"] = self.engine.decode_plan.to_dict()
         return s

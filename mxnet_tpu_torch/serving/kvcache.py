@@ -19,11 +19,16 @@ tokens (vLLM's PagedAttention, SOSP'23).  Two halves:
 Block 0 is the **trash block**: never allocated, never read unmasked.
 Padded batch rows and padded prompt positions route their writes to it.
 
-The defaults are the JAX package's: 256 pool blocks (trash block
-included), 32 tokens a block, 64 new tokens a request.
+The sizes come from the JAX package's knobs, with its defaults:
+``MXTPU_SERVE_KV_BLOCKS`` pool blocks (256, trash block included),
+``MXTPU_SERVE_KV_BLOCK_SIZE`` tokens a block (32) and
+``MXTPU_SERVE_MAX_NEW_TOKENS`` new tokens a request (64), each read by
+:func:`kv_blocks`, :func:`kv_block_size` and :func:`max_new_tokens`
+when no explicit value is given; an unparsable value means the default.
 """
 from __future__ import annotations
 
+import os as _os
 import threading
 
 import numpy as _np
@@ -32,6 +37,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "CacheExhausted", "TRASH_BLOCK",
+           "kv_blocks", "kv_block_size", "max_new_tokens",
            "DEFAULT_KV_BLOCKS", "DEFAULT_KV_BLOCK_SIZE",
            "DEFAULT_MAX_NEW_TOKENS"]
 
@@ -41,6 +47,35 @@ TRASH_BLOCK = 0
 DEFAULT_KV_BLOCKS = 256
 DEFAULT_KV_BLOCK_SIZE = 32
 DEFAULT_MAX_NEW_TOKENS = 64
+
+
+def _knob(explicit, env, default):
+    if explicit is not None:
+        return int(explicit)
+    try:
+        return int(_os.environ.get(env, str(default)))
+    except ValueError:
+        return default
+
+
+def kv_blocks(explicit=None):
+    """Pool size in blocks (``MXTPU_SERVE_KV_BLOCKS``, default 256,
+    including the reserved trash block)."""
+    return _knob(explicit, "MXTPU_SERVE_KV_BLOCKS", DEFAULT_KV_BLOCKS)
+
+
+def kv_block_size(explicit=None):
+    """Tokens per cache block (``MXTPU_SERVE_KV_BLOCK_SIZE``, default
+    32)."""
+    return _knob(explicit, "MXTPU_SERVE_KV_BLOCK_SIZE",
+                 DEFAULT_KV_BLOCK_SIZE)
+
+
+def max_new_tokens(explicit=None):
+    """Per-request generation cap (``MXTPU_SERVE_MAX_NEW_TOKENS``,
+    default 64), also the decode half of the admission block budget."""
+    return _knob(explicit, "MXTPU_SERVE_MAX_NEW_TOKENS",
+                 DEFAULT_MAX_NEW_TOKENS)
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,8 +112,8 @@ class KVCacheConfig(object):
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.max_seq_len = int(max_seq_len)
-        self.block_size = int(block_size or DEFAULT_KV_BLOCK_SIZE)
-        self.num_blocks = int(num_blocks or DEFAULT_KV_BLOCKS)
+        self.block_size = kv_block_size(block_size)
+        self.num_blocks = kv_blocks(num_blocks)
         if str(dtype) not in _TORCH_DTYPES:
             raise MXNetError("kv cache dtype must be one of %s, got %r"
                              % (sorted(_TORCH_DTYPES), dtype))

@@ -287,6 +287,40 @@ def test_quantized_matmul_is_the_same_run_to_run(cuda):
                            qz.quantized_matmul(x, wq, sc))
 
 
+@pytest.mark.parametrize("m,k,n,dtype,tol", [
+    (1, 512, 2048, torch.float32, 1e-4),
+    (8, 512, 8192, torch.float32, 1e-4),      # decode lm_head (GEMV)
+    (17, 512, 8192, torch.float32, 1e-4),     # past the threshold (wgmma)
+    (67, 100, 130, torch.float32, 1e-4),      # ragged; K padded
+    (240, 2048, 512, torch.float32, 1e-4),
+    (960, 512, 8192, torch.float32, 1e-4),    # prefill lm_head
+    (8, 16384, 4096, torch.float32, 1e-4),    # GEMV split for its x
+    (8, 512, 8192, torch.bfloat16, 2e-2),
+    (240, 512, 2048, torch.bfloat16, 2e-2)])
+def test_quantized_matmul_fp8_kernel_matches_plain(cuda, m, k, n, dtype,
+                                                   tol):
+    """Both bodies with fp8 e4m3 weights against the plain version, and
+    the same bits on a second call; counted as fp8 and by body."""
+    from mxnet_tpu_torch.kernels import quantize as qz
+    rng = np.random.RandomState(m + n)
+    q, scale = qz.quantize_array((rng.randn(n, k) * 0.02).astype(np.float32),
+                                 qdtype="fp8_e4m3")
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(cuda, dtype)
+    wq, sc = q.to(cuda), torch.from_numpy(scale).to(cuda)
+    route = "gemv" if m <= qz.GEMV_MAX_M else "wgmma"
+    before = dict(qz.quantized_matmul.launches_by_qdtype)
+    before_route = qz.quantized_matmul.launches_by_route[route]
+    got = qz.quantized_matmul(x, wq, sc)
+    want = qz.quantized_matmul_reference(x, wq, sc)
+    torch.cuda.synchronize()
+    assert qz.quantized_matmul.launches_by_qdtype == dict(
+        before, fp8_e4m3=before["fp8_e4m3"] + 1)
+    assert qz.quantized_matmul.launches_by_route[route] == before_route + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(qz.quantized_matmul(x, wq, sc), got)
+
+
 DIMS = dict(vocab_size=64, num_layers=1, num_heads=2, dim=32,
             max_seq_len=64)
 
@@ -373,6 +407,56 @@ def test_engine_on_gpu_runs_both_int8_bodies(cuda):
                                                      "wgmma": 3}
     for g, c in zip(gpu.last_logits[0], cpu.last_logits[0]):
         np.testing.assert_allclose(g, c, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("quantize", [None, "fp8_e4m3"])
+def test_model_server_generates_on_gpu(cuda, quantize):
+    """A ModelServer on the card: its batcher threads launch the kernels
+    (flash-decode, and both fp8 bodies: a 32-token prompt bucket for the
+    wgmma body, decode for the GEMV) and give the tokens the same engine
+    gives on the CPU; an MLP served beside it matches its Predictor."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import quantize as qz
+    kw = dict(quantize=quantize, max_new_tokens=4, prompt_buckets=(8, 32),
+              decode_buckets=(1, 2, 4), kv_blocks=16, kv_block_size=8,
+              **DIMS)
+    prompts = [[1, 2, 3], list(range(1, 21)), [4, 5], [7] * 9]
+    want = mx.serving.GenerationEngine(_params(), ctx=mx.cpu(),
+                                       **kw).generate(prompts)
+    net = mx.models.get_mlp(num_classes=3, hidden=(8,))
+    shapes = net.infer_shape(data=(1, 10))[0]
+    rng = np.random.RandomState(1)
+    mlp = {n: rng.randn(*sh).astype(np.float32)
+           for n, sh in zip(net.list_arguments(), shapes)
+           if n not in ("data", "softmax_label")}
+    from mxnet_tpu_torch.executor import program_registry_stats
+    with mx.serving.ModelServer(max_delay_ms=2) as srv:
+        srv.add_generative_model("lm", _params(), ctx=cuda, **kw)
+        srv.add_model("mlp", net.tojson(), mlp, {"data": (10,)},
+                      buckets=(1, 4), ctx=cuda)
+        lowerings = program_registry_stats()["lowerings"]
+        fd.flash_decode_attention.launches = 0
+        qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+        qz.quantized_matmul.launches_by_qdtype.update(int8=0, fp8_e4m3=0)
+        handles = [srv.generate("lm", p) for p in prompts]
+        xs = [rng.rand(n, 10).astype(np.float32) for n in (1, 3, 4)]
+        futs = [srv.submit("mlp", x) for x in xs]
+        got = [f.result(timeout=120)["tokens"] for f, _s in handles]
+        outs = [f.result(timeout=60)[0] for f in futs]
+        # each model's count starts at its own add_*: the last added's
+        # reads 0, and the registry has built nothing since
+        assert srv.stats()["models"]["mlp"]["lowerings_since_warmup"] == 0
+        assert program_registry_stats()["lowerings"] == lowerings
+    assert got == want
+    assert fd.flash_decode_attention.launches >= 3
+    if quantize:
+        assert qz.quantized_matmul.launches_by_qdtype["int8"] == 0
+        assert min(qz.quantized_matmul.launches_by_route.values()) > 0
+    for x, out in zip(xs, outs):
+        ref = mx.Predictor(net.tojson(), mlp, {"data": x.shape},
+                           ctx=cuda).forward(data=x)[0]
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
 # ----------------------------------------------------------------------

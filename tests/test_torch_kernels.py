@@ -101,10 +101,108 @@ def test_quantize_array_bitwise_equal_to_jax():
 
 
 def test_quantize_rejects_what_the_port_lacks():
+    """A 1-D weight, and a qdtype that neither package has (the JAX
+    package's ``storage_dtype`` raises for it too)."""
     with pytest.raises(MXNetError):
         tqz.quantize_array(np.zeros(8, np.float32))
     with pytest.raises(MXNetError):
-        tqz.quantize_array(np.zeros((2, 2), np.float32), qdtype="fp8_e4m3")
+        tqz.quantize_array(np.zeros((2, 2), np.float32), qdtype="int4")
+    with pytest.raises(Exception):
+        jqz.storage_dtype("int4")
+    with pytest.raises(MXNetError):
+        tqz.quantize_symbol("{}", qdtype="int4")
+
+
+def _fp8_weight(seed, n=24, k=80):
+    """A weight whose rows reach every e4m3 regime after scaling: the
+    absmax (448 exactly), values that round up past 448 in float32
+    division, e4m3 subnormals (below 2^-6) and the ties that round to
+    even there, and an all-zero row."""
+    rng = np.random.RandomState(seed)
+    w = rng.randn(n, k).astype(np.float32)
+    w[1, :8] = np.float32(448.0) * np.array(
+        [1, -1, 2.0 ** -7, 2.0 ** -9, 2.0 ** -10, 3 * 2.0 ** -10,
+         0.99999, -0.5], np.float32)
+    w[2] = np.linspace(-1.0, 1.0, k, dtype=np.float32) ** 9
+    w[5] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_fp8_bytes_equal_to_jax(seed):
+    """fp8 e4m3: the port's bytes and scales equal the JAX package's
+    (ml_dtypes), with the scale absmax / 448; torch's cast saturates at
+    448 as ml_dtypes' does (the bytes of 447.9 .. 460 are all 0x7e)."""
+    w = _fp8_weight(seed)
+    q, scale = tqz.quantize_array(w, qdtype="fp8_e4m3")
+    jq, jscale = jqz.quantize_array(w, qdtype="fp8_e4m3")
+    assert q.dtype == torch.float8_e4m3fn and q.shape == w.shape
+    assert np.array_equal(q.view(torch.uint8).numpy(), jq.view(np.uint8))
+    assert np.array_equal(scale.view(np.int32), jscale.view(np.int32))
+    assert np.array_equal(tqz._to_numpy(q), jq.view(np.uint8))
+    np.testing.assert_array_equal(tqz.dequantize_array(q, scale),
+                                  jqz.dequantize_array(jq, jscale))
+    edge = torch.tensor([447.9, 448.0, 448.01, 460.0, -460.0])
+    assert edge.to(torch.float8_e4m3fn).view(torch.uint8).tolist() == \
+        [0x7e, 0x7e, 0x7e, 0x7e, 0xfe]
+    codes = q.view(torch.uint8)
+    assert not ((codes & 0x7f) == 0x7f).any()        # no NaN code
+
+
+def test_quantize_params_fp8_is_idempotent():
+    w = _fp8_weight(3)
+    once = tqz.quantize_params({"fc_weight": w, "b": np.ones(3)},
+                               ["fc_weight"], qdtype="fp8_e4m3")
+    assert once["fc_weight"].dtype == torch.float8_e4m3fn
+    twice = tqz.quantize_params(once, ["fc_weight"], qdtype="fp8_e4m3")
+    assert twice["fc_weight"] is once["fc_weight"]
+    assert twice["fc_weight_scale"] is once["fc_weight_scale"]
+    # an fp8 weight asked for as int8 is quantized from its values, as
+    # the JAX package does from its ml_dtypes array
+    as_int8 = tqz.quantize_params({"fc_weight": once["fc_weight"]},
+                                  ["fc_weight"], qdtype="int8")
+    jq = jqz.quantize_array(w, qdtype="fp8_e4m3")[0]
+    want = jqz.quantize_params({"fc_weight": jq}, ["fc_weight"],
+                               qdtype="int8")
+    assert np.array_equal(as_int8["fc_weight"], want["fc_weight"])
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 256, 512),
+                                   (17, 2048, 128)])
+def test_quantized_matmul_fp8_plain_matches_jax(m, k, n):
+    """fp8 e4m3 weights: the port's plain version == the JAX Pallas
+    kernel in interpret mode, within 1e-5 (float32 sums of the same
+    exact products in another order)."""
+    rng = np.random.RandomState(m * k + n)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(n, k) * 0.05).astype(np.float32)
+    q, scale = tqz.quantize_array(w, qdtype="fp8_e4m3")
+    jq, jscale = jqz.quantize_array(w, qdtype="fp8_e4m3")
+    got = tqz.quantized_matmul(torch.from_numpy(x), q,
+                               torch.from_numpy(scale))
+    want = jqz.quantized_matmul(jnp.asarray(x), jnp.asarray(jq),
+                                jnp.asarray(jscale), interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_pad_depth_keeps_fp8_bytes():
+    """K that is no multiple of 16 is zero-padded through w_q's bytes:
+    fp8 weights keep their bytes and the product is unchanged."""
+    rng = np.random.RandomState(4)
+    q, scale = tqz.quantize_array(rng.randn(5, 40).astype(np.float32),
+                                  qdtype="fp8_e4m3")
+    x = torch.from_numpy(rng.randn(3, 40).astype(np.float32))
+    xp, qp = tqz.pad_depth(x, q)
+    assert xp.shape == (3, 48) and qp.shape == (5, 48)
+    assert qp.dtype == torch.float8_e4m3fn
+    assert torch.equal(qp[:, :40].view(torch.uint8), q.view(torch.uint8))
+    assert not qp[:, 40:].view(torch.uint8).any()
+    sc = torch.from_numpy(scale)
+    assert torch.equal(tqz.quantized_matmul_reference(xp, qp, sc),
+                       tqz.quantized_matmul_reference(x, q, sc))
+    assert tqz.pad_depth(xp, qp)[1] is qp
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 256, 512),

@@ -13,6 +13,7 @@ mode (one bfloat16 ulp of o, 1e-4 of lse: the GPU gate of the flash
 forward).  They also cover how the wrapper picks the int8 body by M,
 the generated ``wgmma`` wrappers and the build's hash of shared headers.
 """
+import ctypes
 import importlib.util
 import os
 import types
@@ -98,6 +99,47 @@ def test_split_product_matches_jax_reference(m, k, n):
     hi_only = (tqz.split_bf16(torch.from_numpy(x))[0].float()
                @ torch.from_numpy(q).float().t()) * torch.from_numpy(scale)
     assert float(np.abs(hi_only.numpy() - want).max()) > 1e-4
+
+
+def _fp8_case(m, k, n, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(n, k) * 0.02).astype(np.float32)
+    q, scale = tqz.quantize_array(w, qdtype="fp8_e4m3")
+    jq, _ = jqz.quantize_array(w, qdtype="fp8_e4m3")
+    return x, q, jq, scale
+
+
+def test_e4m3_is_exact_in_float16_and_bfloat16():
+    """Every finite e4m3 code widens exactly to float16 (what the GEMV's
+    cvt.rn.f16x2.e4m3x2 gives, then float32) and to bfloat16 (the
+    wgmma's A fragment): a 4-bit significand and exponents -9..8."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    codes = codes[(codes & 0x7f) != 0x7f]                 # the NaNs
+    f = codes.view(torch.float8_e4m3fn).float()
+    assert torch.equal(f.half().float(), f)
+    assert torch.equal(f.bfloat16().float(), f)
+    assert float(f.abs().max()) == 448.0
+    assert float(f[f > 0].min()) == 2.0 ** -9
+
+
+@pytest.mark.parametrize("m", [17, 240, 960])
+@pytest.mark.parametrize("k,n", [(512, 2048), (2048, 512)])
+def test_split_product_fp8_matches_pallas(m, k, n):
+    """The wgmma body with e4m3 weights: each bfloat16 piece of x times
+    the e4m3 weight widened to bfloat16 (8 x 4 significand bits, exact in
+    float32), summed in float32, then scaled, stays within 1e-4 of the
+    JAX package's Pallas kernel in interpret mode (row 2's gate)."""
+    x, q, jq, scale = _fp8_case(m, k, n, m + k)
+    wq = q.bfloat16().float()
+    assert torch.equal(wq, q.float())
+    hi, mid, lo = tqz.split_bf16(torch.from_numpy(x)).float()
+    got = ((hi @ wq.t() + mid @ wq.t()) + lo @ wq.t()) \
+        * torch.from_numpy(scale)
+    want = np.asarray(jqz.quantized_matmul(
+        jnp.asarray(x), jnp.asarray(jq), jnp.asarray(scale),
+        interpret=True))
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-4
 
 
 # ----------------------------------------------------------------------
@@ -284,12 +326,16 @@ def test_build_hash_covers_every_header(tmp_path, monkeypatch):
 
 
 def test_build_declares_both_int8_entry_points():
+    """Both bodies' entry points, each taking the x and the weight type
+    codes first (int8 and fp8 e4m3 weights share them)."""
     names = ["mxtt_qmm_gemv", "mxtt_qmm_wgmma", "mxtt_error_string"]
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace()
                                    for n in names})
     _build._declare(lib, "quantized_matmul")
-    assert len(lib.mxtt_qmm_gemv.argtypes) == 11
-    assert len(lib.mxtt_qmm_wgmma.argtypes) == 13
+    assert len(lib.mxtt_qmm_gemv.argtypes) == 12
+    assert len(lib.mxtt_qmm_wgmma.argtypes) == 14
+    assert lib.mxtt_qmm_gemv.argtypes[:2] == [ctypes.c_int, ctypes.c_int]
+    assert lib.mxtt_qmm_wgmma.argtypes[:2] == [ctypes.c_int, ctypes.c_int]
     assert lib.mxtt_qmm_gemv.restype is lib.mxtt_qmm_wgmma.restype
 
 
