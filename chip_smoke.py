@@ -69,11 +69,14 @@ line:
    ``F.scaled_dot_product_attention`` (a yardstick only) and the bound
    (operations at 67 TFLOP/s float32 or 989 TFLOP/s bfloat16, or bytes at
    3.35 TB/s, whichever is larger);
-6. the fused optimizer sweep, kernel vs plain, on a 64 MB float32 bucket
-   (SGD with momentum: bitwise; Adam: within 2 ulp) and on each bucket
-   of the full-width model, with times of the kernel, the plain
-   version, ``torch.optim.SGD``/``Adam(fused=True)`` on the same buffer
-   (a yardstick only) and the bytes bound;
+6. the fused optimizer sweep, kernel vs plain, for every body (SGD with
+   and without momentum, NAG, Adam, AdamW, AdaGrad, RMSProp, AdaDelta,
+   Test): bit for bit and bitwise on repeat at 16 M elements and at 4099
+   elements one element into their arrays (the scalar path), with and
+   without ``clip_gradient``, at t = 1 and t = 3; each body timed at 16 M
+   elements, and SGD with momentum on each bucket of the full-width LM,
+   with times of the kernel, the plain version, ``torch.optim``'s fused
+   step where PyTorch has one (a yardstick only) and the bytes bound;
 7. training at full width: ``ShardedTrainer(ctx=gpu(0))`` on the
    transformer LM (vocab 8192, 8 layers, 8 heads, dim 512, seq_len
    1024, batch 8, SGD lr 0.1 momentum 0.9, rescale_grad 1/8192, seeded
@@ -96,6 +99,26 @@ line:
    error paths (an NVRTC compile error, a 2048-thread block, a CPU
    tensor), and times (kernel, plain, one-call library, the bytes
    bound, NVRTC's compile time per key, the host time of a cached push).
+9. ResNet-50 through ``ShardedTrainer(ctx=gpu(0))`` at ``bench.py``'s
+   configuration (224 x 224, 1000 classes, batch 64, SGD lr 0.1,
+   momentum 0.9, wd 1e-4, rescale_grad 1/64, seeded numpy weights and
+   images) with ``MXTPU_FUSED_OPT=kernel`` and cuDNN deterministic: the
+   sweep once a bucket a step and no other hand kernel; 3 float32 steps
+   bit for bit (parameters and aux) equal to the same steps leafwise;
+   one float32 step at batch 8 no further from a plain step written here
+   in float64 than twice the plain float32 step; bfloat16 compute
+   (softmax outputs within 5e-2 of float32's, finite parameters after 3
+   steps); one step each with NAG and RMSProp through their bodies; ms
+   a step and images/s beside the float32 (bfloat16) operations bound;
+10. ``Module.fit`` of ResNet-50 on the current context (``gpu(0)``) as
+   ``example/image-classification/common.py`` drives it: Xavier (in,
+   2.34), a ``KVStore("local")`` object (the update on the store), a
+   Speedometer, ``eval_metric="acc"``, 8 training and 2 validation
+   batches of 64 made by ``synthetic_iters``' formula a batch at a time:
+   finite training accuracy, no hand kernel launched (neither update
+   route runs the sweep, as in the JAX package), a checkpoint that
+   round-trips bit for bit, and the fused step (``kvstore=None``) within
+   1e-5 of the store's route after 2 steps; images/s.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -1157,75 +1180,166 @@ def train_param_shapes():
             if n not in ("data", "softmax_label")}
 
 
-def _library_optimizer(torch, kind, w, g, states):
-    """One fused PyTorch optimizer step on the same buffer (a timing
-    yardstick; its formula differs, its bytes do not)."""
+#: every body of the sweep, as phase 6 holds and times it: (row name,
+#: optimizer, its arguments, buffers moved an element: every buffer the
+#: body reads once, the weight and the states it changes written once)
+SWEEP_BODIES = [
+    ("sgd", "sgd", {}, 3),
+    ("sgd_momentum", "sgd", {"momentum": 0.9}, 5),
+    ("adam", "adam", {}, 7),
+    ("nag", "nag", {"momentum": 0.9}, 5),
+    ("adamw", "adamw", {}, 7),
+    ("adagrad", "adagrad", {}, 5),
+    ("rmsprop", "rmsprop", {}, 9),
+    ("adadelta", "adadelta", {}, 7),
+    ("test", "test", {}, 3),
+]
+SWEEP_N = 16 * 1024 * 1024
+
+
+def _library_optimizer(torch, row, w, g):
+    """One PyTorch optimizer step on the same buffer, fused where PyTorch
+    has a fused kernel, else ``foreach`` (a timing yardstick: its formula
+    may differ, its bytes do not; centered RMSprop with momentum keeps
+    Graves' three states but adds eps after the square root).
+    ``(step, name)``, or ``(None, None)`` where PyTorch has no
+    counterpart (Test)."""
     p = torch.nn.Parameter(w.clone())
     p.grad = g.clone()
-    if kind == "sgd":
-        opt = torch.optim.SGD([p], lr=0.1, momentum=0.9, fused=True)
-    else:
-        opt = torch.optim.Adam([p], lr=0.01, fused=True)
-    opt.step()          # creates the state
-    return opt.step
+    table = {
+        "sgd": ("SGD", dict(lr=0.1)),
+        "sgd_momentum": ("SGD", dict(lr=0.1, momentum=0.9)),
+        "nag": ("SGD", dict(lr=0.1, momentum=0.9, nesterov=True)),
+        "adam": ("Adam", dict(lr=0.01)),
+        "adamw": ("AdamW", dict(lr=0.01)),
+        "adagrad": ("Adagrad", dict(lr=0.01)),
+        "rmsprop": ("RMSprop", dict(lr=0.002, alpha=0.95, eps=1e-4,
+                                    momentum=0.9, centered=True)),
+        "adadelta": ("Adadelta", dict(lr=1.0, rho=0.9, eps=1e-5)),
+    }
+    if row not in table:
+        return None, None
+    cls, kw = table[row]
+    try:
+        opt = getattr(torch.optim, cls)([p], fused=True, **kw)
+        name = "torch.optim.%s(fused=True)" % cls
+        opt.step()          # creates the state
+    except (RuntimeError, TypeError, ValueError):
+        opt = getattr(torch.optim, cls)([p], foreach=True, **kw)
+        name = "torch.optim.%s(foreach=True)" % cls
+        opt.step()
+    return opt.step, name
+
+
+def _sweep_inputs(torch, gen, kind, kw, n, offset=0, clip=None):
+    """An optimizer and w, g and state vectors of ``n`` elements drawn on
+    the card from the seeded generator ``gen`` (``offset`` > 0: views that
+    start that many elements in, so the kernel takes its scalar path),
+    states of the sizes each formula keeps (variances positive,
+    RMSProp's n >= g^2)."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    opt = opt_mod.create(kind, rescale_grad=1.0 / (TRAIN_BATCH *
+                                                    TRAIN["seq_len"]),
+                         clip_gradient=clip, **kw)
+
+    def vec(scale, positive=False):
+        a = torch.randn(n + offset, generator=gen, device=DEVICE) * scale
+        return (a.abs() if positive else a)[offset:]
+
+    proto = opt.create_state_arrays((1,))
+    n_state = 0 if proto is None else (
+        len(proto) if isinstance(proto, tuple) else 1)
+    w, g = vec(0.02), vec(1e-3 * TRAIN_BATCH * TRAIN["seq_len"])
+    states = [vec(1e-4, positive=(i > 0 or kind in ("adagrad", "adadelta")))
+              for i in range(n_state)]
+    if kind == "rmsprop":
+        states[0] = states[1] * states[1] + states[0].abs()
+    return opt, w, g, states
+
+
+def _sweep_check(torch, fo, opt, w, g, states, lr, wd, t):
+    """The kernel twice from the same inputs against the plain version:
+    ``(max |kernel - plain|, ulps, bitwise on repeat)``."""
+    want_w, want_s = fo.sweep_reference(opt, w, g, states, lr, wd, t)
+    runs = []
+    for _ in range(2):
+        ww, ss = w.clone(), [s.clone() for s in states]
+        fo.sweep(opt, ww, g, ss, lr, wd, t)
+        runs.append([ww] + ss)
+    torch.cuda.synchronize()
+    errs, ulps = [], []
+    for got, want in zip(runs[0], [want_w] + want_s):
+        if not bool(torch.isfinite(want).all()):
+            raise AssertionError("fused sweep %s: non-finite plain result"
+                                 % type(opt).__name__)
+        errs.append(float((got - want).abs().max()))
+        ulps.append(float(((got - want).abs()
+                           / (want.abs() * 2.0 ** -23 + 1e-38)).max()))
+    repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+    return max(errs), max(ulps), repeat
 
 
 def phase_fused_opt(torch, timer, seed):
-    from mxnet_tpu_torch import optimizer as opt_mod
+    """Every body of the sweep against its plain version, bit for bit and
+    bitwise on repeat: at 16 M elements, at 4099 elements one element
+    into their arrays (the scalar path), with and without clip_gradient
+    (1e-3 clips about a third of the rescaled gradients), at t = 1 and
+    t = 3; each body timed at 16 M elements; SGD with momentum on each
+    bucket of the transformer LM."""
     from mxnet_tpu_torch.kernels import fused_opt as fo
-    rng = np.random.RandomState(seed + 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 4)
     shapes = train_param_shapes()
     metas = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
     sizes = [sum(int(np.prod(shapes[n])) for n in b)
              for b in fo.plan_buckets(metas)]
-    cases = [("sgd", 16 * 1024 * 1024), ("adam", 16 * 1024 * 1024)]
-    cases += [("sgd", n) for n in sizes]
+    checks = 0
+    for row, kind, kw, _bufs in SWEEP_BODIES:
+        for n, offset in ((SWEEP_N, 0), (4099, 1)):
+            for clip in (None, 1e-3):
+                for t in (1, 3):
+                    opt, w, g, st = _sweep_inputs(torch, gen, kind, kw, n,
+                                                  offset, clip)
+                    err, ulp, repeat = _sweep_check(torch, fo, opt, w, g, st,
+                                                    opt.lr, 1e-4, t)
+                    if err != 0.0 or not repeat:
+                        raise AssertionError(
+                            "fused sweep %s n=%d offset=%d clip=%s t=%d: "
+                            "max err %g (%g ulp) against the plain version, "
+                            "repeat bitwise %s" % (row, n, offset, clip, t,
+                                                   err, ulp, repeat))
+                    checks += 1
+    log("fused_opt: %d bodies x (16 M, 4099 at offset 1) x clip "
+        "(None, 1e-3) x t (1, 3): %d cases bit for bit against the plain "
+        "version and on repeat" % (len(SWEEP_BODIES), checks))
+    cases = [(r, SWEEP_N) for r in SWEEP_BODIES]
+    cases += [(SWEEP_BODIES[1], n) for n in sizes]
     rows = []
-    for kind, n in cases:
-        opt = opt_mod.create(kind, rescale_grad=1.0 / (TRAIN_BATCH *
-                                                        TRAIN["seq_len"]),
-                             **(TRAIN_SGD if kind == "sgd" else {}))
-
-        def vec(scale=1.0):
-            return torch.from_numpy(
-                (rng.randn(n) * scale).astype(np.float32)).to(DEVICE)
-
-        w, g = vec(0.02), vec(1e-3)
-        states = [vec(1e-4)] if kind == "sgd" else [vec(1e-4),
-                                                    vec(1e-6).abs()]
+    for (row, kind, kw, bufs), n in cases:
+        opt, w, g, states = _sweep_inputs(torch, gen, kind, kw, n)
+        body = fo.sweep_body(opt)
         lr = opt.lr
-        want_w, want_s = fo.sweep_reference(opt, w, g, states, lr, 0.0, 3)
-        fo.sweep(opt, w, g, states, lr, 0.0, 3)
-        torch.cuda.synchronize()
-        errs, ulps = [], []
-        for got, want in zip([w] + states, [want_w] + want_s):
-            errs.append(float((got - want).abs().max()))
-            ulps.append(float(((got - want).abs()
-                               / (want.abs() * 2.0 ** -23 + 1e-38)).max()))
-        if kind == "sgd" and max(errs) != 0.0:
-            raise AssertionError("fused sweep sgd n=%d: not bitwise equal "
-                                 "to the plain version (max err %g)"
-                                 % (n, max(errs)))
-        if kind == "adam" and max(ulps) > 2.0:
-            raise AssertionError("fused sweep adam n=%d: %g ulp > 2 from "
-                                 "the plain version" % (n, max(ulps)))
-        n_bytes = (5 if kind == "sgd" else 7) * 4 * n
+        err, ulp, repeat = _sweep_check(torch, fo, opt, w, g, states, lr,
+                                        0.0, 3)
+        if err != 0.0 or not repeat:
+            raise AssertionError("fused sweep %s n=%d: max err %g, repeat "
+                                 "bitwise %s" % (row, n, err, repeat))
+        n_bytes = bufs * 4 * n
         b_ms, b_by = bound_ms(n_bytes, 0)
-        lib_step = _library_optimizer(torch, kind, w, g, states)
-        row = {"optimizer": kind + ("_momentum" if kind == "sgd" else ""),
-               "n": n, "mbytes": 4 * n / 2 ** 20, "max_abs_err": max(errs),
-               "max_ulp": max(ulps),
-               "tol": "bitwise" if kind == "sgd" else "2 ulp",
-               "ms": timer(lambda: fo.sweep(opt, w, g, states, lr, 0.0, 3)),
-               "plain_ms": timer(lambda: fo.sweep_reference(
-                   opt, w, g, states, lr, 0.0, 3)),
-               "library_ms": timer(lib_step),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
-        rows.append(row)
-        log("fused_opt %-12s n=%-9d (%.1f MB) err=%.3g (%.3g ulp) "
-            "kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f bound_ms=%.5f (%s)"
-            % (row["optimizer"], n, row["mbytes"], row["max_abs_err"],
-               row["max_ulp"], row["ms"], row["plain_ms"], row["library_ms"],
+        lib_step, lib_name = _library_optimizer(torch, row, w, g)
+        r = {"optimizer": row, "body": body, "n": n, "mbytes": 4 * n / 2 ** 20,
+             "max_abs_err": err, "max_ulp": ulp, "tol": "bitwise",
+             "ms": timer(lambda: fo.sweep(opt, w, g, states, lr, 0.0, 3)),
+             "plain_ms": timer(lambda: fo.sweep_reference(
+                 opt, w, g, states, lr, 0.0, 3)),
+             "library_ms": timer(lib_step) if lib_step else None,
+             "library": lib_name,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+        rows.append(r)
+        log("fused_opt %-12s n=%-9d (%.1f MB) bitwise; kernel_ms=%.4f "
+            "plain_ms=%.4f library_ms=%s (%s) bound_ms=%.5f (%s)"
+            % (row, n, r["mbytes"], r["ms"], r["plain_ms"],
+               "%.4f" % r["library_ms"] if lib_step else "none", lib_name,
                b_ms, b_by))
     return rows, sizes
 
@@ -1525,6 +1639,551 @@ def phase_train(torch, seed, smi):
         "free-running" % (steps, PRECISION_FACTOR))
     return {"float32": kern, "bfloat16": bf16, "leafwise": leaf,
             "precision": checks, "ulp_witness": ulp}
+
+
+# ----------------------------------------------------------------------
+# phase 9: ResNet-50 through ShardedTrainer at full width
+# ----------------------------------------------------------------------
+#: bench.py's image-classification configuration (bench.py:469-510):
+#: ResNet-50 at 224 x 224, 1000 classes, 64 images, SGD lr 0.1,
+#: momentum 0.9, wd 1e-4, rescale_grad 1/64
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
+RESNET_BATCH = 64
+RESNET_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+#: the batch of phase 9's float64 witness (float64 doubles the memory)
+RESNET_WITNESS_BATCH = 8
+#: phase 9's bfloat16 gates on the first step's softmax outputs, against
+#: float32's: max |diff| (the outputs are about 1/1000 each), and the
+#: norm of the difference over the norm of float32's own departure from
+#: the uniform 1/1000 (a bfloat16 forward that lost its input, and gave
+#: near-uniform outputs, reads about 1)
+BF16_SOFTMAX_TOL = 1e-3
+BF16_SOFTMAX_REL = 0.5
+#: ResNet's BatchNorm epsilon (models/resnet.py)
+RESNET_EPS = 2e-5
+
+
+def resnet_symbol():
+    import mxnet_tpu_torch as mx
+    return mx.models.resnet.get_symbol(**RESNET)
+
+
+def seeded_resnet(seed, batch):
+    """Weights, aux and a batch of ResNet-50 from numpy: He-scaled
+    convolutions, N(0, 0.01) classifier, zero biases and betas, unit
+    gammas, zero moving means and unit moving variances; images N(0, 1),
+    labels uniform over the classes."""
+    sym = resnet_symbol()
+    shape = (batch,) + RESNET["image_shape"]
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    rng = np.random.RandomState(seed)
+    params = {}
+    for name, s in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            params[name] = np.ones(s, np.float32)
+        elif name.endswith(("_beta", "_bias")):
+            params[name] = np.zeros(s, np.float32)
+        elif name == "fc1_weight":
+            params[name] = (rng.randn(*s) * 0.01).astype(np.float32)
+        else:
+            params[name] = (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:])))\
+                .astype(np.float32)
+    aux = {n: (np.ones if n.endswith("moving_var") else np.zeros)(
+        s, np.float32) for n, s in zip(sym.list_auxiliary_states(),
+                                       aux_shapes)}
+    data = {"data": rng.randn(*shape).astype(np.float32),
+            "softmax_label": rng.randint(0, RESNET["num_classes"], batch)
+            .astype(np.float32)}
+    return params, aux, data
+
+
+def resnet_step_flops(batch):
+    """Operations of one training step: 3 x the forward's convolutions
+    and classifier (2 a multiply-add; the backward computes the data and
+    the weight gradients, each as many), from the graph's shapes."""
+    from mxnet_tpu_torch.symbol import Symbol
+    sym = resnet_symbol()
+    shape = (batch,) + RESNET["image_shape"]
+    arg_shapes, _, _ = sym.infer_shape(data=shape)
+    wshape = dict(zip(sym.list_arguments(), arg_shapes))
+    fwd = 0
+    for node in sym._topo():
+        if node.is_variable:
+            continue
+        w = node.inputs[1][0].name if len(node.inputs) > 1 else None
+        if node.op.op_name == "Convolution":
+            _, (out,), _ = Symbol([(node, 0)]).infer_shape(data=shape)
+            fwd += 2 * int(np.prod(out)) * int(np.prod(wshape[w][1:]))
+        elif node.op.op_name == "FullyConnected":
+            fwd += 2 * batch * int(np.prod(wshape[w]))
+    return 3 * fwd
+
+
+def _five_counters():
+    """Every hand kernel's launch counter (the five Pallas sites)."""
+    from mxnet_tpu_torch import rtc as rtc_mod
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.kernels import quantize as qz
+    return {"flash_decode": (fd.flash_decode_attention, "launches"),
+            "quantized_matmul": (qz.quantized_matmul, "launches"),
+            "flash_attention": (fa.flash_attention_forward, "launches"),
+            "fused_opt": (fo.sweep, "launches"),
+            "rtc": (rtc_mod, "launches")}
+
+
+def reset_counts():
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    for obj, attr in _five_counters().values():
+        setattr(obj, attr, 0)
+    fo.sweep.launches_by_body.clear()
+
+
+def read_counts():
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    out = {k: getattr(obj, attr) for k, (obj, attr) in
+           _five_counters().items()}
+    out["fused_opt_by_body"] = dict(fo.sweep.launches_by_body)
+    return out
+
+
+def run_resnet(torch, params, aux, data, steps, mode, opt_name="sgd",
+               opt_kw=RESNET_SGD, compute_dtype=None, timed_steps=0):
+    """``steps`` steps of the port's ShardedTrainer on ResNet-50 with
+    ``MXTPU_FUSED_OPT=mode``; the five kernels' launch counts cover
+    exactly these steps.  Then ``timed_steps`` more, each ended by a
+    synchronize.  Returns the first step's softmax outputs, the
+    parameters, aux and optimizer states after the counted steps
+    (copies), and a dict of counts and times."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.model import params_from_numpy
+    os.environ["MXTPU_FUSED_OPT"] = mode
+    batch = data["data"].shape[0]
+    opt = mx.optimizer.create(opt_name, rescale_grad=1.0 / batch, **opt_kw)
+    tr = mx.parallel.ShardedTrainer(resnet_symbol(), opt,
+                                    ctx=torch.device(DEVICE),
+                                    compute_dtype=compute_dtype)
+    p, a = params_from_numpy(params, aux, ctx=torch.device(DEVICE))
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    st = {n: s for n, s in st.items() if s is not None}
+    b = tr.shard_batch(data)
+    torch.cuda.synchronize()
+    reset_counts()
+    first = None
+    for _ in range(steps):
+        p, st, a, outs = tr.step(p, st, a, b)
+        if first is None:
+            first = outs[0].float().clone()
+    torch.cuda.synchronize()
+    info = {"optimizer": opt_name, "mode": mode, "batch": batch,
+            "compute_dtype": str(compute_dtype or "float32"),
+            "steps": steps, "launches": read_counts(),
+            "buckets": len(fo.plan_buckets({n: p[n]
+                                            for n in tr.param_names}))}
+    p_out = {n: w.clone() for n, w in p.items()}
+    a_out = {n: v.clone() for n, v in a.items()}
+    s_out = {"%s/%d" % (n, i): v.clone() for n, s in st.items()
+             for i, v in enumerate(s if isinstance(s, tuple) else (s,))}
+    for what, d in (("parameters", p_out), ("aux", a_out)):
+        bad = [n for n, v in d.items() if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError("resnet %s: non-finite %s %s"
+                                 % (info, what, bad[:5]))
+    if timed_steps:
+        times = []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            p, st, a, _o = tr.step(p, st, a, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        info["step_ms"] = float(np.median(times)) * 1e3
+        info["step_ms_all"] = [t * 1e3 for t in times]
+        info["images_per_s"] = batch / (info["step_ms"] / 1e3)
+    return first, p_out, a_out, s_out, info
+
+
+def _want_sweep_only(info, body):
+    """The counts of a run whose only hand kernel is the sweep: once a
+    bucket a step, all on ``body``."""
+    n = info["buckets"] * info["steps"]
+    want = {"flash_decode": 0, "quantized_matmul": 0, "flash_attention": 0,
+            "fused_opt": n, "rtc": 0, "fused_opt_by_body": {body: n}}
+    if info["launches"] != want:
+        raise AssertionError("resnet %s %s launches %s, want %s (the sweep "
+                             "once a bucket a step, on body %d, and no "
+                             "other kernel of the port)"
+                             % (info["optimizer"], info["compute_dtype"],
+                                info["launches"], want, body))
+
+
+def plain_resnet_step(torch, params, data, dtype):
+    """One plain training step of the same ResNet-50, written here with
+    no module of the port: F.conv2d, BatchNorm's formula on the batch's
+    mean and biased variance, max and mean pooling, a summed cross
+    entropy (whose gradient is SoftmaxOutput's p - onehot), and SGD with
+    momentum from zero and weight decay on every parameter.  Returns the
+    softmax outputs and the parameters after the step, in ``dtype``."""
+    F = torch.nn.functional
+    batch = data["data"].shape[0]
+    rescale = 1.0 / batch
+    lr, mom, wd = (RESNET_SGD["learning_rate"], RESNET_SGD["momentum"],
+                   RESNET_SGD["wd"])
+    p = {k: torch.as_tensor(v, device=DEVICE, dtype=dtype).clone()
+         .requires_grad_() for k, v in params.items()}
+    x = torch.as_tensor(data["data"], device=DEVICE, dtype=dtype)
+    label = torch.as_tensor(data["softmax_label"], device=DEVICE).long()
+
+    def bn(h, name, fix_gamma=False):
+        mean = h.mean(dim=(0, 2, 3), keepdim=True)
+        var = ((h - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+        y = (h - mean) / torch.sqrt(var + RESNET_EPS)
+        if not fix_gamma:
+            y = y * p[name + "_gamma"].reshape(1, -1, 1, 1)
+        return y + p[name + "_beta"].reshape(1, -1, 1, 1)
+
+    def conv(h, name, stride=1, pad=0):
+        return F.conv2d(h, p[name + "_weight"], None, stride, pad)
+
+    h = conv(bn(x, "bn_data", fix_gamma=True), "conv0", 2, 3)
+    h = F.max_pool2d(torch.relu(bn(h, "bn0")), 3, 2, 1)
+    for i, units in enumerate([3, 4, 6, 3]):
+        for j in range(units):
+            name = "stage%d_unit%d" % (i + 1, j + 1)
+            stride = 2 if i > 0 and j == 0 else 1
+            a1 = torch.relu(bn(h, name + "_bn1"))
+            c = conv(a1, name + "_conv1")
+            c = conv(torch.relu(bn(c, name + "_bn2")), name + "_conv2",
+                     stride, 1)
+            c = conv(torch.relu(bn(c, name + "_bn3")), name + "_conv3")
+            h = c + (h if j > 0 else conv(a1, name + "_sc", stride))
+    h = torch.relu(bn(h, "bn1")).mean(dim=(2, 3))
+    logits = h @ p["fc1_weight"].t() + p["fc1_bias"]
+    loss = F.cross_entropy(logits, label, reduction="sum")
+    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    with torch.no_grad():
+        for w, g in zip(p.values(), grads):
+            g = torch.zeros_like(w) if g is None else g
+            w += mom * 0.0 - lr * (g * rescale + wd * w)
+        probs = torch.softmax(logits, dim=-1)
+    return probs.detach(), {k: v.detach() for k, v in p.items()}
+
+
+def resnet_witness(torch, seed):
+    """Phase 7's precision witness at a batch of 8: one float32 step of
+    the port (the sweep) and one of the plain step, each against the
+    plain step in float64: [max |diff| softmax outputs, max |diff| over
+    every parameter]."""
+    params, aux, data = seeded_resnet(seed + 9, RESNET_WITNESS_BATCH)
+    outs, p_port, _a, _s, info = run_resnet(torch, params, aux, data, 1,
+                                            "kernel")
+    _want_sweep_only(info, 1)
+    o32, p32 = plain_resnet_step(torch, params, data, torch.float32)
+    o64, p64 = plain_resnet_step(torch, params, data, torch.float64)
+
+    def diff(o, p):
+        return [float((o.double() - o64).abs().max()),
+                max(float((p[n].double() - p64[n]).abs().max())
+                    for n in p64)]
+    got = {"port_vs_plain64": diff(outs, p_port),
+           "plain32_vs_plain64": diff(o32, p32),
+           "port_vs_plain32": [float((outs - o32).abs().max()),
+                               max(float((p_port[n] - p32[n]).abs().max())
+                                   for n in p32)],
+           "largest_update": max(float((p64[n] - torch.as_tensor(
+               params[n], device=DEVICE, dtype=torch.float64)).abs().max())
+               for n in p64)}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["port_vs_plain64"], got["plain32_vs_plain64"]))
+    got["launches"] = info["launches"]
+    return got
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms and no autotuning inside the
+    block (a bitwise gate between two runs needs them: cuDNN's default
+    backward algorithms are not deterministic); the settings before it
+    come back after."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.cudnn.deterministic, self.cudnn.benchmark)
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+
+
+def _cudnn_settings(torch):
+    c = torch.backends.cudnn
+    return ("cuDNN deterministic=%s benchmark=%s allow_tf32=%s; "
+            "torch.backends.cuda.matmul.allow_tf32=%s"
+            % (c.deterministic, c.benchmark, c.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32))
+
+
+#: phase 9's gates of fused == leafwise: (optimizer, its arguments,
+#: steps, timed steps); SGD is the main path's, NAG and RMSProp launch
+#: two of the new bodies at full width
+RESNET_GATES = (("sgd", RESNET_SGD, 3, 5),
+                ("nag", RESNET_SGD, 1, 0),
+                ("rmsprop", {"learning_rate": 0.002, "wd": 1e-4}, 1, 0))
+
+
+def phase_resnet(torch, seed, smi):
+    """ResNet-50 through ShardedTrainer at bench.py's full width: the
+    main path (float32 and bfloat16) timed under cuDNN's defaults; then,
+    under deterministic cuDNN, the sweep against leafwise updates bit for
+    bit for SGD, NAG and RMSProp, and the float64 witness."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    params, aux, data = seeded_resnet(seed, RESNET_BATCH)
+    steps = 3
+    log("resnet main path: " + _cudnn_settings(torch))
+    o_k, _p, _a, _s, kern = run_resnet(torch, params, aux, data, steps,
+                                       "kernel", timed_steps=5)
+    _want_sweep_only(kern, 1)
+    del _p, _a, _s
+    o_b, _p, _a, _s, bf16 = run_resnet(torch, params, aux, data, steps,
+                                       "kernel", compute_dtype="bfloat16",
+                                       timed_steps=5)
+    _want_sweep_only(bf16, 1)
+    del _p, _a, _s
+    bf16_err = float((o_b - o_k).abs().max())
+    spread = o_k - 1.0 / RESNET["num_classes"]
+    bf16_rel = float((o_b - o_k).norm() / spread.norm())
+    log("resnet bfloat16 compute: first-step softmax outputs within %.3g "
+        "of float32's (gate %g), relative to float32's departure from "
+        "uniform %.3g (gate %g); parameters finite after %d steps"
+        % (bf16_err, BF16_SOFTMAX_TOL, bf16_rel, BF16_SOFTMAX_REL, steps))
+    if not (bf16_err <= BF16_SOFTMAX_TOL and bf16_rel <= BF16_SOFTMAX_REL):
+        raise AssertionError("resnet bfloat16 softmax outputs %g (relative "
+                             "%g) from float32's" % (bf16_err, bf16_rel))
+    gates = {}
+    with cudnn_deterministic(torch):
+        log("resnet gates: " + _cudnn_settings(torch))
+        for name, kw, n_steps, timed in RESNET_GATES:
+            got = {}
+            for mode in ("kernel", ""):
+                _o, p, a, st, info = run_resnet(
+                    torch, params, aux, data, n_steps, mode, opt_name=name,
+                    opt_kw=kw, timed_steps=timed if mode else 0)
+                got[mode] = (p, a, st, info)
+            info = got["kernel"][3]
+            body = fo.sweep_body(mx.optimizer.create(name, **kw))
+            _want_sweep_only(info, body)
+            if got[""][3]["launches"]["fused_opt"] != 0:
+                raise AssertionError("leafwise resnet %s run launched the "
+                                     "sweep" % name)
+            diff = [n for i in range(3) for n in got["kernel"][i]
+                    if not torch.equal(got["kernel"][i][n], got[""][i][n])]
+            if diff:
+                raise AssertionError(
+                    "resnet %s: fused-kernel and leafwise parameters, aux or "
+                    "states differ after %d steps: %s"
+                    % (name, n_steps, diff[:5]))
+            gates[name] = info
+            log("resnet %s: %d step(s) through the sweep (body %d) == "
+                "leafwise bitwise (parameters, aux, states); launches %s"
+                % (name, n_steps, body, info["launches"]))
+            del got
+        witness = resnet_witness(torch, seed)
+    log("resnet precision, one float32 step at batch %d [softmax outputs, "
+        "parameters]: %s" % (RESNET_WITNESS_BATCH, json.dumps(witness)))
+    if not witness["ok"]:
+        raise AssertionError("resnet float32 step: the port is more than %g "
+                             "times as far from the float64 step as the "
+                             "plain float32 step (readings above)"
+                             % PRECISION_FACTOR)
+    torch.cuda.empty_cache()
+    flops = resnet_step_flops(RESNET_BATCH)
+    for label, r in (("float32", kern), ("bfloat16", bf16),
+                     ("float32, deterministic cuDNN", gates["sgd"])):
+        rate = F32_OPS_PER_S if r["compute_dtype"] == "float32" \
+            else BF16_OPS_PER_S
+        r["bound_ms"], r["bound_by"] = bound_ms(0, flops, rate)
+        r["step_flops"] = flops
+        log("resnet %s batch %d: %.3f ms/step (median of %d: %s), %.1f "
+            "images/s; bound %.3f ms (%.3g TFLOP a step at %g TFLOP/s); "
+            "sweep launches in %d steps %s (%d buckets); on %s"
+            % (label, RESNET_BATCH, r["step_ms"], len(r["step_ms_all"]),
+               ", ".join("%.2f" % t for t in r["step_ms_all"]),
+               r["images_per_s"], r["bound_ms"], flops / 1e12, rate / 1e12,
+               r["steps"], r["launches"]["fused_opt"], r["buckets"], smi))
+    log("resnet checks: fused kernel == leafwise bitwise (parameters, aux "
+        "and states) for %s; float64 witness within %g times the plain "
+        "float32 step's"
+        % (", ".join(g[0] for g in RESNET_GATES), PRECISION_FACTOR))
+    return {"float32": kern, "bfloat16": bf16, "gates": gates,
+            "witness": witness, "bf16_softmax_err": bf16_err,
+            "bf16_softmax_rel": bf16_rel}
+
+
+# ----------------------------------------------------------------------
+# phase 10: Module.fit, as the image-classification example drives it
+# ----------------------------------------------------------------------
+MODULE_TRAIN_BATCHES = 8
+MODULE_VAL_BATCHES = 2
+
+
+def synthetic_image_batches(seed, n_batches, batch):
+    """``example/image-classification/common.py:synthetic_iters``'
+    formula, a batch at a time (its 1000 class prototypes of 3 x 224 x
+    224 would take 1.2 GB): labels uniform over the classes, each image
+    its class's prototype, U(-1, 1) drawn from a generator seeded by the
+    class, plus 0.3 N(0, 1) noise; float32."""
+    shape = RESNET["image_shape"]
+    out = []
+    for i in range(n_batches):
+        rng = np.random.default_rng(seed * 1000 + i)
+        y = rng.integers(0, RESNET["num_classes"], batch)
+        protos = np.stack([np.random.default_rng(seed * 100003 + int(c))
+                           .uniform(-1, 1, shape).astype(np.float32)
+                           for c in y])
+        x = protos + np.float32(0.3) * rng.standard_normal(
+            (batch,) + shape, dtype=np.float32)
+        out.append((x, y.astype(np.float32)))
+    return out
+
+
+def batch_iter(batches):
+    """A DataIter over host batches made beforehand."""
+    import mxnet_tpu_torch as mx
+    batch = batches[0][0].shape[0]
+
+    class _Iter(mx.io.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.batch_size = batch
+            self.cur = 0
+
+        @property
+        def provide_data(self):
+            return [mx.io.DataDesc("data", batches[0][0].shape)]
+
+        @property
+        def provide_label(self):
+            return [mx.io.DataDesc("softmax_label", (batch,))]
+
+        def reset(self):
+            self.cur = 0
+
+        def next(self):
+            if self.cur >= len(batches):
+                raise StopIteration
+            x, y = batches[self.cur]
+            self.cur += 1
+            return mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                   [mx.nd.array(y, ctx=mx.cpu())], pad=0)
+    return _Iter()
+
+
+def module_fit(torch, seed, train, val, kvstore):
+    """``Module.fit`` of ResNet-50 as ``common.fit`` drives it: Xavier
+    (in, 2.34), SGD lr 0.1, momentum 0.9, wd 1e-4, ``eval_metric="acc"``,
+    a Speedometer; the weights drawn after ``random.seed(seed)``.
+    Returns the module and each batch's end time and training accuracy."""
+    import mxnet_tpu_torch as mx
+    kv = mx.kvstore.KVStore("local") if kvstore == "local" else kvstore
+    mx.random.seed(seed)
+    mod = mx.mod.Module(resnet_symbol())
+    seen = []
+
+    def clock(param):
+        seen.append((time.perf_counter(), param.eval_metric.get()[1]))
+    mod.fit(batch_iter(train), eval_data=batch_iter(val) if val else None,
+            eval_metric="acc", kvstore=kv, optimizer="sgd",
+            optimizer_params=RESNET_SGD,
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=1,
+            batch_end_callback=[clock,
+                                mx.callback.Speedometer(RESNET_BATCH, 50)])
+    torch.cuda.synchronize()
+    return mod, seen
+
+
+def phase_module(torch, seed, smi):
+    """Module.fit on ResNet-50 at batch 64 on the current context, timed
+    under cuDNN's defaults; the two update routes compared under
+    deterministic cuDNN."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import model as model_mod
+    log("module fit: " + _cudnn_settings(torch))
+    t0 = time.perf_counter()
+    train = synthetic_image_batches(seed, MODULE_TRAIN_BATCHES, RESNET_BATCH)
+    val = synthetic_image_batches(seed + 1, MODULE_VAL_BATCHES,
+                                  RESNET_BATCH)
+    data_s = time.perf_counter() - t0
+    reset_counts()
+    mod, seen = module_fit(torch, seed, train, val, "local")
+    counts = read_counts()
+    ex = mod._exec_group.execs[0]
+    arg, aux = mod.get_params()
+    want_dev = torch.device("cuda", 0) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    if ex._device != want_dev or any(v.data.device != want_dev
+                                     for v in arg.values()):
+        raise AssertionError("Module.fit ran on %s, not %s"
+                             % (ex._device, want_dev))
+    if not mod._update_on_kvstore:
+        raise AssertionError("a KVStore object must update on the store")
+    accs = [a for _t, a in seen]
+    if len(seen) != MODULE_TRAIN_BATCHES or not all(
+            math.isfinite(a) for a in accs):
+        raise AssertionError("Module.fit training accuracy %s" % accs)
+    (vname, vacc), = mod.score(batch_iter(val), "acc")
+    span = seen[-1][0] - seen[0][0]
+    ips = (len(seen) - 1) * RESNET_BATCH / span
+    if any(counts[k] for k in counts if k != "fused_opt_by_body") \
+            or counts["fused_opt_by_body"]:
+        raise AssertionError("Module.fit launched hand kernels %s: neither "
+                             "of its update routes runs the sweep" % counts)
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_ckpt", "resnet50")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    mod.save_checkpoint(prefix, 1)
+    _sym, arg2, aux2 = model_mod.load_checkpoint(prefix, 1)
+    for want, got in ((arg, arg2), (aux, aux2)):
+        if set(want) != set(got) or any(
+                not torch.equal(want[n].data.cpu(), got[n].data.cpu())
+                for n in want):
+            raise AssertionError("checkpoint round trip changed arrays")
+    for f in (prefix + "-symbol.json", prefix + "-0001.params"):
+        os.remove(f)
+    # the two update routes from the same weights over the same 2 batches
+    routes = {}
+    with cudnn_deterministic(torch):
+        for kv in ("local", None):
+            m, _s = module_fit(torch, seed, train[:2], None, kv)
+            routes[kv] = {n: v.data.clone()
+                          for n, v in m.get_params()[0].items()}
+            del m
+    route_err = max(float((routes["local"][n] - routes[None][n]).abs().max())
+                    for n in routes[None])
+    if not route_err <= 1e-5:
+        raise AssertionError("Module.fit: the fused step (kvstore=None) is "
+                             "%g from the kvstore route after 2 steps"
+                             % route_err)
+    info = {"images_per_s": ips, "batches": len(seen),
+            "batch": RESNET_BATCH, "train_accuracy": accs[-1],
+            "val_" + vname: vacc, "device": str(ex._device),
+            "update_on_kvstore": True, "launches": counts,
+            "route_max_abs_diff": route_err, "data_s": data_s}
+    log("module: Module.fit ResNet-50 on %s, kvstore local (update on the "
+        "store), %d batches of %d: %.1f images/s (batches 2-%d); train "
+        "accuracy %.4f, validation %.4f; checkpoint round trip bitwise; "
+        "fused step (kvstore=None) within %.3g of the store's route after "
+        "2 steps; hand-kernel launches %s; data made in %.2f s; on %s"
+        % (ex._device, len(seen), RESNET_BATCH, ips, len(seen), accs[-1],
+           vacc, route_err, counts, data_s, smi))
+    torch.cuda.empty_cache()
+    return info
 
 
 # ----------------------------------------------------------------------
@@ -1896,16 +2555,27 @@ def main(argv=None):
         check_no_spills(info)
         torch.manual_seed(args.seed)
         timer = Timer(torch, args.iters, LEAD_CYCLES)
-        fd_rows = phase_flash_decode(torch, timer, args.seed)
-        qmm_rows = phase_quantized_matmul(torch, timer, args.seed)
-        eng = phase_engine(torch, args.seed)
-        serve = phase_serve(torch, args.seed, smi, eng["float32_tokens"])
-        fa_rows = phase_flash_attention(torch, timer, args.seed)
-        fo_rows, bucket_sizes = phase_fused_opt(torch, timer, args.seed)
-        train = phase_train(torch, args.seed, smi)
-        imperative = phase_imperative(torch, args.seed)
-        rtc_res = phase_rtc_kernels(
-            torch, timer, args.seed)
+        phase_s = {}
+
+        def run(name, fn, *a):
+            t = time.perf_counter()
+            out = fn(*a)
+            phase_s[name] = round(time.perf_counter() - t, 2)
+            return out
+        fd_rows = run("2", phase_flash_decode, torch, timer, args.seed)
+        qmm_rows = run("3", phase_quantized_matmul, torch, timer, args.seed)
+        eng = run("4", phase_engine, torch, args.seed)
+        serve = run("4b", phase_serve, torch, args.seed, smi,
+                    eng["float32_tokens"])
+        fa_rows = run("5", phase_flash_attention, torch, timer, args.seed)
+        fo_rows, bucket_sizes = run("6", phase_fused_opt, torch, timer,
+                                    args.seed)
+        train = run("7", phase_train, torch, args.seed, smi)
+        imperative = run("8", phase_imperative, torch, args.seed)
+        rtc_res = run("8 rtc", phase_rtc_kernels, torch, timer, args.seed)
+        resnet = run("9", phase_resnet, torch, args.seed, smi)
+        module = run("10", phase_module, torch, args.seed, smi)
+        log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1932,6 +2602,24 @@ def main(argv=None):
     launches.update({k: train["float32"]["launches"][k]
                      + train["bfloat16"]["launches"][k]
                      for k in ("flash_attention", "fused_opt")})
+    # the image-classification path (phase 9) launches the sweep alone:
+    # its main path is the batch-64 SGD runs, float32 and bfloat16; the
+    # gates' runs (deterministic cuDNN: SGD, NAG, RMSProp) and the
+    # batch-8 witness are counted apart
+    resnet_main = sum(resnet[d]["launches"]["fused_opt"]
+                      for d in ("float32", "bfloat16"))
+    launches["fused_opt"] += resnet_main
+    resnet_other = {"resnet50_gate_" + n: g["launches"]
+                    for n, g in resnet["gates"].items()}
+    resnet_other["resnet50_witness_batch8"] = resnet["witness"]["launches"]
+    transformer_sweeps = train["float32"]["launches"]["fused_opt"] \
+        + train["bfloat16"]["launches"]["fused_opt"]
+    # by body, over every path in launches_by_path
+    sweep_by_body = {1: transformer_sweeps}
+    for c in [resnet[d]["launches"] for d in ("float32", "bfloat16")] \
+            + list(resnet_other.values()):
+        for body, n in c["fused_opt_by_body"].items():
+            sweep_by_body[body] = sweep_by_body.get(body, 0) + n
     # flash attention at the training shape (causal, float32); the sweep
     # at the model's largest bucket (SGD with momentum, as trained)
     fa_main = next(r for r in fa_rows if r["S"] == TRAIN["seq_len"]
@@ -1971,7 +2659,19 @@ def main(argv=None):
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                    "max_abs_err")
     for k in kernels:
-        if k["name"] == "flash_attention":
+        if k["name"] == "fused_opt":
+            k["launches_by_body"] = {str(b): n for b, n
+                                     in sorted(sweep_by_body.items())}
+            k["bodies"] = {
+                r["optimizer"]: dict({t: r[t] for t in timing_keys},
+                                     body=r["body"], n=r["n"],
+                                     library=r["library"])
+                for r in fo_rows if r["n"] == SWEEP_N}
+            k["launches_by_path"] = dict(
+                {"transformer_training": transformer_sweeps,
+                 "resnet50_training": resnet_main},
+                **{p: c["fused_opt"] for p, c in resnet_other.items()})
+        elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
                                  shape={"B": fa_bf16["B"], "H": fa_bf16["H"],
                                         "S": fa_bf16["S"], "D": fa_bf16["D"],
@@ -2022,6 +2722,8 @@ def main(argv=None):
                        "engine": eng, "serve": serve,
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
+                       "resnet": resnet, "module": module,
+                       "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)
     log("kernels: " + ", ".join(k["name"] for k in kernels))

@@ -2,7 +2,7 @@
 
 A second package beside ``mxnet_tpu`` (the JAX reference), with the same
 module names and layout, running on an NVIDIA GPU.  It imports ``torch``
-and never ``jax`` or ``mxnet_tpu``.  Four slices are ported:
+and never ``jax`` or ``mxnet_tpu``.  Five slices are ported:
 
 - greedy generation of the transformer LM: ``Symbol -> Predictor ->
   Executor`` and ``serving.GenerationEngine`` over a paged KV cache,
@@ -17,14 +17,20 @@ and never ``jax`` or ``mxnet_tpu``.  Four slices are ported:
 - the imperative surface: ``nd`` (NDArray with views, arithmetic and
   the registered functions), the ``random`` samplers, and
   ``rtc.Rtc``, which compiles CUDA C kernel bodies at runtime with
-  NVRTC and launches them on NDArrays.
+  NVRTC and launches them on NDArrays;
+- image-classification training on one GPU: ``models.resnet``
+  (Convolution, BatchNorm, Pooling), every optimizer of the JAX package
+  and ``lr_scheduler``, through ``parallel.ShardedTrainer`` (the fused
+  sweep has a CUDA body for every elementwise optimizer) and through
+  ``mod.Module.fit`` (``io.NDArrayIter``, ``metric``, ``callback``,
+  ``kvstore.create("local")``, ``model``'s checkpoints).
 
 The kernels (``csrc/``) are built with ``nvcc`` at first use.
 
 ``import mxnet_tpu_torch as mx``: ``mx.gpu(0)`` is a CUDA device, and
 arrays and the entry points (``Predictor``, ``GenerationEngine``,
 ``serving.ModelServer``, ``models.transformer.generate``,
-``parallel.ShardedTrainer``) run on
+``parallel.ShardedTrainer``, ``mod.Module``) run on
 :func:`current_context`: ``gpu(0)`` unless a ``ctx`` argument or a
 ``with mx.cpu():`` scope says otherwise.
 """
@@ -42,3 +48,7 @@ from . import optimizer, random, parallel         # noqa: F401
 from . import initializer                         # noqa: F401
 from . import initializer as init                 # noqa: F401
 from . import rtc                                 # noqa: F401
+from . import lr_scheduler, metric, callback      # noqa: F401
+from . import io, kvstore, model                  # noqa: F401
+from . import module                              # noqa: F401
+from . import module as mod                       # noqa: F401

@@ -1,14 +1,14 @@
 """Attribute scoping for symbols (parity: python/mxnet/attribute.py).
 
-A copy of ``AttrScope`` from ``mxnet_tpu/attribute.py``:
-``with AttrScope(ctx_group='stage1'):`` attaches attrs to every symbol
-created inside.
+A copy of ``AttrScope`` and ``mirror_scope`` from
+``mxnet_tpu/attribute.py``: ``with AttrScope(ctx_group='stage1'):``
+attaches attrs to every symbol created inside.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["AttrScope"]
+__all__ = ["AttrScope", "mirror_scope"]
 
 
 class AttrScope:
@@ -48,3 +48,17 @@ class AttrScope:
         if not hasattr(AttrScope._current, "value"):
             AttrScope._current.value = AttrScope()
         return AttrScope._current.value
+
+
+def mirror_scope(stage_name, enabled=True):
+    """Attr scope tagging every op created inside it for activation
+    recompute: ``force_mirroring`` and ``mirror_stage=stage_name`` (ops
+    sharing a stage form one recomputed segment).  ``enabled=False``
+    returns a no-op context, so model builders can expose a
+    ``mirror_blocks`` flag without branching.  The port's executor does
+    not recompute yet: ``executor.build_program`` refuses a graph with
+    these tags."""
+    if not enabled:
+        import contextlib
+        return contextlib.nullcontext()
+    return AttrScope(force_mirroring="true", mirror_stage=stage_name)

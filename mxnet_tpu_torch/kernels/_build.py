@@ -105,7 +105,7 @@ def _declare(lib, name):
         fn, args = lib.mxtt_flash_attention_forward, [i, vp, vp, vp, vp, vp,
                                                       i, i, i, i, i, f, vp]
     else:
-        fn, args = lib.mxtt_fused_opt_sweep, ([i, vp, vp, vp, vp,
+        fn, args = lib.mxtt_fused_opt_sweep, ([i, vp, vp, vp, vp, vp,
                                                ctypes.c_longlong]
                                               + [f] * 11 + [vp])
     fn.argtypes = args

@@ -20,10 +20,11 @@ bucket:
 Only optimizers whose update is elementwise (``Optimizer.elementwise``)
 may be fused: then flatten/concat commutes with the update exactly,
 including the gradient's preprocessing, and the fused step is bitwise
-equal to the leafwise one.  The CUDA sweep has one body per optimizer
-(SGD with and without momentum, Adam); kernel mode with any other
-optimizer raises, and nothing switches to mode ``'1'`` behind the
-caller's back.
+equal to the leafwise one.  The CUDA sweep has one body per elementwise
+optimizer of the package (SGD with and without momentum, NAG, Adam,
+AdamW, AdaGrad, RMSProp, AdaDelta, Test; ccSGD runs SGD's); kernel mode
+with an optimizer whose update is its own raises, and nothing switches
+to mode ``'1'`` behind the caller's back.
 
 - :func:`sweep_reference` is the plain PyTorch version of one bucket's
   update (``_preprocess_grad`` then ``update_fn``).
@@ -122,20 +123,66 @@ def _n_state(optimizer):
 # ----------------------------------------------------------------------
 # the sweep
 # ----------------------------------------------------------------------
+#: the CUDA sweep's body code of each optimizer class whose ``update_fn``
+#: it implements (``csrc/fused_opt.cu``'s ``Opt``); SGD's and NAG's
+#: ``momentum == 0`` formula is SGD's body (code 0)
+_BODIES = {"SGD": 0, "Adam": 2, "NAG": 3, "AdamW": 4, "AdaGrad": 5,
+           "RMSProp": 6, "AdaDelta": 7, "Test": 8}
+_SGD_MOMENTUM = 1
+
+
+def _defining_class(optimizer, attr):
+    for klass in type(optimizer).__mro__:
+        if attr in vars(klass):
+            return klass
+    return None
+
+
 def sweep_body(optimizer):
-    """The CUDA sweep's body code for ``optimizer``: 0 SGD, 1 SGD with
-    momentum, 2 Adam.  Raises for any other optimizer (a subclass that
-    overrides ``update_fn`` included): its body is not written."""
-    from ..optimizer import SGD, Adam
-    kind = type(optimizer)
-    if kind is SGD:
-        return 1 if optimizer.momentum != 0.0 else 0
-    if kind is Adam:
-        return 2
-    raise MXNetError(
-        "MXTPU_FUSED_OPT=kernel: the CUDA sweep has no body for %s (it has "
-        "SGD and Adam); use MXTPU_FUSED_OPT='' for this optimizer"
-        % kind.__name__)
+    """The CUDA sweep's body code for ``optimizer``: the body of the class
+    that defines its ``update_fn`` (ccSGD inherits SGD's).  Every
+    elementwise optimizer of the package has one.  Raises for an
+    optimizer whose ``update_fn`` or ``_preprocess_grad`` is its own (a
+    user's subclass): a body generated from its Python formula (through
+    NVRTC) is not ported yet."""
+    from .. import optimizer as opt_mod
+    klass = _defining_class(optimizer, "update_fn")
+    code = _BODIES.get(klass.__name__) \
+        if getattr(opt_mod, klass.__name__, None) is klass else None
+    if code is None or _defining_class(optimizer, "_preprocess_grad") \
+            is not opt_mod.Optimizer:
+        raise MXNetError(
+            "MXTPU_FUSED_OPT=kernel: the CUDA sweep has no body for %s (its "
+            "own update_fn or _preprocess_grad; a body generated from the "
+            "Python formula is not ported yet); use MXTPU_FUSED_OPT='1' or "
+            "'' for this optimizer" % type(optimizer).__name__)
+    if klass.__name__ in ("SGD", "NAG"):
+        if optimizer.momentum == 0.0:
+            return 0
+        return _SGD_MOMENTUM if klass.__name__ == "SGD" else code
+    return code
+
+
+def _sweep_hypers(optimizer):
+    """``(momentum, a, 1 - a, b, 1 - b, eps)`` of ``optimizer``'s body: the
+    two decay coefficients and the epsilon its formula uses, by the class
+    that defines its ``update_fn`` (as :func:`sweep_body` picks the body),
+    computed in Python as the plain formula computes them, for the kernel
+    to round to float32 as PyTorch rounds a scalar."""
+    o = optimizer
+    momentum = float(getattr(o, "momentum", 0.0))
+    name = _defining_class(o, "update_fn").__name__
+    if name in ("Adam", "AdamW"):
+        return (momentum, o.beta1, 1.0 - o.beta1, o.beta2, 1.0 - o.beta2,
+                o.epsilon)
+    if name == "AdaGrad":
+        return (momentum, 0.0, 1.0, 0.0, 1.0, o.float_stable_eps)
+    if name == "RMSProp":
+        return (momentum, o.gamma1, 1.0 - o.gamma1, o.gamma2,
+                1.0 - o.gamma2, o.EPS)
+    if name == "AdaDelta":
+        return (momentum, o.rho, 1.0 - o.rho, 0.0, 1.0, o.epsilon)
+    return (momentum, 0.0, 1.0, 0.0, 1.0, 0.0)
 
 
 def sweep_reference(optimizer, w, g, states, lr, wd, t, preprocess=True):
@@ -191,26 +238,25 @@ def sweep(optimizer, w, g, states, lr, wd, t, preprocess=True):
         rescale = optimizer.rescale_grad
         if optimizer.clip_gradient is not None:
             clip = optimizer.clip_gradient
-    ptrs = [s.data_ptr() for s in states] + [None] * (2 - len(states))
-    beta1 = getattr(optimizer, "beta1", 0.0)
-    beta2 = getattr(optimizer, "beta2", 0.0)
+    ptrs = [s.data_ptr() for s in states] + [None] * (3 - len(states))
+    hypers = [float(x) for x in _sweep_hypers(optimizer)]
     lib = library("fused_opt")
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         code = lib.mxtt_fused_opt_sweep(
-            body, w.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1],
+            body, w.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], ptrs[2],
             ctypes.c_longlong(w.numel()), float(lr), float(wd), float(t),
-            float(rescale), float(clip),
-            float(getattr(optimizer, "momentum", 0.0)),
-            beta1, 1.0 - beta1, beta2, 1.0 - beta2,
-            float(getattr(optimizer, "epsilon", 0.0)), stream)
+            float(rescale), float(clip), *hypers, stream)
     check(lib, code, "fused_opt sweep")
     sweep.launches += 1
+    sweep.launches_by_body[body] = sweep.launches_by_body.get(body, 0) + 1
     return w, states
 
 
-#: launches of the CUDA kernel in this process (callers may reset it)
+#: launches of the CUDA kernel in this process (callers may reset it),
+#: in all and by body code (:func:`sweep_body`)
 sweep.launches = 0
+sweep.launches_by_body = {}
 
 
 # ----------------------------------------------------------------------

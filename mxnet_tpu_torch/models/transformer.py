@@ -15,6 +15,7 @@ from .. import ndarray as nd
 from .. import symbol as sym
 from ..base import MXNetError
 from ..context import resolve
+from ..model import _host, params_from_numpy as _params_from_numpy
 
 __all__ = ["transformer_block", "get_symbol", "get_prefill_symbol",
            "get_decode_symbol", "params_from_numpy", "opt_state_from_numpy",
@@ -143,13 +144,7 @@ def params_from_numpy(params, ctx=None):
     either package's ``nd.load``, through ``asnumpy``) or tensors; the
     ``arg:``/``aux:`` prefixes of a saved checkpoint are stripped.  The
     names and ``(out, in)`` layouts are the JAX package's."""
-    device = resolve(ctx)
-    out = {}
-    for name, value in params.items():
-        if name.startswith(("arg:", "aux:")):
-            name = name[4:]
-        out[name] = nd.array(_host(value), ctx=device).data
-    return out
+    return _params_from_numpy(params, ctx=ctx)[0]
 
 
 def opt_state_from_numpy(opt_state, ctx=None):
@@ -169,11 +164,6 @@ def opt_state_from_numpy(opt_state, ctx=None):
             out[name] = nd.array(_host(value), ctx=device).data
     return out
 
-
-def _host(value):
-    if hasattr(value, "asnumpy") and not isinstance(value, nd.NDArray):
-        return value.asnumpy()
-    return value
 
 
 def generate(params, prompts, vocab_size=32000, num_layers=4, num_heads=8,

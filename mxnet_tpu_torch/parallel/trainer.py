@@ -255,9 +255,8 @@ class ShardedTrainer:
                 new_w, new_s = {}, {}
                 t_dev = torch.tensor(float(t), device=self.device)
                 for n in self.param_names:
-                    g = opt._preprocess_grad(grads[n])
-                    new_w[n], new_s[n] = opt.update_fn(
-                        params[n], g, opt_state.get(n), lr, wd, t_dev)
+                    new_w[n], new_s[n] = opt._step(
+                        params[n], grads[n], opt_state.get(n), lr, wd, t_dev)
             params.update(new_w)
             for n, s in new_s.items():
                 if s is not None:

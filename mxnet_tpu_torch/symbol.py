@@ -199,11 +199,26 @@ class Symbol:
                     and all(s is not None for s in aux_shapes))
         return arg_shapes, out_shapes, aux_shapes, complete
 
+    def attr_dict(self):
+        """``{node name: {attr: value}}`` of every node that has attrs."""
+        return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
+
     # -- binding (executor.py) ---------------------------------------------
-    def bind(self, ctx, args, aux_states=None):
-        """Forward-only bind: ``args`` is a list or name->NDArray dict."""
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind to arrays: ``args``, ``args_grad`` and ``aux_states`` are
+        lists or name->NDArray dicts (``executor.Executor``).  Placement
+        by ``group2ctx`` and memory sharing with another executor are not
+        ported."""
         from .executor import Executor
-        return Executor(self, ctx, args, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Allocate arrays from the shapes in ``kwargs`` and bind
+        (``executor.simple_bind``)."""
+        from .executor import simple_bind
+        return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                           **kwargs)
 
     # -- serialization (reference JSON layout) -----------------------------
     def tojson(self):

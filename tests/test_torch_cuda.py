@@ -548,21 +548,20 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda):
         fa.flash_attention_forward(q.half(), q.half(), q.half())
 
 
-@pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adam"])
-@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1001, 0), (4099, 1)])
-def test_fused_sweep_kernel_matches_plain(cuda, name, n, offset):
-    """The CUDA sweep against its plain version on the card: SGD bit
-    for bit (every operation rounded as PyTorch rounds it), Adam within
-    2 ulp (powf against PyTorch's pow in the bias corrections).  Sizes
-    that are no multiple of 4 and a misaligned start (offset 1: the
-    scalar path) included."""
+#: every body of the sweep: (optimizer, its arguments, its body code)
+SWEEP_BODIES = [
+    ("sgd", {}, 0), ("sgd", {"momentum": 0.9}, 1), ("adam", {}, 2),
+    ("nag", {"momentum": 0.9}, 3), ("nag", {}, 0),
+    ("ccsgd", {"momentum": 0.9}, 1), ("adamw", {}, 4),
+    ("adagrad", {}, 5), ("rmsprop", {}, 6), ("adadelta", {}, 7),
+    ("test", {}, 8)]
+
+
+def _sweep_case(cuda, kind, kw, n, offset, clip, seed):
     from mxnet_tpu_torch import optimizer as opt_mod
-    from mxnet_tpu_torch.kernels import fused_opt as fo
-    kind = "adam" if name == "adam" else "sgd"
-    kw = {"sgd": {}, "sgd_momentum": {"momentum": 0.9}, "adam": {}}[name]
     opt = opt_mod.create(kind, learning_rate=0.05, rescale_grad=0.5,
-                         clip_gradient=1.5, **kw)
-    rng = np.random.RandomState(n)
+                         clip_gradient=clip, **kw)
+    rng = np.random.RandomState(seed)
 
     def vec(scale=1.0, positive=False):
         a = rng.randn(n + offset).astype(np.float32) * scale
@@ -570,19 +569,39 @@ def test_fused_sweep_kernel_matches_plain(cuda, name, n, offset):
         return torch.from_numpy(a).to(cuda)[offset:]
 
     w, g = vec(), vec()
-    states = {"sgd": [], "sgd_momentum": [vec(0.1)],
-              "adam": [vec(0.1), vec(0.1, positive=True)]}[name]
-    want_w, want_s = fo.sweep_reference(opt, w, g, states, 0.05, 0.01, 3)
+    proto = opt.create_state_arrays((1,))
+    n_state = 0 if proto is None else (
+        len(proto) if isinstance(proto, tuple) else 1)
+    # states of the sizes each formula keeps (variances positive)
+    states = [vec(0.1, positive=(i > 0 or kind in ("adagrad",
+                                                   "adadelta")))
+              for i in range(n_state)]
+    if kind == "rmsprop":      # n >= g^2, as the running means keep it
+        states[0] = states[1] * states[1] + states[0].abs()
+    return opt, w, g, states
+
+
+@pytest.mark.parametrize("kind,kw,body", SWEEP_BODIES)
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1001, 0), (4099, 1)])
+@pytest.mark.parametrize("clip,t", [(1.5, 3), (None, 1)])
+def test_fused_sweep_kernel_matches_plain(cuda, kind, kw, body, n, offset,
+                                          clip, t):
+    """Every body of the CUDA sweep against its plain version on the
+    card, bit for bit (each operation rounded as PyTorch rounds it, powf
+    as PyTorch's pow), with and without clip_gradient, at t = 1 and 3;
+    sizes that are no multiple of 4 and a misaligned start (offset 1:
+    the scalar path) included."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    opt, w, g, states = _sweep_case(cuda, kind, kw, n, offset, clip, n)
+    assert fo.sweep_body(opt) == body
+    want_w, want_s = fo.sweep_reference(opt, w, g, states, 0.05, 0.01, t)
     before = fo.sweep.launches
-    fo.sweep(opt, w, g, states, 0.05, 0.01, 3)
+    fo.sweep(opt, w, g, states, 0.05, 0.01, t)
     torch.cuda.synchronize()
     assert fo.sweep.launches == before + 1
     for got, want in zip([w] + states, [want_w] + want_s):
-        if kind == "sgd":
-            assert torch.equal(got, want)
-        else:
-            ulp = torch.abs(want) * 2.0 ** -23 + 1e-38
-            assert float(((got - want).abs() / ulp).max()) <= 2.0
+        assert bool(torch.isfinite(want).all())
+        assert torch.equal(got, want), (kind, kw)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -810,3 +829,49 @@ def test_imperative_surface_defaults_to_the_gpu(cuda):
     np.testing.assert_array_equal(a.asnumpy(), want)
     with mx.cpu():
         assert mx.nd.ones((2,)).context == mx.cpu()
+
+
+# ---------------------------------------------------------------------------
+# image classification: ResNet through ShardedTrainer
+# ---------------------------------------------------------------------------
+def test_resnet18_trainer_step_on_the_sweep(cuda, monkeypatch):
+    """One ResNet-18 step (cifar stem, batch 8) through ShardedTrainer
+    with MXTPU_FUSED_OPT=kernel: the sweep once a bucket and no other
+    kernel of the port, and parameters and aux bit for bit those of the
+    same step with the leafwise update (cuDNN deterministic)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.model import params_from_numpy
+    monkeypatch.setenv("MXTPU_FUSED_OPT_BUCKET_MB", "16")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    sym = mx.models.resnet.get_symbol(10, 18, (3, 32, 32))
+    rng = np.random.RandomState(0)
+    shapes, _, aux_shapes = sym.infer_shape(data=(8, 3, 32, 32))
+    params = {n: (rng.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    aux = {n: (np.ones if n.endswith("var") else np.zeros)(s, np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    batch = {"data": rng.randn(8, 3, 32, 32).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, 8).astype(np.float32)}
+    got = {}
+    for mode in ("kernel", ""):
+        monkeypatch.setenv("MXTPU_FUSED_OPT", mode)
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                  wd=1e-4, rescale_grad=1.0 / 8)
+        tr = mx.parallel.ShardedTrainer(sym, opt, ctx=cuda)
+        p, a = params_from_numpy(params, aux, ctx=cuda)
+        st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+              for n, w in p.items()}
+        fo.sweep.launches = 0
+        fa.flash_attention_forward.launches = 0
+        p, st, a, _o = tr.step(p, st, a, tr.shard_batch(batch))
+        torch.cuda.synchronize()
+        want = len(fo.plan_buckets(p)) if mode else 0
+        assert fo.sweep.launches == want and (want > 1 or not mode)
+        assert fa.flash_attention_forward.launches == 0
+        got[mode] = dict(p, **a)
+    for n, w in got[""].items():
+        assert torch.equal(got["kernel"][n], w), n

@@ -3,22 +3,26 @@
 
 Run from the root of a checkout on a machine with a CUDA device:
 
-    python3 tools/profile_train_torch.py [--seed N] [--steps N]
+    python3 tools/profile_train_torch.py [--model lm|resnet50] [--seed N]
+                                         [--steps N]
                                          [--dtype both|float32|bfloat16]
                                          [--tree DIR] [--out profile.json]
 
-It builds ``chip_smoke.py``'s full-width training run (the transformer
-LM of ``bench.py``'s chip configuration, batch 8 of 1024 tokens, SGD
-with momentum, seeded numpy weights, ``MXTPU_FUSED_OPT=kernel``), in
-float32 (TF32 off) and then with ``compute_dtype="bfloat16"``, takes two
+It builds one of ``chip_smoke.py``'s full-width training runs (``lm``:
+the transformer LM of ``bench.py``'s chip configuration, batch 8 of 1024
+tokens, phase 7; ``resnet50``: ``bench.py``'s ResNet-50 at 224 x 224,
+batch 64, phase 9; SGD with momentum, seeded numpy weights,
+``MXTPU_FUSED_OPT=kernel``), in float32 (TF32 off) and then with
+``compute_dtype="bfloat16"``, takes two
 warm-up steps, times ``--steps`` steps untraced (each ended by a
 synchronize), then traces ``--steps`` more under ``torch.profiler`` (CPU
 and CUDA activities), and prints for each:
 
 - the step time untraced and traced;
 - the device time of every kernel, summed by group (the port's
-  flash-attention forward and fused-sweep kernels, matrix products,
-  copies, everything else) and the device busy share (kernel time over
+  flash-attention forward and fused-sweep kernels, cuDNN convolutions,
+  matrix products, batch norm, copies, everything else) and the device
+  busy share (kernel time over
   traced wall time: the rest is the device waiting for the host);
 - the ten kernels with the most device time.
 
@@ -47,6 +51,11 @@ def _group(name):
         return "flash_attention"
     if "sweep_" in low:
         return "fused_opt"
+    if any(k in low for k in ("batch_norm", "batchnorm", "bn_fw", "bn_bw")):
+        return "batch_norm"
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "implicit")):
+        return "convolution"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv")):
         return "matmul"
     if "memcpy" in low or "memset" in low:
@@ -61,22 +70,45 @@ def _device_time_us(evt):
     return 0.0
 
 
-def profile_one(torch, params, batch, compute_dtype, steps):
-    from torch.profiler import ProfilerActivity, profile
+def _build_lm(torch, seed, compute_dtype):
     import chip_smoke as cs
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import transformer as tf
-    os.environ["MXTPU_FUSED_OPT"] = "kernel"
     S = cs.TRAIN["seq_len"]
     opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (cs.TRAIN_BATCH * S),
                               **cs.TRAIN_SGD)
     tr = mx.parallel.ShardedTrainer(tf.get_symbol(**cs.TRAIN), opt,
                                     ctx=torch.device("cuda"),
                                     compute_dtype=compute_dtype)
-    p = tf.params_from_numpy(params, ctx=torch.device("cuda"))
+    p = tf.params_from_numpy(cs.seeded_train_params(seed),
+                             ctx=torch.device("cuda"))
+    return tr, opt, p, {}, cs.train_batch(seed)
+
+
+def _build_resnet50(torch, seed, compute_dtype):
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.model import params_from_numpy
+    params, aux, batch = cs.seeded_resnet(seed, cs.RESNET_BATCH)
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / cs.RESNET_BATCH,
+                              **cs.RESNET_SGD)
+    tr = mx.parallel.ShardedTrainer(cs.resnet_symbol(), opt,
+                                    ctx=torch.device("cuda"),
+                                    compute_dtype=compute_dtype)
+    p, a = params_from_numpy(params, aux, ctx=torch.device("cuda"))
+    return tr, opt, p, a, batch
+
+
+MODELS = {"lm": _build_lm, "resnet50": _build_resnet50}
+
+
+def profile_one(torch, model, seed, compute_dtype, steps):
+    from torch.profiler import ProfilerActivity, profile
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    tr, opt, p, aux, batch = MODELS[model](torch, seed, compute_dtype)
     st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
           for n, w in p.items()}
-    aux = {}
+    st = {n: s for n, s in st.items() if s is not None}
     b = tr.shard_batch(batch)
     for _ in range(2):
         p, st, aux, _o = tr.step(p, st, aux, b)
@@ -105,7 +137,7 @@ def profile_one(torch, params, batch, compute_dtype, steps):
     kernels.sort(reverse=True)
     busy_us = sum(groups.values())
     untraced.sort()
-    return {"compute_dtype": str(compute_dtype or "float32"),
+    return {"model": model, "compute_dtype": str(compute_dtype or "float32"),
             "step_ms_untraced": untraced[len(untraced) // 2] * 1e3,
             "step_ms_traced": traced * 1e3,
             "device_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
@@ -117,6 +149,7 @@ def profile_one(torch, params, batch, compute_dtype, steps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="lm")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--dtype", choices=("both", "float32", "bfloat16"),
@@ -138,17 +171,15 @@ def main(argv=None):
                            % (mxnet_tpu_torch.__file__, tree))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = cs.seeded_train_params(args.seed)
-    batch = cs.train_batch(args.seed)
     results = {"device": torch.cuda.get_device_name(0), "tree": tree,
                "nvidia_smi": cs.nvidia_smi_line(), "runs": []}
     for dtype in {"both": (None, "bfloat16"), "float32": (None,),
                   "bfloat16": ("bfloat16",)}[args.dtype]:
-        r = profile_one(torch, params, batch, dtype, args.steps)
+        r = profile_one(torch, args.model, args.seed, dtype, args.steps)
         results["runs"].append(r)
-        print("%s: step %.2f ms untraced, %.2f ms traced; device busy "
+        print("%s %s: step %.2f ms untraced, %.2f ms traced; device busy "
               "%.2f ms a step (%.1f%% of traced wall), by group %s"
-              % (r["compute_dtype"], r["step_ms_untraced"],
+              % (args.model, r["compute_dtype"], r["step_ms_untraced"],
                  r["step_ms_traced"], r["device_busy_ms"],
                  100 * r["device_busy_share"],
                  {k: round(v, 3) for k, v in
