@@ -60,6 +60,29 @@ line:
    and ITL p50/p99, decode ms a step (``serve`` telemetry), the MLP's
    req/s and p50/p99 latency, ``engine.generate()`` of the same prompts,
    the fp8 logits' cosine against float32 (a report, not a gate).
+4c. the serving fleet on the same card: ``launch_fleet`` spawns two
+   ``python -m mxnet_tpu_torch.tools.mxfleet replica`` processes on
+   free ports serving ``lm-fp8``, the LM through
+   ``models.transformer.get_symbol(seq_len=512)`` (its softmax output
+   reshaped to (batch, 512, 8192)) from a seeded 0x112 checkpoint with
+   ``MXTPU_QUANTIZE=fp8_e4m3`` at buckets 1, 2, 4.  Four client threads
+   send 48 requests of 1 or 2 sequences through a ``FleetClient`` and
+   the ``mxfleet serve`` front door.  Gates: every response bit for bit
+   an in-process ``Predictor``'s on the same checkpoint and quantization
+   at a bucket the request fits (that Predictor and each replica must
+   have run the fp8 ``wgmma`` body and the float32 flash forward, by
+   their own launch counts); SIGKILL of replica 1 with requests in
+   flight: each completes (bitwise) or fails with ``ReplicaDead``, none
+   hangs, the ledger shows generation 1 with the death verdict, and the
+   respawned replica is healthy within 60 s and answers bitwise; a
+   rolling swap to a second checkpoint with zero lowerings a replica and
+   the skew map at ``v2``, then bitwise outputs of the new weights; a
+   1-replica fleet with a queue bound of 2 answers a burst of 8 with at
+   least one 429 carrying ``Retry-After``; ``drain()`` turns the front
+   door to 503; no replica process is left.  Printed: the router's
+   req/s and p50/p99 latency against the same requests through one
+   in-process ``ModelServer`` (a yardstick), failovers, respawn
+   seconds, swap pause ms, GPU memory by process.
 5. the flash-attention forward of training, kernel vs plain (``o`` and
    ``lse``), at B=8, H=8, S=1024, D=64, causal and not, float32 (the FMA
    body, also required to repeat bit for bit) and bfloat16 (the wgmma
@@ -1046,6 +1069,529 @@ def phase_serve(torch, seed, smi, phase4_tokens):
         "finished with %d tokens" % (res["busy_429"], len(done["tokens"])))
     del os.environ["MXTPU_TELEMETRY"], os.environ["MXTPU_TELEMETRY_DIR"]
     events.refresh()
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase 4c: the serving fleet at full width
+# ----------------------------------------------------------------------
+#: the LM the fleet serves: phase 4's model (vocab 8192, 8 layers, 8
+#: heads, dim 512) through ``models.transformer.get_symbol`` at a
+#: 512-token window
+FLEET_LM = dict(vocab_size=8192, num_layers=8, num_heads=8, dim=512,
+                seq_len=512, ffn_mult=4)
+FLEET_BUCKETS = (1, 2, 4)
+FLEET_REQUESTS = 48
+FLEET_DRILL_REQUESTS = 16
+FLEET_SWAP_REQUESTS = 8
+FLEET_QUANTIZE = "fp8_e4m3"
+#: heartbeat staleness bound of the drill, seconds
+FLEET_HB_TIMEOUT_S = 3.0
+#: the respawned replica must answer within this many seconds of the kill
+FLEET_RESPAWN_LIMIT_S = 60.0
+FLEET_TIMEOUT_S = 120.0
+
+
+def fleet_symbol():
+    """The served graph: ``get_symbol``'s LM with its softmax output
+    reshaped to (batch, seq_len, vocab), so the batch axis leads as the
+    server slices results by rows."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer as tf
+    S, V = FLEET_LM["seq_len"], FLEET_LM["vocab_size"]
+    return mx.sym.Reshape(tf.get_symbol(**FLEET_LM), shape=(-1, S, V),
+                          name="lm_out")
+
+
+def fleet_params(sym, seed):
+    """Seeded weights of the served LM (phase 4's rules: N(0, 0.02)
+    matrices and embeddings, zero biases, unit LayerNorm)."""
+    S = FLEET_LM["seq_len"]
+    shapes, _, _ = sym.infer_shape(data=(1, S), softmax_label=(1, S))
+    rng = np.random.RandomState(seed)
+    params = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            params[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_bias", "_beta")):
+            params[name] = np.zeros(shape, np.float32)
+        else:
+            params[name] = (rng.randn(*shape) * 0.02).astype(np.float32)
+    return params
+
+
+def fleet_requests(seed, count):
+    """``count`` requests of 1 or 2 sequences of seq_len token ids."""
+    S, V = FLEET_LM["seq_len"], FLEET_LM["vocab_size"]
+    rng = np.random.RandomState(seed)
+    out = []
+    for n in rng.choice([1, 2], size=count):
+        ids = rng.randint(0, V, (int(n), S)).astype(np.float32)
+        out.append({"data": ids, "softmax_label": np.zeros_like(ids)})
+    return out
+
+
+def _digest(arr):
+    import hashlib
+    arr = np.ascontiguousarray(arr)
+    return hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest() \
+        + str(arr.shape) + arr.dtype.str
+
+
+class FleetReference(object):
+    """In-process Predictors of the served LM, one per bucket, on the
+    same checkpoint and quantization as the replicas: the digest of each
+    request's output at every bucket it can have run at (a request of n
+    rows padded with zero rows to the bucket, as the server packs it).
+    Each bucket's Predictor is built afresh from the checkpoint, not by
+    ``reshape`` as the server binds its later buckets, so a bucket bound
+    wrong there cannot agree with its reference here."""
+
+    def __init__(self, torch, sym_json, params_path, ctx):
+        from mxnet_tpu_torch.predictor import Predictor
+        S = FLEET_LM["seq_len"]
+        self.preds = {
+            b: Predictor(sym_json, params_path,
+                         {"data": (b, S), "softmax_label": (b, S)},
+                         ctx=ctx, quantize=FLEET_QUANTIZE)
+            for b in FLEET_BUCKETS}
+
+    def outputs(self, req):
+        """{bucket: output rows of the request}."""
+        n = req["data"].shape[0]
+        out = {}
+        for b, pred in self.preds.items():
+            if b < n:
+                continue
+            feed = {k: np.zeros((b,) + v.shape[1:], v.dtype)
+                    for k, v in req.items()}
+            for k, v in req.items():
+                feed[k][:n] = v
+            out[b] = pred.forward(**feed)[0][:n]
+        return out
+
+    def digests(self, reqs):
+        return [{b: _digest(o) for b, o in self.outputs(r).items()}
+                for r in reqs]
+
+
+def check_fleet_outputs(what, reqs, refs, got, reference):
+    """Gate: each response bit for bit equal to the in-process Predictor
+    at one of the buckets it can have run at.  Returns the count of
+    matches by bucket."""
+    by_bucket = {}
+    for i, digest in got:
+        hit = [b for b, d in refs[i].items() if d == digest]
+        if not hit:
+            outs = reference.outputs(reqs[i])
+            raise AssertionError(
+                "%s: request %d (n=%d) is not bit for bit the in-process "
+                "Predictor's output at any bucket it fits (digest %s; "
+                "buckets %s)" % (what, i, reqs[i]["data"].shape[0], digest,
+                                 sorted(outs)))
+        by_bucket[hit[0]] = by_bucket.get(hit[0], 0) + 1
+    return by_bucket
+
+
+def check_fleet_launches(what, launches):
+    """Gate: the path ran the fp8 weight-only matmul's wgmma body and the
+    float32 (FMA) flash-attention forward."""
+    qmm = launches.get("quantized_matmul", {})
+    fa = launches.get("flash_attention", {})
+    if not (qmm.get("by_qdtype", {}).get("fp8_e4m3", 0) > 0
+            and qmm.get("by_route", {}).get("wgmma", 0) > 0
+            and fa.get("by_dtype", {}).get("float32", 0) > 0):
+        raise AssertionError("%s did not run the fp8 wgmma body and the "
+                             "float32 flash forward: %s" % (what, launches))
+
+
+def gpu_memory_by_pid():
+    """``nvidia-smi``'s compute processes: [(pid, used memory), ...]."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError("nvidia-smi failed: %s" % out.stderr.strip())
+    return [tuple(p.strip() for p in line.split(",", 1))
+            for line in out.stdout.strip().splitlines() if line.strip()]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _timed_jobs(call, reqs, idx):
+    """CLIENTS threads send ``reqs[i]`` for i in ``idx`` through
+    ``call``; returns (wall seconds, [(i, digest)], [latency ms])."""
+    got, lat = [None] * len(idx), [None] * len(idx)
+
+    def job(j):
+        def run():
+            t = time.perf_counter()
+            out = call(reqs[idx[j]])
+            lat[j] = (time.perf_counter() - t) * 1e3
+            got[j] = (idx[j], _digest(out))
+        return run
+
+    t0 = time.perf_counter()
+    _client_threads([job(j) for j in range(len(idx))])
+    return time.perf_counter() - t0, got, lat
+
+
+def _front_door(router):
+    import threading
+    from http.server import ThreadingHTTPServer
+    from mxnet_tpu_torch.tools.mxfleet import make_front_handler
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_front_handler(router))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, "http://127.0.0.1:%d" % httpd.server_port
+
+
+def _raw_predict(url, model, req):
+    """One npz POST to a front door: (status, headers, body)."""
+    import http.client
+    from mxnet_tpu_torch.serving.fleet import encode_arrays
+    host, port = url.split("://", 1)[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port),
+                                      timeout=FLEET_TIMEOUT_S)
+    try:
+        conn.request("POST", "/v1/predict", body=encode_arrays(req),
+                     headers={"Content-Type": "application/x-npz",
+                              "X-MXTPU-Model": model})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_fleet(torch, seed, smi):
+    """The serving fleet on one card: ``launch_fleet`` spawns two
+    ``mxfleet replica`` processes serving the full-width LM with fp8
+    weights; traffic through the ``mxfleet serve`` front door, held bit
+    for bit to in-process Predictors; a SIGKILL drill, a rolling swap,
+    admission (429) and drain (503)."""
+    import shutil
+    import signal
+    import threading
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.observability import percentile
+    from mxnet_tpu_torch.resilience import elastic
+    from mxnet_tpu_torch.serving import ModelServer, ServerBusy
+    from mxnet_tpu_torch.serving.fleet import (FleetClient, ReplicaDead,
+                                               fleet_ledger_path,
+                                               launch_fleet)
+    from mxnet_tpu_torch.observability.metrics import kernel_counters
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "chip_smoke_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx_name = "gpu" if DEVICE == "cuda" else "cpu"
+    ctx = mx.Context(ctx_name)
+    model = "lm-fp8"
+    S = FLEET_LM["seq_len"]
+
+    # the checkpoint: symbol JSON and two seeded 0x112 params files
+    sym = fleet_symbol()
+    sym_path = os.path.join(work, "lm-symbol.json")
+    sym.save(sym_path)
+    paths = {}
+    for tag, s in (("v1", seed + 31), ("v2", seed + 32)):
+        paths[tag] = os.path.join(work, "lm-%s.params" % tag)
+        mx.nd.save(paths[tag], {"arg:" + k: torch.from_numpy(v) for k, v
+                                in fleet_params(sym, s).items()})
+    spec_path = os.path.join(work, "fleet.json")
+    with open(spec_path, "w") as f:
+        json.dump({"models": [{"name": model, "symbol": sym_path,
+                               "params": paths["v1"],
+                               "input_shapes": {"data": [S],
+                                                "softmax_label": [S]},
+                               "buckets": list(FLEET_BUCKETS)}],
+                   "version": "v1", "ctx": ctx_name}, f)
+    reqs = fleet_requests(seed + 33, FLEET_REQUESTS)
+    res = {"model": dict(FLEET_LM, quantize=FLEET_QUANTIZE,
+                         buckets=list(FLEET_BUCKETS)),
+           "requests": FLEET_REQUESTS,
+           "sizes": [int(r["data"].shape[0]) for r in reqs]}
+
+    # (1) the reference: in-process Predictors, their launches counted
+    for c in (fa.flash_attention_forward, qz.quantized_matmul):
+        c.launches = 0
+    fa.flash_attention_forward.launches_by_dtype.update(float32=0,
+                                                        bfloat16=0)
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+    qz.quantized_matmul.launches_by_qdtype.update(int8=0, fp8_e4m3=0)
+    t0 = time.perf_counter()
+    ref1 = FleetReference(torch, sym_path, paths["v1"], ctx)
+    refs1 = ref1.digests(reqs)
+    res["reference_launches"] = kernel_counters()
+    check_fleet_launches("the in-process Predictor",
+                         res["reference_launches"])
+    log("fleet reference: %d requests at every bucket they fit in %.2f s; "
+        "launches %s" % (len(reqs), time.perf_counter() - t0,
+                         json.dumps(res["reference_launches"])))
+
+    # (2) yardstick: the same requests through one in-process ModelServer
+    prev_q = os.environ.get("MXTPU_QUANTIZE")
+    os.environ["MXTPU_QUANTIZE"] = FLEET_QUANTIZE
+    try:
+        srv = ModelServer()
+        srv.add_model(model, sym_path, paths["v1"],
+                      {"data": (S,), "softmax_label": (S,)},
+                      buckets=FLEET_BUCKETS, ctx=ctx)
+        wall, got, lat = _timed_jobs(
+            lambda r: srv.predict(model, r, timeout=FLEET_TIMEOUT_S)[0],
+            reqs, list(range(len(reqs))))
+        srv.close()
+    finally:
+        if prev_q is None:
+            del os.environ["MXTPU_QUANTIZE"]
+        else:
+            os.environ["MXTPU_QUANTIZE"] = prev_q
+    check_fleet_outputs("in-process server", reqs, refs1, got, ref1)
+    res["in_process"] = {"req_per_s": len(reqs) / wall,
+                         "p50_ms": percentile(lat, 50),
+                         "p99_ms": percentile(lat, 99)}
+    log("fleet yardstick, one in-process ModelServer: %s"
+        % json.dumps(res["in_process"]))
+
+    # (3) the fleet: two replica processes, the front door, traffic;
+    # the routers read the heartbeat bound from the environment
+    env = {"MXTPU_QUANTIZE": FLEET_QUANTIZE}
+    prev_hb = os.environ.get("MXTPU_FLEET_HB_TIMEOUT_S")
+    os.environ["MXTPU_FLEET_HB_TIMEOUT_S"] = str(FLEET_HB_TIMEOUT_S)
+    procs, routers, doors = [], [], []
+    t0 = time.perf_counter()
+    router = launch_fleet(spec_path, n_replicas=2,
+                          directory=os.path.join(work, "fleet"),
+                          ports=[_free_port(), _free_port()],
+                          startup_timeout_s=300.0, extra_env=env)
+    routers.append(router)
+    procs.extend(r.proc for r in router._replicas.values())
+    res["startup_s"] = time.perf_counter() - t0
+    try:
+        httpd, url = _front_door(router)
+        doors.append(httpd)
+        client = FleetClient([url], timeout=FLEET_TIMEOUT_S)
+        wall, got, lat = _timed_jobs(
+            lambda r: client.predict(model, r, n=r["data"].shape[0])[0],
+            reqs, list(range(len(reqs))))
+        res["matched_buckets"] = check_fleet_outputs(
+            "fleet", reqs, refs1, got, ref1)
+        res["fleet"] = {"req_per_s": len(reqs) / wall,
+                        "p50_ms": percentile(lat, 50),
+                        "p99_ms": percentile(lat, 99)}
+        rstats = router.replica_stats()
+        res["replica_launches"] = {i: st["kernel_launches"]
+                                   for i, st in rstats.items()}
+        # the caching allocator's bytes by process (nvidia-smi's per-
+        # process rows may not name processes inside a container)
+        res["cuda_memory"] = dict(
+            {"chip_smoke": {"reserved": torch.cuda.memory_reserved(),
+                            "max_allocated":
+                                torch.cuda.max_memory_allocated()}
+             if DEVICE == "cuda" else None},
+            **{"replica%s" % i: st["cuda_memory"]
+               for i, st in rstats.items()})
+        for i, launches in res["replica_launches"].items():
+            check_fleet_launches("replica %s" % i, launches)
+        res["gpu_memory"] = [
+            {"pid": pid, "used_memory": used,
+             "role": "chip_smoke" if pid == str(os.getpid())
+             else "replica" if pid in {str(p.pid) for p in procs}
+             else "other"} for pid, used in gpu_memory_by_pid()]
+        log("fleet: 2 replicas up in %.2f s; %s; outputs bitwise the "
+            "in-process Predictor's (by bucket %s); replica launches %s"
+            % (res["startup_s"], json.dumps(res["fleet"]),
+               res["matched_buckets"], json.dumps(res["replica_launches"])))
+        log("fleet GPU memory by process (nvidia-smi): %s; CUDA allocator "
+            "bytes: %s" % (json.dumps(res["gpu_memory"]),
+                           json.dumps(res["cuda_memory"])))
+
+        # (4) failover: SIGKILL replica 1 while requests are in flight
+        drill = list(range(FLEET_DRILL_REQUESTS))
+        outcomes = [None] * len(drill)
+
+        def drill_job(j):
+            def run():
+                r = reqs[drill[j]]
+                try:
+                    out = router.predict(model, r, n=r["data"].shape[0],
+                                         timeout=FLEET_TIMEOUT_S)[0]
+                    outcomes[j] = ("ok", _digest(out))
+                except ReplicaDead as exc:
+                    outcomes[j] = ("replica_dead", exc.to_dict())
+            return run
+
+        jobs = [drill_job(j) for j in range(len(drill))]
+        threads = [threading.Thread(
+            target=lambda k=k: [jobs[j]() for j in range(k, len(jobs),
+                                                         CLIENTS)])
+            for k in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60.0
+        while router.stats()["replicas"]["1"]["inflight"] == 0:
+            if time.monotonic() > deadline:
+                raise AssertionError("replica 1 never had a request in "
+                                     "flight")
+            time.sleep(0.005)
+        victim = router._replicas[1].proc
+        t_kill = time.perf_counter()
+        os.kill(victim.pid, signal.SIGKILL)
+        ledger_path = fleet_ledger_path(os.path.join(work, "fleet"))
+        first_verdict = None
+        while first_verdict is None:
+            led = elastic.read_ledger(path=ledger_path)
+            if led and int(led.get("generation", 0)) >= 1:
+                first_verdict = led
+            elif time.perf_counter() - t_kill > 30.0:
+                raise AssertionError("no death verdict in the ledger")
+            time.sleep(0.02)
+        for t in threads:
+            t.join(timeout=2 * FLEET_TIMEOUT_S)
+            if t.is_alive():
+                raise AssertionError("a request hung past its timeout")
+        if (first_verdict.get("generation"), first_verdict.get("reason"),
+                first_verdict.get("members")) != (1, "replica_death", [0]):
+            raise AssertionError("ledger after the kill: %s"
+                                 % first_verdict)
+        ok = [(drill[j], o[1]) for j, o in enumerate(outcomes)
+              if o[0] == "ok"]
+        dead = [o[1] for o in outcomes if o[0] == "replica_dead"]
+        if len(ok) + len(dead) != len(drill):
+            raise AssertionError("drill outcomes: %s" % outcomes)
+        check_fleet_outputs("failover", reqs, refs1, ok, ref1)
+        while router.stats()["replicas"]["1"]["state"] != "ready":
+            if time.perf_counter() - t_kill > FLEET_RESPAWN_LIMIT_S:
+                raise AssertionError("replica 1 not healthy %.0f s after "
+                                     "the kill" % FLEET_RESPAWN_LIMIT_S)
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_kill
+        procs.append(router._replicas[1].proc)
+        rep1 = router._replicas[1].client
+        st1 = rep1.stats()
+        if st1["generation"] != 1 or st1["pid"] == victim.pid:
+            raise AssertionError("respawned replica: generation %s pid %s"
+                                 % (st1["generation"], st1["pid"]))
+        again = [(i, _digest(rep1.predict(model, reqs[i],
+                                          n=reqs[i]["data"].shape[0])[0]))
+                 for i in range(4)]
+        check_fleet_outputs("respawned replica", reqs, refs1, again, ref1)
+        rs = router.stats()
+        res["failover"] = {"completed": len(ok), "replica_dead": len(dead),
+                           "router_retries": rs["retries"],
+                           "deaths": rs["replicas"]["1"]["deaths"],
+                           "verdict": first_verdict,
+                           "generation_now": rs["generation"],
+                           "respawn_s": respawn_s}
+        log("fleet failover: %s" % json.dumps(res["failover"]))
+
+        # (5) rolling swap to the second checkpoint
+        swap_idx = list(range(FLEET_SWAP_REQUESTS))
+        ref2 = FleetReference(torch, sym_path, paths["v2"], ctx)
+        refs2 = {i: d for i, d in zip(swap_idx, ref2.digests(
+            [reqs[i] for i in swap_idx]))}
+        sw = client.swap(paths["v2"], version="v2")
+        for i, r in sorted(sw["replicas"].items()):
+            if "error" in r or r.get("lowerings") != 0 \
+                    or r.get("version") != "v2":
+                raise AssertionError("swap on replica %s: %s" % (i, r))
+        skew = router.stats()["version_skew"]
+        if skew != {"v2": [0, 1]}:
+            raise AssertionError("version skew after the swap: %s" % skew)
+        _, got, _ = _timed_jobs(
+            lambda r: client.predict(model, r, n=r["data"].shape[0])[0],
+            reqs, swap_idx)
+        check_fleet_outputs("after the swap", reqs, refs2, got, ref2)
+        res["swap"] = {"swap_pause_ms": sw["swap_pause_ms"],
+                       "lowerings": {i: r["lowerings"] for i, r
+                                     in sorted(sw["replicas"].items())},
+                       "version_skew": skew}
+        log("fleet swap: %s" % json.dumps(res["swap"]))
+
+        # (6) admission: a 1-replica fleet with a queue bound of 2
+        small = launch_fleet(spec_path, n_replicas=1,
+                             directory=os.path.join(work, "fleet-small"),
+                             ports=[_free_port()], max_queue=2,
+                             startup_timeout_s=300.0, extra_env=env)
+        routers.append(small)
+        procs.extend(r.proc for r in small._replicas.values())
+        small_door, small_url = _front_door(small)
+        doors.append(small_door)
+        burst = [None] * 8
+        bthreads = [threading.Thread(target=lambda k=k: burst.__setitem__(
+            k, _raw_predict(small_url, model, reqs[k]))) for k in range(8)]
+        for t in bthreads:
+            t.start()
+        for t in bthreads:
+            t.join(timeout=2 * FLEET_TIMEOUT_S)
+            if t.is_alive():
+                raise AssertionError("a burst request hung")
+        codes = [b[0] for b in burst]
+        busy = [b for b in burst if b[0] == 429]
+        if not busy or set(codes) - {200, 429}:
+            raise AssertionError("burst of 8 at queue bound 2: codes %s"
+                                 % codes)
+        for _status, headers, body in busy:
+            doc = json.loads(body.decode())
+            if "Retry-After" not in headers \
+                    or doc.get("error") != "server_busy" \
+                    or doc.get("limit") != 2:
+                raise AssertionError("429 without Retry-After or a "
+                                     "structured body: %s %s"
+                                     % (headers, doc))
+        res["admission"] = {"codes": codes,
+                            "retry_after": busy[0][1]["Retry-After"],
+                            "body": json.loads(busy[0][2].decode())}
+        log("fleet admission: %s" % json.dumps(res["admission"]))
+
+        # (7) drain: the front door answers 503
+        router.drain(timeout=FLEET_TIMEOUT_S)
+        try:
+            client.predict(model, reqs[0], n=reqs[0]["data"].shape[0])
+        except ServerBusy as exc:
+            if exc.code != 503:
+                raise
+            res["drain"] = exc.to_dict()
+        else:
+            raise AssertionError("a drained fleet answered a request")
+        log("fleet drain: %s" % json.dumps(res["drain"]))
+    finally:
+        for door in doors:
+            door.shutdown()
+            door.server_close()
+        for r in routers:
+            r.close(drain=False)
+        if prev_hb is None:
+            del os.environ["MXTPU_FLEET_HB_TIMEOUT_S"]
+        else:
+            os.environ["MXTPU_FLEET_HB_TIMEOUT_S"] = prev_hb
+    left = []
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            left.append(p.pid)
+    if left:
+        raise AssertionError("replica processes left running: %s" % left)
+    res["replica_pids"] = [p.pid for p in procs]
+    log("fleet closed: no replica left of pids %s" % res["replica_pids"])
+    log("fleet on %s: router %.2f req/s (p50 %.1f ms, p99 %.1f ms) "
+        "against %.2f req/s in one in-process server; failovers %d "
+        "(retries), respawn %.2f s, swap pause ms %s"
+        % (smi, res["fleet"]["req_per_s"], res["fleet"]["p50_ms"],
+           res["fleet"]["p99_ms"], res["in_process"]["req_per_s"],
+           res["failover"]["router_retries"], res["failover"]["respawn_s"],
+           res["swap"]["swap_pause_ms"]))
     return res
 
 
@@ -2567,6 +3113,7 @@ def main(argv=None):
         eng = run("4", phase_engine, torch, args.seed)
         serve = run("4b", phase_serve, torch, args.seed, smi,
                     eng["float32_tokens"])
+        fleet = run("4c", phase_fleet, torch, args.seed, smi)
         fa_rows = run("5", phase_flash_attention, torch, timer, args.seed)
         fo_rows, bucket_sizes = run("6", phase_fused_opt, torch, timer,
                                     args.seed)
@@ -2719,7 +3266,7 @@ def main(argv=None):
             json.dump({"device": kind, "nvidia_smi": smi,
                        "build": {n: i["seconds"] for n, i in info.items()},
                        "flash_decode": fd_rows, "quantized_matmul": qmm_rows,
-                       "engine": eng, "serve": serve,
+                       "engine": eng, "serve": serve, "fleet": fleet,
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module,

@@ -10,11 +10,23 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MXNetError", "dtype_torch_to_mx", "dtype_mx_to_torch"]
+__all__ = ["MXNetError", "dtype_torch_to_mx", "dtype_mx_to_torch",
+           "collective_seam"]
 
 
 class MXNetError(Exception):
     """Error raised by the framework (parity with mxnet.base.MXNetError)."""
+
+
+def collective_seam(fn=None, **_meta):
+    """Runtime no-op marker: this function implements a cluster-wide
+    rendezvous or agreement protocol (every rank reaches it together and
+    its result is identical on every rank).  The JAX package's
+    distributed lint reads the same decorator from its sources; in the
+    port it documents the seam and changes nothing."""
+    if fn is None:
+        return lambda f: f
+    return fn
 
 
 _DTYPE_TORCH_TO_MX = {

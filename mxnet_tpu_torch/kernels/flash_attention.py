@@ -32,6 +32,7 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..observability.metrics import register_kernel_counters
 
 __all__ = ["flash_attention_forward_reference", "flash_attention_forward",
            "plan_flash_forward", "work_item"]
@@ -159,3 +160,6 @@ def flash_attention_forward(q, k, v, causal=False, scale=None):
 #: reset them)
 flash_attention_forward.launches = 0
 flash_attention_forward.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+register_kernel_counters("flash_attention", lambda: {
+    "launches": flash_attention_forward.launches,
+    "by_dtype": dict(flash_attention_forward.launches_by_dtype)})

@@ -24,6 +24,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..observability.metrics import register_kernel_counters
 
 __all__ = ["decode_attention_reference", "flash_decode_attention",
            "plan_flash_decode"]
@@ -210,3 +211,5 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
 
 #: launches of the CUDA kernel in this process (callers may reset it)
 flash_decode_attention.launches = 0
+register_kernel_counters("flash_decode", lambda: {
+    "launches": flash_decode_attention.launches})

@@ -40,6 +40,7 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from ..observability.metrics import register_kernel_counters
 from .common import env_flag
 
 __all__ = ["fused_opt_mode", "bucket_nbytes", "supports_fused",
@@ -257,6 +258,9 @@ def sweep(optimizer, w, g, states, lr, wd, t, preprocess=True):
 #: in all and by body code (:func:`sweep_body`)
 sweep.launches = 0
 sweep.launches_by_body = {}
+register_kernel_counters("fused_opt", lambda: {
+    "launches": sweep.launches,
+    "by_body": dict(sweep.launches_by_body)})
 
 
 # ----------------------------------------------------------------------

@@ -33,6 +33,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
+from ..observability.metrics import register_kernel_counters
 
 __all__ = ["QDTYPES", "STORAGE_DTYPES", "storage_dtype", "quantize_array",
            "dequantize_array",
@@ -366,3 +367,7 @@ def quantized_matmul(x, w_q, scale):
 quantized_matmul.launches = 0
 quantized_matmul.launches_by_route = {"gemv": 0, "wgmma": 0}
 quantized_matmul.launches_by_qdtype = {"int8": 0, "fp8_e4m3": 0}
+register_kernel_counters("quantized_matmul", lambda: {
+    "launches": quantized_matmul.launches,
+    "by_route": dict(quantized_matmul.launches_by_route),
+    "by_qdtype": dict(quantized_matmul.launches_by_qdtype)})

@@ -500,6 +500,23 @@ def reset_registry():
     _REGISTRY["reg"] = None
 
 
+_KERNEL_COUNTERS = {}
+
+
+def register_kernel_counters(name, read):
+    """Register a hand kernel's launch counters: ``read()`` returns them
+    as a JSON-able dict.  Each kernel module registers its own when it is
+    imported, so a process reports the kernels it loaded and no layer
+    above them names one."""
+    _KERNEL_COUNTERS[name] = read
+
+
+def kernel_counters():
+    """``{kernel: its counters}`` for every kernel module this process
+    has imported (a fleet replica's ``/v1/stats`` carries it)."""
+    return {name: read() for name, read in sorted(_KERNEL_COUNTERS.items())}
+
+
 def exposition_enabled():
     """``MXTPU_METRICS`` gates the HTTP /metrics doors (default on —
     the registry itself always exists; only exposition is toggled)."""

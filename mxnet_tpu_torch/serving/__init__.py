@@ -1,6 +1,6 @@
-"""Serving of the port: the in-process batching model server.
+"""Serving of the port: the batching model server and the fleet.
 
-The port of ``mxnet_tpu/serving`` less the fleet: the offline bucket
+The port of ``mxnet_tpu/serving``: the offline bucket
 planner (:mod:`.buckets`), the continuous batcher (:mod:`.batcher`: a
 bounded queue, a scheduler thread and two FIFO pipeline workers, with
 structured 429/503 backpressure), the block-paged KV cache
@@ -8,7 +8,10 @@ structured 429/503 backpressure), the block-paged KV cache
 (:mod:`.generate`), ``serve`` telemetry (:mod:`.telemetry`) and
 :class:`ModelServer` (:mod:`.server`), which serves Symbol models
 (``add_model``) and generative LMs (``add_generative_model``) side by
-side.  The multi-replica fleet is a later slice (``ROADMAP.md``).
+side, and the multi-replica fleet (:mod:`.fleet`: a
+:class:`FleetRouter` over N replica processes with least-loaded
+dispatch, aggregate admission control, heartbeat health,
+generation-stamped respawn and the drainless rolling weight swap).
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ from .generate import (GenerationEngine, GenerativeEntry, TokenStream,
 from .server import ModelServer, checkpoint_files
 from .telemetry import (emit_batch, serve_report, fleet_report,
                         set_fleet_context)
+from .fleet import (FileKV, FleetClient, FleetRouter,
+                    HTTPReplicaClient, NotLeader, ReplicaDead,
+                    adopt_fleet, connect_kv, launch_fleet, run_replica)
 
 __all__ = [
     "BucketPlan", "bucket_for", "model_matmul_dims", "parse_buckets",
@@ -33,4 +39,7 @@ __all__ = [
     "generation_mats",
     "ModelServer", "checkpoint_files",
     "emit_batch", "serve_report", "fleet_report", "set_fleet_context",
+    "FileKV", "FleetClient", "FleetRouter", "HTTPReplicaClient",
+    "NotLeader", "ReplicaDead", "adopt_fleet", "connect_kv",
+    "launch_fleet", "run_replica",
 ]

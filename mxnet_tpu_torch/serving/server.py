@@ -31,8 +31,10 @@ sample axis (``n`` samples per request, ``n`` <= the largest bucket);
 results are the model's outputs sliced back to ``n`` rows, as numpy.
 Single-input models may pass the bare array instead of a dict.
 
-Not ported: the fleet's warm hand-off (``snapshot_hotstate``,
-``warm_resume_models``) and the retrace sentry's warmup markers.
+Warm elasticity: :meth:`ModelServer.snapshot_hotstate` offloads every
+served model into the hot-state hand-off area and
+:meth:`ModelServer.warm_resume_models` rebuilds them from it.  Not
+ported: the retrace sentry's warmup markers.
 """
 from __future__ import annotations
 
@@ -57,6 +59,42 @@ def checkpoint_files(prefix, epoch):
     return "%s-symbol.json" % prefix, "%s-%04d.params" % (prefix, epoch)
 
 
+def _requantized(params, qdtype):
+    """A snapshot's params with each quantized weight (the ones with a
+    ``<name>_scale`` beside them) back in its storage dtype: the payload
+    holds them widened to float32 (numpy has no fp8), exactly."""
+    if not qdtype:
+        return dict(params)
+    from ..kernels.quantize import storage_dtype
+    st = storage_dtype(qdtype)
+    return {k: torch.from_numpy(_np.ascontiguousarray(v)).to(st)
+            if k + "_scale" in params else v
+            for k, v in params.items()}
+
+
+def _symbol_text(symbol_json):
+    """Symbol JSON text from text or a ``.json`` path."""
+    if isinstance(symbol_json, _os.PathLike):
+        symbol_json = _os.fspath(symbol_json)
+    if isinstance(symbol_json, str) and symbol_json.endswith(".json"):
+        with open(symbol_json) as fin:
+            return fin.read()
+    return symbol_json
+
+
+def _param_to_host(v):
+    """numpy copy of a bound parameter (an NDArray or a tensor; numpy
+    has no fp8, so an fp8 weight comes back as float32, exactly)."""
+    if hasattr(v, "asnumpy"):
+        return v.asnumpy()
+    if hasattr(v, "detach"):
+        t = v.detach()
+        if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            t = t.float()
+        return t.cpu().numpy()
+    return _np.asarray(v)
+
+
 def _to_host(t):
     """numpy copy of a result tensor (bfloat16 widened to float32)."""
     t = t.detach()
@@ -70,8 +108,13 @@ class _ModelEntry(object):
     protocol over per-bucket Predictors."""
 
     def __init__(self, name, plan, predictors, input_shapes, dtypes,
-                 priority=0):
+                 priority=0, source_json=None, quantize=None):
         self.name = name
+        #: the symbol as added, before any weight-only quantization
+        #: rewrote it, and that quantization's mode (None: none);
+        #: swap_params re-quantizes new params from both
+        self.source_json = source_json
+        self.quantize = quantize or None
         self.plan = plan
         self.buckets = plan.buckets
         self.priority = int(priority)
@@ -190,15 +233,19 @@ class ModelServer(object):
         if buckets is None and env_buckets:
             buckets = env_buckets
 
+        source_json = _symbol_text(symbol_json)
         first = None
         predictors = {}
 
         def bind(batch):
             shapes = {nm: (batch,) + shape
                       for nm, shape in input_shapes.items()}
-            src = first.symbol.tojson() if first is not None \
-                else symbol_json
-            return Predictor(src, params, shapes, ctx=ctx)
+            if first is None:
+                return Predictor(source_json, params, shapes, ctx=ctx)
+            # later buckets share the first's (possibly quantized) symbol
+            # and parameters: one program through the registry, and no
+            # float32 weight bound where a quantized one belongs
+            return first.reshape(shapes)
 
         if buckets is not None:
             plan_b = parse_buckets(buckets)
@@ -233,7 +280,8 @@ class ModelServer(object):
         dtypes = {nm: _np.dtype(dtypes[nm]) if dtypes and nm in dtypes
                   else _np.dtype("float32") for nm in input_shapes}
         entry = _ModelEntry(name, plan, predictors, input_shapes, dtypes,
-                            priority=priority)
+                            priority=priority, source_json=source_json,
+                            quantize=first._quantize)
         # warmup: one blocking forward per bucket before the first
         # request; after this, zero lowerings
         for b in plan.buckets:
@@ -312,24 +360,85 @@ class ModelServer(object):
                                         eos_id=eos_id)
         return future.result(timeout=timeout)
 
-    # -- warm elasticity (not ported) --------------------------------------
+    # -- warm elasticity ---------------------------------------------------
 
     def snapshot_hotstate(self, step=0):
-        """The JAX package's host offload of every served model for a
-        warm re-mesh.  Not ported: it comes with the serving fleet and
-        ``resilience.hotstate`` (``ROADMAP.md`` queue 1, item 1)."""
-        raise MXNetError(
-            "ModelServer.snapshot_hotstate is not ported yet: it comes "
-            "with the serving fleet and resilience.hotstate (ROADMAP.md "
-            "queue 1, item 1)")
+        """Host-offload every served model -- bound params AND the bind
+        config (symbol JSON, input shapes, buckets, priority, dtypes) --
+        into the warm-handoff area under the ``serve`` namespace
+        (``resilience.hotstate.snapshot``), so an elastic serving re-mesh
+        can rebuild this server without the original checkpoint files.
+        Generative entries are skipped (clients re-issue prompts)."""
+        from ..resilience import hotstate as _hotstate
+        tree, configs = {}, {}
+        for name, entry in self._entries.items():
+            if getattr(entry, "generative", False):
+                continue
+            first = entry.predictors[min(entry.buckets)]
+            params = {}
+            for k, v in first._arg_params.items():
+                params["arg:" + k] = _param_to_host(v)
+            for k, v in first._aux_params.items():
+                params["aux:" + k] = _param_to_host(v)
+            # bound inputs live in arg_dict, not _arg_params, so the
+            # payload holds exactly the learned state
+            tree[name] = params
+            configs[name] = {
+                "symbol_json": first.symbol.tojson(),
+                "source_json": entry.source_json,
+                "input_shapes": {nm: list(shape) for nm, shape
+                                 in entry.input_shapes.items()},
+                "buckets": [int(b) for b in entry.buckets],
+                "priority": entry.priority,
+                "compute_dtype": entry.plan.compute_dtype,
+                "dtypes": {nm: _np.dtype(dt).str for nm, dt
+                           in entry.dtypes.items()},
+                "quantize": entry.quantize,
+            }
+        return _hotstate.snapshot(tree, step=step, namespace="serve",
+                                  extra={"models": configs})
 
     def warm_resume_models(self, kv=None, ctx=None):
-        """The JAX package's rebuild of every model from the warm
-        hand-off area.  Not ported (see :meth:`snapshot_hotstate`)."""
-        raise MXNetError(
-            "ModelServer.warm_resume_models is not ported yet: it comes "
-            "with the serving fleet and resilience.hotstate (ROADMAP.md "
-            "queue 1, item 1)")
+        """Rebuild every model from the ``serve`` handoff area -- the
+        serving half of warm elasticity.  Params come back from host
+        memory and each bucket re-binds through the executor's program
+        registry, so a warm swap in a process that already served the
+        symbol performs **zero new lowerings**
+        (``stats()['models'][m]['lowerings_since_warmup']`` stays 0).
+        Raises :class:`~mxnet_tpu_torch.resilience.HotStateUnavailable`
+        when no complete payload survives -- the caller's cue to re-add
+        models from checkpoint files.  Returns the restored names."""
+        from ..resilience import elastic as _elastic
+        from ..resilience import hotstate as _hotstate
+        t0 = time.monotonic()
+        tree, step, meta = _hotstate.warm_resume(None, kv=kv,
+                                                 namespace="serve")
+        configs = (meta.get("extra") or {}).get("models") or {}
+        restored = []
+        for name in sorted(configs):
+            cfg = configs[name]
+            # host arrays: each Predictor places them on ``ctx``
+            self.add_model(
+                name, cfg["symbol_json"],
+                _requantized(tree.get(name) or {}, cfg.get("quantize")),
+                {nm: tuple(shape) for nm, shape
+                 in cfg["input_shapes"].items()},
+                buckets=cfg["buckets"], ctx=ctx,
+                priority=cfg.get("priority", 0),
+                compute_dtype=cfg.get("compute_dtype", "float32"),
+                dtypes=cfg.get("dtypes"))
+            # a quantized model re-binds from its quantized graph; its
+            # swaps start from the graph as it was first added, in the
+            # mode it was served in (not this process's MXTPU_QUANTIZE)
+            entry = self._entries[name]
+            entry.source_json = cfg.get("source_json") or cfg["symbol_json"]
+            entry.quantize = cfg.get("quantize") or None
+            restored.append(name)
+        _elastic.emit_transition(
+            "resume", step=step, tier="serve", path="warm",
+            models=restored, n_payloads=meta.get("n_payloads"),
+            duration_ms=round((time.monotonic() - t0) * 1000.0, 3))
+        return restored
 
     # -- live weight hot-swap ----------------------------------------------
 
@@ -370,14 +479,19 @@ class ModelServer(object):
         staged = {}
         for name in names:
             entry = self._entries[name]
-            old = entry.predictors[min(entry.buckets)]
-            symbol_json = old.symbol.tojson()
-            preds = {}
+            ctx = entry.predictors[min(entry.buckets)]._ctx
+            preds, first = {}, None
             for b in entry.buckets:
                 shapes = {nm: (b,) + shape
                           for nm, shape in entry.input_shapes.items()}
-                preds[b] = Predictor(symbol_json, params, shapes,
-                                     ctx=old._ctx)
+                if first is None:
+                    # the new params go through the model's own
+                    # quantization, from the symbol as it was added
+                    first = preds[b] = Predictor(
+                        entry.source_json, params, shapes, ctx=ctx,
+                        quantize=entry.quantize or "")
+                else:
+                    preds[b] = first.reshape(shapes)
             staged[name] = preds
         # the crash seam sits between build and install: an injected
         # swap_crash (or any real failure above) discards the staged

@@ -299,7 +299,9 @@ def test_server_add_checkpoint_swap_and_unported(toy_model, tmp_path,
                                                  monkeypatch):
     """add_checkpoint reads a save_checkpoint file pair; swap_params
     re-binds with zero lowerings, and an injected swap_crash leaves the
-    old version serving; the warm hand-off raises as not ported."""
+    old version serving; the warm hand-off (ported with the fleet) is
+    off until MXTPU_WARM_REMESH asks for it, then restores the swapped
+    weights."""
     net, params = toy_model
     prefix = str(tmp_path / "toy")
     sym_path, params_path = mx.serving.checkpoint_files(prefix, 3)
@@ -326,9 +328,17 @@ def test_server_add_checkpoint_swap_and_unported(toy_model, tmp_path,
                         ctx=mx.cpu()).forward(data=x)[0]
     np.testing.assert_allclose(after, want, rtol=1e-5, atol=1e-6)
     assert not np.allclose(after, before)
-    for call in (srv.snapshot_hotstate, srv.warm_resume_models):
-        with pytest.raises(MXNetError, match="not ported"):
-            call()
+    from mxnet_tpu_torch.resilience import HotStateUnavailable
+    monkeypatch.setenv("MXTPU_HANDOFF_DIR", str(tmp_path / "handoff"))
+    monkeypatch.delenv("MXTPU_WARM_REMESH", raising=False)
+    srv.snapshot_hotstate(step=3)
+    with pytest.raises(HotStateUnavailable, match="disabled"):
+        ModelServer().warm_resume_models(ctx=mx.cpu())
+    monkeypatch.setenv("MXTPU_WARM_REMESH", "1")
+    warm = ModelServer(max_delay_ms=2)
+    assert warm.warm_resume_models(ctx=mx.cpu()) == ["toy"]
+    np.testing.assert_array_equal(warm.predict("toy", x)[0], after)
+    warm.close()
     srv.close()
 
 
