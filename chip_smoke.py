@@ -142,6 +142,30 @@ line:
    route runs the sweep, as in the JAX package), a checkpoint that
    round-trips bit for bit, and the fused step (``kvstore=None``) within
    1e-5 of the store's route after 2 steps; images/s.
+11. the image feed: 64 x 12 raw-pixel records of 3 x 224 x 224 uint8
+   (seeded, labels i % 1000, 115.6 MB) written under ``build/`` with the
+   port's ``recordio``; ``io.ImageRecordIter`` alone (4 decode threads
+   of the native engine, ``lib/libmxtpu.so`` built from ``src/`` by
+   ``make``, which must succeed; prefetch 3), uint8 and float32 with
+   mean and scale, images/s after a warm epoch, its first batch bitwise
+   a numpy read of the records; 256 JPEG records of 256 x 256 decoded
+   with ``rand_crop`` and ``rand_mirror`` to 224 at 1, 4 and
+   ``os.cpu_count()`` threads (the native libjpeg route where ``make``
+   linked libjpeg, else the Python route, said so), 1 and 4 threads
+   bitwise equal; ResNet-50 (phase 9's configuration) through
+   ``ShardedTrainer.prefetch_feed`` over the uint8 records, float32 and
+   bfloat16, 12 steps (one epoch), steps 3-12 timed with one
+   synchronize, beside phase 9's device-resident rate, with the
+   consumer's ``data_wait`` share and the sweep once a bucket a step;
+   under deterministic cuDNN 3 steps with prefetch on equal to off bit
+   for bit, the first batch on the card the host's uint8 batch and its
+   widening bitwise the float32 iterator's output, every tensor on
+   ``cuda:0``; then ``example/image-classification-torch/
+   train_imagenet.py`` (``Module.fit`` with ``MXTPU_PREFETCH=1``,
+   ``--data-dtype uint8``, batch 64, one epoch) on the records:
+   images/s over batches 2-12 beside phase 10's, on ``cuda:0``, no hand
+   kernel launched, and 2 batches with prefetch on equal to off bit for
+   bit under deterministic cuDNN.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -2733,6 +2757,545 @@ def phase_module(torch, seed, smi):
 
 
 # ----------------------------------------------------------------------
+# phase 11: the image feed
+# ----------------------------------------------------------------------
+#: phase 11's records: 64 x 12 raw-pixel images of 3 x 224 x 224 uint8
+#: (115.6 MB), labels i % 1000, written as bench.py:837-845 writes them
+FEED_BATCHES = 12
+FEED_THREADS = 4
+FEED_PREFETCH = 3
+#: ShardedTrainer steps over one epoch of the records; steps 3-12 timed
+FEED_STEPS = 12
+FEED_TIMED_FROM = 2
+#: the gates' steps (prefetch on == off) and Module.fit's gate batches
+FEED_GATE_STEPS = 3
+FIT_GATE_BATCHES = 2
+#: phase 11's JPEG records: 256 images of 256 x 256, cropped to 224
+JPEG_RECORDS = 256
+JPEG_SIZE = 256
+#: ImageNet's per-channel mean and a scale for the float32 feed
+FEED_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
+FEED_SCALE = 1.0 / 58.4
+
+
+def feed_dir(*parts):
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_feed", *parts)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def write_raw_records(path, n, seed):
+    """``n`` raw-pixel records (``im2rec --pack-raw``'s layout), each its
+    own seeded 3 x 224 x 224 uint8 image, label ``i % 1000``, with the
+    port's recordio."""
+    from mxnet_tpu_torch import recordio as rio
+    rng = np.random.RandomState(seed)
+    w = rio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = rng.randint(0, 256, RESNET["image_shape"], np.uint8)
+        w.write(rio.pack(rio.IRHeader(0, float(i % 1000), i, 0),
+                         img.tobytes()))
+    w.close()
+
+
+_MAGIC = 0xced7230a
+
+
+def numpy_read_records(path, n):
+    """The first ``n`` records of a raw-pixel file read with numpy and
+    struct alone (no module of the port): the dmlc framing (continuation
+    parts joined by the magic), the 24-byte image-record header, CHW
+    uint8 pixels.  Returns (images, labels)."""
+    import struct
+    imgs, labels = [], []
+    with open(path, "rb") as f:
+        while len(imgs) < n:
+            parts = []
+            while True:
+                magic, lrec = struct.unpack("<II", f.read(8))
+                if magic != _MAGIC:
+                    raise AssertionError("bad RecordIO magic in %s" % path)
+                length = lrec & ((1 << 29) - 1)
+                parts.append(f.read(length))
+                f.read((4 - (length & 3)) & 3)
+                if lrec >> 29 in (0, 3):
+                    break
+            rec = struct.pack("<I", _MAGIC).join(parts)
+            flag, label = struct.unpack("<If", rec[:8])
+            if flag:
+                raise AssertionError("a raw record with a label array")
+            imgs.append(np.frombuffer(rec[24:], np.uint8)
+                        .reshape(RESNET["image_shape"]))
+            labels.append(label)
+    return np.stack(imgs), np.asarray(labels, np.float32)
+
+
+def record_iter(path, **kw):
+    import mxnet_tpu_torch as mx
+    args = dict(path_imgrec=path, data_shape=RESNET["image_shape"],
+                batch_size=RESNET_BATCH, preprocess_threads=FEED_THREADS,
+                prefetch_buffer=FEED_PREFETCH)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def time_feed(it):
+    """Images/s of one epoch of ``it`` after a warm epoch (host clock)."""
+    for _ in it:
+        pass
+    it.reset()
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        n += RESNET_BATCH - (b.pad or 0)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_feed_alone(torch, path, seed):
+    """The feed without the card: the first uint8 batch against a numpy
+    read of the records; uint8 and float32 (mean, scale) images/s."""
+    from mxnet_tpu_torch import libinfo
+    lib = libinfo.find_lib()
+    if lib is None:
+        raise AssertionError("lib/libmxtpu.so did not build from src/ "
+                             "(make, g++): the native reader and the "
+                             "decode pool are the feed's")
+    want_x, want_y = numpy_read_records(path, RESNET_BATCH)
+    it = record_iter(path, dtype="uint8")
+    b = next(it)
+    if not (np.array_equal(b.data[0].asnumpy(), want_x)
+            and np.array_equal(b.label[0].asnumpy(), want_y)):
+        raise AssertionError("the first uint8 batch differs from a numpy "
+                             "read of the same records")
+    it.reset()
+    u8 = time_feed(it)
+    routes = dict(it.decode_routes)
+    f32 = time_feed(record_iter(path, scale=FEED_SCALE, **FEED_MEAN))
+    info = {"uint8_images_per_s": u8, "float32_images_per_s": f32,
+            "cpu_count": os.cpu_count(), "threads": FEED_THREADS,
+            "prefetch_buffer": FEED_PREFETCH, "reader": "native "
+            "(lib/libmxtpu.so)", "decode_routes": routes,
+            "engine": type(it._engine).__name__}
+    log("feed alone: %d records of %s uint8 (%.1f MB), %s reader, %s "
+        "decode pool of %d threads, routes %s, os.cpu_count() %d: uint8 "
+        "%.1f images/s, float32 (mean, scale) %.1f images/s; first batch "
+        "bitwise a numpy read of the records"
+        % (RESNET_BATCH * FEED_BATCHES, "x".join(map(str,
+                                                     RESNET["image_shape"])),
+           os.path.getsize(path) / 1e6, info["reader"], info["engine"],
+           FEED_THREADS, routes, os.cpu_count(), u8, f32))
+    return info
+
+
+def _jpeg_encoder():
+    """The name of the encoder the port's ``image.imencode`` uses, or
+    None."""
+    from mxnet_tpu_torch import image
+    if image._cv2 is not None:
+        return "cv2"
+    if image._PILImage is not None:
+        return "PIL"
+    return None
+
+
+def _native_jpeg(lib, enc):
+    """Does the library decode JPEG (the Makefile links libjpeg only where
+    jpeglib.h is found; otherwise MXTPUDecodeAugment is a stub)?"""
+    import ctypes
+    out = np.empty((3, 8, 8), np.uint8)
+    return lib.MXTPUDecodeAugment(
+        enc, len(enc), 3, 8, 8, 0, 0, 1.0, 1.0, 0, None,
+        out.ctypes.data_as(ctypes.c_void_p), None, 1.0) == 0
+
+
+def phase_feed_jpeg(torch, seed):
+    """JPEG records decoded with rand_crop and rand_mirror to 224: images/s
+    at 1, 4 and os.cpu_count() threads; 1 and 4 threads bitwise equal."""
+    from mxnet_tpu_torch import image, libinfo
+    from mxnet_tpu_torch import recordio as rio
+    enc_name = _jpeg_encoder()
+    if enc_name is None:
+        log("feed JPEG: not run: no JPEG encoder is installed (neither cv2 "
+            "nor PIL)")
+        return {"skipped": "no encoder (cv2, PIL)"}
+    native = _native_jpeg(libinfo.find_lib(),
+                          image.imencode(np.zeros((8, 8, 3), np.uint8)))
+    if not native:
+        log("feed JPEG: lib/libmxtpu.so has no libjpeg decoder (make found "
+            "no jpeglib.h and built its stub), so "
+            "the records go through the Python route (%s decode + "
+            "image.augment), timed below" % enc_name)
+    path = os.path.join(feed_dir(), "jpeg.rec")
+    rng = np.random.RandomState(seed + 11)
+    w = rio.MXRecordIO(path, "w")
+    cells = JPEG_SIZE // 8
+    for i in range(JPEG_RECORDS):
+        base = rng.randint(0, 256, (cells, cells, 3)).astype(np.float32)
+        img = np.repeat(np.repeat(base, 8, 0), 8, 1) \
+            + rng.randn(JPEG_SIZE, JPEG_SIZE, 3) * 8
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        w.write(rio.pack(rio.IRHeader(0, float(i % 1000), i, 0),
+                         image.imencode(img, quality=90)))
+    w.close()
+    kw = dict(dtype="uint8", rand_crop=True, rand_mirror=True, seed=seed)
+    rates, epochs = {}, {}
+    for threads in sorted({1, 4, os.cpu_count() or 1}):
+        it = record_iter(path, preprocess_threads=threads, **kw)
+        epochs[threads] = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                           for b in it]
+        it.reset()
+        rates[threads] = time_feed(it)
+        route = {k: v for k, v in it.decode_routes.items() if v}
+    for (a, la), (b, lb) in zip(epochs[1], epochs[4]):
+        if not (np.array_equal(a, b) and np.array_equal(la, lb)):
+            raise AssertionError("JPEG batches at 1 and 4 decode threads "
+                                 "differ")
+    if len(epochs[1]) != len(epochs[4]):
+        raise AssertionError("JPEG epochs at 1 and 4 threads differ in "
+                             "length")
+    info = {"route": "native" if native else "python (%s)" % enc_name,
+            "decode_routes": route, "encoder": enc_name,
+            "images_per_s_by_threads": rates, "records": JPEG_RECORDS,
+            "size": JPEG_SIZE, "mb": os.path.getsize(path) / 1e6}
+    log("feed JPEG: %d records of %dx%d (%.1f MB, encoded by %s), decoded "
+        "by the %s route with rand_crop and rand_mirror to 224: %s "
+        "images/s by decode threads; 1 and 4 threads bitwise equal"
+        % (JPEG_RECORDS, JPEG_SIZE, JPEG_SIZE, info["mb"], enc_name,
+           info["route"], ", ".join("%d: %.1f" % kv
+                                    for kv in sorted(rates.items()))))
+    return info
+
+
+def run_feed(torch, path, params, aux, steps, prefetch, compute_dtype=None,
+             timed_from=None):
+    """``steps`` ShardedTrainer steps of ResNet-50 over the records'
+    uint8 batches, through ``prefetch_feed`` (or, with ``prefetch``
+    False, ``shard_batch`` on the loop); launch counts cover exactly
+    these steps.  Returns the parameters, aux and states after them, the
+    first batch as placed, and a dict of counts, times and devices."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.model import params_from_numpy
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / RESNET_BATCH,
+                              **RESNET_SGD)
+    tr = mx.parallel.ShardedTrainer(resnet_symbol(), opt,
+                                    ctx=torch.device(DEVICE),
+                                    compute_dtype=compute_dtype)
+    p, a = params_from_numpy(params, aux, ctx=torch.device(DEVICE))
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    st = {n: s for n, s in st.items() if s is not None}
+    it = record_iter(path, dtype="uint8")
+    host = ({"data": b.data[0], "softmax_label": b.label[0]} for b in it)
+    torch.cuda.synchronize()
+    reset_counts()
+    if prefetch:
+        feed = tr.prefetch_feed(host, prefetch=True)
+    else:
+        feed = (tr.shard_batch(b) for b in host)
+    first, wait, t0 = None, 0.0, None
+    for step in range(steps):
+        tw = time.perf_counter()
+        batch = next(feed)
+        if t0 is not None:
+            wait += time.perf_counter() - tw
+        if first is None:
+            first = {k: v.clone() for k, v in batch.items()}
+            first["widened"] = tr._batch_to_compute(batch, p)["data"]
+        p, st, a, _o = tr.step(p, st, a, batch)
+        if timed_from is not None and step + 1 == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 if t0 is not None else None
+    if prefetch:
+        feed.close()
+    info = {"compute_dtype": str(compute_dtype or "float32"),
+            "prefetch": prefetch, "steps": steps,
+            "launches": read_counts(), "optimizer": "sgd",
+            "buckets": len(fo.plan_buckets({n: p[n]
+                                            for n in tr.param_names})),
+            "devices": sorted({str(v.device) for d in (p, a, first)
+                               for v in d.values()}
+                              | {str(v.device) for s in st.values()
+                                 for v in (s if isinstance(s, tuple)
+                                           else (s,))})}
+    if wall is not None:
+        n = steps - timed_from
+        info.update(images_per_s=n * RESNET_BATCH / wall,
+                    step_ms=wall / n * 1e3, timed_steps=n,
+                    data_wait_ms=wait * 1e3, data_wait_share=wait / wall)
+    s_out = {"%s/%d" % (n, i): v.clone() for n, s in st.items()
+             for i, v in enumerate(s if isinstance(s, tuple) else (s,))}
+    return ({n: w.clone() for n, w in p.items()},
+            {n: v.clone() for n, v in a.items()}, s_out, first, info)
+
+
+def run_beside_feed(torch, path, params, aux, compute_dtype, steps=10):
+    """Images/s of the device-resident step (one batch placed once, as
+    phase 9 trains) alone, then while an ``ImageRecordIter`` decodes
+    epochs of the records on its threads and its batches are dropped:
+    what the feed's host work costs the step when nothing waits for
+    data.  Returns (alone, beside)."""
+    import threading
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.model import params_from_numpy
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / RESNET_BATCH,
+                              **RESNET_SGD)
+    tr = mx.parallel.ShardedTrainer(resnet_symbol(), opt,
+                                    ctx=torch.device(DEVICE),
+                                    compute_dtype=compute_dtype)
+    p, a = params_from_numpy(params, aux, ctx=torch.device(DEVICE))
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    st = {n: s for n, s in st.items() if s is not None}
+    x, y = numpy_read_records(path, RESNET_BATCH)
+    b = tr.shard_batch({"data": x, "softmax_label": y})
+    stop = threading.Event()
+
+    def drain():
+        it = record_iter(path, dtype="uint8")
+        while not stop.is_set():
+            for _ in it:
+                if stop.is_set():
+                    break
+            it.reset()
+    rates = []
+    for beside in (False, True):
+        thread = threading.Thread(target=drain, daemon=True) if beside \
+            else None
+        if thread is not None:
+            thread.start()
+        for _ in range(2):
+            p, st, a, _o = tr.step(p, st, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            p, st, a, _o = tr.step(p, st, a, b)
+        torch.cuda.synchronize()
+        rates.append(steps * RESNET_BATCH / (time.perf_counter() - t0))
+        if thread is not None:
+            stop.set()
+            thread.join(timeout=60)
+    return tuple(rates)
+
+
+def _want_cuda0(torch, what, devices):
+    want = "cuda:0" if DEVICE == "cuda" else DEVICE
+    if devices != [want]:
+        raise AssertionError("%s: tensors on %s, not %s"
+                             % (what, devices, want))
+
+
+def phase_feed_trainer(torch, path, seed, smi, yardstick):
+    """ResNet-50 through ShardedTrainer fed by prefetch_feed over the
+    records, float32 and bfloat16 (cuDNN's defaults), beside phase 9's
+    device-resident rate; then, under deterministic cuDNN, prefetch on ==
+    off bitwise and the first batch widened bitwise."""
+    params, aux, _ = seeded_resnet(seed, RESNET_BATCH)
+    runs = {}
+    for cdt in (None, "bfloat16"):
+        _p, _a, _s, _f, info = run_feed(torch, path, params, aux,
+                                        FEED_STEPS, True, cdt,
+                                        timed_from=FEED_TIMED_FROM)
+        del _p, _a, _s, _f
+        _want_sweep_only(info, 1)
+        _want_cuda0(torch, "feed %s" % info["compute_dtype"],
+                    info["devices"])
+        runs[info["compute_dtype"]] = info
+        ys = yardstick[info["compute_dtype"]]
+        log("feed trainer %s: ResNet-50 batch %d from the records, steps "
+            "%d-%d: %.3f ms/step, %.1f images/s against phase 9's "
+            "device-resident %.1f (%.1f%%); data_wait %.2f ms of %.1f "
+            "(%.2f%% of the steps' wall); sweep launches %s in %d steps "
+            "(%d buckets); on %s"
+            % (info["compute_dtype"], RESNET_BATCH, FEED_TIMED_FROM + 1,
+               FEED_STEPS, info["step_ms"], info["images_per_s"], ys,
+               100.0 * info["images_per_s"] / ys, info["data_wait_ms"],
+               info["step_ms"] * info["timed_steps"],
+               100.0 * info["data_wait_share"],
+               info["launches"]["fused_opt_by_body"], FEED_STEPS,
+               info["buckets"], smi))
+        alone, beside = run_beside_feed(torch, path, params, aux, cdt)
+        info.update(resident_images_per_s=alone,
+                    resident_beside_feed_images_per_s=beside)
+        log("feed trainer %s: the device-resident step %.1f images/s "
+            "alone, %.1f (%.1f%%) while the feed decodes beside it and its "
+            "batches are dropped"
+            % (info["compute_dtype"], alone, beside, 100.0 * beside / alone))
+    with cudnn_deterministic(torch):
+        got = {}
+        for prefetch in (True, False):
+            got[prefetch] = run_feed(torch, path, params, aux,
+                                     FEED_GATE_STEPS, prefetch)
+        on, off = got[True], got[False]
+        _want_sweep_only(on[4], 1)
+        diff = [n for i in range(3) for n in on[i]
+                if not torch.equal(on[i][n], off[i][n])]
+        if diff:
+            raise AssertionError("feed: %d steps with prefetch on and off "
+                                 "differ in %s" % (FEED_GATE_STEPS, diff[:5]))
+        want_x, want_y = numpy_read_records(path, RESNET_BATCH)
+        first = on[3]
+        host_f32 = next(record_iter(path)).data[0].asnumpy()
+        if not (np.array_equal(first["data"].cpu().numpy(), want_x)
+                and np.array_equal(first["softmax_label"].cpu().numpy(),
+                                   want_y)
+                and first["data"].dtype == torch.uint8
+                and np.array_equal(host_f32, want_x.astype(np.float32))
+                and first["widened"].dtype == torch.float32
+                and torch.equal(first["widened"].cpu(),
+                                torch.from_numpy(host_f32))):
+            raise AssertionError("feed: the first batch on the card is not "
+                                 "the host batch (uint8), widened bitwise "
+                                 "to the float32 iterator's output")
+        _want_cuda0(torch, "feed gate", on[4]["devices"])
+        gate = on[4]
+        del got, on, off
+    log("feed trainer gates (deterministic cuDNN): %d steps with prefetch "
+        "on == off bitwise (parameters, aux, states); the first batch on "
+        "the card is the host's uint8 batch, its widening bitwise the "
+        "float32 iterator's output; every tensor on %s"
+        % (FEED_GATE_STEPS, gate["devices"][0]))
+    torch.cuda.empty_cache()
+    return {"float32": runs["float32"], "bfloat16": runs["bfloat16"],
+            "gate": gate}
+
+
+def _subset_records(src, dst, n):
+    from mxnet_tpu_torch import recordio as rio
+    r, w = rio.MXRecordIO(src, "r"), rio.MXRecordIO(dst, "w")
+    for _ in range(n):
+        w.write(r.read())
+    w.close()
+    r.close()
+
+
+def run_train_imagenet(torch, seed, data_dir, prefix, prefetch):
+    """The port's ``example/image-classification-torch/train_imagenet.py``
+    on the records (``--data-dtype uint8 --batch-size 64``, one epoch,
+    ``MXTPU_PREFETCH`` on or off), in this process; its Speedometer is
+    wrapped to note each batch's end and the module.  Returns (module,
+    batch end times)."""
+    import runpy
+    import mxnet_tpu_torch as mx
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "example", "image-classification-torch",
+                          "train_imagenet.py")
+    ends, mods = [], []
+    speedometer = mx.callback.Speedometer
+
+    class Clock(speedometer):
+        def __call__(self, param):
+            ends.append(time.perf_counter())
+            mods.append(param.locals["self"])
+            super().__call__(param)
+    argv, path = sys.argv, list(sys.path)
+    env = os.environ.get("MXTPU_PREFETCH")
+    os.environ["MXTPU_PREFETCH"] = "1" if prefetch else "0"
+    sys.argv = [script, "--data-dir", data_dir, "--data-dtype", "uint8",
+                "--batch-size", str(RESNET_BATCH), "--num-epochs", "1",
+                "--data-nthreads", str(FEED_THREADS),
+                "--model-prefix", prefix]
+    sys.path.insert(0, os.path.dirname(script))
+    sys.modules.pop("common", None)
+    mx.callback.Speedometer = Clock
+    mx.random.seed(seed)
+    try:
+        runpy.run_path(script, run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        mx.callback.Speedometer = speedometer
+        sys.argv, sys.path[:] = argv, path
+        sys.modules.pop("common", None)
+        if env is None:
+            os.environ.pop("MXTPU_PREFETCH", None)
+        else:
+            os.environ["MXTPU_PREFETCH"] = env
+    return mods[-1], ends
+
+
+def phase_feed_module(torch, path, seed, smi, yardstick):
+    """Module.fit(prefetch=True) through the port's train_imagenet.py on
+    the records (cuDNN's defaults), beside phase 10's rate; then, under
+    deterministic cuDNN, 2 batches with prefetch on == off bitwise."""
+    from mxnet_tpu_torch import model as model_mod
+    ckpt = os.path.join(feed_dir("ckpt"), "resnet50")
+    reset_counts()
+    mod, ends = run_train_imagenet(torch, seed, os.path.dirname(path),
+                                   ckpt, True)
+    counts = read_counts()
+    ex = mod._exec_group.execs[0]
+    want_dev = torch.device("cuda", 0) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    arg, _aux = mod.get_params()
+    if ex._device != want_dev or any(v.data.device != want_dev
+                                     for v in arg.values()):
+        raise AssertionError("train_imagenet.py ran on %s, not %s"
+                             % (ex._device, want_dev))
+    if len(ends) != FEED_BATCHES:
+        raise AssertionError("train_imagenet.py ran %d batches, not %d"
+                             % (len(ends), FEED_BATCHES))
+    if any(counts[k] for k in counts if k != "fused_opt_by_body") \
+            or counts["fused_opt_by_body"]:
+        raise AssertionError("Module.fit launched hand kernels %s: neither "
+                             "of its update routes runs the sweep" % counts)
+    ips = (len(ends) - 1) * RESNET_BATCH / (ends[-1] - ends[0])
+    gate_dir = feed_dir("gate")
+    _subset_records(path, os.path.join(gate_dir, "train.rec"),
+                    FIT_GATE_BATCHES * RESNET_BATCH)
+    params = {}
+    with cudnn_deterministic(torch):
+        for prefetch in (True, False):
+            prefix = os.path.join(gate_dir, "p%d" % prefetch)
+            run_train_imagenet(torch, seed, gate_dir, prefix, prefetch)
+            _s, a, x = model_mod.load_checkpoint(prefix, 1)
+            params[prefetch] = dict(a, **{"aux:" + k: v
+                                          for k, v in x.items()})
+    diff = [n for n in params[True] if not torch.equal(
+        params[True][n].data.cpu(), params[False][n].data.cpu())]
+    if diff or set(params[True]) != set(params[False]):
+        raise AssertionError("train_imagenet.py: %d batches with prefetch "
+                             "on and off differ in %s"
+                             % (FIT_GATE_BATCHES, diff[:5]))
+    info = {"images_per_s": ips, "batches": len(ends),
+            "batch": RESNET_BATCH, "device": str(ex._device),
+            "launches": counts, "prefetch": True,
+            "update_on_kvstore": bool(mod._update_on_kvstore)}
+    log("feed module: train_imagenet.py (Module.fit, MXTPU_PREFETCH=1, "
+        "--data-dtype uint8) on %s, %d batches of %d from the records: "
+        "%.1f images/s (batches 2-%d) against phase 10's %.1f from host "
+        "arrays made beforehand; no hand kernel launched; %d batches with "
+        "prefetch on == off bitwise (deterministic cuDNN); on %s"
+        % (ex._device, len(ends), RESNET_BATCH, ips, len(ends), yardstick,
+           FIT_GATE_BATCHES, smi))
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_feed(torch, seed, smi, resnet, module):
+    """Phase 11: the records written, the feed alone, JPEG, then the two
+    training routes on the records."""
+    t0 = time.perf_counter()
+    path = os.path.join(feed_dir("imagenet"), "train.rec")
+    write_raw_records(path, RESNET_BATCH * FEED_BATCHES, seed + 23)
+    write_s = time.perf_counter() - t0
+    log("feed records: %s, %.1f MB in %.2f s"
+        % (os.path.relpath(path), os.path.getsize(path) / 1e6, write_s))
+    alone = phase_feed_alone(torch, path, seed)
+    jpeg = phase_feed_jpeg(torch, seed)
+    trainer = phase_feed_trainer(
+        torch, path, seed, smi,
+        {d: resnet[d]["images_per_s"] for d in ("float32", "bfloat16")})
+    fit = phase_feed_module(torch, path, seed, smi, module["images_per_s"])
+    return {"alone": alone, "jpeg": jpeg, "trainer": trainer,
+            "module": fit, "write_s": write_s}
+
+
+# ----------------------------------------------------------------------
 # phase 8: the imperative NDArray surface and runtime-compiled kernels
 # ----------------------------------------------------------------------
 #: phase 8's arrays, and the element count its elementwise kernels are
@@ -3122,6 +3685,7 @@ def main(argv=None):
         rtc_res = run("8 rtc", phase_rtc_kernels, torch, timer, args.seed)
         resnet = run("9", phase_resnet, torch, args.seed, smi)
         module = run("10", phase_module, torch, args.seed, smi)
+        feed = run("11", phase_feed, torch, args.seed, smi, resnet, module)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -3156,14 +3720,23 @@ def main(argv=None):
     resnet_main = sum(resnet[d]["launches"]["fused_opt"]
                       for d in ("float32", "bfloat16"))
     launches["fused_opt"] += resnet_main
+    # the image feed (phase 11): ShardedTrainer over prefetch_feed, float32
+    # and bfloat16, is a main path; its prefetch on/off gate is apart
+    feed_main = sum(feed["trainer"][d]["launches"]["fused_opt"]
+                    for d in ("float32", "bfloat16"))
+    launches["fused_opt"] += feed_main
     resnet_other = {"resnet50_gate_" + n: g["launches"]
                     for n, g in resnet["gates"].items()}
     resnet_other["resnet50_witness_batch8"] = resnet["witness"]["launches"]
+    resnet_other["resnet50_image_feed_gate"] = \
+        feed["trainer"]["gate"]["launches"]
     transformer_sweeps = train["float32"]["launches"]["fused_opt"] \
         + train["bfloat16"]["launches"]["fused_opt"]
     # by body, over every path in launches_by_path
     sweep_by_body = {1: transformer_sweeps}
     for c in [resnet[d]["launches"] for d in ("float32", "bfloat16")] \
+            + [feed["trainer"][d]["launches"]
+               for d in ("float32", "bfloat16")] \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -3216,7 +3789,8 @@ def main(argv=None):
                 for r in fo_rows if r["n"] == SWEEP_N}
             k["launches_by_path"] = dict(
                 {"transformer_training": transformer_sweeps,
-                 "resnet50_training": resnet_main},
+                 "resnet50_training": resnet_main,
+                 "resnet50_image_feed": feed_main},
                 **{p: c["fused_opt"] for p, c in resnet_other.items()})
         elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
@@ -3269,7 +3843,7 @@ def main(argv=None):
                        "engine": eng, "serve": serve, "fleet": fleet,
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
-                       "resnet": resnet, "module": module,
+                       "resnet": resnet, "module": module, "feed": feed,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -2,7 +2,7 @@
 
 A second package beside ``mxnet_tpu`` (the JAX reference), with the same
 module names and layout, running on an NVIDIA GPU.  It imports ``torch``
-and never ``jax`` or ``mxnet_tpu``.  Five slices are ported:
+and never ``jax`` or ``mxnet_tpu``.  These slices are ported:
 
 - greedy generation of the transformer LM: ``Symbol -> Predictor ->
   Executor`` and ``serving.GenerationEngine`` over a paged KV cache,
@@ -23,7 +23,14 @@ and never ``jax`` or ``mxnet_tpu``.  Five slices are ported:
   and ``lr_scheduler``, through ``parallel.ShardedTrainer`` (the fused
   sweep has a CUDA body for every elementwise optimizer) and through
   ``mod.Module.fit`` (``io.NDArrayIter``, ``metric``, ``callback``,
-  ``kvstore.create("local")``, ``model``'s checkpoints).
+  ``kvstore.create("local")``, ``model``'s checkpoints);
+- the image feed: ``recordio`` (files byte for byte the JAX package's),
+  ``io.ImageRecordIter`` over the native decode pool (``engine``,
+  ``lib/libmxtpu.so`` built from ``src/`` at first use), ``image``,
+  ``nd.imdecode``, ``MNISTIter``/``CSVIter``/``ResizeIter``/
+  ``PrefetchingIter``, and ``parallel.overlap.DevicePrefetcher`` (pinned
+  host buffers copied on a stream of its own), which feeds
+  ``ShardedTrainer.prefetch_feed`` and ``Module.fit(prefetch=True)``.
 
 The kernels (``csrc/``) are built with ``nvcc`` at first use.
 
@@ -50,5 +57,6 @@ from . import initializer as init                 # noqa: F401
 from . import rtc                                 # noqa: F401
 from . import lr_scheduler, metric, callback      # noqa: F401
 from . import io, kvstore, model                  # noqa: F401
+from . import engine, image, recordio             # noqa: F401
 from . import module                              # noqa: F401
 from . import module as mod                       # noqa: F401

@@ -3,9 +3,12 @@
 The port of ``mxnet_tpu/module/base_module.py`` (the reference's
 ``python/mxnet/module/base_module.py``): ``fit`` (:273), ``score``,
 ``predict``/``iter_predict``, ``save_params``/``load_params``.  ``fit``
-runs the JAX package's loop without its async device feed
-(``prefetch``), numeric sentinel, Monitor and step telemetry, which
-belong to later slices (``prefetch=True`` and ``monitor`` raise).
+runs the JAX package's loop, with its async device feed
+(``prefetch=True`` or ``MXTPU_PREFETCH``: a
+``parallel.overlap.DevicePrefetcher`` that also places each batch on
+the module's device from pinned buffers), and without its numeric
+sentinel, Monitor and step telemetry, which belong to later slices
+(``monitor`` raises).
 """
 from __future__ import annotations
 
@@ -236,12 +239,13 @@ class BaseModule(object):
         init_params (default ``Uniform(0.01)``), init_optimizer, then per
         batch ``forward_backward``, ``update``, ``update_metric`` and the
         batch callbacks; per epoch the log lines, ``epoch_end_callback``
-        with the parameters, and ``score`` on ``eval_data``."""
+        with the parameters, and ``score`` on ``eval_data``.
+
+        ``prefetch``: True/False forces the async device feed on/off;
+        None defers to ``MXTPU_PREFETCH``.  Batch order and losses are
+        identical either way — only the wait moves off the loop."""
         if num_epoch is None:
             raise MXNetError("please specify number of epochs")
-        if prefetch:
-            raise MXNetError("fit(prefetch=True): the async device feed is "
-                             "not ported yet")
         if monitor is not None:
             raise MXNetError("fit(monitor=...): the Monitor is not ported "
                              "yet")
@@ -249,6 +253,51 @@ class BaseModule(object):
             from ..initializer import Uniform
             initializer = Uniform(0.01)
 
+        from ..parallel.overlap import prefetch_enabled
+        own_prefetch = None
+        if prefetch_enabled(prefetch):
+            train_data = own_prefetch = self._device_feed(train_data)
+        try:
+            self._fit(train_data, eval_data, eval_metric, epoch_end_callback,
+                      batch_end_callback, kvstore, optimizer,
+                      optimizer_params, eval_end_callback,
+                      eval_batch_end_callback, initializer, arg_params,
+                      aux_params, allow_missing, force_rebind, force_init,
+                      begin_epoch, num_epoch, validation_metric)
+        finally:
+            if own_prefetch is not None:
+                own_prefetch.close()
+
+    def _device_feed(self, train_data):
+        """``train_data`` behind a DevicePrefetcher; with one context
+        (a ``Module``), each batch's arrays are placed on its device by
+        the prefetcher's thread."""
+        from ..context import resolve
+        from ..io import DataBatch
+        from ..ndarray import NDArray
+        from ..parallel.overlap import (DevicePrefetcher, HostToDevice,
+                                        prefetch_depth)
+        contexts = getattr(self, "_context", None) or []
+        if len(contexts) != 1:
+            return DevicePrefetcher(train_data, name="fit-feed")
+        copy = HostToDevice(resolve(contexts[0]), prefetch_depth() + 2)
+
+        def place(batch):
+            return DataBatch([NDArray(copy(d)) for d in batch.data],
+                             [NDArray(copy(lab)) for lab in batch.label or []],
+                             pad=batch.pad, index=batch.index,
+                             provide_data=batch.provide_data,
+                             provide_label=batch.provide_label)
+        return DevicePrefetcher(train_data, place_fn=place, name="fit-feed",
+                                stream=copy.stream)
+
+    def _fit(self, train_data, eval_data, eval_metric, epoch_end_callback,
+             batch_end_callback, kvstore, optimizer, optimizer_params,
+             eval_end_callback, eval_batch_end_callback, initializer,
+             arg_params, aux_params, allow_missing, force_rebind, force_init,
+             begin_epoch, num_epoch, validation_metric):
+        """The body of :meth:`fit` (split out so the async feed is closed
+        in exactly one ``finally``)."""
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

@@ -27,7 +27,8 @@ The port of ``mxnet_tpu/ndarray.py`` (the reference's
   ``mxnet_tpu/ndarray.py:683-771``): a file saved by either package
   loads in the other.
 
-``imdecode`` needs the native image decoder and comes with the IO slice.
+:func:`imdecode` decodes an encoded image with PIL, as the JAX package's
+does (``mxnet_tpu/ndarray.py:661-679``).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ __all__ = [
     "norm", "transpose", "swapaxes", "expand_dims", "flip", "crop",
     "slice_axis", "broadcast_to", "broadcast_axis", "smooth_l1",
     "softmax_cross_entropy", "onehot_encode", "choose_element_0index",
-    "fill_element_0index", "elementwise_sum", "add_n",
+    "fill_element_0index", "elementwise_sum", "add_n", "imdecode",
 ]
 
 #: the reference's default real type (``mx_real_t``)
@@ -698,6 +699,31 @@ def elementwise_sum(arrays, out=None):
 
 
 add_n = elementwise_sum
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """Decode an encoded image into a (1, 3, H, W) float32 array on the
+    current context (parity: the reference's ``_imdecode``; as in the JAX
+    package it needs PIL, and ``index`` and ``channels`` are unused).
+    ``mean`` (an NDArray) is subtracted before ``clip_rect`` (x0, y0, x1,
+    y1) crops; ``out`` receives the result in place."""
+    import io as _io
+    try:
+        from PIL import Image
+        img = _np.asarray(Image.open(_io.BytesIO(str_img)).convert("RGB"))
+    except ImportError:
+        raise MXNetError("imdecode requires PIL (not available)")
+    img = img.transpose(2, 0, 1).astype(_np.float32)  # HWC -> CHW
+    if mean is not None:
+        img = img - mean.asnumpy()
+    if tuple(clip_rect) != (0, 0, 0, 0):
+        x0, y0, x1, y1 = clip_rect
+        img = img[:, y0:y1, x0:x1]
+    if out is not None:
+        out._set_data(img[None])
+        return out
+    return array(img[None])
 
 
 # ----------------------------------------------------------------------

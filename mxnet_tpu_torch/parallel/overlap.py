@@ -1,8 +1,18 @@
-"""Overlap machinery: the serving pipeline's worker, the compile-cache
-counters, and bucket planning for the fused optimizer sweep.
+"""Overlap machinery: the async device feed, the serving pipeline's
+worker, the compile-cache counters, and bucket planning for the fused
+optimizer sweep.
 
 Copies from ``mxnet_tpu/parallel/overlap.py``:
 
+- :class:`DevicePrefetcher`, the async device feed: one producer thread
+  pulls batch N+1 from any iterator and places it on the device while
+  step N runs (``prefetch_enabled``/``prefetch_depth``:
+  ``MXTPU_PREFETCH``, ``MXTPU_PREFETCH_DEPTH``).  On a CUDA device the
+  placement runs on the prefetcher's own stream: :class:`HostToDevice`
+  stages each host array in a pinned buffer and copies it with
+  ``non_blocking=True``; the consumer's stream waits on an event
+  recorded after the copies, and a pinned buffer is rewritten only
+  after its copy has completed;
 - :class:`AsyncLauncher`, the single-thread FIFO executor behind the
   serving batcher's dispatch and unpack stages (the JAX package's also
   registers its thread with the data-loader shutdown hook; here an
@@ -13,22 +23,24 @@ Copies from ``mxnet_tpu/parallel/overlap.py``:
   feeds.  In the port a "lowering" is one ``build_program``: a registry
   miss;
 - ``partition_buckets`` and ``_nbytes`` (``_nbytes`` here also reads
-  torch tensors).  The rest of that module (the async device feed,
-  gradient-bucket barriers and their ``MXTPU_BUCKET_MB`` target, the
-  persistent XLA cache) belongs to the multi-GPU slice, so the target is
-  always given here.
+  torch tensors).  The rest of that module (gradient-bucket barriers
+  and their ``MXTPU_BUCKET_MB`` target, the persistent XLA cache)
+  belongs to the multi-GPU slice, so the target is always given here.
 """
 from __future__ import annotations
 
 import atexit
 import hashlib
+import os
 import queue as _queue
 import threading
 
 import numpy as _np
+import torch
 
-__all__ = ["partition_buckets", "AsyncLauncher", "cache_key",
-           "graph_fingerprint", "note_lowering", "note_hit",
+__all__ = ["DevicePrefetcher", "HostToDevice", "prefetch_enabled",
+           "prefetch_depth", "partition_buckets", "AsyncLauncher",
+           "cache_key", "graph_fingerprint", "note_lowering", "note_hit",
            "compile_cache_stats", "compile_cache_clear"]
 
 #: set at interpreter exit: workers stop taking work and submit() runs
@@ -39,6 +51,308 @@ _SHUTTING_DOWN = [False]
 @atexit.register
 def _mark_shutdown():
     _SHUTTING_DOWN[0] = True
+
+
+# ---------------------------------------------------------------------------
+# the async device feed
+# ---------------------------------------------------------------------------
+_TRUE = ("1", "true", "yes", "on")
+
+
+def prefetch_enabled(explicit=None):
+    """Resolve the prefetch switch: an explicit ``prefetch=`` argument
+    wins; otherwise ``MXTPU_PREFETCH``."""
+    if explicit is not None:
+        return bool(explicit)
+    return os.environ.get("MXTPU_PREFETCH", "").lower() in _TRUE
+
+
+def prefetch_depth(explicit=None):
+    """Queue depth for the async feed (``MXTPU_PREFETCH_DEPTH``,
+    default 2 = double buffering).  Clamped to >= 1."""
+    if explicit is not None:
+        return max(1, int(explicit))
+    try:
+        return max(1, int(os.environ.get("MXTPU_PREFETCH_DEPTH", "2")))
+    except ValueError:
+        return 2
+
+
+class HostToDevice(object):
+    """Copies of host arrays (numpy, CPU tensors or NDArrays) to
+    ``device``, keeping their dtype (float64 becomes float32, as in the
+    reference).
+
+    On a CUDA device each array is staged in a pinned buffer, one of
+    ``slots`` kept per (shape, dtype) and used in turn, and copied with
+    ``non_blocking=True`` on the caller's current stream (the
+    prefetcher's own).  An event recorded after each copy guards its
+    buffer: the buffer is rewritten only once that copy has completed.
+    The device tensor is marked as used on ``consumer`` (the stream
+    current when this object was made), so the caching allocator does
+    not hand its memory out again before the consumer's work on it is
+    done.  On another device it is a plain copy."""
+
+    def __init__(self, device, slots=4):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.consumer = torch.cuda.current_stream(self.device) \
+            if self.cuda else None
+        self._slots = max(2, int(slots))
+        self._pool = {}         # (shape, dtype) -> [next, [[buf, event]]]
+
+    def _host(self, arr):
+        if hasattr(arr, "asnumpy") and not isinstance(arr, torch.Tensor):
+            t = getattr(arr, "data", None)
+            arr = t if isinstance(t, torch.Tensor) else arr.asnumpy()
+        t = arr if isinstance(arr, torch.Tensor) else \
+            torch.from_numpy(_np.ascontiguousarray(arr))
+        return t.float() if t.dtype == torch.float64 else t
+
+    def _staging(self, shape, dtype):
+        ring = self._pool.setdefault((tuple(shape), dtype), [0, []])
+        i = ring[0]
+        ring[0] = (i + 1) % self._slots
+        if len(ring[1]) <= i:
+            ring[1].append([torch.empty(shape, dtype=dtype,
+                                        pin_memory=True), None])
+        slot = ring[1][i]
+        if slot[1] is not None:
+            slot[1].synchronize()       # its last copy has completed
+        return slot
+
+    def __call__(self, arr):
+        host = self._host(arr)
+        if not self.cuda:
+            return host.to(self.device, copy=True)
+        slot = self._staging(host.shape, host.dtype)
+        slot[0].copy_(host)
+        dev = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.current_stream(self.device).record_event()
+        dev.record_stream(self.consumer)
+        return dev
+
+
+class _Stop(object):
+    """Queue sentinel: end of epoch."""
+    __slots__ = ()
+
+
+class _Raised(object):
+    __slots__ = ("exc",)
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class DevicePrefetcher(object):
+    """Double-buffered async device feed over any ``DataIter`` or
+    iterator.
+
+    A single background producer thread pulls batch N+1 from ``it`` and
+    (optionally) places it on the device via ``place_fn`` while the
+    consumer runs step N.  One producer + a FIFO queue keeps batch
+    order exactly the serial order, so training is bit for bit the same
+    with prefetch on or off.
+
+    ``stream``: a CUDA stream (a :class:`HostToDevice`'s) that
+    ``place_fn`` runs on; an event recorded on it after each placement
+    is waited on by the consumer's current stream when the batch is
+    handed out, so the consumer never reads a batch whose copy is still
+    in flight.
+
+    Spans: the producer times the inner fetch as ``data_wait`` and the
+    placement as ``h2d`` (both tagged ``async=1``); the consumer's queue
+    pop is timed as ``data_wait`` too — near zero when overlap works.
+
+    DataIter surface: ``next``/``iter``/``reset``/``iter_next`` plus
+    ``provide_data``/``provide_label``/``batch_size`` passthrough, so it
+    drops into ``BaseModule.fit`` unchanged.  ``reset()`` is idempotent:
+    it stops the producer, drains in-flight batches, resets the inner
+    iter, and restarts.  ``close()`` joins the thread for good (also
+    run at interpreter exit via io.py's producer registry, and on
+    ``__del__``).
+    """
+
+    def __init__(self, it, place_fn=None, depth=None, name=None,
+                 stream=None):
+        self._it = it if hasattr(it, "__next__") else iter(it)
+        self._resettable = it if hasattr(it, "reset") else None
+        self._place_fn = place_fn
+        self._stream = stream
+        self._depth = prefetch_depth(depth)
+        self._name = name or "prefetch"
+        self._queue = _queue.Queue(maxsize=self._depth)
+        self._stop = threading.Event()
+        self._thread = None
+        self._closed = False
+        self._n = 0
+        self._cur = None
+        self._start()
+
+    # -- producer ----------------------------------------------------------
+
+    def _start(self):
+        from .. import io as _io
+        if _io._SHUTTING_DOWN or self._closed:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._produce, name="mxtpu-%s" % self._name, daemon=True)
+        _io._register_producer(self._thread)
+        self._thread.start()
+
+    def _place(self, batch):
+        """``place_fn(batch)`` and the event the consumer waits on (None
+        without a stream)."""
+        if self._stream is None:
+            return self._place_fn(batch), None
+        with torch.cuda.stream(self._stream):
+            placed = self._place_fn(batch)
+            return placed, self._stream.record_event()
+
+    def _produce(self):
+        from .. import io as _io
+        from ..observability.spans import span
+        try:
+            while not self._stop.is_set() and not _io._SHUTTING_DOWN:
+                try:
+                    with span("data_wait", step=self._n, **{"async": 1}):
+                        batch = next(self._it)
+                except StopIteration:
+                    self._put(_Stop())
+                    return
+                ready = None
+                if self._place_fn is not None:
+                    with span("h2d", step=self._n, **{"async": 1}):
+                        batch, ready = self._place(batch)
+                self._put((batch, ready))
+        except BaseException as exc:        # surfaced at the consumer
+            self._put(_Raised(exc))
+
+    def _put(self, item):
+        """Blocking put that stays responsive to stop/shutdown."""
+        from .. import io as _io
+        while not self._stop.is_set() and not _io._SHUTTING_DOWN:
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except _queue.Full:
+                continue
+
+    # -- consumer (DataIter protocol) --------------------------------------
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from ..observability.spans import span
+        if self._thread is None:
+            self._start()                   # restarted after reset/epoch end
+        if self._thread is None:            # interpreter shutting down
+            raise StopIteration
+        with span("data_wait", step=self._n):
+            item = self._queue.get()
+        if isinstance(item, _Stop):
+            self._join()
+            raise StopIteration
+        if isinstance(item, _Raised):
+            self._join()
+            raise item.exc
+        batch, ready = item
+        if ready is not None:
+            torch.cuda.current_stream(self._stream.device).wait_event(ready)
+        # single consumer owns the counter; the producer only reads it
+        # for span step labels, where staleness is harmless
+        self._n += 1
+        return batch
+
+    def next(self):
+        return self.__next__()
+
+    def iter_next(self):
+        try:
+            self._cur = self.next()
+            return True
+        except StopIteration:
+            return False
+
+    def getdata(self):
+        return self._cur.data
+
+    def getlabel(self):
+        return self._cur.label
+
+    def getpad(self):
+        return getattr(self._cur, "pad", None)
+
+    def getindex(self):
+        return getattr(self._cur, "index", None)
+
+    @property
+    def provide_data(self):
+        return self._it.provide_data
+
+    @property
+    def provide_label(self):
+        return self._it.provide_label
+
+    @property
+    def batch_size(self):
+        return getattr(self._it, "batch_size", 0)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _drain(self):
+        while True:
+            try:
+                self._queue.get_nowait()
+            except _queue.Empty:
+                return
+
+    def _join(self, timeout=10.0):
+        t, self._thread = self._thread, None
+        if t is None:
+            return
+        self._stop.set()
+        self._drain()                       # unblock a producer mid-put
+        while t.is_alive():
+            self._drain()
+            t.join(timeout=0.1)
+            timeout -= 0.1
+            if timeout <= 0:
+                break
+
+    def reset(self):
+        """Idempotent: drain in-flight batches, reset the inner iter,
+        restart the producer.  Safe to call mid-epoch or twice in a
+        row (every epoch boundary in the fit loops does)."""
+        self._join()
+        self._drain()
+        if self._resettable is not None:
+            self._resettable.reset()
+        if not self._closed:
+            self._start()
+
+    def close(self):
+        """Join the producer for good; the inner iter's ``close`` (if
+        any) runs too.  Idempotent."""
+        self._closed = True
+        self._join()
+        self._drain()
+        inner_close = getattr(self._it, "close", None)
+        if callable(inner_close):
+            try:
+                inner_close()
+            except Exception:
+                pass
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class AsyncLauncher(object):

@@ -14,6 +14,12 @@ eagerly on the one device of its mesh:
    or the fused sweep (``MXTPU_FUSED_OPT``: ``'1'`` plain, ``'kernel'``
    the CUDA sweep of ``kernels/fused_opt.py``), bitwise equal.
 
+Batches come from :meth:`ShardedTrainer.shard_batch`, or from
+:meth:`ShardedTrainer.prefetch_feed`, the async device feed
+(``overlap.DevicePrefetcher``); a uint8 image batch crosses to the
+device as uint8 and is widened there to the parameters' dtype (float32;
+``compute_dtype`` when one is set).
+
 ``zero1``, ``fsdp``, ``remat``, ``seq_axis`` (ring attention), the
 in-step sentinel, the step watchdog and the checkpoint methods belong to
 later slices and raise; none is ignored.  With no ``ctx`` and no mesh,
@@ -154,12 +160,27 @@ class ShardedTrainer:
         return {k: v.to(cdt) if v.is_floating_point() else v
                 for k, v in tensors.items()}
 
-    def _batch_to_compute(self, batch):
+    def _batch_to_compute(self, batch, params=None):
+        """The batch as the graph reads it: floats in ``compute_dtype``,
+        and a uint8 input (raw pixels from
+        ``ImageRecordIter(dtype="uint8")``) widened on the device to
+        ``compute_dtype``, or without one to the parameters' dtype, as
+        ``jnp`` promotes it in the JAX package's trace (uint8 with
+        float32 gives float32; float32 without ``params``): exactly a
+        float batch of the same pixels.  Labels and other cast-exempt
+        inputs stay."""
         cdt = self.compute_dtype
-        if cdt is None:
-            return dict(batch)
-        return {k: v if k in self._cast_exempt or not v.is_floating_point()
-                else v.to(cdt) for k, v in batch.items()}
+        widen = cdt or next(iter((params or {}).values()),
+                            torch.empty(0)).dtype
+        out = {}
+        for k, v in batch.items():
+            if k not in self._cast_exempt:
+                if v.dtype == torch.uint8:
+                    v = v.to(widen)
+                elif cdt is not None and v.is_floating_point():
+                    v = v.to(cdt)
+            out[k] = v
+        return out
 
     # ------------------------------------------------------------------
     # state init
@@ -201,17 +222,41 @@ class ShardedTrainer:
         return (dict(zip(self._arg_names, arg_shapes)),
                 dict(zip(self._aux_names, aux_shapes)))
 
-    def shard_batch(self, batch):
+    def shard_batch(self, batch, copy=None):
         """Place host batch arrays (numpy, NDArrays or tensors) on the
         trainer's device, keeping their dtype (float64 becomes float32,
-        as in the reference)."""
+        as in the reference; a uint8 batch crosses as uint8 and
+        :meth:`step` widens it).  ``copy``: a
+        :class:`~.overlap.HostToDevice` to place through (the async
+        feed's pinned buffers and stream)."""
         from .. import ndarray as nd
         out = {}
         for name, arr in batch.items():
+            if copy is not None:
+                out[name] = copy(arr)
+                continue
             if hasattr(arr, "asnumpy") and not isinstance(arr, nd.NDArray):
                 arr = arr.asnumpy()
             out[name] = nd.array(arr, ctx=self.device).data
         return out
+
+    def prefetch_feed(self, batches, depth=None, prefetch=True):
+        """Wrap an iterator of host batch dicts in a
+        :class:`~.overlap.DevicePrefetcher` whose placement is
+        :meth:`shard_batch` (timed as ``h2d``) on a background thread —
+        batch N+1 transfers while step N runs; on a CUDA device from
+        pinned buffers on a stream of its own.  Feed :meth:`step` its
+        output directly; do not call ``shard_batch`` again.
+        ``prefetch=None`` defers to ``MXTPU_PREFETCH``; returns
+        ``batches`` unchanged when off."""
+        from . import overlap
+        if not overlap.prefetch_enabled(prefetch):
+            return batches
+        copy = overlap.HostToDevice(self.device,
+                                    overlap.prefetch_depth(depth) + 2)
+        return overlap.DevicePrefetcher(
+            batches, place_fn=lambda b: self.shard_batch(b, copy=copy),
+            depth=depth, name="trainer-feed", stream=copy.stream)
 
     # ------------------------------------------------------------------
     # steps
@@ -236,7 +281,7 @@ class ShardedTrainer:
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
         args = self._to_compute(leaves)
-        args.update(self._batch_to_compute(batch))
+        args.update(self._batch_to_compute(batch, leaves))
         outs, aux_out = self._trace(args, self._to_compute(aux), rng, True)
         order = [leaves[n] for n in self.param_names]
         grads = torch.autograd.grad(
@@ -269,7 +314,7 @@ class ShardedTrainer:
         """Forward in ``compute_dtype`` with ``is_train=False``."""
         with torch.no_grad():
             args = self._to_compute(params)
-            args.update(self._batch_to_compute(batch))
+            args.update(self._batch_to_compute(batch, params))
             outs, _ = self._trace(args, self._to_compute(aux), rng, False)
         return outs
 

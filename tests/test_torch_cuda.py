@@ -875,3 +875,73 @@ def test_resnet18_trainer_step_on_the_sweep(cuda, monkeypatch):
         got[mode] = dict(p, **a)
     for n, w in got[""].items():
         assert torch.equal(got["kernel"][n], w), n
+
+
+def test_device_prefetcher_copies_from_pinned_buffers_on_its_stream(cuda):
+    """The async feed on the card: each batch staged in a pinned buffer
+    and copied on the prefetcher's own stream; the consumer's work on
+    its stream (waiting on the copy's event) reads every batch exactly,
+    also when a long kernel on the consumer's stream runs while later
+    batches are copied and their buffers reused."""
+    from mxnet_tpu_torch.parallel import overlap
+    rng = np.random.RandomState(0)
+    host = [rng.randint(0, 256, (16, 3, 64, 64)).astype(np.uint8)
+            for _ in range(12)]
+    copy = overlap.HostToDevice(cuda, slots=2)
+    assert copy.stream is not None and copy.stream != \
+        torch.cuda.current_stream(cuda)
+    feed = overlap.DevicePrefetcher(
+        iter(host), place_fn=lambda b: copy(b), depth=3, stream=copy.stream)
+    sums = []
+    for i, dev in enumerate(feed):
+        assert dev.device == cuda and dev.dtype == torch.uint8
+        torch.cuda._sleep(2000000)        # keep the consumer's stream busy
+        sums.append(dev.to(torch.float32).sum(dim=(1, 2, 3)))
+    torch.cuda.synchronize()
+    assert len(sums) == len(host)
+    for got, want in zip(sums, host):
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), want.astype(np.float32).sum(axis=(1, 2, 3)))
+    ring = next(iter(copy._pool.values()))[1]
+    assert len(ring) == 2 and all(buf.is_pinned() for buf, _ in ring)
+    feed.close()
+
+
+def test_prefetch_feed_on_the_card_equals_serial(cuda, monkeypatch):
+    """ResNet-18 (cifar stem) over ``prefetch_feed`` of uint8 batches:
+    three steps bitwise the same as with ``shard_batch`` on the loop
+    (cuDNN deterministic); the batch arrives as uint8 on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.model import params_from_numpy
+    monkeypatch.setenv("MXTPU_FUSED_OPT", "kernel")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    sym = mx.models.resnet.get_symbol(10, 18, (3, 32, 32))
+    rng = np.random.RandomState(1)
+    shapes, _, aux_shapes = sym.infer_shape(data=(8, 3, 32, 32))
+    params = {n: (rng.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    aux = {n: (np.ones if n.endswith("var") else np.zeros)(s, np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    batches = [{"data": rng.randint(0, 256, (8, 3, 32, 32)).astype(np.uint8),
+                "softmax_label": rng.randint(0, 10, 8).astype(np.float32)}
+               for _ in range(3)]
+    got = {}
+    for prefetch in (True, False):
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                  wd=1e-4, rescale_grad=1.0 / 8)
+        tr = mx.parallel.ShardedTrainer(sym, opt, ctx=cuda)
+        p, a = params_from_numpy(params, aux, ctx=cuda)
+        st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+              for n, w in p.items()}
+        feed = tr.prefetch_feed(iter(batches), prefetch=prefetch)
+        if not prefetch:
+            feed = (tr.shard_batch(b) for b in feed)
+        for b in feed:
+            assert b["data"].dtype == torch.uint8 and b["data"].device == cuda
+            p, st, a, _o = tr.step(p, st, a, b)
+        torch.cuda.synchronize()
+        got[prefetch] = dict(p, **a)
+    for n, w in got[False].items():
+        assert torch.equal(got[True][n], w), n

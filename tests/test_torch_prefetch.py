@@ -1,0 +1,450 @@
+"""The async device feed and the two image-classification routes fed
+from RecordIO files, against the JAX package, on the CPU.
+
+- ``parallel.overlap.DevicePrefetcher``: the serial order (also the JAX
+  package's prefetcher's), idempotent ``reset``, ``close`` that joins,
+  errors surfaced to the consumer, the ``data_wait`` and ``h2d`` spans;
+  ``HostToDevice`` copies, never aliases.
+- uint8 widening: a uint8 batch through ``ShardedTrainer.step`` and
+  through ``Module.forward_backward`` gives bitwise the float32 batch's
+  results (float32 and bfloat16 compute).
+- ResNet-18 at (3, 16, 16) (10 classes, batches of 4, SGD lr 0.1,
+  momentum 0.9, wd 1e-4) fed by ``io.ImageRecordIter(dtype="uint8")``
+  from a raw-pixel ``.rec``: ``ShardedTrainer`` over
+  ``prefetch_feed`` and ``Module.fit(prefetch=True)``, each within 1e-5
+  of the JAX package's steps run in float64 on the same records (as
+  ``test_torch_resnet_train`` and ``test_torch_module`` compare), and
+  bitwise equal with prefetch off.
+- The port's ``example/image-classification-torch`` scripts run with
+  JAX unavailable.
+"""
+import glob
+import json
+import os
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as jmx
+from mxnet_tpu import recordio as jrio
+from mxnet_tpu.parallel import overlap as joverlap
+
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.model import params_from_numpy
+from mxnet_tpu_torch.observability import events
+from mxnet_tpu_torch.parallel import overlap
+
+from test_torch_resnet_train import (CLASSES, SGD, SHAPE, jax_reference,
+                                     seeded_resnet)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, N_REC = 4, 8
+TOL = 1e-5
+OPT_PARAMS = {"learning_rate": SGD["learning_rate"],
+              "momentum": SGD["momentum"], "wd": SGD["wd"]}
+
+
+def _batches(it):
+    return [([d.asnumpy() for d in b.data], [lab.asnumpy()
+                                             for lab in b.label], b.pad)
+            for b in it]
+
+
+def _ndarray_iter(mx, n=13):
+    x = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
+    return mx.io.NDArrayIter(x, np.arange(n, dtype=np.float32),
+                             batch_size=3)
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for (gd, gl, gp), (wd, wl, wp) in zip(got, want):
+        for a, b in zip(gd + gl, wd + wl):
+            np.testing.assert_array_equal(a, b)
+        assert gp == wp
+
+
+# ----------------------------------------------------------------------
+# DevicePrefetcher
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("depth", [1, 3])
+def test_prefetcher_keeps_serial_order(depth):
+    """The same batches as the iterator alone and as the JAX package's
+    prefetcher over its NDArrayIter, two epochs; DataIter surface."""
+    serial = [_batches(_ndarray_iter(tmx))] * 2
+    t = overlap.DevicePrefetcher(_ndarray_iter(tmx), depth=depth)
+    j = joverlap.DevicePrefetcher(_ndarray_iter(jmx), depth=depth)
+    assert t.batch_size == 3
+    assert t.provide_data == _ndarray_iter(tmx).provide_data
+    for epoch in range(2):
+        got = _batches(t)
+        _assert_same(got, serial[epoch])
+        _assert_same(got, _batches(j))
+        t.reset()
+        j.reset()
+    assert t.iter_next() and t.getpad() == 0
+    np.testing.assert_array_equal(t.getdata()[0].asnumpy(), [[0, 1], [2, 3],
+                                                              [4, 5]])
+    t.close()
+    j.close()
+
+
+def test_prefetcher_reset_is_idempotent_and_close_joins():
+    t = overlap.DevicePrefetcher(_ndarray_iter(tmx), depth=2)
+    next(t)
+    next(t)
+    t.reset()
+    t.reset()
+    _assert_same(_batches(t), _batches(_ndarray_iter(tmx)))
+    t.reset()
+    next(t)
+    thread = t._thread
+    assert thread.is_alive()
+    t.close()
+    t.close()
+    assert not thread.is_alive()
+    with pytest.raises(StopIteration):
+        next(t)
+
+
+def test_prefetcher_surfaces_errors_and_places():
+    def gen():
+        yield {"x": np.ones(2)}
+        raise ValueError("bad record")
+    placed = []
+
+    def place(b):
+        placed.append(threading.current_thread().name)
+        return {k: v * 2 for k, v in b.items()}
+    t = overlap.DevicePrefetcher(gen(), place_fn=place, name="t")
+    np.testing.assert_array_equal(next(t)["x"], [2.0, 2.0])
+    with pytest.raises(ValueError, match="bad record"):
+        next(t)
+    assert placed == ["mxtpu-t"]
+    t.close()
+
+
+def test_prefetcher_records_spans(tmp_path, monkeypatch):
+    """The producer's ``data_wait`` and ``h2d`` spans (tagged async) and
+    the consumer's ``data_wait``, one a batch."""
+    monkeypatch.setenv("MXTPU_TELEMETRY_DIR", str(tmp_path))
+    events.refresh()
+    try:
+        t = overlap.DevicePrefetcher(_ndarray_iter(tmx), place_fn=lambda b: b)
+        n = sum(1 for _ in t)
+        t.close()
+        events.flush()
+        spans = [json.loads(line) for path in
+                 glob.glob(str(tmp_path / "events-rank*.jsonl"))
+                 for line in open(path)]
+        spans = [r for r in spans if r.get("kind") == "span"]
+    finally:
+        monkeypatch.delenv("MXTPU_TELEMETRY_DIR")
+        events.refresh()
+    names = [(r["name"], r.get("async")) for r in spans]
+    assert n == 5
+    assert names.count(("h2d", 1)) == 5
+    assert names.count(("data_wait", 1)) == 6      # 5 batches + the end
+    assert names.count(("data_wait", None)) == 6
+    assert all(r["dur_ms"] >= 0 for r in spans)
+
+
+def test_host_to_device_copies():
+    copy = overlap.HostToDevice("cpu")
+    assert copy.stream is None
+    src = np.arange(6, dtype=np.float64).reshape(2, 3)
+    got = copy(src)
+    assert got.dtype == torch.float32
+    u8 = np.arange(6, dtype=np.uint8)
+    nd = tmx.nd.array(u8, ctx=tmx.cpu())
+    out = copy(nd)
+    assert out.dtype == torch.uint8
+    out[0] = 9
+    assert nd.asnumpy()[0] == 0          # a copy, not a view
+    t = torch.ones(3)
+    assert copy(t).data_ptr() != t.data_ptr()
+    assert overlap.prefetch_depth() >= 1
+    assert overlap.prefetch_enabled(True) and not overlap.prefetch_enabled(
+        False)
+
+
+# ----------------------------------------------------------------------
+# uint8 widening
+# ----------------------------------------------------------------------
+def _pixels(seed=7, n=B):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (n,) + SHAPE).astype(np.uint8),
+            rng.randint(0, CLASSES, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("cdt", [None, "bfloat16"])
+def test_uint8_batch_trains_as_float32(cdt):
+    """A uint8 batch crosses as uint8 and is widened in the step: two
+    steps bitwise the float32 batch's (outputs, params, momentum, aux)."""
+    sym = tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(sym)
+    x, y = _pixels()
+    runs = []
+    for data in (x, x.astype(np.float32)):
+        tr = tmx.parallel.ShardedTrainer(
+            sym, tmx.optimizer.create("sgd", **SGD), ctx=tmx.cpu(),
+            compute_dtype=cdt)
+        p, a = params_from_numpy(params, aux, ctx=tmx.cpu())
+        m = {k: torch.zeros_like(v) for k, v in p.items()}
+        b = tr.shard_batch({"data": data, "softmax_label": y})
+        assert b["data"].dtype == torch.from_numpy(data).dtype
+        for _ in range(2):
+            p, m, a, o = tr.step(p, m, a, b)
+        runs.append(({"out": o[0]}, p, m, a))
+    for g, w in zip(*runs):
+        for n in w:
+            assert torch.equal(g[n], w[n]), n
+
+
+def test_uint8_batch_through_module_forward_backward():
+    sym = tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(sym)
+    x, y = _pixels(8)
+    got = []
+    for data in (x, x.astype(np.float32)):
+        mod = tmx.mod.Module(sym, context=tmx.cpu())
+        mod.bind([("data", (B,) + SHAPE)], [("softmax_label", (B,))])
+        mod.init_params(arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                                    for k, v in params.items()},
+                        aux_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                                    for k, v in aux.items()})
+        batch = tmx.io.DataBatch([tmx.nd.array(data, ctx=tmx.cpu())],
+                                 [tmx.nd.array(y, ctx=tmx.cpu())])
+        assert batch.data[0].asnumpy().dtype == data.dtype
+        mod.forward_backward(batch)
+        ex = mod._exec_group.execs[0]
+        got.append([o.data.clone() for o in mod.get_outputs()]
+                   + [ex.grad_dict[n].data.clone() for n in sorted(params)])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# both routes fed by ImageRecordIter, against the JAX package
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def raw_rec(tmp_path_factory):
+    """A raw-pixel .rec of 8 records (two batches of 4), as
+    ``im2rec --pack-raw`` writes them; and the batches as numpy."""
+    path = str(tmp_path_factory.mktemp("feed") / "train.rec")
+    rng = np.random.RandomState(11)
+    w = jrio.MXRecordIO(path, "w")
+    xs, ys = [], []
+    for i in range(N_REC):
+        img = rng.randint(0, 256, SHAPE).astype(np.uint8)
+        lab = float(rng.randint(0, CLASSES))
+        w.write(jrio.pack(jrio.IRHeader(0, lab, i, 0), img.tobytes()))
+        xs.append(img)
+        ys.append(lab)
+    w.close()
+    batches = [{"data": np.stack(xs[i:i + B]).astype(np.float32),
+                "softmax_label": np.asarray(ys[i:i + B], np.float32)}
+               for i in range(0, N_REC, B)]
+    return path, batches
+
+
+def _record_iter(path):
+    return tmx.io.ImageRecordIter(path_imgrec=path, data_shape=SHAPE,
+                                  batch_size=B, dtype="uint8",
+                                  preprocess_threads=2)
+
+
+def _trainer_on_records(path, prefetch, dtype=np.float32, steps=2):
+    """``steps`` steps of the port's ShardedTrainer over the records'
+    uint8 batches, parameters in ``dtype``."""
+    sym = tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(sym)
+    tr = tmx.parallel.ShardedTrainer(
+        sym, tmx.optimizer.create("sgd", **SGD), ctx=tmx.cpu())
+    p = {k: torch.from_numpy(v.astype(dtype)) for k, v in params.items()}
+    a = {k: torch.from_numpy(v.astype(dtype)) for k, v in aux.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    it = _record_iter(path)
+    host = ({"data": b.data[0], "softmax_label": b.label[0]} for b in it)
+    feed = tr.prefetch_feed(host, prefetch=prefetch)
+    if not prefetch:
+        feed = (tr.shard_batch(b) for b in feed)
+    else:
+        assert isinstance(feed, overlap.DevicePrefetcher)
+    for _ in range(steps):
+        batch = next(feed)
+        assert batch["data"].dtype == torch.uint8
+        p, m, a, o = tr.step(p, m, a, batch)
+    if prefetch:
+        feed.close()
+    return {"out": o[0]}, p, m, a
+
+
+def _close(got, want, what, tol=TOL):
+    """Within ``tol`` of ``want``, scaled by its max-abs where that is
+    above 1: the records' raw pixels put bn_data's moving variance near
+    530, where float32 resolves 6e-5."""
+    for n in want:
+        w = np.asarray(want[n], np.float64)
+        err = float(np.abs(np.asarray(got[n], np.float64) - w).max())
+        bound = tol * max(1.0, float(np.abs(w).max()))
+        assert err <= bound, "%s %s: %g > %g" % (what, n, err, bound)
+
+
+def _jax_on_records(key, batches, dtype):
+    js = jmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(
+        tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE))
+    return jax_reference(key, js, params, aux, batches, dtype)
+
+
+def test_sharded_trainer_on_records_matches_jax(raw_rec, monkeypatch):
+    """Over ``prefetch_feed``, from the same records as the JAX
+    package's steps: the first float32 step within 1e-5 of its float32
+    and float64 steps; two steps with float64 parameters (the uint8
+    batch widened to float64, as ``jnp`` promotes it) within 1e-7 of its
+    float64 steps (the two packages' float64 steps agree to 4e-9 on the
+    outputs after two steps on ``test_torch_resnet_train``'s N(0, 1)
+    batch too); two float32 steps bitwise the same with prefetch off.
+    (Two float32 steps are not held to float64 here: at the second step
+    one ReLU input of these records sits 1.1e-7 from zero, inside
+    float32's rounding, so its gradient route differs between float32
+    and float64 in either package.)"""
+    monkeypatch.setenv("MXTPU_FUSED_OPT", "1")
+    path, batches = raw_rec
+    on = _trainer_on_records(path, True)
+    off = _trainer_on_records(path, False)
+    for g, w in zip(on, off):
+        for n in w:
+            assert torch.equal(g[n], w[n]), n
+    first = _trainer_on_records(path, True, steps=1)
+    parts = ("outputs", "param", "momentum", "aux")
+    for key, dtype, n in (("records32", np.float32, 1),
+                          ("records64", np.float64, 2)):
+        want = _jax_on_records(key, batches[:n], dtype)[0]
+        for part, g, w in zip(parts, first, want):
+            _close({k: v.numpy() for k, v in g.items()}, w,
+                   "step 1 %s vs JAX %s" % (part, key))
+    got64 = _trainer_on_records(path, True, dtype=np.float64)
+    want = _jax_on_records("records64", batches, np.float64)[-1]
+    for part, g, w in zip(parts, got64, want):
+        assert all(v.dtype == torch.float64 for v in g.values())
+        _close({k: v.numpy() for k, v in g.items()}, w,
+               "float64 step 2 %s" % part, tol=1e-7)
+
+
+def _fit_on_records(path, prefetch, kvstore):
+    sym = tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(sym)
+    mod = tmx.mod.Module(sym, context=tmx.cpu())
+    if kvstore == "object":
+        kvstore = tmx.kvstore.KVStore("local")
+    mod.fit(_record_iter(path), num_epoch=1, kvstore=kvstore,
+            optimizer="sgd", optimizer_params=OPT_PARAMS, prefetch=prefetch,
+            arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                        for k, v in params.items()},
+            aux_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                        for k, v in aux.items()})
+    arg, auxp = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in auxp.items()})
+
+
+@pytest.mark.parametrize("kvstore", ["object", None])
+def test_module_fit_on_records_matches_jax(raw_rec, tmp_path, monkeypatch,
+                                           kvstore):
+    """``Module.fit(prefetch=True)`` over the records' first batch within
+    1e-5 of the JAX package's ``Module.fit`` and of its float64 step;
+    over both batches bitwise the same with prefetch off, and with
+    ``MXTPU_PREFETCH=1`` deciding (see the trainer test for why two
+    float32 steps on these records are not held to float64)."""
+    monkeypatch.setenv("MXTPU_BIND_VALIDATE", "off")
+    monkeypatch.delenv("MXTPU_PREFETCH", raising=False)
+    path, batches = raw_rec
+    on = _fit_on_records(path, True, kvstore)
+    off = _fit_on_records(path, False, kvstore)
+    monkeypatch.setenv("MXTPU_PREFETCH", "1")
+    by_env = _fit_on_records(path, None, kvstore)
+    for run in (off, by_env):
+        for g, w in zip(on, run):
+            for n in w:
+                np.testing.assert_array_equal(g[n], w[n])
+    first = str(tmp_path / "first.rec")
+    r = jrio.MXRecordIO(path, "r")
+    w = jrio.MXRecordIO(first, "w")
+    for _ in range(B):
+        w.write(r.read())
+    w.close()
+    got = _fit_on_records(first, True, kvstore)
+    want = _jax_on_records("records64", batches, np.float64)[0]
+    _close(got[0], want[1], "param vs JAX float64")
+    _close(got[1], want[3], "aux vs JAX float64")
+    jmod = _jax_fit(first, kvstore)
+    _close(got[0], jmod[0], "param vs JAX Module.fit")
+    _close(got[1], jmod[1], "aux vs JAX Module.fit")
+
+
+def _jax_fit(path, kvstore):
+    sym = jmx.models.resnet.get_symbol(CLASSES, 18, SHAPE)
+    params, aux, _ = seeded_resnet(
+        tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE))
+    mod = jmx.mod.Module(sym)
+    if kvstore == "object":
+        kvstore = jmx.kvstore.KVStore("local")
+    it = jmx.io.ImageRecordIter(path_imgrec=path, data_shape=SHAPE,
+                                batch_size=B, dtype="uint8",
+                                preprocess_threads=2)
+    mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+            optimizer_params=OPT_PARAMS, prefetch=True,
+            arg_params={k: jmx.nd.array(v) for k, v in params.items()},
+            aux_params={k: jmx.nd.array(v) for k, v in aux.items()})
+    arg, auxp = mod.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in auxp.items()})
+
+
+# ----------------------------------------------------------------------
+# the port's image-classification example, with JAX unavailable
+# ----------------------------------------------------------------------
+def _run_example(script, args):
+    code = ("import runpy, sys; sys.modules['jax'] = None\n"
+            "sys.argv = %r\n"
+            "sys.path.insert(0, %r)\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "bad = [m for m in sys.modules if m == 'mxnet_tpu' or "
+            "m.startswith('mxnet_tpu.')]\n"
+            "assert not bad, bad\n"
+            % ([script] + args, os.path.dirname(script)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_example_train_mnist_runs_on_the_port(tmp_path):
+    script = os.path.join(ROOT, "example", "image-classification-torch",
+                          "train_mnist.py")
+    prefix = str(tmp_path / "lenet")
+    res = _run_example(script, ["--network", "lenet", "--synthetic",
+                                "--devices", "cpu", "--num-epochs", "1",
+                                "--batch-size", "128",
+                                "--model-prefix", prefix])
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "Epoch[0] Train-accuracy" in res.stderr
+    assert os.path.exists(prefix + "-0001.params")
+
+
+def test_example_train_imagenet_names_what_is_unported(raw_rec, tmp_path):
+    """An unported network raises MXNetError naming the ROADMAP.md item
+    it waits on (ResNet-50 from records runs on the card:
+    ``chip_smoke.py`` phase 11)."""
+    script = os.path.join(ROOT, "example", "image-classification-torch",
+                          "train_imagenet.py")
+    res = _run_example(script, ["--network", "vgg", "--devices", "cpu",
+                                "--data-dir", str(tmp_path)])
+    assert res.returncode != 0
+    assert "MXNetError" in res.stderr and "ROADMAP.md queue 1 item 2" \
+        in res.stderr

@@ -304,8 +304,9 @@ def test_mirror_blocks_tags_and_is_refused():
 
 
 def test_port_imports_without_jax():
-    """Every module of the image-classification slice imports with JAX
-    unavailable, and no module of the port imports jax or mxnet_tpu."""
+    """Every module of the image-classification slice and of its image
+    feed imports with JAX unavailable, and no module of the port imports
+    jax or mxnet_tpu."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import mxnet_tpu_torch as mx\n"
@@ -313,8 +314,18 @@ def test_port_imports_without_jax():
         "import mxnet_tpu_torch.metric, mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch.io, mxnet_tpu_torch.kvstore\n"
         "import mxnet_tpu_torch.model, mxnet_tpu_torch.module\n"
+        "import mxnet_tpu_torch.libinfo, mxnet_tpu_torch.engine\n"
+        "import mxnet_tpu_torch.stream, mxnet_tpu_torch.recordio\n"
+        "import mxnet_tpu_torch.image, mxnet_tpu_torch.models.lenet\n"
+        "import mxnet_tpu_torch.parallel.overlap\n"
+        "import mxnet_tpu_torch.tools.im2rec\n"
         "mx.models.resnet; mx.mod.Module; mx.io.NDArrayIter\n"
         "mx.kvstore.create; mx.lr_scheduler; mx.metric; mx.callback\n"
+        "mx.io.ImageRecordIter; mx.io.MNISTIter; mx.io.CSVIter\n"
+        "mx.io.ResizeIter; mx.io.PrefetchingIter; mx.nd.imdecode\n"
+        "mx.parallel.overlap.DevicePrefetcher\n"
+        "mx.parallel.ShardedTrainer.prefetch_feed\n"
+        "assert mx.libinfo.find_lib() is not None\n"
         "bad = [m for m in sys.modules if m == 'mxnet_tpu' or "
         "m.startswith('mxnet_tpu.')]\n"
         "assert not bad, bad\n"
