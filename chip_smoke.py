@@ -167,6 +167,39 @@ line:
    kernel launched, and 2 batches with prefetch on equal to off bit for
    bit under deterministic cuDNN.
 
+12. the rest of image classification: Inception-BN (``models.
+   inception_bn``, phase 9's configuration: 224 x 224, 1000 classes,
+   batch 64, SGD lr 0.1, momentum 0.9, wd 1e-4) through ``ShardedTrainer``
+   with the sweep, float32 and bfloat16, timed under cuDNN's defaults
+   beside phase 9's ResNet-50, the sweep once a bucket a step and no
+   other hand kernel; under deterministic cuDNN two steps at batch 2 no
+   further from the port on the CPU in float64 than twice the CPU's
+   float32 steps; 3 steps through the sweep bit for bit equal to 3
+   leafwise (parameters, aux, states); mirroring on Inception-BN at
+   batch 64: 3 steps of ``ShardedTrainer(remat=True)`` and of a
+   ``Module`` bound with ``MXNET_BACKWARD_DO_MIRROR=1`` bit for bit
+   equal to the unmirrored runs, the mirrored Module's peak memory below
+   the unmirrored one's (both peaks, the segment count and the times of
+   10 more steps printed), and the peak of one forward and backward
+   unmirrored, mirrored and with a per-segment ``torch.utils.checkpoint``
+   (the JAX package's design; gradients bit for bit equal); AlexNet,
+   VGG-16 and GoogLeNet at 224 x 224 and batch 64, Inception-v3 at
+   299 x 299 and batch 32, each one inference forward at batch 2 on the
+   card no further from a plain float64 forward written here (a walk of
+   the graph in plain PyTorch, which the port on the CPU in float64 must
+   match to 1e-10) than twice the same plain forward in float32, one
+   step through the sweep bit for bit equal to one leafwise, and 5
+   timed float32 steps (the sweep's launches and bucket sizes);
+   ``train_imagenet.py --network inception-bn`` (``Module.fit`` with
+   ``MXTPU_PREFETCH=1``) on phase 11's records, on ``cuda:0`` with no
+   hand kernel; and the Module family on LeNet at batch 16:
+   ``FeedForward.fit`` on the card no further from the port's same
+   training on the CPU in float64 than twice the larger of the CPU's
+   float32 fit and a plain float32 LeNet on the card, a ``Monitor``
+   through ``fit(monitor=...)`` and on a monitored forward (every op
+   output, all finite), a ``SequentialModule`` of the trunk and the head
+   within 1e-5 of one ``Module`` of the whole.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -2269,26 +2302,60 @@ def seeded_resnet(seed, batch):
     return params, aux, data
 
 
-def resnet_step_flops(batch):
+def op_shapes(sym, data_shape):
+    """``{node id: [output shapes]}`` and ``{argument: shape}``, inferred
+    op by op in graph order from the data's shape."""
+    shapes, outs = {}, {}
+    for node in sym._topo():
+        if node.is_variable:
+            if node.name == "data":
+                shapes[(id(node), 0)] = tuple(data_shape)
+            elif node.name == "softmax_label":
+                shapes[(id(node), 0)] = (data_shape[0],)
+            continue
+        full, o, _aux = node.op.infer_shape(
+            [shapes.get((id(c), ci)) for c, ci in node.inputs])
+        for (c, ci), sh in zip(node.inputs, full):
+            shapes[(id(c), ci)] = tuple(sh)
+        outs[id(node)] = [tuple(sh) for sh in o]
+        for i, sh in enumerate(o):
+            shapes[(id(node), i)] = tuple(sh)
+    args = {n.name: shapes[(id(n), 0)] for n in sym._topo() if n.is_variable}
+    return outs, args
+
+
+def step_flops(sym, data_shape):
     """Operations of one training step: 3 x the forward's convolutions
-    and classifier (2 a multiply-add; the backward computes the data and
-    the weight gradients, each as many), from the graph's shapes."""
-    from mxnet_tpu_torch.symbol import Symbol
-    sym = resnet_symbol()
-    shape = (batch,) + RESNET["image_shape"]
-    arg_shapes, _, _ = sym.infer_shape(data=shape)
-    wshape = dict(zip(sym.list_arguments(), arg_shapes))
+    and fully connected layers (2 a multiply-add; the backward computes
+    the data and the weight gradients, each as many), from the graph's
+    shapes."""
+    outs, wshape = op_shapes(sym, data_shape)
     fwd = 0
     for node in sym._topo():
         if node.is_variable:
             continue
         w = node.inputs[1][0].name if len(node.inputs) > 1 else None
         if node.op.op_name == "Convolution":
-            _, (out,), _ = Symbol([(node, 0)]).infer_shape(data=shape)
-            fwd += 2 * int(np.prod(out)) * int(np.prod(wshape[w][1:]))
+            fwd += 2 * int(np.prod(outs[id(node)][0])) \
+                * int(np.prod(wshape[w][1:]))
         elif node.op.op_name == "FullyConnected":
-            fwd += 2 * batch * int(np.prod(wshape[w]))
+            fwd += 2 * data_shape[0] * int(np.prod(wshape[w]))
     return 3 * fwd
+
+
+def resnet_step_flops(batch):
+    """:func:`step_flops` of phase 9's ResNet-50 at ``batch``."""
+    return step_flops(resnet_symbol(), (batch,) + RESNET["image_shape"])
+
+
+def peak_reset(torch):
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(torch):
+    """The most device memory allocated since :func:`peak_reset`."""
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
 
 
 def _five_counters():
@@ -2321,22 +2388,23 @@ def read_counts():
 
 
 def run_resnet(torch, params, aux, data, steps, mode, opt_name="sgd",
-               opt_kw=RESNET_SGD, compute_dtype=None, timed_steps=0):
-    """``steps`` steps of the port's ShardedTrainer on ResNet-50 with
-    ``MXTPU_FUSED_OPT=mode``; the five kernels' launch counts cover
-    exactly these steps.  Then ``timed_steps`` more, each ended by a
-    synchronize.  Returns the first step's softmax outputs, the
-    parameters, aux and optimizer states after the counted steps
-    (copies), and a dict of counts and times."""
+               opt_kw=RESNET_SGD, compute_dtype=None, timed_steps=0,
+               sym=None, remat=False):
+    """``steps`` steps of the port's ShardedTrainer on ``sym`` (default
+    ResNet-50) with ``MXTPU_FUSED_OPT=mode``; the five kernels' launch
+    counts, and the peak device memory, cover exactly these steps.  Then
+    ``timed_steps`` more, each ended by a synchronize.  Returns the first
+    step's softmax outputs, the parameters, aux and optimizer states
+    after the counted steps (copies), and a dict of counts and times."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import fused_opt as fo
     from mxnet_tpu_torch.model import params_from_numpy
     os.environ["MXTPU_FUSED_OPT"] = mode
     batch = data["data"].shape[0]
     opt = mx.optimizer.create(opt_name, rescale_grad=1.0 / batch, **opt_kw)
-    tr = mx.parallel.ShardedTrainer(resnet_symbol(), opt,
+    tr = mx.parallel.ShardedTrainer(sym or resnet_symbol(), opt,
                                     ctx=torch.device(DEVICE),
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, remat=remat)
     p, a = params_from_numpy(params, aux, ctx=torch.device(DEVICE))
     st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
           for n, w in p.items()}
@@ -2344,21 +2412,27 @@ def run_resnet(torch, params, aux, data, steps, mode, opt_name="sgd",
     b = tr.shard_batch(data)
     torch.cuda.synchronize()
     reset_counts()
+    peak_reset(torch)
     first = None
     for _ in range(steps):
         p, st, a, outs = tr.step(p, st, a, b)
         if first is None:
             first = outs[0].float().clone()
     torch.cuda.synchronize()
+    buckets = fo.plan_buckets({n: p[n] for n in tr.param_names})
     info = {"optimizer": opt_name, "mode": mode, "batch": batch,
             "compute_dtype": str(compute_dtype or "float32"),
             "steps": steps, "launches": read_counts(),
-            "buckets": len(fo.plan_buckets({n: p[n]
-                                            for n in tr.param_names}))}
+            "buckets": len(buckets), "remat": remat,
+            "bucket_sizes": sorted((sum(p[n].numel() for n in bk)
+                                    for bk in buckets), reverse=True),
+            "peak_bytes": peak_bytes(torch)}
     p_out = {n: w.clone() for n, w in p.items()}
     a_out = {n: v.clone() for n, v in a.items()}
     s_out = {"%s/%d" % (n, i): v.clone() for n, s in st.items()
              for i, v in enumerate(s if isinstance(s, tuple) else (s,))}
+    info["devices"] = sorted({str(v.device) for d in (p_out, a_out, s_out)
+                              for v in d.values()} | {str(first.device)})
     for what, d in (("parameters", p_out), ("aux", a_out)):
         bad = [n for n, v in d.items() if not bool(torch.isfinite(v).all())]
         if bad:
@@ -3174,12 +3248,13 @@ def _subset_records(src, dst, n):
     r.close()
 
 
-def run_train_imagenet(torch, seed, data_dir, prefix, prefetch):
+def run_train_imagenet(torch, seed, data_dir, prefix, prefetch,
+                       network="resnet-50"):
     """The port's ``example/image-classification-torch/train_imagenet.py``
-    on the records (``--data-dtype uint8 --batch-size 64``, one epoch,
-    ``MXTPU_PREFETCH`` on or off), in this process; its Speedometer is
-    wrapped to note each batch's end and the module.  Returns (module,
-    batch end times)."""
+    on the records (``--network network --data-dtype uint8 --batch-size
+    64``, one epoch, ``MXTPU_PREFETCH`` on or off), in this process; its
+    Speedometer is wrapped to note each batch's end and the module.
+    Returns (module, batch end times)."""
     import runpy
     import mxnet_tpu_torch as mx
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3196,7 +3271,8 @@ def run_train_imagenet(torch, seed, data_dir, prefix, prefetch):
     argv, path = sys.argv, list(sys.path)
     env = os.environ.get("MXTPU_PREFETCH")
     os.environ["MXTPU_PREFETCH"] = "1" if prefetch else "0"
-    sys.argv = [script, "--data-dir", data_dir, "--data-dtype", "uint8",
+    sys.argv = [script, "--network", network,
+                "--data-dir", data_dir, "--data-dtype", "uint8",
                 "--batch-size", str(RESNET_BATCH), "--num-epochs", "1",
                 "--data-nthreads", str(FEED_THREADS),
                 "--model-prefix", prefix]
@@ -3293,6 +3369,880 @@ def phase_feed(torch, seed, smi, resnet, module):
     fit = phase_feed_module(torch, path, seed, smi, module["images_per_s"])
     return {"alone": alone, "jpeg": jpeg, "trainer": trainer,
             "module": fit, "write_s": write_s}
+
+
+# ----------------------------------------------------------------------
+# phase 12: the model zoo, mirroring and the Module family
+# ----------------------------------------------------------------------
+ZOO_BATCH = 64
+ZOO_SIZE = 224
+#: the other four networks at full width: (network, get_symbol arguments,
+#: input size, batch)
+ZOO_NETS = (("alexnet", {}, 224, 64), ("vgg", {"num_layers": 16}, 224, 64),
+            ("googlenet", {}, 224, 64), ("inception_v3", {}, 299, 32))
+ZOO_TIMED_STEPS = 5
+#: the float64 witnesses' batch (Inception-BN's two training steps and
+#: the other networks' forwards); the steps of the mirroring runs that
+#: the bitwise gates compare, and the timed steps after them
+ZOO_WITNESS_BATCH = 2
+MIRROR_STEPS = 3
+MIRROR_TIMED_STEPS = 10
+#: the Module family on the card: LeNet (train_mnist.py's) at batch 16
+#: on 1 x 28 x 28 images, 4 batches of SGD (lr 0.1, momentum 0.9);
+#: the SequentialModule gate is the CPU tests' 1e-5
+FAMILY_BATCH = 16
+FAMILY_BATCHES = 4
+FAMILY_SHAPE = (1, 28, 28)
+FAMILY_SGD = dict(learning_rate=0.1, momentum=0.9)
+FAMILY_TOL = 1e-5
+
+
+def zoo_symbol(name, **kw):
+    """``models.<name>.get_symbol(1000, **kw)`` under a fresh
+    NameManager (the automatic names do not depend on earlier builds)."""
+    import mxnet_tpu_torch as mx
+    with mx.name.NameManager():
+        return getattr(mx.models, name).get_symbol(1000, **kw)
+
+
+def seeded_zoo(sym, batch, size, seed):
+    """Weights, aux and a batch for ``sym`` from numpy, as
+    :func:`seeded_resnet` makes them: He-scaled convolutions, N(0, 0.01)
+    fully connected weights, zero biases and betas, unit gammas, zero
+    moving means and unit moving variances; images N(0, 1), labels
+    uniform over 1000 classes."""
+    shape = (batch, 3, size, size)
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    fc = {n.inputs[1][0].name for n in sym._topo()
+          if not n.is_variable and n.op.op_name == "FullyConnected"}
+    rng = np.random.RandomState(seed)
+    params = {}
+    for name, s in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            params[name] = np.ones(s, np.float32)
+        elif name.endswith(("_beta", "_bias")):
+            params[name] = np.zeros(s, np.float32)
+        elif name in fc:
+            params[name] = (rng.randn(*s) * 0.01).astype(np.float32)
+        else:
+            params[name] = (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:])))\
+                .astype(np.float32)
+    aux = {n: (np.ones if n.endswith("moving_var") else np.zeros)(
+        s, np.float32) for n, s in zip(sym.list_auxiliary_states(),
+                                       aux_shapes)}
+    data = {"data": rng.randn(*shape).astype(np.float32),
+            "softmax_label": rng.randint(0, 1000, batch).astype(np.float32)}
+    return params, aux, data
+
+
+def cpu_trainer(torch, sym, params, aux, data, dtype):
+    """The port's ShardedTrainer on the CPU with the leafwise update, and
+    its parameters, states, aux and batch as ``dtype`` tensors: the
+    reference of the card's runs."""
+    import mxnet_tpu_torch as mx
+    os.environ["MXTPU_FUSED_OPT"] = ""
+    batch = data["data"].shape[0]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / batch, **RESNET_SGD)
+    tr = mx.parallel.ShardedTrainer(sym, opt, ctx=mx.cpu())
+
+    def cast(d):
+        return {k: torch.as_tensor(v, dtype=dtype).clone()
+                for k, v in d.items()}
+    p, a, b = cast(params), cast(aux), cast(data)
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    return tr, p, {n: v for n, v in st.items() if v is not None}, a, b
+
+
+def zoo_train_witness(torch, sym, seed, steps=2):
+    """Two training steps of ``sym`` at batch 2 on the card (float32,
+    the sweep) and of the port on the CPU in float64 and float32
+    (leafwise): [max |diff| first-step softmax outputs, max |diff| over
+    every parameter after the steps] of the card and of the CPU's
+    float32 against float64; phase 9's gate holds the card within
+    PRECISION_FACTOR times the CPU's float32."""
+    params, aux, data = seeded_zoo(sym, ZOO_WITNESS_BATCH, ZOO_SIZE,
+                                   seed + 31)
+    outs, p_dev, _a, _s, info = run_resnet(torch, params, aux, data, steps,
+                                           "kernel", sym=sym)
+    _want_sweep_only(info, 1)
+    ref = {}
+    for dt in (torch.float64, torch.float32):
+        tr, p, st, a, b = cpu_trainer(torch, sym, params, aux, data, dt)
+        first = None
+        for _ in range(steps):
+            p, st, a, o = tr.step(p, st, a, b)
+            if first is None:
+                first = o[0].clone()
+        ref[dt] = (first, p)
+    o64, p64 = ref[torch.float64]
+
+    def diff(o, p):
+        return [float((o.double().cpu() - o64).abs().max()),
+                max(float((p[n].double().cpu() - p64[n]).abs().max())
+                    for n in p64)]
+    got = {"device_vs_cpu64": diff(outs, p_dev),
+           "cpu32_vs_cpu64": diff(*ref[torch.float32]),
+           "steps": steps, "batch": ZOO_WITNESS_BATCH,
+           "launches": info["launches"]}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["device_vs_cpu64"], got["cpu32_vs_cpu64"]))
+    return got
+
+
+def plain_forward(torch, sym, params, aux, data, dtype, device):
+    """The softmax outputs of ``sym`` in inference mode, computed here
+    with no module of the port: a walk over the graph's nodes with plain
+    PyTorch for each op of the zoo (convolution, BatchNorm on the moving
+    statistics, max and average pooling over explicitly padded inputs
+    with the kernel's area as divisor, LRN, Concat, Flatten, fully
+    connected, ReLU, Dropout as the identity, softmax)."""
+    F = torch.nn.functional
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+    vals = {}
+    for node in sym._topo():
+        if node.is_variable:
+            src = params if node.name in params else data
+            vals[(id(node), 0)] = t(src[node.name])
+            continue
+        p, op = node.op.param, node.op.op_name
+        x = [vals[(id(c), ci)] for c, ci in node.inputs]
+        if op == "Convolution":
+            y = F.conv2d(x[0], x[1], None if p.no_bias else x[2],
+                         tuple(p.stride or (1, 1)), tuple(p.pad or (0, 0)))
+        elif op == "BatchNorm":
+            mean = t(aux[node.name + "_moving_mean"]).reshape(1, -1, 1, 1)
+            var = t(aux[node.name + "_moving_var"]).reshape(1, -1, 1, 1)
+            y = (x[0] - mean) / torch.sqrt(var + p.eps)
+            if not p.fix_gamma:
+                y = y * x[1].reshape(1, -1, 1, 1)
+            y = y + x[2].reshape(1, -1, 1, 1)
+        elif op == "Activation":
+            y = torch.relu(x[0])
+        elif op == "Pooling":
+            h, w = x[0].shape[2:]
+            if p.global_pool:
+                k, st, pad = (h, w), (1, 1), (0, 0)
+            else:
+                k, st = tuple(p.kernel), tuple(p.stride or (1, 1))
+                pad = tuple(p.pad or (0, 0))
+            oh = (h + 2 * pad[0] - k[0]) // st[0] + 1
+            ow = (w + 2 * pad[1] - k[1]) // st[1] + 1
+            hi = (max((oh - 1) * st[0] + k[0] - h - pad[0], pad[0]),
+                  max((ow - 1) * st[1] + k[1] - w - pad[1], pad[1]))
+            fill = float("-inf") if p.pool_type == "max" else 0.0
+            xp = F.pad(x[0], (pad[1], hi[1], pad[0], hi[0]), value=fill)
+            win = xp.unfold(2, k[0], st[0]).unfold(3, k[1], st[1])
+            y = win.amax(dim=(-2, -1)) if p.pool_type == "max" \
+                else win.sum(dim=(-2, -1)) / (k[0] * k[1])
+        elif op == "LRN":
+            half = p.nsize // 2
+            sq = F.pad(x[0] * x[0], (0, 0, 0, 0, half, p.nsize - 1 - half))
+            ssum = sum(sq[:, i:i + x[0].shape[1]] for i in range(p.nsize))
+            y = x[0] * (p.knorm + p.alpha / p.nsize * ssum) ** -p.beta
+        elif op == "Concat":
+            y = torch.cat(x, dim=p.dim)
+        elif op == "Flatten":
+            y = x[0].reshape(x[0].shape[0], -1)
+        elif op == "FullyConnected":
+            y = x[0].reshape(x[0].shape[0], -1) @ x[1].t() + x[2]
+        elif op == "Dropout":
+            y = x[0]
+        elif op == "SoftmaxOutput":
+            y = torch.softmax(x[0], dim=-1)
+        else:
+            raise AssertionError("plain_forward: no plain %s" % op)
+        vals[(id(node), 0)] = y
+    (head, idx), = sym._heads
+    return vals[(id(head), idx)]
+
+
+def zoo_forward_witness(torch, sym, size, seed):
+    """One forward in inference mode (Dropout off, the moving statistics)
+    of ``sym`` at batch 2, max |diff| of the softmax outputs: the port on
+    the card in float32 and :func:`plain_forward` on the card in float32,
+    each against ``plain_forward`` in float64 (phase 9's gate: the port
+    within PRECISION_FACTOR times the plain float32); and the port on
+    the CPU in float64 against ``plain_forward`` in float64, which must
+    agree to 1e-10 (the plain walk computes the port's function)."""
+    import mxnet_tpu_torch as mx
+    params, aux, data = seeded_zoo(sym, ZOO_WITNESS_BATCH, size, seed + 37)
+    opt = mx.optimizer.create("sgd", **RESNET_SGD)
+    port = {}
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        tr = mx.parallel.ShardedTrainer(sym, opt, ctx=torch.device(dev))
+
+        def cast(d):
+            return {k: torch.as_tensor(v, dtype=dt, device=dev)
+                    for k, v in d.items()}
+        port[dev, dt] = tr.eval(cast(params), cast(aux),
+                                cast(data))[0].double().cpu()
+    plain = {dt: plain_forward(torch, sym, params, aux, data, dt,
+                               torch.device(DEVICE)).double().cpu()
+             for dt in (torch.float32, torch.float64)}
+    want = plain[torch.float64]
+    res = {"port_vs_plain64": float((port[DEVICE, torch.float32]
+                                     - want).abs().max()),
+           "plain32_vs_plain64": float((plain[torch.float32]
+                                        - want).abs().max()),
+           "port_cpu64_vs_plain64": float((port["cpu", torch.float64]
+                                           - want).abs().max())}
+    res["ok"] = res["port_vs_plain64"] \
+        <= PRECISION_FACTOR * res["plain32_vs_plain64"] \
+        and res["port_cpu64_vs_plain64"] <= 1e-10
+    return res
+
+
+def _equal_runs(torch, what, a, b):
+    """Parameters, aux and optimizer states of two runs bit for bit."""
+    diff = [n for i in range(3) for n in a[i]
+            if not torch.equal(a[i][n], b[i][n])]
+    if diff or any(set(a[i]) != set(b[i]) for i in range(3)):
+        raise AssertionError("%s: parameters, aux or states differ: %s"
+                             % (what, diff[:5]))
+
+
+def module_mirror_steps(torch, sym, params, aux, data, steps, mirror):
+    """``steps`` forward-backward-update steps of a ``Module`` on
+    ``gpu(0)`` (the fused step: no kvstore) with
+    ``MXNET_BACKWARD_DO_MIRROR`` set to 1 or unset at bind, then
+    ``MIRROR_TIMED_STEPS`` more, each timed; returns the parameters, aux
+    and states after the first ``steps`` (copies) and a dict of the
+    mirrored segments, the peak device memory over those steps and the
+    step times."""
+    import mxnet_tpu_torch as mx
+    env = os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+    if mirror:
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+    try:
+        ctx = mx.Context.from_device(torch.device(DEVICE))
+        batch = data["data"].shape[0]
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", data["data"].shape)],
+                 label_shapes=[("softmax_label", (batch,))])
+    finally:
+        os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+        if env is not None:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = env
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in params.items()},
+                    aux_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in aux.items()})
+    mod.init_optimizer(kvstore=None, optimizer="sgd",
+                       optimizer_params=dict(RESNET_SGD))
+    b = mx.io.DataBatch([mx.nd.array(data["data"], ctx=ctx)],
+                        [mx.nd.array(data["softmax_label"], ctx=ctx)])
+    ex = mod._exec_group.execs[0]
+    torch.cuda.synchronize()
+    peak_reset(torch)
+    for _ in range(steps):
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+    peak = peak_bytes(torch)
+    arg, auxp = mod.get_params()
+    states = {"%s/%d" % (n, i): v.clone()
+              for n, s in mod._fused_holder["states"].items()
+              for i, v in enumerate(s if isinstance(s, tuple) else (s,))}
+    out = ({k: v.data.clone() for k, v in arg.items()},
+           {k: v.data.clone() for k, v in auxp.items()}, states)
+    times = []
+    for _ in range(MIRROR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    info = {"mirror": bool(mirror), "steps": steps,
+            "devices": sorted({str(v.data.device) for d in (arg, auxp)
+                               for v in d.values()}
+                              | {str(v.device) for v in states.values()}),
+            "mirrored_segments": ex._program.n_mirrored,
+            "fused_step": mod._fused_step_ok(),
+            "peak_bytes": peak,
+            "step_ms": float(np.median(times)) * 1e3,
+            "step_ms_all": [t * 1e3 for t in times]}
+    return out + (info,)
+
+
+def phase_zoo_mirror(torch, sym, params, aux, data):
+    """Mirroring on Inception-BN under deterministic cuDNN: ShardedTrainer
+    with and without ``remat=True``, a Module with and without
+    ``MXNET_BACKWARD_DO_MIRROR=1``, each 3 steps; bitwise gates and the
+    peaks."""
+    out = {}
+    for remat in (False, True):
+        _o, p, a, st, info = run_resnet(torch, params, aux, data,
+                                        MIRROR_STEPS, "kernel", sym=sym,
+                                        remat=remat,
+                                        timed_steps=MIRROR_TIMED_STEPS)
+        _want_sweep_only(info, 1)
+        _want_cuda0(torch, "zoo remat=%s" % remat, info["devices"])
+        out["remat" if remat else "trainer"] = ((p, a, st), info)
+    _equal_runs(torch, "ShardedTrainer remat=True against remat=False",
+                out["remat"][0], out["trainer"][0])
+    # phase 9's gate: the sweep against the leafwise update, bit for bit
+    _o, p, a, st, info = run_resnet(torch, params, aux, data, MIRROR_STEPS,
+                                    "", sym=sym)
+    if info["launches"]["fused_opt"]:
+        raise AssertionError("leafwise inception-bn run launched the sweep")
+    _equal_runs(torch, "inception-bn: the sweep (MXTPU_FUSED_OPT=kernel) "
+                "against the leafwise update", out["trainer"][0], (p, a, st))
+    del _o, p, a, st
+    for mirror in (False, True):
+        p, a, st, info = module_mirror_steps(torch, sym, params, aux, data,
+                                             MIRROR_STEPS, mirror)
+        _want_cuda0(torch, "zoo Module mirror=%s" % mirror, info["devices"])
+        out["module_mirror" if mirror else "module"] = ((p, a, st), info)
+    _equal_runs(torch, "Module with MXNET_BACKWARD_DO_MIRROR=1 against "
+                "without", out["module_mirror"][0], out["module"][0])
+    plain, mirr = out["module"][1], out["module_mirror"][1]
+    if not mirr["mirrored_segments"] or plain["mirrored_segments"]:
+        raise AssertionError("Module programs: %d mirrored segments with "
+                             "MXNET_BACKWARD_DO_MIRROR=1, %d without"
+                             % (mirr["mirrored_segments"],
+                                plain["mirrored_segments"]))
+    if not mirr["fused_step"]:
+        raise AssertionError("the mirrored Module did not take the fused "
+                             "step")
+    if DEVICE == "cuda" and not mirr["peak_bytes"] < plain["peak_bytes"]:
+        raise AssertionError("MXNET_BACKWARD_DO_MIRROR=1 peak %d bytes, "
+                             "not below the unmirrored %d"
+                             % (mirr["peak_bytes"], plain["peak_bytes"]))
+    return {k: v[1] for k, v in out.items()}
+
+
+def segment_checkpoint_trace(torch, sym):
+    """The walk of ``sym`` with each segment that
+    ``MXNET_BACKWARD_DO_MIRROR=1`` mirrors run under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the JAX
+    package's design (``jax.checkpoint`` a segment, its outputs kept),
+    written here only to measure its peak beside the port's hooks.
+    Values are dropped after their last consumer, as the port's walk
+    drops them.  Returns ``trace(args, aux) -> head tensors``."""
+    from torch.utils.checkpoint import checkpoint
+    from mxnet_tpu_torch.executor import _mirror_segments
+    topo = sym._topo()
+    op_nodes = [n for n in topo if not n.is_variable]
+    env = os.environ.get("MXNET_BACKWARD_DO_MIRROR")
+    os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+    try:
+        segments = _mirror_segments(op_nodes)
+    finally:
+        os.environ.pop("MXNET_BACKWARD_DO_MIRROR")
+        if env is not None:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = env
+    heads = [(id(n), i) for n, i in sym._heads]
+    last_use = {}
+    for pos, node in enumerate(op_nodes):
+        for c, ci in node.inputs:
+            last_use[(id(c), ci)] = pos
+    plan, pos = [], 0
+    for mirrored, nodes in segments:
+        end = pos + len(nodes)
+        inside = {id(n) for n in nodes}
+        ext = []
+        for n in nodes:
+            for c, ci in n.inputs:
+                if id(c) not in inside and (id(c), ci) not in ext:
+                    ext.append((id(c), ci))
+        outk = [(id(n), i) for n in nodes for i in range(n.num_outputs)
+                if last_use.get((id(n), i), -1) >= end
+                or (id(n), i) in heads]
+        plan.append((mirrored, nodes, ext, outk, end))
+        pos = end
+
+    def run(nodes, values, aux):
+        for node in nodes:
+            ins = [values[(id(c), ci)] for c, ci in node.inputs]
+            aux_in = [aux["%s_%s" % (node.name, a)]
+                      for a in node.op.list_auxiliary_states()]
+            outs, _upd = node.op.forward(ins, aux_in, True, None)
+            for i, o in enumerate(outs):
+                values[(id(node), i)] = o
+
+    def trace(args, aux):
+        values = {(id(n), 0): args[n.name] for n in topo if n.is_variable}
+        for mirrored, nodes, ext, outk, end in plan:
+            if not mirrored:
+                run(nodes, values, aux)
+            else:
+                def seg(*xs, nodes=nodes, ext=ext, outk=outk):
+                    local = dict(zip(ext, xs))
+                    run(nodes, local, aux)
+                    return tuple(local[k] for k in outk)
+                values.update(zip(outk, checkpoint(
+                    seg, *[values[k] for k in ext], use_reentrant=False)))
+            for k in [k for k in values if k not in heads
+                      and last_use.get(k, -1) < end]:
+                del values[k]
+        return [values[k] for k in heads]
+    return trace
+
+
+def mirror_design_peaks(torch, sym, params, aux, data):
+    """One forward and backward of ``sym`` on the card (no update), the
+    peak device memory over it above what was allocated before, for
+    three walks: the port's unmirrored program, the port's mirrored one
+    (``MXNET_BACKWARD_DO_MIRROR=1``: saved-tensor hooks that recompute
+    the segments' outputs too), and :func:`segment_checkpoint_trace`.
+    Their gradients must be equal bit for bit (deterministic cuDNN)."""
+    from mxnet_tpu_torch.executor import build_program
+    dev = torch.device(DEVICE)
+    env = os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+    try:
+        plain = build_program(sym)
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+        mirrored = build_program(sym)
+    finally:
+        os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+        if env is not None:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = env
+    walks = (("unmirrored", lambda a, x: plain.trace(a, x, None, True)[0]),
+             ("hooks", lambda a, x: mirrored.trace(a, x, None, True)[0]),
+             ("segment_checkpoint", segment_checkpoint_trace(torch, sym)))
+    p = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    a = {k: torch.as_tensor(v, device=dev) for k, v in aux.items()}
+    b = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    res, first = {}, None
+    for name, walk in walks:
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        peak_reset(torch)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        outs = walk(dict(b, **leaves), a)
+        grads = torch.autograd.grad(outs, list(leaves.values()),
+                                    [torch.ones_like(o) for o in outs])
+        torch.cuda.synchronize()
+        res[name] = {"peak_bytes": peak_bytes(torch),
+                     "peak_over_start_bytes": peak_bytes(torch) - start}
+        grads = [g.cpu() for g in grads]
+        del outs, leaves
+        if first is None:
+            first = grads
+        elif not all(torch.equal(g, f) for g, f in zip(grads, first)):
+            raise AssertionError("mirror designs: the %s walk's gradients "
+                                 "differ from the unmirrored walk's" % name)
+    res["mirrored_segments"] = mirrored.n_mirrored
+    return res
+
+
+def zoo_sweep_gate(torch, sym, params, aux, data, seed):
+    """Phase 9's gate on another network at full width, under
+    deterministic cuDNN: one step through the sweep and one leafwise,
+    each from ``mx.random.seed(seed)`` (Dropout draws the same masks),
+    parameters, aux and states bit for bit; returns the sweep run's
+    info."""
+    import mxnet_tpu_torch as mx
+    got = {}
+    for mode in ("kernel", ""):
+        mx.random.seed(seed)
+        _o, p, a, st, info = run_resnet(torch, params, aux, data, 1, mode,
+                                        sym=sym)
+        got[mode] = ((p, a, st), info)
+        del _o, p, a, st
+    if got[""][1]["launches"]["fused_opt"]:
+        raise AssertionError("a leafwise zoo run launched the sweep")
+    _want_sweep_only(got["kernel"][1], 1)
+    _equal_runs(torch, "the sweep against the leafwise update",
+                got["kernel"][0], got[""][0])
+    return got["kernel"][1]
+
+
+def zoo_timed(torch, name, kw, size, batch, seed):
+    """A network at full width: first, under deterministic cuDNN, one
+    step through the sweep against one leafwise, bit for bit
+    (:func:`zoo_sweep_gate`); then ``ZOO_TIMED_STEPS`` float32
+    ShardedTrainer steps under cuDNN's defaults after 2 counted ones
+    (the sweep once a bucket a step)."""
+    sym = zoo_symbol(name, **kw)
+    params, aux, data = seeded_zoo(sym, batch, size, seed)
+    with cudnn_deterministic(torch):
+        gate = zoo_sweep_gate(torch, sym, params, aux, data, seed)
+    torch.cuda.empty_cache()
+    _o, _p, _a, _s, info = run_resnet(torch, params, aux, data, 2, "kernel",
+                                      sym=sym, timed_steps=ZOO_TIMED_STEPS)
+    _want_sweep_only(info, 1)
+    _want_cuda0(torch, "zoo %s" % name, info["devices"])
+    info["network"], info["size"] = name, size
+    info["step_flops"] = step_flops(sym, (batch, 3, size, size))
+    info["bound_ms"], info["bound_by"] = bound_ms(0, info["step_flops"])
+    info["gate"] = gate
+    return info
+
+
+def lenet_parts(mx):
+    """LeNet (``models/lenet.py``: two 5 x 5 convolutions with tanh and
+    2 x 2 max pooling, a 500-wide tanh layer, 10 classes) as one symbol
+    and as its trunk (up to the 500-wide layer) and head (the
+    classifier), with the same names."""
+    def trunk(x):
+        for i, nf in enumerate((20, 50)):
+            x = mx.sym.Convolution(x, kernel=(5, 5), num_filter=nf,
+                                   name="conv%d" % i)
+            x = mx.sym.Activation(x, act_type="tanh", name="tanh%d" % i)
+            x = mx.sym.Pooling(x, pool_type="max", kernel=(2, 2),
+                               stride=(2, 2), name="pool%d" % i)
+        x = mx.sym.FullyConnected(mx.sym.Flatten(x, name="flatten"),
+                                  num_hidden=500, name="fc0")
+        return mx.sym.Activation(x, act_type="tanh", name="tanh2")
+
+    def head(x):
+        x = mx.sym.FullyConnected(x, num_hidden=10, name="fc1")
+        return mx.sym.SoftmaxOutput(x, name="softmax")
+    data = mx.sym.Variable("data")
+    return head(trunk(data)), trunk(data), head(data)
+
+
+def family_data(seed):
+    """LeNet's weights (uniform, Xavier's scale, numpy), zero biases, and
+    FAMILY_BATCHES batches of 1 x 28 x 28 images with labels in 10
+    classes."""
+    import mxnet_tpu_torch as mx
+    whole, _t, _h = lenet_parts(mx)
+    _outs, shapes = op_shapes(whole, (FAMILY_BATCH,) + FAMILY_SHAPE)
+    rng = np.random.RandomState(seed)
+    params = {n: (rng.uniform(-1, 1, s) * np.sqrt(3.0 / np.prod(s[1:])))
+              .astype(np.float32) if n.endswith("_weight")
+              else np.zeros(s, np.float32)
+              for n, s in shapes.items() if n not in ("data", "softmax_label")}
+    x = rng.randn(FAMILY_BATCHES * FAMILY_BATCH, *FAMILY_SHAPE)\
+        .astype(np.float32)
+    y = rng.randint(0, 10, len(x)).astype(np.float32)
+    return params, x, y
+
+
+def family_batches(torch, x, y, dtype, device):
+    return [{"data": torch.as_tensor(x[i:i + FAMILY_BATCH], dtype=dtype,
+                                     device=device),
+             "softmax_label": torch.as_tensor(y[i:i + FAMILY_BATCH],
+                                              dtype=dtype, device=device)}
+            for i in range(0, len(x), FAMILY_BATCH)]
+
+
+def trainer_fit(torch, sym, params, x, y, dtype):
+    """FeedForward.fit's training (SGD with FAMILY_SGD, rescale 1/batch,
+    the batches in order) through the port's ShardedTrainer on the CPU
+    in ``dtype``, leafwise: the float64 reference (FeedForward allocates
+    float32 parameters)."""
+    import mxnet_tpu_torch as mx
+    os.environ["MXTPU_FUSED_OPT"] = ""
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / FAMILY_BATCH,
+                              **FAMILY_SGD)
+    tr = mx.parallel.ShardedTrainer(sym, opt, ctx=mx.cpu())
+    p = {k: torch.as_tensor(v, dtype=dtype).clone()
+         for k, v in params.items()}
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    st = {n: s for n, s in st.items() if s is not None}
+    for b in family_batches(torch, x, y, dtype, "cpu"):
+        p, st, _a, _o = tr.step(p, st, {}, b)
+    return p
+
+
+def plain_lenet_fit(torch, params, x, y, dtype, device):
+    """The same training written here with no module of the port:
+    F.conv2d, tanh, max pooling, F.linear, a summed cross entropy (whose
+    gradient is SoftmaxOutput's p - onehot) and SGD with momentum."""
+    F = torch.nn.functional
+    lr, mom = FAMILY_SGD["learning_rate"], FAMILY_SGD["momentum"]
+    p = {k: torch.as_tensor(v, dtype=dtype, device=device).clone()
+         for k, v in params.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    for b in family_batches(torch, x, y, dtype, device):
+        w = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        h = b["data"]
+        for i in range(2):
+            h = F.conv2d(h, w["conv%d_weight" % i], w["conv%d_bias" % i])
+            h = F.max_pool2d(torch.tanh(h), 2, 2)
+        h = torch.tanh(F.linear(h.flatten(1), w["fc0_weight"],
+                                w["fc0_bias"]))
+        logits = F.linear(h, w["fc1_weight"], w["fc1_bias"])
+        loss = F.cross_entropy(logits, b["softmax_label"].long(),
+                               reduction="sum")
+        grads = torch.autograd.grad(loss, list(w.values()))
+        with torch.no_grad():
+            for k, g in zip(w, grads):
+                m[k] = mom * m[k] - lr * (g * (1.0 / FAMILY_BATCH))
+                p[k] = p[k] + m[k]
+    return p
+
+
+def feedforward_witness(torch, seed):
+    """FeedForward.fit of LeNet for FAMILY_BATCHES batches on ``gpu(0)``
+    and on the CPU (float32), against the port's same training on the
+    CPU in float64 (:func:`trainer_fit`): max |diff| over every
+    parameter.  The gate, as phase 9's: the card within PRECISION_FACTOR
+    times the larger float32 distance, of the CPU's fit and of
+    :func:`plain_lenet_fit` on the card (cuDNN's algorithms and the
+    CPU's round differently); the CPU's float32 fit within FAMILY_TOL of
+    the float64 reference, and the plain float64 training within 1e-10
+    of it (all three compute the same training)."""
+    import mxnet_tpu_torch as mx
+    params, x, y = family_data(seed)
+    whole, _t, _h = lenet_parts(mx)
+    dev = mx.Context.from_device(torch.device(DEVICE))
+    fits = {}
+    for ctx in (dev, mx.cpu()):
+        model = mx.FeedForward(whole, ctx=ctx, num_epoch=1,
+                               optimizer="sgd", arg_params={
+                                   k: mx.nd.array(v, ctx=ctx)
+                                   for k, v in params.items()},
+                               **FAMILY_SGD)
+        model.fit(mx.io.NDArrayIter(x, y, batch_size=FAMILY_BATCH))
+        if ctx is dev and any(v.data.device.type != DEVICE
+                              for v in model.arg_params.values()):
+            raise AssertionError("FeedForward.fit on %s left parameters "
+                                 "elsewhere" % ctx)
+        fits[str(ctx)] = {k: v.data.double().cpu()
+                          for k, v in model.arg_params.items()}
+    ref = trainer_fit(torch, whole, params, x, y, torch.float64)
+    plain = {dt: plain_lenet_fit(torch, params, x, y, dt, d)
+             for dt, d in ((torch.float32, DEVICE), (torch.float64, "cpu"))}
+
+    def dist(p):
+        return max(float((p[k].double().cpu() - ref[k]).abs().max())
+                   for k in params)
+    got = {"device_vs_cpu64": dist(fits[str(dev)]),
+           "cpu32_vs_cpu64": dist(fits["cpu(0)"]),
+           "plain_device32_vs_cpu64": dist(plain[torch.float32]),
+           "plain64_vs_cpu64": dist(plain[torch.float64]),
+           "largest_update": max(float((ref[k] - torch.as_tensor(
+               params[k], dtype=torch.float64)).abs().max()) for k in params)}
+    got["ok"] = (got["device_vs_cpu64"] <= PRECISION_FACTOR * max(
+        got["cpu32_vs_cpu64"], got["plain_device32_vs_cpu64"])
+        and got["cpu32_vs_cpu64"] <= FAMILY_TOL
+        and got["plain64_vs_cpu64"] <= 1e-10)
+    return got
+
+
+def phase_family(torch, seed):
+    """The Module family on the card, LeNet at batch 16 (the point is
+    the API): FeedForward.fit on ``gpu(0)`` against the port's same
+    training on the CPU in float64 (:func:`feedforward_witness`, under
+    deterministic cuDNN); a Monitor through ``fit(monitor=...)`` and on a
+    monitored forward; a SequentialModule of the trunk and the head
+    against one Module of the whole."""
+    import mxnet_tpu_torch as mx
+    with cudnn_deterministic(torch):
+        ff = feedforward_witness(torch, seed)
+    if not ff["ok"]:
+        raise AssertionError("FeedForward.fit on the card: %s (gates: the "
+                             "card within %g times the larger float32 "
+                             "distance, the CPU's float32 within %g, the "
+                             "plain float64 within 1e-10)"
+                             % (json.dumps(ff), PRECISION_FACTOR,
+                                FAMILY_TOL))
+    params, x, y = family_data(seed)
+    whole, trunk, head = lenet_parts(mx)
+    dev = mx.Context.from_device(torch.device(DEVICE))
+    # the Monitor: through fit (its forward_backward reports the
+    # arguments at toc, as in the JAX package), then a monitored forward
+    mon = mx.Monitor(interval=1, pattern=".*weight")
+    records = []
+    mon.toc_print = lambda: records.extend(mon.toc())
+    mod = mx.mod.Module(whole, context=dev)
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=FAMILY_BATCH), num_epoch=1,
+            monitor=mon, optimizer_params={"learning_rate": 0.1},
+            arg_params={k: mx.nd.array(v, ctx=dev)
+                        for k, v in params.items()})
+    weights = [n for n in whole.list_arguments() if n.endswith("weight")]
+    if sorted(n for _s, n, _v in records) \
+            != sorted(weights * FAMILY_BATCHES):
+        raise AssertionError("fit(monitor=...) recorded %s"
+                             % [n for _s, n, _v in records])
+    op_mon = mx.Monitor(interval=1, pattern=".*_output")
+    mod.install_monitor(op_mon)
+    op_mon.tic()
+    mod.forward(mx.io.DataBatch([mx.nd.array(x[:FAMILY_BATCH], ctx=dev)],
+                                [mx.nd.array(y[:FAMILY_BATCH], ctx=dev)]),
+                is_train=False)
+    op_records = op_mon.toc()
+    want = ["%s_%s" % (n.name, o) for n in whole._topo()
+            if not n.is_variable for o in n.op.list_outputs()]
+    stats = [float(v.split("\t")[0]) for _s, _n, v in records + op_records]
+    if [n for _s, n, _v in op_records] != want \
+            or not all(np.isfinite(stats)):
+        raise AssertionError("the monitored forward recorded %s (want "
+                             "%s), finite %s"
+                             % ([n for _s, n, _v in op_records], want,
+                                all(np.isfinite(stats))))
+    # SequentialModule of the trunk and the head, one batch
+    seq_params = {}
+    for kind in ("sequential", "module"):
+        if kind == "sequential":
+            m = mx.mod.SequentialModule()
+            m.add(mx.mod.Module(trunk, label_names=None, context=dev))
+            m.add(mx.mod.Module(head, context=dev), take_labels=True,
+                  auto_wiring=True)
+        else:
+            m = mx.mod.Module(whole, context=dev)
+        m.bind(data_shapes=[("data", (FAMILY_BATCH,) + FAMILY_SHAPE)],
+               label_shapes=[("softmax_label", (FAMILY_BATCH,))])
+        m.init_params(arg_params={k: mx.nd.array(v, ctx=dev)
+                                  for k, v in params.items()},
+                      aux_params={}, allow_missing=False)
+        m.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        m.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x[:FAMILY_BATCH], ctx=dev)],
+            [mx.nd.array(y[:FAMILY_BATCH], ctx=dev)]))
+        m.update()
+        seq_params[kind] = {k: v.asnumpy()
+                            for k, v in m.get_params()[0].items()}
+    seq_err = max(float(np.abs(seq_params["sequential"][k]
+                               - seq_params["module"][k]).max())
+                  for k in params)
+    if not seq_err <= FAMILY_TOL:
+        raise AssertionError("SequentialModule(trunk, head): parameters %g "
+                             "from the one Module's (gate %g)"
+                             % (seq_err, FAMILY_TOL))
+    return {"feedforward": ff, "sequential_vs_module": seq_err,
+            "monitor_fit_records": len(records),
+            "monitor_forward_records": len(op_records),
+            "tolerance": FAMILY_TOL}
+
+
+def phase_zoo(torch, seed, smi, resnet):
+    """Phase 12: Inception-BN at full width (the slice's main path)
+    through ShardedTrainer in float32 and bfloat16 under cuDNN's
+    defaults, beside phase 9's ResNet-50; under deterministic cuDNN its
+    float64 witness, the sweep against the leafwise update bit for bit,
+    mirroring on it and the peaks of the two mirroring designs; the
+    other four networks (each one step through the sweep against one
+    leafwise, bit for bit, then timed); train_imagenet.py --network
+    inception-bn on phase 11's records; the Module family."""
+    t_phase = time.perf_counter()
+    sym = zoo_symbol("inception_bn")
+    params, aux, data = seeded_zoo(sym, ZOO_BATCH, ZOO_SIZE, seed + 29)
+    log("zoo main path: " + _cudnn_settings(torch))
+    main = {}
+    for dt in (None, "bfloat16"):
+        _o, _p, _a, _s, info = run_resnet(torch, params, aux, data, 3,
+                                          "kernel", compute_dtype=dt,
+                                          sym=sym, timed_steps=5)
+        _want_sweep_only(info, 1)
+        _want_cuda0(torch, "zoo inception-bn %s" % info["compute_dtype"],
+                    info["devices"])
+        main[info["compute_dtype"]] = info
+        del _p, _a, _s
+    flops = step_flops(sym, (ZOO_BATCH, 3, ZOO_SIZE, ZOO_SIZE))
+    for dt, r in main.items():
+        rate = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
+        r["step_flops"] = flops
+        r["bound_ms"], r["bound_by"] = bound_ms(0, flops, rate)
+        log("zoo inception-bn %s batch %d: %.3f ms/step (median of %d: %s), "
+            "%.1f images/s, against phase 9's ResNet-50 %.3f ms/step, %.1f "
+            "images/s; bound %.3f ms (%.3g TFLOP a step); sweep launches in "
+            "%d steps %s (%d buckets, elements %s); on %s"
+            % (dt, ZOO_BATCH, r["step_ms"], len(r["step_ms_all"]),
+               ", ".join("%.2f" % t for t in r["step_ms_all"]),
+               r["images_per_s"], resnet[dt]["step_ms"],
+               resnet[dt]["images_per_s"], r["bound_ms"], flops / 1e12,
+               r["steps"], r["launches"]["fused_opt"], r["buckets"],
+               r["bucket_sizes"], smi))
+    torch.cuda.empty_cache()
+    with cudnn_deterministic(torch):
+        log("zoo gates: " + _cudnn_settings(torch))
+        witness = zoo_train_witness(torch, sym, seed)
+        log("zoo inception-bn precision, %d steps at batch %d [softmax "
+            "outputs, parameters]: %s"
+            % (witness["steps"], witness["batch"], json.dumps(witness)))
+        if not witness["ok"]:
+            raise AssertionError("inception-bn: the card is more than %g "
+                                 "times as far from the CPU's float64 "
+                                 "steps as the CPU's float32 steps"
+                                 % PRECISION_FACTOR)
+        mirror = phase_zoo_mirror(torch, sym, params, aux, data)
+        for k, r in mirror.items():
+            log("zoo mirror %s: %d steps at batch %d, peak %.1f MB, %.3f "
+                "ms/step (%s)%s"
+                % (k, MIRROR_STEPS, ZOO_BATCH, r["peak_bytes"] / 1e6,
+                   r["step_ms"], ", ".join("%.2f" % t
+                                           for t in r["step_ms_all"]),
+                   "; %d mirrored segments" % r["mirrored_segments"]
+                   if "mirrored_segments" in r else ""))
+        log("zoo mirror gates: the sweep == leafwise, remat=True == "
+            "remat=False and MXNET_BACKWARD_DO_MIRROR=1 == unset, bitwise "
+            "(parameters, aux, states); mirrored peak %.1f MB below %.1f "
+            "MB; on %s"
+            % (mirror["module_mirror"]["peak_bytes"] / 1e6,
+               mirror["module"]["peak_bytes"] / 1e6, smi))
+        designs = mirror_design_peaks(torch, sym, params, aux, data)
+        log("zoo mirror designs, one forward and backward at batch %d, "
+            "peak above the start (absolute): %s; gradients equal bit for "
+            "bit; on %s"
+            % (ZOO_BATCH, ", ".join(
+                "%s %.1f MB (%.1f MB)" % (k, designs[k]
+                                          ["peak_over_start_bytes"] / 1e6,
+                                          designs[k]["peak_bytes"] / 1e6)
+                for k in ("unmirrored", "hooks", "segment_checkpoint")),
+               smi))
+        forwards = {}
+        for name, kw, size, _batch in ZOO_NETS:
+            forwards[name] = zoo_forward_witness(torch, zoo_symbol(name, **kw),
+                                                 size, seed)
+            log("zoo %s forward at batch %d, softmax outputs: %s"
+                % (name, ZOO_WITNESS_BATCH, json.dumps(forwards[name])))
+            if not forwards[name]["ok"]:
+                raise AssertionError("%s forward: the port on the card is "
+                                     "more than %g times as far from the "
+                                     "plain float64 forward as the plain "
+                                     "float32 one, or the port's float64 "
+                                     "on the CPU is not the plain float64"
+                                     % (name, PRECISION_FACTOR))
+    torch.cuda.empty_cache()
+    others = {}
+    for name, kw, size, batch in ZOO_NETS:
+        r = others[name] = zoo_timed(torch, name, kw, size, batch, seed)
+        log("zoo %s float32 batch %d at %d x %d: %.3f ms/step (median of "
+            "%d: %s), %.1f images/s; bound %.3f ms; sweep launches in %d "
+            "steps %d, buckets of %s elements; one step through the sweep "
+            "== leafwise bitwise (deterministic cuDNN); on %s"
+            % (name, batch, size, size, r["step_ms"], len(r["step_ms_all"]),
+               ", ".join("%.2f" % t for t in r["step_ms_all"]),
+               r["images_per_s"], r["bound_ms"], r["steps"],
+               r["launches"]["fused_opt"], r["bucket_sizes"], smi))
+        torch.cuda.empty_cache()
+    # train_imagenet.py --network inception-bn over phase 11's records
+    path = os.path.join(feed_dir("imagenet"), "train.rec")
+    reset_counts()
+    fit_mod, ends = run_train_imagenet(
+        torch, seed, os.path.dirname(path),
+        os.path.join(feed_dir("ckpt"), "inception-bn"), True,
+        network="inception-bn")
+    counts = read_counts()
+    ex = fit_mod._exec_group.execs[0]
+    want_dev = torch.device("cuda", 0) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    if ex._device != want_dev or any(
+            v.data.device != want_dev for v in fit_mod.get_params()[0]
+            .values()):
+        raise AssertionError("train_imagenet.py --network inception-bn ran "
+                             "on %s, not %s" % (ex._device, want_dev))
+    if any(counts[k] for k in counts if k != "fused_opt_by_body") \
+            or counts["fused_opt_by_body"]:
+        raise AssertionError("Module.fit launched hand kernels %s" % counts)
+    fit = {"images_per_s": (len(ends) - 1) * RESNET_BATCH
+           / (ends[-1] - ends[0]), "batches": len(ends),
+           "device": str(ex._device), "launches": counts}
+    log("zoo train_imagenet.py --network inception-bn (Module.fit, "
+        "MXTPU_PREFETCH=1, --data-dtype uint8) on %s, %d batches of %d: "
+        "%.1f images/s (batches 2-%d); no hand kernel launched; on %s"
+        % (ex._device, len(ends), RESNET_BATCH, fit["images_per_s"],
+           len(ends), smi))
+    del fit_mod
+    torch.cuda.empty_cache()
+    family = phase_family(torch, seed)
+    log("zoo module family on %s: %s" % (DEVICE, json.dumps(family)))
+    log("zoo phase: %.1f s" % (time.perf_counter() - t_phase))
+    return {"main": main, "witness": witness, "mirror": mirror,
+            "mirror_designs": designs, "forwards": forwards,
+            "others": others, "train_imagenet": fit, "family": family}
 
 
 # ----------------------------------------------------------------------
@@ -3686,6 +4636,7 @@ def main(argv=None):
         resnet = run("9", phase_resnet, torch, args.seed, smi)
         module = run("10", phase_module, torch, args.seed, smi)
         feed = run("11", phase_feed, torch, args.seed, smi, resnet, module)
+        zoo = run("12", phase_zoo, torch, args.seed, smi, resnet)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -3725,11 +4676,24 @@ def main(argv=None):
     feed_main = sum(feed["trainer"][d]["launches"]["fused_opt"]
                     for d in ("float32", "bfloat16"))
     launches["fused_opt"] += feed_main
+    # the model zoo (phase 12): Inception-BN through ShardedTrainer,
+    # float32 and bfloat16, is its main path; the witness, the mirroring
+    # gates and the other four networks are counted apart
+    zoo_main = sum(zoo["main"][d]["launches"]["fused_opt"]
+                   for d in ("float32", "bfloat16"))
+    launches["fused_opt"] += zoo_main
     resnet_other = {"resnet50_gate_" + n: g["launches"]
                     for n, g in resnet["gates"].items()}
     resnet_other["resnet50_witness_batch8"] = resnet["witness"]["launches"]
     resnet_other["resnet50_image_feed_gate"] = \
         feed["trainer"]["gate"]["launches"]
+    resnet_other["inception_bn_witness_batch2"] = zoo["witness"]["launches"]
+    for k in ("trainer", "remat"):
+        resnet_other["inception_bn_mirror_gate_" + k] = \
+            zoo["mirror"][k]["launches"]
+    for name, r in zoo["others"].items():
+        resnet_other[name + "_training"] = r["launches"]
+        resnet_other[name + "_sweep_gate"] = r["gate"]["launches"]
     transformer_sweeps = train["float32"]["launches"]["fused_opt"] \
         + train["bfloat16"]["launches"]["fused_opt"]
     # by body, over every path in launches_by_path
@@ -3737,6 +4701,7 @@ def main(argv=None):
     for c in [resnet[d]["launches"] for d in ("float32", "bfloat16")] \
             + [feed["trainer"][d]["launches"]
                for d in ("float32", "bfloat16")] \
+            + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -3790,7 +4755,8 @@ def main(argv=None):
             k["launches_by_path"] = dict(
                 {"transformer_training": transformer_sweeps,
                  "resnet50_training": resnet_main,
-                 "resnet50_image_feed": feed_main},
+                 "resnet50_image_feed": feed_main,
+                 "inception_bn_training": zoo_main},
                 **{p: c["fused_opt"] for p, c in resnet_other.items()})
         elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
@@ -3844,6 +4810,7 @@ def main(argv=None):
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
+                       "zoo": zoo,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -7,8 +7,10 @@ differs only in the import line (and, through ``common.py``, in
 ``train.rec`` (and ``val.rec``), e.g. from ``python -m
 mxnet_tpu_torch.tools.im2rec --pack-raw 3 224 224``; ``--data-dtype
 uint8`` ships raw pixels, widened to float32 on the GPU;
-``MXTPU_PREFETCH=1`` turns on ``Module.fit``'s async device feed.  The
-networks other than ResNet raise ``MXNetError`` until they are ported;
+``MXTPU_PREFETCH=1`` turns on ``Module.fit``'s async device feed, and
+``MXNET_BACKWARD_DO_MIRROR=1`` recomputes the BatchNorm, ReLU and
+pooling outputs in the backward instead of keeping them.  Every network
+of ``NETS`` runs (Inception-v3 at 299 x 299, the others at 224 x 224);
 ``--kvstore dist_sync`` comes with the multi-GPU slice.
 """
 import argparse

@@ -23,7 +23,13 @@ and never ``jax`` or ``mxnet_tpu``.  These slices are ported:
   and ``lr_scheduler``, through ``parallel.ShardedTrainer`` (the fused
   sweep has a CUDA body for every elementwise optimizer) and through
   ``mod.Module.fit`` (``io.NDArrayIter``, ``metric``, ``callback``,
-  ``kvstore.create("local")``, ``model``'s checkpoints);
+  ``kvstore.create("local")``, ``model``'s checkpoints), with the model
+  zoo (``alexnet``, ``vgg``, ``googlenet``, ``inception_bn``,
+  ``inception_v3``: Concat, LRN), the executor's mirroring
+  (``force_mirroring``, ``MXNET_BACKWARD_DO_MIRROR``) and
+  ``ShardedTrainer(remat=True)``, Symbol arithmetic and
+  ``Symbol.grad``, the ``Monitor``, ``SequentialModule``,
+  ``PythonModule`` and ``FeedForward``;
 - the image feed: ``recordio`` (files byte for byte the JAX package's),
   ``io.ImageRecordIter`` over the native decode pool (``engine``,
   ``lib/libmxtpu.so`` built from ``src/`` at first use), ``image``,
@@ -60,3 +66,6 @@ from . import io, kvstore, model                  # noqa: F401
 from . import engine, image, recordio             # noqa: F401
 from . import module                              # noqa: F401
 from . import module as mod                       # noqa: F401
+from . import executor, executor_manager, monitor  # noqa: F401
+from .model import FeedForward                    # noqa: F401
+from .monitor import Monitor                      # noqa: F401

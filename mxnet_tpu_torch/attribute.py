@@ -55,9 +55,8 @@ def mirror_scope(stage_name, enabled=True):
     recompute: ``force_mirroring`` and ``mirror_stage=stage_name`` (ops
     sharing a stage form one recomputed segment).  ``enabled=False``
     returns a no-op context, so model builders can expose a
-    ``mirror_blocks`` flag without branching.  The port's executor does
-    not recompute yet: ``executor.build_program`` refuses a graph with
-    these tags."""
+    ``mirror_blocks`` flag without branching (``executor.build_program``
+    turns the tags into recomputed segments)."""
     if not enabled:
         import contextlib
         return contextlib.nullcontext()

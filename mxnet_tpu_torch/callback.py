@@ -3,9 +3,9 @@
 The port's slice of ``mxnet_tpu/callback.py``: ``do_checkpoint``,
 ``module_checkpoint``, ``log_train_metric``, ``Speedometer``,
 ``ProgressBar`` and the ``BatchEndParam`` namedtuple shared with
-``Module.fit``.  ``do_checkpoint`` saves synchronously (the JAX
-package's ``run_async`` goes through its dependency engine, which the
-port does not have).
+``Module.fit`` and ``FeedForward.fit``.  ``do_checkpoint(...,
+run_async=True)`` pushes the write through the dependency engine
+(``engine.get()``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -22,15 +22,38 @@ BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
-def do_checkpoint(prefix, period=1):
+def do_checkpoint(prefix, period=1, run_async=False):
     """Epoch-end callback to checkpoint the model (parity: callback.py
-    do_checkpoint -> model.save_checkpoint)."""
+    do_checkpoint -> model.save_checkpoint).
+
+    ``run_async=True`` snapshots the parameters (copies, on their
+    device) and pushes the serialization and write through the
+    dependency engine, so the next epoch's compute overlaps the disk
+    write; one engine variable per callback orders its checkpoints.
+    Call ``engine.get().wait_for_all()`` before reading the files.
+    """
     period = int(max(1, period))
+    state = {"var": None}
+
+    def _save(iter_no, sym, arg, aux):
+        from .model import save_checkpoint
+        save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
 
     def _callback(iter_no, sym, arg, aux):
-        if (iter_no + 1) % period == 0:
-            from .model import save_checkpoint
-            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+        if (iter_no + 1) % period != 0:
+            return
+        if not run_async:
+            _save(iter_no, sym, arg, aux)
+            return
+        from . import engine as _engine
+        eng = _engine.get()
+        if state["var"] is None:
+            state["var"] = eng.new_variable()
+        # snapshot copies NOW: the epoch loop mutates the live params
+        arg = {k: v.copy() for k, v in arg.items()}
+        aux = {k: v.copy() for k, v in aux.items()}
+        eng.push(lambda: _save(iter_no, sym, arg, aux),
+                 mutable_vars=[state["var"]])
     return _callback
 
 

@@ -21,30 +21,36 @@ each node's ``forward`` eagerly on torch tensors in post-DFS order.
   inferred shapes.
 
 Executors share programs through a registry keyed like the JAX
-package's ``_lookup_program``: graph fingerprint, device and
-``MXNET_COMPUTE_DTYPE``.  ``build_program`` runs once a key, so the
-per-bucket binds of one model share one program, and
+package's ``_lookup_program``: graph fingerprint, device,
+``MXNET_COMPUTE_DTYPE`` and the mirroring envs.  ``build_program`` runs
+once a key, so the per-bucket binds of one model share one program, and
 :func:`program_registry_stats` counts the builds ("lowerings") and the
 hits: a warmed server performs zero lowerings.  The walk is the same
 function for inference and training, so one program serves both; the
 fused step's own state (the optimizer's hyperparameters, multipliers
 and compute dtype) is keyed on the executor (:meth:`Executor._fused`).
 
-Mirroring (recomputed segments) and the Monitor belong to later slices.
+Mirroring (``force_mirroring``, ``MXNET_BACKWARD_DO_MIRROR``) recomputes
+segments of the graph in the backward instead of keeping what they save
+(:func:`build_program`); :meth:`Executor.set_monitor_callback` reports
+every op output of a forward to a ``monitor.Monitor``.
 """
 from __future__ import annotations
 
+import functools
 import os
 import threading
+import weakref
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .base import MXNetError
 from .context import Context, resolve
 from .ndarray import NDArray, zeros
 
 __all__ = ["Executor", "build_program", "program_registry_stats",
-           "simple_bind"]
+           "simple_bind", "trace_residual_bytes"]
 
 
 def _as_list(obj, names, what):
@@ -61,55 +67,375 @@ def _as_list(obj, names, what):
 
 class Program:
     """A symbol's graph walk: ``trace(arg_values, aux_values, rng,
-    is_train) -> (outputs, aux_updates)`` on name -> tensor dicts, with
-    autograd on, and ``needs_rng``: whether an op of the graph declares
-    ``need_rng``.  ``rng`` is a ``torch.Generator`` (or None), handed to
-    every such op."""
+    is_train, monitor=None, mirror=True) -> (outputs, aux_updates)`` on
+    name -> tensor dicts, with autograd on; ``needs_rng``: whether an op
+    of the graph declares ``need_rng``; ``segments``: the
+    :func:`_mirror_segments` partition, and ``n_mirrored`` the number of
+    its recomputed segments.  ``rng`` is a ``torch.Generator`` (or
+    None), handed to every op that declares ``need_rng``; ``monitor``,
+    a callable ``(name, tensor)``, sees every op output (and turns
+    mirroring off for the call); ``mirror=False`` runs the graph
+    unmirrored."""
 
-    __slots__ = ("trace", "needs_rng")
+    __slots__ = ("trace", "needs_rng", "segments", "n_mirrored")
 
-    def __init__(self, trace, needs_rng):
+    def __init__(self, trace, needs_rng, segments=(), n_mirrored=0):
         self.trace = trace
         self.needs_rng = needs_rng
+        self.segments = segments
+        self.n_mirrored = n_mirrored
+
+
+def _mirror_segments(op_nodes):
+    """Partition the op schedule into recompute segments (the mirror map
+    of MakeBackwardPass, static_graph.cc:396-440), by the JAX package's
+    rules: a node is mirrored when its ``force_mirroring`` attr is true,
+    or with ``MXNET_BACKWARD_DO_MIRROR=1`` for every op type outside the
+    skip list (Convolution, FullyConnected, Concat, SoftmaxOutput,
+    CuDNNBatchNorm) except every ``MXNET_BACKWARD_MIRROR_STEP``-th
+    eligible node (default 100; <= 0 means never).  Dropout is never
+    mirrored.  Consecutive mirrored nodes form one segment, split where
+    their ``mirror_stage`` attrs differ.  Returns ``[(is_mirror,
+    [nodes])]``."""
+    do_mirror = int(os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") or 0)
+    mirror_step = int(os.environ.get("MXNET_BACKWARD_MIRROR_STEP",
+                                     "100") or 100)
+    if mirror_step <= 0:
+        mirror_step = 1 << 62   # never hit the periodic keep
+    counter = [0]
+    env_skip = {"Convolution", "FullyConnected", "Concat", "SoftmaxOutput",
+                "CuDNNBatchNorm"}
+
+    def need(node):
+        t = type(node.op).op_name or type(node.op).__name__
+        if t == "Dropout":
+            return False
+        if str(node.attrs.get("force_mirroring", "")).lower() in ("true",
+                                                                  "1"):
+            return True
+        if not do_mirror:
+            return False
+        if t in env_skip:
+            return False
+        counter[0] += 1
+        if counter[0] % mirror_step == 0:
+            return False
+        return True
+
+    segments = []
+    for node in op_nodes:
+        m = need(node)
+        stage = node.attrs.get("mirror_stage") if m else None
+        if segments and segments[-1][0] == m and segments[-1][2] == stage:
+            segments[-1][1].append(node)
+        else:
+            segments.append([m, [node], stage])
+    return [(m, nodes) for m, nodes, _stage in segments]
+
+
+#: per thread: a list that collects the tensors a training walk keeps
+#: for the backward (``trace_residual_bytes``), or None
+_RESIDUALS = threading.local()
+
+
+def _keep(t):
+    """A tensor kept for the backward, as a pack hook returns it:
+    detached (autograd puts its history back on unpack; the tensor itself
+    would tie the graph into a reference cycle through its own grad_fn,
+    freed only by the garbage collector)."""
+    t = t.detach()
+    col = getattr(_RESIDUALS, "tensors", None)
+    if col is not None:
+        col.append(t)
+    return t
+
+
+def _generator_at(device, state):
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+class _Handle:
+    """What the autograd graph keeps in place of a recomputed tensor: its
+    segment and its key there (the k-th save, or a produced value)."""
+
+    __slots__ = ("rec", "key", "__weakref__")
+
+    def __init__(self, rec, key):
+        self.rec = rec
+        self.key = key
+
+
+class _Recompute:
+    """One mirrored segment of one training walk: its input tensors (kept
+    for the recompute), the generator state at its start, the handles the
+    graph holds, and, once recomputed in the backward, the tensor of each
+    live handle.  A handle dies with the graph node that saved it (after
+    that node's backward), and its tensor with it: the copies live from
+    the first unpack to the last backward that reads them."""
+
+    __slots__ = ("nodes", "ext_keys", "ext_vals", "ext_grad", "aux_values",
+                 "is_train", "rng_device", "rng_state", "n_saves", "handles",
+                 "cache", "run_node", "__weakref__")
+
+    def __init__(self, nodes, ext_keys, ext_vals, aux_values, is_train,
+                 rng, run_node):
+        self.nodes = nodes
+        self.ext_keys = ext_keys
+        # detached copies and requires_grad flags: no reference to their
+        # history
+        self.ext_vals = [_keep(v) for v in ext_vals]
+        self.ext_grad = [v.requires_grad for v in ext_vals]
+        self.aux_values = aux_values
+        self.is_train = is_train
+        self.run_node = run_node
+        self.rng_device = self.rng_state = None
+        if rng is not None and any(getattr(n.op, "need_rng", False)
+                                   for n in nodes):
+            self.rng_device, self.rng_state = rng.device, rng.get_state()
+        self.n_saves = 0
+        self.handles = weakref.WeakSet()
+        self.cache = weakref.WeakKeyDictionary()
+
+    def handle(self, key):
+        h = _Handle(self, key)
+        self.handles.add(h)
+        return h
+
+    def generator(self):
+        if self.rng_state is None:
+            return None
+        return _generator_at(self.rng_device, self.rng_state)
+
+    def _recompute(self):
+        """Run the segment again from its inputs (detached, with their
+        requires_grad) with autograd on, recording what its ops save, in
+        order: the same ops on the same inputs save the same tensors in
+        the same order as the first run, whose k-th save this answers."""
+        saved = []
+
+        def pack(t):
+            saved.append(t.detach())
+            return saved[-1]
+
+        local = {}
+        for k, v, g in zip(self.ext_keys, self.ext_vals, self.ext_grad):
+            d = v.detach()
+            local[k] = d.requires_grad_(g) if d.is_floating_point() else d
+        gen = self.generator()
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            for node in self.nodes:
+                self.run_node(node, local, self.aux_values, {}, gen,
+                              self.is_train, None)
+        for h in list(self.handles):
+            self.cache[h] = saved[h.key] if isinstance(h.key, int) \
+                else local[h.key].detach()
+
+    def get(self, h):
+        if h not in self.cache:
+            self._recompute()
+        return self.cache[h]
+
+
+class _MirrorHooks:
+    """The saved-tensor hooks of one mirrored training walk.  A tensor an
+    op saves inside a mirrored segment, or a value a mirrored node
+    produced that an op outside saves (a convolution reading a mirrored
+    ReLU's output), is packed as a handle and recomputed in the backward
+    (the reference's backward reads the mirrored copies); anything else,
+    and a segment's own inputs, is kept."""
+
+    def __init__(self):
+        self.current = None     # the _Recompute of the running segment
+        self.inputs = ()        # its input tensors, while it runs
+        self.produced = WeakIdKeyDictionary()   # tensor -> (_Recompute, key)
+
+    def pack(self, t):
+        rec = self.current
+        if rec is not None:
+            k = rec.n_saves
+            rec.n_saves += 1
+            if any(t is x for x in self.inputs):
+                return t.detach()   # held by the segment anyway
+            return rec.handle(k)
+        ent = self.produced.get(t)
+        if ent is not None:
+            return ent[0].handle(ent[1])
+        return _keep(t)
+
+    @staticmethod
+    def unpack(h):
+        if isinstance(h, torch.Tensor):
+            return h
+        return h.rec.get(h)
 
 
 def build_program(symbol):
     """The counterpart of ``mxnet_tpu.executor._build_program(symbol,
-    {})``: flatten the graph into one schedule, once."""
+    {})``: flatten the graph into one schedule, once.
+
+    The walk drops each value after its last consumer (the heads stay).
+    Mirrored nodes (:func:`_mirror_segments`) run in the forward like
+    any other, under saved-tensor hooks (:class:`_MirrorHooks`): what
+    they save, and what outside ops save of their outputs, is recomputed
+    from the segment's inputs when the backward first needs it.  This
+    departs from the JAX package, which wraps each segment in
+    ``jax.checkpoint`` and so keeps the segment's outputs: a
+    BatchNorm-ReLU segment's output is what the next convolution saves,
+    and the reference's backward reads its mirrored copy instead.  On
+    Inception-BN the port's design keeps less than a per-segment
+    ``torch.utils.checkpoint`` does (PERF.md, section 6).  A segment that
+    draws random numbers draws them from a copy of the generator at the
+    segment's state, and its recompute from another copy at that same
+    state, so it replays the same stream; the caller's generator then
+    moves on as if unmirrored.  The BatchNorm aux updates come from the
+    forward only: the recompute's are dropped."""
     topo = symbol._topo()
     variables = [n for n in topo if n.is_variable]
     op_nodes = [n for n in topo if not n.is_variable]
     heads = list(symbol._heads)
     needs_rng = any(getattr(n.op, "need_rng", False) for n in op_nodes)
-    for node in op_nodes:
-        if node.attrs.get("force_mirroring") or "mirror_stage" in node.attrs:
-            raise MXNetError("%s: mirrored (recomputed) segments are not "
-                             "ported yet" % node.name)
+    segments = _mirror_segments(op_nodes)
+    n_mirrored = sum(1 for m, _ in segments if m)
 
-    def trace(arg_values, aux_values, rng, is_train):
+    head_keys = {(id(n), i) for n, i in heads}
+    last_use = {}
+    for pos, node in enumerate(op_nodes):
+        for c, ci in node.inputs:
+            last_use[(id(c), ci)] = pos
+    frees = [[] for _ in op_nodes]     # values dead after position pos
+    for pos, node in enumerate(op_nodes):
+        for i in range(node.num_outputs):
+            key = (id(node), i)
+            if key not in head_keys and key not in last_use:
+                frees[pos].append(key)
+    for key, pos in last_use.items():
+        if key not in head_keys:
+            frees[pos].append(key)
+
+    # the mirrored segments by their first position: (nodes, ordered
+    # keys of the inputs from outside the segment)
+    seg_at = {}
+    pos_of = {id(n): p for p, n in enumerate(op_nodes)}
+    for m, nodes in segments:
+        if not m:
+            continue
+        inside = {id(n) for n in nodes}
+        ext = []
+        for n in nodes:
+            for c, ci in n.inputs:
+                if id(c) not in inside and (id(c), ci) not in ext:
+                    ext.append((id(c), ci))
+        seg_at[pos_of[id(nodes[0])]] = (nodes, ext)
+
+    # a Symbol.grad node walks its base graph through a program built
+    # here, under the envs this build reads (the registry keys on them)
+    forwards = {id(n): functools.partial(n.op.forward,
+                                         trace=build_program(n.op._base).trace)
+                for n in op_nodes if hasattr(n.op, "_base")}
+
+    def run_node(node, values, aux_values, aux_out, rng, is_train, monitor):
+        op = node.op
+        ins = [values[(id(c), ci)] for c, ci in node.inputs]
+        aux_names = ["%s_%s" % (node.name, a)
+                     for a in op.list_auxiliary_states()]
+        aux_in = [aux_values[a] for a in aux_names]
+        key = rng if getattr(op, "need_rng", False) else None
+        outs, aux_updates = forwards.get(id(node), op.forward)(
+            ins, aux_in, is_train, key)
+        for i, o in enumerate(outs):
+            values[(id(node), i)] = o
+        if aux_updates is not None:
+            for a, u in zip(aux_names, aux_updates):
+                aux_out[a] = u
+        if monitor is not None:
+            for oname, o in zip(op.list_outputs(), outs):
+                monitor("%s_%s" % (node.name, oname), o)
+
+    def trace(arg_values, aux_values, rng, is_train, monitor=None,
+              mirror=True):
         values = {}
         aux_out = dict(aux_values)
         for node in variables:
             values[(id(node), 0)] = arg_values[node.name]
-        for node in op_nodes:
-            op = node.op
-            ins = [values[(id(c), ci)] for c, ci in node.inputs]
-            aux_names = ["%s_%s" % (node.name, a)
-                         for a in op.list_auxiliary_states()]
-            aux_in = [aux_values[a] for a in aux_names]
-            key = rng if getattr(op, "need_rng", False) else None
-            outs, aux_updates = op.forward(ins, aux_in, is_train, key)
-            for i, o in enumerate(outs):
-                values[(id(node), i)] = o
-            if aux_updates is not None:
-                for a, u in zip(aux_names, aux_updates):
-                    aux_out[a] = u
+        # a monitor observes every op output (a recompute would report
+        # them twice): monitored walks run unmirrored, as in the JAX
+        # package; so do walks that record no gradient
+        hooks = _MirrorHooks() if (n_mirrored and mirror and monitor is None
+                                   and torch.is_grad_enabled()) else None
+        if hooks is None:
+            for pos, node in enumerate(op_nodes):
+                run_node(node, values, aux_values, aux_out, rng, is_train,
+                         monitor)
+                for key in frees[pos]:
+                    values.pop(key, None)
+        else:
+            with torch.autograd.graph.saved_tensors_hooks(hooks.pack,
+                                                          hooks.unpack):
+                _mirrored_walk(hooks, values, aux_values, aux_out, rng,
+                               is_train)
         return [values[(id(n), i)] for n, i in heads], aux_out
 
-    return Program(trace, needs_rng)
+    def _mirrored_walk(hooks, values, aux_values, aux_out, rng, is_train):
+        pos, gen, end = 0, rng, -1
+        while pos < len(op_nodes):
+            if pos in seg_at:
+                nodes, ext = seg_at[pos]
+                hooks.inputs = [values[k] for k in ext]
+                rec = _Recompute(nodes, ext, hooks.inputs, aux_values,
+                                 is_train, rng, run_node)
+                hooks.current, end = rec, pos + len(nodes)
+                gen = rec.generator() or rng
+            node = op_nodes[pos]
+            run_node(node, values, aux_values, aux_out, gen, is_train, None)
+            if hooks.current is not None:
+                rec = hooks.current
+                for i in range(node.num_outputs):
+                    o = values.get((id(node), i))
+                    if isinstance(o, torch.Tensor):
+                        hooks.produced[o] = (rec, (id(node), i))
+            for key in frees[pos]:
+                values.pop(key, None)
+            pos += 1
+            if pos == end:
+                if gen is not rng and rng is not None:
+                    rng.set_state(gen.get_state())
+                hooks.current, hooks.inputs, gen, end = None, (), rng, -1
+
+    return Program(trace, needs_rng, segments, n_mirrored)
 
 
-#: (graph fingerprint, device, compute dtype) -> Program
+def trace_residual_bytes(trace, arg_values, aux_values, wrt_names):
+    """Bytes of the tensors one training walk keeps for its backward,
+    with gradients wanted for ``wrt_names``: every distinct storage that
+    an op saves (``torch.autograd.graph.saved_tensors_hooks``) or that a
+    mirrored segment keeps as its input; what a mirrored segment will
+    recompute is not counted.  The counterpart of the JAX package's
+    ``trace_residual_bytes``: the activation memory mirroring shrinks."""
+    leaves = {n: arg_values[n].detach().requires_grad_(True)
+              for n in wrt_names}
+    merged = dict(arg_values)
+    merged.update(leaves)
+    _RESIDUALS.tensors = kept = []
+    try:
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(_keep, lambda t: t):
+            outs, _aux = trace(merged, aux_values, None, True)
+    finally:
+        _RESIDUALS.tensors = None
+    seen, total = set(), 0
+    for t in kept:
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    del outs
+    return total
+
+
+#: (graph key, device, compute dtype, mirror envs) -> Program
 _PROGRAM_REGISTRY = {}
 _REGISTRY_LOCK = threading.Lock()
 
@@ -125,12 +451,27 @@ def program_registry_stats():
     return stats
 
 
+def _graph_key(symbol):
+    """The graph's fingerprint, with the base graph and the ``wrt`` list
+    of each of its ``Symbol.grad`` nodes (whose JSON names only the
+    op)."""
+    from .parallel import overlap as _overlap
+    bases = tuple((_graph_key(n.op._base), tuple(n.op._wrt))
+                  for n in symbol._topo()
+                  if n.op is not None and hasattr(n.op, "_base"))
+    return (_overlap.graph_fingerprint(symbol),) + bases
+
+
 def _lookup_program(symbol, device):
     """The registry's program for ``symbol`` on ``device``, built on a
-    miss."""
+    miss.  The key holds everything a build reads besides the graph: the
+    compute dtype and the mirroring envs (a program built before
+    ``MXNET_BACKWARD_DO_MIRROR=1`` is not reused after it)."""
     from .parallel import overlap as _overlap
-    key = (_overlap.graph_fingerprint(symbol), str(device),
-           os.environ.get("MXNET_COMPUTE_DTYPE", ""))
+    key = (_graph_key(symbol), str(device),
+           os.environ.get("MXNET_COMPUTE_DTYPE", ""),
+           os.environ.get("MXNET_BACKWARD_DO_MIRROR", ""),
+           os.environ.get("MXNET_BACKWARD_MIRROR_STEP", ""))
     with _REGISTRY_LOCK:
         prog = _PROGRAM_REGISTRY.get(key)
         if prog is None:
@@ -196,6 +537,7 @@ class Executor:
         self.aux_dict = dict(zip(self._aux_names, aux_list))
 
         self._program = _lookup_program(symbol, self._device)
+        self._monitor_callback = None
         self.outputs = [None] * len(self._out_names)
         self._pending = None        # (outputs, leaves) of a training forward
         self._n_forward = 0
@@ -225,7 +567,8 @@ class Executor:
                 raise MXNetError("forward: unknown argument %r" % name)
             self.arg_dict[name]._set_data(arr)
 
-    def _forward_raw(self, arg_values, aux_values=None, is_train=False):
+    def _forward_raw(self, arg_values, aux_values=None, is_train=False,
+                     monitor=None):
         """Evaluate the graph on a name->tensor dict; returns the head
         tensors as a list (caller-owned; ``forward`` wraps them).  The
         walk's aux updates are dropped (forward only), and no generator
@@ -234,7 +577,7 @@ class Executor:
                                     for n, a in self.aux_dict.items()}
         with torch.no_grad():
             outs, _aux_updates = self._program.trace(
-                arg_values, aux_values, None, is_train)
+                arg_values, aux_values, None, is_train, monitor=monitor)
         return outs
 
     def _publish(self, outs, aux_out, aux_values):
@@ -247,7 +590,12 @@ class Executor:
         """Run the graph; ``kwargs`` overwrite bound arguments first.
         Returns the output NDArrays (also kept in ``outputs``).  With
         ``is_train`` the aux states take the walk's updates, and the
-        graph is kept for :meth:`backward`."""
+        graph is kept for :meth:`backward`.  An installed monitor
+        callback sees every op output (the walk then runs unmirrored)."""
+        return self._forward(is_train, kwargs, self._run_monitor
+                             if self._monitor_callback is not None else None)
+
+    def _forward(self, is_train, kwargs, monitor):
         self._set_args(kwargs)
         self._n_forward += 1
         self._pending = None
@@ -255,14 +603,15 @@ class Executor:
         aux_values = {n: a.data for n, a in self.aux_dict.items()}
         wrt = self._wrt_names() if is_train else ()
         if not is_train:
-            outs = self._forward_raw(args, aux_values)
+            outs = self._forward_raw(args, aux_values, monitor=monitor)
             self.outputs = [NDArray(o) for o in outs]
             return self.outputs
         leaves = {n: args[n].detach().requires_grad_(True) for n in wrt}
         args.update(leaves)
         with torch.set_grad_enabled(bool(wrt)):
             outs, aux_out = self._program.trace(args, aux_values,
-                                                self._rng(), True)
+                                                self._rng(), True,
+                                                monitor=monitor)
         if wrt:
             self._pending = (outs, leaves)
         self._publish(outs, aux_out, aux_values)
@@ -298,8 +647,10 @@ class Executor:
                     tgt._set_data(grads[n])
 
     def forward_backward(self, out_grads=None, **kwargs):
-        """Forward in training mode, then backward; returns the outputs."""
-        self.forward(is_train=True, **kwargs)
+        """Forward in training mode, then backward; returns the outputs.
+        The monitor is not called: as in the JAX package, only
+        :meth:`forward` reports op outputs."""
+        self._forward(True, kwargs, None)
         self.backward(out_grads)
         return self.outputs
 
@@ -394,6 +745,22 @@ class Executor:
             if s is not None:
                 states[n] = s
         return states
+
+    def backward_residual_bytes(self):
+        """Bytes the training walk keeps for the backward at the bound
+        arrays (:func:`trace_residual_bytes`): what mirroring shrinks."""
+        return trace_residual_bytes(
+            self._program.trace, {n: a.data for n, a in self.arg_dict.items()},
+            {n: a.data for n, a in self.aux_dict.items()}, self._wrt_names())
+
+    # -- monitor (MXExecutorSetMonitorCallback parity) ------------------
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` for every op output of each
+        :meth:`forward`; None removes it."""
+        self._monitor_callback = callback
+
+    def _run_monitor(self, name, value):
+        self._monitor_callback(name, NDArray(value.detach()))
 
     # -- parameters and shapes -----------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,

@@ -1,0 +1,250 @@
+"""Executor management for the legacy FeedForward path.
+
+The port of ``mxnet_tpu/executor_manager.py`` (the reference's
+``python/mxnet/executor_manager.py``): ``_split_input_slice``,
+``_check_arguments``, ``_load_data``/``_load_label``, ``_bind_exec``,
+``DataParallelExecutorGroup`` and ``DataParallelExecutorManager``, on
+one context: one executor bound on the whole batch.  Several contexts
+(the batch split across GPUs) come with the multi-GPU training slice
+(``ROADMAP.md`` queue 1 item 3) and raise, as ``Module`` does; so does a
+``sym_gen`` (bucketing, item 4).
+"""
+from __future__ import annotations
+
+import logging
+
+from .base import MXNetError
+from .ndarray import NDArray, zeros
+
+__all__ = ["DataParallelExecutorManager", "_split_input_slice",
+           "_check_arguments"]
+
+
+def _split_input_slice(batch_size, work_load_list):
+    """Slice batch rows by workload (parity: executor_manager.py:14)."""
+    total_work_load = sum(work_load_list)
+    batch_num_list = [round(work_load * batch_size / total_work_load)
+                      for work_load in work_load_list]
+    batch_num_sum = sum(batch_num_list)
+    if batch_num_sum < batch_size:
+        batch_num_list[-1] += batch_size - batch_num_sum
+    slices = []
+    end = 0
+    for batch_num in batch_num_list:
+        begin = int(min(end, batch_size))
+        end = int(min(begin + batch_num, batch_size))
+        if begin >= end:
+            raise ValueError("Too many slices. Some splits are empty.")
+        slices.append(slice(begin, end))
+    return slices
+
+
+def _check_arguments(symbol):
+    """Reject duplicate arg/aux names (parity: executor_manager.py:42)."""
+    arg_set = set()
+    arg_names = symbol.list_arguments()
+    for name in arg_names:
+        if name in arg_set:
+            raise ValueError(("Find duplicated argument name \"%s\", "
+                              "please make the weight name non-duplicated(using name arguments), "
+                              "arguments are %s") % (name, str(arg_names)))
+        arg_set.add(name)
+    aux_set = set()
+    aux_names = symbol.list_auxiliary_states()
+    for name in aux_names:
+        if name in aux_set:
+            raise ValueError(
+                ("Find duplicated auxiliary param name \"%s\", "
+                 "please make the weight name non-duplicated(using name arguments), "
+                 "arguments are %s, auxiliary params are %s"
+                 ) % (name, str(arg_names), str(aux_names)))
+        aux_set.add(name)
+
+
+def _load_general(data, targets):
+    for d_src, d_targets in zip(data, targets):
+        src = d_src.data if isinstance(d_src, NDArray) else d_src
+        if isinstance(d_targets, NDArray):
+            d_targets._set_data(src)
+        else:  # list of (slice, NDArray) per device
+            for slice_idx, d_dst in d_targets:
+                d_dst._set_data(src[slice_idx])
+
+
+def _load_data(batch, targets):
+    _load_general(batch.data, targets)
+
+
+def _load_label(batch, targets):
+    _load_general(batch.label, targets)
+
+
+class DataParallelExecutorGroup(object):
+    """The executors of a ctx list (parity: executor_manager.py:180),
+    each bound on its slice of the batch; the manager gives it one
+    context.  Sharing arrays with another group (bucketing) comes with
+    ``BucketingModule``."""
+
+    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data):
+        _check_arguments(sym)
+        self.ctx = ctx
+        self.slices = slices
+        self.data_names = [x[0] for x in train_data.provide_data]
+        self.label_names = [x[0] for x in train_data.provide_label]
+        self.aux_names = sym.list_auxiliary_states()
+        self.param_names = [n for n in arg_names if n in param_names]
+        self.arg_names = arg_names
+
+        self.train_execs = []
+        for i, ctx_i in enumerate(ctx):
+            data_shapes = {}
+            for k, v in train_data.provide_data + train_data.provide_label:
+                shard = self.slices[i].stop - self.slices[i].start
+                data_shapes[k] = tuple([shard] + list(v[1:]))
+            grad_req = {name: ("write" if name in param_names else "null")
+                        for name in arg_names}
+            self.train_execs.append(_bind_exec(sym, ctx_i, data_shapes,
+                                               need_grad=True,
+                                               grad_req=grad_req))
+
+        self.data_arrays = [[(self.slices[i], e.arg_dict[name])
+                             for i, e in enumerate(self.train_execs)]
+                            for name in self.data_names]
+        self.label_arrays = [[(self.slices[i], e.arg_dict[name])
+                              for i, e in enumerate(self.train_execs)]
+                             for name in self.label_names]
+
+        self.param_arrays = [[e.arg_dict[name] for e in self.train_execs]
+                             for name in self.param_names]
+        self.grad_arrays = [[e.grad_dict[name] for e in self.train_execs]
+                            for name in self.param_names]
+        self.aux_arrays = [[e.aux_dict[name] for e in self.train_execs]
+                           for name in self.aux_names]
+
+    def load_data_batch(self, data_batch):
+        _load_data(data_batch, self.data_arrays)
+        _load_label(data_batch, self.label_arrays)
+
+    def forward(self, is_train=False):
+        for texec in self.train_execs:
+            texec.forward(is_train=is_train)
+
+    def backward(self):
+        for texec in self.train_execs:
+            texec.backward()
+
+    def forward_backward(self):
+        """Forward and backward of every executor, in one call each."""
+        for texec in self.train_execs:
+            texec.forward_backward()
+
+    def update_metric(self, metric, labels):
+        for texec, islice in zip(self.train_execs, self.slices):
+            labels_slice = [label[islice] for label in labels]
+            metric.update(labels_slice, texec.outputs)
+
+
+def _bind_exec(sym, ctx, input_shapes, need_grad=False, grad_req=None):
+    """Bind one executor on fresh arrays (parity: executor_manager.py:95
+    ``_bind_exec``; reusing another executor's arrays comes with
+    bucketing): gradients for ``need_grad`` (a set of names, or True for
+    every argument outside ``input_shapes``)."""
+    arg_shape, _, aux_shape = sym.infer_shape(**input_shapes)
+    if arg_shape is None:
+        raise ValueError("input_shapes are incomplete")
+    arg_names = sym.list_arguments()
+    if need_grad is True:
+        need_grad = {name for name in arg_names if name not in input_shapes}
+    elif need_grad is False:
+        need_grad = set()
+    args = {name: zeros(shape, ctx=ctx)
+            for name, shape in zip(arg_names, arg_shape)}
+    grads = {name: zeros(shape, ctx=ctx)
+             for name, shape in zip(arg_names, arg_shape)
+             if name in need_grad}
+    if grad_req is None:
+        grad_req = {name: ("write" if name in need_grad else "null")
+                    for name in arg_names}
+    return sym.bind(ctx, args, grads, grad_req,
+                    [zeros(s, ctx=ctx) for s in aux_shape])
+
+
+class DataParallelExecutorManager(object):
+    """Top-level manager (parity: executor_manager.py:264)."""
+
+    def __init__(self, symbol, ctx, train_data, arg_names, param_names,
+                 aux_names, work_load_list=None, logger=None, sym_gen=None):
+        if logger is None:
+            logger = logging
+        num_device = len(ctx)
+        if num_device != 1:
+            raise MXNetError("FeedForward on %d contexts: several GPUs come "
+                             "with the multi-GPU training slice (ROADMAP.md "
+                             "queue 1 item 3)" % num_device)
+        if sym_gen is not None:
+            raise MXNetError("FeedForward with sym_gen (bucketing) is not "
+                             "ported yet: it comes with ROADMAP.md queue 1 "
+                             "item 4")
+        logger.info("Start training with %s", str(ctx))
+
+        if work_load_list is None:
+            work_load_list = [1] * num_device
+        assert isinstance(work_load_list, list) and \
+            len(work_load_list) == num_device
+
+        self.batch_size = train_data.batch_size
+        self.slices = _split_input_slice(self.batch_size, work_load_list)
+        self.arg_names = arg_names
+        self.param_names = param_names
+        self.aux_names = aux_names
+        self.ctx = ctx
+        self.symbol = symbol
+        self.sym_gen = sym_gen
+        self.train_data = train_data
+
+        self.execgrp = DataParallelExecutorGroup(
+            symbol, arg_names, param_names, ctx, self.slices, train_data)
+        self.curr_execgrp = self.execgrp
+
+    def install_monitor(self, monitor):
+        for train_exec in self.execgrp.train_execs:
+            monitor.install(train_exec)
+
+    def set_params(self, arg_params, aux_params):
+        for texec in self.execgrp.train_execs:
+            texec.copy_params_from(arg_params, aux_params)
+
+    def copy_to(self, arg_params, aux_params):
+        """Copies of the executor's parameters and aux states into the
+        dicts, on its context (one context: nothing to average)."""
+        for name, block in zip(self.param_names, self.param_arrays):
+            arg_params[name] = block[0].copy()
+        for name, block in zip(self.aux_names, self.aux_arrays):
+            aux_params[name] = block[0].copy()
+
+    @property
+    def param_arrays(self):
+        return self.curr_execgrp.param_arrays
+
+    @property
+    def grad_arrays(self):
+        return self.curr_execgrp.grad_arrays
+
+    @property
+    def aux_arrays(self):
+        return self.curr_execgrp.aux_arrays
+
+    def load_data_batch(self, data_batch):
+        self.curr_execgrp.load_data_batch(data_batch)
+
+    def forward(self, is_train=False):
+        self.curr_execgrp.forward(is_train=is_train)
+
+    def backward(self):
+        self.curr_execgrp.backward()
+
+    def forward_backward(self):
+        self.curr_execgrp.forward_backward()
+
+    def update_metric(self, metric, labels):
+        self.curr_execgrp.update_metric(metric, labels)

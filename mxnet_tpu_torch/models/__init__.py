@@ -1,23 +1,26 @@
 """The port's model zoo: ``get_symbol`` functions.
 
-``mlp``, ``lenet``, ``resnet`` and ``transformer`` are ported.  The rest
-of the JAX package's zoo raises :class:`~mxnet_tpu_torch.base.MXNetError`
-when asked for, naming the ``ROADMAP.md`` item it waits on, instead of
-being left out silently.
+``mlp``, ``lenet``, the image-classification zoo (``alexnet``, ``vgg``,
+``googlenet``, ``inception_bn``, ``inception_v3``, ``resnet``) and
+``transformer`` are ported, with the JAX package's ``get_*`` aliases.
+The recurrent models and ``transformer_moe`` raise
+:class:`~mxnet_tpu_torch.base.MXNetError` when asked for, naming the
+``ROADMAP.md`` item they wait on, instead of being left out silently.
 """
-from . import lenet, mlp, resnet, transformer  # noqa: F401
-from .lenet import get_symbol as get_lenet     # noqa: F401
-from .mlp import get_symbol as get_mlp         # noqa: F401
-from .resnet import get_symbol as get_resnet   # noqa: F401
+from . import alexnet, googlenet, inception_bn, inception_v3  # noqa: F401
+from . import lenet, mlp, resnet, transformer, vgg            # noqa: F401
+from .alexnet import get_symbol as get_alexnet                # noqa: F401
+from .googlenet import get_symbol as get_googlenet            # noqa: F401
+from .inception_bn import get_symbol as get_inception_bn      # noqa: F401
+from .inception_v3 import get_symbol as get_inception_v3      # noqa: F401
+from .lenet import get_symbol as get_lenet                    # noqa: F401
+from .mlp import get_symbol as get_mlp                        # noqa: F401
+from .resnet import get_symbol as get_resnet                  # noqa: F401
+from .vgg import get_symbol as get_vgg                        # noqa: F401
 
 #: the JAX package's models not ported yet, by the ROADMAP.md queue 1
 #: item that brings them
-_UNPORTED = {
-    "alexnet": 2, "vgg": 2, "googlenet": 2, "inception_bn": 2,
-    "inception_v3": 2, "get_alexnet": 2, "get_vgg": 2, "get_googlenet": 2,
-    "get_inception_bn": 2, "get_inception_v3": 2,
-    "lstm": 4, "gru": 4, "rnn": 4, "transformer_moe": 3,
-}
+_UNPORTED = {"lstm": 4, "gru": 4, "rnn": 4, "transformer_moe": 3}
 
 
 def __getattr__(name):

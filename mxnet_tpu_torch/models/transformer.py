@@ -52,22 +52,24 @@ def get_symbol(vocab_size=32000, num_layers=4, num_heads=8, dim=256,
                num_experts=0, moe_top_k=1, moe_capacity_factor=0.0):
     """LM symbol: data (B, S) token ids, softmax_label (B, S) next tokens
     (the graph of ``mxnet_tpu.models.transformer.get_symbol``, node for
-    node).  ``mirror_blocks=True`` (per-layer recompute) and
-    ``num_experts > 0`` (MoE) are not ported yet and raise."""
-    if mirror_blocks:
-        raise MXNetError("get_symbol: mirror_blocks (per-layer recompute) "
-                         "is not ported yet; it comes with the executor's "
-                         "mirroring")
+    node).  ``mirror_blocks=True`` tags every op inside each decoder
+    layer with ``force_mirroring`` and a per-layer ``mirror_stage``, so
+    the executor recomputes whole layers in the backward and keeps only
+    the layer-boundary activations.  ``num_experts > 0`` (MoE) is not
+    ported yet and raises."""
+    from ..attribute import mirror_scope
     data = sym.Variable("data")
     pos = sym.Variable("pos_embed_weight", shape=(seq_len, dim))
     tok = sym.Embedding(data=data, input_dim=vocab_size, output_dim=dim,
                         name="tok_embed")
     x = sym.broadcast_add(tok, sym.expand_dims(pos, axis=0))
     for i in range(num_layers):
-        x = transformer_block(x, "layer%d" % i, num_heads, dim, seq_len,
-                              ffn_mult=ffn_mult, dropout=dropout,
-                              num_experts=num_experts, moe_top_k=moe_top_k,
-                              moe_capacity_factor=moe_capacity_factor)
+        with mirror_scope("layer%d" % i, enabled=mirror_blocks):
+            x = transformer_block(x, "layer%d" % i, num_heads, dim,
+                                  seq_len, ffn_mult=ffn_mult,
+                                  dropout=dropout, num_experts=num_experts,
+                                  moe_top_k=moe_top_k,
+                                  moe_capacity_factor=moe_capacity_factor)
     x = sym.LayerNorm(data=x, name="final_ln")
     logits = sym.FullyConnected(
         data=sym.Reshape(data=x, shape=(-1, dim)),

@@ -1,0 +1,42 @@
+"""VGG 11/13/16/19 (reference: example/image-classification/symbols/vgg.py).
+
+A copy of ``mxnet_tpu/models/vgg.py`` on the port's ``symbol``: the same
+graph and names (every layer is named explicitly), optionally with a
+BatchNorm after each convolution (``batch_norm=True``).
+"""
+from .. import symbol as sym
+from ..base import MXNetError
+
+_CONFIGS = {
+    11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
+    13: ([2, 2, 2, 2, 2], [64, 128, 256, 512, 512]),
+    16: ([2, 2, 3, 3, 3], [64, 128, 256, 512, 512]),
+    19: ([2, 2, 4, 4, 4], [64, 128, 256, 512, 512]),
+}
+
+
+def get_symbol(num_classes=1000, num_layers=16, batch_norm=False):
+    if num_layers not in _CONFIGS:
+        raise MXNetError("vgg: num_layers must be one of %s" % sorted(_CONFIGS))
+    layers, filters = _CONFIGS[num_layers]
+    net = sym.Variable("data")
+    for i, num in enumerate(layers):
+        for j in range(num):
+            net = sym.Convolution(data=net, kernel=(3, 3), pad=(1, 1),
+                                  num_filter=filters[i],
+                                  name="conv%d_%d" % (i + 1, j + 1))
+            if batch_norm:
+                net = sym.BatchNorm(data=net, name="bn%d_%d" % (i + 1, j + 1))
+            net = sym.Activation(data=net, act_type="relu",
+                                 name="relu%d_%d" % (i + 1, j + 1))
+        net = sym.Pooling(data=net, pool_type="max", kernel=(2, 2),
+                          stride=(2, 2), name="pool%d" % (i + 1))
+    net = sym.Flatten(data=net, name="flatten")
+    net = sym.FullyConnected(data=net, num_hidden=4096, name="fc6")
+    net = sym.Activation(data=net, act_type="relu", name="relu6")
+    net = sym.Dropout(data=net, p=0.5, name="drop6")
+    net = sym.FullyConnected(data=net, num_hidden=4096, name="fc7")
+    net = sym.Activation(data=net, act_type="relu", name="relu7")
+    net = sym.Dropout(data=net, p=0.5, name="drop7")
+    net = sym.FullyConnected(data=net, num_hidden=num_classes, name="fc8")
+    return sym.SoftmaxOutput(data=net, name="softmax")

@@ -6,9 +6,10 @@ The port of ``mxnet_tpu/module/base_module.py`` (the reference's
 runs the JAX package's loop, with its async device feed
 (``prefetch=True`` or ``MXTPU_PREFETCH``: a
 ``parallel.overlap.DevicePrefetcher`` that also places each batch on
-the module's device from pinned buffers), and without its numeric
-sentinel, Monitor and step telemetry, which belong to later slices
-(``monitor`` raises).
+the module's device from pinned buffers) and its Monitor
+(``monitor=``: installed after bind, ``tic`` before each batch and
+``toc_print`` after it), and without its numeric sentinel and step
+telemetry, which belong to later slices.
 """
 from __future__ import annotations
 
@@ -246,9 +247,6 @@ class BaseModule(object):
         identical either way — only the wait moves off the loop."""
         if num_epoch is None:
             raise MXNetError("please specify number of epochs")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...): the Monitor is not ported "
-                             "yet")
         if initializer is None:
             from ..initializer import Uniform
             initializer = Uniform(0.01)
@@ -263,7 +261,7 @@ class BaseModule(object):
                       optimizer_params, eval_end_callback,
                       eval_batch_end_callback, initializer, arg_params,
                       aux_params, allow_missing, force_rebind, force_init,
-                      begin_epoch, num_epoch, validation_metric)
+                      begin_epoch, num_epoch, validation_metric, monitor)
         finally:
             if own_prefetch is not None:
                 own_prefetch.close()
@@ -295,12 +293,14 @@ class BaseModule(object):
              batch_end_callback, kvstore, optimizer, optimizer_params,
              eval_end_callback, eval_batch_end_callback, initializer,
              arg_params, aux_params, allow_missing, force_rebind, force_init,
-             begin_epoch, num_epoch, validation_metric):
+             begin_epoch, num_epoch, validation_metric, monitor):
         """The body of :meth:`fit` (split out so the async feed is closed
         in exactly one ``finally``)."""
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -315,9 +315,13 @@ class BaseModule(object):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     _call(batch_end_callback, _BatchEndParam(
                         epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,

@@ -176,4 +176,5 @@ class DataParallelExecutorGroup:
         eval_metric.update(list(labels), self.execs[0].outputs)
 
     def install_monitor(self, mon):
-        raise MXNetError("the Monitor is not ported yet")
+        for exec_ in self.execs:
+            mon.install(exec_)

@@ -292,8 +292,9 @@ class Module(BaseModule):
 
     def _fused_step_ok(self):
         """The whole-step fusion is valid when the update is local (no
-        kvstore), single-context, grad_req=write, and the optimizer uses
-        the pure update_fn path (``MXNET_MODULE_FUSED=0`` turns it off)."""
+        kvstore), single-context, grad_req=write, the optimizer uses the
+        pure update_fn path, and no monitor is installed
+        (``MXNET_MODULE_FUSED=0`` turns it off)."""
         if os.environ.get("MXNET_MODULE_FUSED", "1") == "0":
             return False
         return (self.optimizer_initialized
@@ -302,7 +303,8 @@ class Module(BaseModule):
                 and self._exec_group is not None
                 and len(self._exec_group.execs) == 1
                 and self._grad_req == "write"
-                and type(self._optimizer).update is opt_mod.Optimizer.update)
+                and type(self._optimizer).update is opt_mod.Optimizer.update
+                and self._exec_group.execs[0]._monitor_callback is None)
 
     def forward_backward(self, data_batch):
         """Fit-path step: when the optimizer update can be folded in (no
@@ -359,7 +361,8 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("the Monitor is not ported yet")
+        self._assert_binded()
+        self._exec_group.install_monitor(mon)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -386,6 +389,18 @@ class Module(BaseModule):
         if load_optimizer_states:
             mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
+
+    @staticmethod
+    def load_latest(prefix, **kwargs):
+        """``(module, epoch)`` from the newest ``prefix-NNNN.params`` on
+        disk, or ``(None, None)`` when there is none: the auto-resume
+        entry for preemptible jobs.  Keyword arguments pass through to
+        :meth:`load` (``load_optimizer_states`` too)."""
+        from ..resilience import latest_classic_epoch
+        epoch = latest_classic_epoch(prefix)
+        if epoch is None:
+            return None, None
+        return Module.load(prefix, epoch, **kwargs), epoch
 
     def save_optimizer_states(self, fname):
         if not self.optimizer_initialized:

@@ -6,12 +6,16 @@ ignore the head gradient (softmax_output-inl.h: ``(p - onehot(label)) *
 grad_scale``); autograd would differentiate the softmax instead, so the
 op pins the reference contract with a ``torch.autograd.Function``, as
 the JAX package does with ``custom_vjp``.  The trainer feeds ones as
-head gradients; only ``out_grad=True`` multiplies them in.
+head gradients; only ``out_grad=True`` multiplies them in.  That backward
+is first order only: differentiating it again (a ``Symbol.grad`` bound
+for training and run backward) raises, where the JAX package
+differentiates its ``custom_vjp`` backward through the softmax.
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError
 from ..dparam import Field, ParamStruct
 from .registry import OperatorProperty, register_op, require_known
 
@@ -37,6 +41,21 @@ def _onehot(label, n_class, axis, dtype):
     return (lab == classes).to(dtype)
 
 
+class _FirstOrderOnly(torch.autograd.Function):
+    """The identity on a gradient that must not be differentiated again;
+    ``anchor`` ties it to the graph, and its backward raises."""
+
+    @staticmethod
+    def forward(ctx, grad, anchor):
+        return grad.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise MXNetError("SoftmaxOutput's backward (the reference's p - "
+                         "onehot) is first order only in the port: its "
+                         "second derivative is not ported")
+
+
 class _SoftmaxOutputFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, op):
@@ -51,6 +70,8 @@ class _SoftmaxOutputFn(torch.autograd.Function):
         grad = ctx.op._grad(out, label)
         if ctx.op.param.out_grad:
             grad = grad * g
+        if torch.is_grad_enabled():     # create_graph: a second order
+            grad = _FirstOrderOnly.apply(grad, out)
         return grad, None, None
 
 

@@ -4,10 +4,11 @@ The port's slice of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
 Flatten, Reshape (with MXNet's ``0``/``-1`` codes), Embedding, the
 weight-only QuantizedDense, and the operators of the image models:
 Convolution, BatchNorm (alias CuDNNBatchNorm), Pooling, ElementWiseSum
-(alias add_n) and Dropout.  Plain matrix products go to ``torch.matmul``
-and convolutions to ``F.conv*d`` (cuDNN on the card), as the JAX package
-left both to XLA; QuantizedDense goes through the port's weight-only
-kernel (``kernels/quantize.py``), int8 or fp8 e4m3.
+(alias add_n), Dropout, and the model zoo's Concat and LRN.  Plain
+matrix products go to ``torch.matmul`` and convolutions to ``F.conv*d``
+(cuDNN on the card), as the JAX package left both to XLA; QuantizedDense
+goes through the port's weight-only kernel (``kernels/quantize.py``),
+int8 or fp8 e4m3.
 """
 from __future__ import annotations
 
@@ -481,3 +482,62 @@ class ElementWiseSum(OperatorProperty):
         for x in inputs[1:]:
             out = out + x
         return [out], None
+
+
+# ----------------------------------------------------------------------
+# Concat / LRN (the model zoo's inception blocks and AlexNet)
+# ----------------------------------------------------------------------
+class _ConcatParam(ParamStruct):
+    num_args = Field(int, required=True, lower=1)
+    dim = Field(int, default=1)
+
+
+@register_op("Concat")
+class Concat(OperatorProperty):
+    """``num_args`` inputs joined along ``dim`` (one ``torch.cat``).
+    ``Concat(*symbols)`` fills ``num_args`` from the count of inputs."""
+    param_cls = _ConcatParam
+
+    def list_arguments(self):
+        return ["arg%d" % i for i in range(self.param.num_args)]
+
+    def infer_shape(self, in_shapes):
+        # every input must be known: the concatenated axis cannot be
+        # filled backwards
+        require_known("Concat", in_shapes, self.list_arguments())
+        dim = self.param.dim
+        out = list(in_shapes[0])
+        out[dim] = sum(s[dim] for s in in_shapes)
+        return in_shapes, [tuple(out)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [torch.cat(inputs, dim=self.param.dim)], None
+
+
+class _LRNParam(ParamStruct):
+    alpha = Field(float, default=1e-4)
+    beta = Field(float, default=0.75)
+    knorm = Field(float, default=2.0)
+    nsize = Field(int, required=True)
+
+
+@register_op("LRN")
+class LRN(OperatorProperty):
+    """lrn-inl.h: cross-channel local response normalization,
+    ``x * (knorm + alpha / nsize * sum(x^2 over nsize channels))^-beta``.
+    The window over axis 1 is padded ``(nsize // 2, nsize - 1 - nsize //
+    2)``, as ``lax.reduce_window`` pads it in the JAX package; the sum is
+    a sum pooling (``avg_pool2d`` with ``divisor_override=1``) over the
+    channels of ``x^2`` viewed as ``(N, 1, C, rest)``."""
+    param_cls = _LRNParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        x = inputs[0]
+        half = p.nsize // 2
+        sq = (x * x).reshape(x.shape[0], 1, x.shape[1], -1)
+        sq = torch.nn.functional.pad(sq, (0, 0, half, p.nsize - 1 - half))
+        ssum = torch.nn.functional.avg_pool2d(
+            sq, (p.nsize, 1), 1, divisor_override=1).reshape(x.shape)
+        norm = torch.pow(p.knorm + (p.alpha / p.nsize) * ssum, -p.beta)
+        return [(x * norm).to(x.dtype)], None

@@ -1,8 +1,12 @@
-"""Tensor operators of the transformer graphs.
+"""Tensor operators: Symbol arithmetic and ``expand_dims``.
 
-The port's slice of ``mxnet_tpu/ops/tensor.py``: ``_Plus`` and its
-aliases (``Symbol.__add__`` builds it; the training graph broadcasts the
-position table with ``broadcast_add``) and ``expand_dims``.
+The port's slice of ``mxnet_tpu/ops/tensor.py``: the elementwise binary
+ops ``_Plus``, ``_Minus``, ``_Mul``, ``_Div``, ``_Power``, ``_Maximum``
+and ``_Minimum`` with their ``elemwise_*``/``broadcast_*`` aliases (the
+training graph broadcasts the position table with ``broadcast_add``),
+the ten scalar ops ``_PlusScalar`` ... ``_MinimumScalar`` that
+``Symbol``'s operators create (a scalar operand kept in the ``scalar``
+attr), and ``expand_dims``.
 """
 from __future__ import annotations
 
@@ -48,6 +52,70 @@ def _make_binary(op_name, fn, aliases=()):
 
 _make_binary("_Plus", torch.add,
              aliases=("elemwise_add", "broadcast_plus", "broadcast_add"))
+_make_binary("_Minus", torch.sub,
+             aliases=("elemwise_sub", "broadcast_minus", "broadcast_sub"))
+_make_binary("_Mul", torch.mul, aliases=("elemwise_mul", "broadcast_mul"))
+_make_binary("_Div", torch.div, aliases=("elemwise_div", "broadcast_div"))
+_make_binary("_Power", torch.pow, aliases=("broadcast_power",))
+_make_binary("_Maximum", torch.maximum, aliases=("broadcast_maximum",))
+_make_binary("_Minimum", torch.minimum, aliases=("broadcast_minimum",))
+
+
+# ----------------------------------------------------------------------
+# scalar variants (the scalar rides in the node's attrs)
+# ----------------------------------------------------------------------
+class _ScalarParam(ParamStruct):
+    scalar = Field(float, required=True, doc="scalar operand")
+
+
+def _snake(name):
+    """_DivScalar -> _div_scalar, _RDivScalar -> _rdiv_scalar (the
+    reference's imperative registration names)."""
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper():
+            if i > 1 and not name[i - 1].isupper():
+                out.append("_")
+            out.append(ch.lower())
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def _make_scalar(op_name, fn):
+    @register_op(op_name, aliases=(_snake(op_name),))
+    class _Scalar(OperatorProperty):
+        param_cls = _ScalarParam
+        hint = op_name.strip("_").lower()
+
+        def infer_shape(self, in_shapes):
+            require_known(self.op_name, in_shapes, self.list_arguments())
+            return in_shapes, [in_shapes[0]], []
+
+        def forward(self, inputs, aux, is_train, rng):
+            # the scalar in the input's dtype first, as jnp.asarray(s,
+            # x.dtype) rounds it (a Python float would stay exact in a
+            # bfloat16 op)
+            x = inputs[0]
+            s = torch.tensor(self.param.scalar, dtype=x.dtype,
+                             device=x.device)
+            return [fn(x, s)], None
+
+    _Scalar.__name__ = "Op" + op_name
+    return _Scalar
+
+
+_make_scalar("_PlusScalar", torch.add)
+_make_scalar("_MinusScalar", torch.sub)
+_make_scalar("_RMinusScalar", lambda x, s: torch.sub(s, x))
+_make_scalar("_MulScalar", torch.mul)
+_make_scalar("_DivScalar", torch.div)
+# s / x divides (a multiply by the reciprocal rounds differently)
+_make_scalar("_RDivScalar", lambda x, s: torch.div(s, x))
+_make_scalar("_PowerScalar", torch.pow)
+_make_scalar("_RPowerScalar", lambda x, s: torch.pow(s, x))
+_make_scalar("_MaximumScalar", torch.maximum)
+_make_scalar("_MinimumScalar", torch.minimum)
 
 
 class _ExpandDimsParam(ParamStruct):

@@ -20,9 +20,12 @@ Batches come from :meth:`ShardedTrainer.shard_batch`, or from
 device as uint8 and is widened there to the parameters' dtype (float32;
 ``compute_dtype`` when one is set).
 
-``zero1``, ``fsdp``, ``remat``, ``seq_axis`` (ring attention), the
-in-step sentinel, the step watchdog and the checkpoint methods belong to
-later slices and raise; none is ignored.  With no ``ctx`` and no mesh,
+``remat=True`` recomputes the whole forward in the backward: the walk
+runs under one ``torch.utils.checkpoint`` (the JAX trainer wraps its
+trace in one ``jax.checkpoint``), and the update after it is the same.
+``zero1``, ``fsdp``, ``seq_axis`` (ring attention), the in-step
+sentinel, the step watchdog and the checkpoint methods belong to later
+slices and raise; none is ignored.  With no ``ctx`` and no mesh,
 the trainer runs on the current context (``gpu(0)`` outside a ``with``
 scope).
 """
@@ -58,6 +61,36 @@ def _compute_dtype(dtype):
     return table[name]
 
 
+def _remat(trace):
+    """``trace`` under one non-reentrant ``torch.utils.checkpoint``: the
+    backward recomputes the whole walk (its own mirrored segments off:
+    the whole walk is recomputed anyway).  A walk that draws random
+    numbers draws them from a copy of the generator, and its recompute
+    from another copy at the same state; the caller's generator then
+    moves on as if the walk ran once.  Without autograd the walk just
+    runs."""
+    from torch.utils.checkpoint import checkpoint
+
+    def remat_trace(args, aux, rng, is_train):
+        if not torch.is_grad_enabled():
+            return trace(args, aux, rng, is_train)
+        state = rng.get_state() if rng is not None else None
+        first = []
+
+        def run(a):
+            gen = rng
+            if state is not None:
+                gen = torch.Generator(device=rng.device)
+                gen.set_state(state)
+                first.append(gen)
+            return trace(a, aux, gen, is_train, mirror=False)
+        out = checkpoint(run, args, use_reentrant=False)
+        if first:
+            rng.set_state(first[0].get_state())
+        return out
+    return remat_trace
+
+
 class ShardedTrainer:
     """Train a Symbol's loss graph on one device.
 
@@ -90,9 +123,6 @@ class ShardedTrainer:
             raise _not_ported("fsdp (sharded parameters)", _MULTI_GPU)
         if seq_axis is not None:
             raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
-        if remat:
-            raise _not_ported("remat (recomputed forward)",
-                              "the executor's mirroring")
         if sentinel is None:
             sentinel = env_flag("MXTPU_SENTINEL") not in ("", "0", "false",
                                                           "off")
@@ -137,7 +167,8 @@ class ShardedTrainer:
                             and n not in self.label_names]
         from ..executor import build_program
         program = build_program(symbol)
-        self._trace = program.trace
+        self.remat = bool(remat)
+        self._trace = _remat(program.trace) if self.remat else program.trace
         self._needs_rng = program.needs_rng
         self.num_update = 0
 

@@ -14,7 +14,8 @@ The port's copy of ``mxnet_tpu/resilience``'s host-side pieces:
   decision protocol over an injected coordination client;
 - :mod:`.hotstate`: redundant host-memory hot state for warm re-mesh
   (payload files byte-compatible with the JAX package's);
-- :mod:`.ckptmgr`: atomic, versioned checkpoints (host payloads).
+- :mod:`.ckptmgr`: atomic, versioned checkpoints (host payloads), and
+  ``latest_classic_epoch`` for the ``prefix-NNNN.params`` files.
 
 Exit-code contract: ``3`` means "restart me" (:data:`EXIT_RESTART`).
 The watchdog and the sentinel belong to the multi-GPU training slice
@@ -121,7 +122,7 @@ from .netkv import (CoordKV, FileKV, TcpKV, TcpKVServer,    # noqa: E402
                     ResilientKV, Lease, KVUnreachable, KeyExists,
                     KeyAbsent, connect_kv)
 from .retry import RetryPolicy, retry_call                  # noqa: E402
-from .ckptmgr import CheckpointManager                      # noqa: E402
+from .ckptmgr import CheckpointManager, latest_classic_epoch  # noqa: E402
 from . import elastic                                       # noqa: E402
 from . import hotstate                                      # noqa: E402
 from .hotstate import HotStateUnavailable                   # noqa: E402
@@ -135,5 +136,5 @@ __all__ = [
     "connect_kv",
     "EXIT_RESTART", "ResilienceError", "exit_for_restart",
     "install_excepthook", "step_timeout_s", "retry_max", "ckpt_keep",
-    "RetryPolicy", "retry_call", "CheckpointManager",
+    "RetryPolicy", "retry_call", "CheckpointManager", "latest_classic_epoch",
 ]

@@ -319,3 +319,21 @@ class CheckpointManager(object):
                     _shutil.rmtree(_os.path.join(self.directory, name))
                 except OSError:
                     pass
+
+
+# ----------------------------------------------------------------------
+# classic prefix-NNNN.params checkpoints (model.save_checkpoint format)
+# ----------------------------------------------------------------------
+def latest_classic_epoch(prefix):
+    """Newest epoch N for which ``prefix-%04d.params`` exists, or None:
+    the discovery half of ``FeedForward.fit(resume="auto")`` and
+    ``Module.load_latest`` for the reference's 0x112 checkpoints (one
+    file per epoch)."""
+    directory, base = _os.path.split(_os.path.abspath(str(prefix)))
+    pat = _re.compile(r"^%s-(\d{4})\.params$" % _re.escape(base))
+    try:
+        names = _os.listdir(directory or ".")
+    except OSError:
+        return None
+    epochs = [int(m.group(1)) for m in map(pat.match, names) if m]
+    return max(epochs) if epochs else None

@@ -6,7 +6,11 @@ per registered op, auto-created ``<name>_<arg>`` variables, NameManager
 naming), partial shape inference that fills parameter shapes from data
 shapes, and JSON in the reference's ``nodes``/``arg_nodes``/``heads``
 layout.  The JSON is the same text the JAX package writes, so a symbol
-saved by either package loads in the other.
+saved by either package loads in the other.  The arithmetic operators
+(``+ - * / **``, unary ``-``, and :func:`maximum`, :func:`minimum`,
+:func:`pow`) create the binary ops with another Symbol and the scalar
+ops with a number, as there; :meth:`Symbol.grad` builds the gradient
+symbol, whose op runs the base graph under ``torch.autograd.grad``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from .dparam import parse_tuple
 from .name import NameManager
 from .ops.registry import OP_REGISTRY, IncompleteShape, create_operator
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "maximum",
+           "minimum", "pow"]
 
 
 class _Node:
@@ -110,11 +115,46 @@ class Symbol:
         return "<Symbol %s>" % (name if name else "Grouped")
 
     # -- composition sugar -------------------------------------------------
+    def _binop(self, other, op_name, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            lhs, rhs = (other, self) if reverse else (self, other)
+            return _create(op_name, lhs, rhs)
+        return _create(scalar_op, self, scalar=float(other))
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("the port's Symbol adds Symbols only, got %r"
-                             % type(other))
-        return _create("_Plus", self, other)
+        return self._binop(other, "_Plus", "_PlusScalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "_Minus", "_MinusScalar")
+
+    def __rsub__(self, other):
+        if isinstance(other, Symbol):
+            return other.__sub__(self)
+        return _create("_RMinusScalar", self, scalar=float(other))
+
+    def __mul__(self, other):
+        return self._binop(other, "_Mul", "_MulScalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "_Div", "_DivScalar")
+
+    def __rtruediv__(self, other):
+        if isinstance(other, Symbol):
+            return other.__truediv__(self)
+        return _create("_RDivScalar", self, scalar=float(other))
+
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, other):
+        return self._binop(other, "_Power", "_PowerScalar")
+
+    def __neg__(self):
+        return _create("_MulScalar", self, scalar=-1.0)
 
     # -- inference ---------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -199,6 +239,29 @@ class Symbol:
                     and all(s is not None for s in aux_shapes))
         return arg_shapes, out_shapes, aux_shapes, complete
 
+    # -- grad (Symbol::Grad symbol.cc:569) ---------------------------------
+    def grad(self, wrt):
+        """The gradient symbol: its arguments are this symbol's arguments
+        and one head-gradient variable per output, named
+        ``<headnode>_<index>_grad`` (static_graph.cc:448-452); its
+        outputs are the gradients with respect to ``wrt``, in order.
+        One op evaluates the whole base graph (in training mode) and
+        differentiates it with ``torch.autograd.grad``."""
+        if isinstance(wrt, str):
+            wrt = [wrt]
+        wrt = list(wrt)
+        args = self.list_arguments()
+        missing = [w for w in wrt if w not in args]
+        if missing:
+            raise MXNetError("Symbol.grad: %s not in arguments %s"
+                             % (missing, args))
+        op = _GradProp(self, wrt)
+        name = NameManager.current().get(None, op.hint)
+        attrs = dict(AttrScope.current().get(None))
+        entries = [Variable(a)._heads[0] for a in op.list_arguments()]
+        node = _Node(op, name, entries, attrs)
+        return Symbol([(node, i) for i in range(op.num_outputs)])
+
     def attr_dict(self):
         """``{node name: {attr: value}}`` of every node that has attrs."""
         return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
@@ -242,6 +305,88 @@ class Symbol:
             fo.write(self.tojson())
 
 
+class _GradProp:
+    """The op of :meth:`Symbol.grad` (Symbol::Grad, symbol.cc:569).
+
+    Holds the base symbol; ``forward`` runs the base graph's walk
+    ``trace`` in training mode and returns the gradients of the ``wrt``
+    arguments for the head gradients it is given.  The program that
+    binds the grad symbol builds ``trace`` (``executor.build_program``),
+    so the mirroring envs of that bind reach the base walk; the JAX
+    package builds it once, in ``Symbol.grad``.  When the
+    caller records gradients (a grad symbol bound for training), the
+    gradients are built with ``create_graph`` and are differentiable in
+    turn.  Not registered: a grad symbol is built, bound and run, not
+    loaded from JSON (as in the JAX package)."""
+
+    param_cls = None
+    op_name = "_Grad"
+    hint = "grad"
+
+    def __init__(self, base, wrt):
+        self.attrs = {}
+        self.param = None
+        self._base = base
+        self._wrt = list(wrt)
+        self._base_args = base.list_arguments()
+        self._aux_names = base.list_auxiliary_states()
+        self._head_names = ["%s_%d_grad" % (node.name, index)
+                            for node, index in base._heads]
+        self.need_rng = any(getattr(n.op, "need_rng", False)
+                            for n in base._topo() if not n.is_variable)
+
+    def list_arguments(self):
+        return list(self._base_args) + list(self._head_names)
+
+    def list_outputs(self):
+        return ["%s_grad" % w for w in self._wrt]
+
+    def list_auxiliary_states(self):
+        return list(self._aux_names)
+
+    @property
+    def num_outputs(self):
+        return len(self._wrt)
+
+    def infer_shape(self, in_shapes):
+        n = len(self._base_args)
+        known = {k: v for k, v in zip(self._base_args, in_shapes[:n])
+                 if v is not None}
+        barg, bout, baux = self._base.infer_shape(**known)
+        if barg is None:
+            raise IncompleteShape("_Grad: the base graph's shapes are "
+                                  "incomplete")
+        full_in = list(barg) + list(bout)   # head grads shaped like outputs
+        out_shapes = [barg[self._base_args.index(w)] for w in self._wrt]
+        return full_in, out_shapes, list(baux)
+
+    def forward(self, inputs, aux, is_train, rng, trace):
+        import torch
+        n = len(self._base_args)
+        arg_vals = dict(zip(self._base_args, inputs[:n]))
+        head_grads = list(inputs[n:])
+        aux_vals = dict(zip(self._aux_names, aux))
+        outer = torch.is_grad_enabled()
+        with torch.enable_grad():
+            wrt_in = {}
+            for w in self._wrt:
+                v = arg_vals[w]
+                if not (outer and v.requires_grad):
+                    v = v.detach().requires_grad_(True)
+                wrt_in[w] = v
+            merged = dict(arg_vals)
+            merged.update(wrt_in)
+            # the backward pass differentiates the TRAINING computation
+            # (batch statistics, active Dropout), whatever is_train says
+            outs, _aux_out = trace(merged, aux_vals, rng, True)
+            got = torch.autograd.grad(
+                outs, [wrt_in[w] for w in self._wrt],
+                [h.to(o.dtype) for h, o in zip(head_grads, outs)],
+                allow_unused=True, create_graph=outer)
+        return [torch.zeros_like(wrt_in[w]) if g is None else g
+                for w, g in zip(self._wrt, got)], None
+
+
 def Variable(name, attr=None, shape=None, **kwargs):
     """Create a symbolic variable (parity symbol.cc CreateVariable)."""
     if not isinstance(name, str):
@@ -254,6 +399,35 @@ def Variable(name, attr=None, shape=None, **kwargs):
         attr = dict(attr)
         attr[k] = str(v)
     return Symbol([(_Node(None, name, [], attr), 0)])
+
+
+def _sym_or_scalar_binop(lhs, rhs, op_name, scalar_op, rscalar_op, what):
+    """symbol op symbol, symbol op scalar, or scalar op symbol."""
+    if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+        return _create(op_name, lhs, rhs)
+    if isinstance(lhs, Symbol):
+        return _create(scalar_op, lhs, scalar=float(rhs))
+    if isinstance(rhs, Symbol):
+        return _create(rscalar_op, rhs, scalar=float(lhs))
+    raise MXNetError("%s needs at least one Symbol operand" % what)
+
+
+def maximum(lhs, rhs):
+    """Elementwise max of Symbols or a Symbol and a number."""
+    return _sym_or_scalar_binop(lhs, rhs, "_Maximum", "_MaximumScalar",
+                                "_MaximumScalar", "maximum")
+
+
+def minimum(lhs, rhs):
+    """Elementwise min of Symbols or a Symbol and a number."""
+    return _sym_or_scalar_binop(lhs, rhs, "_Minimum", "_MinimumScalar",
+                                "_MinimumScalar", "minimum")
+
+
+def pow(lhs, rhs):  # noqa: A001 (the reference's name)
+    """Elementwise power of Symbols or a Symbol and a number."""
+    return _sym_or_scalar_binop(lhs, rhs, "_Power", "_PowerScalar",
+                                "_RPowerScalar", "pow")
 
 
 def Group(symbols):
@@ -311,6 +485,12 @@ def _create(op_name, *args, **kwargs):
         else:
             raise MXNetError("%s: positional arguments must be Symbols, got %r"
                              % (op_name, type(a)))
+
+    cls = OP_REGISTRY.get(op_name)
+    if getattr(cls, "param_cls", None) is not None and \
+            "num_args" in cls.param_cls._fields \
+            and "num_args" not in attr_kwargs:
+        attr_kwargs["num_args"] = len(pos_syms) + len(sym_kwargs)
 
     op = create_operator(op_name, **attr_kwargs)
     hint = op.hint or op_name.lower().strip("_")

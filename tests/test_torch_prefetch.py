@@ -410,15 +410,18 @@ def _jax_fit(path, kvstore):
 # ----------------------------------------------------------------------
 # the port's image-classification example, with JAX unavailable
 # ----------------------------------------------------------------------
-def _run_example(script, args):
+def _run_example(script, args, preamble=""):
+    """Run ``script`` with ``args`` in a subprocess with JAX blocked;
+    ``preamble`` runs first, with the script's directory on the path."""
     code = ("import runpy, sys; sys.modules['jax'] = None\n"
             "sys.argv = %r\n"
             "sys.path.insert(0, %r)\n"
+            "%s\n"
             "runpy.run_path(sys.argv[0], run_name='__main__')\n"
             "bad = [m for m in sys.modules if m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')]\n"
             "assert not bad, bad\n"
-            % ([script] + args, os.path.dirname(script)))
+            % ([script] + args, os.path.dirname(script), preamble))
     env = dict(os.environ, PYTHONPATH=ROOT)
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -437,14 +440,25 @@ def test_example_train_mnist_runs_on_the_port(tmp_path):
     assert os.path.exists(prefix + "-0001.params")
 
 
-def test_example_train_imagenet_names_what_is_unported(raw_rec, tmp_path):
-    """An unported network raises MXNetError naming the ROADMAP.md item
-    it waits on (ResNet-50 from records runs on the card:
-    ``chip_smoke.py`` phase 11)."""
+def test_example_train_imagenet_runs_inception_bn(tmp_path):
+    """``train_imagenet.py --network inception-bn --synthetic`` trains one
+    epoch of two batches on the CPU (the example's synthetic images
+    shrunk to 32 x 32 and 8 of them, through ``common.synthetic_iters``)
+    and checkpoints it."""
     script = os.path.join(ROOT, "example", "image-classification-torch",
                           "train_imagenet.py")
-    res = _run_example(script, ["--network", "vgg", "--devices", "cpu",
-                                "--data-dir", str(tmp_path)])
-    assert res.returncode != 0
-    assert "MXNetError" in res.stderr and "ROADMAP.md queue 1 item 2" \
-        in res.stderr
+    prefix = str(tmp_path / "inception-bn")
+    preamble = (
+        "import common\n"
+        "_iters = common.synthetic_iters\n"
+        "common.synthetic_iters = lambda shape, n, b, train_n, val_n: "
+        "_iters((3, 32, 32), n, b, train_n=2 * b, val_n=b)\n")
+    res = _run_example(script, ["--network", "inception-bn", "--synthetic",
+                                "--devices", "cpu", "--num-epochs", "1",
+                                "--batch-size", "4", "--num-classes", "10",
+                                "--model-prefix", prefix], preamble)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "Epoch[0] Train-accuracy" in res.stderr
+    assert "Epoch[0] Validation-accuracy" in res.stderr
+    assert os.path.exists(prefix + "-0001.params")
+    assert os.path.exists(prefix + "-symbol.json")

@@ -288,25 +288,28 @@ def test_resnet18_bfloat16_step_keeps_aux_float32():
 
 def test_mirror_blocks_tags_and_is_refused():
     """``mirror_blocks=True`` tags each unit's ops (``mirror_scope``); the
-    port's executor refuses the graph (recompute is not ported), and
-    ``mirror_scope(..., enabled=False)`` tags nothing."""
+    port's executor, which once refused the graph, now recomputes one
+    segment a unit (the 8 units of ResNet-18: ``mirror_stage`` splits
+    the runs), and ``mirror_scope(..., enabled=False)`` tags nothing."""
     from mxnet_tpu_torch.attribute import mirror_scope
     sym = tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE,
                                        mirror_blocks=True)
     tagged = [n for n in sym._topo() if n.attrs.get("mirror_stage")]
     assert tagged and all(n.attrs["force_mirroring"] == "true"
                           for n in tagged)
-    with pytest.raises(MXNetError, match="mirrored"):
-        t_build_program(sym)
+    prog = t_build_program(sym)
+    assert prog.n_mirrored == 8
+    assert {n.attrs["mirror_stage"] for m, ns in prog.segments if m
+            for n in ns} == {n.attrs["mirror_stage"] for n in tagged}
     with mirror_scope("stage", enabled=False):
         v = tmx.sym.Variable("x")
     assert not v._heads[0][0].attrs
 
 
 def test_port_imports_without_jax():
-    """Every module of the image-classification slice and of its image
-    feed imports with JAX unavailable, and no module of the port imports
-    jax or mxnet_tpu."""
+    """Every module of the image-classification slice, of its image feed
+    and of the model zoo, mirroring and Module family imports with JAX
+    unavailable, and no module of the port imports jax or mxnet_tpu."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import mxnet_tpu_torch as mx\n"
@@ -319,6 +322,20 @@ def test_port_imports_without_jax():
         "import mxnet_tpu_torch.image, mxnet_tpu_torch.models.lenet\n"
         "import mxnet_tpu_torch.parallel.overlap\n"
         "import mxnet_tpu_torch.tools.im2rec\n"
+        "import mxnet_tpu_torch.models.alexnet, mxnet_tpu_torch.models.vgg\n"
+        "import mxnet_tpu_torch.models.googlenet\n"
+        "import mxnet_tpu_torch.models.inception_bn\n"
+        "import mxnet_tpu_torch.models.inception_v3\n"
+        "import mxnet_tpu_torch.monitor, mxnet_tpu_torch.executor_manager\n"
+        "import mxnet_tpu_torch.module.sequential_module\n"
+        "import mxnet_tpu_torch.module.python_module\n"
+        "import mxnet_tpu_torch.resilience.ckptmgr\n"
+        "mx.FeedForward; mx.Monitor; mx.mod.SequentialModule\n"
+        "mx.mod.PythonLossModule; mx.sym.Concat; mx.sym.LRN\n"
+        "mx.sym.maximum; mx.sym.minimum; mx.sym.pow\n"
+        "mx.models.get_inception_bn(10).infer_shape(data=(1, 3, 224, 224))\n"
+        "(mx.sym.Variable('a') * 2 - 1).grad(['a'])\n"
+        "mx.executor.trace_residual_bytes; mx.executor._mirror_segments\n"
         "mx.models.resnet; mx.mod.Module; mx.io.NDArrayIter\n"
         "mx.kvstore.create; mx.lr_scheduler; mx.metric; mx.callback\n"
         "mx.io.ImageRecordIter; mx.io.MNISTIter; mx.io.CSVIter\n"

@@ -166,14 +166,16 @@ def test_bfloat16_step_keeps_master_weights_and_ids():
 
 def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     """No ctx and no mesh means gpu(0) (raises on a CPU-only box);
-    zero1, fsdp, remat, seq_axis, the sentinel, the step watchdog, the
-    checkpoint methods, a MoE or mirrored symbol all raise."""
+    zero1, fsdp, seq_axis, the sentinel, the step watchdog, the
+    checkpoint methods and a MoE symbol all raise.  ``remat`` and the
+    mirrored symbol (``mirror_blocks``), which raised before the
+    executor's mirroring, now build."""
     sym = ttf.get_symbol(**DIMS)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             TTrainer(sym, opt)
-    for kwargs in ({"zero1": True}, {"fsdp": True}, {"remat": True},
+    for kwargs in ({"zero1": True}, {"fsdp": True},
                    {"seq_axis": 1}, {"sentinel": True},
                    {"step_timeout_s": 5.0}):
         with pytest.raises(MXNetError, match="not ported"):
@@ -187,8 +189,10 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
         tr.save_checkpoint("/nonexistent", {}, {}, {})
     with pytest.raises(MXNetError, match="MoE"):
         ttf.get_symbol(num_experts=2, **DIMS)
-    with pytest.raises(MXNetError, match="mirror"):
-        ttf.get_symbol(mirror_blocks=True, **DIMS)
+    assert TTrainer(sym, opt, ctx=tmx.cpu(), remat=True).remat
+    mirrored = ttf.get_symbol(mirror_blocks=True, **DIMS)
+    assert any(n.attrs.get("mirror_stage") == "layer0"
+               for n in mirrored._topo())
     with pytest.raises(MXNetError, match="multi-GPU"):
         tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=2)
 
