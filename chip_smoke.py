@@ -200,6 +200,33 @@ line:
    output, all finite), a ``SequentialModule`` of the trunk and the head
    within 1e-5 of one ``Module`` of the whole.
 
+13. the bucketing LSTM language model at ``example/rnn/
+   lstm_bucketing.py``'s defaults (2 layers, hidden and embedding 200,
+   batch 32, buckets 10, 20, 30 and 40, SGD lr 0.01 with wd 1e-5,
+   Xavier(in, 2.34), ``Perplexity``, ``kvstore="local"``) at PTB's
+   vocabulary of 10,001 on the example's seeded synthetic corpus:
+   ``BucketingModule.fit`` on ``gpu(0)`` for one epoch of about 40
+   batches (every bucket's executor on the default bucket's parameter
+   and gradient tensors with one optimizer; one program a bucket, bound
+   on its first visit only; no hand kernel; the parameters after every
+   batch and the last batch's outputs no further from a plain float64
+   run of the same batches written here than twice the plain float32
+   run; perplexity falls), with ms a step by bucket, tokens/s, a traced
+   step of the 40-bucket (the device's busy share, kernels a step) and
+   peak memory; ``ShardedTrainer`` on the 40-bucket graph (the initial
+   states as data), 3 steps through the sweep bit for bit the leafwise
+   update, and the sweep timed at its bucket; ``LSTMInferenceModel``
+   stepping 32 tokens within 1e-5 of the unrolled 32-step graph; the
+   fused RNN op against its plain loop on the card (lstm and gru on
+   cuDNN, rnn_tanh and rnn_relu on the loop; 2 layers, both
+   directions, at the sort example's shapes and, but for rnn_relu, at
+   hidden 200, seq 40, batch 32): the op's float32 outputs and
+   gradients within 1e-5 of the loop in float64, cuDNN's own distance
+   reported in every mode, and
+   ``example/bi-lstm-sort-torch/sort_io.py`` to an accuracy over 0.85;
+   ``gru_bucketing`` at the same widths over every bucket with the
+   witness gate.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -2389,9 +2416,10 @@ def read_counts():
 
 def run_resnet(torch, params, aux, data, steps, mode, opt_name="sgd",
                opt_kw=RESNET_SGD, compute_dtype=None, timed_steps=0,
-               sym=None, remat=False):
+               sym=None, remat=False, data_names=("data",)):
     """``steps`` steps of the port's ShardedTrainer on ``sym`` (default
-    ResNet-50) with ``MXTPU_FUSED_OPT=mode``; the five kernels' launch
+    ResNet-50; inputs ``data_names`` and ``softmax_label``) with
+    ``MXTPU_FUSED_OPT=mode``; the five kernels' launch
     counts, and the peak device memory, cover exactly these steps.  Then
     ``timed_steps`` more, each ended by a synchronize.  Returns the first
     step's softmax outputs, the parameters, aux and optimizer states
@@ -2404,6 +2432,7 @@ def run_resnet(torch, params, aux, data, steps, mode, opt_name="sgd",
     opt = mx.optimizer.create(opt_name, rescale_grad=1.0 / batch, **opt_kw)
     tr = mx.parallel.ShardedTrainer(sym or resnet_symbol(), opt,
                                     ctx=torch.device(DEVICE),
+                                    data_names=data_names,
                                     compute_dtype=compute_dtype, remat=remat)
     p, a = params_from_numpy(params, aux, ctx=torch.device(DEVICE))
     st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
@@ -4246,6 +4275,716 @@ def phase_zoo(torch, seed, smi, resnet):
 
 
 # ----------------------------------------------------------------------
+# phase 13: the bucketing LSTM language model
+# ----------------------------------------------------------------------
+#: example/rnn/lstm_bucketing.py's defaults (those of the reference's
+#: example) at PTB's vocabulary, 10,000 words + the padding id 0
+LSTM_LM = dict(num_layers=2, num_hidden=200, num_embed=200, vocab=10001,
+               batch=32, buckets=(10, 20, 30, 40))
+LSTM_SGD = dict(learning_rate=0.01, momentum=0.0, wd=1e-5)
+#: the seeded synthetic corpus of (a): about 10 batches a bucket
+LSTM_SENTENCES = 1300
+#: (e)'s corpus for gru_bucketing: a few batches over every bucket
+GRU_SENTENCES = 300
+LSTM_TRAINER_STEPS = 3
+LSTM_TRACED_STEPS = 3
+LSTM_INFER_TOKENS = 32
+#: (d): the fused RNN op at the bi-LSTM sort example's shapes and at the
+#: LM's widths: ((seq_len, batch, input size, hidden), modes).  rnn_relu
+#: only at the former: over 40 steps at hidden 200 from these weights
+#: its activations grow without bound, and the float32 loop itself lies
+#: 8e-2 from float64 there
+RNN_OP_CASES = (((5, 32, 16, 48), ("lstm", "gru", "rnn_tanh", "rnn_relu")),
+                ((40, 32, 200, 200), ("lstm", "gru", "rnn_tanh")))
+RNN_OP_TOL = 1e-5
+
+
+def _example_module(path, name):
+    """A module of the repo's ``example/`` tree, imported by path with
+    its directory on ``sys.path`` (the examples import their siblings)."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    full = os.path.join(here, path)
+    spec = importlib.util.spec_from_file_location(name, full)
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, os.path.dirname(full))
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.pop(0)
+    return mod
+
+
+def _lm_ctx(mx):
+    return mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+
+
+def lm_parts(mx, cell, seed, n_sentences):
+    """``(make_iter, sym_gen, init_states, initial numpy parameters)``
+    of ``example/rnn-torch/{cell}_bucketing.py`` at ``LSTM_LM``: the
+    example's seeded synthetic corpus, a maker of its BucketSentenceIter
+    (each new one yields the same batches in the same order on its first
+    pass) and sym_gen, and Xavier(in, 2.34) drawn from a seeded
+    generator."""
+    import torch
+    c = LSTM_LM
+    bucket_io = _example_module("example/rnn-torch/bucket_io.py",
+                                "chip_smoke_bucket_io")
+    model = getattr(mx.models, cell)
+    unroll = getattr(model, cell + "_unroll")
+    states = model.init_state_shapes(c["num_layers"], c["batch"],
+                                     c["num_hidden"])
+    sents = bucket_io.synthetic_corpus(num_sentences=n_sentences,
+                                       vocab_size=c["vocab"], seed=seed + 41,
+                                       lengths=c["buckets"])
+
+    def make_iter():
+        return bucket_io.BucketSentenceIter(sents, c["batch"],
+                                            buckets=list(c["buckets"]),
+                                            init_states=states,
+                                            seed=seed + 43)
+    it = make_iter()
+
+    def sym_gen(seq_len):
+        s = unroll(c["num_layers"], seq_len, c["vocab"],
+                   num_hidden=c["num_hidden"], num_embed=c["num_embed"],
+                   num_label=c["vocab"])
+        return s, ["data"] + [n for n, _ in states], ["softmax_label"]
+
+    sym, data_names, _ = sym_gen(it.default_bucket_key)
+    shapes = dict(states, data=(c["batch"], it.default_bucket_key),
+                  softmax_label=(c["batch"], it.default_bucket_key))
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    init = mx.init.Xavier(factor_type="in", magnitude=2.34,
+                          generator=torch.Generator().manual_seed(seed + 47))
+    params = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        arr = mx.nd.zeros(shape, ctx=mx.cpu())
+        init(name, arr)
+        params[name] = arr.asnumpy()
+    return make_iter, sym_gen, states, params
+
+
+def lm_batches(it):
+    """A new iterator's first pass as numpy ``(tokens, labels, bucket
+    key)`` batches."""
+    return [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.bucket_key)
+            for b in it]
+
+
+def plain_lm_step(torch, cell, p, tokens, labels, lr, wd, rescale):
+    """One training step of the unrolled LM of ``models/{cell}.py``
+    written here with no module of the port: the embedding, the
+    FullyConnected pairs of each cell and step from zero initial states,
+    the classifier over the time-major concatenation, the summed cross
+    entropy against the transposed labels (whose gradient is
+    SoftmaxOutput's p - onehot) and SGD without momentum,
+    ``w - lr * (g * rescale + wd * w)``.  ``p``: name -> tensor in the
+    dtype to run in.  Returns the softmax outputs and the new weights."""
+    F = torch.nn.functional
+    L, H = LSTM_LM["num_layers"], LSTM_LM["num_hidden"]
+    w = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    dt = w["cls_weight"].dtype
+    tok = torch.as_tensor(tokens, device=DEVICE).long()
+    B, S = tok.shape
+    emb = F.embedding(tok, w["embed_weight"])
+
+    def fc(x, name):
+        return torch.matmul(x, w[name + "_weight"].t()) + w[name + "_bias"]
+
+    h = [torch.zeros(B, H, dtype=dt, device=DEVICE) for _ in range(L)]
+    c = [torch.zeros(B, H, dtype=dt, device=DEVICE) for _ in range(L)]
+    tops = []
+    for t in range(S):
+        x = emb[:, t]
+        for i in range(L):
+            if cell == "lstm":
+                g = fc(x, "l%d_i2h" % i) + fc(h[i], "l%d_h2h" % i)
+                gi, gt, gf, go = torch.chunk(g, 4, dim=1)
+                c[i] = torch.sigmoid(gf) * c[i] \
+                    + torch.sigmoid(gi) * torch.tanh(gt)
+                h[i] = torch.sigmoid(go) * torch.tanh(c[i])
+            else:
+                both = fc(x, "l%d_i2h_gates" % i) + fc(h[i],
+                                                       "l%d_h2h_gates" % i)
+                z, r = torch.chunk(both, 2, dim=1)
+                z, r = torch.sigmoid(z), torch.sigmoid(r)
+                cand = torch.tanh(fc(x, "l%d_i2h_trans" % i)
+                                  + fc(r * h[i], "l%d_h2h_trans" % i))
+                h[i] = h[i] + z * (cand - h[i])
+            x = h[i]
+        tops.append(x)
+    logits = fc(torch.cat(tops, 0), "cls")
+    lab = torch.as_tensor(labels, device=DEVICE).t().reshape(-1).long()
+    loss = F.cross_entropy(logits, lab, reduction="sum")
+    names = list(w)
+    grads = torch.autograd.grad(loss, [w[n] for n in names])
+    with torch.no_grad():
+        new = {n: w[n] - lr * (g * rescale + wd * w[n])
+               for n, g in zip(names, grads)}
+    return torch.softmax(logits.detach(), dim=1), new
+
+
+def plain_lm_train(torch, cell, params, batches, dtype):
+    """The batches' steps of :func:`plain_lm_step` from the numpy
+    ``params`` in ``dtype``: the last step's softmax outputs and the
+    weights after every step."""
+    p = {k: torch.as_tensor(v, device=DEVICE).to(dtype)
+         for k, v in params.items()}
+    out = None
+    for tokens, labels, _key in batches:
+        out, p = plain_lm_step(torch, cell, p, tokens, labels,
+                               LSTM_SGD["learning_rate"], LSTM_SGD["wd"],
+                               1.0 / LSTM_LM["batch"])
+    return out, p
+
+
+def lm_witness(torch, cell, params, batches, outs, p_after):
+    """Phase 7's witness rule on the bucketing run: the port's float32
+    softmax outputs of the last batch and its parameters after every
+    batch, against the plain steps in float64 on the same batch
+    sequence, within PRECISION_FACTOR times the plain float32 steps'
+    distance from float64."""
+    o32, p32 = plain_lm_train(torch, cell, params, batches, torch.float32)
+    o64, p64 = plain_lm_train(torch, cell, params, batches, torch.float64)
+
+    def dist(o, p):
+        return [float((o.double() - o64).abs().max()),
+                max(float((p[n].double() - p64[n]).abs().max())
+                    for n in p64)]
+    got = {"steps": len(batches),
+           "port_vs_plain64": dist(outs, p_after),
+           "plain32_vs_plain64": dist(o32, p32),
+           "largest_update": max(float(
+               (p64[n] - torch.as_tensor(params[n], device=DEVICE).double())
+               .abs().max()) for n in p64)}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["port_vs_plain64"], got["plain32_vs_plain64"]))
+    return got
+
+
+class _KeyedIter(object):
+    """A bucket iterator that records the bucket key of every batch it
+    hands out (``keys``), for the step times by bucket."""
+
+    def __init__(self, it):
+        self.it = it
+        self.keys = []
+        self.batch_size = it.batch_size
+        self.default_bucket_key = it.default_bucket_key
+
+    @property
+    def provide_data(self):
+        return self.it.provide_data
+
+    @property
+    def provide_label(self):
+        return self.it.provide_label
+
+    def reset(self):
+        self.it.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = self.it.next()
+        self.keys.append(b.bucket_key)
+        return b
+
+    next = __next__
+
+
+def lm_fit(torch, mx, cell, seed, n_sentences):
+    """``BucketingModule.fit`` of ``{cell}_bucketing.py`` on the card at
+    ``LSTM_LM`` for one epoch of the corpus, as the example calls it.
+    Returns the module, the numpy batches, the initial parameters and a
+    dict of gates and measurements (ms a step by bucket over each
+    bucket's visits after its first, tokens/s over the same steps, the
+    per-batch perplexity, the programs bound, the hand kernels launched,
+    peak memory)."""
+    from mxnet_tpu_torch import executor as ex_mod
+    make_iter, sym_gen, states, params = lm_parts(mx, cell, seed,
+                                                  n_sentences)
+    batches = lm_batches(make_iter())
+    it = make_iter()
+    keyed = _KeyedIter(it)
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=_lm_ctx(mx))
+    stamps, sums = [], []
+
+    def on_batch(param):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        m = param.eval_metric
+        sums.append((float(m.sum_metric), float(m.num_inst)))
+
+    before = ex_mod.program_registry_stats()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    peak_reset(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    mod.fit(keyed, eval_metric=mx.metric.Perplexity(ignore_label=None),
+            kvstore="local", optimizer="sgd",
+            optimizer_params=dict(LSTM_SGD),
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in params.items()},
+            num_epoch=1, batch_end_callback=on_batch)
+    counts = read_counts()
+    after = ex_mod.program_registry_stats()
+    keys = keyed.keys
+    if keys != [k for _t, _l, k in batches]:
+        raise AssertionError("%s fit saw buckets %s, the corpus %s"
+                             % (cell, keys, [k for _t, _l, k in batches]))
+    # the step of batch i ends at stamps[i]; each bucket's first visit
+    # binds it (and the first batch binds the default bucket and sets
+    # up the optimizer), so it is left out of the times
+    first = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, i)
+    by_bucket, tokens, secs = {}, 0, 0.0
+    for i in range(1, len(keys)):
+        if first[keys[i]] == i:
+            continue
+        dt = stamps[i] - stamps[i - 1]
+        by_bucket.setdefault(keys[i], []).append(dt)
+        tokens += LSTM_LM["batch"] * keys[i]
+        secs += dt
+    ppl = []
+    prev = (0.0, 0.0)
+    for s, n in sums:
+        ppl.append((s - prev[0]) / (n - prev[1]))
+        prev = (s, n)
+    info = {"cell": cell, "batches": len(keys), "keys": keys,
+            "fit_s": time.perf_counter() - t0,
+            "ms_by_bucket": {k: float(np.median(v)) * 1e3
+                             for k, v in sorted(by_bucket.items())},
+            "steps_timed_by_bucket": {k: len(v) for k, v in
+                                      sorted(by_bucket.items())},
+            "tokens_per_s": tokens / secs if secs else None,
+            "perplexity_by_batch": ppl,
+            "programs_built": after["misses"] - before["misses"],
+            "program_lookups": (after["misses"] + after["hits"]
+                                - before["misses"] - before["hits"]),
+            "launches": counts, "peak_bytes": peak_bytes(torch)}
+    return mod, batches, params, info
+
+
+def check_bucket_sharing(mod, what):
+    """Every bucket's executor holds the default bucket's parameter and
+    gradient tensors, its inputs view the default bucket's input
+    buffers, and the buckets share one optimizer, updater and fused-step
+    state."""
+    base = mod._buckets[mod.default_bucket_key]
+    bex = base._exec_group.execs[0]
+    names = base._exec_group.param_names
+    for key, child in mod._buckets.items():
+        ex = child._exec_group.execs[0]
+        for n in names:
+            if ex.arg_dict[n].data.data_ptr() != \
+                    bex.arg_dict[n].data.data_ptr() \
+                    or ex.grad_dict[n].data.data_ptr() != \
+                    bex.grad_dict[n].data.data_ptr():
+                raise AssertionError("%s bucket %s: %s is not the default "
+                                     "bucket's tensor" % (what, key, n))
+        for n in child._exec_group.data_names:
+            if ex.arg_dict[n].data.data_ptr() != \
+                    bex.arg_dict[n].data.data_ptr():
+                raise AssertionError("%s bucket %s: input %s does not view "
+                                     "the default bucket's buffer"
+                                     % (what, key, n))
+        if child._optimizer is not base._optimizer \
+                or child._updater is not base._updater \
+                or child._fused_holder is not base._fused_holder:
+            raise AssertionError("%s bucket %s: its own optimizer"
+                                 % (what, key))
+    return {"buckets": sorted(mod._buckets), "parameters": len(names),
+            "parameter_elements": sum(bex.arg_dict[n].size for n in names),
+            "device": str(bex._device)}
+
+
+def trace_lm_step(torch, mod, batch, metric, steps):
+    """``steps`` steps of the default bucket as ``fit`` runs one
+    (``forward_backward``, ``update``, ``update_metric``) under
+    ``torch.profiler``: the device's busy share of the traced wall
+    (kernel time over wall time) and the CUDA kernels launched a step;
+    the same steps untraced first, each ended by a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def one():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+    untraced = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        untraced.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    busy_us, kernels, top = 0.0, 0, []
+    for evt in prof.key_averages():
+        if evt.device_type.name != "CUDA":
+            continue
+        us = 0.0
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, attr):
+                us = float(getattr(evt, attr))
+                break
+        busy_us += us
+        kernels += evt.count
+        top.append((us / steps, evt.count / steps, evt.key))
+    top.sort(reverse=True)
+    return {"step_ms_untraced": float(np.median(untraced)) * 1e3,
+            "step_ms_traced": wall * 1e3,
+            "device_busy_ms": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / 1e6 / steps / wall,
+            "kernels_a_step": kernels / steps,
+            "top_kernels": [{"device_ms": us / 1e3, "per_step": n,
+                             "name": k[:80]} for us, n, k in top[:6]]}
+
+
+def lstm_inference_check(torch, mx, arg_params, batches):
+    """(c): ``LSTMInferenceModel`` of ``example/rnn-torch/rnn_model.py``
+    from (a)'s parameters steps ``LSTM_INFER_TOKENS`` tokens one at a
+    time; each step's distribution against the unrolled graph of that
+    many steps at batch 1 on the card."""
+    c = LSTM_LM
+    rnn_model = _example_module("example/rnn-torch/rnn_model.py",
+                                "chip_smoke_rnn_model")
+    n = LSTM_INFER_TOKENS
+    toks = np.concatenate([t[0] for t, _l, _k in batches])[:n]
+    sym = mx.models.lstm.lstm_unroll(c["num_layers"], n, c["vocab"],
+                                     num_hidden=c["num_hidden"],
+                                     num_embed=c["num_embed"],
+                                     num_label=c["vocab"])
+    shapes = {"data": (1, n), "softmax_label": (1, n)}
+    shapes.update({name: (1, c["num_hidden"]) for name, _s in
+                   mx.models.lstm.init_state_shapes(c["num_layers"], 1,
+                                                    c["num_hidden"])})
+    exe = sym.simple_bind(_lm_ctx(mx), grad_req="null", **shapes)
+    exe.copy_params_from(arg_params, allow_extra_params=True)
+    exe.arg_dict["data"][:] = toks[None, :]
+    want = exe.forward()[0].asnumpy()
+    model = rnn_model.LSTMInferenceModel(c["num_layers"], c["vocab"],
+                                         c["num_hidden"], c["num_embed"],
+                                         c["vocab"], arg_params=arg_params,
+                                         ctx=_lm_ctx(mx))
+    err, rel, times = 0.0, 0.0, []
+    for t in range(n):
+        t0 = time.perf_counter()
+        got = model.forward(np.array([toks[t]], np.float32),
+                            new_seq=(t == 0))[0]
+        times.append(time.perf_counter() - t0)
+        d = np.abs(got.astype(np.float64) - want[t])
+        err = max(err, float(d.max()))
+        rel = max(rel, float((d / np.maximum(want[t], 1e-30)).max()))
+    out = {"tokens": n, "max_abs_err": err, "max_rel_err": rel,
+           "tol": 1e-5, "ms_a_token": float(np.median(times)) * 1e3,
+           "device": str(model.executor._device)}
+    if not err <= 1e-5:
+        raise AssertionError("LSTMInferenceModel: %s, want max abs err <= "
+                             "1e-5 against the unrolled %d-step graph"
+                             % (out, n))
+    return out
+
+
+def rnn_op_check(torch, timer):
+    """(d): the fused RNN op on CUDA tensors against its plain loop on
+    the same card (TF32 off): the modes and shapes of ``RNN_OP_CASES``,
+    2 layers, both directions, ``state_outputs``.
+    The op's float32 outputs, final states and the gradients of data,
+    flat parameters and initial states (cuDNN for lstm and gru, the
+    loop for the vanilla modes) within RNN_OP_TOL (of the larger of 1
+    and each tensor's max-abs) of the plain loop run in float64 on the
+    same inputs; beside it, the float32 loop's and cuDNN's own distance
+    from float64 in every mode (``ops.rnn.rnn_cudnn`` called directly:
+    the op does not take cuDNN's vanilla modes), and the forward and
+    backward of the op and of the float32 loop timed."""
+    from mxnet_tpu_torch.ops.registry import create_operator
+    from mxnet_tpu_torch.ops.rnn import (CUDNN_MODES, rnn_cudnn,
+                                         rnn_param_size, rnn_reference)
+    gen = torch.Generator().manual_seed(13)
+
+    def err(got, want):
+        e = 0.0
+        for a, b in zip(got, want):
+            a, b = a.detach().double(), b.detach().double()
+            e = max(e, float((a - b).abs().max())
+                    / max(1.0, float(b.abs().max())))
+        return e
+    rows = []
+    for (seq, batch, in_size, hidden), modes in RNN_OP_CASES:
+        for mode in modes:
+            for bidir in (False, True):
+                ndir = 2 if bidir else 1
+                n = rnn_param_size(2, in_size, hidden, bidir, mode)
+                host = [torch.randn(seq, batch, in_size, generator=gen),
+                        torch.randn(n, generator=gen) * 0.1,
+                        torch.randn(ndir * 2, batch, hidden, generator=gen)]
+                if mode == "lstm":
+                    host.append(torch.randn(ndir * 2, batch, hidden,
+                                            generator=gen))
+                op = create_operator("RNN", state_size=hidden, num_layers=2,
+                                     mode=mode, bidirectional=bidir,
+                                     state_outputs=True)
+
+                def leaves(dtype):
+                    return [t.to(DEVICE, dtype).requires_grad_(True)
+                            for t in host]
+                l32, l64 = leaves(torch.float32), leaves(torch.float64)
+
+                def cell(ls):
+                    return ls[3] if mode == "lstm" else None
+
+                def the_op():
+                    return op.forward(l32, [], True, None)[0]
+
+                def plain(ls):
+                    return [t for t in rnn_reference(
+                        mode, ls[0], ls[1], ls[2], cell(ls), 2, bidir)
+                        if t is not None]
+                routes = {"op": the_op(), "plain32": plain(l32),
+                          "plain64": plain(l64)}
+                if DEVICE == "cuda":
+                    routes["cudnn"] = [t for t in rnn_cudnn(
+                        mode, l32[0], l32[1], l32[2], cell(l32), 2, bidir)
+                        if t is not None]
+                cots = [torch.randn(o.shape, generator=gen).to(DEVICE)
+                        for o in routes["plain64"]]
+                res = {}
+                for key, outs in routes.items():
+                    ls = l64 if key == "plain64" else l32
+                    res[key] = list(outs) + list(torch.autograd.grad(
+                        outs, ls, [c.to(ls[0].dtype) for c in cots]))
+                row = {"mode": mode, "bidirectional": bidir, "layers": 2,
+                       "seq": seq, "batch": batch, "input": in_size,
+                       "hidden": hidden,
+                       "route": "cudnn" if DEVICE == "cuda"
+                       and mode in CUDNN_MODES else "plain loop",
+                       "op_vs_plain64": err(res["op"], res["plain64"]),
+                       "plain32_vs_plain64": err(res["plain32"],
+                                                 res["plain64"]),
+                       "tol": RNN_OP_TOL}
+                if DEVICE == "cuda":
+                    row["cudnn_vs_plain64"] = err(res["cudnn"],
+                                                  res["plain64"])
+                    row["op_fwd_bwd_ms"] = timer(
+                        lambda: torch.autograd.grad(the_op(), l32, cots))
+                    row["plain_fwd_bwd_ms"] = timer(
+                        lambda: torch.autograd.grad(plain(l32), l32, cots))
+                rows.append(row)
+                if not row["op_vs_plain64"] <= RNN_OP_TOL:
+                    raise AssertionError("RNN op on the card: %s" % row)
+    return rows
+
+
+def phase_lstm(torch, timer, seed, smi):
+    """Phase 13: the bucketing LSTM language model on the card at
+    ``example/rnn/lstm_bucketing.py``'s defaults and PTB's vocabulary:
+    (a) ``BucketingModule.fit`` (the example's route: the fused step,
+    leafwise, no hand kernel) with its sharing, binding, witness and
+    perplexity gates, step times by bucket, tokens/s, a traced step of
+    the 40-bucket, peak memory; (b) ``ShardedTrainer`` on the 40-bucket's
+    unrolled graph through the sweep, bit for bit the leafwise update;
+    (c) ``LSTMInferenceModel`` against the unrolled graph; (d) the fused
+    RNN op against its plain loop, and the bi-LSTM sort example;
+    (e) ``gru_bucketing`` with the witness gate."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    t_phase = time.perf_counter()
+    c = LSTM_LM
+    log("lstm: %s, SGD %s, Xavier(in, 2.34), Perplexity, kvstore local; "
+        "%s" % (json.dumps(c), json.dumps(LSTM_SGD),
+                "TF32 off (matmul %s, cudnn %s)"
+                % (torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.allow_tf32)))
+    # (a) BucketingModule.fit
+    mod, batches, params, fit = lm_fit(torch, mx, "lstm", seed,
+                                       LSTM_SENTENCES)
+    sharing = check_bucket_sharing(mod, "lstm")
+    if fit["programs_built"] != len(c["buckets"]) \
+            or fit["program_lookups"] != len(c["buckets"]):
+        raise AssertionError("lstm fit built %d programs in %d lookups, "
+                             "want one a bucket, bound on its first visit "
+                             "only (%d)" % (fit["programs_built"],
+                                            fit["program_lookups"],
+                                            len(c["buckets"])))
+    if any(v for k, v in fit["launches"].items() if k != "fused_opt_by_body") \
+            or fit["launches"]["fused_opt_by_body"]:
+        raise AssertionError("BucketingModule.fit launched hand kernels %s "
+                             "(its fused step is leafwise, as in the JAX "
+                             "package)" % fit["launches"])
+    arg_params = dict(mod.get_params()[0])
+    p_after = {n: a.data.clone() for n, a in arg_params.items()}
+    outs = mod.get_outputs()[0].data
+    witness = lm_witness(torch, "lstm", params, batches, outs, p_after)
+    log("lstm witness after %d batches: %s" % (len(batches),
+                                                json.dumps(witness)))
+    if not witness["ok"]:
+        raise AssertionError("lstm fit: float32 further from the plain "
+                             "float64 steps than %gx the plain float32 "
+                             "steps: %s" % (PRECISION_FACTOR, witness))
+    ppl = fit["perplexity_by_batch"]
+    head, tail = float(np.mean(ppl[:5])), float(np.mean(ppl[-5:]))
+    fit["perplexity_first5"], fit["perplexity_last5"] = head, tail
+    if not (np.isfinite(ppl).all() and tail < head):
+        raise AssertionError("lstm fit: perplexity did not fall: first "
+                             "batches %.2f, last %.2f" % (head, tail))
+    log("lstm BucketingModule.fit on %s: %d batches over buckets %s "
+        "(%d parameters, %d elements, one tensor each across buckets); "
+        "%d programs, each bound on its bucket's first visit; ms a step "
+        "by bucket (median) %s; %.1f tokens/s; perplexity %.2f -> %.2f; "
+        "peak %.1f MB; no hand kernel; on %s"
+        % (sharing["device"], fit["batches"], sharing["buckets"],
+           sharing["parameters"], sharing["parameter_elements"],
+           fit["programs_built"],
+           json.dumps({k: round(v, 3) for k, v in
+                       fit["ms_by_bucket"].items()}),
+           fit["tokens_per_s"] or 0.0, head, tail,
+           fit["peak_bytes"] / 2 ** 20, smi))
+    trace = None
+    if DEVICE == "cuda":
+        base = mod._buckets[mod.default_bucket_key]
+        tok, lab, key = next(b for b in batches
+                             if b[2] == mod.default_bucket_key)
+        states = [(n, (c["batch"], c["num_hidden"]))
+                  for n in base._exec_group.data_names[1:]]
+        batch = mx.io.DataBatch(
+            [mx.nd.array(tok, ctx=mx.cpu())]
+            + [mx.nd.zeros(s, ctx=mx.cpu()) for _n, s in states],
+            [mx.nd.array(lab, ctx=mx.cpu())], bucket_key=key,
+            provide_data=[("data", tok.shape)] + states,
+            provide_label=[("softmax_label", lab.shape)])
+        trace = trace_lm_step(torch, mod, batch,
+                              mx.metric.Perplexity(ignore_label=None),
+                              LSTM_TRACED_STEPS)
+        log("lstm traced step of the %d-bucket (forward_backward, update, "
+            "update_metric): %s" % (key, json.dumps(trace)))
+    # (b) ShardedTrainer on the largest bucket's graph, through the sweep
+    sym40, data_names, _ = mod._sym_gen(mod.default_bucket_key)
+    tok, lab, _key = next(b for b in batches
+                          if b[2] == mod.default_bucket_key)
+    data = {"data": tok, "softmax_label": lab}
+    data.update({n: np.zeros((c["batch"], c["num_hidden"]), np.float32)
+                 for n in data_names[1:]})
+    runs = {}
+    for mode in ("kernel", ""):
+        runs[mode] = run_resnet(torch, params, {}, data, LSTM_TRAINER_STEPS,
+                                mode, opt_kw=LSTM_SGD, sym=sym40,
+                                data_names=tuple(data_names),
+                                timed_steps=5 if mode else 0)
+    o_k, p_k, _a, s_k, info_k = runs["kernel"]
+    o_l, p_l, _a, s_l, info_l = runs[""]
+    _want_sweep_only(info_k, 0)
+    if any(v for k, v in info_l["launches"].items()
+           if k != "fused_opt_by_body") or info_l["launches"][
+               "fused_opt_by_body"]:
+        raise AssertionError("lstm leafwise trainer launched %s"
+                             % info_l["launches"])
+    _want_cuda0(torch, "lstm trainer", info_k["devices"])
+    same = torch.equal(o_k, o_l) and all(torch.equal(p_k[n], p_l[n])
+                                         for n in p_l)
+    if not same:
+        raise AssertionError("lstm trainer: the sweep's %d steps differ "
+                             "from the leafwise update's" % info_k["steps"])
+    n_sweep = info_k["bucket_sizes"][0]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / c["batch"],
+                              **LSTM_SGD)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 53)
+    w = torch.randn(n_sweep, generator=gen, device=DEVICE) * 0.05
+    g = torch.randn(n_sweep, generator=gen, device=DEVICE)
+    sweep = {"n": n_sweep, "body": fo.sweep_body(opt),
+             "mbytes": 4 * n_sweep / 2 ** 20}
+    if DEVICE == "cuda":
+        lib_step, lib_name = _library_optimizer(torch, "sgd", w, g)
+        sweep.update(
+            ms=timer(lambda: fo.sweep(opt, w, g, [], 0.01, 1e-5, 1)),
+            plain_ms=timer(lambda: fo.sweep_reference(opt, w, g, [], 0.01,
+                                                      1e-5, 1)),
+            library_ms=timer(lib_step), library=lib_name)
+        sweep["bound_ms"], sweep["bound_by"] = bound_ms(3 * 4 * n_sweep, 0)
+    trainer = {"kernel": info_k, "leafwise": info_l, "sweep": sweep,
+               "bitwise": same}
+    log("lstm ShardedTrainer on the %d-bucket graph (data_names %s): "
+        "%d steps through the sweep (%d launches, buckets %s, body %d) "
+        "bit for bit the leafwise update; %.3f ms a step; the sweep at "
+        "%d elements: %s"
+        % (mod.default_bucket_key, list(data_names), info_k["steps"],
+           info_k["launches"]["fused_opt"], info_k["bucket_sizes"],
+           sweep["body"], info_k.get("step_ms", 0.0), n_sweep,
+           json.dumps({k: v for k, v in sweep.items()
+                       if k.endswith("ms") or k == "library"})))
+    del runs
+    # (c) stateful inference from (a)'s parameters
+    infer = lstm_inference_check(torch, mx, arg_params, batches)
+    log("lstm LSTMInferenceModel, %d tokens one at a time on %s: max abs "
+        "err %.3g (relative %.3g) against the unrolled graph; %.3f ms a "
+        "token" % (infer["tokens"], infer["device"], infer["max_abs_err"],
+                   infer["max_rel_err"], infer["ms_a_token"]))
+    del mod
+    # (d) the fused RNN op, and the bi-LSTM sort example
+    rnn_rows = rnn_op_check(torch, timer)
+    for r in rnn_rows:
+        log("lstm RNN op %(mode)s bidirectional=%(bidirectional)s "
+            "(seq %(seq)d, batch %(batch)d, input %(input)d, hidden "
+            "%(hidden)d) through %(route)s: %(op_vs_plain64).3g from the "
+            "plain loop in float64 (the float32 loop "
+            "%(plain32_vs_plain64).3g)" % r
+            + ("; cuDNN %.3g; the op %.4f ms, the float32 loop %.4f ms "
+               "(forward + backward)"
+               % (r["cudnn_vs_plain64"], r["op_fwd_bwd_ms"],
+                  r["plain_fwd_bwd_ms"]) if "op_fwd_bwd_ms" in r else ""))
+    sort_io = _example_module("example/bi-lstm-sort-torch/sort_io.py",
+                              "chip_smoke_sort_io")
+    t0 = time.perf_counter()
+    acc = float(sort_io.main(ctx=_lm_ctx(mx)))
+    sort = {"accuracy": acc, "seconds": time.perf_counter() - t0}
+    if not acc > 0.85:
+        raise AssertionError("bi-lstm sort on the card: accuracy %.3f"
+                             % acc)
+    log("lstm bi-lstm-sort example on %s: last-batch per-token accuracy "
+        "%.3f in %.1f s" % (DEVICE, acc, sort["seconds"]))
+    # (e) gru_bucketing
+    gmod, gbatches, gparams, gfit = lm_fit(torch, mx, "gru", seed,
+                                           GRU_SENTENCES)
+    gshare = check_bucket_sharing(gmod, "gru")
+    garg, _ = gmod.get_params()
+    gwit = lm_witness(torch, "gru", gparams, gbatches,
+                      gmod.get_outputs()[0].data,
+                      {n: a.data.clone() for n, a in garg.items()})
+    if not gwit["ok"] or sorted(set(gfit["keys"])) != list(c["buckets"]):
+        raise AssertionError("gru_bucketing: buckets %s, witness %s"
+                             % (sorted(set(gfit["keys"])), gwit))
+    log("lstm gru_bucketing on %s: %d batches over buckets %s; ms a step "
+        "by bucket %s; witness %s"
+        % (gshare["device"], gfit["batches"], gshare["buckets"],
+           json.dumps({k: round(v, 3) for k, v in
+                       gfit["ms_by_bucket"].items()}), json.dumps(gwit)))
+    del gmod
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    log("lstm phase: %.1f s" % (time.perf_counter() - t_phase))
+    return {"fit": fit, "sharing": sharing, "witness": witness,
+            "trace": trace, "trainer": trainer, "inference": infer,
+            "rnn_op": rnn_rows, "sort": sort,
+            "gru": {"fit": gfit, "sharing": gshare, "witness": gwit}}
+
+
+# ----------------------------------------------------------------------
 # phase 8: the imperative NDArray surface and runtime-compiled kernels
 # ----------------------------------------------------------------------
 #: phase 8's arrays, and the element count its elementwise kernels are
@@ -4637,6 +5376,7 @@ def main(argv=None):
         module = run("10", phase_module, torch, args.seed, smi)
         feed = run("11", phase_feed, torch, args.seed, smi, resnet, module)
         zoo = run("12", phase_zoo, torch, args.seed, smi, resnet)
+        lstm = run("13", phase_lstm, torch, timer, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -4682,6 +5422,11 @@ def main(argv=None):
     zoo_main = sum(zoo["main"][d]["launches"]["fused_opt"]
                    for d in ("float32", "bfloat16"))
     launches["fused_opt"] += zoo_main
+    # the bucketing LSTM (phase 13): its BucketingModule.fit launches no
+    # hand kernel (the fused step is leafwise, as in the JAX package);
+    # ShardedTrainer on the 40-bucket graph is the path through the sweep
+    lstm_main = lstm["trainer"]["kernel"]["launches"]["fused_opt"]
+    launches["fused_opt"] += lstm_main
     resnet_other = {"resnet50_gate_" + n: g["launches"]
                     for n, g in resnet["gates"].items()}
     resnet_other["resnet50_witness_batch8"] = resnet["witness"]["launches"]
@@ -4702,6 +5447,7 @@ def main(argv=None):
             + [feed["trainer"][d]["launches"]
                for d in ("float32", "bfloat16")] \
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
+            + [lstm["trainer"]["kernel"]["launches"]] \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -4756,7 +5502,8 @@ def main(argv=None):
                 {"transformer_training": transformer_sweeps,
                  "resnet50_training": resnet_main,
                  "resnet50_image_feed": feed_main,
-                 "inception_bn_training": zoo_main},
+                 "inception_bn_training": zoo_main,
+                 "lstm_lm_training": lstm_main},
                 **{p: c["fused_opt"] for p, c in resnet_other.items()})
         elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
@@ -4810,7 +5557,7 @@ def main(argv=None):
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
-                       "zoo": zoo,
+                       "zoo": zoo, "lstm": lstm,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

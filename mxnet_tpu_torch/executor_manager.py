@@ -4,14 +4,19 @@ The port of ``mxnet_tpu/executor_manager.py`` (the reference's
 ``python/mxnet/executor_manager.py``): ``_split_input_slice``,
 ``_check_arguments``, ``_load_data``/``_load_label``, ``_bind_exec``,
 ``DataParallelExecutorGroup`` and ``DataParallelExecutorManager``, on
-one context: one executor bound on the whole batch.  Several contexts
-(the batch split across GPUs) come with the multi-GPU training slice
-(``ROADMAP.md`` queue 1 item 3) and raise, as ``Module`` does; so does a
-``sym_gen`` (bucketing, item 4).
+one context: one executor bound on the whole batch.  With a ``sym_gen``
+(bucketing) the manager binds one group per bucket key; every group's
+executor shares the first group's parameter, gradient and aux arrays
+(the same tensors), and its input arrays are views of the head of the
+largest bucket's buffers (``_bind_exec``).  Several contexts (the batch
+split across GPUs) come with the multi-GPU training slice
+(``ROADMAP.md`` queue 1 item 3) and raise, as ``Module`` does.
 """
 from __future__ import annotations
 
 import logging
+
+import numpy as _np
 
 from .base import MXNetError
 from .ndarray import NDArray, zeros
@@ -82,13 +87,21 @@ def _load_label(batch, targets):
 class DataParallelExecutorGroup(object):
     """The executors of a ctx list (parity: executor_manager.py:180),
     each bound on its slice of the batch; the manager gives it one
-    context.  Sharing arrays with another group (bucketing) comes with
-    ``BucketingModule``."""
+    context.  With ``shared_group`` (another bucket's group) each
+    executor borrows that group's parameters, gradients, aux states and
+    input buffers (``_bind_exec``)."""
 
-    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data):
+    def __init__(self, sym, arg_names, param_names, ctx, slices, train_data,
+                 shared_group=None):
         _check_arguments(sym)
         self.ctx = ctx
         self.slices = slices
+
+        if shared_group is None:
+            self.shared_data_arrays = [{} for _ in ctx]
+        else:
+            self.shared_data_arrays = shared_group.shared_data_arrays
+
         self.data_names = [x[0] for x in train_data.provide_data]
         self.label_names = [x[0] for x in train_data.provide_label]
         self.aux_names = sym.list_auxiliary_states()
@@ -103,9 +116,13 @@ class DataParallelExecutorGroup(object):
                 data_shapes[k] = tuple([shard] + list(v[1:]))
             grad_req = {name: ("write" if name in param_names else "null")
                         for name in arg_names}
-            self.train_execs.append(_bind_exec(sym, ctx_i, data_shapes,
-                                               need_grad=True,
-                                               grad_req=grad_req))
+            shared_exec = None if shared_group is None else \
+                shared_group.train_execs[i]
+            self.train_execs.append(_bind_exec(
+                sym, ctx_i, data_shapes, param_names, need_grad=True,
+                base_exec=shared_exec,
+                shared_data_arrays=self.shared_data_arrays[i],
+                grad_req=grad_req))
 
         self.data_arrays = [[(self.slices[i], e.arg_dict[name])
                              for i, e in enumerate(self.train_execs)]
@@ -144,11 +161,17 @@ class DataParallelExecutorGroup(object):
             metric.update(labels_slice, texec.outputs)
 
 
-def _bind_exec(sym, ctx, input_shapes, need_grad=False, grad_req=None):
-    """Bind one executor on fresh arrays (parity: executor_manager.py:95
-    ``_bind_exec``; reusing another executor's arrays comes with
-    bucketing): gradients for ``need_grad`` (a set of names, or True for
-    every argument outside ``input_shapes``)."""
+def _bind_exec(sym, ctx, input_shapes, param_names, need_grad=False,
+               base_exec=None, shared_data_arrays=None, grad_req=None):
+    """Bind one executor, reusing another's arrays where it can (parity:
+    executor_manager.py:95 ``_bind_exec``): gradients for ``need_grad``
+    (a set of names, or True for every argument outside
+    ``input_shapes``).  With ``base_exec``, each parameter and its
+    gradient are the base executor's NDArrays (one storage: an update
+    through either executor is an update of both), and so are the aux
+    states.  With ``shared_data_arrays`` (name -> NDArray, kept across
+    buckets), an input that fits in the stored array is a view of that
+    array's head; a larger one is allocated and stored instead."""
     arg_shape, _, aux_shape = sym.infer_shape(**input_shapes)
     if arg_shape is None:
         raise ValueError("input_shapes are incomplete")
@@ -157,16 +180,41 @@ def _bind_exec(sym, ctx, input_shapes, need_grad=False, grad_req=None):
         need_grad = {name for name in arg_names if name not in input_shapes}
     elif need_grad is False:
         need_grad = set()
-    args = {name: zeros(shape, ctx=ctx)
-            for name, shape in zip(arg_names, arg_shape)}
-    grads = {name: zeros(shape, ctx=ctx)
-             for name, shape in zip(arg_names, arg_shape)
-             if name in need_grad}
+
+    args, grads = {}, {}
+    for name, shape in zip(arg_names, arg_shape):
+        shape = tuple(shape)
+        if base_exec is not None and name in param_names:
+            arr = base_exec.arg_dict[name]
+            if tuple(arr.shape) != shape:
+                raise MXNetError("bucket binds %s at %s, the shared "
+                                 "executor holds %s"
+                                 % (name, shape, tuple(arr.shape)))
+            args[name] = arr
+            if name in need_grad and name in base_exec.grad_dict:
+                grads[name] = base_exec.grad_dict[name]
+            continue
+        if shared_data_arrays is not None and name not in param_names:
+            size = int(_np.prod(shape, dtype=_np.int64))
+            held = shared_data_arrays.get(name)
+            if held is not None and held.size >= size:
+                arr = held.reshape((-1,))[:size].reshape(shape)
+            else:
+                arr = shared_data_arrays[name] = zeros(shape, ctx=ctx)
+        else:
+            arr = zeros(shape, ctx=ctx)
+        args[name] = arr
+        if name in need_grad:
+            grads[name] = zeros(shape, ctx=ctx)
+
+    if base_exec is not None:
+        aux_arrays = base_exec.aux_arrays
+    else:
+        aux_arrays = [zeros(s, ctx=ctx) for s in aux_shape]
     if grad_req is None:
         grad_req = {name: ("write" if name in need_grad else "null")
                     for name in arg_names}
-    return sym.bind(ctx, args, grads, grad_req,
-                    [zeros(s, ctx=ctx) for s in aux_shape])
+    return sym.bind(ctx, args, grads, grad_req, aux_arrays)
 
 
 class DataParallelExecutorManager(object):
@@ -181,10 +229,6 @@ class DataParallelExecutorManager(object):
             raise MXNetError("FeedForward on %d contexts: several GPUs come "
                              "with the multi-GPU training slice (ROADMAP.md "
                              "queue 1 item 3)" % num_device)
-        if sym_gen is not None:
-            raise MXNetError("FeedForward with sym_gen (bucketing) is not "
-                             "ported yet: it comes with ROADMAP.md queue 1 "
-                             "item 4")
         logger.info("Start training with %s", str(ctx))
 
         if work_load_list is None:
@@ -204,9 +248,14 @@ class DataParallelExecutorManager(object):
 
         self.execgrp = DataParallelExecutorGroup(
             symbol, arg_names, param_names, ctx, self.slices, train_data)
+        self.execgrp_bucket = {}
+        if sym_gen is not None:
+            self.execgrp_bucket[train_data.default_bucket_key] = self.execgrp
         self.curr_execgrp = self.execgrp
 
     def install_monitor(self, monitor):
+        if self.sym_gen is not None:
+            raise MXNetError("Monitoring is not implemented for bucketing")
         for train_exec in self.execgrp.train_execs:
             monitor.install(train_exec)
 
@@ -235,6 +284,18 @@ class DataParallelExecutorManager(object):
         return self.curr_execgrp.aux_arrays
 
     def load_data_batch(self, data_batch):
+        """Switch to the batch's bucket (binding its group on first
+        sight, sharing the first group's arrays) and load the batch."""
+        if self.sym_gen is not None:
+            key = data_batch.bucket_key
+            if key not in self.execgrp_bucket:
+                self.execgrp_bucket[key] = DataParallelExecutorGroup(
+                    self.sym_gen(key), self.arg_names, self.param_names,
+                    self.ctx, self.slices, data_batch,
+                    shared_group=self.execgrp)
+            self.curr_execgrp = self.execgrp_bucket[key]
+        else:
+            self.curr_execgrp = self.execgrp
         self.curr_execgrp.load_data_batch(data_batch)
 
     def forward(self, is_train=False):

@@ -307,7 +307,10 @@ def params_from_numpy(arg_params, aux_params=None, ctx=None):
 class FeedForward(object):
     """Parity: model.py:383, the classic high-level model API, on one
     context: ``ctx=None`` means ``[current_context()]`` (``gpu(0)``
-    outside a ``with`` scope)."""
+    outside a ``with`` scope).  Bucketing, as in the JAX package: set
+    ``sym_gen`` (bucket key -> Symbol) after construction; ``fit`` then
+    trains the default bucket's symbol and binds each other bucket's on
+    its first batch, over the same parameter arrays."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer="sgd", initializer=Uniform(0.01),
@@ -327,7 +330,8 @@ class FeedForward(object):
         self.allow_extra_params = allow_extra_params
         self.argument_checked = False
         self._pred_exec = None
-        self._check_arguments()
+        if self.sym_gen is None:
+            self._check_arguments()
 
     def _check_arguments(self):
         if self.argument_checked:
@@ -546,6 +550,10 @@ class FeedForward(object):
         own_prefetch = None
         if prefetch_enabled(prefetch):
             data = own_prefetch = DevicePrefetcher(data, name="ff-feed")
+
+        if self.sym_gen:
+            self.symbol = self.sym_gen(data.default_bucket_key)
+            self._check_arguments()
         self.kwargs["sym"] = self.symbol
 
         arg_names, param_names, aux_names = self._init_params(

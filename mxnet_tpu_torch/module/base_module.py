@@ -270,12 +270,14 @@ class BaseModule(object):
         """``train_data`` behind a DevicePrefetcher; with one context
         (a ``Module``), each batch's arrays are placed on its device by
         the prefetcher's thread."""
-        from ..context import resolve
+        from ..context import Context, resolve
         from ..io import DataBatch
         from ..ndarray import NDArray
         from ..parallel.overlap import (DevicePrefetcher, HostToDevice,
                                         prefetch_depth)
         contexts = getattr(self, "_context", None) or []
+        if isinstance(contexts, Context):
+            contexts = [contexts]
         if len(contexts) != 1:
             return DevicePrefetcher(train_data, name="fit-feed")
         copy = HostToDevice(resolve(contexts[0]), prefetch_depth() + 2)
@@ -284,6 +286,7 @@ class BaseModule(object):
             return DataBatch([NDArray(copy(d)) for d in batch.data],
                              [NDArray(copy(lab)) for lab in batch.label or []],
                              pad=batch.pad, index=batch.index,
+                             bucket_key=batch.bucket_key,
                              provide_data=batch.provide_data,
                              provide_label=batch.provide_label)
         return DevicePrefetcher(train_data, place_fn=place, name="fit-feed",

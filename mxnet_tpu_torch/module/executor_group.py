@@ -5,15 +5,18 @@ executor bound on the Module's one context (the batch is not split),
 with the reference's grad_req rules (fixed parameters and inputs get
 ``null``; data get ``write`` with ``inputs_need_grad``), the data and
 label arrays the batches are copied into, and the executor's forward,
-backward, ``forward_backward`` and ``fused_step``.  Several contexts
-(the batch split across GPUs, or one executor over a mesh of them) and
-a shared group (bucketing) belong to later slices and raise.
+backward, ``forward_backward`` and ``fused_step``.  A shared group (a
+``BucketingModule``'s default bucket) lends its executor's parameter,
+gradient and aux arrays, and its input buffers, whose heads the smaller
+bucket's inputs view (``executor_manager._bind_exec``).  Several
+contexts (the batch split across GPUs, or one executor over a mesh of
+them) belong to a later slice and raise.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
+from ..executor_manager import _bind_exec
 from ..io import DataDesc
-from ..ndarray import zeros
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -46,9 +49,6 @@ class DataParallelExecutorGroup:
         if len(contexts) != 1:
             raise MXNetError("Module on %d contexts: several GPUs come with "
                              "the multi-GPU training slice" % len(contexts))
-        if shared_group is not None:
-            raise MXNetError("a shared executor group (BucketingModule) is "
-                             "not ported yet")
         _check_arguments(symbol)
         self.symbol = symbol
         self.contexts = contexts
@@ -85,19 +85,15 @@ class DataParallelExecutorGroup:
             for name in self.fixed_param_names:
                 req[name] = "null"
 
-        ctx = contexts[0]
+        self.shared_data_arrays = [{}] if shared_group is None \
+            else shared_group.shared_data_arrays
         shapes = {d.name: tuple(d.shape)
                   for d in self.data_shapes + self.label_shapes}
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
-        if arg_shapes is None:
-            raise ValueError("input_shapes are incomplete")
-        args, grads = {}, {}
-        for name, shape in zip(self.arg_names, arg_shapes):
-            args[name] = zeros(shape, ctx=ctx)
-            if req.get(name, "null") != "null":
-                grads[name] = zeros(shape, ctx=ctx)
-        aux = [zeros(s, ctx=ctx) for s in aux_shapes]
-        exec_ = symbol.bind(ctx, args, grads, req, aux)
+        exec_ = _bind_exec(
+            symbol, contexts[0], shapes, self.param_names,
+            need_grad={n for n, r in req.items() if r != "null"},
+            base_exec=None if shared_group is None else shared_group.execs[0],
+            shared_data_arrays=self.shared_data_arrays[0], grad_req=req)
         self.execs = [exec_]
 
         self.data_arrays = [[(self.slices[0], exec_.arg_dict[name])]

@@ -4,7 +4,8 @@ The port's slice of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
 Flatten, Reshape (with MXNet's ``0``/``-1`` codes), Embedding, the
 weight-only QuantizedDense, and the operators of the image models:
 Convolution, BatchNorm (alias CuDNNBatchNorm), Pooling, ElementWiseSum
-(alias add_n), Dropout, and the model zoo's Concat and LRN.  Plain
+(alias add_n), Dropout, the model zoo's Concat and LRN, and the
+recurrent models' SliceChannel, SwapAxis and Cast.  Plain
 matrix products go to ``torch.matmul`` and convolutions to ``F.conv*d``
 (cuDNN on the card), as the JAX package left both to XLA; QuantizedDense
 goes through the port's weight-only kernel (``kernels/quantize.py``),
@@ -17,6 +18,7 @@ import torch
 
 from ..base import MXNetError
 from ..dparam import Field, ParamStruct
+from ..ndarray import _torch_dtype
 from .registry import OperatorProperty, register_op, require_known
 
 
@@ -541,3 +543,79 @@ class LRN(OperatorProperty):
             sq, (p.nsize, 1), 1, divisor_override=1).reshape(x.shape)
         norm = torch.pow(p.knorm + (p.alpha / p.nsize) * ssum, -p.beta)
         return [(x * norm).to(x.dtype)], None
+
+
+# ----------------------------------------------------------------------
+# SliceChannel / SwapAxis / Cast (the recurrent models' gates and word
+# vectors, the bidirectional sort example's time-major swap)
+# ----------------------------------------------------------------------
+class _SliceChannelParam(ParamStruct):
+    num_outputs = Field(int, required=True, lower=1)
+    axis = Field(int, default=1)
+    squeeze_axis = Field(bool, default=False)
+
+
+@register_op("SliceChannel")
+class SliceChannel(OperatorProperty):
+    """slice_channel-inl.h: ``num_outputs`` equal parts along ``axis``
+    (views of the input: ``torch.chunk``), each with that axis dropped
+    when ``squeeze_axis`` and the parts are one wide."""
+    param_cls = _SliceChannelParam
+
+    def list_outputs(self):
+        return ["output%d" % i for i in range(self.param.num_outputs)]
+
+    def infer_shape(self, in_shapes):
+        require_known("SliceChannel", in_shapes, ["data"])
+        p = self.param
+        d = list(in_shapes[0])
+        if d[p.axis] % p.num_outputs:
+            raise MXNetError("SliceChannel: dim %d not divisible by %d"
+                             % (d[p.axis], p.num_outputs))
+        d[p.axis] //= p.num_outputs
+        if p.squeeze_axis and d[p.axis] == 1:
+            d.pop(p.axis)
+        return in_shapes, [tuple(d)] * p.num_outputs, []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        outs = torch.chunk(inputs[0], p.num_outputs, dim=p.axis)
+        if p.squeeze_axis:
+            outs = [torch.squeeze(o, p.axis) for o in outs]
+        return list(outs), None
+
+
+class _SwapAxisParam(ParamStruct):
+    dim1 = Field(int, default=0)
+    dim2 = Field(int, default=0)
+
+
+@register_op("SwapAxis")
+class SwapAxis(OperatorProperty):
+    """swapaxis-inl.h: exchange axes ``dim1`` and ``dim2``."""
+    param_cls = _SwapAxisParam
+
+    def infer_shape(self, in_shapes):
+        require_known("SwapAxis", in_shapes, ["data"])
+        s = list(in_shapes[0])
+        p = self.param
+        s[p.dim1], s[p.dim2] = s[p.dim2], s[p.dim1]
+        return in_shapes, [tuple(s)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [torch.transpose(inputs[0], self.param.dim1,
+                                self.param.dim2)], None
+
+
+class _CastParam(ParamStruct):
+    dtype = Field(str, required=True)
+
+
+@register_op("Cast")
+class Cast(OperatorProperty):
+    """cast-inl.h: the input in ``dtype`` (a numpy dtype name; its
+    gradient is cast back to the input's dtype by autograd)."""
+    param_cls = _CastParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [inputs[0].to(_torch_dtype(self.param.dtype))], None

@@ -139,3 +139,93 @@ class ExpandDims(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         return [torch.unsqueeze(inputs[0], self.param.axis)], None
+
+
+# ----------------------------------------------------------------------
+# reductions (broadcast_reduce_op-inl.h)
+# ----------------------------------------------------------------------
+class _ReduceParam(ParamStruct):
+    axis = Field(tuple, default=None, doc="axes to reduce; None = all")
+    keepdims = Field(bool, default=False)
+
+
+def _reduced_shape(shape, axis, keepdims):
+    if axis is None:
+        return (1,) if not keepdims else (1,) * len(shape)
+    axes = set(a % len(shape) for a in axis)
+    out = []
+    for i, s in enumerate(shape):
+        if i in axes:
+            if keepdims:
+                out.append(1)
+        else:
+            out.append(s)
+    return tuple(out) if out else (1,)
+
+
+def _amax(x, dim, keepdim):
+    return torch.amax(x, dim=dim if dim is not None else (), keepdim=keepdim)
+
+
+def _amin(x, dim, keepdim):
+    return torch.amin(x, dim=dim if dim is not None else (), keepdim=keepdim)
+
+
+def _sum(x, dim, keepdim):
+    if dim is None:
+        return torch.sum(x).reshape((1,) * x.dim() if keepdim else ())
+    return torch.sum(x, dim=dim, keepdim=keepdim)
+
+
+def _make_reduce(op_name, fn, aliases=()):
+    @register_op(op_name, aliases=aliases)
+    class _Reduce(OperatorProperty):
+        """A reduction over ``axis`` (all axes when None); reducing every
+        axis without ``keepdims`` gives shape (1,), as the reference."""
+        param_cls = _ReduceParam
+        hint = op_name.lower()
+
+        def infer_shape(self, in_shapes):
+            require_known(self.op_name, in_shapes, self.list_arguments())
+            p = self.param
+            return in_shapes, [_reduced_shape(in_shapes[0], p.axis,
+                                              p.keepdims)], []
+
+        def forward(self, inputs, aux, is_train, rng):
+            p = self.param
+            axis = tuple(p.axis) if p.axis is not None else None
+            out = fn(inputs[0], axis, p.keepdims)
+            if axis is None and not p.keepdims:
+                out = out.reshape((1,))
+            return [out], None
+
+    _Reduce.__name__ = "Op" + op_name
+    return _Reduce
+
+
+_make_reduce("sum", _sum, aliases=("sum_axis",))
+_make_reduce("max", _amax, aliases=("max_axis",))
+_make_reduce("min", _amin, aliases=("min_axis",))
+
+
+class _TransposeParam(ParamStruct):
+    axes = Field(tuple, default=None)
+
+
+@register_op("transpose")
+class Transpose(OperatorProperty):
+    """The axes permuted by ``axes`` (reversed when None)."""
+    param_cls = _TransposeParam
+
+    def _axes(self, ndim):
+        return tuple(self.param.axes) if self.param.axes \
+            else tuple(reversed(range(ndim)))
+
+    def infer_shape(self, in_shapes):
+        require_known("transpose", in_shapes, self.list_arguments())
+        s = in_shapes[0]
+        return in_shapes, [tuple(s[a] for a in self._axes(len(s)))], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        return [x.permute(self._axes(x.dim()))], None

@@ -945,3 +945,100 @@ def test_prefetch_feed_on_the_card_equals_serial(cuda, monkeypatch):
         got[prefetch] = dict(p, **a)
     for n, w in got[False].items():
         assert torch.equal(got[True][n], w), n
+
+
+# ----------------------------------------------------------------------
+# the fused RNN op (cuDNN on the card) and bucketing
+# ----------------------------------------------------------------------
+def _rnn_case(mode, layers, bidir, seq, batch, in_size, hidden, seed=0):
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    g = torch.Generator().manual_seed(seed)
+    ndir = 2 if bidir else 1
+    n = rnn_param_size(layers, in_size, hidden, bidir, mode)
+    host = [torch.randn(seq, batch, in_size, generator=g),
+            torch.randn(n, generator=g) * 0.1,
+            torch.randn(ndir * layers, batch, hidden, generator=g)]
+    if mode == "lstm":
+        host.append(torch.randn(ndir * layers, batch, hidden, generator=g))
+    return host
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("layers,bidir", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("seq,batch,in_size,hidden", [(5, 32, 16, 48),
+                                                      (40, 32, 200, 200)])
+def test_rnn_op_cudnn_matches_plain(cuda, mode, layers, bidir, seq, batch,
+                                    in_size, hidden):
+    """The RNN op on CUDA tensors (cuDNN for lstm and gru, the plain loop
+    for the vanilla modes): its float32 outputs, final states and the
+    gradients of data, flat parameters and initial states are within
+    1e-5 (of the larger of 1 and the max-abs) of the plain loop run in
+    float64 on the same card, TF32 off; for lstm and gru they are
+    cuDNN's."""
+    from mxnet_tpu_torch.ops.registry import create_operator
+    from mxnet_tpu_torch.ops.rnn import CUDNN_MODES, rnn_cudnn, rnn_reference
+    host = _rnn_case(mode, layers, bidir, seq, batch, in_size, hidden)
+    l32 = [t.to(cuda).requires_grad_() for t in host]
+    l64 = [t.to(cuda, torch.float64).requires_grad_() for t in host]
+    op = create_operator("RNN", state_size=hidden, num_layers=layers,
+                         mode=mode, bidirectional=bidir, state_outputs=True)
+    got, _ = op.forward(l32, [], True, None)
+    if mode in CUDNN_MODES:
+        direct = [t for t in rnn_cudnn(
+            mode, l32[0], l32[1], l32[2], l32[3] if mode == "lstm" else None,
+            layers, bidir) if t is not None]
+        assert all(torch.equal(a, b) for a, b in zip(got, direct))
+    want = [t for t in rnn_reference(
+        mode, l64[0], l64[1], l64[2], l64[3] if mode == "lstm" else None,
+        layers, bidir) if t is not None]
+    g = torch.Generator().manual_seed(1)
+    cots = [torch.randn(o.shape, generator=g, dtype=torch.float64).to(cuda)
+            for o in want]
+    gg = torch.autograd.grad(got, l32, [c.float() for c in cots])
+    gw = torch.autograd.grad(want, l64, cots)
+    for a, b in list(zip(got, want)) + list(zip(gg, gw)):
+        a, b = a.detach().double(), b.detach()
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+
+
+def test_bucketing_lstm_on_the_card(cuda):
+    """A small unrolled LSTM through BucketingModule on gpu(0): every
+    bucket's executor holds the default bucket's parameter tensors on
+    the card, and the trained parameters are finite."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.lstm import init_state_shapes, lstm_unroll
+    states = init_state_shapes(2, 4, 16)
+
+    def sym_gen(seq_len):
+        return (lstm_unroll(2, seq_len, 30, num_hidden=16, num_embed=8,
+                            num_label=30),
+                ["data"] + [n for n, _ in states], ["softmax_label"])
+
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=8,
+                                 context=mx.gpu(0))
+    mod.bind([("data", (4, 8))] + states, [("softmax_label", (4, 8))])
+    mod.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                               magnitude=2.34))
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    rng = np.random.RandomState(0)
+    for key in (8, 4, 6, 8, 4):
+        tok = rng.randint(1, 30, (4, key)).astype(np.float32)
+        batch = mx.io.DataBatch(
+            [mx.nd.array(tok, ctx=mx.cpu())]
+            + [mx.nd.zeros(s, ctx=mx.cpu()) for _, s in states],
+            [mx.nd.array(np.roll(tok, -1, 1), ctx=mx.cpu())],
+            bucket_key=key,
+            provide_data=[("data", (4, key))] + states,
+            provide_label=[("softmax_label", (4, key))])
+        mod.forward_backward(batch)
+        mod.update()
+    base = mod._buckets[8]._exec_group.execs[0]
+    for key in (4, 6):
+        ex = mod._buckets[key]._exec_group.execs[0]
+        assert ex.arg_dict["cls_weight"].data.data_ptr() == \
+            base.arg_dict["cls_weight"].data.data_ptr()
+        assert ex.arg_dict["data"].data.device.type == "cuda"
+    arg, _ = mod.get_params()
+    assert all(np.isfinite(v.asnumpy()).all() for v in arg.values())

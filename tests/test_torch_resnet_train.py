@@ -307,8 +307,9 @@ def test_mirror_blocks_tags_and_is_refused():
 
 
 def test_port_imports_without_jax():
-    """Every module of the image-classification slice, of its image feed
-    and of the model zoo, mirroring and Module family imports with JAX
+    """Every module of the image-classification slice, of its image feed,
+    of the model zoo, mirroring and Module family, and of the recurrent
+    path (its ops, models, BucketingModule and examples) imports with JAX
     unavailable, and no module of the port imports jax or mxnet_tpu."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
@@ -342,6 +343,27 @@ def test_port_imports_without_jax():
         "mx.io.ResizeIter; mx.io.PrefetchingIter; mx.nd.imdecode\n"
         "mx.parallel.overlap.DevicePrefetcher\n"
         "mx.parallel.ShardedTrainer.prefetch_feed\n"
+        "import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.sequence\n"
+        "import mxnet_tpu_torch.models.lstm, mxnet_tpu_torch.models.gru\n"
+        "import mxnet_tpu_torch.models.rnn\n"
+        "import mxnet_tpu_torch.module.bucketing_module\n"
+        "mx.mod.BucketingModule; mx.sym.RNN; mx.sym.SliceChannel\n"
+        "mx.sym.SwapAxis; mx.sym.Cast; mx.sym.transpose; mx.sym.sum_axis\n"
+        "mx.sym.SequenceLast; mx.sym.SequenceMask; mx.sym.SequenceReverse\n"
+        "mx.models.lstm.lstm_unroll(2, 4, 20, 8, 8, 20).infer_shape(\n"
+        "    data=(2, 4), l0_init_c=(2, 8), l0_init_h=(2, 8),\n"
+        "    l1_init_c=(2, 8), l1_init_h=(2, 8))\n"
+        "mx.models.gru.gru_unroll; mx.models.rnn.rnn_unroll\n"
+        "import runpy, os\n"
+        "for sub, name in (('rnn-torch', 'bucket_io.py'),\n"
+        "                  ('rnn-torch', 'rnn_model.py'),\n"
+        "                  ('rnn-torch', 'lstm_bucketing.py'),\n"
+        "                  ('rnn-torch', 'gru_bucketing.py'),\n"
+        "                  ('bi-lstm-sort-torch', 'sort_io.py')):\n"
+        "    d = os.path.join('example', sub)\n"
+        "    sys.path.insert(0, d)\n"
+        "    runpy.run_path(os.path.join(d, name), run_name='imported')\n"
+        "    sys.path.pop(0)\n"
         "assert mx.libinfo.find_lib() is not None\n"
         "bad = [m for m in sys.modules if m == 'mxnet_tpu' or "
         "m.startswith('mxnet_tpu.')]\n"
