@@ -9,7 +9,8 @@ It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
 line:
 
-1. the device, ``nvidia-smi``'s name and power limit, and the build of
+1. the device, ``nvidia-smi``'s name and power limit, its card count
+   (``nvidia-smi -L`` beside ``torch.cuda.device_count()``), and the build of
    every CUDA kernel of the port from ``mxnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), with each kernel's registers
    and spills from ``ptxas`` (the float32 flash forward at D=64 must not
@@ -227,6 +228,30 @@ line:
    ``gru_bucketing`` at the same widths over every bucket with the
    witness gate.
 
+14. CustomOp and Faster R-CNN: ``example/rcnn-torch`` (the graph of
+   ``example/rcnn/symbol.py``: the VGG-style backbone at its own 32-128
+   channels, the RPN's two losses, the Proposal Custom op on the host,
+   ROIPooling and the heads) at the published scale, 600 x 600 (feature
+   map 37 x 37, 12,321 anchors), 21 classes, 300 rois (1200 before NMS),
+   on ``gpu(0)``: 2 warm and 10 timed steps of the example's step (the
+   forward, the backward with the executor's head gradients, the
+   example's SGD through host arrays, lr ``RCNN_LR``) with (a) each
+   step's rois bit for bit the example's numpy ProposalOp on that step's
+   own inputs copied to the host; (b) the first and last steps held to
+   the same step in float64 on the card with the rois fixed to the
+   float32 step's: the four outputs within 1e-4 and every parameter's
+   gradient within 1e-2 of each tensor's max-abs; (c) ROIPooling on the
+   card against the CPU at the step's shapes (with a bin of tied zeros):
+   forward bit for bit, gradient within 1e-6 of its max-abs, each tied
+   zero a quarter of its bin's gradient; (d) ``example/numpy-ops-torch/
+   custom_softmax.py`` (``Module.fit`` with a CustomOp loss) on the card
+   within 1e-6 of the CPU's accuracy; (e) each of the 51 op names the
+   slice registers once on the card, float32 within 1e-5 (forward) and
+   1e-4 (vjp) of float64 on the card (the samplers and rrelu by bounds
+   and moments); no hand kernel launched.  Printed: ms a step, the
+   Custom op's host ms and copies, ROIPooling's forward and backward ms
+   and peak memory, the phase's peak, the busy share of traced steps.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -273,6 +298,15 @@ TRAIN_SGD = dict(learning_rate=0.1, momentum=0.9)
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def nvidia_smi_cards():
+    """``nvidia-smi -L``: one line for each card the machine has."""
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError("nvidia-smi -L failed: %s" % out.stderr.strip())
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
 
 
 def nvidia_smi_line():
@@ -4611,16 +4645,21 @@ def check_bucket_sharing(mod, what):
 
 def trace_lm_step(torch, mod, batch, metric, steps):
     """``steps`` steps of the default bucket as ``fit`` runs one
-    (``forward_backward``, ``update``, ``update_metric``) under
-    ``torch.profiler``: the device's busy share of the traced wall
-    (kernel time over wall time) and the CUDA kernels launched a step;
-    the same steps untraced first, each ended by a synchronize."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (``forward_backward``, ``update``, ``update_metric``), through
+    :func:`trace_calls`."""
     def one():
         mod.forward_backward(batch)
         mod.update()
         mod.update_metric(metric, batch.label)
+    return trace_calls(torch, one, steps)
+
+
+def trace_calls(torch, one, steps):
+    """``steps`` calls of ``one`` under ``torch.profiler``: the device's
+    busy share of the traced wall (kernel time over wall time) and the
+    CUDA kernels launched a call; the same calls untraced first, each
+    ended by a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
     untraced = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -4985,6 +5024,590 @@ def phase_lstm(torch, timer, seed, smi):
 
 
 # ----------------------------------------------------------------------
+# phase 14: CustomOp and Faster R-CNN
+# ----------------------------------------------------------------------
+#: the published Faster R-CNN scale: py-faster-rcnn's 600-pixel short
+#: side (square, as the example takes: feat 37, 12,321 anchors), PASCAL
+#: VOC's 20 classes and background, ProposalProp's default 300 rois
+#: after NMS (the symbol asks 4 x 300 before it); the backbone's widths
+#: are the symbol's own (32-128 channels)
+RCNN = dict(image_size=600, num_classes=21, rois=300)
+RCNN_WARM_STEPS = 2
+RCNN_TIMED_STEPS = 10
+RCNN_TRACED_STEPS = 2
+#: the example's plain SGD through host arrays, at a rate under which
+#: its unnormalized losses (the RPN's over 12,321 anchors, the
+#: regression head's ones as head gradients) stay finite over the run;
+#: the example's own 0.01 diverges within a few steps at this scale, and
+#: 1e-5 by the sixth
+RCNN_LR = 1e-7
+#: (b): the steps whose float32 step is held to float64 on the card
+#: (rois fixed to the float32 step's), and the tolerances, each of the
+#: float64 tensor's max-abs.  conv1's weight gradient sums the products
+#: of positive pixels and gradients of both signs over every position
+#: (360,000 at 600 x 600) and cancels: the port's float32 step on the
+#: CPU already lies 1.1e-3 from float64 there at 320 x 320, where every
+#: other tensor lies under 1e-6
+RCNN_F64_STEPS = (0, RCNN_WARM_STEPS + RCNN_TIMED_STEPS - 1)
+RCNN_OUT_TOL = 1e-4
+RCNN_GRAD_TOL = 1e-2
+#: (c): ROIPooling's gradient on the card against the CPU, of its
+#: max-abs (the forward must be bitwise)
+ROI_GRAD_TOL = 1e-6
+#: (d): custom_softmax's accuracy on the card against the CPU
+SOFTMAX_ACC_TOL = 1e-6
+#: (e): each new op in float32 on the card against float64 on the card,
+#: of the larger of 1 and the float64 tensor's max-abs
+NEW_OP_FWD_TOL = 1e-5
+NEW_OP_GRAD_TOL = 1e-4
+
+
+def _entry_name(entry):
+    node, i = entry
+    if node.is_variable:
+        return node.name
+    return "%s_%s" % (node.name, node.op.list_outputs()[i])
+
+
+def _rel_err(torch, got, want, floor=0.0):
+    """max |got - want| over the larger of ``floor`` and want's max-abs
+    (0 when both are zero)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if not want.numel():
+        return 0.0
+    err = float((got - want).abs().max())
+    scale = max(floor, float(want.abs().max()))
+    if scale == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / scale
+
+
+def _register_fixed_rois(mx, holder):
+    """A Custom op with the proposal's arguments that outputs
+    ``holder["rois"]`` and hands zeros back: (b)'s float64 step runs the
+    graph with the float32 step's rois."""
+    class FixedRois(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], holder["rois"])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            for g in in_grad:
+                g[...] = 0.0
+
+    @mx.operator.register("chip_smoke_fixed_rois")
+    class FixedRoisProp(mx.operator.CustomOpProp):
+        def __init__(self, rpn_post_nms_top_n="300"):
+            super().__init__(need_top_grad=False)
+            self._post = int(rpn_post_nms_top_n)
+
+        def list_arguments(self):
+            return ["cls_prob", "bbox_pred", "im_info"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [[self._post, 5]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return FixedRois()
+
+
+def rcnn_f64_step(torch, mx, sym_json, args32, rois, holder):
+    """(b): the graph in float64 on the card from the float32 step's
+    arguments, the proposal node swapped for one that outputs that
+    step's rois (the JSON's ``op_type``; ``load_json`` drops the
+    proposal's other kwargs): its outputs and gradients."""
+    holder["rois"] = rois
+    sym = mx.sym.load_json(sym_json.replace('"op_type": "proposal"',
+                                            '"op_type": '
+                                            '"chip_smoke_fixed_rois"'))
+    ctx = _lm_ctx(mx)
+    args = {n: mx.nd.NDArray(t.double()) for n, t in args32.items()}
+    grads = {n: mx.nd.zeros(tuple(t.shape), ctx=ctx, dtype="float64")
+             for n, t in args32.items()}
+    ex = sym.bind(ctx, args, args_grad=grads, grad_req="write")
+    outs = [o.data for o in ex.forward(is_train=True)]
+    ex.backward()
+    return outs, {n: g.data for n, g in ex.grad_dict.items()}
+
+
+def rcnn_roipool_check(torch, timer, feat, rois, seed):
+    """(c): ROIPooling at the step's shapes, its feature map with a
+    14 x 14 patch zeroed and its last roi over that patch (7 x 7 bins of
+    four tied zeros each): forward bit for bit the CPU's, gradient within
+    ``ROI_GRAD_TOL``; the patch's roi alone gives each tied zero a
+    quarter of its bin's gradient, on both; times and peak memory."""
+    from mxnet_tpu_torch.ops.vision import _ROIPoolingFn
+    ph = pw = 7
+    scale = 1.0 / 16
+    data = feat.detach().float().clone()
+    data[:, :, 4:18, 4:18] = 0.0
+    rois = rois.detach().float().clone()
+    rois[-1] = torch.tensor([0.0, 64.0, 64.0, 272.0, 272.0])
+    gen = torch.Generator().manual_seed(seed + 71)
+    cot = torch.randn((rois.shape[0], data.shape[1], ph, pw), generator=gen)
+
+    def run(dev, rr, cc):
+        d = data.to(dev).requires_grad_()
+        out = _ROIPoolingFn.apply(d, rr.to(dev), ph, pw, scale)
+        g, = torch.autograd.grad(out, d, cc.to(dev))
+        return out.detach().cpu(), g.cpu()
+    out_d, g_d = run(DEVICE, rois, cot)
+    out_c, g_c = run("cpu", rois, cot)
+    res = {"shapes": {"data": list(data.shape), "rois": list(rois.shape),
+                      "pooled": [ph, pw]},
+           "forward_bitwise": bool(torch.equal(out_d, out_c)),
+           "grad_rel_err": _rel_err(torch, g_d, g_c),
+           "grad_max_abs": float(g_c.abs().max())}
+    want = (cot[-1] / 4.0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    for label, dev in (("card", DEVICE), ("cpu", "cpu")):
+        _o, g = run(dev, rois[-1:], cot[-1:])
+        res["tied_quarters_" + label] = bool(
+            torch.equal(g[0, :, 4:18, 4:18], want))
+    if DEVICE == "cuda":
+        d = data.to(DEVICE)
+        dg = d.clone().requires_grad_()
+        r = rois.to(DEVICE)
+        cd = cot.to(DEVICE)
+        with torch.no_grad():
+            res["forward_ms"] = timer(
+                lambda: _ROIPoolingFn.apply(d, r, ph, pw, scale))
+        res["forward_backward_ms"] = timer(
+            lambda: torch.autograd.grad(
+                _ROIPoolingFn.apply(dg, r, ph, pw, scale), dg, cd))
+        res["backward_ms"] = res["forward_backward_ms"] - res["forward_ms"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(_ROIPoolingFn.apply(dg, r, ph, pw, scale), dg,
+                            cd)
+        torch.cuda.synchronize()
+        res["forward_backward_peak_mb"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return res
+
+
+def _u32(*shape, lo=-2.0, hi=2.0):
+    return lambda r: r.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _n32(*shape):
+    return lambda r: r.randn(*shape).astype(np.float32)
+
+
+def _labels(n, hi):
+    return lambda r: r.randint(0, hi, (n,)).astype(np.float32)
+
+
+def _fixed(a):
+    return lambda r: np.asarray(a, np.float32)
+
+
+#: (e): every op name this slice registers, at a small shape: (name,
+#: attrs, input makers, aux makers); the samplers, rrelu and the legacy
+#: ``_Native``/``_NDArray`` are checked apart
+NEW_OP_CASES = [
+    ("abs", {}, [_u32(3, 4)], []), ("ceil", {}, [_u32(3, 4)], []),
+    ("cos", {}, [_u32(3, 4)], []), ("exp", {}, [_u32(3, 4)], []),
+    ("floor", {}, [_u32(3, 4)], []),
+    ("log", {}, [_u32(3, 4, lo=0.1, hi=3.0)], []),
+    ("negative", {}, [_n32(3, 4)], []), ("_Negative", {}, [_n32(3, 4)], []),
+    ("round", {}, [_fixed([[0.5, 1.5, 2.5, -0.5], [-1.5, 0.4, 2.6, 3.0]])],
+     []),
+    ("rsqrt", {}, [_u32(3, 4, lo=0.1, hi=3.0)], []),
+    ("sign", {}, [_u32(3, 4)], []), ("sin", {}, [_u32(3, 4)], []),
+    ("sqrt", {}, [_u32(3, 4, lo=0.1, hi=3.0)], []),
+    ("square", {}, [_n32(3, 4)], []), ("identity", {}, [_n32(3, 4)], []),
+    ("_copy", {}, [_n32(3, 4)], []), ("_CrossDeviceCopy", {}, [_n32(3, 4)],
+                                      []),
+    ("dot", dict(transpose_b=True), [_n32(3, 4), _n32(5, 4)], []),
+    ("batch_dot", {}, [_n32(2, 3, 4), _n32(2, 4, 5)], []),
+    ("broadcast_axis", dict(axis=(1,), size=(5,)), [_n32(3, 1, 4)], []),
+    ("broadcast_to", dict(shape=(0, 5, 0)), [_n32(3, 1, 4)], []),
+    ("norm", {}, [_n32(3, 4)], []),
+    ("argmax_channel", {}, [_n32(4, 5)], []),
+    ("flip", dict(axis=1), [_n32(2, 3, 4)], []),
+    ("slice_axis", dict(axis=1, begin=1, end=3), [_n32(2, 5, 3)], []),
+    ("smooth_l1", {}, [_u32(3, 5, lo=-3.0, hi=3.0)], []),
+    ("softmax_cross_entropy", {}, [_n32(4, 5), _labels(4, 5)], []),
+    ("element_mask", {}, [_n32(4, 3, 2), _fixed([1, 0, 1, 1])], []),
+    ("LeakyReLU", dict(act_type="prelu"), [_n32(2, 3, 4, 4),
+                                           _u32(3, lo=0.0, hi=0.5)], []),
+    ("Deconvolution", dict(kernel=(4, 4), num_filter=3, stride=(2, 2),
+                           pad=(1, 1)),
+     [_n32(2, 4, 5, 5), _n32(4, 3, 4, 4), _n32(3)], []),
+    ("UpSampling", dict(scale=2, sample_type="bilinear"), [_n32(1, 2, 3, 4)],
+     []),
+    ("Crop", dict(num_args=2, center_crop=True),
+     [_n32(2, 3, 7, 6), _n32(2, 1, 4, 3)], []),
+    ("L2Normalization", dict(mode="channel"), [_n32(2, 3, 4)], []),
+    ("BlockGrad", {}, [_n32(3, 4)], []),
+    ("SoftmaxActivation", dict(mode="channel"), [_n32(2, 3, 4, 2)], []),
+    ("LinearRegressionOutput", {}, [_n32(4, 3), _n32(4, 3)], []),
+    ("LogisticRegressionOutput", {}, [_n32(4, 3), _u32(4, 3, lo=0.0, hi=1.0)],
+     []),
+    ("MAERegressionOutput", {}, [_n32(4, 3), _n32(4, 3)], []),
+    ("MakeLoss", dict(normalization="batch"), [_n32(3, 4)], []),
+    ("SVMOutput", {}, [_n32(4, 5), _labels(4, 5)], []),
+    ("IdentityAttachKLSparseReg", {}, [_u32(4, 3, 2, 2, lo=0.05, hi=0.95)],
+     [_u32(3, lo=0.1, hi=0.5)]),
+    ("ROIPooling", dict(pooled_size=(2, 2), spatial_scale=0.5),
+     [lambda r: np.maximum(r.randn(2, 3, 6, 6), 0).astype(np.float32),
+      _fixed([[0, 0, 0, 9, 9], [1, 2, 1, 11, 7], [0, 4, 4, 5, 5]])], []),
+    ("SpatialTransformer", dict(transform_type="affine",
+                                sampler_type="bilinear"),
+     [_n32(2, 3, 5, 6),
+      lambda r: (np.array([0.9, 0.1, 0.05, -0.1, 1.1, 0.0])
+                 + 0.05 * r.randn(2, 6)).astype(np.float32)], []),
+    ("Correlation", dict(kernel_size=3, max_displacement=2, pad_size=2),
+     [_n32(1, 2, 6, 6), _n32(1, 2, 6, 6)], []),
+    ("Custom", dict(op_type="chip_smoke_sigmoid"), [_n32(3, 4)], []),
+]
+NEW_SAMPLERS = (("_sample_uniform", dict(low=-1.0, high=3.0)),
+                ("uniform", {}), ("_sample_normal", dict(loc=2.0, scale=0.5)),
+                ("normal", {}))
+
+
+def _register_sigmoid(mx):
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        1.0 / (1.0 + np.exp(-in_data[0])))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1.0 - y))
+
+    @mx.operator.register("chip_smoke_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    class Cube(mx.operator.NDArrayOp):
+        def forward(self, in_data, out_data):
+            out_data[0][...] = in_data[0] ** 3
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            in_grad[0][...] = 3.0 * in_data[0] ** 2 * out_grad[0]
+    return Cube
+
+
+def _op_on_card(torch, op, inputs, aux, cot, dtype):
+    ins = [torch.from_numpy(x).to(DEVICE, dtype).requires_grad_()
+           for x in inputs]
+    outs, upd = op.forward(ins, [torch.from_numpy(a).to(DEVICE, dtype)
+                                 for a in aux], True, None)
+    live = [(o, torch.from_numpy(c).to(DEVICE, dtype))
+            for o, c in zip(outs, cot) if o.requires_grad]
+    grads = [None] * len(ins)
+    if live:
+        grads = torch.autograd.grad([o for o, _ in live], ins,
+                                    [c for _, c in live], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, ins)]
+    return ([o.detach() for o in outs], [u.detach() for u in upd or []],
+            grads)
+
+
+def new_ops_check(torch, mx, seed):
+    """(e): every op name this slice registers, once on the card: the
+    forward and the vjp of a seeded cotangent in float32 against the same
+    in float64 (the samplers and rrelu: bounds and moments of their
+    draws; ``_Native``/``_NDArray`` through a bound symbol)."""
+    from mxnet_tpu_torch.ops.registry import create_operator
+    cube = _register_sigmoid(mx)
+    rows, names = [], set()
+    for i, (name, attrs, makers, aux_makers) in enumerate(NEW_OP_CASES):
+        rng = np.random.RandomState(seed + 1000 + i)
+        inputs = [m(rng) for m in makers]
+        aux = [m(rng) for m in aux_makers]
+        op = create_operator(name, **attrs)
+        out_shapes = op.infer_shape([x.shape for x in inputs])[1]
+        cot = [rng.randn(*s).astype(np.float32) for s in out_shapes]
+        o32, u32, g32 = _op_on_card(torch, op, inputs, aux, cot,
+                                    torch.float32)
+        o64, u64, g64 = _op_on_card(torch, op, inputs, aux, cot,
+                                    torch.float64)
+        fwd = max(_rel_err(torch, a, b, 1.0) for a, b in zip(o32 + u32, o64 + u64))
+        grad = max([_rel_err(torch, a, b, 1.0) for a, b in zip(g32, g64)] or [0])
+        devices = {str(t.device) for t in o32 + list(g32)}
+        ok = fwd <= NEW_OP_FWD_TOL and grad <= NEW_OP_GRAD_TOL and \
+            devices == {str(torch.device(DEVICE, 0) if DEVICE == "cuda"
+                            else torch.device("cpu"))}
+        rows.append({"op": name, "attrs": attrs, "forward_err": fwd,
+                     "grad_err": grad, "ok": ok})
+        names.add(name)
+    n = 100000
+    for name, attrs in NEW_SAMPLERS:
+        s = getattr(mx.sym, name)(shape=(n,), **attrs)
+        d = s.simple_bind(_lm_ctx(mx)).forward(is_train=False)[0].data
+        d = d.double()
+        if "uniform" in name:
+            lo, hi = attrs.get("low", 0.0), attrs.get("high", 1.0)
+            mean, std = (lo + hi) / 2, (hi - lo) / math.sqrt(12)
+            inside = bool(d.min() >= lo and d.max() < hi)
+        else:
+            mean, std = attrs.get("loc", 0.0), attrs.get("scale", 1.0)
+            inside = True
+        m_err = abs(float(d.mean()) - mean) / (std / math.sqrt(n))
+        s_err = abs(float(d.std()) - std) / (std / math.sqrt(2 * n))
+        rows.append({"op": name, "attrs": attrs, "mean_in_se": m_err,
+                     "std_in_se": s_err, "device": str(d.device),
+                     "ok": inside and m_err < 5 and s_err < 5})
+        names.add(name)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 2)
+    x = -torch.rand(n, device=DEVICE) - 0.01
+    rr = create_operator("LeakyReLU", act_type="rrelu", lower_bound=0.1,
+                         upper_bound=0.3)
+    slope = (rr.forward([x], [], True, gen)[0][0] / x).double()
+    rows.append({"op": "LeakyReLU", "attrs": {"act_type": "rrelu"},
+                 "slope_min": float(slope.min()),
+                 "slope_max": float(slope.max()),
+                 "ok": bool(slope.min() >= 0.1 and slope.max() < 0.3)})
+    a = np.random.RandomState(seed + 3).randn(3, 4)
+    for name in ("_Native", "_NDArray"):
+        got = {}
+        for dt in ("float32", "float64"):
+            s = cube().get_symbol(data=mx.sym.Variable("x"))
+            ex = s.simple_bind(_lm_ctx(mx), grad_req="write",
+                               type_dict={"x": dt}, x=a.shape)
+            ex.arg_dict["x"][:] = a.astype(dt)
+            out = ex.forward(is_train=True)[0].data
+            ex.backward([mx.nd.NDArray(torch.ones_like(out))])
+            got[dt] = (out, ex.grad_dict["x"].data)
+        fwd = _rel_err(torch, got["float32"][0], got["float64"][0], 1.0)
+        grad = _rel_err(torch, got["float32"][1], got["float64"][1], 1.0)
+        rows.append({"op": name, "forward_err": fwd, "grad_err": grad,
+                     "ok": fwd <= NEW_OP_FWD_TOL and grad <= NEW_OP_GRAD_TOL})
+        names.add(name)
+    return rows, sorted(names)
+
+
+def rcnn_proposal_rois(prop, cls_prob, bbox_pred, im_info):
+    """(a): the example's numpy ProposalOp (the graph node's own prop) on
+    host copies of one step's inputs."""
+    shapes = [tuple(x.shape) for x in (cls_prob, bbox_pred, im_info)]
+    op = prop.create_operator(None, shapes, [np.float32] * 3)
+    out = [np.zeros(tuple(s), np.float32)
+           for s in prop.infer_shape([list(s) for s in shapes])[1]]
+    op.forward(False, ["write"] * len(out), [cls_prob, bbox_pred, im_info],
+               out, [])
+    return out[0]
+
+
+def phase_rcnn(torch, timer, seed, smi):
+    """Phase 14: ``example/rcnn-torch`` at the published Faster R-CNN
+    scale (600 x 600, 21 classes, 300 rois) on the card, 2 warm and 10
+    timed steps of the example's step (forward, backward with its head
+    gradients, its host SGD), with gates: (a) each step's rois bit for
+    bit the example's numpy ProposalOp on that step's inputs copied to
+    the host; (b) the first and last steps in float32 held to the same
+    step in float64 on the card with the rois fixed (the four outputs and
+    every parameter's gradient); (c) ROIPooling on the card against the
+    CPU at the step's shapes; (d) ``example/numpy-ops-torch/
+    custom_softmax.py`` through ``Module.fit`` on the card against the
+    CPU; (e) every new op name once on the card against float64.  It
+    prints ms a step, the Custom op's host time and copies, ROIPooling's
+    times, the phase's peak memory and the busy share of traced steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import operator as op_mod
+    t_phase = time.perf_counter()
+    counts0 = read_counts()
+    peak_reset(torch)
+    c = RCNN
+    te = _example_module("example/rcnn-torch/train_end2end.py",
+                         "chip_smoke_rcnn")
+    ctx = _lm_ctx(mx)
+    mx.random.seed(seed)
+    exe, shapes = te.bind(ctx, c["image_size"], c["num_classes"], c["rois"])
+    te.init_params(exe, shapes)
+    te.fill_inputs(exe, c["image_size"], c["num_classes"], c["rois"], seed)
+    topo = exe._symbol._topo()
+    prop_node = next(n for n in topo if n.op is not None
+                     and n.op.op_name == "Custom")
+    roi_node = next(n for n in topo if n.op is not None
+                    and n.op.op_name == "ROIPooling")
+    want = {_entry_name(prop_node.inputs[0]): "cls_prob",
+            _entry_name(prop_node.inputs[1]): "bbox_pred",
+            _entry_name(roi_node.inputs[0]): "conv_feat"}
+    captured = {}
+
+    def monitor(name, arr):
+        if name in want:
+            captured[want[name]] = arr.data
+    exe.set_monitor_callback(monitor)
+    im_info = exe.arg_dict["im_info"].asnumpy()
+    params = [n for n in exe._arg_names if n.endswith(("weight", "bias"))]
+    holder = {}
+    _register_fixed_rois(mx, holder)
+    sym_json = exe._symbol.tojson()
+    log("rcnn: %s, %d parameters (%d elements), SGD lr %g through host "
+        "arrays; %d + %d steps, the monitor on (it keeps the proposal's and "
+        "ROIPooling's inputs); %s"
+        % (json.dumps(c), len(params),
+           sum(exe.arg_dict[n].data.numel() for n in params), RCNN_LR,
+           RCNN_WARM_STEPS, RCNN_TIMED_STEPS, _cudnn_settings(torch)))
+    fb_ms, upd_ms, f64, n_rois = [], [], [], []
+    steps = RCNN_WARM_STEPS + RCNN_TIMED_STEPS
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    host = dict.fromkeys(op_mod.host_stats(), 0)
+    for step in range(steps):
+        args32 = {n: a.data.clone() for n, a in exe.arg_dict.items()} \
+            if step in RCNN_F64_STEPS else None
+        sync()
+        op_mod.host_stats(reset=True)
+        t0 = time.perf_counter()
+        outs = exe.forward(is_train=True)
+        exe.backward()
+        sync()
+        t1 = time.perf_counter()
+        if args32 is not None:
+            outs32 = [o.data.clone() for o in outs]
+            grads32 = {n: exe.grad_dict[n].data.clone() for n in params}
+        te.sgd_step(exe, RCNN_LR)
+        sync()
+        t2 = time.perf_counter()
+        if step >= RCNN_WARM_STEPS:
+            fb_ms.append((t1 - t0) * 1e3)
+            upd_ms.append((t2 - t1) * 1e3)
+            for k, v in op_mod.host_stats().items():
+                host[k] += v
+        rois = outs[3].asnumpy()
+        ref = rcnn_proposal_rois(prop_node.op.prop,
+                                 captured["cls_prob"].cpu().numpy(),
+                                 captured["bbox_pred"].cpu().numpy(),
+                                 im_info)
+        if not np.array_equal(rois, ref):
+            raise AssertionError("rcnn step %d: the rois differ from the "
+                                 "example's ProposalOp on the step's own "
+                                 "inputs (%d rows)" % (
+                                     step, int((rois != ref).any(1).sum())))
+        if not all(bool(torch.isfinite(o.data).all()) for o in outs):
+            raise AssertionError("rcnn step %d: non-finite outputs" % step)
+        widths = rois[:, 3] - rois[:, 1] + 1
+        n_rois.append(int(len(np.unique(rois, axis=0))))
+        if args32 is not None:
+            o64, g64 = rcnn_f64_step(torch, mx, sym_json, args32,
+                                     rois.astype(np.float64), holder)
+            row = {"step": step,
+                   "outputs": {n: _rel_err(torch, a, b) for n, a, b in
+                               zip(exe._out_names, outs32, o64)},
+                   "grads": {n: _rel_err(torch, grads32[n], g64[n])
+                             for n in params}}
+            row["max_output_err"] = max(row["outputs"].values())
+            row["max_grad_err"] = max(row["grads"].values())
+            row["worst_grad"] = max(row["grads"], key=row["grads"].get)
+            f64.append(row)
+            if row["max_output_err"] > RCNN_OUT_TOL or \
+                    row["max_grad_err"] > RCNN_GRAD_TOL:
+                raise AssertionError("rcnn step %d: float32 against float64 "
+                                     "on the card: %s" % (step,
+                                                          json.dumps(row)))
+            del args32, outs32, grads32
+        log("rcnn step %d: %.3f ms forward+backward, %.3f ms update; rois "
+            "bit for bit the ProposalOp's (%d distinct, widths %.1f-%.1f)"
+            % (step, (t1 - t0) * 1e3, (t2 - t1) * 1e3, n_rois[-1],
+               float(widths.min()), float(widths.max())))
+    exe.set_monitor_callback(None)
+    step_ms = [a + b for a, b in zip(fb_ms, upd_ms)]
+    fit = {"steps": steps, "timed": RCNN_TIMED_STEPS,
+           "ms_a_step": float(np.median(step_ms)),
+           "ms_a_step_all": step_ms,
+           "forward_backward_ms": float(np.median(fb_ms)),
+           "update_ms": float(np.median(upd_ms)),
+           "distinct_rois": n_rois,
+           "custom_op": {
+               "forward_calls": host["forward_calls"],
+               "backward_calls": host["backward_calls"],
+               "forward_ms": host["forward_s"] * 1e3
+               / max(1, host["forward_calls"]),
+               "backward_ms": host["backward_s"] * 1e3
+               / max(1, host["backward_calls"]),
+               "forward_user_ms": host["forward_user_s"] * 1e3
+               / max(1, host["forward_calls"]),
+               "backward_user_ms": host["backward_user_s"] * 1e3
+               / max(1, host["backward_calls"]),
+               "to_host_bytes_a_step": host["to_host_bytes"]
+               / RCNN_TIMED_STEPS,
+               "to_device_bytes_a_step": host["to_device_bytes"]
+               / RCNN_TIMED_STEPS}}
+    log("rcnn on %s: %.3f ms a step (median of %d; forward+backward %.3f, "
+        "host SGD %.3f); the Custom op a step: forward %.3f ms (user %.3f), "
+        "backward %.3f ms (user %.3f), %d bytes to the host and %d back; "
+        "float32 against float64 %s; on %s"
+        % (DEVICE, fit["ms_a_step"], RCNN_TIMED_STEPS,
+           fit["forward_backward_ms"], fit["update_ms"],
+           fit["custom_op"]["forward_ms"], fit["custom_op"]["forward_user_ms"],
+           fit["custom_op"]["backward_ms"],
+           fit["custom_op"]["backward_user_ms"],
+           fit["custom_op"]["to_host_bytes_a_step"],
+           fit["custom_op"]["to_device_bytes_a_step"],
+           json.dumps([{k: r[k] for k in ("step", "max_output_err",
+                                          "max_grad_err", "worst_grad")}
+                       for r in f64]), smi))
+    # (c) ROIPooling against the CPU
+    roi = rcnn_roipool_check(torch, timer, captured["conv_feat"],
+                             outs[3].data, seed)
+    log("rcnn ROIPooling %s on %s against the CPU: %s; on %s"
+        % (json.dumps(roi["shapes"]), DEVICE,
+           json.dumps({k: v for k, v in roi.items() if k != "shapes"}), smi))
+    if not (roi["forward_bitwise"] and roi["grad_rel_err"] <= ROI_GRAD_TOL
+            and roi["tied_quarters_card"] and roi["tied_quarters_cpu"]):
+        raise AssertionError("rcnn ROIPooling on the card: %s" % roi)
+    # (d) custom_softmax through Module.fit, card against CPU
+    cs = _example_module("example/numpy-ops-torch/custom_softmax.py",
+                         "chip_smoke_custom_softmax")
+    t0 = time.perf_counter()
+    acc_cpu = float(cs.main(ctx=mx.cpu(), seed=seed))
+    t1 = time.perf_counter()
+    acc_dev = float(cs.main(ctx=ctx, seed=seed))
+    t2 = time.perf_counter()
+    softmax = {"accuracy_cpu": acc_cpu, "accuracy_card": acc_dev,
+               "seconds_cpu": t1 - t0, "seconds_card": t2 - t1}
+    log("rcnn custom_softmax Module.fit: accuracy %.6f on %s, %.6f on the "
+        "CPU (%.2f s, %.2f s)" % (acc_dev, DEVICE, acc_cpu,
+                                  softmax["seconds_card"],
+                                  softmax["seconds_cpu"]))
+    if abs(acc_dev - acc_cpu) > SOFTMAX_ACC_TOL:
+        raise AssertionError("custom_softmax: accuracy %.6f on the card, "
+                             "%.6f on the CPU" % (acc_dev, acc_cpu))
+    # (e) every new op once on the card
+    op_rows, op_names = new_ops_check(torch, mx, seed)
+    bad = [r for r in op_rows if not r["ok"]]
+    log("rcnn new ops on %s: %d names, %d checks, worst forward %.3g, "
+        "worst gradient %.3g (float32 against float64)"
+        % (DEVICE, len(op_names), len(op_rows),
+           max(r.get("forward_err", 0.0) for r in op_rows),
+           max(r.get("grad_err", 0.0) for r in op_rows)))
+    if bad or len(op_names) != 51:
+        raise AssertionError("new ops on the card: %d names; failing %s"
+                             % (len(op_names), json.dumps(bad)))
+    # the device's busy share over traced steps, the monitor off
+    trace = None
+    if DEVICE == "cuda":
+        def one():
+            exe.forward(is_train=True)
+            exe.backward()
+            te.sgd_step(exe, RCNN_LR)
+        trace = trace_calls(torch, one, RCNN_TRACED_STEPS)
+        log("rcnn traced step (forward, backward, host SGD): %s"
+            % json.dumps(trace))
+    counts = read_counts()
+    launched = {k: counts[k] - counts0[k] for k in counts0
+                if k != "fused_opt_by_body" and counts[k] != counts0[k]}
+    if launched:
+        raise AssertionError("phase 14 launched hand kernels %s (no Pallas "
+                             "kernel lies on this path)" % launched)
+    fit["peak_mb"] = peak_bytes(torch) / 2 ** 20
+    log("rcnn phase: %.1f s, peak %.1f MB; no hand kernel; on %s"
+        % (time.perf_counter() - t_phase, fit["peak_mb"], smi))
+    del exe
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"fit": fit, "float64": f64, "roipooling": roi,
+            "custom_softmax": softmax, "new_ops": op_rows, "trace": trace}
+
+
+# ----------------------------------------------------------------------
 # phase 8: the imperative NDArray surface and runtime-compiled kernels
 # ----------------------------------------------------------------------
 #: phase 8's arrays, and the element count its elementwise kernels are
@@ -5337,6 +5960,8 @@ def main(argv=None):
             % (kind, torch.cuda.device_count(), torch.__version__,
                torch.version.cuda))
         log("nvidia-smi: %s" % smi)
+        cards = nvidia_smi_cards()
+        log("nvidia-smi -L: %d cards: %s" % (len(cards), " | ".join(cards)))
         t0 = time.perf_counter()
         info = _build.build_all()
         log("build: %.2f s wall; %s" % (
@@ -5377,6 +6002,7 @@ def main(argv=None):
         feed = run("11", phase_feed, torch, args.seed, smi, resnet, module)
         zoo = run("12", phase_zoo, torch, args.seed, smi, resnet)
         lstm = run("13", phase_lstm, torch, timer, args.seed, smi)
+        rcnn = run("14", phase_rcnn, torch, timer, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -5557,7 +6183,7 @@ def main(argv=None):
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
-                       "zoo": zoo, "lstm": lstm,
+                       "zoo": zoo, "lstm": lstm, "rcnn": rcnn,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

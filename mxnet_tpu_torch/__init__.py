@@ -36,7 +36,12 @@ and never ``jax`` or ``mxnet_tpu``.  These slices are ported:
   ``nd.imdecode``, ``MNISTIter``/``CSVIter``/``ResizeIter``/
   ``PrefetchingIter``, and ``parallel.overlap.DevicePrefetcher`` (pinned
   host buffers copied on a stream of its own), which feeds
-  ``ShardedTrainer.prefetch_feed`` and ``Module.fit(prefetch=True)``.
+  ``ShardedTrainer.prefetch_feed`` and ``Module.fit(prefetch=True)``;
+- Python operators (``operator``: ``CustomOp``/``CustomOpProp`` with
+  ``register`` and the ``Custom`` op, the legacy ``NumpyOp``/
+  ``NDArrayOp``), whose bodies run on host numpy arrays, and the ops of
+  Faster R-CNN (``ROIPooling``, ``BlockGrad``, ``SoftmaxActivation``)
+  with the rest of the JAX package's op registry but ``MoE``.
 
 The kernels (``csrc/``) are built with ``nvcc`` at first use.
 
@@ -54,6 +59,8 @@ from .context import Context, cpu, gpu, tpu     # noqa: F401
 from .context import current_context             # noqa: F401
 from . import ndarray as nd                       # noqa: F401
 from . import symbol as sym                       # noqa: F401
+from . import operator                            # noqa: F401
+sym._init_symbol_module()   # the creators of the ops operator registers
 from .predictor import Predictor                  # noqa: F401
 from . import kernels, models, serving            # noqa: F401
 from . import observability, resilience           # noqa: F401

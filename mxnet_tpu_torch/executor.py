@@ -571,13 +571,15 @@ class Executor:
                      monitor=None):
         """Evaluate the graph on a name->tensor dict; returns the head
         tensors as a list (caller-owned; ``forward`` wraps them).  The
-        walk's aux updates are dropped (forward only), and no generator
-        is handed to ops: the inference graphs draw no random numbers."""
+        walk's aux updates are dropped (forward only); a graph whose ops
+        draw random numbers (the samplers) is handed the device's
+        generator."""
         aux_values = aux_values or {n: a.data
                                     for n, a in self.aux_dict.items()}
         with torch.no_grad():
             outs, _aux_updates = self._program.trace(
-                arg_values, aux_values, None, is_train, monitor=monitor)
+                arg_values, aux_values, self._rng(), is_train,
+                monitor=monitor)
         return outs
 
     def _publish(self, outs, aux_out, aux_values):

@@ -1,13 +1,16 @@
-"""Loss heads with the reference's backward: SoftmaxOutput.
+"""Loss heads with the reference's backward: SoftmaxOutput, the
+regression outputs (linear, logistic, MAE), MakeLoss, SVMOutput and
+IdentityAttachKLSparseReg.
 
-The port's slice of ``mxnet_tpu/ops/loss.py``.  The reference's loss
+The port of ``mxnet_tpu/ops/loss.py``.  The reference's loss
 layers define their backward as the gradient of an implicit loss and
 ignore the head gradient (softmax_output-inl.h: ``(p - onehot(label)) *
 grad_scale``); autograd would differentiate the softmax instead, so the
 op pins the reference contract with a ``torch.autograd.Function``, as
 the JAX package does with ``custom_vjp``.  The trainer feeds ones as
-head gradients; only ``out_grad=True`` multiplies them in.  That backward
-is first order only: differentiating it again (a ``Symbol.grad`` bound
+head gradients; only ``out_grad=True`` multiplies them in (and
+IdentityAttachKLSparseReg adds its penalty to them).  SoftmaxOutput's
+backward is first order only: differentiating it again (a ``Symbol.grad`` bound
 for training and run backward) raises, where the JAX package
 differentiates its ``custom_vjp`` backward through the softmax.
 """
@@ -118,3 +121,172 @@ class SoftmaxOutput(OperatorProperty):
         elif p.normalization == "valid":
             grad = grad / torch.clamp(valid.sum(), min=1.0)
         return grad * p.grad_scale
+
+
+# ----------------------------------------------------------------------
+# the regression outputs, MakeLoss, SVMOutput, IdentityAttachKLSparseReg
+# ----------------------------------------------------------------------
+class _LossFn(torch.autograd.Function):
+    """``fwd(data)`` forward; the backward ``bwd(saved...)`` ignores the
+    head gradient (the reference's loss-layer contract), or adds it
+    (``keep_head``: IdentityAttachKLSparseReg); no gradient reaches the
+    other inputs."""
+
+    @staticmethod
+    def forward(ctx, data, fwd, bwd, keep_head, *extra):
+        out = fwd(data)
+        ctx.bwd, ctx.keep_head = bwd, keep_head
+        ctx.save_for_backward(data, out, *extra)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, out, *extra = ctx.saved_tensors
+        grad = ctx.bwd(data, out, *extra)
+        if ctx.keep_head:
+            grad = g + grad
+        return (grad, None, None, None) + (None,) * len(extra)
+
+
+def _make_regression(op_name, fwd_fn, grad_fn):
+    class _RegParam(ParamStruct):
+        grad_scale = Field(float, default=1.0)
+
+    @register_op(op_name)
+    class _Regression(OperatorProperty):
+        """regression_output-inl.h family: the backward is
+        ``grad_fn(out, label) * grad_scale``, whatever the head
+        gradient."""
+        param_cls = _RegParam
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shapes):
+            data = in_shapes[0]
+            if data is None:
+                require_known(op_name, in_shapes[:1], ["data"])
+            return [data, data], [data], []
+
+        def forward(self, inputs, aux, is_train, rng):
+            scale = self.param.grad_scale
+            data, label = inputs
+            label = label.reshape(data.shape).detach()
+            return [_LossFn.apply(
+                data, fwd_fn,
+                lambda d, out, lab: grad_fn(out, lab) * scale, False,
+                label)], None
+
+    _Regression.__name__ = "Op" + op_name
+    return _Regression
+
+
+_make_regression("LinearRegressionOutput",
+                 lambda x: x.clone(), lambda out, label: out - label)
+_make_regression("LogisticRegressionOutput",
+                 torch.sigmoid, lambda out, label: out - label)
+_make_regression("MAERegressionOutput", lambda x: x.clone(),
+                 lambda out, label: torch.sign(out - label))
+
+
+class _MakeLossParam(ParamStruct):
+    grad_scale = Field(float, default=1.0)
+    valid_thresh = Field(float, default=0.0)
+    normalization = Field(str, default="null", enum=("null", "batch", "valid"))
+
+
+@register_op("MakeLoss")
+class MakeLoss(OperatorProperty):
+    """make_loss-inl.h: fwd = data; bwd = grad_scale (constant), over the
+    batch or the count of values above ``valid_thresh`` when
+    normalized."""
+    param_cls = _MakeLossParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+
+        def bwd(data, out):
+            grad = torch.full_like(data, p.grad_scale)
+            if p.normalization == "batch":
+                grad = grad / data.shape[0]
+            elif p.normalization == "valid":
+                valid = (data > p.valid_thresh).to(data.dtype)
+                grad = grad / torch.clamp(valid.sum(), min=1.0)
+            return grad
+        return [_LossFn.apply(inputs[0], torch.clone, bwd, False)], None
+
+
+class _SVMOutputParam(ParamStruct):
+    margin = Field(float, default=1.0)
+    regularization_coefficient = Field(float, default=1.0)
+    use_linear = Field(bool, default=False)
+
+
+@register_op("SVMOutput")
+class SVMOutput(OperatorProperty):
+    """svm_output-inl.h: fwd = identity; bwd = the hinge's gradient
+    (squared by default, ``use_linear`` for L1)."""
+    param_cls = _SVMOutputParam
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            require_known("SVMOutput", in_shapes[:1], ["data"])
+        return [data, (data[0],)], [data], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+
+        def bwd(scores, out, label):
+            lab = label.to(torch.int64)
+            s_l = torch.gather(scores, 1, lab[:, None])
+            viol = scores - s_l + p.margin     # > 0 where violated (k != l)
+            onehot = _onehot(label, scores.shape[1], 1, scores.dtype)
+            mask = (viol > 0).to(scores.dtype) * (1.0 - onehot)
+            gk = mask if p.use_linear else 2.0 * viol * mask
+            gl = -torch.sum(gk, dim=1, keepdim=True) * onehot
+            return (gk + gl) * p.regularization_coefficient
+        return [_LossFn.apply(inputs[0], torch.clone, bwd, False,
+                              inputs[1].detach())], None
+
+
+class _KLSparseParam(ParamStruct):
+    sparseness_target = Field(float, default=0.1)
+    penalty = Field(float, default=0.001)
+    momentum = Field(float, default=0.9)
+
+
+@register_op("IdentityAttachKLSparseReg")
+class IdentityAttachKLSparseReg(OperatorProperty):
+    """identity_attach_KL_sparse_reg-inl.h: identity fwd; the backward
+    adds the KL sparsity penalty's gradient, from the moving average of
+    the mean activation per channel (aux ``moving_avg``, updated in
+    training) to the head gradient."""
+    param_cls = _KLSparseParam
+
+    def list_auxiliary_states(self):
+        return ["moving_avg"]
+
+    def infer_shape(self, in_shapes):
+        require_known("IdentityAttachKLSparseReg", in_shapes, ["data"])
+        d = in_shapes[0]
+        return in_shapes, [d], [(d[1],)]
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        x = inputs[0]
+        with torch.no_grad():
+            avg = torch.mean(x, dim=tuple(i for i in range(x.dim())
+                                          if i != 1))
+            new_avg = p.momentum * aux[0] + (1 - p.momentum) * avg
+
+        def bwd(data, out, navg):
+            a = navg.reshape((1, -1) + (1,) * (data.dim() - 2))
+            return p.penalty * (-p.sparseness_target / (a + 1e-8)
+                                + (1.0 - p.sparseness_target)
+                                / (1.0 - a + 1e-8))
+        out = _LossFn.apply(x, torch.clone, bwd, True, new_avg)
+        return [out], ([new_avg] if is_train else None)

@@ -5,7 +5,9 @@ Flatten, Reshape (with MXNet's ``0``/``-1`` codes), Embedding, the
 weight-only QuantizedDense, and the operators of the image models:
 Convolution, BatchNorm (alias CuDNNBatchNorm), Pooling, ElementWiseSum
 (alias add_n), Dropout, the model zoo's Concat and LRN, and the
-recurrent models' SliceChannel, SwapAxis and Cast.  Plain
+recurrent models' SliceChannel, SwapAxis and Cast, and LeakyReLU,
+SoftmaxActivation, BlockGrad, Deconvolution (``F.conv_transpose*d``),
+UpSampling, Crop and L2Normalization.  Plain
 matrix products go to ``torch.matmul`` and convolutions to ``F.conv*d``
 (cuDNN on the card), as the JAX package left both to XLA; QuantizedDense
 goes through the port's weight-only kernel (``kernels/quantize.py``),
@@ -619,3 +621,262 @@ class Cast(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         return [inputs[0].to(_torch_dtype(self.param.dtype))], None
+
+
+# ----------------------------------------------------------------------
+# LeakyReLU / SoftmaxActivation / BlockGrad
+# ----------------------------------------------------------------------
+class _LeakyReLUParam(ParamStruct):
+    act_type = Field(str, default="leaky",
+                     enum=("leaky", "elu", "prelu", "rrelu"))
+    slope = Field(float, default=0.25)
+    lower_bound = Field(float, default=0.125)
+    upper_bound = Field(float, default=0.334)
+
+
+@register_op("LeakyReLU")
+class LeakyReLU(OperatorProperty):
+    """leaky_relu-inl.h; prelu carries a learnable per-channel gamma arg;
+    rrelu draws its slopes from the op's generator in training (the
+    mean slope in inference)."""
+    param_cls = _LeakyReLUParam
+    need_rng = True
+
+    def list_arguments(self):
+        if self.param.act_type == "prelu":
+            return ["data", "gamma"]
+        return ["data"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            require_known("LeakyReLU", in_shapes[:1], ["data"])
+        if self.param.act_type == "prelu":
+            return [data, (data[1],)], [data], []
+        return [data], [data], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        x = inputs[0]
+        if p.act_type == "leaky":
+            out = torch.where(x > 0, x, p.slope * x)
+        elif p.act_type == "elu":
+            out = torch.where(x > 0, x, p.slope * (torch.exp(x) - 1.0))
+        elif p.act_type == "prelu":
+            gamma = inputs[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+            out = torch.where(x > 0, x, gamma * x)
+        else:
+            if is_train and rng is not None:
+                slope = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                slope.uniform_(p.lower_bound, p.upper_bound, generator=rng)
+            else:
+                slope = (p.lower_bound + p.upper_bound) / 2.0
+            out = torch.where(x > 0, x, slope * x)
+        return [out], None
+
+
+class _SoftmaxActivationParam(ParamStruct):
+    mode = Field(str, default="instance", enum=("instance", "channel"))
+
+
+@register_op("SoftmaxActivation")
+class SoftmaxActivation(OperatorProperty):
+    """softmax_activation-inl.h: the softmax over the channels (axis 1)
+    at every position, or over all of an instance's values."""
+    param_cls = _SoftmaxActivationParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        if self.param.mode == "channel":
+            return [torch.softmax(x, dim=1)], None
+        flat = x.reshape((x.shape[0], -1))
+        return [torch.softmax(flat, dim=-1).reshape(x.shape)], None
+
+
+@register_op("BlockGrad")
+class BlockGrad(OperatorProperty):
+    """block_grad-inl.h: the identity forward, no gradient."""
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [inputs[0].detach()], None
+
+
+# ----------------------------------------------------------------------
+# Deconvolution / UpSampling / Crop / L2Normalization
+# ----------------------------------------------------------------------
+class _DeconvParam(_ConvParam):
+    adj = Field(tuple, default=None)
+    target_shape = Field(tuple, default=None)
+
+
+_DECONV = {1: torch.nn.functional.conv_transpose1d,
+           2: torch.nn.functional.conv_transpose2d,
+           3: torch.nn.functional.conv_transpose3d}
+
+
+@register_op("Deconvolution")
+class Deconvolution(OperatorProperty):
+    """deconvolution-inl.h: the transposed convolution, one
+    ``F.conv_transpose{1,2,3}d``; weight (C, num_filter/group, *kernel),
+    the reference's layout.  Output extent ``stride * (in - 1) +
+    dilated kernel - 2 * pad + adj``; ``target_shape`` is accepted and
+    not read, and ``num_group > 1`` raises, as in the JAX package."""
+    param_cls = _DeconvParam
+
+    def list_arguments(self):
+        return ["data", "weight"] if self.param.no_bias \
+            else ["data", "weight", "bias"]
+
+    def _adj(self, nd):
+        return tuple(self.param.adj) if self.param.adj else (0,) * nd
+
+    def _out_spatial(self, in_spatial):
+        k, s, d, pad = self.param.spatial()
+        return tuple(ss * (ins - 1) + (ks - 1) * ds + 1 - 2 * ps + aj
+                     for ins, ks, ss, ds, ps, aj in
+                     zip(in_spatial, k, s, d, pad, self._adj(len(k))))
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            require_known("Deconvolution", in_shapes[:1], ["data"])
+        p = self.param
+        k = p.spatial()[0]
+        shapes = [data, (data[1], p.num_filter // p.num_group) + k]
+        if not p.no_bias:
+            shapes.append((p.num_filter,))
+        out = (data[0], p.num_filter) + self._out_spatial(data[2:])
+        return shapes, [out], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        if p.num_group != 1:
+            raise MXNetError("Deconvolution: num_group > 1 not yet supported")
+        k, s, d, pad = p.spatial()
+        if len(k) not in _DECONV:
+            raise MXNetError("Deconvolution supports 1-3 spatial dims")
+        y = _DECONV[len(k)](inputs[0], inputs[1], None, s, pad,
+                            self._adj(len(k)), 1, d)
+        if not p.no_bias:
+            y = y + inputs[2].reshape((1, -1) + (1,) * len(k))
+        return [y], None
+
+
+class _UpSamplingParam(ParamStruct):
+    scale = Field(int, required=True, lower=1)
+    num_filter = Field(int, default=0)
+    sample_type = Field(str, required=True, enum=("nearest", "bilinear"))
+    num_args = Field(int, default=1)
+    multi_input_mode = Field(str, default="concat", enum=("concat", "sum"))
+
+
+@register_op("UpSampling")
+class UpSampling(OperatorProperty):
+    """upsampling-inl.h: nearest repeat, or a bilinear resize with
+    half-pixel centres (``jax.image.resize``'s, which
+    ``F.interpolate(align_corners=False)`` computes for an integer
+    scale) and no weight argument, as in the JAX package; inputs of
+    another size are resized to the first's scaled size by nearest
+    neighbour, then concatenated or summed."""
+    param_cls = _UpSamplingParam
+
+    def list_arguments(self):
+        return ["arg%d" % i for i in range(self.param.num_args)]
+
+    def infer_shape(self, in_shapes):
+        require_known("UpSampling", in_shapes, self.list_arguments())
+        p = self.param
+        d = in_shapes[0]
+        c = d[1]
+        if p.num_args > 1 and p.multi_input_mode == "concat":
+            c = sum(s[1] for s in in_shapes)
+        return in_shapes, [(d[0], c, d[2] * p.scale, d[3] * p.scale)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        F = torch.nn.functional
+        base_h = inputs[0].shape[2] * p.scale
+        base_w = inputs[0].shape[3] * p.scale
+        ups = []
+        for x in inputs:
+            if base_h // x.shape[2] != p.scale:
+                ups.append(F.interpolate(x, size=(base_h, base_w),
+                                         mode="nearest-exact"))
+            elif p.sample_type == "nearest":
+                ups.append(torch.repeat_interleave(
+                    torch.repeat_interleave(x, p.scale, dim=2), p.scale,
+                    dim=3))
+            else:
+                ups.append(F.interpolate(x, scale_factor=p.scale,
+                                         mode="bilinear",
+                                         align_corners=False))
+        if len(ups) == 1:
+            return [ups[0]], None
+        if p.multi_input_mode == "concat":
+            return [torch.cat(ups, dim=1)], None
+        out = ups[0]
+        for u in ups[1:]:
+            out = out + u
+        return [out], None
+
+
+class _CropParam(ParamStruct):
+    num_args = Field(int, required=True, lower=1, upper=2)
+    offset = Field(tuple, default=(0, 0), length=2)
+    h_w = Field(tuple, default=(0, 0), length=2)
+    center_crop = Field(bool, default=False)
+
+
+@register_op("Crop")
+class Crop(OperatorProperty):
+    """crop-inl.h: crop data to h_w or to the 2nd input's spatial shape."""
+    param_cls = _CropParam
+
+    def list_arguments(self):
+        if self.param.num_args == 2:
+            return ["data", "crop_like"]
+        return ["data"]
+
+    def infer_shape(self, in_shapes):
+        require_known("Crop", in_shapes, self.list_arguments())
+        d = in_shapes[0]
+        oh, ow = in_shapes[1][2:4] if self.param.num_args == 2 \
+            else tuple(self.param.h_w)
+        return in_shapes, [(d[0], d[1], oh, ow)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        x = inputs[0]
+        oh, ow = inputs[1].shape[2:4] if p.num_args == 2 else p.h_w
+        if p.center_crop:
+            y0 = (x.shape[2] - oh) // 2
+            x0 = (x.shape[3] - ow) // 2
+        else:
+            y0, x0 = p.offset
+        return [x[:, :, y0:y0 + oh, x0:x0 + ow]], None
+
+
+class _L2NormParam(ParamStruct):
+    eps = Field(float, default=1e-10)
+    mode = Field(str, default="instance",
+                 enum=("instance", "channel", "spatial"))
+
+
+@register_op("L2Normalization")
+class L2Normalization(OperatorProperty):
+    """l2_normalization-inl.h: x / sqrt(sum(x^2) + eps) over an instance,
+    the channels, or the spatial positions."""
+    param_cls = _L2NormParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        x = inputs[0]
+        if p.mode == "instance":
+            axes = tuple(range(1, x.dim()))
+        elif p.mode == "channel":
+            axes = (1,)
+        else:
+            axes = tuple(range(2, x.dim()))
+        norm = torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=True)
+                          + p.eps)
+        return [x / norm], None

@@ -1,12 +1,18 @@
-"""Tensor operators: Symbol arithmetic and ``expand_dims``.
+"""Tensor operators: Symbol arithmetic, the unary math, reductions and
+matrix ops.
 
-The port's slice of ``mxnet_tpu/ops/tensor.py``: the elementwise binary
+The port of ``mxnet_tpu/ops/tensor.py``: the elementwise binary
 ops ``_Plus``, ``_Minus``, ``_Mul``, ``_Div``, ``_Power``, ``_Maximum``
 and ``_Minimum`` with their ``elemwise_*``/``broadcast_*`` aliases (the
 training graph broadcasts the position table with ``broadcast_add``),
 the ten scalar ops ``_PlusScalar`` ... ``_MinimumScalar`` that
 ``Symbol``'s operators create (a scalar operand kept in the ``scalar``
-attr), and ``expand_dims``.
+attr), ``expand_dims``, ``transpose`` and the reductions, and the rest
+of the JAX file: ``element_mask``, the unary math (``sqrt`` ... ``floor``,
+``negative``, the copies), ``smooth_l1``, ``norm``, ``argmax_channel``,
+``dot``/``batch_dot`` (``torch.matmul``), ``flip``, ``slice_axis``,
+``broadcast_axis``/``broadcast_to``, ``softmax_cross_entropy`` and the
+samplers, which draw float32 from the op's ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -229,3 +235,358 @@ class Transpose(OperatorProperty):
     def forward(self, inputs, aux, is_train, rng):
         x = inputs[0]
         return [x.permute(self._axes(x.dim()))], None
+
+
+@register_op("element_mask")
+class ElementMask(OperatorProperty):
+    """broadcast_mask_op-inl.h:84: rhs (1-D, len == lhs.shape[0]) masks
+    lhs row-wise, out[i, ...] = lhs[i, ...] * rhs[i]; the mask carries no
+    gradient."""
+
+    def list_arguments(self):
+        return ["lhs", "rhs"]
+
+    def infer_shape(self, in_shapes):
+        lhs, rhs = in_shapes
+        if lhs is None:
+            require_known(self.op_name, in_shapes, self.list_arguments())
+        if len(lhs) < 2:
+            raise MXNetError("element_mask: lhs must be 2-D or more, got %s"
+                             % (lhs,))
+        if rhs is not None and (len(rhs) != 1 or rhs[0] != lhs[0]):
+            raise MXNetError(
+                "element_mask: rhs must be 1-D of length lhs.shape[0]=%d, "
+                "got %s" % (lhs[0], rhs))
+        return [lhs, (lhs[0],)], [lhs], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        lhs, rhs = inputs
+        mask = rhs.detach().reshape((lhs.shape[0],) + (1,) * (lhs.dim() - 1))
+        return [lhs * mask.to(lhs.dtype)], None
+
+
+# ----------------------------------------------------------------------
+# unary math (src/ndarray/unary_function-inl.h)
+# ----------------------------------------------------------------------
+def _make_unary(op_name, fn, aliases=()):
+    @register_op(op_name, aliases=aliases)
+    class _Unary(OperatorProperty):
+        hint = op_name.strip("_").lower()
+
+        def forward(self, inputs, aux, is_train, rng):
+            return [fn(inputs[0])], None
+
+    _Unary.__name__ = "Op" + op_name
+    return _Unary
+
+
+_make_unary("sqrt", torch.sqrt)
+# a division, as the JAX package's 1 / sqrt(x) (torch.rsqrt rounds apart)
+_make_unary("rsqrt", lambda x: 1.0 / torch.sqrt(x))
+_make_unary("exp", torch.exp)
+_make_unary("log", torch.log)
+_make_unary("cos", torch.cos)
+_make_unary("sin", torch.sin)
+_make_unary("abs", torch.abs)
+_make_unary("sign", torch.sign)
+_make_unary("round", torch.round)       # half to even, as jnp.round
+_make_unary("ceil", torch.ceil)
+_make_unary("floor", torch.floor)
+_make_unary("square", torch.square)
+_make_unary("negative", torch.neg, aliases=("_Negative",))
+_make_unary("_copy", torch.clone, aliases=("identity",))
+# cross_device_copy.cc: the copy to the node's context; on one device, a
+# copy
+_make_unary("_CrossDeviceCopy", torch.clone)
+
+
+class _SmoothL1Param(ParamStruct):
+    scalar = Field(float, default=1.0, doc="sigma of the smooth-l1 transition")
+
+
+@register_op("smooth_l1")
+class SmoothL1(OperatorProperty):
+    """smooth_l1_unary-inl.h (Faster R-CNN's bbox loss): 0.5 (sigma x)^2
+    inside |x| < 1 / sigma^2, |x| - 0.5 / sigma^2 outside."""
+    param_cls = _SmoothL1Param
+
+    def forward(self, inputs, aux, is_train, rng):
+        sigma2 = self.param.scalar ** 2
+        x = inputs[0]
+        out = torch.where(torch.abs(x) < 1.0 / sigma2,
+                          0.5 * sigma2 * torch.square(x),
+                          torch.abs(x) - 0.5 / sigma2)
+        return [out], None
+
+
+@register_op("norm")
+class Norm(OperatorProperty):
+    """The L2 norm of all values, shape (1,)."""
+
+    def infer_shape(self, in_shapes):
+        require_known("norm", in_shapes, self.list_arguments())
+        return in_shapes, [(1,)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        norm = torch.sqrt(torch.sum(torch.square(inputs[0])))
+        return [norm.reshape((1,))], None
+
+
+@register_op("argmax_channel")
+class ArgmaxChannel(OperatorProperty):
+    """The index of the largest value along axis 1 (the first of ties),
+    in the input's dtype."""
+
+    def infer_shape(self, in_shapes):
+        require_known("argmax_channel", in_shapes, self.list_arguments())
+        return in_shapes, [(in_shapes[0][0],)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        return [torch.argmax(x, dim=1).to(x.dtype)], None
+
+
+# ----------------------------------------------------------------------
+# matrix ops (matrix_op-inl.h)
+# ----------------------------------------------------------------------
+class _DotParam(ParamStruct):
+    transpose_a = Field(bool, default=False)
+    transpose_b = Field(bool, default=False)
+
+
+@register_op("dot")
+class Dot(OperatorProperty):
+    """The matrix product of 2-D operands (``torch.matmul``, cuBLAS on
+    the card), either transposed first."""
+    param_cls = _DotParam
+
+    def list_arguments(self):
+        return ["lhs", "rhs"]
+
+    def infer_shape(self, in_shapes):
+        require_known("dot", in_shapes, self.list_arguments())
+        (a, b) = in_shapes
+        p = self.param
+        m = a[1] if p.transpose_a else a[0]
+        ka = a[0] if p.transpose_a else a[1]
+        kb = b[1] if p.transpose_b else b[0]
+        n = b[0] if p.transpose_b else b[1]
+        if ka != kb:
+            raise MXNetError("dot shape mismatch %s x %s" % (a, b))
+        return in_shapes, [(m, n)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        a, b = inputs
+        if self.param.transpose_a:
+            a = a.t()
+        if self.param.transpose_b:
+            b = b.t()
+        return [torch.matmul(a, b)], None
+
+
+@register_op("batch_dot")
+class BatchDot(OperatorProperty):
+    """The product of each pair of (B, m, k) and (B, k, n) matrices."""
+    param_cls = _DotParam
+
+    def list_arguments(self):
+        return ["lhs", "rhs"]
+
+    def infer_shape(self, in_shapes):
+        require_known("batch_dot", in_shapes, self.list_arguments())
+        a, b = in_shapes
+        at = (a[0], a[2], a[1]) if self.param.transpose_a else a
+        bt = (b[0], b[2], b[1]) if self.param.transpose_b else b
+        return in_shapes, [(at[0], at[1], bt[2])], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        a, b = inputs
+        if self.param.transpose_a:
+            a = torch.transpose(a, 1, 2)
+        if self.param.transpose_b:
+            b = torch.transpose(b, 1, 2)
+        return [torch.matmul(a, b)], None
+
+
+class _FlipParam(ParamStruct):
+    axis = Field(int, required=True)
+
+
+@register_op("flip")
+class Flip(OperatorProperty):
+    param_cls = _FlipParam
+
+    def forward(self, inputs, aux, is_train, rng):
+        return [torch.flip(inputs[0], (self.param.axis,))], None
+
+
+class _SliceAxisParam(ParamStruct):
+    axis = Field(int, required=True)
+    begin = Field(int, required=True)
+    end = Field(int, default=None, doc="None/0 means to the end")
+
+
+@register_op("slice_axis")
+class SliceAxis(OperatorProperty):
+    """``[begin, end)`` along ``axis``; negative bounds count from the
+    end, an ``end`` of None or 0 means the end."""
+    param_cls = _SliceAxisParam
+
+    def _resolve(self, dim):
+        p = self.param
+        begin = p.begin if p.begin >= 0 else p.begin + dim
+        end = p.end
+        if end is None or end == 0:
+            end = dim
+        elif end < 0:
+            end += dim
+        return begin, end
+
+    def infer_shape(self, in_shapes):
+        require_known("slice_axis", in_shapes, self.list_arguments())
+        s = list(in_shapes[0])
+        begin, end = self._resolve(s[self.param.axis])
+        s[self.param.axis] = end - begin
+        return in_shapes, [tuple(s)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        begin, end = self._resolve(x.shape[self.param.axis])
+        return [torch.narrow(x, self.param.axis, begin, end - begin)], None
+
+
+class _BroadcastAxisParam(ParamStruct):
+    axis = Field(tuple, default=())
+    size = Field(tuple, default=())
+
+
+@register_op("broadcast_axis")
+class BroadcastAxis(OperatorProperty):
+    """Size-1 axes ``axis`` broadcast to ``size``."""
+    param_cls = _BroadcastAxisParam
+
+    def _target(self, shape):
+        s = list(shape)
+        for ax, sz in zip(self.param.axis, self.param.size):
+            s[ax] = sz
+        return tuple(s)
+
+    def infer_shape(self, in_shapes):
+        require_known("broadcast_axis", in_shapes, self.list_arguments())
+        return in_shapes, [self._target(in_shapes[0])], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        return [torch.broadcast_to(x, self._target(x.shape))], None
+
+
+class _BroadcastToParam(ParamStruct):
+    shape = Field(tuple, required=True)
+
+
+@register_op("broadcast_to")
+class BroadcastTo(OperatorProperty):
+    """Broadcast to ``shape``, whose 0 entries keep the input's axis."""
+    param_cls = _BroadcastToParam
+
+    def _target(self, shape):
+        return tuple(d if t == 0 else t
+                     for d, t in zip(shape, self.param.shape))
+
+    def infer_shape(self, in_shapes):
+        require_known("broadcast_to", in_shapes, self.list_arguments())
+        return in_shapes, [self._target(in_shapes[0])], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        x = inputs[0]
+        return [torch.broadcast_to(x, self._target(x.shape))], None
+
+
+# ----------------------------------------------------------------------
+# softmax_cross_entropy (a loss as a simple op)
+# ----------------------------------------------------------------------
+@register_op("softmax_cross_entropy")
+class SoftmaxCrossEntropy(OperatorProperty):
+    """The summed negative log-likelihood of the labels under the
+    softmax of the last axis, shape (1,)."""
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shapes):
+        data, label = in_shapes
+        if data is None:
+            require_known("softmax_cross_entropy", in_shapes,
+                          self.list_arguments())
+        if label is None:
+            label = (data[0],)
+        return [data, label], [(1,)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        logits, label = inputs
+        logp = torch.log_softmax(logits, dim=-1)
+        lab = label.detach().to(torch.int64)
+        nll = -torch.gather(logp, -1, lab[:, None])
+        return [torch.sum(nll).reshape((1,))], None
+
+
+# ----------------------------------------------------------------------
+# samplers (need_rng): _sample_uniform / _sample_normal
+# ----------------------------------------------------------------------
+def _draw(rng, shape, what):
+    if rng is None:
+        raise MXNetError("%s: needs a generator (the executor hands the "
+                         "device's to a graph that declares need_rng)"
+                         % what)
+    return torch.empty(tuple(int(d) for d in shape), dtype=torch.float32,
+                       device=rng.device)
+
+
+class _SampleUniformParam(ParamStruct):
+    low = Field(float, default=0.0)
+    high = Field(float, default=1.0)
+    shape = Field(tuple, required=True)
+
+
+@register_op("_sample_uniform", aliases=("uniform",))
+class SampleUniform(OperatorProperty):
+    """Uniform draws on [low, high) of ``shape`` (float32) from the
+    op's generator, on the generator's device."""
+    param_cls = _SampleUniformParam
+    need_rng = True
+
+    def list_arguments(self):
+        return []
+
+    def infer_shape(self, in_shapes):
+        return [], [tuple(self.param.shape)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        out = _draw(rng, p.shape, "_sample_uniform")
+        return [out.uniform_(p.low, p.high, generator=rng)], None
+
+
+class _SampleNormalParam(ParamStruct):
+    loc = Field(float, default=0.0)
+    scale = Field(float, default=1.0)
+    shape = Field(tuple, required=True)
+
+
+@register_op("_sample_normal", aliases=("normal",))
+class SampleNormal(OperatorProperty):
+    """Normal draws of mean ``loc`` and deviation ``scale`` of ``shape``
+    (float32) from the op's generator, on the generator's device."""
+    param_cls = _SampleNormalParam
+    need_rng = True
+
+    def list_arguments(self):
+        return []
+
+    def infer_shape(self, in_shapes):
+        return [], [tuple(self.param.shape)], []
+
+    def forward(self, inputs, aux, is_train, rng):
+        p = self.param
+        out = _draw(rng, p.shape, "_sample_normal")
+        return [p.loc + p.scale * out.normal_(generator=rng)], None

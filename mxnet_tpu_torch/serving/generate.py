@@ -106,9 +106,10 @@ class TokenStream(object):
 class _SeqState(object):
     __slots__ = ("seq_id", "tokens", "n_prompt", "max_new", "eos_id",
                  "table_row", "n_generated", "started", "done",
-                 "finish_reason", "logits")
+                 "finish_reason", "logits", "inline")
 
-    def __init__(self, seq_id, prompt, max_new, eos_id, table_row):
+    def __init__(self, seq_id, prompt, max_new, eos_id, table_row,
+                 inline=False):
         self.seq_id = seq_id
         self.tokens = list(int(t) for t in prompt)
         self.n_prompt = len(self.tokens)
@@ -120,6 +121,7 @@ class _SeqState(object):
         self.done = False
         self.finish_reason = None
         self.logits = []            # per-step rows when collect_logits
+        self.inline = inline        # stepped by generate() alone
 
     def record(self, token):
         """Append one generated token; True when the sequence just
@@ -296,8 +298,10 @@ class GenerationEngine(object):
 
     # -- admission / lifecycle --------------------------------------------
 
-    def admit(self, seq_id, prompt_tokens, max_new=None, eos_id=None):
-        """Reserve cache blocks and register the sequence.  Raises
+    def admit(self, seq_id, prompt_tokens, max_new=None, eos_id=None,
+              inline=False):
+        """Reserve cache blocks and register the sequence (``inline``: one
+        of :meth:`generate`'s, which no scheduler steps).  Raises
         :class:`CacheExhausted` (no side effects) when the block budget
         does not fit."""
         prompt = [int(t) for t in prompt_tokens]
@@ -310,7 +314,7 @@ class GenerationEngine(object):
         max_new = min(int(max_new) if max_new else self.max_new,
                       self.max_new)
         row = self.cache.allocate(seq_id, len(prompt) + max_new)
-        state = _SeqState(seq_id, prompt, max_new, eos_id, row)
+        state = _SeqState(seq_id, prompt, max_new, eos_id, row, inline)
         with self._lock:
             self._seqs[seq_id] = state
         return state
@@ -336,10 +340,13 @@ class GenerationEngine(object):
 
     def decode_candidates(self, limit=None):
         """Active (prefilled, unfinished) sequence ids, oldest-admitted
-        first, capped at ``limit``: one decode iteration's batch."""
+        first, capped at ``limit``: one decode iteration's batch.  The
+        sequences of a running :meth:`generate` are its own: a server's
+        scheduler that stepped them would finish and release them under
+        that call."""
         with self._lock:
             ids = [s for s, st in self._seqs.items()
-                   if st.started and not st.done]
+                   if st.started and not st.done and not st.inline]
         ids.sort()
         return ids[:limit] if limit else ids
 
@@ -456,7 +463,8 @@ class GenerationEngine(object):
         ids = []
         for i, prompt in enumerate(prompts):
             sid = ("gen", id(self), i)
-            self.admit(sid, prompt, max_new=max_new_tokens, eos_id=eos_id)
+            self.admit(sid, prompt, max_new=max_new_tokens, eos_id=eos_id,
+                       inline=True)
             ids.append(sid)
         results = {}
         timing = self._step_time

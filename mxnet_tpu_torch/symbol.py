@@ -449,8 +449,12 @@ def load_json(json_str):
             cls = OP_REGISTRY.get(spec["op"])
             fields = cls.param_cls._fields if cls.param_cls is not None else {}
             # only declared param fields configure the op; other attrs
-            # (ctx_group, lr_mult, user tags) ride on the node
-            op_kwargs = {k: v for k, v in attrs.items() if k in fields}
+            # (ctx_group, lr_mult, user tags) ride on the node, except
+            # for ops that take free-form kwargs (Custom, _Native)
+            if getattr(cls, "accepts_any_attrs", False):
+                op_kwargs = dict(attrs)
+            else:
+                op_kwargs = {k: v for k, v in attrs.items() if k in fields}
             op = create_operator(spec["op"], **op_kwargs)
             node = _Node(op, spec["name"], inputs, attrs)
         nodes.append(node)

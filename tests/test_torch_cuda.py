@@ -1042,3 +1042,120 @@ def test_bucketing_lstm_on_the_card(cuda):
         assert ex.arg_dict["data"].data.device.type == "cuda"
     arg, _ = mod.get_params()
     assert all(np.isfinite(v.asnumpy()).all() for v in arg.values())
+
+
+@pytest.mark.parametrize("pooled,scale", [((7, 7), 1.0 / 16), ((3, 2), 0.5)])
+def test_roipooling_card_matches_cpu(cuda, pooled, scale):
+    """ROIPooling on the card: forward bit for bit the CPU's, the gradient
+    within 1e-6 of its max-abs (the shares are summed in float64 on
+    both); a bin of four tied zeros gives each a quarter."""
+    from mxnet_tpu_torch.ops.vision import _ROIPoolingFn
+    rng = np.random.RandomState(3)
+    data = np.maximum(rng.randn(2, 16, 20, 24) - 0.5, 0).astype(np.float32)
+    data[0, :, 4:18, 4:18] = 0.0
+    span = 1.0 / scale
+    x1 = rng.uniform(0, 20, 40) * span
+    y1 = rng.uniform(0, 16, 40) * span
+    rois = np.stack([rng.randint(0, 2, 40), x1, y1,
+                     x1 + rng.uniform(0, 12, 40) * span,
+                     y1 + rng.uniform(0, 12, 40) * span], 1)
+    rois[-1] = [0, 4 * span, 4 * span, 17 * span, 17 * span]
+    rois = rois.astype(np.float32)
+    cot = rng.randn(40, 16, *pooled).astype(np.float32)
+
+    def run(dev, r, c):
+        d = torch.from_numpy(data).to(dev).requires_grad_()
+        out = _ROIPoolingFn.apply(d, torch.from_numpy(r).to(dev),
+                                  pooled[0], pooled[1], scale)
+        g, = torch.autograd.grad(out, d, torch.from_numpy(c).to(dev))
+        return out.detach().cpu(), g.cpu()
+    out_d, g_d = run(cuda, rois, cot)
+    out_c, g_c = run("cpu", rois, cot)
+    assert torch.equal(out_d, out_c)
+    scale_g = g_c.abs().max().item()
+    assert (g_d - g_c).abs().max().item() <= 1e-6 * scale_g
+    if pooled == (7, 7):
+        _o, g = run(cuda, rois[-1:], cot[-1:])
+        want = (torch.from_numpy(cot[-1]) / 4.0).repeat_interleave(
+            2, 1).repeat_interleave(2, 2)
+        assert torch.equal(g[0, :, 4:18, 4:18], want)
+
+
+def test_custom_op_on_the_card(cuda):
+    """A Custom op bound on gpu(0): its outputs and gradients on the card,
+    equal to the same graph on the CPU; the host bridge counts a forward
+    and a backward and copies each way."""
+    import mxnet_tpu_torch as mx
+
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        1.0 / (1.0 + np.exp(-in_data[0])))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1.0 - y))
+
+    @mx.operator.register("cuda_test_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            assert ctx.device_type in ("gpu", "cpu")
+            return Sigmoid()
+
+    x = mx.sym.Variable("x")
+    s = mx.sym.FullyConnected(
+        mx.sym.Custom(data=x * 2.0, op_type="cuda_test_sigmoid"),
+        num_hidden=3, name="fc")
+    rng = np.random.RandomState(0)
+    vals = {"x": rng.randn(4, 5).astype(np.float32),
+            "fc_weight": rng.randn(3, 5).astype(np.float32),
+            "fc_bias": rng.randn(3).astype(np.float32)}
+    og = rng.randn(4, 3).astype(np.float32)
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex = s.simple_bind(ctx, grad_req="write", x=(4, 5))
+        for k, v in vals.items():
+            ex.arg_dict[k][:] = v
+        mx.operator.host_stats(reset=True)
+        out = ex.forward(is_train=True)[0]
+        ex.backward([mx.nd.array(og, ctx=ctx)])
+        stats = mx.operator.host_stats()
+        assert stats["forward_calls"] == 1 and stats["backward_calls"] == 1
+        assert stats["to_host_bytes"] > 0 and stats["to_device_bytes"] > 0
+        assert out.data.device.type == ("cuda" if ctx.device_type == "gpu"
+                                        else "cpu")
+        got[ctx.device_type] = (out.asnumpy(),
+                                ex.grad_dict["x"].asnumpy())
+    for a, b in zip(got["gpu"], got["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_rcnn_example_steps_on_the_card(cuda):
+    """``example/rcnn-torch`` at its defaults on gpu(0), two steps: every
+    output on the card and finite, the rois real boxes."""
+    import importlib.util
+    import os
+    import sys
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "example", "rcnn-torch")
+    sys.path.insert(0, here)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "cuda_rcnn_train", os.path.join(here, "train_end2end.py"))
+        te = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(te)
+    finally:
+        sys.path.remove(here)
+    import mxnet_tpu_torch as mx
+    exe, shapes = te.bind(mx.gpu(0))
+    te.init_params(exe, shapes)
+    te.fill_inputs(exe, 128, 4, 16)
+    for _ in range(2):
+        outs = exe.forward(is_train=True)
+        exe.backward()
+        te.sgd_step(exe, 1e-4)
+    for o in outs:
+        assert o.data.device.type == "cuda"
+        assert torch.isfinite(o.data).all()
+    rois = outs[3].asnumpy()
+    assert (rois[:, 3] - rois[:, 1]).max() > 0

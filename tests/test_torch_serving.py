@@ -504,6 +504,21 @@ def test_server_generate_eos_finishes_early(gen_server):
     assert res["finish_reason"] == "eos"
 
 
+def test_inline_generate_beside_an_open_server(gen_server):
+    """``engine.generate()`` while the server's scheduler polls: the
+    scheduler never steps the call's sequences (it would finish and
+    release them under the call), whatever the poll's phase; the tokens
+    stay the call's own."""
+    srv, engine = gen_server
+    want = engine.generate([PROMPTS[2]], max_new_tokens=6)[0]
+    rng = np.random.RandomState(4)
+    for delay in rng.uniform(0, 0.06, 30):
+        srv.generate_sync("lm", PROMPTS[0], timeout=60)
+        time.sleep(delay)
+        assert engine.generate([PROMPTS[2]], max_new_tokens=6)[0] == want
+    assert srv.stats()["models"]["lm"]["seqs_active"] == 0
+
+
 def test_server_generate_429_with_blocks_free(lm_params):
     """KV exhaustion at admission is a structured 429 carrying
     blocks_free, while the running decode completes untouched."""
