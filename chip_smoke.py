@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU
+(phase 15 also over every card of the machine when it has several).
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -251,6 +252,33 @@ line:
    and moments); no hand kernel launched.  Printed: ms a step, the
    Custom op's host ms and copies, ROIPooling's forward and backward ms
    and peak memory, the phase's peak, the busy share of traced steps.
+
+15. data parallelism.  On the first card: (a) ``Module`` of phase 9's
+   ResNet-50 on ``[gpu(0), gpu(0)]`` with kvstore ``device`` (the
+   slicing mode: two executors of 32, the store summing their
+   gradients), under deterministic cuDNN the summed gradient bit for
+   bit the sum of two one-context executors' gradients on the two
+   halves and the parameters after 3 steps bit for bit that hand-summed
+   run's, then 2 warm and 5 timed steps; (b) ``ShardedTrainer`` on
+   ``make_mesh([gpu(0), gpu(0)], dp=2)`` at batch 64 with and without
+   ZeRO-1 (the sweep on every replica; ZeRO-1 bit for bit plain dp over
+   3 steps), timed, peak memory by device, the sweep's launches and
+   route by device, and the float64 witness at batch 8 (one dp step
+   within twice the plain float32 step's distance from the plain
+   float64 step on the whole batch: outputs, parameters and BatchNorm
+   moving statistics); (c) the transformer LM's dp=2 step at phase 7's
+   width, 4 a replica (the flash forward on every replica, every layer
+   and step), with phase 7's witness against the plain steps at batch
+   8; (d) ``tools/launch.py -n <cards> python example/image-
+   classification-torch/train_imagenet.py --kvstore dist_sync
+   --synthetic``: one worker a card, every worker's parameters after
+   the epoch bit for bit rank 0's; with one card, the worker's
+   parameters and aux states bit for bit the same run's under
+   ``--kvstore local`` in a plain process (both ``--deterministic``).
+   With several cards, (a)-(c) also run
+   over the distinct cards (the sharded ``Module``, ``make_mesh(dp=n)``,
+   NCCL between them) with the witness gates; with one, the phase says
+   that the NCCL path between cards was not exercised.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -2026,9 +2054,9 @@ def seeded_train_params(seed):
     return params
 
 
-def train_batch(seed):
+def train_batch(seed, batch=TRAIN_BATCH):
     rng = np.random.RandomState(seed + 5)
-    shape = (TRAIN_BATCH, TRAIN["seq_len"])
+    shape = (batch, TRAIN["seq_len"])
     return {"data": rng.randint(0, TRAIN["vocab_size"], shape)
             .astype(np.float32),
             "softmax_label": rng.randint(0, TRAIN["vocab_size"], shape)
@@ -2046,7 +2074,8 @@ def plain_train(torch, params, batch, steps, momentum=None):
     F = torch.nn.functional
     E, H = TRAIN["dim"], TRAIN["num_heads"]
     D, S = E // H, TRAIN["seq_len"]
-    rescale = 1.0 / (TRAIN_BATCH * S)
+    B = batch["data"].shape[0]
+    rescale = 1.0 / (B * S)
     lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
     p = {k: torch.as_tensor(v, device=DEVICE).clone().requires_grad_()
          for k, v in params.items()}
@@ -2062,12 +2091,12 @@ def plain_train(torch, params, batch, steps, momentum=None):
             n = "layer%d_" % i
             h = F.layer_norm(x, (E,), p[n + "ln1_gamma"], p[n + "ln1_beta"])
             qkv = h @ p[n + "att_qkv_weight"].t() + p[n + "att_qkv_bias"]
-            q, k, v = (t.reshape(TRAIN_BATCH, S, H, D).transpose(1, 2)
+            q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
                        for t in qkv.split(E, dim=-1))
             s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
             s = torch.where(keep, s, torch.full_like(s, -1e30))
             a = (torch.softmax(s, dim=-1) @ v).transpose(1, 2) \
-                .reshape(TRAIN_BATCH, S, E)
+                .reshape(B, S, E)
             x = x + a @ p[n + "att_out_weight"].t() + p[n + "att_out_bias"]
             h = F.layer_norm(x, (E,), p[n + "ln2_gamma"], p[n + "ln2_beta"])
             h = torch.relu(h @ p[n + "ffn1_weight"].t() + p[n + "ffn1_bias"])
@@ -2528,13 +2557,15 @@ def _want_sweep_only(info, body):
                                 info["launches"], want, body))
 
 
-def plain_resnet_step(torch, params, data, dtype):
+def plain_resnet_step(torch, params, data, dtype, stats=None):
     """One plain training step of the same ResNet-50, written here with
     no module of the port: F.conv2d, BatchNorm's formula on the batch's
     mean and biased variance, max and mean pooling, a summed cross
     entropy (whose gradient is SoftmaxOutput's p - onehot), and SGD with
     momentum from zero and weight decay on every parameter.  Returns the
-    softmax outputs and the parameters after the step, in ``dtype``."""
+    softmax outputs and the parameters after the step, in ``dtype``;
+    ``stats`` (a dict) takes each BatchNorm's batch mean and biased
+    variance by name."""
     F = torch.nn.functional
     batch = data["data"].shape[0]
     rescale = 1.0 / batch
@@ -2548,6 +2579,9 @@ def plain_resnet_step(torch, params, data, dtype):
     def bn(h, name, fix_gamma=False):
         mean = h.mean(dim=(0, 2, 3), keepdim=True)
         var = ((h - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+        if stats is not None:
+            stats[name] = (mean.detach().reshape(-1),
+                           var.detach().reshape(-1))
         y = (h - mean) / torch.sqrt(var + RESNET_EPS)
         if not fix_gamma:
             y = y * p[name + "_gamma"].reshape(1, -1, 1, 1)
@@ -5925,6 +5959,669 @@ def phase_rtc_kernels(torch, timer, seed):
             "compile_s": compile_s}
 
 
+# ----------------------------------------------------------------------
+# phase 15: data parallelism (several replicas, and several processes)
+# ----------------------------------------------------------------------
+#: the data-parallel phase's steps: warm and timed (ms a step), and the
+#: steps of its bitwise gates
+DP_WARM_STEPS = 2
+DP_TIMED_STEPS = 5
+DP_GATE_STEPS = 3
+#: the transformer LM's batch on each replica (phase 7's is 8 on one)
+DP_LM_BATCH = 4
+#: train_imagenet.py under tools/launch.py: each worker's batch and the
+#: seconds the launch may take
+DIST_BATCH = 32
+DIST_EPOCHS = 2
+DIST_TIMEOUT_S = 420
+
+
+def _dp_contexts(mx, n, distinct):
+    """``n`` replicas: each its own card, or all on the first."""
+    make = mx.gpu if DEVICE == "cuda" else mx.cpu
+    return [make(i if distinct else 0) for i in range(n)]
+
+
+def _peaks_by_device(torch, devices):
+    if DEVICE != "cuda":
+        return {str(d): 0 for d in devices}
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+
+
+def _peak_reset_all(torch, devices):
+    if DEVICE == "cuda":
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def _sync_all(torch, devices):
+    if DEVICE == "cuda":
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+    else:
+        torch.cuda.synchronize()
+
+
+def _sweep_counts():
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    return {"fused_opt": fo.sweep.launches,
+            "fused_opt_by_device": dict(fo.sweep.launches_by_device),
+            "fused_opt_by_route": {d: dict(r) for d, r in
+                                   fo.sweep.launches_by_route.items()},
+            "fused_opt_by_body": dict(fo.sweep.launches_by_body),
+            "flash_attention": fa.flash_attention_forward.launches,
+            "flash_attention_by_device":
+                dict(fa.flash_attention_forward.launches_by_device)}
+
+
+def _reset_dp_counts():
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    reset_counts()
+    fo.sweep.launches_by_device.clear()
+    fo.sweep.launches_by_route.clear()
+    fa.flash_attention_forward.launches_by_device.clear()
+    fa.flash_attention_forward.launches_by_dtype.update(float32=0,
+                                                        bfloat16=0)
+
+
+def _resnet_module(mx, ctx, params, aux, batch, for_training=True):
+    """A Module of phase 9's ResNet-50 bound at ``batch`` on ``ctx``
+    from the numpy weights (no optimizer yet)."""
+    mod = mx.mod.Module(resnet_symbol(), context=ctx)
+    mod.bind([("data", (batch,) + RESNET["image_shape"])],
+             [("softmax_label", (batch,))], for_training=for_training)
+    cpu = mx.cpu()
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in params.items()},
+                    aux_params={k: mx.nd.array(v, ctx=cpu)
+                                for k, v in aux.items()})
+    return mod
+
+
+def _data_batch(mx, data, lo, hi):
+    cpu = mx.cpu()
+    return mx.io.DataBatch(
+        [mx.nd.array(data["data"][lo:hi], ctx=cpu)],
+        [mx.nd.array(data["softmax_label"][lo:hi], ctx=cpu)], pad=0)
+
+
+def _time_module(torch, mod, mx, data, devices):
+    """DP_WARM_STEPS then DP_TIMED_STEPS steps of ``forward_backward`` and
+    ``update`` on the whole batch, each ended by a synchronize."""
+    b = data["data"].shape[0]
+    batch = _data_batch(mx, data, 0, b)
+    times = []
+    for i in range(DP_WARM_STEPS + DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        _sync_all(torch, devices)
+        if i >= DP_WARM_STEPS:
+            times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    return {"step_ms": ms, "step_ms_all": [t * 1e3 for t in times],
+            "images_per_s": b / (ms / 1e3)}
+
+
+def dp_module_slicing(torch, seed):
+    """(a) on one card: ``Module`` on ``[gpu(0), gpu(0)]`` with kvstore
+    ``device``: the slicing mode, two executors of half the batch.
+    Gates, under deterministic cuDNN: the store's summed gradient is bit
+    for bit the sum of two one-context executors' gradients on the two
+    halves; the parameters after DP_GATE_STEPS steps are bit for bit
+    those of that hand-summed run (the same optimizer's updater on the
+    sum).  Then timed under cuDNN's defaults."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as opt_mod
+    params, aux, data = seeded_resnet(seed + 15, RESNET_BATCH)
+    half = RESNET_BATCH // 2
+    ctxs = _dp_contexts(mx, 2, distinct=False)
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" \
+        else torch.device("cpu")
+    with cudnn_deterministic(torch):
+        mod = _resnet_module(mx, ctxs, params, aux, RESNET_BATCH)
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params=RESNET_SGD)
+        group = mod._exec_group
+        if group.sharded or len(group.execs) != 2 \
+                or not mod._update_on_kvstore:
+            raise AssertionError("Module on %s: sharded=%s, %d executors, "
+                                 "update on the store %s; want the slicing "
+                                 "mode, 2 executors, the store's update"
+                                 % (ctxs, group.sharded, len(group.execs),
+                                    mod._update_on_kvstore))
+        names = group.param_names
+        halves = [_resnet_module(mx, ctxs[0], params, aux, half)
+                  for _ in range(2)]
+        opt = opt_mod.create("sgd", param_idx2name=dict(enumerate(names)),
+                             rescale_grad=1.0 / RESNET_BATCH, **RESNET_SGD)
+        updater = opt_mod.get_updater(opt)
+        master = [mx.nd.array(params[n], ctx=ctxs[0]) for n in names]
+        for step in range(DP_GATE_STEPS):
+            mod.forward_backward(_data_batch(mx, data, 0, RESNET_BATCH))
+            for i, h in enumerate(halves):
+                for w, n in zip(master, names):
+                    h._exec_group.execs[0].arg_dict[n]._set_data(w)
+                h.forward_backward(_data_batch(mx, data, i * half,
+                                               (i + 1) * half))
+            sums = []
+            for k, n in enumerate(names):
+                g0 = group.grad_arrays[k][0].data
+                g1 = group.grad_arrays[k][1].data
+                h0 = halves[0]._exec_group.grad_arrays[k][0].data
+                h1 = halves[1]._exec_group.grad_arrays[k][0].data
+                if step == 0 and not (
+                        torch.equal(g0, h0) and torch.equal(g1, h1)
+                        and torch.equal(g0 + g1, h0 + h1)):
+                    raise AssertionError(
+                        "Module on [gpu(0), gpu(0)]: %s's gradient sum "
+                        "differs from two one-context executors' on the "
+                        "halves" % n)
+                sums.append(h0 + h1)
+            mod.update()
+            for k, (w, g) in enumerate(zip(master, sums)):
+                updater(k, mx.nd.NDArray(g), w)
+        got = mod.get_params()[0]
+        diff = [n for n, w in zip(names, master)
+                if not torch.equal(got[n].data.to(w.data.device), w.data)]
+        if diff:
+            raise AssertionError("Module on [gpu(0), gpu(0)]: parameters "
+                                 "after %d steps differ from the hand-summed "
+                                 "run's: %s" % (DP_GATE_STEPS, diff[:5]))
+        del halves, master, mod
+    mod = _resnet_module(mx, ctxs, params, aux, RESNET_BATCH)
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    _reset_dp_counts()
+    timed = _time_module(torch, mod, mx, data, [dev])
+    counts = read_counts()
+    del mod
+    timed.update({"contexts": [str(c) for c in ctxs], "mode": "slicing",
+                  "executors": 2, "gate_steps": DP_GATE_STEPS,
+                  "grad_sum_bitwise": True, "params_bitwise": True,
+                  "launches": counts, "cards": 1})
+    return timed
+
+
+def dp_module_sharded(torch, seed, n):
+    """(a) over ``n`` distinct cards: ``Module`` on ``[gpu(0..n-1)]`` with
+    kvstore ``device`` takes the sharded mode (one executor, the
+    gradients summed over the cards by NCCL inside the step); the
+    witness: one step at phase 9's witness batch within twice the plain
+    float32 step's distance from the plain float64 step; then timed at
+    batch 64."""
+    import mxnet_tpu_torch as mx
+    ctxs = _dp_contexts(mx, n, distinct=True)
+    devices = [torch.device(DEVICE, i) for i in range(n)]
+    params, aux, data = seeded_resnet(seed + 9, RESNET_WITNESS_BATCH)
+    mod = _resnet_module(mx, ctxs, params, aux, RESNET_WITNESS_BATCH)
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    if not (mod._exec_group.sharded and mod._kv_inline):
+        raise AssertionError("Module on %d cards: not the sharded mode"
+                             % n)
+    mod.forward_backward(_data_batch(mx, data, 0, RESNET_WITNESS_BATCH))
+    mod.update()
+    outs = mod.get_outputs()[0].data
+    p_port = {k: v.data for k, v in mod.get_params()[0].items()}
+    o32, p32 = plain_resnet_step(torch, params, data, torch.float32)
+    o64, p64 = plain_resnet_step(torch, params, data, torch.float64)
+    wit = _dp_witness(torch, outs, p_port, o32, p32, o64, p64)
+    if not wit["ok"]:
+        raise AssertionError("Module on %d cards: the witness %s" % (n, wit))
+    del mod
+    params, aux, data = seeded_resnet(seed + 15, RESNET_BATCH)
+    mod = _resnet_module(mx, ctxs, params, aux, RESNET_BATCH)
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    _reset_dp_counts()
+    timed = _time_module(torch, mod, mx, data, devices)
+    del mod
+    timed.update({"contexts": [str(c) for c in ctxs], "mode": "sharded",
+                  "executors": 1, "witness": wit, "cards": n})
+    return timed
+
+
+def _dp_witness(torch, outs, p_port, o32, p32, o64, p64, a_port=None,
+                a32=None, a64=None):
+    def diff(o, p, a=None, want_a=None):
+        got = [float((o.double().to(o64.device) - o64).abs().max()),
+               max(float((p[k].double().to(p64[k].device) - p64[k])
+                         .abs().max()) for k in p64)]
+        if a is not None:
+            got.append(max(float((a[k].double().to(want_a[k].device)
+                                  - want_a[k]).abs().max())
+                           for k in want_a))
+        return got
+    got = {"port_vs_plain64": diff(outs, p_port, a_port, a64),
+           "plain32_vs_plain64": diff(o32, p32, a32, a64)}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["port_vs_plain64"], got["plain32_vs_plain64"]))
+    return got
+
+
+def _plain_aux(torch, params, aux, data, dtype):
+    """The plain step's outputs, parameters and BatchNorm moving
+    statistics (momentum 0.9, biased variance, as the port's)."""
+    stats = {}
+    o, p = plain_resnet_step(torch, params, data, dtype, stats=stats)
+    m = 0.9
+    a = {}
+    for name, (mean, var) in stats.items():
+        mm = torch.as_tensor(aux[name + "_moving_mean"], device=DEVICE,
+                             dtype=dtype)
+        mv = torch.as_tensor(aux[name + "_moving_var"], device=DEVICE,
+                             dtype=dtype)
+        a[name + "_moving_mean"] = m * mm + (1 - m) * mean
+        a[name + "_moving_var"] = m * mv + (1 - m) * var
+    return o, p, a
+
+
+def _dp_trainer(torch, mx, mesh, params, aux, data, zero1, steps,
+                timed_steps=0, timed_warm=0):
+    """ShardedTrainer on ``mesh`` (SGD, the CUDA sweep) from the numpy
+    weights: ``steps`` counted steps, then ``timed_warm`` + ``timed_steps``
+    more each ended by a synchronize.  Returns the first step's outputs
+    (global), the first replica's parameters and aux (copies), and the
+    counts, times and peaks."""
+    from mxnet_tpu_torch.model import params_from_numpy
+    from mxnet_tpu_torch.parallel.sharding import place
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    batch = data["data"].shape[0]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / batch, **RESNET_SGD)
+    tr = mx.parallel.ShardedTrainer(resnet_symbol(), opt, mesh, zero1=zero1)
+    p, a = params_from_numpy(params, aux, mesh=mesh)
+    st = {n: place(np.zeros(v.shape, np.float32), mesh,
+                   tr.opt_state_sharding(n, v.shape).spec)
+          for n, v in params.items()}
+    b = tr.shard_batch(data)
+    devices = mesh.devices
+    _sync_all(torch, devices)
+    _reset_dp_counts()
+    _peak_reset_all(torch, devices)
+    first = None
+    for _ in range(steps):
+        p, st, a, outs = tr.step(p, st, a, b)
+        if first is None:
+            first = outs[0].global_tensor().float().clone()
+    _sync_all(torch, devices)
+    info = {"zero1": zero1, "batch": batch, "steps": steps,
+            "replicas": len(devices),
+            "cards": len(set(devices)), "launches": _sweep_counts(),
+            "buckets": len(fo.plan_buckets({n: p[n].shards[0]
+                                            for n in tr.param_names})),
+            "peak_bytes_by_device": _peaks_by_device(torch, devices),
+            "collectives": mesh.replica_group().route(),
+            "state_shard_rows": {n: int(st[n].shards[0].shape[0])
+                                 for n in ("fc1_weight", "conv0_weight",
+                                           "fc1_bias")}}
+    p_out = {n: w.shards[0].clone() for n, w in p.items()}
+    a_out = {n: v.shards[0].clone() for n, v in a.items()}
+    if timed_steps:
+        _peak_reset_all(torch, devices)
+        times = []
+        for i in range(timed_warm + timed_steps):
+            t0 = time.perf_counter()
+            p, st, a, _o = tr.step(p, st, a, b)
+            _sync_all(torch, devices)
+            if i >= timed_warm:
+                times.append(time.perf_counter() - t0)
+        info["step_ms"] = float(np.median(times)) * 1e3
+        info["step_ms_all"] = [t * 1e3 for t in times]
+        info["images_per_s"] = batch / (info["step_ms"] / 1e3)
+        info["peak_bytes_by_device"] = _peaks_by_device(torch, devices)
+    return first, p_out, a_out, info
+
+
+def _want_dp_sweeps(info):
+    """The sweep once a bucket a replica a step (ZeRO-1: once a replica
+    a step, over its slices), all on SGD-momentum's body, and no flash
+    forward."""
+    n = info["replicas"] * info["steps"] * (1 if info["zero1"]
+                                             else info["buckets"])
+    got = info["launches"]
+    if got["fused_opt"] != n or got["fused_opt_by_body"] != {1: n} \
+            or got["flash_attention"] != 0:
+        raise AssertionError("dp trainer %s: sweep launches %s, want %d "
+                             "on body 1" % ({k: info[k] for k in (
+                                 "zero1", "replicas", "buckets", "steps")},
+                                 got, n))
+
+
+def dp_trainer_phase(torch, seed, n, distinct):
+    """(b) ShardedTrainer on ``make_mesh(n contexts, dp=n)``: with and
+    without ZeRO-1 at batch 64 (gates under deterministic cuDNN: on one
+    card ZeRO-1 bit for bit plain dp; across cards both within the
+    witness), timed under cuDNN's defaults, peaks per device; the
+    witness at batch 8: one dp step within twice the plain float32
+    step's distance from the plain float64 step on the global batch,
+    outputs, parameters and BatchNorm moving statistics."""
+    import mxnet_tpu_torch as mx
+    ctxs = _dp_contexts(mx, n, distinct)
+    mesh = mx.parallel.make_mesh(ctxs, dp=n)
+    params, aux, data = seeded_resnet(seed + 15, RESNET_BATCH)
+    runs = {}
+    with cudnn_deterministic(torch):
+        for zero1 in (False, True):
+            _f, p, a, info = _dp_trainer(torch, mx, mesh, params, aux,
+                                         data, zero1, DP_GATE_STEPS)
+            _want_dp_sweeps(info)
+            runs[zero1] = (p, a, info)
+    diff = max(float((runs[True][0][k] - runs[False][0][k]).abs().max())
+               for k in runs[False][0])
+    if not distinct and diff != 0.0:
+        raise AssertionError("dp=%d on one card: ZeRO-1 differs from plain "
+                             "dp by %g after %d steps (want bit for bit)"
+                             % (n, diff, DP_GATE_STEPS))
+    gate = {z: runs[z][2] for z in runs}
+    del runs
+    timed = {}
+    for zero1 in (False, True):
+        _f, _p, _a, info = _dp_trainer(
+            torch, mx, mesh, params, aux, data, zero1, 1,
+            timed_steps=DP_TIMED_STEPS, timed_warm=DP_WARM_STEPS - 1)
+        timed[zero1] = info
+        del _f, _p, _a
+    # the witness at batch 8
+    w_params, w_aux, w_data = seeded_resnet(seed + 9, RESNET_WITNESS_BATCH)
+    o32, p32, a32 = _plain_aux(torch, w_params, w_aux, w_data,
+                               torch.float32)
+    o64, p64, a64 = _plain_aux(torch, w_params, w_aux, w_data,
+                               torch.float64)
+    wits = {}
+    for zero1 in (False, True):
+        outs, p, a, info = _dp_trainer(torch, mx, mesh, w_params, w_aux,
+                                       w_data, zero1, 1)
+        wits[zero1] = _dp_witness(torch, outs, p, o32, p32, o64, p64,
+                                  a, a32, a64)
+        wits[zero1]["launches"] = info["launches"]
+        if not wits[zero1]["ok"]:
+            raise AssertionError("dp=%d zero1=%s: the witness %s"
+                                 % (n, zero1, wits[zero1]))
+    return {"contexts": [str(c) for c in ctxs], "cards": len(set(
+        mesh.devices)), "zero1_vs_dp_max_abs": diff, "gate": {
+            str(z).lower(): g for z, g in gate.items()},
+        "timed": {str(z).lower(): t for z, t in timed.items()},
+        "witness": {str(z).lower(): w for z, w in wits.items()}}
+
+
+def dp_lm_phase(torch, seed, n, distinct):
+    """(c) the transformer LM's ShardedTrainer step on ``make_mesh(n
+    contexts, dp=n)`` at phase 7's full width, DP_LM_BATCH a replica:
+    the flash forward on every replica (each layer's, each step's), the
+    sweep once a bucket a replica; the witness after 3 steps against the
+    plain float32 and float64 steps on the global batch; timed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.model import params_from_numpy
+    from mxnet_tpu_torch.parallel.sharding import place
+    ctxs = _dp_contexts(mx, n, distinct)
+    mesh = mx.parallel.make_mesh(ctxs, dp=n)
+    params = seeded_train_params(seed)
+    batch = train_batch(seed, DP_LM_BATCH * n)
+    S = TRAIN["seq_len"]
+    B = DP_LM_BATCH * n
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (B * S),
+                              **TRAIN_SGD)
+    tr = mx.parallel.ShardedTrainer(tf.get_symbol(**TRAIN), opt, mesh)
+    p, _a = params_from_numpy(params, {}, mesh=mesh)
+    st = {k: place(np.zeros(v.shape, np.float32), mesh,
+                   tr.opt_state_sharding(k, v.shape).spec)
+          for k, v in params.items()}
+    aux = {}
+    b = tr.shard_batch(batch)
+    steps = 3
+    _sync_all(torch, mesh.devices)
+    _reset_dp_counts()
+    for _ in range(steps):
+        p, st, aux, outs = tr.step(p, st, aux, b)
+    _sync_all(torch, mesh.devices)
+    counts = _sweep_counts()
+    buckets = len(fo.plan_buckets({k: p[k].shards[0]
+                                   for k in tr.param_names}))
+    want_fa = TRAIN["num_layers"] * steps * n
+    want_fo = buckets * steps * n
+    if counts["flash_attention"] != want_fa \
+            or counts["fused_opt"] != want_fo:
+        raise AssertionError("LM dp=%d: launches %s, want the flash "
+                             "forward %d times (every layer, step and "
+                             "replica) and the sweep %d"
+                             % (n, counts, want_fa, want_fo))
+    per_dev = {}
+    for d in mesh.devices:
+        per_dev[str(d)] = per_dev.get(str(d), 0) \
+            + TRAIN["num_layers"] * steps
+    if counts["flash_attention_by_device"] != per_dev:
+        raise AssertionError("LM dp=%d: flash forward by device %s, want %s"
+                             % (n, counts["flash_attention_by_device"],
+                                per_dev))
+    outs0 = outs[0].global_tensor(torch.device(mesh.devices[0]))
+    p_after = {k: v.shards[0] for k, v in p.items()}
+    wit = precision_check(torch, "LM dp=%d" % n, batch, steps, params,
+                          None, outs0, p_after)
+    if not wit["ok"]:
+        raise AssertionError("LM dp=%d: the witness %s" % (n, wit))
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        p, st, aux, _o = tr.step(p, st, aux, b)
+        _sync_all(torch, mesh.devices)
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    return {"contexts": [str(c) for c in ctxs],
+            "cards": len(set(mesh.devices)), "batch_per_replica":
+            DP_LM_BATCH, "steps": steps, "launches": counts,
+            "buckets": buckets, "witness": wit, "step_ms": ms,
+            "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": B * S / (ms / 1e3)}
+
+
+def _train_imagenet(here, prefix, kvstore, extra=()):
+    """``train_imagenet.py``'s arguments for (d): ResNet-50 on the
+    synthetic set, DIST_EPOCHS epochs of DIST_BATCH a worker."""
+    return [sys.executable,
+            os.path.join(here, "example", "image-classification-torch",
+                         "train_imagenet.py"),
+            "--kvstore", kvstore, "--synthetic", "--network", "resnet-50",
+            "--batch-size", str(DIST_BATCH), "--num-epochs",
+            str(DIST_EPOCHS), "--model-prefix", prefix] + list(extra) + (
+                ["--devices", "cpu"] if DEVICE != "cuda" else [])
+
+
+def _run_logged(cmd, env, here, log_path, what):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT_S, cwd=here)
+    seconds = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError("%s exited %d: %s"
+                             % (what, proc.returncode, proc.stderr[-3000:]))
+    return proc, seconds
+
+
+def _saved_arrays(mx, path):
+    return {k: v.asnumpy() for k, v in mx.nd.load(path).items()}
+
+
+def dist_sync_phase(torch, seed, n):
+    """(d) ``python tools/launch.py -n n python example/image-classification
+    -torch/train_imagenet.py --kvstore dist_sync --synthetic``: one worker
+    a card (``gpu(rank)``), ResNet-50, DIST_EPOCHS epochs of 8 batches
+    of DIST_BATCH a worker.  Gate with several workers: every worker's
+    parameters after the last epoch bit for bit rank 0's (the aux states
+    stay each worker's own, as in the reference).  Gate with one: its
+    parameters and aux states bit for bit those of the same run under
+    ``--kvstore local`` in a process of its own, no launch and no
+    process group (both with ``--deterministic``).  Returns the workers,
+    the backend, the workers' last epoch times and images/s (from the
+    fit's "Time cost" lines) and the launch's seconds."""
+    import socket
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke_dist")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    prefix = os.path.join(out_dir, "resnet50")
+    extra = ["--deterministic"] if n == 1 else []
+    cmd = [sys.executable, os.path.join(here, "tools", "launch.py"),
+           "-n", str(n), "--launcher", "local", "--port", str(port),
+           "--workdir", here] + _train_imagenet(here, prefix, "dist_sync",
+                                                extra)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    proc, seconds = _run_logged(cmd, env, here,
+                                os.path.join(out_dir, "launch.log"),
+                                "dist_sync launch")
+    import mxnet_tpu_torch as mx
+    files = [prefix + "-%04d.params" % DIST_EPOCHS] + [
+        "%s-%d-%04d.params" % (prefix, r, DIST_EPOCHS) for r in range(1, n)]
+    got = [_saved_arrays(mx, f) for f in files]
+    if n > 1:
+        against = "rank 0's"
+        bad = [(r, k) for r in range(1, n) for k in got[0]
+               if k.startswith("arg:")
+               and not np.array_equal(got[r][k], got[0][k])]
+    else:
+        # one worker: the launch, the process group and the dist store
+        # must change nothing against a plain local run
+        against = "the local run's"
+        local = prefix + "_local"
+        _run_logged(_train_imagenet(here, local, "local", extra), env, here,
+                    os.path.join(out_dir, "local.log"), "local run")
+        want = _saved_arrays(mx, local + "-%04d.params" % DIST_EPOCHS)
+        bad = [k for k in sorted(set(want) | set(got[0]))
+               if k not in want or k not in got[0]
+               or not np.array_equal(got[0][k], want[k])]
+    n_args = sum(k.startswith("arg:") for k in got[0])
+    if bad or not n_args:
+        raise AssertionError("dist_sync: parameters differ from %s: %s"
+                             % (against, bad[:5]))
+    text = proc.stderr + proc.stdout
+    backends = re.findall(r"torch\.distributed backend (\S+)", text)
+    workers = re.findall(r"worker (\d+) of (\d+)", text)
+    # each worker's epochs of 8 batches (common.synthetic_iters'
+    # train_n); the last one's time, warm, gives its images/s
+    costs = [float(x) for x in re.findall(r"Epoch\[%d\] Time cost=([0-9.]+)"
+                                          % (DIST_EPOCHS - 1), text)]
+    speeds = [8 * DIST_BATCH / c for c in costs if c > 0]
+    if len(workers) != n or any(int(w) != n for _r, w in workers):
+        raise AssertionError("dist_sync: worker lines %s, want %d workers"
+                             % (workers, n))
+    for f in os.listdir(out_dir):
+        if f.endswith(".params") or f.endswith(".json"):
+            os.remove(os.path.join(out_dir, f))
+    return {"workers": n, "backend": sorted(set(backends)),
+            "parameters_bitwise": True, "against": against,
+            "arrays": len(got[0]), "parameters": n_args,
+            "deterministic": bool(extra), "epoch_s": costs,
+            "images_per_s": speeds, "seconds": seconds,
+            "batch_per_worker": DIST_BATCH}
+
+
+def phase_dp(torch, seed, smi):
+    """Phase 15: data parallelism.  On one card, (a) ``Module`` on two
+    contexts of one card (the slicing mode), (b) ``ShardedTrainer`` dp=2
+    on one card with and without ZeRO-1, (c) the LM's dp=2 step, (d)
+    ``dist_sync`` through ``tools/launch.py`` with one worker a card.
+    With several cards, (a)-(c) also over the distinct cards (NCCL) and
+    (d) with a worker on each."""
+    import mxnet_tpu_torch as mx
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    log("dp: %d card(s); %s" % (n, _cudnn_settings(torch)))
+    out = {"cards": n}
+    out["module_one_card"] = dp_module_slicing(torch, seed)
+    r = out["module_one_card"]
+    log("dp (a) Module on %s (slicing, kvstore device), ResNet-50 batch "
+        "%d: gradient sum and %d steps bit for bit the hand-summed run of "
+        "two one-context executors; %.2f ms a step (median of %d: %s), "
+        "%.1f images/s; hand-kernel launches %s; on %s"
+        % (r["contexts"], RESNET_BATCH, DP_GATE_STEPS, r["step_ms"],
+           len(r["step_ms_all"]), ", ".join("%.2f" % t
+                                             for t in r["step_ms_all"]),
+           r["images_per_s"], r["launches"], smi))
+    torch.cuda.empty_cache()
+    out["trainer_one_card"] = dp_trainer_phase(torch, seed, 2, False)
+    _log_dp_trainer(out["trainer_one_card"], smi)
+    torch.cuda.empty_cache()
+    out["lm_one_card"] = dp_lm_phase(torch, seed, 2, False)
+    _log_dp_lm(out["lm_one_card"], smi)
+    torch.cuda.empty_cache()
+    if n > 1:
+        out["module_cards"] = dp_module_sharded(torch, seed, n)
+        r = out["module_cards"]
+        log("dp (a) Module on %d cards %s (sharded, NCCL): witness %s; "
+            "%.2f ms a step (median of %d), %.1f images/s; on %s"
+            % (n, r["contexts"], json.dumps(r["witness"]), r["step_ms"],
+               len(r["step_ms_all"]), r["images_per_s"], smi))
+        torch.cuda.empty_cache()
+        out["trainer_cards"] = dp_trainer_phase(torch, seed, n, True)
+        _log_dp_trainer(out["trainer_cards"], smi)
+        torch.cuda.empty_cache()
+        out["lm_cards"] = dp_lm_phase(torch, seed, n, True)
+        _log_dp_lm(out["lm_cards"], smi)
+        torch.cuda.empty_cache()
+    else:
+        log("dp: one card: the NCCL path between cards was not exercised "
+            "(replicas on one card sum with plain adds)")
+    out["dist_sync"] = dist_sync_phase(torch, seed, n)
+    r = out["dist_sync"]
+    log("dp (d) train_imagenet.py --kvstore dist_sync through "
+        "tools/launch.py: %d worker(s), torch.distributed backend %s, "
+        "cuDNN deterministic %s; parameters bit for bit %s (%d arrays "
+        "compared); each worker's last epoch of 8 batches of %d (s) %s, "
+        "images/s %s; the launch %.1f s; on %s"
+        % (r["workers"], r["backend"], r["deterministic"], r["against"],
+           r["parameters"] if r["workers"] > 1 else r["arrays"],
+           DIST_BATCH, r["epoch_s"], ["%.1f" % v for v in r["images_per_s"]],
+           r["seconds"], smi))
+    return out
+
+
+def _log_dp_trainer(r, smi):
+    for z in ("false", "true"):
+        t, g, w = r["timed"][z], r["gate"][z], r["witness"][z]
+        log("dp (b) ShardedTrainer %s dp=%d zero1=%s ResNet-50 batch %d: "
+            "%.2f ms a step (median of %d: %s), %.1f images/s; peak MB by "
+            "device %s; sweep launches by device %s, route by device %s "
+            "(%d steps; %d buckets); collectives %s; state rows on a "
+            "replica %s; witness %s; on %s"
+            % (r["contexts"], t["replicas"], z, t["batch"], t["step_ms"],
+               len(t["step_ms_all"]), ", ".join("%.2f" % x for x in
+                                                t["step_ms_all"]),
+               t["images_per_s"], {d: round(b / 2 ** 20, 1) for d, b in
+                                   t["peak_bytes_by_device"].items()},
+               g["launches"]["fused_opt_by_device"],
+               g["launches"]["fused_opt_by_route"], g["steps"],
+               g["buckets"], g["collectives"], g["state_shard_rows"],
+               json.dumps({k: w[k] for k in ("port_vs_plain64",
+                                             "plain32_vs_plain64")}), smi))
+    log("dp (b) ZeRO-1 against plain dp after %d steps: max |diff| %g"
+        % (DP_GATE_STEPS, r["zero1_vs_dp_max_abs"]))
+
+
+def _log_dp_lm(r, smi):
+    log("dp (c) LM ShardedTrainer %s, %d a replica: flash forward by "
+        "device %s, sweep by device %s (%d buckets); witness %s; %.2f ms a "
+        "step (median of %d), %.0f tokens/s; on %s"
+        % (r["contexts"], r["batch_per_replica"],
+           r["launches"]["flash_attention_by_device"],
+           r["launches"]["fused_opt_by_device"], r["buckets"],
+           json.dumps({k: r["witness"][k] for k in (
+               "port_vs_plain64", "plain32_vs_plain64")}),
+           r["step_ms"], len(r["step_ms_all"]), r["tokens_per_s"], smi))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6003,6 +6700,7 @@ def main(argv=None):
         zoo = run("12", phase_zoo, torch, args.seed, smi, resnet)
         lstm = run("13", phase_lstm, torch, timer, args.seed, smi)
         rcnn = run("14", phase_rcnn, torch, timer, args.seed, smi)
+        dp = run("15", phase_dp, torch, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -6053,6 +6751,35 @@ def main(argv=None):
     # ShardedTrainer on the 40-bucket graph is the path through the sweep
     lstm_main = lstm["trainer"]["kernel"]["launches"]["fused_opt"]
     launches["fused_opt"] += lstm_main
+    # data parallelism (phase 15): ShardedTrainer's dp steps (ResNet-50
+    # with and without ZeRO-1, the gate steps; the LM's dp step), on one
+    # card and, with several, across them; counted by device
+    dp_runs = [dp[k]["gate"][z]["launches"] for k in ("trainer_one_card",
+                                                      "trainer_cards")
+               if k in dp for z in ("false", "true")]
+    dp_lm = [dp[k]["launches"] for k in ("lm_one_card", "lm_cards")
+             if k in dp]
+    dp_main = sum(c["fused_opt"] for c in dp_runs + dp_lm)
+    dp_flash = sum(c["flash_attention"] for c in dp_lm)
+    launches["fused_opt"] += dp_main
+    launches["flash_attention"] += dp_flash
+    by_device = {"fused_opt": {}, "flash_attention": {}}
+    first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
+    by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main
+    by_device["flash_attention"][first_card] = \
+        launches["flash_attention"] - dp_flash
+    for c in dp_runs + dp_lm:
+        for kernel, key in (("fused_opt", "fused_opt_by_device"),
+                            ("flash_attention",
+                             "flash_attention_by_device")):
+            for d, k in c[key].items():
+                by_device[kernel][d] = by_device[kernel].get(d, 0) + k
+    sweep_routes = {}
+    for c in dp_runs + dp_lm:
+        for d, routes in c["fused_opt_by_route"].items():
+            for r, k in routes.items():
+                sweep_routes.setdefault(d, {})
+                sweep_routes[d][r] = sweep_routes[d].get(r, 0) + k
     resnet_other = {"resnet50_gate_" + n: g["launches"]
                     for n, g in resnet["gates"].items()}
     resnet_other["resnet50_witness_batch8"] = resnet["witness"]["launches"]
@@ -6074,6 +6801,7 @@ def main(argv=None):
                for d in ("float32", "bfloat16")] \
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
+            + dp_runs + dp_lm \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -6129,8 +6857,11 @@ def main(argv=None):
                  "resnet50_training": resnet_main,
                  "resnet50_image_feed": feed_main,
                  "inception_bn_training": zoo_main,
-                 "lstm_lm_training": lstm_main},
+                 "lstm_lm_training": lstm_main,
+                 "data_parallel_training": dp_main},
                 **{p: c["fused_opt"] for p, c in resnet_other.items()})
+            k["launches_by_device"] = by_device["fused_opt"]
+            k["data_parallel_routes_by_device"] = sweep_routes
         elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
                                  shape={"B": fa_bf16["B"], "H": fa_bf16["H"],
@@ -6140,6 +6871,8 @@ def main(argv=None):
                 d: train["float32"]["flash_attention_by_dtype"][d]
                 + train["bfloat16"]["flash_attention_by_dtype"][d]
                 for d in ("float32", "bfloat16")}
+            k["launches_by_dtype"]["float32"] += dp_flash
+            k["launches_by_device"] = by_device["flash_attention"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
                                 shape={"M": 960, "K": 512, "N": 8192,
@@ -6183,7 +6916,7 @@ def main(argv=None):
                        "flash_attention": fa_rows,
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
-                       "zoo": zoo, "lstm": lstm, "rcnn": rcnn,
+                       "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

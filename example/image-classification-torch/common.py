@@ -2,7 +2,12 @@
 port (``mxnet_tpu_torch``).
 
 The copy of ``example/image-classification/common.py`` that differs only
-in the import line and in ``--devices`` defaulting to ``gpu(0)``.
+in the import line, in the synthetic set's seeded shuffle and
+``--deterministic``, and in ``--devices`` defaulting to ``gpu(0)`` (in a
+``dist_*`` kvstore's worker, ``gpu(rank)``: one process a card, as
+``tools/launch.py -n N`` starts them).  ``--devices gpu:0,1,2,3`` trains
+on several cards of one process (the Module's sharded executor; with
+``--kvstore device`` the gradients are summed inside the step).
 Parity: example/image-classification/train_model.py + find_mxnet.py in the
 reference — argument conventions (--network, --batch-size, --lr, --kvstore,
 --gpus -> --devices, --model-prefix, --num-epochs) are kept so reference
@@ -38,11 +43,16 @@ def add_common_args(parser):
     parser.add_argument("--log-level", type=str, default="INFO")
     parser.add_argument("--synthetic", action="store_true",
                         help="force synthetic data")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="cuDNN's deterministic algorithms: two runs "
+                        "of one seed give the same weights bit for bit")
     return parser
 
 
-def parse_devices(spec):
+def parse_devices(spec, kv=None):
     if not spec:
+        if kv is not None and kv.type.startswith("dist"):
+            return [mx.gpu(kv.rank)]
         return [mx.gpu(0)]
     devs = []
     for tok in spec.split(","):
@@ -56,8 +66,9 @@ def parse_devices(spec):
 
 
 def synthetic_iters(data_shape, num_classes, batch_size, train_n=1024,
-                    val_n=256, seed=0):
-    """Deterministic class-separable gaussian blobs shaped like images."""
+                    val_n=256, seed=0, part=0):
+    """Deterministic class-separable gaussian blobs shaped like images;
+    ``part`` draws another worker's samples of the same classes."""
     rng = np.random.RandomState(seed)
     protos = rng.uniform(-1, 1, (num_classes,) + data_shape)
 
@@ -67,9 +78,11 @@ def synthetic_iters(data_shape, num_classes, batch_size, train_n=1024,
         x = protos[y] + 0.3 * r2.randn(n, *data_shape)
         return x.astype(np.float32), y.astype(np.float32)
 
-    Xt, yt = make(train_n, seed + 1)
-    Xv, yv = make(val_n, seed + 2)
-    train = mx.io.NDArrayIter(Xt, yt, batch_size=batch_size, shuffle=True)
+    Xt, yt = make(train_n, seed + 1 + 1000 * part)
+    Xv, yv = make(val_n, seed + 2 + 1000 * part)
+    # a seeded shuffle: two runs of one seed see the same batches
+    train = mx.io.NDArrayIter(Xt, yt, batch_size=batch_size, shuffle=True,
+                              seed=seed + 3 + 1000 * part)
     val = mx.io.NDArrayIter(Xv, yv, batch_size=batch_size)
     return train, val
 
@@ -96,10 +109,19 @@ def fit(args, net, train, val, data_names=("data",),
         batches_per_checkpoint=None):
     logging.basicConfig(level=getattr(logging, args.log_level.upper()),
                         format="%(asctime)s %(levelname)s %(message)s")
-    # kvstore FIRST, as in the JAX package (dist_* comes with the
-    # multi-GPU slice and raises here)
+    if getattr(args, "deterministic", False):
+        import torch
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    # kvstore FIRST, as in the JAX package: a dist_* store joins the
+    # launch's process group before any device work
     kv = mx.kvstore.create(args.kvstore)
-    devs = parse_devices(args.devices)
+    devs = parse_devices(args.devices, kv)
+    if kv.type.startswith("dist"):
+        import torch.distributed as dist
+        logging.info("kvstore %s: worker %d of %d on %s, torch.distributed "
+                     "backend %s", kv.type, kv.rank, kv.num_workers, devs,
+                     dist.get_backend() if dist.is_initialized() else None)
 
     lr_scheduler = None
     if args.lr_factor < 1.0:

@@ -1,5 +1,5 @@
 """Train ResNet-50 / Inception-BN / AlexNet / VGG on ImageNet, on the
-PyTorch/CUDA port (``mxnet_tpu_torch``, one GPU).
+PyTorch/CUDA port (``mxnet_tpu_torch``), on one GPU or several.
 
 The copy of ``example/image-classification/train_imagenet.py`` that
 differs only in the import line (and, through ``common.py``, in
@@ -10,8 +10,13 @@ uint8`` ships raw pixels, widened to float32 on the GPU;
 ``MXTPU_PREFETCH=1`` turns on ``Module.fit``'s async device feed, and
 ``MXNET_BACKWARD_DO_MIRROR=1`` recomputes the BatchNorm, ReLU and
 pooling outputs in the backward instead of keeping them.  Every network
-of ``NETS`` runs (Inception-v3 at 299 x 299, the others at 224 x 224);
-``--kvstore dist_sync`` comes with the multi-GPU slice.
+of ``NETS`` runs (Inception-v3 at 299 x 299, the others at 224 x 224).
+``--devices gpu:0,1,2,3 --kvstore device`` trains on four cards of one
+process; ``python tools/launch.py -n 4 python
+example/image-classification-torch/train_imagenet.py --kvstore dist_sync``
+starts four worker processes, one a card (``gpu(rank)``), each reading
+its part of the records (``num_parts``/``part_index`` from the store;
+with ``--synthetic``, samples drawn for its rank).
 """
 import argparse
 import logging
@@ -70,9 +75,11 @@ def main():
             num_parts=kv.num_workers, part_index=kv.rank) \
             if os.path.exists(val_rec) else None
     else:
+        # several workers: each draws its own samples of the classes
+        part = {"part": kv.rank} if kv.num_workers > 1 else {}
         train, val = common.synthetic_iters(
             shape, args.num_classes, args.batch_size,
-            train_n=8 * args.batch_size, val_n=2 * args.batch_size)
+            train_n=8 * args.batch_size, val_n=2 * args.batch_size, **part)
     common.fit(args, net, train, val)
 
 

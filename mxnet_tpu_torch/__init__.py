@@ -70,6 +70,11 @@ from . import initializer as init                 # noqa: F401
 from . import rtc                                 # noqa: F401
 from . import lr_scheduler, metric, callback      # noqa: F401
 from . import io, kvstore, model                  # noqa: F401
+from . import kvstore as kv                       # noqa: F401
+from . import kvstore_server                       # noqa: F401
+# a process launched as a parameter server or scheduler parks here
+# (parity: reference __init__.py:35 _init_kvstore_server_module)
+kvstore_server._init_kvstore_server_module()
 from . import engine, image, recordio             # noqa: F401
 from . import module                              # noqa: F401
 from . import module as mod                       # noqa: F401

@@ -75,15 +75,18 @@ class Program:
     None), handed to every op that declares ``need_rng``; ``monitor``,
     a callable ``(name, tensor)``, sees every op output (and turns
     mirroring off for the call); ``mirror=False`` runs the graph
-    unmirrored."""
+    unmirrored.  ``trace_replicas`` is the lockstep walk of a batch split
+    across replicas (data parallelism; :func:`build_program`)."""
 
-    __slots__ = ("trace", "needs_rng", "segments", "n_mirrored")
+    __slots__ = ("trace", "needs_rng", "segments", "n_mirrored",
+                 "trace_replicas")
 
     def __init__(self, trace, needs_rng, segments=(), n_mirrored=0):
         self.trace = trace
         self.needs_rng = needs_rng
         self.segments = segments
         self.n_mirrored = n_mirrored
+        self.trace_replicas = None
 
 
 def _mirror_segments(op_nodes):
@@ -404,7 +407,106 @@ def build_program(symbol):
                     rng.set_state(gen.get_state())
                 hooks.current, hooks.inputs, gen, end = None, (), rng, -1
 
-    return Program(trace, needs_rng, segments, n_mirrored)
+    def trace_replicas(arg_lists, aux_lists, rngs, is_train, group,
+                       sharded=()):
+        """The lockstep walk over a batch split across replicas: each
+        node runs on every replica (``arg_lists[r]``, ``aux_lists[r]``:
+        name -> tensor on ``group.devices[r]``) before the next node
+        runs.  ``sharded``: the inputs split over the batch axis (the
+        data and labels); every other variable is replicated.
+
+        A value is replicated when every input of the node that made it
+        is; its gradient on each replica is that replica's share, and
+        the shares sum to the whole, as the parameters' (summed over the
+        replicas after the backward) do.  So a node that sums over the
+        batch axis (``forward_replicas`` of BatchNorm, the loss heads'
+        normalizers, ``sum``/``max``/``min`` over axis 0, ``norm``,
+        ``softmax_cross_entropy``) reduces across the replicas in its
+        forward and in its backward, and a loss head whose backward is
+        its own (``injects_grad``) reads a replicated input on replica 0
+        alone.  Returns ``(outputs, aux_out, replicated)``: the heads of
+        each replica, each replica's aux updates, and whether each head
+        is replicated."""
+        if n_mirrored and torch.is_grad_enabled():
+            raise MXNetError(
+                "mirroring (force_mirroring, MXNET_BACKWARD_DO_MIRROR) "
+                "under data parallelism is not ported yet (ROADMAP.md "
+                "queue 1 item 3)")
+        n = len(arg_lists)
+        values = [{} for _ in range(n)]
+        rep = {}
+        aux_out = [dict(a) for a in aux_lists]
+        sharded = set(sharded)
+        for node in variables:
+            key = (id(node), 0)
+            for r in range(n):
+                values[r][key] = arg_lists[r][node.name]
+            rep[key] = node.name not in sharded
+        scope = _device_scopes(group)
+        for pos, node in enumerate(op_nodes):
+            op = node.op
+            keys = [(id(c), ci) for c, ci in node.inputs]
+            all_rep = all(rep[k] for k in keys)
+            ins = [[values[r][k] for k in keys] for r in range(n)]
+            aux_names = ["%s_%s" % (node.name, a)
+                         for a in op.list_auxiliary_states()]
+            aux_in = [[aux_lists[r][a] for a in aux_names]
+                      for r in range(n)]
+            keyed = rngs if getattr(op, "need_rng", False) else [None] * n
+            got = None
+            if not all_rep and hasattr(op, "forward_replicas"):
+                got = op.forward_replicas(ins, aux_in, is_train, keyed,
+                                          group)
+            if got is None:
+                fwd = forwards.get(id(node), op.forward)
+                outs, updates = [], []
+                for r in range(n):
+                    x = ins[r]
+                    if all_rep and r and getattr(op, "injects_grad", False):
+                        x = [t.detach() for t in x]
+                    with scope(r):
+                        o, u = fwd(x, aux_in[r], is_train, keyed[r])
+                    outs.append(o)
+                    updates.append(u)
+                got = (outs, updates, all_rep)
+            outs, updates, out_rep = got
+            for r in range(n):
+                for i, o in enumerate(outs[r]):
+                    values[r][(id(node), i)] = o
+                if updates is not None and updates[r] is not None:
+                    for a, u in zip(aux_names, updates[r]):
+                        aux_out[r][a] = u
+            for i in range(node.num_outputs):
+                rep[(id(node), i)] = out_rep
+            for key in frees[pos]:
+                for r in range(n):
+                    values[r].pop(key, None)
+        heads_out = [[values[r][(id(h), i)] for h, i in heads]
+                     for r in range(n)]
+        return heads_out, aux_out, [rep[(id(h), i)] for h, i in heads]
+
+    prog = Program(trace, needs_rng, segments, n_mirrored)
+    prog.trace_replicas = trace_replicas
+    return prog
+
+
+def _device_scopes(group):
+    """``scope(r)``: ``torch.cuda.device`` of replica r's card when the
+    replicas span several cards (the hand kernels' wrappers launch on the
+    current device's stream), else nothing."""
+    import contextlib
+    if not getattr(group, "nccl", False):
+        return lambda r: contextlib.nullcontext()
+    return lambda r: torch.cuda.device(group.devices[r])
+
+
+def replica_head_grads(outs, replicated):
+    """Head gradients of a lockstep walk: ones for a head split across
+    replicas; for a replicated head ones on replica 0 and zeros on the
+    others (the shares of its gradient sum to ones)."""
+    return [[torch.ones_like(o) if not rep or r == 0 else torch.zeros_like(o)
+             for o, rep in zip(outs_r, replicated)]
+            for r, outs_r in enumerate(outs)]
 
 
 def trace_residual_bytes(trace, arg_values, aux_values, wrt_names):
@@ -537,6 +639,7 @@ class Executor:
         self.aux_dict = dict(zip(self._aux_names, aux_list))
 
         self._program = _lookup_program(symbol, self._device)
+        self._replicas = None       # (ReplicaGroup, sharded names)
         self._monitor_callback = None
         self.outputs = [None] * len(self._out_names)
         self._pending = None        # (outputs, leaves) of a training forward
@@ -601,6 +704,17 @@ class Executor:
         self._set_args(kwargs)
         self._n_forward += 1
         self._pending = None
+        if self._replicas is not None:
+            if monitor is not None:
+                raise MXNetError("a monitor on an executor over several "
+                                 "devices is not ported yet (ROADMAP.md "
+                                 "queue 1 item 3)")
+            wrt = self._wrt_names() if is_train else ()
+            with torch.set_grad_enabled(bool(wrt)):
+                outs, aux_out = self._replica_forward(is_train, wrt)
+            self._publish(outs, aux_out, {n: a.data for n, a
+                                          in self.aux_dict.items()})
+            return self.outputs
         args = {n: a.data for n, a in self.arg_dict.items()}
         aux_values = {n: a.data for n, a in self.aux_dict.items()}
         wrt = self._wrt_names() if is_train else ()
@@ -628,6 +742,17 @@ class Executor:
             return
         if self._pending is None:
             raise MXNetError("backward called before forward(is_train=True)")
+        if self._pending[0] == "replicas":
+            grads = self._replica_backward(out_grads)
+            self._n_fwd_bwd += 1
+            with torch.no_grad():
+                for n in wrt:
+                    tgt = self.grad_dict[n]
+                    if self._grad_req[n] == "add":
+                        tgt._set_data(tgt.data + grads[n])
+                    else:
+                        tgt._set_data(grads[n])
+            return
         outs, leaves = self._pending
         self._pending = None
         if out_grads is None:
@@ -711,16 +836,21 @@ class Executor:
 
         args = {n: a.data for n, a in self.arg_dict.items()}
         aux_values = {n: a.data for n, a in self.aux_dict.items()}
-        leaves = {n: args[n].detach().requires_grad_(True) for n in wrt}
-        merged = {n: cast(n, v) for n, v in args.items()}
-        merged.update({n: cast(n, v) for n, v in leaves.items()})
-        with torch.enable_grad():
-            outs, aux_out = self._program.trace(
-                merged, {n: cast(n, v) for n, v in aux_values.items()},
-                self._rng(), True)
+        if self._replicas is not None:
+            with torch.enable_grad():
+                outs, aux_out = self._replica_forward(True, wrt, cast)
+                grads = self._replica_backward(None)
+        else:
+            leaves = {n: args[n].detach().requires_grad_(True) for n in wrt}
+            merged = {n: cast(n, v) for n, v in args.items()}
+            merged.update({n: cast(n, v) for n, v in leaves.items()})
+            with torch.enable_grad():
+                outs, aux_out = self._program.trace(
+                    merged, {n: cast(n, v) for n, v in aux_values.items()},
+                    self._rng(), True)
+            grads = _grads(outs, leaves, [torch.ones_like(o) for o in outs])
         aux_out = {k: v.detach().to(aux_values[k].dtype)
                    for k, v in aux_out.items()}
-        grads = _grads(outs, leaves, [torch.ones_like(o) for o in outs])
         lr = optimizer.lr_scheduler(num_update) \
             if optimizer.lr_scheduler is not None else optimizer.lr
         wd = optimizer.wd
@@ -737,6 +867,169 @@ class Executor:
                     new_states[n] = st
             self._publish(outs, aux_out, aux_values)
         return new_states
+
+    # -- one executor over several devices (data parallelism) ---------
+    def set_replicas(self, group, sharded):
+        """Run this executor over the replicas of ``group`` (a
+        ``parallel.collectives.ReplicaGroup`` whose first device is the
+        executor's): the bound arrays are the global batch's, on the
+        first device; each forward splits the ``sharded`` inputs (data
+        and labels) on axis 0 over the replicas, hands every replica the
+        parameters and aux states (the first device's tensors where a
+        replica shares it, copies broadcast to the other cards) and runs
+        the lockstep walk (``Program.trace_replicas``); the backward sums
+        the replicas' parameter gradients bucket by bucket as it
+        finishes them (``parallel.overlap.GradBuckets``) into the
+        gradient arrays.  Outputs are the replicas' concatenated (or the
+        first replica's, for a replicated head).  The JAX package's
+        counterpart is one executor over a ``jax.sharding.Mesh``."""
+        if group.devices[0] != self._device:
+            raise MXNetError("set_replicas: the first replica is on %s, "
+                             "the executor on %s" % (group.devices[0],
+                                                     self._device))
+        self._replicas = (group, tuple(sharded))
+        self._replica_bufs = {}
+
+    def _replicated_copies(self, values):
+        """``values`` (``{name: tensor}`` on the first device) for each
+        replica: a list of dicts.  A replica on the first device takes
+        the tensors themselves; the others take views of one flat buffer
+        a dtype, filled by one broadcast of the values packed together
+        (one NCCL call a step and dtype, not one a tensor)."""
+        group = self._replicas[0]
+        if not group.nccl:
+            return [values] * group.n
+        from .parallel.collectives import broadcast
+        out = [dict() for _ in range(group.n)]
+        by_dtype = {}
+        for name, v in values.items():
+            by_dtype.setdefault(v.dtype, []).append(name)
+        for dtype, names in by_dtype.items():
+            flat = torch.cat([values[k].reshape(-1) for k in names])
+            bufs = []
+            for r, d in enumerate(group.devices):
+                if d == flat.device:
+                    bufs.append(flat)
+                    continue
+                buf = self._replica_bufs.get((dtype, r))
+                if buf is None or buf.numel() != flat.numel():
+                    buf = self._replica_bufs[(dtype, r)] = torch.empty_like(
+                        flat, device=d)
+                bufs.append(buf)
+            broadcast(group, bufs, root=0)
+            sizes = [values[k].numel() for k in names]
+            for r, buf in enumerate(bufs):
+                if buf is flat:
+                    out[r].update((k, values[k]) for k in names)
+                    continue
+                for k, part in zip(names, torch.split(buf, sizes)):
+                    out[r][k] = part.view(values[k].shape)
+        return out
+
+    def _replica_forward(self, is_train, wrt, cast=None):
+        """The lockstep walk of every replica; returns the merged outputs
+        and the first replica's aux updates, and keeps the graph for
+        :meth:`_replica_backward` when ``wrt``."""
+        group, sharded = self._replicas
+        cast = cast or (lambda name, t: t)
+        n = group.n
+        shared = {name: a.data for name, a in self.arg_dict.items()
+                  if name not in sharded}
+        shared.update(("aux:" + name, a.data)
+                      for name, a in self.aux_dict.items())
+        copies = self._replicated_copies(shared)
+        per = [{} for _ in range(n)]
+        for name, a in self.arg_dict.items():
+            v = a.data
+            if name in sharded:
+                if v.shape[0] % n:
+                    raise MXNetError("executor over %d devices: %s has "
+                                     "%d rows" % (n, name, v.shape[0]))
+                parts = [p.to(d) for p, d in
+                         zip(torch.chunk(v, n, dim=0), group.devices)]
+            else:
+                parts = [c[name] for c in copies]
+            for r in range(n):
+                per[r][name] = parts[r]
+        leaves = [{k: per[r][k].detach().requires_grad_(True) for k in wrt}
+                  for r in range(n)]
+        args = []
+        for r in range(n):
+            a = {k: cast(k, v) for k, v in per[r].items()}
+            a.update({k: cast(k, v) for k, v in leaves[r].items()})
+            args.append(a)
+        auxs = [{name: cast(name, copies[r]["aux:" + name])
+                 for name in self.aux_dict} for r in range(n)]
+        rngs = [None] * n
+        if self._program.needs_rng:
+            from . import random as _random
+            rngs = [_random.generator(d) for d in group.devices]
+        outs, aux_out, reps = self._program.trace_replicas(
+            args, auxs or [{} for _ in range(n)], rngs, is_train, group,
+            sharded)
+        if wrt:
+            self._pending = ("replicas", outs, reps, leaves)
+        merged = []
+        for i, rep in enumerate(reps):
+            if rep:
+                merged.append(outs[0][i])
+            else:
+                merged.append(torch.cat([o[i].detach().to(self._device)
+                                         for o in outs]))
+        return merged, aux_out[0]
+
+    def _replica_backward(self, out_grads):
+        """The backward of :meth:`_replica_forward`'s walk: ``{name:
+        gradient}`` on the first device, the replicated arguments'
+        summed over the replicas, a split input's concatenated."""
+        from .parallel.collectives import all_reduce
+        from .parallel.overlap import GradBuckets, interleave_grad_buckets
+        _tag, outs, reps, leaves = self._pending
+        self._pending = None
+        group, sharded = self._replicas
+        n = group.n
+        if out_grads is None:
+            hgrads = replica_head_grads(outs, reps)
+        else:
+            if isinstance(out_grads, (NDArray, torch.Tensor)):
+                out_grads = [out_grads]
+            hgrads = [[] for _ in range(n)]
+            for i, (g, rep) in enumerate(zip(out_grads, reps)):
+                g = g.data if isinstance(g, NDArray) else torch.as_tensor(g)
+                parts = torch.chunk(g, n, dim=0) if not rep else \
+                    [g] + [torch.zeros_like(g)] * (n - 1)
+                for r in range(n):
+                    hgrads[r].append(parts[r].to(outs[r][i].device,
+                                                 outs[r][i].dtype))
+        shared = [k for k in leaves[0] if k not in sharded]
+
+        def reduce(names, grads):
+            sums = all_reduce(group, [
+                torch.cat([g[k].reshape(-1) for k in names]) for g in grads])
+            sizes = [grads[0][k].numel() for k in names]
+            return {k: part.view(grads[0][k].shape)
+                    for k, part in zip(names, torch.split(sums[0], sizes))}
+        plan = interleave_grad_buckets({k: leaves[0][k] for k in shared})
+        reducer = GradBuckets([{k: lv[k] for k in shared} for lv in leaves],
+                              plan, reduce)
+        heads, hg = [], []
+        for o_r, g_r in zip(outs, hgrads):
+            for o, g in zip(o_r, g_r):
+                if o.requires_grad:
+                    heads.append(o)
+                    hg.append(g)
+        if heads:
+            torch.autograd.backward(heads, hg)
+        grads = {}
+        for part in reducer.finish():
+            grads.update(part)
+        for k in leaves[0]:
+            if k in sharded:
+                grads[k] = torch.cat([
+                    (lv[k].grad if lv[k].grad is not None
+                     else torch.zeros_like(lv[k])).to(self._device)
+                    for lv in leaves])
+        return grads
 
     def init_fused_states(self, optimizer):
         """Optimizer state for every learnable argument (fused path)."""

@@ -3,14 +3,16 @@
 The port of ``mxnet_tpu/executor_manager.py`` (the reference's
 ``python/mxnet/executor_manager.py``): ``_split_input_slice``,
 ``_check_arguments``, ``_load_data``/``_load_label``, ``_bind_exec``,
-``DataParallelExecutorGroup`` and ``DataParallelExecutorManager``, on
-one context: one executor bound on the whole batch.  With a ``sym_gen``
+``DataParallelExecutorGroup`` and ``DataParallelExecutorManager`` over a
+ctx list: each batch is sliced over the contexts by workload, one
+executor a context, each with its own parameters, gradients and aux
+states; the gradients are summed by the kvstore (``FeedForward(ctx=[...])``
+with ``device``, or a ``dist_*`` store across processes), and the
+parameters read back are the contexts' average.  With a ``sym_gen``
 (bucketing) the manager binds one group per bucket key; every group's
 executor shares the first group's parameter, gradient and aux arrays
 (the same tensors), and its input arrays are views of the head of the
-largest bucket's buffers (``_bind_exec``).  Several contexts (the batch
-split across GPUs) come with the multi-GPU training slice
-(``ROADMAP.md`` queue 1 item 3) and raise, as ``Module`` does.
+largest bucket's buffers (``_bind_exec``).
 """
 from __future__ import annotations
 
@@ -225,10 +227,6 @@ class DataParallelExecutorManager(object):
         if logger is None:
             logger = logging
         num_device = len(ctx)
-        if num_device != 1:
-            raise MXNetError("FeedForward on %d contexts: several GPUs come "
-                             "with the multi-GPU training slice (ROADMAP.md "
-                             "queue 1 item 3)" % num_device)
         logger.info("Start training with %s", str(ctx))
 
         if work_load_list is None:
@@ -264,12 +262,13 @@ class DataParallelExecutorManager(object):
             texec.copy_params_from(arg_params, aux_params)
 
     def copy_to(self, arg_params, aux_params):
-        """Copies of the executor's parameters and aux states into the
-        dicts, on its context (one context: nothing to average)."""
+        """The executors' parameters and aux states into the dicts,
+        averaged over the contexts (a copy with one), on the first."""
+        from .module.executor_group import _average
         for name, block in zip(self.param_names, self.param_arrays):
-            arg_params[name] = block[0].copy()
+            arg_params[name] = _average(block)
         for name, block in zip(self.aux_names, self.aux_arrays):
-            aux_params[name] = block[0].copy()
+            aux_params[name] = _average(block)
 
     @property
     def param_arrays(self):

@@ -152,14 +152,17 @@ def flash_attention_forward(q, k, v, causal=False, scale=None):
     flash_attention_forward.launches += 1
     flash_attention_forward.launches_by_dtype[
         str(q.dtype).replace("torch.", "")] += 1
+    by_dev = flash_attention_forward.launches_by_device
+    by_dev[str(q.device)] = by_dev.get(str(q.device), 0) + 1
     return o, lse
 
 
-#: launches of the CUDA kernels in this process, in all and by input dtype:
-#: "bfloat16" is the tensor-core body, "float32" the FMA body (callers may
-#: reset them)
+#: launches of the CUDA kernels in this process, in all, by input dtype
+#: ("bfloat16" is the tensor-core body, "float32" the FMA body) and by
+#: device (callers may reset them)
 flash_attention_forward.launches = 0
 flash_attention_forward.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+flash_attention_forward.launches_by_device = {}
 register_kernel_counters("flash_attention", lambda: {
     "launches": flash_attention_forward.launches,
     "by_dtype": dict(flash_attention_forward.launches_by_dtype)})

@@ -45,7 +45,7 @@ from .common import env_flag
 
 __all__ = ["fused_opt_mode", "bucket_nbytes", "supports_fused",
            "plan_buckets", "sweep_body", "sweep_reference", "sweep",
-           "fused_apply"]
+           "sweep_route", "fused_apply"]
 
 
 def fused_opt_mode(explicit=None):
@@ -251,13 +251,31 @@ def sweep(optimizer, w, g, states, lr, wd, t, preprocess=True):
     check(lib, code, "fused_opt sweep")
     sweep.launches += 1
     sweep.launches_by_body[body] = sweep.launches_by_body.get(body, 0) + 1
+    dev = str(w.device)
+    sweep.launches_by_device[dev] = sweep.launches_by_device.get(dev, 0) + 1
+    routes = sweep.launches_by_route.setdefault(dev, {})
+    route = sweep_route(w, g, states)
+    routes[route] = routes.get(route, 0) + 1
     return w, states
 
 
+def sweep_route(w, g, states):
+    """The body the kernel takes for these vectors: ``"vec4"`` (16-byte
+    loads) when every buffer starts on a 16-byte boundary, else
+    ``"scalar"`` (``csrc/fused_opt.cu``'s ``launch``)."""
+    bits = 0
+    for x in [w, g] + list(states):
+        bits |= x.data_ptr()
+    return "vec4" if bits % 16 == 0 else "scalar"
+
+
 #: launches of the CUDA kernel in this process (callers may reset it),
-#: in all and by body code (:func:`sweep_body`)
+#: in all, by body code (:func:`sweep_body`), by device, and by device
+#: and route (:func:`sweep_route`: ``{device: {route: n}}``)
 sweep.launches = 0
 sweep.launches_by_body = {}
+sweep.launches_by_device = {}
+sweep.launches_by_route = {}
 register_kernel_counters("fused_opt", lambda: {
     "launches": sweep.launches,
     "by_body": dict(sweep.launches_by_body)})

@@ -1,36 +1,54 @@
-"""KVStore: parameter synchronization within one process.
+"""KVStore: parameter synchronization.
 
-The port's slice of ``mxnet_tpu/kvstore.py``: the ``local`` and
-``device`` stores of one process (``create("local"|"device")``), with
-``init``, ``push`` (copies of a key summed, then the updater run on the
-sum and the stored weight, or the sum stored), ``pull``, ``push_async``
-and ``wait_all`` (the update runs inline: one process has no peer to
-wait for), ``set_updater``/``set_optimizer`` (the optimizer goes through
-a pickle round trip, as the reference ships it to its servers),
-``save_optimizer_states``/``load_optimizer_states``, ``rank`` 0,
-``num_workers`` 1 and ``barrier``.  The ``dist_*`` stores (several
-workers, collectives between GPUs) belong to the multi-GPU slice and
-raise.
+The port of ``mxnet_tpu/kvstore.py``: the reference's string factory
+(``create``) and Python API (``init``, ``push``, ``pull``,
+``push_async``/``wait_all``, ``set_updater``/``set_optimizer``,
+``rank``, ``num_workers``, ``barrier``, the optimizer states' files).
 
-The heartbeat half of the JAX package's store is here whole: the
-stamping thread (:func:`_start_heartbeat`, ``mxtpu_hb/<rank>`` keys),
-the liveness scan (:func:`scan_dead_ranks`) that fleet routers and
-:meth:`KVStore.dead_nodes` share, over any coordination client with the
-``resilience.netkv.CoordKV`` surface.  There is no coordination service
-in one process (:func:`_dist_client` is None), so unless a fleet
-replica hands :func:`_start_heartbeat` its KV client nothing stamps, and
-``dead_nodes`` is ``[]``.
+- ``local`` and ``device``: one process.  ``push`` sums the copies
+  pushed for a key (one a context) on the first copy's device, in
+  context order (the reference's ``comm.h`` reduces on a GPU for
+  ``device``), then runs the updater on (sum, stored weight) or stores
+  the sum; ``pull`` copies the stored value into every out array.
+- ``dist_sync``, ``dist_device_sync``, ``dist_async`` (and
+  ``dist_async_device``): several worker processes joined by
+  ``torch.distributed`` (:func:`_maybe_init_distributed`, from
+  ``tools/launch.py``'s env: ``MXTPU_COORDINATOR``,
+  ``MXTPU_NUM_WORKERS``, ``MXTPU_WORKER_RANK``).  After the local sum, a
+  push sums over the workers (:meth:`KVStore._allreduce`: NCCL for CUDA
+  tensors, gloo for CPU tensors), so every worker's updater sees the
+  same gradient and keeps the same weights.  ``dist_async`` runs with
+  ``dist_sync``'s semantics, as in the JAX package: a collective has no
+  asynchronous server to update.  With no coordinator in the env a dist
+  store is one worker (rank 0 of 1).  :meth:`KVStore.push_async` merges
+  inline and sums over the workers bucket by bucket (``MXTPU_BUCKET_MB``)
+  on one background thread, in push order on every worker.
+
+The JAX package's store also carries a sum through its coordination
+service's key-value store, for backends that cannot build cross-process
+programs; gloo can, so the port has no such path (``parallel/
+collectives.py``).
+
+The heartbeat: every dist worker stamps ``mxtpu_hb/<rank>`` in the
+process group's TCP store (:func:`_start_heartbeat`), and
+:meth:`KVStore.dead_nodes` scans the stamps (:func:`scan_dead_ranks`,
+shared with the fleet router, over any client with the
+``resilience.netkv.CoordKV`` surface: :class:`_StoreKV` here).
 """
 from __future__ import annotations
 
+import os
 import pickle
+import threading
+import time
 
 import numpy as _np
+import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["KVStore", "create", "scan_dead_ranks"]
+__all__ = ["KVStore", "create", "scan_dead_ranks", "global_barrier"]
 
 _VALID_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
                 "local_allreduce_device", "device",
@@ -64,58 +82,162 @@ def _group_values(keys, values, single):
     return out
 
 
-class KVStore:
-    """Key-value store of one process (parity: python/mxnet/kvstore.py).
+def _merge(vals):
+    """The copies of one key summed on the first one's device, in
+    order."""
+    merged = vals[0].data
+    for v in vals[1:]:
+        merged = merged + v.data.to(merged.device)
+    return merged
 
-    ``push`` sums the copies pushed for a key, then runs the updater on
-    (summed gradient, stored weight), or stores the sum when no updater
-    is set; ``pull`` copies the stored value into every out array."""
+
+def _dist_world():
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+class KVStore:
+    """Key-value store (parity: python/mxnet/kvstore.py).
+
+    ``push`` sums the copies pushed for a key (and, in a dist store,
+    over the workers), then runs the updater on (summed gradient, stored
+    weight), or stores the sum when no updater is set; ``pull`` copies
+    the stored value into every out array."""
 
     def __init__(self, kvtype="local"):
-        if kvtype.startswith("dist"):
-            raise MXNetError(
-                "kvstore %r: distributed stores are not ported yet; they "
-                "come with the multi-GPU training slice" % kvtype)
         self.type = kvtype
         self._store = {}
         self._updater = None
         self._created = _now()
         self._dead_hold = {"since": None, "last": []}
+        self._async = None       # overlap.AsyncLauncher of push_async
+        self._bucket = []        # pending (key, merged) gradients
+        self._bucket_nbytes = 0
+
+    @property
+    def _dist(self):
+        return self.type.startswith("dist") and _dist_world()[0] > 1
 
     @property
     def rank(self):
-        return 0
+        return _dist_world()[1] if self.type.startswith("dist") else 0
 
     @property
     def num_workers(self):
-        return 1
+        return _dist_world()[0] if self.type.startswith("dist") else 1
 
     def init(self, key, value):
+        """Store each key's initial value once; in a dist store rank 0's
+        value, broadcast to every worker (kvstore_dist.h:58-76)."""
         keys, single = _key_list(key)
         for k, vals in zip(keys, _group_values(keys, value, single)):
             if k in self._store:
                 raise MXNetError("key %r already initialized" % (k,))
-            self._store[k] = NDArray(vals[0].data.clone(),
-                                     ctx=vals[0].context)
+            data = vals[0].data.clone()
+            if self._dist:
+                import torch.distributed as dist
+                dist.broadcast(data, src=0)
+            self._store[k] = NDArray(data, ctx=vals[0].context)
 
     def push(self, key, value, priority=0):
         keys, single = _key_list(key)
         for k, vals in zip(keys, _group_values(keys, value, single)):
             if k not in self._store:
                 raise MXNetError("key %r not initialized" % (k,))
-            merged = vals[0].data
-            for v in vals[1:]:
-                merged = merged + v.data.to(merged.device)
-            if self._updater is not None:
-                self._updater(k, NDArray(merged), self._store[k])
-            else:
-                self._store[k]._set_data(merged)
+            self._apply_merged(k, self._allreduce(_merge(vals)))
 
-    #: one process: the push completes before it returns
-    push_async = push
+    def _apply_merged(self, k, merged):
+        if self._updater is not None:
+            self._updater(k, NDArray(merged), self._store[k])
+        else:
+            self._store[k]._set_data(merged)
+
+    def _allreduce(self, merged):
+        """The sum over the workers of a dist store (the identity
+        otherwise), under an ``allreduce`` span, with a ``collective``
+        event (op, sequence number, bytes, ms, workers)."""
+        if not self._dist:
+            return merged
+        import torch.distributed as dist
+        from .observability import events as _events, spans as _spans
+        from .observability import trace as _trace
+        seq = _trace.next_seq("allreduce")
+        nbytes = merged.numel() * merged.element_size()
+        t0 = time.perf_counter()
+        out = merged.clone().contiguous()
+        with _spans.span("allreduce"):
+            dist.all_reduce(out)
+        _events.emit("collective", op="allreduce", seq=seq, bytes=nbytes,
+                     dur_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                     num_workers=self.num_workers, **_trace.ids())
+        return out
+
+    # -- async + bucketed push -----------------------------------------
+    def push_async(self, key, value, priority=0):
+        """:meth:`push` that returns before the sum over the workers.
+
+        The copies are merged inline, then the merged gradient joins the
+        pending bucket; a bucket past ``MXTPU_BUCKET_MB`` flushes: one
+        sum over the workers of its gradients concatenated, then the
+        updater key by key, on one background thread (FIFO, so every
+        worker runs the same collectives in the same order).  Call
+        :meth:`wait_all` before ``pull``."""
+        keys, single = _key_list(key)
+        for k, vals in zip(keys, _group_values(keys, value, single)):
+            if k not in self._store:
+                raise MXNetError("key %r not initialized" % (k,))
+            self._bucket_add(k, _merge(vals))
 
     def wait_all(self, timeout=None):
-        """Every push has completed (they run inline)."""
+        """Flush the tail bucket and wait until every :meth:`push_async`
+        has been applied (re-raising the first failure)."""
+        self._flush_bucket()
+        if self._async is not None:
+            self._async.wait_all(timeout if timeout is not None
+                                 else _collective_timeout_s())
+
+    def _bucket_add(self, k, merged):
+        from .parallel.overlap import bucket_bytes
+        target = bucket_bytes()
+        nbytes = merged.numel() * merged.element_size()
+        if self._bucket and (target <= 0
+                             or self._bucket[-1][1].dtype != merged.dtype
+                             or self._bucket[-1][1].device != merged.device
+                             or self._bucket_nbytes + nbytes > target):
+            self._flush_bucket()
+        self._bucket.append((k, merged))
+        self._bucket_nbytes += nbytes
+        if target <= 0 or self._bucket_nbytes >= target:
+            self._flush_bucket()
+
+    def _flush_bucket(self):
+        items, self._bucket, self._bucket_nbytes = self._bucket, [], 0
+        if not items:
+            return
+        if not self._dist:
+            # one worker: nothing to wait for, the update runs inline
+            for k, merged in items:
+                self._apply_merged(k, merged)
+            return
+        if self._async is None:
+            from .parallel.overlap import AsyncLauncher
+            self._async = AsyncLauncher(name="kv-async")
+        self._async.submit(lambda: self._bucket_allreduce(items))
+
+    def _bucket_allreduce(self, items):
+        """One bucket: its gradients concatenated, summed over the
+        workers once, split back, the updater key by key (elementwise
+        sums: bit for bit the per-key result)."""
+        if len(items) == 1:
+            k, merged = items[0]
+            self._apply_merged(k, self._allreduce(merged))
+            return
+        fused = self._allreduce(torch.cat([m.reshape(-1) for _, m in items]))
+        for (k, merged), part in zip(items, torch.split(
+                fused, [m.numel() for _, m in items])):
+            self._apply_merged(k, part.view(merged.shape))
 
     def pull(self, key, out=None, priority=0):
         if out is None:
@@ -135,18 +257,19 @@ class KVStore:
     def set_optimizer(self, optimizer):
         """Run ``optimizer`` as the store's updater (parity: kvstore.py:231;
         the copy through pickle keeps the reference's contract that the
-        optimizer must be serializable for its server)."""
+        optimizer must be serializable for its server; every worker runs
+        the update on the same summed gradient)."""
         from .optimizer import get_updater
         self.set_updater(get_updater(pickle.loads(pickle.dumps(optimizer))))
 
     # -- fault surface (kvstore.h:242 get_num_dead_node parity) ----------
     def dead_nodes(self, node_id=None, timeout=None):
         """Sorted ranks whose liveness heartbeat is stale or missing, as
-        :func:`scan_dead_ranks` reads them from the coordination client
-        (:func:`_dist_client`); ``[]`` without one.  ``timeout``
-        defaults to 5 heartbeat intervals.  An unreachable KV holds the
-        last verdict for up to ``timeout`` seconds, then re-raises the
-        structured ``KVUnreachable``: a blip must not fabricate deaths."""
+        :func:`scan_dead_ranks` reads them from the process group's
+        store (:func:`_dist_client`); ``[]`` without a group.  ``timeout`` defaults to 5 heartbeat
+        intervals.  An unreachable store holds the last verdict for up
+        to ``timeout`` seconds, then re-raises the structured
+        ``KVUnreachable``: a blip must not fabricate deaths."""
         if timeout is None:
             timeout = 5 * _HB_INTERVAL
         client = _dist_client()
@@ -179,7 +302,13 @@ class KVStore:
     get_num_dead_node = num_dead_nodes
 
     def barrier(self):
-        """One worker: nothing to wait for."""
+        """Every worker of a dist store waits for the others (parity
+        kvstore.h:249) under a ``kv_barrier`` span; one worker has
+        nothing to wait for."""
+        if self._dist:
+            from .observability import spans as _spans
+            with _spans.span("kv_barrier"):
+                global_barrier("kv_barrier")
 
     _barrier = barrier
 
@@ -202,6 +331,24 @@ class KVStore:
         updater = get_updater(opt)
         updater.states.update({k: _from_host(v) for k, v in states.items()})
         self.set_updater(updater)
+
+
+def _collective_timeout_s():
+    """Timeout of a kvstore wait (``MXTPU_STEP_TIMEOUT_S``, else none)."""
+    from .resilience import step_timeout_s
+    return step_timeout_s()
+
+
+def global_barrier(tag="barrier"):
+    """Every process of the group waits for the others: a sum of one
+    CPU value over gloo (``tag`` names it in the telemetry).  Nothing to
+    wait for without a group of several."""
+    import torch.distributed as dist
+    if _dist_world()[0] <= 1:
+        return
+    from .observability import trace as _trace
+    _trace.next_seq(tag)
+    dist.all_reduce(torch.zeros(1))
 
 
 def _to_host(state):
@@ -267,10 +414,132 @@ def _now():
     return _time.time()
 
 
+class _StoreKV(object):
+    """The process group's TCP store as a coordination client (the
+    ``resilience.netkv.CoordKV`` surface the heartbeat, the liveness
+    scan and the elastic protocol use).  Each thread talks through its
+    own client connection.  ``key_value_dir_get(prefix)`` lists the
+    keys ``<prefix><rank>`` of the group's ranks (a TCP store cannot
+    list keys), which is what the heartbeat scan reads."""
+
+    def __init__(self, host, port, world_size, timeout_s=300.0):
+        self.host, self.port = host, int(port)
+        self.world_size = int(world_size)
+        self.timeout_s = float(timeout_s)
+        self._local = threading.local()
+
+    def _client(self):
+        c = getattr(self._local, "store", None)
+        if c is None:
+            import datetime
+            import torch.distributed as dist
+            c = self._local.store = dist.TCPStore(
+                self.host, self.port, self.world_size, False,
+                timeout=datetime.timedelta(seconds=self.timeout_s))
+        return c
+
+    def key_value_set(self, key, value, allow_overwrite=True):
+        self._client().set(key, str(value))
+
+    def blocking_key_value_get(self, key, timeout_ms):
+        import datetime
+        c = self._client()
+        c.set_timeout(datetime.timedelta(milliseconds=int(timeout_ms)))
+        try:
+            return c.get(key).decode()
+        finally:
+            c.set_timeout(datetime.timedelta(seconds=self.timeout_s))
+
+    def key_value_try_get(self, key):
+        c = self._client()
+        return c.get(key).decode() if c.check([key]) else None
+
+    def key_value_dir_get(self, prefix):
+        out = []
+        for r in range(self.world_size):
+            key = "%s%d" % (prefix, r)
+            got = self.key_value_try_get(key)
+            if got is not None:
+                out.append((key, got))
+        return out
+
+    def key_value_delete(self, key):
+        self._client().delete_key(key)
+
+
+_DIST = {"client": None, "done": False}
+
+
 def _dist_client():
-    """The process's coordination client: None in the port until the
-    multi-GPU slice brings a process group with a KV."""
-    return None
+    """The process group's coordination client (:class:`_StoreKV`), or
+    None outside a group started by :func:`_maybe_init_distributed`."""
+    return _DIST["client"]
+
+
+def _backend():
+    """gloo for CPU tensors, and NCCL for CUDA tensors where there is
+    CUDA (one group serves both: the backend follows the device).  A
+    machine with CUDA and no NCCL raises: CUDA tensors never go through
+    gloo's host copies."""
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        return "gloo"
+    if not dist.is_nccl_available():
+        raise MXNetError(
+            "dist kvstore: CUDA is available but this PyTorch has no "
+            "NCCL; the process group's CUDA tensors need NCCL and are "
+            "never sent through gloo")
+    return "cpu:gloo,cuda:nccl"
+
+
+def _maybe_init_distributed():
+    """Join the ``torch.distributed`` group that ``tools/launch.py``'s
+    env describes (``MXTPU_COORDINATOR`` = host:port of rank 0's TCP
+    store, ``MXTPU_NUM_WORKERS``, ``MXTPU_WORKER_RANK``): the ps-lite
+    rendezvous's counterpart (``mxnet_tpu/kvstore.py:838-896`` joins
+    ``jax.distributed``).  A no-op without ``MXTPU_COORDINATOR`` (a dist
+    store of one worker) or when the group exists already.  The elastic
+    generation fence runs first: a straggler of a superseded incarnation
+    must exit for restart, not join the new group."""
+    coord = os.environ.get("MXTPU_COORDINATOR")
+    if not coord:
+        return
+    from .resilience import elastic
+    elastic.check_generation_fence()
+    import torch.distributed as dist
+    if _DIST["done"] or dist.is_initialized():
+        _DIST["done"] = True
+        return
+    missing = [k for k in ("MXTPU_NUM_WORKERS", "MXTPU_WORKER_RANK")
+               if k not in os.environ]
+    if missing:
+        raise MXNetError(
+            "partially-configured distributed launch: MXTPU_COORDINATOR is "
+            "set but %s %s missing. tools/launch.py exports all three "
+            "(MXTPU_COORDINATOR, MXTPU_NUM_WORKERS, MXTPU_WORKER_RANK); "
+            "set them together or unset MXTPU_COORDINATOR for single-"
+            "process mode." % (" and ".join(missing),
+                               "is" if len(missing) == 1 else "are"))
+    import datetime
+    host, _, port = coord.rpartition(":")
+    world = int(os.environ["MXTPU_NUM_WORKERS"])
+    rank = int(os.environ["MXTPU_WORKER_RANK"])
+    timeout = datetime.timedelta(seconds=float(
+        os.environ.get("MXTPU_DIST_TIMEOUT_S", "300")))
+    from .resilience import RetryPolicy, retry_call
+    # a worker routinely dials before rank 0 listens: connect failures
+    # are retried with backoff; anything else propagates at once
+    store = retry_call(
+        lambda: dist.TCPStore(host, int(port), world, rank == 0,
+                              timeout=timeout),
+        policy=RetryPolicy(), phase="torch.distributed rendezvous")
+    dist.init_process_group(backend=_backend(), store=store,
+                            world_size=world, rank=rank, timeout=timeout)
+    import atexit
+    atexit.register(_leave_group)
+    _DIST["store"] = store
+    _DIST["client"] = _StoreKV(host, port, world, timeout.total_seconds())
+    _DIST["done"] = True
 
 
 _HB_STATE = {"thread": None, "stop": None}
@@ -330,12 +599,27 @@ def _stop_heartbeat():
     _HB_STATE["stop"] = None
 
 
+def _leave_group():
+    """At exit: stop the heartbeat, then leave the process group (NCCL's
+    communicators are freed before the interpreter tears down)."""
+    _stop_heartbeat()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def create(name="local"):
-    """String factory (parity: kvstore.cc:17-45, kvstore.py create)."""
+    """String factory (parity: kvstore.cc:17-45, kvstore.py create); a
+    ``dist_*`` store joins the launch's process group first and starts
+    the heartbeat."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     base = name.lower()
     if base not in _VALID_TYPES and not any(
             t in base for t in ("local", "device", "dist")):
         raise MXNetError("unknown KVStore type %r" % name)
+    if base.startswith("dist"):
+        _maybe_init_distributed()
+        if _dist_client() is not None:
+            _start_heartbeat(_dist_client(), _dist_world()[1])
     return KVStore(base)

@@ -285,14 +285,32 @@ def _host(value):
     return value
 
 
-def params_from_numpy(arg_params, aux_params=None, ctx=None):
+def params_from_numpy(arg_params, aux_params=None, ctx=None, mesh=None):
     """``(args, aux)``: ``{name: tensor}`` dicts on ``ctx``'s device
     (None: the current context) from ``{name: array}`` dicts of numpy
     arrays, NDArrays of either package or tensors, keeping each dtype
     (float64 becomes float32).  An ``arg:``/``aux:`` prefix, as a saved
     checkpoint's keys carry, is stripped.  The counterpart of
-    ``models.transformer.params_from_numpy`` for any graph."""
-    device = resolve(ctx)
+    ``models.transformer.params_from_numpy`` for any graph: how the JAX
+    package's parameters come into the port.  With ``mesh`` (a
+    ``parallel.make_mesh`` of several devices) each value is placed on
+    it replicated (a ``parallel.ShardedArray``, as
+    ``ShardedTrainer.init_params`` keeps parameters and aux states), so
+    a data-parallel run starts from the same weights as the JAX one."""
+    if mesh is not None and mesh.size > 1:
+        from .parallel.sharding import P, place
+
+        def convert(d):
+            out = {}
+            for name, value in (d or {}).items():
+                if name.startswith(("arg:", "aux:")):
+                    name = name[4:]
+                value = _host(value)
+                out[name] = place(value, mesh,
+                                  P(*([None] * len(value.shape))))
+            return out
+        return convert(arg_params), convert(aux_params)
+    device = resolve(ctx if mesh is None else mesh.contexts[0])
 
     def convert(d):
         out = {}

@@ -1,19 +1,25 @@
 """Module: symbol + executor group + optimizer.
 
 The port of ``mxnet_tpu/module/module.py`` (the reference's Module.bind
-:201, init_optimizer :275-338) on one context.  Two update routes, as
-there:
+:201, init_optimizer :275-338), on one context or several (the executor
+group's sharded or slicing mode, ``module/executor_group.py``).  Two
+update routes, as there:
 
 - with no kvstore (``kvstore=None``, or the string ``"local"`` on one
-  context), ``forward_backward`` runs the executor's ``fused_step``:
-  forward, backward and a leafwise ``update_fn`` in one call, and
-  ``update`` has nothing left to do (:meth:`Module._fused_step_ok`);
+  context), or a ``device`` store with a sharded group (whose backward
+  sums the gradients over its contexts: ``_kv_inline``),
+  ``forward_backward`` runs the executor's ``fused_step``: forward,
+  backward and a leafwise ``update_fn`` in one call, and ``update`` has
+  nothing left to do (:meth:`Module._fused_step_ok`);
 - with a KVStore object, the update runs on the store
-  (``update_on_kvstore``): gradients are pushed, the store's updater
-  (the optimizer's imperative ``update``) changes its weights, and the
-  weights are pulled back (``model._update_params_on_kvstore``).
+  (``update_on_kvstore``): gradients are pushed (summed over the
+  contexts, and over the workers of a ``dist_*`` store), the store's
+  updater (the optimizer's imperative ``update``) changes its weights,
+  and the weights are pulled back (``model._update_params_on_kvstore``).
 
-Neither route uses the fused optimizer sweep, in either package.
+``rescale_grad`` defaults to one over the global batch: the bound batch
+times the workers of a ``dist_*sync`` store.  Neither route uses the
+fused optimizer sweep, in either package.
 """
 from __future__ import annotations
 
@@ -69,6 +75,7 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._update_on_kvstore = None
+        self._kv_inline = False
         self._updater = None
         self._exec_group = None
         self._preload_opt_states = None
@@ -227,7 +234,30 @@ class Module(BaseModule):
         (kvstore, update_on_kvstore) = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
 
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        sharded = getattr(self._exec_group, "sharded", False)
+        # the group may have been bound before this store started the
+        # process group: its in-step sum would then miss the other
+        # workers, so it is refused here as at bind
+        if sharded and kvstore is not None and "dist" in kvstore.type \
+                and kvstore.num_workers > 1:
+            from .executor_group import multi_context_dist_error
+            raise multi_context_dist_error(len(self._context),
+                                           kvstore.num_workers)
+        # a sharded group with a device store: the gradients are summed
+        # over the contexts inside the step (the executor's backward);
+        # the store keeps the initial weights and carries no per-step
+        # traffic.  Unlike the JAX package's mesh, which spans every
+        # process, the port's group holds this process's contexts only,
+        # so a dist store (of one worker here) keeps its update route.
+        self._kv_inline = bool(
+            kvstore is not None and sharded and "device" in kvstore.type)
+        if self._kv_inline:
+            update_on_kvstore = False
+
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
 
         if isinstance(optimizer, str):
             idx2name = {}
@@ -279,6 +309,7 @@ class Module(BaseModule):
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._fused_holder = shared_module._fused_holder
+        self._kv_inline = getattr(shared_module, "_kv_inline", False)
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------------
@@ -299,7 +330,7 @@ class Module(BaseModule):
             return False
         return (self.optimizer_initialized
                 and not self._update_on_kvstore
-                and self._kvstore is None
+                and (self._kvstore is None or self._kv_inline)
                 and self._exec_group is not None
                 and len(self._exec_group.execs) == 1
                 and self._grad_req == "write"
@@ -343,11 +374,14 @@ class Module(BaseModule):
                                       self._exec_group.grad_arrays,
                                       self._kvstore)
         else:
+            # a sharded group's gradients are already summed over its
+            # contexts: through the store again they would count twice
             _update_params(self._exec_group.param_arrays,
                            self._exec_group.grad_arrays,
                            updater=self._updater,
                            num_device=len(self._exec_group.execs),
-                           kvstore=self._kvstore)
+                           kvstore=None if self._kv_inline
+                           else self._kvstore)
 
     def get_outputs(self, merge_multi_context=True):
         self._assert_binded()

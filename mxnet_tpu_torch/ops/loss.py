@@ -61,21 +61,34 @@ class _FirstOrderOnly(torch.autograd.Function):
 
 class _SoftmaxOutputFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, label, op):
+    def forward(ctx, data, label, op, denom=None):
         out = torch.softmax(data, dim=op._axis())
         ctx.save_for_backward(out, label)
-        ctx.op = op
+        ctx.op, ctx.denom = op, denom
         return out
 
     @staticmethod
     def backward(ctx, g):
         out, label = ctx.saved_tensors
-        grad = ctx.op._grad(out, label)
+        grad = ctx.op._grad(out, label, ctx.denom)
         if ctx.op.param.out_grad:
             grad = grad * g
         if torch.is_grad_enabled():     # create_graph: a second order
             grad = _FirstOrderOnly.apply(grad, out)
-        return grad, None, None
+        return grad, None, None, None
+
+
+def _replica_denoms(normalization, counts, rows, group):
+    """The normalizer of a loss head's gradient over a batch split across
+    replicas: the global batch (``"batch"``) or the global count of valid
+    entries (``"valid"``, ``counts`` each replica's, summed over the
+    replicas); None for ``"null"``."""
+    if normalization == "batch":
+        return [float(sum(rows) * group.num_processes)] * len(rows)
+    if normalization == "valid":
+        from ..parallel.collectives import all_reduce
+        return all_reduce(group, counts)
+    return None
 
 
 @register_op("SoftmaxOutput", aliases=("Softmax",))
@@ -84,6 +97,9 @@ class SoftmaxOutput(OperatorProperty):
     * grad_scale, with ``use_ignore``/``normalization``/``out_grad`` as
     in the reference.  ``multi_output`` takes the softmax over axis 1."""
     param_cls = _SoftmaxOutputParam
+    #: its backward is its own, whatever the head gradient (a replicated
+    #: input's gradient is then taken once, executor.build_program)
+    injects_grad = True
 
     def list_arguments(self):
         return ["data", "label"]
@@ -101,10 +117,30 @@ class SoftmaxOutput(OperatorProperty):
     def forward(self, inputs, aux, is_train, rng):
         return [_SoftmaxOutputFn.apply(inputs[0], inputs[1], self)], None
 
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """A batch split across replicas (``executor.build_program``'s
+        lockstep walk): ``normalization`` divides by the whole batch's
+        size or valid count, summed over the replicas."""
+        p = self.param
+        if p.normalization == "null":
+            return None
+        counts = [self._valid(i[1], i[0].dtype).sum() for i in ins] \
+            if p.normalization == "valid" else None
+        denoms = _replica_denoms(p.normalization, counts,
+                                 [i[0].shape[0] for i in ins], group)
+        return [[_SoftmaxOutputFn.apply(i[0], i[1], self, d)]
+                for i, d in zip(ins, denoms)], None, False
+
     def _axis(self):
         return 1 if self.param.multi_output else -1
 
-    def _grad(self, out, label):
+    def _valid(self, label, dtype):
+        p = self.param
+        if p.use_ignore:
+            return (label != p.ignore_label).to(dtype)
+        return torch.ones_like(label, dtype=dtype)
+
+    def _grad(self, out, label, denom=None):
         p = self.param
         axis = self._axis()
         grad = out - _onehot(label, out.shape[axis], axis, out.dtype)
@@ -116,7 +152,10 @@ class SoftmaxOutput(OperatorProperty):
             else:
                 grad = grad * valid.reshape(
                     tuple(valid.shape) + (1,) * (grad.dim() - valid.dim()))
-        if p.normalization == "batch":
+        if denom is not None:
+            grad = grad / (torch.clamp(denom, min=1.0)
+                           if isinstance(denom, torch.Tensor) else denom)
+        elif p.normalization == "batch":
             grad = grad / out.shape[0]
         elif p.normalization == "valid":
             grad = grad / torch.clamp(valid.sum(), min=1.0)
@@ -158,6 +197,7 @@ def _make_regression(op_name, fwd_fn, grad_fn):
         ``grad_fn(out, label) * grad_scale``, whatever the head
         gradient."""
         param_cls = _RegParam
+        injects_grad = True
 
         def list_arguments(self):
             return ["data", "label"]
@@ -201,19 +241,36 @@ class MakeLoss(OperatorProperty):
     batch or the count of values above ``valid_thresh`` when
     normalized."""
     param_cls = _MakeLossParam
+    injects_grad = True
 
-    def forward(self, inputs, aux, is_train, rng):
+    def forward(self, inputs, aux, is_train, rng, denom=None):
         p = self.param
 
         def bwd(data, out):
             grad = torch.full_like(data, p.grad_scale)
-            if p.normalization == "batch":
+            if denom is not None:
+                grad = grad / (torch.clamp(denom, min=1.0)
+                               if isinstance(denom, torch.Tensor) else denom)
+            elif p.normalization == "batch":
                 grad = grad / data.shape[0]
             elif p.normalization == "valid":
                 valid = (data > p.valid_thresh).to(data.dtype)
                 grad = grad / torch.clamp(valid.sum(), min=1.0)
             return grad
         return [_LossFn.apply(inputs[0], torch.clone, bwd, False)], None
+
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """``normalization`` over the whole batch of every replica, as
+        :meth:`SoftmaxOutput.forward_replicas`."""
+        p = self.param
+        if p.normalization == "null":
+            return None
+        counts = [(i[0].detach() > p.valid_thresh).to(i[0].dtype).sum()
+                  for i in ins] if p.normalization == "valid" else None
+        denoms = _replica_denoms(p.normalization, counts,
+                                 [i[0].shape[0] for i in ins], group)
+        return [self.forward(i, a, is_train, None, denom=d)[0]
+                for i, a, d in zip(ins, aux, denoms)], None, False
 
 
 class _SVMOutputParam(ParamStruct):
@@ -227,6 +284,7 @@ class SVMOutput(OperatorProperty):
     """svm_output-inl.h: fwd = identity; bwd = the hinge's gradient
     (squared by default, ``use_linear`` for L1)."""
     param_cls = _SVMOutputParam
+    injects_grad = True
 
     def list_arguments(self):
         return ["data", "label"]
@@ -266,6 +324,7 @@ class IdentityAttachKLSparseReg(OperatorProperty):
     the mean activation per channel (aux ``moving_avg``, updated in
     training) to the head gradient."""
     param_cls = _KLSparseParam
+    injects_grad = True
 
     def list_auxiliary_states(self):
         return ["moving_avg"]
@@ -275,12 +334,13 @@ class IdentityAttachKLSparseReg(OperatorProperty):
         d = in_shapes[0]
         return in_shapes, [d], [(d[1],)]
 
-    def forward(self, inputs, aux, is_train, rng):
+    def forward(self, inputs, aux, is_train, rng, avg=None):
         p = self.param
         x = inputs[0]
         with torch.no_grad():
-            avg = torch.mean(x, dim=tuple(i for i in range(x.dim())
-                                          if i != 1))
+            if avg is None:
+                avg = torch.mean(x, dim=tuple(i for i in range(x.dim())
+                                              if i != 1))
             new_avg = p.momentum * aux[0] + (1 - p.momentum) * avg
 
         def bwd(data, out, navg):
@@ -290,3 +350,15 @@ class IdentityAttachKLSparseReg(OperatorProperty):
                                 / (1.0 - a + 1e-8))
         out = _LossFn.apply(x, torch.clone, bwd, True, new_avg)
         return [out], ([new_avg] if is_train else None)
+
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """The mean activation over the whole batch of every replica."""
+        from ..parallel.collectives import all_reduce
+        dims = tuple(i for i in range(ins[0][0].dim()) if i != 1)
+        with torch.no_grad():
+            sums = all_reduce(group, [i[0].sum(dims) for i in ins])
+        count = sum(i[0].numel() // i[0].shape[1] for i in ins) \
+            * group.num_processes
+        got = [self.forward(i, a, is_train, None, avg=s / count)
+               for i, a, s in zip(ins, aux, sums)]
+        return [g[0] for g in got], [g[1] for g in got], False

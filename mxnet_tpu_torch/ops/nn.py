@@ -434,6 +434,122 @@ class BatchNorm(OperatorProperty):
             False, 0.0, p.eps)
         return [out], None
 
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """The lockstep walk's BatchNorm (``executor.build_program``): in
+        training, without ``use_global_stats``, the statistics of the
+        whole batch over every replica (:class:`_CrossReplicaBatchNorm`),
+        as the JAX package's dp-sharded step computes them; every replica
+        takes the same moving-statistics update.  Otherwise each replica
+        runs :meth:`forward` (None)."""
+        p = self.param
+        if not (is_train and not p.use_global_stats):
+            return None
+        n = len(ins)
+        xs = [i[0] for i in ins]
+        gammas = [torch.ones_like(i[1]).detach() if p.fix_gamma else i[1]
+                  for i in ins]
+        betas = [i[2] for i in ins]
+        got = _CrossReplicaBatchNorm.apply(group, p.eps, *xs, *gammas,
+                                           *betas)
+        outs, means, vars_ = got[:n], got[n:2 * n], got[2 * n:]
+        m = p.momentum
+        aux_updates = []
+        with torch.no_grad():
+            for (moving_mean, moving_var), mean, var in zip(aux, means,
+                                                            vars_):
+                aux_updates.append([m * moving_mean + (1 - m) * mean,
+                                    m * moving_var + (1 - m) * var])
+        return [[o] for o in outs], aux_updates, False
+
+
+def _channel_view(v, x):
+    return v.reshape((1, -1) + (1,) * (x.dim() - 2))
+
+
+class _CrossReplicaBatchNorm(torch.autograd.Function):
+    """BatchNorm over a batch split across replicas: ``apply(group, eps,
+    *xs, *gammas, *betas)`` (one each a replica) returns each replica's
+    output, then the batch mean and biased variance on every replica's
+    device.  Each replica takes its own mean and variance in one pass
+    (``torch.var_mean``); the batch's are their combination over the
+    replicas: one sum of each replica's count-weighted mean and second
+    moment (variance plus squared mean), in float64, two values a
+    channel; the statistics then in float32 for a float32 or narrower
+    input.  The output is ``(x - mean) * scale + beta`` with the
+    per-channel ``scale = gamma / sqrt(var + eps)``.  The backward sums
+    ``sum(dy)`` and ``sum(dy * (x - mean))`` over the replicas once and
+    gives each replica its share of the gamma and beta gradients (the
+    parameters' gradients are summed over the replicas after the
+    backward, as every replicated parameter's are)."""
+
+    @staticmethod
+    def forward(ctx, group, eps, *tensors):
+        from ..parallel.collectives import all_reduce
+        n = len(tensors) // 3
+        xs, gammas, betas = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
+        acc = torch.float64 if xs[0].dtype == torch.float64 \
+            else torch.float32
+        dims = [0] + list(range(2, xs[0].dim()))
+        rows = [x.numel() // x.shape[1] for x in xs]
+        count = sum(rows) * group.num_processes
+        local = [torch.var_mean(x.to(acc), dim=dims, correction=0)
+                 for x in xs]
+        # one sum over the replicas of each replica's count-weighted mean
+        # and second moment, in float64 (the moment's mean square is
+        # subtracted below, so its rounding must stay far below var's)
+        c = xs[0].shape[1]
+        sums = all_reduce(group, [
+            torch.cat([m.double() * r, (v.double() + torch.square(
+                m.double())) * r]) for (v, m), r in zip(local, rows)])
+        means = [s[:c] / count for s in sums]
+        vars_ = [(s[c:] / count - torch.square(mu)).clamp_(min=0).to(acc)
+                 for s, mu in zip(sums, means)]
+        means = [mu.to(acc) for mu in means]
+        invstds = [torch.rsqrt(v + eps) for v in vars_]
+        outs = []
+        for x, mu, inv, g, b in zip(xs, means, invstds, gammas, betas):
+            outs.append(torch.addcmul(
+                _channel_view(b.to(acc), x), x.to(acc) - _channel_view(mu, x),
+                _channel_view(g.to(acc) * inv, x)).to(x.dtype))
+        ctx.group, ctx.count = group, count
+        ctx.save_for_backward(*xs, *gammas, *means, *invstds)
+        stats = [m.to(x.dtype) for m, x in zip(means, xs)] \
+            + [v.to(x.dtype) for v, x in zip(vars_, xs)]
+        ctx.mark_non_differentiable(*stats)
+        return tuple(outs) + tuple(stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from ..parallel.collectives import all_reduce
+        saved = ctx.saved_tensors
+        n = len(saved) // 4
+        xs, gammas = saved[:n], saved[n:2 * n]
+        means, invstds = saved[2 * n:3 * n], saved[3 * n:]
+        acc = means[0].dtype
+        dims = [0] + list(range(2, xs[0].dim()))
+        xmus, dys, local = [], [], []
+        for x, mu, dy in zip(xs, means, grads[:n]):
+            xmu = x.to(acc) - _channel_view(mu, x)
+            dy = dy.to(acc)
+            xmus.append(xmu)
+            dys.append(dy)
+            local.append(torch.cat([dy.sum(dims), (dy * xmu).sum(dims)]))
+        total = all_reduce(ctx.group, local)
+        c = xs[0].shape[1]
+        dxs, dgammas, dbetas = [], [], []
+        for x, g, inv, dy, xmu, tot, loc in zip(xs, gammas, invstds, dys,
+                                                xmus, total, local):
+            sdy, sdyxmu = tot[:c] / ctx.count, tot[c:] / ctx.count
+            a = g.to(acc) * inv
+            dx = torch.addcmul(
+                torch.addcmul(_channel_view(-a * sdy, x), xmu,
+                              _channel_view(-a * inv * inv * sdyxmu, x)),
+                dy, _channel_view(a, x))
+            dxs.append(dx.to(x.dtype))
+            dgammas.append((loc[c:] * inv).to(g.dtype))
+            dbetas.append(loc[:c].to(g.dtype))
+        return (None, None) + tuple(dxs) + tuple(dgammas) + tuple(dbetas)
+
 
 # ----------------------------------------------------------------------
 # Dropout / ElementWiseSum

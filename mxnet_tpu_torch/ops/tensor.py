@@ -205,8 +205,67 @@ def _make_reduce(op_name, fn, aliases=()):
                 out = out.reshape((1,))
             return [out], None
 
+        def forward_replicas(self, ins, aux, is_train, rngs, group):
+            """Over the batch axis of a batch split across replicas: the
+            reduction of every replica's rows, the same on each
+            (:func:`_reduce_over_replicas`)."""
+            p = self.param
+            nd = ins[0][0].dim()
+            if p.axis is not None and 0 not in {a % nd for a in p.axis}:
+                return None
+            outs = _reduce_over_replicas(
+                op_name, [self.forward(i, None, is_train, None)[0][0]
+                          if op_name == "sum" else i[0] for i in ins],
+                p.axis, p.keepdims, group, self)
+            return [[o] for o in outs], None, True
+
     _Reduce.__name__ = "Op" + op_name
     return _Reduce
+
+
+class _ReplicaChooser(torch.autograd.Function):
+    """The max (or min) over every replica's rows, the reduced axes kept:
+    ``apply(group, op_name, axes, *xs)``.  The backward gives the
+    replicas' summed gradient to the positions equal to the result,
+    split evenly over all of them on every replica (``jnp.max``'s
+    rule)."""
+
+    @staticmethod
+    def forward(ctx, group, op_name, axes, *xs):
+        from ..parallel.collectives import all_gather, all_reduce
+        fn = torch.amax if op_name == "max" else torch.amin
+        locs = [fn(x, dim=axes, keepdim=True) for x in xs]
+        shape = (group.world,) + tuple(locs[0].shape)
+        best = [fn(g.reshape(shape), dim=0) for g in
+                all_gather(group, [l.reshape(-1) for l in locs])]
+        masks = [(x == b).to(x.dtype) for x, b in zip(xs, best)]
+        ctx.group, ctx.masks = group, masks
+        ctx.counts = all_reduce(group, [torch.sum(m, dim=axes, keepdim=True)
+                                        for m in masks])
+        return tuple(best)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from ..parallel.collectives import all_reduce
+        total = all_reduce(ctx.group, [g.contiguous() for g in gs])
+        return (None, None, None) + tuple(
+            m * (t / c) for m, t, c in zip(ctx.masks, total, ctx.counts))
+
+
+def _reduce_over_replicas(op_name, xs, axis, keepdims, group, op):
+    """``sum``/``max``/``min`` over ``axis`` (0 among them, or all) of a
+    batch split across replicas.  ``sum`` is each replica's own sum
+    (``xs``) summed over the replicas; the chooser reduces with the axes
+    kept, then drops them as the op does."""
+    from ..parallel.collectives import all_reduce_autograd
+    if op_name == "sum":
+        return all_reduce_autograd(group, xs)
+    nd = xs[0].dim()
+    axes = tuple(range(nd)) if axis is None else \
+        tuple(sorted({a % nd for a in axis}))
+    kept = _ReplicaChooser.apply(group, op_name, axes, *xs)
+    want = _reduced_shape(tuple(xs[0].shape), axis, keepdims)
+    return [k.reshape(want) for k in kept]
 
 
 _make_reduce("sum", _sum, aliases=("sum_axis",))
@@ -330,6 +389,15 @@ class Norm(OperatorProperty):
     def forward(self, inputs, aux, is_train, rng):
         norm = torch.sqrt(torch.sum(torch.square(inputs[0])))
         return [norm.reshape((1,))], None
+
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """Over every replica's rows: the squares summed over the
+        replicas, then the root."""
+        from ..parallel.collectives import all_reduce_autograd
+        sums = all_reduce_autograd(
+            group, [torch.sum(torch.square(i[0])).reshape((1,))
+                    for i in ins])
+        return [[torch.sqrt(s)] for s in sums], None, True
 
 
 @register_op("argmax_channel")
@@ -528,6 +596,12 @@ class SoftmaxCrossEntropy(OperatorProperty):
         lab = label.detach().to(torch.int64)
         nll = -torch.gather(logp, -1, lab[:, None])
         return [torch.sum(nll).reshape((1,))], None
+
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """Summed over every replica's rows."""
+        from ..parallel.collectives import all_reduce_autograd
+        local = [self.forward(i, None, is_train, None)[0][0] for i in ins]
+        return [[s] for s in all_reduce_autograd(group, local)], None, True
 
 
 # ----------------------------------------------------------------------

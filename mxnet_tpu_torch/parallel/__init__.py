@@ -1,17 +1,29 @@
 """parallel: training on a device mesh.
 
-The port's slice of ``mxnet_tpu/parallel``: a mesh of one GPU
-(:func:`make_mesh`), :class:`ShardedTrainer` on it, the flash-attention
-function of training (``ring_attention``), and the bucket planner of the
-fused optimizer sweep (``overlap``).  Meshes of several GPUs, ring
-attention, ZeRO/FSDP and pipelines come with the multi-GPU slice.
+The port of ``mxnet_tpu/parallel``: meshes of one or several devices
+(:func:`make_mesh`, :func:`auto_mesh`; data parallelism, over the GPUs
+of a process and the processes of a ``torch.distributed`` group), the
+sharding policy and arrays placed on a mesh (``sharding``), the
+collectives between replicas (``collectives``), :class:`ShardedTrainer`
+(dp, ZeRO-1), the flash-attention function of training
+(``ring_attention``), and the bucket planners of the gradient reduction
+and the fused optimizer sweep (``overlap``).  Tensor, sequence and
+pipeline parallelism, FSDP, MoE and ``ShardedPredictor`` come with later
+multi-GPU slices (ROADMAP.md queue 1 item 3).
 """
-from .mesh import Mesh, make_mesh                      # noqa: F401
-from .overlap import partition_buckets                 # noqa: F401
+from .mesh import (Mesh, make_mesh, auto_mesh, local_device_count,  # noqa: F401
+                   LogicalMesh, remesh)
+from .sharding import (ShardingRules, ShardedArray, param_pspec,  # noqa: F401
+                       batch_pspec, named_pspecs, parse_sharding)
+from .overlap import (partition_buckets, bucket_bytes,  # noqa: F401
+                      interleave_grad_buckets)
 from .ring_attention import (attention_reference, flash_attention,  # noqa: F401
                              sharded_self_attention, sequence_parallel)
 from .trainer import ShardedTrainer                    # noqa: F401
 
-__all__ = ["Mesh", "make_mesh", "partition_buckets",
+__all__ = ["Mesh", "make_mesh", "auto_mesh", "local_device_count",
+           "LogicalMesh", "remesh", "ShardingRules", "ShardedArray",
+           "param_pspec", "batch_pspec", "named_pspecs", "parse_sharding",
+           "partition_buckets", "bucket_bytes", "interleave_grad_buckets",
            "attention_reference", "flash_attention", "sharded_self_attention",
            "sequence_parallel", "ShardedTrainer"]

@@ -1,0 +1,280 @@
+"""Collectives over the replicas of a data-parallel step.
+
+The port's counterpart of the JAX package's in-step psum (XLA inserts it
+where a dp-sharded step sums over the mesh) and of
+``kvstore._collective_sum`` (``mxnet_tpu/kvstore.py:708``, the
+cross-process sum).  A :class:`ReplicaGroup` is either
+several local replicas of one process, each on a ``torch.device``
+(several may share one), or one replica in each process of a
+``torch.distributed`` group; several cards per process within such a
+group are not ported (ROADMAP.md queue 1 item 3 (g)).  The collectives
+take one tensor for each local replica and return one for each, by one
+of three routes:
+
+- replicas that share a device sum with plain adds there, in replica
+  order (the CPU tests' path, and the one-card run's);
+- replicas on distinct cards of one process sum with NCCL through
+  ``torch.cuda.nccl`` (``all_reduce``, ``reduce_scatter``,
+  ``all_gather``, ``broadcast`` over a list of per-device tensors);
+- one replica a process sums over the default ``torch.distributed``
+  group: NCCL for CUDA tensors, gloo for CPU tensors.
+
+An NCCL call that fails raises; nothing continues through host copies
+or gloo.  The JAX package also carries an allreduce through its
+coordination service's key-value store (``mxnet_tpu/kvstore.py:295-336``),
+because multi-process CPU JAX cannot build cross-process programs; gloo
+can, so the port has no such path.
+
+Every collective runs under an ``observability.spans`` span of its name
+and route.  :func:`all_reduce_autograd` is the
+sum as an autograd function (its backward is the same sum of the
+replicas' gradients), for the ops that reduce over the batch axis.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from ..base import MXNetError
+from ..observability import spans as _spans
+
+__all__ = ["ReplicaGroup", "all_reduce", "reduce_scatter", "all_gather",
+           "broadcast", "all_reduce_autograd"]
+
+#: one NCCL call at a time: each launches on every device's stream, so
+#: calls from the autograd engine's device threads keep one order
+_LOCK = threading.RLock()
+
+
+class ReplicaGroup:
+    """The local replicas' devices (in replica order) and the number of
+    processes: several replicas in one process, or one in each of
+    ``num_processes`` (global replica ``p`` is process ``p``'s)."""
+
+    def __init__(self, devices, num_processes=1):
+        self.devices = [torch.device(d) for d in devices]
+        self.n = len(self.devices)
+        self.num_processes = int(num_processes)
+        if self.n > 1 and self.num_processes > 1:
+            raise MXNetError(
+                "ReplicaGroup: %d replicas in each of %d processes: "
+                "several cards per process within a dist group are not "
+                "ported yet (ROADMAP.md queue 1 item 3 (g)); launch one "
+                "process per card" % (self.n, self.num_processes))
+        self.world = self.n * self.num_processes
+        self.distinct = []
+        self.replicas_of = {}
+        for r, d in enumerate(self.devices):
+            if d not in self.replicas_of:
+                self.distinct.append(d)
+                self.replicas_of[d] = []
+            self.replicas_of[d].append(r)
+        self.nccl = len(self.distinct) > 1
+        if self.nccl and any(d.type != "cuda" for d in self.distinct):
+            raise MXNetError("ReplicaGroup: replicas on %s: several "
+                             "devices must all be CUDA devices"
+                             % self.distinct)
+
+    @property
+    def trivial(self):
+        return self.world == 1
+
+    def rank(self):
+        if self.num_processes == 1:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank()
+
+    def route(self):
+        """``"local"`` (one device), ``"nccl"`` (cards of one process) or
+        ``"dist"`` (one replica a process)."""
+        if self.num_processes > 1:
+            return "dist"
+        return "nccl" if self.nccl else "local"
+
+    def __repr__(self):
+        return "ReplicaGroup(%s x %d processes)" % (self.devices,
+                                                   self.num_processes)
+
+
+def _check(group, tensors, what):
+    if len(tensors) != group.n:
+        raise MXNetError("%s: %d tensors for %d replicas"
+                         % (what, len(tensors), group.n))
+    for t, d in zip(tensors, group.devices):
+        if t.device != d:
+            raise MXNetError("%s: a tensor on %s for the replica on %s"
+                             % (what, t.device, d))
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _per_device_sums(group, tensors):
+    """One sum for each distinct device (its replicas added in order),
+    fresh tensors (NCCL writes them in place)."""
+    out = []
+    for d in group.distinct:
+        idx = group.replicas_of[d]
+        acc = tensors[idx[0]].clone()
+        for r in idx[1:]:
+            acc += tensors[r]
+        out.append(acc.contiguous())
+    return out
+
+
+def _spread(group, per_device):
+    """One tensor for each replica from one for each distinct device: the
+    first replica of a device takes it, the others a copy."""
+    out = [None] * group.n
+    for d, t in zip(group.distinct, per_device):
+        idx = group.replicas_of[d]
+        out[idx[0]] = t
+        for r in idx[1:]:
+            out[r] = t.clone()
+    return out
+
+
+def all_reduce(group, tensors):
+    """The sum over every replica of every process, one copy for each
+    local replica."""
+    _check(group, tensors, "all_reduce")
+    with _spans.span("allreduce", route=group.route()):
+        if group.trivial:
+            return [tensors[0]]
+        sums = _per_device_sums(group, tensors)
+        if group.num_processes > 1:
+            with _LOCK:
+                _dist().all_reduce(sums[0])
+            return sums
+        if group.nccl:
+            with _LOCK:
+                torch.cuda.nccl.all_reduce(sums)
+        return _spread(group, sums)
+
+
+def reduce_scatter(group, tensors):
+    """The sum over every replica of flat tensors whose length divides
+    by the world size; global replica ``i`` gets part ``i`` of it."""
+    _check(group, tensors, "reduce_scatter")
+    n = tensors[0].numel()
+    if n % group.world:
+        raise MXNetError("reduce_scatter: %d elements do not divide over "
+                         "%d replicas" % (n, group.world))
+    part = n // group.world
+    with _spans.span("reduce_scatter", route=group.route()):
+        if group.trivial:
+            return [tensors[0]]
+        if group.num_processes > 1 and tensors[0].is_cuda:
+            out = torch.empty(part, dtype=tensors[0].dtype,
+                              device=tensors[0].device)
+            with _LOCK:
+                _dist().reduce_scatter_tensor(out, tensors[0].contiguous())
+            return [out]
+        if group.nccl and len(group.distinct) == group.n:
+            outs = [torch.empty(part, dtype=t.dtype, device=t.device)
+                    for t in tensors]
+            with _LOCK:
+                torch.cuda.nccl.reduce_scatter(
+                    [t.contiguous() for t in tensors], outs)
+            return outs
+        # one device, gloo, or replicas sharing cards: the sum, cut
+        # (global replica group.rank() * group.n + r is local replica r)
+        base = group.rank() * group.n
+        total = all_reduce(group, tensors)
+        return [t.narrow(0, (base + r) * part, part)
+                for r, t in enumerate(total)]
+
+
+def all_gather(group, tensors):
+    """Every replica's flat tensor, concatenated in global replica order,
+    on every local replica's device."""
+    _check(group, tensors, "all_gather")
+    part = tensors[0].numel()
+    with _spans.span("all_gather", route=group.route()):
+        if group.trivial:
+            return [tensors[0]]
+        if group.num_processes > 1:
+            dist = _dist()
+            t = tensors[0].contiguous()
+            with _LOCK:
+                if t.is_cuda:
+                    out = torch.empty(part * group.world, dtype=t.dtype,
+                                      device=t.device)
+                    dist.all_gather_into_tensor(out, t)
+                else:
+                    parts = [torch.empty_like(t)
+                             for _ in range(group.world)]
+                    dist.all_gather(parts, t)
+                    out = torch.cat(parts)
+            return [out]
+        if not group.nccl:
+            whole = torch.cat([t.reshape(-1) for t in tensors])
+            return [whole] + [whole.clone() for _ in range(group.n - 1)]
+        if len(group.distinct) == group.n:
+            outs = [torch.empty(part * group.n, dtype=t.dtype,
+                                device=t.device) for t in tensors]
+            with _LOCK:
+                torch.cuda.nccl.all_gather(
+                    [t.contiguous() for t in tensors], outs)
+            return outs
+        raise MXNetError("all_gather: replicas sharing cards of several "
+                         "(%s) are not supported; give each replica its "
+                         "own card, or every replica one card"
+                         % group.distinct)
+
+
+def broadcast(group, tensors, root=0):
+    """Global replica ``root``'s tensor, copied into every local
+    replica's (in place); returns the tensors."""
+    _check(group, tensors, "broadcast")
+    with _spans.span("broadcast", route=group.route()):
+        if group.trivial:
+            return tensors
+        if group.num_processes > 1:
+            with _LOCK:
+                _dist().broadcast(tensors[0], src=root)
+            return tensors
+        src = tensors[root]
+        with _LOCK:
+            if group.nccl:
+                heads = [tensors[group.replicas_of[d][0]]
+                         for d in group.distinct]
+                heads[group.distinct.index(src.device)] = src
+                torch.cuda.nccl.broadcast(
+                    heads, root=group.distinct.index(src.device))
+                for d, h in zip(group.distinct, heads):
+                    for r in group.replicas_of[d]:
+                        if tensors[r] is not h:
+                            tensors[r].copy_(h)
+            else:
+                for t in tensors:
+                    if t is not src:
+                        t.copy_(src)
+        return tensors
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the replicas, each replica's output a copy; the
+    backward sums the replicas' gradients the same way (each replica's
+    share of a replicated value's gradient adds up to its whole)."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(all_reduce(group, [x.detach() for x in xs]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + tuple(all_reduce(ctx.group, [g.contiguous()
+                                                       for g in gs]))
+
+
+def all_reduce_autograd(group, tensors):
+    """:func:`all_reduce` under autograd (see :class:`_AllReduceSum`)."""
+    if group.trivial:
+        return list(tensors)
+    return list(_AllReduceSum.apply(group, *tensors))

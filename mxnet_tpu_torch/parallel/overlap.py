@@ -22,14 +22,21 @@ Copies from ``mxnet_tpu/parallel/overlap.py``:
   :func:`compile_cache_stats`) that the executor's program registry
   feeds.  In the port a "lowering" is one ``build_program``: a registry
   miss;
-- ``partition_buckets`` and ``_nbytes`` (``_nbytes`` here also reads
-  torch tensors).  The rest of that module (gradient-bucket barriers
-  and their ``MXTPU_BUCKET_MB`` target, the persistent XLA cache)
-  belongs to the multi-GPU slice, so the target is always given here.
+- gradient buckets: :func:`bucket_bytes` (``MXTPU_BUCKET_MB``),
+  :func:`partition_buckets`, :func:`interleave_grad_buckets` and
+  ``_nbytes`` (which also reads torch tensors).  The JAX package chains
+  optimization barriers through a traced step's gradients so that XLA
+  reduces each bucket over the mesh as soon as its gradients exist; the
+  port does it eagerly: :class:`GradBuckets` hooks every replica's
+  parameter leaves and reduces a bucket (``parallel/collectives.py``) in
+  the autograd hook of its last gradient, on each device's current
+  stream, while the backward goes on.  The persistent XLA cache has no
+  counterpart.
 """
 from __future__ import annotations
 
 import atexit
+import functools
 import hashlib
 import os
 import queue as _queue
@@ -39,7 +46,8 @@ import numpy as _np
 import torch
 
 __all__ = ["DevicePrefetcher", "HostToDevice", "prefetch_enabled",
-           "prefetch_depth", "partition_buckets", "AsyncLauncher",
+           "prefetch_depth", "partition_buckets", "bucket_bytes",
+           "interleave_grad_buckets", "GradBuckets", "AsyncLauncher",
            "cache_key", "graph_fingerprint", "note_lowering", "note_hit",
            "compile_cache_stats", "compile_cache_clear"]
 
@@ -506,14 +514,30 @@ def compile_cache_clear():
             _STATS[k] = 0
 
 
-def partition_buckets(sized_items, bucket_nbytes):
+def bucket_bytes(explicit_mb=None):
+    """Gradient-bucket size target in bytes (``MXTPU_BUCKET_MB``,
+    default 25 MB); 0 disables bucketing."""
+    if explicit_mb is None:
+        try:
+            explicit_mb = float(os.environ.get("MXTPU_BUCKET_MB", "25"))
+        except ValueError:
+            explicit_mb = 25.0
+    if explicit_mb <= 0:
+        return 0
+    return int(explicit_mb * (1 << 20))
+
+
+def partition_buckets(sized_items, bucket_nbytes=None):
     """Greedy size-targeted partition of ``[(key, nbytes), ...]`` into
     ``[[key, ...], ...]`` buckets, preserving input order.
 
     Every key lands in exactly one bucket; a single item larger than
     the target gets its own bucket.  ``bucket_nbytes`` of 0 means
-    bucketing is off: everything lands in one all-covering bucket."""
+    bucketing is off: everything lands in one all-covering bucket;
+    None means :func:`bucket_bytes`."""
     items = list(sized_items)
+    if bucket_nbytes is None:
+        bucket_nbytes = bucket_bytes()
     if not items:
         return []
     if bucket_nbytes <= 0:
@@ -541,3 +565,87 @@ def _nbytes(x):
             int(_np.dtype(x.dtype).itemsize)
     except Exception:
         return 0
+
+
+def interleave_grad_buckets(named_grads, order=None, bucket_nbytes=None):
+    """The reduction plan of a backward's gradients: ``named_grads``
+    (name -> tensor, argument order) partitioned in production order
+    (``order``, default the reverse of the arguments: the backward emits
+    the last layer's gradients first) into buckets of about
+    :func:`bucket_bytes`.  Returns ``[[name, ...], ...]`` in the order
+    the backward finishes them (:class:`GradBuckets` reduces them so);
+    one bucket of every name when bucketing is off.  The JAX function
+    returns the gradients tied by barriers in this plan's order."""
+    if order is None:
+        order = list(reversed(list(named_grads)))
+    sized = [(k, _nbytes(named_grads[k])) for k in order if k in named_grads]
+    buckets = partition_buckets(sized, bucket_nbytes)
+    from ..observability import events as _events
+    sizes = dict(sized)
+    _events.emit("counter", name="grad_buckets", n_buckets=len(buckets),
+                 bucket_nbytes=[sum(sizes[k] for k in b) for b in buckets],
+                 bucket_keys=[len(b) for b in buckets])
+    return buckets
+
+
+class GradBuckets(object):
+    """Reduce the gradients of several replicas' leaves bucket by bucket
+    as one backward produces them.
+
+    ``leaves[r]``: name -> leaf tensor of replica r (``requires_grad``);
+    ``plan``: :func:`interleave_grad_buckets`' buckets; ``reduce(names,
+    grads)`` reduces one bucket (``grads[r]``: name -> gradient of
+    replica r) and returns its result, kept by bucket.  A post-accumulate
+    hook on each leaf counts its bucket down and runs ``reduce`` when
+    the bucket's last gradient of the last replica arrives (on the
+    thread of the device whose gradient came last; the collectives keep
+    one order across devices).  :meth:`finish`, after the backward,
+    reduces any bucket still open (a leaf the heads do not reach gives
+    zeros, as ``torch.autograd.grad`` with ``allow_unused`` does here),
+    drops the hooks and the leaves' ``.grad`` and returns ``[result of
+    bucket 0, ...]``."""
+
+    def __init__(self, leaves, plan, reduce):
+        self.leaves = leaves
+        self.plan = [list(b) for b in plan]
+        self.reduce = reduce
+        self.results = [None] * len(self.plan)
+        self._left = [len(b) * len(leaves) for b in self.plan]
+        self._bucket_of = {n: i for i, b in enumerate(self.plan) for n in b}
+        self._lock = threading.Lock()
+        self._handles = []
+        for r, named in enumerate(leaves):
+            for name, leaf in named.items():
+                if name in self._bucket_of:
+                    self._handles.append(leaf.register_post_accumulate_grad_hook(
+                        functools.partial(self._arrived, name)))
+
+    def _arrived(self, name, _leaf):
+        i = self._bucket_of[name]
+        with self._lock:
+            self._left[i] -= 1
+            ready = self._left[i] == 0
+        if ready:
+            self._run(i)
+
+    def _run(self, i):
+        names = self.plan[i]
+        grads = []
+        for named in self.leaves:
+            got = {}
+            for n in names:
+                g = named[n].grad
+                got[n] = g if g is not None else torch.zeros_like(named[n])
+                named[n].grad = None
+            grads.append(got)
+        self.results[i] = self.reduce(names, grads)
+        self._left[i] = -1
+
+    def finish(self):
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+        for i, left in enumerate(self._left):
+            if left >= 0:
+                self._run(i)
+        return self.results

@@ -1,18 +1,39 @@
-"""ShardedTrainer: one training step of a Symbol on one GPU.
+"""ShardedTrainer: one training step of a Symbol on a device mesh.
 
-The port's slice of ``mxnet_tpu/parallel/trainer.py``.  The JAX trainer
+The port of ``mxnet_tpu/parallel/trainer.py``.  The JAX trainer
 compiles forward, backward, gradient reduction and the optimizer update
 into one jitted program over a device mesh; the port runs the same step
-eagerly on the one device of its mesh:
+eagerly:
 
 1. the graph walk (``executor.build_program``) with autograd on, the
    parameters cast to ``compute_dtype`` (Embedding ids and labels
    exempt: bfloat16 holds integers exactly only up to 256);
-2. ``torch.autograd.grad`` of the outputs with ones as head gradients
-   (the loss heads ignore them, as in the reference);
+2. the backward of the outputs with ones as head gradients (the loss
+   heads ignore them, as in the reference);
 3. the optimizer update: leafwise ``_preprocess_grad`` + ``update_fn``,
    or the fused sweep (``MXTPU_FUSED_OPT``: ``'1'`` plain, ``'kernel'``
    the CUDA sweep of ``kernels/fused_opt.py``), bitwise equal.
+
+On a mesh of one device the arrays are plain tensors.  On a ``dp`` mesh
+of several (:func:`~.mesh.make_mesh`) they are
+:class:`~.sharding.ShardedArray`s: parameters, aux states and (without
+``zero1``) the optimizer state replicated, one copy a replica, and the
+batch split over the replicas on axis 0 (:meth:`shard_batch`; in a
+process group each process passes its own part).  The step is then the
+lockstep walk of ``Program.trace_replicas`` (every node on every
+replica before the next; BatchNorm and the other batch reductions
+reduce across the replicas), one ``torch.autograd.backward`` over every
+replica's heads, the gradients summed over the replicas bucket by
+bucket as the backward finishes each (``overlap.GradBuckets``,
+``MXTPU_BUCKET_MB``), and each replica's update (its own sweep).  It
+equals the one-device step on the global batch, up to the order of the
+sums.  ``zero1=True`` keeps each leaf's optimizer state split on axis 0
+over dp where that axis divides, else whole on every replica
+(:meth:`opt_state_sharding`, the JAX placement): each bucket is laid out
+by device so that one reduce-scatter hands each device its slices, the
+update runs once a device over one flat vector of its slices (the CUDA
+sweep in kernel mode), and the new weights are all-gathered.  ZeRO-1
+slices the update, so it takes elementwise optimizers only.
 
 Batches come from :meth:`ShardedTrainer.shard_batch`, or from
 :meth:`ShardedTrainer.prefetch_feed`, the async device feed
@@ -20,16 +41,18 @@ Batches come from :meth:`ShardedTrainer.shard_batch`, or from
 device as uint8 and is widened there to the parameters' dtype (float32;
 ``compute_dtype`` when one is set).
 
-``remat=True`` recomputes the whole forward in the backward: the walk
-runs under one ``torch.utils.checkpoint`` (the JAX trainer wraps its
-trace in one ``jax.checkpoint``), and the update after it is the same.
-``zero1``, ``fsdp``, ``seq_axis`` (ring attention), the in-step
-sentinel, the step watchdog and the checkpoint methods belong to later
-slices and raise; none is ignored.  With no ``ctx`` and no mesh,
-the trainer runs on the current context (``gpu(0)`` outside a ``with``
-scope).
+``remat=True`` recomputes the whole forward in the backward (one
+device): the walk runs under one ``torch.utils.checkpoint`` (the JAX
+trainer wraps its trace in one ``jax.checkpoint``).  ``fsdp``,
+``seq_axis`` (ring attention), ``rules`` that shard a parameter,
+``remat`` on several devices, the in-step sentinel, the step watchdog
+and the checkpoint methods belong to later slices and raise; none is
+ignored.  With no ``ctx`` and no mesh, the trainer runs on the current
+context (``gpu(0)`` outside a ``with`` scope).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,12 +62,41 @@ from ..kernels.common import env_flag
 
 __all__ = ["ShardedTrainer"]
 
-_MULTI_GPU = "the multi-GPU training slice"
+_MULTI_GPU = "a later multi-GPU slice (ROADMAP.md queue 1 item 3)"
 
 
 def _not_ported(what, slice_name):
     return MXNetError("ShardedTrainer: %s is not ported yet; it comes with "
                       "%s" % (what, slice_name))
+
+
+def _state_leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return list(state)
+    return [state]
+
+
+def _state_map(fn, state):
+    """``fn`` over an optimizer state's leaves (None, one, or a tuple)."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return tuple(fn(a) for a in state)
+    return fn(state)
+
+
+def _state_zip(placed, per_replica, mesh):
+    """A placed state rebuilt from each replica's new leaves."""
+    from .sharding import ShardedArray
+    if placed is None:
+        return None
+    leaves = _state_leaves(placed)
+    new = [_state_leaves(s) for s in per_replica]
+    out = [ShardedArray([nr[i] for nr in new], mesh, leaf.sharding.spec,
+                        leaf.shape) for i, leaf in enumerate(leaves)]
+    return tuple(out) if isinstance(placed, (tuple, list)) else out[0]
 
 
 def _compute_dtype(dtype):
@@ -92,18 +144,21 @@ def _remat(trace):
 
 
 class ShardedTrainer:
-    """Train a Symbol's loss graph on one device.
+    """Train a Symbol's loss graph on one device or a dp mesh.
 
     Parameters
     ----------
     symbol : Symbol with loss head(s) (e.g. SoftmaxOutput).
     optimizer : ``mxnet_tpu_torch.optimizer.Optimizer``.
-    mesh : a one-device mesh from ``parallel.make_mesh``, or None.
+    mesh : a mesh from ``parallel.make_mesh`` (data parallelism over its
+        ``dp`` axis), or None.
     data_names / label_names : input argument names.
     compute_dtype : dtype of the forward and backward (params, opt state
         and aux stay in their own dtype; gradients arrive in it).
     ctx : the device (a context, a ``torch.device`` or a string); None
-        means the mesh's device, else the current context.
+        means the mesh's first device, else the current context.
+    zero1 : on a dp mesh, split each leaf's optimizer state over dp
+        (:meth:`opt_state_sharding`).
 
     :meth:`step` updates ``params``, ``opt_state`` and ``aux`` IN PLACE:
     it replaces the entries of the dicts it is given (with the fused
@@ -117,8 +172,6 @@ class ShardedTrainer:
                  cast_exempt=(), zero1=False, fsdp=False, sentinel=None,
                  loss_scale_init=2.0 ** 15, loss_scale_growth=200,
                  step_timeout_s=None, ctx=None):
-        if zero1:
-            raise _not_ported("zero1 (sharded optimizer state)", _MULTI_GPU)
         if fsdp:
             raise _not_ported("fsdp (sharded parameters)", _MULTI_GPU)
         if seq_axis is not None:
@@ -133,8 +186,10 @@ class ShardedTrainer:
                                                                    "0"):
             raise _not_ported("the step watchdog (step_timeout_s or "
                               "MXTPU_STEP_TIMEOUT_S)", "the resilience slice")
-        if mesh is not None and mesh.size != 1:
-            raise _not_ported("a mesh of %d devices" % mesh.size, _MULTI_GPU)
+        self.dp = mesh.shape.get("dp", 1) if mesh is not None else 1
+        if self.dp > 1 and remat:
+            raise _not_ported("remat=True on a mesh of several devices",
+                              _MULTI_GPU)
         if ctx is not None:
             self.device = resolve(ctx)
             if mesh is not None and mesh.device != self.device:
@@ -150,8 +205,14 @@ class ShardedTrainer:
         self.mesh = mesh
         self.data_names = tuple(data_names)
         self.label_names = tuple(label_names)
-        self.rules = rules      # no effect: a one-device mesh places all on it
+        self.rules = rules
+        self.seq_axis = seq_axis
         self.compute_dtype = _compute_dtype(compute_dtype)
+        self.zero1 = bool(zero1) and self.dp > 1
+        if self.mesh is None:
+            from .mesh import Mesh
+            self.mesh = Mesh([self.device], ("dp",), [1])
+        self.group = self.mesh.replica_group() if self.dp > 1 else None
 
         from ..kernels import fused_opt as _fused
         self._fused_mod = _fused
@@ -159,6 +220,11 @@ class ShardedTrainer:
             if _fused.supports_fused(optimizer) else ""
         if self._fused_opt == "kernel":
             _fused.sweep_body(optimizer)    # raises when it has no body
+        if self.zero1 and not _fused.supports_fused(optimizer):
+            raise MXNetError(
+                "ShardedTrainer(zero1=True): %s is not elementwise; ZeRO-1 "
+                "updates each device's slices of a leaf apart"
+                % type(optimizer).__name__)
 
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
@@ -167,6 +233,7 @@ class ShardedTrainer:
                             and n not in self.label_names]
         from ..executor import build_program
         program = build_program(symbol)
+        self._trace_replicas = program.trace_replicas
         self.remat = bool(remat)
         self._trace = _remat(program.trace) if self.remat else program.trace
         self._needs_rng = program.needs_rng
@@ -214,34 +281,101 @@ class ShardedTrainer:
         return out
 
     # ------------------------------------------------------------------
+    # shardings
+    # ------------------------------------------------------------------
+    def param_sharding(self, name, shape):
+        """Where a parameter lives: replicated (a ``rules`` entry or the
+        tp policy that would shard it raises: tensor parallelism is a
+        later slice)."""
+        from .sharding import NamedSharding, param_pspec
+        spec = param_pspec(name, shape, self.mesh, self.rules)
+        if any(e is not None for e in spec):
+            raise _not_ported("sharding parameter %s as %s (tensor "
+                              "parallelism, rules that shard a parameter)"
+                              % (name, spec), _MULTI_GPU)
+        return NamedSharding(self.mesh, spec)
+
+    def batch_sharding(self, shape):
+        """A batch tensor: axis 0 split over dp."""
+        from .sharding import NamedSharding, batch_pspec
+        return NamedSharding(self.mesh, batch_pspec(shape, self.mesh,
+                                                    self.seq_axis))
+
+    def opt_state_sharding(self, name, shape):
+        """ZeRO-1 placement for one optimizer-state array: axis 0 split
+        over dp when it divides, else the parameter's own placement."""
+        from .sharding import NamedSharding, P
+        if self.zero1 and shape and shape[0] % self.dp == 0:
+            return NamedSharding(self.mesh,
+                                 P("dp", *([None] * (len(shape) - 1))))
+        return self.param_sharding(name, shape)
+
+    def _place(self, value, sharding):
+        from .sharding import place
+        return place(value, self.mesh, sharding.spec)
+
+    # ------------------------------------------------------------------
     # state init
     # ------------------------------------------------------------------
     def init_params(self, data_shapes, initializer=None, label_shapes=None,
                     dtype=torch.float32):
         """Infer shapes and allocate params, optimizer state and aux on
-        the trainer's device.  Returns ``(params, opt_state, aux)``
-        dicts of tensors.  ``initializer`` defaults to ``Uniform(0.07)``
-        drawing from ``random.generator("cpu")``."""
+        the trainer's device (on a dp mesh, placed on it:
+        :meth:`param_sharding`, :meth:`opt_state_sharding`, aux
+        replicated).  Returns ``(params, opt_state, aux)`` dicts of
+        tensors (or :class:`~.sharding.ShardedArray`).  ``initializer``
+        defaults to ``Uniform(0.07)`` drawing from
+        ``random.generator("cpu")``; in a process group rank 0's values
+        are broadcast, so every process starts from the same weights."""
         from ..initializer import Uniform
         from ..ndarray import NDArray
         shape_map, aux_map = self._shape_maps(data_shapes, label_shapes)
         initializer = initializer or Uniform(0.07)
-        params = {}
+        host_params = {}
         for name in self.param_names:
             host = NDArray(torch.zeros(shape_map[name], dtype=dtype))
             initializer(name, host)
-            params[name] = host.data.to(self.device)
+            host_params[name] = host.data
+        if self.dp == 1:
+            params = {n: v.to(self.device) for n, v in host_params.items()}
+        else:
+            params = self.place_params(host_params)
         opt_state = {}
         for name in self.param_names:
             s = self.optimizer.create_state_arrays(shape_map[name], dtype,
                                                    self.device)
             if s is not None:
-                opt_state[name] = s
+                opt_state[name] = s if self.dp == 1 else _state_map(
+                    lambda a, _n=name: self._place(
+                        a, self.opt_state_sharding(_n, a.shape)), s)
         aux = {}
         for name in self._aux_names:
             fill = torch.ones if name.endswith("moving_var") else torch.zeros
             aux[name] = fill(aux_map[name], dtype=dtype, device=self.device)
+        if self.dp > 1:
+            aux = self.place_params(aux)
         return params, opt_state, aux
+
+    def place_params(self, values):
+        """``{name: array}`` (numpy, NDArray or tensor: the JAX package's
+        parameters carried across as numpy, say) placed on the mesh as
+        the trainer keeps them: replicated on every replica; in a process
+        group, rank 0's values broadcast to every process.  On a
+        one-device mesh, tensors on the device."""
+        from .sharding import place, P
+        from .collectives import broadcast
+        out = {}
+        for name, v in values.items():
+            if self.dp == 1:
+                out[name] = place(v, self.mesh, P()).shards[0]
+                continue
+            spec = self.param_sharding(name, tuple(v.shape)).spec \
+                if name in self.param_names else P(*([None] * len(v.shape)))
+            arr = place(v, self.mesh, spec)
+            if self.mesh.num_processes > 1:
+                broadcast(self.group, arr.shards)
+            out[name] = arr
+        return out
 
     def _shape_maps(self, data_shapes, label_shapes=None):
         shapes = dict(data_shapes)
@@ -259,8 +393,19 @@ class ShardedTrainer:
         as in the reference; a uint8 batch crosses as uint8 and
         :meth:`step` widens it).  ``copy``: a
         :class:`~.overlap.HostToDevice` to place through (the async
-        feed's pinned buffers and stream)."""
+        feed's pinned buffers and stream).  On a dp mesh each array is
+        split on axis 0 over the replicas (:meth:`batch_sharding`); in a
+        process group each process passes its own part of the global
+        batch (the reference's ``num_parts``/``part_index`` shard)."""
         from .. import ndarray as nd
+        from ..observability import spans as _spans
+        if self.dp > 1:
+            from .sharding import place
+            with _spans.span("h2d", step=self.num_update):
+                return {name: place(arr, self.mesh,
+                                    self.batch_sharding(arr.shape).spec,
+                                    part_of_process=True)
+                        for name, arr in batch.items()}
         out = {}
         for name, arr in batch.items():
             if copy is not None:
@@ -283,6 +428,10 @@ class ShardedTrainer:
         from . import overlap
         if not overlap.prefetch_enabled(prefetch):
             return batches
+        if self.dp > 1:
+            return overlap.DevicePrefetcher(
+                batches, place_fn=self.shard_batch, depth=depth,
+                name="trainer-feed")
         copy = overlap.HostToDevice(self.device,
                                     overlap.prefetch_depth(depth) + 2)
         return overlap.DevicePrefetcher(
@@ -301,6 +450,8 @@ class ShardedTrainer:
     def step(self, params, opt_state, aux, batch, rng=None):
         """Run one training step; returns ``(params, opt_state, aux,
         outputs)``, the first three the dicts given, updated in place."""
+        if self.dp > 1:
+            return self._step_dp(params, opt_state, aux, batch, rng)
         self.num_update += 1
         opt = self.optimizer
         lr = opt.lr_scheduler(self.num_update) \
@@ -343,11 +494,254 @@ class ShardedTrainer:
 
     def eval(self, params, aux, batch, rng=None):
         """Forward in ``compute_dtype`` with ``is_train=False``."""
+        if self.dp > 1:
+            with torch.no_grad():
+                outs, _aux, reps = self._walk(params, aux, batch, rng,
+                                              False)
+            return self._outputs(outs, reps)
         with torch.no_grad():
             args = self._to_compute(params)
             args.update(self._batch_to_compute(batch, params))
             outs, _ = self._trace(args, self._to_compute(aux), rng, False)
         return outs
+
+    # ------------------------------------------------------------------
+    # the data-parallel step
+    # ------------------------------------------------------------------
+    def _walk(self, params, aux, batch, rng, is_train, leaves=None):
+        """The lockstep walk of every replica: ``(outputs, aux_out,
+        replicated)`` (``Program.trace_replicas``)."""
+        from .sharding import ShardedArray
+        n = len(self.mesh.devices)
+
+        def shard(v, r):
+            return v.shards[r] if isinstance(v, ShardedArray) else v
+        args, auxs = [], []
+        for r in range(n):
+            p = leaves[r] if leaves is not None else \
+                {k: shard(params[k], r) for k in self.param_names}
+            a = self._to_compute(p)
+            a.update(self._batch_to_compute(
+                {k: shard(v, r) for k, v in batch.items()}, p))
+            args.append(a)
+            auxs.append(self._to_compute({k: shard(v, r)
+                                          for k, v in aux.items()}))
+        # a graph that draws random numbers draws each replica's from its
+        # device's generator (a caller's generator serves replicas on its
+        # own device)
+        rngs = [None] * n
+        if self._needs_rng:
+            from .. import random as _random
+            rngs = [rng if rng is not None and rng.device == d
+                    else _random.generator(d) for d in self.mesh.devices]
+        return self._trace_replicas(
+            args, auxs, rngs, is_train, self.group,
+            sharded=self.data_names + self.label_names)
+
+    def _outputs(self, outs, reps):
+        """Heads as :class:`~.sharding.ShardedArray`s: split on axis 0,
+        or replicated."""
+        from .sharding import ShardedArray, P
+        got = []
+        for i, rep in enumerate(reps):
+            shards = [o[i].detach() for o in outs]
+            nd_ = shards[0].dim()
+            if rep:
+                got.append(ShardedArray(shards, self.mesh,
+                                        P(*([None] * nd_)), shards[0].shape))
+            else:
+                shape = list(shards[0].shape)
+                shape[0] *= self.group.world
+                got.append(ShardedArray(shards, self.mesh,
+                                        P("dp", *([None] * (nd_ - 1))),
+                                        shape))
+        return got
+
+    def _step_dp(self, params, opt_state, aux, batch, rng):
+        from .. import executor as _executor
+        from .overlap import GradBuckets, interleave_grad_buckets
+        from .sharding import ShardedArray
+        self.num_update += 1
+        opt = self.optimizer
+        lr = opt.lr_scheduler(self.num_update) \
+            if opt.lr_scheduler is not None else opt.lr
+        wd, t = opt.wd, self.num_update
+        n = len(self.mesh.devices)
+        leaves = [{k: params[k].shards[r].detach().requires_grad_(True)
+                   for k in self.param_names} for r in range(n)]
+        plan = interleave_grad_buckets(
+            {k: params[k].shards[0] for k in self.param_names})
+        layout = self._zero1_layout(params) if self.zero1 else None
+        reducer = GradBuckets(leaves, plan, functools.partial(
+            self._reduce_bucket, layout))
+        with torch.enable_grad():
+            outs, aux_out, reps = self._walk(params, aux, batch, rng, True,
+                                             leaves=leaves)
+            heads, hgrads = [], []
+            for o_r, g_r in zip(outs, _executor.replica_head_grads(outs,
+                                                                   reps)):
+                for o, g in zip(o_r, g_r):
+                    if o.requires_grad:
+                        heads.append(o)
+                        hgrads.append(g)
+            if heads:
+                torch.autograd.backward(heads, hgrads)
+        reduced = [{} for _ in range(n)]
+        for part in reducer.finish():
+            for r in range(n):
+                reduced[r].update(part[r])
+        with torch.no_grad():
+            if self.zero1:
+                self._update_zero1(params, opt_state, reduced, layout, lr,
+                                   wd, t)
+            else:
+                self._update_replicas(params, opt_state, reduced, lr, wd, t)
+            for k in aux:
+                aux[k] = ShardedArray(
+                    [a[k].detach().to(aux[k].dtype) for a in aux_out],
+                    self.mesh, aux[k].sharding.spec, aux[k].shape)
+        return params, opt_state, aux, self._outputs(outs, reps)
+
+    def _reduce_bucket(self, layout, names, grads):
+        """One bucket's gradients summed over the replicas: ``[{name:
+        gradient}]`` a replica; under ZeRO-1 a divisible leaf's entry is
+        this replica's slice of rows (:meth:`_zero1_layout`)."""
+        from .collectives import all_reduce, reduce_scatter
+        n = len(grads)
+        out = [{} for _ in range(n)]
+        whole = [k for k in names if layout is None or k not in layout]
+        if whole:
+            sums = all_reduce(self.group, [
+                torch.cat([g[k].reshape(-1) for k in whole]) for g in grads])
+            sizes = [grads[0][k].numel() for k in whole]
+            for r in range(n):
+                for k, part in zip(whole, torch.split(sums[r], sizes)):
+                    out[r][k] = part.view(grads[r][k].shape)
+        split = [k for k in names if layout is not None and k in layout]
+        if split:
+            world = self.group.world
+            rows = {k: grads[0][k].shape[0] // world for k in split}
+            sizes = [rows[k] * grads[0][k][0].numel() for k in split]
+            chunk = sum(sizes)
+            pad = (-chunk) % 4          # each device's part 16-byte aligned
+            flats = []
+            for g in grads:
+                parts = []
+                for d in range(world):
+                    for k in split:
+                        parts.append(g[k].narrow(0, d * rows[k], rows[k])
+                                     .reshape(-1))
+                    if pad:
+                        parts.append(g[split[0]].new_zeros(pad))
+                flats.append(torch.cat(parts))
+            mine = reduce_scatter(self.group, flats)
+            for r in range(n):
+                for k, part in zip(split, torch.split(mine[r][:chunk],
+                                                      sizes)):
+                    out[r][k] = part.view((rows[k],)
+                                          + tuple(grads[r][k].shape[1:]))
+        return out
+
+    def _zero1_layout(self, params):
+        """The names of the leaves ZeRO-1 splits: axis 0 divisible by
+        dp."""
+        return {k for k in self.param_names
+                if params[k].shape and params[k].shape[0] % self.dp == 0}
+
+    def _update_replicas(self, params, opt_state, grads, lr, wd, t):
+        """Each replica's update of its copy (its own sweep, or leafwise),
+        from the summed gradients."""
+        from .sharding import ShardedArray
+        n = len(self.mesh.devices)
+        new_w = [None] * n
+        new_s = [None] * n
+        for r, dev in enumerate(self.mesh.devices):
+            w_r = {k: params[k].shards[r] for k in self.param_names}
+            s_r = {k: _state_map(lambda a, _r=r: a.shards[_r], v)
+                   for k, v in opt_state.items()}
+            if self._fused_opt:
+                new_w[r], new_s[r] = self._fused_mod.fused_apply(
+                    self.optimizer, w_r, grads[r], s_r, lr, wd, t,
+                    mode=self._fused_opt, preprocess=True)
+            else:
+                t_dev = torch.tensor(float(t), device=dev)
+                new_w[r], new_s[r] = {}, {}
+                for k in self.param_names:
+                    new_w[r][k], new_s[r][k] = self.optimizer._step(
+                        w_r[k], grads[r][k], s_r.get(k), lr, wd, t_dev)
+        for k in self.param_names:
+            params[k] = ShardedArray([w[k] for w in new_w], self.mesh,
+                                     params[k].sharding.spec,
+                                     params[k].shape)
+            if k in opt_state:
+                opt_state[k] = _state_zip(
+                    opt_state[k], [s[k] for s in new_s], self.mesh)
+
+    def _update_zero1(self, params, opt_state, grads, layout, lr, wd, t):
+        """ZeRO-1: each device's update over one flat vector of its
+        slices (the divisible leaves' rows of that device, then the other
+        leaves whole), then the new weights all-gathered."""
+        from .collectives import all_gather
+        from .sharding import ShardedArray
+        n = len(self.mesh.devices)
+        div = [k for k in self.param_names if k in layout]
+        rest = [k for k in self.param_names if k not in layout]
+        base = self.group.rank() * n
+        n_state = len(_state_leaves(
+            self.optimizer.create_state_arrays((1,))))
+        vecs = []
+        for r in range(n):
+            g_idx = base + r
+            w_parts, g_parts, s_parts = [], [], [[] for _ in range(n_state)]
+            for k in div + rest:
+                w = params[k].shards[r]
+                if k in layout:
+                    rows = w.shape[0] // self.dp
+                    w = w.narrow(0, g_idx * rows, rows)
+                w_parts.append(w.reshape(-1))
+                g_parts.append(grads[r][k].reshape(-1))
+                st = _state_leaves(opt_state.get(k))
+                for i in range(n_state):
+                    s_parts[i].append(st[i].shards[r].reshape(-1))
+            w_vec = torch.cat(w_parts)
+            g_vec = torch.cat(g_parts)
+            s_vecs = [torch.cat(p) for p in s_parts]
+            if self._fused_opt == "kernel":
+                self._fused_mod.sweep(self.optimizer, w_vec, g_vec, s_vecs,
+                                      lr, wd, t, preprocess=True)
+            else:
+                w_vec, s_vecs = self._fused_mod.sweep_reference(
+                    self.optimizer, w_vec, g_vec, s_vecs, lr, wd, t,
+                    preprocess=True)
+            vecs.append((w_vec, s_vecs))
+        sizes = [grads[0][k].numel() for k in div + rest]
+        n_div = sum(sizes[:len(div)])
+        gathered = all_gather(self.group, [w[:n_div] for w, _ in vecs])
+        for r in range(n):
+            w_vec, s_vecs = vecs[r]
+            w_parts = torch.split(w_vec, sizes)
+            s_split = [torch.split(v, sizes) for v in s_vecs]
+            for j, k in enumerate(div + rest):
+                shard_shape = tuple(grads[r][k].shape)
+                st = opt_state.get(k)
+                if st is not None:
+                    leaves = _state_leaves(st)
+                    for i, leaf in enumerate(leaves):
+                        leaf.shards[r] = s_split[i][j].view(shard_shape)
+            for k, part in zip(rest, w_parts[len(div):]):
+                params[k].shards[r] = part.view(params[k].shape)
+            whole = gathered[r].view(self.group.world, n_div)
+            off = 0
+            for k, size in zip(div, sizes):
+                rows = params[k].shape[0] // self.dp
+                params[k].shards[r] = whole[:, off:off + size].reshape(
+                    (self.group.world * rows,)
+                    + tuple(params[k].shape[1:]))
+                off += size
+        for k in self.param_names:
+            params[k] = ShardedArray(params[k].shards, self.mesh,
+                                     params[k].sharding.spec,
+                                     params[k].shape)
 
     # ------------------------------------------------------------------
     # later slices

@@ -1159,3 +1159,143 @@ def test_rcnn_example_steps_on_the_card(cuda):
         assert torch.isfinite(o.data).all()
     rois = outs[3].asnumpy()
     assert (rois[:, 3] - rois[:, 1]).max() > 0
+
+
+# ----------------------------------------------------------------------
+# data parallelism: the cross-replica BatchNorm, ZeRO-1's slices, dp
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("replicas", [2, 3])
+def test_cross_replica_batchnorm_matches_one_batch(cuda, replicas):
+    """The lockstep walk's BatchNorm over replicas on the card against
+    its plain version (``F.batch_norm`` over the whole batch, and the
+    moving statistics from its mean and biased variance): outputs,
+    statistics and the gradients of data, gamma (summed over the
+    replicas) and beta within 2e-5 (float32 sums in other orders)."""
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.parallel.collectives import ReplicaGroup
+    op = registry.create_operator("BatchNorm", fix_gamma=False,
+                                  momentum=0.9, eps=2e-5)
+    rng = np.random.RandomState(replicas)
+    x = torch.from_numpy(rng.randn(6 * replicas, 5, 4, 3)
+                         .astype(np.float32) * 2 + 1).to(cuda)
+    gamma = torch.from_numpy(1 + 0.1 * rng.randn(5).astype(np.float32))
+    beta = torch.from_numpy(0.1 * rng.randn(5).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(cuda)
+    mm, mv = torch.zeros(5, device=cuda), torch.ones(5, device=cuda)
+    group = ReplicaGroup([cuda] * replicas)
+    xs = [t.clone().requires_grad_() for t in torch.chunk(x, replicas)]
+    gs = [gamma.to(cuda).clone().requires_grad_() for _ in range(replicas)]
+    bs = [beta.to(cuda).clone().requires_grad_() for _ in range(replicas)]
+    outs, aux, rep = op.forward_replicas(
+        [[a, g, b] for a, g, b in zip(xs, gs, bs)],
+        [[mm, mv]] * replicas, True, [None] * replicas, group)
+    assert not rep
+    torch.autograd.backward([o[0] for o in outs], list(torch.chunk(dy,
+                                                               replicas)))
+    xw = x.clone().requires_grad_()
+    gw = gamma.to(cuda).requires_grad_()
+    bw = beta.to(cuda).requires_grad_()
+    want = torch.nn.functional.batch_norm(xw, None, None, gw, bw, True,
+                                          0.0, 2e-5)
+    want.backward(dy)
+    var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    torch.cuda.synchronize()
+    got = torch.cat([o[0] for o in outs])
+    assert (got - want).abs().max().item() <= 2e-5
+    for a in aux:
+        assert (a[0] - (0.9 * mm + 0.1 * mean)).abs().max().item() <= 2e-5
+        assert (a[1] - (0.9 * mv + 0.1 * var)).abs().max().item() <= 2e-5
+    dx = torch.cat([t.grad for t in xs])
+    assert (dx - xw.grad).abs().max().item() <= 2e-5 * max(
+        1.0, xw.grad.abs().max().item())
+    assert (sum(g.grad for g in gs) - gw.grad).abs().max().item() <= 2e-4
+    assert (sum(b.grad for b in bs) - bw.grad).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_sweep_over_zero1_slices(cuda, offset):
+    """The sweep over a flat vector of a device's ZeRO-1 slices (rows of
+    several leaves, concatenated) at an offset of 0 (16-byte aligned: the
+    vectorised route) or 1 or 3 elements (the scalar route), against its
+    plain version, bit for bit; the route is counted by device."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    opt = opt_mod.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
+                         rescale_grad=1.0 / 64)
+    rng = np.random.RandomState(offset)
+    leaves = [(64, 3, 3), (128,), (10, 7)]
+    dp, d = 2, 1
+
+    def slices(scale):
+        parts = []
+        for shape in leaves:
+            a = torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                 * scale)
+            rows = shape[0] // dp
+            parts.append(a[d * rows:(d + 1) * rows].reshape(-1))
+        flat = torch.cat(parts)
+        buf = torch.zeros(flat.numel() + offset)
+        buf[offset:] = flat
+        return buf.to(cuda)[offset:]
+    w, g, m = slices(1.0), slices(10.0), slices(0.01)
+    want_w, want_s = fo.sweep_reference(opt, w, g, [m], 0.1, 1e-4, 3)
+    route = fo.sweep_route(w, g, [m])
+    assert route == ("vec4" if offset == 0 else "scalar")
+    before = fo.sweep.launches_by_route.get(str(cuda), {}).get(route, 0)
+    fo.sweep(opt, w, g, [m], 0.1, 1e-4, 3)
+    torch.cuda.synchronize()
+    assert fo.sweep.launches_by_route[str(cuda)][route] == before + 1
+    assert torch.equal(w, want_w) and torch.equal(m, want_s[0])
+
+
+def test_dp_trainer_on_the_card_matches_one_device(cuda, monkeypatch):
+    """ShardedTrainer dp=2 on one card (two replicas, plain adds) with
+    and without ZeRO-1, two steps of ResNet-18: ZeRO-1 bit for bit plain
+    dp (the sweep on every replica, deterministic cuDNN), and the dp
+    parameters and BatchNorm statistics no further from the same
+    one-device steps run in float64 than twice the one-device float32
+    steps are (the witness of ``chip_smoke.py``: BatchNorm's shift
+    invariance leaves the first betas' gradients cancelling to float32
+    rounding, so no fixed tolerance holds there)."""
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    sym = mx.models.resnet.get_symbol(10, 18, (3, 32, 32))
+    rng = np.random.RandomState(1)
+    batch = {"data": rng.randn(8, 3, 32, 32).astype(np.float32),
+             "softmax_label": rng.randint(0, 10, 8).astype(np.float32)}
+    got = {}
+    for name, ctxs, zero1, dtype in (
+            ("f64", [mx.gpu(0)], False, torch.float64),
+            ("one", [mx.gpu(0)], False, torch.float32),
+            ("dp", [mx.gpu(0), mx.gpu(0)], False, torch.float32),
+            ("zero1", [mx.gpu(0), mx.gpu(0)], True, torch.float32)):
+        # the sweep takes float32: the float64 reference updates leafwise
+        monkeypatch.setenv("MXTPU_FUSED_OPT", "kernel"
+                           if dtype == torch.float32 else "")
+        mesh = mx.parallel.make_mesh(ctxs, dp=len(ctxs))
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                  rescale_grad=1.0 / 8)
+        tr = mx.parallel.ShardedTrainer(sym, opt, mesh, zero1=zero1)
+        mx.random.seed(0)
+        p, s, a = tr.init_params({"data": (8, 3, 32, 32)},
+                                 label_shapes={"softmax_label": (8,)},
+                                 dtype=dtype)
+        b = tr.shard_batch(batch) if dtype == torch.float32 else {
+            k: torch.from_numpy(v.astype(np.float64)).to(cuda)
+            for k, v in batch.items()}
+        for _ in range(2):
+            p, s, a, _o = tr.step(p, s, a, b)
+        got[name] = ({k: (v.global_tensor() if hasattr(v, "global_tensor")
+                          else v).double().cpu() for k, v in p.items()},
+                     {k: (v.global_tensor() if hasattr(v, "global_tensor")
+                          else v).double().cpu() for k, v in a.items()})
+    for i, what in ((0, "parameters"), (1, "aux")):
+        for k in got["one"][i]:
+            assert torch.equal(got["dp"][i][k], got["zero1"][i][k]), k
+
+        def dist(run):
+            return max((got[run][i][k] - w).abs().max().item()
+                       for k, w in got["f64"][i].items())
+        assert dist("dp") <= 2 * dist("one"), (what, dist("dp"),
+                                              dist("one"))

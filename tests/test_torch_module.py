@@ -124,7 +124,8 @@ def test_metrics_match_jax(name, kw):
 def test_kvstore_local_push_pull_and_optimizer():
     """init, push (copies summed), pull into several arrays, an updater
     run on the sum and the stored weight; set_optimizer against the JAX
-    package's store over 3 pushes; rank 0, one worker; dist raises."""
+    package's store over 3 pushes; rank 0, one worker; ``dist_sync``
+    with no launch env is a store of one worker, which sums as local."""
     rng = np.random.RandomState(4)
     with tmx.cpu():
         kv = tmx.kvstore.create("local")
@@ -141,8 +142,15 @@ def test_kvstore_local_push_pull_and_optimizer():
             kv.init(3, tmx.nd.array(w0))
         with pytest.raises(MXNetError):
             kv.push(9, tmx.nd.array(w0))
-    with pytest.raises(MXNetError, match="multi-GPU"):
-        tmx.kvstore.create("dist_sync")
+    with tmx.cpu():
+        dkv = tmx.kvstore.create("dist_sync")
+        assert (dkv.type, dkv.rank, dkv.num_workers) == ("dist_sync", 0, 1)
+        dkv.init(3, tmx.nd.array(w0))
+        dkv.push(3, [tmx.nd.array(a) for a in g])
+        out = tmx.nd.zeros((3, 4))
+        dkv.pull(3, out=out)
+        np.testing.assert_array_equal(out.asnumpy(), g[0] + g[1])
+        assert dkv.dead_nodes() == []
     with pytest.raises(MXNetError):
         tmx.kvstore.create("bogus")
 
@@ -253,7 +261,7 @@ def test_module_fit_matches_jax(monkeypatch, kvstore):
 def test_module_routes_agree_and_predict():
     """The port's two update routes after two batches within 1e-5 of each
     other; ``score`` and ``predict`` after fit; a fixed parameter keeps
-    its value; several contexts raise."""
+    its value; two contexts bind one sharded executor."""
     mod, by_store = _fit(tmx, "object", 2, ctx=tmx.cpu(),
                          eval_metric="acc",
                          batch_end_callback=tmx.callback.Speedometer(B, 1))
@@ -277,10 +285,10 @@ def test_module_routes_agree_and_predict():
                           for k, v in aux.items()})
     np.testing.assert_array_equal(fixed.get_params()[0]["fc1_bias"]
                                   .asnumpy(), params["fc1_bias"])
-    with pytest.raises(MXNetError, match="multi-GPU"):
-        m = tmx.mod.Module(tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE),
-                           context=[tmx.cpu(0), tmx.cpu(1)])
-        m.bind([("data", (B,) + SHAPE)], [("softmax_label", (B,))])
+    m = tmx.mod.Module(tmx.models.resnet.get_symbol(CLASSES, 18, SHAPE),
+                       context=[tmx.cpu(0), tmx.cpu(1)])
+    m.bind([("data", (B,) + SHAPE)], [("softmax_label", (B,))])
+    assert m._exec_group.sharded and len(m._exec_group.execs) == 1
 
 
 def test_checkpoints_load_across_packages(tmp_path):

@@ -116,17 +116,27 @@ def test_feedforward_numpy_input():
 
 def test_feedforward_context_and_exports(monkeypatch):
     """``ctx=None`` means ``[current_context()]``: ``gpu(0)`` outside a
-    scope; ``mx.FeedForward`` and ``mx.Monitor`` are exported; several
-    contexts raise, naming the multi-GPU slice."""
+    scope; ``mx.FeedForward`` and ``mx.Monitor`` are exported; two
+    contexts slice each batch over two executors, whose gradients the
+    ``device`` store sums: the JAX package's two-context fit within
+    ``TOL``."""
     sym = _mlp(tmx)
     assert tmx.FeedForward(sym).ctx == [tmx.gpu(0)]
     with tmx.cpu():
         assert tmx.FeedForward(sym).ctx == [tmx.cpu()]
     assert tmx.Monitor is tmx.monitor.Monitor
     X, y = _toy_problem()
-    model = tmx.FeedForward(sym, ctx=[tmx.cpu(0), tmx.cpu(1)], num_epoch=1)
-    with pytest.raises(tmx.MXNetError, match="item 3"):
-        model.fit(X, y)
+    out = {}
+    for mx in (jmx, tmx):
+        model = mx.FeedForward(_mlp(mx), ctx=[mx.cpu(0), mx.cpu(1)],
+                               num_epoch=2, optimizer="sgd",
+                               learning_rate=0.5, numpy_batch_size=20,
+                               arg_params=_arrays(mx, _init(), mx.cpu()))
+        np.random.seed(1)
+        model.fit(X, y, kvstore="device")
+        out[mx] = (_numpy(model.arg_params), model.predict(X))
+    _close(out[tmx][0], out[jmx][0], "two contexts")
+    np.testing.assert_allclose(out[tmx][1], out[jmx][1], atol=TOL)
 
 
 def test_feedforward_checkpoint_resume(tmp_path):

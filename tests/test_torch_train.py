@@ -166,16 +166,19 @@ def test_bfloat16_step_keeps_master_weights_and_ids():
 
 def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     """No ctx and no mesh means gpu(0) (raises on a CPU-only box);
-    zero1, fsdp, seq_axis, the sentinel, the step watchdog, the
-    checkpoint methods and a MoE symbol all raise.  ``remat`` and the
-    mirrored symbol (``mirror_blocks``), which raised before the
-    executor's mirroring, now build."""
+    fsdp, seq_axis, the sentinel, the step watchdog, the checkpoint
+    methods and a MoE symbol all raise.  ``remat`` and the mirrored
+    symbol (``mirror_blocks``), which raised before the executor's
+    mirroring, now build; so do ``zero1`` (inert on one device, as in
+    the JAX package) and a dp mesh of two contexts, while a tp axis
+    still raises, naming its slice."""
     sym = ttf.get_symbol(**DIMS)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             TTrainer(sym, opt)
-    for kwargs in ({"zero1": True}, {"fsdp": True},
+    assert not TTrainer(sym, opt, ctx=tmx.cpu(), zero1=True).zero1
+    for kwargs in ({"fsdp": True},
                    {"seq_axis": 1}, {"sentinel": True},
                    {"step_timeout_s": 5.0}):
         with pytest.raises(MXNetError, match="not ported"):
@@ -193,8 +196,10 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     mirrored = ttf.get_symbol(mirror_blocks=True, **DIMS)
     assert any(n.attrs.get("mirror_stage") == "layer0"
                for n in mirrored._topo())
+    mesh = tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=2)
+    assert mesh.size == 2 and TTrainer(sym, opt, mesh, zero1=True).zero1
     with pytest.raises(MXNetError, match="multi-GPU"):
-        tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=2)
+        tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=1, tp=2)
 
 
 def test_training_symbol_matches_jax():
