@@ -280,6 +280,28 @@ line:
    NCCL between them) with the witness gates; with one, the phase says
    that the NCCL path between cards was not exercised.
 
+16. the flat C ABI: ``make capi-torch`` builds ``lib/
+   libmxtpu_torch_capi.so`` (``mxnet_tpu_torch/csrc/c_api.cc`` over the
+   unchanged ``include/mxtpu/c_api.h``) and the C programs against it
+   under ``lib/torch/``, each run as a C host process with a ``jax``
+   that raises on import first on its path: (a) the unchanged
+   ``example/cpp/image-classification`` predictor on ResNet-50 at batch
+   64, 224 x 224, 1000 classes (seeded weights saved by the port) prints
+   the class and probability that the port's ``Predictor`` gives in this
+   process; (b) ``example/cpp-torch/train_lm.c`` takes 3 steps of the
+   LM at phase 7's width (SGD lr 0.1, momentum 0.9) through
+   ``MXExecutorSimpleBindTrain``, ``MXExecutorForward``/``Backward`` and
+   ``MXOptimizerUpdate``, its saved parameters bit for bit a Python twin's
+   (the same bind, backward and leafwise ``Optimizer.update`` here), the
+   flash forward launched 8 times a step by the twin and by the C
+   process (which writes its counts at ``MXNotifyShutdown``); (c)
+   ``example/cpp-torch/rtc_saxpy.c``: a CUDA C body through
+   ``MXRtcCreate``/``MXRtcPush`` at 2^24 float32 within phase 8's ulp
+   bound of the plain version, one launch; (d) the unchanged
+   ``tests/capi`` consumers ``capi_smoke`` and ``capi_threads`` on
+   ``gpu(0)`` and ``capi_parity`` with ``MXNET_CAPI_CONTEXT=cpu``, 3 runs
+   each.  Every C process must exit 0 with its OK line and no abort.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -293,6 +315,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2247,7 +2270,7 @@ def phase_train(torch, seed, smi):
         % (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32))
     params = seeded_train_params(seed)
-    batch = train_batch(seed)
+    batch = train_batch(seed, TRAIN_BATCH)
     steps = 3
     out_k, p_k, kern, trail = run_trainer(torch, params, batch, steps,
                                           "kernel", timed_steps=5,
@@ -6622,6 +6645,386 @@ def _log_dp_lm(r, smi):
            r["step_ms"], len(r["step_ms_all"]), r["tokens_per_s"], smi))
 
 
+# ----------------------------------------------------------------------
+# phase 16: the flat C ABI (include/mxtpu/c_api.h over the port)
+# ----------------------------------------------------------------------
+#: runs of each unchanged C consumer (an abort at a C host's exit would
+#: show in some runs only)
+CAPI_RUNS = 3
+#: the C-driven LM's steps (phase 7's full width, TRAIN and TRAIN_BATCH),
+#: held bit for bit to the twin's; then a second C run and the twin
+#: each take CAPI_TIMED_STEPS steps for the step time (the first of
+#: them, which builds the program, not counted)
+CAPI_TRAIN_STEPS = 3
+CAPI_TIMED_STEPS = 10
+#: ResNet-50 predict through image-classification-predict
+CAPI_PREDICT_BATCH = 64
+#: rtc_saxpy's element count (phase 8's timed size)
+CAPI_RTC_N = RTC_TIMED_N
+#: phase 8's bound for saxpy against its plain version, float32 ulps
+CAPI_RTC_ULPS = 1.0
+CAPI_TIMEOUT_S = 600
+
+
+def capi_dir(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_capi", *parts)
+
+
+def capi_env(here, **extra):
+    """The C programs' environment: a ``jax`` that raises on import first
+    on ``PYTHONPATH`` (the port's library must never reach it), the repo,
+    then this interpreter's package directories (the interpreter a C
+    host embeds is found from ``python3-config``'s libpython and may not
+    see them by itself); ``gpu(0)`` for the calls that name no device,
+    the CPU in a rehearsal with ``DEVICE = "cpu"``."""
+    poison = capi_dir("poison")
+    os.makedirs(os.path.join(poison, "jax"), exist_ok=True)
+    with open(os.path.join(poison, "jax", "__init__.py"), "w") as f:
+        f.write("raise ImportError('jax is blocked for the port')\n")
+    pkgs = [p for p in sys.path if p.endswith(("site-packages",
+                                               "dist-packages"))]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([poison, here] + pkgs)
+    env.pop("MXNET_CAPI_CONTEXT", None)
+    if DEVICE != "cuda":
+        env["MXNET_CAPI_CONTEXT"] = "cpu"
+    env.update(extra)
+    return env
+
+
+def run_c(cmd, env, what, ok_line, cwd=None):
+    """One C process: its exit code must be 0, its OK line printed and
+    nothing aborted (``terminate called``, a signal) at its exit.
+    Returns the process and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(c) for c in cmd], env=env, cwd=cwd,
+                          capture_output=True, text=True,
+                          timeout=CAPI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or ok_line not in proc.stdout \
+            or "terminate called" in proc.stderr:
+        raise AssertionError("%s: exit %d, OK line %s: stdout %s stderr %s"
+                             % (what, proc.returncode,
+                                ok_line in proc.stdout, proc.stdout[-1500:],
+                                proc.stderr[-3000:]))
+    return proc, seconds
+
+
+def run_c_together(jobs):
+    """C processes started together, ``{what: (cmd, env, ok_line)}``;
+    each is checked as :func:`run_c` checks one.  Returns ``{what:
+    seconds}``, each process's own."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {what: pool.submit(run_c, cmd, env, what, ok)
+                   for what, (cmd, env, ok) in jobs.items()}
+        return {what: f.result()[1] for what, f in futures.items()}
+
+
+def capi_predict(torch, mx, bindir, env, seed):
+    """(a) ResNet-50 at batch 64 through the unchanged
+    ``image-classification-predict``, against the port's ``Predictor`` on
+    the same checkpoint and input in this process: the printed class and
+    probability (6 digits) must be the same."""
+    d = capi_dir("resnet")
+    os.makedirs(d, exist_ok=True)
+    sym = resnet_symbol()
+    params, aux, data = seeded_resnet(seed + 16, CAPI_PREDICT_BATCH)
+    prefix = os.path.join(d, "resnet50")
+    with mx.cpu():
+        mx.model.save_checkpoint(
+            prefix, 0, sym, {k: mx.nd.array(v) for k, v in params.items()},
+            {k: mx.nd.array(v) for k, v in aux.items()})
+    shape = (CAPI_PREDICT_BATCH,) + RESNET["image_shape"]
+    with open(os.path.join(d, "shapes.json"), "w") as f:
+        json.dump({"data": list(shape)}, f)
+    data["data"].tofile(os.path.join(d, "input.f32"))
+    proc, seconds = run_c(
+        [os.path.join(bindir, "image-classification-predict"),
+         prefix + "-symbol.json", prefix + "-0000.params",
+         os.path.join(d, "shapes.json"), os.path.join(d, "input.f32")],
+        env, "image-classification-predict", "CPP PREDICT OK")
+    c_line = next(ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("predicted class"))
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    # the C process runs PyTorch's defaults, under which cuDNN may use
+    # TF32 (torch.backends.cudnn.allow_tf32 defaults to True); the
+    # Predictor here takes the same setting for the comparison
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pred = mx.Predictor(prefix + "-symbol.json",
+                            prefix + "-0000.params", {"data": shape},
+                            ctx=ctx)
+        probs = pred.forward(data=data["data"])[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    best = int(np.argmax(probs[0]))
+    twin = "predicted class: %d  prob: %f" % (best, float(probs[0][best]))
+    if c_line != twin:
+        raise AssertionError("C predict %r != Predictor %r" % (c_line, twin))
+    del pred
+    return {"line": c_line, "seconds": seconds, "batch": CAPI_PREDICT_BATCH,
+            "finite": bool(np.isfinite(probs).all())}
+
+
+def _step_ms(stdout):
+    return [float(ln.split()[3]) for ln in stdout.splitlines()
+            if ln.startswith("step ")]
+
+
+def capi_train_lm(torch, mx, bindir, env, seed):
+    """(b) The LM's training graph at phase 7's full width, 3 steps through
+    ``train_lm``, against a twin in this process doing the same
+    ``simple_bind``, backward and ``Optimizer.update`` leaf by leaf: the
+    saved parameters must be bit for bit the twin's.  The twin counts the
+    flash forward's launches (8 a step), and the C process writes its own
+    counts at ``MXNotifyShutdown``."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.models import transformer as tf
+    d = capi_dir("lm")
+    os.makedirs(d, exist_ok=True)
+    B, S = TRAIN_BATCH, TRAIN["seq_len"]
+    sym_path = os.path.join(d, "lm-symbol.json")
+    tf.get_symbol(**TRAIN).save(sym_path)
+    params = seeded_train_params(seed)
+    batch = train_batch(seed, TRAIN_BATCH)
+    with mx.cpu():
+        mx.nd.save(os.path.join(d, "lm.params"),
+                   {"arg:" + k: mx.nd.array(v) for k, v in params.items()})
+    batch["data"].tofile(os.path.join(d, "tokens.f32"))
+    batch["softmax_label"].tofile(os.path.join(d, "labels.f32"))
+    counts_path = os.path.join(d, "counts.json")
+    lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
+    torch.cuda.empty_cache()
+    proc, seconds = run_c(
+        [os.path.join(bindir, "train_lm"), "--symbol", sym_path,
+         "--params", "lm.params", "--data", "tokens.f32",
+         "--label", "labels.f32", "--batch", B, "--seq-len", S,
+         "--steps", CAPI_TRAIN_STEPS, "--lr", lr, "--momentum", mom,
+         "--out", "trained.params"],
+        dict(env, MXTPU_CAPI_COUNTS=counts_path), "train_lm", "TRAIN_LM OK",
+        cwd=d)
+    c_ms = _step_ms(proc.stdout)
+    with open(counts_path) as f:
+        c_counts = json.load(f)
+
+    # the twin: the same calls through the port's Python surface
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    sym = mx.sym.load(sym_path)
+    ex = sym.simple_bind(ctx, grad_req="write", data=(B, S),
+                         softmax_label=(B, S))
+    for name, value in list(params.items()) + [
+            ("data", batch["data"]), ("softmax_label",
+                                      batch["softmax_label"])]:
+        ex.arg_dict[name]._set_data(torch.from_numpy(value))
+    opt = mx.optimizer.create("sgd", learning_rate=lr, momentum=mom, wd=0.0,
+                              rescale_grad=1.0 / (B * S))
+    names = sym.list_arguments()
+    states = {}
+    torch.cuda.synchronize()
+    fa.flash_attention_forward.launches = 0
+    twin_ms = []
+    for _ in range(CAPI_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ex.forward(is_train=True)
+        ex.backward()
+        for i, name in enumerate(names):
+            if name in ("data", "softmax_label"):
+                continue
+            if i not in states:
+                states[i] = opt.create_state(i, ex.arg_dict[name])
+            opt.update(i, ex.arg_dict[name], ex.grad_dict[name], states[i])
+        torch.cuda.synchronize()
+        twin_ms.append((time.perf_counter() - t0) * 1e3)
+    twin_launches = fa.flash_attention_forward.launches
+    want = TRAIN["num_layers"] * CAPI_TRAIN_STEPS
+    # (on the CPU of a rehearsal the plain versions count nothing)
+    if DEVICE == "cuda" and (twin_launches != want
+                             or c_counts["flash_attention"] != want):
+        raise AssertionError("flash forward launches: twin %d, C process "
+                             "%d, want %d" % (twin_launches,
+                                              c_counts["flash_attention"],
+                                              want))
+    with mx.cpu():
+        saved = {k: v.asnumpy() for k, v in
+                 mx.nd.load(os.path.join(d, "trained.params")).items()}
+    differ = {}
+    for name in params:
+        mine = ex.arg_dict[name].asnumpy()
+        if not np.array_equal(saved[name], mine):
+            differ[name] = float(np.abs(saved[name] - mine).max())
+    finite = all(np.isfinite(v).all() for v in saved.values())
+    if differ or not finite or sorted(saved) != sorted(params):
+        raise AssertionError("train_lm's parameters are not the twin's bit "
+                             "for bit: %s (finite %s)" % (differ, finite))
+    moved = max(float(np.abs(saved[k] - params[k]).max()) for k in params)
+
+    # the step time: the twin goes on, then a second C run from the start
+    for _ in range(CAPI_TIMED_STEPS - CAPI_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ex.forward(is_train=True)
+        ex.backward()
+        for i, name in enumerate(names):
+            if name not in ("data", "softmax_label"):
+                opt.update(i, ex.arg_dict[name], ex.grad_dict[name],
+                           states[i])
+        torch.cuda.synchronize()
+        twin_ms.append((time.perf_counter() - t0) * 1e3)
+    del ex, states
+    torch.cuda.empty_cache()
+    timed, _s = run_c(
+        [os.path.join(bindir, "train_lm"), "--symbol", sym_path,
+         "--params", "lm.params", "--data", "tokens.f32",
+         "--label", "labels.f32", "--batch", B, "--seq-len", S,
+         "--steps", CAPI_TIMED_STEPS, "--lr", lr, "--momentum", mom,
+         "--out", "timed.params"], env, "train_lm (timed)", "TRAIN_LM OK",
+        cwd=d)
+    c_timed = _step_ms(timed.stdout)
+    return {"c_step_ms": c_ms, "twin_step_ms": twin_ms,
+            "c_timed_step_ms": c_timed,
+            "c_median_ms": float(np.median(c_timed[1:])),
+            "twin_median_ms": float(np.median(twin_ms[1:])),
+            "c_launches": c_counts, "twin_flash_launches": twin_launches,
+            "bitwise": True, "arrays": len(saved), "max_update": moved,
+            "seconds": seconds}
+
+
+def capi_rtc(torch, bindir, env, seed):
+    """(c) ``rtc_saxpy``: a CUDA C body through ``MXRtcCreate`` and
+    ``MXRtcPush`` at 2^24 float32, within phase 8's ulp bound of the
+    plain version."""
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    d = capi_dir("rtc")
+    os.makedirs(d, exist_ok=True)
+    n = CAPI_RTC_N
+    # phase 8's inputs, uniform in [0, 1): its ulp bound is for these
+    # (with signed inputs, 2.5*x + y cancels, and the body's contracted
+    # FMA and the plain version's two roundings differ by more ulps of
+    # the small result than 1)
+    rng = np.random.default_rng(seed + 16)
+    x = rng.random(n, dtype=np.float32)
+    y = rng.random(n, dtype=np.float32)
+    x.tofile(os.path.join(d, "x.f32"))
+    y.tofile(os.path.join(d, "y.f32"))
+    counts_path = os.path.join(d, "counts.json")
+    proc, seconds = run_c(
+        [os.path.join(bindir, "rtc_saxpy"), n, "x.f32", "y.f32", "out.f32"],
+        dict(env, MXTPU_CAPI_COUNTS=counts_path), "rtc_saxpy",
+        "RTC SAXPY OK", cwd=d)
+    with open(counts_path) as f:
+        c_counts = json.load(f)
+    got = torch.from_numpy(np.fromfile(os.path.join(d, "out.f32"),
+                                       dtype=np.float32)).to(DEVICE)
+    want = rk.saxpy_reference(torch.from_numpy(x).to(DEVICE),
+                              torch.from_numpy(y).to(DEVICE))
+    ulps = _ulps(torch, got, want)
+    if got.numel() != n or not ulps <= CAPI_RTC_ULPS:
+        raise AssertionError("rtc_saxpy: %d values, %g ulps (bound %g)"
+                             % (got.numel(), ulps, CAPI_RTC_ULPS))
+    if DEVICE == "cuda" and c_counts["rtc"] != 1:
+        raise AssertionError("rtc_saxpy launched %d kernels, want 1"
+                             % c_counts["rtc"])
+    return {"n": n, "ulps": ulps,
+            "max_abs_err": float((got - want).abs().max()),
+            "c_launches": c_counts, "seconds": seconds,
+            "line": proc.stdout.splitlines()[0]}
+
+
+def capi_consumers(mx, bindir, env):
+    """(d) The unchanged ``capi_smoke`` and ``capi_threads`` on ``gpu(0)``
+    and ``capi_parity`` with ``MXNET_CAPI_CONTEXT=cpu`` (it binds on
+    ``dev_type`` 1 itself), each ``CAPI_RUNS`` times, the three at once.
+    Returns each one's seconds a run."""
+    d = capi_dir("consumers")
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "mlp")
+    with mx.cpu():
+        mod = mx.mod.Module(mx.models.get_mlp(num_classes=2, hidden=(8,)),
+                            context=mx.cpu())
+        mod.bind(data_shapes=[("data", (2, 10))],
+                 label_shapes=[("softmax_label", (2,))])
+        mod.init_params(mx.init.Uniform(0.1))
+        mod.save_checkpoint(prefix, 0)
+    files = dict(MXTPU_SYMBOL_JSON=prefix + "-symbol.json",
+                 MXTPU_PARAMS_FILE=prefix + "-0000.params", MXTPU_SCRATCH=d)
+    jobs = {prog: ([os.path.join(bindir, prog)],
+                   dict(env, **dict(files, **extra)), ok)
+            for prog, ok, extra in (("capi_smoke", "CAPI SMOKE OK", {}),
+                                    ("capi_threads", "CAPI THREADS OK", {}),
+                                    ("capi_parity", "capi_parity OK",
+                                     {"MXNET_CAPI_CONTEXT": "cpu"}))}
+    runs = {prog: [] for prog in jobs}
+    for _ in range(CAPI_RUNS):
+        # the three together (each writes only its own files)
+        for prog, secs in run_c_together(jobs).items():
+            runs[prog].append(round(secs, 2))
+    return runs
+
+
+def phase_capi(torch, seed, smi):
+    """Phase 16: the flat C ABI.  ``make capi-torch`` builds the port's
+    library (``mxnet_tpu_torch/csrc/c_api.cc`` over the unchanged
+    ``include/mxtpu/c_api.h``) and the C programs against it, then (a)
+    ResNet-50 predict, (b) the full-width LM's training, (c) an NVRTC
+    kernel, (d) the unchanged consumers, each a C host process."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import libinfo
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = subprocess.run(["python3-config", "--includes", "--ldflags",
+                          "--embed"], capture_output=True, text=True)
+    log("capi: python3-config --includes --ldflags --embed (rc %d): %s"
+        % (cfg.returncode, " ".join(cfg.stdout.split())))
+    t0 = time.perf_counter()
+    bindir = libinfo.build_capi()
+    build_s = time.perf_counter() - t0
+    log("capi: make capi-torch %.2f s" % build_s)
+    env = capi_env(here)
+    out = {"build_s": build_s}
+    out["predict"] = capi_predict(torch, mx, bindir, env, seed)
+    r = out["predict"]
+    log("capi (a) image-classification-predict, ResNet-50 batch %d: %r, "
+        "the same line as the port's Predictor; the C process %.2f s"
+        % (r["batch"], r["line"], r["seconds"]))
+    torch.cuda.empty_cache()
+    out["lm"] = capi_train_lm(torch, mx, bindir, env, seed)
+    r = out["lm"]
+    log("capi (b) train_lm, the LM at %s batch %d, %d steps: parameters "
+        "bit for bit the Python twin's (%d arrays, largest update %g); "
+        "flash forward launches: C process %d, twin %d; step ms C %s, twin "
+        "%s; the C process %.2f s; on %s"
+        % (json.dumps(TRAIN), TRAIN_BATCH, CAPI_TRAIN_STEPS, r["arrays"],
+           r["max_update"], r["c_launches"]["flash_attention"],
+           r["twin_flash_launches"],
+           ["%.2f" % t for t in r["c_step_ms"]],
+           ["%.2f" % t for t in r["twin_step_ms"][:CAPI_TRAIN_STEPS]],
+           r["seconds"], smi))
+    log("capi (b) step time over %d steps, the first not counted: C "
+        "median %.2f ms (%s), twin median %.2f ms (%s); C / twin %.4f; on %s"
+        % (CAPI_TIMED_STEPS, r["c_median_ms"],
+           ", ".join("%.2f" % t for t in r["c_timed_step_ms"]),
+           r["twin_median_ms"],
+           ", ".join("%.2f" % t for t in r["twin_step_ms"]),
+           r["c_median_ms"] / r["twin_median_ms"], smi))
+    torch.cuda.empty_cache()
+    out["rtc"] = capi_rtc(torch, bindir, env, seed)
+    r = out["rtc"]
+    log("capi (c) rtc_saxpy n=%d: %g ulps (bound %g), max |diff| %g, "
+        "launches in the C process %s; the C process %.2f s"
+        % (r["n"], r["ulps"], CAPI_RTC_ULPS, r["max_abs_err"],
+           r["c_launches"]["rtc"], r["seconds"]))
+    out["consumers"] = capi_consumers(mx, bindir, env)
+    log("capi (d) the unchanged consumers, %d runs each, every one exit 0 "
+        "with its OK line: seconds %s" % (CAPI_RUNS,
+                                          json.dumps(out["consumers"])))
+    out["seconds"] = time.perf_counter() - t_phase
+    log("capi: phase 16 %.2f s" % out["seconds"])
+    shutil.rmtree(capi_dir(), ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6701,6 +7104,7 @@ def main(argv=None):
         lstm = run("13", phase_lstm, torch, timer, args.seed, smi)
         rcnn = run("14", phase_rcnn, torch, timer, args.seed, smi)
         dp = run("15", phase_dp, torch, args.seed, smi)
+        capi = run("16", phase_capi, torch, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -6763,6 +7167,10 @@ def main(argv=None):
     dp_flash = sum(c["flash_attention"] for c in dp_lm)
     launches["fused_opt"] += dp_main
     launches["flash_attention"] += dp_flash
+    # the C ABI (phase 16): the LM's steps driven by train_lm, counted
+    # by the C process's own wrappers
+    capi_flash = capi["lm"]["c_launches"]["flash_attention"]
+    launches["flash_attention"] += capi_flash
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
     by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main
@@ -6794,6 +7202,8 @@ def main(argv=None):
         resnet_other[name + "_sweep_gate"] = r["gate"]["launches"]
     transformer_sweeps = train["float32"]["launches"]["fused_opt"] \
         + train["bfloat16"]["launches"]["fused_opt"]
+    transformer_flash = train["float32"]["launches"]["flash_attention"] \
+        + train["bfloat16"]["launches"]["flash_attention"]
     # by body, over every path in launches_by_path
     sweep_by_body = {1: transformer_sweeps}
     for c in [resnet[d]["launches"] for d in ("float32", "bfloat16")] \
@@ -6871,8 +7281,13 @@ def main(argv=None):
                 d: train["float32"]["flash_attention_by_dtype"][d]
                 + train["bfloat16"]["flash_attention_by_dtype"][d]
                 for d in ("float32", "bfloat16")}
-            k["launches_by_dtype"]["float32"] += dp_flash
+            k["launches_by_dtype"]["float32"] += dp_flash + capi_flash
             k["launches_by_device"] = by_device["flash_attention"]
+            k["launches_by_path"] = {
+                "transformer_training": transformer_flash,
+                "data_parallel_training": dp_flash,
+                "c_abi_lm_training": capi_flash}
+            k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
                                 shape={"M": 960, "K": 512, "N": 8192,
@@ -6891,16 +7306,22 @@ def main(argv=None):
                 "fp8_e4m3": serve["launches"]["quantized_matmul_by_qdtype"][
                     "fp8_e4m3"]}
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
-    # its launches are the imperative path's (phase 8)
+    # its launches are the imperative path's (phase 8) and the C ABI's
+    # rtc_saxpy push (phase 16, counted by the C process)
     rtc_main = next(r for r in rtc_res["rows"] if r["kernel"] == "saxpy"
                     and r["n"] == RTC_TIMED_N and not r["offset"])
     kernels.append({
         "name": "rtc", "route": "cuda", "compiler": "nvrtc",
         "source": "mxnet_tpu_torch/kernels/rtc_kernels.py",
         "replaces": "mxnet_tpu/rtc.py:79",
-        "launches": imperative["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rtc_res["rows"]
-                           if r["dtype"] == "float32"),
+        "launches": imperative["launches"]
+        + capi["rtc"]["c_launches"]["rtc"],
+        "launches_by_path": {
+            "imperative": imperative["launches"],
+            "c_abi_rtc_saxpy": capi["rtc"]["c_launches"]["rtc"]},
+        "max_abs_err": max([r["max_abs_err"] for r in rtc_res["rows"]
+                            if r["dtype"] == "float32"]
+                           + [capi["rtc"]["max_abs_err"]]),
         "ms": rtc_main["ms"], "plain_ms": rtc_main["plain_ms"],
         "bound_ms": rtc_main["bound_ms"], "bound_by": rtc_main["bound_by"],
         "library_ms": rtc_main["library_ms"],
@@ -6917,6 +7338,7 @@ def main(argv=None):
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
+                       "capi": capi,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -54,6 +54,8 @@ arrays and the entry points (``Predictor``, ``GenerationEngine``,
 """
 from __future__ import annotations
 
+__version__ = "0.1.0"
+
 from .base import MXNetError                      # noqa: F401
 from .context import Context, cpu, gpu, tpu     # noqa: F401
 from .context import current_context             # noqa: F401

@@ -1048,6 +1048,16 @@ class Executor:
             self._program.trace, {n: a.data for n, a in self.arg_dict.items()},
             {n: a.data for n, a in self.aux_dict.items()}, self._wrt_names())
 
+    def debug_str(self):
+        """The symbol's ``debug_str`` and the megabytes of the bound
+        arguments, gradients and aux states (GraphExecutor::Print)."""
+        total = sum(a.size * a.data.element_size()
+                    for a in self.arg_arrays + self.aux_arrays
+                    + [g for g in self.grad_arrays if g is not None])
+        return "\n".join([self._symbol.debug_str(), "",
+                          "Total %d MB allocated (args+grads+aux)"
+                          % (total // (1 << 20))])
+
     # -- monitor (MXExecutorSetMonitorCallback parity) ------------------
     def set_monitor_callback(self, callback):
         """``callback(name, NDArray)`` for every op output of each

@@ -600,9 +600,14 @@ def _stop_heartbeat():
 
 
 def _leave_group():
-    """At exit: stop the heartbeat, then leave the process group (NCCL's
-    communicators are freed before the interpreter tears down)."""
+    """At exit: stop the heartbeat and the stores' ``push_async``
+    workers, then leave the process group (NCCL's communicators are
+    freed before the interpreter tears down).  No thread of ours may
+    outlive the interpreter: one freeing a tensor during finalization
+    aborts the process (``overlap.close_launchers``)."""
     _stop_heartbeat()
+    from .parallel.overlap import close_launchers
+    close_launchers()
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

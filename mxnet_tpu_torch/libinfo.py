@@ -149,3 +149,42 @@ def _find_lib_locked(build):
 
     _LIB = lib
     return _LIB
+
+
+#: the port's C ABI library and the C programs built against it
+CAPI_LIB_PATH = os.path.join(_ROOT, "lib", "libmxtpu_torch_capi.so")
+CAPI_BIN_DIR = os.path.join(_ROOT, "lib", "torch")
+
+
+class CapiBuildError(RuntimeError):
+    """``make capi-torch`` failed; ``missing_python_headers`` says
+    whether it failed for want of ``Python.h``."""
+
+    def __init__(self, message, missing_python_headers=False):
+        super().__init__(message)
+        self.missing_python_headers = missing_python_headers
+
+
+def build_capi(timeout=600):
+    """``make capi-torch``: the port's C ABI library
+    (``lib/libmxtpu_torch_capi.so``, ``mxnet_tpu_torch/csrc/c_api.cc``)
+    and the C programs linked against it under ``lib/torch/``, under the
+    file lock ``lib/libmxtpu_torch_capi.so.lock``, so processes that
+    start together take turns.  Returns ``CAPI_BIN_DIR``; a failed build
+    raises :class:`CapiBuildError` with make's output."""
+    import fcntl
+    import shutil
+    for tool in ("make", "g++", "cc"):
+        if shutil.which(tool) is None:
+            raise CapiBuildError("no %s to build the C ABI" % tool)
+    os.makedirs(os.path.dirname(CAPI_LIB_PATH), exist_ok=True)
+    with open(CAPI_LIB_PATH + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        out = subprocess.run(["make", "-s", "-j4", "-C", _ROOT, "capi-torch"],
+                             capture_output=True, text=True,
+                             timeout=timeout)
+    if out.returncode != 0:
+        text = (out.stdout + out.stderr)[-4000:]
+        raise CapiBuildError("make capi-torch failed:\n" + text,
+                             missing_python_headers="Python.h" in text)
+    return CAPI_BIN_DIR

@@ -90,7 +90,7 @@ class NDArray:
     tensor is first moved to that context's device.
     """
 
-    __slots__ = ("_data", "_ctx", "_writable")
+    __slots__ = ("_data", "_ctx", "_writable", "__weakref__")
 
     def __init__(self, data, ctx=None, writable=True):
         if not isinstance(data, torch.Tensor):

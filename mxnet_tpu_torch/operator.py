@@ -369,7 +369,10 @@ class Custom(OperatorProperty):
         return to_t(ins), to_t(outs), to_t(aux)
 
     def infer_type(self, in_types):
-        res = self.prop.infer_type(list(in_types))
+        # the user's prop sees numpy dtypes, as its arrays are numpy
+        res = self.prop.infer_type(
+            [np.dtype(_NP_DTYPES[t]) if isinstance(t, torch.dtype)
+             and t in _NP_DTYPES else t for t in in_types])
         if len(res) == 2:
             ins, outs = res
             aux = [np.float32] * len(self.list_auxiliary_states())

@@ -114,6 +114,15 @@ class QuantizedDense(OperatorProperty):
     def infer_shape(self, in_shapes):
         return _dense_shapes(self, in_shapes, extra_args=("scale",))
 
+    def infer_type(self, in_types):
+        from ..kernels.quantize import storage_dtype
+        wide = next((t for i, t in enumerate(in_types)
+                     if t is not None and i not in (1, 2)), None)
+        types = [wide, storage_dtype(self.param.qdtype), torch.float32]
+        if not self.param.no_bias:
+            types.append(wide)
+        return types, [wide], []
+
     def forward(self, inputs, aux, is_train, rng):
         from ..kernels.quantize import STORAGE_DTYPES, quantized_matmul
         if inputs[1].dtype != STORAGE_DTYPES[self.param.qdtype]:
@@ -734,6 +743,11 @@ class Cast(OperatorProperty):
     """cast-inl.h: the input in ``dtype`` (a numpy dtype name; its
     gradient is cast back to the input's dtype by autograd)."""
     param_cls = _CastParam
+
+    def infer_type(self, in_types):
+        known = [t for t in in_types if t is not None]
+        return ([known[0] if known else None],
+                [_torch_dtype(self.param.dtype)], [])
 
     def forward(self, inputs, aux, is_train, rng):
         return [inputs[0].to(_torch_dtype(self.param.dtype))], None

@@ -104,6 +104,15 @@ class OperatorProperty:
         in_shapes = require_known(self.op_name, in_shapes, self.list_arguments())
         return in_shapes, [in_shapes[0]] * self.num_outputs, []
 
+    def infer_type(self, in_types):
+        """Default: all inputs, outputs and aux states take the first
+        known input type (None when no input type is known)."""
+        known = [t for t in in_types if t is not None]
+        base = known[0] if known else None
+        return ([base] * len(self.list_arguments()),
+                [base] * self.num_outputs,
+                [base] * len(self.list_auxiliary_states()))
+
     # -- compute -----------------------------------------------------------
     def forward(self, inputs, aux, is_train, rng):
         raise NotImplementedError(self.op_name)

@@ -41,6 +41,7 @@ import hashlib
 import os
 import queue as _queue
 import threading
+import weakref
 
 import numpy as _np
 import torch
@@ -54,11 +55,26 @@ __all__ = ["DevicePrefetcher", "HostToDevice", "prefetch_enabled",
 #: set at interpreter exit: workers stop taking work and submit() runs
 #: inline, so nothing is dropped and no daemon thread outlives its queue
 _SHUTTING_DOWN = [False]
+#: every AsyncLauncher, so exit can stop their workers
+_LIVE_LAUNCHERS = weakref.WeakSet()
+
+
+def close_launchers():
+    """Stop the worker thread of every :class:`AsyncLauncher` and wait
+    for it (a later ``submit`` starts a new one).  A worker must not
+    outlive the interpreter: Python 3.12 ends a daemon thread that
+    takes the GIL during finalization with ``pthread_exit``, and when
+    that thread is inside a tensor's deallocation (which releases the
+    GIL) the forced unwind through PyTorch's ``noexcept`` frame calls
+    ``std::terminate``."""
+    for launcher in list(_LIVE_LAUNCHERS):
+        launcher.close()
 
 
 @atexit.register
 def _mark_shutdown():
     _SHUTTING_DOWN[0] = True
+    close_launchers()
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +396,7 @@ class AsyncLauncher(object):
         self._idle = threading.Condition(self._lock)
         self._exc = None
         self._thread = None
+        _LIVE_LAUNCHERS.add(self)
 
     def _ensure_thread(self):
         if self._thread is not None and self._thread.is_alive():
@@ -406,6 +423,9 @@ class AsyncLauncher(object):
                     if self._exc is None:
                         self._exc = exc
             finally:
+                # an idle worker holds nothing: the closure's tensors are
+                # freed here, not when the thread ends (close_launchers)
+                fn = None
                 with self._lock:
                     self._pending -= 1
                     if self._pending == 0:
@@ -447,9 +467,11 @@ class AsyncLauncher(object):
             raise exc
 
     def close(self):
-        self._queue.put(None)
+        """Stop the worker after the closures already queued, and wait
+        for it (at most 5 s); a later ``submit`` starts a new one."""
         t = self._thread
-        if t is not None:
+        if t is not None and t.is_alive():
+            self._queue.put(None)
             t.join(timeout=5.0)
         self._thread = None
 

@@ -19,7 +19,24 @@ from . import ndarray as nd
 from . import symbol as sym
 from .context import Context, resolve
 
-__all__ = ["Predictor"]
+__all__ = ["Predictor", "load_ndarray_file"]
+
+
+def load_ndarray_file(fname_or_bytes):
+    """A saved 0x112 file (a path, or its bytes) as a name -> NDArray
+    dict, or a list when it has no names (MXNDListCreate): arrays land
+    on the current context.  Bytes go through a temporary file, which is
+    removed."""
+    if isinstance(fname_or_bytes, (bytes, bytearray)):
+        import tempfile
+        fd, tmp = tempfile.mkstemp(suffix=".params")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(fname_or_bytes)
+            return nd.load(tmp)
+        finally:
+            os.unlink(tmp)
+    return nd.load(os.fspath(fname_or_bytes))
 
 
 class Predictor(object):

@@ -25,6 +25,10 @@ takes CUDA C again:
   ``out_dtypes`` (input 0's by default) on the inputs' device.  A CUDA
   body cannot run on the CPU: a CPU tensor raises, as does
   ``interpret=True``, kept in the signature only.
+- ``input_names``/``output_names`` name the kernel's parameters (and
+  their constants) instead of ``in0``, ``out0``, ..., as the reference
+  MXNet's ``Rtc(name, inputs, outputs, kernel)`` names them after the
+  caller's arrays (``MXRtcCreate``).
 - ``pallas=False``: ``fn`` is a function of torch tensors, called
   eagerly (the JAX package's ``jax.jit(fn)``), on any device.
 
@@ -149,10 +153,13 @@ class Rtc(object):
         shape and dtype, for every output).
     interpret : kept for the JAX package's signature; a CUDA body has no
         interpret mode, so ``interpret=True`` with ``pallas=True`` raises.
+    input_names / output_names : the CUDA C parameter names (default
+        ``in0``, ``in1``, ... and ``out0``, ...).
     """
 
     def __init__(self, fn, n_outputs=1, pallas=False, out_shapes=None,
-                 out_dtypes=None, interpret=None):
+                 out_dtypes=None, interpret=None, input_names=None,
+                 output_names=None):
         self._pallas = bool(pallas)
         if self._pallas and not isinstance(fn, str):
             raise MXNetError(
@@ -164,6 +171,16 @@ class Rtc(object):
                              "interpret=True is not supported")
         self._fn = fn
         self._n_out = int(n_outputs)
+        self._input_names = list(input_names) if input_names else None
+        self._output_names = list(output_names) if output_names else None
+        names = (self._input_names or []) + (self._output_names or [])
+        bad = [n for n in names if not n.isidentifier()]
+        if bad or len(set(names)) != len(names):
+            raise MXNetError("Rtc: parameter names must be distinct C "
+                             "identifiers, got %s" % names)
+        if self._output_names and len(self._output_names) != self._n_out:
+            raise MXNetError("Rtc: %d outputs but %d output names"
+                             % (self._n_out, len(self._output_names)))
         self._out_shapes = out_shapes
         self._out_dtypes = out_dtypes
         self._compiled = {}
@@ -189,12 +206,16 @@ class Rtc(object):
             raise MXNetError("Rtc: %d outputs, but %d out_shapes and %d "
                              "out_dtypes" % (self._n_out, len(out_shapes),
                                              len(out_dtypes)))
-        source = kernel_source(
-            self._fn,
-            [("in%d" % i, s, d) for i, (s, d) in
-             enumerate(zip(in_shapes, in_dtypes))],
-            [("out%d" % i, s, d) for i, (s, d) in
-             enumerate(zip(out_shapes, out_dtypes))])
+        in_names = self._input_names or ["in%d" % i
+                                         for i in range(len(in_shapes))]
+        out_names = self._output_names or ["out%d" % i
+                                           for i in range(self._n_out)]
+        if len(in_names) != len(in_shapes):
+            raise MXNetError("Rtc: %d inputs pushed but %d input names"
+                             % (len(in_shapes), len(in_names)))
+        source = kernel_source(self._fn,
+                               list(zip(in_names, in_shapes, in_dtypes)),
+                               list(zip(out_names, out_shapes, out_dtypes)))
         t0 = time.perf_counter()
         cubin = nvrtc.compile_cubin(source)
         return _Kernel(source, cubin, out_shapes, out_dtypes,

@@ -11,15 +11,22 @@ saved by either package loads in the other.  The arithmetic operators
 :func:`pow`) create the binary ops with another Symbol and the scalar
 ops with a number, as there; :meth:`Symbol.grad` builds the gradient
 symbol, whose op runs the base graph under ``torch.autograd.grad``.
+Attributes (:meth:`Symbol.attr`, ``list_attr``), ``get_internals``,
+iteration over the outputs, :meth:`Symbol.infer_type` (in torch
+dtypes), pickling through the JSON and ``debug_str`` are the JAX
+package's.
 """
 from __future__ import annotations
 
 import json
 
+import torch
+
 from .base import MXNetError
 from .attribute import AttrScope
 from .dparam import parse_tuple
 from .name import NameManager
+from .ndarray import _torch_dtype
 from .ops.registry import OP_REGISTRY, IncompleteShape, create_operator
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json", "maximum",
@@ -77,6 +84,18 @@ class Symbol:
             return self._heads[0][0].name
         return None
 
+    def attr(self, key):
+        """The head node's attribute ``key``, or None."""
+        return self._heads[0][0].attrs.get(key)
+
+    def _set_attr(self, **kwargs):
+        for k, v in kwargs.items():
+            self._heads[0][0].attrs[k] = str(v)
+
+    def list_attr(self):
+        """The head node's attributes."""
+        return dict(self._heads[0][0].attrs)
+
     # -- traversal ---------------------------------------------------------
     def _topo(self):
         return _topo_order([n for n, _ in self._heads])
@@ -102,6 +121,14 @@ class Symbol:
                     out.append("%s_%s" % (node.name, aux))
         return out
 
+    def get_internals(self):
+        """A group of every output of every node, in topological order."""
+        heads = []
+        for node in self._topo():
+            for i in range(node.num_outputs):
+                heads.append((node, i))
+        return Symbol(heads)
+
     def __getitem__(self, index):
         if isinstance(index, str):
             names = self.list_outputs()
@@ -110,11 +137,21 @@ class Symbol:
             index = names.index(index)
         return Symbol([self._heads[index]])
 
+    def __len__(self):
+        return len(self._heads)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._heads)))
+
     def __repr__(self):
         name = self.name
         return "<Symbol %s>" % (name if name else "Grouped")
 
     # -- composition sugar -------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        raise MXNetError("Symbol composition via __call__ is not supported; "
+                         "pass symbols as op arguments instead")
+
     def _binop(self, other, op_name, scalar_op, reverse=False):
         if isinstance(other, Symbol):
             lhs, rhs = (other, self) if reverse else (self, other)
@@ -239,6 +276,48 @@ class Symbol:
                     and all(s is not None for s in aux_shapes))
         return arg_shapes, out_shapes, aux_shapes, complete
 
+    def infer_type(self, *args, **kwargs):
+        """Forward type propagation through each op's ``infer_type``
+        (Cast, QuantizedDense, Custom): ``(arg_types, out_types,
+        aux_types)`` as torch dtypes.  Types are given positionally or
+        by name, as numpy or torch dtypes or names; an argument left
+        unknown takes the first known type (float32 when none is)."""
+        arg_names = self.list_arguments()
+        known = {}
+        for name, t in zip(arg_names, args):
+            if t is not None:
+                known[name] = _torch_dtype(t)
+        for name, t in kwargs.items():
+            if name not in arg_names:
+                raise MXNetError("infer_type: unknown argument %r; arguments "
+                                 "are %s" % (name, arg_names))
+            known[name] = _torch_dtype(t)
+        base = next(iter(known.values()), torch.float32)
+
+        topo = self._topo()
+        types = {}
+        for node in topo:
+            if node.is_variable:
+                types[(id(node), 0)] = known.get(node.name, base)
+        aux_types = []
+        for node in topo:
+            if node.is_variable:
+                continue
+            in_types = [types.get((id(c), ci)) for c, ci in node.inputs]
+            full_in, outs, aux = node.op.infer_type(in_types)
+            for (c, ci), t in zip(node.inputs, full_in):
+                if types.get((id(c), ci)) is None and t is not None:
+                    types[(id(c), ci)] = _torch_dtype(t)
+            for i, t in enumerate(outs):
+                types[(id(node), i)] = base if t is None else _torch_dtype(t)
+            aux_types.extend(base if t is None else _torch_dtype(t)
+                             for t in aux)
+        node_by_name = {n.name: n for n in topo if n.is_variable}
+        arg_types = [types.get((id(node_by_name[n]), 0), base)
+                     for n in arg_names]
+        out_types = [types.get((id(n), i), base) for n, i in self._heads]
+        return arg_types, out_types, aux_types
+
     # -- grad (Symbol::Grad symbol.cc:569) ---------------------------------
     def grad(self, wrt):
         """The gradient symbol: its arguments are this symbol's arguments
@@ -271,8 +350,10 @@ class Symbol:
              aux_states=None):
         """Bind to arrays: ``args``, ``args_grad`` and ``aux_states`` are
         lists or name->NDArray dicts (``executor.Executor``).  Placement
-        by ``group2ctx`` and memory sharing with another executor are not
-        ported."""
+        by ``group2ctx`` (ROADMAP.md queue 1 item 3), memory sharing with
+        another executor, and the JAX package's bind-time lint
+        (``validate=`` and ``Symbol.validate``, which run its
+        ``analysis`` passes; item 4 (g)) are not ported."""
         from .executor import Executor
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
@@ -303,6 +384,26 @@ class Symbol:
     def save(self, fname):
         with open(fname, "w") as fo:
             fo.write(self.tojson())
+
+    # -- pickling: the JSON is the state (the reference's Symbol
+    # __getstate__/__setstate__) --------------------------------------------
+    def __getstate__(self):
+        return {"handle": self.tojson()}
+
+    def __setstate__(self, state):
+        self._heads = load_json(state["handle"])._heads
+
+    def debug_str(self):
+        """One line a node in topological order: ``Variable:<name>`` or
+        ``<op>(<input>[<index>], ...) -> <name>``."""
+        lines = []
+        for n in self._topo():
+            if n.is_variable:
+                lines.append("Variable:%s" % n.name)
+            else:
+                ins = ", ".join("%s[%d]" % (c.name, ci) for c, ci in n.inputs)
+                lines.append("%s(%s) -> %s" % (n.op.op_name, ins, n.name))
+        return "\n".join(lines)
 
 
 class _GradProp:
@@ -360,8 +461,16 @@ class _GradProp:
         out_shapes = [barg[self._base_args.index(w)] for w in self._wrt]
         return full_in, out_shapes, list(baux)
 
+    def infer_type(self, in_types):
+        # the base graph's types; head gradients typed like its outputs
+        n = len(self._base_args)
+        known = {k: t for k, t in zip(self._base_args, in_types[:n])
+                 if t is not None}
+        barg, bout, baux = self._base.infer_type(**known)
+        out_types = [barg[self._base_args.index(w)] for w in self._wrt]
+        return list(barg) + list(bout), out_types, list(baux)
+
     def forward(self, inputs, aux, is_train, rng, trace):
-        import torch
         n = len(self._base_args)
         arg_vals = dict(zip(self._base_args, inputs[:n]))
         head_grads = list(inputs[n:])

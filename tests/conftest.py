@@ -46,3 +46,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
                    "skips without one")
+    config.addinivalue_line(
+        "markers", "slow: long-running; the tier-1 run deselects it "
+                   "(-m 'not slow')")

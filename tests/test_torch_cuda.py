@@ -1299,3 +1299,119 @@ def test_dp_trainer_on_the_card_matches_one_device(cuda, monkeypatch):
                        for k, w in got["f64"][i].items())
         assert dist("dp") <= 2 * dist("one"), (what, dist("dp"),
                                               dist("one"))
+
+
+# ----------------------------------------------------------------------
+# the flat C ABI on the card (lib/libmxtpu_torch_capi.so)
+# ----------------------------------------------------------------------
+def _capi_bin():
+    from mxnet_tpu_torch import libinfo
+    try:
+        return libinfo.build_capi()
+    except libinfo.CapiBuildError as err:
+        if err.missing_python_headers or "no " in str(err).split("\n")[0]:
+            pytest.skip(str(err).split("\n")[0])
+        raise
+
+
+def _capi_env(**extra):
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkgs = [p for p in sys.path if p.endswith(("site-packages",
+                                               "dist-packages"))]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root] + pkgs)
+    env.pop("MXNET_CAPI_CONTEXT", None)
+    env.update(extra)
+    return env
+
+
+def test_capi_consumers_on_the_card(cuda, tmp_path):
+    """The unchanged C consumers against the port's library:
+    ``capi_smoke`` and ``capi_threads`` on gpu(0) (no context set),
+    ``capi_parity`` with ``MXNET_CAPI_CONTEXT=cpu`` (it binds on
+    dev_type 1 itself)."""
+    import os
+    import subprocess
+    import mxnet_tpu_torch as mx
+    bindir = _capi_bin()
+    prefix = str(tmp_path / "mlp")
+    with mx.cpu():
+        mod = mx.mod.Module(mx.models.get_mlp(num_classes=2, hidden=(8,)),
+                            context=mx.cpu())
+        mod.bind(data_shapes=[("data", (2, 10))],
+                 label_shapes=[("softmax_label", (2,))])
+        mod.init_params(mx.init.Uniform(0.1))
+        mod.save_checkpoint(prefix, 0)
+    files = dict(MXTPU_SYMBOL_JSON=prefix + "-symbol.json",
+                 MXTPU_PARAMS_FILE=prefix + "-0000.params",
+                 MXTPU_SCRATCH=str(tmp_path))
+    for prog, ok, extra in (("capi_smoke", "CAPI SMOKE OK", {}),
+                            ("capi_threads", "CAPI THREADS OK", {}),
+                            ("capi_parity", "capi_parity OK",
+                             {"MXNET_CAPI_CONTEXT": "cpu"})):
+        proc = subprocess.run([os.path.join(bindir, prog)],
+                              env=_capi_env(**dict(files, **extra)),
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, (prog, proc.stdout,
+                                      proc.stderr[-2000:])
+        assert ok in proc.stdout and "terminate called" not in proc.stderr
+
+
+def test_capi_arrays_live_on_the_card(cuda, monkeypatch):
+    """Through the library loaded in this process: MXNDArrayCreate (no
+    context set) makes a gpu(0) array, MXNDArrayGetContext reports
+    (2, 0), and MXNDArrayGetData gives a host snapshot."""
+    import ctypes
+    from mxnet_tpu_torch import libinfo
+    _capi_bin()
+    monkeypatch.delenv("MXNET_CAPI_CONTEXT", raising=False)
+    lib = ctypes.CDLL(libinfo.CAPI_LIB_PATH)
+    lib.MXGetLastError.restype = ctypes.c_char_p
+    shape = (ctypes.c_uint32 * 2)(2, 3)
+    h = ctypes.c_void_p()
+    assert lib.MXNDArrayCreate(shape, 2, ctypes.byref(h)) == 0, \
+        lib.MXGetLastError()
+    vals = (ctypes.c_float * 6)(*range(6))
+    assert lib.MXNDArraySyncCopyFromCPU(h, vals, ctypes.c_size_t(6)) == 0
+    dev_type, dev_id = ctypes.c_int(-1), ctypes.c_int(-1)
+    assert lib.MXNDArrayGetContext(h, ctypes.byref(dev_type),
+                                   ctypes.byref(dev_id)) == 0
+    assert (dev_type.value, dev_id.value) == (2, 0)
+    arr = ctypes.cast(h.value, ctypes.py_object).value
+    assert arr.data.is_cuda
+    data = ctypes.POINTER(ctypes.c_float)()
+    assert lib.MXNDArrayGetData(h, ctypes.byref(data)) == 0
+    assert [data[i] for i in range(6)] == [0, 1, 2, 3, 4, 5]
+    assert lib.MXNDArrayFree(h) == 0
+
+
+def test_capi_rtc_saxpy_matches_plain(cuda, tmp_path):
+    """``example/cpp-torch/rtc_saxpy.c`` (a CUDA C body through
+    MXRtcCreate/MXRtcPush) within 1 float32 ulp of the plain
+    ``2.5 * x + y``, at a size that is not a multiple of the block."""
+    import os
+    import subprocess
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    bindir = _capi_bin()
+    n = (1 << 20) + 3
+    rng = np.random.RandomState(16)
+    # uniform in [0, 1), as chip_smoke.py's phase 8 holds saxpy to 1 ulp
+    x = rng.rand(n).astype(np.float32)
+    y = rng.rand(n).astype(np.float32)
+    x.tofile(str(tmp_path / "x.f32"))
+    y.tofile(str(tmp_path / "y.f32"))
+    proc = subprocess.run(
+        [os.path.join(bindir, "rtc_saxpy"), str(n), "x.f32", "y.f32",
+         "out.f32"], env=_capi_env(), cwd=str(tmp_path),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr[-2000:])
+    got = torch.from_numpy(np.fromfile(str(tmp_path / "out.f32"),
+                                       dtype=np.float32))
+    want = rk.saxpy_reference(torch.from_numpy(x).to(cuda),
+                              torch.from_numpy(y).to(cuda)).cpu()
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    assert got.numel() == n
+    assert float(((got - want).abs() / spacing).max()) <= 1.0
