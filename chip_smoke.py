@@ -302,6 +302,29 @@ line:
    ``gpu(0)`` and ``capi_parity`` with ``MXNET_CAPI_CONTEXT=cpu``, 3 runs
    each.  Every C process must exit 0 with its OK line and no abort.
 
+17. resilience: (a) ``ShardedTrainer(sentinel=True)`` on phase 7's LM
+   (SGD momentum, ``MXTPU_FUSED_OPT=kernel``), 6 steps, step 3's batch
+   holding a token outside the vocabulary (the LM's NaN ids would be id
+   0, a finite step, in both packages): step 3's parameters and momentum
+   bit for bit unchanged, ``skipped`` 1 and the scale halved, steps 1-2
+   bit for bit a sentinel-off trainer's, every sweep gated (the skipped
+   step's wrote nothing), the flash forward 8 times a step, and as many
+   synchronising calls a step as with the sentinel off
+   (``torch.cuda.set_sync_debug_mode("warn")``); ms a step on and off,
+   alternating; (b) in a child process, ``step_timeout_s=2`` with
+   ``step=2:kind=hang``: a ``ResilienceError`` and a flight dump naming
+   (``train_step``, 2) as pending; (c) Adam on the LM saved at step 3
+   (``save_checkpoint_versioned``), ``auto_resume`` in a new trainer and
+   3 more steps, bit for bit 6 uninterrupted steps, with the save and
+   restore times; (d) the sweep body generated from a user's
+   ``update_fn`` (sign, sqrt, clamp; NVRTC) at each of the LM's buckets
+   and at 16 M elements, bit for bit its plain version (a skip flag of
+   0 writes nothing), timed beside the bytes bound and NVRTC's compile
+   time, then 2 LM steps through the trainer with it bit for bit the
+   leafwise update; (e) ``Module.fit`` with ``MXTPU_SENTINEL=1`` over a
+   NaN batch: that step skipped, the parameters after it bit for bit
+   those before.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -7025,6 +7048,538 @@ def phase_capi(torch, seed, smi):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 17: resilience
+# ----------------------------------------------------------------------
+RES_STEPS = 6
+RES_BAD_STEP = 3
+RES_TIMED_ROUNDS = 3
+RES_TIMED_STEPS = 3
+RES_ADAM = dict(learning_rate=1e-3)
+RES_WATCHDOG_TIMEOUT_S = 2.0
+RES_CHILD_TIMEOUT_S = 240
+RES_MODULE_BATCH = 64
+RES_MODULE_FEATURES = 128
+SWEEP_GEN_BOUND = 0.05
+
+
+def res_dir(*parts):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(here, "build", "chip_smoke_resilience", *parts)
+
+
+def sign_clip_class(mx):
+    """A user's optimizer whose ``update_fn`` is its own (one state
+    vector, a sign and a clamp in its formula): the sweep runs it through
+    the body generated from that formula."""
+    if getattr(sign_clip_class, "cls", None) is None:
+        class SignClip(mx.optimizer.Optimizer):
+            elementwise = True
+
+            def __init__(self, momentum=0.9, bound=SWEEP_GEN_BOUND, **kw):
+                super().__init__(**kw)
+                self.momentum = momentum
+                self.bound = bound
+
+            def create_state_arrays(self, shape, dtype=None, device=None):
+                import torch
+                return torch.zeros(tuple(shape), device=device,
+                                   dtype=dtype or torch.float32)
+
+            def update_fn(self, weight, grad, state, lr, wd, t):
+                import torch
+                m = self.momentum * state + (1.0 - self.momentum) * grad
+                step = torch.clamp(torch.sign(m) * torch.sqrt(torch.abs(m)),
+                                   -self.bound, self.bound)
+                return weight - lr * (step + wd * weight), m
+        sign_clip_class.cls = SignClip
+    return sign_clip_class.cls
+
+
+def res_trainer(torch, params, opt, mode="kernel", **kw):
+    """The full-width LM's ShardedTrainer on the card from numpy weights,
+    its parameters, optimizer state and aux."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer as tf
+    os.environ["MXTPU_FUSED_OPT"] = mode
+    tr = mx.parallel.ShardedTrainer(tf.get_symbol(**TRAIN), opt,
+                                    ctx=torch.device(DEVICE), **kw)
+    p = tf.params_from_numpy(params, ctx=torch.device(DEVICE))
+    st = {n: opt.create_state_arrays(w.shape, w.dtype, w.device)
+          for n, w in p.items()}
+    st = {n: s for n, s in st.items() if s is not None}
+    return tr, p, st, {}
+
+
+def _snap(tree):
+    out = {}
+    for n, v in tree.items():
+        out[n] = tuple(x.clone() for x in v) if isinstance(v, tuple) \
+            else v.clone()
+    return out
+
+
+def _same(a, b):
+    """Names whose tensors (or tuple states) differ bit for bit."""
+    import torch
+    bad = []
+    for n in a:
+        x = a[n] if isinstance(a[n], tuple) else (a[n],)
+        y = b[n] if isinstance(b[n], tuple) else (b[n],)
+        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+            bad.append(n)
+    return bad
+
+
+def res_sentinel_lm(torch, seed, smi):
+    """(a) The sentinel on the full-width LM: 6 steps, step 3's batch
+    holding a token outside the vocabulary (the LM's ids are cast to
+    integers, so kind=nan's NaN ids would be id 0, a finite step in both
+    packages; an out-of-vocabulary id embeds as a row of NaN in both)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    S = TRAIN["seq_len"]
+    params = seeded_train_params(seed)
+    clean = train_batch(seed)
+    bad = {k: v.copy() for k, v in clean.items()}
+    bad["data"][1, 3] = TRAIN["vocab_size"]
+
+    def opt():
+        return mx.optimizer.create("sgd", rescale_grad=1.0 / (TRAIN_BATCH * S),
+                                   **TRAIN_SGD)
+    tr, p, st, aux = res_trainer(torch, params, opt(), sentinel=True)
+    off, po, so, ao = res_trainer(torch, params, opt())
+    b_clean, b_bad = tr.shard_batch(clean), tr.shard_batch(bad)
+    n_buckets = len(fo.plan_buckets(p))
+    torch.cuda.synchronize()
+    reset_counts()
+    fo.sweep.launches_gated = 0
+    fa.flash_attention_forward.launches_by_dtype.update(float32=0,
+                                                        bfloat16=0)
+    trail = []
+    for step in range(1, RES_STEPS + 1):
+        b = b_bad if step == RES_BAD_STEP else b_clean
+        gated0 = fo.sweep.launches_gated
+        p, st, aux, outs = tr.step(p, st, aux, b)
+        trail.append((_snap(p), _snap(st), tr.sentinel_stats(),
+                      fo.sweep.launches_gated - gated0))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    counts["fused_opt_gated"] = fo.sweep.launches_gated
+    counts["flash_attention_by_dtype"] = dict(
+        fa.flash_attention_forward.launches_by_dtype)
+    want = {"flash_attention": TRAIN["num_layers"] * RES_STEPS,
+            "fused_opt": n_buckets * RES_STEPS}
+    if {k: counts[k] for k in want} != want \
+            or counts["fused_opt_gated"] != n_buckets * RES_STEPS:
+        raise AssertionError("sentinel LM launches %s, want %s, every sweep "
+                             "gated" % (counts, want))
+    stats = [t[2] for t in trail]
+    if [s["skipped"] for s in stats] != [0, 0, 1, 1, 1, 1] \
+            or stats[2]["scale"] != stats[1]["scale"] / 2 \
+            or stats[-1]["last_good"] != RES_STEPS:
+        raise AssertionError("sentinel counters %s: want step %d skipped, "
+                             "the scale halved" % (stats, RES_BAD_STEP))
+    unchanged = _same(trail[1][0], trail[2][0]) + _same(trail[1][1],
+                                                        trail[2][1])
+    if unchanged:
+        raise AssertionError("the skipped step changed %s" % unchanged[:5])
+    if trail[2][3] != n_buckets:
+        raise AssertionError("the skipped step launched %d gated sweeps, "
+                             "want %d" % (trail[2][3], n_buckets))
+    moved = [n for n in p if torch.equal(p[n], trail[2][0][n])]
+    if len(moved) == len(p):
+        raise AssertionError("the steps after the skip moved nothing")
+    if not all(bool(torch.isfinite(v).all()) for v in p.values()):
+        raise AssertionError("non-finite parameters after the skip")
+    # steps 1-2 bit for bit a sentinel-off trainer's
+    for _ in range(2):
+        po, so, ao, _o = off.step(po, so, ao, b_clean)
+    diff = _same(trail[1][0], po) + _same(trail[1][1], so)
+    if diff:
+        raise AssertionError("sentinel on and off differ after 2 clean "
+                             "steps: %s" % diff[:5])
+    del trail
+    # synchronising calls a step, on and off
+    syncs = {}
+    for name, t, (pp, ss, aa) in (("on", tr, (p, st, aux)),
+                                  ("off", off, (po, so, ao))):
+        import warnings
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if DEVICE == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(2):
+                    pp, ss, aa, _o = t.step(pp, ss, aa, b_clean)
+            finally:
+                if DEVICE == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+        where = ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+                 for w in caught if "called a synchronizing" in str(w.message)]
+        syncs[name] = len(where)
+        syncs[name + "_at"] = sorted(set(where))
+        if name == "on":
+            p, st, aux = pp, ss, aa
+        else:
+            po, so, ao = pp, ss, aa
+    if syncs["on"] != syncs["off"]:
+        raise AssertionError("the sentinel adds synchronising calls: %s "
+                             "over 2 steps" % syncs)
+    # step time, sentinel on and off alternating
+    times = {"on": [], "off": []}
+    for _r in range(RES_TIMED_ROUNDS):
+        for name in ("on", "off"):
+            for _ in range(RES_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "on":
+                    p, st, aux, _o = tr.step(p, st, aux, b_clean)
+                else:
+                    po, so, ao, _o = off.step(po, so, ao, b_clean)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    out = {"launches": counts, "stats": stats, "buckets": n_buckets,
+           "syncs_two_steps": syncs,
+           "step_ms_on": float(np.median(times["on"])),
+           "step_ms_off": float(np.median(times["off"])),
+           "step_ms_on_all": times["on"], "step_ms_off_all": times["off"]}
+    log("resilience (a) sentinel on the LM at %s batch %d, SGD momentum "
+        "0.9, MXTPU_FUSED_OPT=kernel: step %d (a token outside the "
+        "vocabulary) skipped, parameters and momentum bit for bit "
+        "unchanged, scale %g -> %g; steps 1-2 bit for bit sentinel off; "
+        "launches %s (%d buckets, every sweep gated); synchronising calls "
+        "over 2 steps %s; ms a step sentinel on %.3f, off %.3f (median of "
+        "%d, alternating); on %s"
+        % (json.dumps(TRAIN), TRAIN_BATCH, RES_BAD_STEP, stats[1]["scale"],
+           stats[2]["scale"], json.dumps(counts), n_buckets,
+           json.dumps(syncs), out["step_ms_on"], out["step_ms_off"],
+           len(times["on"]), smi))
+    return out
+
+
+RES_WATCHDOG_CHILD = r"""
+import json, os, sys, time
+import chip_smoke as cs
+cs.DEVICE = sys.argv[1]
+cs.TRAIN = json.loads(sys.argv[3])
+cs.TRAIN_BATCH = int(sys.argv[4])
+import torch
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.resilience import ResilienceError
+from mxnet_tpu_torch.kernels import _build
+if cs.DEVICE == "cuda":
+    _build.build_all()
+params = cs.seeded_train_params(0)
+# a first step on the card initialises CUDA's libraries: take it on an
+# unwatched trainer, so the watched step 1 is a warm one
+warm, p, st, aux = cs.res_trainer(torch, params, mx.optimizer.create(
+    "sgd", learning_rate=0.1, momentum=0.9))
+warm.step(p, st, aux, warm.shard_batch(cs.train_batch(0)))
+del warm, p, st, aux
+opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9)
+tr, p, st, aux = cs.res_trainer(torch, params, opt,
+                                step_timeout_s=float(sys.argv[2]))
+b = tr.shard_batch(cs.train_batch(0))
+p, st, aux, _ = tr.step(p, st, aux, b)
+torch.cuda.synchronize() if cs.DEVICE == "cuda" else None
+os.environ["MXTPU_FAULT_SPEC"] = "step=2:kind=hang:seconds=600"
+t0 = time.perf_counter()
+try:
+    tr.step(p, st, aux, b)
+    got = {"raised": False}
+except ResilienceError as err:
+    got = {"raised": True, "kind": err.kind, "phase": err.phase,
+           "step": err.step, "rank": err.rank}
+got["seconds"] = time.perf_counter() - t0
+print("WATCHDOG " + json.dumps(got), flush=True)
+os._exit(0)
+"""
+
+
+def res_watchdog(torch, smi):
+    """(b) The step watchdog in a child process: the LM's step 2 hangs
+    (``step=2:kind=hang``) under ``step_timeout_s=2``: a ResilienceError,
+    and a flight dump naming (train_step, 2) as pending."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    flight_dir = res_dir("flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    os.makedirs(flight_dir)
+    env = dict(os.environ, MXTPU_TELEMETRY_DIR=flight_dir,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("MXTPU_FAULT_SPEC", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", RES_WATCHDOG_CHILD, DEVICE,
+         str(RES_WATCHDOG_TIMEOUT_S), json.dumps(TRAIN), str(TRAIN_BATCH)],
+        cwd=here, env=env,
+        capture_output=True, text=True, timeout=RES_CHILD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("WATCHDOG ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError("watchdog child: exit %d, stdout %r, stderr "
+                             "%s" % (proc.returncode, proc.stdout[-2000:],
+                                     proc.stderr[-4000:]))
+    got = json.loads(line[-1][len("WATCHDOG "):])
+    want = {"raised": True, "kind": "timeout", "phase": "train_step",
+            "step": 2, "rank": 0}
+    if {k: got.get(k) for k in want} != want \
+            or got["seconds"] > RES_WATCHDOG_TIMEOUT_S + 10:
+        raise AssertionError("watchdog child %s, want %s within %g s"
+                             % (got, want, RES_WATCHDOG_TIMEOUT_S + 10))
+    dumps = []
+    for path in sorted(os.listdir(flight_dir)):
+        if path.startswith("flight-rank") and path.endswith(".json"):
+            with open(os.path.join(flight_dir, path)) as f:
+                dumps.append(json.load(f))
+    named = [d for d in dumps if d.get("reason") == "watchdog_timeout"
+             and ("train_step", 2) in [(e["op"], e["seq"]) for e in
+                                       d["pending_collectives"]]]
+    if not named:
+        raise AssertionError("no flight dump names (train_step, 2) as "
+                             "pending: %s" % [
+                                 (d.get("reason"), d["pending_collectives"])
+                                 for d in dumps])
+    out = {"error": got, "dumps": len(dumps), "child_s": seconds,
+           "pending": named[0]["pending_collectives"],
+           "events_in_ring": len(named[0]["events"])}
+    log("resilience (b) watchdog: the child's step 2 hung, ResilienceError "
+        "%s after %.2f s (timeout %g s); flight dump pending %s, %d events "
+        "in its ring; the child process %.2f s; on %s"
+        % (json.dumps(got), got["seconds"], RES_WATCHDOG_TIMEOUT_S,
+           json.dumps(out["pending"]), out["events_in_ring"], seconds, smi))
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    return out
+
+
+def res_checkpoints(torch, seed, smi):
+    """(c) Adam on the full-width LM: save at step 3, auto_resume in a new
+    trainer, 3 more steps: bit for bit 6 uninterrupted steps."""
+    import mxnet_tpu_torch as mx
+    S = TRAIN["seq_len"]
+    params = seeded_train_params(seed)
+
+    def opt():
+        return mx.optimizer.create("adam", rescale_grad=1.0 / (TRAIN_BATCH
+                                                               * S),
+                                   **RES_ADAM)
+    ckdir = res_dir("ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    data = {"data": (TRAIN_BATCH, S)}
+    label = {"softmax_label": (TRAIN_BATCH, S)}
+    tr, p, st, aux = res_trainer(torch, params, opt())
+    b = tr.shard_batch(train_batch(seed))
+    for _ in range(RES_STEPS):
+        p, st, aux, _o = tr.step(p, st, aux, b)
+    torch.cuda.synchronize()
+    want_p, want_s = _snap(p), _snap(st)
+    del tr, p, st
+    tr1, p, st, aux = res_trainer(torch, params, opt())
+    for _ in range(RES_STEPS // 2):
+        p, st, aux, _o = tr1.step(p, st, aux, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr1.save_checkpoint_versioned(ckdir, p, st, aux)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _d, fs in os.walk(ckdir) for f in fs)
+    del tr1, p, st
+    tr2, _p, _s, _a = res_trainer(torch, params, opt())
+    del _p, _s
+    t0 = time.perf_counter()
+    p, st, aux, step = tr2.auto_resume(ckdir, data, label_shapes=label)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != RES_STEPS // 2 or tr2.num_update != step:
+        raise AssertionError("auto_resume step %s, num_update %d"
+                             % (step, tr2.num_update))
+    where = {str(v.device) for v in p.values()}
+    if where != {str(tr2.device)}:
+        raise AssertionError("restored parameters on %s, the trainer on %s"
+                             % (where, tr2.device))
+    for _ in range(RES_STEPS - step):
+        p, st, aux, _o = tr2.step(p, st, aux, b)
+    torch.cuda.synchronize()
+    diff = _same(want_p, p) + _same(want_s, st)
+    if diff:
+        raise AssertionError("resumed run differs from the uninterrupted "
+                             "one: %s" % diff[:5])
+    out = {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes,
+           "path": os.path.relpath(path, res_dir())}
+    log("resilience (c) checkpoints, Adam on the LM: saved at step %d "
+        "(%.1f MB, host format) in %.3f s, auto_resume in a new trainer in "
+        "%.3f s (on %s), %d more steps bit for bit %d uninterrupted steps "
+        "(%d arrays and their two states); on %s"
+        % (step, nbytes / 2 ** 20, save_s, restore_s, tr2.device,
+           RES_STEPS - step, RES_STEPS, len(want_p), smi))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def res_generated_sweep(torch, timer, seed, smi):
+    """(d) The sweep body generated from a user's update_fn: at every
+    bucket of the LM and at 16 M elements, bit for bit its plain version
+    on the card (and a skip flag of 0 writes nothing), timed beside the
+    bytes bound and NVRTC's compile time; then 2 LM steps through the
+    trainer with it, bit for bit the leafwise update."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.kernels import sweep_codegen as cg
+    SignClip = sign_clip_class(mx)
+    S = TRAIN["seq_len"]
+    opt = SignClip(learning_rate=0.01, rescale_grad=1.0 / (TRAIN_BATCH * S),
+                   clip_gradient=10.0)
+    if fo.sweep_body(opt) != fo.GENERATED:
+        raise AssertionError("the user's optimizer did not take the "
+                             "generated body")
+    prog = cg.program(opt, preprocess=True)
+    shapes = train_param_shapes()
+    metas = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
+    sizes = [sum(int(np.prod(shapes[n])) for n in bk)
+             for bk in fo.plan_buckets(metas)]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 17)
+    rows = []
+    for n in sorted(set(sizes)) + [SWEEP_N]:
+        w = torch.randn(n, generator=gen, device=DEVICE) * 0.02
+        g = torch.randn(n, generator=gen, device=DEVICE) * (TRAIN_BATCH * S
+                                                             * 1e-3)
+        m = torch.randn(n, generator=gen, device=DEVICE) * 1e-4
+        err, ulp, repeat = _sweep_check(torch, fo, opt, w, g, [m], 0.01,
+                                        1e-4, 3)
+        if err != 0.0 or not repeat:
+            raise AssertionError("generated sweep n=%d: max err %g (%g ulp) "
+                                 "against the plain version, repeat bitwise "
+                                 "%s" % (n, err, ulp, repeat))
+        ww, mm = w.clone(), m.clone()
+        fo.sweep(opt, ww, g, [mm], 0.01, 1e-4, 3,
+                 ok=torch.zeros((), dtype=torch.int32, device=DEVICE))
+        if not (torch.equal(ww, w) and torch.equal(mm, m)):
+            raise AssertionError("generated sweep n=%d wrote under a skip "
+                                 "flag of 0" % n)
+        n_bytes = 5 * 4 * n          # w, m read and written, g read
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        one = torch.ones((), dtype=torch.int32, device=DEVICE)
+        r = {"n": n, "mbytes": 4 * n / 2 ** 20, "max_abs_err": err,
+             "max_ulp": ulp, "tol": "bitwise",
+             "ms": timer(lambda: fo.sweep(opt, w, g, [m], 0.01, 1e-4, 3)),
+             "ms_gated": timer(lambda: fo.sweep(opt, w, g, [m], 0.01, 1e-4,
+                                                3, ok=one)),
+             "plain_ms": timer(lambda: fo.sweep_reference(
+                 opt, w, g, [m], 0.01, 1e-4, 3)),
+             "library_ms": None, "library": "none (no one PyTorch call "
+                                             "computes this formula)",
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+        rows.append(r)
+        log("resilience (d) generated sweep n=%-9d (%.1f MB) bitwise; "
+            "kernel_ms=%.4f (skip flag 1: %.4f) plain_ms=%.4f library_ms="
+            "none bound_ms=%.5f (%s)" % (n, r["mbytes"], r["ms"],
+                                         r["ms_gated"], r["plain_ms"], b_ms,
+                                         b_by))
+    compile_s = cg.compile_seconds(prog)
+    # the trainer with the user's optimizer: kernel == leafwise, bitwise
+    params = seeded_train_params(seed)
+    batch = train_batch(seed)
+    runs = {}
+    for mode in ("kernel", ""):
+        o = SignClip(learning_rate=0.01, rescale_grad=1.0 / (TRAIN_BATCH * S),
+                     clip_gradient=10.0)
+        tr, p, st, aux = res_trainer(torch, params, o, mode=mode)
+        b = tr.shard_batch(batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(2):
+            p, st, aux, _o = tr.step(p, st, aux, b)
+        torch.cuda.synchronize()
+        runs[mode] = (_snap(p), _snap(st), read_counts(),
+                      len(fo.plan_buckets(p)))
+    diff = _same(runs["kernel"][0], runs[""][0]) + _same(runs["kernel"][1],
+                                                         runs[""][1])
+    if diff:
+        raise AssertionError("generated sweep in the trainer differs from "
+                             "leafwise: %s" % diff[:5])
+    counts, n_buckets = runs["kernel"][2], runs["kernel"][3]
+    if counts["fused_opt_by_body"] != {fo.GENERATED: 2 * n_buckets}:
+        raise AssertionError("trainer sweeps by body %s, want %d generated"
+                             % (counts["fused_opt_by_body"], 2 * n_buckets))
+    out = {"rows": rows, "compile_s": compile_s, "ops": prog.ops(),
+           "trainer_launches": counts, "buckets": n_buckets}
+    log("resilience (d) generated body of %s (ops %s): NVRTC compile %.3f s "
+        "(--fmad=false); 2 LM steps through ShardedTrainer bit for bit the "
+        "leafwise update, sweeps %s; on %s"
+        % (prog.name, ", ".join(prog.ops()), compile_s or 0.0,
+           json.dumps(counts["fused_opt_by_body"]), smi))
+    return out
+
+
+def res_module_fit(torch, seed, smi):
+    """(e) Module.fit with MXTPU_SENTINEL=1 on the card: three batches of
+    an MLP, the second NaN: that step skipped, the parameters after it
+    bit for bit those before it, finite after the third."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(seed + 23)
+    n, f = RES_MODULE_BATCH, RES_MODULE_FEATURES
+    x = rng.randn(3 * n, f).astype(np.float32)
+    y = rng.randint(0, 10, 3 * n).astype(np.float32)
+    x[n:2 * n] = np.nan
+    after = []
+
+    def grab(param):
+        after.append({k: v.asnumpy() for k, v in
+                      mod.get_params()[0].items()})
+    os.environ["MXTPU_SENTINEL"] = "1"
+    try:
+        mx.random.seed(seed)
+        mod = mx.mod.Module(mx.models.mlp.get_symbol(num_classes=10),
+                            context=mx.gpu(0) if DEVICE == "cuda"
+                            else mx.cpu())
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=n), num_epoch=1,
+                optimizer_params=(("learning_rate", 0.1),),
+                batch_end_callback=grab)
+    finally:
+        os.environ.pop("MXTPU_SENTINEL", None)
+    if len(after) != 3:
+        raise AssertionError("Module.fit ran %d batches" % len(after))
+    same = [k for k in after[0] if np.array_equal(after[0][k], after[1][k])]
+    moved = [k for k in after[0]
+             if not np.array_equal(after[1][k], after[2][k])]
+    finite = all(np.isfinite(v).all() for v in after[2].values())
+    if len(same) != len(after[0]) or not moved or not finite:
+        raise AssertionError("Module.fit sentinel: unchanged over the NaN "
+                             "batch %s of %d, moved after it %s, finite %s"
+                             % (same, len(after[0]), moved, finite))
+    log("resilience (e) Module.fit with MXTPU_SENTINEL=1 on %s: batch 2 of "
+        "3 NaN, skipped (its %d parameters bit for bit those after batch "
+        "1), batch 3 moved %d, all finite; on %s"
+        % (DEVICE, len(same), len(moved), smi))
+    return {"unchanged": len(same), "moved": len(moved)}
+
+
+def phase_resilience(torch, timer, seed, smi):
+    """Phase 17: the resilience slice on the card: (a) the in-step
+    sentinel on the LM, (b) the step watchdog in a child process, (c) the
+    trainer's checkpoints, (d) the generated sweep body, (e) Module.fit's
+    sentinel."""
+    t_phase = time.perf_counter()
+    out = {"sentinel": res_sentinel_lm(torch, seed, smi)}
+    torch.cuda.empty_cache()
+    out["watchdog"] = res_watchdog(torch, smi)
+    out["checkpoints"] = res_checkpoints(torch, seed, smi)
+    torch.cuda.empty_cache()
+    out["generated"] = res_generated_sweep(torch, timer, seed, smi)
+    torch.cuda.empty_cache()
+    out["module"] = res_module_fit(torch, seed, smi)
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("resilience: phase 17 %.2f s" % out["seconds"])
+    shutil.rmtree(res_dir(), ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7105,6 +7660,7 @@ def main(argv=None):
         rcnn = run("14", phase_rcnn, torch, timer, args.seed, smi)
         dp = run("15", phase_dp, torch, args.seed, smi)
         capi = run("16", phase_capi, torch, args.seed, smi)
+        res = run("17", phase_resilience, torch, timer, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -7171,6 +7727,16 @@ def main(argv=None):
     # by the C process's own wrappers
     capi_flash = capi["lm"]["c_launches"]["flash_attention"]
     launches["flash_attention"] += capi_flash
+    # resilience (phase 17): the sentinel LM's 6 steps (every sweep gated)
+    # and the LM's 2 steps through the body generated from a user's
+    # update_fn
+    from mxnet_tpu_torch.kernels.fused_opt import GENERATED as fo_generated
+    res_counts = [res["sentinel"]["launches"],
+                  res["generated"]["trainer_launches"]]
+    res_sweeps = sum(c["fused_opt"] for c in res_counts)
+    res_flash = sum(c["flash_attention"] for c in res_counts)
+    launches["fused_opt"] += res_sweeps
+    launches["flash_attention"] += res_flash
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
     by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main
@@ -7211,7 +7777,7 @@ def main(argv=None):
                for d in ("float32", "bfloat16")] \
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
-            + dp_runs + dp_lm \
+            + dp_runs + dp_lm + res_counts \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -7272,6 +7838,20 @@ def main(argv=None):
                 **{p: c["fused_opt"] for p, c in resnet_other.items()})
             k["launches_by_device"] = by_device["fused_opt"]
             k["data_parallel_routes_by_device"] = sweep_routes
+            k["launches_gated"] = res["sentinel"]["launches"][
+                "fused_opt_gated"]
+            k["launches_generated"] = sweep_by_body.get(fo_generated, 0)
+            k["launches_by_path"]["transformer_sentinel"] = \
+                res["sentinel"]["launches"]["fused_opt"]
+            k["launches_by_path"]["transformer_generated_body"] = \
+                res["generated"]["trainer_launches"]["fused_opt"]
+            gen = next(r for r in res["generated"]["rows"]
+                       if r["n"] == SWEEP_N)
+            k["generated"] = dict(
+                {t: gen[t] for t in timing_keys}, n=gen["n"],
+                ms_gated=gen["ms_gated"], library=gen["library"],
+                compile_s=res["generated"]["compile_s"],
+                ops=res["generated"]["ops"])
         elif k["name"] == "flash_attention":
             k["bfloat16"] = dict({t: fa_bf16[t] for t in timing_keys},
                                  shape={"B": fa_bf16["B"], "H": fa_bf16["H"],
@@ -7281,12 +7861,18 @@ def main(argv=None):
                 d: train["float32"]["flash_attention_by_dtype"][d]
                 + train["bfloat16"]["flash_attention_by_dtype"][d]
                 for d in ("float32", "bfloat16")}
-            k["launches_by_dtype"]["float32"] += dp_flash + capi_flash
+            k["launches_by_dtype"]["float32"] += dp_flash + capi_flash \
+                + res_flash
             k["launches_by_device"] = by_device["flash_attention"]
             k["launches_by_path"] = {
                 "transformer_training": transformer_flash,
                 "data_parallel_training": dp_flash,
-                "c_abi_lm_training": capi_flash}
+                "c_abi_lm_training": capi_flash,
+                "transformer_sentinel":
+                    res["sentinel"]["launches"]["flash_attention"],
+                "transformer_generated_body":
+                    res["generated"]["trainer_launches"][
+                        "flash_attention"]}
             k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
@@ -7338,7 +7924,7 @@ def main(argv=None):
                        "fused_opt": fo_rows, "train": train,
                        "resnet": resnet, "module": module, "feed": feed,
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
-                       "capi": capi,
+                       "capi": capi, "resilience": res,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

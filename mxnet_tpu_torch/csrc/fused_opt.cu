@@ -28,6 +28,13 @@
 // AdaDelta, 9 x 4 for RMSProp.  The arithmetic (about 10 to 30 flops an
 // element) is far below the float32 rate.
 //
+// Skip flag: ok, when not null, is one int32 on the card (the trainer's
+// in-step sentinel: every preprocessed gradient finite).  Where it reads 0
+// every thread returns before it writes anything, so the buffers keep
+// their old values bit for bit and the step is skipped without a pass of
+// its own.  A null ok takes the ungated instantiation: the same code as
+// before the flag existed.
+//
 // Layout: w, g, s0, s1, s2 are flat float32 vectors of n elements; the
 // states are the optimizer's in its create_state_arrays order (s0 the
 // momentum of SGD and NAG, Adam's mean, AdaGrad's history, RMSProp's n,
@@ -161,11 +168,13 @@ __device__ __forceinline__ void update_at(float* w, const float* g, float* s0, f
   if (S > 2) s2[i] = c;
 }
 
-template <int OPT>
+template <int OPT, bool GATED>
 __global__ void sweep_vec4(float* __restrict__ w, const float* __restrict__ g,
                            float* __restrict__ s0, float* __restrict__ s1,
-                           float* __restrict__ s2, long long n, Hyper h, float t) {
+                           float* __restrict__ s2, long long n, Hyper h, float t,
+                           const int* __restrict__ ok) {
   constexpr int S = states_of(OPT);
+  if (GATED && *ok == 0) return;
   if (OPT == kAdam || OPT == kAdamW) bias_corrections(h, t);
   const long long n4 = n / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -194,10 +203,12 @@ __global__ void sweep_vec4(float* __restrict__ w, const float* __restrict__ g,
     update_at<OPT>(w, g, s0, s1, s2, n4 * 4 + threadIdx.x, h);
 }
 
-template <int OPT>
+template <int OPT, bool GATED>
 __global__ void sweep_scalar(float* __restrict__ w, const float* __restrict__ g,
                              float* __restrict__ s0, float* __restrict__ s1,
-                             float* __restrict__ s2, long long n, Hyper h, float t) {
+                             float* __restrict__ s2, long long n, Hyper h, float t,
+                             const int* __restrict__ ok) {
+  if (GATED && *ok == 0) return;
   if (OPT == kAdam || OPT == kAdamW) bias_corrections(h, t);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
@@ -206,7 +217,7 @@ __global__ void sweep_scalar(float* __restrict__ w, const float* __restrict__ g,
 
 template <int OPT>
 void launch(float* w, const float* g, float* s0, float* s1, float* s2, long long n,
-            const Hyper& h, float t, cudaStream_t stream) {
+            const Hyper& h, float t, const int* ok, cudaStream_t stream) {
   constexpr int S = states_of(OPT);
   constexpr int kThreads = 256;
   constexpr long long kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
@@ -219,10 +230,15 @@ void launch(float* w, const float* g, float* s0, float* s1, float* s2, long long
   long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
-  if (vec)
-    sweep_vec4<OPT><<<(unsigned)blocks, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t);
+  const unsigned grid = (unsigned)blocks;
+  if (vec && ok)
+    sweep_vec4<OPT, true><<<grid, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t, ok);
+  else if (vec)
+    sweep_vec4<OPT, false><<<grid, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t, ok);
+  else if (ok)
+    sweep_scalar<OPT, true><<<grid, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t, ok);
   else
-    sweep_scalar<OPT><<<(unsigned)blocks, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t);
+    sweep_scalar<OPT, false><<<grid, kThreads, 0, stream>>>(w, g, s0, s1, s2, n, h, t, ok);
 }
 
 }  // namespace
@@ -231,14 +247,15 @@ void launch(float* w, const float* g, float* s0, float* s1, float* s2, long long
 // s2 the state vectors in the optimizer's order, unused ones may be null.
 // a/b and their complements are the optimizer's two decay coefficients
 // (see Hyper).  Scalars arrive already rounded to float32, as PyTorch rounds
-// a Python float against a float32 tensor.  Returns cudaGetLastError() after
+// a Python float against a float32 tensor.  ok: the skip flag (an int32 on
+// the card) or null.  Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for an unknown optimizer code, n < 1
 // or a missing state vector.
 extern "C" int mxtt_fused_opt_sweep(int opt, void* w, const void* g, void* s0, void* s1,
                                     void* s2, long long n, float lr, float wd, float t,
                                     float rescale, float clip, float momentum, float a,
                                     float one_minus_a, float b, float one_minus_b, float eps,
-                                    void* stream) {
+                                    const void* ok, void* stream) {
   if (n < 1 || opt < 0 || opt >= kNumOpts) return (int)cudaErrorInvalidValue;
   const int S = states_of(opt);
   if ((S > 0 && !s0) || (S > 1 && !s1) || (S > 2 && !s2)) return (int)cudaErrorInvalidValue;
@@ -248,17 +265,18 @@ extern "C" int mxtt_fused_opt_sweep(int opt, void* w, const void* g, void* s0, v
   float* ap = static_cast<float*>(s0);
   float* bp = static_cast<float*>(s1);
   float* cp = static_cast<float*>(s2);
+  const int* okp = static_cast<const int*>(ok);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (opt) {
-    case kSgd: launch<kSgd>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kSgdMomentum: launch<kSgdMomentum>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kAdam: launch<kAdam>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kNag: launch<kNag>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kAdamW: launch<kAdamW>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kAdaGrad: launch<kAdaGrad>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kRmsProp: launch<kRmsProp>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    case kAdaDelta: launch<kAdaDelta>(wp, gp, ap, bp, cp, n, h, t, s); break;
-    default: launch<kTest>(wp, gp, ap, bp, cp, n, h, t, s); break;
+    case kSgd: launch<kSgd>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kSgdMomentum: launch<kSgdMomentum>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kAdam: launch<kAdam>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kNag: launch<kNag>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kAdamW: launch<kAdamW>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kAdaGrad: launch<kAdaGrad>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kRmsProp: launch<kRmsProp>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    case kAdaDelta: launch<kAdaDelta>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
+    default: launch<kTest>(wp, gp, ap, bp, cp, n, h, t, okp, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -107,7 +107,7 @@ def _declare(lib, name):
     else:
         fn, args = lib.mxtt_fused_opt_sweep, ([i, vp, vp, vp, vp, vp,
                                                ctypes.c_longlong]
-                                              + [f] * 11 + [vp])
+                                              + [f] * 11 + [vp, vp])
     fn.argtypes = args
     fn.restype = i
     lib.mxtt_error_string.argtypes = [i]

@@ -20,18 +20,25 @@ bucket:
 Only optimizers whose update is elementwise (``Optimizer.elementwise``)
 may be fused: then flatten/concat commutes with the update exactly,
 including the gradient's preprocessing, and the fused step is bitwise
-equal to the leafwise one.  The CUDA sweep has one body per elementwise
-optimizer of the package (SGD with and without momentum, NAG, Adam,
-AdamW, AdaGrad, RMSProp, AdaDelta, Test; ccSGD runs SGD's); kernel mode
-with an optimizer whose update is its own raises, and nothing switches
-to mode ``'1'`` behind the caller's back.
+equal to the leafwise one.  The CUDA sweep has one hand-written body per
+elementwise optimizer of the package (SGD with and without momentum, NAG,
+Adam, AdamW, AdaGrad, RMSProp, AdaDelta, Test; ccSGD runs SGD's); an
+optimizer whose ``update_fn`` or ``_preprocess_grad`` is its own (a
+user's subclass) gets a body generated from its formula and compiled by
+NVRTC (:mod:`.sweep_codegen`); a formula outside the generator's IR
+raises, naming the op, and nothing switches to mode ``'1'`` behind the
+caller's back.
 
 - :func:`sweep_reference` is the plain PyTorch version of one bucket's
   update (``_preprocess_grad`` then ``update_fn``).
-- :func:`sweep` is the wrapper of the CUDA kernel; it updates the weight
-  and state vectors in place.  CPU tensors take the plain version (and
-  are then written back in place too); CUDA tensors launch the kernel or
-  raise.  ``sweep.launches`` counts its launches.
+- :func:`sweep` is the wrapper of the CUDA kernels; it updates the
+  weight and state vectors in place.  CPU tensors take the plain version
+  (and are then written back in place too); CUDA tensors launch a kernel
+  or raise.  ``sweep.launches`` counts its launches.
+- The skip flag ``ok`` (an int32 tensor, or None): where it reads 0 the
+  sweep writes nothing, so the vectors keep their old values bit for
+  bit.  :func:`fused_apply` with ``gate=True`` computes it on the device
+  from the preprocessed gradients (the trainer's in-step sentinel).
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from .common import env_flag
 
 __all__ = ["fused_opt_mode", "bucket_nbytes", "supports_fused",
            "plan_buckets", "sweep_body", "sweep_reference", "sweep",
-           "sweep_route", "fused_apply"]
+           "sweep_route", "fused_apply", "GENERATED"]
 
 
 def fused_opt_mode(explicit=None):
@@ -130,6 +137,8 @@ def _n_state(optimizer):
 _BODIES = {"SGD": 0, "Adam": 2, "NAG": 3, "AdamW": 4, "AdaGrad": 5,
            "RMSProp": 6, "AdaDelta": 7, "Test": 8}
 _SGD_MOMENTUM = 1
+#: the body code of a generated body (:mod:`.sweep_codegen`)
+GENERATED = 9
 
 
 def _defining_class(optimizer, attr):
@@ -140,23 +149,21 @@ def _defining_class(optimizer, attr):
 
 
 def sweep_body(optimizer):
-    """The CUDA sweep's body code for ``optimizer``: the body of the class
-    that defines its ``update_fn`` (ccSGD inherits SGD's).  Every
-    elementwise optimizer of the package has one.  Raises for an
-    optimizer whose ``update_fn`` or ``_preprocess_grad`` is its own (a
-    user's subclass): a body generated from its Python formula (through
-    NVRTC) is not ported yet."""
+    """The CUDA sweep's body code for ``optimizer``: the hand-written body
+    of the class that defines its ``update_fn`` (ccSGD inherits SGD's);
+    :data:`GENERATED` for an optimizer whose ``update_fn`` or
+    ``_preprocess_grad`` is its own (a user's subclass), whose formula
+    is then traced here (:func:`.sweep_codegen.program`): an op outside
+    the generator's IR raises :class:`MXNetError` naming it."""
     from .. import optimizer as opt_mod
     klass = _defining_class(optimizer, "update_fn")
     code = _BODIES.get(klass.__name__) \
         if getattr(opt_mod, klass.__name__, None) is klass else None
     if code is None or _defining_class(optimizer, "_preprocess_grad") \
             is not opt_mod.Optimizer:
-        raise MXNetError(
-            "MXTPU_FUSED_OPT=kernel: the CUDA sweep has no body for %s (its "
-            "own update_fn or _preprocess_grad; a body generated from the "
-            "Python formula is not ported yet); use MXTPU_FUSED_OPT='1' or "
-            "'' for this optimizer" % type(optimizer).__name__)
+        from . import sweep_codegen
+        sweep_codegen.program(optimizer, preprocess=True)
+        return GENERATED
     if klass.__name__ in ("SGD", "NAG"):
         if optimizer.momentum == 0.0:
             return 0
@@ -217,44 +224,62 @@ def _check_sweep(w, g, states, n_state):
             raise MXNetError("fused sweep: %s must be contiguous" % name)
 
 
-def sweep(optimizer, w, g, states, lr, wd, t, preprocess=True):
+def sweep(optimizer, w, g, states, lr, wd, t, preprocess=True, ok=None):
     """One bucket's update, IN PLACE on ``w`` and ``states`` (flat
-    vectors); returns ``(w, states)``.  CPU tensors take
-    :func:`sweep_reference` and copy its results back; CUDA tensors
-    launch ``csrc/fused_opt.cu`` (float32 only) or raise."""
+    vectors); returns ``(w, states)``.  ``ok``: the skip flag (an int32
+    tensor on ``w``'s device) or None; where it reads 0 nothing is
+    written.  CPU tensors take :func:`sweep_reference` and copy its
+    results back (reading ``ok`` on the host); CUDA tensors launch
+    ``csrc/fused_opt.cu`` or the generated body (float32 only) or
+    raise."""
     if not w.is_cuda:
+        if ok is not None and int(ok) == 0:
+            return w, states
         nw, ns = sweep_reference(optimizer, w, g, states, lr, wd, t,
                                  preprocess)
         w.copy_(nw)
         for s, n in zip(states, ns):
             s.copy_(n)
         return w, states
-    from ._build import check, library
     body = sweep_body(optimizer)
     _check_sweep(w, g, states, _n_state(optimizer))
+    if ok is not None and (ok.dtype != torch.int32 or ok.device != w.device
+                           or ok.numel() != 1):
+        raise MXNetError("fused sweep: the skip flag must be one int32 on "
+                         "%s, got %s on %s" % (w.device, ok.dtype, ok.device))
     if w.numel() == 0:
         return w, states
-    rescale, clip = 1.0, -1.0
-    if preprocess:
-        rescale = optimizer.rescale_grad
-        if optimizer.clip_gradient is not None:
-            clip = optimizer.clip_gradient
-    ptrs = [s.data_ptr() for s in states] + [None] * (3 - len(states))
-    hypers = [float(x) for x in _sweep_hypers(optimizer)]
-    lib = library("fused_opt")
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        code = lib.mxtt_fused_opt_sweep(
-            body, w.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], ptrs[2],
-            ctypes.c_longlong(w.numel()), float(lr), float(wd), float(t),
-            float(rescale), float(clip), *hypers, stream)
-    check(lib, code, "fused_opt sweep")
+    if body == GENERATED:
+        from . import sweep_codegen
+        route = sweep_codegen.launch(
+            sweep_codegen.program(optimizer, preprocess), w, g, states, lr,
+            wd, t, ok)
+    else:
+        from ._build import check, library
+        rescale, clip = 1.0, -1.0
+        if preprocess:
+            rescale = optimizer.rescale_grad
+            if optimizer.clip_gradient is not None:
+                clip = optimizer.clip_gradient
+        ptrs = [s.data_ptr() for s in states] + [None] * (3 - len(states))
+        hypers = [float(x) for x in _sweep_hypers(optimizer)]
+        lib = library("fused_opt")
+        with torch.cuda.device(w.device):
+            stream = torch.cuda.current_stream(w.device).cuda_stream
+            code = lib.mxtt_fused_opt_sweep(
+                body, w.data_ptr(), g.data_ptr(), ptrs[0], ptrs[1], ptrs[2],
+                ctypes.c_longlong(w.numel()), float(lr), float(wd), float(t),
+                float(rescale), float(clip), *hypers,
+                ok.data_ptr() if ok is not None else None, stream)
+        check(lib, code, "fused_opt sweep")
+        route = sweep_route(w, g, states)
     sweep.launches += 1
     sweep.launches_by_body[body] = sweep.launches_by_body.get(body, 0) + 1
+    if ok is not None:
+        sweep.launches_gated += 1
     dev = str(w.device)
     sweep.launches_by_device[dev] = sweep.launches_by_device.get(dev, 0) + 1
     routes = sweep.launches_by_route.setdefault(dev, {})
-    route = sweep_route(w, g, states)
     routes[route] = routes.get(route, 0) + 1
     return w, states
 
@@ -269,10 +294,12 @@ def sweep_route(w, g, states):
     return "vec4" if bits % 16 == 0 else "scalar"
 
 
-#: launches of the CUDA kernel in this process (callers may reset it),
-#: in all, by body code (:func:`sweep_body`), by device, and by device
-#: and route (:func:`sweep_route`: ``{device: {route: n}}``)
+#: launches of the CUDA kernels in this process (callers may reset it),
+#: in all, by body code (:func:`sweep_body`; :data:`GENERATED` for the
+#: generated bodies), with a skip flag, by device, and by device and route
+#: (:func:`sweep_route`: ``{device: {route: n}}``)
 sweep.launches = 0
+sweep.launches_gated = 0
 sweep.launches_by_body = {}
 sweep.launches_by_device = {}
 sweep.launches_by_route = {}
@@ -285,7 +312,8 @@ register_kernel_counters("fused_opt", lambda: {
 # the fused apply
 # ----------------------------------------------------------------------
 def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
-                names=None, nbytes=None, mode=None, preprocess=False):
+                names=None, nbytes=None, mode=None, preprocess=False,
+                gate=False):
     """One fused optimizer step over ``names`` (default: all params).
 
     Returns ``(new_params, new_opt_state)`` dicts for exactly the covered
@@ -293,6 +321,14 @@ def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
     vector.  With ``preprocess`` the optimizer's own ``_preprocess_grad``
     is folded into the sweep, on the concatenated gradient: elementwise,
     so identical to per-leaf application.
+
+    ``gate=True`` (the trainer's in-step sentinel) also returns a third
+    value, ``finite``: a bool tensor on the device, True when every
+    preprocessed gradient is finite, computed over each bucket's
+    concatenated gradient before the first sweep.  Where it is False the
+    step writes nothing: the kernel takes it as its skip flag, the plain
+    sweep keeps the old vectors with ``torch.where``.  Nothing is read
+    on the host.
     """
     if not supports_fused(optimizer):
         raise MXNetError(
@@ -304,9 +340,8 @@ def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
         sweep_body(optimizer)
     names = list(names if names is not None else params)
     n_state = _n_state(optimizer)
-    new_params, new_state = {}, {}
+    flats = []
     for bucket in plan_buckets(params, names=names, nbytes=nbytes):
-        sizes = [params[n].numel() for n in bucket]
         w_flat = torch.cat([params[n].reshape(-1) for n in bucket])
         g_flat = torch.cat([grads[n].reshape(-1) for n in bucket])
         states = []
@@ -320,12 +355,25 @@ def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
                                      % (n, len(got), n_state))
                 leaves.append(got[i].reshape(-1))
             states.append(torch.cat(leaves))
+        flats.append((bucket, w_flat, g_flat, states))
+    finite = ok = None
+    if gate:
+        checks = [torch.isfinite(optimizer._preprocess_grad(g) if preprocess
+                                 else g).all() for _b, _w, g, _s in flats]
+        finite = torch.stack(checks).all() if checks else None
+        ok = finite.to(torch.int32) if finite is not None else None
+    new_params, new_state = {}, {}
+    for bucket, w_flat, g_flat, states in flats:
+        sizes = [params[n].numel() for n in bucket]
         if mode == "kernel":
             nw, ns = sweep(optimizer, w_flat, g_flat, states, lr, wd, t,
-                           preprocess=preprocess)
+                           preprocess=preprocess, ok=ok)
         else:
             nw, ns = sweep_reference(optimizer, w_flat, g_flat, states, lr,
                                      wd, t, preprocess=preprocess)
+            if finite is not None:
+                nw = torch.where(finite, nw, w_flat)
+                ns = [torch.where(finite, a, b) for a, b in zip(ns, states)]
         w_parts = torch.split(nw, sizes)
         s_parts = [torch.split(s, sizes) for s in ns]
         for j, n in enumerate(bucket):
@@ -334,4 +382,6 @@ def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
             new_state[n] = _state_like(
                 optimizer, [p[j].view(shape) for p in s_parts]) \
                 if n_state else None
+    if gate:
+        return new_params, new_state, finite
     return new_params, new_state

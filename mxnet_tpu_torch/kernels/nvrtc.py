@@ -139,12 +139,13 @@ def _nvrtc_check(lib, code, what):
                          % (what, lib.nvrtcGetErrorString(code).decode()))
 
 
-def compile_cubin(source):
+def compile_cubin(source, options=()):
     """Compile CUDA C++ ``source`` with NVRTC -> CUBIN bytes for sm_90a.
 
-    Options: ``--gpu-architecture=sm_90a``, ``-std=c++17`` and the
-    toolkit's include directory (for ``cuda_fp16.h`` and ``cuda_bf16.h``).
-    Nothing is written to disk."""
+    Options: ``--gpu-architecture=sm_90a``, ``-std=c++17``, the
+    toolkit's include directory (for ``cuda_fp16.h`` and ``cuda_bf16.h``)
+    and ``options`` (strings, e.g. ``--fmad=false``).  Nothing is written
+    to disk."""
     lib = _nvrtc()
     prog = _vp()
     _nvrtc_check(lib, lib.nvrtcCreateProgram(
@@ -154,6 +155,7 @@ def compile_cubin(source):
         opts = [b"--gpu-architecture=" + _ARCH.encode(), b"-std=c++17",
                 b"--include-path=" + os.path.join(_cuda_home(),
                                                   "include").encode()]
+        opts += [o.encode() for o in options]
         code = lib.nvrtcCompileProgram(prog, len(opts),
                                        (_char_p * len(opts))(*opts))
         if code != 0:
@@ -244,6 +246,13 @@ class Function(object):
         stream).  Raises before launching when a dimension is below 1 or
         the block has more threads than the kernel allows; raises when
         the CUDA driver refuses the launch."""
+        self.launch_args(grid, block, [_vp(int(p)) for p in pointers],
+                         stream)
+
+    def launch_args(self, grid, block, args, stream):
+        """:meth:`launch` with the kernel's arguments given as ctypes
+        values in its parameter order (``c_void_p`` for a pointer,
+        ``c_float``, ``c_longlong``, ...)."""
         grid, block = tuple(int(g) for g in grid), tuple(int(b)
                                                          for b in block)
         if len(grid) != 3 or len(block) != 3:
@@ -261,9 +270,9 @@ class Function(object):
                            self.max_threads_per_block))
         lib = self.module._lib
         _make_current(lib, self.module.device)
-        # kernelParams: an array of void*, each pointing at a c_void_p
-        # that holds one device pointer; all alive until the call returns
-        values = [_vp(int(p)) for p in pointers]
+        # kernelParams: an array of void*, each pointing at one argument's
+        # value; all alive until the call returns
+        values = list(args)
         params = (_vp * max(len(values), 1))(
             *[ctypes.addressof(v) for v in values])
         _check(lib, lib.cuLaunchKernel(

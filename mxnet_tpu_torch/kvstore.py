@@ -157,18 +157,35 @@ class KVStore:
     def _allreduce(self, merged):
         """The sum over the workers of a dist store (the identity
         otherwise), under an ``allreduce`` span, with a ``collective``
-        event (op, sequence number, bytes, ms, workers)."""
+        event (op, sequence number, bytes, ms, workers).  The flight
+        recorder's ledger holds the (op, seq) until it completes, and
+        with ``MXTPU_STEP_TIMEOUT_S`` set the watchdog bounds it: a
+        peer that died mid-push then ends in a ``ResilienceError`` and a
+        flight dump naming the pending collective, not a hang."""
         if not self._dist:
             return merged
         import torch.distributed as dist
         from .observability import events as _events, spans as _spans
-        from .observability import trace as _trace
+        from .observability import flight as _flight, trace as _trace
         seq = _trace.next_seq("allreduce")
         nbytes = merged.numel() * merged.element_size()
+        timeout = _collective_timeout_s()
+        _flight.collective_begin(
+            "allreduce", seq, participants=list(range(self.num_workers)),
+            bytes=nbytes, rank=self.rank)
         t0 = time.perf_counter()
         out = merged.clone().contiguous()
         with _spans.span("allreduce"):
-            dist.all_reduce(out)
+            if timeout:
+                from .resilience import run_with_timeout
+                run_with_timeout(_on_device(out.device, dist.all_reduce, out),
+                                 timeout, phase="kvstore_push",
+                                 rank=self.rank)
+            else:
+                dist.all_reduce(out)
+        # only a completed collective leaves the ledger: on the exception
+        # path the entry stays for the flight dump
+        _flight.collective_end("allreduce", seq)
         _events.emit("collective", op="allreduce", seq=seq, bytes=nbytes,
                      dur_ms=round((time.perf_counter() - t0) * 1e3, 3),
                      num_workers=self.num_workers, **_trace.ids())
@@ -303,12 +320,27 @@ class KVStore:
 
     def barrier(self):
         """Every worker of a dist store waits for the others (parity
-        kvstore.h:249) under a ``kv_barrier`` span; one worker has
-        nothing to wait for."""
+        kvstore.h:249) under a ``kv_barrier`` span, ledgered in the
+        flight recorder and bounded by the watchdog when
+        ``MXTPU_STEP_TIMEOUT_S`` is set; one worker has nothing to wait
+        for, armed or not."""
         if self._dist:
-            from .observability import spans as _spans
+            from .observability import flight as _flight
+            from .observability import spans as _spans, trace as _trace
+            timeout = _collective_timeout_s()
+            seq = _trace.next_seq("barrier")
+            _flight.collective_begin(
+                "barrier", seq, participants=list(range(self.num_workers)),
+                rank=self.rank)
             with _spans.span("kv_barrier"):
-                global_barrier("kv_barrier")
+                if timeout:
+                    from .resilience import run_with_timeout
+                    run_with_timeout(lambda: global_barrier("kv_barrier"),
+                                     timeout, phase="kvstore_barrier",
+                                     rank=self.rank)
+                else:
+                    global_barrier("kv_barrier")
+            _flight.collective_end("barrier", seq)
 
     _barrier = barrier
 
@@ -331,6 +363,20 @@ class KVStore:
         updater = get_updater(opt)
         updater.states.update({k: _from_host(v) for k, v in states.items()})
         self.set_updater(updater)
+
+
+def _on_device(device, fn, *args):
+    """``fn(*args)`` as a thunk that enters ``device`` and the calling
+    thread's current stream there: the watchdog runs it on a thread of
+    its own, whose current device and stream are CUDA's defaults."""
+    if device.type != "cuda":
+        return lambda: fn(*args)
+    stream = torch.cuda.current_stream(device)
+
+    def run():
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            return fn(*args)
+    return run
 
 
 def _collective_timeout_s():
@@ -627,4 +673,13 @@ def create(name="local"):
         _maybe_init_distributed()
         if _dist_client() is not None:
             _start_heartbeat(_dist_client(), _dist_world()[1])
-    return KVStore(base)
+    store = KVStore(base)
+    if base.startswith("dist"):
+        # the flight recorder's liveness probe: a hung-collective dump
+        # then names the participants that never showed up
+        try:
+            from .observability import flight as _flight
+            _flight.set_liveness_probe(lambda: store.dead_nodes())
+        except Exception:
+            pass
+    return store

@@ -7,10 +7,13 @@ The port of ``mxnet_tpu/model.py``: ``_create_kvstore`` (the
 ``prefix-%04d.params``, the reference's 0x112 NDArray file with
 ``arg:``/``aux:`` keys, which the two packages read from each other),
 and ``FeedForward``, the pre-Module training API, with its loop
-(``_FitDriver``, ``_train_multi_device``) over one context.  ``fit``'s
-numeric sentinel, fault-injection seam and step telemetry belong to
-later slices.  :func:`params_from_numpy` turns numpy parameters (the
-JAX package's, say) into the port's tensors by name.
+(``_FitDriver``, ``_train_multi_device``) over one context, its numeric
+sentinel (``MXTPU_SENTINEL`` or an instance: a non-finite or spiking
+gradient norm skips the update), its fault-injection seam (the ``batch``
+seam's ``kind=nan`` overwrites every gradient with NaN after the
+backward) and its step telemetry (``observability.record_step``).
+:func:`params_from_numpy` turns numpy parameters (the JAX package's,
+say) into the port's tensors by name.
 """
 from __future__ import annotations
 
@@ -104,6 +107,16 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
             updater(key * num_device + dev, g, w)
 
 
+def _batch_num_samples(batch):
+    """Leading-dim sample count of a DataBatch (telemetry only)."""
+    try:
+        data = batch.data[0] if isinstance(batch.data, (list, tuple)) \
+            else batch.data
+        return int(data.shape[0])
+    except Exception:
+        return None
+
+
 class _FitDriver:
     """Drives FeedForward's epochs (parity: model.py:115): load the
     batch, forward and backward, update through the store or the local
@@ -111,7 +124,7 @@ class _FitDriver:
     epochs ``epoch_size`` asks for."""
 
     def __init__(self, manager, optimizer, kvstore, update_on_kvstore,
-                 num_device, logger, monitor=None):
+                 num_device, logger, monitor=None, sentinel=None):
         self.manager = manager
         self.optimizer = optimizer
         self.kvstore = kvstore
@@ -121,6 +134,11 @@ class _FitDriver:
         self.monitor = monitor
         self.updater = None if update_on_kvstore \
             else opt_mod.get_updater(optimizer)
+        # numeric sentinel (MXTPU_SENTINEL / explicit instance): check the
+        # global grad-norm each step and SKIP the update on NaN/Inf/spike
+        from .resilience import Sentinel
+        self.sentinel = Sentinel.from_env(logger=logger) \
+            if sentinel is None else sentinel
         self.num_step = 0
 
     def _epoch_batches(self, train_data, epoch, epoch_size):
@@ -150,13 +168,55 @@ class _FitDriver:
             train_data.reset()
             just_reset = True
 
+    def _poison_grads(self):
+        """Fault seam: overwrite every gradient with NaN (kind=nan) --
+        the observable effect of a numerically-poisoned batch, planted
+        deterministically after the backward pass."""
+        from .resilience import poison_nan
+        for per_param in self.manager.grad_arrays:
+            devs = per_param if isinstance(per_param, (list, tuple)) \
+                else [per_param]
+            for g in devs:
+                if g is not None:
+                    g._set_data(poison_nan(g.data))
+
     def _step(self, batch):
+        """One optimization step: load, forward and backward, the
+        gradient update; recorded with telemetry on."""
+        from . import resilience as _resilience
+        from . import observability as _obs
+        t0 = time.perf_counter() if _obs.events.get() is not None else None
+        try:
+            self._step_inner(batch, _resilience)
+        finally:
+            if t0 is not None:
+                _obs.record_step(self.num_step, time.perf_counter() - t0,
+                                 batch_size=getattr(batch, "batch_size",
+                                                    None) or
+                                 _batch_num_samples(batch))
+
+    def _step_inner(self, batch, _resilience):
         m = self.manager
         self.num_step += 1
         m.load_data_batch(batch)
         if self.monitor is not None:
             self.monitor.tic()
         m.forward_backward()
+        inj = _resilience.injector()
+        if inj is not None:
+            spec = inj.match("batch", step=self.num_step)
+            if spec is not None and spec.kind == "nan":
+                self._poison_grads()
+        if self.sentinel is not None:
+            from .resilience import sentinel as _sentinel_mod
+            gnorm = _sentinel_mod.Sentinel.grad_norm(m.grad_arrays)
+            verdict = self.sentinel.check(self.num_step, grad_norm=gnorm)
+            if verdict != _sentinel_mod.OK:
+                # skip the update; the parameters stay at the last good
+                # state and training goes on with the next batch
+                if self.monitor is not None:
+                    self.monitor.toc_print()
+                return
         if self.update_on_kvstore:
             _update_params_on_kvstore(m.param_arrays, m.grad_arrays,
                                       self.kvstore)
@@ -168,10 +228,13 @@ class _FitDriver:
 
     def train_epoch(self, epoch, train_data, epoch_size, metric,
                     batch_end_callback):
+        from .observability.spans import timed_iter
         metric.reset()
         tic = time.time()
-        for nbatch, batch in enumerate(
-                self._epoch_batches(train_data, epoch, epoch_size), 1):
+        batches = timed_iter(
+            self._epoch_batches(train_data, epoch, epoch_size),
+            name="data_wait", step_from=lambda: self.num_step)
+        for nbatch, batch in enumerate(batches, 1):
             self._step(batch)
             self.manager.update_metric(metric, batch.label)
             if batch_end_callback is not None:

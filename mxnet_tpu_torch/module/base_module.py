@@ -8,8 +8,11 @@ runs the JAX package's loop, with its async device feed
 ``parallel.overlap.DevicePrefetcher`` that also places each batch on
 the module's device from pinned buffers) and its Monitor
 (``monitor=``: installed after bind, ``tic`` before each batch and
-``toc_print`` after it), and without its numeric sentinel and step
-telemetry, which belong to later slices.
+``toc_print`` after it), its numeric sentinel (``MXTPU_SENTINEL``: a
+non-finite or spiking gradient norm over every device's gradients skips
+the update, ``resilience.Sentinel``) and its step telemetry
+(``observability.record_step`` per batch with telemetry on, a skipped
+step marked ``skipped``; the data wait timed as ``data_wait``).
 """
 from __future__ import annotations
 
@@ -314,14 +317,63 @@ class BaseModule(object):
             validation_metric = eval_metric
         eval_metric = _as_metric(eval_metric)
 
+        # numeric sentinel (MXTPU_SENTINEL): a NaN/Inf/spiking grad-norm
+        # skips the update instead of poisoning the parameters
+        from ..resilience import Sentinel
+        from ..resilience import sentinel as _sentinel_mod
+        from .. import observability as _obs
+        from ..observability.spans import timed_iter
+        sentinel = Sentinel.from_env(logger=self.logger)
+        telemetry = _obs.enabled()
+        num_step = 0
+        # the check must come between the backward and the update, so a
+        # Module's whole-step fusion is off while a sentinel watches
+        self._check_before_update = sentinel is not None
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, monitor, sentinel,
+                             _sentinel_mod, _obs, timed_iter, telemetry,
+                             num_step, begin_epoch, num_epoch)
+        finally:
+            self._check_before_update = False
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, monitor, sentinel,
+                    _sentinel_mod, _obs, timed_iter, telemetry, num_step,
+                    begin_epoch, num_epoch):
+        """The epoch loop of :meth:`fit`."""
+        from ..model import _batch_num_samples
+        from ..resilience import Sentinel
+
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
+            batches = timed_iter(train_data, name="data_wait",
+                                 step_from=lambda: num_step)
+            for nbatch, data_batch in enumerate(batches):
+                t0 = time.perf_counter() if telemetry else None
                 if monitor is not None:
                     monitor.tic()
                 self.forward_backward(data_batch)
-                self.update()
+                num_step += 1
+                skip = False
+                if sentinel is not None:
+                    grads = getattr(self, "_exec_group", None)
+                    grads = getattr(grads, "grad_arrays", None)
+                    gnorm = Sentinel.grad_norm(grads) if grads else None
+                    skip = sentinel.check(
+                        num_step, grad_norm=gnorm) != _sentinel_mod.OK
+                if not skip:
+                    self.update()
+                if t0 is not None:
+                    _obs.record_step(
+                        num_step, time.perf_counter() - t0, epoch=epoch,
+                        batch_size=_batch_num_samples(data_batch),
+                        skipped=skip or None)
                 self.update_metric(eval_metric, data_batch.label)
                 if monitor is not None:
                     monitor.toc_print()

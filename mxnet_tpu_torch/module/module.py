@@ -325,8 +325,12 @@ class Module(BaseModule):
         """The whole-step fusion is valid when the update is local (no
         kvstore), single-context, grad_req=write, the optimizer uses the
         pure update_fn path, and no monitor is installed
-        (``MXNET_MODULE_FUSED=0`` turns it off)."""
-        if os.environ.get("MXNET_MODULE_FUSED", "1") == "0":
+        (``MXNET_MODULE_FUSED=0`` turns it off, and so does ``fit``'s
+        numeric sentinel, which must see the gradients before the
+        update: the JAX package keeps the fused step there, and its
+        sentinel's skip then comes after the update has landed)."""
+        if os.environ.get("MXNET_MODULE_FUSED", "1") == "0" \
+                or getattr(self, "_check_before_update", False):
             return False
         return (self.optimizer_initialized
                 and not self._update_on_kvstore

@@ -1,9 +1,7 @@
 """Structured per-rank event log: append-only JSONL telemetry.
 
-The port's copy of ``mxnet_tpu/observability/events.py``.  Two changes:
-:func:`rank` asks ``torch.distributed`` where the JAX package asks jax,
-and :func:`emit` feeds no crash flight recorder (that module is not
-ported).
+The port's copy of ``mxnet_tpu/observability/events.py``.  One change:
+:func:`rank` asks ``torch.distributed`` where the JAX package asks jax.
 
 The one sink every telemetry producer writes to.  Each record is one
 JSON object per line carrying the correlation tuple ``run_id`` /
@@ -49,7 +47,8 @@ __all__ = ["enabled", "telemetry_dir", "run_id", "rank", "get",
 #: observability/retrace.py — the divergent cache-key ingredient, the
 #: requesting site, component diffs); "slo_alert" records are the live
 #: SLO engine's burn-rate alert edges (observability/sloengine.py —
-#: tier, fire/clear, per-window burns)
+#: tier, fire/clear, per-window burns; flight-ring automatic like
+#: every emit)
 KINDS = ("step", "span", "counter", "fault", "ckpt", "collective",
          "summary", "elastic", "serve", "retrace", "slo_alert")
 
@@ -285,7 +284,11 @@ def refresh():
 
 def emit(kind, step=None, **fields):
     """Record one event iff telemetry is enabled (the library seam —
-    cheap no-op otherwise)."""
+    cheap no-op otherwise).  Every call ALSO lands in the crash flight
+    recorder's bounded ring (:mod:`.flight`) first -- one deque append
+    -- so a postmortem dump has the recent event tail even when
+    telemetry never wrote a file."""
+    _flight.note(kind, step, fields)
     log = get()
     if log is not None:
         log.emit(kind, step=step, **fields)
@@ -303,3 +306,8 @@ def last_fault():
     ranks include it in their published pod summaries."""
     log = _STATE["log"]
     return log.last_fault if log is not None else None
+
+
+from . import flight as _flight  # noqa: E402  (bottom: flight's lazy
+#                                 events imports resolve against the
+#                                 fully-defined module above)

@@ -9,16 +9,17 @@ grad_scale``); autograd would differentiate the softmax instead, so the
 op pins the reference contract with a ``torch.autograd.Function``, as
 the JAX package does with ``custom_vjp``.  The trainer feeds ones as
 head gradients; only ``out_grad=True`` multiplies them in (and
-IdentityAttachKLSparseReg adds its penalty to them).  SoftmaxOutput's
-backward is first order only: differentiating it again (a ``Symbol.grad`` bound
-for training and run backward) raises, where the JAX package
-differentiates its ``custom_vjp`` backward through the softmax.
+IdentityAttachKLSparseReg adds its penalty to them).  Differentiated
+again (a ``Symbol.grad`` bound for training and run backward), each
+backward is differentiated through the forward it was built from, as
+the JAX package differentiates a ``custom_vjp`` backward through its
+residuals: SoftmaxOutput's ``p - onehot`` through the softmax, a
+regression head's ``out - label`` through ``out = fwd(data)``.
 """
 from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
 from ..dparam import Field, ParamStruct
 from .registry import OperatorProperty, register_op, require_known
 
@@ -44,25 +45,16 @@ def _onehot(label, n_class, axis, dtype):
     return (lab == classes).to(dtype)
 
 
-class _FirstOrderOnly(torch.autograd.Function):
-    """The identity on a gradient that must not be differentiated again;
-    ``anchor`` ties it to the graph, and its backward raises."""
-
-    @staticmethod
-    def forward(ctx, grad, anchor):
-        return grad.clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        raise MXNetError("SoftmaxOutput's backward (the reference's p - "
-                         "onehot) is first order only in the port: its "
-                         "second derivative is not ported")
-
-
 class _SoftmaxOutputFn(torch.autograd.Function):
+    """``out`` (the softmax of ``data``, taken outside by autograd)
+    passed through; the backward gives ``data`` the reference's ``p -
+    onehot`` and ``out`` nothing.  Under ``create_graph`` the saved
+    ``out`` keeps its softmax history, so the second derivative runs
+    through the softmax's own backward, and ``data`` itself is never
+    saved."""
+
     @staticmethod
-    def forward(ctx, data, label, op, denom=None):
-        out = torch.softmax(data, dim=op._axis())
+    def forward(ctx, out, data, label, op, denom=None):
         ctx.save_for_backward(out, label)
         ctx.op, ctx.denom = op, denom
         return out
@@ -73,9 +65,12 @@ class _SoftmaxOutputFn(torch.autograd.Function):
         grad = ctx.op._grad(out, label, ctx.denom)
         if ctx.op.param.out_grad:
             grad = grad * g
-        if torch.is_grad_enabled():     # create_graph: a second order
-            grad = _FirstOrderOnly.apply(grad, out)
-        return grad, None, None, None
+        return None, grad, None, None, None
+
+
+def _softmax_output(op, data, label, denom=None):
+    return _SoftmaxOutputFn.apply(torch.softmax(data, dim=op._axis()),
+                                  data, label, op, denom)
 
 
 def _replica_denoms(normalization, counts, rows, group):
@@ -115,7 +110,7 @@ class SoftmaxOutput(OperatorProperty):
         return [data, label], [data], []
 
     def forward(self, inputs, aux, is_train, rng):
-        return [_SoftmaxOutputFn.apply(inputs[0], inputs[1], self)], None
+        return [_softmax_output(self, inputs[0], inputs[1])], None
 
     def forward_replicas(self, ins, aux, is_train, rngs, group):
         """A batch split across replicas (``executor.build_program``'s
@@ -128,7 +123,7 @@ class SoftmaxOutput(OperatorProperty):
             if p.normalization == "valid" else None
         denoms = _replica_denoms(p.normalization, counts,
                                  [i[0].shape[0] for i in ins], group)
-        return [[_SoftmaxOutputFn.apply(i[0], i[1], self, d)]
+        return [[_softmax_output(self, i[0], i[1], d)]
                 for i, d in zip(ins, denoms)], None, False
 
     def _axis(self):
@@ -169,18 +164,23 @@ class _LossFn(torch.autograd.Function):
     """``fwd(data)`` forward; the backward ``bwd(saved...)`` ignores the
     head gradient (the reference's loss-layer contract), or adds it
     (``keep_head``: IdentityAttachKLSparseReg); no gradient reaches the
-    other inputs."""
+    other inputs.  Under ``create_graph`` the backward rebuilds ``out =
+    fwd(data)`` from the saved ``data``, so that a second derivative
+    runs through the forward (the saved ``out`` would lead back into
+    this backward, which drops its head gradient)."""
 
     @staticmethod
     def forward(ctx, data, fwd, bwd, keep_head, *extra):
         out = fwd(data)
-        ctx.bwd, ctx.keep_head = bwd, keep_head
+        ctx.fwd, ctx.bwd, ctx.keep_head = fwd, bwd, keep_head
         ctx.save_for_backward(data, out, *extra)
         return out
 
     @staticmethod
     def backward(ctx, g):
         data, out, *extra = ctx.saved_tensors
+        if torch.is_grad_enabled():     # create_graph: a second order
+            out = ctx.fwd(data)
         grad = ctx.bwd(data, out, *extra)
         if ctx.keep_head:
             grad = g + grad

@@ -220,11 +220,24 @@ class Embedding(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         # ids arrive as float32 (the reference's data layout); cast
-        # before indexing, as mxnet_tpu casts with astype(int32).
-        # F.embedding's backward on a GPU sorts the ids and sums each
-        # row's gradients in a fixed order: runs repeat bit for bit
-        ids = inputs[0].to(torch.int64)
-        return [torch.nn.functional.embedding(ids, inputs[1])], None
+        # before indexing as mxnet_tpu's astype(int32) + jnp.take do: a
+        # NaN id is row 0, a negative id counts from the end, and an id
+        # outside [-input_dim, input_dim) gives a row of NaN and no
+        # gradient (an injected NaN batch or a corrupt token must not
+        # index out of bounds).  F.embedding's backward on a GPU sorts
+        # the ids and sums each row's gradients in a fixed order: runs
+        # repeat bit for bit
+        ids, weight = inputs[0], inputs[1]
+        if ids.is_floating_point():
+            ids = torch.nan_to_num(ids, nan=0.0).clamp(-2.0 ** 31,
+                                                       2.0 ** 31)
+        ids = ids.to(torch.int64)
+        rows = weight.shape[0]
+        ids = torch.where(ids < 0, ids + rows, ids)
+        valid = (ids >= 0) & (ids < rows)
+        out = torch.nn.functional.embedding(torch.where(valid, ids, 0),
+                                            weight)
+        return [torch.where(valid.unsqueeze(-1), out, float("nan"))], None
 
 
 # ----------------------------------------------------------------------

@@ -78,7 +78,8 @@ def _unflatten_like(abstract_tree, flat, prefix=""):
 
 def _leaf_specs(tree, prefix=""):
     """{'a/b': (shape, numpy dtype)} for a tree of arrays (anything with
-    ``.shape``/``.dtype``; a torch dtype maps through an empty tensor)."""
+    ``.shape``/``.dtype``: a trainer's ``ShapeDtypeStruct`` too; a torch
+    dtype maps through an empty tensor)."""
     out = {}
     for key, val in dict(tree).items():
         name = "%s%s" % (prefix, key)
@@ -88,6 +89,10 @@ def _leaf_specs(tree, prefix=""):
             dtype = val.dtype
             if not isinstance(dtype, _np.dtype) and hasattr(val, "detach"):
                 dtype = _to_numpy(val.detach().new_empty(0)).dtype
+            elif type(dtype).__name__ == "dtype" \
+                    and type(dtype).__module__ == "torch":
+                import torch
+                dtype = torch.empty(0, dtype=dtype).numpy().dtype
             out[name] = (tuple(val.shape), _np.dtype(dtype))
     return out
 

@@ -43,12 +43,40 @@ device as uint8 and is widened there to the parameters' dtype (float32;
 
 ``remat=True`` recomputes the whole forward in the backward (one
 device): the walk runs under one ``torch.utils.checkpoint`` (the JAX
-trainer wraps its trace in one ``jax.checkpoint``).  ``fsdp``,
-``seq_axis`` (ring attention), ``rules`` that shard a parameter,
-``remat`` on several devices, the in-step sentinel, the step watchdog
-and the checkpoint methods belong to later slices and raise; none is
-ignored.  With no ``ctx`` and no mesh, the trainer runs on the current
-context (``gpu(0)`` outside a ``with`` scope).
+trainer wraps its trace in one ``jax.checkpoint``).
+
+Resilience, as in the JAX trainer:
+
+- ``sentinel=True`` (or ``MXTPU_SENTINEL``; one device) gates the update
+  on the device: when any preprocessed gradient is not finite the step
+  keeps the old parameters, optimizer state and aux, halves the loss
+  scale and counts a skip, with no host read (the fused CUDA sweep takes
+  the flag as its skip flag; the plain paths keep the old values with
+  ``torch.where``).  The counters ``scale``, ``good_steps``, ``skipped``
+  and ``last_good`` stay on the device; :meth:`sentinel_stats` reads
+  them.  ``loss_scale_init``/``loss_scale_growth`` set the scale's start
+  and growth interval.
+- ``step_timeout_s`` (or ``MXTPU_STEP_TIMEOUT_S``) runs each step under
+  the watchdog: a step that does not finish in time raises a
+  ``ResilienceError`` and dumps the flight recorder, whose ledger holds
+  the step as ``train_step`` (op) and its update number (seq) until it
+  completes.  The ``batch`` fault seam (``kind=nan`` poisons the data
+  inputs) and the ``step`` seam (``hang``/``slow``) of
+  ``MXTPU_FAULT_SPEC`` are on the step; with telemetry on each step is
+  recorded (``observability.record_step``).
+- The checkpoint methods (:meth:`save_checkpoint`,
+  :meth:`save_checkpoint_versioned`, :meth:`auto_resume`,
+  :meth:`elastic_resume`, ...) write and read the host format
+  (``parallel.ckpt``, ``resilience.ckptmgr``, ``resilience.hotstate``):
+  one ``.npz`` of ``{"params", "opt_state", "aux"}`` with a tuple state
+  stored as ``{"0": ..., "1": ...}``; restored tensors are placed on
+  the trainer's device and the update counter resumes.
+
+``fsdp``, ``seq_axis`` (ring attention), ``rules`` that shard a
+parameter, ``remat`` and the sentinel on several devices belong to later
+slices and raise; none is ignored.  With no ``ctx`` and no mesh, the
+trainer runs on the current context (``gpu(0)`` outside a ``with``
+scope).
 """
 from __future__ import annotations
 
@@ -58,9 +86,8 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve
-from ..kernels.common import env_flag
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["ShardedTrainer", "ShapeDtypeStruct"]
 
 _MULTI_GPU = "a later multi-GPU slice (ROADMAP.md queue 1 item 3)"
 
@@ -85,6 +112,16 @@ def _state_map(fn, state):
     if isinstance(state, (tuple, list)):
         return tuple(fn(a) for a in state)
     return fn(state)
+
+
+def _state_map2(fn, new, old):
+    """``fn(new_leaf, old_leaf)`` over two optimizer states of one
+    structure."""
+    if new is None:
+        return None
+    if isinstance(new, (tuple, list)):
+        return tuple(fn(a, b) for a, b in zip(new, old))
+    return fn(new, old)
 
 
 def _state_zip(placed, per_replica, mesh):
@@ -159,6 +196,12 @@ class ShardedTrainer:
         means the mesh's first device, else the current context.
     zero1 : on a dp mesh, split each leaf's optimizer state over dp
         (:meth:`opt_state_sharding`).
+    sentinel : gate each step on all preprocessed gradients finite, on the
+        device (None: ``MXTPU_SENTINEL``); one device only.
+    loss_scale_init / loss_scale_growth : the sentinel's dynamic loss
+        scale: its start, and the good steps in a row that double it.
+    step_timeout_s : bound each step with the watchdog (None:
+        ``MXTPU_STEP_TIMEOUT_S`` at each step; unset: no bound).
 
     :meth:`step` updates ``params``, ``opt_state`` and ``aux`` IN PLACE:
     it replaces the entries of the dicts it is given (with the fused
@@ -176,20 +219,22 @@ class ShardedTrainer:
             raise _not_ported("fsdp (sharded parameters)", _MULTI_GPU)
         if seq_axis is not None:
             raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
-        if sentinel is None:
-            sentinel = env_flag("MXTPU_SENTINEL") not in ("", "0", "false",
-                                                          "off")
-        if sentinel:
-            raise _not_ported("the in-step numeric sentinel (sentinel=True "
-                              "or MXTPU_SENTINEL)", "the resilience slice")
-        if step_timeout_s or env_flag("MXTPU_STEP_TIMEOUT_S") not in ("",
-                                                                   "0"):
-            raise _not_ported("the step watchdog (step_timeout_s or "
-                              "MXTPU_STEP_TIMEOUT_S)", "the resilience slice")
+        from .. import resilience as _resilience
+        self.sentinel = _resilience.sentinel_enabled() if sentinel is None \
+            else bool(sentinel)
+        self._loss_scale_init = float(loss_scale_init)
+        self._loss_scale_growth = int(loss_scale_growth)
+        self._sentinel_state = None
+        #: the step watchdog's timeout (None: MXTPU_STEP_TIMEOUT_S at each
+        #: step, so a launcher can arm it without touching user code)
+        self.step_timeout_s = step_timeout_s
         self.dp = mesh.shape.get("dp", 1) if mesh is not None else 1
         if self.dp > 1 and remat:
             raise _not_ported("remat=True on a mesh of several devices",
                               _MULTI_GPU)
+        if self.dp > 1 and self.sentinel:
+            raise _not_ported("the in-step sentinel on a mesh of several "
+                              "devices", _MULTI_GPU)
         if ctx is not None:
             self.device = resolve(ctx)
             if mesh is not None and mesh.device != self.device:
@@ -447,12 +492,120 @@ class ShardedTrainer:
         from .. import random as _random
         return _random.generator(self.device)
 
+    def _init_sentinel_state(self):
+        """The sentinel's counters, on the device: ``scale`` (float32),
+        ``good_steps``, ``skipped``, ``last_good`` (int32)."""
+        def full(v, dtype):
+            return torch.full((), v, dtype=dtype, device=self.device)
+        return {"scale": full(self._loss_scale_init, torch.float32),
+                "good_steps": full(0, torch.int32),
+                "skipped": full(0, torch.int32),
+                "last_good": full(0, torch.int32)}
+
+    def sentinel_stats(self):
+        """Host view of the sentinel counters: ``{"scale", "good_steps",
+        "skipped", "last_good"}``, or None when the sentinel is off or no
+        step has run.  Reads the device, so poll it at logging cadence,
+        not every step."""
+        if self._sentinel_state is None:
+            return None
+        return {k: v.item() for k, v in self._sentinel_state.items()}
+
+    def _gate_sentinel(self, finite, t):
+        """The sentinel's counters after a step whose gradients were
+        ``finite`` (a bool tensor on the device), as the JAX trainer's
+        compiled gate updates them: a bad step halves the scale (at least
+        1) and counts a skip; ``loss_scale_growth`` good steps in a row
+        double it (at most 2^24)."""
+        s = self._sentinel_state
+        good = torch.where(finite, s["good_steps"] + 1, 0)
+        grow = good >= self._loss_scale_growth
+        scale = s["scale"]
+        self._sentinel_state = {
+            "scale": torch.where(
+                finite, torch.where(grow, torch.clamp(scale * 2.0,
+                                                      max=2.0 ** 24), scale),
+                torch.clamp(scale * 0.5, min=1.0)),
+            "good_steps": torch.where(grow, 0, good),
+            "skipped": s["skipped"] + torch.logical_not(finite).to(
+                torch.int32),
+            "last_good": torch.where(finite, t, s["last_good"]),
+        }
+
     def step(self, params, opt_state, aux, batch, rng=None):
         """Run one training step; returns ``(params, opt_state, aux,
-        outputs)``, the first three the dicts given, updated in place."""
-        if self.dp > 1:
-            return self._step_dp(params, opt_state, aux, batch, rng)
+        outputs)``, the first three the dicts given, updated in place.
+
+        The step runs under the watchdog when a timeout is set, and is
+        ledgered in the flight recorder as (``train_step``, its update
+        number) until it completes."""
+        from .. import observability as _obs
+        from .. import resilience as _resilience
         self.num_update += 1
+        inj = _resilience.injector()
+        if inj is not None:
+            spec = inj.match("batch", step=self.num_update)
+            if spec is not None and spec.kind == "nan":
+                batch = dict(batch)
+                for name in self.data_names:
+                    if name in batch:
+                        batch[name] = _resilience.poison_nan(batch[name])
+        if self.sentinel and self._sentinel_state is None:
+            self._sentinel_state = self._init_sentinel_state()
+        one = self._step_dp if self.dp > 1 else self._step_one
+        dev = self.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+
+        def dispatch():
+            # inside the guarded region, so an injected hang is caught as
+            # a wedged collective would be; the watchdog runs this on a
+            # thread of its own, which must enter the caller's device and
+            # stream (PyTorch keeps them per thread; the step sets its
+            # own grad mode)
+            _resilience.maybe_fault("step", step=self.num_update)
+            if stream is None:
+                return one(params, opt_state, aux, batch, rng)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                return one(params, opt_state, aux, batch, rng)
+
+        timeout = self.step_timeout_s
+        if timeout is None:
+            timeout = _resilience.step_timeout_s()
+        _obs.flight.collective_begin(
+            "train_step", self.num_update,
+            participants=list(range(self.mesh.num_processes)))
+        if _obs.events.get() is not None:
+            # host dispatch wall only: CUDA runs asynchronously
+            import time as _time
+            t0 = _time.perf_counter()
+            try:
+                out = _resilience.run_with_timeout(
+                    dispatch, timeout, phase="train_step",
+                    step=self.num_update) if timeout else dispatch()
+            finally:
+                _obs.record_step(self.num_update, _time.perf_counter() - t0,
+                                 batch_size=self._batch_samples(batch),
+                                 timing="dispatch")
+        elif timeout:
+            out = _resilience.run_with_timeout(
+                dispatch, timeout, phase="train_step", step=self.num_update)
+        else:
+            out = dispatch()
+        _obs.flight.collective_end("train_step", self.num_update)
+        return out
+
+    @staticmethod
+    def _batch_samples(batch):
+        """Leading-dim sample count of the first batch array (telemetry
+        throughput only)."""
+        try:
+            return int(next(iter(batch.values())).shape[0])
+        except Exception:
+            return None
+
+    def _step_one(self, params, opt_state, aux, batch, rng):
+        """The step on one device."""
         opt = self.optimizer
         lr = opt.lr_scheduler(self.num_update) \
             if opt.lr_scheduler is not None else opt.lr
@@ -462,34 +615,56 @@ class ShardedTrainer:
 
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
-        args = self._to_compute(leaves)
-        args.update(self._batch_to_compute(batch, leaves))
-        outs, aux_out = self._trace(args, self._to_compute(aux), rng, True)
-        order = [leaves[n] for n in self.param_names]
-        grads = torch.autograd.grad(
-            outs, order, grad_outputs=[torch.ones_like(o) for o in outs],
-            allow_unused=True)
+        with torch.enable_grad():
+            args = self._to_compute(leaves)
+            args.update(self._batch_to_compute(batch, leaves))
+            outs, aux_out = self._trace(args, self._to_compute(aux), rng,
+                                        True)
+            order = [leaves[n] for n in self.param_names]
+            grads = torch.autograd.grad(
+                outs, order, grad_outputs=[torch.ones_like(o) for o in outs],
+                allow_unused=True)
         grads = {n: g if g is not None else torch.zeros_like(leaves[n])
                  for n, g in zip(self.param_names, grads)}
 
+        finite = None
         with torch.no_grad():
             if self._fused_opt:
-                new_w, new_s = self._fused_mod.fused_apply(
+                got = self._fused_mod.fused_apply(
                     opt, {n: params[n] for n in self.param_names}, grads,
                     opt_state, lr, wd, t, mode=self._fused_opt,
-                    preprocess=True)
+                    preprocess=True, gate=self.sentinel)
+                new_w, new_s = got[0], got[1]
+                if self.sentinel:
+                    finite = got[2]
             else:
                 new_w, new_s = {}, {}
                 t_dev = torch.tensor(float(t), device=self.device)
+                gs = {n: opt._preprocess_grad(grads[n])
+                      for n in self.param_names}
+                if self.sentinel:
+                    # one check over the concatenated gradients (a check a
+                    # leaf would add two launches a leaf)
+                    finite = torch.isfinite(torch.cat(
+                        [g.reshape(-1) for g in gs.values()])).all()
                 for n in self.param_names:
-                    new_w[n], new_s[n] = opt._step(
-                        params[n], grads[n], opt_state.get(n), lr, wd, t_dev)
+                    new_w[n], new_s[n] = opt.update_fn(
+                        params[n], gs[n], opt_state.get(n), lr, wd, t_dev)
+                    if finite is not None:
+                        new_w[n] = torch.where(finite, new_w[n], params[n])
+                        new_s[n] = _state_map2(
+                            lambda a, b: torch.where(finite, a, b),
+                            new_s[n], opt_state.get(n))
             params.update(new_w)
             for n, s in new_s.items():
                 if s is not None:
                     opt_state[n] = s
             for n, v in aux_out.items():
-                aux[n] = v.detach().to(aux[n].dtype)
+                v = v.detach().to(aux[n].dtype)
+                aux[n] = v if finite is None else torch.where(finite, v,
+                                                              aux[n])
+            if finite is not None:
+                self._gate_sentinel(finite, t)
         return params, opt_state, aux, [o.detach() for o in outs]
 
     def eval(self, params, aux, batch, rng=None):
@@ -561,7 +736,6 @@ class ShardedTrainer:
         from .. import executor as _executor
         from .overlap import GradBuckets, interleave_grad_buckets
         from .sharding import ShardedArray
-        self.num_update += 1
         opt = self.optimizer
         lr = opt.lr_scheduler(self.num_update) \
             if opt.lr_scheduler is not None else opt.lr
@@ -744,11 +918,189 @@ class ShardedTrainer:
                                      params[k].shape)
 
     # ------------------------------------------------------------------
-    # later slices
+    # checkpoints (host format)
     # ------------------------------------------------------------------
-    def _checkpoints(self, *args, **kwargs):
-        raise _not_ported("checkpointing", "the resilience slice")
+    def abstract_state(self, data_shapes, label_shapes=None,
+                       dtype=torch.float32):
+        """``(params, opt_state, aux)`` as :class:`ShapeDtypeStruct`s (shape,
+        dtype and the trainer's placement), with no storage: the restore
+        target of the checkpoint methods."""
+        shape_map, aux_map = self._shape_maps(data_shapes, label_shapes)
+        params = {n: ShapeDtypeStruct(tuple(shape_map[n]), dtype,
+                                      self.param_sharding(n, shape_map[n]))
+                  for n in self.param_names}
+        opt_state = {}
+        for n in self.param_names:
+            proto = self.optimizer.create_state_arrays((1,), dtype)
+            if proto is not None:
+                opt_state[n] = _state_map(
+                    lambda a, _n=n: ShapeDtypeStruct(
+                        tuple(shape_map[_n]), a.dtype,
+                        self.opt_state_sharding(_n, tuple(shape_map[_n]))),
+                    proto)
+        aux = {n: ShapeDtypeStruct(tuple(aux_map[n]), dtype, None)
+               for n in self._aux_names}
+        return params, opt_state, aux
 
-    save_checkpoint = load_checkpoint = checkpoint_manager = _checkpoints
-    save_checkpoint_versioned = latest_step = auto_resume = _checkpoints
-    hotstate_snapshot = elastic_resume = abstract_state = _checkpoints
+    def _ckpt_tree(self, params, opt_state, aux):
+        """The nested dict the host format stores: a tuple state becomes
+        ``{"0": ..., "1": ...}``."""
+        def state(v):
+            return {str(i): a for i, a in enumerate(v)} \
+                if isinstance(v, (tuple, list)) else v
+        return {"params": dict(params),
+                "opt_state": {n: state(v) for n, v in opt_state.items()},
+                "aux": dict(aux)}
+
+    def _ckpt_target(self, data_shapes, label_shapes, dtype):
+        return self._ckpt_tree(*self.abstract_state(data_shapes,
+                                                    label_shapes, dtype))
+
+    def _placed(self, tree):
+        """A restored host tree (numpy leaves) as the trainer keeps it:
+        ``(params, opt_state, aux)`` on its device (on a dp mesh, placed
+        as :meth:`init_params` places them), tuple states rebuilt."""
+        def tensor(a):
+            return torch.as_tensor(_np_array(a))
+
+        def put(a, sharding):
+            if self.dp == 1:
+                return tensor(a).to(self.device)
+            return self._place(tensor(a), sharding)
+        params = {n: put(a, self.param_sharding(n, a.shape))
+                  for n, a in tree["params"].items()}
+        opt_state = {}
+        for n, v in tree["opt_state"].items():
+            leaves = [v[str(i)] for i in range(len(v))] \
+                if isinstance(v, dict) else [v]
+            placed = [put(a, self.opt_state_sharding(n, a.shape))
+                      for a in leaves]
+            opt_state[n] = tuple(placed) if isinstance(v, dict) \
+                else placed[0]
+        aux = {n: tensor(a).to(self.device) for n, a in tree["aux"].items()}
+        if self.dp > 1:
+            aux = self.place_params(aux)
+        return params, opt_state, aux
+
+    def save_checkpoint(self, path, params, opt_state, aux):
+        """Write ``(params, opt_state, aux)`` and the update counter to
+        the directory ``path`` in the host format (the JAX trainer writes
+        orbax's sharded format, which comes with ROADMAP.md queue 1 item
+        3 (f))."""
+        from .ckpt import host_save
+        return host_save(path, self._ckpt_tree(params, opt_state, aux),
+                         self.num_update)
+
+    def load_checkpoint(self, path, data_shapes, label_shapes=None,
+                        dtype=torch.float32):
+        """Restore ``(params, opt_state, aux)`` on the trainer's device;
+        the update counter resumes too (Adam's bias correction and the lr
+        schedule continue where they stopped)."""
+        from .ckpt import host_restore, is_host_format
+        if not is_host_format(path):
+            raise MXNetError("ShardedTrainer.load_checkpoint: %s is not a "
+                             "host-format checkpoint (sharded checkpoints "
+                             "come with %s)" % (path, _MULTI_GPU))
+        tree, step = host_restore(path, self._ckpt_target(
+            data_shapes, label_shapes, dtype))
+        self.num_update = step
+        return self._placed(tree)
+
+    def checkpoint_manager(self, directory, keep=None):
+        """A :class:`~mxnet_tpu_torch.resilience.CheckpointManager` rooted
+        at ``directory`` (host format) for versioned keep-last-K
+        checkpoints of this trainer's state."""
+        from ..resilience import CheckpointManager
+        return CheckpointManager(directory, keep=keep)
+
+    def save_checkpoint_versioned(self, directory, params, opt_state, aux,
+                                  keep=None):
+        """Commit an atomic ``step_<NNNNNNNN>`` checkpoint under
+        ``directory`` (pruned to keep-last-K)."""
+        mgr = self.checkpoint_manager(directory, keep=keep)
+        return mgr.save(self._ckpt_tree(params, opt_state, aux),
+                        self.num_update)
+
+    def latest_step(self, directory):
+        """Newest committed step under ``directory``, or None."""
+        return self.checkpoint_manager(directory).latest_step()
+
+    def auto_resume(self, directory, data_shapes, label_shapes=None,
+                    dtype=torch.float32):
+        """Resume from the newest readable committed checkpoint under
+        ``directory`` (walking back past damaged ones): ``(params,
+        opt_state, aux, step)`` on the trainer's device with the update
+        counter restored, or None when the run is fresh."""
+        got = self.checkpoint_manager(directory).auto_resume(
+            self._ckpt_target(data_shapes, label_shapes, dtype))
+        if got is None:
+            return None
+        tree, step = got
+        self.num_update = step
+        return self._placed(tree) + (step,)
+
+    def hotstate_snapshot(self, params, opt_state, aux):
+        """Copy the training state into the warm-handoff area
+        (``resilience.hotstate.snapshot``) at this update number."""
+        from ..resilience import hotstate as _hotstate
+        return _hotstate.snapshot(self._ckpt_tree(params, opt_state, aux),
+                                  step=self.num_update)
+
+    def elastic_resume(self, directory, data_shapes, label_shapes=None,
+                       dtype=torch.float32, source="auto", kv=None):
+        """:meth:`auto_resume` for a re-meshed incarnation.  ``source``:
+        ``"warm"`` resumes from the host-memory handoff area
+        (``resilience.hotstate``) and reads no checkpoint, degrading to
+        the checkpoint on any missing or corrupt shard; ``"cold"`` is the
+        versioned checkpoint under ``directory``; ``"auto"`` is warm when
+        ``MXTPU_WARM_REMESH`` is on.  Either way an ``elastic`` ``resume``
+        record names the path taken, the fallback reason and the restore
+        time."""
+        import time as _t
+        from ..resilience import elastic as _elastic
+        from ..resilience import hotstate as _hotstate
+        t0 = _t.monotonic()
+        got, path, fallback, meta = None, "cold", None, None
+        if source == "warm" or (source == "auto"
+                                and _hotstate.warm_enabled()):
+            try:
+                tree, step, meta = _hotstate.warm_resume(
+                    self._ckpt_target(data_shapes, label_shapes, dtype),
+                    kv=kv)
+                self.num_update = step
+                got = self._placed(tree) + (step,)
+                path = "warm"
+            except _hotstate.HotStateUnavailable as exc:
+                fallback = exc.reason
+        if got is None:
+            got = self.auto_resume(directory, data_shapes, label_shapes,
+                                   dtype)
+        _elastic.emit_transition(
+            "resume", step=None if got is None else got[3],
+            world_size=self.mesh.num_processes, fresh=got is None,
+            path=path, fallback_reason=fallback,
+            n_payloads=None if meta is None else meta.get("n_payloads"),
+            duration_ms=round((_t.monotonic() - t0) * 1000.0, 3),
+            mesh={"dp": self.dp})
+        return got
+
+
+class ShapeDtypeStruct(object):
+    """A leaf of :meth:`ShardedTrainer.abstract_state`: shape, dtype and
+    placement, no storage."""
+
+    __slots__ = ("shape", "dtype", "sharding")
+
+    def __init__(self, shape, dtype, sharding=None):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+
+    def __repr__(self):
+        return "ShapeDtypeStruct(shape=%s, dtype=%s)" % (self.shape,
+                                                         self.dtype)
+
+
+def _np_array(a):
+    import numpy as np
+    return np.ascontiguousarray(np.asarray(a))

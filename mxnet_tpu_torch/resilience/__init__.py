@@ -1,7 +1,15 @@
-"""resilience: the port's fault surface for serving fleets.
+"""resilience: the port's fault surface for training jobs and serving
+fleets.
 
-The port's copy of ``mxnet_tpu/resilience``'s host-side pieces:
+The port of ``mxnet_tpu/resilience``:
 
+- :mod:`.sentinel`: NaN/Inf/loss-spike detection with skip-step, dynamic
+  loss-scale backoff and a last-good-step record, for the host loops
+  (``Module.fit``, ``FeedForward``); the in-step gate on the device is
+  ``parallel.ShardedTrainer(sentinel=True)``;
+- :mod:`.watchdog`: step and collective timeouts that turn a stuck
+  dispatch into a structured :class:`ResilienceError` carrying
+  rank/step/phase, and dump the flight recorder;
 - :mod:`.faultinject`: the deterministic fault injector
   (``MXTPU_FAULT_SPEC``) and its seams;
 - :mod:`.retry`: exponential-backoff retry for rendezvous paths;
@@ -18,8 +26,6 @@ The port's copy of ``mxnet_tpu/resilience``'s host-side pieces:
   ``latest_classic_epoch`` for the ``prefix-NNNN.params`` files.
 
 Exit-code contract: ``3`` means "restart me" (:data:`EXIT_RESTART`).
-The watchdog and the sentinel belong to the multi-GPU training slice
-(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ def exit_for_restart(err):
 
     ``os._exit`` on purpose: the failed thread may be wedged in native
     code that normal interpreter teardown would join forever.  The
-    telemetry buffer is drained first, since ``os._exit`` skips atexit.
+    telemetry buffer is drained and the flight recorder dumped first,
+    since ``os._exit`` skips atexit.
     """
     print("RESILIENCE ABORT: %s" % err, file=_sys.stderr, flush=True)
     try:
@@ -75,6 +82,16 @@ def exit_for_restart(err):
                   error_kind=getattr(err, "kind", None), error=str(err))
         _obs.flush()
     except Exception:       # last words must never block the exit
+        pass
+    # the flight-recorder ring and pending-collective ledger, persisted
+    # before the hard exit
+    try:
+        from ..observability import flight as _flight
+        _flight.dump(reason="exit_restart",
+                     extra={"phase": getattr(err, "phase", None),
+                            "step": getattr(err, "step", None),
+                            "error": str(err)})
+    except Exception:
         pass
     _os._exit(getattr(err, "exit_code", EXIT_RESTART))
 
@@ -114,27 +131,39 @@ def ckpt_keep(default=3):
     return int(raw) if raw else default
 
 
+def sentinel_enabled(default=False):
+    """``MXTPU_SENTINEL``: enable NaN/Inf/spike sentinels by default."""
+    raw = _os.environ.get("MXTPU_SENTINEL")
+    if raw is None:
+        return default
+    return raw.lower() not in ("", "0", "false", "off")
+
+
 from . import faultinject                                   # noqa: E402
-from .faultinject import (FaultSpec, InjectedFault,         # noqa: E402
-                          maybe_fault, parse_fault_spec)
+from .faultinject import (FaultSpec, FaultInjector,         # noqa: E402
+                          InjectedFault, injector, maybe_fault,
+                          parse_fault_spec, poison_nan)
 from . import netkv                                         # noqa: E402
 from .netkv import (CoordKV, FileKV, TcpKV, TcpKVServer,    # noqa: E402
                     ResilientKV, Lease, KVUnreachable, KeyExists,
                     KeyAbsent, connect_kv)
+from .watchdog import Watchdog, run_with_timeout           # noqa: E402
 from .retry import RetryPolicy, retry_call                  # noqa: E402
+from .sentinel import Sentinel                              # noqa: E402
 from .ckptmgr import CheckpointManager, latest_classic_epoch  # noqa: E402
 from . import elastic                                       # noqa: E402
 from . import hotstate                                      # noqa: E402
 from .hotstate import HotStateUnavailable                   # noqa: E402
 
 __all__ = [
-    "faultinject", "FaultSpec", "InjectedFault", "maybe_fault",
-    "parse_fault_spec",
+    "faultinject", "FaultSpec", "FaultInjector", "InjectedFault",
+    "maybe_fault", "parse_fault_spec", "injector", "poison_nan",
     "elastic", "hotstate", "HotStateUnavailable",
     "netkv", "CoordKV", "FileKV", "TcpKV", "TcpKVServer",
     "ResilientKV", "Lease", "KVUnreachable", "KeyExists", "KeyAbsent",
     "connect_kv",
     "EXIT_RESTART", "ResilienceError", "exit_for_restart",
     "install_excepthook", "step_timeout_s", "retry_max", "ckpt_keep",
+    "sentinel_enabled", "Watchdog", "run_with_timeout", "Sentinel",
     "RetryPolicy", "retry_call", "CheckpointManager", "latest_classic_epoch",
 ]

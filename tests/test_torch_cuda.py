@@ -604,6 +604,166 @@ def test_fused_sweep_kernel_matches_plain(cuda, kind, kw, body, n, offset,
         assert torch.equal(got, want), (kind, kw)
 
 
+@pytest.mark.parametrize("kind,kw,body", [SWEEP_BODIES[1], SWEEP_BODIES[2]])
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (4099, 1)])
+@pytest.mark.parametrize("flag", [None, 1, 0])
+def test_gated_sweep_writes_nothing_on_zero(cuda, kind, kw, body, n, offset,
+                                            flag):
+    """The sweep's skip flag: null is the ungated sweep, 1 the same bits,
+    0 leaves the weight and every state bit for bit as they were; one
+    launch each time, counted as gated when a flag is given."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    opt, w, g, states = _sweep_case(cuda, kind, kw, n, offset, 1.5, n)
+    old = [w.clone()] + [s.clone() for s in states]
+    want_w, want_s = fo.sweep_reference(opt, w, g, states, 0.05, 0.01, 3)
+    ok = None if flag is None else torch.full((), flag, dtype=torch.int32,
+                                              device=cuda)
+    before, gated = fo.sweep.launches, fo.sweep.launches_gated
+    fo.sweep(opt, w, g, states, 0.05, 0.01, 3, ok=ok)
+    torch.cuda.synchronize()
+    assert fo.sweep.launches == before + 1
+    assert fo.sweep.launches_gated == gated + (flag is not None)
+    want = old if flag == 0 else [want_w] + want_s
+    for got, ref in zip([w] + states, want):
+        assert torch.equal(got, ref), (kind, flag)
+
+
+def _user_optimizers():
+    """Optimizers whose update_fn is their own: the generated body."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+
+    class SignClip(opt_mod.Optimizer):
+        elementwise = True
+
+        def __init__(self, momentum=0.9, bound=0.05, **kwargs):
+            super().__init__(**kwargs)
+            self.momentum = momentum
+            self.bound = bound
+
+        def create_state_arrays(self, shape, dtype=torch.float32,
+                                device=None):
+            return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+        def update_fn(self, weight, grad, state, lr, wd, t):
+            m = self.momentum * state + (1.0 - self.momentum) * grad
+            step = torch.clamp(torch.sign(m) * torch.sqrt(torch.abs(m)),
+                               -self.bound, self.bound)
+            return weight - lr * (step + wd * weight), m
+
+    class Forms(SignClip):
+        def update_fn(self, weight, grad, state, lr, wd, t):
+            tf = torch.as_tensor(t, dtype=torch.float32, device=weight.device)
+            m = state / 3.0 + grad ** 2 - 0.5 ** tf
+            r = torch.where(m > 0, torch.rsqrt(m + 1.0), 2.0 / (1.0 - m))
+            return weight - lr * torch.maximum(r, torch.exp(-weight)) \
+                * torch.log(1.0 + torch.abs(grad)), m
+
+    class MyAdam(opt_mod.Adam):
+        def update_fn(self, weight, grad, state, lr, wd, t):
+            return super().update_fn(weight, grad, state, lr, wd, t)
+    return [("sign_clip", SignClip(learning_rate=0.05, rescale_grad=0.5,
+                                   clip_gradient=0.8, wd=0.01)),
+            ("forms", Forms(learning_rate=0.05, wd=0.01)),
+            ("my_adam", MyAdam(learning_rate=0.01, rescale_grad=0.5))]
+
+
+@pytest.mark.parametrize("name", ["sign_clip", "forms", "my_adam"])
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (4099, 1)])
+def test_generated_sweep_body_bitwise_plain(cuda, name, n, offset):
+    """The body generated from a user's update_fn (NVRTC, --fmad=false)
+    against sweep_reference on the card, bit for bit, on both routes; the
+    skip flag at 0 writes nothing."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    opt = dict(_user_optimizers())[name]
+    assert fo.sweep_body(opt) == fo.GENERATED
+    rng = np.random.RandomState(n)
+
+    def vec(scale=1.0, positive=False):
+        a = rng.randn(n + offset).astype(np.float32) * scale
+        return torch.from_numpy(np.abs(a) if positive else a) \
+            .to(cuda)[offset:]
+    k = len(fo._state_leaves(opt.create_state_arrays((1,))))
+    w, g = vec(), vec()
+    states = [vec(0.1, positive=i > 0) for i in range(k)]
+    old = [w.clone()] + [s.clone() for s in states]
+    want_w, want_s = fo.sweep_reference(opt, w, g, states, 0.05, 0.01, 3)
+    before = fo.sweep.launches_by_body.get(fo.GENERATED, 0)
+    fo.sweep(opt, w, g, states, 0.05, 0.01, 3)
+    torch.cuda.synchronize()
+    assert fo.sweep.launches_by_body[fo.GENERATED] == before + 1
+    for got, want in zip([w] + states, [want_w] + want_s):
+        assert bool(torch.isfinite(want).all())
+        assert torch.equal(got, want), (name, n, offset)
+    ws = [x.clone() for x in old]
+    fo.sweep(opt, ws[0], g, ws[1:], 0.05, 0.01, 3,
+             ok=torch.zeros((), dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    for got, ref in zip(ws, old):
+        assert torch.equal(got, ref)
+
+
+def test_trainer_sentinel_on_the_card_skips_without_a_sync(cuda,
+                                                           monkeypatch):
+    """ShardedTrainer(sentinel=True) on the card with the kernel sweep:
+    a NaN batch at step 2 leaves parameters and momentum bit for bit; the
+    gated sweep launched; the counters stay on the card; and steps make
+    no more synchronising calls than the sentinel-off trainer's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.resilience import faultinject
+    monkeypatch.setenv("MXTPU_FUSED_OPT", "kernel")
+    rng = np.random.RandomState(0)
+    x = rng.randn(16, 8).astype(np.float32)
+    batch = {"data": x, "softmax_label": (x.sum(1) > 0).astype(np.float32)}
+
+    def trainer(sentinel):
+        data = mx.sym.Variable("data")
+        h = mx.sym.FullyConnected(data, num_hidden=8, name="fc1")
+        h = mx.sym.FullyConnected(mx.sym.Activation(h, act_type="relu"),
+                                  num_hidden=4, name="fc2")
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9)
+        tr = mx.parallel.ShardedTrainer(
+            mx.sym.SoftmaxOutput(h, name="softmax"), opt, ctx=cuda,
+            sentinel=sentinel)
+        mx.random.seed(1)
+        p, o, a = tr.init_params({"data": (16, 8)},
+                                 label_shapes={"softmax_label": (16,)})
+        return tr, p, o, a, tr.shard_batch(batch)
+    counts = []
+    for sentinel in (False, True):
+        tr, p, o, a, b = trainer(sentinel)
+        p, o, a, _ = tr.step(p, o, a, b)
+        torch.cuda.synchronize()
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(2):
+                    p, o, a, _ = tr.step(p, o, a, b)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts.append(len([w for w in caught
+                           if "called a synchronizing" in str(w.message)]))
+    assert counts[1] == counts[0], counts
+    monkeypatch.setenv("MXTPU_FAULT_SPEC", "step=5:kind=nan")
+    faultinject.reset()
+    try:
+        p, o, a, _ = tr.step(p, o, a, b)      # step 4
+        before = [v.clone() for v in list(p.values()) + list(o.values())]
+        gated = fo.sweep.launches_gated
+        p, o, a, _ = tr.step(p, o, a, b)      # step 5: NaN
+        torch.cuda.synchronize()
+    finally:
+        faultinject.reset()
+    assert fo.sweep.launches_gated > gated
+    for x, y in zip(before, list(p.values()) + list(o.values())):
+        assert torch.equal(x, y)
+    stats = tr.sentinel_stats()
+    assert stats["skipped"] == 1 and stats["last_good"] == 4
+    assert all(v.device == cuda for v in tr._sentinel_state.values())
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_trainer_gpu_matches_cpu_and_counts_launches(cuda, monkeypatch,
                                                      compute_dtype):

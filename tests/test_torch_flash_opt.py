@@ -254,13 +254,14 @@ def test_plan_buckets_match_jax():
 
 
 def test_kernel_mode_without_a_body_raises(monkeypatch):
-    """An elementwise optimizer the CUDA sweep has no body for (here a
-    subclass of SGD with its own update) raises in kernel mode, naming
-    the optimizer; mode '1' runs it."""
+    """An elementwise optimizer the CUDA sweep can have no body for (here
+    a subclass of SGD whose own update takes a tanh, outside the
+    generated body's IR) raises in kernel mode, naming the optimizer;
+    mode '1' runs it."""
     class Nesterov(topt.SGD):
         def update_fn(self, weight, grad, state, lr, wd, t):
             g = grad + wd * weight
-            m = self.momentum * state + g
+            m = self.momentum * state + torch.tanh(g)
             return weight - lr * (g + self.momentum * m), m
 
     opt = Nesterov(momentum=0.9)

@@ -362,8 +362,8 @@ def test_grad_symbol_is_differentiable_like_jax():
     JAX package's vjp is traceable; the port builds the first gradients
     with ``create_graph``): for a graph ending in a fully connected
     layer, the gradient of d(out)/d(fc1_weight) with respect to the
-    data.  Through SoftmaxOutput's backward (first order only in the
-    port) the second backward raises."""
+    data; and the same through SoftmaxOutput's backward, which both
+    packages differentiate through the softmax."""
     def base(mx, loss):
         with mx.name.NameManager():
             h = mx.sym.FullyConnected(mx.sym.Variable("data"),
@@ -393,5 +393,59 @@ def test_grad_symbol_is_differentiable_like_jax():
     _close(to, jo, 1e-5, "first gradients")
     _close(td, jd, 1e-4, "second gradients")
     assert np.abs(td).max() > 0
-    with pytest.raises(tmx.MXNetError, match="first order"):
-        run(tmx, True)
+    (jo, jd), (to, td) = run(jmx, True), run(tmx, True)
+    _close(to, jo, 1e-5, "first gradients through SoftmaxOutput")
+    _close(td, jd, 1e-4, "second gradients through SoftmaxOutput")
+    assert np.abs(td).max() > 0
+
+
+_LOSS_HEADS = {
+    "LinearRegressionOutput": ("label", (4, 3)),
+    "LogisticRegressionOutput": ("label", (4, 3)),
+    "MAERegressionOutput": ("label", (4, 3)),
+    "SoftmaxOutput": ("label", (4,)),
+    "MakeLoss": (None, None),
+    "SVMOutput": ("label", (4,)),
+    "IdentityAttachKLSparseReg": (None, None),
+}
+
+
+@pytest.mark.parametrize("head", sorted(_LOSS_HEADS))
+def test_loss_head_second_derivative_matches_jax(head):
+    """Each loss head at the end of FullyConnected(6), tanh,
+    FullyConnected(3): the grad symbol d/d(fc1_weight), bound for
+    training, then differentiated with respect to the data.  Both
+    packages differentiate the head's backward through its forward (the
+    JAX ``custom_vjp`` through its residuals): first gradients within
+    1e-5, second within 1e-4 of the JAX package."""
+    label, label_shape = _LOSS_HEADS[head]
+
+    def run(mx):
+        with mx.name.NameManager():
+            h = mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                      num_hidden=6, name="fc1")
+            h = mx.sym.Activation(h, act_type="tanh", name="act1")
+            h = mx.sym.FullyConnected(h, num_hidden=3, name="fc2")
+            b = getattr(mx.sym, head)(h, name="head")
+        g = b.grad(["fc1_weight"])
+        arg_shapes, _, aux_shapes = g.infer_shape(data=(4, 5))
+        shapes = dict(zip(g.list_arguments(), arg_shapes))
+        r = np.random.RandomState(15)
+        vals = {n: r.randn(*s).astype(np.float32) * 0.5
+                for n, s in shapes.items()}
+        if label is not None:
+            lab = np.arange(4, dtype=np.float32) % 3
+            vals["head_label"] = (lab if len(label_shape) == 1 else
+                                  r.rand(*label_shape).astype(np.float32))
+        args = {n: mx.nd.array(v, ctx=mx.cpu()) for n, v in vals.items()}
+        aux = [mx.nd.array(np.full(s, 0.3, np.float32), ctx=mx.cpu())
+               for s in aux_shapes]
+        grads = {"data": mx.nd.zeros((4, 5), ctx=mx.cpu())}
+        ex = g.bind(mx.cpu(), args, args_grad=grads,
+                    grad_req={"data": "write"}, aux_states=aux)
+        (out,) = ex.forward(is_train=True)
+        ex.backward([mx.nd.ones(out.shape, ctx=mx.cpu())])
+        return out.asnumpy(), ex.grad_dict["data"].asnumpy()
+    (jo, jd), (to, td) = run(jmx), run(tmx)
+    _close(to, jo, 1e-5, head + " first gradients")
+    _close(td, jd, 1e-4, head + " second gradients")

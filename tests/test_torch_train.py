@@ -166,30 +166,33 @@ def test_bfloat16_step_keeps_master_weights_and_ids():
 
 def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     """No ctx and no mesh means gpu(0) (raises on a CPU-only box);
-    fsdp, seq_axis, the sentinel, the step watchdog, the checkpoint
-    methods and a MoE symbol all raise.  ``remat`` and the mirrored
-    symbol (``mirror_blocks``), which raised before the executor's
-    mirroring, now build; so do ``zero1`` (inert on one device, as in
-    the JAX package) and a dp mesh of two contexts, while a tp axis
-    still raises, naming its slice."""
+    fsdp, seq_axis, the sentinel on a mesh of several devices and a MoE
+    symbol raise.  The sentinel (``sentinel=True`` or
+    ``MXTPU_SENTINEL``), the step watchdog and the checkpoint methods,
+    which raised before the resilience slice, now build; so do ``remat``
+    and the mirrored symbol (``mirror_blocks``), ``zero1`` (inert on one
+    device, as in the JAX package) and a dp mesh of two contexts, while a
+    tp axis still raises, naming its slice."""
     sym = ttf.get_symbol(**DIMS)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             TTrainer(sym, opt)
     assert not TTrainer(sym, opt, ctx=tmx.cpu(), zero1=True).zero1
-    for kwargs in ({"fsdp": True},
-                   {"seq_axis": 1}, {"sentinel": True},
-                   {"step_timeout_s": 5.0}):
+    for kwargs in ({"fsdp": True}, {"seq_axis": 1}):
         with pytest.raises(MXNetError, match="not ported"):
             TTrainer(sym, opt, ctx=tmx.cpu(), **kwargs)
+    assert TTrainer(sym, opt, ctx=tmx.cpu(), sentinel=True).sentinel
+    assert TTrainer(sym, opt, ctx=tmx.cpu(),
+                    step_timeout_s=5.0).step_timeout_s == 5.0
     monkeypatch.setenv("MXTPU_SENTINEL", "1")
-    with pytest.raises(MXNetError, match="sentinel"):
-        TTrainer(sym, opt, ctx=tmx.cpu())
+    assert TTrainer(sym, opt, ctx=tmx.cpu()).sentinel
+    with pytest.raises(MXNetError, match="sentinel on a mesh"):
+        TTrainer(sym, opt, tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()],
+                                                  dp=2))
     monkeypatch.delenv("MXTPU_SENTINEL")
     tr = TTrainer(sym, opt, ctx=tmx.cpu())
-    with pytest.raises(MXNetError, match="checkpoint"):
-        tr.save_checkpoint("/nonexistent", {}, {}, {})
+    assert tr.latest_step("/nonexistent") is None
     with pytest.raises(MXNetError, match="MoE"):
         ttf.get_symbol(num_experts=2, **DIMS)
     assert TTrainer(sym, opt, ctx=tmx.cpu(), remat=True).remat
