@@ -346,12 +346,15 @@ import traceback
 
 import numpy as np
 
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
-#: float32 FMA-pipe operations/s (no tensor cores) and dense bfloat16
-#: tensor-core operations/s
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+#: the card's peaks (NVIDIA data sheet, at the full power limit): HBM
+#: bytes/s, float32 FMA-pipe operations/s (no tensor cores) and dense
+#: bfloat16 tensor-core operations/s, read by load_peaks from the port's
+#: one peak table (mxnet_tpu_torch.observability.counters.PEAKS), which
+#: the trainer's MFU reads too: a kernel's bound and a step's MFU price
+#: work at the same rates
+HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = None
+#: the table's row when the card's name is not in it
+PEAK_CARD = "NVIDIA H100 80GB HBM3"
 
 #: where every tensor of the run lives (a CPU rehearsal of the control
 #: flow may set "cpu"; the kernels then take their plain versions)
@@ -471,7 +474,35 @@ def check_no_spills(info):
             log("  no spills: %s, %d registers" % (fn, regs))
 
 
-def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+def load_peaks(card=None):
+    """Set the three peaks from the port's table at ``card``'s row (the
+    H100 SXM's when the name is not in the table); returns the row's
+    name."""
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
+    from mxnet_tpu_torch.observability.counters import PEAKS
+    name = card if card in PEAKS else PEAK_CARD
+    row = PEAKS[name]
+    HBM_BYTES_PER_S = row["bytes_per_s"]
+    F32_OPS_PER_S = row["tflops"]["float32"] * 1e12
+    BF16_OPS_PER_S = row["tflops"]["bfloat16"] * 1e12
+    return name
+
+
+def ops_rate(dtype):
+    """Peak operations/s for products in ``dtype``: the FMA pipes for
+    float32, the tensor cores' dense bfloat16 rate otherwise."""
+    if F32_OPS_PER_S is None:
+        load_peaks()
+    return F32_OPS_PER_S if str(dtype).replace("torch.", "") == "float32" \
+        else BF16_OPS_PER_S
+
+
+def bound_ms(n_bytes, n_ops, ops_per_s=None):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over ``ops_per_s`` (float32's
+    when None)."""
+    if ops_per_s is None:
+        ops_per_s = ops_rate("float32")
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -710,7 +741,8 @@ def phase_quantized_matmul(torch, timer, seed):
             # rate; the three products a float32 x takes are the kernel's
             # design, not work the function needs (row's "tensor_ops")
             pieces = 3 if dtype == torch.float32 else 1
-            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, BF16_OPS_PER_S)
+            b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k,
+                                  ops_rate("bfloat16"))
         row = {"M": m, "K": k, "N": n,
                "dtype": str(dtype).replace("torch.", ""), "qdtype": qdtype,
                "route": plan["route"], "splits": plan["splits"],
@@ -1852,9 +1884,7 @@ def phase_flash_attention(torch, timer, seed):
         n_ops = 4 * B * H * pairs * D
         item = q.element_size()
         n_bytes = 4 * B * H * s_len * D * item + B * H * s_len * 4
-        b_ms, b_by = bound_ms(n_bytes, n_ops,
-                              F32_OPS_PER_S if dtype == torch.float32
-                              else BF16_OPS_PER_S)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, ops_rate(dtype))
         row = {"B": B, "H": H, "S": s_len, "D": D, "causal": causal,
                "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -2792,8 +2822,7 @@ def phase_resnet(torch, seed, smi):
     flops = resnet_step_flops(RESNET_BATCH)
     for label, r in (("float32", kern), ("bfloat16", bf16),
                      ("float32, deterministic cuDNN", gates["sgd"])):
-        rate = F32_OPS_PER_S if r["compute_dtype"] == "float32" \
-            else BF16_OPS_PER_S
+        rate = ops_rate(r["compute_dtype"])
         r["bound_ms"], r["bound_by"] = bound_ms(0, flops, rate)
         r["step_flops"] = flops
         log("resnet %s batch %d: %.3f ms/step (median of %d: %s), %.1f "
@@ -4115,6 +4144,30 @@ def plain_lenet_fit(torch, params, x, y, dtype, device):
     return p
 
 
+def cpu_float32_settings(torch):
+    """What decides how the CPU rounds float32 products: the matmul
+    precision, oneDNN's float32 modes where this PyTorch has them, the
+    threads, the vector ISA and the oneDNN environment."""
+    out = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "threads": torch.get_num_threads(),
+           "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+           "env": {k: v for k, v in os.environ.items()
+                   if k.startswith(("ONEDNN", "DNNL", "MKL", "OMP"))}}
+    mk = torch.backends.mkldnn
+    for name, obj in (("mkldnn", mk), ("mkldnn.matmul", getattr(
+            mk, "matmul", None)), ("mkldnn.conv", getattr(mk, "conv", None))):
+        if hasattr(obj, "fp32_precision"):
+            out[name + ".fp32_precision"] = obj.fp32_precision
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((ln.split(":", 1)[1].split() for ln in f
+                          if ln.startswith("flags")), [])
+        out["amx"] = sorted(fl for fl in flags if fl.startswith("amx"))
+    except OSError:
+        out["amx"] = None
+    return out
+
+
 def feedforward_witness(torch, seed):
     """FeedForward.fit of LeNet for FAMILY_BATCHES batches on ``gpu(0)``
     and on the CPU (float32), against the port's same training on the
@@ -4123,8 +4176,12 @@ def feedforward_witness(torch, seed):
     times the larger float32 distance, of the CPU's fit and of
     :func:`plain_lenet_fit` on the card (cuDNN's algorithms and the
     CPU's round differently); the CPU's float32 fit within FAMILY_TOL of
-    the float64 reference, and the plain float64 training within 1e-10
-    of it (all three compute the same training)."""
+    the float64 reference, or within PRECISION_FACTOR times the plain
+    float32 training on the same CPU where that is further (a CPU whose
+    oneDNN rounds float32 products coarser moves both alike), and the
+    plain float64 training within 1e-10 of it (all three compute the
+    same training).  The port's trainer in float32 on the CPU is
+    reported beside them."""
     import mxnet_tpu_torch as mx
     params, x, y = family_data(seed)
     whole, _t, _h = lenet_parts(mx)
@@ -4144,21 +4201,27 @@ def feedforward_witness(torch, seed):
         fits[str(ctx)] = {k: v.data.double().cpu()
                           for k, v in model.arg_params.items()}
     ref = trainer_fit(torch, whole, params, x, y, torch.float64)
-    plain = {dt: plain_lenet_fit(torch, params, x, y, dt, d)
-             for dt, d in ((torch.float32, DEVICE), (torch.float64, "cpu"))}
+    trainer32 = trainer_fit(torch, whole, params, x, y, torch.float32)
+    plain = {(dt, d): plain_lenet_fit(torch, params, x, y, dt, d)
+             for dt, d in ((torch.float32, DEVICE), (torch.float32, "cpu"),
+                           (torch.float64, "cpu"))}
 
     def dist(p):
         return max(float((p[k].double().cpu() - ref[k]).abs().max())
                    for k in params)
     got = {"device_vs_cpu64": dist(fits[str(dev)]),
            "cpu32_vs_cpu64": dist(fits["cpu(0)"]),
-           "plain_device32_vs_cpu64": dist(plain[torch.float32]),
-           "plain64_vs_cpu64": dist(plain[torch.float64]),
+           "plain_device32_vs_cpu64": dist(plain[torch.float32, DEVICE]),
+           "plain_cpu32_vs_cpu64": dist(plain[torch.float32, "cpu"]),
+           "trainer_cpu32_vs_cpu64": dist(trainer32),
+           "plain64_vs_cpu64": dist(plain[torch.float64, "cpu"]),
            "largest_update": max(float((ref[k] - torch.as_tensor(
                params[k], dtype=torch.float64)).abs().max()) for k in params)}
+    got["cpu32_gate"] = max(FAMILY_TOL, PRECISION_FACTOR
+                            * got["plain_cpu32_vs_cpu64"])
     got["ok"] = (got["device_vs_cpu64"] <= PRECISION_FACTOR * max(
         got["cpu32_vs_cpu64"], got["plain_device32_vs_cpu64"])
-        and got["cpu32_vs_cpu64"] <= FAMILY_TOL
+        and got["cpu32_vs_cpu64"] <= got["cpu32_gate"]
         and got["plain64_vs_cpu64"] <= 1e-10)
     return got
 
@@ -4176,10 +4239,13 @@ def phase_family(torch, seed):
     if not ff["ok"]:
         raise AssertionError("FeedForward.fit on the card: %s (gates: the "
                              "card within %g times the larger float32 "
-                             "distance, the CPU's float32 within %g, the "
-                             "plain float64 within 1e-10)"
+                             "distance, the CPU's float32 within %g or "
+                             "%g times the plain float32 on the CPU, the "
+                             "plain float64 within 1e-10); the CPU's "
+                             "float32 settings: %s"
                              % (json.dumps(ff), PRECISION_FACTOR,
-                                FAMILY_TOL))
+                                FAMILY_TOL, PRECISION_FACTOR,
+                                json.dumps(cpu_float32_settings(torch))))
     params, x, y = family_data(seed)
     whole, trunk, head = lenet_parts(mx)
     dev = mx.Context.from_device(torch.device(DEVICE))
@@ -4275,7 +4341,7 @@ def phase_zoo(torch, seed, smi, resnet):
         del _p, _a, _s
     flops = step_flops(sym, (ZOO_BATCH, 3, ZOO_SIZE, ZOO_SIZE))
     for dt, r in main.items():
-        rate = F32_OPS_PER_S if dt == "float32" else BF16_OPS_PER_S
+        rate = ops_rate(dt)
         r["step_flops"] = flops
         r["bound_ms"], r["bound_by"] = bound_ms(0, flops, rate)
         log("zoo inception-bn %s batch %d: %.3f ms/step (median of %d: %s), "
@@ -7580,6 +7646,347 @@ def phase_resilience(torch, timer, seed, smi):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: observability
+# ----------------------------------------------------------------------
+OBS_STEPS = 6
+OBS_ONOFF_ROUNDS = 4
+OBS_PROFILED_STEPS = 2
+OBS_REQUESTS = 32
+#: the report's step p50 against the host clock around the same calls
+OBS_P50_REL = 0.05
+#: the live engine's objective from MXTPU_SLO_SPEC (ms, far above any
+#: request's latency) and the windows of the held-out checks (s; wide
+#: enough to cover the whole run)
+OBS_SLO_TARGET_MS = 600000.0
+OBS_SLO_WINDOWS = "fast=600:slow=1200:tfast=600:tslow=1200"
+
+
+def obs_dir(*parts):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(here, "build", "chip_smoke_observability", *parts)
+
+
+def lm_step_flops(batch, seq_len, vocab_size, num_layers, dim, ffn_mult=4,
+                  **_unused):
+    """The LM's model FLOPs a training step, written out: per layer the
+    qkv, output and two FFN projections and attention's q k^T and p v
+    over the full S x S scores, then the head; a multiply-add is 2, and
+    the step is 3 forwards."""
+    tokens = batch * seq_len
+    layer = 2 * tokens * dim * (3 * dim + dim + 2 * ffn_mult * dim) \
+        + 2 * 2 * batch * seq_len * seq_len * dim
+    return 3 * (num_layers * layer + 2 * tokens * dim * vocab_size)
+
+
+def _set_telemetry(directory):
+    """Telemetry into ``directory`` (None: off), the process step
+    statistics started afresh."""
+    from mxnet_tpu_torch.observability import counters, events
+    if directory is None:
+        os.environ.pop("MXTPU_TELEMETRY", None)
+        os.environ.pop("MXTPU_TELEMETRY_DIR", None)
+    else:
+        os.makedirs(directory, exist_ok=True)
+        os.environ["MXTPU_TELEMETRY"] = "1"
+        os.environ["MXTPU_TELEMETRY_DIR"] = directory
+    events.refresh()
+    counters.reset()
+
+
+def obs_train(torch, dtype, seed, smi):
+    """(a) OBS_STEPS steps of phase 7's LM with telemetry on and
+    ``emit_telemetry_counters`` after each, then the same trainer with
+    telemetry on and off alternating; returns the readings and the
+    launch counts of the counted steps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.observability import aggregate, events, percentile
+    from mxnet_tpu_torch.tools import mxtrace
+    S = TRAIN["seq_len"]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (TRAIN_BATCH * S),
+                              **TRAIN_SGD)
+    tr, p, st, aux = res_trainer(torch, seeded_train_params(seed), opt,
+                                 compute_dtype=None if dtype == "float32"
+                                 else dtype)
+    b = tr.shard_batch(train_batch(seed, TRAIN_BATCH))
+    tel = obs_dir("train_" + dtype)
+    shutil.rmtree(tel, ignore_errors=True)
+    _set_telemetry(tel)
+    torch.cuda.synchronize()
+    reset_counts()
+    dispatch_ms, step_s, emitted = [], [], []
+    for _ in range(OBS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st, aux, outs = tr.step(p, st, aux, b)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dispatch_ms.append((t1 - t0) * 1e3)
+        step_s.append(t2 - t0)
+        emitted.append(tr.emit_telemetry_counters(step_time_s=t2 - t0))
+    counts = read_counts()
+    if not bool(torch.isfinite(outs[0].float()).all()):
+        raise AssertionError("telemetry %s: non-finite outputs" % dtype)
+    events.flush()
+    n_buckets = len(fo.plan_buckets({n: p[n] for n in tr.param_names}))
+    want = {"flash_attention": TRAIN["num_layers"] * OBS_STEPS,
+            "fused_opt": n_buckets * OBS_STEPS}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError("telemetry %s launches %s, want %s"
+                             % (dtype, counts, want))
+    flops = lm_step_flops(TRAIN_BATCH, **TRAIN)
+    mfus = [e.get("mfu") for e in emitted]
+    bad = [e for e in emitted if e.get("flops_per_step") != float(flops)]
+    if bad:
+        raise AssertionError("telemetry %s: flops_per_step %s, want the "
+                             "analytic %d" % (dtype, bad[0], flops))
+    if not all(m is not None and 0.0 < m <= 1.0 for m in mfus):
+        raise AssertionError("telemetry %s: mfu %s not in (0, 1]"
+                             % (dtype, mfus))
+    records = aggregate.read_events(tel)
+    report = aggregate.build_report(records)
+    pod = report["pod"]
+    host_p50 = percentile(dispatch_ms, 50)
+    if pod["steps"] != OBS_STEPS or report["per_rank"]["0"]["steps"] \
+            != OBS_STEPS:
+        raise AssertionError("telemetry %s: the report shows %s steps, "
+                             "want %d" % (dtype, pod["steps"], OBS_STEPS))
+    if abs(pod["step_ms_p50"] - host_p50) > OBS_P50_REL * host_p50:
+        raise AssertionError("telemetry %s: report p50 %.3f ms, host clock "
+                             "%.3f ms (more than %g apart)"
+                             % (dtype, pod["step_ms_p50"], host_p50,
+                                OBS_P50_REL))
+    if pod["mfu"] is None:
+        raise AssertionError("telemetry %s: the report has no MFU" % dtype)
+    trace = mxtrace.build_trace(records)
+    slices = [e for e in trace["traceEvents"]
+              if e["ph"] == "X" and e.get("tid") == mxtrace.TID_STEP]
+    if sorted(e["args"]["step"] for e in slices) != list(range(1, OBS_STEPS
+                                                               + 1)):
+        raise AssertionError("mxtrace %s: step slices %s, want one a step"
+                             % (dtype, [e["args"].get("step")
+                                        for e in slices]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.mxtop", tel, "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or json.loads(proc.stdout)["pod"]["steps"] \
+            != OBS_STEPS:
+        raise AssertionError("mxtop --json %s: rc %d: %s"
+                             % (dtype, proc.returncode, proc.stderr[-500:]))
+    # telemetry on and off, alternating, on the same trainer (the on
+    # steps log into a directory of their own)
+    onoff = {"on": [], "off": []}
+    for _r in range(OBS_ONOFF_ROUNDS):
+        for mode in ("on", "off"):
+            _set_telemetry(obs_dir("onoff_" + dtype) if mode == "on"
+                           else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, aux, _o = tr.step(p, st, aux, b)
+            torch.cuda.synchronize()
+            onoff[mode].append((time.perf_counter() - t0) * 1e3)
+    _set_telemetry(None)
+    out = {"launches": counts, "buckets": n_buckets, "flops_per_step": flops,
+           "mfu": mfus, "mfu_median": float(np.median(mfus)),
+           "step_ms": [t * 1e3 for t in step_s],
+           "step_ms_median": float(np.median(step_s)) * 1e3,
+           "dispatch_ms": dispatch_ms, "host_dispatch_p50_ms": host_p50,
+           "report_step_ms_p50": pod["step_ms_p50"],
+           "report_mfu": pod["mfu"], "trace_step_slices": len(slices),
+           "onoff_ms": onoff,
+           "telemetry_on_ms_median": float(np.median(onoff["on"])),
+           "telemetry_off_ms_median": float(np.median(onoff["off"]))}
+    log("observability (a) %s LM %s batch %d, MXTPU_FUSED_OPT=kernel, "
+        "telemetry on: %d steps, %.6g FLOP a step (the analytic count), "
+        "MFU at the %s peak %s (median %.4f; the report's %s), ms a step "
+        "%.3f (median, synchronised); report p50 %.3f ms against the host "
+        "clock's %.3f ms around the same calls (dispatch, the trainer does "
+        "not synchronise); mxtrace %d step slices; mxtop --json rc 0; "
+        "launches %s; telemetry on %.3f ms, off %.3f ms a step (median of "
+        "%d each, alternating); on %s"
+        % (dtype, json.dumps(TRAIN), TRAIN_BATCH, OBS_STEPS, flops, dtype,
+           ["%.4f" % m for m in mfus], out["mfu_median"], pod["mfu"],
+           out["step_ms_median"], pod["step_ms_p50"], host_p50, len(slices),
+           json.dumps(counts), out["telemetry_on_ms_median"],
+           out["telemetry_off_ms_median"], OBS_ONOFF_ROUNDS, smi))
+    return out, tr, p, st, aux, b
+
+
+def obs_profile(torch, tr, p, st, aux, b, smi):
+    """(b) ``mx.profiler`` around OBS_PROFILED_STEPS float32 steps: the
+    written Chrome trace must name the hand flash-attention and sweep
+    kernels among its CUDA kernels."""
+    import mxnet_tpu_torch as mx
+    mx.profiler.profiler_set_config(filename=obs_dir("profile"))
+    torch.cuda.synchronize()
+    mx.profiler.profiler_set_state("run")
+    try:
+        for _ in range(OBS_PROFILED_STEPS):
+            p, st, aux, _o = tr.step(p, st, aux, b)
+    finally:
+        path = mx.profiler.profiler_set_state("stop")
+    with open(path) as f:
+        doc = json.load(f)
+    kernels = [e for e in doc.get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    names = {"flash_attention": "flash_forward_", "fused_opt": "sweep_"}
+    found = {k: sum(1 for e in kernels if marker in e.get("name", ""))
+             for k, marker in names.items()}
+    if DEVICE != "cuda":        # a CPU rehearsal: host events only
+        found = {k: len(doc.get("traceEvents", [])) for k in names}
+    if not all(found.values()):
+        raise AssertionError("profiler trace %s: hand kernels %s among %d "
+                             "CUDA kernels (names %s)"
+                             % (path, found, len(kernels),
+                                sorted({e.get("name", "")[:60]
+                                        for e in kernels})[:20]))
+    out = {"trace_bytes": os.path.getsize(path), "kernels": len(kernels),
+           "hand_kernels": found,
+           "kernel_names": sorted({
+               m.group(0) for e in kernels for m in [re.search(
+                   r"(flash_forward_|sweep_)\w+(<\d+>)?", e["name"])]
+               if m})}
+    log("observability (b) mx.profiler over %d float32 steps: %d CUDA "
+        "kernels in the trace (%d bytes), hand kernels %s: %s; on %s"
+        % (OBS_PROFILED_STEPS, len(kernels), out["trace_bytes"],
+           json.dumps(found), out["kernel_names"], smi))
+    return out
+
+
+def obs_serve(torch, seed, smi):
+    """(c) A ModelServer over phase 4b's fp8 LM under the retrace sentry,
+    the lock sanitizer and the live SLO engine, OBS_REQUESTS requests."""
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.observability import (locktrace, metrics, retrace,
+                                               sloengine)
+    from mxnet_tpu_torch.serving import ModelServer
+    metrics.reset_registry()
+    sloengine.reset_engine()
+    os.environ["MXTPU_SLO_SPEC"] = \
+        "metric=mxtpu_serve_latency_ms:target=%r:%s" % (OBS_SLO_TARGET_MS,
+                                                        OBS_SLO_WINDOWS)
+    os.environ["MXTPU_SLO_INTERVAL_S"] = "0.5"
+    locktrace.install()
+    locktrace.reset_order_graph()
+    retrace.install()
+    retrace.reset()
+    try:
+        live = sloengine.maybe_start(source="chip_smoke")
+        if live is None:
+            raise AssertionError("MXTPU_SLO_SPEC started no SLO engine")
+        ctx = None if DEVICE == "cuda" else torch.device(DEVICE)
+        params = seeded_params(seed)
+        srv = ModelServer()
+        srv.add_generative_model("lm-fp8", params, ctx=ctx,
+                                 quantize="fp8_e4m3", **MODEL)
+        prompts = make_prompts(seed, OBS_REQUESTS - N_PROMPTS)
+        torch.cuda.synchronize()
+        reset_counts()
+        qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+        busy = {}
+        t0 = time.perf_counter()
+        futures = _client_threads([
+            (lambda i=i: _submit_generation(srv, "lm-fp8", prompts[i], None,
+                                            busy))
+            for i in range(OBS_REQUESTS)])
+        results = [f.result(timeout=600) for f in futures]
+        srv.drain(timeout=600)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        counts["quantized_matmul_by_route"] = dict(
+            qz.quantized_matmul.launches_by_route)
+        stats = srv.stats()
+        srv.close()
+        sentry = retrace.stats()
+        edges = len(locktrace.order_edges())
+        time.sleep(1.2)                 # one more pass of the live engine
+        live_state = live.state()
+        live.stop()
+    finally:
+        retrace.uninstall()
+        locktrace.uninstall()
+        sloengine.reset_engine()
+        os.environ.pop("MXTPU_SLO_SPEC", None)
+        os.environ.pop("MXTPU_SLO_INTERVAL_S", None)
+    if stats["failed"]:
+        raise AssertionError("%d requests failed under the sanitizers"
+                             % stats["failed"])
+    if sentry["retraces_after_warmup"] or not sentry["lowerings_seen"]:
+        raise AssertionError("retrace sentry: %s (want 0 after warmup, "
+                             "and the warmup's lowerings seen)" % sentry)
+    if counts["flash_decode"] < 1 or counts["quantized_matmul"] < 1:
+        raise AssertionError("serving under the sanitizers launched %s"
+                             % counts)
+    check_generated(torch, "lm-fp8", dequantized_params(params, "fp8_e4m3"),
+                    prompts[:2], results[:2])
+    hist = next(iter(metrics.registry().histograms("mxtpu_serve_latency_ms")))
+    p50 = hist.cumulative.percentile(50)
+    if hist.cumulative.count < OBS_REQUESTS:
+        raise AssertionError("latency histogram holds %d samples, want %d"
+                             % (hist.cumulative.count, OBS_REQUESTS))
+    if live_state["evals"] < 1 or live_state["last_alert"] is not None:
+        raise AssertionError("live SLO engine %s: want evaluations and no "
+                             "alert at a %g ms target"
+                             % (live_state, OBS_SLO_TARGET_MS))
+    alerts = {}
+    now = time.time()
+    for name, target in (("below_p50", p50 / 2.0),
+                         ("far_above", p50 * 1000.0)):
+        eng = sloengine.SloEngine(specs=sloengine.parse_specs(
+            "metric=mxtpu_serve_latency_ms:target=%r:%s"
+            % (target, OBS_SLO_WINDOWS)), source="chip_smoke")
+        alerts[name] = eng.evaluate(now=now)
+    pages = [a for a in alerts["below_p50"]
+             if a["tier"] == "page" and a["edge"] == "fire"]
+    if not pages or alerts["far_above"]:
+        raise AssertionError("SLO alerts %s: want a page at a target below "
+                             "p50 %.3f ms and none far above it"
+                             % (alerts, p50))
+    out = {"launches": counts, "requests": OBS_REQUESTS, "wall_s": wall_s,
+           "latency_ms_p50": p50, "retrace": sentry,
+           "lock_order_edges": edges, "busy_429": busy,
+           "slo_live": {"evals": live_state["evals"],
+                        "target_ms": OBS_SLO_TARGET_MS},
+           "slo_page_burns": pages[0]["burns"]}
+    log("observability (c) ModelServer lm-fp8 at %s, %d requests under the "
+        "retrace sentry, the lock sanitizer and MXTPU_SLO_SPEC: %.2f s, "
+        "latency p50 %.3f ms; retraces after warmup %d (lowerings seen %d); "
+        "lock-order errors 0 over %d order edges; live engine %d "
+        "evaluations, no alert at %g ms; a target of p50/2 pages (burns "
+        "%s), p50*1000 is quiet; launches %s; on %s"
+        % (json.dumps(MODEL), OBS_REQUESTS, wall_s, p50,
+           sentry["retraces_after_warmup"], sentry["lowerings_seen"], edges,
+           live_state["evals"], OBS_SLO_TARGET_MS,
+           json.dumps(pages[0]["burns"]), json.dumps(counts), smi))
+    return out
+
+
+def phase_observability(torch, seed, smi):
+    """Phase 18: the observability slice on the card: (a) the LM's steps
+    with telemetry on, float32 and bfloat16, (b) the profiler's trace,
+    (c) serving under the sanitizers and the SLO engine."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(obs_dir(), ignore_errors=True)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        res = obs_train(torch, dtype, seed, smi)
+        out[dtype] = res[0]
+        if dtype == "float32":
+            out["profile"] = obs_profile(torch, *res[1:], smi)
+        del res
+        torch.cuda.empty_cache()
+    out["serve"] = obs_serve(torch, seed, smi)
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("observability: phase 18 %.2f s" % out["seconds"])
+    shutil.rmtree(obs_dir(), ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7617,6 +8024,10 @@ def main(argv=None):
         log("nvidia-smi: %s" % smi)
         cards = nvidia_smi_cards()
         log("nvidia-smi -L: %d cards: %s" % (len(cards), " | ".join(cards)))
+        peak_card = load_peaks(kind)
+        log("peaks (observability.counters.PEAKS[%r]): %g B/s HBM, %g "
+            "float32 and %g bfloat16 operations/s"
+            % (peak_card, HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S))
         t0 = time.perf_counter()
         info = _build.build_all()
         log("build: %.2f s wall; %s" % (
@@ -7661,6 +8072,7 @@ def main(argv=None):
         dp = run("15", phase_dp, torch, args.seed, smi)
         capi = run("16", phase_capi, torch, args.seed, smi)
         res = run("17", phase_resilience, torch, timer, args.seed, smi)
+        obs = run("18", phase_observability, torch, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -7737,6 +8149,15 @@ def main(argv=None):
     res_flash = sum(c["flash_attention"] for c in res_counts)
     launches["fused_opt"] += res_sweeps
     launches["flash_attention"] += res_flash
+    # observability (phase 18): the LM's telemetry steps, float32 and
+    # bfloat16, and the fp8 LM served under the sanitizers
+    obs_counts = [obs[d]["launches"] for d in ("float32", "bfloat16")]
+    obs_sweeps = sum(c["fused_opt"] for c in obs_counts)
+    obs_flash = sum(c["flash_attention"] for c in obs_counts)
+    launches["fused_opt"] += obs_sweeps
+    launches["flash_attention"] += obs_flash
+    for k in ("flash_decode", "quantized_matmul"):
+        launches[k] += obs["serve"]["launches"][k]
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
     by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main
@@ -7777,7 +8198,7 @@ def main(argv=None):
                for d in ("float32", "bfloat16")] \
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
-            + dp_runs + dp_lm + res_counts \
+            + dp_runs + dp_lm + res_counts + obs_counts \
             + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
@@ -7845,6 +8266,7 @@ def main(argv=None):
                 res["sentinel"]["launches"]["fused_opt"]
             k["launches_by_path"]["transformer_generated_body"] = \
                 res["generated"]["trainer_launches"]["fused_opt"]
+            k["launches_by_path"]["transformer_telemetry"] = obs_sweeps
             gen = next(r for r in res["generated"]["rows"]
                        if r["n"] == SWEEP_N)
             k["generated"] = dict(
@@ -7863,6 +8285,9 @@ def main(argv=None):
                 for d in ("float32", "bfloat16")}
             k["launches_by_dtype"]["float32"] += dp_flash + capi_flash \
                 + res_flash
+            for d in ("float32", "bfloat16"):
+                k["launches_by_dtype"][d] += obs[d]["launches"][
+                    "flash_attention"]
             k["launches_by_device"] = by_device["flash_attention"]
             k["launches_by_path"] = {
                 "transformer_training": transformer_flash,
@@ -7872,7 +8297,8 @@ def main(argv=None):
                     res["sentinel"]["launches"]["flash_attention"],
                 "transformer_generated_body":
                     res["generated"]["trainer_launches"][
-                        "flash_attention"]}
+                        "flash_attention"],
+                "transformer_telemetry": obs_flash}
             k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
@@ -7886,11 +8312,20 @@ def main(argv=None):
             k["launches_by_route"] = {
                 r: eng["int8"]["quantized_matmul_by_route"][r]
                 + serve["launches"]["quantized_matmul_by_route"][r]
+                + obs["serve"]["launches"]["quantized_matmul_by_route"][r]
                 for r in ("gemv", "wgmma")}
             k["launches_by_qdtype"] = {
                 "int8": eng["int8"]["launches"]["quantized_matmul"],
                 "fp8_e4m3": serve["launches"]["quantized_matmul_by_qdtype"][
-                    "fp8_e4m3"]}
+                    "fp8_e4m3"] + obs["serve"]["launches"][
+                    "quantized_matmul"]}
+            k["launches_by_path"] = {
+                "served_under_sanitizers":
+                    obs["serve"]["launches"]["quantized_matmul"]}
+        elif k["name"] == "flash_decode":
+            k["launches_by_path"] = {
+                "served_under_sanitizers":
+                    obs["serve"]["launches"]["flash_decode"]}
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
     # its launches are the imperative path's (phase 8) and the C ABI's
     # rtc_saxpy push (phase 16, counted by the C process)
@@ -7925,6 +8360,7 @@ def main(argv=None):
                        "resnet": resnet, "module": module, "feed": feed,
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
                        "capi": capi, "resilience": res,
+                       "observability": obs,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -41,7 +41,12 @@ and never ``jax`` or ``mxnet_tpu``.  These slices are ported:
   ``register`` and the ``Custom`` op, the legacy ``NumpyOp``/
   ``NDArrayOp``), whose bodies run on host numpy arrays, and the ops of
   Faster R-CNN (``ROIPooling``, ``BlockGrad``, ``SoftmaxActivation``)
-  with the rest of the JAX package's op registry but ``MoE``.
+  with the rest of the JAX package's op registry but ``MoE``;
+- observability: step statistics and MFU at the card's own peak
+  (``ShardedTrainer.emit_telemetry_counters``), the pod aggregate, the
+  SLO sentry and the live SLO engine, the retrace and lock sanitizers,
+  ``profiler`` over ``torch.profiler``, and the ``mxtop``, ``mxtrace``
+  and ``benchdiff`` tools (``python -m mxnet_tpu_torch.tools.<name>``).
 
 The kernels (``csrc/``) are built with ``nvcc`` at first use.
 
@@ -81,5 +86,6 @@ from . import engine, image, recordio             # noqa: F401
 from . import module                              # noqa: F401
 from . import module as mod                       # noqa: F401
 from . import executor, executor_manager, monitor  # noqa: F401
+from . import profiler                            # noqa: F401
 from .model import FeedForward                    # noqa: F401
 from .monitor import Monitor                      # noqa: F401

@@ -1,42 +1,66 @@
-"""observability: the port's telemetry for serving.
+"""observability: the port's telemetry.
 
-Copies of ``mxnet_tpu/observability``'s host-only modules: the per-rank
-JSONL event log (:mod:`.events`, off unless ``MXTPU_TELEMETRY=1`` or
+Copies of ``mxnet_tpu/observability``'s modules: the per-rank JSONL
+event log (:mod:`.events`, off unless ``MXTPU_TELEMETRY=1`` or
 ``MXTPU_TELEMETRY_DIR`` is set), request trace ids (:mod:`.trace`,
 ``MXTPU_TRACE=1``), the canonical phase names (:mod:`.phases`), the
 always-on metrics registry and its mergeable :class:`QuantileSketch`
-(:mod:`.metrics`), the :func:`percentile` helper (:mod:`.counters`),
-phase spans (:mod:`.spans`, NVTX ranges on a CUDA process), the crash
-flight recorder (:mod:`.flight`: the always-on ring every
-:func:`emit` and :func:`record_step` lands in, the pending-collective
-ledger, the dump at the crash seams) and :func:`record_step`.
-Cross-rank aggregation, SLO engines and the trainer counters belong to
-the observability slice (``ROADMAP.md`` queue 1 item 4 (f)).
+(:mod:`.metrics`), phase spans (:mod:`.spans`, NVTX ranges on a CUDA
+process), the crash flight recorder (:mod:`.flight`), the step
+statistics and MFU at the card's own peak (:mod:`.counters`), the pod
+aggregate over the coordination KV and the telemetry dir
+(:mod:`.aggregate`, what ``python -m mxnet_tpu_torch.tools.mxtop``
+renders), the perf-regression sentry over a bench trajectory
+(:mod:`.slo`, ``python -m mxnet_tpu_torch.tools.benchdiff``), the live
+burn-rate SLO engine (:mod:`.sloengine`, ``MXTPU_SLO_SPEC``), the
+retrace sentry (:mod:`.retrace`, ``MXTPU_RETRACE_SENTRY=1``) and the
+lock-order sanitizer (:mod:`.locktrace`, ``MXTPU_LOCKCHECK=1``).
+
+The fit loops, the trainer, the kvstore and the resilience seams call
+:func:`record_step` and :func:`spans.span`; both are cheap no-ops when
+telemetry is off.
 """
 from __future__ import annotations
 
-from . import counters, events, metrics, phases, trace    # noqa: F401
-from . import flight, spans                                 # noqa: F401
-from .events import emit, enabled, flush, refresh, run_id  # noqa: F401
-from .phases import PHASES, SERVE_PHASES, TRAIN_PHASES     # noqa: F401
-from .counters import percentile, rel_spread               # noqa: F401
+from . import (events, spans, counters, aggregate, phases, trace,  # noqa
+               flight, slo, locktrace, retrace, metrics, sloengine)
+from .events import (enabled, emit, flush, refresh, run_id,  # noqa: F401
+                     last_fault, EventLog)
+from .phases import PHASES, TRAIN_PHASES, SERVE_PHASES     # noqa: F401
+from .spans import span, timed_iter, SPAN_NAMES, overlap_report  # noqa
+from .counters import (StepStats, percentile, rel_spread,  # noqa: F401
+                       global_stats, emit_trainer_counters,
+                       emit_sentinel_counters)
+from .aggregate import (publish_summary, collect_summaries,  # noqa: F401
+                        heartbeat_ages, pod_view, read_events,
+                        build_report, EventTailer)
 from .metrics import QuantileSketch, registry              # noqa: F401
 
-__all__ = ["counters", "events", "flight", "metrics", "phases", "spans",
-           "trace", "emit", "record_step",
-           "enabled", "flush", "refresh", "run_id", "PHASES",
-           "SERVE_PHASES", "TRAIN_PHASES", "percentile", "rel_spread",
-           "QuantileSketch", "registry"]
+__all__ = [
+    "events", "spans", "counters", "aggregate", "phases", "trace",
+    "flight", "slo", "locktrace", "retrace", "metrics", "sloengine",
+    "enabled", "emit", "flush", "refresh", "run_id", "last_fault",
+    "EventLog",
+    "PHASES", "TRAIN_PHASES", "SERVE_PHASES",
+    "span", "timed_iter", "SPAN_NAMES", "overlap_report",
+    "StepStats", "percentile", "rel_spread", "global_stats",
+    "emit_trainer_counters", "emit_sentinel_counters",
+    "publish_summary", "collect_summaries", "heartbeat_ages",
+    "pod_view", "read_events", "build_report", "EventTailer",
+    "QuantileSketch", "registry", "record_step",
+]
+
+#: publish a KV summary every N recorded steps
+_PUBLISH_EVERY = 10
 
 
 def record_step(step, dur_s, batch_size=None, epoch=None, **fields):
-    """The one call a training loop makes per step: the step lands in
-    the crash flight recorder's bounded ring, and, when telemetry is on,
-    the ``step`` record (``dur_ms``, ``batch_size``,
-    ``samples_per_sec``, ``epoch`` and ``fields``) is emitted.  The JAX
-    package also folds the timing into its process ``StepStats`` and
-    publishes a summary to the coordination KV every 10 steps; both
-    belong to the observability slice.  Never raises."""
+    """The one call a training loop makes per step when telemetry is
+    on: emits the ``step`` record, folds the timing into the process
+    :class:`StepStats`, and every ``_PUBLISH_EVERY`` steps pushes the
+    compact summary to the coordination KV for the live pod view.
+    No-op when telemetry is off (the step still lands in the crash
+    flight recorder's bounded ring); never raises."""
     try:
         flight.note("step", step, {"dur_ms": round(float(dur_s) * 1e3, 3)})
     except Exception:
@@ -45,6 +69,8 @@ def record_step(step, dur_s, batch_size=None, epoch=None, **fields):
     if log is None:
         return
     try:
+        stats = counters.global_stats()
+        stats.observe(dur_s, step=step, batch_size=batch_size)
         rec = {"dur_ms": round(float(dur_s) * 1e3, 3)}
         if batch_size:
             rec["batch_size"] = batch_size
@@ -54,5 +80,7 @@ def record_step(step, dur_s, batch_size=None, epoch=None, **fields):
             rec["epoch"] = epoch
         rec.update(fields)
         log.emit("step", step=step, **rec)
+        if step is not None and step % _PUBLISH_EVERY == 0:
+            aggregate.publish_summary(step=step)
     except Exception:
         pass

@@ -1,12 +1,37 @@
-"""Derived counters: the port's copy of :func:`percentile` and
-:func:`rel_spread` from ``mxnet_tpu/observability/counters.py``.
+"""Derived training counters: throughput, step-time EMA + percentiles,
+MFU, loss-scale/sentinel state.
 
-The trainer's step statistics, MFU and roofline counters there read the
-JAX device and cost model; they come with the observability slice.
+The port of ``mxnet_tpu/observability/counters.py``.  One
+:class:`StepStats` per process folds host step timings into the numbers
+an operator reads (EMA, p50/p95, samples/sec); :func:`emit_trainer_counters`
+prices a trainer's step against the card's peak
+(``ShardedTrainer.compiled_step_cost_analysis()`` counts the step's model
+FLOPs from the bound graph's shapes) and :func:`emit_sentinel_counters`
+reports ``ShardedTrainer.sentinel_stats()``.
+
+Peaks come from :data:`PEAKS`, the one table of the card's data-sheet
+rates: ``chip_smoke.py``'s kernel bounds read it too, so a bound and an
+MFU can never price the same work at two rates.  Unlike the JAX package,
+which prices every step at its bfloat16 peak, :func:`peak_tflops` takes
+the step's compute dtype: the port's float32 products run on the FMA
+pipes with TF32 off, and pricing them at the bfloat16 tensor-core peak
+would understate their MFU about 15-fold.
+
+``collective_bytes`` and ``emit_static_roofline`` read the JAX package's
+static analyzer (``analysis/``), which is not ported yet: they raise.
 """
 from __future__ import annotations
 
-__all__ = ["percentile", "rel_spread"]
+import os
+
+from ..base import MXNetError
+from . import events
+from .metrics import QuantileSketch, registry as _metrics_registry
+
+__all__ = ["percentile", "rel_spread", "StepStats", "global_stats",
+           "reset", "PEAKS", "peak_tflops", "mfu",
+           "collective_bytes", "emit_trainer_counters",
+           "emit_sentinel_counters", "emit_static_roofline"]
 
 
 def percentile(values, pct):
@@ -36,3 +61,211 @@ def rel_spread(values):
         return 0.0
     mad = percentile([abs(v - med) for v in vals], 50)
     return abs(mad / med)
+
+
+class StepStats(object):
+    """Step-time EMA + sketch-backed percentiles + throughput.
+
+    ``observe`` is the hot call: one sketch bucket increment + one
+    multiply-add.  The :class:`~.metrics.QuantileSketch` backing p50/p95
+    is bounded-memory, bit-exactly mergeable, and rides along in the
+    snapshot (``step_sketch``) so pod aggregation merges rank
+    distributions instead of averaging per-rank percentiles.  A tighter
+    ``alpha`` than the registry default keeps the snapshot numbers
+    within 0.5% of the raw-sample truth.  The process singleton also
+    mirrors timings into the live metrics registry (``mxtpu_step_ms``)
+    so training shares the /metrics + SLO path with serving.
+    """
+
+    SKETCH_ALPHA = 0.005
+
+    def __init__(self, batch_size=None, window=512, ema_decay=0.9,
+                 feed_registry=False):
+        self.batch_size = batch_size
+        del window                   # kept in the signature for compat
+        self.sketch = QuantileSketch(alpha=self.SKETCH_ALPHA)
+        self.ema_decay = float(ema_decay)
+        self.ema_s = None
+        self.steps = 0
+        self.last_step = None
+        self._feed_registry = bool(feed_registry)
+
+    def observe(self, dur_s, step=None, batch_size=None):
+        dur_s = float(dur_s)
+        self.sketch.add(dur_s * 1e3)
+        self.ema_s = dur_s if self.ema_s is None else (
+            self.ema_decay * self.ema_s + (1.0 - self.ema_decay) * dur_s)
+        self.steps += 1
+        if step is not None:
+            self.last_step = step
+        if batch_size is not None:
+            self.batch_size = batch_size
+        if self._feed_registry:
+            try:
+                _metrics_registry().histogram(
+                    "mxtpu_step_ms",
+                    help="training step wall time (ms)",
+                ).observe(dur_s * 1e3)
+            except Exception:
+                pass
+
+    def snapshot(self):
+        """Dict of derived figures (the compact per-rank summary the
+        aggregator publishes); ``step_sketch`` carries the full
+        serialized distribution for exact cross-rank merging."""
+        out = {"steps": self.steps, "last_step": self.last_step}
+        if self.ema_s is not None:
+            out["step_ms_ema"] = round(self.ema_s * 1e3, 3)
+        if self.sketch.count:
+            out["step_ms_p50"] = round(self.sketch.percentile(50), 3)
+            out["step_ms_p95"] = round(self.sketch.percentile(95), 3)
+            mean = self.sketch.mean()
+            out["step_ms_mean"] = round(mean, 3)
+            if self.batch_size and mean > 0:
+                out["samples_per_sec"] = round(
+                    self.batch_size / (mean / 1e3), 2)
+            out["step_sketch"] = self.sketch.to_dict()
+        return out
+
+
+_GLOBAL = {"stats": None}
+
+
+def global_stats():
+    """The process-wide StepStats the built-in wiring feeds (the
+    singleton also mirrors into the live metrics registry)."""
+    if _GLOBAL["stats"] is None:
+        _GLOBAL["stats"] = StepStats(feed_registry=True)
+    return _GLOBAL["stats"]
+
+
+def reset():
+    _GLOBAL["stats"] = None
+
+
+# ----------------------------------------------------------------------
+# hardware-derived figures
+# ----------------------------------------------------------------------
+#: NVIDIA's data-sheet peaks, dense (no sparsity), at the card's full
+#: power limit, keyed by ``torch.cuda.get_device_name()``: TFLOP/s by
+#: compute dtype ("float32" is the FMA pipes outside the tensor cores)
+#: and HBM bytes/s.  A card set below its limit runs slower under load;
+#: its name and power limit belong beside every figure priced here.
+PEAKS = {
+    # SXM5, 700 W
+    "NVIDIA H100 80GB HBM3": {
+        "tflops": {"float32": 67.0, "bfloat16": 989.0, "float16": 989.0},
+        "bytes_per_s": 3.35e12},
+    # PCIe, 350 W
+    "NVIDIA H100 PCIe": {
+        "tflops": {"float32": 51.0, "bfloat16": 756.0, "float16": 756.0},
+        "bytes_per_s": 2.0e12},
+}
+
+
+def _device_name(device_name):
+    if device_name is not None:
+        return device_name
+    try:
+        import torch
+        if torch.cuda.is_available():
+            return torch.cuda.get_device_name()
+    except Exception:
+        pass
+    return None
+
+
+def peak_tflops(device_name=None, dtype="float32"):
+    """Peak TFLOP/s of one card at ``dtype``: ``BENCH_PEAK_TFLOPS``
+    overrides, else :data:`PEAKS` (``device_name`` None: the current
+    CUDA device's name), else None (an unknown card: no MFU)."""
+    raw = os.environ.get("BENCH_PEAK_TFLOPS")
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            pass
+    row = PEAKS.get(_device_name(device_name))
+    if row is None:
+        return None
+    return row["tflops"].get(str(dtype or "float32").replace("torch.", ""))
+
+
+def mfu(flops_per_step, step_time_s, n_devices=1, device_name=None,
+        dtype="float32"):
+    """Model-FLOPs utilization at ``dtype``'s peak, or None when the
+    peak is unknown."""
+    peak = peak_tflops(device_name, dtype)
+    if not peak or not step_time_s:
+        return None
+    return float(flops_per_step) / float(step_time_s) / (
+        peak * 1e12 * max(1, int(n_devices)))
+
+
+def collective_bytes(symbol, mesh, shapes=None, **analyze_kwargs):
+    """Per-device collective bytes from the static analyzer's cost model:
+    not ported (the analyzer is ``ROADMAP.md`` queue 1 item 4 (g))."""
+    raise MXNetError("observability.counters.collective_bytes reads the "
+                     "static analyzer (analysis/), which is not ported yet "
+                     "(ROADMAP.md queue 1 item 4 (g))")
+
+
+def emit_static_roofline(symbol, shapes, device_kind=None,
+                         compute_dtype=None):
+    """The analyzer's static roofline as a counter: not ported (the
+    analyzer is ``ROADMAP.md`` queue 1 item 4 (g))."""
+    raise MXNetError("observability.counters.emit_static_roofline reads the "
+                     "static analyzer (analysis/), which is not ported yet "
+                     "(ROADMAP.md queue 1 item 4 (g))")
+
+
+# ----------------------------------------------------------------------
+# emit helpers (each one guarded: no-ops when telemetry is off)
+# ----------------------------------------------------------------------
+def emit_trainer_counters(trainer, step_time_s=None):
+    """Emit the ``trainer_cost`` counter of a ShardedTrainer: its step's
+    model FLOPs (needs one executed step), and with ``step_time_s`` the
+    MFU at the card's peak for the trainer's compute dtype.  Returns the
+    fields emitted (or {})."""
+    if not events.enabled():
+        return {}
+    fields = {}
+    try:
+        cost = trainer.compiled_step_cost_analysis()
+    except Exception:
+        cost = None
+    if cost and cost.get("flops"):
+        fields["flops_per_step"] = float(cost["flops"])
+    if step_time_s and fields.get("flops_per_step"):
+        device = getattr(trainer, "device", None)
+        name = None
+        if getattr(device, "type", None) == "cuda":
+            import torch
+            name = torch.cuda.get_device_name(device)
+        util = mfu(fields["flops_per_step"], step_time_s,
+                   getattr(trainer, "dp", 1), name,
+                   getattr(trainer, "compute_dtype", None) or "float32")
+        if util is not None:
+            fields["mfu"] = round(util, 4)
+        fields["step_time_s"] = round(float(step_time_s), 6)
+    stats = _GLOBAL["stats"]
+    if stats is not None and stats.sketch.count:
+        # the full step-time distribution rides along so pod rollups
+        # merge rank sketches exactly instead of averaging percentiles
+        fields["step_sketch"] = stats.sketch.to_dict()
+    if fields:
+        events.emit("counter", step=getattr(trainer, "num_update", None),
+                    name="trainer_cost", **fields)
+    return fields
+
+
+def emit_sentinel_counters(stats, step=None):
+    """Emit loss-scale / skip-count counters from a sentinel-stats dict
+    (``ShardedTrainer.sentinel_stats()`` or a host ``Sentinel``)."""
+    if not events.enabled() or not stats:
+        return
+    events.emit("counter", step=step, name="sentinel",
+                loss_scale=stats.get("scale"),
+                skipped=stats.get("skipped"),
+                good_steps=stats.get("good_steps"),
+                last_good=stats.get("last_good"))

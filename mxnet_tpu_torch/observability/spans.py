@@ -4,7 +4,8 @@ The port's copy of ``mxnet_tpu/observability/spans.py``.
 ``span("data_wait")`` / ``span("step")`` / ``span("hotstate_snapshot")``
 time a phase on the host and (a) append a ``span`` record to the event
 log, (b) when the process has a CUDA context, push the same name as an
-NVTX range (``torch.cuda.nvtx``), so a profiler trace of the card
+NVTX range (``torch.cuda.nvtx``) and, while ``mx.profiler`` records a
+trace, a ``torch.profiler.record_function`` range, so a profiler trace
 carries identical region names.
 
 When telemetry is off, ``span()`` returns a shared null context: zero
@@ -47,7 +48,7 @@ def _on_cuda():
 
 
 class _Span(object):
-    __slots__ = ("name", "step", "fields", "_t0", "_nvtx", "_ids")
+    __slots__ = ("name", "step", "fields", "_t0", "_nvtx", "_ids", "_rf")
 
     def __init__(self, name, step, fields):
         self.name = name
@@ -56,11 +57,16 @@ class _Span(object):
         self._t0 = None
         self._nvtx = False
         self._ids = None
+        self._rf = None
 
     def __enter__(self):
         self._nvtx = _on_cuda()
         if self._nvtx:
             torch.cuda.nvtx.range_push(self.name)
+        from .. import profiler as _profiler
+        if _profiler.running():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         # MXTPU_TRACE=1: push a trace frame so this span carries
         # trace/span/parent ids and emits inside it bind to it
         self._ids = _trace.begin_span(self.name) or None
@@ -71,6 +77,8 @@ class _Span(object):
         dur_ms = (time.perf_counter() - self._t0) * 1e3
         if self._ids is not None:
             _trace.end_span()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         if self._nvtx:
             torch.cuda.nvtx.range_pop()
         events.emit("span", step=self.step, name=self.name,

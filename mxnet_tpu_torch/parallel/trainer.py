@@ -72,6 +72,12 @@ Resilience, as in the JAX trainer:
   stored as ``{"0": ..., "1": ...}``; restored tensors are placed on
   the trainer's device and the update counter resumes.
 
+Telemetry: :meth:`compiled_step_cost_analysis` gives the step's model
+FLOPs, counted from the graph's shapes at the last step
+(:mod:`.flops`), and :meth:`emit_telemetry_counters` emits them with the
+MFU at the card's peak for ``compute_dtype`` (``trainer_cost``) and the
+sentinel's counters.
+
 ``fsdp``, ``seq_axis`` (ring attention), ``rules`` that shard a
 parameter, ``remat`` and the sentinel on several devices belong to later
 slices and raise; none is ignored.  With no ``ctx`` and no mesh, the
@@ -283,6 +289,8 @@ class ShardedTrainer:
         self._trace = _remat(program.trace) if self.remat else program.trace
         self._needs_rng = program.needs_rng
         self.num_update = 0
+        self._step_shapes = None     # input shapes of the last step
+        self._flops = {}             # input shapes -> model FLOPs
 
         exempt = set(self.label_names) | set(cast_exempt)
         for node in symbol._topo():
@@ -542,6 +550,9 @@ class ShardedTrainer:
         from .. import observability as _obs
         from .. import resilience as _resilience
         self.num_update += 1
+        self._step_shapes = tuple(sorted(
+            (n, tuple(v.shape)) for n, v in batch.items()
+            if n in self.data_names or n in self.label_names))
         inj = _resilience.injector()
         if inj is not None:
             spec = inj.match("batch", step=self.num_update)
@@ -594,6 +605,38 @@ class ShardedTrainer:
             out = dispatch()
         _obs.flight.collective_end("train_step", self.num_update)
         return out
+
+    def compiled_step_cost_analysis(self):
+        """``{"flops": F}``: the model FLOPs of one training step at the
+        last step's input shapes (:func:`.flops.step_flops`: every
+        product, a multiply-add as 2, 3 times the forward), or None
+        before the first step.  The JAX trainer's dict is XLA's cost
+        analysis, which also counts elementwise work and bytes; the port
+        has no count of bytes."""
+        if self._step_shapes is None:
+            return None
+        flops = self._flops.get(self._step_shapes)
+        if flops is None:
+            from .flops import step_flops
+            flops = self._flops[self._step_shapes] = step_flops(
+                self.symbol, dict(self._step_shapes))
+        return {"flops": float(flops)}
+
+    def emit_telemetry_counters(self, step_time_s=None):
+        """Emit the ``trainer_cost`` counter (model FLOPs, and with
+        ``step_time_s`` the MFU at the card's peak for the compute
+        dtype) and, with the in-step sentinel on, the ``sentinel``
+        counter (which reads the device counters: call at logging
+        cadence).  Returns the cost fields emitted ({} with telemetry
+        off)."""
+        from .. import observability as _obs
+        if not _obs.enabled():
+            return {}
+        fields = _obs.emit_trainer_counters(self, step_time_s)
+        if self._sentinel_state is not None:
+            _obs.emit_sentinel_counters(self.sentinel_stats(),
+                                        step=self.num_update)
+        return fields
 
     @staticmethod
     def _batch_samples(batch):

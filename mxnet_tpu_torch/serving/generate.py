@@ -280,7 +280,10 @@ class GenerationEngine(object):
     def warmup(self):
         """One forward per (family, bucket) before the first request.
         Warmup inputs point every table slot at the trash block and run
-        at position 0, so they write only the trash block."""
+        at position 0, so they write only the trash block.  Marks the
+        retrace sentry's compile phase (``observability.retrace``)."""
+        from ..observability import retrace as _retrace
+        _retrace.warmup_begin()   # legit compile phase: sentry disarms
         mb = self.cache.config.blocks_per_seq
         for S, pred in self._prefill.items():
             self.run_async(pred, {
@@ -295,6 +298,7 @@ class GenerationEngine(object):
                 "seq_pos": _np.zeros((B,), _np.float32),
                 "block_table": _np.zeros((B, mb), _np.float32)})
         outs[0].cpu()                 # wait: warmup fully materialized
+        _retrace.warmup_boundary()    # steady state: zero lowerings now
 
     # -- admission / lifecycle --------------------------------------------
 

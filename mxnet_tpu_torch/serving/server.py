@@ -33,8 +33,15 @@ Single-input models may pass the bare array instead of a dict.
 
 Warm elasticity: :meth:`ModelServer.snapshot_hotstate` offloads every
 served model into the hot-state hand-off area and
-:meth:`ModelServer.warm_resume_models` rebuilds them from it.  Not
-ported: the retrace sentry's warmup markers.
+:meth:`ModelServer.warm_resume_models` rebuilds them from it.
+
+Warmup markers: ``add_model`` and ``add_generative_model`` call the
+retrace sentry's ``warmup_begin`` before they build and
+``warmup_boundary`` once every bucket is warm
+(``observability.retrace``; no-ops unless the sentry is installed), so
+with ``MXTPU_RETRACE_SENTRY=1`` every later lowering is counted and
+attributed.  ``swap_params`` re-binds through the registry and is no
+compile phase: a lowering there is a violation, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -225,8 +232,10 @@ class ModelServer(object):
         ``"1:100,8:20"``) for the planner; ``buckets=`` skips planning.
         """
         from ..predictor import Predictor
+        from ..observability import retrace as _retrace
         if name in self._entries:
             raise MXNetError("model %r already added" % name)
+        _retrace.warmup_begin()   # legit compile phase: sentry disarms
         input_shapes = {nm: tuple(int(d) for d in shape)
                         for nm, shape in input_shapes.items()}
         env_buckets = _os.environ.get("MXTPU_SERVE_BUCKETS")
@@ -291,6 +300,7 @@ class ModelServer(object):
         from ..executor import program_registry_stats
         self._entries[name] = entry
         self._warmup[name] = program_registry_stats()["lowerings"]
+        _retrace.warmup_boundary()   # steady state: zero lowerings now
         self._batcher.register(entry)
         return plan
 
@@ -313,8 +323,10 @@ class ModelServer(object):
         zero lowerings.  Returns the engine (its ``prompt_plan``/
         ``decode_plan`` carry the planner ledgers)."""
         from .generate import GenerationEngine, GenerativeEntry
+        from ..observability import retrace as _retrace
         if name in self._entries:
             raise MXNetError("model %r already added" % name)
+        _retrace.warmup_begin()   # legit compile phase: sentry disarms
         engine = GenerationEngine(
             params=params, vocab_size=vocab_size, num_layers=num_layers,
             num_heads=num_heads, dim=dim, **engine_kwargs)
@@ -322,6 +334,7 @@ class ModelServer(object):
         from ..executor import program_registry_stats
         self._entries[name] = entry
         self._warmup[name] = program_registry_stats()["lowerings"]
+        _retrace.warmup_boundary()   # steady state: zero lowerings now
         self._batcher.register(entry)
         return engine
 

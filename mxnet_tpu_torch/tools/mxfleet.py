@@ -258,8 +258,6 @@ def make_front_handler(router):
 
 def cmd_serve(args):
     from mxnet_tpu_torch.serving.fleet import adopt_fleet, launch_fleet
-    from mxnet_tpu_torch.tools.mxserve import _refuse_slo_spec
-    _refuse_slo_spec()
     if args.adopt:
         router = adopt_fleet(
             n_replicas=args.replicas, directory=args.dir,
@@ -282,6 +280,11 @@ def cmd_serve(args):
             else bool(args.respawn),
             kv_url=args.kv, router_id=args.router_id,
             lease_ttl_s=args.lease_ttl, tenants=args.tenants)
+    # MXTPU_SLO_SPEC set -> evaluate burn rates live in the router
+    # process, writing recommendations through the fleet's own KV
+    from mxnet_tpu_torch.observability import sloengine as _sloengine
+    _sloengine.maybe_start(source="mxfleet",
+                           kv=getattr(router, "_kv", None))
     from http.server import ThreadingHTTPServer
     port = args.port or int(os.environ.get("MXTPU_FLEET_PORT", "8930"))
     httpd = ThreadingHTTPServer((args.host, port),

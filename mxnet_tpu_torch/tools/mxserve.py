@@ -34,8 +34,11 @@ Endpoints:
                        gauges; disable with MXTPU_METRICS=0
     GET  /healthz      200 "ok"
 
-``MXTPU_SLO_SPEC`` (the JAX package's live SLO engine) is refused with
-an error: ``observability/sloengine`` is not ported yet.
+``MXTPU_SLO_SPEC`` names latency objectives for the live SLO engine
+(``observability.sloengine``): it evaluates burn rates over the
+registry's windowed sketches on a background thread, emits
+``slo_alert`` events and writes advisory scale recommendations to the
+coordination KV.
 
 Backpressure surfaces as real HTTP 429 (queue full — or, for
 ``/v1/generate``, KV-cache block exhaustion with ``blocks_free`` in
@@ -56,17 +59,6 @@ import os
 import signal
 import sys
 import threading
-
-def _refuse_slo_spec():
-    """``MXTPU_SLO_SPEC`` asks for the live SLO engine, which the port
-    does not have yet: refuse it rather than serve without it."""
-    if os.environ.get("MXTPU_SLO_SPEC"):
-        from mxnet_tpu_torch.base import MXNetError
-        raise MXNetError(
-            "MXTPU_SLO_SPEC is set but observability/sloengine is not "
-            "ported yet (ROADMAP.md queue 1 item 4); unset it to serve "
-            "without the live SLO engine")
-
 
 def parse_shapes(spec):
     """``"data=(784,),mask=(16,)"`` -> {name: per-sample shape tuple}."""
@@ -344,8 +336,10 @@ def main(argv=None):
                           "(MXTPU_SERVE_KV_BLOCK_SIZE)")
     args = ap.parse_args(argv)
 
-    _refuse_slo_spec()
     srv = build_server(args)
+    # MXTPU_SLO_SPEC set -> evaluate burn rates live in this process
+    from mxnet_tpu_torch.observability import sloengine as _sloengine
+    _sloengine.maybe_start(source="mxserve")
 
     from http.server import ThreadingHTTPServer
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(srv))

@@ -1295,18 +1295,57 @@ def test_mxkv_cli_ops_over_a_file_kv(tmp_path, capsys):
 
 def test_mxserve_refuses_slo_spec_and_serves_on_cpu(tmp_path, monkeypatch,
                                                     toy_model):
-    """``MXTPU_SLO_SPEC`` raises naming the unported SLO engine (never
-    ignored); with ``--ctx cpu`` the HTTP door answers predict, stats
-    and metrics like the JAX package's ``tools/mxserve.py``."""
+    """``MXTPU_SLO_SPEC`` starts the live SLO engine in ``mxserve`` and
+    in ``mxfleet serve`` (as ``tools/mxserve.py:346-347`` and
+    ``tools/mxfleet.py:285-286`` of the JAX package do; it was refused
+    while the engine was not ported); with ``--ctx cpu`` the HTTP door
+    answers predict, stats and metrics like the JAX package's
+    ``tools/mxserve.py``."""
     import http.client
+    import http.server
     from http.server import ThreadingHTTPServer
+    from mxnet_tpu_torch.observability import sloengine
+    from mxnet_tpu_torch.serving import fleet as fleet_mod
     from mxnet_tpu_torch.tools import mxfleet, mxserve
-    monkeypatch.setenv("MXTPU_SLO_SPEC", "latency_p99_ms<50")
-    with pytest.raises(MXNetError, match="sloengine"):
-        mxserve.main(["--symbol", "x.json", "--params", "x.params"])
-    with pytest.raises(MXNetError, match="sloengine"):
-        mxfleet.main(["serve", "--spec", "fleet.json"])
-    monkeypatch.delenv("MXTPU_SLO_SPEC")
+
+    class _Stub(object):
+        _kv = object()
+        generation = 0
+
+        def stats(self):
+            return {"replicas": [], "router_id": "r", "role": "leader"}
+
+        def close(self):
+            pass
+
+    import signal
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    sloengine.reset_engine()
+    try:
+        with monkeypatch.context() as m:
+            m.setenv("MXTPU_SLO_SPEC",
+                     "metric=mxtpu_serve_latency_ms:target=50")
+            m.setenv("MXTPU_FLEET_PORT", "0")
+            m.setattr(http.server.ThreadingHTTPServer, "serve_forever",
+                      lambda self: None)
+            m.setattr(mxserve, "build_server", lambda args: _Stub())
+            m.setattr(fleet_mod, "launch_fleet", lambda *a, **kw: _Stub())
+            assert mxserve.main(["--symbol", "x.json", "--params",
+                                 "x.params", "--port", "0"]) == 0
+            eng = sloengine.engine()
+            assert eng.source == "mxserve" and eng._thread is not None
+            assert [sp.metric for sp in eng.specs] == \
+                ["mxtpu_serve_latency_ms"]
+            sloengine.reset_engine()
+            assert mxfleet.main(["serve", "--spec", "fleet.json"]) == 0
+            eng = sloengine.engine()
+            assert eng.source == "mxfleet" and eng._thread is not None
+            assert eng._kv is _Stub._kv
+    finally:
+        sloengine.reset_engine()
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
 
     net, params = toy_model
     sym_path, params_path = str(tmp_path / "t.json"), str(tmp_path / "t.p")
