@@ -6,6 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N] [--iters N] [--out results.json]
 
+(``--phases 4c,13,19`` runs only those phases, with no result line.)
+
 It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
 line:
@@ -325,6 +327,32 @@ line:
    NaN batch: that step skipped, the parameters after it bit for bit
    those before.
 
+18. observability: phase 7's LM with telemetry on (MFU, the report,
+   ``mxtrace``, ``mxtop``), the profiler's trace, serving under the
+   sanitizers and the SLO engine.
+
+19. the graph analyzer (``mxnet_tpu_torch/analysis``): (a) phase 7's LM
+   and phase 9's ResNet-50, float32 and bfloat16, bound on ``gpu(0)``
+   with ``validate="error"``: no error finding, the warnings by rule,
+   the bind time with ``validate="off"`` against ``"warn"`` (medians of
+   5, alternating) and no lowering after warm-up; (b) every kernel
+   launch the port registers (MXL-K), at the main paths' shapes, clean
+   against the card's properties, its register budget and static shared
+   memory agreeing with ptxas's report of its entry function and its
+   dynamic shared memory and CTAs an SM with the built library's, and an
+   Rtc block of 2,048 threads flagged MXL-K004 by the lint, refused by
+   the CUDA driver (CUDA_ERROR_INVALID_VALUE) and, with
+   ``MXTPU_RTC_LINT=error``, before the launch; (c) the static roofline
+   (MXL-R, the card's peaks) of the four steps against their measured
+   medians (phases 7 and 9's; timed here when the phase runs alone):
+   every static bound no longer than its step, the roofline's FLOPs
+   beside ``parallel/flops.py``'s, and the ``static_roofline`` counter
+   read back beside ``trainer_cost`` by the telemetry report; (d)
+   ``hbm_capacity_bytes`` equal to the card's ``total_memory``, the
+   analytic peaks beside ``max_memory_allocated``; (e) ``python -m
+   mxnet_tpu_torch.tools.mxlint --all-models --roofline --device-kind
+   <the card>`` exits 0 with no error finding.
+
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is ``nvidia-smi``'s
@@ -353,8 +381,6 @@ import numpy as np
 #: the trainer's MFU reads too: a kernel's bound and a step's MFU price
 #: work at the same rates
 HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = None
-#: the table's row when the card's name is not in it
-PEAK_CARD = "NVIDIA H100 80GB HBM3"
 
 #: where every tensor of the run lives (a CPU rehearsal of the control
 #: flow may set "cpu"; the kernels then take their plain versions)
@@ -435,8 +461,9 @@ class Timer(object):
 
 
 def ptxas_functions(text):
-    """(entry function, registers, spill store bytes, spill load bytes)
-    of each kernel in an ``nvcc -Xptxas -v`` log."""
+    """(entry function, registers, spill store bytes, spill load bytes,
+    static shared memory bytes) of each kernel in an ``nvcc -Xptxas -v``
+    log."""
     out, name, spills = [], None, (0, 0)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -449,7 +476,9 @@ def ptxas_functions(text):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append((name, int(m.group(1))) + spills)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1))) + spills
+                       + (int(smem.group(1)) if smem else 0,))
             name = None
     return out
 
@@ -467,7 +496,7 @@ def check_no_spills(info):
                  if marker in f[0]]
         if not found:
             raise AssertionError("ptxas log of %s has no %s" % (lib, marker))
-        for fn, regs, st, ld in found:
+        for fn, regs, st, ld, _smem in found:
             if st or ld:
                 raise AssertionError("%s spills: %d bytes stored, %d loaded"
                                      % (fn, st, ld))
@@ -479,8 +508,8 @@ def load_peaks(card=None):
     H100 SXM's when the name is not in the table); returns the row's
     name."""
     global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
-    from mxnet_tpu_torch.observability.counters import PEAKS
-    name = card if card in PEAKS else PEAK_CARD
+    from mxnet_tpu_torch.observability.counters import DEFAULT_CARD, PEAKS
+    name = card if card in PEAKS else DEFAULT_CARD
     row = PEAKS[name]
     HBM_BYTES_PER_S = row["bytes_per_s"]
     F32_OPS_PER_S = row["tflops"]["float32"] * 1e12
@@ -7987,6 +8016,501 @@ def phase_observability(torch, seed, smi):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 19: the graph analyzer (bind-time lint, MXL-K, MXL-R, MXL-M)
+# ----------------------------------------------------------------------
+#: binds a mode is timed (medians, off and warn alternating)
+ANA_BIND_ROUNDS = 5
+#: steps timed for (c) when the phase runs alone (the whole run reuses
+#: phases 7 and 9's medians)
+ANA_TIMED_STEPS = 5
+#: steps of the LM trainer whose counters (c) writes, and whose peak
+#: memory (d) reads
+ANA_COUNTER_STEPS = 2
+
+
+def ana_dir(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_analysis", *parts)
+
+
+def ana_configs():
+    """The main paths' training graphs of phases 7 and 9: ``{name: (sym,
+    input shapes)}``."""
+    from mxnet_tpu_torch.models import transformer as tf
+    S = TRAIN["seq_len"]
+    return {"lm": (tf.get_symbol(**TRAIN),
+                   {"data": (TRAIN_BATCH, S),
+                    "softmax_label": (TRAIN_BATCH, S)}),
+            "resnet50": (resnet_symbol(),
+                         {"data": (RESNET_BATCH,) + RESNET["image_shape"],
+                          "softmax_label": (RESNET_BATCH,)})}
+
+
+def ana_bind(torch, smi):
+    """(a) Each main-path graph bound on ``gpu(0)`` with
+    ``validate="error"`` in float32 and bfloat16 (every argument but the
+    inputs in that type): no error finding; the warnings by rule; the
+    bind time with ``validate="off"`` against ``"warn"`` (medians of
+    ANA_BIND_ROUNDS, alternating, over the same arrays); no lowering
+    after the first bind of each mode."""
+    import warnings
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import program_registry_stats
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    before = program_registry_stats()
+    out = {"registry_before": before}
+    for name, (sym, shapes) in ana_configs().items():
+        for dtype in ("float32", "bfloat16"):
+            types = {n: dtype for n in sym.list_arguments()
+                     if n not in shapes}
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                exe = sym.simple_bind(ctx, grad_req="write",
+                                      type_dict=types, validate="error",
+                                      **shapes)
+            issues = exe.bind_issues
+            if any(i.severity == "error" for i in issues):
+                raise AssertionError("analysis (a) %s %s: error findings %s"
+                                     % (name, dtype, issues))
+            by_rule = {}
+            for i in issues:
+                key = "%s %s" % (i.rule_id, i.severity)
+                by_rule[key] = by_rule.get(key, 0) + 1
+            # the roofline prices the products at the bound weights' dtype:
+            # float32 products run on the FMA pipes (R003), bfloat16 ones
+            # on the tensor cores
+            r003 = any(i.rule_id == "MXL-R003" for i in issues)
+            if r003 != (dtype == "float32"):
+                raise AssertionError(
+                    "analysis (a) %s %s: MXL-R003 %s" % (
+                        name, dtype, "reported" if r003 else "missing"))
+            kw = dict(args=exe.arg_dict, args_grad=exe.grad_dict,
+                      grad_req="write", aux_states=exe.aux_dict)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for mode in ("off", "warn"):          # each mode's program
+                    sym.bind(ctx, validate=mode, **kw)
+                warm = program_registry_stats()
+                times = {"off": [], "warn": []}
+                for _r in range(ANA_BIND_ROUNDS):
+                    for mode in ("off", "warn"):
+                        t0 = time.perf_counter()
+                        sym.bind(ctx, validate=mode, **kw)
+                        times[mode].append((time.perf_counter() - t0) * 1e3)
+            after = program_registry_stats()
+            if after["lowerings"] != warm["lowerings"]:
+                raise AssertionError(
+                    "analysis (a) %s %s: %d lowerings after warm-up"
+                    % (name, dtype, after["lowerings"] - warm["lowerings"]))
+            row = {"findings_by_rule": by_rule,
+                   "bind_ms_off": float(np.median(times["off"])),
+                   "bind_ms_warn": float(np.median(times["warn"])),
+                   "bind_ms_all": times}
+            row["lint_ms"] = row["bind_ms_warn"] - row["bind_ms_off"]
+            out["%s_%s" % (name, dtype)] = row
+            log("analysis (a) %s %s bound on %s with validate=\"error\": no "
+                "error finding; findings by rule %s; bind %.3f ms off, "
+                "%.3f ms warn (medians of %d, alternating): the lint's host "
+                "cost %.3f ms a bind; on %s"
+                % (name, dtype, ctx, json.dumps(by_rule), row["bind_ms_off"],
+                   row["bind_ms_warn"], ANA_BIND_ROUNDS, row["lint_ms"], smi))
+            del exe, kw
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    out["registry_after"] = program_registry_stats()
+    log("analysis (a) program_registry_stats before %s, after %s"
+        % (json.dumps(before), json.dumps(out["registry_after"])))
+    return out
+
+
+def ana_specs(torch, compiled=False):
+    """Every registered launch at the shapes the main paths launch: rows
+    1-4 of the kernel table, both bodies of the int8/fp8 matmul and of
+    the flash forward, the sweep on the LM's buckets and the LSTM's.
+    ``compiled``: with the shared memory the built libraries report (the
+    sweep's launches pass none)."""
+    from mxnet_tpu_torch.kernels import (flash_attention, flash_decode,
+                                         fused_opt, quantize)
+    from mxnet_tpu_torch.observability.counters import launch_limits
+    sms = launch_limits()["sms"]
+    specs = []
+    for q, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("float32", "bfloat16")):
+        specs.append(flash_decode.launch_spec(q_dtype=q, kv_dtype=kv,
+                                              sms=sms, compiled=compiled,
+                                              **flash_decode.MAIN_SHAPES))
+    for k, n in ((512, 2048), (2048, 512), (512, 8192)):
+        for m in (8, 960):
+            for qd in ("int8", "fp8_e4m3"):
+                specs += quantize.launch_specs(m, n, k, "float32", qd, sms,
+                                               compiled=compiled)
+    D = TRAIN["dim"] // TRAIN["num_heads"]
+    for dtype in ("float32", "bfloat16"):
+        specs.append(flash_attention.launch_spec(
+            TRAIN_BATCH, TRAIN["num_heads"], TRAIN["seq_len"],
+            TRAIN["seq_len"], D, dtype, sms=sms, compiled=compiled))
+    params = {n: torch.empty(s) for n, s in train_param_shapes().items()}
+    buckets = [sum(params[n].numel() for n in bk)
+               for bk in fused_opt.plan_buckets(params)]
+    for n in buckets:
+        for gated in (False, True):
+            specs.append(fused_opt.launch_spec(n, 1, "vec4", gated))
+    specs.append(fused_opt.launch_spec(fused_opt.MAIN_BUCKETS[1][0], 0,
+                                       "vec4"))
+    return specs, buckets
+
+
+def ana_kernels(torch, info, smi):
+    """(b) MXL-K against the compiled kernels: each spec of
+    :func:`ana_specs` lints clean against the card's properties, and its
+    register budget and static shared memory agree with ``nvcc -Xptxas
+    -v``'s report of its entry function (registers at most the budget,
+    shared memory the static declaration in ptxas's 16-byte grain), and
+    its dynamic shared memory and CTAs an SM are what the built library
+    launches with (``launch_spec(..., compiled=True)``); then
+    an Rtc launch of 2,048 threads: the lint reports MXL-K004 and the
+    CUDA driver refuses the launch with CUDA_ERROR_INVALID_VALUE."""
+    import ctypes
+    import warnings
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc as rtc_mod
+    from mxnet_tpu_torch.analysis import GraphLintWarning, tiling
+    from mxnet_tpu_torch.observability.counters import launch_limits
+    lim = launch_limits(0 if DEVICE == "cuda" else None)
+    specs, buckets = ana_specs(torch)
+    built, _ = ana_specs(torch, compiled=True)
+    ptxas = {lib: ptxas_functions(i["log"]) for lib, i in info.items()}
+    rows = []
+    for spec, lib_spec in zip(specs, built):
+        if spec != lib_spec:
+            raise AssertionError(
+                "analysis (b) %s: the spec's launch differs from the built "
+                "library's: %s" % (spec["name"], {
+                    key: (spec.get(key), lib_spec.get(key))
+                    for key in sorted(set(spec) | set(lib_spec))
+                    if spec.get(key) != lib_spec.get(key)}))
+        found = tiling.spec_findings(spec, limits=lim)
+        if found:
+            raise AssertionError("analysis (b) %s: %s" % (spec["name"],
+                                                          found))
+        lib = os.path.splitext(os.path.basename(spec["origin"]))[0]
+        threads = int(np.prod(spec["block"]))
+        budget = tiling.register_budget(threads, spec.get("min_blocks"),
+                                        lim)
+        static = -(-int(spec.get("static_smem", 0)) // 16) * 16
+        match = [f for f in ptxas.get(lib, ())
+                 if re.search(spec["entry"], f[0])]
+        if not match:
+            raise AssertionError("analysis (b) %s: no entry function %r in "
+                                 "the ptxas log of %s"
+                                 % (spec["name"], spec["entry"], lib))
+        for fn, regs, _st, _ld, smem in match:
+            if regs > budget or smem != static:
+                raise AssertionError(
+                    "analysis (b) %s (%s): ptxas %d registers, %d bytes "
+                    "static shared memory; the spec's budget %d registers, "
+                    "%d bytes" % (spec["name"], fn, regs, smem, budget,
+                                  static))
+        rows.append({"name": spec["name"], "grid": list(spec["grid"]),
+                     "block": list(spec["block"]),
+                     "smem": spec.get("dynamic_smem", 0)
+                     + spec.get("static_smem", 0),
+                     "register_budget": budget,
+                     "ptxas_registers": sorted({f[1] for f in match}),
+                     "ptxas_smem": sorted({f[4] for f in match})})
+        log("analysis (b) %s: grid %s block %s, %d bytes shared memory, "
+            "register budget %d; ptxas %s registers, %s bytes static: "
+            "clean" % (spec["name"], tuple(spec["grid"]),
+                       tuple(spec["block"]), rows[-1]["smem"], budget,
+                       rows[-1]["ptxas_registers"], rows[-1]["ptxas_smem"]))
+    log("analysis (b) %d registered launches lint clean against %s (%d "
+        "SMs, %d bytes of shared memory a block, %d an SM) and agree with "
+        "ptxas and with the built libraries' shared memory; on %s" % (len(rows), torch.cuda.get_device_name(0),
+                          lim["sms"], lim["smem_per_block_optin"],
+                          lim["smem_per_sm"], smi))
+    return {"specs": rows, "lm_buckets": buckets, "limits": lim}
+
+
+def ana_rtc_launch(torch, smi):
+    """(b) an Rtc launch of 2,048 threads: the lint reports MXL-K004, the
+    CUDA driver refuses the launch with CUDA_ERROR_INVALID_VALUE, and
+    ``MXTPU_RTC_LINT=error`` refuses it before the launch."""
+    import ctypes
+    import warnings
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc as rtc_mod
+    from mxnet_tpu_torch.analysis import GraphLintWarning
+    # the flagged Rtc launch: the lint and the card agree
+    x = torch.ones(64, device=DEVICE)
+    rtc = mx.rtc.Rtc(ONE_INPUT_BODY, pallas=True)
+    device = x.device
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        found = rtc_mod._launch_lint((1, 1, 1), (2048, 1, 1), device,
+                                     "warn")
+    flagged = [str(w.message) for w in rec
+               if issubclass(w.category, GraphLintWarning)]
+    if [r for r, _s, _m in found] != ["MXL-K004"] or not flagged:
+        raise AssertionError("analysis (b): the lint did not flag a block "
+                             "of 2048 threads: %s" % (found,))
+    kernel = rtc.compile([x.shape], [x.dtype])
+    fn = kernel.function(device.index)
+    out = torch.empty_like(x)
+    vals = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr())]
+    argv = (ctypes.c_void_p * 2)(*[ctypes.addressof(v) for v in vals])
+    lib = fn.module._lib
+    code = lib.cuLaunchKernel(
+        fn._handle, 1, 1, 1, 2048, 1, 1, 0,
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        argv, None)
+    if code != 1:                       # CUDA_ERROR_INVALID_VALUE
+        raise AssertionError("analysis (b): the CUDA driver answered %d to a "
+                             "block of 2048 threads, want 1 "
+                             "(CUDA_ERROR_INVALID_VALUE)" % code)
+    os.environ["MXTPU_RTC_LINT"] = "error"
+    try:
+        rtc.push([x], (1, 1, 1), (2048, 1, 1))
+    except mx.MXNetError as err:
+        if "MXL-K004" not in str(err):
+            raise
+        refused = str(err).splitlines()[0]
+    else:
+        raise AssertionError("analysis (b): MXTPU_RTC_LINT=error pushed a "
+                             "block of 2048 threads")
+    finally:
+        os.environ.pop("MXTPU_RTC_LINT", None)
+    if rtc.launches:
+        raise AssertionError("analysis (b): the refused push launched")
+    log("analysis (b) Rtc block of 2048 threads: the lint says %r, the "
+        "CUDA driver answers %d (CUDA_ERROR_INVALID_VALUE), "
+        "MXTPU_RTC_LINT=error refuses before the launch: %r; on %s"
+        % (flagged[0], code, refused, smi))
+    return {"rtc_lint": flagged[0], "rtc_driver_code": code,
+            "rtc_refused": refused}
+
+
+def ana_lm_steps(torch, seed, dtype, steps, tel=None):
+    """``steps`` steps of phase 7's LM trainer (kernel sweep): ms a step
+    (median, each synchronised), the peak device memory of the steps,
+    and, with ``tel``, the ``trainer_cost`` counters into it."""
+    import mxnet_tpu_torch as mx
+    S = TRAIN["seq_len"]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (TRAIN_BATCH * S),
+                              **TRAIN_SGD)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    peak_reset(torch)
+    tr, p, st, aux = res_trainer(torch, seeded_train_params(seed), opt,
+                                 compute_dtype=None if dtype == "float32"
+                                 else dtype)
+    b = tr.shard_batch(train_batch(seed, TRAIN_BATCH))
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        p, st, aux, outs = tr.step(p, st, aux, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if tel is not None:
+            tr.emit_telemetry_counters(step_time_s=times[-1])
+    if not bool(torch.isfinite(outs[0].float()).all()):
+        raise AssertionError("analysis LM %s: non-finite outputs" % dtype)
+    # the first step builds the program: time the others
+    ms = float(np.median(times[1:] if len(times) > 1 else times)) * 1e3
+    return ms, peak_bytes(torch)
+
+
+def ana_roofline(torch, seed, smi, steps):
+    """(c) The static roofline of each main path's training step against
+    its measured median step (phases 7 and 9's when given in ``steps``,
+    else ANA_TIMED_STEPS timed here), at the card's peaks; (d) the
+    analytic peak memory beside ``torch.cuda.max_memory_allocated``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import analysis
+    from mxnet_tpu_torch.analysis import AnalysisContext, peak_hbm_report
+    from mxnet_tpu_torch.observability import aggregate, counters, events
+    from mxnet_tpu_torch.parallel import flops as pflops
+    kind = torch.cuda.get_device_name(0)
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else None
+    cap = analysis.hbm_capacity_bytes(dev) if dev is not None else None
+    total = torch.cuda.get_device_properties(0).total_memory \
+        if DEVICE == "cuda" else None
+    if cap != total:
+        raise AssertionError("analysis (d): hbm_capacity_bytes %s, the "
+                             "device's total_memory %s" % (cap, total))
+    out = {"hbm_capacity_bytes": cap}
+    tel = ana_dir("telemetry")
+    shutil.rmtree(tel, ignore_errors=True)
+    configs = ana_configs()
+    measured, peaks, reps = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        # the LM's float32 steps write their trainer_cost counters, and
+        # the static_roofline counter beside them, into one dir
+        _set_telemetry(tel if dtype == "float32" else None)
+        n = ANA_COUNTER_STEPS if steps else ANA_TIMED_STEPS + 1
+        ms, peaks[("lm", dtype)] = ana_lm_steps(torch, seed, dtype, n,
+                                                tel if dtype == "float32"
+                                                else None)
+        if dtype == "float32":
+            sym, shapes = configs["lm"]
+            reps[("lm", dtype)] = counters.emit_static_roofline(
+                sym, shapes, device_kind=kind, compute_dtype=dtype)
+            events.flush()
+            _set_telemetry(None)
+        measured[("lm", dtype)] = steps["lm"][dtype]["step_ms"] if steps \
+            else ms
+        if steps:
+            res = steps["resnet50"][dtype]
+        else:
+            params, aux, data = seeded_resnet(seed, RESNET_BATCH)
+            res = run_resnet(
+                torch, params, aux, data, 1, "kernel",
+                compute_dtype=None if dtype == "float32" else dtype,
+                timed_steps=ANA_TIMED_STEPS)[-1]
+            del params, aux, data
+        measured[("resnet50", dtype)] = res["step_ms"]
+        peaks[("resnet50", dtype)] = res["peak_bytes"]
+        torch.cuda.empty_cache()
+    for name, (sym, shapes) in configs.items():
+        model = pflops.step_flops(sym, shapes)
+        for dtype in ("float32", "bfloat16"):
+            rep = reps.get((name, dtype)) or analysis.static_mfu_ceiling(
+                sym, shapes, device_kind=kind, compute_dtype=dtype)
+            if not rep or rep["peak_tflops"] is None:
+                raise AssertionError("analysis (c): no roofline at the peaks "
+                                     "of %r: %s" % (kind, rep))
+            t_ops = rep["flops_per_step"] / (rep["peak_tflops"] * 1e12)
+            t_bytes = rep["hbm_bytes_per_step"] / (rep["peak_hbm_gbps"]
+                                                   * 1e9)
+            bound = max(t_ops, t_bytes) * 1e3
+            step = measured[(name, dtype)]
+            if bound > step:
+                raise AssertionError(
+                    "analysis (c) %s %s: static bound %.3f ms is longer than "
+                    "the measured step %.3f ms" % (name, dtype, bound, step))
+            mem = peak_hbm_report(AnalysisContext(
+                sym, shapes=shapes, grad_req="write",
+                type_dict={n: dtype for n in sym.list_arguments()
+                           if n not in shapes}))
+            row = {"flops_per_step": rep["flops_per_step"],
+                   "hbm_bytes_per_step": rep["hbm_bytes_per_step"],
+                   "intensity": rep["intensity"], "ridge": rep["ridge"],
+                   "mfu_ceiling": rep["mfu_ceiling"], "bound": rep["bound"],
+                   "static_bound_ms": bound,
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes",
+                   "step_ms": step, "bound_over_step": bound / step,
+                   "model_flops_parallel_flops": model,
+                   "analytic_peak_bytes": mem["peak_bytes"],
+                   "max_memory_allocated": peaks[(name, dtype)],
+                   "peak_tflops": rep["peak_tflops"],
+                   "peak_hbm_gbps": rep["peak_hbm_gbps"]}
+            out["%s_%s" % (name, dtype)] = row
+            log("analysis (c) %s %s static roofline at %s's peaks (%g "
+                "TFLOP/s, %g GB/s): %.6g FLOP and %.6g bytes a step, "
+                "intensity %.2f against the ridge %.2f, MFU ceiling %.4f "
+                "(%s-bound); static bound %.3f ms (%s) against the measured "
+                "median step %.3f ms: ratio %.4f; parallel/flops.py's model "
+                "FLOPs %.6g; (d) analytic peak %.1f MB against "
+                "max_memory_allocated %.1f MB; on %s"
+                % (name, dtype, kind, rep["peak_tflops"],
+                   rep["peak_hbm_gbps"], rep["flops_per_step"],
+                   rep["hbm_bytes_per_step"], rep["intensity"], rep["ridge"],
+                   rep["mfu_ceiling"], rep["bound"], bound, row["bound_by"],
+                   step, bound / step, model, mem["peak_bytes"] / 1e6,
+                   peaks[(name, dtype)] / 1e6, smi))
+    report = aggregate.build_report(aggregate.read_events(tel))
+    pod = report["pod"]
+    if pod.get("mfu") is None or not pod.get("static_roofline"):
+        raise AssertionError("analysis (c): the report of %s lacks the "
+                             "trainer_cost MFU or the static_roofline: %s"
+                             % (tel, json.dumps(pod)[:400]))
+    out["report"] = {"mfu": pod["mfu"],
+                     "static_roofline": pod["static_roofline"]}
+    log("analysis (c) telemetry report: trainer_cost MFU %.4f beside "
+        "static_roofline %s" % (pod["mfu"],
+                                json.dumps(pod["static_roofline"])))
+    shutil.rmtree(tel, ignore_errors=True)
+    log("analysis (d) hbm_capacity_bytes(cuda:0) = %s = total_memory"
+        % cap)
+    return out
+
+
+def ana_mxlint(kind, smi):
+    """(e) ``mxlint --all-models --roofline --device-kind <the card>``:
+    exit 0, no error finding."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.mxlint",
+           "--all-models", "--roofline", "--device-kind", kind]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    errors = [ln for ln in proc.stdout.splitlines() if "] error " in ln]
+    if proc.returncode != 0 or errors:
+        raise AssertionError("analysis (e): mxlint rc %d, errors %s: %s"
+                             % (proc.returncode, errors[:3],
+                                proc.stderr[-800:]))
+    graphs = proc.stdout.count("== model:")
+    log("analysis (e) %s: rc 0, %d graphs, no error finding, %.2f s; on %s"
+        % (" ".join(cmd[2:]), graphs, seconds, smi))
+    return {"rc": 0, "graphs": graphs, "seconds": seconds}
+
+
+def phase_analysis(torch, seed, smi, steps=None):
+    """Phase 19: the graph analyzer on the card: (a) bind-time validation
+    of the main paths' graphs, (b) MXL-K against the compiled kernels and
+    the card, (c) the static roofline against the measured steps and (d)
+    the analytic peak memory, (e) ``mxlint`` over the zoo.  ``steps``:
+    phases 7 and 9's results ``{"lm": ..., "resnet50": ...}`` (their step
+    medians and ResNet-50's peaks are reused), None when the phase runs
+    alone (it then times ANA_TIMED_STEPS steps of each)."""
+    from mxnet_tpu_torch.kernels import _build
+    t_phase = time.perf_counter()
+    shutil.rmtree(ana_dir(), ignore_errors=True)
+    out = {"bind": ana_bind(torch, smi)}
+    out["kernels"] = ana_kernels(torch, _build.build_all(), smi)
+    out["rtc"] = ana_rtc_launch(torch, smi)
+    out["roofline"] = ana_roofline(torch, seed, smi, steps)
+    out["mxlint"] = ana_mxlint(torch.cuda.get_device_name(0), smi)
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("analysis: phase 19 %.2f s" % out["seconds"])
+    shutil.rmtree(ana_dir(), ignore_errors=True)
+    return out
+
+
+#: the phases ``--phases`` runs, which read no other phase's result
+ALONE = {
+    "4c": lambda torch, timer, seed, smi: phase_fleet(torch, seed, smi),
+    "13": phase_lstm,
+    "19": lambda torch, timer, seed, smi: phase_analysis(torch, seed, smi),
+}
+
+
+def run_alone(names, torch, timer, seed, smi, out_path):
+    """``--phases``: each phase of ``names`` in turn, its seconds, and its
+    result in ``out_path``; 0, or 1 when a phase failed."""
+    phase_s, results = {}, {}
+    try:
+        for name in names:
+            t = time.perf_counter()
+            results[name] = ALONE[name](torch, timer, seed, smi)
+            phase_s[name] = round(time.perf_counter() - t, 2)
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    log("seconds by phase (%s alone; MXTPU_BIND_VALIDATE=%s): %s"
+        % (",".join(names), os.environ.get("MXTPU_BIND_VALIDATE", "warn"),
+           json.dumps(phase_s)))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"phase_seconds": phase_s, "results": results}, f,
+                      indent=1, default=str)
+    log(smi)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7994,7 +8518,13 @@ def main(argv=None):
                     help="timed launches per measurement (median)")
     ap.add_argument("--out", default=None,
                     help="also write every result to this JSON file")
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, comma-separated, of %s "
+                    "(the ones that read no other phase's result), and "
+                    "print no result line" % ", ".join(ALONE))
     args = ap.parse_args(argv)
+    if args.phases and not set(args.phases.split(",")) <= set(ALONE):
+        ap.error("--phases takes only %s" % ", ".join(ALONE))
 
     try:
         import torch
@@ -8035,15 +8565,19 @@ def main(argv=None):
             ", ".join("%s %.2f s" % (n, i["seconds"])
                       for n, i in sorted(info.items()))))
         for name, i in sorted(info.items()):
-            for fn, regs, st, ld in ptxas_functions(i["log"]):
+            for fn, regs, st, ld, smem in ptxas_functions(i["log"]):
                 log("  ptxas %s: %s: %d registers, %d bytes spill stores, "
-                    "%d bytes spill loads" % (name, fn, regs, st, ld))
+                    "%d bytes spill loads, %d bytes smem"
+                    % (name, fn, regs, st, ld, smem))
             for line in i["log"].splitlines():
                 if "Performance Loss" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
         check_no_spills(info)
         torch.manual_seed(args.seed)
         timer = Timer(torch, args.iters, LEAD_CYCLES)
+        if args.phases:
+            return run_alone(args.phases.split(","), torch, timer,
+                             args.seed, smi, args.out)
         phase_s = {}
 
         def run(name, fn, *a):
@@ -8073,6 +8607,8 @@ def main(argv=None):
         capi = run("16", phase_capi, torch, args.seed, smi)
         res = run("17", phase_resilience, torch, timer, args.seed, smi)
         obs = run("18", phase_observability, torch, args.seed, smi)
+        ana = run("19", phase_analysis, torch, args.seed, smi,
+                  {"lm": train, "resnet50": resnet})
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -8360,7 +8896,7 @@ def main(argv=None):
                        "resnet": resnet, "module": module, "feed": feed,
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
                        "capi": capi, "resilience": res,
-                       "observability": obs,
+                       "observability": obs, "analysis": ana,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

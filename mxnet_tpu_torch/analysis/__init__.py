@@ -1,0 +1,265 @@
+"""Static analysis over Symbol graphs: lint passes + bind-time validation.
+
+The port of ``mxnet_tpu/analysis/``: its graph half, everything
+:func:`analyze` runs over a Symbol.  Entry points:
+
+- :func:`analyze` — run the registered passes over an in-memory Symbol
+  (with optional shape/type hints and bind/mesh context) and return
+  :class:`GraphIssue` findings;
+- :func:`analyze_json` — same over a *saved* symbol JSON, which
+  additionally exposes dead nodes/unused arg_nodes the in-memory graph
+  cannot represent;
+- ``Symbol.validate()`` (symbol.py) and the ``validate=`` knob on
+  ``Executor``/``bind``/``simple_bind`` (executor.py) wrap these;
+- ``python -m mxnet_tpu_torch.tools.mxlint`` is the standalone CLI for
+  saved graphs and the bundled model zoo.
+
+Rule catalog (``--list-rules``).  The families S, T, G, B, L, P, M, C
+and D001-D003 keep the JAX package's ids, severities, node names and
+report dicts, so a saved graph lints the same in both packages.  K and R
+are about the hardware: the JAX package checks Mosaic's tile rules and
+prices a TPU; the port checks Hopper launches and prices the H100.
+
+========  ========  ==================================================
+rule      severity  finding
+========  ========  ==================================================
+MXL-S001  warning   shapes unknown after propagation
+MXL-S002  error     contradictory shapes on one edge
+MXL-T001  warning   implicit float-width promotion at an op input
+MXL-T002  error     type propagation failure
+MXL-G001  warning   node unreachable from any head (saved graphs)
+MXL-G002  warning   declared input never consumed / ignored bind entry
+MXL-G003  warning   output aliases an input variable
+MXL-G004  error     duplicate node names
+MXL-B001  error     grad_req=write on a shared grad buffer
+MXL-B002  warning   partial args_grad silently downgraded to null
+MXL-B003  error     auxiliary-state name collision
+MXL-B004  error     invalid grad_req value
+MXL-B005  warning   ctx_group absent from group2ctx
+MXL-L001  error     op has no PyTorch implementation for the target
+MXL-L002  error     host-bridge op inside a mirrored segment
+MXL-L003  info      host-bridge op (host round trip every call)
+MXL-L004  error     sharding spec references axes missing from mesh
+MXL-P001  error     sharding conflict forces an implicit reshard
+MXL-P002  warning   sharded value consumed replicated (all-gather)
+MXL-P003  info      parameter degraded to replicated (not divisible)
+MXL-P004  info      sharded contraction: the matching psum
+MXL-M001  error     estimated peak device memory exceeds the budget
+MXL-M002  warning   replicated parameter dominates the memory budget
+MXL-C001  error     kvstore scope does not match the mesh scope
+MXL-C002  error     collective crosses a pipeline-stage boundary
+MXL-C003  warning   tp-sharded matmul missing its matching reduction
+MXL-D001  error     collective order mismatch across ranks
+MXL-D002  error     collective signature mismatch across ranks
+MXL-D003  error     collective under rank-conditional control flow
+MXL-K001  error     block over the card's shared memory (or an SM's
+                    under its __launch_bounds__ promise)
+MXL-K002  error     TMA box / 16-byte vector load / wgmma tile off grain
+MXL-K003  warning   grid tail (a dimension not divisible by its tile)
+MXL-K004  error     threads, grid or registers over the card
+MXL-R001  info      matrix product bandwidth-bound at this batch size
+MXL-R002  warning   wgmma tile padding wastes a large op fraction
+MXL-R003  warning   float32 product on the FMA pipes (TF32 off)
+MXL-R004  warning   long bf16 accumulation chain (reduction hazard)
+MXL-R005  info      whole-graph static roofline / MFU-ceiling summary
+========  ========  ==================================================
+
+The MXL-P/M/C families only activate with SPMD context: pass ``mesh``
+(the port's ``parallel.Mesh`` or the device-less ``parallel.LogicalMesh``)
+to enable propagation, plus ``hbm_bytes``/``MXTPU_HBM_GB`` for the
+memory budget and ``kvstore`` for the scope audit.  ``select``/``skip``
+accept fnmatch wildcards (``MXL-P*``).
+
+The MXL-K family (tiling.py) validates every kernel launch registered
+with ``register_kernel_spec`` against the card's limits (the device's
+properties on the card, the H100's data sheet off it); MXL-R
+(roofline.py) prices the graph's FLOPs and device-memory traffic at
+``compute_dtype`` (default float32) against the card's peaks in
+``observability.counters.PEAKS``.  Both run on the ``"gpu"`` target
+only, the target a bind on the card passes; per-op R findings gate on a
+significance floor (``MXTPU_LINT_ROOFLINE_MIN_FLOPS``, default 5e10) so
+toy graphs stay clean.
+
+The MXL-D001..D003 family simulates the per-rank collective trace (gated
+on ``world_size > 1`` — or ``MXTPU_LINT_DISTRIBUTED=1`` +
+``MXTPU_LINT_WORLD_SIZE``) over the ``__rank_cond__``/``__collective__``
+node attrs.
+
+Not ported yet, and raising ``MXNetError`` with the ROADMAP item they
+wait on: the source-level families over Python files (D004-D006 rank
+divergence, Q concurrency, X retrace stability: queue 1 item 4 (g2))
+and the pipeline/MoE schedule (E: items 3 (d) and (e)).  The markers
+``collective_seam``, ``thread_entry`` and ``traced_scope`` are the
+port's ``base.py`` markers.
+
+Suppress per node with the ``__lint_ignore__`` attr (comma-separated
+rule ids, or ``all``).
+"""
+from __future__ import annotations
+
+import json as _json
+
+from ..base import MXNetError, collective_seam, thread_entry, traced_scope
+from .core import (GraphIssue, AnalysisContext, Rule, RULE_REGISTRY,
+                   register_rule, run_rules, format_issues,
+                   SEVERITIES, SEVERITY_RANK)
+
+# importing the pass modules registers their rules
+from . import shapes as _shapes      # noqa: F401
+from . import graph as _graph        # noqa: F401
+from . import bind as _bind          # noqa: F401
+from . import lowering as _lowering  # noqa: F401
+from . import propagation as _propagation  # noqa: F401
+from . import memory as _memory      # noqa: F401
+from . import collectives as _collectives  # noqa: F401
+from . import tiling as _tiling      # noqa: F401
+from . import roofline as _roofline  # noqa: F401
+from . import distributed as _distributed  # noqa: F401
+from .propagation import comm_report
+from .memory import peak_hbm_report, hbm_capacity_bytes
+from .tiling import (register_kernel_spec, unregister_kernel_spec,
+                     KERNEL_SPECS, spec_findings, kernel_spec_issues,
+                     block_findings)
+from .roofline import (roofline_report, static_ceiling_summary,
+                       static_mfu_ceiling, device_peaks,
+                       resolve_compute_dtype, mxu_padding_waste)
+from .distributed import collective_trace
+
+__all__ = ["GraphIssue", "AnalysisContext", "Rule", "RULE_REGISTRY",
+           "register_rule", "run_rules", "format_issues", "SEVERITIES",
+           "SEVERITY_RANK", "analyze", "analyze_json", "max_severity",
+           "GraphLintWarning", "comm_report", "peak_hbm_report",
+           "hbm_capacity_bytes", "register_kernel_spec",
+           "unregister_kernel_spec", "KERNEL_SPECS", "spec_findings",
+           "kernel_spec_issues", "block_findings", "roofline_report",
+           "static_mfu_ceiling", "static_ceiling_summary", "device_peaks",
+           "resolve_compute_dtype", "mxu_padding_waste",
+           "collective_trace", "schedule_report", "stage_partition",
+           "analyze_source_paths", "collective_seam",
+           "analyze_concurrency_paths", "thread_entry",
+           "analyze_retrace_paths", "traced_scope"]
+
+#: the ROADMAP items the unported halves wait on
+_SOURCE_ITEM = "ROADMAP.md queue 1 item 4 (g2)"
+_SCHEDULE_ITEM = "ROADMAP.md queue 1 items 3 (d) and (e)"
+
+
+def _not_ported(what, item):
+    raise MXNetError("analysis: %s is not ported yet (%s)" % (what, item))
+
+
+def analyze_source_paths(paths, world_size=None, select=None, skip=None):
+    """The rank-divergence pass over Python source (MXL-D004..D006):
+    not ported yet."""
+    _not_ported("analyze_source_paths (MXL-D004..D006)", _SOURCE_ITEM)
+
+
+def analyze_concurrency_paths(paths, select=None, skip=None):
+    """The concurrency lint over Python source (MXL-Q): not ported
+    yet."""
+    _not_ported("analyze_concurrency_paths (MXL-Q)", _SOURCE_ITEM)
+
+
+def analyze_retrace_paths(paths, select=None, skip=None):
+    """The retrace-stability lint over Python source (MXL-X): not
+    ported yet."""
+    _not_ported("analyze_retrace_paths (MXL-X)", _SOURCE_ITEM)
+
+
+def schedule_report(ctx):
+    """The pipeline/MoE schedule simulator (MXL-E): not ported yet."""
+    _not_ported("schedule_report (MXL-E)", _SCHEDULE_ITEM)
+
+
+def stage_partition(ctx):
+    """The pipeline stage partition (MXL-E): not ported yet."""
+    _not_ported("stage_partition (MXL-E)", _SCHEDULE_ITEM)
+
+
+class GraphLintWarning(UserWarning):
+    """Category for bind-time lint findings emitted in 'warn' mode."""
+
+
+def analyze(symbol, shapes=None, type_dict=None, args=None, args_grad=None,
+            grad_req=None, aux_states=None, group2ctx=None, mesh=None,
+            sharding_rules=None, target="gpu", json_graph=None,
+            kvstore=None, hbm_bytes=None, data_names=None,
+            label_names=None, compute_dtype=None, device_kind=None,
+            world_size=None, source_paths=None,
+            select=None, skip=None, _ctx_out=None):
+    """Run the lint passes over ``symbol``; returns issues, errors first.
+
+    Parameters mirror what the call surfaces know: ``Symbol.validate``
+    passes shape/type/mesh hints, the Executor bind hook adds
+    args/args_grad/grad_req/aux_states/group2ctx, and the CLI adds the
+    raw ``json_graph`` dict of a saved symbol plus the SPMD context
+    (``mesh``/``kvstore``/``hbm_bytes``; ``data_names``/``label_names``
+    steer the sharding seeds).  ``select``/``skip`` restrict which rule
+    ids run (fnmatch wildcards like ``MXL-P*`` work).  ``_ctx_out``, when
+    a list, receives the AnalysisContext so callers (the CLI's cost
+    report) can reuse the cached propagation/memory facts.
+    ``source_paths`` (the source-level families D004-D006, Q, X) is not
+    ported yet: a non-empty list raises, naming the ROADMAP item.
+    """
+    if source_paths:
+        _not_ported("analyze(source_paths=...)", _SOURCE_ITEM)
+    ctx = AnalysisContext(symbol, shapes=shapes, type_dict=type_dict,
+                          args=args, args_grad=args_grad, grad_req=grad_req,
+                          aux_states=aux_states, group2ctx=group2ctx,
+                          mesh=mesh, sharding_rules=sharding_rules,
+                          target=target, json_graph=json_graph,
+                          kvstore=kvstore, hbm_bytes=hbm_bytes,
+                          data_names=data_names, label_names=label_names,
+                          compute_dtype=compute_dtype,
+                          device_kind=device_kind, world_size=world_size,
+                          source_paths=source_paths)
+    if _ctx_out is not None:
+        _ctx_out.append(ctx)
+    return run_rules(ctx, select=select, skip=skip)
+
+
+def analyze_json(json_src, **kwargs):
+    """Lint a saved symbol JSON (string or parsed dict).
+
+    Builds the Symbol through the normal loader, then analyzes with the
+    raw node list attached so dead-node/unused-arg detection sees what
+    the loader silently drops.  Nodes naming ops absent from the registry
+    become MXL-L001 errors (the loader would just raise); the graph-only
+    passes still run so one lint reports everything it can.
+    """
+    from ..symbol import load_json
+    from ..ops.registry import OP_REGISTRY
+    if isinstance(json_src, bytes):
+        json_src = json_src.decode("utf-8")
+    if isinstance(json_src, str):
+        graph = _json.loads(json_src)
+    else:
+        graph = json_src
+        json_src = _json.dumps(json_src)
+    registered = dict(OP_REGISTRY.items())
+    unknown = [spec for spec in graph.get("nodes", [])
+               if spec.get("op") not in ("null", "None")
+               and spec.get("op") not in registered]
+    if unknown:
+        issues = [GraphIssue("MXL-L001", "error", spec.get("name"),
+                             "op %r of node %r is not in the operator "
+                             "registry: the graph cannot load, let alone "
+                             "lower" % (spec.get("op"), spec.get("name")))
+                  for spec in unknown]
+        kwargs.pop("select", None)
+        kwargs.pop("skip", None)
+        issues += analyze(None, json_graph=graph,
+                          select={"MXL-G001", "MXL-G002"}, **kwargs)
+        issues.sort(key=lambda i: (-SEVERITY_RANK[i.severity], i.rule_id,
+                                   i.node or ""))
+        return issues
+    return analyze(load_json(json_src), json_graph=graph, **kwargs)
+
+
+def max_severity(issues):
+    """Highest severity present in ``issues`` (None when empty)."""
+    best = None
+    for i in issues:
+        if best is None or SEVERITY_RANK[i.severity] > SEVERITY_RANK[best]:
+            best = i.severity
+    return best

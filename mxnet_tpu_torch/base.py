@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["MXNetError", "dtype_torch_to_mx", "dtype_mx_to_torch",
-           "collective_seam"]
+           "collective_seam", "thread_entry", "traced_scope"]
 
 
 class MXNetError(Exception):
@@ -24,6 +24,29 @@ def collective_seam(fn=None, **_meta):
     its result is identical on every rank).  The JAX package's
     distributed lint reads the same decorator from its sources; in the
     port it documents the seam and changes nothing."""
+    if fn is None:
+        return lambda f: f
+    return fn
+
+
+def thread_entry(fn=None, **_meta):
+    """Runtime no-op marker: this function is a thread entry point (its
+    body runs on a thread other than the one that built its object).
+    The JAX package's concurrency lint reads the decorator from its
+    sources; the port's source lints are not ported yet (ROADMAP.md
+    queue 1 item 4 (g2)), so here it documents the entry and changes
+    nothing."""
+    if fn is None:
+        return lambda f: f
+    return fn
+
+
+def traced_scope(fn=None, **_meta):
+    """Runtime no-op marker: this function's body is built once and
+    replayed (the JAX package's traced scope; in the port, code that a
+    program or a generated kernel bakes in).  The JAX package's retrace
+    lint reads the decorator from its sources; in the port it documents
+    the scope and changes nothing."""
     if fn is None:
         return lambda f: f
     return fn

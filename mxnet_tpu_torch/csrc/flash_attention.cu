@@ -772,6 +772,31 @@ extern "C" int mxtt_flash_attention_forward(int dtype, const void* q, const void
   return (int)cudaGetLastError();
 }
 
+// The dynamic shared memory (bytes) a launch of the body for dtype code
+// `dtype` and head dim D passes, with its CTAs an SM (the second argument of
+// its __launch_bounds__) in *min_ctas; -1 for a dtype or head dim the kernel
+// does not take.  The static analyzer's launch spec of the kernel is held to
+// these numbers on the card.
+extern "C" int mxtt_flash_attention_smem(int dtype, int D, int* min_ctas) {
+  *min_ctas = dtype == 0 ? (D == 32 ? FmaCfg<32>::MIN_CTAS : D == 64 ? FmaCfg<64>::MIN_CTAS
+                                                                     : FmaCfg<128>::MIN_CTAS)
+                         : 1;
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return FmaCfg<32>::SMEM;
+      case 64: return FmaCfg<64>::SMEM;
+      case 128: return FmaCfg<128>::SMEM;
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return TcCfg<32>::SMEM;
+      case 64: return TcCfg<64>::SMEM;
+      case 128: return TcCfg<128>::SMEM;
+    }
+  }
+  return -1;
+}
+
 extern "C" const char* mxtt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

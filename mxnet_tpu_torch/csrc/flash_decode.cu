@@ -340,15 +340,29 @@ int pow2_at_least(int n) {
   return p;
 }
 
+// lanes that share a query row: D / N 16-byte pieces, rounded up to a power
+// of two, at most a warp
+int lane_group(int D, int N) {
+  const int pieces = (D + N - 1) / N;
+  return pieces < 32 ? pow2_at_least(pieces) : 32;
+}
+
+// the dynamic shared memory of a launch: each lane group's o, m and l, or the
+// splits' weights, and the span's table slots
+size_t launch_smem(int D, int G, int MB, int bps) {
+  const int splits = (MB + bps - 1) / bps;
+  const int ngroups = kThreads / G;
+  const int tile = ngroups * D > 2 * splits ? ngroups * D : 2 * splits;
+  return (size_t)(tile + 2 * ngroups) * sizeof(float) + bps * sizeof(int);
+}
+
 template <typename TQ, typename TKV, int NV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* table,
                    const void* pos, void* out, void* ws, void* counters, int B,
                    int H, int D, int BS, int MB, int NB, int bps, int G, bool vec,
                    float scale, cudaStream_t stream) {
   const int splits = (MB + bps - 1) / bps;
-  const int ngroups = kThreads / G;
-  const int tile = ngroups * D > 2 * splits ? ngroups * D : 2 * splits;
-  const size_t smem = (size_t)(tile + 2 * ngroups) * sizeof(float) + bps * sizeof(int);
+  const size_t smem = launch_smem(D, G, MB, bps);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   flash_decode_kernel<TQ, TKV, NV><<<dim3(splits, H, B), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
@@ -365,7 +379,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* ta
                      cudaStream_t stream) {
   constexpr int N = Piece<TKV>::N;
   const int pieces = (D + N - 1) / N;
-  const int G = pieces < 32 ? pow2_at_least(pieces) : 32;
+  const int G = lane_group(D, N);
   const int nv = (pieces + G - 1) / G;
   const bool vec = (D * sizeof(TKV)) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
@@ -416,6 +430,16 @@ extern "C" int mxtt_flash_decode(int q_dtype, int kv_dtype, const void* q,
 #undef MXTT_FD_ARGS
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory (bytes) a launch with these arguments passes
+// (kv_dtype and blocks_per_split as for mxtt_flash_decode), or -1 for an
+// unknown dtype code.  The static analyzer's launch spec of the kernel is
+// held to this number on the card.
+extern "C" int mxtt_flash_decode_smem(int kv_dtype, int D, int MB, int blocks_per_split) {
+  if ((kv_dtype != 0 && kv_dtype != 1) || D < 1 || MB < 1 || blocks_per_split < 1) return -1;
+  const int N = kv_dtype == 0 ? Piece<float>::N : Piece<__nv_bfloat16>::N;
+  return (int)launch_smem(D, lane_group(D, N), MB, blocks_per_split);
 }
 
 extern "C" const char* mxtt_error_string(int code) {

@@ -80,6 +80,14 @@ constexpr size_t kGvSmemMax = 48 * 1024;
 
 __host__ __device__ constexpr int gv_row_floats(int kchunk) { return kchunk / 16 * kGvChunk; }
 
+// the k bytes of one split, in whole steps, and the x a CTA of MT rows stages
+constexpr int gv_kchunk(int K, int splits) {
+  return ((K + splits - 1) / splits + kGvStep - 1) / kGvStep * kGvStep;
+}
+constexpr size_t gv_smem(int MT, int kchunk) {
+  return (size_t)MT * gv_row_floats(kchunk) * sizeof(float);
+}
+
 // The weight types: how 16 weight bytes widen to float32 (the GEMV) and how
 // two widen to a bfloat16 pair (the wgmma A fragment).  Both exact.
 struct WInt8 {
@@ -377,8 +385,8 @@ cudaError_t reduce(const float* partial, const float* scale, void* y, int M, int
 template <typename T, typename W, int MT>
 cudaError_t launch_gemv(const void* x, const uint8_t* w, const float* scale, void* y,
                         float* partial, int M, int N, int K, int splits, cudaStream_t s) {
-  const int kchunk = ((K + splits - 1) / splits + kGvStep - 1) / kGvStep * kGvStep;
-  const size_t smem = (size_t)MT * gv_row_floats(kchunk) * sizeof(float);
+  const int kchunk = gv_kchunk(K, splits);
+  const size_t smem = gv_smem(MT, kchunk);
   if (smem > kGvSmemMax) return cudaErrorInvalidValue;
   const dim3 grid((N + kGvRows - 1) / kGvRows, (K + kchunk - 1) / kchunk);
   qmm_gemv<T, W, MT><<<grid, kGvThreads, smem, s>>>(
@@ -513,6 +521,26 @@ extern "C" int mxtt_qmm_wgmma(int x_dtype, int w_dtype, const void* x, const voi
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory (bytes) of a launch of the GEMV (route 0; tn and
+// pieces unused) or of the wgmma body (route 1; tn 64 or 240, pieces 3 for
+// float32 x and 1 for bfloat16), with M, K and splits as for the entry
+// points; -1 for a route or tile the kernels do not take.  The static
+// analyzer's launch specs of the kernels are held to these numbers on the
+// card.
+extern "C" int mxtt_qmm_smem(int route, int M, int K, int splits, int tn, int pieces) {
+  if (M < 1 || K < 1 || splits < 1) return -1;
+  if (route == 0 && M <= 16) {
+    const int mt = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16;
+    return (int)gv_smem(mt, gv_kchunk(K, splits));
+  }
+  if (route != 1) return -1;
+  if (tn == 64 && pieces == 1) return QmmCfg<64, 1>::SMEM;
+  if (tn == 64 && pieces == 3) return QmmCfg<64, 3>::SMEM;
+  if (tn == 240 && pieces == 1) return QmmCfg<240, 1>::SMEM;
+  if (tn == 240 && pieces == 3) return QmmCfg<240, 3>::SMEM;
+  return -1;
 }
 
 extern "C" const char* mxtt_error_string(int code) {

@@ -584,6 +584,21 @@ def _lookup_program(symbol, device):
     return prog
 
 
+def _bind_compute_dtype(arrays):
+    """The dtype a bind's products run at, which the roofline rules price:
+    ``MXNET_COMPUTE_DTYPE`` when set, else the narrowest floating dtype of
+    the bound arrays (bfloat16 weights make bfloat16 products; fp8 weights
+    are QuantizedDense's, whose rows carry their own)."""
+    name = os.environ.get("MXNET_COMPUTE_DTYPE", "").strip()
+    if name:
+        return "float32" if name == "f32" else name
+    floats = {a.dtype for a in arrays if a is not None and a.dtype in (
+        torch.float16, torch.bfloat16, torch.float32, torch.float64)}
+    if not floats:
+        return None
+    return str(min(floats, key=lambda d: d.itemsize)).replace("torch.", "")
+
+
 class Executor:
     """Parity: include/mxnet/symbolic.h:323 + python/mxnet/executor.py.
 
@@ -591,14 +606,29 @@ class Executor:
     the symbol's arguments (aux states) or name -> NDArray dicts.
     ``grad_req`` is ``"write"``, ``"add"`` or ``"null"``, a list, or a
     dict (missing names ``"null"``); an argument without a gradient array
-    gets ``"null"``.  Missing aux states are allocated as zeros."""
+    gets ``"null"``.  Missing aux states are allocated as zeros.
+
+    ``validate`` is the bind-time lint (``analysis/``): ``"warn"`` (the
+    default, or ``MXTPU_BIND_VALIDATE``) emits one ``GraphLintWarning``
+    listing the warning and error findings, ``"error"`` refuses to bind
+    a graph with an error finding (the reference GraphExecutor's
+    fail-at-bind contract), ``"off"`` skips the pass.  The findings are
+    kept as ``bind_issues``.  The lint's target is the bound context's
+    ``device_type``: ``"gpu"`` runs the launch-budget (MXL-K) and
+    roofline (MXL-R) families too."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, validate=None):
         self._symbol = symbol
         self._device = resolve(ctx)
         self._ctx = ctx if isinstance(ctx, Context) \
             else Context.from_device(self._device)
+        if validate is None:
+            validate = os.environ.get("MXTPU_BIND_VALIDATE", "warn")
+        if validate not in ("warn", "error", "off"):
+            raise MXNetError("validate must be 'warn', 'error' or 'off', "
+                             "got %r" % (validate,))
+        self._validate_mode = validate
         self._arg_names = symbol.list_arguments()
         self._out_names = symbol.list_outputs()
         self._aux_names = symbol.list_auxiliary_states()
@@ -638,6 +668,13 @@ class Executor:
         self.aux_arrays = aux_list
         self.aux_dict = dict(zip(self._aux_names, aux_list))
 
+        # static graph lint BEFORE the first walk: a bad graph fails here
+        # with positioned findings instead of deep inside a forward
+        # (GraphExecutor bind-time inference parity; analysis/)
+        self.bind_issues = []
+        if validate != "off":
+            self._validate_bind(args, args_grad, grad_req, aux_states)
+
         self._program = _lookup_program(symbol, self._device)
         self._replicas = None       # (ReplicaGroup, sharded names)
         self._monitor_callback = None
@@ -646,6 +683,36 @@ class Executor:
         self._n_forward = 0
         self._n_fwd_bwd = 0
         self._n_fused_step = 0
+
+    def _validate_bind(self, args, args_grad, grad_req, aux_states):
+        """Run the static analyzer with the full bind context and apply
+        the ``validate=`` policy: ``"warn"`` emits one GraphLintWarning
+        summarizing the warning and error findings, ``"error"`` raises
+        MXNetError when any error finding exists.  The roofline rules
+        price the products at :func:`_bind_compute_dtype`."""
+        from .analysis import analyze, format_issues, GraphLintWarning
+        # no world_size= here: AnalysisContext reads
+        # MXTPU_LINT_DISTRIBUTED / MXTPU_LINT_WORLD_SIZE itself
+        issues = analyze(
+            self._symbol,
+            shapes={n: tuple(a.shape) for n, a in self.arg_dict.items()},
+            type_dict={n: a.dtype for n, a in self.arg_dict.items()},
+            args=args, args_grad=args_grad, grad_req=grad_req,
+            aux_states=aux_states, target=self._ctx.device_type,
+            compute_dtype=_bind_compute_dtype(self.arg_arrays))
+        self.bind_issues = issues
+        errors = [i for i in issues if i.severity == "error"]
+        visible = [i for i in issues if i.severity != "info"]
+        if errors and self._validate_mode == "error":
+            raise MXNetError(
+                "bind validation failed with %d error(s) (pass "
+                "validate='warn'/'off' or fix the graph):\n%s"
+                % (len(errors), format_issues(errors)))
+        if visible:
+            import warnings
+            warnings.warn("graph lint found %d issue(s) at bind:\n%s"
+                          % (len(visible), format_issues(visible)),
+                          GraphLintWarning, stacklevel=3)
 
     @property
     def output_dict(self):
@@ -1110,7 +1177,8 @@ class Executor:
                 new_grads[name] = zeros(shape, ctx=self._ctx,
                                         dtype=cur.dtype)
         return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self._grad_req, dict(self.aux_dict))
+                        self._grad_req, dict(self.aux_dict),
+                        validate=self._validate_mode)
 
 
 def _grads(outs, leaves, head_grads):
@@ -1124,10 +1192,11 @@ def _grads(outs, leaves, head_grads):
             for n, g in zip(names, got)}
 
 
-def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
+def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                validate=None, **kwargs):
     """Allocate argument, gradient and aux arrays from the shapes inferred
     from ``kwargs`` (name -> shape), then bind (parity:
-    symbol.py:630-710)."""
+    symbol.py:630-710); ``validate`` as :class:`Executor`'s."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     if arg_shapes is None:
         raise MXNetError("simple_bind: cannot infer shapes from %s" % kwargs)
@@ -1146,4 +1215,5 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
         if reqs.get(name, "null") != "null":
             grads[name] = zeros(shape, ctx=ctx, dtype=dtype)
     aux = [zeros(s, ctx=ctx) for s in aux_shapes]
-    return Executor(symbol, ctx, args, grads, grad_req, aux)
+    return Executor(symbol, ctx, args, grads, grad_req, aux,
+                    validate=validate)

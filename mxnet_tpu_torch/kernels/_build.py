@@ -27,7 +27,7 @@ import time
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "library", "check"]
+__all__ = ["SOURCES", "build_all", "library", "launch_smem", "check"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -161,6 +161,29 @@ def library(name):
         build_all()
         lib = _LIBS[name]
     return lib
+
+
+#: kernel name -> its library's query of a launch's dynamic shared memory
+_SMEM_QUERIES = {
+    "flash_decode": ("mxtt_flash_decode_smem", [ctypes.c_int] * 4),
+    "quantized_matmul": ("mxtt_qmm_smem", [ctypes.c_int] * 6),
+    "flash_attention": ("mxtt_flash_attention_smem",
+                        [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)]),
+}
+
+
+def launch_smem(name, *args):
+    """The dynamic shared memory (bytes) the built library of kernel
+    ``name`` launches with for ``args`` (its ``mxtt_*_smem`` query), which
+    the analyzer's launch specs are held to (``compiled=True``)."""
+    fn_name, argtypes = _SMEM_QUERIES[name]
+    fn = getattr(library(name), fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    got = fn(*args)
+    if got < 0:
+        raise MXNetError("%s: %s takes no launch %r" % (name, fn_name, args))
+    return got
 
 
 def check(lib, code, what):

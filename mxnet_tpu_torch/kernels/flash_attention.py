@@ -31,11 +31,12 @@ import math
 
 import torch
 
+from ..analysis.tiling import register_kernel_spec
 from ..base import MXNetError
 from ..observability.metrics import register_kernel_counters
 
 __all__ = ["flash_attention_forward_reference", "flash_attention_forward",
-           "plan_flash_forward", "work_item"]
+           "plan_flash_forward", "work_item", "launch_spec"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,3 +167,100 @@ flash_attention_forward.launches_by_device = {}
 register_kernel_counters("flash_attention", lambda: {
     "launches": flash_attention_forward.launches,
     "by_dtype": dict(flash_attention_forward.launches_by_dtype)})
+
+
+# ----------------------------------------------------------------------
+# the launches, declared for the static analyzer (MXL-K)
+# ----------------------------------------------------------------------
+#: the float32 body's threads (``FmaCfg<D>::THREADS``), its k/v stages
+#: and the keys of p it exchanges at a time (``PK``)
+F32_THREADS, F32_STAGES, F32_PK = 128, 2, 16
+#: the bfloat16 body (``TcCfg<D>``): 2 consumer warpgroups and the
+#: producer's, 128 q rows a CTA, 4 k/v stages, ``setmaxnreg`` 24 for the
+#: producer's warpgroup and 240 for the consumers'
+BF16_THREADS, BF16_BLOCK_Q, BF16_STAGES = 384, 128, 4
+BF16_REGS = ((128, 24), (256, 240))
+#: the shared memory a card's SM holds, which the float32 body's
+#: ``MIN_CTAS`` is worked out against (``FmaCfg<D>::MIN_CTAS``)
+_SM_SMEM = 233472
+#: the training shape of the LM (``chip_smoke.py`` phases 5 and 7)
+MAIN_SHAPES = dict(B=8, H=8, S=1024, D=64)
+
+
+def _compiled_smem(dtype, D):
+    """(dynamic shared memory, CTAs an SM) of the built library's launch
+    of the body for ``dtype`` and head dim ``D`` (its ``FmaCfg<D>`` or
+    ``TcCfg<D>``)."""
+    import ctypes
+    from ._build import launch_smem
+    ctas = ctypes.c_int(0)
+    smem = launch_smem("flash_attention", _DTYPE_CODES[getattr(torch, dtype)],
+                       D, ctypes.byref(ctas))
+    return smem, ctas.value
+
+
+def launch_spec(B, H, Sq, Sk, D, dtype="float32", causal=True, sms=None,
+                compiled=False):
+    """The kernel's launch for q ``(B, H, Sq, D)`` and k, v ``(B, H, Sk,
+    D)``.  float32: the FMA body, one CTA a work item of
+    :func:`plan_flash_forward` (its tiles), with the shared memory its
+    ``FmaCfg<D>`` lays out (q and the k/v ring at a padded stride, each
+    warp's p) and ``__launch_bounds__(128, MIN_CTAS)``.  bfloat16: the
+    wgmma body on a persistent grid of at most one CTA an SM, its TMA
+    boxes (one swizzled panel of at most 64 columns), the two ``wgmma``
+    shapes and the ``setmaxnreg`` split.  ``sms`` None: the card's.
+    ``compiled``: the shared memory and CTAs an SM as the built library
+    reports them (``mxtt_flash_attention_smem``, needs ``nvcc``) in place
+    of this module's copy of the ``.cu`` constants, which
+    ``chip_smoke.py`` holds to them."""
+    if sms is None:
+        from ..observability.counters import launch_limits
+        sms = launch_limits()["sms"]
+    plan = plan_flash_forward(B * H, Sq, Sk, D, causal)
+    origin = "mxnet_tpu_torch/csrc/flash_attention.cu"
+    if dtype == "float32":
+        bq, bk = plan["block_q"], plan["block_k"]
+        qld, rm = D + 4, bq // 16
+        smem = (bq * qld + F32_STAGES * bk * (qld + D)
+                + F32_THREADS // 32 * 4 * rm * (F32_PK + 8)) * 4
+        min_ctas = 2 if 2 * (smem + 1024) <= _SM_SMEM else 1
+        if compiled:
+            smem, min_ctas = _compiled_smem(dtype, D)
+        return {
+            "name": "flash_forward_fma<%d>" % D, "origin": origin,
+            "entry": "flash_forward_fmaILi%dE" % D,
+            "grid": (plan["items"], 1, 1), "block": (F32_THREADS, 1, 1),
+            "dynamic_smem": smem, "static_smem": 0, "min_blocks": min_ctas,
+            "tiles": [{"name": "q rows", "extent": Sq, "tile": bq},
+                      {"name": "keys", "extent": Sk, "tile": bk}],
+            "vectors": [{"name": "q/k/v row (cp.async)", "extent": D,
+                         "dtype": "float32"}]}
+    bk = 64 if D == 128 else 128
+    panel = min(D, 64)
+    items = B * H * -(-Sq // BF16_BLOCK_Q)
+    smem = 1024 + 2 * BF16_BLOCK_Q * D * 2 + BF16_STAGES * 2 * bk * D * 2 \
+        + 8 * (4 + 2 * BF16_STAGES)
+    min_ctas = 1
+    if compiled:
+        smem, min_ctas = _compiled_smem(dtype, D)
+    return {
+        "name": "flash_forward_wgmma<%d>" % D, "origin": origin,
+        "entry": "flash_forward_wgmmaILi%dE" % D,
+        "grid": (min(items, sms), 1, 1), "block": (BF16_THREADS, 1, 1),
+        "dynamic_smem": smem, "static_smem": 0, "min_blocks": min_ctas,
+        "setmaxnreg": list(BF16_REGS),
+        "tiles": [{"name": "q rows", "extent": Sq, "tile": BF16_BLOCK_Q},
+                  {"name": "keys", "extent": Sk, "tile": bk}],
+        "tma": [{"name": "q", "box": (panel, BF16_BLOCK_Q, 1),
+                 "dtype": "bfloat16"},
+                {"name": "k/v", "box": (panel, bk, 1), "dtype": "bfloat16"}],
+        "wgmma": [{"name": "s = q k^T", "m": 64, "n": bk, "k": 16,
+                   "dtype": "bfloat16"},
+                  {"name": "o += p v", "m": 64, "n": D, "k": 16,
+                   "dtype": "bfloat16"}]}
+
+
+register_kernel_spec("kernels.flash_attention", lambda: [
+    launch_spec(MAIN_SHAPES["B"], MAIN_SHAPES["H"], MAIN_SHAPES["S"],
+                MAIN_SHAPES["S"], MAIN_SHAPES["D"], dtype)
+    for dtype in ("float32", "bfloat16")])

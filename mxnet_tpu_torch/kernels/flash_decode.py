@@ -23,11 +23,12 @@ import threading
 
 import torch
 
+from ..analysis.tiling import register_kernel_spec
 from ..base import MXNetError
 from ..observability.metrics import register_kernel_counters
 
 __all__ = ["decode_attention_reference", "flash_decode_attention",
-           "plan_flash_decode"]
+           "plan_flash_decode", "launch_spec"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -213,3 +214,72 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
 flash_decode_attention.launches = 0
 register_kernel_counters("flash_decode", lambda: {
     "launches": flash_decode_attention.launches})
+
+
+# ----------------------------------------------------------------------
+# the launch, declared for the static analyzer (MXL-K)
+# ----------------------------------------------------------------------
+#: threads a block (``kThreads`` in ``csrc/flash_decode.cu``)
+THREADS = 128
+#: the mangled name of each element type in ptxas's entry names
+_MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+#: the decode shapes of the LM the repo serves (``chip_smoke.py``
+#: phases 2 and 4: B=8, H=8, D=64, 32 slots of 32-token blocks)
+MAIN_SHAPES = dict(B=8, H=8, MB=32, BS=32, D=64)
+
+
+def launch_spec(B, H, MB, BS, D, q_dtype="float32", kv_dtype="float32",
+                sms=None, compiled=False):
+    """The kernel's launch for these shapes (``launch`` in
+    ``csrc/flash_decode.cu``): :func:`plan_flash_decode`'s grid, 128
+    threads, the dynamic shared memory the kernel lays out (each lane
+    group's o, m and l, or the split weights, and the span's table) and
+    its one static ``int``; the pool's rows read as 16-byte pieces when
+    ``D * itemsize`` is a multiple of 16 (the kernel's ``vec`` route,
+    which needs that of every block of the pool too).  ``sms`` None: the
+    card's (``observability.counters.launch_limits``).  ``compiled``: the
+    shared memory as the built library reports it
+    (``mxtt_flash_decode_smem``, needs ``nvcc``) in place of this
+    module's copy of the ``.cu`` layout, which ``chip_smoke.py`` holds to
+    it."""
+    if sms is None:
+        from ..observability.counters import launch_limits
+        sms = launch_limits()["sms"]
+    plan = plan_flash_decode(B, H, MB, BS, D, sms)
+    n = 4 if kv_dtype == "float32" else 8           # elements a piece
+    pieces = -(-D // n)
+    group = 32 if pieces >= 32 else 1 << (pieces - 1).bit_length()
+    nv = -(-pieces // group)
+    ngroups = THREADS // group
+    tile = max(ngroups * D, 2 * plan["splits"])
+    smem = (tile + 2 * ngroups) * 4 + plan["blocks_per_split"] * 4
+    if compiled:
+        from ._build import launch_smem
+        smem = launch_smem("flash_decode",
+                           _DTYPE_CODES[getattr(torch, kv_dtype)], D, MB,
+                           plan["blocks_per_split"])
+    kv = "S1_" if q_dtype == kv_dtype == "bfloat16" else _MANGLED[kv_dtype]
+    itemsize = 4 if kv_dtype == "float32" else 2
+    spec = {
+        "name": "flash_decode_kernel<%s, %s, %d>" % (q_dtype, kv_dtype, nv),
+        "origin": "mxnet_tpu_torch/csrc/flash_decode.cu",
+        "entry": "flash_decode_kernelI%s%sLi%dE" % (_MANGLED[q_dtype], kv,
+                                                    nv),
+        "grid": plan["grid"], "block": (THREADS, 1, 1),
+        "dynamic_smem": smem, "static_smem": 4, "optin": False,
+        "min_blocks": None,
+        "tiles": [{"name": "table slots of a split", "extent": MB,
+                   "tile": plan["blocks_per_split"]}],
+    }
+    if D * itemsize % 16 == 0:
+        spec["vectors"] = [{"name": "k/v row", "extent": D,
+                            "dtype": kv_dtype},
+                           {"name": "k/v block", "extent": BS * H * D,
+                            "dtype": kv_dtype}]
+    return spec
+
+
+register_kernel_spec("kernels.flash_decode", lambda: [
+    launch_spec(q_dtype=q, kv_dtype=kv, **MAIN_SHAPES)
+    for q, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("float32", "bfloat16"))])

@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from ..analysis.tiling import register_kernel_spec
 from ..base import MXNetError
 from ..observability.metrics import register_kernel_counters
 from .common import env_flag
@@ -385,3 +386,42 @@ def fused_apply(optimizer, params, grads, opt_state, lr, wd, t,
     if gate:
         return new_params, new_state, finite
     return new_params, new_state
+
+
+# ----------------------------------------------------------------------
+# the launch, declared for the static analyzer (MXL-K)
+# ----------------------------------------------------------------------
+#: the sweep's threads a block and its grid's cap: 16 resident blocks on
+#: each of 132 SMs, a grid-stride loop doing the rest (``launch`` in
+#: ``csrc/fused_opt.cu``)
+SWEEP_THREADS = 256
+SWEEP_MAX_BLOCKS = 132 * 16
+#: the buckets the sweep runs on its main paths: the LM's largest (62.1
+#: MiB, SGD with momentum) and the bucketing LSTM's one (4,653,601
+#: elements, SGD)
+MAIN_BUCKETS = ((16279040, 1), (4653601, 0))
+
+
+def launch_spec(n, body=1, route="vec4", gated=False):
+    """The sweep's launch over a bucket of ``n`` float32 elements with
+    body code ``body`` (:func:`sweep_body`) on ``route``
+    (:func:`sweep_route`): ``vec4`` reads 16-byte vectors, ``scalar`` one
+    element a thread; ``gated``: a skip flag is passed."""
+    work = -(-n // 4) if route == "vec4" else n
+    grid = max(1, min(-(-work // SWEEP_THREADS), SWEEP_MAX_BLOCKS))
+    name = "sweep_%s" % route
+    spec = {
+        "name": "%s<%d, %s>" % (name, body, str(bool(gated)).lower()),
+        "origin": "mxnet_tpu_torch/csrc/fused_opt.cu",
+        "entry": "%sILi%dELb%dE" % (name, body, int(bool(gated))),
+        "grid": (grid, 1, 1), "block": (SWEEP_THREADS, 1, 1),
+        "dynamic_smem": 0, "static_smem": 0, "min_blocks": None}
+    if route == "vec4":
+        spec["vectors"] = [{"name": "w, g and states (float4)",
+                            "extent": 4, "dtype": "float32"}]
+    return spec
+
+
+register_kernel_spec("kernels.fused_opt", lambda: [
+    launch_spec(n, body, route, gated) for n, body in MAIN_BUCKETS
+    for route in ("vec4", "scalar") for gated in (False, True)])

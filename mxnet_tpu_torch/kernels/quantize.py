@@ -32,6 +32,7 @@ import re
 import numpy as _np
 import torch
 
+from ..analysis.tiling import register_kernel_spec
 from ..base import MXNetError
 from ..observability.metrics import register_kernel_counters
 
@@ -371,3 +372,112 @@ register_kernel_counters("quantized_matmul", lambda: {
     "launches": quantized_matmul.launches,
     "by_route": dict(quantized_matmul.launches_by_route),
     "by_qdtype": dict(quantized_matmul.launches_by_qdtype)})
+
+
+# ----------------------------------------------------------------------
+# the launches, declared for the static analyzer (MXL-K)
+# ----------------------------------------------------------------------
+#: the bodies' launch constants (``csrc/quantized_matmul.cu``): the
+#: GEMV's 128 threads over 32 weight rows and 128 bytes of K a step, x
+#: padded from 16 to 20 floats; the wgmma CTA's 64 output channels
+#: (wgmma m), 64 of K a stage in 2 stages, one consumer warpgroup and a
+#: producer warp; the reduction and split kernels' 256 threads
+GEMV_THREADS, GEMV_ROWS, GEMV_STEP = 128, 32, 128
+TC_BN, TC_BK, TC_STAGES, TC_THREADS = 64, 64, 2, 160
+_X_MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+_W_MANGLED = {"int8": "WInt8", "fp8_e4m3": "WE4M3"}
+#: the shapes the LM's lm_head runs at (``chip_smoke.py`` phases 3 and
+#: 4): decode (M=8, the GEMV) and the largest prompt bucket (M=960, wgmma)
+MAIN_SHAPES = ((8, 512, 8192), (960, 512, 8192))
+
+
+def launch_specs(m, n, k, x_dtype="float32", qdtype="int8", sms=None,
+                 compiled=False):
+    """The kernels one ``quantized_matmul`` launches for ``(m, k) @ (n,
+    k).T`` (``k`` padded to a multiple of 16), from
+    :func:`plan_quantized_matmul`'s route and split: the GEMV (M <= 16)
+    or the wgmma body (float32 x split first into three bfloat16 pieces
+    by ``qmm_split``), and ``qmm_reduce`` when K is split.  ``compiled``:
+    the shared memory as the built library reports it (``mxtt_qmm_smem``,
+    needs ``nvcc``) in place of this module's copy of the ``.cu``
+    constants, which ``chip_smoke.py`` holds to it."""
+    if sms is None:
+        from ..observability.counters import launch_limits
+        sms = launch_limits()["sms"]
+    plan = plan_quantized_matmul(m, n, k, sms)
+    splits, x, w = plan["splits"], _X_MANGLED[x_dtype], _W_MANGLED[qdtype]
+    origin = "mxnet_tpu_torch/csrc/quantized_matmul.cu"
+    specs = []
+
+    def smem(default, route, tn=0, pieces=0):
+        if not compiled:
+            return default
+        from ._build import launch_smem
+        return launch_smem("quantized_matmul", route, m, k, splits, tn,
+                           pieces)
+
+    if plan["route"] == "gemv":
+        mt = 1 << (m - 1).bit_length()
+        per_split = -(-k // splits)
+        kchunk = -(-per_split // GEMV_STEP) * GEMV_STEP
+        grid = (-(-n // GEMV_ROWS), -(-k // kchunk), 1)
+        specs.append({
+            "name": "qmm_gemv<%s, %s, %d>" % (x_dtype, qdtype, mt),
+            "origin": origin, "entry": "qmm_gemvI%s.*%s.*Li%dE" % (x, w, mt),
+            "grid": grid, "block": (GEMV_THREADS, 1, 1),
+            "dynamic_smem": smem(mt * (kchunk // 16 * 20) * 4, 0),
+            "static_smem": 0,
+            "optin": False, "min_blocks": None,
+            "tiles": [{"name": "weight rows", "extent": n,
+                       "tile": GEMV_ROWS},
+                      {"name": "K of a split", "extent": k, "tile": kchunk}],
+            "vectors": [{"name": "weight row", "extent": k,
+                         "dtype": "int8"},
+                        {"name": "x row", "extent": k, "dtype": x_dtype}]})
+        parts = grid[1]
+    else:
+        tn, pieces = plan["tn"], 3 if x_dtype == "float32" else 1
+        if pieces == 3:
+            mk = m * k
+            specs.append({
+                "name": "qmm_split", "origin": origin, "entry": "qmm_split",
+                "grid": (min(-(-mk // 256), 4096), 1, 1),
+                "block": (256, 1, 1), "dynamic_smem": 0, "static_smem": 0,
+                "min_blocks": None})
+        k_tiles = -(-k // TC_BK)
+        kt_per = -(-k_tiles // splits)
+        stage = TC_BN * TC_BK + pieces * tn * TC_BK * 2
+        grid = (-(-n // TC_BN), -(-m // tn), -(-k_tiles // kt_per))
+        specs.append({
+            "name": "qmm_wgmma<%s, %s, %d, %d>" % (x_dtype, qdtype, tn,
+                                                  pieces),
+            "origin": origin,
+            "entry": "qmm_wgmmaI%s.*%s.*Li%dELi%dE" % (x, w, tn, pieces),
+            "grid": grid, "block": (TC_THREADS, 1, 1),
+            "dynamic_smem": smem(1024 + TC_STAGES * stage
+                                 + 8 * 2 * TC_STAGES, 1, tn, pieces),
+            "static_smem": 0, "min_blocks": 1,
+            "tiles": [{"name": "output channels", "extent": n,
+                       "tile": TC_BN},
+                      {"name": "tokens", "extent": m, "tile": tn},
+                      {"name": "K", "extent": k, "tile": TC_BK}],
+            "tma": [{"name": "weight", "box": (TC_BK, TC_BN),
+                     "dtype": "int8"},
+                    {"name": "x piece", "box": (TC_BK, tn, 1),
+                     "dtype": "bfloat16"}],
+            "wgmma": [{"name": "y^T tile", "m": 64, "n": tn, "k": 16,
+                       "dtype": "bfloat16"}]})
+        parts = grid[2]
+    if parts > 1:
+        specs.append({
+            "name": "qmm_reduce<%s>" % x_dtype, "origin": origin,
+            "entry": "qmm_reduceI%sE" % x,
+            "grid": (min(-(-(m * n) // 256), 4096), 1, 1),
+            "block": (256, 1, 1), "dynamic_smem": 0, "static_smem": 0,
+            "min_blocks": None})
+    return specs
+
+
+register_kernel_spec("kernels.quantize", lambda: [
+    spec for m, k, n in MAIN_SHAPES for q in ("int8", "fp8_e4m3")
+    for spec in launch_specs(m, n, k, "float32", q)])

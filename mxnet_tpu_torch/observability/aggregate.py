@@ -35,6 +35,12 @@ __all__ = ["publish_summary", "collect_summaries", "heartbeat_ages",
            "pod_view", "read_events", "build_report", "timeline_around",
            "TEL_PREFIX"]
 
+#: the fields of a ``static_roofline`` counter a report keeps
+#: (``counters.emit_static_roofline``)
+ROOFLINE_FIELDS = ("flops_per_step", "hbm_bytes_per_step", "intensity",
+                   "ridge", "mfu_ceiling", "bound", "bound_ms",
+                   "device_kind", "compute_dtype")
+
 #: coordination-KV prefix for published per-rank summaries
 TEL_PREFIX = "mxtpu_tel/"
 
@@ -235,6 +241,10 @@ def _pod_rollup(per_rank):
             if s.get("mfu") is not None]
     if mfus:
         pod["mfu"] = round(sum(mfus) / len(mfus), 4)
+    rooflines = [s["static_roofline"] for _r, s in sorted(per_rank.items())
+                 if s.get("static_roofline")]
+    if rooflines:
+        pod["static_roofline"] = rooflines[0]
     return pod
 
 
@@ -396,6 +406,10 @@ def build_report(records, now=None):
                 last_resume = rec
         elif kind == "counter" and rec.get("name") == "heartbeat_ages":
             kv_hb_ages = rec.get("ages")
+        elif kind == "counter" and rec.get("name") == "static_roofline":
+            # the analyzer's static bound of the step (newest wins)
+            state["_roofline"] = {k: rec.get(k) for k in ROOFLINE_FIELDS
+                                  if rec.get(k) is not None}
         elif kind == "counter" and rec.get("name") == "trainer_cost":
             if rec.get("mfu") is not None:
                 state.setdefault("_mfus", []).append(float(rec["mfu"]))
@@ -410,6 +424,7 @@ def build_report(records, now=None):
         durs = state.pop("_durs")
         sps = state.pop("_sps")
         mfus = state.pop("_mfus", [])
+        roofline = state.pop("_roofline", None)
         pub = state.pop("_pub_sketch", None)
         s = dict(state)
         # per-rank step-time distribution: the rank's own published
@@ -435,6 +450,8 @@ def build_report(records, now=None):
             pass                        # no batch size known: omit
         if mfus:
             s["mfu"] = round(sum(mfus) / len(mfus), 4)
+        if roofline:
+            s["static_roofline"] = roofline
         if kv_hb_ages and str(rank) in {str(k) for k in kv_hb_ages}:
             age = kv_hb_ages.get(rank, kv_hb_ages.get(str(rank)))
             s["heartbeat_age_s"] = age

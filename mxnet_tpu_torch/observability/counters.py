@@ -17,19 +17,22 @@ the step's compute dtype: the port's float32 products run on the FMA
 pipes with TF32 off, and pricing them at the bfloat16 tensor-core peak
 would understate their MFU about 15-fold.
 
-``collective_bytes`` and ``emit_static_roofline`` read the JAX package's
-static analyzer (``analysis/``), which is not ported yet: they raise.
+``collective_bytes`` and ``emit_static_roofline`` read the static
+analyzer (``analysis/``): the collective bytes its sharding propagation
+prices (MXL-P) and its static roofline (MXL-R) at the card's peaks from
+:data:`PEAKS`, which a ``static_roofline`` counter carries beside
+``trainer_cost``.  :data:`LIMITS` holds the cards' launch limits, which
+the analyzer's launch-budget rules (MXL-K) read off the card.
 """
 from __future__ import annotations
 
 import os
 
-from ..base import MXNetError
 from . import events
 from .metrics import QuantileSketch, registry as _metrics_registry
 
 __all__ = ["percentile", "rel_spread", "StepStats", "global_stats",
-           "reset", "PEAKS", "peak_tflops", "mfu",
+           "reset", "PEAKS", "LIMITS", "launch_limits", "peak_tflops", "mfu",
            "collective_bytes", "emit_trainer_counters",
            "emit_sentinel_counters", "emit_static_roofline"]
 
@@ -148,19 +151,80 @@ def reset():
 # ----------------------------------------------------------------------
 #: NVIDIA's data-sheet peaks, dense (no sparsity), at the card's full
 #: power limit, keyed by ``torch.cuda.get_device_name()``: TFLOP/s by
-#: compute dtype ("float32" is the FMA pipes outside the tensor cores)
-#: and HBM bytes/s.  A card set below its limit runs slower under load;
-#: its name and power limit belong beside every figure priced here.
+#: compute dtype ("float32" is the FMA pipes outside the tensor cores;
+#: "int8" is TOP/s), HBM bytes/s, and the memory the card is sold with
+#: (``memory_bytes``, 80 GiB; a card's own ``total_memory`` reads a little
+#: less).  A card set below its limit runs slower under load; its name
+#: and power limit belong beside every figure priced here.
 PEAKS = {
     # SXM5, 700 W
     "NVIDIA H100 80GB HBM3": {
-        "tflops": {"float32": 67.0, "bfloat16": 989.0, "float16": 989.0},
-        "bytes_per_s": 3.35e12},
+        "tflops": {"float32": 67.0, "bfloat16": 989.0, "float16": 989.0,
+                   "int8": 1979.0, "fp8": 1979.0},
+        "bytes_per_s": 3.35e12, "memory_bytes": 80 * (1 << 30)},
     # PCIe, 350 W
     "NVIDIA H100 PCIe": {
-        "tflops": {"float32": 51.0, "bfloat16": 756.0, "float16": 756.0},
-        "bytes_per_s": 2.0e12},
+        "tflops": {"float32": 51.0, "bfloat16": 756.0, "float16": 756.0,
+                   "int8": 1513.0, "fp8": 1513.0},
+        "bytes_per_s": 2.0e12, "memory_bytes": 80 * (1 << 30)},
 }
+
+#: the launch limits of each card of :data:`PEAKS` (compute capability
+#: 9.0: NVIDIA's data sheet and CUDA's documented technical
+#: specifications), read by the static analyzer's launch-budget
+#: rules (``analysis/tiling.py``, MXL-K) off the card; on the card
+#: :func:`launch_limits` reads the device's own properties.  Shared
+#: memory: 48 KB a block, 227 KB after opting in
+#: (``cudaFuncSetAttribute``), 228 KB an SM, of which the CUDA driver keeps
+#: 1 KB for each resident block.
+LIMITS = {
+    "NVIDIA H100 80GB HBM3": {
+        "sms": 132, "smem_per_block": 49152, "smem_per_block_optin": 232448,
+        "smem_per_sm": 233472, "smem_reserved_per_block": 1024,
+        "regs_per_sm": 65536,
+        "regs_per_thread": 255, "threads_per_block": 1024,
+        "threads_per_sm": 2048, "grid_x": (1 << 31) - 1, "grid_yz": 65535},
+    "NVIDIA H100 PCIe": {
+        "sms": 114, "smem_per_block": 49152, "smem_per_block_optin": 232448,
+        "smem_per_sm": 233472, "smem_reserved_per_block": 1024,
+        "regs_per_sm": 65536,
+        "regs_per_thread": 255, "threads_per_block": 1024,
+        "threads_per_sm": 2048, "grid_x": (1 << 31) - 1, "grid_yz": 65535},
+}
+
+#: the row of a card that is not in the tables
+DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
+
+
+def launch_limits(device=None):
+    """The launch limits of one card, as a :data:`LIMITS` row (a copy).
+    ``device`` a CUDA device (a ``torch.device``, an index or
+    ``"cuda:N"``): its properties (SM count, shared memory a block and an
+    SM, registers an SM, threads a block and an SM) over its name's row, or
+    :data:`DEFAULT_CARD`'s.  ``device`` None: the current CUDA device when
+    there is one, else the H100 SXM's data-sheet row; a card's name:
+    that row."""
+    if isinstance(device, str) and device in LIMITS:
+        return dict(LIMITS[device])
+    import torch
+    if device is None and torch.cuda.is_available():
+        device = torch.cuda.current_device()
+    if device is None:
+        return dict(LIMITS[DEFAULT_CARD])
+    props = torch.cuda.get_device_properties(device)
+    row = dict(LIMITS.get(props.name, LIMITS[DEFAULT_CARD]))
+    for key, attr in (("sms", "multi_processor_count"),
+                      ("smem_per_block", "shared_memory_per_block"),
+                      ("smem_per_block_optin",
+                       "shared_memory_per_block_optin"),
+                      ("smem_per_sm", "shared_memory_per_multiprocessor"),
+                      ("regs_per_sm", "regs_per_multiprocessor"),
+                      ("threads_per_block", "max_threads_per_block"),
+                      ("threads_per_sm", "max_threads_per_multi_processor")):
+        value = getattr(props, attr, None)
+        if value:
+            row[key] = int(value)
+    return row
 
 
 def _device_name(device_name):
@@ -203,20 +267,49 @@ def mfu(flops_per_step, step_time_s, n_devices=1, device_name=None,
 
 
 def collective_bytes(symbol, mesh, shapes=None, **analyze_kwargs):
-    """Per-device collective bytes from the static analyzer's cost model:
-    not ported (the analyzer is ``ROADMAP.md`` queue 1 item 4 (g))."""
-    raise MXNetError("observability.counters.collective_bytes reads the "
-                     "static analyzer (analysis/), which is not ported yet "
-                     "(ROADMAP.md queue 1 item 4 (g))")
+    """Per-device collective bytes of one step of ``symbol`` under
+    ``mesh``, from the analysis cost model (MXL-P transfer rules) — the
+    figure the collective audit computes at lint time, exposed as a
+    telemetry counter.  Returns the ``comm_report`` dict or None."""
+    try:
+        from .. import analysis
+        from ..analysis.propagation import comm_report
+        ctx_out = []
+        analysis.analyze(symbol, shapes=shapes, mesh=mesh,
+                         _ctx_out=ctx_out, **analyze_kwargs)
+        return comm_report(ctx_out[0])
+    except Exception:
+        return None
 
 
 def emit_static_roofline(symbol, shapes, device_kind=None,
                          compute_dtype=None):
-    """The analyzer's static roofline as a counter: not ported (the
-    analyzer is ``ROADMAP.md`` queue 1 item 4 (g))."""
-    raise MXNetError("observability.counters.emit_static_roofline reads the "
-                     "static analyzer (analysis/), which is not ported yet "
-                     "(ROADMAP.md queue 1 item 4 (g))")
+    """Emit the analyzer's card-free MXL-R roofline for ``symbol`` as a
+    ``static_roofline`` counter (FLOPs, bytes, intensity, ridge, MFU
+    ceiling, bound, and the static step bound ``max(flops / peak,
+    bytes / bandwidth)`` in ms), so the measured-vs-ceiling gap is
+    trackable in the event log next to ``trainer_cost``.  Returns the
+    report dict (or {} when telemetry is off or the analyzer fails)."""
+    if not events.enabled():
+        return {}
+    try:
+        from ..analysis import static_mfu_ceiling
+        rep = static_mfu_ceiling(symbol, shapes, device_kind=device_kind,
+                                 compute_dtype=compute_dtype)
+    except Exception:
+        return {}
+    fields = dict(flops_per_step=rep["flops_per_step"],
+                  hbm_bytes_per_step=rep["hbm_bytes_per_step"],
+                  intensity=rep["intensity"], ridge=rep["ridge"],
+                  mfu_ceiling=rep["mfu_ceiling"], bound=rep["bound"],
+                  device_kind=rep["device_kind"],
+                  compute_dtype=rep["compute_dtype"])
+    if rep["peak_tflops"] and rep["peak_hbm_gbps"]:
+        fields["bound_ms"] = 1e3 * max(
+            rep["flops_per_step"] / (rep["peak_tflops"] * 1e12),
+            rep["hbm_bytes_per_step"] / (rep["peak_hbm_gbps"] * 1e9))
+    events.emit("counter", name="static_roofline", **fields)
+    return rep
 
 
 # ----------------------------------------------------------------------

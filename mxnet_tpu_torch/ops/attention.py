@@ -20,7 +20,8 @@ import torch
 from ..base import MXNetError
 from ..dparam import Field, ParamStruct
 from ..parallel.ring_attention import attention_reference  # noqa: F401
-from .registry import OperatorProperty, register_op, require_known
+from .registry import (OperatorProperty, register_op, require_known,
+                       contract_sharding, dedup_axes)
 
 
 class _LayerNormParam(ParamStruct):
@@ -53,6 +54,13 @@ class LayerNorm(OperatorProperty):
         shape[ax] = x.shape[ax]
         return [y * gamma.reshape(shape) + beta.reshape(shape)], None
 
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data = in_specs[0]
+        ax = self.param.axis % len(data) if data else 0
+        norm = data[ax] if data else ()
+        return {"out": [tuple(data)],
+                "in": [None, (norm,), (norm,)]}
+
 
 class _MHAParam(ParamStruct):
     num_heads = Field(int, required=True, lower=1)
@@ -75,6 +83,7 @@ class MultiHeadAttention(OperatorProperty):
     """
     param_cls = _MHAParam
     need_rng = True
+    mxu = True
 
     def list_arguments(self):
         return ["data", "qkv_weight", "qkv_bias", "out_weight", "out_bias"]
@@ -117,6 +126,72 @@ class MultiHeadAttention(OperatorProperty):
             o = torch.where(mask, o / keep, torch.zeros_like(o))
         return [torch.matmul(o, wo.t()) + bo], None
 
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        B, S, E = in_shapes[0]
+        H = self.param.num_heads
+        D = E // H
+        # qkv proj, out proj, then per-(batch, head): q@k.T and p@v
+        return [(B * S, E, 3 * E), (B * S, E, E),
+                (S, D, S), (S, S, D)]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        B, S, E = in_shapes[0]
+        H = self.param.num_heads
+        D = E // H
+        proj = 2 * B * S * E * (3 * E + E)
+        attn = 2 * B * H * (S * D * S + S * S * D)
+        return float(proj + attn)
+
+    def cost_reduce_len(self, in_shapes, out_shapes):
+        return int(in_shapes[0][1])     # softmax over the key axis
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data, qkv_w = in_specs[0], in_specs[1]
+        out_w = in_specs[3]
+        required = [None] * len(in_specs)
+        reduce = {}
+        notes = []
+        # input projection: data feature dim contracts against qkv_w dim 1
+        d_c = data[2] if len(data) > 2 else ()
+        w_c = qkv_w[1] if len(qkv_w) > 1 else ()
+        r, n, conflict = contract_sharding(d_c, w_c, 0, 1,
+                                           "MultiHeadAttention qkv")
+        reduce.update(r)
+        notes.extend(n)
+        if conflict:
+            required[0] = (tuple(data[0]), tuple(data[1]), tuple(w_c))
+        # head-parallel attention (qkv_w dim 0 over tp = heads split) must
+        # be closed by a row-parallel out projection (out_w dim 1 on the
+        # same axis) whose psum merges the per-head partial outputs
+        head = tuple(qkv_w[0] if qkv_w else ())
+        out_c = tuple(out_w[1] if len(out_w) > 1 else ())
+        if head and head == out_c:
+            reduce[head] = ("head-parallel attention closed by row-parallel "
+                            "out projection: partial sums over %s"
+                            % "+".join(head))
+        elif head or out_c:
+            axes = head or out_c
+            notes.append({
+                "kind": "attn_unreduced", "arg": 1 if head else 3,
+                "axes": axes,
+                "message": "attention is head-parallel over %s but the out "
+                           "projection does not close it with a matching "
+                           "row-parallel reduction: XLA all-gathers the "
+                           "per-head activations instead" % "+".join(axes)})
+        required[2] = (head,)
+        batch = tuple(data[0] if data else ())
+        seq = tuple(data[1] if len(data) > 1 else ())
+        feat = dedup_axes(out_w[0] if out_w else (), batch + seq)
+        if head and head == out_c:
+            feat = ()          # row-parallel out proj: output replicated
+        required[4] = (feat,)
+        out = {"out": [(batch, seq, feat)], "in": required}
+        if reduce:
+            out["reduce"] = reduce
+        if notes:
+            out["notes"] = notes
+        return out
+
 
 class _CachedMHAParam(ParamStruct):
     num_heads = Field(int, required=True, lower=1)
@@ -150,6 +225,7 @@ class CachedMultiHeadAttention(OperatorProperty):
       ``<= seq_pos`` through the flash-decode kernel.
     """
     param_cls = _CachedMHAParam
+    mxu = True
 
     def list_arguments(self):
         return ["data", "qkv_weight", "qkv_bias", "out_weight", "out_bias",
@@ -234,3 +310,51 @@ class CachedMultiHeadAttention(OperatorProperty):
                                        scale=1.0 / math.sqrt(D))
             o = o.to(q.dtype).reshape(B, 1, E)
         return [torch.matmul(o, wo.t()) + bo, kc, vc], None
+
+    def _ctx_len(self, in_shapes):
+        """Cached context slots the table can name (attention width)."""
+        cache, table = in_shapes[5], in_shapes[7]
+        return int(table[1]) * int(cache[1])
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        B, S, E = in_shapes[0]
+        H = self.param.num_heads
+        D = E // H
+        T = self._ctx_len(in_shapes) if self.param.mode == "decode" else S
+        # qkv proj, out proj, then per-(batch, head): q@k.T and p@v over
+        # the cached context length
+        return [(B * S, E, 3 * E), (B * S, E, E),
+                (S, D, T), (S, T, D)]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        B, S, E = in_shapes[0]
+        H = self.param.num_heads
+        D = E // H
+        T = self._ctx_len(in_shapes) if self.param.mode == "decode" else S
+        proj = 2 * B * S * E * (3 * E + E)
+        attn = 2 * B * H * (S * D * T + S * T * D)
+        return float(proj + attn)
+
+    def cost_reduce_len(self, in_shapes, out_shapes):
+        return int(self._ctx_len(in_shapes)
+                   if self.param.mode == "decode" else in_shapes[0][1])
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        # head-parallel like MHA: cache pools shard dim 2 (heads) on the
+        # same axis as qkv_weight dim 0; tables/positions replicated
+        data, qkv_w = in_specs[0], in_specs[1]
+        head = tuple(qkv_w[0] if qkv_w else ())
+        cache = (tuple(), tuple(), head, tuple())
+        batch = tuple(data[0] if data else ())
+        seq = tuple(data[1] if len(data) > 1 else ())
+        out_w = in_specs[3]
+        out_c = tuple(out_w[1] if len(out_w) > 1 else ())
+        feat = () if (head and head == out_c) \
+            else dedup_axes(out_w[0] if out_w else (), batch + seq)
+        out = {"out": [(batch, seq, feat), cache, cache],
+               "in": [None, None, (head,), None, (feat,),
+                      cache, cache, None, None]}
+        if head and head == out_c:
+            out["reduce"] = {head: "head-parallel cached attention closed "
+                                   "by row-parallel out projection"}
+        return out

@@ -156,6 +156,21 @@ class SoftmaxOutput(OperatorProperty):
             grad = grad / torch.clamp(valid.sum(), min=1.0)
         return grad * p.grad_scale
 
+    def cost_reduce_len(self, in_shapes, out_shapes):
+        # softmax denominator accumulates over the class axis
+        data = in_shapes[0]
+        return int(data[1] if len(data) > 1 else data[-1])
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data = in_specs[0]
+        # label aligns with data's LEADING dims (batch[, spatial]), not by
+        # numpy trailing-broadcast: label (B,) matches data (B, C)
+        if self.param.multi_output:
+            label = (tuple(data[0]),) + tuple(tuple(e) for e in data[2:])
+        else:
+            label = tuple(tuple(e) for e in data[:len(in_specs[1])])
+        return {"out": [tuple(data)], "in": [None, label]}
+
 
 # ----------------------------------------------------------------------
 # the regression outputs, MakeLoss, SVMOutput, IdentityAttachKLSparseReg

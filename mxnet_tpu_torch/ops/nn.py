@@ -21,7 +21,8 @@ import torch
 from ..base import MXNetError
 from ..dparam import Field, ParamStruct
 from ..ndarray import _torch_dtype
-from .registry import OperatorProperty, register_op, require_known
+from .registry import (OperatorProperty, register_op, require_known,
+                       contract_sharding, dedup_axes, reshape_carry)
 
 
 # ----------------------------------------------------------------------
@@ -72,6 +73,7 @@ def _dense_shapes(op, in_shapes, extra_args=()):
 class FullyConnected(OperatorProperty):
     """fully_connected-inl.h:46: y = x_2d · Wᵀ + b, weight (num_hidden, D)."""
     param_cls = _FCParam
+    mxu = True
 
     def list_arguments(self):
         return ["data", "weight"] if self.param.no_bias else ["data", "weight", "bias"]
@@ -85,6 +87,41 @@ class FullyConnected(OperatorProperty):
         if not self.param.no_bias:
             y = y + inputs[2]
         return [y], None
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        data = in_shapes[0]
+        num_in = int(_np.prod(data[1:], dtype=_np.int64))
+        return [(int(data[0]), num_in, int(self.param.num_hidden))]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        (m, k, n), = self.cost_mxu_dims(in_shapes, out_shapes)
+        bias = m * n if not self.param.no_bias else 0
+        return float(2 * m * k * n + bias)
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data, weight = in_specs[0], in_specs[1]
+        # forward flattens data[1:]: any sharded non-batch dim is part of
+        # the contraction against weight dim 1
+        c_idx = next((i for i in range(1, len(data)) if data[i]), None)
+        d_c = data[c_idx] if c_idx is not None else ()
+        w_c = weight[1] if len(weight) > 1 else ()
+        reduce, notes, conflict = contract_sharding(
+            d_c, w_c, 0, 1, "FullyConnected")
+        required = [None] * len(in_specs)
+        if conflict:
+            req = list(data)
+            req[c_idx] = w_c
+            required[0] = tuple(req)
+        batch = data[0] if data else ()
+        cols = dedup_axes(weight[0] if weight else (), batch)
+        if not self.param.no_bias and len(required) > 2:
+            required[2] = (cols,)
+        out = {"out": [(tuple(batch), cols)], "in": required}
+        if reduce:
+            out["reduce"] = reduce
+        if notes:
+            out["notes"] = notes
+        return out
 
 
 class _QuantizedDenseParam(ParamStruct):
@@ -104,6 +141,7 @@ class QuantizedDense(OperatorProperty):
     tensor on the GPU, its plain version on the CPU.
     """
     param_cls = _QuantizedDenseParam
+    mxu = True
 
     def list_arguments(self):
         args = ["data", "weight", "scale"]
@@ -136,6 +174,48 @@ class QuantizedDense(OperatorProperty):
             y = y + inputs[3]
         return [y], None
 
+    # compute dtype of the MXU contraction (roofline prices peaks at it)
+    def cost_compute_dtype(self, in_shapes, out_shapes):
+        return "fp8" if self.param.qdtype == "fp8_e4m3" else "int8"
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        data = in_shapes[0]
+        num_in = int(_np.prod(data[1:], dtype=_np.int64))
+        return [(int(data[0]), num_in, int(self.param.num_hidden))]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        (m, k, n), = self.cost_mxu_dims(in_shapes, out_shapes)
+        extra = m * n                       # scale epilogue
+        if not self.param.no_bias:
+            extra += m * n
+        return float(2 * m * k * n + extra)
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data, weight = in_specs[0], in_specs[1]
+        c_idx = next((i for i in range(1, len(data)) if data[i]), None)
+        d_c = data[c_idx] if c_idx is not None else ()
+        w_c = weight[1] if len(weight) > 1 else ()
+        reduce, notes, conflict = contract_sharding(
+            d_c, w_c, 0, 1, "QuantizedDense")
+        required = [None] * len(in_specs)
+        if conflict:
+            req = list(data)
+            req[c_idx] = w_c
+            required[0] = tuple(req)
+        batch = data[0] if data else ()
+        cols = dedup_axes(weight[0] if weight else (), batch)
+        # scale (and bias) are per-output-channel rows: follow cols
+        if len(required) > 2:
+            required[2] = (cols,)
+        if not self.param.no_bias and len(required) > 3:
+            required[3] = (cols,)
+        out = {"out": [(tuple(batch), cols)], "in": required}
+        if reduce:
+            out["reduce"] = reduce
+        if notes:
+            out["notes"] = notes
+        return out
+
 
 # ----------------------------------------------------------------------
 # Flatten / Reshape
@@ -152,6 +232,9 @@ class Flatten(OperatorProperty):
     def forward(self, inputs, aux, is_train, rng):
         return [inputs[0].reshape(inputs[0].shape[0], -1)], None
 
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        return {"out": [reshape_carry(in_specs[0], in_shapes[0],
+                                      out_shapes[0], mesh_shape)]}
 
 
 class _ReshapeParam(ParamStruct):
@@ -192,6 +275,10 @@ class Reshape(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         return [inputs[0].reshape(self._target(tuple(inputs[0].shape)))], None
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        return {"out": [reshape_carry(in_specs[0], in_shapes[0],
+                                      out_shapes[0], mesh_shape)]}
 
 
 # ----------------------------------------------------------------------
@@ -239,6 +326,24 @@ class Embedding(OperatorProperty):
                                             weight)
         return [torch.where(valid.unsqueeze(-1), out, float("nan"))], None
 
+    def cost_bytes_elements(self, in_shapes, out_shapes):
+        # gather: ids + the gathered rows in and out, not the full table
+        return float(_np.prod(in_shapes[0], dtype=_np.int64)
+                     + 2 * _np.prod(out_shapes[0], dtype=_np.int64))
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data, weight = in_specs[0], in_specs[1]
+        used = [a for e in data for a in e]
+        feat = dedup_axes(weight[1] if len(weight) > 1 else (), used)
+        out = {"out": [tuple(data) + (feat,)]}
+        vocab = tuple(weight[0] if weight else ())
+        if vocab:
+            # vocab-sharded table: each shard gathers local hits only and
+            # the partial one-hot matmul is psummed across the axis
+            out["reduce"] = {vocab: "vocab-sharded Embedding lookup: each "
+                                    "shard contributes rows it owns"}
+        return out
+
 
 # ----------------------------------------------------------------------
 # Convolution
@@ -275,6 +380,7 @@ class Convolution(OperatorProperty):
     OIHW, as the reference's, so checkpoints interchange.  The bias is
     added after the convolution, as the JAX package adds it."""
     param_cls = _ConvParam
+    mxu = True
 
     def list_arguments(self):
         return ["data", "weight"] if self.param.no_bias \
@@ -310,6 +416,48 @@ class Convolution(OperatorProperty):
         if not p.no_bias:
             y = y + inputs[2].reshape((1, -1) + (1,) * len(k))
         return [y], None
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data, weight = in_specs[0], in_specs[1]
+        # input channels (data dim 1 x weight dim 1) are the contraction;
+        # spatial dims stay replicated (halo exchange is out of scope)
+        d_c = data[1] if len(data) > 1 else ()
+        w_c = weight[1] if len(weight) > 1 else ()
+        reduce, notes, conflict = contract_sharding(
+            d_c, w_c, 0, 1, "Convolution")
+        required = [None] * len(in_specs)
+        if conflict:
+            req = list(data)
+            req[1] = w_c
+            required[0] = tuple(req)
+        batch = data[0] if data else ()
+        cols = dedup_axes(weight[0] if weight else (), batch)
+        if not self.param.no_bias and len(required) > 2:
+            required[2] = (cols,)
+        spec = (tuple(batch), cols) + ((),) * (len(out_shapes[0]) - 2)
+        out = {"out": [spec], "in": required}
+        if reduce:
+            out["reduce"] = reduce
+        if notes:
+            out["notes"] = notes
+        return out
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        # XLA lowers the conv as an im2col matmul per group:
+        # (batch*out_spatial) x (C/g * prod(kernel)) x (filters/g)
+        p = self.param
+        data, out = in_shapes[0], out_shapes[0]
+        k, _, _, _ = p.spatial()
+        m = int(data[0] * _np.prod(out[2:], dtype=_np.int64))
+        kk = int((data[1] // p.num_group) * _np.prod(k, dtype=_np.int64))
+        return [(m, kk, p.num_filter // p.num_group)] * p.num_group
+
+    def cost_flops(self, in_shapes, out_shapes):
+        flops = sum(2 * m * k * n for m, k, n in
+                    self.cost_mxu_dims(in_shapes, out_shapes))
+        if not self.param.no_bias:
+            flops += int(_np.prod(out_shapes[0], dtype=_np.int64))
+        return float(flops)
 
 
 # ----------------------------------------------------------------------
@@ -393,6 +541,17 @@ class Pooling(OperatorProperty):
         if nd == 1:
             out = out.squeeze(2)
         return [out], None
+
+    def cost_flops(self, in_shapes, out_shapes):
+        k, _s, _p = self._conf(in_shapes[0][2:])
+        return float(_np.prod(out_shapes[0], dtype=_np.int64)
+                     * _np.prod(k, dtype=_np.int64))
+
+    def cost_reduce_len(self, in_shapes, out_shapes):
+        if self.param.pool_type == "max":
+            return None     # max accumulation is exact in any dtype
+        k, _s, _p = self._conf(in_shapes[0][2:])
+        return int(_np.prod(k, dtype=_np.int64))
 
 
 # ----------------------------------------------------------------------
@@ -486,6 +645,12 @@ class BatchNorm(OperatorProperty):
 
 def _channel_view(v, x):
     return v.reshape((1, -1) + (1,) * (x.dim() - 2))
+
+    def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
+        data = in_specs[0]
+        chan = data[1] if len(data) > 1 else ()
+        return {"out": [tuple(data)],
+                "in": [None, (chan,), (chan,)]}
 
 
 class _CrossReplicaBatchNorm(torch.autograd.Function):
@@ -865,6 +1030,7 @@ class Deconvolution(OperatorProperty):
     dilated kernel - 2 * pad + adj``; ``target_shape`` is accepted and
     not read, and ``num_group > 1`` raises, as in the JAX package."""
     param_cls = _DeconvParam
+    mxu = True
 
     def list_arguments(self):
         return ["data", "weight"] if self.param.no_bias \
@@ -903,6 +1069,23 @@ class Deconvolution(OperatorProperty):
         if not p.no_bias:
             y = y + inputs[2].reshape((1, -1) + (1,) * len(k))
         return [y], None
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        # transposed conv: one MAC per input element per (filter, tap)
+        p = self.param
+        data = in_shapes[0]
+        k, _, _, _ = p.spatial()
+        m = int(data[0] * _np.prod(data[2:], dtype=_np.int64))
+        g = p.num_group
+        return [(m, data[1] // g,
+                 int((p.num_filter // g) * _np.prod(k, dtype=_np.int64)))] * g
+
+    def cost_flops(self, in_shapes, out_shapes):
+        flops = sum(2 * m * k * n for m, k, n in
+                    self.cost_mxu_dims(in_shapes, out_shapes))
+        if not self.param.no_bias:
+            flops += int(_np.prod(out_shapes[0], dtype=_np.int64))
+        return float(flops)
 
 
 class _UpSamplingParam(ParamStruct):

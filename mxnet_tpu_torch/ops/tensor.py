@@ -219,6 +219,13 @@ def _make_reduce(op_name, fn, aliases=()):
                 p.axis, p.keepdims, group, self)
             return [[o] for o in outs], None, True
 
+        def cost_reduce_len(self, in_shapes, out_shapes):
+            if op_name != "sum":    # max/min accumulate exactly
+                return None
+            nin = int(_np.prod(in_shapes[0], dtype=_np.int64))
+            nout = int(_np.prod(out_shapes[0], dtype=_np.int64))
+            return max(1, nin // max(1, nout))
+
     _Reduce.__name__ = "Op" + op_name
     return _Reduce
 
@@ -399,6 +406,9 @@ class Norm(OperatorProperty):
                     for i in ins])
         return [[torch.sqrt(s)] for s in sums], None, True
 
+    def cost_reduce_len(self, in_shapes, out_shapes):
+        return int(_np.prod(in_shapes[0], dtype=_np.int64))
+
 
 @register_op("argmax_channel")
 class ArgmaxChannel(OperatorProperty):
@@ -427,6 +437,7 @@ class Dot(OperatorProperty):
     """The matrix product of 2-D operands (``torch.matmul``, cuBLAS on
     the card), either transposed first."""
     param_cls = _DotParam
+    mxu = True
 
     def list_arguments(self):
         return ["lhs", "rhs"]
@@ -451,11 +462,22 @@ class Dot(OperatorProperty):
             b = b.t()
         return [torch.matmul(a, b)], None
 
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        a = in_shapes[0]
+        m, n = out_shapes[0]
+        k = a[0] if self.param.transpose_a else a[1]
+        return [(int(m), int(k), int(n))]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        (m, k, n), = self.cost_mxu_dims(in_shapes, out_shapes)
+        return float(2 * m * k * n)
+
 
 @register_op("batch_dot")
 class BatchDot(OperatorProperty):
     """The product of each pair of (B, m, k) and (B, k, n) matrices."""
     param_cls = _DotParam
+    mxu = True
 
     def list_arguments(self):
         return ["lhs", "rhs"]
@@ -474,6 +496,17 @@ class BatchDot(OperatorProperty):
         if self.param.transpose_b:
             b = torch.transpose(b, 1, 2)
         return [torch.matmul(a, b)], None
+
+    def cost_mxu_dims(self, in_shapes, out_shapes):
+        a = in_shapes[0]
+        _batch, m, n = out_shapes[0]
+        k = a[1] if self.param.transpose_a else a[2]
+        return [(int(m), int(k), int(n))]
+
+    def cost_flops(self, in_shapes, out_shapes):
+        batch = out_shapes[0][0]
+        (m, k, n), = self.cost_mxu_dims(in_shapes, out_shapes)
+        return float(2 * batch * m * k * n)
 
 
 class _FlipParam(ParamStruct):

@@ -32,13 +32,25 @@ takes CUDA C again:
 - ``pallas=False``: ``fn`` is a function of torch tensors, called
   eagerly (the JAX package's ``jax.jit(fn)``), on any device.
 
+Before a launch, ``push`` checks its grid and block against the card's
+limits (threads a block, grid extents: the static analyzer's
+``analysis.tiling.block_findings``, MXL-K), once for each launch shape,
+as the JAX package lints its Pallas blocks at build time.
+``MXTPU_RTC_LINT``: ``warn`` (the default) emits a ``GraphLintWarning``
+and launches anyway (the CUDA driver then refuses what the card cannot
+run),
+``error`` raises :class:`MXNetError` before the launch, ``off`` skips.
+
 Nothing falls back: a failed compile, load or launch raises
 :class:`MXNetError`.  ``Rtc.launches`` counts one instance's kernel
 launches and the module's ``launches`` those of every instance.
 """
 from __future__ import annotations
 
+import os
+import threading
 import time
+import warnings
 
 import torch
 
@@ -108,6 +120,33 @@ def kernel_source(body, inputs, outputs):
                  % (KERNEL_NAME, ",\n    ".join(params)))
     lines += ["{", body.strip("\n"), "}", ""]
     return "\n".join(lines)
+
+
+#: device index -> its launch limits (``counters.launch_limits``)
+_LIMITS = {}
+_LIMITS_LOCK = threading.Lock()
+
+
+def _launch_lint(grid, block, device, mode):
+    """The MXL-K launch check of one ``push``: ``mode`` "warn" emits a
+    GraphLintWarning for each finding, "error" raises MXNetError on an
+    error finding, "off" skips.  Returns the findings."""
+    if mode == "off":
+        return []
+    from .analysis import GraphLintWarning
+    from .analysis.tiling import block_findings
+    with _LIMITS_LOCK:
+        limits = _LIMITS.get(device.index)
+        if limits is None:
+            from .observability.counters import launch_limits
+            limits = _LIMITS[device.index] = launch_limits(device)
+    findings = block_findings(grid, block, 0, "Rtc.push", limits=limits)
+    for rule_id, severity, message in findings:
+        text = "[%s] rtc kernel: %s" % (rule_id, message)
+        if mode == "error" and severity == "error":
+            raise MXNetError(text)
+        warnings.warn(text, GraphLintWarning, stacklevel=3)
+    return findings
 
 
 def _dims(dims, what):
@@ -184,6 +223,8 @@ class Rtc(object):
         self._out_shapes = out_shapes
         self._out_dtypes = out_dtypes
         self._compiled = {}
+        #: launch shapes already checked (``_launch_lint``)
+        self._linted = set()
         #: kernel launches of this instance
         self.launches = 0
 
@@ -266,6 +307,13 @@ class Rtc(object):
                 "device, got %s (a CUDA C body cannot run on the CPU; use "
                 "pallas=False with a function of tensors there)"
                 % sorted({str(x.device) for x in xs}))
+        mode = os.environ.get("MXTPU_RTC_LINT", "warn")
+        if mode not in ("warn", "error", "off"):
+            raise MXNetError("MXTPU_RTC_LINT must be warn, error or off, got "
+                             "%r" % mode)
+        if (device.index, grid, block, mode) not in self._linted:
+            _launch_lint(grid, block, device, mode)
+            self._linted.add((device.index, grid, block, mode))
         xs = [x.contiguous() for x in xs]
         kernel = self.compile([x.shape for x in xs], [x.dtype for x in xs])
         outs = [torch.empty(s, dtype=d, device=device)

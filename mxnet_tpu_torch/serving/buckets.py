@@ -5,8 +5,11 @@ A copy of the planner of ``mxnet_tpu/serving/buckets.py``, with the
 TPU cost model it prices buckets by (``mxu_padding_waste`` and
 ``min_tile`` of ``mxnet_tpu/analysis``: k and n pad to 128 lanes, m to
 the dtype's sublane granule), so that the port plans THE SAME buckets as
-the JAX package for the same model and histogram.  A cost model of the
-H100 is later work.
+the JAX package for the same model and histogram.  The model's product
+rows come from the static analyzer's cost rows
+(:func:`model_matmul_dims`), as the JAX planner reads them; only the
+granules stay the TPU's here.  A cost model of the H100 is later work
+(ROADMAP.md).
 
 A batch of ``n`` samples served in bucket ``B`` pays
 ``padded_flops(B) = useful_flops(B) / (1 - mxu_padding_waste(dims(B)))``;
@@ -306,47 +309,24 @@ def plan_buckets(histogram, mats=None, max_buckets=None,
                       quad_mats=quad_mats)
 
 
-def _mxu_dims(op, in_shapes):
-    """``(m, k, n)`` rows of one op's matrix products, as the JAX
-    package's ``cost_mxu_dims`` gives them, or None."""
-    name = type(op).op_name
-    if name in ("FullyConnected", "QuantizedDense"):
-        data = in_shapes[0]
-        return [(int(data[0]), int(_np.prod(data[1:], dtype=_np.int64)),
-                 int(op.param.num_hidden))]
-    if name in ("MultiHeadAttention", "CachedMultiHeadAttention"):
-        B, S, E = in_shapes[0]
-        D = E // op.param.num_heads
-        T = S
-        if name == "CachedMultiHeadAttention" and op.param.mode == "decode":
-            T = int(in_shapes[7][1]) * int(in_shapes[5][1])
-        return [(B * S, E, 3 * E), (B * S, E, E), (S, D, T), (S, T, D)]
-    return None
-
-
 def model_matmul_dims(symbol, input_shapes, batch=1):
-    """Per-sample ``(m, k, n)`` rows of ``symbol``'s matrix products at
-    ``input_shapes`` (whose batch dim is ``batch``; ``m`` is divided
-    back out to per-sample), the same rows as the JAX package's
-    ``model_matmul_dims`` for the ops the port has.  None when the graph
-    has none (the planner then prices occupancy alone)."""
+    """Per-sample ``(m, k, n)`` product triples of ``symbol`` from the
+    static analyzer's MXL-R cost rows (``analysis.roofline._op_costs``)
+    at ``input_shapes`` (whose batch dim is ``batch``; ``m`` is divided
+    back out to per-sample), as the JAX package's planner reads them.
+    Returns ``None`` when the graph has no priceable product (the
+    planner then prices occupancy alone)."""
+    from ..analysis.core import AnalysisContext
+    from ..analysis.roofline import _op_costs
     try:
-        arg_shapes, _, _ = symbol.infer_shape_partial(**dict(input_shapes))
+        ctx = AnalysisContext(symbol, shapes=dict(input_shapes),
+                              grad_req="null")
+        rows = _op_costs(ctx)["rows"]
     except Exception:
         return None
-    known = dict(zip(symbol.list_arguments(), arg_shapes or ()))
-    shapes, mats = {}, []
-    for node in symbol._topo():
-        if node.is_variable:
-            shapes[(id(node), 0)] = known.get(node.name)
-            continue
-        in_shapes = [shapes.get((id(c), ci)) for c, ci in node.inputs]
-        if any(sh is None for sh in in_shapes):
-            return None
-        _, outs, _ = node.op.infer_shape(in_shapes)
-        for i, sh in enumerate(outs):
-            shapes[(id(node), i)] = tuple(sh)
-        for m, k, n in _mxu_dims(node.op, in_shapes) or ():
-            mats.append((max(1, int(m) // max(1, int(batch))), int(k),
-                         int(n)))
+    mats = []
+    for r in rows:
+        for m, k, nn in (r["mxu_dims"] or ()):
+            per_sample = max(1, int(m) // max(1, int(batch)))
+            mats.append((per_sample, int(k), int(nn)))
     return tuple(mats) or None

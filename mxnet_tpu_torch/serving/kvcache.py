@@ -34,6 +34,7 @@ import threading
 import numpy as _np
 import torch
 
+from ..analysis.tiling import register_kernel_spec
 from ..base import MXNetError
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "CacheExhausted", "TRASH_BLOCK",
@@ -247,3 +248,30 @@ class PagedKVCache(object):
                     "seqs_active": len(self._seqs),
                     "blocks_high_water": self._high_water,
                     "block_size": self.config.block_size}
+
+
+def cache_kernel_spec(config=None, dtype=None):
+    """MXL-K spec of the pool layout as the flash-decode kernel reads it
+    (``csrc/flash_decode.cu``): a head's row of ``head_dim`` elements and
+    a block of ``block_size * num_heads * head_dim`` are read as 16-byte
+    pieces, so each must be a multiple of 16 bytes for the pools to stay
+    on the kernel's vector route.  The counterpart of the JAX package's
+    ``cache_kernel_spec``, which declares the same geometry as a Pallas
+    block.  ``dtype`` overrides the config's."""
+    cfg = config or KVCacheConfig(num_layers=1, num_heads=8, head_dim=64,
+                                  max_seq_len=kv_block_size() * 4)
+    dt = str(dtype or cfg.dtype).replace("torch.", "")
+    return {
+        "name": "paged_kv_cache[%s]" % dt,
+        "origin": "mxnet_tpu_torch/serving/kvcache.py",
+        "vectors": [
+            {"name": "k/v head row", "extent": cfg.head_dim, "dtype": dt},
+            {"name": "k/v block",
+             "extent": cfg.block_size * cfg.num_heads * cfg.head_dim,
+             "dtype": dt}],
+    }
+
+
+register_kernel_spec(
+    "paged_kv_cache",
+    lambda: [cache_kernel_spec(dtype=dt) for dt in ("float32", "bfloat16")])

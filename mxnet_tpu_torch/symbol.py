@@ -345,24 +345,63 @@ class Symbol:
         """``{node name: {attr: value}}`` of every node that has attrs."""
         return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
 
+    # -- static analysis (analysis/) ---------------------------------------
+    def validate(self, shapes=None, type_dict=None, mesh=None,
+                 sharding_rules=None, target="gpu", select=None, skip=None,
+                 kvstore=None, hbm_bytes=None, grad_req=None,
+                 data_names=None, label_names=None, compute_dtype=None,
+                 device_kind=None, world_size=None, **shape_kwargs):
+        """Run the static lint passes over this graph; returns
+        ``list[analysis.GraphIssue]``, most severe first.
+
+        The counterpart of the reference GraphExecutor's bind-time
+        shape/type inference (static_graph.cc:59): catch shape/dtype
+        conflicts, dead inputs and ops the target cannot run before the
+        first walk.  ``shapes`` (or shape kwargs, ``infer_shape`` style)
+        and ``type_dict`` seed propagation; ``mesh``/``sharding_rules``
+        enable the SPMD passes (sharding propagation MXL-P, peak memory
+        MXL-M, collective audit MXL-C) with ``kvstore``/``hbm_bytes``/
+        ``grad_req`` refining their context; ``compute_dtype``/
+        ``device_kind`` steer the static roofline (MXL-R, ``target="gpu"``
+        only, as the launch-budget family MXL-K); ``world_size`` (or
+        ``MXTPU_LINT_DISTRIBUTED=1`` + ``MXTPU_LINT_WORLD_SIZE``) enables
+        the distributed trace diff (MXL-D001..003) over
+        ``__rank_cond__``/``__collective__`` attrs; ``select``/``skip``
+        filter rule ids (wildcards work).  The JAX package's signature,
+        with ``target`` defaulting to ``"gpu"``.
+        """
+        from .analysis import analyze
+        known = dict(shapes or {})
+        known.update(shape_kwargs)
+        return analyze(self, shapes=known, type_dict=type_dict, mesh=mesh,
+                       sharding_rules=sharding_rules, target=target,
+                       kvstore=kvstore, hbm_bytes=hbm_bytes,
+                       grad_req=grad_req, data_names=data_names,
+                       label_names=label_names,
+                       compute_dtype=compute_dtype,
+                       device_kind=device_kind, world_size=world_size,
+                       select=select, skip=skip)
+
     # -- binding (executor.py) ---------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, validate=None):
         """Bind to arrays: ``args``, ``args_grad`` and ``aux_states`` are
-        lists or name->NDArray dicts (``executor.Executor``).  Placement
-        by ``group2ctx`` (ROADMAP.md queue 1 item 3), memory sharing with
-        another executor, and the JAX package's bind-time lint
-        (``validate=`` and ``Symbol.validate``, which run its
-        ``analysis`` passes; item 4 (g)) are not ported."""
+        lists or name->NDArray dicts (``executor.Executor``); ``validate``
+        is the bind-time lint's mode (``"warn"``, ``"error"``, ``"off"``;
+        default ``MXTPU_BIND_VALIDATE``, else ``"warn"``).  Placement by
+        ``group2ctx`` and memory sharing with another executor are not
+        ported (ROADMAP.md queue 1 item 3)."""
         from .executor import Executor
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        validate=validate)
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    validate=None, **kwargs):
         """Allocate arrays from the shapes in ``kwargs`` and bind
         (``executor.simple_bind``)."""
         from .executor import simple_bind
         return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
-                           **kwargs)
+                           validate=validate, **kwargs)
 
     # -- serialization (reference JSON layout) -----------------------------
     def tojson(self):

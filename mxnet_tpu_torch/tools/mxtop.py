@@ -55,6 +55,14 @@ def render(report, stream=None):
         _fmt(pod.get("step_ms_p95"), width=8),
         _fmt(pod.get("samples_per_sec"), width=10),
         _fmt(pod.get("mfu"), width=7)))
+    roof = pod.get("static_roofline")
+    if roof:
+        w("      static roofline: bound %s ms (%s-bound)   MFU ceiling %s"
+          "   %s, %s\n" % (
+              _fmt(roof.get("bound_ms"), width=8), roof.get("bound") or "?",
+              _fmt(roof.get("mfu_ceiling"), width=6),
+              roof.get("device_kind") or "?",
+              roof.get("compute_dtype") or "?"))
     w("      straggler gap %s ms   slowest phase %s\n" % (
         _fmt(pod.get("straggler_gap_ms"), width=8),
         pod.get("slowest_phase") or "-"))

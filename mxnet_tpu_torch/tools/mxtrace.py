@@ -166,6 +166,13 @@ def build_trace(records, flight_dumps=()):
                           "occupancy": rec.get("occupancy"),
                           "trace_ids": rec.get("trace_ids")}))
                 end -= float(dur)
+        elif kind == "counter" and rec.get("name") == "static_roofline":
+            # the analyzer's static bound of a step, beside its steps
+            events.append({
+                "ph": "i", "s": "p", "cat": "mxtpu",
+                "name": "static_roofline", "pid": rank, "tid": TID_STEP,
+                "ts": int(float(wall) * 1000.0),
+                "args": _args_of(rec)})
         elif kind in ("fault", "elastic"):
             events.append({
                 "ph": "i", "s": "p", "cat": "mxtpu",

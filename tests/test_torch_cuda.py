@@ -1619,3 +1619,70 @@ def test_peak_table_knows_the_card(cuda):
     assert name in counters.PEAKS, name
     assert counters.peak_tflops(dtype="float32") \
         == counters.PEAKS[name]["tflops"]["float32"]
+
+
+def test_registered_kernel_specs_lint_clean_on_the_card(cuda):
+    """Every launch the hand kernels register with the static analyzer
+    (MXL-K), at the main paths' shapes and the card's own SM count, lints
+    clean against the device's properties; the limits are the card's."""
+    from mxnet_tpu_torch import analysis
+    from mxnet_tpu_torch.analysis import tiling
+    from mxnet_tpu_torch.observability.counters import launch_limits
+    lim = launch_limits(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert lim["sms"] == props.multi_processor_count
+    assert lim["smem_per_block_optin"] == props.shared_memory_per_block_optin
+    specs = [s for p in analysis.KERNEL_SPECS.values() for s in p()]
+    assert len(specs) >= 10
+    for spec in specs:
+        assert tiling.spec_findings(spec, limits=lim) == [], spec["name"]
+    assert analysis.hbm_capacity_bytes(cuda) == props.total_memory
+
+
+def test_kernel_specs_shared_memory_is_the_built_librarys(cuda):
+    """Each registered launch's dynamic shared memory and CTAs an SM, at
+    the main paths' shapes and every head dim and x dtype the kernels
+    take, are those the built library launches with."""
+    from mxnet_tpu_torch.kernels import flash_attention, flash_decode, quantize
+    from mxnet_tpu_torch.observability.counters import launch_limits
+    sms = launch_limits(cuda)["sms"]
+    pairs = []
+    for q, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("float32", "bfloat16")):
+        pairs.append(tuple(flash_decode.launch_spec(
+            q_dtype=q, kv_dtype=kv, sms=sms, compiled=c,
+            **flash_decode.MAIN_SHAPES) for c in (False, True)))
+    for m, k, n in quantize.MAIN_SHAPES:
+        for x in ("float32", "bfloat16"):
+            for qd in ("int8", "fp8_e4m3"):
+                pairs += zip(*(quantize.launch_specs(m, n, k, x, qd, sms,
+                                                     compiled=c)
+                               for c in (False, True)))
+    sh = flash_attention.MAIN_SHAPES
+    for D in (32, 64, 128):
+        for dtype in ("float32", "bfloat16"):
+            pairs.append(tuple(flash_attention.launch_spec(
+                sh["B"], sh["H"], sh["S"], sh["S"], D, dtype, sms=sms,
+                compiled=c) for c in (False, True)))
+    # 3 decode launches, 6 flash bodies, at least one per matmul case
+    assert len(pairs) >= 17
+    for spec, built in pairs:
+        assert spec == built, spec["name"]
+
+
+def test_rtc_launch_lint_on_the_card(cuda, monkeypatch):
+    """MXTPU_RTC_LINT=error refuses a 2048-thread block before the
+    launch, naming MXL-K004; a clean launch runs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import MXNetError
+    body = ("long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;"
+            "\nif (i < out0_size) out0[i] = in0[i] + 1.0f;")
+    x = torch.ones(1024, device=cuda)
+    monkeypatch.setenv("MXTPU_RTC_LINT", "error")
+    rtc = mx.rtc.Rtc(body, pallas=True)
+    with pytest.raises(MXNetError, match="MXL-K004"):
+        rtc.push([x], (1, 1, 1), (2048, 1, 1))
+    assert rtc.launches == 0
+    (out,) = rtc.push([x], (4, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    assert float(out.data.sum()) == 2048.0

@@ -281,10 +281,25 @@ def test_peak_table_by_card_and_dtype(monkeypatch):
 
 
 def test_analyzer_counters_raise_naming_the_queue_item():
-    for fn in (lambda: tcounters.collective_bytes(None, None),
-               lambda: tcounters.emit_static_roofline(None, {})):
-        with pytest.raises(MXNetError, match=r"4 \(g\)"):
-            fn()
+    """The two analyzer counters raised naming ROADMAP item 4 (g) until
+    the analyzer was ported; now they return the JAX package's values:
+    ``collective_bytes`` its ``comm_report`` on the same graph and mesh,
+    and both give nothing (not a raise) for a graph they cannot price."""
+    import mxnet_tpu as jmx
+    shapes = {"data": (2, 64), "softmax_label": (2, 64)}
+    got = {}
+    for mx, counters in ((jmx, jcounters), (tmx, tcounters)):
+        from importlib import import_module
+        tf = import_module(mx.__name__ + ".models.transformer")
+        sym = tf.get_symbol(vocab_size=512, num_layers=2, num_heads=4,
+                            dim=64, seq_len=64)
+        got[mx.__name__] = counters.collective_bytes(
+            sym, mx.parallel.LogicalMesh(dp=2, tp=2), shapes=shapes,
+            target="cpu")
+    assert got["mxnet_tpu_torch"] == got["mxnet_tpu"]
+    assert got["mxnet_tpu_torch"]["total_bytes"] > 0
+    assert tcounters.collective_bytes(None, None) is None
+    assert tcounters.emit_static_roofline(None, {}) == {}
 
 
 # ----------------------------------------------------------------------
