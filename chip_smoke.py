@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N] [--iters N] [--out results.json]
 
-(``--phases 4c,13,19`` runs only those phases, with no result line.)
+(``--phases 4c,13,19,20`` runs only those phases, with no result line.)
 
 It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
@@ -352,6 +352,34 @@ line:
    analytic peaks beside ``max_memory_allocated``; (e) ``python -m
    mxnet_tpu_torch.tools.mxlint --all-models --roofline --device-kind
    <the card>`` exits 0 with no error finding.
+
+20. MoE and pipeline parallelism: (a) the MoE LM (phase 7's widths, 8
+   experts, top-1, capacity 1.25; token ids of a Zipf law, s=1.1, so
+   some experts overflow) through ``ShardedTrainer`` on one card: 3
+   float32 steps whose parameters stay within rtol 2e-4, atol 2e-5 of a
+   plain MoE LM written here, with tokens dropped on every step; then
+   bfloat16 steps timed (ms a step, the device's busy share of a traced
+   step, the drops a step), the sweep and the flash forward counted; (b)
+   ``ep=2`` on ``[gpu(0), gpu(0)]`` (and ``ep=4`` over four cards where
+   the machine has them): each member holds ``8/ep`` experts, the
+   parameters after 3 steps within the same bounds of (a)'s; (c) ``dp=2``
+   with the capacity binding within them too, with every step's drops
+   equal to ``dp=1``'s, and both within them of the plain MoE LM in
+   float64; and the op's queues over two replicas against the
+   whole batch on gate products exact in float32: the same drops, every
+   token's output within the bounds; (d) ``expert_parallel_moe`` over
+   two replicas within 1e-5 of the dense op on each shard; (e)
+   ``ShardedPredictor`` on the MoE LM from a checkpoint, ``dp=2 x
+   ep=2``, within 1e-5 of ``predictor.Predictor``; (f)
+   ``GPipeTrainer.from_block_symbol`` on the LM's transformer block, 8
+   layers, ``pp=2`` on one card (``pp=4`` over four cards), M=4: the
+   first step's ``gpipe`` loss within 1e-5 of ``sequential_loss`` and
+   ``1f1b``'s of ``sequential_loss_microbatched``, the parameters after
+   3 steps within rtol 2e-4, atol 2e-5 of a plain full-batch float64 run
+   written here, the step's ms beside ``schedule_occupancy``'s bubble; (g) ``mxlint --schedule`` on
+   ``transformer_moe`` at ``dp=1,ep=4`` and the LM at ``pp=2``, priced at
+   the card's ``PEAKS`` row.  It prints its own kernels line (rows 3 and
+   4, their launches on these paths).
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -8479,11 +8507,790 @@ def phase_analysis(torch, seed, smi, steps=None):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 20: MoE and pipeline parallelism
+# ----------------------------------------------------------------------
+#: the MoE LM: phase 7's widths with 8 experts, top-1, capacity 1.25
+#: (``models.transformer_moe``'s defaults)
+MOE = dict(TRAIN, num_experts=8, moe_top_k=1, moe_capacity_factor=1.25)
+MOE_STEPS = 3
+MOE_TIMED_STEPS = 5
+MOE_TRACED_STEPS = 2
+#: the bounds of ``tests/test_parallel.py``'s expert-parallel test
+MOE_RTOL, MOE_ATOL = 2e-4, 2e-5
+#: (d) one layer's tokens split over two replicas
+EP_MOE_TOKENS = 8192
+#: (e) the predictor's bound
+MOE_PREDICT_TOL = 1e-5
+#: (f) the LM's transformer block through GPipeTrainer
+PIPE_MICROBATCHES = 4
+PIPE_TIMED_STEPS = 3
+PIPE_TRACED_STEPS = 2
+#: the token ids' Zipf exponent: text-like frequencies, whose frequent
+#: tokens load some experts past the capacity (with uniform ids layer
+#: 0's loads sit within 15% of the mean, under the 25% headroom)
+ZIPF_S = 1.1
+
+
+def moe_dir(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_moe", *parts)
+
+
+def moe_symbol(mx):
+    return mx.models.transformer_moe.get_symbol(**MOE)
+
+
+def seeded_moe_params(mx, seed):
+    """Random weights of the MoE LM from ``seed`` with numpy: N(0, 0.02)
+    matrices, embeddings and gates, zero biases, unit LayerNorm."""
+    sym = moe_symbol(mx)
+    S = MOE["seq_len"]
+    shapes, _, _ = sym.infer_shape(data=(TRAIN_BATCH, S),
+                                   softmax_label=(TRAIN_BATCH, S))
+    rng = np.random.RandomState(seed + 20)
+    params = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            params[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_bias", "_beta")):
+            params[name] = np.zeros(shape, np.float32)
+        else:
+            params[name] = (rng.randn(*shape) * 0.02).astype(np.float32)
+    return params
+
+
+def zipf_batch(seed, batch=None):
+    """A next-token batch (``TRAIN_BATCH`` rows by default) whose ids
+    follow a Zipf law (``ZIPF_S``) over the vocabulary."""
+    V, S = MOE["vocab_size"], MOE["seq_len"]
+    batch = batch or TRAIN_BATCH
+    p = 1.0 / np.arange(1, V + 1) ** ZIPF_S
+    rng = np.random.RandomState(seed + 21)
+    ids = rng.choice(V, size=(batch, S + 1), p=p / p.sum())
+    return {"data": ids[:, :-1].astype(np.float32),
+            "softmax_label": ids[:, 1:].astype(np.float32)}
+
+
+def plain_moe_train(torch, params, batch, steps):
+    """``steps`` plain training steps of the MoE LM, written here with no
+    module of the port: masked softmax attention, the dense MoE FFN
+    (softmax gate, top-1 by argmax, each expert's first ``ceil(1.25 * T
+    / K)`` tokens in token order kept), a summed cross entropy and a
+    leafwise SGD with momentum, in the dtype of ``params`` (numpy
+    arrays).  Returns the parameters after the last step and each step's
+    dropped assignments."""
+    F = torch.nn.functional
+    E, H = MOE["dim"], MOE["num_heads"]
+    D, S = E // H, MOE["seq_len"]
+    K = MOE["num_experts"]
+    B = batch["data"].shape[0]
+    T = B * S
+    cap = int(math.ceil(MOE["moe_capacity_factor"] * T / K))
+    rescale = 1.0 / T
+    lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
+    p = {k: torch.as_tensor(v, device=DEVICE).clone().requires_grad_()
+         for k, v in params.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    ids = torch.from_numpy(batch["data"]).to(DEVICE).long()
+    label = torch.from_numpy(batch["softmax_label"]).to(DEVICE).long()
+    keep = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+    drops = []
+    for _ in range(steps):
+        dropped = 0
+        x = p["tok_embed_weight"][ids] + p["pos_embed_weight"][None]
+        for i in range(MOE["num_layers"]):
+            n = "layer%d_" % i
+            h = F.layer_norm(x, (E,), p[n + "ln1_gamma"], p[n + "ln1_beta"])
+            qkv = h @ p[n + "att_qkv_weight"].t() + p[n + "att_qkv_bias"]
+            q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+                       for t in qkv.split(E, dim=-1))
+            s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+            s = torch.where(keep, s, torch.full_like(s, -1e30))
+            a = (torch.softmax(s, dim=-1) @ v).transpose(1, 2) \
+                .reshape(B, S, E)
+            x = x + a @ p[n + "att_out_weight"].t() + p[n + "att_out_bias"]
+            t = F.layer_norm(x, (E,), p[n + "ln2_gamma"],
+                             p[n + "ln2_beta"]).reshape(T, E)
+            probs = torch.softmax(t @ p[n + "moe_gate_weight"].t(), dim=-1)
+            with torch.no_grad():
+                first = F.one_hot(probs.argmax(-1), K)
+                queue = torch.cumsum(first, 0) - first
+                kept = first * (queue < cap)
+                dropped += int(first.sum() - kept.sum())
+            w1, b1 = p[n + "moe_expert_fc1_weight"], \
+                p[n + "moe_expert_fc1_bias"]
+            w2, b2 = p[n + "moe_expert_fc2_weight"], \
+                p[n + "moe_expert_fc2_bias"]
+            ffn = torch.zeros_like(t)
+            for e in range(K):
+                he = torch.relu(t @ w1[e].t() + b1[e])
+                ye = he @ w2[e].t() + b2[e]
+                ffn = ffn + ye * (probs[:, e] * kept[:, e].to(t.dtype))[:,
+                                                                        None]
+            x = x + ffn.reshape(B, S, E)
+        x = F.layer_norm(x, (E,), p["final_ln_gamma"], p["final_ln_beta"])
+        logits = (x @ p["lm_head_weight"].t() + p["lm_head_bias"]) \
+            .reshape(-1, MOE["vocab_size"])
+        loss = F.cross_entropy(logits, label.reshape(-1), reduction="sum")
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            for (k, w), g in zip(p.items(), grads):
+                m[k] = mom * m[k] - lr * (g * rescale)
+                w += m[k]
+        drops.append(dropped)
+    return {k: v.detach() for k, v in p.items()}, drops
+
+
+def _moe_dropped(tr):
+    """The assignments every MoE node of ``tr`` dropped in its last
+    forward (summed over the layers)."""
+    return sum(int(n.op.dropped) for n in tr.symbol._topo()
+               if n.op is not None and n.op.op_name == "MoE")
+
+
+def moe_trainer(torch, mx, params, batch, mesh, steps, compute_dtype=None):
+    """``steps`` ShardedTrainer steps of the MoE LM on ``mesh`` in kernel
+    mode, the launch counts reset just before them.  Returns the trainer,
+    its state, the counts, and each step's dropped assignments."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    S = MOE["seq_len"]
+    B = batch["data"].shape[0]
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (B * S),
+                              **TRAIN_SGD)
+    tr = mx.parallel.ShardedTrainer(moe_symbol(mx), opt, mesh,
+                                    compute_dtype=compute_dtype)
+    p = tr.place_params(params)
+    st = {}
+    for k, v in params.items():
+        z = np.zeros(v.shape, np.float32)
+        st[k] = tr.place_params({k: z})[k] if mesh.size > 1 else \
+            torch.zeros(v.shape, device=mesh.device)
+    b = tr.shard_batch(batch)
+    _sync_all(torch, mesh.devices)
+    _reset_dp_counts()
+    drops = []
+    for _ in range(steps):
+        p, st, aux, outs = tr.step(p, st, {}, b)
+        drops.append(_moe_dropped(tr))
+    _sync_all(torch, mesh.devices)
+    counts = _sweep_counts()
+    one = {k: p[k] for k in tr.param_names}
+    buckets = len(fo.plan_buckets(
+        {k: (v.shards[0] if hasattr(v, "shards") else v)
+         for k, v in one.items()}))
+    return tr, (p, st, b), counts, drops, buckets
+
+
+def _host_params(p):
+    return {k: (v.global_tensor() if hasattr(v, "global_tensor") else v)
+            .detach().float() for k, v in p.items()}
+
+
+def _moe_err(torch, got, want):
+    """The largest ``|got - want| / (MOE_ATOL + MOE_RTOL * |want|)`` over
+    every parameter (at most 1 passes), and its parameter."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        r = float(((g - w).abs() / (MOE_ATOL + MOE_RTOL * w.abs())).max())
+        if r > worst:
+            worst, name = r, k
+    return worst, name
+
+
+def moe_lm_gate(torch, mx, seed, smi):
+    """(a) the MoE LM at full width through ShardedTrainer on one card."""
+    params = seeded_moe_params(mx, seed)
+    batch = zipf_batch(seed)
+    mesh = mx.parallel.make_mesh([mx.gpu(0) if DEVICE == "cuda"
+                                  else mx.cpu()], dp=1)
+    tr, (p, st, b), counts, drops, buckets = moe_trainer(
+        torch, mx, params, batch, mesh, MOE_STEPS)
+    port = _host_params(p)
+    want_fa = MOE["num_layers"] * MOE_STEPS
+    want_fo = buckets * MOE_STEPS
+    if counts["flash_attention"] != want_fa or \
+            counts["fused_opt"] != want_fo:
+        raise AssertionError("moe (a): launches %s, want the flash forward "
+                             "%d times and the sweep %d"
+                             % (counts, want_fa, want_fo))
+    del tr, p, st, b
+    plain, plain_drops = plain_moe_train(torch, params, batch, MOE_STEPS)
+    err, where = _moe_err(torch, port, plain)
+    if err > 1.0 or min(drops) <= 0:
+        raise AssertionError("moe (a): parameters after %d float32 steps "
+                             "%.3g of the bound from the plain MoE LM's "
+                             "(at %s); dropped %s (plain %s), want > 0"
+                             % (MOE_STEPS, err, where, drops, plain_drops))
+    log("moe (a) float32 MoE LM (8 experts, top-1, capacity 1.25), %d "
+        "steps: parameters within rtol %g atol %g of the plain MoE LM "
+        "(worst %.3f of the bound, %s); dropped a step %s (plain %s); "
+        "launches %s; on %s" % (MOE_STEPS, MOE_RTOL, MOE_ATOL, err, where,
+                                drops, plain_drops,
+                                {k: counts[k] for k in ("flash_attention",
+                                                        "fused_opt")}, smi))
+    del plain
+    torch.cuda.empty_cache()
+    # timed bfloat16 steps
+    tr, (p, st, b), bf_counts, bf_drops, _bk = moe_trainer(
+        torch, mx, params, batch, mesh, MOE_STEPS,
+        compute_dtype="bfloat16")
+    state = {"p": p, "st": st}
+
+    def one():
+        state["p"], state["st"], _a, _o = tr.step(state["p"], state["st"],
+                                                  {}, b)
+    times = []
+    for _ in range(MOE_TIMED_STEPS):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    traced = trace_calls(torch, one, MOE_TRACED_STEPS)
+    ms = float(np.median(times)) * 1e3
+    tokens = TRAIN_BATCH * MOE["seq_len"]
+    log("moe (a) bfloat16: %.2f ms a step (median of %d; %s), %.0f "
+        "tokens/s, device busy %.1f%% of a traced step, %d kernels a "
+        "step, dropped a step %s, launches %s; on %s"
+        % (ms, MOE_TIMED_STEPS, ", ".join("%.2f" % (t * 1e3)
+                                         for t in times),
+           tokens / (ms / 1e3), 100 * traced["device_busy_share"],
+           traced["kernels_a_step"], bf_drops,
+           {k: bf_counts[k] for k in ("flash_attention", "fused_opt")},
+           smi))
+    del tr, state, b
+    torch.cuda.empty_cache()
+    return {"float32": {"err_of_bound": err, "worst": where,
+                        "dropped": drops, "plain_dropped": plain_drops,
+                        "launches": counts, "buckets": buckets},
+            "bfloat16": {"step_ms": ms, "step_ms_all":
+                         [t * 1e3 for t in times],
+                         "tokens_per_s": tokens / (ms / 1e3),
+                         "dropped": bf_drops, "launches": bf_counts,
+                         "traced": traced},
+            "params": port, "init": params, "batch": batch}
+
+
+def moe_ep_gate(torch, mx, ref, distinct):
+    """(b) expert parallelism: ep=2 on [gpu(0), gpu(0)] (ep=4 over four
+    cards with ``distinct``) against (a)'s ep=1 parameters."""
+    n = 4 if distinct else 2
+    ctxs = _dp_contexts(mx, n, distinct)
+    mesh = mx.parallel.make_mesh(ctxs, ep=n)
+    tr, (p, st, b), counts, drops, buckets = moe_trainer(
+        torch, mx, ref["init"], ref["batch"], mesh, MOE_STEPS)
+    held = {tuple(s.shape) for s in
+            p["layer0_moe_expert_fc1_weight"].shards}
+    K = MOE["num_experts"]
+    want_held = {(K // n, 4 * MOE["dim"], MOE["dim"])}
+    got = _host_params(p)
+    err, where = _moe_err(torch, got, ref["params"])
+    want_fo = buckets * MOE_STEPS * n
+    if err > 1.0 or held != want_held or counts["fused_opt"] != want_fo \
+            or counts["flash_attention"] != MOE["num_layers"] * MOE_STEPS:
+        raise AssertionError(
+            "moe (b) ep=%d: %.3g of the bound from ep=1 (at %s), each "
+            "member holds %s (want %s), launches %s (want the sweep %d)"
+            % (n, err, where, held, want_held, counts, want_fo))
+    form = "%d cards (peer copies)" % n if distinct \
+        else "one card, %d members (index copies)" % n
+    log("moe (b) ep=%d on %s: parameters after %d steps within rtol %g "
+        "atol %g of ep=1's (worst %.3f of the bound, %s); each member "
+        "holds %d of %d experts; dropped a step %s; launches %s"
+        % (n, form, MOE_STEPS, MOE_RTOL, MOE_ATOL, err, where, K // n, K,
+           drops, {k: counts[k] for k in ("flash_attention", "fused_opt",
+                                          "fused_opt_by_device")}))
+    del tr, p, st, b
+    torch.cuda.empty_cache()
+    return {"ep": n, "form": form, "err_of_bound": err, "dropped": drops,
+            "launches": counts}
+
+
+def moe_dp_gate(torch, mx, ref):
+    """(c) dp=2 on one card with the capacity binding, against dp=1 on
+    the same global batch: the parameters within the bounds and every
+    step's drops equal; and both runs within the bounds of the plain MoE
+    LM in float64 (the witness of how far float32 alone moves them)."""
+    ctxs = _dp_contexts(mx, 2, False)
+    mesh = mx.parallel.make_mesh(ctxs, dp=2)
+    tr, (p, st, b), counts, drops, _bk = moe_trainer(
+        torch, mx, ref["init"], ref["batch"], mesh, MOE_STEPS)
+    got = _host_params(p)
+    del tr, p, st, b
+    torch.cuda.empty_cache()
+    err, where = _moe_err(torch, got, ref["params"])
+    want = ref["float32"]["dropped"]
+    witness, w_drops = plain_moe_train(
+        torch, {k: v.astype(np.float64) for k, v in ref["init"].items()},
+        ref["batch"], MOE_STEPS)
+    err1, where1 = _moe_err(torch, ref["params"], witness)
+    err2, where2 = _moe_err(torch, got, witness)
+    del witness
+    torch.cuda.empty_cache()
+    if err > 1.0 or drops != want or min(drops) <= 0 or err1 > 1.0 \
+            or err2 > 1.0 or w_drops != want:
+        raise AssertionError("moe (c) dp=2: %.3g of the bound from dp=1 "
+                             "(at %s); dropped %s, dp=1 %s, float64 %s; "
+                             "from the float64 run dp=1 %.3g, dp=2 %.3g"
+                             % (err, where, drops, want, w_drops, err1,
+                                err2))
+    log("moe (c) dp=2 with the capacity binding: parameters within rtol %g "
+        "atol %g of dp=1's (worst %.3f of the bound, %s); dropped a step "
+        "%s, equal to dp=1's; launches %s"
+        % (MOE_RTOL, MOE_ATOL, err, where, drops,
+           {k: counts[k] for k in ("flash_attention", "fused_opt")}))
+    log("moe (c) the plain MoE LM in float64, %d steps (dropped a step %s): "
+        "dp=1 %.3f of the bound from it (%s), dp=2 %.3f (%s)"
+        % (MOE_STEPS, w_drops, err1, where1, err2, where2))
+    return {"err_of_bound": err, "dropped": drops, "launches": counts,
+            "dp1_vs_float64_err_of_bound": err1,
+            "dp2_vs_float64_err_of_bound": err2}
+
+
+def moe_prefix_gate(torch, mx, seed):
+    """(c) the op's queues across replicas at the MoE LM's batch:
+    ``MoE.forward_replicas`` over two replicas against ``forward`` on the
+    whole ``TRAIN_BATCH * seq_len`` tokens, on gate products exact in
+    float32 (small integers, the first experts preferred so they
+    overflow), so no rounding can flip an assignment.  The drops and the
+    aux loss equal, and every token's output within the bounds: a token
+    queued at the wrong place is dropped or kept wrongly, and its output
+    is off by an expert's whole output."""
+    from mxnet_tpu_torch.ops.registry import create_operator
+    from mxnet_tpu_torch.parallel import collectives as coll
+    E, K = MOE["dim"], MOE["num_experts"]
+    H = 4 * E
+    T = TRAIN_BATCH * MOE["seq_len"]
+    rng = np.random.RandomState(seed + 24)
+    x = rng.randint(-2, 3, size=(T, E)).astype(np.float32)
+    wg = rng.randint(-2, 3, size=(K, E)).astype(np.float32)
+    x[:, 0] = 1.0
+    wg[:, 0] = np.linspace(48.0, 0.0, K)
+    ws = [(rng.randn(*shape) * 0.02).astype(np.float32)
+          for shape in ((K, H, E), (K, H), (K, E, H), (K, E))]
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device("cpu")
+    ins = [torch.from_numpy(a).to(dev) for a in [x, wg] + ws]
+    op = create_operator("MoE", num_experts=K, hidden_size=H, top_k=1,
+                         capacity_factor=MOE["moe_capacity_factor"])
+    group = coll.ReplicaGroup([dev, dev])
+    with torch.no_grad():
+        whole, _ = op.forward(ins, [], False, None)
+        dropped = int(op.dropped)
+        parts, _aux, _rep = op.forward_replicas(
+            [[ins[0][r * T // 2:(r + 1) * T // 2]] + ins[1:]
+             for r in range(2)], None, False, [None, None], group)
+        dropped2 = int(op.dropped)
+    out = torch.cat([o[0] for o in parts])
+    off = ((out - whole[0]).abs()
+           > MOE_ATOL + MOE_RTOL * whole[0].abs()).any(1)
+    wrong = int(off.sum())
+    aux_err = max(float((o[1] - whole[1]).abs().max()) for o in parts)
+    aux_ok = aux_err <= MOE_ATOL + MOE_RTOL * float(whole[1].abs().max())
+    if dropped2 != dropped or dropped <= 0 or wrong or not aux_ok:
+        raise AssertionError("moe (c) queues: dp=2 dropped %d, whole batch "
+                             "%d; %d tokens off; aux loss %.3g off"
+                             % (dropped2, dropped, wrong, aux_err))
+    log("moe (c) the op's queues over 2 replicas, %d tokens, exact gate "
+        "products: dropped %d of %d, as on the whole batch; every token's "
+        "output within rtol %g atol %g (max diff %.3g), the aux loss %.3g "
+        "off" % (T, dropped2, T, MOE_RTOL, MOE_ATOL,
+                 float((out - whole[0]).abs().max()), aux_err))
+    del whole, parts, out, ins
+    torch.cuda.empty_cache()
+    return {"dropped": dropped2, "tokens": T, "aux_err": aux_err}
+
+
+def moe_explicit_gate(torch, mx, seed, distinct):
+    """(d) ``expert_parallel_moe`` over two replicas against the dense op
+    on each replica's shard."""
+    from mxnet_tpu_torch.ops import moe as moe_mod
+    from mxnet_tpu_torch.ops.registry import create_operator
+    from mxnet_tpu_torch.parallel import collectives as coll
+    E, K = MOE["dim"], MOE["num_experts"]
+    H = 4 * E
+    rng = np.random.RandomState(seed + 22)
+    devs = [torch.device(DEVICE, i if distinct else 0) if DEVICE == "cuda"
+            else torch.device("cpu") for i in range(2)]
+    x = [torch.from_numpy(rng.randn(EP_MOE_TOKENS // 2, E)
+                          .astype(np.float32)).to(d) for d in devs]
+    w = [(rng.randn(*s) * sc).astype(np.float32) for s, sc in
+         (((K, E), 0.5), ((K, H, E), 0.02), ((K, H), 0.02),
+          ((K, E, H), 0.02), ((K, E), 0.02))]
+    kl = K // 2
+
+    def part(a, r):
+        return torch.from_numpy(a[r * kl:(r + 1) * kl]).to(devs[r])
+    group = coll.ReplicaGroup(devs)
+    outs, auxes = moe_mod.expert_parallel_moe(
+        group, x, [torch.from_numpy(w[0]).to(d) for d in devs],
+        [part(w[1], r) for r in range(2)], [part(w[2], r) for r in range(2)],
+        [part(w[3], r) for r in range(2)], [part(w[4], r) for r in range(2)],
+        top_k=1, capacity_factor=MOE["moe_capacity_factor"])
+    dense = create_operator("MoE", num_experts=K, hidden_size=H, top_k=1,
+                            capacity_factor=MOE["moe_capacity_factor"])
+    err, drops = 0.0, []
+    for r in range(2):
+        want, _ = dense.forward([x[r]] + [torch.from_numpy(a).to(devs[r])
+                                          for a in w], [], False, None)
+        drops.append(int(dense.dropped))
+        err = max(err, float((outs[r] - want[0]).abs().max()),
+                  float((auxes[r] - want[1][0]).abs()))
+    if err > 1e-5:
+        raise AssertionError("moe (d): expert_parallel_moe %.3g from the "
+                             "dense op" % err)
+    log("moe (d) expert_parallel_moe over 2 replicas (%s), %d tokens each: "
+        "within %.3g of the dense op on each shard (bound 1e-5); the dense "
+        "op dropped %s" % ("2 cards" if distinct else "one card",
+                           EP_MOE_TOKENS // 2, err, drops))
+    return {"max_abs_err": err, "dropped": drops}
+
+
+def moe_predictor_gate(torch, mx, seed, distinct):
+    """(e) ShardedPredictor on the MoE LM from a checkpoint, dp=2 x ep=2,
+    against ``predictor.Predictor``."""
+    params = seeded_moe_params(mx, seed)
+    batch = zipf_batch(seed)
+    sym = moe_symbol(mx)
+    prefix = moe_dir("moe_lm")
+    os.makedirs(moe_dir(), exist_ok=True)
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    mx.model.save_checkpoint(prefix, 1, sym,
+                             {k: mx.nd.array(v, ctx=ctx)
+                              for k, v in params.items()}, {})
+    S = MOE["seq_len"]
+    pred = mx.predictor.Predictor(
+        sym.tojson(), params, {"data": (TRAIN_BATCH, S),
+                               "softmax_label": (TRAIN_BATCH, S)}, ctx=ctx)
+    pred.forward(data=batch["data"])
+    want = pred.get_output(0)
+    want = torch.as_tensor(want.asnumpy() if hasattr(want, "asnumpy")
+                           else want)
+    mesh = mx.parallel.make_mesh(_dp_contexts(mx, 4, distinct), dp=2, ep=2)
+    with ctx:
+        sp = mx.parallel.ShardedPredictor.from_checkpoint(prefix, 1, mesh)
+    zeros = np.zeros_like(batch["softmax_label"])
+    got = torch.as_tensor(sp.predict({"data": batch["data"],
+                                      "softmax_label": zeros})[0])
+    err = float((got - want).abs().max())
+    if err > MOE_PREDICT_TOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError("moe (e): ShardedPredictor %.3g from the "
+                             "Predictor" % err)
+    log("moe (e) ShardedPredictor dp=2 x ep=2 (%s) from %s-0001.params "
+        "(%d layers): outputs %s within %.3g of predictor.Predictor's "
+        "(bound %g float32)" % ("4 cards" if distinct else "one card",
+                                os.path.basename(prefix),
+                                MOE["num_layers"], tuple(got.shape), err,
+                                MOE_PREDICT_TOL))
+    shutil.rmtree(moe_dir(), ignore_errors=True)
+    del pred, sp
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "shape": list(got.shape)}
+
+
+def _pipe_fns(torch):
+    """The LM's embedding and head around the block: token and position
+    embeddings; the final LayerNorm, the head and the mean cross
+    entropy."""
+    F = torch.nn.functional
+    E = MOE["dim"]
+
+    def embed(ep, batch):
+        return ep["tok"][batch["data"].long()] + ep["pos"][None]
+
+    def head_loss(hp, h, batch):
+        x = F.layer_norm(h, (E,), hp["gamma"], hp["beta"])
+        logits = x.reshape(-1, E) @ hp["w"].t() + hp["b"]
+        return F.cross_entropy(logits, batch["softmax_label"].reshape(-1)
+                               .long())
+    return embed, head_loss
+
+
+def plain_pipe_train(torch, params, batch, steps):
+    """``steps`` plain full-batch training steps of (f)'s model, written
+    here with no module of the port: the token and position embeddings,
+    the LM's block once a layer (masked softmax attention, the ReLU
+    FFN), the final LayerNorm, the head, the mean cross entropy over the
+    whole batch, and a leafwise SGD with momentum, in the dtype of
+    ``params``: numpy arrays in the pipeline's layout (each block
+    parameter stacked over the layers).  Returns the parameters after
+    the last step, keyed ``part/name``."""
+    F = torch.nn.functional
+    E, H = MOE["dim"], MOE["num_heads"]
+    D, S = E // H, MOE["seq_len"]
+    B = batch["data"].shape[0]
+    lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
+    p = {"%s/%s" % (part, k): torch.as_tensor(np.asarray(v),
+                                              device=DEVICE)
+         .clone().requires_grad_()
+         for part, tree in params.items() for k, v in tree.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    ids = torch.from_numpy(batch["data"]).to(DEVICE).long()
+    label = torch.from_numpy(batch["softmax_label"]).to(DEVICE).long()
+    keep = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+    n_layers = p["layers/block_ln1_gamma"].shape[0]
+    for _ in range(steps):
+        x = p["embed/tok"][ids] + p["embed/pos"][None]
+        for i in range(n_layers):
+            def w(name, i=i):
+                return p["layers/block_" + name][i]
+            h = F.layer_norm(x, (E,), w("ln1_gamma"), w("ln1_beta"))
+            qkv = h @ w("att_qkv_weight").t() + w("att_qkv_bias")
+            q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+                       for t in qkv.split(E, dim=-1))
+            sc = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+            sc = torch.where(keep, sc, torch.full_like(sc, -1e30))
+            a = (torch.softmax(sc, dim=-1) @ v).transpose(1, 2) \
+                .reshape(B, S, E)
+            x = x + a @ w("att_out_weight").t() + w("att_out_bias")
+            h = F.layer_norm(x, (E,), w("ln2_gamma"), w("ln2_beta"))
+            h = torch.relu(h @ w("ffn1_weight").t() + w("ffn1_bias"))
+            x = x + h @ w("ffn2_weight").t() + w("ffn2_bias")
+        x = F.layer_norm(x, (E,), p["head/gamma"], p["head/beta"])
+        logits = x.reshape(-1, E) @ p["head/w"].t() + p["head/b"]
+        loss = F.cross_entropy(logits, label.reshape(-1))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            for (k, v), g in zip(p.items(), grads):
+                m[k] = mom * m[k] - lr * g
+                v += m[k]
+    return {k: v.detach() for k, v in p.items()}
+
+
+def _flat_tree(torch, params):
+    return {"%s/%s" % (part, k): torch.as_tensor(np.asarray(v))
+            for part, tree in params.items() for k, v in tree.items()}
+
+
+def pipeline_gate(torch, mx, seed, smi, distinct):
+    """(f) GPipeTrainer.from_block_symbol on the LM's transformer block at
+    full width, gpipe and 1f1b: the first step's loss against the
+    trainer's unpipelined reference, and the parameters after
+    ``MOE_STEPS`` steps against a plain full-batch run of the same model
+    in float64 (:func:`plain_pipe_train`) within rtol 2e-4, atol 2e-5."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.parallel import pipeline as pipe
+    E, S, V = MOE["dim"], MOE["seq_len"], MOE["vocab_size"]
+    k = 4 if distinct else 2
+    block = tf.transformer_block(mx.sym.Variable("data"), "block",
+                                 MOE["num_heads"], E, S)
+    rng = np.random.RandomState(seed + 23)
+    embed_p = {"tok": (rng.randn(V, E) * 0.02).astype(np.float32),
+               "pos": (rng.randn(S, E) * 0.02).astype(np.float32)}
+    head_p = {"gamma": np.ones(E, np.float32),
+              "beta": np.zeros(E, np.float32),
+              "w": (rng.randn(V, E) * 0.02).astype(np.float32),
+              "b": np.zeros(V, np.float32)}
+    batch = zipf_batch(seed)
+    embed, head_loss = _pipe_fns(torch)
+    out = {}
+    plain = None
+    for schedule in ("gpipe", "1f1b"):
+        mesh = mx.parallel.make_mesh(_dp_contexts(mx, k, distinct), pp=k)
+        tr = pipe.GPipeTrainer.from_block_symbol(
+            block, n_layers=MOE["num_layers"], mesh=mesh,
+            optimizer=mx.optimizer.create("sgd", **TRAIN_SGD),
+            embed_fn=embed, head_loss_fn=head_loss, embed_params=embed_p,
+            head_params=head_p, input_shape=(S, E),
+            num_microbatches=PIPE_MICROBATCHES, seed=seed,
+            schedule=schedule)
+        if plain is None:
+            plain = plain_pipe_train(
+                torch, {part: {n: np.asarray(v, np.float64)
+                               for n, v in tree.items()}
+                        for part, tree in tr.params.items()},
+                batch, MOE_STEPS)
+        ref = tr.sequential_loss(batch) if schedule == "gpipe" \
+            else tr.sequential_loss_microbatched(batch)
+        _sync_all(torch, mesh.devices)
+        fa.flash_attention_forward.launches = 0
+        fa.flash_attention_forward.launches_by_device.clear()
+        loss = tr.step(batch)
+        for _ in range(MOE_STEPS - 1):
+            tr.step(batch)
+        _sync_all(torch, mesh.devices)
+        launches = fa.flash_attention_forward.launches
+        by_device = dict(fa.flash_attention_forward.launches_by_device)
+        err, where = _moe_err(torch, _flat_tree(torch, tr.params), plain)
+        if abs(loss - ref) >= 1e-5 or not math.isfinite(loss) \
+                or err > 1.0 or launches != \
+                MOE["num_layers"] * PIPE_MICROBATCHES * MOE_STEPS:
+            raise AssertionError("pipeline (f) %s: loss %r against %r; "
+                                 "parameters %.3g of the bound from the "
+                                 "plain run (at %s); flash launches %d"
+                                 % (schedule, loss, ref, err, where,
+                                    launches))
+        times = []
+        for _ in range(PIPE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            tr.step(batch)
+            _sync_all(torch, mesh.devices)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        occ = tr.schedule_occupancy()
+        traced = trace_calls(torch, lambda: tr.step(batch),
+                             PIPE_TRACED_STEPS) if not distinct else None
+        out[schedule] = {"loss": loss, "reference": ref,
+                         "bit_for_bit": loss == ref,
+                         "err_of_bound": err, "worst": where,
+                         "step_ms": ms, "step_ms_all":
+                         [t * 1e3 for t in times],
+                         "flash_launches": launches,
+                         "flash_by_device": by_device,
+                         "bubble_fraction": occ["bubble_fraction"],
+                         "traced": traced}
+        log("pipeline (f) %s, %d layers over pp=%d (%s), M=%d: loss %.7f, "
+            "%s %.7f (%s); parameters after %d steps %.3f of the bound from "
+            "the plain full-batch run in float64 (rtol %g atol %g, worst "
+            "%s); "
+            "%.2f ms a step (median of %d); schedule_occupancy's "
+            "bubble %.3f (%s, driven by one host thread: the measured step "
+            "is the stages' sum); device busy %s; flash launches %d; on %s"
+            % (schedule, MOE["num_layers"], k,
+               "%d cards" % k if distinct else "one card",
+               PIPE_MICROBATCHES, loss,
+               "within 1e-5 of sequential_loss" if schedule == "gpipe"
+               else "within 1e-5 of sequential_loss_microbatched", ref,
+               "bit for bit" if loss == ref else "%.3g off" % abs(loss - ref),
+               MOE_STEPS, err, MOE_RTOL, MOE_ATOL, where, ms, PIPE_TIMED_STEPS, occ["bubble_fraction"],
+               "the stages on %d cards" % k if distinct
+               else "the stages share one card",
+               "%.1f%% of a traced step" % (100 * traced["device_busy_share"])
+               if traced else "not traced (several cards)", launches, smi))
+        del tr
+        torch.cuda.empty_cache()
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def schedule_gate(kind, smi):
+    """(g) ``mxlint --schedule`` on transformer_moe at dp=1,ep=4 and on
+    the LM at pp=2, priced at this card's PEAKS row."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for label, argv in (
+            ("transformer_moe dp=1,ep=4",
+             ["--model", "transformer_moe", "--mesh", "dp=1,ep=4",
+              "--world-size", "4"]),
+            ("transformer pp=2", ["--model", "transformer", "--mesh",
+                                  "pp=2"])):
+        cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.mxlint"] \
+            + argv + ["--schedule", "--device-kind", kind, "--format",
+                      "json", "--fail-on", "never"]
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError("schedule (g) %s: rc %d: %s"
+                                 % (label, proc.returncode,
+                                    proc.stderr[-800:]))
+        doc = json.loads(proc.stdout)[0]
+        found = [(i["rule_id"], i["severity"], i["node"])
+                 for i in doc["issues"] if i["rule_id"].startswith("MXL-E")]
+        rep = doc.get("schedule")
+        if rep is None:
+            raise AssertionError("schedule (g) %s: no report" % label)
+        sims = {k: round(v["bubble_fraction"], 4)
+                for k, v in (rep.get("schedules") or {}).items()}
+        msgs = [i["message"] for i in doc["issues"]
+                if i["rule_id"] == "MXL-E008"][:1]
+        log("schedule (g) mxlint --schedule %s at %s: E findings %s; "
+            "bubbles %s; %s; on %s" % (label, kind, found, sims,
+                                       msgs[0] if msgs else "no E008",
+                                       smi))
+        out[label] = {"findings": found, "bubbles": sims,
+                      "e008": msgs[0] if msgs else None}
+    if not any(f[0] == "MXL-E008" for f in
+               out["transformer_moe dp=1,ep=4"]["findings"]):
+        raise AssertionError("schedule (g): no MXL-E008 on transformer_moe "
+                             "at ep=4")
+    return out
+
+
+def phase_moe_pipeline(torch, seed, smi):
+    """Phase 20: MoE and pipeline parallelism (the module docstring's
+    (a)-(g)).  The rows-3 and -4 launches of its main paths are in the
+    result's ``launches``."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    distinct = DEVICE == "cuda" and torch.cuda.device_count() >= 4
+    out = {}
+    lm = moe_lm_gate(torch, mx, seed, smi)
+    out["lm"] = {k: lm[k] for k in ("float32", "bfloat16")}
+    out["ep"] = [moe_ep_gate(torch, mx, lm, False)]
+    if distinct:
+        out["ep"].append(moe_ep_gate(torch, mx, lm, True))
+    out["dp"] = moe_dp_gate(torch, mx, lm)
+    del lm
+    out["queues"] = moe_prefix_gate(torch, mx, seed)
+    out["explicit"] = moe_explicit_gate(torch, mx, seed, distinct)
+    out["predictor"] = moe_predictor_gate(torch, mx, seed, distinct)
+    out["pipeline"] = pipeline_gate(torch, mx, seed, smi, False)
+    if distinct:
+        out["pipeline_cards"] = pipeline_gate(torch, mx, seed, smi, True)
+    out["schedule"] = schedule_gate(torch.cuda.get_device_name(0)
+                                    if DEVICE == "cuda"
+                                    else "NVIDIA H100 80GB HBM3", smi)
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    runs = [out["lm"]["float32"]["launches"],
+            out["lm"]["bfloat16"]["launches"], out["dp"]["launches"]] \
+        + [e["launches"] for e in out["ep"]]
+    pipes = [r for key in ("pipeline", "pipeline_cards")
+             for r in out.get(key, {}).values()]
+    out["launches"] = {
+        "fused_opt": sum(c["fused_opt"] for c in runs),
+        "flash_attention": sum(c["flash_attention"] for c in runs)
+        + sum(r["flash_launches"] for r in pipes),
+        "fused_opt_by_body": {}, "fused_opt_by_device": {},
+        "flash_attention_by_device": {},
+        "by_path": {
+            "moe_lm_training": out["lm"]["float32"]["launches"],
+            "moe_lm_training_bfloat16": out["lm"]["bfloat16"]["launches"],
+            "moe_data_parallel": out["dp"]["launches"],
+            "moe_expert_parallel": [e["launches"] for e in out["ep"]],
+            "pipeline_flash_attention": sum(r["flash_launches"]
+                                            for r in pipes)}}
+    tally = out["launches"]
+    for c in runs:
+        for body, n in c["fused_opt_by_body"].items():
+            tally["fused_opt_by_body"][body] = \
+                tally["fused_opt_by_body"].get(body, 0) + n
+    for c in runs + [{"flash_attention_by_device": r["flash_by_device"]}
+                     for r in pipes]:
+        for kernel in ("fused_opt", "flash_attention"):
+            for d, n in c.get(kernel + "_by_device", {}).items():
+                got = tally[kernel + "_by_device"]
+                got[d] = got.get(d, 0) + n
+    out["seconds"] = time.perf_counter() - t_phase
+    log("moe/pipeline: phase 20 %.2f s; launches %s"
+        % (out["seconds"], json.dumps(out["launches"])))
+    log("moe/pipeline kernels (rows 3 and 4 on these paths): "
+        + json.dumps({"kernels": [
+        {"name": "fused_opt", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/fused_opt.cu",
+         "replaces": "mxnet_tpu/kernels/fused_opt.py:112",
+         "launches": out["launches"]["fused_opt"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "mxnet_tpu/parallel/ring_attention.py:128",
+         "launches": out["launches"]["flash_attention"]}]}))
+    if not all(out["launches"][k] > 0 for k in ("fused_opt",
+                                                 "flash_attention")):
+        raise AssertionError("phase 20: launches %s" % out["launches"])
+    return out
+
+
 #: the phases ``--phases`` runs, which read no other phase's result
 ALONE = {
     "4c": lambda torch, timer, seed, smi: phase_fleet(torch, seed, smi),
     "13": phase_lstm,
     "19": lambda torch, timer, seed, smi: phase_analysis(torch, seed, smi),
+    "20": lambda torch, timer, seed, smi: phase_moe_pipeline(torch, seed,
+                                                             smi),
 }
 
 
@@ -8609,6 +9416,7 @@ def main(argv=None):
         obs = run("18", phase_observability, torch, args.seed, smi)
         ana = run("19", phase_analysis, torch, args.seed, smi,
                   {"lm": train, "resnet50": resnet})
+        moe = run("20", phase_moe_pipeline, torch, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -8694,12 +9502,19 @@ def main(argv=None):
     launches["flash_attention"] += obs_flash
     for k in ("flash_decode", "quantized_matmul"):
         launches[k] += obs["serve"]["launches"][k]
+    # MoE and pipeline parallelism (phase 20): the MoE LM's steps (one
+    # card, ep, dp) and the pipeline's flash forwards
+    moe_sweeps = moe["launches"]["fused_opt"]
+    moe_flash = moe["launches"]["flash_attention"]
+    launches["fused_opt"] += moe_sweeps
+    launches["flash_attention"] += moe_flash
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
-    by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main
+    by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main \
+        - moe_sweeps
     by_device["flash_attention"][first_card] = \
-        launches["flash_attention"] - dp_flash
-    for c in dp_runs + dp_lm:
+        launches["flash_attention"] - dp_flash - moe_flash
+    for c in dp_runs + dp_lm + [moe["launches"]]:
         for kernel, key in (("fused_opt", "fused_opt_by_device"),
                             ("flash_attention",
                              "flash_attention_by_device")):
@@ -8735,7 +9550,7 @@ def main(argv=None):
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
             + dp_runs + dp_lm + res_counts + obs_counts \
-            + list(resnet_other.values()):
+            + [moe["launches"]] + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
     # flash attention at the training shape (causal, float32); the sweep
@@ -8803,6 +9618,7 @@ def main(argv=None):
             k["launches_by_path"]["transformer_generated_body"] = \
                 res["generated"]["trainer_launches"]["fused_opt"]
             k["launches_by_path"]["transformer_telemetry"] = obs_sweeps
+            k["launches_by_path"]["moe_lm_training"] = moe_sweeps
             gen = next(r for r in res["generated"]["rows"]
                        if r["n"] == SWEEP_N)
             k["generated"] = dict(
@@ -8824,6 +9640,9 @@ def main(argv=None):
             for d in ("float32", "bfloat16"):
                 k["launches_by_dtype"][d] += obs[d]["launches"][
                     "flash_attention"]
+            moe_bf16 = moe["lm"]["bfloat16"]["launches"]["flash_attention"]
+            k["launches_by_dtype"]["bfloat16"] += moe_bf16
+            k["launches_by_dtype"]["float32"] += moe_flash - moe_bf16
             k["launches_by_device"] = by_device["flash_attention"]
             k["launches_by_path"] = {
                 "transformer_training": transformer_flash,
@@ -8834,7 +9653,8 @@ def main(argv=None):
                 "transformer_generated_body":
                     res["generated"]["trainer_launches"][
                         "flash_attention"],
-                "transformer_telemetry": obs_flash}
+                "transformer_telemetry": obs_flash,
+                "moe_lm_and_pipeline": moe_flash}
             k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
@@ -8897,6 +9717,7 @@ def main(argv=None):
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
                        "capi": capi, "resilience": res,
                        "observability": obs, "analysis": ana,
+                       "moe_pipeline": moe,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

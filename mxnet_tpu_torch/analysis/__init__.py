@@ -14,9 +14,10 @@ The port of ``mxnet_tpu/analysis/``: its graph half, everything
 - ``python -m mxnet_tpu_torch.tools.mxlint`` is the standalone CLI for
   saved graphs and the bundled model zoo.
 
-Rule catalog (``--list-rules``).  The families S, T, G, B, L, P, M, C
-and D001-D003 keep the JAX package's ids, severities, node names and
-report dicts, so a saved graph lints the same in both packages.  K and R
+Rule catalog (``--list-rules``).  The families S, T, G, B, L, P, M, C,
+D001-D003 and E keep the JAX package's ids, severities, node names and
+report dicts, so a saved graph lints the same in both packages (E prices
+its stages and transfers at the card's rates, as R does).  K and R
 are about the hardware: the JAX package checks Mosaic's tile rules and
 prices a TPU; the port checks Hopper launches and prices the H100.
 
@@ -62,6 +63,14 @@ MXL-R002  warning   wgmma tile padding wastes a large op fraction
 MXL-R003  warning   float32 product on the FMA pipes (TF32 off)
 MXL-R004  warning   long bf16 accumulation chain (reduction hazard)
 MXL-R005  info      whole-graph static roofline / MFU-ceiling summary
+MXL-E001  error     pipeline stage compute imbalance
+MXL-E002  warning   pipeline bubble fraction above bound
+MXL-E003  error     cross-stage back-edge: deadlock under 1F1B
+MXL-E004  error     per-stage activation-stash memory overflow
+MXL-E005  warning   stage-boundary transfer cannot hide under compute
+MXL-E006  error     expert count not divisible by the ep axis
+MXL-E007  warning   capacity factor risks dropping tokens
+MXL-E008  info      expert all-to-all priced per rank
 ========  ========  ==================================================
 
 The MXL-P/M/C families only activate with SPMD context: pass ``mesh``
@@ -83,12 +92,14 @@ toy graphs stay clean.
 The MXL-D001..D003 family simulates the per-rank collective trace (gated
 on ``world_size > 1`` — or ``MXTPU_LINT_DISTRIBUTED=1`` +
 ``MXTPU_LINT_WORLD_SIZE``) over the ``__rank_cond__``/``__collective__``
-node attrs.
+node attrs.  MXL-E (schedule.py) prices the pipeline stages of a
+``ctx_group`` or ``pp`` partition and the MoE expert all-to-all on the
+``"gpu"`` target (:func:`schedule_report`, :func:`stage_partition`).
 
 Not ported yet, and raising ``MXNetError`` with the ROADMAP item they
 wait on: the source-level families over Python files (D004-D006 rank
-divergence, Q concurrency, X retrace stability: queue 1 item 4 (g2))
-and the pipeline/MoE schedule (E: items 3 (d) and (e)).  The markers
+divergence, Q concurrency, X retrace stability: queue 1 item 4 (g2)).
+The markers
 ``collective_seam``, ``thread_entry`` and ``traced_scope`` are the
 port's ``base.py`` markers.
 
@@ -115,6 +126,7 @@ from . import collectives as _collectives  # noqa: F401
 from . import tiling as _tiling      # noqa: F401
 from . import roofline as _roofline  # noqa: F401
 from . import distributed as _distributed  # noqa: F401
+from . import schedule as _schedule  # noqa: F401
 from .propagation import comm_report
 from .memory import peak_hbm_report, hbm_capacity_bytes
 from .tiling import (register_kernel_spec, unregister_kernel_spec,
@@ -124,6 +136,7 @@ from .roofline import (roofline_report, static_ceiling_summary,
                        static_mfu_ceiling, device_peaks,
                        resolve_compute_dtype, mxu_padding_waste)
 from .distributed import collective_trace
+from .schedule import schedule_report, stage_partition
 
 __all__ = ["GraphIssue", "AnalysisContext", "Rule", "RULE_REGISTRY",
            "register_rule", "run_rules", "format_issues", "SEVERITIES",
@@ -139,9 +152,8 @@ __all__ = ["GraphIssue", "AnalysisContext", "Rule", "RULE_REGISTRY",
            "analyze_concurrency_paths", "thread_entry",
            "analyze_retrace_paths", "traced_scope"]
 
-#: the ROADMAP items the unported halves wait on
+#: the ROADMAP item the unported half waits on
 _SOURCE_ITEM = "ROADMAP.md queue 1 item 4 (g2)"
-_SCHEDULE_ITEM = "ROADMAP.md queue 1 items 3 (d) and (e)"
 
 
 def _not_ported(what, item):
@@ -164,16 +176,6 @@ def analyze_retrace_paths(paths, select=None, skip=None):
     """The retrace-stability lint over Python source (MXL-X): not
     ported yet."""
     _not_ported("analyze_retrace_paths (MXL-X)", _SOURCE_ITEM)
-
-
-def schedule_report(ctx):
-    """The pipeline/MoE schedule simulator (MXL-E): not ported yet."""
-    _not_ported("schedule_report (MXL-E)", _SCHEDULE_ITEM)
-
-
-def stage_partition(ctx):
-    """The pipeline stage partition (MXL-E): not ported yet."""
-    _not_ported("stage_partition (MXL-E)", _SCHEDULE_ITEM)
 
 
 class GraphLintWarning(UserWarning):

@@ -421,8 +421,10 @@ def build_program(symbol):
         replicas after the backward) do.  So a node that sums over the
         batch axis (``forward_replicas`` of BatchNorm, the loss heads'
         normalizers, ``sum``/``max``/``min`` over axis 0, ``norm``,
-        ``softmax_cross_entropy``) reduces across the replicas in its
-        forward and in its backward, and a loss head whose backward is
+        ``softmax_cross_entropy``, the capacity and aux loss of ``MoE``)
+        reduces across the replicas in its forward and in its backward
+        (its third result says which outputs are replicated: one flag,
+        or one an output), and a loss head whose backward is
         its own (``injects_grad``) reads a replicated input on replica 0
         alone.  Returns ``(outputs, aux_out, replicated)``: the heads of
         each replica, each replica's aux updates, and whether each head
@@ -477,7 +479,8 @@ def build_program(symbol):
                     for a, u in zip(aux_names, updates[r]):
                         aux_out[r][a] = u
             for i in range(node.num_outputs):
-                rep[(id(node), i)] = out_rep
+                rep[(id(node), i)] = out_rep[i] \
+                    if isinstance(out_rep, (list, tuple)) else out_rep
             for key in frees[pos]:
                 for r in range(n):
                     values[r].pop(key, None)

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 from .. import ndarray as nd
 from .. import symbol as sym
-from ..base import MXNetError
 from ..context import resolve
 from ..model import _host, params_from_numpy as _params_from_numpy
 
@@ -25,23 +24,31 @@ __all__ = ["transformer_block", "get_symbol", "get_prefill_symbol",
 def transformer_block(x, name, num_heads, dim, seq_len, ffn_mult=4,
                       dropout=0.0, causal=True, num_experts=0,
                       moe_top_k=1, moe_capacity_factor=0.0):
-    """One decoder layer: pre-LayerNorm causal self-attention and a dense
-    ReLU FFN, each with a residual.  ``num_experts > 0`` (the routed MoE
-    FFN) is not ported yet and raises."""
-    if num_experts:
-        raise MXNetError("transformer_block: the MoE FFN (num_experts=%d) "
-                         "is not ported yet; it comes with the multi-GPU "
-                         "training slice" % num_experts)
+    """One decoder layer: pre-LayerNorm causal self-attention and a ReLU
+    FFN, each with a residual.  ``num_experts > 0`` swaps the dense FFN
+    for a routed ``MoE`` FFN (``ops/moe.py``: top-k gating, optional
+    capacity factor), the Switch-Transformer layer; its aux load-balance
+    output is dropped, as in the JAX package."""
     ln1 = sym.LayerNorm(data=x, name="%s_ln1" % name)
     att = sym.MultiHeadAttention(data=ln1, num_heads=num_heads,
                                  causal=causal, dropout=dropout,
                                  name="%s_att" % name)
     x = x + att
     ln2 = sym.LayerNorm(data=x, name="%s_ln2" % name)
-    h = sym.FullyConnected(data=sym.Reshape(data=ln2, shape=(-1, dim)),
-                           num_hidden=ffn_mult * dim, name="%s_ffn1" % name)
-    h = sym.Activation(data=h, act_type="relu")
-    h = sym.FullyConnected(data=h, num_hidden=dim, name="%s_ffn2" % name)
+    if num_experts:
+        moe = sym.MoE(data=sym.Reshape(data=ln2, shape=(-1, dim)),
+                      num_experts=num_experts,
+                      hidden_size=ffn_mult * dim, top_k=moe_top_k,
+                      capacity_factor=moe_capacity_factor,
+                      name="%s_moe" % name)
+        h = moe[0]
+    else:
+        h = sym.FullyConnected(data=sym.Reshape(data=ln2, shape=(-1, dim)),
+                               num_hidden=ffn_mult * dim,
+                               name="%s_ffn1" % name)
+        h = sym.Activation(data=h, act_type="relu")
+        h = sym.FullyConnected(data=h, num_hidden=dim,
+                               name="%s_ffn2" % name)
     h = sym.Reshape(data=h, shape=(-1, seq_len, dim),
                     name="%s_ffn_out" % name)
     return x + h
@@ -55,8 +62,10 @@ def get_symbol(vocab_size=32000, num_layers=4, num_heads=8, dim=256,
     node).  ``mirror_blocks=True`` tags every op inside each decoder
     layer with ``force_mirroring`` and a per-layer ``mirror_stage``, so
     the executor recomputes whole layers in the backward and keeps only
-    the layer-boundary activations.  ``num_experts > 0`` (MoE) is not
-    ported yet and raises."""
+    the layer-boundary activations.  ``num_experts > 0`` builds the MoE
+    variant: every layer's FFN becomes a routed ``layer%d_moe`` expert
+    block whose ``*_expert_*`` weights split over an ``ep`` mesh axis
+    (``parallel.param_pspec`` matches the names)."""
     from ..attribute import mirror_scope
     data = sym.Variable("data")
     pos = sym.Variable("pos_embed_weight", shape=(seq_len, dim))

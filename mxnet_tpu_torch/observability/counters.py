@@ -152,21 +152,27 @@ def reset():
 #: NVIDIA's data-sheet peaks, dense (no sparsity), at the card's full
 #: power limit, keyed by ``torch.cuda.get_device_name()``: TFLOP/s by
 #: compute dtype ("float32" is the FMA pipes outside the tensor cores;
-#: "int8" is TOP/s), HBM bytes/s, and the memory the card is sold with
+#: "int8" is TOP/s), HBM bytes/s, the memory the card is sold with
 #: (``memory_bytes``, 80 GiB; a card's own ``total_memory`` reads a little
-#: less).  A card set below its limit runs slower under load; its name
+#: less), and the card-to-card interconnect (``link``, and
+#: ``link_bytes_per_s``: the data sheet's figure, both directions
+#: together: NVLink 900 GB/s on the SXM card; PCIe Gen5 128 GB/s on the
+#: PCIe card).  The static schedule lint (``analysis/schedule.py``,
+#: MXL-E) prices stage boundaries and the MoE all-to-all at it.  A card set below its limit runs slower under load; its name
 #: and power limit belong beside every figure priced here.
 PEAKS = {
     # SXM5, 700 W
     "NVIDIA H100 80GB HBM3": {
         "tflops": {"float32": 67.0, "bfloat16": 989.0, "float16": 989.0,
                    "int8": 1979.0, "fp8": 1979.0},
-        "bytes_per_s": 3.35e12, "memory_bytes": 80 * (1 << 30)},
+        "bytes_per_s": 3.35e12, "memory_bytes": 80 * (1 << 30),
+        "link": "NVLink", "link_bytes_per_s": 900e9},
     # PCIe, 350 W
     "NVIDIA H100 PCIe": {
         "tflops": {"float32": 51.0, "bfloat16": 756.0, "float16": 756.0,
                    "int8": 1513.0, "fp8": 1513.0},
-        "bytes_per_s": 2.0e12, "memory_bytes": 80 * (1 << 30)},
+        "bytes_per_s": 2.0e12, "memory_bytes": 80 * (1 << 30),
+        "link": "PCIe", "link_bytes_per_s": 128e9},
 }
 
 #: the launch limits of each card of :data:`PEAKS` (compute capability

@@ -4,11 +4,13 @@ The port of ``mxnet_tpu/parallel``: meshes of one or several devices
 (:func:`make_mesh`, :func:`auto_mesh`; data parallelism, over the GPUs
 of a process and the processes of a ``torch.distributed`` group), the
 sharding policy and arrays placed on a mesh (``sharding``), the
-collectives between replicas (``collectives``), :class:`ShardedTrainer`
-(dp, ZeRO-1), the flash-attention function of training
-(``ring_attention``), and the bucket planners of the gradient reduction
-and the fused optimizer sweep (``overlap``).  Tensor, sequence and
-pipeline parallelism, FSDP, MoE and ``ShardedPredictor`` come with later
+collectives between mesh members (``collectives``), :class:`ShardedTrainer`
+(dp, ZeRO-1, and expert parallelism over an ``ep`` axis),
+:class:`ShardedPredictor`, the microbatched pipeline over a ``pp`` axis
+(``pipeline``: :class:`GPipeTrainer`, GPipe and 1F1B), the
+flash-attention function of training (``ring_attention``), and the
+bucket planners of the gradient reduction and the fused optimizer sweep
+(``overlap``).  Tensor and sequence parallelism and FSDP come with later
 multi-GPU slices (ROADMAP.md queue 1 item 3).
 """
 from .mesh import (Mesh, make_mesh, auto_mesh, local_device_count,  # noqa: F401
@@ -19,11 +21,15 @@ from .overlap import (partition_buckets, bucket_bytes,  # noqa: F401
                       interleave_grad_buckets)
 from .ring_attention import (attention_reference, flash_attention,  # noqa: F401
                              sharded_self_attention, sequence_parallel)
-from .trainer import ShardedTrainer                    # noqa: F401
+from .trainer import ShardedTrainer, ShardedPredictor  # noqa: F401
+from .pipeline import (GPipeTrainer, pipeline_apply,  # noqa: F401
+                       build_1f1b_tables, schedule_occupancy)
 
 __all__ = ["Mesh", "make_mesh", "auto_mesh", "local_device_count",
            "LogicalMesh", "remesh", "ShardingRules", "ShardedArray",
            "param_pspec", "batch_pspec", "named_pspecs", "parse_sharding",
            "partition_buckets", "bucket_bytes", "interleave_grad_buckets",
            "attention_reference", "flash_attention", "sharded_self_attention",
-           "sequence_parallel", "ShardedTrainer"]
+           "sequence_parallel", "ShardedTrainer", "ShardedPredictor",
+           "GPipeTrainer", "pipeline_apply", "build_1f1b_tables",
+           "schedule_occupancy"]

@@ -29,6 +29,17 @@ Every collective runs under an ``observability.spans`` span of its name
 and route.  :func:`all_reduce_autograd` is the
 sum as an autograd function (its backward is the same sum of the
 replicas' gradients), for the ops that reduce over the batch axis.
+
+Expert and pipeline parallelism add :func:`all_to_all` (the MoE
+dispatch and combine; :func:`all_to_all_autograd` under autograd) and
+:func:`send` (a stage boundary's point-to-point copy).  Replicas that
+share a device exchange by plain index copies there; replicas on
+distinct cards of one process by peer copies (``Tensor.to`` of another
+card: PyTorch orders the copy after the source card's current stream
+and makes the destination's current stream wait for it, with events;
+``torch.cuda.nccl`` has no all-to-all).  Across the processes of a
+``torch.distributed`` group both raise (ROADMAP.md queue 1 item 3 (k):
+gloo has no all-to-all).
 """
 from __future__ import annotations
 
@@ -40,7 +51,13 @@ from ..base import MXNetError
 from ..observability import spans as _spans
 
 __all__ = ["ReplicaGroup", "all_reduce", "reduce_scatter", "all_gather",
-           "broadcast", "all_reduce_autograd"]
+           "broadcast", "all_reduce_autograd", "all_to_all",
+           "all_to_all_autograd", "send"]
+
+_ACROSS_PROCESSES = ("across the processes of a torch.distributed group "
+                     "is not ported yet (ROADMAP.md queue 1 item 3 (k)); "
+                     "run expert and pipeline parallelism on the cards "
+                     "of one process")
 
 #: one NCCL call at a time: each launches on every device's stream, so
 #: calls from the autograd engine's device threads keep one order
@@ -278,3 +295,64 @@ def all_reduce_autograd(group, tensors):
     if group.trivial:
         return list(tensors)
     return list(_AllReduceSum.apply(group, *tensors))
+
+
+def all_to_all(group, tensors, split_dim, concat_dim):
+    """Each replica's tensor cut into ``world`` equal parts along
+    ``split_dim``; replica ``j`` gets part ``j`` of every replica's,
+    concatenated along ``concat_dim`` in replica order (``lax.all_to_all``
+    with ``tiled=True``)."""
+    _check(group, tensors, "all_to_all")
+    if group.num_processes > 1:
+        raise MXNetError("all_to_all " + _ACROSS_PROCESSES)
+    n = group.n
+    size = tensors[0].shape[split_dim]
+    if size % n:
+        raise MXNetError("all_to_all: dimension %d (%d) does not divide "
+                         "over %d replicas" % (split_dim, size, n))
+    with _spans.span("all_to_all", route=group.route()):
+        if n == 1:
+            return [tensors[0]]
+        parts = [torch.chunk(t, n, dim=split_dim) for t in tensors]
+        return [torch.cat([parts[i][j].to(d, non_blocking=True)
+                           for i in range(n)], dim=concat_dim)
+                for j, d in enumerate(group.devices)]
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` whose backward is the all-to-all back (the
+    split and concatenated dimensions swapped)."""
+
+    @staticmethod
+    def forward(ctx, group, split_dim, concat_dim, *xs):
+        ctx.args = (group, split_dim, concat_dim)
+        return tuple(all_to_all(group, [x.detach() for x in xs],
+                                split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, split_dim, concat_dim = ctx.args
+        return (None, None, None) + tuple(all_to_all(
+            group, [g.contiguous() for g in gs], concat_dim, split_dim))
+
+
+def all_to_all_autograd(group, tensors, split_dim, concat_dim):
+    """:func:`all_to_all` under autograd."""
+    return list(_AllToAll.apply(group, split_dim, concat_dim, *tensors))
+
+
+def send(tensor, device):
+    """``tensor`` on ``device``: itself when it is there already, else a
+    peer copy between two cards of this process (differentiable: the
+    gradient comes back the same way).  A copy between a card and the
+    host raises: a stage boundary or an expert exchange never goes
+    through the host."""
+    device = torch.device(device)
+    if tensor.device == device:
+        return tensor
+    if tensor.device.type != device.type:
+        raise MXNetError("send: %s -> %s would go through the host; put "
+                         "every member of the mesh on the same kind of "
+                         "device" % (tensor.device, device))
+    with _spans.span("send", route="peer"):
+        return tensor.to(device, non_blocking=True)

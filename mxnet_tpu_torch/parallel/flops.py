@@ -15,7 +15,10 @@ product counts, a multiply-add as 2:
   E`` each; the causal mask is not discounted, as the model-FLOPs
   convention and the plain masked reference count them);
 - ``RNN``: every layer's and direction's gate products, ``2 * T * B *
-  gates * H * (inputs + H)``.
+  gates * H * (inputs + H)``;
+- ``MoE``: the gate and both products of every expert over every token
+  (``2 * T * K * E + 4 * T * K * E * H``: the dense formulation the op
+  computes, not the routed ``top_k`` share).
 
 A training step counts 3 times the forward: the backward computes the
 data and the weight gradient of every product, each as many FLOPs as
@@ -75,7 +78,14 @@ def _rnn(p, ins, outs):
     return total
 
 
-_FORWARD = {"FullyConnected": _fc, "Convolution": _conv,
+def _moe(p, ins, outs):
+    E = ins[0][-1]
+    T = _prod(ins[0]) // E
+    K = p.num_experts
+    return 2 * T * K * E + 4 * T * K * E * p.hidden_size
+
+
+_FORWARD = {"MoE": _moe, "FullyConnected": _fc, "Convolution": _conv,
             "Deconvolution": _deconv, "dot": _dot, "batch_dot": _batch_dot,
             "MultiHeadAttention": _mha, "RNN": _rnn}
 

@@ -2,20 +2,23 @@
 
 The port of ``mxnet_tpu/parallel/mesh.py``.  The JAX package names a set
 of TPU devices as a ``jax.sharding.Mesh``; the port names a list of
-contexts (one replica each) as a :class:`Mesh` with the same named axes
-(:data:`AXIS_ORDER`).  Data parallelism is the axis this slice runs:
-``dp`` may span several GPUs of one process (the collectives of
-``parallel/collectives.py`` between them) and the processes of a
-``torch.distributed`` group (one context each, started by a ``dist_*``
-kvstore from ``tools/launch.py``'s env).  Every other axis (``tp``,
-``sp``, ``pp``, ``ep``) with a size above 1, and fsdp, come with later
-multi-GPU slices (ROADMAP queue 1 item 3) and raise.
+contexts (one mesh member each) as a :class:`Mesh` with the same named
+axes (:data:`AXIS_ORDER`), the members in row-major order of the axes
+(:meth:`Mesh.coords`).  ``dp`` may span several GPUs of one process (the
+collectives of ``parallel/collectives.py`` between them) and the
+processes of a ``torch.distributed`` group (one context each, started by
+a ``dist_*`` kvstore from ``tools/launch.py``'s env).  ``ep`` (expert
+parallelism: ``ShardedTrainer`` over an MoE graph) and ``pp`` (pipeline
+parallelism: ``parallel.pipeline.GPipeTrainer``) span the cards of one
+process; across processes they raise (ROADMAP.md queue 1 item 3 (k)).
+``tp`` and ``sp`` with a size above 1, and fsdp, come with later
+multi-GPU slices (ROADMAP queue 1 item 3 (b), (c), (a)) and raise.
 
 Unlike a JAX mesh, a mesh here may name one context twice, or two
 contexts of one device (``[gpu(0), gpu(0)]``, ``[cpu(0), cpu(1)]``):
-those replicas share the device and their sums are plain adds there.
-That changes no result; it is how a data-parallel step runs on one card,
-and how the CPU tests run one.
+those members share the device, and their collectives are plain adds
+and copies there.  That changes no result; it is how a data-, expert- or
+pipeline-parallel step runs on one card, and how the CPU tests run one.
 """
 from __future__ import annotations
 
@@ -32,9 +35,10 @@ __all__ = ["Mesh", "make_mesh", "auto_mesh", "local_device_count",
 
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 
-_LATER = {"tp": "tensor parallelism", "sp": "sequence parallelism (ring "
-          "attention over NCCL)", "pp": "pipeline parallelism",
-          "ep": "expert parallelism (MoE)"}
+#: the axes not ported yet: what each is, and its ROADMAP.md item
+_LATER = {"tp": ("tensor parallelism", "3 (b)"),
+          "sp": ("sequence parallelism (ring attention over NCCL)",
+                 "3 (c)")}
 
 
 def _as_context(d):
@@ -76,6 +80,30 @@ class Mesh:
         """The first replica's device."""
         return self.devices[0]
 
+    def coords(self, i):
+        """Member ``i``'s index along each axis: ``{axis: index}`` (the
+        members are the axes' row-major order)."""
+        out = {}
+        for a in reversed(self.axis_names):
+            size = self.shape[a]
+            out[a] = i % size
+            i //= size
+        return out
+
+    def members(self, **fixed):
+        """The indices of the local members whose coordinates equal
+        ``fixed`` (e.g. ``members(dp=0)``: the first dp replica's ep
+        group), in member order."""
+        return [i for i in range(len(self.devices))
+                if all(self.coords(i).get(a, 0) == v
+                       for a, v in fixed.items())]
+
+    def group_of(self, members):
+        """A :class:`~.collectives.ReplicaGroup` over the devices of
+        ``members`` (local member indices)."""
+        from .collectives import ReplicaGroup
+        return ReplicaGroup([self.devices[i] for i in members])
+
     def replica_group(self):
         """The :class:`~.collectives.ReplicaGroup` of this mesh's
         replicas (made once)."""
@@ -90,14 +118,25 @@ class Mesh:
             self.contexts)
 
 
-def _check_axes(names, sizes):
+def _check_axes(names, sizes, world):
     for a, s in zip(names, sizes):
-        if a != "dp" and s > 1:
+        if s <= 1 or a == "dp":
+            continue
+        if a in _LATER:
+            what, item = _LATER[a]
             raise MXNetError(
                 "make_mesh: axis %s=%d: %s is not ported yet; it comes "
-                "with a later multi-GPU slice (ROADMAP.md queue 1 item 3); "
-                "this slice runs data parallelism (dp) only"
-                % (a, s, _LATER.get(a, "a mesh axis other than dp")))
+                "with a later multi-GPU slice (ROADMAP.md queue 1 item %s)"
+                % (a, s, what, item))
+        if a not in ("ep", "pp"):
+            raise MXNetError("make_mesh: unknown mesh axis %r (the axes "
+                             "are %s)" % (a, ", ".join(AXIS_ORDER)))
+        if world > 1:
+            raise MXNetError(
+                "make_mesh: axis %s=%d across the %d processes of a "
+                "torch.distributed group is not ported yet (ROADMAP.md "
+                "queue 1 item 3 (k)); run ep and pp on the cards of one "
+                "process" % (a, s, world))
 
 
 def _world():
@@ -153,7 +192,7 @@ def make_mesh(devices=None, **axis_sizes):
     if known != n:
         raise ValueError("mesh axes %s multiply to %d but %d devices "
                          "present" % (dict(zip(names, sizes)), known, n))
-    _check_axes(names, sizes)
+    _check_axes(names, sizes, world)
     return Mesh(contexts, names, sizes, num_processes=world)
 
 

@@ -11,9 +11,10 @@ with a ``NamedSharding``: one tensor for each replica of a
 replicated) and the spec.  It answers what the JAX package's tests ask of
 a ``jax.Array``: ``sharding.spec``, ``sharding.is_fully_replicated``,
 ``addressable_shards[i].data`` and the global ``shape``;
-``numpy.asarray`` assembles the global value.  Of the mesh axes only
-``dp`` places anything in this slice: a dimension sharded over ``dp`` is
-split evenly, in replica order.
+``numpy.asarray`` assembles the global value.  A dimension sharded over
+a mesh axis (``dp`` for a batch, ``ep`` for an expert stack, ``pp`` for
+a pipeline's layer stack) is split evenly along it: member ``i`` holds
+part ``mesh.coords(i)[axis]``.
 """
 from __future__ import annotations
 
@@ -68,21 +69,22 @@ class _Shard:
         self.data = data
 
 
-def _split_dim(spec):
-    """The one dimension sharded over dp, or None."""
+def _split_dim(spec, mesh):
+    """``(dim, axis)``: the one dimension sharded over a mesh axis of
+    size above 1, or ``(None, None)``."""
     for dim, e in enumerate(spec):
-        if e == "dp":
-            return dim
-    return None
+        if e is not None and mesh.shape.get(e, 1) > 1:
+            return dim, e
+    return None, None
 
 
 class ShardedArray:
-    """One tensor per local replica of ``mesh`` and its spec.
+    """One tensor per local member of ``mesh`` and its spec.
 
     ``shards[r]`` lives on ``mesh.devices[r]``; where ``spec`` shards a
-    dimension over dp it holds this replica's rows of that dimension
-    (replica r of process p is part ``p * local + r``), else the whole
-    array."""
+    dimension over an axis it holds member r's part of that dimension
+    (its index along the axis; over dp, replica r of process p is part
+    ``p * local + r``), else the whole array."""
 
     def __init__(self, shards, mesh, spec, shape):
         self.shards = list(shards)
@@ -104,10 +106,16 @@ class ShardedArray:
         the local shards concatenated (one process's part only, in a
         process group of several)."""
         device = device or self.shards[0].device
-        dim = _split_dim(self.sharding.spec)
-        if dim is None or self.sharding.mesh.shape.get("dp", 1) == 1:
+        mesh = self.sharding.mesh
+        dim, axis = _split_dim(self.sharding.spec, mesh)
+        if dim is None:
             return self.shards[0].to(device)
-        return torch.cat([s.to(device) for s in self.shards], dim=dim)
+        if len(mesh.axis_names) == 1:
+            parts = self.shards
+        else:
+            others = {a: 0 for a in mesh.axis_names if a != axis}
+            parts = [self.shards[i] for i in mesh.members(**others)]
+        return torch.cat([s.to(device) for s in parts], dim=dim)
 
     def asnumpy(self):
         return self.global_tensor().detach().cpu().numpy()
@@ -136,10 +144,9 @@ def place(value, mesh, spec, part_of_process=False):
         arr = _np.ascontiguousarray(arr)
         value = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
-    dim = _split_dim(spec)
-    local = len(mesh.devices)
+    dim, axis = _split_dim(spec, mesh)
     shape = list(value.shape)
-    if dim is None or mesh.shape.get("dp", 1) == 1:
+    if dim is None:
         shards = [value.to(d) for d in mesh.devices]
         if len(set(s.data_ptr() for s in shards)) < len(shards):
             shards = [shards[0]] + [s.clone() for s in shards[1:]]
@@ -150,11 +157,14 @@ def place(value, mesh, spec, part_of_process=False):
             rows = value.shape[dim] // mesh.num_processes
             value = value.narrow(dim, dist.get_rank() * rows, rows)
         shape[dim] = value.shape[dim] * mesh.num_processes
-    if value.shape[dim] % local:
+    parts_n = mesh.shape[axis] // mesh.num_processes
+    if value.shape[dim] % parts_n:
         raise ValueError("place: dimension %d of %s does not divide over "
-                         "%d replicas" % (dim, tuple(value.shape), local))
-    parts = torch.chunk(value, local, dim=dim)
-    shards = [p.to(d).contiguous() for p, d in zip(parts, mesh.devices)]
+                         "%d %s members" % (dim, tuple(value.shape),
+                                             parts_n, axis))
+    parts = torch.chunk(value, parts_n, dim=dim)
+    shards = [parts[mesh.coords(i)[axis]].to(d).contiguous()
+              for i, d in enumerate(mesh.devices)]
     return ShardedArray(shards, mesh, spec, shape)
 
 

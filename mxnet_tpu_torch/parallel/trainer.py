@@ -41,6 +41,24 @@ Batches come from :meth:`ShardedTrainer.shard_batch`, or from
 device as uint8 and is widened there to the parameters' dtype (float32;
 ``compute_dtype`` when one is set).
 
+On a mesh with an ``ep`` axis (expert parallelism, over an MoE graph)
+each member holds only its ``K/ep`` slice of every expert stack (any
+parameter whose name contains ``expert``: ``sharding.param_pspec``) and
+that slice's optimizer state; the gate and the other parameters stay
+replicated on every member.  The batch is split over ``dp`` alone, so
+the ``ep`` members of one dp replica see the same tokens: the first
+member of each replica walks the graph (the walkers' lockstep walk, as
+in dp), and each ``MoE`` node hands every member of the replica's ep
+group the replica's tokens; the member computes its experts' share of
+the output on its own device, and the shares are summed by
+``collectives.all_reduce_autograd`` (``ops.moe.ExpertShards``).  The
+step is the dp step: the replicated parameters' gradients are summed
+over the walkers in its buckets, each bucket's sums copied to the
+walker's ep members; an expert slice's gradient is summed over the
+members that hold it (one a dp replica).  Every member then updates its own leaves (its own sweep,
+the CUDA one in kernel mode).  ``zero1=True`` with ``ep`` above 1 is not
+ported (ROADMAP.md queue 1 item 3 (e2)).
+
 ``remat=True`` recomputes the whole forward in the backward (one
 device): the walk runs under one ``torch.utils.checkpoint`` (the JAX
 trainer wraps its trace in one ``jax.checkpoint``).
@@ -80,7 +98,11 @@ sentinel's counters.
 
 ``fsdp``, ``seq_axis`` (ring attention), ``rules`` that shard a
 parameter, ``remat`` and the sentinel on several devices belong to later
-slices and raise; none is ignored.  With no ``ctx`` and no mesh, the
+slices and raise; none is ignored.
+
+:class:`ShardedPredictor` is the serving-side counterpart: the forward
+of a symbol on a dp or dp x ep mesh, from host parameters or a
+checkpoint, with the label slots bound as zeros.  With no ``ctx`` and no mesh, the
 trainer runs on the current context (``gpu(0)`` outside a ``with``
 scope).
 """
@@ -93,7 +115,7 @@ import torch
 from ..base import MXNetError
 from ..context import resolve
 
-__all__ = ["ShardedTrainer", "ShapeDtypeStruct"]
+__all__ = ["ShardedTrainer", "ShardedPredictor", "ShapeDtypeStruct"]
 
 _MULTI_GPU = "a later multi-GPU slice (ROADMAP.md queue 1 item 3)"
 
@@ -187,14 +209,14 @@ def _remat(trace):
 
 
 class ShardedTrainer:
-    """Train a Symbol's loss graph on one device or a dp mesh.
+    """Train a Symbol's loss graph on one device or a dp x ep mesh.
 
     Parameters
     ----------
     symbol : Symbol with loss head(s) (e.g. SoftmaxOutput).
     optimizer : ``mxnet_tpu_torch.optimizer.Optimizer``.
     mesh : a mesh from ``parallel.make_mesh`` (data parallelism over its
-        ``dp`` axis), or None.
+        ``dp`` axis, expert parallelism over ``ep``), or None.
     data_names / label_names : input argument names.
     compute_dtype : dtype of the forward and backward (params, opt state
         and aux stay in their own dtype; gradients arrive in it).
@@ -235,10 +257,22 @@ class ShardedTrainer:
         #: step, so a launcher can arm it without touching user code)
         self.step_timeout_s = step_timeout_s
         self.dp = mesh.shape.get("dp", 1) if mesh is not None else 1
-        if self.dp > 1 and remat:
+        self.ep = mesh.shape.get("ep", 1) if mesh is not None else 1
+        if mesh is not None and mesh.shape.get("pp", 1) > 1:
+            raise MXNetError("ShardedTrainer: a pp axis (%d stages) is "
+                             "pipeline parallelism: train with "
+                             "parallel.pipeline.GPipeTrainer"
+                             % mesh.shape["pp"])
+        if self.ep > 1 and zero1:
+            raise MXNetError("ShardedTrainer: zero1=True with ep=%d is not "
+                             "ported yet (ROADMAP.md queue 1 item 3 (e2))"
+                             % self.ep)
+        #: one device: plain tensors, no mesh collectives
+        self._single = self.dp == 1 and self.ep == 1
+        if not self._single and remat:
             raise _not_ported("remat=True on a mesh of several devices",
                               _MULTI_GPU)
-        if self.dp > 1 and self.sentinel:
+        if not self._single and self.sentinel:
             raise _not_ported("the in-step sentinel on a mesh of several "
                               "devices", _MULTI_GPU)
         if ctx is not None:
@@ -264,6 +298,21 @@ class ShardedTrainer:
             from .mesh import Mesh
             self.mesh = Mesh([self.device], ("dp",), [1])
         self.group = self.mesh.replica_group() if self.dp > 1 else None
+        # the members that walk the graph: every member of a dp mesh, the
+        # first of each dp replica's ep group on an ep mesh
+        self._walkers = self.mesh.members(ep=0)
+        # each walker's ep group: the members that take its gradients
+        self._ep_members = [[w] for w in self._walkers]
+        self._ep_groups = self._expert_groups = None
+        if self.ep > 1:
+            self._ep_members = [self.mesh.members(dp=self.mesh.coords(w)
+                                                  .get("dp", 0))
+                                for w in self._walkers]
+            self._ep_groups = [self.mesh.group_of(m)
+                               for m in self._ep_members]
+            self._expert_groups = [self.mesh.group_of(self.mesh.members(
+                ep=e)) for e in range(self.ep)]
+            self.group = self.mesh.group_of(self._walkers)
 
         from ..kernels import fused_opt as _fused
         self._fused_mod = _fused
@@ -300,6 +349,11 @@ class ShardedTrainer:
                 if src.is_variable:
                     exempt.add(src.name)
         self._cast_exempt = frozenset(exempt)
+        self._moe_slots = frozenset(
+            src.name for node in symbol._topo()
+            if node.op is not None
+            and getattr(node.op, "op_name", "") == "MoE"
+            for src, _ in node.inputs[2:6] if src.is_variable)
 
     # ------------------------------------------------------------------
     # casts
@@ -337,11 +391,19 @@ class ShardedTrainer:
     # shardings
     # ------------------------------------------------------------------
     def param_sharding(self, name, shape):
-        """Where a parameter lives: replicated (a ``rules`` entry or the
-        tp policy that would shard it raises: tensor parallelism is a
+        """Where a parameter lives: an MoE expert stack split over ``ep``
+        (axis 0), every other parameter replicated (a ``rules`` entry or
+        the tp policy that would shard it raises: tensor parallelism is a
         later slice)."""
         from .sharding import NamedSharding, param_pspec
         spec = param_pspec(name, shape, self.mesh, self.rules)
+        if tuple(spec[:1]) == ("ep",) and not any(spec[1:]):
+            if name not in self._moe_slots:
+                raise MXNetError(
+                    "ShardedTrainer: %s is split over ep (its name holds "
+                    "'expert') but is not an MoE node's expert weight; "
+                    "only MoE splits its experts over ep" % name)
+            return NamedSharding(self.mesh, spec)
         if any(e is not None for e in spec):
             raise _not_ported("sharding parameter %s as %s (tensor "
                               "parallelism, rules that shard a parameter)"
@@ -389,7 +451,7 @@ class ShardedTrainer:
             host = NDArray(torch.zeros(shape_map[name], dtype=dtype))
             initializer(name, host)
             host_params[name] = host.data
-        if self.dp == 1:
+        if self._single:
             params = {n: v.to(self.device) for n, v in host_params.items()}
         else:
             params = self.place_params(host_params)
@@ -398,28 +460,29 @@ class ShardedTrainer:
             s = self.optimizer.create_state_arrays(shape_map[name], dtype,
                                                    self.device)
             if s is not None:
-                opt_state[name] = s if self.dp == 1 else _state_map(
+                opt_state[name] = s if self._single else _state_map(
                     lambda a, _n=name: self._place(
                         a, self.opt_state_sharding(_n, a.shape)), s)
         aux = {}
         for name in self._aux_names:
             fill = torch.ones if name.endswith("moving_var") else torch.zeros
             aux[name] = fill(aux_map[name], dtype=dtype, device=self.device)
-        if self.dp > 1:
+        if not self._single:
             aux = self.place_params(aux)
         return params, opt_state, aux
 
     def place_params(self, values):
         """``{name: array}`` (numpy, NDArray or tensor: the JAX package's
         parameters carried across as numpy, say) placed on the mesh as
-        the trainer keeps them: replicated on every replica; in a process
-        group, rank 0's values broadcast to every process.  On a
-        one-device mesh, tensors on the device."""
+        the trainer keeps them: replicated on every replica (an expert
+        stack split over ep); in a process group, rank 0's values
+        broadcast to every process.  On a one-device mesh, tensors on the
+        device."""
         from .sharding import place, P
         from .collectives import broadcast
         out = {}
         for name, v in values.items():
-            if self.dp == 1:
+            if self._single:
                 out[name] = place(v, self.mesh, P()).shards[0]
                 continue
             spec = self.param_sharding(name, tuple(v.shape)).spec \
@@ -452,7 +515,7 @@ class ShardedTrainer:
         batch (the reference's ``num_parts``/``part_index`` shard)."""
         from .. import ndarray as nd
         from ..observability import spans as _spans
-        if self.dp > 1:
+        if not self._single:
             from .sharding import place
             with _spans.span("h2d", step=self.num_update):
                 return {name: place(arr, self.mesh,
@@ -481,7 +544,7 @@ class ShardedTrainer:
         from . import overlap
         if not overlap.prefetch_enabled(prefetch):
             return batches
-        if self.dp > 1:
+        if not self._single:
             return overlap.DevicePrefetcher(
                 batches, place_fn=self.shard_batch, depth=depth,
                 name="trainer-feed")
@@ -563,7 +626,7 @@ class ShardedTrainer:
                         batch[name] = _resilience.poison_nan(batch[name])
         if self.sentinel and self._sentinel_state is None:
             self._sentinel_state = self._init_sentinel_state()
-        one = self._step_dp if self.dp > 1 else self._step_one
+        one = self._step_one if self._single else self._step_dp
         dev = self.device
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
             else None
@@ -712,7 +775,7 @@ class ShardedTrainer:
 
     def eval(self, params, aux, batch, rng=None):
         """Forward in ``compute_dtype`` with ``is_train=False``."""
-        if self.dp > 1:
+        if not self._single:
             with torch.no_grad():
                 outs, _aux, reps = self._walk(params, aux, batch, rng,
                                               False)
@@ -726,58 +789,90 @@ class ShardedTrainer:
     # ------------------------------------------------------------------
     # the data-parallel step
     # ------------------------------------------------------------------
+    def _walker_params(self, members, d, split):
+        """Walker ``d``'s parameters from ``members`` (a dict a member):
+        its own, with each expert stack of ``split`` (those split over
+        ep) an :class:`~mxnet_tpu_torch.ops.moe.ExpertShards` of its ep
+        group's slices."""
+        w = self._walkers[d]
+        if not split:
+            return members[w]
+        from ..ops.moe import ExpertShards
+        out = dict(members[w])
+        for k in split:
+            out[k] = ExpertShards([members[i][k]
+                                   for i in self._ep_members[d]],
+                                  self._ep_groups[d])
+        return out
+
     def _walk(self, params, aux, batch, rng, is_train, leaves=None):
-        """The lockstep walk of every replica: ``(outputs, aux_out,
+        """The lockstep walk of the walkers: ``(outputs, aux_out,
         replicated)`` (``Program.trace_replicas``)."""
         from .sharding import ShardedArray
         n = len(self.mesh.devices)
 
         def shard(v, r):
             return v.shards[r] if isinstance(v, ShardedArray) else v
+        if leaves is None:
+            leaves = [{k: shard(params[k], r) for k in self.param_names}
+                      for r in range(n)]
+        split = _ep_split(params)
         args, auxs = [], []
-        for r in range(n):
-            p = leaves[r] if leaves is not None else \
-                {k: shard(params[k], r) for k in self.param_names}
+        for d, r in enumerate(self._walkers):
+            p = self._walker_params(leaves, d, split)
             a = self._to_compute(p)
             a.update(self._batch_to_compute(
-                {k: shard(v, r) for k, v in batch.items()}, p))
+                {k: shard(v, r) for k, v in batch.items()}, leaves[r]))
             args.append(a)
             auxs.append(self._to_compute({k: shard(v, r)
                                           for k, v in aux.items()}))
         # a graph that draws random numbers draws each replica's from its
         # device's generator (a caller's generator serves replicas on its
         # own device)
-        rngs = [None] * n
+        devices = [self.mesh.devices[r] for r in self._walkers]
+        rngs = [None] * len(devices)
         if self._needs_rng:
             from .. import random as _random
             rngs = [rng if rng is not None and rng.device == d
-                    else _random.generator(d) for d in self.mesh.devices]
+                    else _random.generator(d) for d in devices]
+        group = self.group
+        if group is None:
+            from .collectives import ReplicaGroup
+            group = ReplicaGroup(devices)
         return self._trace_replicas(
-            args, auxs, rngs, is_train, self.group,
+            args, auxs, rngs, is_train, group,
             sharded=self.data_names + self.label_names)
 
     def _outputs(self, outs, reps):
         """Heads as :class:`~.sharding.ShardedArray`s: split on axis 0,
-        or replicated."""
+        or replicated.  On an ep mesh every member of a dp replica holds
+        its walker's output."""
         from .sharding import ShardedArray, P
+        # members are in (dp, ep) order: member i walks with walker i // ep
+        owner = [i // self.ep for i in range(len(self.mesh.devices))]
         got = []
         for i, rep in enumerate(reps):
-            shards = [o[i].detach() for o in outs]
+            shards = [outs[owner[r]][i].detach() for r in range(len(owner))]
             nd_ = shards[0].dim()
             if rep:
                 got.append(ShardedArray(shards, self.mesh,
                                         P(*([None] * nd_)), shards[0].shape))
             else:
                 shape = list(shards[0].shape)
-                shape[0] *= self.group.world
+                shape[0] *= len(outs) * self.mesh.num_processes
                 got.append(ShardedArray(shards, self.mesh,
                                         P("dp", *([None] * (nd_ - 1))),
                                         shape))
         return got
 
     def _step_dp(self, params, opt_state, aux, batch, rng):
+        """The step on a dp (x ep) mesh: the walkers' gradients of the
+        replicated leaves reduced bucket by bucket as the backward makes
+        them and copied to each walker's ep members; each expert slice's
+        gradient summed over the members that hold it."""
         from .. import executor as _executor
         from .overlap import GradBuckets, interleave_grad_buckets
+        from .collectives import send
         from .sharding import ShardedArray
         opt = self.optimizer
         lr = opt.lr_scheduler(self.num_update) \
@@ -786,11 +881,13 @@ class ShardedTrainer:
         n = len(self.mesh.devices)
         leaves = [{k: params[k].shards[r].detach().requires_grad_(True)
                    for k in self.param_names} for r in range(n)]
+        split = _ep_split(params)
         plan = interleave_grad_buckets(
-            {k: params[k].shards[0] for k in self.param_names})
+            {k: params[k].shards[0] for k in self.param_names
+             if k not in split})
         layout = self._zero1_layout(params) if self.zero1 else None
-        reducer = GradBuckets(leaves, plan, functools.partial(
-            self._reduce_bucket, layout))
+        reducer = GradBuckets([leaves[w] for w in self._walkers], plan,
+                              functools.partial(self._reduce_bucket, layout))
         with torch.enable_grad():
             outs, aux_out, reps = self._walk(params, aux, batch, rng, True,
                                              leaves=leaves)
@@ -808,34 +905,62 @@ class ShardedTrainer:
             for r in range(n):
                 reduced[r].update(part[r])
         with torch.no_grad():
+            if split:
+                self._reduce_experts(leaves, split, reduced)
             if self.zero1:
                 self._update_zero1(params, opt_state, reduced, layout, lr,
                                    wd, t)
             else:
                 self._update_replicas(params, opt_state, reduced, lr, wd, t)
+            # members are in (dp, ep) order: member r walks with walker
+            # r // ep
             for k in aux:
                 aux[k] = ShardedArray(
-                    [a[k].detach().to(aux[k].dtype) for a in aux_out],
+                    [send(aux_out[r // self.ep][k].detach().to(
+                        aux[k].dtype), self.mesh.devices[r])
+                     for r in range(n)],
                     self.mesh, aux[k].sharding.spec, aux[k].shape)
         return params, opt_state, aux, self._outputs(outs, reps)
 
+    def _reduce_experts(self, leaves, split, grads):
+        """The gradients of the expert slices (``split``) summed over the
+        members that hold the same slice, into ``grads`` (a dict a
+        member)."""
+        from .collectives import all_reduce
+        sizes = [leaves[0][k].numel() for k in split]
+        for e, group in enumerate(self._expert_groups):
+            members = self.mesh.members(ep=e)
+            flats = [torch.cat([
+                (leaves[r][k].grad if leaves[r][k].grad is not None
+                 else torch.zeros_like(leaves[r][k])).reshape(-1)
+                for k in split]) for r in members]
+            if len(flats) > 1:
+                flats = all_reduce(group, flats)
+            for r, flat in zip(members, flats):
+                for k, part in zip(split, torch.split(flat, sizes)):
+                    grads[r][k] = part.view(leaves[r][k].shape)
+
     def _reduce_bucket(self, layout, names, grads):
-        """One bucket's gradients summed over the replicas: ``[{name:
-        gradient}]`` a replica; under ZeRO-1 a divisible leaf's entry is
-        this replica's slice of rows (:meth:`_zero1_layout`)."""
-        from .collectives import all_reduce, reduce_scatter
-        n = len(grads)
-        out = [{} for _ in range(n)]
+        """One bucket's gradients summed over the walkers (``grads``: a
+        dict a walker): ``[{name: gradient}]`` a member of the mesh, each
+        ep member holding its walker's sums; under ZeRO-1 a divisible
+        leaf's entry is this replica's slice of rows
+        (:meth:`_zero1_layout`)."""
+        from .collectives import all_reduce, reduce_scatter, send
+        out = [{} for _ in self.mesh.devices]
         whole = [k for k in names if layout is None or k not in layout]
         if whole:
             sums = all_reduce(self.group, [
                 torch.cat([g[k].reshape(-1) for k in whole]) for g in grads])
             sizes = [grads[0][k].numel() for k in whole]
-            for r in range(n):
-                for k, part in zip(whole, torch.split(sums[r], sizes)):
-                    out[r][k] = part.view(grads[r][k].shape)
+            for d, members in enumerate(self._ep_members):
+                for r in members:
+                    flat = send(sums[d], self.mesh.devices[r])
+                    for k, part in zip(whole, torch.split(flat, sizes)):
+                        out[r][k] = part.view(grads[d][k].shape)
         split = [k for k in names if layout is not None and k in layout]
         if split:
+            n = len(grads)
             world = self.group.world
             rows = {k: grads[0][k].shape[0] // world for k in split}
             sizes = [rows[k] * grads[0][k][0].numel() for k in split]
@@ -1007,7 +1132,7 @@ class ShardedTrainer:
             return torch.as_tensor(_np_array(a))
 
         def put(a, sharding):
-            if self.dp == 1:
+            if self._single:
                 return tensor(a).to(self.device)
             return self._place(tensor(a), sharding)
         params = {n: put(a, self.param_sharding(n, a.shape))
@@ -1021,7 +1146,7 @@ class ShardedTrainer:
             opt_state[n] = tuple(placed) if isinstance(v, dict) \
                 else placed[0]
         aux = {n: tensor(a).to(self.device) for n, a in tree["aux"].items()}
-        if self.dp > 1:
+        if not self._single:
             aux = self.place_params(aux)
         return params, opt_state, aux
 
@@ -1124,7 +1249,119 @@ class ShardedTrainer:
             path=path, fallback_reason=fallback,
             n_payloads=None if meta is None else meta.get("n_payloads"),
             duration_ms=round((_t.monotonic() - t0) * 1000.0, 3),
-            mesh={"dp": self.dp})
+            mesh=dict(self.mesh.shape))
+        return got
+
+
+class ShardedPredictor(object):
+    """Mesh-sharded inference: the serving-side counterpart of
+    :class:`ShardedTrainer` (the port of the JAX package's
+    ``ShardedPredictor``).  The batch is split over dp, the parameters
+    placed as the trainer places them (an MoE expert stack split over
+    ep), and the forward runs with ``is_train=False``; the loss layers'
+    label slots are bound as zeros.
+
+    Parameters
+    ----------
+    symbol : inference symbol (loss heads fine: they run is_train=False).
+    mesh : a mesh from ``parallel.make_mesh`` with dp and ep axes (tp
+        raises: ROADMAP.md queue 1 item 3 (b)).
+    arg_params / aux_params : host dicts (e.g. from
+        ``model.load_checkpoint``: numpy arrays or NDArrays).
+    compute_dtype : dtype of the forward; floating outputs come back
+        float32.
+    """
+
+    def __init__(self, symbol, mesh, arg_params, aux_params=None,
+                 rules=None, seq_axis=None, data_names=("data",),
+                 label_names=("softmax_label",), compute_dtype=None):
+        from ..model import _host
+        from ..optimizer import SGD
+        if mesh.shape.get("tp", 1) > 1:
+            raise MXNetError("ShardedPredictor: tp=%d: tensor parallelism "
+                             "is not ported yet (ROADMAP.md queue 1 item "
+                             "3 (b))" % mesh.shape["tp"])
+        if seq_axis is not None:
+            raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
+        self.symbol = symbol
+        self.mesh = mesh
+        self.data_names = tuple(data_names)
+        self.label_names = tuple(label_names)
+        self._arg_names = symbol.list_arguments()
+        missing = [n for n in self._arg_names
+                   if n not in self.data_names and n not in arg_params
+                   and n not in self.label_names]
+        if missing:
+            raise MXNetError("ShardedPredictor: missing parameters %s"
+                             % missing)
+        # the label slots (and any argument not given) are inputs here,
+        # fed as zeros at predict time
+        self._slots = [n for n in self._arg_names
+                       if n not in self.data_names and n not in arg_params]
+        self._tr = ShardedTrainer(symbol, SGD(), mesh,
+                                  data_names=self.data_names,
+                                  label_names=tuple(self._slots),
+                                  rules=rules, compute_dtype=compute_dtype)
+        self.compute_dtype = self._tr.compute_dtype
+        self.params = self._tr.place_params(
+            {n: _host(v) for n, v in arg_params.items()
+             if n in self._tr.param_names})
+        self.aux = self._tr.place_params(
+            {n: _host(v) for n, v in (aux_params or {}).items()})
+        self._slot_shapes = {}
+
+    @classmethod
+    def from_checkpoint(cls, prefix, epoch, mesh, **kwargs):
+        """Build from a classic ``prefix-symbol.json`` + ``.params``
+        checkpoint."""
+        from ..model import load_checkpoint
+        sym, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return cls(sym, mesh, arg_params, aux_params, **kwargs)
+
+    def batch_sharding(self, shape):
+        return self._tr.batch_sharding(shape)
+
+    def _zeros(self, batch):
+        """Zeros for the label slots the batch does not give, at the
+        shapes the batch implies."""
+        import numpy as np
+        key = tuple(sorted((k, tuple(np.shape(v))) for k, v in
+                           batch.items()))
+        shapes = self._slot_shapes.get(key)
+        if shapes is None:
+            arg_shapes, _, _ = self.symbol.infer_shape_partial(
+                **{k: tuple(np.shape(v)) for k, v in batch.items()})
+            known = dict(zip(self._arg_names, arg_shapes or []))
+            shapes = {}
+            for n in self._slots:
+                if n in batch:
+                    continue
+                if known.get(n) is None:
+                    raise MXNetError("cannot infer shape for %r" % n)
+                shapes[n] = tuple(known[n])
+            self._slot_shapes[key] = shapes
+        return {n: np.zeros(s, np.float32) for n, s in shapes.items()}
+
+    def predict(self, batch):
+        """``batch``: ``{name: host array or NDArray}``.  Returns the
+        outputs as host numpy arrays (the whole batch)."""
+        from ..model import _host
+        host = {k: _host(v) for k, v in batch.items()}
+        host.update(self._zeros(host))
+        placed = self._tr.shard_batch(host)
+        outs = self._tr.eval(self.params, self.aux, placed)
+        got = []
+        for o in outs:
+            if isinstance(o, torch.Tensor):
+                o = o.detach()
+                if self.compute_dtype is not None and o.is_floating_point():
+                    o = o.float()
+                got.append(o.cpu().numpy())
+            else:
+                arr = o.global_tensor()
+                if self.compute_dtype is not None and arr.is_floating_point():
+                    arr = arr.float()
+                got.append(arr.detach().cpu().numpy())
         return got
 
 
@@ -1142,6 +1379,15 @@ class ShapeDtypeStruct(object):
     def __repr__(self):
         return "ShapeDtypeStruct(shape=%s, dtype=%s)" % (self.shape,
                                                          self.dtype)
+
+
+def _ep_split(params):
+    """The names of the parameters split over ep (their spec's first
+    entry)."""
+    from .sharding import ShardedArray
+    return sorted(k for k, v in params.items()
+                  if isinstance(v, ShardedArray)
+                  and tuple(v.sharding.spec[:1]) == ("ep",))
 
 
 def _np_array(a):

@@ -26,11 +26,20 @@ MXL-R prices the graph at the card's peaks (``--device-kind``, a name of
   python -m mxnet_tpu_torch.tools.mxlint --model resnet \\
       --shapes "data=(64,3,224,224)" --roofline
 
+``--schedule`` prints the static pipeline/MoE schedule report (MXL-E):
+each stage priced at the card's peaks, the GPipe and 1F1B bubble
+fractions over ``--microbatches``, the activation stash, and the expert
+routing; stage boundaries and the all-to-all at the card's interconnect
+rate:
+
+  python -m mxnet_tpu_torch.tools.mxlint --model transformer_moe \
+      --mesh dp=1,ep=4 --schedule
+
 ``--distributed`` (with ``--world-size``) diffs the per-rank collective
 trace of each graph (MXL-D001..D003).  The source-level families over
 ``.py`` targets (``--distributed`` D004-D006, ``--concurrency``,
-``--retrace``) wait on ROADMAP.md queue 1 item 4 (g2), and
-``--schedule`` on items 3 (d) and (e): each exits 2 naming its item.
+``--retrace``) wait on ROADMAP.md queue 1 item 4 (g2): each exits 2
+naming it.
 ``--diff [REV]`` lints the symbol JSONs and zoo models a change
 touches.
 
@@ -51,8 +60,7 @@ import sys
 # the zoo sweep: get_symbol kwargs keep the big nets at lint-friendly sizes
 # (analysis is metadata-only — no walk, no compute — so the cost is
 # a python graph walk either way; small configs keep CI latency flat).
-# The JAX package's sweep less transformer_moe (MoE: ROADMAP.md queue 1
-# item 3 (e)).
+# The JAX package's sweep.
 MODEL_SWEEP = [
     ("mlp", {}, {"data": (32, 784)}),
     ("lenet", {}, {"data": (32, 1, 28, 28)}),
@@ -66,11 +74,14 @@ MODEL_SWEEP = [
      {"vocab_size": 512, "num_layers": 2, "num_heads": 4, "dim": 64,
       "seq_len": 64},
      {"data": (2, 64), "softmax_label": (2, 64)}),
+    ("transformer_moe",
+     {"vocab_size": 512, "num_layers": 2, "num_heads": 4, "dim": 64,
+      "seq_len": 64, "num_experts": 4},
+     {"data": (2, 64), "softmax_label": (2, 64)}),
 ]
 
-#: the ROADMAP items the unported modes wait on
+#: the ROADMAP item the unported modes wait on
 SOURCE_ITEM = "ROADMAP.md queue 1 item 4 (g2)"
-SCHEDULE_ITEM = "ROADMAP.md queue 1 items 3 (d) and (e)"
 
 
 def parse_shapes(specs):
@@ -193,6 +204,50 @@ def build_model(name, kwargs):
     if not hasattr(mod, "get_symbol"):
         raise ValueError("model %r has no get_symbol function" % name)
     return mod.get_symbol(**kwargs)
+
+
+def schedule_report_lines(ctx):
+    """The static pipeline/MoE schedule section (text mode)."""
+    from ..analysis import schedule_report
+    from ..analysis.propagation import fmt_bytes
+    rep = schedule_report(ctx)
+    if rep is None:
+        return ["-- schedule: no pipeline partition or MoE nodes"]
+    lines = []
+    if rep["partition"] is not None:
+        lines.append("-- schedule (%s, %d stages x %d microbatches):"
+                     % (rep["partition"]["mode"], rep["partition"]["k"],
+                        rep["microbatches"]))
+        for s in rep["stages"]:
+            lines.append("   stage %d (%-8s) %3d ops  %8.2f GF  "
+                         "fwd %.3f ms  bwd %.3f ms"
+                         % (s["index"], s["group"], s["ops"],
+                            s["flops"] / 1e9, s["t_fwd_s"] * 1e3,
+                            s["t_bwd_s"] * 1e3))
+        for e in rep["boundaries"]:
+            lines.append("   boundary %d->%d  %9s  %.3f ms"
+                         % (e["src"], e["dst"], fmt_bytes(e["bytes"]),
+                            e["time_s"] * 1e3))
+        for name, sim in sorted(rep["schedules"].items()):
+            lines.append("   %-6s bubble %.3f  (%d slots, %.3f ms/step)"
+                         % (name, sim["bubble_fraction"], sim["slots"],
+                            sim["total_time"] * 1e3))
+        for h in rep["stage_hbm"]:
+            lines.append("   stage %d HBM: params+grads %s + stash "
+                         "%dx%s = %s (1f1b)"
+                         % (h["index"], fmt_bytes(h["param_bytes"]),
+                            h["stash_1f1b"],
+                            fmt_bytes(h["act_per_microbatch"]),
+                            fmt_bytes(h["peak_1f1b"])))
+    for s in rep["moe"]:
+        lines.append("-- moe %s: %d experts top-%d cf=%.2f  "
+                     "capacity %s/expert  balance %s"
+                     % (s["node"], s["num_experts"], s["top_k"],
+                        s["capacity_factor"],
+                        s["capacity"] if s["capacity"] else "inf",
+                        ("%.2f" % s["expert_balance"])
+                        if s["expert_balance"] is not None else "-"))
+    return lines
 
 
 def lint_model(name, kwargs, shapes, target, select, skip, **spmd):
@@ -428,11 +483,13 @@ def main(argv=None):
                     help="print the static roofline / MFU-ceiling report "
                          "per graph (implied by --mesh)")
     ap.add_argument("--schedule", action="store_true",
-                    help="the static pipeline/MoE schedule report "
-                         "(MXL-E): not ported yet, exits 2")
+                    help="print the static pipeline/MoE schedule report "
+                         "(MXL-E): per-stage roofline pricing, GPipe + "
+                         "1F1B bubble fractions, activation-stash memory, "
+                         "expert routing stats")
     ap.add_argument("--microbatches", type=int, default=None, metavar="M",
-                    help="microbatches of the schedule simulator (with "
-                         "--schedule: not ported yet)")
+                    help="microbatch count the schedule simulator walks "
+                         "(default MXTPU_LINT_MICROBATCHES, else 8)")
     ap.add_argument("--distributed", action="store_true",
                     help="enable the per-rank collective-trace diff on "
                          "graphs (MXL-D001..003); on .py targets the "
@@ -484,9 +541,10 @@ def main(argv=None):
             print("%-9s %-8s %s" % (rule.rule_id, rule.severity, rule.doc))
         return 0
 
-    if args.schedule or args.microbatches is not None:
-        return _refuse("--schedule (the MXL-E pipeline/MoE simulator)",
-                       SCHEDULE_ITEM)
+    if args.microbatches is not None:
+        if args.microbatches < 1:
+            ap.error("--microbatches must be >= 1")
+        os.environ["MXTPU_LINT_MICROBATCHES"] = str(args.microbatches)
     if args.concurrency:
         return _refuse("--concurrency (the MXL-Q source lint)", SOURCE_ITEM)
     if args.retrace:
@@ -617,6 +675,10 @@ def main(argv=None):
                     and ctx.target == "gpu":
                 from ..analysis import roofline_report
                 entry["roofline"] = roofline_report(ctx)
+            if args.schedule and ctx is not None and \
+                    ctx.symbol is not None and ctx.target == "gpu":
+                from ..analysis import schedule_report
+                entry["schedule"] = schedule_report(ctx)
             doc.append(entry)
         print(json.dumps(doc, indent=2))
     for label, issues, ctx in targets:
@@ -633,6 +695,10 @@ def main(argv=None):
             if roofline and ctx is not None and ctx.symbol is not None \
                     and ctx.target == "gpu":
                 for line in roofline_report_lines(ctx):
+                    print(line)
+            if args.schedule and ctx is not None and \
+                    ctx.symbol is not None and ctx.target == "gpu":
+                for line in schedule_report_lines(ctx):
                     print(line)
         elif args.fmt == "github":
             for i in issues:

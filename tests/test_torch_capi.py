@@ -354,9 +354,8 @@ def test_symbol_infer_shape_arrays_match(graph, keys, shapes, partial):
 
 def test_registry_lists_and_describes_as_the_jax_package():
     jnames, tnames = jcapi.registry_list_ops(), tcapi.registry_list_ops()
-    # MoE (SwitchFFN is its alias) waits for ROADMAP queue 1 item 3 (e)
-    assert set(jnames) - set(tnames) == {"MoE"}
-    assert set(tnames) <= set(jnames)
+    # every op, MoE (SwitchFFN is its alias) included
+    assert set(jnames) == set(tnames)
     for name in tnames:
         assert tcapi.registry_op_describe(name) == \
             jcapi.registry_op_describe(name), name

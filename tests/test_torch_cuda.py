@@ -1686,3 +1686,85 @@ def test_rtc_launch_lint_on_the_card(cuda, monkeypatch):
     (out,) = rtc.push([x], (4, 1, 1), (256, 1, 1))
     torch.cuda.synchronize()
     assert float(out.data.sum()) == 2048.0
+
+
+# ----------------------------------------------------------------------
+# MoE and pipeline parallelism on the card against their CPU runs
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("topk,cf", [(1, 1.25), (2, 0.0)])
+def test_moe_op_on_the_card_matches_the_cpu(cuda, topk, cf):
+    """The MoE op's forward and gradients on cuda:0 against the same op
+    on the CPU (float32, TF32 off): the same experts routed and dropped,
+    values within 1e-5 of each tensor's scale."""
+    from mxnet_tpu_torch.ops.registry import create_operator
+    rng = np.random.RandomState(3)
+    K, E, H = 4, 16, 32
+    ins = [rng.randn(64, E).astype(np.float32),
+           rng.randn(K, E).astype(np.float32),
+           (rng.randn(K, H, E) * 0.3).astype(np.float32),
+           (rng.randn(K, H) * 0.1).astype(np.float32),
+           (rng.randn(K, E, H) * 0.3).astype(np.float32),
+           (rng.randn(K, E) * 0.1).astype(np.float32)]
+    cot = rng.randn(64, E).astype(np.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        op = create_operator("MoE", num_experts=K, hidden_size=H,
+                             top_k=topk, capacity_factor=cf)
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in ins]
+        outs, _ = op.forward(ts, [], True, None)
+        grads = torch.autograd.grad(
+            outs, ts, [torch.tensor(cot, device=dev),
+                       torch.ones(1, device=dev)])
+        got[str(dev)] = ([o.detach().cpu() for o in outs]
+                         + [g.cpu() for g in grads], int(op.dropped))
+    (card, drop_c), (host, drop_h) = got[str(cuda)], got["cpu"]
+    assert drop_c == drop_h
+    for c, h in zip(card, host):
+        scale = max(1.0, float(h.abs().max()))
+        assert float((c - h).abs().max()) <= 1e-5 * scale
+
+
+def test_two_stage_pipeline_on_the_card_matches_the_cpu(cuda):
+    """A two-stage GPipeTrainer (1f1b, M=4) on cuda:0: three steps'
+    losses and the parameters after them within 1e-5 of the CPU run's,
+    and the loss its microbatched sequential reference (bit for bit on
+    the CPU, within 1e-5 on the card)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import pipeline as pipe
+    D, V = 32, 16
+    rs = np.random.RandomState(0)
+    params = {"embed": {"table": rs.randn(V, D).astype(np.float32) * 0.1},
+              "layers": {"w": rs.randn(4, D, D).astype(np.float32) * 0.1,
+                         "b": np.zeros((4, D), np.float32)},
+              "head": {"w": rs.randn(D, V).astype(np.float32) * 0.1}}
+    batch = {"tokens": rs.randint(0, V, (32,)).astype(np.int32),
+             "labels": rs.randint(0, V, (32,)).astype(np.int32)}
+
+    def embed(ep, b):
+        return ep["table"][b["tokens"].long()]
+
+    def block(lp, h):
+        return h + torch.tanh(h @ lp["w"] + lp["b"])
+
+    def head(hp, h, b):
+        logp = torch.log_softmax(h @ hp["w"], dim=-1)
+        return -logp.gather(1, b["labels"].long()[:, None]).mean()
+    runs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        tr = pipe.GPipeTrainer(
+            embed, block, head, params, mx.parallel.make_mesh([ctx, ctx],
+                                                              pp=2),
+            mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9),
+            num_microbatches=4, schedule="1f1b")
+        ref = tr.sequential_loss_microbatched(batch)
+        losses = [tr.step(batch) for _ in range(3)]
+        # bit for bit on the CPU; cuBLAS may round the whole batch's rows
+        # otherwise than a microbatch's
+        assert abs(losses[0] - ref) < 1e-5 if ctx.device_type == "gpu" \
+            else losses[0] == ref
+        runs[ctx.device_type] = (losses, tr.params)
+    (lc, pc), (lh, ph) = runs["gpu"], runs["cpu"]
+    assert max(abs(a - b) for a, b in zip(lc, lh)) < 1e-5
+    for part in ph:
+        for k in ph[part]:
+            assert np.abs(pc[part][k] - ph[part][k]).max() < 1e-5

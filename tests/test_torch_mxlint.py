@@ -3,7 +3,8 @@ cases of ``tests/test_tools.py``, run in process through ``main(argv)``
 (two subprocesses check the module entry point), the ``--format json``
 output held to the JAX CLI's (``tools/mxlint.py``) on the same saved
 graphs for the rules that are not about the hardware, and the source
-lints and the schedule exiting 2 with the ROADMAP item they wait on.
+lints exiting 2 with the ROADMAP item they wait on (``--schedule`` runs:
+``tests/test_torch_schedule.py``).
 """
 import importlib.util
 import json
@@ -223,8 +224,6 @@ def test_mxlint_distributed_model_graph(capsys):
     (["--retrace", "mxnet_tpu_torch"], "4 (g2)"),
     (["--distributed", "mxnet_tpu_torch"], "4 (g2)"),
     (["--distributed", "tests/fixtures/divergence"], "4 (g2)"),
-    (["--model", "mlp", "--schedule"], "3 (d)"),
-    (["--model", "mlp", "--microbatches", "4"], "3 (d)"),
 ])
 def test_source_lints_and_schedule_exit_two(capsys, argv, item):
     rc, _, err = _lint(capsys, *argv)

@@ -10,9 +10,9 @@ max-abs.  An output that carries no gradient (``BlockGrad``,
 ``argmax_channel``) must get zero gradients in the JAX package.  The
 samplers and ``LeakyReLU(act_type="rrelu")`` draw from Philox in the
 port and threefry in the JAX package: their draws are held to their
-bounds and moments instead.  ``test_registry_lacks_only_moe`` pins what
-the port's registry still lacks: ``MoE``/``SwitchFFN`` (ROADMAP queue 1
-item 3).
+bounds and moments instead.  ``test_registry_lacks_only_moe`` pins that
+the port's registry now lacks nothing: ``MoE``/``SwitchFFN``, the last
+two names, came with expert parallelism (``tests/test_torch_moe.py``).
 """
 import zlib
 
@@ -221,8 +221,8 @@ def _case_id(case):
 def test_registry_lacks_only_moe():
     jnames = {n for n, _ in J_REGISTRY.items()}
     tnames = {n for n, _ in T_REGISTRY.items()}
-    assert tnames <= jnames
-    assert jnames - tnames == {"MoE", "SwitchFFN"}
+    assert tnames == jnames
+    assert len(jnames) == 128
     assert len(NEW_NAMES) == 51
     assert set(NEW_NAMES) <= tnames
 

@@ -193,8 +193,9 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     monkeypatch.delenv("MXTPU_SENTINEL")
     tr = TTrainer(sym, opt, ctx=tmx.cpu())
     assert tr.latest_step("/nonexistent") is None
-    with pytest.raises(MXNetError, match="MoE"):
-        ttf.get_symbol(num_experts=2, **DIMS)
+    # the MoE symbol builds (expert parallelism: tests/test_torch_moe.py)
+    assert "layer0_moe_gate_weight" in \
+        ttf.get_symbol(num_experts=2, **DIMS).list_arguments()
     assert TTrainer(sym, opt, ctx=tmx.cpu(), remat=True).remat
     mirrored = ttf.get_symbol(mirror_blocks=True, **DIMS)
     assert any(n.attrs.get("mirror_stage") == "layer0"

@@ -135,13 +135,20 @@ def test_zoo_get_aliases_and_unported():
     for name in ("get_alexnet", "get_vgg", "get_googlenet",
                  "get_inception_v3", "get_resnet", "get_mlp", "get_lenet"):
         assert callable(getattr(tmx.models, name))
-    # the recurrent models resolve (ported with the bucketing LSTM);
-    # transformer_moe still raises, naming the item it waits on
+    # the recurrent models resolve (ported with the bucketing LSTM), and
+    # transformer_moe builds the JAX package's graph (ported with expert
+    # parallelism)
     assert tmx.models.lstm.lstm_unroll is not None
     assert callable(tmx.models.gru.gru_unroll)
     assert callable(tmx.models.rnn.rnn_unroll)
-    with pytest.raises(tmx.MXNetError, match="item 3"):
-        tmx.models.transformer_moe
+    kw = dict(vocab_size=32, num_layers=2, num_heads=2, dim=16, seq_len=8,
+              num_experts=4)
+    tsym = tmx.models.transformer_moe.get_symbol(**kw)
+    jsym = jmx.models.transformer_moe.get_symbol(**kw)
+    assert tsym.list_arguments() == jsym.list_arguments()
+    assert "layer0_moe_expert_fc1_weight" in tsym.list_arguments()
+    with pytest.raises(ValueError, match="num_experts >= 2"):
+        tmx.models.transformer_moe.get_symbol(num_experts=1)
     with pytest.raises(tmx.base.MXNetError):
         tmx.models.vgg.get_symbol(10, 12)
 
