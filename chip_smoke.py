@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N] [--iters N] [--out results.json]
 
-(``--phases 4c,13,19,20`` runs only those phases, with no result line.)
+(``--phases 4c,13,19,20,21`` runs only those phases, with no result
+line.)
 
 It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
@@ -380,6 +381,26 @@ line:
    ``transformer_moe`` at ``dp=1,ep=4`` and the LM at ``pp=2``, priced at
    the card's ``PEAKS`` row.  It prints its own kernels line (rows 3 and
    4, their launches on these paths).
+
+21. the source lints (``mxnet_tpu_torch/analysis``' source half): (a)
+   ``python -m mxnet_tpu_torch.tools.mxlint --distributed --concurrency
+   --retrace mxnet_tpu_torch --fail-on=warning`` exits 0, with each
+   family's seconds and counts in this process beside it; (b) a CustomOp
+   host op forward and backward on ``gpu(0)``, ``threading.get_ident()``
+   in the user's forward, its backward and the caller (whether autograd
+   ran the backward off the caller's thread, the MXL-Q005 shape); (c) the
+   retrace sentry armed after 2 warm-up steps, then 10 steps of phase 7's
+   LM through ``ShardedTrainer`` with the sweep body generated from a
+   user's ``update_fn`` (phase 17's) and 20 pushes of ``Rtc``'s saxpy
+   (phase 8's (b)): no program build, no NVRTC compile, no registry
+   lowering after the boundary (counted at ``executor.build_program``,
+   ``nvrtc.compile_cubin`` and in the modules' caches); (d) the repaired
+   kvstore path under ``MXTPU_LOCKCHECK=1``: ``push_async`` of the LM's
+   gradients summed over a one-rank NCCL group on the store's worker
+   thread, ``set_updater`` while the first bucket is in flight, no
+   lock-order error and the parameters bit for bit the synchronous
+   ``push``'s under the same updaters, with the ms a round.  It launches
+   no new kernel.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -9284,12 +9305,370 @@ def phase_moe_pipeline(torch, seed, smi):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 21: the source lints on the card
+# ----------------------------------------------------------------------
+#: (c)'s LM steps and Rtc pushes after the warm-up boundary
+SRC_WARM_STEPS = 2
+SRC_STEPS = 10
+SRC_RTC_PUSHES = 20
+#: (d): kvstore push_async rounds (the first with set_updater in flight)
+SRC_KV_ROUNDS = 4
+
+
+def src_lints(smi):
+    """(a) ``mxlint --distributed --concurrency --retrace mxnet_tpu_torch
+    --fail-on=warning`` in a subprocess (gate: exit 0) and, beside it in
+    this process, each family's seconds and counts."""
+    from mxnet_tpu_torch.analysis import concurrency, divergence, retrace
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.mxlint",
+           "--distributed", "--concurrency", "--retrace", "mxnet_tpu_torch",
+           "--fail-on=warning"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    fams = {}
+    try:
+        pkg = [os.path.join(here, "mxnet_tpu_torch")]
+        n_files = len(divergence.iter_py_files(pkg))
+        for fam, fn in (("D004-D006", divergence.analyze_source_paths),
+                        ("Q", concurrency.analyze_concurrency_paths),
+                        ("X", retrace.analyze_retrace_paths)):
+            t = time.perf_counter()
+            found = fn(pkg, root=here)
+            fams[fam] = {"seconds": time.perf_counter() - t,
+                         "findings": len(found), "files": n_files}
+            log("source lints (a) %s: %d findings over %d files, %.3f s "
+                "(in process)" % (fam, len(found), n_files,
+                                  fams[fam]["seconds"]))
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or any(f["findings"] for f in fams.values()):
+        raise AssertionError("source lints (a): mxlint rc %d, findings %s:"
+                             " %s %s" % (proc.returncode, fams, out[-800:],
+                                         err[-800:]))
+    log("source lints (a) %s: rc 0 (%s), %.2f s wall; on %s"
+        % (" ".join(cmd[2:]), out.strip().splitlines()[-1], seconds, smi))
+    return {"rc": proc.returncode, "seconds": seconds, "families": fams}
+
+
+#: thread ids the witness op records: "forward", "backward"
+THREAD_WITNESS = {}
+
+
+def _register_thread_witness(mx):
+    """A CustomOp host op that records ``threading.get_ident()`` in the
+    user's forward and backward (in :data:`THREAD_WITNESS`)."""
+    import threading
+    if "chip_smoke_thread_witness" in mx.operator.CUSTOM_OP_REGISTRY:
+        return
+
+    class Witness(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            THREAD_WITNESS["forward"] = threading.get_ident()
+            self.assign(out_data[0], req[0], in_data[0] * 2.0)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            THREAD_WITNESS["backward"] = threading.get_ident()
+            self.assign(in_grad[0], req[0], out_grad[0] * 2.0)
+
+    @mx.operator.register("chip_smoke_thread_witness")
+    class WitnessProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Witness()
+
+
+def src_callback_thread(torch, smi):
+    """(b) The Q005 witness: a CustomOp forward and backward on gpu(0),
+    ``threading.get_ident()`` in the user's forward, its backward and the
+    caller: on the card autograd runs the backward on its device thread."""
+    import threading
+    import mxnet_tpu_torch as mx
+    THREAD_WITNESS.clear()
+    seen = THREAD_WITNESS
+    _register_thread_witness(mx)
+    data = mx.sym.Variable("data")
+    net = mx.sym.Custom(data=data, op_type="chip_smoke_thread_witness",
+                        name="witness")
+    gpu = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    exe = net.simple_bind(gpu, data=(4, 8))
+    x = np.random.RandomState(21).randn(4, 8).astype(np.float32)
+    exe.arg_dict["data"][:] = x
+    caller = threading.get_ident()
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.ones((4, 8), ctx=gpu)])
+    grad = exe.grad_dict["data"].asnumpy()
+    out = exe.outputs[0].asnumpy()
+    if not (np.array_equal(out, 2.0 * x) and np.array_equal(
+            grad, np.full((4, 8), 2.0, np.float32))):
+        raise AssertionError("source lints (b): the witness op's output or "
+                             "gradient is wrong")
+    if set(seen) != {"forward", "backward"}:
+        raise AssertionError("source lints (b): the user's forward/backward "
+                             "did not run: %s" % seen)
+    res = {"caller": caller, "forward": seen["forward"],
+           "backward": seen["backward"],
+           "forward_off_caller": seen["forward"] != caller,
+           "backward_off_caller": seen["backward"] != caller}
+    log("source lints (b) CustomOp on %s: forward on the caller's thread %s,"
+        " backward on the caller's thread %s (ids caller %d, forward %d, "
+        "backward %d); on %s"
+        % (gpu, not res["forward_off_caller"],
+           not res["backward_off_caller"], caller, seen["forward"],
+           seen["backward"], smi))
+    return res
+
+
+def src_retrace_witness(torch, seed, smi):
+    """(c) The X witness: the LM through ShardedTrainer with the body
+    generated from a user's update_fn (phase 17's path) and Rtc's saxpy
+    (phase 8's body (b)), the retrace sentry armed after a warm-up: no
+    program build and no NVRTC compile after the boundary."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import executor, rtc as rtc_mod
+    from mxnet_tpu_torch.kernels import fused_opt as fo, nvrtc
+    from mxnet_tpu_torch.kernels import rtc_kernels as rk
+    from mxnet_tpu_torch.kernels import sweep_codegen as cg
+    from mxnet_tpu_torch.observability import retrace
+    from mxnet_tpu_torch.parallel import overlap
+    calls = {"compile_cubin": 0, "build_program": 0}
+    orig = {"compile_cubin": nvrtc.compile_cubin,
+            "build_program": executor.build_program}
+
+    def counted(name):
+        def run(*a, **kw):
+            calls[name] += 1
+            return orig[name](*a, **kw)
+        return run
+    nvrtc.compile_cubin = counted("compile_cubin")
+    executor.build_program = counted("build_program")
+    was = retrace.installed()
+    retrace.install()
+    retrace.reset()
+    retrace.warmup_begin()
+
+    def state():
+        return {"nvrtc_compiles": calls["compile_cubin"],
+                "program_builds": calls["build_program"],
+                "lowerings": overlap.compile_cache_stats()["lowerings"],
+                "sweep_sources": len(cg._BUILT),
+                "rtc_keys": sum(len(r._compiled) for r in rk._RTCS.values()),
+                "rtc_launches": rtc_mod.launches}
+    try:
+        SignClip = sign_clip_class(mx)
+        S = TRAIN["seq_len"]
+        opt = SignClip(learning_rate=0.01,
+                       rescale_grad=1.0 / (TRAIN_BATCH * S),
+                       clip_gradient=10.0)
+        tr, p, st, aux = res_trainer(torch, seeded_train_params(seed), opt)
+        b = tr.shard_batch(train_batch(seed))
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 21)
+        gpu = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+        x = mx.nd.array(torch.rand(RTC_TIMED_N, generator=gen,
+                                   device=DEVICE), ctx=gpu)
+        y = mx.nd.array(torch.rand(RTC_TIMED_N, generator=gen,
+                                   device=DEVICE), ctx=gpu)
+        for _ in range(SRC_WARM_STEPS):
+            p, st, aux, _o = tr.step(p, st, aux, b)
+        rk.saxpy(x, y)
+        torch.cuda.synchronize()
+        retrace.warmup_boundary()
+        reset_counts()
+        before = state()
+        t0 = time.perf_counter()
+        for _ in range(SRC_STEPS):
+            p, st, aux, _o = tr.step(p, st, aux, b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / SRC_STEPS
+        counts = read_counts()
+        for _ in range(SRC_RTC_PUSHES):
+            z = rk.saxpy(x, y)[0]
+        torch.cuda.synchronize()
+        after = state()
+        sentry = retrace.stats()
+    finally:
+        nvrtc.compile_cubin = orig["compile_cubin"]
+        executor.build_program = orig["build_program"]
+        retrace.reset()
+        if not was:
+            retrace.uninstall()
+        os.environ.pop("MXTPU_FUSED_OPT", None)
+    err = float((z.data - (2.5 * x.data + y.data)).abs().max())
+    n_buckets = len(fo.plan_buckets(p))
+    bad = {k: (before[k], after[k]) for k in before
+           if k != "rtc_launches" and before[k] != after[k]}
+    if bad or sentry["retraces_after_warmup"] or \
+            after["rtc_launches"] - before["rtc_launches"] \
+            != SRC_RTC_PUSHES or counts["fused_opt_by_body"] != \
+            {fo.GENERATED: SRC_STEPS * n_buckets} or not err <= 1e-5:
+        raise AssertionError(
+            "source lints (c): after the boundary %s changed, sentry %s, "
+            "Rtc launches %d, sweeps %s (want %d generated), saxpy err %g"
+            % (bad, sentry, after["rtc_launches"] - before["rtc_launches"],
+               counts["fused_opt_by_body"], SRC_STEPS * n_buckets, err))
+    res = {"before": before, "after": after, "step_ms": step_ms,
+           "retraces_after_warmup": sentry["retraces_after_warmup"],
+           "lowerings_seen": sentry["lowerings_seen"],
+           "launches": counts, "rtc_pushes": SRC_RTC_PUSHES,
+           "saxpy_max_abs_err": err}
+    log("source lints (c) retrace sentry armed after %d warm-up steps: %d "
+        "LM steps through the generated sweep body (%.2f ms a step, sweeps "
+        "%s) and %d Rtc saxpy pushes: program builds %d -> %d, NVRTC "
+        "compiles %d -> %d, registry lowerings %d -> %d, sweep sources %d, "
+        "Rtc keys %d, retraces after warm-up %d; on %s"
+        % (SRC_WARM_STEPS, SRC_STEPS, step_ms,
+           json.dumps(counts["fused_opt_by_body"]), SRC_RTC_PUSHES,
+           before["program_builds"], after["program_builds"],
+           before["nvrtc_compiles"], after["nvrtc_compiles"],
+           before["lowerings"], after["lowerings"], after["sweep_sources"],
+           after["rtc_keys"], sentry["retraces_after_warmup"], smi))
+    return res
+
+
+def src_kvstore_witness(torch, seed, smi):
+    """(d) The repaired kvstore path on the card under MXTPU_LOCKCHECK=1:
+    push_async of the LM's gradients with the sum over a one-rank NCCL
+    group run on the store's worker thread, ``set_updater`` while the
+    first bucket is in flight; no lock-order error, and the parameters bit
+    for bit those of the synchronous ``push`` under the same updaters."""
+    import threading
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kvstore as kvmod
+    from mxnet_tpu_torch.observability import locktrace
+    from mxnet_tpu_torch.resilience import ResilienceError
+    own_group = not dist.is_initialized()
+    if own_group:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",
+            init_method="tcp://127.0.0.1:%d" % _free_port(), world_size=1,
+            rank=0)
+    elif dist.get_world_size() != 1:
+        raise AssertionError("source lints (d): a process group of %d is "
+                             "already up" % dist.get_world_size())
+    os.environ["MXTPU_LOCKCHECK"] = "1"
+    was = locktrace.installed()
+    locktrace.maybe_install()
+    locktrace.reset_order_graph()
+
+    class OneRankDist(kvmod.KVStore):
+        # the store's dist path in one process: the sum over the
+        # one-rank group runs, on push_async's worker thread
+        _dist = property(lambda self: True)
+
+    gpu = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    shapes = train_param_shapes()
+    rng = np.random.RandomState(seed + 210)
+    weights = {n: (rng.randn(*s) * 0.02).astype(np.float32)
+               for n, s in shapes.items()}
+    grads = [{n: (rng.randn(*s) * 1e-3).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(SRC_KV_ROUNDS)]
+    keys = sorted(shapes)
+    lock_errors = []
+
+    def sgd(lr):
+        return mx.optimizer.get_updater(mx.optimizer.create(
+            "sgd", learning_rate=lr, momentum=0.9, rescale_grad=1.0))
+
+    def run(kv, async_push, gate=None):
+        for i, k in enumerate(keys):
+            kv.init(i, mx.nd.array(weights[k], ctx=gpu))
+        kv.set_updater(sgd(0.1))
+        ms = []
+        for r in range(SRC_KV_ROUNDS):
+            t0 = time.perf_counter()
+            vals = [mx.nd.array(grads[r][k], ctx=gpu) for k in keys]
+            if async_push:
+                for i, v in enumerate(vals):
+                    kv.push_async(i, v)
+                if r == 0:
+                    kv.set_updater(sgd(0.05))     # bucket 0 in flight
+                    gate.set()
+                kv.wait_all()
+            else:
+                for i, v in enumerate(vals):
+                    kv.push(i, v)
+                if r == 0:
+                    kv.set_updater(sgd(0.05))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        outs = [mx.nd.zeros(shapes[k], ctx=gpu) for k in keys]
+        for i, o in enumerate(outs):
+            kv.pull(i, out=o)
+        return [o.data.clone() for o in outs], ms
+
+    try:
+        gate = threading.Event()
+        kv = OneRankDist("dist_sync")
+        real = kv._allreduce
+
+        def gated(merged):
+            if not gate.wait(60):
+                raise AssertionError("source lints (d): gate never opened")
+            return real(merged)
+        kv._allreduce = gated
+        try:
+            got, ms = run(kv, True, gate)
+        except ResilienceError as exc:
+            lock_errors.append(str(exc))
+            raise
+        finally:
+            if kv._async is not None:
+                kv._async.close()
+        want, ms_sync = run(kvmod.KVStore("local"), False)
+        edges = len(locktrace.order_edges())
+    finally:
+        locktrace.reset_order_graph()
+        if not was:
+            locktrace.uninstall()
+        os.environ.pop("MXTPU_LOCKCHECK", None)
+        if own_group:
+            dist.destroy_process_group()
+    diff = [k for k, a, b in zip(keys, got, want) if not torch.equal(a, b)]
+    if diff or lock_errors:
+        raise AssertionError("source lints (d): push_async differs from push "
+                             "on %s; lock-order errors %s"
+                             % (diff[:5], lock_errors))
+    res = {"keys": len(keys), "rounds": SRC_KV_ROUNDS, "lock_errors": 0,
+           "order_edges": edges, "round_ms": ms, "round_ms_sync": ms_sync,
+           "bitwise": True}
+    log("source lints (d) kvstore push_async (%d keys of the LM, %d rounds, "
+        "set_updater with round 0 in flight) under MXTPU_LOCKCHECK=1: 0 "
+        "lock-order errors (%d order edges), parameters bit for bit the "
+        "synchronous push's; ms a round %s (push: %s); on %s"
+        % (len(keys), SRC_KV_ROUNDS, edges,
+           ", ".join("%.2f" % m for m in ms),
+           ", ".join("%.2f" % m for m in ms_sync), smi))
+    return res
+
+
+def phase_source_lints(torch, seed, smi):
+    """Phase 21: the source half of the analyzer on the card (the module
+    docstring's (a)-(d)).  It launches no new kernel."""
+    t_phase = time.perf_counter()
+    out = {"lints": src_lints(smi)}
+    out["callback_thread"] = src_callback_thread(torch, smi)
+    out["retrace"] = src_retrace_witness(torch, seed, smi)
+    out["kvstore"] = src_kvstore_witness(torch, seed, smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("source lints: phase 21 %.2f s" % out["seconds"])
+    return out
+
+
+
 #: the phases ``--phases`` runs, which read no other phase's result
 ALONE = {
     "4c": lambda torch, timer, seed, smi: phase_fleet(torch, seed, smi),
     "13": phase_lstm,
     "19": lambda torch, timer, seed, smi: phase_analysis(torch, seed, smi),
     "20": lambda torch, timer, seed, smi: phase_moe_pipeline(torch, seed,
+                                                             smi),
+    "21": lambda torch, timer, seed, smi: phase_source_lints(torch, seed,
                                                              smi),
 }
 
@@ -9417,6 +9796,7 @@ def main(argv=None):
         ana = run("19", phase_analysis, torch, args.seed, smi,
                   {"lm": train, "resnet50": resnet})
         moe = run("20", phase_moe_pipeline, torch, args.seed, smi)
+        src = run("21", phase_source_lints, torch, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -9717,7 +10097,7 @@ def main(argv=None):
                        "zoo": zoo, "lstm": lstm, "rcnn": rcnn, "dp": dp,
                        "capi": capi, "resilience": res,
                        "observability": obs, "analysis": ana,
-                       "moe_pipeline": moe,
+                       "moe_pipeline": moe, "source_lints": src,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

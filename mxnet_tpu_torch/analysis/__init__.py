@@ -1,7 +1,8 @@
 """Static analysis over Symbol graphs: lint passes + bind-time validation.
 
-The port of ``mxnet_tpu/analysis/``: its graph half, everything
-:func:`analyze` runs over a Symbol.  Entry points:
+The port of ``mxnet_tpu/analysis/`` but ``autotune``: its graph half,
+everything :func:`analyze` runs over a Symbol, and its source half, the
+lints over Python files.  Entry points:
 
 - :func:`analyze` — run the registered passes over an in-memory Symbol
   (with optional shape/type hints and bind/mesh context) and return
@@ -11,13 +12,18 @@ The port of ``mxnet_tpu/analysis/``: its graph half, everything
   cannot represent;
 - ``Symbol.validate()`` (symbol.py) and the ``validate=`` knob on
   ``Executor``/``bind``/``simple_bind`` (executor.py) wrap these;
+- :func:`analyze_source_paths`, :func:`analyze_concurrency_paths` and
+  :func:`analyze_retrace_paths` — the source families over ``.py`` files
+  and directories (finding dicts with ``file:qualname`` anchors);
 - ``python -m mxnet_tpu_torch.tools.mxlint`` is the standalone CLI for
-  saved graphs and the bundled model zoo.
+  saved graphs, the bundled model zoo and Python sources.
 
 Rule catalog (``--list-rules``).  The families S, T, G, B, L, P, M, C,
-D001-D003 and E keep the JAX package's ids, severities, node names and
-report dicts, so a saved graph lints the same in both packages (E prices
-its stages and transfers at the card's rates, as R does).  K and R
+D and E keep the JAX package's ids, severities, node names and report
+dicts, so a saved graph lints the same in both packages (E prices its
+stages and transfers at the card's rates, as R does); so do the source
+families D004-D006, Q and X, whose findings over the same file are the
+same unless it uses a torch name the port's vocabulary adds.  K and R
 are about the hardware: the JAX package checks Mosaic's tile rules and
 prices a TPU; the port checks Hopper launches and prices the H100.
 
@@ -53,6 +59,21 @@ MXL-C003  warning   tp-sharded matmul missing its matching reduction
 MXL-D001  error     collective order mismatch across ranks
 MXL-D002  error     collective signature mismatch across ranks
 MXL-D003  error     collective under rank-conditional control flow
+MXL-D004  error     rank-divergent value flows into a coordinated path
+MXL-D005  error     collective gated on rank-divergent control flow
+MXL-D006  warning   unbalanced collective on an exception edge
+MXL-Q001  error     shared attribute raced across threads w/o lock
+MXL-Q002  error     lock-order cycle (potential deadlock)
+MXL-Q003  warning   blocking call while holding a lock
+MXL-Q004  warning   thread started without registry or join path
+MXL-Q005  error     host-callback mutates step-path state unsynced
+MXL-Q006  warning   condition wait without predicate re-check loop
+MXL-X001  error     python control flow on a tensor in a traced scope
+MXL-X002  error     unstable cache-key ingredient (id/order/env read)
+MXL-X003  error     program build / compile on a per-request/step path
+MXL-X004  warning   bare python scalar crosses the trace boundary
+MXL-X005  error     unbucketed dynamic shape fed to a program table
+MXL-X006  error     donated buffer reused after donation
 MXL-K001  error     block over the card's shared memory (or an SM's
                     under its __launch_bounds__ promise)
 MXL-K002  error     TMA box / 16-byte vector load / wgmma tile off grain
@@ -96,12 +117,29 @@ node attrs.  MXL-E (schedule.py) prices the pipeline stages of a
 ``ctx_group`` or ``pp`` partition and the MoE expert all-to-all on the
 ``"gpu"`` target (:func:`schedule_report`, :func:`stage_partition`).
 
-Not ported yet, and raising ``MXNetError`` with the ROADMAP item they
-wait on: the source-level families over Python files (D004-D006 rank
-divergence, Q concurrency, X retrace stability: queue 1 item 4 (g2)).
-The markers
-``collective_seam``, ``thread_entry`` and ``traced_scope`` are the
-port's ``base.py`` markers.
+The source families read Python files, never importing them, and run
+when ``source_paths`` is given (the CLI's ``.py`` targets):
+
+- D004-D006 (divergence.py, :func:`analyze_source_paths`): the
+  rank-divergence dataflow pass — ``torch.distributed.get_rank()``,
+  ``torch.cuda.current_device()`` and the rank's environment variables
+  beside the JAX sources, ``torch.distributed``'s collectives and the
+  port's checkpoint writers beside the JAX sinks.  Mark rendezvous
+  functions with ``base.collective_seam``; suppress intentional
+  divergence with ``# mxl: rank-divergent-ok (MXL-D00x)``.
+- Q (concurrency.py, :func:`analyze_concurrency_paths`): races, lock
+  order, blocking under a lock (device syncs included), thread leaks,
+  host-callback contexts (autograd's device threads included), wait
+  loops.  Mark dynamic thread entries with ``base.thread_entry``;
+  suppress intentional sharing with ``# mxl: thread-shared-ok
+  (MXL-Q00x)``.  The runtime witness for Q002 is
+  ``observability.locktrace`` (``MXTPU_LOCKCHECK=1``).
+- X (retrace.py, :func:`analyze_retrace_paths`): the
+  zero-steady-state-lowerings contract over program builds, NVRTC
+  compiles and the CUDA extension's build.  Mark what is traced once and
+  replayed with ``base.traced_scope``; suppress intentional hazards with
+  ``# mxl: retrace-ok (MXL-X00x)``.  The runtime witness is
+  ``observability.retrace`` (``MXTPU_RETRACE_SENTRY=1``).
 
 Suppress per node with the ``__lint_ignore__`` attr (comma-separated
 rule ids, or ``all``).
@@ -110,7 +148,6 @@ from __future__ import annotations
 
 import json as _json
 
-from ..base import MXNetError, collective_seam, thread_entry, traced_scope
 from .core import (GraphIssue, AnalysisContext, Rule, RULE_REGISTRY,
                    register_rule, run_rules, format_issues,
                    SEVERITIES, SEVERITY_RANK)
@@ -127,6 +164,9 @@ from . import tiling as _tiling      # noqa: F401
 from . import roofline as _roofline  # noqa: F401
 from . import distributed as _distributed  # noqa: F401
 from . import schedule as _schedule  # noqa: F401
+from . import divergence as _divergence    # noqa: F401
+from . import concurrency as _concurrency  # noqa: F401
+from . import retrace as _retrace          # noqa: F401
 from .propagation import comm_report
 from .memory import peak_hbm_report, hbm_capacity_bytes
 from .tiling import (register_kernel_spec, unregister_kernel_spec,
@@ -137,6 +177,9 @@ from .roofline import (roofline_report, static_ceiling_summary,
                        resolve_compute_dtype, mxu_padding_waste)
 from .distributed import collective_trace
 from .schedule import schedule_report, stage_partition
+from .divergence import analyze_source_paths, collective_seam
+from .concurrency import analyze_concurrency_paths, thread_entry
+from .retrace import analyze_retrace_paths, traced_scope
 
 __all__ = ["GraphIssue", "AnalysisContext", "Rule", "RULE_REGISTRY",
            "register_rule", "run_rules", "format_issues", "SEVERITIES",
@@ -151,32 +194,6 @@ __all__ = ["GraphIssue", "AnalysisContext", "Rule", "RULE_REGISTRY",
            "analyze_source_paths", "collective_seam",
            "analyze_concurrency_paths", "thread_entry",
            "analyze_retrace_paths", "traced_scope"]
-
-#: the ROADMAP item the unported half waits on
-_SOURCE_ITEM = "ROADMAP.md queue 1 item 4 (g2)"
-
-
-def _not_ported(what, item):
-    raise MXNetError("analysis: %s is not ported yet (%s)" % (what, item))
-
-
-def analyze_source_paths(paths, world_size=None, select=None, skip=None):
-    """The rank-divergence pass over Python source (MXL-D004..D006):
-    not ported yet."""
-    _not_ported("analyze_source_paths (MXL-D004..D006)", _SOURCE_ITEM)
-
-
-def analyze_concurrency_paths(paths, select=None, skip=None):
-    """The concurrency lint over Python source (MXL-Q): not ported
-    yet."""
-    _not_ported("analyze_concurrency_paths (MXL-Q)", _SOURCE_ITEM)
-
-
-def analyze_retrace_paths(paths, select=None, skip=None):
-    """The retrace-stability lint over Python source (MXL-X): not
-    ported yet."""
-    _not_ported("analyze_retrace_paths (MXL-X)", _SOURCE_ITEM)
-
 
 class GraphLintWarning(UserWarning):
     """Category for bind-time lint findings emitted in 'warn' mode."""
@@ -200,11 +217,9 @@ def analyze(symbol, shapes=None, type_dict=None, args=None, args_grad=None,
     ids run (fnmatch wildcards like ``MXL-P*`` work).  ``_ctx_out``, when
     a list, receives the AnalysisContext so callers (the CLI's cost
     report) can reuse the cached propagation/memory facts.
-    ``source_paths`` (the source-level families D004-D006, Q, X) is not
-    ported yet: a non-empty list raises, naming the ROADMAP item.
+    ``source_paths`` (.py files and directories) runs the source families
+    D004-D006, Q and X over them (``symbol`` may then be None).
     """
-    if source_paths:
-        _not_ported("analyze(source_paths=...)", _SOURCE_ITEM)
     ctx = AnalysisContext(symbol, shapes=shapes, type_dict=type_dict,
                           args=args, args_grad=args_grad, grad_req=grad_req,
                           aux_states=aux_states, group2ctx=group2ctx,

@@ -3,7 +3,7 @@
 The port of ``mxnet_tpu/analysis/distributed.py``, rule for rule: the
 per-rank trace of the collectives a bound graph issues, diffed across
 ranks, from graph attributes alone.  The source-level half of the
-family (MXL-D004..D006) waits on ROADMAP.md queue 1 item 4 (g2).
+family (MXL-D004..D006) is ``divergence.py``.
 
 The whole point of binding the symbolic graph to ONE XLA computation
 (executor.py) is that every rank runs the identical SPMD program —

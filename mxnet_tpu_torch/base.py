@@ -21,9 +21,11 @@ class MXNetError(Exception):
 def collective_seam(fn=None, **_meta):
     """Runtime no-op marker: this function implements a cluster-wide
     rendezvous or agreement protocol (every rank reaches it together and
-    its result is identical on every rank).  The JAX package's
-    distributed lint reads the same decorator from its sources; in the
-    port it documents the seam and changes nothing."""
+    its result is identical on every rank).  The rank-divergence lint
+    (``analysis/divergence.py``, MXL-D004..D006) reads it from the source:
+    calls to the function are collective sinks, its return value is
+    rank-uniform, and the rank asymmetry inside its body is exempt from
+    MXL-D005.  At run time it returns ``fn`` unchanged."""
     if fn is None:
         return lambda f: f
     return fn
@@ -31,22 +33,22 @@ def collective_seam(fn=None, **_meta):
 
 def thread_entry(fn=None, **_meta):
     """Runtime no-op marker: this function is a thread entry point (its
-    body runs on a thread other than the one that built its object).
-    The JAX package's concurrency lint reads the decorator from its
-    sources; the port's source lints are not ported yet (ROADMAP.md
-    queue 1 item 4 (g2)), so here it documents the entry and changes
-    nothing."""
+    body runs on a thread other than the one that built its object) that
+    the concurrency lint (``analysis/concurrency.py``, MXL-Q) cannot infer
+    from a ``Thread(target=...)`` or ``submit(...)`` call.  At run time it
+    returns ``fn`` unchanged."""
     if fn is None:
         return lambda f: f
     return fn
 
 
 def traced_scope(fn=None, **_meta):
-    """Runtime no-op marker: this function's body is built once and
-    replayed (the JAX package's traced scope; in the port, code that a
-    program or a generated kernel bakes in).  The JAX package's retrace
-    lint reads the decorator from its sources; in the port it documents
-    the scope and changes nothing."""
+    """Runtime no-op marker: this function's body is traced once and
+    replayed (in the port, a formula ``kernels/sweep_codegen`` bakes into
+    a generated kernel: the elementwise optimizers' ``update_fn``).  The
+    retrace lint (``analysis/retrace.py``, MXL-X001/X002) reads it from the
+    source and holds the body to no Python branch or host read on a
+    tensor's value.  At run time it returns ``fn`` unchanged."""
     if fn is None:
         return lambda f: f
     return fn

@@ -136,6 +136,10 @@ def build_all():
                 tmp, out, time.perf_counter())
         failed = []
         for name, (proc, tmp, out, t0) in procs.items():
+            # nvcc runs under _LOCK by design: a second caller of
+            # library() must wait for this build, not start a second
+            # nvcc on the same output; nothing else takes _LOCK
+            # mxl: thread-shared-ok (MXL-Q003)
             log, _ = proc.communicate()
             BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
                                 "log": log}

@@ -91,6 +91,15 @@ def _merge(vals):
     return merged
 
 
+def _world_size():
+    """The size of the ``torch.distributed`` group (1 without one): the
+    same on every rank."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def _dist_world():
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
@@ -118,7 +127,7 @@ class KVStore:
 
     @property
     def _dist(self):
-        return self.type.startswith("dist") and _dist_world()[0] > 1
+        return self.type.startswith("dist") and _world_size() > 1
 
     @property
     def rank(self):
@@ -126,7 +135,7 @@ class KVStore:
 
     @property
     def num_workers(self):
-        return _dist_world()[0] if self.type.startswith("dist") else 1
+        return _world_size() if self.type.startswith("dist") else 1
 
     def init(self, key, value):
         """Store each key's initial value once; in a dist store rank 0's
@@ -139,6 +148,10 @@ class KVStore:
             if self._dist:
                 import torch.distributed as dist
                 dist.broadcast(data, src=0)
+            # init() of a key happens-before any push of it: push_async
+            # refuses a key not stored yet, on the caller's thread, before
+            # it submits the bucket the worker reads the key from
+            # mxl: thread-shared-ok (MXL-Q001)
             self._store[k] = NDArray(data, ctx=vals[0].context)
 
     def push(self, key, value, priority=0):
@@ -146,11 +159,12 @@ class KVStore:
         for k, vals in zip(keys, _group_values(keys, value, single)):
             if k not in self._store:
                 raise MXNetError("key %r not initialized" % (k,))
-            self._apply_merged(k, self._allreduce(_merge(vals)))
+            self._apply_merged(k, self._allreduce(_merge(vals)),
+                               self._updater)
 
-    def _apply_merged(self, k, merged):
-        if self._updater is not None:
-            self._updater(k, NDArray(merged), self._store[k])
+    def _apply_merged(self, k, merged, updater):
+        if updater is not None:
+            updater(k, NDArray(merged), self._store[k])
         else:
             self._store[k]._set_data(merged)
 
@@ -233,28 +247,31 @@ class KVStore:
         items, self._bucket, self._bucket_nbytes = self._bucket, [], 0
         if not items:
             return
+        # the updater the gradients were pushed under: a set_updater
+        # while the bucket is in flight applies from the next push on
+        updater = self._updater
         if not self._dist:
             # one worker: nothing to wait for, the update runs inline
             for k, merged in items:
-                self._apply_merged(k, merged)
+                self._apply_merged(k, merged, updater)
             return
         if self._async is None:
             from .parallel.overlap import AsyncLauncher
             self._async = AsyncLauncher(name="kv-async")
-        self._async.submit(lambda: self._bucket_allreduce(items))
+        self._async.submit(lambda: self._bucket_allreduce(items, updater))
 
-    def _bucket_allreduce(self, items):
+    def _bucket_allreduce(self, items, updater):
         """One bucket: its gradients concatenated, summed over the
         workers once, split back, the updater key by key (elementwise
         sums: bit for bit the per-key result)."""
         if len(items) == 1:
             k, merged = items[0]
-            self._apply_merged(k, self._allreduce(merged))
+            self._apply_merged(k, self._allreduce(merged), updater)
             return
         fused = self._allreduce(torch.cat([m.reshape(-1) for _, m in items]))
         for (k, merged), part in zip(items, torch.split(
                 fused, [m.numel() for _, m in items])):
-            self._apply_merged(k, part.view(merged.shape))
+            self._apply_merged(k, part.view(merged.shape), updater)
 
     def pull(self, key, out=None, priority=0):
         if out is None:
@@ -267,6 +284,11 @@ class KVStore:
                 o._set_data(self._store[k].data)
 
     def set_updater(self, updater):
+        """Run ``updater`` on every later push.  The pushes before it
+        keep the updater they were pushed under: the pending bucket is
+        flushed first, and a bucket in flight applies the updater it was
+        flushed with."""
+        self._flush_bucket()
         self._updater = updater
 
     _set_updater = set_updater
@@ -390,7 +412,7 @@ def global_barrier(tag="barrier"):
     CPU value over gloo (``tag`` names it in the telemetry).  Nothing to
     wait for without a group of several."""
     import torch.distributed as dist
-    if _dist_world()[0] <= 1:
+    if _world_size() <= 1:
         return
     from .observability import trace as _trace
     _trace.next_seq(tag)

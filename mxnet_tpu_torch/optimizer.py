@@ -19,7 +19,7 @@ import logging
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, traced_scope
 from .ndarray import NDArray
 from .lr_scheduler import LRScheduler   # noqa: F401  (re-exported, as there)
 
@@ -54,7 +54,12 @@ class Optimizer:
     bit-identical results; LAMB (per-tensor norms) and SGLD (a noise
     draw per leaf) keep the default False.  ``update(index, weight,
     grad, state)`` keeps the reference's imperative signature for the
-    kvstore updaters and ``Module.update``.
+    kvstore updaters and ``Module.update``.  The elementwise classes'
+    ``update_fn`` and ``_preprocess_grad`` carry ``base.traced_scope``:
+    ``kernels/sweep_codegen`` traces them into a generated sweep body
+    (for a subclass with its own ``_preprocess_grad``), baked once and
+    replayed, so the retrace lint (MXL-X001) holds them to no Python
+    branch on a tensor's value.
     """
 
     opt_registry = {}
@@ -165,6 +170,7 @@ class Optimizer:
         """Pure update: (new_weight, new_state).  Subclasses override."""
         raise NotImplementedError()
 
+    @traced_scope
     def _preprocess_grad(self, grad):
         grad = grad * self.rescale_grad
         if self.clip_gradient is not None:
@@ -227,6 +233,7 @@ class SGD(Optimizer):
             return None
         return _zeros(shape, dtype, device)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         g = grad + wd * weight
         if state is None:
@@ -239,6 +246,7 @@ class SGD(Optimizer):
 class NAG(SGD):
     """Nesterov accelerated SGD (parity: optimizer.py:313)."""
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         g = grad + wd * weight
         if state is None:
@@ -317,6 +325,7 @@ class Adam(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device, 2)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         if state is None:
             raise MXNetError("Adam needs its (mean, var) state")
@@ -347,6 +356,7 @@ class AdamW(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device, 2)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         mean, var = state
         mean = self.beta1 * mean + (1.0 - self.beta1) * grad
@@ -373,6 +383,7 @@ class AdaGrad(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         g = grad + wd * weight
         hist = state + g * g
@@ -402,6 +413,7 @@ class RMSProp(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device, 3)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         n, g, delta = state
         grad = grad + wd * weight
@@ -427,6 +439,7 @@ class AdaDelta(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device, 2)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         acc_g, acc_delta = state
         g = grad + wd * weight
@@ -478,6 +491,7 @@ class Test(Optimizer):
     def create_state_arrays(self, shape, dtype=torch.float32, device=None):
         return _zeros(shape, dtype, device)
 
+    @traced_scope
     def update_fn(self, weight, grad, state, lr, wd, t):
         return weight + grad * 1.0 - 0.0 * lr, state
 

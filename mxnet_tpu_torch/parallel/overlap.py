@@ -73,6 +73,9 @@ def close_launchers():
 
 @atexit.register
 def _mark_shutdown():
+    # a one-way flag, set once here (a GIL-atomic store) and polled by
+    # the workers between closures; close_launchers then joins them
+    # mxl: thread-shared-ok (MXL-Q001)
     _SHUTTING_DOWN[0] = True
     close_launchers()
 
@@ -289,6 +292,7 @@ class DevicePrefetcher(object):
             torch.cuda.current_stream(self._stream.device).wait_event(ready)
         # single consumer owns the counter; the producer only reads it
         # for span step labels, where staleness is harmless
+        # mxl: thread-shared-ok (MXL-Q001)
         self._n += 1
         return batch
 
@@ -642,6 +646,9 @@ class GradBuckets(object):
                     self._handles.append(leaf.register_post_accumulate_grad_hook(
                         functools.partial(self._arrived, name)))
 
+    # the hook that counts a bucket to zero (under _lock) is the only one
+    # to run it; finish() reads after backward() has returned, which
+    # joins autograd's device threads  # mxl: thread-shared-ok (MXL-Q005)
     def _arrived(self, name, _leaf):
         i = self._bucket_of[name]
         with self._lock:
@@ -650,6 +657,9 @@ class GradBuckets(object):
         if ready:
             self._run(i)
 
+    # bucket i's results and count are written by the one caller that
+    # found it complete: its last hook, or finish() after the backward
+    # mxl: thread-shared-ok (MXL-Q005)
     def _run(self, i):
         names = self.plan[i]
         grads = []

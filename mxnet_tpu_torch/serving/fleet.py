@@ -536,6 +536,11 @@ class FleetRouter(object):
         the router starts as a standby unless its lease holds, and the
         health loop re-runs the election on its next tick."""
         try:
+            # Lease.poll is an election over atomic KV writes, not a
+            # rendezvous: no router waits inside it for this one, so one
+            # that skips it on a KV fault only stays standby until the
+            # health loop's next election
+            # mxl: rank-divergent-ok (MXL-D006)
             self._lease.poll()
             self._swap_ptr_seen = self._kv.blocking_key_value_get(
                 _SWAP_PTR_KEY, 50)

@@ -290,8 +290,13 @@ def cmd_serve(args):
     httpd = ThreadingHTTPServer((args.host, port),
                                 make_front_handler(router))
 
+    stoppers = []
+
     def shutdown(_sig, _frm):
-        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        # off the signal frame: httpd.shutdown waits for serve_forever
+        t = threading.Thread(target=httpd.shutdown, daemon=True)
+        stoppers.append(t)
+        t.start()
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
 
@@ -304,6 +309,8 @@ def cmd_serve(args):
     try:
         httpd.serve_forever()
     finally:
+        for t in stoppers:
+            t.join()
         router.close()
         httpd.server_close()
     return 0

@@ -35,17 +35,24 @@ def cmd_serve(args):
     srv = TcpKVServer(host=args.host, port=args.port,
                       max_value_bytes=args.max_value)
     stopping = threading.Event()
+    stoppers = []
 
     def shutdown(_sig, _frm):
         if not stopping.is_set():
             stopping.set()
             # stop() joins handler threads; run it off the signal frame
-            threading.Thread(target=srv.stop, daemon=True).start()
+            t = threading.Thread(target=srv.stop, daemon=True)
+            stoppers.append(t)
+            t.start()
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
     sys.stderr.write("mxkv: serving on %s\n" % srv.url)
     sys.stderr.flush()
     srv.serve_forever()
+    # serve_forever returns once stop() has closed the socket; the exit
+    # waits for stop() to join the handler threads too
+    for t in stoppers:
+        t.join()
     return 0
 
 

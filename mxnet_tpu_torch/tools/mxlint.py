@@ -35,26 +35,49 @@ rate:
   python -m mxnet_tpu_torch.tools.mxlint --model transformer_moe \
       --mesh dp=1,ep=4 --schedule
 
-``--distributed`` (with ``--world-size``) diffs the per-rank collective
-trace of each graph (MXL-D001..D003).  The source-level families over
-``.py`` targets (``--distributed`` D004-D006, ``--concurrency``,
-``--retrace``) wait on ROADMAP.md queue 1 item 4 (g2): each exits 2
-naming it.
-``--diff [REV]`` lints the symbol JSONs and zoo models a change
-touches.
+The distributed family (MXL-D) diffs the per-rank collective trace of
+each graph (D001..D003) and runs the rank-divergence dataflow pass over
+Python source (D004..D006).  ``--distributed`` turns both on
+(``--world-size`` sets the simulated pod size, default 4); ``.py`` files
+and directories among the positional targets are source-linted:
+
+  python -m mxnet_tpu_torch.tools.mxlint --all-models --distributed
+  python -m mxnet_tpu_torch.tools.mxlint --distributed mxnet_tpu_torch
+
+``--concurrency`` runs the thread-safety family (MXL-Q) over the same
+source targets: shared-attribute races, lock-order cycles, blocking
+under a lock (device syncs included), thread leaks, host-callback
+violations, missing wait re-check loops.  ``--retrace`` runs the
+retrace-stability family (MXL-X): the zero-steady-state-lowerings
+contract over program builds, NVRTC compiles and the CUDA extension's
+build.  The families compose; the port lints clean under all three:
+
+  python -m mxnet_tpu_torch.tools.mxlint --distributed --concurrency \
+      --retrace mxnet_tpu_torch --fail-on=warning
+
+``--diff [REV]`` lints only what a change touches — changed symbol
+JSONs, the zoo models whose builders changed, and the changed .py files
+of the port (the rank-divergence pass; plus MXL-Q with ``--concurrency``
+and MXL-X with ``--retrace``):
+
+  python -m mxnet_tpu_torch.tools.mxlint --diff origin/main \
+      --concurrency --retrace --fail-on=error
 
 Exit codes: 0 = nothing at/above --fail-on severity, 1 = findings at or
 above it, 2 = usage/load failure.  --fail-on=never always exits 0 (report
 only).  --select/--skip accept fnmatch wildcards ("MXL-P*") and
 comma-separated lists.  --format=github emits workflow-command
-annotations for CI logs.  --baseline FILE suppresses previously recorded
-findings (write it with --update-baseline) so a sweep fails only on NEW
+annotations for CI logs (source findings carry ``file=`` and ``line=``).
+--baseline FILE suppresses previously recorded findings (keyed on stable
+file:qualname anchors where available, so records survive unrelated
+edits; write it with --update-baseline) so a sweep fails only on NEW
 findings.
 """
 import argparse
 import ast
 import json
 import os
+import re
 import sys
 
 # the zoo sweep: get_symbol kwargs keep the big nets at lint-friendly sizes
@@ -79,9 +102,6 @@ MODEL_SWEEP = [
       "seq_len": 64, "num_experts": 4},
      {"data": (2, 64), "softmax_label": (2, 64)}),
 ]
-
-#: the ROADMAP item the unported modes wait on
-SOURCE_ITEM = "ROADMAP.md queue 1 item 4 (g2)"
 
 
 def parse_shapes(specs):
@@ -259,6 +279,20 @@ def lint_model(name, kwargs, shapes, target, select, skip, **spmd):
     return "model:%s" % name, issues, (ctx_out[0] if ctx_out else None)
 
 
+def lint_sources(paths, select, skip, world_size=None, families=None):
+    """Run the source-reading pass families over .py files and
+    directories; returns the same (label, issues, ctx) triple shape.
+    ``families`` picks the default rule set when no --select is given:
+    MXL-D* (rank divergence), MXL-Q* (concurrency), MXL-X* (retrace
+    stability), or any combination."""
+    from ..analysis import analyze
+    issues = analyze(None, source_paths=list(paths),
+                     world_size=world_size,
+                     select=(select or families or ["MXL-D*"]),
+                     skip=skip)
+    return "sources", issues, None
+
+
 def git_changed_paths(rev, cwd=None):
     """Paths changed vs ``rev`` (committed + staged + worktree)."""
     import subprocess
@@ -276,9 +310,8 @@ def diff_targets(changed, sweep=None):
 
     Returns ``{"files", "models", "sources"}``: changed symbol JSONs
     lint directly, a changed ``models/<name>.py`` of the port re-lints
-    that zoo entry (when it has a sweep row), and ``sources`` lists the
-    changed framework .py files, which the source lints would read (not
-    ported: ROADMAP.md queue 1 item 4 (g2)).  Existence filtering
+    that zoo entry (when it has a sweep row), and every changed .py file
+    of the port goes through the source passes.  Existence filtering
     (deleted files show up in diffs) is the caller's job.
     """
     sweep = MODEL_SWEEP if sweep is None else sweep
@@ -368,11 +401,17 @@ def roofline_report_lines(ctx):
     return lines
 
 
+_LINE_RE = re.compile(r"\(line \d+\)")
+
+
 def _baseline_key(label, rule_id, where, message):
     """``where`` is the stable location: the file:qualname anchor when
     the finding has one, else the node name — never a line number, so
-    baselines survive unrelated edits."""
-    return "%s|%s|%s|%s" % (label, rule_id, where or "", message)
+    baselines survive unrelated edits (the source findings' messages
+    name the lines of their two sites, ``(line N)``: left out of the
+    key too)."""
+    return "%s|%s|%s|%s" % (label, rule_id, where or "",
+                            _LINE_RE.sub("(line)", message))
 
 
 def load_baseline(path):
@@ -430,20 +469,14 @@ def gh_annotation(label, issue):
         _gh_escape(label), _gh_escape(where), _gh_escape(issue.message))
 
 
-def _refuse(what, item):
-    print("mxlint: %s is not ported yet (%s)" % (what, item),
-          file=sys.stderr)
-    return 2
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mxlint", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("files", nargs="*",
-                    help="saved symbol JSON files (.py files and "
-                         "directories are the source lints' targets: "
-                         "not ported yet)")
+                    help="saved symbol JSON files; .py files and "
+                         "directories go through the source passes "
+                         "(MXL-D004..006 by default)")
     ap.add_argument("--model", action="append", default=[],
                     help="lint a bundled mxnet_tpu_torch/models/<name> "
                          "network (repeatable)")
@@ -491,15 +524,22 @@ def main(argv=None):
                     help="microbatch count the schedule simulator walks "
                          "(default MXTPU_LINT_MICROBATCHES, else 8)")
     ap.add_argument("--distributed", action="store_true",
-                    help="enable the per-rank collective-trace diff on "
-                         "graphs (MXL-D001..003); on .py targets the "
-                         "rank-divergence pass is not ported yet")
+                    help="enable the MXL-D distributed family: per-rank "
+                         "collective-trace diff on graphs (D001..003) "
+                         "and the rank-divergence source pass "
+                         "(D004..006) on .py targets")
     ap.add_argument("--concurrency", action="store_true",
-                    help="the MXL-Q concurrency lint over .py sources: "
-                         "not ported yet, exits 2")
+                    help="enable the MXL-Q concurrency family over .py "
+                         "source targets: shared-state races, lock-order "
+                         "cycles, blocking under lock, thread leaks, "
+                         "callback-context violations, wait-loop hygiene")
     ap.add_argument("--retrace", action="store_true",
-                    help="the MXL-X retrace-stability lint over .py "
-                         "sources: not ported yet, exits 2")
+                    help="enable the MXL-X retrace-stability family over "
+                         ".py source targets: traced control flow on "
+                         "tensors, unstable cache-key ingredients, "
+                         "per-step program builds and compiles, weak-type "
+                         "scalar leaks, unbucketed program tables, "
+                         "donated-buffer reuse")
     ap.add_argument("--world-size", type=int, default=None,
                     metavar="N",
                     help="simulated pod size for the trace diff "
@@ -507,8 +547,10 @@ def main(argv=None):
                          "--distributed is set)")
     ap.add_argument("--diff", nargs="?", const="HEAD", default=None,
                     metavar="REV",
-                    help="lint only the symbol JSONs and zoo models "
-                         "changed vs REV (default HEAD)")
+                    help="lint only targets reachable from paths changed "
+                         "vs REV (default HEAD): changed symbol JSONs, "
+                         "models whose builders changed, and changed .py "
+                         "files of the port (fast pre-merge mode)")
     ap.add_argument("--baseline", default=None, metavar="FILE",
                     help="suppress findings recorded in FILE; fail only "
                          "on new ones (create it with --update-baseline)")
@@ -545,10 +587,6 @@ def main(argv=None):
         if args.microbatches < 1:
             ap.error("--microbatches must be >= 1")
         os.environ["MXTPU_LINT_MICROBATCHES"] = str(args.microbatches)
-    if args.concurrency:
-        return _refuse("--concurrency (the MXL-Q source lint)", SOURCE_ITEM)
-    if args.retrace:
-        return _refuse("--retrace (the MXL-X source lint)", SOURCE_ITEM)
 
     if args.world_size is not None:
         args.distributed = True
@@ -561,19 +599,17 @@ def main(argv=None):
             print("mxlint: %s" % exc, file=sys.stderr)
             return 2
         picked = diff_targets(changed)
-        args.files += [p for p in picked["files"] if os.path.exists(p)]
+        args.files += [p for p in picked["files"] + picked["sources"]
+                       if os.path.exists(p)]
         args.model += [m for m in picked["models"]
                        if m not in args.model]
-        if picked["sources"] and args.fmt == "text":
-            print("mxlint: %d changed .py file(s) not source-linted (%s)"
-                  % (len(picked["sources"]), SOURCE_ITEM))
         if not args.files and not args.model and not args.all_models:
             print("mxlint: --diff %s: no lintable changes" % args.diff)
             return 0
 
     if not args.files and not args.model and not args.all_models:
-        ap.error("nothing to lint: pass JSON files, --model, "
-                 "--all-models, or --diff")
+        ap.error("nothing to lint: pass JSON files / .py sources, "
+                 "--model, --all-models, or --diff")
 
     json_files = [p for p in args.files if p.endswith(".json")]
     source_paths = [p for p in args.files if not p.endswith(".json")]
@@ -583,10 +619,6 @@ def main(argv=None):
         print("mxlint: not a symbol JSON, .py file, or directory: %s"
               % ", ".join(bad), file=sys.stderr)
         return 2
-    if source_paths:
-        return _refuse("linting .py sources (%s: the rank-divergence, "
-                       "concurrency and retrace passes)"
-                       % ", ".join(source_paths), SOURCE_ITEM)
 
     try:
         shapes = parse_shapes(args.shapes)
@@ -637,6 +669,17 @@ def main(argv=None):
             targets.append(lint_model(name, kwargs,
                                       shapes or default_shapes,
                                       args.target, select, skip, **spmd))
+        if source_paths:
+            families = []
+            if args.distributed or not (args.concurrency or args.retrace):
+                families.append("MXL-D*")
+            if args.concurrency:
+                families.append("MXL-Q*")
+            if args.retrace:
+                families.append("MXL-X*")
+            targets.append(lint_sources(source_paths, select, skip,
+                                        world_size=world_size,
+                                        families=families))
     except (IOError, OSError, ValueError, ImportError) as exc:
         print("mxlint: %s" % exc, file=sys.stderr)
         return 2

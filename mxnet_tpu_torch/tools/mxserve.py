@@ -344,9 +344,14 @@ def main(argv=None):
     from http.server import ThreadingHTTPServer
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(srv))
 
+    stoppers = []
+
     def shutdown(_sig, _frm):
-        # graceful drain: stop admission, flush accepted requests
-        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        # graceful drain: stop admission, flush accepted requests (off the
+        # signal frame: httpd.shutdown waits for serve_forever to return)
+        t = threading.Thread(target=httpd.shutdown, daemon=True)
+        stoppers.append(t)
+        t.start()
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
 
@@ -355,6 +360,8 @@ def main(argv=None):
     try:
         httpd.serve_forever()
     finally:
+        for t in stoppers:
+            t.join()
         srv.close()
         httpd.server_close()
     return 0

@@ -961,18 +961,34 @@ def test_hbm_capacity_from_the_table(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# the unported halves raise naming their ROADMAP items
+# the source half: the entry points and analyze(source_paths=...)
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("fn,item", [
-    ("analyze_source_paths", "4 (g2)"), ("analyze_concurrency_paths",
-                                         "4 (g2)"),
-    ("analyze_retrace_paths", "4 (g2)")])
-def test_unported_entry_points_raise(fn, item):
-    with pytest.raises(tmx.MXNetError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        getattr(tan, fn)([])
-    with pytest.raises(tmx.MXNetError, match="4 \\(g2\\)"):
-        tan.analyze(None, source_paths=["x.py"])
+@pytest.mark.parametrize("fn,family,rules", [
+    ("analyze_source_paths", "divergence",
+     {"MXL-D004", "MXL-D005", "MXL-D006"}),
+    ("analyze_concurrency_paths", "concurrency",
+     {"MXL-Q001", "MXL-Q004", "MXL-Q005"}),
+    ("analyze_retrace_paths", "retrace", {"MXL-X002"})])
+def test_source_entry_points_run(fn, family, rules):
+    fixtures = os.path.join(ROOT, "tests", "fixtures", family)
+    got = getattr(tan, fn)([fixtures], root=ROOT)
+    assert {f["rule"] for f in got} == rules
+    assert got == getattr(jan, fn)([fixtures], root=ROOT)
+    issues = tan.analyze(None, source_paths=[fixtures],
+                         select=[sorted(rules)[0][:5] + "*"])
+    assert {i.rule_id for i in issues} == rules
+    for i in issues:
+        assert i.anchor.startswith("tests/fixtures/%s/" % family)
+        assert isinstance(i.line, int) and i.line > 0
+        assert i.severity == tan.RULE_REGISTRY[i.rule_id].severity
+
+
+def test_source_families_silent_without_paths():
+    """A graph lint runs no source family: they read ``source_paths``."""
+    sym = tmx.models.get_mlp()
+    issues = tan.analyze(sym, shapes={"data": (8, 784)}, target="cpu")
+    assert not [i for i in issues if i.rule_id[:5] in ("MXL-Q", "MXL-X")
+                or i.rule_id in ("MXL-D004", "MXL-D005", "MXL-D006")]
 
 
 def test_markers_are_the_port_base_markers():
@@ -990,12 +1006,11 @@ def test_markers_are_the_port_base_markers():
 def test_rule_catalog_shares_ids_with_the_jax_package():
     port = set(tan.RULE_REGISTRY)
     jax_ids = set(jan.RULE_REGISTRY)
-    assert port <= jax_ids
-    # the graph half and the schedule (E) entirely; the source half not
-    assert {r for r in jax_ids if r.startswith(SHARED + ("MXL-E",))
-            and r not in ("MXL-D004", "MXL-D005", "MXL-D006")} <= port
+    # every rule of the JAX package, the source families D004-D006, Q and
+    # X included (K and R keep their ids with the card's meaning)
+    assert port == jax_ids
     for rid in port:
-        if rid.startswith(SHARED):
+        if rid.startswith(SHARED + ("MXL-E", "MXL-Q", "MXL-X")):
             assert tan.RULE_REGISTRY[rid].severity == \
                 jan.RULE_REGISTRY[rid].severity, rid
 

@@ -3,7 +3,9 @@ cases of ``tests/test_tools.py``, run in process through ``main(argv)``
 (two subprocesses check the module entry point), the ``--format json``
 output held to the JAX CLI's (``tools/mxlint.py``) on the same saved
 graphs for the rules that are not about the hardware, and the source
-lints exiting 2 with the ROADMAP item they wait on (``--schedule`` runs:
+modes (``--distributed``/``--concurrency``/``--retrace`` on ``.py``
+targets, with ``--baseline``, ``--diff`` and ``--format=github``) against
+the port and the fixtures (``--schedule`` runs:
 ``tests/test_torch_schedule.py``).
 """
 import importlib.util
@@ -43,9 +45,9 @@ def _save_mlp(mx, path):
 def test_mxlint_list_rules(capsys):
     rc, out, _ = _lint(capsys, "--list-rules")
     assert rc == 0
-    for rid in ("MXL-S002", "MXL-L001", "MXL-K004", "MXL-R003", "MXL-D003"):
+    for rid in ("MXL-S002", "MXL-L001", "MXL-K004", "MXL-R003", "MXL-D003",
+                "MXL-D006", "MXL-Q001", "MXL-Q006", "MXL-X001", "MXL-X006"):
         assert rid in out
-    assert "MXL-Q001" not in out and "MXL-X001" not in out
 
 
 def test_mxlint_clean_json_exits_zero(capsys, tmp_path):
@@ -219,16 +221,135 @@ def test_mxlint_distributed_model_graph(capsys):
     assert rc == 0
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--concurrency", "mxnet_tpu_torch"], "4 (g2)"),
-    (["--retrace", "mxnet_tpu_torch"], "4 (g2)"),
-    (["--distributed", "mxnet_tpu_torch"], "4 (g2)"),
-    (["--distributed", "tests/fixtures/divergence"], "4 (g2)"),
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["--concurrency", "mxnet_tpu_torch"], 0),
+    (["--retrace", "mxnet_tpu_torch"], 0),
+    (["--distributed", "mxnet_tpu_torch"], 0),
+    (["--distributed", "fixtures/divergence"], 1),
+    (["--concurrency", "fixtures/concurrency"], 1),
+    (["--retrace", "fixtures/retrace"], 1),
 ])
-def test_source_lints_and_schedule_exit_two(capsys, argv, item):
-    rc, _, err = _lint(capsys, *argv)
-    assert rc == 2
-    assert item in err and "not ported" in err
+def test_source_lints_run(capsys, argv, rc):
+    """The source modes on the port exit 0 at ``--fail-on=warning``; on
+    the regression fixtures, 1."""
+    target = os.path.join(ROOT, argv[1]) if argv[1] == "mxnet_tpu_torch" \
+        else os.path.join(ROOT, "tests", argv[1])
+    got, out, err = _lint(capsys, argv[0], target, "--fail-on=warning")
+    assert got == rc, out + err
+    assert ("clean" in out) == (rc == 0)
+
+
+def test_source_lints_match_the_jax_cli(capsys):
+    """The three families over every fixture: the whole JSON document
+    equal to the JAX CLI's."""
+    argv = ["--distributed", "--concurrency", "--retrace", FIXTURES,
+            "--format", "json", "--fail-on=never"]
+    (rc_j, doc_j), (rc_t, doc_t) = _json_both(capsys, *argv)
+    assert rc_j == rc_t == 0
+    assert doc_t == doc_j
+    rules = {i["rule_id"][:5] for i in doc_t[0]["issues"]}
+    assert rules == {"MXL-D", "MXL-Q", "MXL-X"}
+
+
+def test_lint_sources_families(tmp_path):
+    """``lint_sources``: the families pick the default rule set;
+    ``--select`` narrows within it (the JAX CLI's plumbing)."""
+    p = tmp_path / "racy.py"
+    p.write_text("import threading\n"
+                 "class C:\n"
+                 "    def start(self):\n"
+                 "        threading.Thread(target=self._work).start()\n"
+                 "    def _work(self):\n"
+                 "        self._x = 1\n"
+                 "    def read(self):\n"
+                 "        return self._x\n")
+    _l, issues, _c = mxlint.lint_sources([str(p)], None, [],
+                                         families=["MXL-Q*"])
+    assert {i.rule_id for i in issues} == {"MXL-Q001", "MXL-Q004"}
+    _l, issues, _c = mxlint.lint_sources([str(p)], None, [],
+                                         families=["MXL-D*", "MXL-X*"])
+    assert issues == []
+    _l, issues, _c = mxlint.lint_sources([str(p)], ["MXL-Q004"], [])
+    assert {i.rule_id for i in issues} == {"MXL-Q004"}
+
+
+_RACY = ("import threading\n"
+         "class C:\n"
+         "    def start(self):\n"
+         "        self._t = threading.Thread(target=self._work)\n"
+         "        self._t.start()\n"
+         "    def _work(self):\n"
+         "        self._x = 1\n"
+         "    def read(self):\n"
+         "        return self._x\n"
+         "    def close(self):\n"
+         "        self._t.join()\n")
+
+
+def test_source_baseline_keys_on_the_anchor(capsys, tmp_path, monkeypatch):
+    """A baselined source finding stays suppressed when its line moves
+    (the record is keyed on ``file:qualname``); a new finding fails."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "racy.py").write_text(_RACY)
+    base = str(tmp_path / "baseline.json")
+    args = ("--concurrency", "racy.py", "--fail-on=warning")
+    assert _lint(capsys, *args)[0] == 1
+    rc, out, _ = _lint(capsys, *args, "--baseline", base,
+                       "--update-baseline")
+    assert rc == 0 and "recorded 1 finding" in out
+    doc = json.load(open(base))
+    assert doc["findings"][0]["anchor"] == "racy.py:C._work"
+    (tmp_path / "racy.py").write_text("# moved\n\n\n" + _RACY)
+    rc, out, _ = _lint(capsys, *args, "--baseline", base)
+    assert rc == 0 and "suppressed" in out and "clean" in out
+    (tmp_path / "racy.py").write_text(_RACY + (
+        "    def start2(self):\n"
+        "        threading.Thread(target=self._work).start()\n"))
+    rc, out, _ = _lint(capsys, *args, "--baseline", base)
+    assert rc == 1 and "MXL-Q004" in out
+
+
+def test_source_github_annotations(capsys):
+    rc, out, _ = _lint(capsys, "--distributed",
+                       os.path.join(FIXTURES, "divergence"),
+                       "--format=github")
+    assert rc == 1
+    lines = out.splitlines()
+    assert len(lines) == 6
+    d004 = [ln for ln in lines if "MXL-D004" in ln]
+    assert len(d004) == 1
+    assert d004[0].startswith(
+        "::error file=tests/fixtures/divergence/pid_scratch_path.py,line=")
+    assert all(ln.startswith(("::error file=", "::warning file="))
+               for ln in lines)
+
+
+def test_source_diff_lints_the_changed_sources(tmp_path):
+    """``--diff`` lints the changed .py files of the port (module entry
+    point, in a subprocess): a race added to one is found."""
+    repo = tmp_path / "repo"
+    pkg = repo / "mxnet_tpu_torch"
+    pkg.mkdir(parents=True)
+    env = dict(os.environ, GIT_AUTHOR_NAME="t", GIT_AUTHOR_EMAIL="t@t",
+               GIT_COMMITTER_NAME="t", GIT_COMMITTER_EMAIL="t@t",
+               PYTHONPATH=ROOT)
+    (pkg / "worker.py").write_text("X = 1\n")
+    (pkg / "other.py").write_text(_RACY)
+    for cmd in (["git", "init", "-q"], ["git", "add", "-A"],
+                ["git", "commit", "-q", "-m", "x"]):
+        subprocess.run(cmd, cwd=str(repo), env=env, check=True)
+    (pkg / "worker.py").write_text(_RACY.replace("class C", "class W"))
+    p = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.tools.mxlint",
+                        "--diff", "HEAD", "--concurrency",
+                        "--fail-on=error"],
+                       cwd=str(repo), env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode == 1, p.stdout + p.stderr
+    assert "mxnet_tpu_torch/worker.py:W._work" in p.stdout
+    assert "other.py" not in p.stdout
 
 
 def test_mxlint_diff_targets_mapping():
