@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N] [--iters N] [--out results.json]
 
-(``--phases 4c,13,19,20,21`` runs only those phases, with no result
-line.)
+(``--phases 4c,13,19,20,21,22`` runs only those phases, with no
+result line; ``--phases 22f`` runs phase 22's four-card part on a
+machine with four cards.)
 
 It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
@@ -401,6 +402,36 @@ line:
    lock-order error and the parameters bit for bit the synchronous
    ``push``'s under the same updaters, with the ms a round.  It launches
    no new kernel.
+
+22. tensor parallelism and FSDP (``parallel/tensor_parallel.py``):
+   (a) phase 7's LM (vocab 8192, 8 layers, 8 heads, dim 512, sequence
+   1024, batch 8, SGD with momentum) through ``ShardedTrainer`` at
+   ``tp=2`` and at ``dp=2 x tp=2``, every member on ``gpu(0)``, float32
+   and bfloat16, 3 steps each: each member's flash forward over its 4
+   heads once a layer a step and its own sweeps counted, no whole weight
+   gathered, the float32 runs held to phase 7's float64 witness (and
+   set beside the one-device trainer's run), then 3 timed steps and the
+   peak memory; (b) the same LM under ``fsdp=True`` at ``dp=2`` on one
+   card: parameters and momentum bit for bit ZeRO-1's and plain dp's,
+   each member's persistent bytes beside plain dp's; (c)
+   ``GenerationEngine(mesh=make_mesh([gpu(0)] * 2, tp=2))`` on phase 4's
+   8 prompts, float32 and fp8: tokens equal to the one-device engine's,
+   logits within 1e-3 of a plain forward (fp8: of the one-device fp8
+   engine's), each member's flash-decode launches over 4 heads and
+   weight-only launches by route and rows; (d) ``ShardedPredictor`` at
+   ``dp=2 x tp=2`` from a saved checkpoint of the LM within 1e-5 of
+   ``predictor.Predictor``; (e) each kernel at its member shape against
+   its plain version and timed: flash-decode with 4 heads (2e-5,
+   bitwise on repeat), the flash forward with 4 heads (phase 5's
+   bounds), the weight-only kernel on half of lm_head's rows (1e-4, and
+   a cosine of at least 0.999 against the unquantized product), the
+   sweep on a member's buckets (bit for bit), with the MXL-K specs at
+   those shapes clean and the built libraries' shared memory.  It prints
+   its own kernels line (rows 1-4 at the member shapes).  (f), alone
+   with ``--phases 22f`` on a machine with four cards: the LM at
+   ``tp=4`` over the four (NCCL) within the float64 witness, and
+   ``fsdp=True`` at ``dp=4`` bit for bit ZeRO-1's, with each card's
+   peak memory.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -9660,6 +9691,697 @@ def phase_source_lints(torch, seed, smi):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 22: tensor parallelism and FSDP
+# ----------------------------------------------------------------------
+#: the LM's steps a configuration (phase 7's 3), then the timed ones
+TP_STEPS = 3
+TP_TIMED_STEPS = 3
+#: ShardedPredictor's batch (phase 7's sequence length)
+TP_PREDICT_BATCH = 2
+TP_PREDICT_TOL = 1e-5
+
+
+def tp_dir(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_tp", *parts)
+
+
+def _tp_reset():
+    """Every count phase 22 reads, at 0 (the launches of the main path's
+    run that follows)."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+    _reset_dp_counts()
+    fa.flash_attention_forward.launches_by_heads.clear()
+    fd.flash_decode_attention.launches = 0
+    fd.flash_decode_attention.launches_by_heads.clear()
+    qz.quantized_matmul.launches = 0
+    qz.quantized_matmul.launches_by_route.update(gemv=0, wgmma=0)
+    qz.quantized_matmul.launches_by_qdtype.update(int8=0, fp8_e4m3=0)
+    qz.quantized_matmul.launches_by_rows.clear()
+    tp.reset_counts()
+
+
+def _tp_counts():
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import quantize as qz
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+    out = _sweep_counts()
+    out.update(
+        flash_attention_by_heads=dict(fa.flash_attention_forward
+                                      .launches_by_heads),
+        flash_attention_by_dtype=dict(fa.flash_attention_forward
+                                      .launches_by_dtype),
+        flash_decode=fd.flash_decode_attention.launches,
+        flash_decode_by_heads=dict(fd.flash_decode_attention
+                                   .launches_by_heads),
+        quantized_matmul=qz.quantized_matmul.launches,
+        quantized_matmul_by_route=dict(qz.quantized_matmul
+                                       .launches_by_route),
+        quantized_matmul_by_rows=dict(qz.quantized_matmul.launches_by_rows),
+        whole_weight_gathers=tp.counts()["whole_weight_gathers"])
+    return out
+
+
+def _plain_refs(torch, params, batch, steps):
+    """Phase 7's plain float32 and float64 steps from ``params``: the
+    float64 witness every tp and FSDP run is held to."""
+    o32, p32, _m = plain_train(torch, params, batch, steps)
+    o64, p64, _m = plain_train(torch, _f64(torch, params), batch, steps)
+    return o32, p32, o64, p64
+
+
+def _witness(torch, what, refs, before, outs, p_after):
+    """:func:`precision_check`'s readings from precomputed plain steps."""
+    o32, p32, o64, p64 = refs
+    got = {"what": what,
+           "port_vs_plain32": _diff(torch, outs, p_after, o32, p32, before),
+           "port_vs_plain64": _diff(torch, outs, p_after, o64, p64, before),
+           "plain32_vs_plain64": _diff(torch, o32, p32, o64, p64, before)}
+    got["ok"] = all(a <= PRECISION_FACTOR * b for a, b in
+                    zip(got["port_vs_plain64"], got["plain32_vs_plain64"]))
+    return got
+
+
+def _tp_trainer(torch, mx, mesh, params, opt_kw, compute_dtype=None, **kw):
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.parallel.sharding import place
+    opt = mx.optimizer.create("sgd", **opt_kw)
+    tr = mx.parallel.ShardedTrainer(tf.get_symbol(**TRAIN), opt, mesh,
+                                    compute_dtype=compute_dtype, **kw)
+    p = tr.place_params(params)
+    st = {k: place(np.zeros(v.shape, np.float32), mesh,
+                   tr.opt_state_sharding(k, v.shape).spec)
+          for k, v in params.items()}
+    if mesh.size == 1:
+        st = {k: v.shards[0] for k, v in st.items()}
+    return tr, p, st
+
+
+def tp_lm_gate(torch, mx, seed, smi, shape, distinct, refs, params, batch,
+               dtypes=("float32", "bfloat16"), tp1=None):
+    """(a) the LM at full width on ``make_mesh(**shape)``: TP_STEPS steps a
+    dtype (SGD with momentum), each member's flash forward over its
+    ``H/tp`` heads (once a layer a step) and its own sweeps counted, no
+    whole weight gathered, the float32 run held to phase 7's float64
+    witness (``refs``) and set beside ``tp1`` (the one-device trainer's
+    outputs and parameters after TP_STEPS); then TP_TIMED_STEPS timed
+    steps and each card's peak memory."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    n = int(np.prod(list(shape.values())))
+    tp_n = shape.get("tp", 1)
+    ctxs = _dp_contexts(mx, n, distinct)
+    mesh = mx.parallel.make_mesh(ctxs, **shape)
+    S = TRAIN["seq_len"]
+    opt_kw = dict(TRAIN_SGD, rescale_grad=1.0 / (TRAIN_BATCH * S))
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    heads = TRAIN["num_heads"] // tp_n
+    out = {"mesh": dict(shape), "cards": len(set(mesh.devices)),
+           "contexts": [str(c) for c in ctxs]}
+    for dtype in dtypes:
+        cdt = None if dtype == "float32" else dtype
+        tr, p, st = _tp_trainer(torch, mx, mesh, params, opt_kw, cdt)
+        b = tr.shard_batch(batch)
+        _sync_all(torch, mesh.devices)
+        _peak_reset_all(torch, mesh.devices)
+        _tp_reset()
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            p, st, _a, outs = tr.step(p, st, {}, b)
+        _sync_all(torch, mesh.devices)
+        first_s = time.perf_counter() - t0
+        counts = _tp_counts()
+        member = {k: p[k].shards[0] for k in tr.param_names}
+        buckets = len(fo.plan_buckets(member))
+        want_fa = TRAIN["num_layers"] * TP_STEPS * n
+        want_fo = buckets * TP_STEPS * n
+        what = "tp (a) %s %s" % (dict(shape), dtype)
+        if counts["whole_weight_gathers"]:
+            raise AssertionError("%s: %d whole-weight gathers"
+                                 % (what, counts["whole_weight_gathers"]))
+        if counts["flash_attention"] != want_fa \
+                or counts["flash_attention_by_heads"] != {heads: want_fa} \
+                or counts["flash_attention_by_dtype"][dtype] != want_fa \
+                or counts["fused_opt"] != want_fo:
+            raise AssertionError(
+                "%s: launches %s, want the flash forward %d times over %d "
+                "heads (a layer, a step, a member), its %s body, and the "
+                "sweep %d (%d buckets a member)"
+                % (what, counts, want_fa, heads, dtype, want_fo, buckets))
+        dev0 = mesh.devices[0]
+        o_whole = outs[0].global_tensor(dev0)
+        if not bool(torch.isfinite(o_whole.float()).all()):
+            raise AssertionError("%s: non-finite outputs" % what)
+        row = {"launches": counts, "buckets_a_member": buckets,
+               "first_steps_s": first_s,
+               "member_param_bytes": sum(v.numel() * v.element_size()
+                                         for v in member.values())}
+        if dtype == "float32":
+            p_after = {k: v.global_tensor(dev0) for k, v in p.items()}
+            wit = _witness(torch, what, refs, params, o_whole, p_after)
+            if not wit["ok"]:
+                raise AssertionError("%s: the float64 witness %s"
+                                     % (what, json.dumps(wit)))
+            row["witness"] = wit
+            if tp1 is not None:
+                row["vs_tp1"] = _diff(torch, o_whole, p_after, *tp1,
+                                      params)
+            del p_after
+        del o_whole, outs
+        times = []
+        for _ in range(TP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            p, st, _a, _o = tr.step(p, st, {}, b)
+            _sync_all(torch, mesh.devices)
+            times.append(time.perf_counter() - t0)
+        row["step_ms"] = float(np.median(times)) * 1e3
+        row["step_ms_all"] = [t * 1e3 for t in times]
+        row["tokens_per_s"] = TRAIN_BATCH * S / (row["step_ms"] / 1e3)
+        row["peak_bytes_by_device"] = _peaks_by_device(torch, mesh.devices)
+        out[dtype] = row
+        log("%s: %.3f ms/step (median of %d), %.1f tokens/s; flash forward "
+            "%d over %s heads, sweep %d (%d buckets a member); whole-weight "
+            "gathers 0; peak bytes by card %s%s; on %s"
+            % (what, row["step_ms"], TP_TIMED_STEPS, row["tokens_per_s"],
+               counts["flash_attention"], heads, counts["fused_opt"],
+               buckets, json.dumps(row["peak_bytes_by_device"]),
+               "; witness %s" % json.dumps(row["witness"])
+               if "witness" in row else "", smi))
+        del tr, p, st, b, _o
+        torch.cuda.empty_cache()
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    return out
+
+
+def tp_fsdp_gate(torch, mx, seed, smi, n, distinct, params, batch):
+    """(b) the LM under ``fsdp=True`` at dp=n: its parameters and momentum
+    after TP_STEPS and TP_TIMED_STEPS steps bit for bit those of ZeRO-1
+    (both reduce-scatter the same gradients) and, on one card, of plain
+    dp (over cards NCCL's all-reduce may sum in another order: the
+    difference is reported); each member's persistent bytes of
+    parameters and state beside plain dp's; the step timed; each card's
+    peak."""
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    ctxs = _dp_contexts(mx, n, distinct)
+    mesh = mx.parallel.make_mesh(ctxs, dp=n)
+    S = TRAIN["seq_len"]
+    opt_kw = dict(TRAIN_SGD, rescale_grad=1.0 / (TRAIN_BATCH * S))
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    runs, got = {}, {}
+    for mode in ("replicated", "zero1", "fsdp"):
+        kw = {"replicated": {}, "zero1": {"zero1": True},
+              "fsdp": {"fsdp": True}}[mode]
+        tr, p, st = _tp_trainer(torch, mx, mesh, params, opt_kw, **kw)
+        b = tr.shard_batch(batch)
+        _sync_all(torch, mesh.devices)
+        _peak_reset_all(torch, mesh.devices)
+        _tp_reset()
+        for _ in range(TP_STEPS):
+            p, st, _a, _o = tr.step(p, st, {}, b)
+        _sync_all(torch, mesh.devices)
+        counts = _tp_counts()
+        persistent = [sum(v.shards[r].numel() * v.shards[r].element_size()
+                          for d in (p, st) for v in d.values())
+                      for r in range(n)]
+        times = []
+        for _ in range(TP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            p, st, _a, _o = tr.step(p, st, {}, b)
+            _sync_all(torch, mesh.devices)
+            times.append(time.perf_counter() - t0)
+        dev0 = mesh.devices[0]
+        got[mode] = ({k: v.global_tensor(dev0) for k, v in p.items()},
+                     {k: v.global_tensor(dev0) for k, v in st.items()})
+        runs[mode] = {"launches": counts,
+                      "persistent_bytes_by_member": persistent,
+                      "step_ms": float(np.median(times)) * 1e3,
+                      "step_ms_all": [t * 1e3 for t in times],
+                      "peak_bytes_by_device": _peaks_by_device(
+                          torch, mesh.devices)}
+        del tr, p, st, b, _o
+        torch.cuda.empty_cache()
+    fp, fs = got["fsdp"]
+    diffs = {}
+    for mode in ("zero1", "replicated"):
+        wp, ws = got[mode]
+        bad = [k for k in fp if not torch.equal(fp[k], wp[k])
+               or not torch.equal(fs[k], ws[k])]
+        diffs[mode] = max(float((fp[k] - wp[k]).abs().max()) for k in fp)
+        if bad and (mode == "zero1" or not distinct):
+            raise AssertionError("tp (b) fsdp dp=%d: parameters or momentum "
+                                 "differ from %s's after %d steps: %s"
+                                 % (n, mode, TP_STEPS + TP_TIMED_STEPS,
+                                    bad[:5]))
+    del got, fp, fs, wp, ws
+    torch.cuda.empty_cache()
+    share = runs["fsdp"]["persistent_bytes_by_member"][0] \
+        / runs["replicated"]["persistent_bytes_by_member"][0]
+    out = {"dp": n, "cards": len(set(mesh.devices)), "runs": runs,
+           "persistent_share": share, "max_abs_diff": diffs}
+    log("tp (b) fsdp dp=%d on %d card(s): parameters and momentum after %d "
+        "steps, max |diff| against ZeRO-1 and plain dp %s (0: bit for "
+        "bit); persistent bytes a "
+        "member %s (fsdp) against %s (replicated), a share of %.4f; ms a "
+        "step fsdp %.3f, zero1 %.3f, replicated %.3f; peak bytes by card %s; "
+        "sweep launches %s; on %s"
+        % (n, out["cards"], TP_STEPS + TP_TIMED_STEPS, json.dumps(diffs),
+           runs["fsdp"]["persistent_bytes_by_member"],
+           runs["replicated"]["persistent_bytes_by_member"], share,
+           runs["fsdp"]["step_ms"], runs["zero1"]["step_ms"],
+           runs["replicated"]["step_ms"],
+           json.dumps({m: r["peak_bytes_by_device"]
+                       for m, r in runs.items()}),
+           json.dumps({m: r["launches"]["fused_opt"]
+                       for m, r in runs.items()}), smi))
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    return out
+
+
+def tp_engine_gate(torch, mx, seed, smi):
+    """(c) ``GenerationEngine(mesh=make_mesh([gpu(0)] * 2, tp=2))`` on
+    phase 4's 8 prompts, float32 and fp8: tokens equal to the one-device
+    engine's, float32 logits within 1e-3 of a plain forward and fp8
+    logits within 1e-3 of the one-device fp8 engine's; each member's
+    flash-decode launches (4 heads) and weight-only launches by route and
+    rows counted."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+    params = seeded_params(seed)
+    prompts = make_prompts(seed)
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    mesh = mx.parallel.make_mesh([ctx, ctx], tp=2)
+    out = {}
+    for quantize in (None, "fp8_e4m3"):
+        name = quantize or "float32"
+        one, one_tok, one_logits = run_engine(torch, params, prompts,
+                                              quantize)
+        t0 = time.perf_counter()
+        eng = GenerationEngine(params, mesh=mesh, quantize=quantize,
+                               **MODEL)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng.collect_logits = True
+        _tp_reset()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _tp_counts()
+        st = eng.stats()
+        what = "tp (c) engine tp=2 %s" % name
+        if toks != one_tok:
+            first = next(i for i, (a, b) in enumerate(zip(toks, one_tok))
+                         if a != b)
+            raise AssertionError("%s: prompt %d's tokens differ from the "
+                                 "one-device engine's" % (what, first))
+        heads = MODEL["num_heads"] // 2
+        want_fd = st["decode_steps"] * MODEL["num_layers"] * 2
+        if counts["flash_decode_by_heads"] != {heads: want_fd} \
+                or counts["whole_weight_gathers"]:
+            raise AssertionError("%s: launches %s, want flash-decode %d "
+                                 "times over %d heads and no whole-weight "
+                                 "gather" % (what, counts, want_fd, heads))
+        if quantize:
+            # each member's rows of lm_head, ffn1 and ffn2
+            rows = {MODEL["vocab_size"] // 2,
+                    MODEL["ffn_mult"] * MODEL["dim"] // 2,
+                    MODEL["dim"] // 2}
+            if set(counts["quantized_matmul_by_rows"]) != rows \
+                    or min(counts["quantized_matmul_by_route"].values()) < 1:
+                raise AssertionError("%s: weight-only launches by rows %s "
+                                     "and route %s, want rows %s on both "
+                                     "bodies" % (
+                                         what,
+                                         counts["quantized_matmul_by_rows"],
+                                         counts["quantized_matmul_by_route"],
+                                         sorted(rows)))
+            err = max(float(np.abs(np.stack(a) - np.stack(b)).max())
+                      for a, b in zip(eng.last_logits, one_logits))
+        else:
+            seq = prompts[0] + toks[0]
+            plain = plain_lm_logits(torch, params, seq[:-1])[
+                len(prompts[0]) - 1:]
+            err = float(np.abs(np.stack(eng.last_logits[0]) - plain).max())
+        if not err <= 1e-3:
+            raise AssertionError("%s: logits %g from the %s (tol 1e-3)"
+                                 % (what, err, "one-device engine's"
+                                    if quantize else "plain forward"))
+        out[name] = {"tokens_equal": True, "max_abs_err": err,
+                     "against": "one-device engine" if quantize
+                     else "plain forward",
+                     "engine_build_s": build_s, "generate_s": wall,
+                     "decode_steps": st["decode_steps"],
+                     "decode_ms_per_step":
+                         st["decode_s"] * 1e3 / st["decode_steps"],
+                     "prefill_ms_per_prompt":
+                         st["prefill_s"] * 1e3 / st["prefills"],
+                     "one_device": {k: one[k] for k in (
+                         "decode_ms_per_step", "prefill_ms_per_prompt",
+                         "generate_s")},
+                     "launches": counts}
+        log("%s: tokens of the 8 prompts equal the one-device engine's; "
+            "logits within %.3g of the %s; decode %.3f ms/step (one device "
+            "%.3f), prefill %.3f ms/prompt (one device %.3f); flash-decode "
+            "by heads %s, weight-only by route %s and rows %s; on %s"
+            % (what, err, out[name]["against"],
+               out[name]["decode_ms_per_step"], one["decode_ms_per_step"],
+               out[name]["prefill_ms_per_prompt"],
+               one["prefill_ms_per_prompt"],
+               counts["flash_decode_by_heads"],
+               counts["quantized_matmul_by_route"],
+               counts["quantized_matmul_by_rows"], smi))
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_predictor_gate(torch, mx, seed, distinct):
+    """(d) ``ShardedPredictor.from_checkpoint`` of the LM at dp=2 x tp=2
+    within 1e-5 of ``predictor.Predictor``, no whole weight gathered."""
+    from mxnet_tpu_torch.models import transformer as tf
+    params = seeded_train_params(seed)
+    batch = train_batch(seed, TP_PREDICT_BATCH)
+    sym = tf.get_symbol(**TRAIN)
+    prefix = tp_dir("lm")
+    os.makedirs(tp_dir(), exist_ok=True)
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    mx.model.save_checkpoint(prefix, 1, sym,
+                             {k: mx.nd.array(v, ctx=ctx)
+                              for k, v in params.items()}, {})
+    S = TRAIN["seq_len"]
+    pred = mx.predictor.Predictor(
+        sym.tojson(), params, {"data": (TP_PREDICT_BATCH, S),
+                               "softmax_label": (TP_PREDICT_BATCH, S)},
+        ctx=ctx)
+    pred.forward(data=batch["data"])
+    want = pred.get_output(0)
+    want = torch.as_tensor(want.asnumpy() if hasattr(want, "asnumpy")
+                           else want)
+    mesh = mx.parallel.make_mesh(_dp_contexts(mx, 4, distinct), dp=2, tp=2)
+    _tp_reset()
+    with ctx:
+        sp = mx.parallel.ShardedPredictor.from_checkpoint(prefix, 1, mesh)
+    zeros = np.zeros_like(batch["softmax_label"])
+    got = torch.as_tensor(sp.predict({"data": batch["data"],
+                                      "softmax_label": zeros})[0])
+    counts = _tp_counts()
+    err = float((got - want).abs().max())
+    if err > TP_PREDICT_TOL or not bool(torch.isfinite(got).all()) \
+            or counts["whole_weight_gathers"]:
+        raise AssertionError("tp (d): ShardedPredictor %.3g from the "
+                             "Predictor (tol %g); counts %s"
+                             % (err, TP_PREDICT_TOL, counts))
+    log("tp (d) ShardedPredictor dp=2 x tp=2 (%s) from %s-0001.params: "
+        "outputs %s within %.3g of predictor.Predictor's (tol %g); flash "
+        "forward by heads %s; whole-weight gathers 0"
+        % ("4 cards" if distinct else "one card", os.path.basename(prefix),
+           tuple(got.shape), err, TP_PREDICT_TOL,
+           counts["flash_attention_by_heads"]))
+    shutil.rmtree(tp_dir(), ignore_errors=True)
+    del pred, sp
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "shape": list(got.shape),
+            "launches": counts}
+
+
+#: the member shapes phase 22 launches the kernels at: flash-decode and
+#: the flash forward over 4 of the LM's 8 heads, the weight-only kernel
+#: on half of lm_head's rows, the sweep on one member's largest bucket at
+#: tp=2 and its FSDP vector at dp=2
+def tp_kernel_checks(torch, timer, seed, smi):
+    """(e) every kernel the phase launches at a new shape, against its
+    plain version at that shape (and timed): flash-decode with 4 heads
+    (2e-5, bitwise on repeat), the flash forward with 4 heads (phase 5's
+    bounds), the weight-only kernel on a row slice (1e-4, and a cosine of
+    at least 0.999 against the float32 product of the unquantized
+    weight), the sweep on the member buckets (bit for bit); and the
+    registered MXL-K specs at those shapes lint clean, with the shared
+    memory the built libraries report."""
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.analysis import tiling
+    from mxnet_tpu_torch.kernels import (flash_attention as fa,
+                                         flash_decode as fd,
+                                         fused_opt as fo, quantize as qz)
+    rng = np.random.RandomState(seed + 22)
+    rows = []
+    H = TRAIN["num_heads"] // 2
+    D = TRAIN["dim"] // TRAIN["num_heads"]
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    # flash-decode, 4 heads a member, phase 2's positions
+    plan = fd.plan_flash_decode(8, H, 32, 32, D, sms)
+    case = flash_decode_case(torch, rng, FD_POSITIONS, torch.float32, H=H)
+    rows.append(_fd_timed_row(torch, fd, timer, plan, case,
+                              1.0 / math.sqrt(D), 2e-5,
+                              "tp member H=%d" % H, 0.0, []))
+    rows[-1].update(name="flash_decode", H=H)
+    # the flash forward, 4 heads a member, the training shape
+    B, S = TRAIN_BATCH, TRAIN["seq_len"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = [torch.from_numpy(rng.randn(B, H, S, D).astype(
+            np.float32)).to(DEVICE, dtype) for _ in range(3)]
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        o2, lse2 = fa.flash_attention_forward(q, k, v, causal=True)
+        ro, rl = fa.flash_attention_forward_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        lse_err = float((lse - rl).abs().max())
+        if dtype == torch.float32:
+            err = float((o - ro).abs().max())
+            ok = err <= 2e-5 and torch.equal(o, o2) \
+                and torch.equal(lse, lse2)
+        else:
+            err, ok = _bf16_close(torch, o, ro)
+        if not (ok and lse_err <= 1e-4):
+            raise AssertionError("tp (e) flash forward H=%d %s: o %g, lse %g"
+                                 % (H, dtype, err, lse_err))
+        pairs = S * (S + 1) // 2
+        n_ops = 4 * B * H * pairs * D
+        n_bytes = 4 * B * H * S * D * q.element_size() + B * H * S * 4
+        b_ms, b_by = bound_ms(n_bytes, n_ops, ops_rate(dtype))
+        rows.append({
+            "name": "flash_attention", "B": B, "H": H, "S": S, "D": D,
+            "causal": True, "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "ms": timer(lambda: fa.flash_attention_forward(
+                q, k, v, causal=True)),
+            "plain_ms": timer(lambda: fa.flash_attention_forward_reference(
+                q, k, v, causal=True)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, o, o2, ro
+    # the weight-only kernel on a member's rows of lm_head, decode (GEMV)
+    # and the largest prompt bucket (wgmma)
+    N, K = TRAIN["vocab_size"] // 2, TRAIN["dim"]
+    for m, qdtype in ((8, "int8"), (8, "fp8_e4m3"), (960, "fp8_e4m3")):
+        w = (rng.randn(2 * N, K) * 0.02).astype(np.float32)
+        wq_all, sc_all = qz.quantize_array(w, qdtype=qdtype)
+        wq = torch.as_tensor(wq_all).to(DEVICE)[N:].contiguous()
+        sc = torch.from_numpy(sc_all).to(DEVICE)[N:].contiguous()
+        x = torch.from_numpy(rng.randn(m, K).astype(np.float32)).to(DEVICE)
+        got = qz.quantized_matmul(x, wq, sc)
+        again = qz.quantized_matmul(x, wq, sc)
+        want = qz.quantized_matmul_reference(x, wq, sc)
+        exact = x @ torch.from_numpy(w[N:]).to(DEVICE).t()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        cos = _cosine(got.cpu().numpy(), exact.cpu().numpy())
+        route = qz.plan_quantized_matmul(m, N, K, sms)["route"]
+        if not (err <= 1e-4 and torch.equal(got, again) and cos >= 0.999):
+            raise AssertionError("tp (e) weight-only M=%d N=%d %s (%s): "
+                                 "err %g, cosine %.6f" % (m, N, qdtype,
+                                                          route, err, cos))
+        n_bytes = m * K * 4 + N * K + N * 4 + m * N * 4
+        ops = 2 * m * N * K
+        b_ms, b_by = bound_ms(n_bytes, ops) if route == "gemv" \
+            else bound_ms(n_bytes, ops, ops_rate("bfloat16"))
+        w_deq = wq.float() * sc[:, None]
+        rows.append({
+            "name": "quantized_matmul", "M": m, "K": K, "N": N,
+            "dtype": "float32", "qdtype": qdtype, "route": route,
+            "max_abs_err": err, "cosine": cos,
+            "ms": timer(lambda: qz.quantized_matmul(x, wq, sc)),
+            "plain_ms": timer(lambda: qz.quantized_matmul_reference(
+                x, wq, sc)),
+            "library_ms": timer(lambda: torch.matmul(x, w_deq.t())),
+            "bound_ms": b_ms, "bound_by": b_by})
+    # the sweep on a member's buckets: bit for bit, bitwise on repeat
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / 8192, **TRAIN_SGD)
+    for n, why in zip((nb for nb, _b in fo.MEMBER_BUCKETS),
+                      ("tp=2 member's largest bucket",
+                       "fsdp dp=2 member's vector")):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + n % 997)
+        w = torch.randn(n, device=DEVICE, generator=gen)
+        g = torch.randn(n, device=DEVICE, generator=gen)
+        s0 = [torch.randn(n, device=DEVICE, generator=gen)]
+        err, ulps, repeat = _sweep_check(torch, fo, opt, w, g, s0, 0.1,
+                                         0.0, 3)
+        if err != 0.0 or not repeat:
+            raise AssertionError("tp (e) sweep at %d (%s): max |kernel - "
+                                 "plain| %g, repeat %s" % (n, why, err,
+                                                           repeat))
+        n_bytes = 5 * n * 4         # w, g, momentum in; w, momentum out
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        rows.append({
+            "name": "fused_opt", "n": n, "optimizer": "sgd_momentum",
+            "what": why, "max_abs_err": err, "repeat_bitwise": repeat,
+            "ms": timer(lambda: fo.sweep(opt, w, g, s0, 0.1, 0.0, 3)),
+            "plain_ms": timer(lambda: fo.sweep_reference(opt, w, g, s0, 0.1,
+                                                         0.0, 3)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        del w, g, s0
+    torch.cuda.empty_cache()
+    # MXL-K at the member shapes: clean, and the built libraries agree
+    specs = [(fd.launch_spec(q_dtype="float32", kv_dtype="float32",
+                             sms=sms, **fd.MEMBER_SHAPES),
+              fd.launch_spec(q_dtype="float32", kv_dtype="float32",
+                             sms=sms, compiled=True, **fd.MEMBER_SHAPES))]
+    sh = fa.MEMBER_SHAPES
+    for dt in ("float32", "bfloat16"):
+        specs.append((fa.launch_spec(sh["B"], sh["H"], sh["S"], sh["S"],
+                                     sh["D"], dt, sms=sms),
+                      fa.launch_spec(sh["B"], sh["H"], sh["S"], sh["S"],
+                                     sh["D"], dt, sms=sms, compiled=True)))
+    for m, k, n in qz.MEMBER_SHAPES:
+        for qd in ("int8", "fp8_e4m3"):
+            specs += list(zip(qz.launch_specs(m, n, k, "float32", qd, sms),
+                              qz.launch_specs(m, n, k, "float32", qd, sms,
+                                              compiled=True)))
+    for n, body in fo.MEMBER_BUCKETS:
+        s = fo.launch_spec(n, body, "vec4")
+        specs.append((s, s))
+    from mxnet_tpu_torch.observability.counters import launch_limits
+    lim = launch_limits(0 if DEVICE == "cuda" else None)
+    for spec, built in specs:
+        found = tiling.spec_findings(spec, limits=lim)
+        if found or spec != built:
+            raise AssertionError("tp (e) MXL-K %s: findings %s, built %s"
+                                 % (spec["name"], found, spec == built))
+    for r in rows:
+        log("tp (e) %s at the member shape %s: err %.3g, kernel %.4f ms, "
+            "plain %.4f ms, library %s ms, bound %.5f ms (%s); on %s"
+            % (r["name"], {k: r[k] for k in ("B", "H", "S", "D", "M", "N",
+                                             "K", "qdtype", "route", "n",
+                                             "dtype") if k in r},
+               r["max_abs_err"], r["ms"], r["plain_ms"],
+               "%.4f" % r["library_ms"] if r["library_ms"] is not None
+               else "none", r["bound_ms"], r["bound_by"], smi))
+    log("tp (e) %d MXL-K launch specs at the member shapes lint clean "
+        "against the card and agree with the built libraries" % len(specs))
+    return {"rows": rows, "specs": len(specs)}
+
+
+def phase_tp(torch, timer, seed, smi):
+    """Phase 22: tensor parallelism and FSDP (the module docstring's
+    (a)-(f)).  The launches of its main paths are in the result's
+    ``launches``."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    params = seeded_train_params(seed)
+    batch = train_batch(seed, TRAIN_BATCH)
+    refs = _plain_refs(torch, params, batch, TP_STEPS)
+    out = {"kernels": tp_kernel_checks(torch, timer, seed, smi)}
+    # the one-device trainer's run the tp runs are set beside
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    tr1, p1, st1 = _tp_trainer(torch, mx, mx.parallel.make_mesh([ctx], dp=1),
+                               params, dict(TRAIN_SGD, rescale_grad=1.0 / (
+                                   TRAIN_BATCH * TRAIN["seq_len"])))
+    b1 = tr1.shard_batch(batch)
+    for _ in range(TP_STEPS):
+        p1, st1, _a, o1 = tr1.step(p1, st1, {}, b1)
+    out["lm"] = [tp_lm_gate(torch, mx, seed, smi, shape, False, refs,
+                            params, batch, tp1=(o1[0], p1))
+                 for shape in ({"tp": 2}, {"dp": 2, "tp": 2})]
+    del tr1, p1, st1, b1, o1
+    torch.cuda.empty_cache()
+    out["fsdp"] = [tp_fsdp_gate(torch, mx, seed, smi, 2, False, params,
+                                batch)]
+    out["engine"] = tp_engine_gate(torch, mx, seed, smi)
+    out["predictor"] = tp_predictor_gate(torch, mx, seed, False)
+    del refs
+    torch.cuda.empty_cache()
+    runs = [r[d]["launches"] for r in out["lm"] for d in ("float32",
+                                                          "bfloat16")
+            if d in r] + [f["runs"][m]["launches"] for f in out["fsdp"]
+                          for m in f["runs"]]
+    eng = [out["engine"][q]["launches"] for q in ("float32", "fp8_e4m3")]
+    out["launches"] = {
+        "fused_opt": sum(c["fused_opt"] for c in runs),
+        "flash_attention": sum(c["flash_attention"] for c in runs)
+        + out["predictor"]["launches"]["flash_attention"],
+        "flash_decode": sum(c["flash_decode"] for c in eng),
+        "quantized_matmul": sum(c["quantized_matmul"] for c in eng),
+        "quantized_matmul_by_route": {
+            r: sum(c["quantized_matmul_by_route"][r] for c in eng)
+            for r in ("gemv", "wgmma")},
+        "flash_attention_by_dtype": {
+            d: sum(c["flash_attention_by_dtype"][d] for c in runs
+                   + [out["predictor"]["launches"]])
+            for d in ("float32", "bfloat16")},
+        "fused_opt_by_body": {}, "fused_opt_by_device": {},
+        "flash_attention_by_device": {}}
+    tally = out["launches"]
+    for c in runs + [out["predictor"]["launches"]]:
+        for kernel in ("fused_opt", "flash_attention"):
+            for d, n in c.get(kernel + "_by_device", {}).items():
+                got = tally[kernel + "_by_device"]
+                got[d] = got.get(d, 0) + n
+    for c in runs:
+        for body, n in c["fused_opt_by_body"].items():
+            tally["fused_opt_by_body"][body] = \
+                tally["fused_opt_by_body"].get(body, 0) + n
+    out["seconds"] = time.perf_counter() - t_phase
+    log("tp: phase 22 %.2f s; launches %s"
+        % (out["seconds"], json.dumps(out["launches"])))
+    member = {}
+    for r in out["kernels"]["rows"]:
+        member.setdefault(r["name"], r)
+    repl = {"flash_decode": "mxnet_tpu/kernels/flash_decode.py:100",
+            "quantized_matmul": "mxnet_tpu/kernels/quantize.py:230",
+            "flash_attention": "mxnet_tpu/parallel/ring_attention.py:128",
+            "fused_opt": "mxnet_tpu/kernels/fused_opt.py:112"}
+    log("tp kernels (rows 1-4 at the member shapes, their launches on "
+        "these paths): " + json.dumps({"kernels": [
+            {"name": name, "route": "cuda",
+             "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
+             "replaces": repl[name], "launches": out["launches"][name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            for name, r in member.items()]}))
+    if not all(out["launches"][k] > 0 for k in repl):
+        raise AssertionError("phase 22: launches %s" % out["launches"])
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    return out
+
+
+def phase_tp_cards(torch, timer, seed, smi):
+    """Phase 22 (f), on a machine with four cards (``--phases 22f``): the
+    NCCL routes of tensor parallelism and FSDP.  The LM at ``tp=4`` over
+    four cards (each member's 2 heads on its own card, the gathers and
+    sums through ``torch.cuda.nccl``), held to phase 7's float64 witness
+    with no whole weight gathered; ``fsdp=True`` at ``dp=4`` over them,
+    bit for bit ZeRO-1's; each card's peak memory."""
+    import mxnet_tpu_torch as mx
+    if DEVICE != "cuda" or torch.cuda.device_count() < 4:
+        raise AssertionError("phase 22 (f) needs four cards, found %d"
+                             % torch.cuda.device_count())
+    t_phase = time.perf_counter()
+    params = seeded_train_params(seed)
+    batch = train_batch(seed, TRAIN_BATCH)
+    refs = _plain_refs(torch, params, batch, TP_STEPS)
+    out = {"lm": tp_lm_gate(torch, mx, seed, smi, {"tp": 4}, True, refs,
+                            params, batch, ("float32",)),
+           "fsdp": tp_fsdp_gate(torch, mx, seed, smi, 4, True, params,
+                                batch)}
+    out["seconds"] = time.perf_counter() - t_phase
+    log("tp (f): four cards %.2f s" % out["seconds"])
+    return out
 
 #: the phases ``--phases`` runs, which read no other phase's result
 ALONE = {
@@ -9670,6 +10392,8 @@ ALONE = {
                                                              smi),
     "21": lambda torch, timer, seed, smi: phase_source_lints(torch, seed,
                                                              smi),
+    "22": phase_tp,
+    "22f": phase_tp_cards,
 }
 
 
@@ -9797,6 +10521,7 @@ def main(argv=None):
                   {"lm": train, "resnet50": resnet})
         moe = run("20", phase_moe_pipeline, torch, args.seed, smi)
         src = run("21", phase_source_lints, torch, args.seed, smi)
+        tpr = run("22", phase_tp, torch, timer, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -9888,13 +10613,20 @@ def main(argv=None):
     moe_flash = moe["launches"]["flash_attention"]
     launches["fused_opt"] += moe_sweeps
     launches["flash_attention"] += moe_flash
+    # tensor parallelism and FSDP (phase 22): each member's launches of
+    # the tp and FSDP LM steps, the tp engine and the tp predictor
+    tp_l = tpr["launches"]
+    for k in ("fused_opt", "flash_attention", "flash_decode",
+              "quantized_matmul"):
+        launches[k] += tp_l[k]
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
     by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main \
-        - moe_sweeps
+        - moe_sweeps - tp_l["fused_opt"]
     by_device["flash_attention"][first_card] = \
-        launches["flash_attention"] - dp_flash - moe_flash
-    for c in dp_runs + dp_lm + [moe["launches"]]:
+        launches["flash_attention"] - dp_flash - moe_flash \
+        - tp_l["flash_attention"]
+    for c in dp_runs + dp_lm + [moe["launches"], tp_l]:
         for kernel, key in (("fused_opt", "fused_opt_by_device"),
                             ("flash_attention",
                              "flash_attention_by_device")):
@@ -9930,7 +10662,7 @@ def main(argv=None):
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
             + dp_runs + dp_lm + res_counts + obs_counts \
-            + [moe["launches"]] + list(resnet_other.values()):
+            + [moe["launches"], tp_l] + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
     # flash attention at the training shape (causal, float32); the sweep
@@ -9999,6 +10731,8 @@ def main(argv=None):
                 res["generated"]["trainer_launches"]["fused_opt"]
             k["launches_by_path"]["transformer_telemetry"] = obs_sweeps
             k["launches_by_path"]["moe_lm_training"] = moe_sweeps
+            k["launches_by_path"]["tp_and_fsdp_lm_training"] = \
+                tp_l["fused_opt"]
             gen = next(r for r in res["generated"]["rows"]
                        if r["n"] == SWEEP_N)
             k["generated"] = dict(
@@ -10023,6 +10757,9 @@ def main(argv=None):
             moe_bf16 = moe["lm"]["bfloat16"]["launches"]["flash_attention"]
             k["launches_by_dtype"]["bfloat16"] += moe_bf16
             k["launches_by_dtype"]["float32"] += moe_flash - moe_bf16
+            for d in ("float32", "bfloat16"):
+                k["launches_by_dtype"][d] += \
+                    tp_l["flash_attention_by_dtype"][d]
             k["launches_by_device"] = by_device["flash_attention"]
             k["launches_by_path"] = {
                 "transformer_training": transformer_flash,
@@ -10034,7 +10771,8 @@ def main(argv=None):
                     res["generated"]["trainer_launches"][
                         "flash_attention"],
                 "transformer_telemetry": obs_flash,
-                "moe_lm_and_pipeline": moe_flash}
+                "moe_lm_and_pipeline": moe_flash,
+                "tp_lm_and_predictor": tp_l["flash_attention"]}
             k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
@@ -10049,19 +10787,22 @@ def main(argv=None):
                 r: eng["int8"]["quantized_matmul_by_route"][r]
                 + serve["launches"]["quantized_matmul_by_route"][r]
                 + obs["serve"]["launches"]["quantized_matmul_by_route"][r]
+                + tp_l["quantized_matmul_by_route"][r]
                 for r in ("gemv", "wgmma")}
             k["launches_by_qdtype"] = {
                 "int8": eng["int8"]["launches"]["quantized_matmul"],
                 "fp8_e4m3": serve["launches"]["quantized_matmul_by_qdtype"][
                     "fp8_e4m3"] + obs["serve"]["launches"][
-                    "quantized_matmul"]}
+                    "quantized_matmul"] + tp_l["quantized_matmul"]}
             k["launches_by_path"] = {
                 "served_under_sanitizers":
-                    obs["serve"]["launches"]["quantized_matmul"]}
+                    obs["serve"]["launches"]["quantized_matmul"],
+                "tp_engine": tp_l["quantized_matmul"]}
         elif k["name"] == "flash_decode":
             k["launches_by_path"] = {
                 "served_under_sanitizers":
-                    obs["serve"]["launches"]["flash_decode"]}
+                    obs["serve"]["launches"]["flash_decode"],
+                "tp_engine": tp_l["flash_decode"]}
     # Rtc: kernel (b), 2.5*x + y at 2^24 float32 (example/rtc's kernel);
     # its launches are the imperative path's (phase 8) and the C ABI's
     # rtc_saxpy push (phase 16, counted by the C process)
@@ -10098,6 +10839,7 @@ def main(argv=None):
                        "capi": capi, "resilience": res,
                        "observability": obs, "analysis": ana,
                        "moe_pipeline": moe, "source_lints": src,
+                       "tp": tpr,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

@@ -63,6 +63,7 @@ __version__ = "0.1.0"
 
 from .base import MXNetError                      # noqa: F401
 from .context import Context, cpu, gpu, tpu     # noqa: F401
+from .context import cpu_pinned, num_gpus, num_tpus  # noqa: F401
 from .context import current_context             # noqa: F401
 from .attribute import AttrScope                  # noqa: F401
 from . import ndarray as nd                       # noqa: F401

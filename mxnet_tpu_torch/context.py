@@ -14,6 +14,12 @@ only when the caller asks for ``cpu()``, by argument or with a
 ``with ctx:`` sets the default context of the calling thread, as in the
 reference (``python/mxnet/context.py``).  A thread with no scope gets
 ``gpu(0)``, where the JAX package's default is ``cpu(0)``.
+
+:func:`num_gpus` counts the CUDA devices of this process and
+:func:`num_tpus` is 0.  :func:`cpu_pinned` is a host context whose
+NDArrays live in page-locked memory (``Tensor.pin_memory``), which a
+copy to a card reads without a staging copy; pinning needs CUDA, so
+without a CUDA device its arrays are plain host memory.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "resolve"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "num_gpus",
+           "num_tpus", "current_context", "resolve"]
 
 #: per thread: the stack of contexts entered with ``with``
 _SCOPE = threading.local()
@@ -107,6 +114,21 @@ def current_context() -> Context:
 
 def cpu(device_id=0) -> Context:
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0) -> Context:
+    """Host memory that is page-locked (see the module docstring)."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The CUDA devices of this process (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus() -> int:
+    """0: the port has no TPU."""
+    return 0
 
 
 def gpu(device_id=0) -> Context:

@@ -338,6 +338,19 @@ def build_program(symbol):
     forwards = {id(n): functools.partial(n.op.forward,
                                          trace=build_program(n.op._base).trace)
                 for n in op_nodes if hasattr(n.op, "_base")}
+    from .parallel.tensor_parallel import TPShards, run_tp
+
+    def forward_of(node):
+        """The node's forward: its op's, or, when an input is split over
+        tp (a :class:`~.parallel.tensor_parallel.TPShards`), the op's
+        tensor-parallel form (raising when it has none)."""
+        fwd = forwards.get(id(node), node.op.forward)
+
+        def run(ins, aux_in, is_train, key):
+            if any(isinstance(v, TPShards) for v in ins):
+                return run_tp(node.op, node.name, ins, aux_in, is_train, key)
+            return fwd(ins, aux_in, is_train, key)
+        return run
 
     def run_node(node, values, aux_values, aux_out, rng, is_train, monitor):
         op = node.op
@@ -346,8 +359,7 @@ def build_program(symbol):
                      for a in op.list_auxiliary_states()]
         aux_in = [aux_values[a] for a in aux_names]
         key = rng if getattr(op, "need_rng", False) else None
-        outs, aux_updates = forwards.get(id(node), op.forward)(
-            ins, aux_in, is_train, key)
+        outs, aux_updates = forward_of(node)(ins, aux_in, is_train, key)
         for i, o in enumerate(outs):
             values[(id(node), i)] = o
         if aux_updates is not None:
@@ -460,7 +472,7 @@ def build_program(symbol):
                 got = op.forward_replicas(ins, aux_in, is_train, keyed,
                                           group)
             if got is None:
-                fwd = forwards.get(id(node), op.forward)
+                fwd = forward_of(node)
                 outs, updates = [], []
                 for r in range(n):
                     x = ins[r]
@@ -1195,11 +1207,25 @@ def _grads(outs, leaves, head_grads):
             for n, g in zip(names, got)}
 
 
+def check_group2ctx(group2ctx, what):
+    """A ``group2ctx`` of None or ``{}`` binds every node on the bind
+    context; a placement map raises: placement by ``ctx_group`` is not
+    ported (ROADMAP.md queue 1 item 3 (j))."""
+    if group2ctx:
+        raise MXNetError(
+            "%s: group2ctx placement by ctx_group (%s) is not ported yet "
+            "(ROADMAP.md queue 1 item 3 (j)); bind without it"
+            % (what, ", ".join(sorted(str(k) for k in group2ctx))))
+
+
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
-                validate=None, **kwargs):
+                group2ctx=None, shared_exec=None, validate=None, **kwargs):
     """Allocate argument, gradient and aux arrays from the shapes inferred
     from ``kwargs`` (name -> shape), then bind (parity:
-    symbol.py:630-710); ``validate`` as :class:`Executor`'s."""
+    symbol.py:630-710); ``validate`` as :class:`Executor`'s.
+    ``shared_exec`` is ignored (the reference's memory sharing changes no
+    result); a non-empty ``group2ctx`` raises (:func:`check_group2ctx`)."""
+    check_group2ctx(group2ctx, "simple_bind")
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     if arg_shapes is None:
         raise MXNetError("simple_bind: cannot infer shapes from %s" % kwargs)

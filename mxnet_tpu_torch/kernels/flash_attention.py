@@ -155,15 +155,19 @@ def flash_attention_forward(q, k, v, causal=False, scale=None):
         str(q.dtype).replace("torch.", "")] += 1
     by_dev = flash_attention_forward.launches_by_device
     by_dev[str(q.device)] = by_dev.get(str(q.device), 0) + 1
+    by_heads = flash_attention_forward.launches_by_heads
+    by_heads[H] = by_heads.get(H, 0) + 1
     return o, lse
 
 
 #: launches of the CUDA kernels in this process, in all, by input dtype
-#: ("bfloat16" is the tensor-core body, "float32" the FMA body) and by
-#: device (callers may reset them)
+#: ("bfloat16" is the tensor-core body, "float32" the FMA body), by
+#: device and by heads a launch (a tp member's share; callers may reset
+#: them)
 flash_attention_forward.launches = 0
 flash_attention_forward.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 flash_attention_forward.launches_by_device = {}
+flash_attention_forward.launches_by_heads = {}
 register_kernel_counters("flash_attention", lambda: {
     "launches": flash_attention_forward.launches,
     "by_dtype": dict(flash_attention_forward.launches_by_dtype)})
@@ -185,6 +189,8 @@ BF16_REGS = ((128, 24), (256, 240))
 _SM_SMEM = 233472
 #: the training shape of the LM (``chip_smoke.py`` phases 5 and 7)
 MAIN_SHAPES = dict(B=8, H=8, S=1024, D=64)
+#: one tp member's share of it at tp=2: half the heads (phase 22)
+MEMBER_SHAPES = dict(MAIN_SHAPES, H=4)
 
 
 def _compiled_smem(dtype, D):
@@ -261,6 +267,7 @@ def launch_spec(B, H, Sq, Sk, D, dtype="float32", causal=True, sms=None,
 
 
 register_kernel_spec("kernels.flash_attention", lambda: [
-    launch_spec(MAIN_SHAPES["B"], MAIN_SHAPES["H"], MAIN_SHAPES["S"],
-                MAIN_SHAPES["S"], MAIN_SHAPES["D"], dtype)
+    launch_spec(shapes["B"], shapes["H"], shapes["S"], shapes["S"],
+                shapes["D"], dtype)
+    for shapes in (MAIN_SHAPES, MEMBER_SHAPES)
     for dtype in ("float32", "bfloat16")])

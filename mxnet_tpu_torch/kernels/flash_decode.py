@@ -207,11 +207,15 @@ def flash_decode_attention(q, k_pool, v_pool, table, pos, scale=None):
             float(scale), stream)
     check(lib, code, "flash_decode")
     flash_decode_attention.launches += 1
+    by_heads = flash_decode_attention.launches_by_heads
+    by_heads[H] = by_heads.get(H, 0) + 1
     return out
 
 
-#: launches of the CUDA kernel in this process (callers may reset it)
+#: launches of the CUDA kernel in this process, in all and by heads a
+#: launch (a tp member's share; callers may reset them)
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_by_heads = {}
 register_kernel_counters("flash_decode", lambda: {
     "launches": flash_decode_attention.launches})
 
@@ -226,6 +230,8 @@ _MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
 #: the decode shapes of the LM the repo serves (``chip_smoke.py``
 #: phases 2 and 4: B=8, H=8, D=64, 32 slots of 32-token blocks)
 MAIN_SHAPES = dict(B=8, H=8, MB=32, BS=32, D=64)
+#: one tp member's share of them at tp=2: half the heads (phase 22)
+MEMBER_SHAPES = dict(MAIN_SHAPES, H=4)
 
 
 def launch_spec(B, H, MB, BS, D, q_dtype="float32", kv_dtype="float32",
@@ -280,6 +286,7 @@ def launch_spec(B, H, MB, BS, D, q_dtype="float32", kv_dtype="float32",
 
 
 register_kernel_spec("kernels.flash_decode", lambda: [
-    launch_spec(q_dtype=q, kv_dtype=kv, **MAIN_SHAPES)
+    launch_spec(q_dtype=q, kv_dtype=kv, **shapes)
+    for shapes in (MAIN_SHAPES, MEMBER_SHAPES)
     for q, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
                   ("float32", "bfloat16"))])

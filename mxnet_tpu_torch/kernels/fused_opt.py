@@ -400,6 +400,10 @@ SWEEP_MAX_BLOCKS = 132 * 16
 #: MiB, SGD with momentum) and the bucketing LSTM's one (4,653,601
 #: elements, SGD)
 MAIN_BUCKETS = ((16279040, 1), (4653601, 0))
+#: one mesh member's sweeps of the same LM: its largest bucket of shards
+#: at tp=2, and its one flat vector of slices under FSDP (or ZeRO-1) at
+#: dp=2 (``chip_smoke.py`` phase 22)
+MEMBER_BUCKETS = ((14978048, 1), (17070592, 1))
 
 
 def launch_spec(n, body=1, route="vec4", gated=False):
@@ -423,5 +427,6 @@ def launch_spec(n, body=1, route="vec4", gated=False):
 
 
 register_kernel_spec("kernels.fused_opt", lambda: [
-    launch_spec(n, body, route, gated) for n, body in MAIN_BUCKETS
+    launch_spec(n, body, route, gated)
+    for n, body in MAIN_BUCKETS + MEMBER_BUCKETS
     for route in ("vec4", "scalar") for gated in (False, True)])

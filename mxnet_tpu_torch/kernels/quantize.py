@@ -360,12 +360,16 @@ def quantized_matmul(x, w_q, scale):
     quantized_matmul.launches += 1
     quantized_matmul.launches_by_route[plan["route"]] += 1
     quantized_matmul.launches_by_qdtype[_QDTYPE_OF[w_q.dtype]] += 1
+    by_rows = quantized_matmul.launches_by_rows
+    by_rows[n] = by_rows.get(n, 0) + 1
     return out
 
 
-#: calls that launched a CUDA body in this process, in all, by body and
-#: by weight type (callers may reset them)
+#: calls that launched a CUDA body in this process, in all, by body, by
+#: weight type and by the weight's rows N (a tp member's slice; callers
+#: may reset them)
 quantized_matmul.launches = 0
+quantized_matmul.launches_by_rows = {}
 quantized_matmul.launches_by_route = {"gemv": 0, "wgmma": 0}
 quantized_matmul.launches_by_qdtype = {"int8": 0, "fp8_e4m3": 0}
 register_kernel_counters("quantized_matmul", lambda: {
@@ -389,6 +393,8 @@ _W_MANGLED = {"int8": "WInt8", "fp8_e4m3": "WE4M3"}
 #: the shapes the LM's lm_head runs at (``chip_smoke.py`` phases 3 and
 #: 4): decode (M=8, the GEMV) and the largest prompt bucket (M=960, wgmma)
 MAIN_SHAPES = ((8, 512, 8192), (960, 512, 8192))
+#: one tp member's rows of the same products at tp=2 (phase 22)
+MEMBER_SHAPES = tuple((m, k, n // 2) for m, k, n in MAIN_SHAPES)
 
 
 def launch_specs(m, n, k, x_dtype="float32", qdtype="int8", sms=None,
@@ -479,5 +485,6 @@ def launch_specs(m, n, k, x_dtype="float32", qdtype="int8", sms=None,
 
 
 register_kernel_spec("kernels.quantize", lambda: [
-    spec for m, k, n in MAIN_SHAPES for q in ("int8", "fp8_e4m3")
+    spec for m, k, n in MAIN_SHAPES + MEMBER_SHAPES
+    for q in ("int8", "fp8_e4m3")
     for spec in launch_specs(m, n, k, "float32", q)])

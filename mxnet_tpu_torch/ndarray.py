@@ -98,6 +98,9 @@ class NDArray:
                              % type(data))
         if ctx is not None:
             data = data.to(resolve(ctx))
+            if isinstance(ctx, Context) and ctx.device_type == "cpu_pinned" \
+                    and torch.cuda.is_available() and not data.is_pinned():
+                data = data.pin_memory()
         self._data = data
         self._ctx = _as_context(ctx, data.device)
         self._writable = bool(writable)

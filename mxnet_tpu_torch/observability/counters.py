@@ -324,8 +324,11 @@ def emit_static_roofline(symbol, shapes, device_kind=None,
 def emit_trainer_counters(trainer, step_time_s=None):
     """Emit the ``trainer_cost`` counter of a ShardedTrainer: its step's
     model FLOPs (needs one executed step), and with ``step_time_s`` the
-    MFU at the card's peak for the trainer's compute dtype.  Returns the
-    fields emitted (or {})."""
+    MFU at the card's peak for the trainer's compute dtype.  On a mesh of
+    several members (dp replicas, and the tp or ep members of each) it
+    also emits ``flops_per_member``, the work of one member, and the MFU
+    is one member's: its FLOPs over the step time at one card's peak.
+    Returns the fields emitted (or {})."""
     if not events.enabled():
         return {}
     fields = {}
@@ -335,14 +338,19 @@ def emit_trainer_counters(trainer, step_time_s=None):
         cost = None
     if cost and cost.get("flops"):
         fields["flops_per_step"] = float(cost["flops"])
+        if cost.get("members"):
+            fields["flops_per_member"] = float(cost["flops_per_member"])
+            fields["members"] = int(cost["members"])
     if step_time_s and fields.get("flops_per_step"):
         device = getattr(trainer, "device", None)
         name = None
         if getattr(device, "type", None) == "cuda":
             import torch
             name = torch.cuda.get_device_name(device)
-        util = mfu(fields["flops_per_step"], step_time_s,
-                   getattr(trainer, "dp", 1), name,
+        util = mfu(fields.get("flops_per_member",
+                              fields["flops_per_step"]), step_time_s,
+                   1 if "flops_per_member" in fields
+                   else getattr(trainer, "dp", 1), name,
                    getattr(trainer, "compute_dtype", None) or "float32")
         if util is not None:
             fields["mfu"] = round(util, 4)

@@ -24,6 +24,78 @@ from .registry import (OperatorProperty, register_op, require_known,
                        contract_sharding, dedup_axes)
 
 
+def _tp_heads(op, x, wqkv, bqkv, H):
+    """The head-split qkv projection of a tp group: each member computes
+    its contiguous columns of ``x @ wqkv.T + bqkv`` (the weight split on
+    axis 0, the JAX package's placement), then gathers on its own device
+    the q, k and v columns of its ``H / tp`` heads (slices copied between
+    the members: activations, not weights).  Returns the group and each
+    member's ``(q, k, v)``, ``(B, S, E / tp)`` each."""
+    from ..parallel import tensor_parallel as tp
+    if tp.is_split(x) or not tp.is_split(wqkv) or wqkv.dim != 0:
+        raise tp.unsupported(op.op_name, "the qkv weight must be split on "
+                             "axis 0 and the data whole")
+    g = wqkv.group
+    B, S, E = x.shape
+    if H % g.n:
+        raise tp.unsupported(op.op_name, "%d heads do not divide over %d "
+                             "members" % (H, g.n))
+    xs = tp.scatter(g, x)
+    width = wqkv.shards[0].shape[0]
+    cols = []
+    for e in range(g.n):
+        c = torch.matmul(xs[e], wqkv.shards[e].t())
+        if tp.is_split(bqkv):
+            c = c + bqkv.shards[e]
+        else:
+            lo = e * width
+            c = c + tp.scatter(g, bqkv[lo:lo + width])[e]
+        cols.append(c)
+    h = E // g.n
+    out = []
+    for j, dev in enumerate(g.devices):
+        out.append(tuple(tp.columns(cols, width, base + j * h,
+                                    base + (j + 1) * h, dev)
+                         for base in (0, E, 2 * E)))
+    return g, out
+
+
+def _tp_out(op, g, o_parts, wo, bo, dropout=None):
+    """The out projection after head-split attention: the heads'
+    outputs gathered on the first member (``dropout``, a function of the
+    whole output, applied there), then the projection split as ``wo``
+    is: its rows (each member its output columns, gathered), its
+    columns (each member its heads, the partial products summed), or
+    whole on the first member."""
+    from ..parallel import tensor_parallel as tp
+    if tp.is_split(wo) and wo.dim == 1 and dropout is None:
+        y = tp.reduce(g, [torch.matmul(o_parts[e], wo.shards[e].t())
+                          for e in range(g.n)])
+        if tp.is_split(bo):
+            raise tp.unsupported(op.op_name, "a split out bias for an out "
+                                 "weight split on its input features")
+        return y + bo
+    o = tp.gather(g, o_parts, -1)
+    if dropout is not None:
+        o = dropout(o)
+    if not tp.is_split(wo):
+        if tp.is_split(bo):
+            raise tp.unsupported(op.op_name, "a split out bias with a "
+                                 "whole out weight")
+        return torch.matmul(o, wo.t()) + bo
+    if wo.dim == 1:
+        os_ = tp.split(g, o, -1)
+        y = tp.reduce(g, [torch.matmul(os_[e], wo.shards[e].t())
+                          for e in range(g.n)])
+        return y + bo
+    os_ = tp.scatter(g, o)
+    parts = [torch.matmul(os_[e], wo.shards[e].t()) for e in range(g.n)]
+    if tp.is_split(bo):
+        parts = [q + bo.shards[e] for e, q in enumerate(parts)]
+    y = tp.gather(g, parts, -1)
+    return y if tp.is_split(bo) else y + bo
+
+
 class _LayerNormParam(ParamStruct):
     axis = Field(int, default=-1)
     eps = Field(float, default=1e-5)
@@ -120,11 +192,47 @@ class MultiHeadAttention(OperatorProperty):
             o = attention_reference(heads(q), heads(k), heads(v),
                                     causal=self.param.causal)
         o = o.transpose(1, 2).reshape(B, S, E)
+        o = self._dropout(o, is_train, rng)
+        return [torch.matmul(o, wo.t()) + bo], None
+
+    def _dropout(self, o, is_train, rng):
         if is_train and self.param.dropout > 0.0 and rng is not None:
             keep = 1.0 - self.param.dropout
             mask = torch.rand(o.shape, generator=rng, device=o.device) < keep
             o = torch.where(mask, o / keep, torch.zeros_like(o))
-        return [torch.matmul(o, wo.t()) + bo], None
+        return o
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """Head-split attention over a tp group: each member projects its
+        heads' q, k and v (:func:`_tp_heads`) and runs the attention of
+        its ``num_heads / tp`` heads on its own device (the flash
+        forward's launch on a GPU), then :func:`_tp_out`.  Dropout draws
+        its mask over the whole output on the first member, as the
+        one-device op draws it."""
+        x, wqkv, bqkv, wo, bo = inputs
+        B, S, E = x.shape
+        H = self.param.num_heads
+        D = E // H
+        g, qkv = _tp_heads(self, x, wqkv, bqkv, H)
+        Hm = H // g.n
+
+        def heads(t):
+            return t.reshape(B, S, Hm, D).transpose(1, 2)
+        o_parts = []
+        for q, k, v in qkv:
+            if self.param.use_flash:
+                from ..parallel.ring_attention import sharded_self_attention
+                o = sharded_self_attention(heads(q), heads(k), heads(v),
+                                           causal=self.param.causal)
+            else:
+                o = attention_reference(heads(q), heads(k), heads(v),
+                                        causal=self.param.causal)
+            o_parts.append(o.transpose(1, 2).reshape(B, S, Hm * D))
+        drop = None
+        if is_train and self.param.dropout > 0.0 and rng is not None:
+            def drop(o):
+                return self._dropout(o, is_train, rng)
+        return [_tp_out(self, g, o_parts, wo, bo, drop)], None
 
     def cost_mxu_dims(self, in_shapes, out_shapes):
         B, S, E = in_shapes[0]
@@ -310,6 +418,64 @@ class CachedMultiHeadAttention(OperatorProperty):
                                        scale=1.0 / math.sqrt(D))
             o = o.to(q.dtype).reshape(B, 1, E)
         return [torch.matmul(o, wo.t()) + bo, kc, vc], None
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """Head-split cached attention over a tp group: the pools arrive
+        split on their head axis (``PagedKVCache.shard_pools``), so each
+        member projects its heads' q, k and v (:func:`_tp_heads`), writes
+        its k and v into its own pools in place and attends over them:
+        a prefill's causal softmax, or a decode step's flash-decode
+        launch over its ``num_heads / tp`` heads.  Then
+        :func:`_tp_out`."""
+        from ..parallel import tensor_parallel as tp
+        x, wqkv, bqkv, wo, bo, kc, vc, table, seq_pos = inputs
+        B, S, E = x.shape
+        H = self.param.num_heads
+        D = E // H
+        if not (tp.is_split(kc) and tp.is_split(vc)) or kc.dim != 2 \
+                or vc.dim != 2:
+            raise tp.unsupported(self.op_name, "the k and v pools must be "
+                                 "split on their head axis")
+        g, qkv = _tp_heads(self, x, wqkv, bqkv, H)
+        tp.group_of(kc, vc, wqkv)        # raises unless they share one
+        Hm = H // g.n
+        BS = kc.shards[0].shape[1]
+        tables = tp.scatter(g, table.to(torch.int32))
+        poss = tp.scatter(g, seq_pos.to(torch.int32))
+        o_parts = []
+        for j, (q, k, v) in enumerate(qkv):
+            kcj, vcj = kc.shards[j], vc.shards[j]
+            tbl, pos = tables[j], poss[j]
+            kh = k.reshape(B, S, Hm, D)
+            vh = v.reshape(B, S, Hm, D)
+            if self.param.mode == "prefill":
+                def heads(t):
+                    return t.reshape(B, S, Hm, D).transpose(1, 2)
+                o = attention_reference(heads(q), heads(k), heads(v),
+                                        causal=True)
+                o = o.transpose(1, 2).reshape(B, S, Hm * D)
+                jj = torch.arange(S, dtype=torch.int64, device=q.device)
+                blocks = torch.gather(tbl.long(), 1,
+                                      (jj // BS)[None, :].expand(B, S))
+                blocks = torch.where(jj[None, :] < pos[:, None].long(),
+                                     blocks, torch.zeros_like(blocks))
+                idx = (blocks.reshape(-1), (jj % BS).repeat(B))
+                kcj.index_put_(idx, kh.reshape(B * S, Hm, D).to(kcj.dtype))
+                vcj.index_put_(idx, vh.reshape(B * S, Hm, D).to(vcj.dtype))
+            else:
+                from ..kernels.flash_decode import flash_decode_attention
+                p64 = pos.long()
+                blk = torch.gather(tbl.long(), 1, (p64 // BS)[:, None])[:, 0]
+                idx = (blk, p64 % BS)
+                kcj.index_put_(idx, kh[:, 0].to(kcj.dtype))
+                vcj.index_put_(idx, vh[:, 0].to(vcj.dtype))
+                o = flash_decode_attention(q.reshape(B, Hm, D).contiguous(),
+                                           kcj, vcj, tbl.contiguous(),
+                                           pos.contiguous(),
+                                           scale=1.0 / math.sqrt(D))
+                o = o.to(q.dtype).reshape(B, 1, Hm * D)
+            o_parts.append(o)
+        return [_tp_out(self, g, o_parts, wo, bo), kc, vc], None
 
     def _ctx_len(self, in_shapes):
         """Cached context slots the table can name (attention width)."""

@@ -69,6 +69,39 @@ def _dense_shapes(op, in_shapes, extra_args=()):
     return shapes, [(data[0], nh)], []
 
 
+def _dense_tp(op, x, w, b, product):
+    """The tensor-parallel form of a dense layer ``y = product(x2d, w) +
+    b`` whose weight ``w`` is split over tp (``parallel/tensor_parallel``):
+    split on axis 0 (output features) each member computes its columns
+    and the columns are gathered; on axis 1 (input features) each member
+    multiplies its slice of ``x`` and the partial products are summed.
+    ``product(x, w_part, e)`` is member ``e``'s product."""
+    from ..parallel import tensor_parallel as tp
+    if tp.is_split(x):
+        raise tp.unsupported(op.op_name, "the data input is split")
+    if not tp.is_split(w):
+        raise tp.unsupported(op.op_name, "the bias is split but the weight "
+                             "is whole")
+    g = w.group
+    x2 = x.reshape(x.shape[0], -1)
+    if w.dim == 0:
+        xs = tp.scatter(g, x2)
+        parts = [product(xs[e], w.shards[e], e) for e in range(g.n)]
+        if tp.is_split(b):
+            parts = [p + b.shards[e] for e, p in enumerate(parts)]
+        y = tp.gather(g, parts, 1)
+    else:
+        xs = tp.split(g, x2, 1)
+        y = tp.reduce(g, [product(xs[e], w.shards[e], e)
+                          for e in range(g.n)])
+        if tp.is_split(b):
+            raise tp.unsupported(op.op_name, "a weight split on its input "
+                                 "features with a split bias")
+    if b is not None and not tp.is_split(b):
+        y = y + b
+    return y
+
+
 @register_op("FullyConnected")
 class FullyConnected(OperatorProperty):
     """fully_connected-inl.h:46: y = x_2d · Wᵀ + b, weight (num_hidden, D)."""
@@ -87,6 +120,13 @@ class FullyConnected(OperatorProperty):
         if not self.param.no_bias:
             y = y + inputs[2]
         return [y], None
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """Column- or row-parallel over a tp-split weight
+        (:func:`_dense_tp`)."""
+        b = None if self.param.no_bias else inputs[2]
+        return [_dense_tp(self, inputs[0], inputs[1], b,
+                          lambda x, w, e: torch.matmul(x, w.t()))], None
 
     def cost_mxu_dims(self, in_shapes, out_shapes):
         data = in_shapes[0]
@@ -173,6 +213,36 @@ class QuantizedDense(OperatorProperty):
         if not self.param.no_bias:
             y = y + inputs[3]
         return [y], None
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """The weight-only kernel on each member's slice of ``w_q``: its
+        rows (output channels) with their slice of ``scale``, or its
+        columns with the whole scale, then :func:`_dense_tp`'s gather or
+        sum."""
+        from ..kernels.quantize import quantized_matmul
+        from ..parallel import tensor_parallel as tp
+        w, scale = inputs[1], inputs[2]
+        if w.dtype != self._storage():
+            raise MXNetError("QuantizedDense: qdtype=%r wants %s weights, "
+                             "got %s" % (self.param.qdtype, self._storage(),
+                                         w.dtype))
+        if tp.is_split(w) and w.dim == 0 and not tp.is_split(scale):
+            raise tp.unsupported(self.op_name, "rows of the weight split "
+                                 "without their scale")
+        if tp.is_split(w) and w.dim == 1 and tp.is_split(scale):
+            raise tp.unsupported(self.op_name, "a split scale for a weight "
+                                 "split on its input features")
+
+        def product(x, w_part, e):
+            sc = scale.shards[e] if tp.is_split(scale) \
+                else tp.scatter(w.group, scale)[e]
+            return quantized_matmul(x.contiguous(), w_part, sc)
+        b = None if self.param.no_bias else inputs[3]
+        return [_dense_tp(self, inputs[0], w, b, product)], None
+
+    def _storage(self):
+        from ..kernels.quantize import STORAGE_DTYPES
+        return STORAGE_DTYPES[self.param.qdtype]
 
     # compute dtype of the MXU contraction (roofline prices peaks at it)
     def cost_compute_dtype(self, in_shapes, out_shapes):
@@ -326,6 +396,44 @@ class Embedding(OperatorProperty):
                                             weight)
         return [torch.where(valid.unsqueeze(-1), out, float("nan"))], None
 
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """Over a tp-split table: split on the vocabulary, each member
+        looks up the ids it holds (zeros for the others) and the rows are
+        summed, so every row is exact; split on the features, each member
+        looks up its columns and they are gathered.  Ids outside the
+        vocabulary give NaN rows, as :meth:`forward`."""
+        from ..parallel import tensor_parallel as tp
+        ids, weight = inputs[0], inputs[1]
+        if tp.is_split(ids):
+            raise tp.unsupported(self.op_name, "the ids are split")
+        if ids.is_floating_point():
+            ids = torch.nan_to_num(ids, nan=0.0).clamp(-2.0 ** 31,
+                                                       2.0 ** 31)
+        ids = ids.to(torch.int64)
+        rows = weight.shape[0]
+        ids = torch.where(ids < 0, ids + rows, ids)
+        valid = (ids >= 0) & (ids < rows)
+        ids = torch.where(valid, ids, 0)
+        g = weight.group
+        idss = tp.scatter(g, ids)
+        F = torch.nn.functional
+        if weight.dim == 0:
+            parts = []
+            for e in range(g.n):
+                lo, hi = weight.bounds(e)
+                local = idss[e] - lo
+                mine = (local >= 0) & (local < hi - lo)
+                got = F.embedding(torch.where(mine, local, 0),
+                                  weight.shards[e])
+                parts.append(torch.where(mine.unsqueeze(-1), got,
+                                         torch.zeros((), dtype=got.dtype,
+                                                     device=got.device)))
+            out = tp.reduce(g, parts)
+        else:
+            out = tp.gather(g, [F.embedding(idss[e], weight.shards[e])
+                                for e in range(g.n)], -1)
+        return [torch.where(valid.unsqueeze(-1), out, float("nan"))], None
+
     def cost_bytes_elements(self, in_shapes, out_shapes):
         # gather: ids + the gathered rows in and out, not the full table
         return float(_np.prod(in_shapes[0], dtype=_np.int64)
@@ -415,6 +523,43 @@ class Convolution(OperatorProperty):
                           p.num_group)
         if not p.no_bias:
             y = y + inputs[2].reshape((1, -1) + (1,) * len(k))
+        return [y], None
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """Over a tp-split weight: split on the output channels, each
+        member convolves with its filters (and adds its bias) and the
+        channels are gathered; split on the input channels, each member
+        convolves its channels of the data and the partial outputs are
+        summed."""
+        from ..parallel import tensor_parallel as tp
+        p = self.param
+        k, s, d, pad = p.spatial()
+        x, w = inputs[0], inputs[1]
+        b = None if p.no_bias else inputs[2]
+        if tp.is_split(x) or not tp.is_split(w) or w.dim > 1:
+            raise tp.unsupported(self.op_name, "only the weight may be "
+                                 "split, on its output or input channels")
+        if p.num_group != 1:
+            raise tp.unsupported(self.op_name, "grouped convolution")
+        g, conv = w.group, _CONV[len(k)]
+        bshape = (1, -1) + (1,) * len(k)
+        if w.dim == 0:
+            xs = tp.scatter(g, x)
+            parts = [conv(xs[e], w.shards[e], None, s, pad, d)
+                     for e in range(g.n)]
+            if tp.is_split(b):
+                parts = [q + b.shards[e].reshape(bshape)
+                         for e, q in enumerate(parts)]
+            y = tp.gather(g, parts, 1)
+        else:
+            if tp.is_split(b):
+                raise tp.unsupported(self.op_name, "a split bias for a "
+                                     "weight split on its input channels")
+            xs = tp.split(g, x, 1)
+            y = tp.reduce(g, [conv(xs[e], w.shards[e], None, s, pad, d)
+                              for e in range(g.n)])
+        if b is not None and not tp.is_split(b):
+            y = y + b.reshape(bshape)
         return [y], None
 
     def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):

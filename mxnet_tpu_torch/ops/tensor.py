@@ -52,8 +52,44 @@ def _make_binary(op_name, fn, aliases=()):
         def forward(self, inputs, aux, is_train, rng):
             return [fn(inputs[0], inputs[1])], None
 
+        def forward_tp(self, inputs, aux, is_train, rng):
+            return [_binary_tp(self.op_name, fn, inputs[0], inputs[1])], None
+
     _Binary.__name__ = "Op" + op_name
     return _Binary
+
+
+def _binary_tp(op_name, fn, lhs, rhs):
+    """A broadcasting binary op with an operand split over tp (the LM's
+    position table, split on its positions, added to the token rows):
+    each member combines its part with its slice of the other operand
+    along the split dimension (the whole operand where that dimension
+    broadcasts), and the parts of the result are gathered.  Elementwise,
+    so the result is the whole op's bit for bit."""
+    from ..parallel import tensor_parallel as tp
+    a, b = (lhs, rhs) if tp.is_split(lhs) else (rhs, lhs)
+    g = a.group
+    if tp.is_split(b):
+        if b.dim - len(b.shape) != a.dim - len(a.shape) \
+                or b.shape[b.dim] != a.shape[a.dim]:
+            raise tp.unsupported(op_name, "two operands split on "
+                                 "different dimensions")
+        others = b.shards
+    else:
+        nd = max(len(a.shape), b.dim())
+        d = a.dim + nd - len(a.shape)         # in the result's dims
+        bd = d - (nd - b.dim())
+        if bd >= 0 and b.shape[bd] != 1:
+            others = tp.split(g, b, bd)
+        else:
+            others = tp.scatter(g, b)
+    parts = []
+    for e in range(g.n):
+        x, y = (a.shards[e], others[e]) if a is lhs \
+            else (others[e], a.shards[e])
+        parts.append(fn(x, y))
+    nd = parts[0].dim()
+    return tp.gather(g, parts, a.dim + nd - len(a.shape))
 
 
 _make_binary("_Plus", torch.add,
@@ -145,6 +181,16 @@ class ExpandDims(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         return [torch.unsqueeze(inputs[0], self.param.axis)], None
+
+    def forward_tp(self, inputs, aux, is_train, rng):
+        """A split value stays split: each part gains the axis, and the
+        split dimension moves past it."""
+        x = inputs[0]
+        ax = self.param.axis
+        if ax < 0:
+            ax += len(x.shape) + 1
+        return [x.map(lambda t: torch.unsqueeze(t, ax),
+                      dim=x.dim + (1 if ax <= x.dim else 0))], None
 
 
 # ----------------------------------------------------------------------

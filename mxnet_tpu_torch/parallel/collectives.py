@@ -30,6 +30,14 @@ and route.  :func:`all_reduce_autograd` is the
 sum as an autograd function (its backward is the same sum of the
 replicas' gradients), for the ops that reduce over the batch axis.
 
+Tensor parallelism adds :func:`gather_autograd`: the parts of a value
+that the members of a tp group computed, concatenated onto the group's
+first member under autograd (the backward hands each member its part
+of the gradient).  Between cards of one process it goes through
+``torch.cuda.nccl`` (``all_gather``, the backward's ``broadcast``); on
+one device it is a concatenation.  Its sums are
+:func:`all_reduce_autograd`'s.
+
 Expert and pipeline parallelism add :func:`all_to_all` (the MoE
 dispatch and combine; :func:`all_to_all_autograd` under autograd) and
 :func:`send` (a stage boundary's point-to-point copy).  Replicas that
@@ -52,7 +60,7 @@ from ..observability import spans as _spans
 
 __all__ = ["ReplicaGroup", "all_reduce", "reduce_scatter", "all_gather",
            "broadcast", "all_reduce_autograd", "all_to_all",
-           "all_to_all_autograd", "send"]
+           "all_to_all_autograd", "send", "gather_autograd"]
 
 _ACROSS_PROCESSES = ("across the processes of a torch.distributed group "
                      "is not ported yet (ROADMAP.md queue 1 item 3 (k)); "
@@ -295,6 +303,71 @@ def all_reduce_autograd(group, tensors):
     if group.trivial:
         return list(tensors)
     return list(_AllReduceSum.apply(group, *tensors))
+
+
+def _flat_along(t, dim):
+    """``t`` with ``dim`` moved first, contiguous and flat."""
+    return t.movedim(dim, 0).contiguous().reshape(-1)
+
+
+class _GatherToFirst(torch.autograd.Function):
+    """The members' parts concatenated along ``dim`` on the first
+    member's card (NCCL all-gather); the backward broadcasts the
+    gradient and hands each member its part."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        ctx.sizes = [x.shape[dim] for x in xs]
+        shape = list(xs[0].shape)
+        shape.pop(dim)
+        with _spans.span("all_gather", route="nccl"):
+            outs = [torch.empty(x.numel() * group.n, dtype=x.dtype,
+                                device=x.device) for x in xs]
+            with _LOCK:
+                torch.cuda.nccl.all_gather(
+                    [_flat_along(x.detach(), dim) for x in xs], outs)
+        whole = outs[0].view([sum(ctx.sizes)] + shape)
+        return whole.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        with _spans.span("broadcast", route="nccl"):
+            heads = [g.contiguous()] + [
+                torch.empty(g.shape, dtype=g.dtype, device=d)
+                for d in group.devices[1:]]
+            with _LOCK:
+                torch.cuda.nccl.broadcast(heads, root=0)
+        off, grads = 0, []
+        for r, size in enumerate(ctx.sizes):
+            grads.append(heads[r].narrow(dim, off, size))
+            off += size
+        return (None, None) + tuple(grads)
+
+
+def gather_autograd(group, tensors, dim):
+    """Member ``e``'s ``tensors[e]`` (on its own device) concatenated
+    along ``dim`` in member order, on the first member's device, under
+    autograd."""
+    _check(group, tensors, "gather_autograd")
+    if group.num_processes > 1:
+        raise MXNetError("gather_autograd over a tp group across the "
+                         "processes of a torch.distributed group is not "
+                         "ported yet (ROADMAP.md queue 1 item 3 (k)); run "
+                         "tensor parallelism on the cards of one process")
+    if group.n == 1:
+        return tensors[0]
+    dim = dim % tensors[0].dim()
+    if not group.nccl:
+        with _spans.span("all_gather", route="local"):
+            return torch.cat(tensors, dim=dim)
+    if len(group.distinct) != group.n:
+        raise MXNetError("gather_autograd: tp members sharing cards of "
+                         "several (%s) are not supported; give each member "
+                         "its own card, or every member one card"
+                         % group.distinct)
+    return _GatherToFirst.apply(group, dim, *tensors)
 
 
 def all_to_all(group, tensors, split_dim, concat_dim):

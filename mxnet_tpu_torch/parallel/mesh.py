@@ -8,11 +8,16 @@ axes (:data:`AXIS_ORDER`), the members in row-major order of the axes
 collectives of ``parallel/collectives.py`` between them) and the
 processes of a ``torch.distributed`` group (one context each, started by
 a ``dist_*`` kvstore from ``tools/launch.py``'s env).  ``ep`` (expert
-parallelism: ``ShardedTrainer`` over an MoE graph) and ``pp`` (pipeline
-parallelism: ``parallel.pipeline.GPipeTrainer``) span the cards of one
-process; across processes they raise (ROADMAP.md queue 1 item 3 (k)).
-``tp`` and ``sp`` with a size above 1, and fsdp, come with later
-multi-GPU slices (ROADMAP queue 1 item 3 (b), (c), (a)) and raise.
+parallelism: ``ShardedTrainer`` over an MoE graph), ``pp`` (pipeline
+parallelism: ``parallel.pipeline.GPipeTrainer``) and ``tp`` (tensor
+parallelism: ``ShardedTrainer``, ``ShardedPredictor`` and the
+generation engine over split weights, ``parallel/tensor_parallel.py``)
+span the cards of one process; across processes they raise (ROADMAP.md
+queue 1 item 3 (k)).  ``sp`` with a size above 1 comes with a later
+multi-GPU slice (ROADMAP queue 1 item 3 (c)) and raises.
+:meth:`Mesh.axis_members` and :meth:`Mesh.axis_group` give the
+sub-groups along one axis: the tp group of a member (the members that
+differ from it only in their tp index) and its dp group.
 
 Unlike a JAX mesh, a mesh here may name one context twice, or two
 contexts of one device (``[gpu(0), gpu(0)]``, ``[cpu(0), cpu(1)]``):
@@ -36,8 +41,7 @@ __all__ = ["Mesh", "make_mesh", "auto_mesh", "local_device_count",
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 
 #: the axes not ported yet: what each is, and its ROADMAP.md item
-_LATER = {"tp": ("tensor parallelism", "3 (b)"),
-          "sp": ("sequence parallelism (ring attention over NCCL)",
+_LATER = {"sp": ("sequence parallelism (ring attention over NCCL)",
                  "3 (c)")}
 
 
@@ -98,6 +102,17 @@ class Mesh:
                 if all(self.coords(i).get(a, 0) == v
                        for a, v in fixed.items())]
 
+    def axis_members(self, i, axis):
+        """The members that share every coordinate of member ``i`` but
+        ``axis`` (its tp group for ``"tp"``, its dp group for ``"dp"``),
+        in the axis's order; ``[i]`` when the mesh lacks the axis."""
+        fixed = {a: v for a, v in self.coords(i).items() if a != axis}
+        return self.members(**fixed)
+
+    def axis_group(self, i, axis):
+        """:meth:`group_of` over :meth:`axis_members`."""
+        return self.group_of(self.axis_members(i, axis))
+
     def group_of(self, members):
         """A :class:`~.collectives.ReplicaGroup` over the devices of
         ``members`` (local member indices)."""
@@ -128,15 +143,15 @@ def _check_axes(names, sizes, world):
                 "make_mesh: axis %s=%d: %s is not ported yet; it comes "
                 "with a later multi-GPU slice (ROADMAP.md queue 1 item %s)"
                 % (a, s, what, item))
-        if a not in ("ep", "pp"):
+        if a not in ("ep", "pp", "tp"):
             raise MXNetError("make_mesh: unknown mesh axis %r (the axes "
                              "are %s)" % (a, ", ".join(AXIS_ORDER)))
         if world > 1:
             raise MXNetError(
                 "make_mesh: axis %s=%d across the %d processes of a "
                 "torch.distributed group is not ported yet (ROADMAP.md "
-                "queue 1 item 3 (k)); run ep and pp on the cards of one "
-                "process" % (a, s, world))
+                "queue 1 item 3 (k)); run ep, pp and tp on the cards of "
+                "one process" % (a, s, world))
 
 
 def _world():

@@ -59,6 +59,29 @@ members that hold it (one a dp replica).  Every member then updates its own leav
 the CUDA one in kernel mode).  ``zero1=True`` with ``ep`` above 1 is not
 ported (ROADMAP.md queue 1 item 3 (e2)).
 
+On a mesh with a ``tp`` axis (tensor parallelism; members in row-major
+``(dp, tp)`` order) the parameters split by the JAX package's tp policy
+(:meth:`param_sharding`): each member holds its part of every split
+parameter and of its optimizer state, the rest replicated.  The first
+member of each dp replica's tp group walks the graph as with ep; a
+split parameter reaches its ops as a
+:class:`~.tensor_parallel.TPShards` of the group's parts, and each op's
+tensor-parallel form computes every member's share on the member's own
+device (``parallel/tensor_parallel.py``).  The gradients go as with ep:
+the replicated leaves' summed over the walkers and copied to their tp
+members, each split leaf's over the members that hold the same part.
+``zero1=True`` splits the replicated leaves' state over dp (a split
+leaf's state follows its tp split).  ``tp`` together with ``ep`` is not
+ported (ROADMAP.md queue 1 item 3 (b2)).
+
+``fsdp=True`` (on a dp mesh, with tp or without) keeps every
+otherwise-replicated parameter whose axis 0 divides by dp split over dp,
+with its optimizer state: each member persists 1/dp of it.  A step
+all-gathers each such parameter on the walkers, walks, reduce-scatters
+its gradient on ZeRO-1's layout (:meth:`_reduce_bucket`) and sweeps each
+member's rows in place (:meth:`_update_zero1`); the gathered copies die
+with the step.  Elementwise optimizers only, as ZeRO-1.
+
 ``remat=True`` recomputes the whole forward in the backward (one
 device): the walk runs under one ``torch.utils.checkpoint`` (the JAX
 trainer wraps its trace in one ``jax.checkpoint``).
@@ -96,12 +119,13 @@ FLOPs, counted from the graph's shapes at the last step
 MFU at the card's peak for ``compute_dtype`` (``trainer_cost``) and the
 sentinel's counters.
 
-``fsdp``, ``seq_axis`` (ring attention), ``rules`` that shard a
-parameter, ``remat`` and the sentinel on several devices belong to later
-slices and raise; none is ignored.
+``seq_axis`` (ring attention), ``rules`` that split a parameter over
+an axis other than tp, ``remat`` and the sentinel on several devices
+belong to later slices (ROADMAP.md queue 1 item 3) and raise; none is
+ignored.
 
 :class:`ShardedPredictor` is the serving-side counterpart: the forward
-of a symbol on a dp or dp x ep mesh, from host parameters or a
+of a symbol on a dp, dp x ep or dp x tp mesh, from host parameters or a
 checkpoint, with the label slots bound as zeros.  With no ``ctx`` and no mesh, the
 trainer runs on the current context (``gpu(0)`` outside a ``with``
 scope).
@@ -209,14 +233,16 @@ def _remat(trace):
 
 
 class ShardedTrainer:
-    """Train a Symbol's loss graph on one device or a dp x ep mesh.
+    """Train a Symbol's loss graph on one device or a dp x ep or dp x tp
+    mesh.
 
     Parameters
     ----------
     symbol : Symbol with loss head(s) (e.g. SoftmaxOutput).
     optimizer : ``mxnet_tpu_torch.optimizer.Optimizer``.
     mesh : a mesh from ``parallel.make_mesh`` (data parallelism over its
-        ``dp`` axis, expert parallelism over ``ep``), or None.
+        ``dp`` axis, expert parallelism over ``ep``, tensor parallelism
+        over ``tp``), or None.
     data_names / label_names : input argument names.
     compute_dtype : dtype of the forward and backward (params, opt state
         and aux stay in their own dtype; gradients arrive in it).
@@ -224,6 +250,8 @@ class ShardedTrainer:
         means the mesh's first device, else the current context.
     zero1 : on a dp mesh, split each leaf's optimizer state over dp
         (:meth:`opt_state_sharding`).
+    fsdp : on a dp mesh, split the replicated parameters too, with their
+        state (:meth:`param_sharding`).
     sentinel : gate each step on all preprocessed gradients finite, on the
         device (None: ``MXTPU_SENTINEL``); one device only.
     loss_scale_init / loss_scale_growth : the sentinel's dynamic loss
@@ -243,8 +271,6 @@ class ShardedTrainer:
                  cast_exempt=(), zero1=False, fsdp=False, sentinel=None,
                  loss_scale_init=2.0 ** 15, loss_scale_growth=200,
                  step_timeout_s=None, ctx=None):
-        if fsdp:
-            raise _not_ported("fsdp (sharded parameters)", _MULTI_GPU)
         if seq_axis is not None:
             raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
         from .. import resilience as _resilience
@@ -258,17 +284,29 @@ class ShardedTrainer:
         self.step_timeout_s = step_timeout_s
         self.dp = mesh.shape.get("dp", 1) if mesh is not None else 1
         self.ep = mesh.shape.get("ep", 1) if mesh is not None else 1
+        self.tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+        if self.tp > 1 and self.ep > 1:
+            raise MXNetError("ShardedTrainer: tp=%d together with ep=%d is "
+                             "not ported yet (ROADMAP.md queue 1 item 3 "
+                             "(b2)); run tensor parallelism on a dp x tp "
+                             "mesh" % (self.tp, self.ep))
+        #: the model-parallel axis (its members split some parameters
+        #: and share one walker) and its size
+        self._maxis = "ep" if self.ep > 1 else "tp" if self.tp > 1 \
+            else None
+        self._mp = self.ep * self.tp
         if mesh is not None and mesh.shape.get("pp", 1) > 1:
             raise MXNetError("ShardedTrainer: a pp axis (%d stages) is "
                              "pipeline parallelism: train with "
                              "parallel.pipeline.GPipeTrainer"
                              % mesh.shape["pp"])
-        if self.ep > 1 and zero1:
-            raise MXNetError("ShardedTrainer: zero1=True with ep=%d is not "
+        if self.ep > 1 and (zero1 or fsdp):
+            raise MXNetError("ShardedTrainer: %s with ep=%d is not "
                              "ported yet (ROADMAP.md queue 1 item 3 (e2))"
-                             % self.ep)
+                             % ("zero1=True" if zero1 else "fsdp=True",
+                                self.ep))
         #: one device: plain tensors, no mesh collectives
-        self._single = self.dp == 1 and self.ep == 1
+        self._single = self.dp == 1 and self._mp == 1
         if not self._single and remat:
             raise _not_ported("remat=True on a mesh of several devices",
                               _MULTI_GPU)
@@ -294,24 +332,31 @@ class ShardedTrainer:
         self.seq_axis = seq_axis
         self.compute_dtype = _compute_dtype(compute_dtype)
         self.zero1 = bool(zero1) and self.dp > 1
+        #: FSDP: parameters (and their state) persist as 1/dp shards
+        self.fsdp = bool(fsdp) and self.dp > 1
         if self.mesh is None:
             from .mesh import Mesh
             self.mesh = Mesh([self.device], ("dp",), [1])
         self.group = self.mesh.replica_group() if self.dp > 1 else None
         # the members that walk the graph: every member of a dp mesh, the
-        # first of each dp replica's ep group on an ep mesh
-        self._walkers = self.mesh.members(ep=0)
-        # each walker's ep group: the members that take its gradients
-        self._ep_members = [[w] for w in self._walkers]
-        self._ep_groups = self._expert_groups = None
-        if self.ep > 1:
-            self._ep_members = [self.mesh.members(dp=self.mesh.coords(w)
-                                                  .get("dp", 0))
+        # first of each dp replica's ep or tp group otherwise
+        self._walkers = self.mesh.members(ep=0, tp=0)
+        # each walker's model-parallel group: the members that hold its
+        # parameters' slices and take its gradients
+        self._mp_members = [[w] for w in self._walkers]
+        self._mp_groups = None
+        # for each slice index, the members (one a dp replica) holding it
+        self._slice_members = [list(range(len(self.mesh.devices)))]
+        self._slice_groups = [self.group]
+        if self._maxis is not None:
+            self._mp_members = [self.mesh.axis_members(w, self._maxis)
                                 for w in self._walkers]
-            self._ep_groups = [self.mesh.group_of(m)
-                               for m in self._ep_members]
-            self._expert_groups = [self.mesh.group_of(self.mesh.members(
-                ep=e)) for e in range(self.ep)]
+            self._mp_groups = [self.mesh.group_of(m)
+                               for m in self._mp_members]
+            self._slice_members = [self.mesh.members(**{self._maxis: e})
+                                   for e in range(self._mp)]
+            self._slice_groups = [self.mesh.group_of(m)
+                                  for m in self._slice_members]
             self.group = self.mesh.group_of(self._walkers)
 
         from ..kernels import fused_opt as _fused
@@ -320,11 +365,13 @@ class ShardedTrainer:
             if _fused.supports_fused(optimizer) else ""
         if self._fused_opt == "kernel":
             _fused.sweep_body(optimizer)    # raises when it has no body
-        if self.zero1 and not _fused.supports_fused(optimizer):
+        if (self.zero1 or self.fsdp) \
+                and not _fused.supports_fused(optimizer):
             raise MXNetError(
-                "ShardedTrainer(zero1=True): %s is not elementwise; ZeRO-1 "
-                "updates each device's slices of a leaf apart"
-                % type(optimizer).__name__)
+                "ShardedTrainer(%s=True): %s is not elementwise; ZeRO-1 and "
+                "FSDP update each device's slices of a leaf apart"
+                % ("zero1" if self.zero1 else "fsdp",
+                   type(optimizer).__name__))
 
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
@@ -391,11 +438,15 @@ class ShardedTrainer:
     # shardings
     # ------------------------------------------------------------------
     def param_sharding(self, name, shape):
-        """Where a parameter lives: an MoE expert stack split over ``ep``
-        (axis 0), every other parameter replicated (a ``rules`` entry or
-        the tp policy that would shard it raises: tensor parallelism is a
-        later slice)."""
-        from .sharding import NamedSharding, param_pspec
+        """Where a parameter lives (the JAX trainer's placement): an MoE
+        expert stack split over ``ep`` (axis 0); on a tp axis the tp
+        policy of ``sharding.param_pspec`` (or a ``rules`` entry over
+        tp): axis 0 when it divides, else axis 1, a divisible bias, the
+        normalization parameters replicated; under ``fsdp`` every
+        otherwise-replicated parameter whose axis 0 divides split over
+        dp; the rest replicated.  A rule that splits a parameter over
+        another axis raises."""
+        from .sharding import NamedSharding, P, param_pspec
         spec = param_pspec(name, shape, self.mesh, self.rules)
         if tuple(spec[:1]) == ("ep",) and not any(spec[1:]):
             if name not in self._moe_slots:
@@ -404,10 +455,17 @@ class ShardedTrainer:
                     "'expert') but is not an MoE node's expert weight; "
                     "only MoE splits its experts over ep" % name)
             return NamedSharding(self.mesh, spec)
-        if any(e is not None for e in spec):
-            raise _not_ported("sharding parameter %s as %s (tensor "
-                              "parallelism, rules that shard a parameter)"
-                              % (name, spec), _MULTI_GPU)
+        axes = [e for e in spec
+                if e is not None and self.mesh.shape.get(e, 1) > 1]
+        if axes and axes != ["tp"]:
+            raise _not_ported("sharding parameter %s as %s (a rule that "
+                              "splits a parameter over %s)"
+                              % (name, spec, "+".join(map(str, axes))),
+                              _MULTI_GPU)
+        if not axes:
+            spec = P(*([None] * len(shape)))
+            if self.fsdp and shape and shape[0] % self.dp == 0:
+                spec = P("dp", *([None] * (len(shape) - 1)))
         return NamedSharding(self.mesh, spec)
 
     def batch_sharding(self, shape):
@@ -418,12 +476,15 @@ class ShardedTrainer:
 
     def opt_state_sharding(self, name, shape):
         """ZeRO-1 placement for one optimizer-state array: axis 0 split
-        over dp when it divides, else the parameter's own placement."""
+        over dp when it divides, else the parameter's own placement (a
+        tp-split leaf's state, and FSDP's, follow the leaf's split)."""
         from .sharding import NamedSharding, P
-        if self.zero1 and shape and shape[0] % self.dp == 0:
+        own = self.param_sharding(name, shape)
+        if self.zero1 and shape and shape[0] % self.dp == 0 \
+                and all(e is None for e in own.spec):
             return NamedSharding(self.mesh,
                                  P("dp", *([None] * (len(shape) - 1))))
-        return self.param_sharding(name, shape)
+        return own
 
     def _place(self, value, sharding):
         from .sharding import place
@@ -474,10 +535,10 @@ class ShardedTrainer:
     def place_params(self, values):
         """``{name: array}`` (numpy, NDArray or tensor: the JAX package's
         parameters carried across as numpy, say) placed on the mesh as
-        the trainer keeps them: replicated on every replica (an expert
-        stack split over ep); in a process group, rank 0's values
-        broadcast to every process.  On a one-device mesh, tensors on the
-        device."""
+        the trainer keeps them (:meth:`param_sharding`: replicated, an
+        expert stack split over ep, a tp split, an FSDP split over dp); in
+        a process group, rank 0's values broadcast to every process.  On
+        a one-device mesh, tensors on the device."""
         from .sharding import place, P
         from .collectives import broadcast
         out = {}
@@ -487,10 +548,12 @@ class ShardedTrainer:
                 continue
             spec = self.param_sharding(name, tuple(v.shape)).spec \
                 if name in self.param_names else P(*([None] * len(v.shape)))
-            arr = place(v, self.mesh, spec)
             if self.mesh.num_processes > 1:
-                broadcast(self.group, arr.shards)
-            out[name] = arr
+                # rank 0's whole value first, then this process's part
+                rep = place(v, self.mesh, P(*([None] * len(v.shape))))
+                broadcast(self.group, rep.shards)
+                v = rep.shards[0]
+            out[name] = place(v, self.mesh, spec)
         return out
 
     def _shape_maps(self, data_shapes, label_shapes=None):
@@ -673,9 +736,11 @@ class ShardedTrainer:
         """``{"flops": F}``: the model FLOPs of one training step at the
         last step's input shapes (:func:`.flops.step_flops`: every
         product, a multiply-add as 2, 3 times the forward), or None
-        before the first step.  The JAX trainer's dict is XLA's cost
-        analysis, which also counts elementwise work and bytes; the port
-        has no count of bytes."""
+        before the first step.  On a mesh of several members it adds
+        ``flops_per_member`` (``F`` over the members: each dp replica's
+        share, split again over its tp or ep members) and ``members``.
+        The JAX trainer's dict is XLA's cost analysis, which also counts
+        elementwise work and bytes; the port has no count of bytes."""
         if self._step_shapes is None:
             return None
         flops = self._flops.get(self._step_shapes)
@@ -683,7 +748,14 @@ class ShardedTrainer:
             from .flops import step_flops
             flops = self._flops[self._step_shapes] = step_flops(
                 self.symbol, dict(self._step_shapes))
-        return {"flops": float(flops)}
+        out = {"flops": float(flops)}
+        members = len(self.mesh.devices) * self.mesh.num_processes
+        if members > 1:
+            # the work of one member: the step's model FLOPs split evenly
+            # over dp replicas and over the tp or ep members of each
+            out.update(flops_per_member=float(flops) / members,
+                       members=members)
+        return out
 
     def emit_telemetry_counters(self, step_time_s=None):
         """Emit the ``trainer_cost`` counter (model FLOPs, and with
@@ -791,32 +863,61 @@ class ShardedTrainer:
     # ------------------------------------------------------------------
     def _walker_params(self, members, d, split):
         """Walker ``d``'s parameters from ``members`` (a dict a member):
-        its own, with each expert stack of ``split`` (those split over
-        ep) an :class:`~mxnet_tpu_torch.ops.moe.ExpertShards` of its ep
-        group's slices."""
+        its own, with each parameter of ``split`` (name -> split
+        dimension) its model-parallel group's slices: an
+        :class:`~mxnet_tpu_torch.ops.moe.ExpertShards` over ep, a
+        :class:`~.tensor_parallel.TPShards` over tp."""
         w = self._walkers[d]
         if not split:
             return members[w]
-        from ..ops.moe import ExpertShards
         out = dict(members[w])
-        for k in split:
-            out[k] = ExpertShards([members[i][k]
-                                   for i in self._ep_members[d]],
-                                  self._ep_groups[d])
+        parts = {k: [members[i][k] for i in self._mp_members[d]]
+                 for k in split}
+        if self._maxis == "ep":
+            from ..ops.moe import ExpertShards
+            for k in split:
+                out[k] = ExpertShards(parts[k], self._mp_groups[d])
+        else:
+            from .tensor_parallel import TPShards
+            for k, dim in split.items():
+                out[k] = TPShards(parts[k], self._mp_groups[d], dim)
         return out
+
+    def _full_leaves(self, params, grad):
+        """Each member's parameter tensors for the walk: its own shards,
+        with FSDP's dp-split leaves all-gathered whole on the walkers
+        (``grad``: fresh leaves that record a gradient)."""
+        from .collectives import all_gather
+        n = len(self.mesh.devices)
+
+        def leaf(t):
+            t = t.detach()
+            return t.requires_grad_(True) if grad else t
+        leaves = [{k: leaf(params[k].shards[r]) for k in self.param_names}
+                  for r in range(n)]
+        if self.fsdp:
+            for k in self._fsdp_names(params):
+                whole = all_gather(self.group, [
+                    params[k].shards[w].detach().reshape(-1)
+                    for w in self._walkers])
+                for w, t in zip(self._walkers, whole):
+                    leaves[w][k] = leaf(t.view(params[k].shape))
+        return leaves
+
+    def _fsdp_names(self, params):
+        return [k for k in self.param_names
+                if tuple(params[k].sharding.spec[:1]) == ("dp",)]
 
     def _walk(self, params, aux, batch, rng, is_train, leaves=None):
         """The lockstep walk of the walkers: ``(outputs, aux_out,
         replicated)`` (``Program.trace_replicas``)."""
         from .sharding import ShardedArray
-        n = len(self.mesh.devices)
 
         def shard(v, r):
             return v.shards[r] if isinstance(v, ShardedArray) else v
         if leaves is None:
-            leaves = [{k: shard(params[k], r) for k in self.param_names}
-                      for r in range(n)]
-        split = _ep_split(params)
+            leaves = self._full_leaves(params, False)
+        split = _model_split(params)
         args, auxs = [], []
         for d, r in enumerate(self._walkers):
             p = self._walker_params(leaves, d, split)
@@ -845,11 +946,12 @@ class ShardedTrainer:
 
     def _outputs(self, outs, reps):
         """Heads as :class:`~.sharding.ShardedArray`s: split on axis 0,
-        or replicated.  On an ep mesh every member of a dp replica holds
-        its walker's output."""
+        or replicated.  On an ep or tp mesh every member of a dp replica
+        holds its walker's output."""
         from .sharding import ShardedArray, P
-        # members are in (dp, ep) order: member i walks with walker i // ep
-        owner = [i // self.ep for i in range(len(self.mesh.devices))]
+        # members are in (dp, ep or tp) order: member i walks with walker
+        # i // (ep * tp)
+        owner = [i // self._mp for i in range(len(self.mesh.devices))]
         got = []
         for i, rep in enumerate(reps):
             shards = [outs[owner[r]][i].detach() for r in range(len(owner))]
@@ -866,10 +968,13 @@ class ShardedTrainer:
         return got
 
     def _step_dp(self, params, opt_state, aux, batch, rng):
-        """The step on a dp (x ep) mesh: the walkers' gradients of the
-        replicated leaves reduced bucket by bucket as the backward makes
-        them and copied to each walker's ep members; each expert slice's
-        gradient summed over the members that hold it."""
+        """The step on a dp mesh, with ep or tp: the walkers' gradients of
+        the replicated leaves reduced bucket by bucket as the backward
+        makes them and copied to each walker's model-parallel members;
+        each split leaf's gradient summed over the members that hold the
+        same slice.  Under FSDP the dp-split leaves are gathered whole for
+        the walk and dropped after it, and their gradients
+        reduce-scattered as ZeRO-1's."""
         from .. import executor as _executor
         from .overlap import GradBuckets, interleave_grad_buckets
         from .collectives import send
@@ -879,13 +984,13 @@ class ShardedTrainer:
             if opt.lr_scheduler is not None else opt.lr
         wd, t = opt.wd, self.num_update
         n = len(self.mesh.devices)
-        leaves = [{k: params[k].shards[r].detach().requires_grad_(True)
-                   for k in self.param_names} for r in range(n)]
-        split = _ep_split(params)
+        leaves = self._full_leaves(params, True)
+        split = _model_split(params)
+        first = leaves[self._walkers[0]]
         plan = interleave_grad_buckets(
-            {k: params[k].shards[0] for k in self.param_names
-             if k not in split})
-        layout = self._zero1_layout(params) if self.zero1 else None
+            {k: first[k] for k in self.param_names if k not in split})
+        layout = self._zero1_layout(params, split) \
+            if self.zero1 or self.fsdp else None
         reducer = GradBuckets([leaves[w] for w in self._walkers], plan,
                               functools.partial(self._reduce_bucket, layout))
         with torch.enable_grad():
@@ -906,45 +1011,44 @@ class ShardedTrainer:
                 reduced[r].update(part[r])
         with torch.no_grad():
             if split:
-                self._reduce_experts(leaves, split, reduced)
-            if self.zero1:
+                self._reduce_slices(leaves, split, reduced)
+            del leaves, first
+            if layout is not None:
                 self._update_zero1(params, opt_state, reduced, layout, lr,
                                    wd, t)
             else:
                 self._update_replicas(params, opt_state, reduced, lr, wd, t)
-            # members are in (dp, ep) order: member r walks with walker
-            # r // ep
             for k in aux:
                 aux[k] = ShardedArray(
-                    [send(aux_out[r // self.ep][k].detach().to(
+                    [send(aux_out[r // self._mp][k].detach().to(
                         aux[k].dtype), self.mesh.devices[r])
                      for r in range(n)],
                     self.mesh, aux[k].sharding.spec, aux[k].shape)
         return params, opt_state, aux, self._outputs(outs, reps)
 
-    def _reduce_experts(self, leaves, split, grads):
-        """The gradients of the expert slices (``split``) summed over the
-        members that hold the same slice, into ``grads`` (a dict a
-        member)."""
+    def _reduce_slices(self, leaves, split, grads):
+        """The gradients of the split leaves (``split``) summed over the
+        members that hold the same slice (one a dp replica), into
+        ``grads`` (a dict a member)."""
         from .collectives import all_reduce
-        sizes = [leaves[0][k].numel() for k in split]
-        for e, group in enumerate(self._expert_groups):
-            members = self.mesh.members(ep=e)
+        names = list(split)
+        sizes = [leaves[0][k].numel() for k in names]
+        for members, group in zip(self._slice_members, self._slice_groups):
             flats = [torch.cat([
                 (leaves[r][k].grad if leaves[r][k].grad is not None
                  else torch.zeros_like(leaves[r][k])).reshape(-1)
-                for k in split]) for r in members]
+                for k in names]) for r in members]
             if len(flats) > 1:
                 flats = all_reduce(group, flats)
             for r, flat in zip(members, flats):
-                for k, part in zip(split, torch.split(flat, sizes)):
+                for k, part in zip(names, torch.split(flat, sizes)):
                     grads[r][k] = part.view(leaves[r][k].shape)
 
     def _reduce_bucket(self, layout, names, grads):
         """One bucket's gradients summed over the walkers (``grads``: a
         dict a walker): ``[{name: gradient}]`` a member of the mesh, each
-        ep member holding its walker's sums; under ZeRO-1 a divisible
-        leaf's entry is this replica's slice of rows
+        ep or tp member holding its walker's sums; under ZeRO-1 and FSDP
+        a leaf of ``layout`` gets this replica's slice of rows
         (:meth:`_zero1_layout`)."""
         from .collectives import all_reduce, reduce_scatter, send
         out = [{} for _ in self.mesh.devices]
@@ -953,14 +1057,13 @@ class ShardedTrainer:
             sums = all_reduce(self.group, [
                 torch.cat([g[k].reshape(-1) for k in whole]) for g in grads])
             sizes = [grads[0][k].numel() for k in whole]
-            for d, members in enumerate(self._ep_members):
+            for d, members in enumerate(self._mp_members):
                 for r in members:
                     flat = send(sums[d], self.mesh.devices[r])
                     for k, part in zip(whole, torch.split(flat, sizes)):
                         out[r][k] = part.view(grads[d][k].shape)
         split = [k for k in names if layout is not None and k in layout]
         if split:
-            n = len(grads)
             world = self.group.world
             rows = {k: grads[0][k].shape[0] // world for k in split}
             sizes = [rows[k] * grads[0][k][0].numel() for k in split]
@@ -977,22 +1080,28 @@ class ShardedTrainer:
                         parts.append(g[split[0]].new_zeros(pad))
                 flats.append(torch.cat(parts))
             mine = reduce_scatter(self.group, flats)
-            for r in range(n):
-                for k, part in zip(split, torch.split(mine[r][:chunk],
-                                                      sizes)):
-                    out[r][k] = part.view((rows[k],)
-                                          + tuple(grads[r][k].shape[1:]))
+            for d, members in enumerate(self._mp_members):
+                for r in members:
+                    flat = send(mine[d][:chunk], self.mesh.devices[r])
+                    for k, part in zip(split, torch.split(flat, sizes)):
+                        out[r][k] = part.view(
+                            (rows[k],) + tuple(grads[d][k].shape[1:]))
         return out
 
-    def _zero1_layout(self, params):
-        """The names of the leaves ZeRO-1 splits: axis 0 divisible by
-        dp."""
-        return {k for k in self.param_names
-                if params[k].shape and params[k].shape[0] % self.dp == 0}
+    def _zero1_layout(self, params, split=()):
+        """The names of the leaves ZeRO-1 and FSDP split over dp: the
+        replicated ones whose axis 0 divides by dp."""
+        return {k for k in self.param_names if k not in split
+                and params[k].shape and params[k].shape[0] % self.dp == 0}
+
+    def _dp_index(self, r):
+        """Member ``r``'s global index along dp."""
+        return self.group.rank() * len(self._walkers) \
+            + self.mesh.coords(r).get("dp", 0)
 
     def _update_replicas(self, params, opt_state, grads, lr, wd, t):
-        """Each replica's update of its copy (its own sweep, or leafwise),
-        from the summed gradients."""
+        """Each member's update of its copy or its slices (its own sweep,
+        or leafwise), from the summed gradients."""
         from .sharding import ShardedArray
         n = len(self.mesh.devices)
         new_w = [None] * n
@@ -1020,24 +1129,25 @@ class ShardedTrainer:
                     opt_state[k], [s[k] for s in new_s], self.mesh)
 
     def _update_zero1(self, params, opt_state, grads, layout, lr, wd, t):
-        """ZeRO-1: each device's update over one flat vector of its
-        slices (the divisible leaves' rows of that device, then the other
-        leaves whole), then the new weights all-gathered."""
+        """ZeRO-1 and FSDP: each member's update over one flat vector of
+        its slices (the divisible leaves' rows of its dp index, then the
+        other leaves whole: its copy or its tp slice), then, under
+        ZeRO-1, the new weights all-gathered over each dp group; FSDP
+        keeps its rows."""
         from .collectives import all_gather
         from .sharding import ShardedArray
         n = len(self.mesh.devices)
         div = [k for k in self.param_names if k in layout]
         rest = [k for k in self.param_names if k not in layout]
-        base = self.group.rank() * n
         n_state = len(_state_leaves(
             self.optimizer.create_state_arrays((1,))))
         vecs = []
         for r in range(n):
-            g_idx = base + r
+            g_idx = self._dp_index(r)
             w_parts, g_parts, s_parts = [], [], [[] for _ in range(n_state)]
             for k in div + rest:
                 w = params[k].shards[r]
-                if k in layout:
+                if k in layout and not self.fsdp:
                     rows = w.shape[0] // self.dp
                     w = w.narrow(0, g_idx * rows, rows)
                 w_parts.append(w.reshape(-1))
@@ -1058,7 +1168,14 @@ class ShardedTrainer:
             vecs.append((w_vec, s_vecs))
         sizes = [grads[0][k].numel() for k in div + rest]
         n_div = sum(sizes[:len(div)])
-        gathered = all_gather(self.group, [w[:n_div] for w, _ in vecs])
+        gathered = [None] * n
+        if not self.fsdp:
+            for members, group in zip(self._slice_members,
+                                      self._slice_groups):
+                got = all_gather(group, [vecs[r][0][:n_div]
+                                         for r in members])
+                for r, g in zip(members, got):
+                    gathered[r] = g
         for r in range(n):
             w_vec, s_vecs = vecs[r]
             w_parts = torch.split(w_vec, sizes)
@@ -1070,8 +1187,10 @@ class ShardedTrainer:
                     leaves = _state_leaves(st)
                     for i, leaf in enumerate(leaves):
                         leaf.shards[r] = s_split[i][j].view(shard_shape)
-            for k, part in zip(rest, w_parts[len(div):]):
-                params[k].shards[r] = part.view(params[k].shape)
+                if k in rest or self.fsdp:
+                    params[k].shards[r] = w_parts[j].view(shard_shape)
+            if self.fsdp:
+                continue
             whole = gathered[r].view(self.group.world, n_div)
             off = 0
             for k, size in zip(div, sizes):
@@ -1258,14 +1377,15 @@ class ShardedPredictor(object):
     :class:`ShardedTrainer` (the port of the JAX package's
     ``ShardedPredictor``).  The batch is split over dp, the parameters
     placed as the trainer places them (an MoE expert stack split over
-    ep), and the forward runs with ``is_train=False``; the loss layers'
-    label slots are bound as zeros.
+    ep, the tp policy's splits over tp), and the forward runs with
+    ``is_train=False``; the loss layers' label slots are bound as
+    zeros.
 
     Parameters
     ----------
     symbol : inference symbol (loss heads fine: they run is_train=False).
-    mesh : a mesh from ``parallel.make_mesh`` with dp and ep axes (tp
-        raises: ROADMAP.md queue 1 item 3 (b)).
+    mesh : a mesh from ``parallel.make_mesh`` with dp and ep or tp axes
+        (tp splits the parameters by the tp policy, as the trainer does).
     arg_params / aux_params : host dicts (e.g. from
         ``model.load_checkpoint``: numpy arrays or NDArrays).
     compute_dtype : dtype of the forward; floating outputs come back
@@ -1277,10 +1397,6 @@ class ShardedPredictor(object):
                  label_names=("softmax_label",), compute_dtype=None):
         from ..model import _host
         from ..optimizer import SGD
-        if mesh.shape.get("tp", 1) > 1:
-            raise MXNetError("ShardedPredictor: tp=%d: tensor parallelism "
-                             "is not ported yet (ROADMAP.md queue 1 item "
-                             "3 (b))" % mesh.shape["tp"])
         if seq_axis is not None:
             raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
         self.symbol = symbol
@@ -1381,13 +1497,20 @@ class ShapeDtypeStruct(object):
                                                          self.dtype)
 
 
-def _ep_split(params):
-    """The names of the parameters split over ep (their spec's first
-    entry)."""
+def _model_split(params):
+    """The parameters split over ep or tp: ``{name: the split
+    dimension}``, in name order."""
     from .sharding import ShardedArray
-    return sorted(k for k, v in params.items()
-                  if isinstance(v, ShardedArray)
-                  and tuple(v.sharding.spec[:1]) == ("ep",))
+    out = {}
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, ShardedArray):
+            for dim, e in enumerate(v.sharding.spec):
+                if e in ("ep", "tp") \
+                        and v.sharding.mesh.shape.get(e, 1) > 1:
+                    out[k] = dim
+                    break
+    return out
 
 
 def _np_array(a):

@@ -22,6 +22,16 @@ iterations land.  ``ctx=None`` runs on the current context (``gpu(0)``
 outside a ``with`` scope) and raises when there is no CUDA device; the
 CPU runs only on ``ctx=cpu()`` or under ``with cpu():``.
 
+``mesh=`` (with ``tp_axis``, as the JAX engine takes them) serves one
+model over the tp members of a mesh: the KV pools split on their head
+axis (``PagedKVCache.shard_pools``), and the products split by the tp
+policy the trainer uses (``parallel.sharding.param_pspec``; the JAX
+engine replicates its weights, which gives the same tokens), so each
+member's decode step launches flash-decode once a layer over its own
+heads and, under ``quantize``, the weight-only kernel on its rows of
+each product (``parallel/tensor_parallel.py``).  The walk and the
+logits stay on the first member's device.
+
 As in the JAX package, every step copies its whole logits block to the
 host (31 MB for a 960-token prompt at vocab 8192).
 """
@@ -159,10 +169,28 @@ class GenerationEngine(object):
                  decode_histogram=None, max_new_tokens=None,
                  kv_blocks=None, kv_block_size=None,
                  cache_dtype="float32", compute_dtype="float32",
-                 max_buckets=None, ctx=None, quantize=None):
+                 max_buckets=None, ctx=None, mesh=None, tp_axis="tp",
+                 quantize=None):
         import os
         from ..predictor import Predictor
         from ..models import transformer as _tf
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self._tp_group = None
+        if mesh is not None:
+            others = {a: n for a, n in mesh.shape.items()
+                      if a != tp_axis and n > 1}
+            if others:
+                raise MXNetError(
+                    "GenerationEngine: mesh axes %s: one engine serves one "
+                    "replica over its tp members; serve replicas behind "
+                    "the fleet's router" % others)
+            if ctx is not None and resolve(ctx) != mesh.device:
+                raise MXNetError("GenerationEngine: ctx %s differs from the "
+                                 "mesh's first device %s"
+                                 % (resolve(ctx), mesh.device))
+            ctx = mesh.device
+            if mesh.shape.get(tp_axis, 1) > 1:
+                self._tp_group = mesh.axis_group(0, tp_axis)
         self.device = resolve(ctx)
         if quantize is None:
             quantize = os.environ.get("MXTPU_QUANTIZE", "") or None
@@ -226,6 +254,8 @@ class GenerationEngine(object):
             head_dim=self.dim // self.num_heads, max_seq_len=total_len,
             num_blocks=kv_blocks, block_size=kv_block_size,
             dtype=cache_dtype), self.device)
+        if mesh is not None:
+            self.cache.shard_pools(mesh, tp_axis=tp_axis)
         mb = self.cache.config.blocks_per_seq
         pool = self.cache.config.pool_shape
         cache_shapes = {}
@@ -264,6 +294,9 @@ class GenerationEngine(object):
                           **cache_shapes)
             self._decode[B] = Predictor(dec_json, params, shapes,
                                         ctx=self.device, quantize=quantize)
+        #: under tp, each split product's parts (name -> TPShards)
+        self._tp_params = self._split_params(params) \
+            if self._tp_group is not None else {}
 
         self._lock = threading.Lock()
         self._seqs = {}
@@ -274,6 +307,20 @@ class GenerationEngine(object):
         self._step_time = {"prefill_s": 0.0, "decode_s": 0.0,
                            "prefills": 0, "decode_steps": 0}
         self.warmup()
+
+    def _split_params(self, params):
+        """The weights the tp policy splits, placed on the tp members as
+        :class:`~mxnet_tpu_torch.parallel.tensor_parallel.TPShards`."""
+        from ..parallel.sharding import param_pspec, place
+        from ..parallel.tensor_parallel import TPShards
+        out = {}
+        for name, v in params.items():
+            spec = param_pspec(name, tuple(v.shape), self.mesh)
+            dims = [i for i, e in enumerate(spec) if e == self.tp_axis]
+            if dims:
+                arr = place(v, self.mesh, spec)
+                out[name] = TPShards(arr.shards, self._tp_group, dims[0])
+        return out
 
     # -- warmup ------------------------------------------------------------
 
@@ -437,6 +484,8 @@ class GenerationEngine(object):
         return results
 
     def _install(self, outs):
+        if self._tp_group is not None:
+            return      # each member's pools were updated in place
         self.cache.set_pools(
             [outs[1 + 2 * i] for i in range(self.num_layers)],
             [outs[2 + 2 * i] for i in range(self.num_layers)])
@@ -453,10 +502,23 @@ class GenerationEngine(object):
         for k, v in host_inputs.items():
             values[k] = torch.from_numpy(v).to(self.device)
         for i in range(self.num_layers):
-            values["layer%d_att_k_cache" % i] = self.cache.k_pools[i]
-            values["layer%d_att_v_cache" % i] = self.cache.v_pools[i]
+            for c, pools in (("k", self.cache.k_pools),
+                             ("v", self.cache.v_pools)):
+                values["layer%d_att_%s_cache" % (i, c)] = \
+                    self._pool(pools[i])
+        values.update(self._tp_params)
         ex._n_forward += 1
         return ex._forward_raw(values)
+
+    def _pool(self, pool):
+        """A pool as the walk takes it: a tensor on the device, or under
+        tp its members' head slices."""
+        if self._tp_group is not None:
+            from ..parallel.tensor_parallel import TPShards
+            return TPShards(pool.shards, self._tp_group, 2, weight=False)
+        if hasattr(pool, "shards"):
+            return pool.shards[0]
+        return pool
 
     # -- synchronous convenience (transformer.generate) --------------------
 

@@ -19,6 +19,13 @@ tokens (vLLM's PagedAttention, SOSP'23).  Two halves:
 Block 0 is the **trash block**: never allocated, never read unmasked.
 Padded batch rows and padded prompt positions route their writes to it.
 
+Under tensor parallelism the pools split on their head axis over the
+``tp`` members of a mesh (:func:`cache_sharding_rules`,
+:meth:`PagedKVCache.shard_pools`): member ``j`` holds ``(num_blocks,
+block_size, num_heads / tp, head_dim)`` of every pool on its own device,
+and ``CachedMultiHeadAttention``'s tensor-parallel form writes and reads
+only those.
+
 The sizes come from the JAX package's knobs, with its defaults:
 ``MXTPU_SERVE_KV_BLOCKS`` pool blocks (256, trash block included),
 ``MXTPU_SERVE_KV_BLOCK_SIZE`` tokens a block (32) and
@@ -39,6 +46,7 @@ from ..base import MXNetError
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "CacheExhausted", "TRASH_BLOCK",
            "kv_blocks", "kv_block_size", "max_new_tokens",
+           "cache_sharding_rules",
            "DEFAULT_KV_BLOCKS", "DEFAULT_KV_BLOCK_SIZE",
            "DEFAULT_MAX_NEW_TOKENS"]
 
@@ -149,6 +157,19 @@ class KVCacheConfig(object):
                 "dtype": self.dtype}
 
 
+def cache_sharding_rules(tp_axis="tp", mesh=None):
+    """:class:`~mxnet_tpu_torch.parallel.sharding.ShardingRules` that
+    split the cache pools head-wise over ``tp_axis`` (pool dim 2) and
+    keep the block tables whole: ordered regexes over array names, the
+    first match winning (the JAX package's rules)."""
+    from ..parallel.sharding import P, ShardingRules
+    return ShardingRules([
+        (r".*_(k|v)_cache$",
+         lambda shape, m, _a=tp_axis: P(None, None, _a, None)),
+        (r".*block_table$", lambda shape, m: P(*([None] * len(shape)))),
+    ], mesh=mesh)
+
+
 class _Sequence(object):
     __slots__ = ("seq_id", "blocks", "table_row")
 
@@ -186,6 +207,16 @@ class PagedKVCache(object):
         with self._lock:
             return len(self._free)
 
+    def blocks_used(self):
+        with self._lock:
+            return self.blocks_total() - len(self._free)
+
+    def can_admit(self, n_tokens):
+        """Whether a sequence of ``n_tokens`` cache slots fits the free
+        list now."""
+        with self._lock:
+            return self.config.blocks_for(n_tokens) <= len(self._free)
+
     def allocate(self, seq_id, n_tokens):
         """Reserve the whole ``n_tokens`` block budget for ``seq_id`` and
         return its block-table row (``(blocks_per_seq,)`` int32, unused
@@ -212,6 +243,19 @@ class PagedKVCache(object):
                 self._high_water, self.blocks_total() - len(self._free))
             return row.copy()
 
+    def table_row(self, seq_id):
+        """A copy of ``seq_id``'s block-table row."""
+        with self._lock:
+            seq = self._seqs.get(seq_id)
+            if seq is None:
+                raise MXNetError("unknown sequence %r" % (seq_id,))
+            return seq.table_row.copy()
+
+    def active(self):
+        """The allocated sequence ids, sorted."""
+        with self._lock:
+            return sorted(self._seqs)
+
     def free(self, seq_id):
         """Return a finished sequence's blocks to the free list (LIFO);
         freeing an unknown id is a bookkeeping bug and raises."""
@@ -235,7 +279,31 @@ class PagedKVCache(object):
         self.k_pools = list(k_pools)
         self.v_pools = list(v_pools)
 
+    def shard_pools(self, mesh, tp_axis="tp"):
+        """Place the pools on ``mesh`` per :func:`cache_sharding_rules`:
+        each pool a :class:`~mxnet_tpu_torch.parallel.sharding.ShardedArray`
+        split on its head axis over ``tp_axis`` (whole on every member
+        when the mesh has no such axis).  Returns the applied
+        PartitionSpec."""
+        from ..parallel.sharding import place
+        rules = cache_sharding_rules(tp_axis=tp_axis, mesh=mesh)
+        spec = rules.match("layer0_k_cache", self.config.pool_shape)
+        tp = mesh.shape.get(tp_axis, 1)
+        if self.config.num_heads % tp:
+            raise MXNetError("shard_pools: %d heads do not divide over %s=%d"
+                             % (self.config.num_heads, tp_axis, tp))
+
+        self.k_pools = [place(p, mesh, spec) for p in self.k_pools]
+        self.v_pools = [place(p, mesh, spec) for p in self.v_pools]
+        return spec
+
     # -- stats -------------------------------------------------------------
+
+    def occupancy(self):
+        """The share of the allocatable blocks in use."""
+        with self._lock:
+            total = self.blocks_total()
+            return (total - len(self._free)) / float(total) if total else 0.0
 
     def stats(self):
         with self._lock:

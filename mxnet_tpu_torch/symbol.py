@@ -384,23 +384,30 @@ class Symbol:
 
     # -- binding (executor.py) ---------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None, validate=None):
+             aux_states=None, group2ctx=None, shared_exec=None,
+             validate=None):
         """Bind to arrays: ``args``, ``args_grad`` and ``aux_states`` are
         lists or name->NDArray dicts (``executor.Executor``); ``validate``
         is the bind-time lint's mode (``"warn"``, ``"error"``, ``"off"``;
-        default ``MXTPU_BIND_VALIDATE``, else ``"warn"``).  Placement by
-        ``group2ctx`` and memory sharing with another executor are not
-        ported (ROADMAP.md queue 1 item 3)."""
-        from .executor import Executor
+        default ``MXTPU_BIND_VALIDATE``, else ``"warn"``).
+        ``shared_exec`` (the reference's memory sharing with another
+        executor) changes no result and is ignored; ``group2ctx`` binds
+        as usual when None or empty, and a placement map raises
+        (ROADMAP.md queue 1 item 3 (j))."""
+        from .executor import Executor, check_group2ctx
+        check_group2ctx(group2ctx, "Symbol.bind")
         return Executor(self, ctx, args, args_grad, grad_req, aux_states,
                         validate=validate)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
-                    validate=None, **kwargs):
+                    group2ctx=None, shared_exec=None, validate=None,
+                    **kwargs):
         """Allocate arrays from the shapes in ``kwargs`` and bind
-        (``executor.simple_bind``)."""
+        (``executor.simple_bind``; ``group2ctx`` and ``shared_exec`` as
+        :meth:`bind` takes them)."""
         from .executor import simple_bind
         return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                           group2ctx=group2ctx, shared_exec=shared_exec,
                            validate=validate, **kwargs)
 
     # -- serialization (reference JSON layout) -----------------------------

@@ -1768,3 +1768,105 @@ def test_two_stage_pipeline_on_the_card_matches_the_cpu(cuda):
     for part in ph:
         for k in ph[part]:
             assert np.abs(pc[part][k] - ph[part][k]).max() < 1e-5
+
+
+def _tp_lm(mx, mesh, steps=2, **kw):
+    """A small LM's steps on ``mesh`` (SGD with momentum, the CUDA sweep)."""
+    import os
+    sym = mx.models.transformer.get_symbol(vocab_size=256, num_layers=2,
+                                          num_heads=4, dim=128, seq_len=64)
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    try:
+        tr = mx.parallel.ShardedTrainer(
+            sym, mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                     rescale_grad=1.0 / 256), mesh, **kw)
+        mx.random.seed(2)
+        p, s, a = tr.init_params({"data": (4, 64)},
+                                 label_shapes={"softmax_label": (4, 64)})
+        rng = np.random.RandomState(0)
+        tok = rng.randint(0, 256, (4, 65)).astype(np.float32)
+        b = tr.shard_batch({"data": tok[:, :-1], "softmax_label": tok[:, 1:]})
+        for _ in range(steps):
+            p, s, a, o = tr.step(p, s, a, b)
+        torch.cuda.synchronize()
+        return p, s, tr
+    finally:
+        os.environ.pop("MXTPU_FUSED_OPT", None)
+
+
+def test_tp_member_launches_on_the_card(cuda):
+    """The LM at tp=2 on one card: each member launches the flash forward
+    over its 2 of 4 heads once a layer a step, and sweeps its own
+    buckets; no whole weight is gathered; the weights come within 1e-4
+    of the one-device step's, relative to the largest (cuBLAS sums
+    products of other widths in other orders; ``chip_smoke.py`` phase 22
+    holds the full-width LM to the float64 witness)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    from mxnet_tpu_torch.parallel import tensor_parallel as tp
+    one, _s, _t = _tp_lm(mx, mx.parallel.make_mesh([mx.gpu(0)], dp=1))
+    fa.flash_attention_forward.launches_by_heads.clear()
+    before = fo.sweep.launches
+    tp.reset_counts()
+    got, _s, tr = _tp_lm(mx, mx.parallel.make_mesh([mx.gpu(0)] * 2, tp=2))
+    heads = dict(fa.flash_attention_forward.launches_by_heads)
+    sweeps = fo.sweep.launches - before
+    member = {k: v.shards[0] for k, v in got.items()}
+    buckets = len(fo.plan_buckets({k: member[k] for k in tr.param_names}))
+    assert tp.counts()["whole_weight_gathers"] == 0
+    assert heads == {2: 2 * 2 * 2}, heads
+    assert sweeps == buckets * 2 * 2, (sweeps, buckets)
+    err = {k: float((got[k].global_tensor() - one[k]).abs().max())
+           / max(1.0, float(one[k].abs().max())) for k in one}
+    assert max(err.values()) <= 1e-4, sorted(err.items(),
+                                            key=lambda kv: -kv[1])[:3]
+
+
+def test_fsdp_on_the_card_is_zero1_bit_for_bit(cuda):
+    """FSDP at dp=2 on one card: the parameters and momentum after two
+    steps equal ZeRO-1's bit for bit, and each member keeps half."""
+    import mxnet_tpu_torch as mx
+    mesh = mx.parallel.make_mesh([mx.gpu(0)] * 2, dp=2)
+    pf, sf, _t = _tp_lm(mx, mesh, fsdp=True)
+    pz, sz, _t = _tp_lm(mx, mesh, zero1=True)
+    for k in pf:
+        assert torch.equal(pf[k].global_tensor(), pz[k].global_tensor()), k
+        assert torch.equal(sf[k].global_tensor(), sz[k].global_tensor()), k
+        assert pf[k].shards[0].numel() * 2 == pz[k].shards[0].numel()
+
+
+def test_tp_engine_on_the_card_launches_each_members_heads(cuda):
+    """A tp=2 engine on one card: its tokens equal the one-device
+    engine's; each decode step launches flash-decode once a layer a
+    member over 2 of 4 heads, and under fp8 the weight-only kernel on
+    each member's half of the rows."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_decode as fd
+    from mxnet_tpu_torch.kernels import quantize as q
+    rng = np.random.RandomState(0)
+    dims = dict(vocab_size=256, num_layers=2, num_heads=4, dim=128,
+                max_seq_len=128)
+    sym = mx.models.transformer.get_decode_symbol(**dims)
+    cache = {"layer%d_att_%s_cache" % (i, c): (16, 32, 4, 32)
+             for i in range(2) for c in "kv"}
+    shapes, _, _ = sym.infer_shape(data=(1, 1), pos_ids=(1, 1),
+                                   seq_pos=(1,), block_table=(1, 4), **cache)
+    params = {n: (rng.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "pos_ids", "seq_pos", "block_table")
+              and not n.endswith("_cache")}
+    kw = dict(max_new_tokens=8, prompt_buckets=(16,), decode_buckets=(2,),
+              kv_blocks=16, kv_block_size=32, quantize="fp8_e4m3", **dims)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8]]
+    want = mx.serving.GenerationEngine(dict(params), ctx=mx.gpu(0),
+                                       **kw).generate(prompts)
+    eng = mx.serving.GenerationEngine(
+        dict(params), mesh=mx.parallel.make_mesh([mx.gpu(0)] * 2, tp=2),
+        **kw)
+    fd.flash_decode_attention.launches_by_heads.clear()
+    q.quantized_matmul.launches_by_rows.clear()
+    assert eng.generate(prompts) == want
+    steps = eng.stats()["decode_steps"]
+    assert fd.flash_decode_attention.launches_by_heads == {2: steps * 2 * 2}
+    assert set(q.quantized_matmul.launches_by_rows) == {128, 256, 64}

@@ -378,3 +378,35 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, lm_params, entry):
             ttf.generate(dict(lm_params), [[1, 2]], **DIMS)
     with pytest.raises(MXNetError):
         tmx.tpu()
+
+
+def test_kvcache_allocator_names_match_jax():
+    """``blocks_used``, ``can_admit``, ``table_row``, ``active`` and
+    ``occupancy`` of ``PagedKVCache`` answer as the JAX package's over the
+    same allocations and frees."""
+    from mxnet_tpu.serving.kvcache import (KVCacheConfig as JConfig,
+                                           PagedKVCache as JCache)
+    kw = dict(num_layers=1, num_heads=2, head_dim=8, max_seq_len=64,
+              num_blocks=9, block_size=8)
+    j = JCache(JConfig(**kw), init_pools=False)
+    t = PagedKVCache(KVCacheConfig(**kw), torch.device("cpu"))
+
+    def same():
+        assert t.blocks_used() == j.blocks_used()
+        assert t.active() == j.active()
+        assert t.occupancy() == j.occupancy()
+        for n in (1, 8, 9, 40, 64):
+            assert t.can_admit(n) == j.can_admit(n), n
+    same()
+    for sid, n in (("a", 20), ("b", 9), ("c", 1)):
+        np.testing.assert_array_equal(t.allocate(sid, n), j.allocate(sid, n))
+        same()
+    np.testing.assert_array_equal(t.table_row("b"), j.table_row("b"))
+    row = t.table_row("b")
+    row[:] = -1
+    np.testing.assert_array_equal(t.table_row("b"), j.table_row("b"))
+    t.free("a")
+    j.free("a")
+    same()
+    with pytest.raises(MXNetError):
+        t.table_row("a")

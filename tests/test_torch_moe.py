@@ -293,8 +293,9 @@ def test_ep_guards_name_their_items():
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     with pytest.raises(MXNetError, match=r"3 \(e2\)"):
         tpar.ShardedTrainer(_net(tmx), opt, mesh, zero1=True)
-    with pytest.raises(MXNetError, match=r"3 \(b\)"):
-        tpar.make_mesh(CPUS[:4], ep=2, tp=2)
+    with pytest.raises(MXNetError, match=r"3 \(b2\)"):
+        tpar.ShardedTrainer(_net(tmx), opt,
+                            tpar.make_mesh(CPUS[:4], ep=2, tp=2))
     with pytest.raises(MXNetError, match="GPipeTrainer"):
         tpar.ShardedTrainer(_net(tmx), opt, tpar.make_mesh(CPUS[:2], pp=2))
     # a parameter named like an expert stack that MoE does not read
@@ -458,9 +459,11 @@ def test_sharded_predictor_binds_the_label_slot_as_zeros():
         got = sp.predict({"data": data})[0]
         assert got.shape == (8, 4) and got.dtype == np.float32
         np.testing.assert_allclose(got, jwant, rtol=1e-5, atol=1e-6)
-    with pytest.raises(MXNetError, match=r"3 \(b\)"):
-        tpar.ShardedPredictor(mlp(tmx), tpar.LogicalMesh(dp=2, tp=2),
-                              params)
+    # at dp=2 x tp=2 the parameters split by the tp policy
+    sp = tpar.ShardedPredictor(mlp(tmx), tpar.make_mesh(CPUS[:4], dp=2,
+                                                        tp=2), params)
+    np.testing.assert_allclose(sp.predict({"data": data})[0], jwant,
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_new_modules_import_without_jax():

@@ -622,3 +622,34 @@ def test_no_scope_means_gpu0():
         else:
             assert isinstance(res, MXNetError), (name, res)
             assert "gpu(0) requested but no CUDA device" in str(res)
+
+
+def test_context_and_base_names_match_jax():
+    """The public names the port's ``context`` and ``base`` lacked:
+    ``num_gpus`` (CUDA devices: 0 here), ``num_tpus`` (0), ``cpu_pinned``
+    (a host context; its arrays are pinned where CUDA is present), and
+    the reference's type names and dtype flags, the JAX package's."""
+    from mxnet_tpu import base as jbase
+    from mxnet_tpu_torch import base as tbase
+    assert tmx.num_gpus() == torch.cuda.device_count() == 0
+    assert tmx.num_tpus() == 0
+    ctx = tmx.cpu_pinned(0)
+    assert ctx.device_type == "cpu_pinned" == jmx.cpu_pinned().device_type
+    assert ctx.device_typeid == 3 and str(ctx) == "cpu_pinned(0)"
+    a = nd.array(np.arange(6, dtype=np.float32).reshape(2, 3), ctx=ctx)
+    assert a.context == ctx and a.data.device.type == "cpu"
+    np.testing.assert_array_equal(a.asnumpy(), np.arange(6).reshape(2, 3))
+    assert nd.zeros((2,), ctx=ctx).context == ctx
+    assert tbase.mx_real_t is jbase.mx_real_t is np.float32
+    assert tbase.mx_uint is jbase.mx_uint is int
+    assert tbase.string_types == jbase.string_types
+    assert tbase.numeric_types == jbase.numeric_types
+    for dt in (np.float32, np.float64, np.float16, np.uint8, np.int32,
+               np.int64, np.bool_, jbase.bfloat16):
+        flag = tbase.dtype_np_to_mx(dt)
+        assert flag == jbase.dtype_np_to_mx(dt)
+        assert tbase.dtype_mx_to_np(flag) == jbase.dtype_mx_to_np(flag)
+    for bad in (lambda: tbase.dtype_np_to_mx(np.complex64),
+                lambda: tbase.dtype_mx_to_np(99)):
+        with pytest.raises(MXNetError):
+            bad()

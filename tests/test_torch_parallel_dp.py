@@ -96,8 +96,8 @@ def _pair(sym_fn, opt_kw, shapes, batch, steps, devices=8, zero1=False,
 
 
 def test_make_mesh_shapes():
-    """The JAX twin's shapes over 8 CPU contexts; an axis other than dp
-    above 1 raises, naming the slice that brings it."""
+    """The JAX twin's shapes over 8 CPU contexts, tp included; sp above
+    1 raises, naming the slice that brings it."""
     assert len(jax.devices()) == 8
     mesh = tpar.make_mesh(CPUS, dp=8)
     assert dict(mesh.shape) == dict(jpar.make_mesh(dp=8).shape) == {"dp": 8}
@@ -108,9 +108,11 @@ def test_make_mesh_shapes():
         tpar.make_mesh(CPUS, dp=3)
     with pytest.raises(ValueError):
         jpar.make_mesh(dp=3, tp=2)
-    with pytest.raises(MXNetError, match="tensor parallelism"):
-        tpar.make_mesh(CPUS, dp=4, tp=2)
-    assert jpar.make_mesh(dp=4, tp=2).shape == {"dp": 4, "tp": 2}
+    assert dict(tpar.make_mesh(CPUS, dp=4, tp=2).shape) == \
+        dict(jpar.make_mesh(dp=4, tp=2).shape) == {"dp": 4, "tp": 2}
+    assert tpar.make_mesh(CPUS, dp=-1, tp=2).shape["dp"] == 4
+    with pytest.raises(MXNetError, match="sequence parallelism"):
+        tpar.make_mesh(CPUS, dp=4, sp=2)
     assert dict(tpar.auto_mesh(devices=CPUS).shape) == \
         dict(jpar.auto_mesh().shape)
     # the same context twice is a mesh of two replicas on one device
@@ -372,13 +374,10 @@ def test_transformer_lm_dp_matches_single_device():
 
 
 def test_trainer_raises_what_later_slices_bring():
-    """fsdp, seq_axis, a rule that shards a parameter and remat on
-    several devices raise, naming their slice; so does a Module with a
-    monitor over several devices."""
+    """seq_axis, a rule that splits a parameter over dp (outside fsdp)
+    and remat on several devices raise, naming their slice."""
     mesh = tpar.make_mesh(CPUS[:2], dp=2)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
-    with pytest.raises(MXNetError, match="fsdp"):
-        tpar.ShardedTrainer(_mlp(tmx), opt, mesh, fsdp=True)
     with pytest.raises(MXNetError, match="seq_axis"):
         tpar.ShardedTrainer(_mlp(tmx), opt, mesh, seq_axis=1)
     with pytest.raises(MXNetError, match="remat"):
@@ -386,7 +385,7 @@ def test_trainer_raises_what_later_slices_bring():
     rules = tpar.ShardingRules([(r"fc1_weight",
                                  lambda s, m: tpar.sharding.P("dp", None))])
     tr = tpar.ShardedTrainer(_mlp(tmx), opt, mesh, rules=rules)
-    with pytest.raises(MXNetError, match="tensor parallelism"):
+    with pytest.raises(MXNetError, match="splits a parameter over dp"):
         tr.init_params({"data": (4, 8)},
                        label_shapes={"softmax_label": (4,)})
     with pytest.raises(MXNetError, match="elementwise"):

@@ -449,3 +449,46 @@ def test_loss_head_second_derivative_matches_jax(head):
     (jo, jd), (to, td) = run(jmx), run(tmx)
     _close(to, jo, 1e-5, head + " first gradients")
     _close(td, jd, 1e-4, head + " second gradients")
+
+
+def test_bind_takes_group2ctx_and_shared_exec_as_jax():
+    """``Symbol.bind``, ``Symbol.simple_bind`` and ``executor.simple_bind``
+    take ``group2ctx`` and ``shared_exec`` as the JAX package's do:
+    ``shared_exec`` is ignored, a ``group2ctx`` of None or ``{}`` binds as
+    usual (the outputs the JAX package's), and a placement map raises
+    naming ROADMAP item 3 (j)."""
+    from mxnet_tpu_torch import executor as texec
+    from mxnet_tpu_torch.base import MXNetError
+
+    def net(mx):
+        d = mx.sym.Variable("data")
+        return mx.sym.FullyConnected(d, num_hidden=3, name="fc")
+    rng = np.random.RandomState(0)
+    vals = {"data": rng.randn(2, 4).astype(np.float32),
+            "fc_weight": rng.randn(3, 4).astype(np.float32),
+            "fc_bias": rng.randn(3).astype(np.float32)}
+    jex = net(jmx).bind(jmx.cpu(), {k: jmx.nd.array(v)
+                                    for k, v in vals.items()},
+                        group2ctx=None, shared_exec=None)
+    want = jex.forward()[0].asnumpy()
+    with tmx.cpu():
+        tsym = net(tmx)
+        first = tsym.simple_bind(tmx.cpu(), data=(2, 4))
+        for g2c in (None, {}):
+            ex = tsym.bind(tmx.cpu(), {k: tmx.nd.array(v)
+                                       for k, v in vals.items()},
+                           group2ctx=g2c, shared_exec=first)
+            np.testing.assert_allclose(ex.forward()[0].asnumpy(), want,
+                                       rtol=1e-6, atol=1e-6)
+        for bind in (lambda **kw: tsym.simple_bind(tmx.cpu(), data=(2, 4),
+                                                   **kw),
+                     lambda **kw: texec.simple_bind(tsym, tmx.cpu(),
+                                                    data=(2, 4), **kw)):
+            ex = bind(group2ctx=None, shared_exec=first)
+            assert tuple(ex.arg_dict["fc_weight"].shape) == (3, 4)
+            with pytest.raises(MXNetError, match=r"3 \(j\)"):
+                bind(group2ctx={"dev1": tmx.cpu()})
+        with pytest.raises(MXNetError, match=r"3 \(j\)"):
+            tsym.bind(tmx.cpu(), {k: tmx.nd.array(v)
+                                  for k, v in vals.items()},
+                      group2ctx={"dev1": tmx.cpu(), "dev2": tmx.cpu(1)})

@@ -166,22 +166,22 @@ def test_bfloat16_step_keeps_master_weights_and_ids():
 
 def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     """No ctx and no mesh means gpu(0) (raises on a CPU-only box);
-    fsdp, seq_axis, the sentinel on a mesh of several devices and a MoE
-    symbol raise.  The sentinel (``sentinel=True`` or
-    ``MXTPU_SENTINEL``), the step watchdog and the checkpoint methods,
-    which raised before the resilience slice, now build; so do ``remat``
-    and the mirrored symbol (``mirror_blocks``), ``zero1`` (inert on one
-    device, as in the JAX package) and a dp mesh of two contexts, while a
-    tp axis still raises, naming its slice."""
+    seq_axis and the sentinel on a mesh of several devices raise.  The
+    sentinel (``sentinel=True`` or ``MXTPU_SENTINEL``), the step watchdog
+    and the checkpoint methods, which raised before the resilience slice,
+    now build; so do ``remat`` and the mirrored symbol (``mirror_blocks``),
+    ``zero1`` and ``fsdp`` (inert on one device, as in the JAX package), a
+    dp mesh of two contexts and, since the tensor-parallel slice, a tp
+    axis, while an sp axis still raises, naming its slice."""
     sym = ttf.get_symbol(**DIMS)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             TTrainer(sym, opt)
     assert not TTrainer(sym, opt, ctx=tmx.cpu(), zero1=True).zero1
-    for kwargs in ({"fsdp": True}, {"seq_axis": 1}):
-        with pytest.raises(MXNetError, match="not ported"):
-            TTrainer(sym, opt, ctx=tmx.cpu(), **kwargs)
+    assert not TTrainer(sym, opt, ctx=tmx.cpu(), fsdp=True).fsdp
+    with pytest.raises(MXNetError, match="not ported"):
+        TTrainer(sym, opt, ctx=tmx.cpu(), seq_axis=1)
     assert TTrainer(sym, opt, ctx=tmx.cpu(), sentinel=True).sentinel
     assert TTrainer(sym, opt, ctx=tmx.cpu(),
                     step_timeout_s=5.0).step_timeout_s == 5.0
@@ -202,8 +202,10 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
                for n in mirrored._topo())
     mesh = tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=2)
     assert mesh.size == 2 and TTrainer(sym, opt, mesh, zero1=True).zero1
+    assert TTrainer(sym, opt, tmx.parallel.make_mesh(
+        [tmx.cpu(), tmx.cpu()], dp=1, tp=2)).tp == 2
     with pytest.raises(MXNetError, match="multi-GPU"):
-        tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=1, tp=2)
+        tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=1, sp=2)
 
 
 def test_training_symbol_matches_jax():
@@ -313,3 +315,125 @@ def test_training_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+# ----------------------------------------------------------------------
+# the rest of the initializers (mxnet_tpu/initializer.py:97-263), against
+# the JAX package: the deterministic ones bit for bit, the random ones by
+# their distribution (the two packages draw different numbers)
+# ----------------------------------------------------------------------
+def _init_both(make, name, shape, seed=0):
+    """``make(initializer_module)`` applied to a zero array of ``shape``
+    named ``name`` in both packages: ``(jax_values, port_values)``."""
+    from mxnet_tpu import initializer as jinit
+    from mxnet_tpu_torch import initializer as tinit
+    jmx.random.seed(seed)
+    tmx.random.seed(seed)
+    ja = jmx.nd.zeros(shape)
+    make(jinit)(name, ja)
+    with tmx.cpu():
+        ta = tmx.nd.zeros(shape)
+    make(tinit)(name, ta)
+    return ja.asnumpy(), ta.asnumpy()
+
+
+@pytest.mark.parametrize("make,names", [
+    (lambda m: m.Constant(0.25), ("upsampling0_weight", "fc_bias",
+                                  "deconv_weight")),
+    (lambda m: m.Zero(), ("upsampling0_weight", "fc_weight")),
+    (lambda m: m.One(), ("upsampling0_weight", "fc_weight")),
+    (lambda m: m.Bilinear(), ("upsampling0_weight", "deconv_weight",
+                              "fc_bias")),
+    (lambda m: m.Uniform(0.1), ("upsampling0_weight", "fc_bias")),
+    (lambda m: m.Xavier(), ("upsampling1_weight", "bn_gamma"))],
+    ids=["constant", "zero", "one", "bilinear", "uniform", "xavier"])
+def test_deterministic_initializers_match_jax(make, names):
+    """Constant, Zero, One and Bilinear give the JAX package's values bit
+    for bit, and so does every dispatching initializer on an
+    ``upsampling*`` weight (the bilinear kernel: 0.0625, 0.1875, 0.5625
+    ... on (1, 1, 4, 4)) and on a bias or a gamma."""
+    shapes = {"upsampling0_weight": (1, 1, 4, 4),
+              "upsampling1_weight": (2, 1, 3, 5), "deconv_weight": (2, 3,
+                                                                   5, 6),
+              "fc_bias": (4,), "fc_weight": (3, 4), "bn_gamma": (5,)}
+    for name in names:
+        want, got = _init_both(make, name, shapes[name])
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    if "upsampling0_weight" in names and \
+            not isinstance(make(tmx.init), tmx.init.Constant):
+        _j, got = _init_both(make, "upsampling0_weight", (1, 1, 4, 4))
+        np.testing.assert_allclose(got[0, 0, 0], [0.0625, 0.1875, 0.1875,
+                                                  0.0625])
+        np.testing.assert_allclose(got[0, 0, 1, 1], 0.5625)
+
+
+def test_random_initializers_match_jax_in_distribution():
+    """Normal, Orthogonal, Xavier and MSRAPrelu against the JAX package's
+    draws (``tests/test_metric_init.py:75-122``'s bounds): the range and
+    mean, the standard deviation, orthogonality, the Xavier and MSRA
+    scales; a seed repeats the port's draw."""
+    for pkg, (a_j, a_t) in (("normal", _init_both(
+            lambda m: m.Normal(2.0), "fc_weight", (100, 100), 42)),):
+        for a in (a_j, a_t):
+            assert abs(a.std() - 2.0) < 0.1 and abs(a.mean()) < 0.1, pkg
+    for rand_type in ("uniform", "normal"):
+        for a in _init_both(lambda m: m.Orthogonal(scale=1.0,
+                                                    rand_type=rand_type),
+                            "fc_weight", (16, 16)):
+            np.testing.assert_allclose(a @ a.T, np.eye(16), atol=1e-4)
+        for a in _init_both(lambda m: m.Orthogonal(rand_type=rand_type),
+                            "fc_weight", (8, 4, 2)):
+            flat = a.reshape(8, 8)
+            np.testing.assert_allclose(flat @ flat.T / 1.414 ** 2,
+                                       np.eye(8), atol=1e-4)
+    bound = np.sqrt(3.0 / 64)
+    for a in _init_both(lambda m: m.Xavier(factor_type="avg", magnitude=3),
+                        "fc_weight", (64, 64)):
+        assert a.min() >= -bound - 1e-6 and a.max() <= bound + 1e-6
+        assert a.max() > 0.9 * bound
+    want = np.sqrt(2.0 / (1 + 0.25 ** 2) / 128)
+    for a in _init_both(lambda m: m.MSRAPrelu(), "fc_weight", (128, 128)):
+        assert abs(a.std() - want) / want < 0.15
+    one = _init_both(lambda m: m.Normal(0.5), "fc_weight", (8, 8), 3)[1]
+    again = _init_both(lambda m: m.Normal(0.5), "fc_weight", (8, 8), 3)[1]
+    np.testing.assert_array_equal(one, again)
+
+
+def test_load_and_mixed_initializers_match_jax(tmp_path):
+    """``Load`` (a dict or a saved file, ``arg:``/``aux:`` stripped, a
+    default for the rest, a shape mismatch raising) and ``Mixed`` (the
+    first matching pattern) as the JAX package's
+    (``tests/test_metric_init.py:125-139``)."""
+    from mxnet_tpu import initializer as jinit
+    from mxnet_tpu_torch import initializer as tinit
+    from mxnet_tpu_torch.base import MXNetError as TErr
+    with tmx.cpu():
+        src = {"arg:fc_weight": tmx.nd.array(np.arange(4.0).reshape(2, 2))}
+        path = str(tmp_path / "w.params")
+        tmx.nd.save(path, src)
+        for given in (src, path):
+            ini = tinit.Load(given, default_init=tinit.Zero())
+            w = tmx.nd.zeros((2, 2))
+            ini("fc_weight", w)
+            np.testing.assert_array_equal(w.asnumpy(),
+                                          np.arange(4.0).reshape(2, 2))
+            other = tmx.nd.ones((3,))
+            ini("other_weight", other)
+            np.testing.assert_array_equal(other.asnumpy(), 0.0)
+        with pytest.raises(TErr, match="Shape mismatch"):
+            tinit.Load(src)("fc_weight", tmx.nd.zeros((3, 2)))
+        with pytest.raises(TErr, match="no default"):
+            tinit.Load(src)("x_weight", tmx.nd.zeros((3, 2)))
+        mixed = tinit.Mixed([".*bias", ".*"], [tinit.One(), tinit.Zero()])
+        b, w = tmx.nd.zeros((3,)), tmx.nd.ones((3,))
+        mixed("fc_bias", b)
+        mixed("fc_weight", w)
+    jmixed = jinit.Mixed([".*bias", ".*"], [jinit.One(), jinit.Zero()])
+    jb, jw = jmx.nd.zeros((3,)), jmx.nd.ones((3,))
+    jmixed("fc_bias", jb)
+    jmixed("fc_weight", jw)
+    np.testing.assert_array_equal(b.asnumpy(), jb.asnumpy())
+    np.testing.assert_array_equal(w.asnumpy(), jw.asnumpy())
+    with pytest.raises(ValueError, match="did not match"):
+        tinit.Mixed(["x"], [tinit.Zero()])("fc_weight", w)
+    assert set(jinit.__all__) == set(tinit.__all__)
