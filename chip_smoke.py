@@ -6,9 +6,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed N] [--iters N] [--out results.json]
 
-(``--phases 4c,13,19,20,21,22`` runs only those phases, with no
-result line; ``--phases 22f`` runs phase 22's four-card part on a
-machine with four cards.)
+(``--phases 4c,13,19,20,21,22,23`` runs only those phases, with no
+result line; ``--phases 22f`` and ``--phases 23f`` run phases 22's and
+23's four-card parts on a machine with four cards; ``17cupti`` the
+profiler probe below.)
 
 It imports nothing of JAX or of the JAX package ``mxnet_tpu``.  Phases,
 in order; any failure ends the run with a non-zero exit and no result
@@ -432,6 +433,40 @@ line:
    ``tp=4`` over the four (NCCL) within the float64 witness, and
    ``fsdp=True`` at ``dp=4`` bit for bit ZeRO-1's, with each card's
    peak memory.
+
+23. sequence parallelism (``parallel/sequence_parallel.py``, ring
+   attention in ``parallel/ring_attention.py``): phase 7's LM widths at
+   sequence 4096, batch 2, through ``ShardedTrainer(seq_axis=1)`` on a
+   dp=1 x sp=2 mesh of two members on the first card: (a) float32, 3
+   steps, against the one-card step from the same weights and the plain
+   float64 step (the first step's outputs and the parameters after it
+   within twice the plain float32 step's distance from float64, every
+   loss within 1e-5 relative of one card's), each member's ring hops
+   (its own chunk, causal,
+   and the earlier ones), one flash forward a hop and its own sweeps
+   counted; (b) bfloat16, 3 steps against the one-card bfloat16 step
+   (the first step's outputs and the parameters after it within twice
+   one card's own distance from float64, in all and parameter by
+   parameter, every loss within 1e-2 relative), two runs with a fault of the bfloat16 ring read beside
+   them (a dropped hop must exceed the bound), and timed steps of both;
+   (c) the mirrored step (``mirror_blocks``) bit
+   for bit the unmirrored one, every hop run twice, with the peak memory
+   of each; (d) ``ShardedPredictor(seq_axis=1)`` within 1e-5 of one
+   card's; (e) the flash forward at the hop shapes (2, 8, 2048, 64) and
+   (2, 8, 1024, 64), causal and not, float32 and bfloat16, and the sweep
+   on a member's largest bucket, each against its plain version and
+   timed; the ring alone forward and backward; and
+   ``example/long-context-torch/train_lm_long.py`` on the card.  Per
+   member: ring hops, bytes sent, its card's launches and peak memory.
+   (f), alone with ``--phases 23f`` on four cards: sp=4 at sequence 8192
+   and dp=2 x sp=2 at 4096, each in float32 against the one-card step on
+   the first card (a), with each card's peak memory beside the one
+   card's.
+
+``--phases 13,4c,17cupti`` checks the profiler's CUPTI records inside
+this process after the phases listed before it: 30 sessions each of five
+kernels, of the profiler's probe, and of ``mx.profiler`` around five
+kernels of the caller's, which must keep all five.
 
 It exits 2 when CUDA is unavailable or when the package is not beside
 this script.  The last line of standard output is
@@ -2248,17 +2283,21 @@ def train_batch(seed, batch=TRAIN_BATCH):
             .astype(np.float32)}
 
 
-def plain_train(torch, params, batch, steps, momentum=None):
+def plain_train(torch, params, batch, steps, momentum=None,
+                checkpoint=False):
     """``steps`` plain training steps of the same LM, written here with
     no module of the port: autograd through softmax attention (scores
     masked with -1e30), a summed cross entropy, whose gradient is
-    SoftmaxOutput's p - onehot, and a leafwise SGD with momentum.
-    ``params`` and ``momentum`` (None: zeros) are numpy arrays or
-    tensors, left unchanged.  Returns the last step's softmax outputs,
-    the parameters and the momentum."""
+    SoftmaxOutput's p - onehot, and a leafwise SGD with momentum, at the
+    batch's sequence length.  ``params`` and ``momentum`` (None: zeros)
+    are numpy arrays or tensors, left unchanged.  ``checkpoint``: each
+    layer under ``torch.utils.checkpoint`` (the same operations again in
+    the backward, so the same values; the memory of one layer's scores,
+    for the long sequences of phase 23).  Returns the last step's softmax
+    outputs, the parameters and the momentum."""
     F = torch.nn.functional
     E, H = TRAIN["dim"], TRAIN["num_heads"]
-    D, S = E // H, TRAIN["seq_len"]
+    D, S = E // H, batch["data"].shape[1]
     B = batch["data"].shape[0]
     rescale = 1.0 / (B * S)
     lr, mom = TRAIN_SGD["learning_rate"], TRAIN_SGD["momentum"]
@@ -2270,22 +2309,29 @@ def plain_train(torch, params, batch, steps, momentum=None):
     ids = torch.from_numpy(batch["data"]).to(DEVICE).long()
     label = torch.from_numpy(batch["softmax_label"]).to(DEVICE).long()
     keep = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+
+    def layer(x, i):
+        n = "layer%d_" % i
+        h = F.layer_norm(x, (E,), p[n + "ln1_gamma"], p[n + "ln1_beta"])
+        qkv = h @ p[n + "att_qkv_weight"].t() + p[n + "att_qkv_bias"]
+        q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+                   for t in qkv.split(E, dim=-1))
+        s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+        a = (torch.softmax(s, dim=-1) @ v).transpose(1, 2) \
+            .reshape(B, S, E)
+        x = x + a @ p[n + "att_out_weight"].t() + p[n + "att_out_bias"]
+        h = F.layer_norm(x, (E,), p[n + "ln2_gamma"], p[n + "ln2_beta"])
+        h = torch.relu(h @ p[n + "ffn1_weight"].t() + p[n + "ffn1_bias"])
+        return x + h @ p[n + "ffn2_weight"].t() + p[n + "ffn2_bias"]
     for _ in range(steps):
         x = p["tok_embed_weight"][ids] + p["pos_embed_weight"][None]
         for i in range(TRAIN["num_layers"]):
-            n = "layer%d_" % i
-            h = F.layer_norm(x, (E,), p[n + "ln1_gamma"], p[n + "ln1_beta"])
-            qkv = h @ p[n + "att_qkv_weight"].t() + p[n + "att_qkv_bias"]
-            q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
-                       for t in qkv.split(E, dim=-1))
-            s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-            s = torch.where(keep, s, torch.full_like(s, -1e30))
-            a = (torch.softmax(s, dim=-1) @ v).transpose(1, 2) \
-                .reshape(B, S, E)
-            x = x + a @ p[n + "att_out_weight"].t() + p[n + "att_out_bias"]
-            h = F.layer_norm(x, (E,), p[n + "ln2_gamma"], p[n + "ln2_beta"])
-            h = torch.relu(h @ p[n + "ffn1_weight"].t() + p[n + "ffn1_bias"])
-            x = x + h @ p[n + "ffn2_weight"].t() + p[n + "ffn2_bias"]
+            if checkpoint:
+                x = torch.utils.checkpoint.checkpoint(layer, x, i,
+                                                      use_reentrant=False)
+            else:
+                x = layer(x, i)
         x = F.layer_norm(x, (E,), p["final_ln_gamma"], p["final_ln_beta"])
         logits = (x @ p["lm_head_weight"].t() + p["lm_head_bias"]) \
             .reshape(-1, TRAIN["vocab_size"])
@@ -4921,6 +4967,7 @@ def trace_calls(torch, one, steps):
         one()
         torch.cuda.synchronize()
         untraced.append(time.perf_counter() - t0)
+    PROFILER_SESSIONS[0] += 1
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -7924,6 +7971,19 @@ def obs_train(torch, dtype, seed, smi):
     return out, tr, p, st, aux, b
 
 
+def lead_in_kernels(doc, kernels):
+    """The kernels of a trace's ``mx.profiler.lead_in`` range that kept
+    their records: those launched by a CPU op inside the range."""
+    events = doc.get("traceEvents", [])
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == "mx.profiler.lead_in"]
+    ids = {e.get("args", {}).get("External id") for e in events
+           if e.get("cat") == "cpu_op" and any(
+               a <= e.get("ts", -1) <= b for a, b in spans)}
+    return sum(1 for k in kernels
+               if k.get("args", {}).get("External id") in ids - {None})
+
+
 def obs_profile(torch, tr, p, st, aux, b, smi):
     """(b) ``mx.profiler`` around OBS_PROFILED_STEPS float32 steps: the
     written Chrome trace must name the hand flash-attention and sweep
@@ -7954,14 +8014,20 @@ def obs_profile(torch, tr, p, st, aux, b, smi):
                                         for e in kernels})[:20]))
     out = {"trace_bytes": os.path.getsize(path), "kernels": len(kernels),
            "hand_kernels": found,
+           "probe_device_events": list(mx.profiler._state["probe"]),
+           "lead_in_kernels": lead_in_kernels(doc, kernels),
            "kernel_names": sorted({
                m.group(0) for e in kernels for m in [re.search(
                    r"(flash_forward_|sweep_)\w+(<\d+>)?", e["name"])]
                if m})}
     log("observability (b) mx.profiler over %d float32 steps: %d CUDA "
-        "kernels in the trace (%d bytes), hand kernels %s: %s; on %s"
+        "kernels in the trace (%d bytes), hand kernels %s: %s; the probe's "
+        "device events of %d kernels a try %s; the lead-in's kernels kept "
+        "%d of %d; on %s"
         % (OBS_PROFILED_STEPS, len(kernels), out["trace_bytes"],
-           json.dumps(found), out["kernel_names"], smi))
+           json.dumps(found), out["kernel_names"],
+           mx.profiler.PROBE_KERNELS, out["probe_device_events"],
+           out["lead_in_kernels"], mx.profiler.LEAD_IN, smi))
     return out
 
 
@@ -10383,10 +10449,774 @@ def phase_tp_cards(torch, timer, seed, smi):
     log("tp (f): four cards %.2f s" % out["seconds"])
     return out
 
+# ----------------------------------------------------------------------
+# phase 23: sequence parallelism
+# ----------------------------------------------------------------------
+#: the sequence and batch of phase 23 (phase 7's widths), and 23f's
+#: longer sequence at sp=4
+SP_SEQ = 4096
+SP_BATCH = 2
+SP_SEQ_CARDS = 8192
+SP_STEPS = 3
+SP_TIMED_STEPS = 3
+#: the float32 sp step against the one-card step from the same weights:
+#: the first step's outputs (softmax probabilities) and the parameters
+#: after it within PRECISION_FACTOR times the distance of the plain
+#: float32 step from the plain float64 step (float32's own rounding at
+#: this width; the sp and one-card steps run the same kernels and
+#: products, and differ only in the order of their sums), each held to
+#: the float64 step as phase 7 holds its trainer; each step's loss
+#: within SP_LOSS_REL of one card's, relative
+SP_LOSS_REL = 1e-5
+#: the bfloat16 sp step against the one-card bfloat16 step from the
+#: same weights: the first step's outputs and the parameters after it
+#: within PRECISION_FACTOR times the one-card bfloat16 step's own
+#: distance from the plain float64 step (each hop's o is rounded to
+#: bfloat16 by the kernel before the float32 combine, where one card
+#: rounds the whole row's o once: a difference of bfloat16's own
+#: rounding, no more), each parameter within PRECISION_FACTOR times one
+#: card's own distance on it; each step's loss within SP_BF16_LOSS_REL of
+#: one card's, relative.  Two control runs with a fault of the bfloat16 ring
+#: (``_RingFault``) are read beside it
+SP_BF16_LOSS_REL = 1e-2
+SP_PREDICT_TOL = 1e-5
+#: the hop shapes timed against their plain versions: the ring's chunk
+#: at phase 23's S/2 and at S/4 (23f's dp=2 x sp=2 hops are the first)
+SP_HOP_SHAPES = ((SP_BATCH, 8, 2048, 64), (SP_BATCH, 8, 1024, 64))
+#: the long-context example on the card (the flash kernel takes head
+#: dims 32, 64 and 128: dim 64 over 2 heads)
+SP_EXAMPLE_ARGS = ["--dim", "64", "--heads", "2"]
+
+
+def sp_dims(seq):
+    return dict(TRAIN, seq_len=seq)
+
+
+def sp_params(seed, seq):
+    """Phase 7's seeded weights with a position table of ``seq`` rows."""
+    params = seeded_train_params(seed)
+    rng = np.random.RandomState(seed + 23)
+    params["pos_embed_weight"] = (rng.randn(seq, TRAIN["dim"]) * 0.02) \
+        .astype(np.float32)
+    return params
+
+
+def sp_batch(seed, seq, batch=SP_BATCH):
+    rng = np.random.RandomState(seed + 29)
+    shape = (batch, seq)
+    return {"data": rng.randint(0, TRAIN["vocab_size"], shape)
+            .astype(np.float32),
+            "softmax_label": rng.randint(0, TRAIN["vocab_size"], shape)
+            .astype(np.float32)}
+
+
+def _sp_reset():
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+    _tp_reset()
+    ra.reset_ring_counts()
+
+
+def _sp_counts():
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+    out = _tp_counts()
+    out["ring"] = ra.ring_counts()
+    return out
+
+
+def _sp_trainer(torch, mx, mesh, params, seq, batch_n, compute_dtype=None,
+                mirror=False):
+    """ShardedTrainer over the LM at ``seq`` on ``mesh`` (``seq_axis=1``
+    when it has an sp axis), from ``params``, momentum at zero."""
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.parallel.sharding import place
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (batch_n * seq),
+                              **TRAIN_SGD)
+    sp = mesh.shape.get("sp", 1)
+    tr = mx.parallel.ShardedTrainer(
+        tf.get_symbol(mirror_blocks=mirror, **sp_dims(seq)), opt, mesh,
+        seq_axis=1 if sp > 1 else None, compute_dtype=compute_dtype)
+    p = tr.place_params(params)
+    st = {k: place(np.zeros(v.shape, np.float32), mesh,
+                   tr.opt_state_sharding(k, v.shape).spec)
+          for k, v in params.items()}
+    if mesh.size == 1:
+        st = {k: v.shards[0] for k, v in st.items()}
+    return tr, p, st
+
+
+def sp_run(torch, mx, mesh, params, batch, steps, dtype="float32",
+           mirror=False, timed=0, keep_first=False):
+    """``steps`` counted steps on ``mesh``: each step's loss (from the
+    outputs, on the card), the counts, each card's peak memory over the
+    first step and over all; with ``keep_first`` the first step's outputs
+    and the parameters after it (on the first card); then ``timed`` steps
+    each ended by a synchronize of every card."""
+    seq = batch["data"].shape[1]
+    cdt = None if dtype == "float32" else dtype
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    tr, p, st = _sp_trainer(torch, mx, mesh, params, seq,
+                            batch["data"].shape[0], cdt, mirror)
+    b = tr.shard_batch(batch)
+    dev0 = mesh.devices[0]
+    label = torch.from_numpy(batch["softmax_label"]).to(dev0).long() \
+        .reshape(-1)
+    _sync_all(torch, mesh.devices)
+    _peak_reset_all(torch, mesh.devices)
+    _sp_reset()
+    out = {"losses": [], "mesh": dict(mesh.shape), "dtype": dtype,
+           "mirror": mirror,
+           "contexts": sorted({str(d) for d in mesh.devices})}
+    t0 = time.perf_counter()
+    for i in range(steps):
+        p, st, _a, outs = tr.step(p, st, {}, b)
+        o = outs[0] if isinstance(outs[0], torch.Tensor) \
+            else outs[0].global_tensor(dev0)
+        if not bool(torch.isfinite(o.float()).all()):
+            raise AssertionError("sp %s %s: non-finite outputs"
+                                 % (dict(mesh.shape), dtype))
+        pick = o.float().gather(1, label[:, None]).clamp_min(1e-30)
+        out["losses"].append(float(-pick.log().mean()))
+        if i == 0:
+            _sync_all(torch, mesh.devices)
+            out["peak_bytes_first_step"] = _peaks_by_device(torch,
+                                                            mesh.devices)
+            if keep_first:
+                out["first_outputs"] = o.float().clone()
+                out["first_params"] = {
+                    k: (v if isinstance(v, torch.Tensor)
+                        else v.global_tensor(dev0)).detach().clone()
+                    for k, v in p.items()}
+        del o, outs, pick
+    _sync_all(torch, mesh.devices)
+    out["first_steps_s"] = time.perf_counter() - t0
+    out["launches"] = _sp_counts()
+    out["peak_bytes_by_device"] = _peaks_by_device(torch, mesh.devices)
+    member = {k: (v if isinstance(v, torch.Tensor) else v.shards[0])
+              for k, v in p.items()}
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    out["buckets_a_member"] = len(fo.plan_buckets(member))
+    if timed:
+        times = []
+        for _ in range(timed):
+            t1 = time.perf_counter()
+            p, st, _a, _o = tr.step(p, st, {}, b)
+            _sync_all(torch, mesh.devices)
+            times.append(time.perf_counter() - t1)
+        out["step_ms"] = float(np.median(times)) * 1e3
+        out["step_ms_all"] = [t * 1e3 for t in times]
+        out["tokens_per_s"] = batch["data"].size / (out["step_ms"] / 1e3)
+    del tr, p, st, b
+    os.environ.pop("MXTPU_FUSED_OPT", None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_launch_check(what, run, mesh, steps, layers, recompute=1):
+    """Each member's ring hops (causal: its own chunk and the earlier
+    ones'), the flash forward once a hop on the card, and every member's
+    own sweeps."""
+    sp = mesh.shape.get("sp", 1)
+    n = mesh.size
+    c = run["launches"]
+    idx = [mesh.coords(r).get("sp", 0) for r in range(n)]
+    want_hops = {r: layers * steps * recompute * (idx[r] + 1)
+                 for r in range(n)} if sp > 1 else {}
+    want_fa = layers * steps * recompute * (
+        n // sp * sp * (sp + 1) // 2 if sp > 1 else n)
+    want_fo = run["buckets_a_member"] * steps * n
+    if c["ring"]["hops"] != want_hops or c["flash_attention"] != want_fa \
+            or c["fused_opt"] != want_fo:
+        raise AssertionError(
+            "%s: launches %s, want ring hops %s, the flash forward %d times "
+            "and the sweep %d (%d buckets a member)"
+            % (what, json.dumps(c), want_hops, want_fa, want_fo,
+               run["buckets_a_member"]))
+
+
+def _sp_members(mesh, run):
+    """Per member: ring hops (each one flash forward), bytes sent (and
+    across cards), its card's flash and sweep launches and peak bytes."""
+    c = run["launches"]
+    rows = []
+    for r, d in enumerate(mesh.devices):
+        rows.append({
+            "member": r, "coords": mesh.coords(r), "device": str(d),
+            "ring_hops": c["ring"]["hops"].get(r, 0),
+            "ring_skipped": c["ring"]["skipped"].get(r, 0),
+            "bytes_sent": c["ring"]["bytes_sent"].get(r, 0),
+            "bytes_across_cards": c["ring"]["bytes_peer"].get(r, 0),
+            "card_flash_launches": c["flash_attention_by_device"].get(
+                str(d), 0),
+            "card_sweep_launches": c["fused_opt_by_device"].get(str(d), 0),
+            "card_peak_bytes": run["peak_bytes_by_device"].get(str(d), 0)})
+    return rows
+
+
+def sp_refs(torch, params, batch):
+    """One plain step from ``params`` in float32 and in float64 (layers
+    checkpointed): ``(o32, p32, o64, p64)``."""
+    o32, p32, _m = plain_train(torch, params, batch, 1, checkpoint=True)
+    o64, p64, _m = plain_train(torch, _f64(torch, params), batch, 1,
+                               checkpoint=True)
+    return o32, p32, o64, p64
+
+
+def sp_gate(torch, what, run, ref, refs, params):
+    """The float32 sp run against the one-card run from the same weights
+    and against the plain float64 step (``refs``): each reading
+    ``[max |diff| of the first step's outputs, of the parameters after
+    it]``, every one within PRECISION_FACTOR times the plain float32
+    step's own distance from float64; every loss within SP_LOSS_REL of
+    one card's."""
+    o32, p32, o64, p64 = refs
+    first = (run["first_outputs"], run["first_params"])
+    one = (ref["first_outputs"], ref["first_params"])
+    got = {"what": what,
+           "sp_vs_one_card": _diff(torch, *first, *one, params),
+           "sp_vs_plain64": _diff(torch, *first, o64, p64, params),
+           "one_card_vs_plain64": _diff(torch, *one, o64, p64, params),
+           "plain32_vs_plain64": _diff(torch, o32, p32, o64, p64, params),
+           "largest_update": _param_err(torch, p64, p64, params)[1],
+           "loss_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(run["losses"], ref["losses"])]}
+    scale = got["plain32_vs_plain64"]
+    got["ok"] = all(a <= PRECISION_FACTOR * b
+                    for key in ("sp_vs_one_card", "sp_vs_plain64")
+                    for a, b in zip(got[key], scale)) \
+        and max(got["loss_rel"]) <= SP_LOSS_REL
+    if not got["ok"]:
+        raise AssertionError("%s: %s (bounds: %g times plain32_vs_plain64, "
+                             "losses %g)" % (what, json.dumps(got),
+                                             PRECISION_FACTOR, SP_LOSS_REL))
+    return got
+
+
+class _RingFault:
+    """A control for (b): while active, the ring's flash module
+    (``ring_attention._fa``) and its backward are stand-ins that inject
+    one fault into the bfloat16 ring.  "hop dropped": every hop but a
+    member's own (sp=2: member 1's hop 1, a layer) gets lse -inf, so the
+    combine gives it no weight, and no gradient in the backward (the
+    ring as if it skipped that hop); "lse in bfloat16": each hop's lse
+    rounded to bfloat16 before the combine."""
+    KINDS = ("hop dropped", "lse in bfloat16")
+
+    def __init__(self, torch, kind):
+        from mxnet_tpu_torch.parallel import ring_attention as ra
+        self.torch, self.kind, self.ra = torch, kind, ra
+        self.real, self.real_bwd = ra._fa, ra._flash_backward_blockwise
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def flash_attention_forward(self, q, k, v, causal=False, scale=None):
+        o, lse = self.real.flash_attention_forward(q, k, v, causal=causal,
+                                                   scale=scale)
+        if self.kind == "hop dropped" and not causal:
+            lse = self.torch.full_like(lse, -float("inf"))
+        elif self.kind == "lse in bfloat16":
+            lse = lse.to(self.torch.bfloat16).float()
+        return o, lse
+
+    def backward(self, q, k, v, o, lse, do, causal, scale, **kw):
+        if self.kind == "hop dropped" and not causal:
+            return tuple(self.torch.zeros(t.shape, dtype=self.torch.float32,
+                                          device=t.device) for t in (q, k, v))
+        return self.real_bwd(q, k, v, o, lse, do, causal, scale, **kw)
+
+    def __enter__(self):
+        self.ra._fa, self.ra._flash_backward_blockwise = self, self.backward
+        return self
+
+    def __exit__(self, *exc):
+        self.ra._fa, self.ra._flash_backward_blockwise = \
+            self.real, self.real_bwd
+
+
+def sp_bf16_gate(torch, run, ref, controls, refs, params):
+    """(b): the bfloat16 sp run against the one-card bfloat16 run from the
+    same weights, each reading ``[max |diff| of the first step's outputs,
+    of the parameters after it]``: the sp run's distance from one card's
+    and from the plain float64 step within PRECISION_FACTOR times one
+    card's own distance from float64; every loss within SP_BF16_LOSS_REL
+    of one card's; and every parameter's distance from one card's within
+    PRECISION_FACTOR times one card's own distance from float64 on that
+    parameter (``worst_leaf``: the parameter with the largest multiple,
+    and that multiple).  The controls (``_RingFault``) are read the same
+    way, each with ``caught`` (a reading above its bound), and the
+    dropped hop must be caught (else the bounds could not tell it)."""
+    _o32, _p32, o64, p64 = refs
+    one = (ref["first_outputs"], ref["first_params"])
+    own = {k: float((v.double() - p64[k].double()).abs().max())
+           for k, v in ref["first_params"].items()}
+
+    def reading(r):
+        first = (r["first_outputs"], r["first_params"])
+        leaf = {k: float((v.double() - ref["first_params"][k].double())
+                         .abs().max()) / max(own[k], 1e-30)
+                for k, v in r["first_params"].items()}
+        worst = max(leaf, key=leaf.get)
+        return {"vs_one_card": _diff(torch, *first, *one, params),
+                "vs_plain64": _diff(torch, *first, o64, p64, params),
+                "worst_leaf": [worst, leaf[worst]],
+                "first_loss_rel": abs(r["losses"][0] - ref["losses"][0])
+                / abs(ref["losses"][0])}
+    got = {"what": "sp (b) bfloat16 dp=1 x sp=2",
+           "one_card_vs_plain64": _diff(torch, *one, o64, p64, params),
+           "loss_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(run["losses"], ref["losses"])]}
+    got.update(reading(run))
+    got["bound"] = [PRECISION_FACTOR * b for b in got["one_card_vs_plain64"]]
+    got["controls"] = {k: reading(c) for k, c in controls.items()}
+    for c in got["controls"].values():
+        c["caught"] = any(a > b for key in ("vs_one_card", "vs_plain64")
+                          for a, b in zip(c[key], got["bound"])) \
+            or c["worst_leaf"][1] > PRECISION_FACTOR
+    got["ok"] = all(a <= b for key in ("vs_one_card", "vs_plain64")
+                    for a, b in zip(got[key], got["bound"])) \
+        and got["worst_leaf"][1] <= PRECISION_FACTOR \
+        and max(got["loss_rel"]) <= SP_BF16_LOSS_REL \
+        and got["controls"]["hop dropped"]["caught"]
+    if not got["ok"]:
+        raise AssertionError("sp (b) bfloat16: %s (bounds: %g times "
+                             "one_card_vs_plain64, and a parameter's own, "
+                             "losses %g; the dropped hop caught)"
+                             % (json.dumps(got), PRECISION_FACTOR,
+                                SP_BF16_LOSS_REL))
+    return got
+
+
+def _drop_tensors(run):
+    for k in ("first_outputs", "first_params"):
+        run.pop(k, None)
+    return run
+
+
+def ring_timing(torch, seed, smi):
+    """The ring alone at a layer's shape, forward and backward, over two
+    members on the first card (CUDA events, median of 10): what it takes
+    of an sp step (times the layers), float32 and bfloat16."""
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+    timer = Timer(torch, 10)
+    rows = []
+    for B, H, S, D in SP_HOP_SHAPES[:1]:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.RandomState(seed + S)
+            chunks = [[torch.from_numpy(rng.randn(B, H, S, D).astype(
+                np.float32)).to(DEVICE, dtype).requires_grad_(True)
+                for _ in range(2)] for _ in range(3)]
+
+            def fwd_bwd():
+                outs = ra.ring_attention(*chunks, causal=True)
+                torch.autograd.backward(outs, [torch.ones_like(o)
+                                               for o in outs])
+
+            def fwd():
+                with torch.no_grad():
+                    ra.ring_attention(*chunks, causal=True)
+            rows.append({"B": B, "H": H, "chunk": S, "D": D, "members": 2,
+                         "dtype": str(dtype).replace("torch.", ""),
+                         "forward_ms": timer(fwd),
+                         "forward_backward_ms": timer(fwd_bwd)})
+            log("sp ring %s: forward %.4f ms, forward and backward %.4f ms "
+                "(two members on one card); on %s"
+                % (json.dumps({k: rows[-1][k] for k in ("B", "H", "chunk",
+                                                        "D", "dtype")}),
+                   rows[-1]["forward_ms"], rows[-1]["forward_backward_ms"],
+                   smi))
+            del chunks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sp_kernel_checks(torch, timer, seed, smi, params):
+    """Each kernel of the sp path at the shapes the path gives it, against
+    its plain version and timed: the flash forward at each hop shape
+    (hop 0 causal, the other hops not), float32 (2e-5, bitwise on repeat)
+    and bfloat16 (one ulp), lse within 1e-4; the sweep on a member's
+    largest bucket (bit for bit, bitwise on repeat)."""
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    rng = np.random.RandomState(seed + 31)
+    rows = []
+    for B, H, S, D in SP_HOP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = [torch.from_numpy(rng.randn(B, H, S, D).astype(
+                np.float32)).to(DEVICE, dtype) for _ in range(3)]
+            for causal in (True, False):
+                o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+                o2, lse2 = fa.flash_attention_forward(q, k, v,
+                                                      causal=causal)
+                ro, rl = fa.flash_attention_forward_reference(
+                    q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                lse_err = float((lse - rl).abs().max())
+                if dtype == torch.float32:
+                    err = float((o - ro).abs().max())
+                    ok = err <= 2e-5 and torch.equal(o, o2) \
+                        and torch.equal(lse, lse2)
+                else:
+                    err, ok = _bf16_close(torch, o, ro)
+                if not (ok and lse_err <= 1e-4):
+                    raise AssertionError(
+                        "sp hop kernel %s %s causal=%s: o %g, lse %g"
+                        % ((B, H, S, D), dtype, causal, err, lse_err))
+                pairs = S * (S + 1) // 2 if causal else S * S
+                n_ops = 4 * B * H * pairs * D
+                n_bytes = 4 * B * H * S * D * q.element_size() \
+                    + B * H * S * 4
+                b_ms, b_by = bound_ms(n_bytes, n_ops, ops_rate(dtype))
+                rows.append({
+                    "name": "flash_attention", "B": B, "H": H, "S": S,
+                    "D": D, "causal": causal,
+                    "hop": "own chunk" if causal else "an earlier chunk",
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": err, "lse_max_abs_err": lse_err,
+                    "ms": timer(lambda: fa.flash_attention_forward(
+                        q, k, v, causal=causal)),
+                    "plain_ms": timer(
+                        lambda: fa.flash_attention_forward_reference(
+                            q, k, v, causal=causal)),
+                    "library_ms": timer(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=causal)),
+                    "bound_ms": b_ms, "bound_by": b_by})
+                del o, o2, ro, rl, lse, lse2
+            del q, k, v
+    torch.cuda.empty_cache()
+    # the sweep on a member's largest bucket (every member holds the
+    # whole LM, its pos table of SP_SEQ rows)
+    member = {k: torch.empty(v.shape) for k, v in params.items()}
+    n = max(sum(member[k].numel() for k in bk)
+            for bk in fo.plan_buckets(member))
+    del member
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / (SP_BATCH * SP_SEQ),
+                              **TRAIN_SGD)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 23)
+    w = torch.randn(n, device=DEVICE, generator=gen)
+    g = torch.randn(n, device=DEVICE, generator=gen)
+    s0 = [torch.randn(n, device=DEVICE, generator=gen)]
+    err, _ulps, repeat = _sweep_check(torch, fo, opt, w, g, s0, 0.1, 0.0, 3)
+    if err != 0.0 or not repeat:
+        raise AssertionError("sp sweep at %d: max |kernel - plain| %g, "
+                             "repeat %s" % (n, err, repeat))
+    b_ms, b_by = bound_ms(5 * n * 4, 0)
+    lib_step, lib_name = _library_optimizer(torch, "sgd_momentum", w, g)
+    rows.append({
+        "name": "fused_opt", "n": n, "optimizer": "sgd_momentum",
+        "what": "an sp member's largest bucket", "max_abs_err": err,
+        "repeat_bitwise": repeat,
+        "ms": timer(lambda: fo.sweep(opt, w, g, s0, 0.1, 0.0, 3)),
+        "plain_ms": timer(lambda: fo.sweep_reference(opt, w, g, s0, 0.1,
+                                                     0.0, 3)),
+        "library_ms": timer(lib_step), "library": lib_name,
+        "bound_ms": b_ms, "bound_by": b_by})
+    del w, g, s0, lib_step
+    torch.cuda.empty_cache()
+    for r in rows:
+        log("sp (e) %s at %s: err %.3g, kernel %.4f ms, plain %.4f ms, "
+            "library %s ms, bound %.5f ms (%s); on %s"
+            % (r["name"], {k: r[k] for k in ("B", "H", "S", "D", "causal",
+                                             "dtype", "n") if k in r},
+               r["max_abs_err"], r["ms"], r["plain_ms"],
+               "%.4f" % r["library_ms"] if r["library_ms"] is not None
+               else "none", r["bound_ms"], r["bound_by"], smi))
+    return rows
+
+
+def sp_predictor_gate(torch, mx, params, batch, devices):
+    """(d) ``ShardedPredictor(seq_axis=1)`` at dp=1 x sp=2 against the
+    one-card predictor from the same weights."""
+    from mxnet_tpu_torch.models import transformer as tf
+    sym = tf.get_symbol(**sp_dims(batch["data"].shape[1]))
+    feed = {"data": batch["data"],
+            "softmax_label": np.zeros_like(batch["data"])}
+    one = mx.parallel.ShardedPredictor(
+        sym, mx.parallel.make_mesh(devices[:1], dp=1), params).predict(feed)
+    _sp_reset()
+    got = mx.parallel.ShardedPredictor(
+        sym, mx.parallel.make_mesh(devices, dp=1, sp=len(devices)), params,
+        seq_axis=1).predict(feed)
+    counts = _sp_counts()
+    err = float(np.abs(got[0] - one[0]).max())
+    if got[0].shape != one[0].shape or not err <= SP_PREDICT_TOL:
+        raise AssertionError("sp (d) ShardedPredictor: %s against one card's "
+                             "%s, max |diff| %g (bound %g)"
+                             % (got[0].shape, one[0].shape, err,
+                                SP_PREDICT_TOL))
+    return {"max_abs_err": err, "launches": counts}
+
+
+def sp_example(torch, smi):
+    """The long-context example on the card (``SP_EXAMPLE_ARGS``): its
+    three assertions (the sp step matches one card, the mirrored walk
+    keeps fewer bytes, the loss descends)."""
+    ex = _example_module("example/long-context-torch/train_lm_long.py",
+                         "train_lm_long_torch")
+    t0 = time.perf_counter()
+    got = ex.main(SP_EXAMPLE_ARGS)
+    got["seconds"] = time.perf_counter() - t0
+    log("sp example/long-context-torch/train_lm_long.py %s: mesh %s, loss "
+        "%.4f -> %.4f, one card's first losses %s, residual bytes %s, "
+        "%.2f s; on %s"
+        % (" ".join(SP_EXAMPLE_ARGS), got["mesh"], got["losses"][0],
+           got["losses"][-1], ["%.4f" % x for x in got["losses_one_device"]],
+           got["residual_bytes"], got["seconds"], smi))
+    return got
+
+
+def phase_sp(torch, timer, seed, smi):
+    """Phase 23: sequence parallelism (the module docstring's (a)-(e)).
+    The launches of its main paths are in the result's ``launches``."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.perf_counter()
+    layers = TRAIN["num_layers"]
+    params = sp_params(seed, SP_SEQ)
+    batch = sp_batch(seed, SP_SEQ)
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    one = mx.parallel.make_mesh([ctx], dp=1)
+    sp2 = mx.parallel.make_mesh([ctx, ctx], dp=1, sp=2)
+    out = {"kernels": sp_kernel_checks(torch, timer, seed, smi, params)}
+    refs = sp_refs(torch, params, batch)
+    # (a) float32: the one-card witness, then sp=2
+    ref = sp_run(torch, mx, one, params, batch, SP_STEPS, timed=SP_TIMED_STEPS,
+                 keep_first=True)
+    run = sp_run(torch, mx, sp2, params, batch, SP_STEPS, timed=SP_TIMED_STEPS,
+                 keep_first=True)
+    _sp_launch_check("sp (a) float32", run, sp2, SP_STEPS, layers)
+    run["vs_one_card"] = sp_gate(torch, "sp (a) float32 dp=1 x sp=2", run,
+                                 ref, refs, params)
+    run["members"] = _sp_members(sp2, run)
+    # (b) bfloat16: step times; the first step's outputs and parameters
+    # against one card's, and two faulty controls beside them
+    ref16 = sp_run(torch, mx, one, params, batch, SP_STEPS, "bfloat16",
+                   timed=SP_TIMED_STEPS, keep_first=True)
+    run16 = sp_run(torch, mx, sp2, params, batch, SP_STEPS, "bfloat16",
+                   timed=SP_TIMED_STEPS, keep_first=True)
+    _sp_launch_check("sp (b) bfloat16", run16, sp2, SP_STEPS, layers)
+    controls = {}
+    for kind in _RingFault.KINDS:
+        with _RingFault(torch, kind):
+            controls[kind] = sp_run(torch, mx, sp2, params, batch, 1,
+                                    "bfloat16", keep_first=True)
+    run16["vs_one_card"] = sp_bf16_gate(torch, run16, ref16, controls,
+                                        refs, params)
+    del refs, controls
+    run16["members"] = _sp_members(sp2, run16)
+    out["bfloat16"] = {"one_card": _drop_tensors(ref16),
+                       "sp2": _drop_tensors(run16)}
+    # (c) the mirrored step from the same weights: bit for bit (a)'s first
+    # step, every member's segment recomputed in lockstep (its hops twice)
+    mir = sp_run(torch, mx, sp2, params, batch, 1, mirror=True,
+                 keep_first=True)
+    _sp_launch_check("sp (c) mirrored", mir, sp2, 1, layers, recompute=2)
+    same = all(torch.equal(mir["first_params"][k], run["first_params"][k])
+               for k in run["first_params"]) \
+        and torch.equal(mir["first_outputs"], run["first_outputs"])
+    if not same:
+        raise AssertionError("sp (c): the mirrored step is not the "
+                             "unmirrored one bit for bit")
+    mir["members"] = _sp_members(sp2, mir)
+    out["float32"] = {"one_card": _drop_tensors(ref), "sp2": _drop_tensors(run)}
+    out["mirrored"] = _drop_tensors(mir)
+    # (d) the predictor
+    out["predictor"] = sp_predictor_gate(torch, mx, params, batch,
+                                         [ctx, ctx])
+    for name, r in (("(a) float32 one card", ref), ("(a) float32 sp=2", run),
+                    ("(c) mirrored sp=2, one step", mir),
+                    ("(b) bfloat16 one card", ref16),
+                    ("(b) bfloat16 sp=2", run16)):
+        log("sp %s at S=%d B=%d: %s ms/step (median of %d), losses %s, "
+            "first step peak bytes %s%s; on %s"
+            % (name, SP_SEQ, SP_BATCH,
+               "%.3f" % r["step_ms"] if "step_ms" in r else "-",
+               SP_TIMED_STEPS, ["%.6f" % x for x in r["losses"]],
+               json.dumps(r["peak_bytes_first_step"]),
+               "; members %s" % json.dumps(r["members"])
+               if "members" in r else "", smi))
+    log("sp (a) against one card: %s" % json.dumps(run["vs_one_card"]))
+    log("sp (b) against one card: %s" % json.dumps(run16["vs_one_card"]))
+    out["ring"] = ring_timing(torch, seed, smi)
+    out["example"] = sp_example(torch, smi)
+    runs = [ref, run, mir, ref16, run16]
+    counts = [r["launches"] for r in runs] + [out["predictor"]["launches"]]
+    out["launches"] = {
+        "fused_opt": sum(r["launches"]["fused_opt"] for r in runs),
+        "flash_attention": sum(r["launches"]["flash_attention"]
+                               for r in runs)
+        + out["predictor"]["launches"]["flash_attention"],
+        "flash_attention_by_dtype": {
+            d: sum(c["flash_attention_by_dtype"][d] for c in counts)
+            for d in ("float32", "bfloat16")},
+        "fused_opt_by_body": {},
+        "ring_hops": sum(sum(r["launches"]["ring"]["hops"].values())
+                         for r in runs)
+        + sum(out["predictor"]["launches"]["ring"]["hops"].values())}
+    for c in counts:
+        for body, n in c["fused_opt_by_body"].items():
+            got = out["launches"]["fused_opt_by_body"]
+            got[body] = got.get(body, 0) + n
+    out["seconds"] = time.perf_counter() - t_phase
+    log("sp: phase 23 %.2f s; launches %s"
+        % (out["seconds"], json.dumps(out["launches"])))
+    _sp_kernels_line("sp kernels (rows 3 and 4 at the sp path's shapes, "
+                     "their launches on these paths)", out)
+    if not (out["launches"]["fused_opt"] > 0
+            and out["launches"]["flash_attention"] > 0):
+        raise AssertionError("phase 23: launches %s" % out["launches"])
+    return out
+
+
+def _sp_kernels_line(what, out):
+    main = {"flash_attention": next(
+        r for r in out["kernels"] if r["name"] == "flash_attention"
+        and r["dtype"] == "float32" and r["causal"]),
+        "fused_opt": next(r for r in out["kernels"]
+                          if r["name"] == "fused_opt")}
+    repl = {"flash_attention": "mxnet_tpu/parallel/ring_attention.py:128",
+            "fused_opt": "mxnet_tpu/kernels/fused_opt.py:112"}
+    log(what + ": " + json.dumps({"kernels": [
+        {"name": name, "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
+         "replaces": repl[name], "launches": out["launches"][name],
+         "max_abs_err": max(x["max_abs_err"] for x in out["kernels"]
+                            if x["name"] == name
+                            and x.get("dtype", "float32") == "float32"),
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, r in main.items()]}))
+
+
+def phase_sp_cards(torch, timer, seed, smi):
+    """Phase 23 (f), on a machine with four cards (``--phases 23f``): the
+    LM at sp=4 over the four cards at ``SP_SEQ_CARDS``, and at dp=2 x
+    sp=2 over them at ``SP_SEQ`` (k and v rotated by peer copies), each
+    in float32 against the one-card step on the first card at the same
+    width (``sp_gate``), with each card's peak memory beside the one
+    card's."""
+    import mxnet_tpu_torch as mx
+    if DEVICE == "cuda" and torch.cuda.device_count() < 4:
+        raise AssertionError("phase 23 (f) needs four cards, found %d"
+                             % torch.cuda.device_count())
+    t_phase = time.perf_counter()
+    layers = TRAIN["num_layers"]
+    cards = _dp_contexts(mx, 4, True)
+    out = {"kernels": sp_kernel_checks(torch, timer, seed, smi,
+                                       sp_params(seed, SP_SEQ))}
+    runs = []
+    for shape, seq in (({"sp": 4}, SP_SEQ_CARDS),
+                       ({"dp": 2, "sp": 2}, SP_SEQ)):
+        params = sp_params(seed, seq)
+        batch = sp_batch(seed, seq)
+        refs = sp_refs(torch, params, batch)
+        ref = sp_run(torch, mx, mx.parallel.make_mesh(cards[:1], dp=1),
+                     params, batch, SP_STEPS, timed=SP_TIMED_STEPS,
+                     keep_first=True)
+        mesh = mx.parallel.make_mesh(cards, **shape)
+        run = sp_run(torch, mx, mesh, params, batch, SP_STEPS,
+                     timed=SP_TIMED_STEPS, keep_first=True)
+        what = "sp (f) %s at S=%d" % (shape, seq)
+        _sp_launch_check(what, run, mesh, SP_STEPS, layers)
+        run["vs_one_card"] = sp_gate(torch, what, run, ref, refs, params)
+        del refs
+        run["members"] = _sp_members(mesh, run)
+        one_peak = ref["peak_bytes_first_step"][str(mesh.devices[0])]
+        run["peak_share_of_one_card"] = {
+            d: b / max(one_peak, 1)
+            for d, b in run["peak_bytes_first_step"].items()}
+        log("%s: %.3f ms/step against one card's %.3f; losses %s; against "
+            "one card %s; first step peak bytes %s, one card's %d; members "
+            "%s; on %s"
+            % (what, run["step_ms"], ref["step_ms"],
+               ["%.6f" % x for x in run["losses"]],
+               json.dumps(run["vs_one_card"]),
+               json.dumps(run["peak_bytes_first_step"]), one_peak,
+               json.dumps(run["members"]), smi))
+        out[json.dumps(shape)] = {"seq": seq, "one_card": _drop_tensors(ref),
+                                  "run": _drop_tensors(run)}
+        runs += [ref, run]
+        del params, batch
+    out["launches"] = {
+        "fused_opt": sum(r["launches"]["fused_opt"] for r in runs),
+        "flash_attention": sum(r["launches"]["flash_attention"]
+                               for r in runs)}
+    out["seconds"] = time.perf_counter() - t_phase
+    _sp_kernels_line("sp (f) kernels (rows 3 and 4, their launches on "
+                     "these paths)", out)
+    log("sp (f): four cards %.2f s; launches %s"
+        % (out["seconds"], json.dumps(out["launches"])))
+    return out
+
+
+# ----------------------------------------------------------------------
+# the profiler's CUPTI records inside a long process
+# ----------------------------------------------------------------------
+#: profiler sessions this process has run (``trace_calls``)
+PROFILER_SESSIONS = [0]
+CUPTI_TRIES = 30
+
+
+def cupti_long_probe(torch, smi):
+    """``--phases 17cupti``, in this process after the phases listed
+    before it (``--phases 13,4c,17cupti``: profiler sessions, then a
+    minute of the fleet's CUDA work, the state in which CUPTI leaves the
+    first kernels of a session without timestamps): ``CUPTI_TRIES``
+    sessions each of five kernels (the probe's size before
+    ``profiler.PROBE_KERNELS``), of the profiler's probe, and of
+    ``mx.profiler`` around five kernels of the caller's.  Fails when an
+    ``mx.profiler`` session lost one of the caller's kernels: its
+    lead-in must take every record left without timestamps."""
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity
+    from mxnet_tpu_torch.tools import cupti_probe as cp
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    five = [cp._session(torch, acts, 4) for _ in range(CUPTI_TRIES)]
+    probe = [mx.profiler.probe_session(torch, acts)
+             for _ in range(CUPTI_TRIES)]
+    mx.profiler.profiler_set_config(filename=obs_dir("cupti"))
+    kept = []
+    for _ in range(CUPTI_TRIES):
+        mx.profiler.profiler_set_state("run")
+        try:
+            x = torch.ones(1 << 20, device="cuda")
+            for _k in range(4):
+                x = x * 2
+            torch.cuda.synchronize()
+        finally:
+            path = mx.profiler.profiler_set_state("stop")
+        with open(path) as f:
+            doc = json.load(f)
+        os.remove(path)
+        kernels = [e for e in doc.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        lead = lead_in_kernels(doc, kernels)
+        kept.append([len(kernels) - lead, lead])
+    got = {"earlier_profiler_sessions": PROFILER_SESSIONS[0],
+           "five_kernel_sessions": five,
+           "five_kernel_sessions_empty": sum(1 for t in five if t == 0),
+           "probe_kernels": mx.profiler.PROBE_KERNELS,
+           "probe_sessions": probe,
+           "lead_in": mx.profiler.LEAD_IN,
+           "profiler_sessions_caller_and_lead_in": kept,
+           "seconds": time.perf_counter() - t0}
+    log("cupti in this process, after %d profiler sessions: %s; on %s"
+        % (PROFILER_SESSIONS[0], json.dumps(got), smi))
+    if any(k[0] != 5 for k in kept):
+        raise AssertionError("mx.profiler sessions lost the caller's "
+                             "kernels: %s (caller's, lead-in's kept)" % kept)
+    return got
+
+
 #: the phases ``--phases`` runs, which read no other phase's result
 ALONE = {
     "4c": lambda torch, timer, seed, smi: phase_fleet(torch, seed, smi),
     "13": phase_lstm,
+    "17cupti": lambda torch, timer, seed, smi: cupti_long_probe(torch, smi),
     "19": lambda torch, timer, seed, smi: phase_analysis(torch, seed, smi),
     "20": lambda torch, timer, seed, smi: phase_moe_pipeline(torch, seed,
                                                              smi),
@@ -10394,6 +11224,8 @@ ALONE = {
                                                              smi),
     "22": phase_tp,
     "22f": phase_tp_cards,
+    "23": phase_sp,
+    "23f": phase_sp_cards,
 }
 
 
@@ -10522,6 +11354,7 @@ def main(argv=None):
         moe = run("20", phase_moe_pipeline, torch, args.seed, smi)
         src = run("21", phase_source_lints, torch, args.seed, smi)
         tpr = run("22", phase_tp, torch, timer, args.seed, smi)
+        spr = run("23", phase_sp, torch, timer, args.seed, smi)
         log("seconds by phase: %s" % json.dumps(phase_s))
     except Exception:
         traceback.print_exc()
@@ -10619,6 +11452,11 @@ def main(argv=None):
     for k in ("fused_opt", "flash_attention", "flash_decode",
               "quantized_matmul"):
         launches[k] += tp_l[k]
+    # sequence parallelism (phase 23, on the first card): the LM's one-card
+    # and sp=2 steps (float32, mirrored, bfloat16) and the sp predictor
+    sp_l = spr["launches"]
+    for k in ("fused_opt", "flash_attention"):
+        launches[k] += sp_l[k]
     by_device = {"fused_opt": {}, "flash_attention": {}}
     first_card = "cuda:0" if DEVICE == "cuda" else "cpu"
     by_device["fused_opt"][first_card] = launches["fused_opt"] - dp_main \
@@ -10662,7 +11500,7 @@ def main(argv=None):
             + [zoo["main"][d]["launches"] for d in ("float32", "bfloat16")] \
             + [lstm["trainer"]["kernel"]["launches"]] \
             + dp_runs + dp_lm + res_counts + obs_counts \
-            + [moe["launches"], tp_l] + list(resnet_other.values()):
+            + [moe["launches"], tp_l, sp_l] + list(resnet_other.values()):
         for body, n in c["fused_opt_by_body"].items():
             sweep_by_body[body] = sweep_by_body.get(body, 0) + n
     # flash attention at the training shape (causal, float32); the sweep
@@ -10733,6 +11571,7 @@ def main(argv=None):
             k["launches_by_path"]["moe_lm_training"] = moe_sweeps
             k["launches_by_path"]["tp_and_fsdp_lm_training"] = \
                 tp_l["fused_opt"]
+            k["launches_by_path"]["sp_lm_training"] = sp_l["fused_opt"]
             gen = next(r for r in res["generated"]["rows"]
                        if r["n"] == SWEEP_N)
             k["generated"] = dict(
@@ -10759,7 +11598,8 @@ def main(argv=None):
             k["launches_by_dtype"]["float32"] += moe_flash - moe_bf16
             for d in ("float32", "bfloat16"):
                 k["launches_by_dtype"][d] += \
-                    tp_l["flash_attention_by_dtype"][d]
+                    tp_l["flash_attention_by_dtype"][d] \
+                    + sp_l["flash_attention_by_dtype"][d]
             k["launches_by_device"] = by_device["flash_attention"]
             k["launches_by_path"] = {
                 "transformer_training": transformer_flash,
@@ -10772,7 +11612,9 @@ def main(argv=None):
                         "flash_attention"],
                 "transformer_telemetry": obs_flash,
                 "moe_lm_and_pipeline": moe_flash,
-                "tp_lm_and_predictor": tp_l["flash_attention"]}
+                "tp_lm_and_predictor": tp_l["flash_attention"],
+                "sp_lm_and_predictor": sp_l["flash_attention"]}
+            k["sp_ring_hops"] = sp_l["ring_hops"]
             k["c_abi_twin_launches"] = capi["lm"]["twin_flash_launches"]
         elif k["name"] == "quantized_matmul":
             k["prefill"] = dict({t: qmm_prefill[t] for t in timing_keys},
@@ -10839,7 +11681,7 @@ def main(argv=None):
                        "capi": capi, "resilience": res,
                        "observability": obs, "analysis": ana,
                        "moe_pipeline": moe, "source_lints": src,
-                       "tp": tpr,
+                       "tp": tpr, "sp": spr,
                        "phase_seconds": phase_s,
                        "imperative": imperative, "rtc": rtc_res,
                        "kernels": kernels}, f, indent=1)

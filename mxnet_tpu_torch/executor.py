@@ -37,6 +37,7 @@ every op output of a forward to a ``monitor.Monitor``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import threading
@@ -170,33 +171,54 @@ class _Handle:
         self.key = key
 
 
+def _snapshot(rngs):
+    """The distinct generators among ``rngs`` (one a member; members of
+    one device may share one), their states, and each member's index
+    among them."""
+    uniq, idx = [], []
+    for g in rngs:
+        if g is None:
+            idx.append(None)
+            continue
+        i = next((i for i, u in enumerate(uniq) if u is g), None)
+        if i is None:
+            i = len(uniq)
+            uniq.append(g)
+        idx.append(i)
+    return uniq, [g.get_state() for g in uniq], idx
+
+
+def _replay(snap):
+    """Copies of the generators of a :func:`_snapshot` at its states:
+    ``(each member's copy, the distinct copies)``."""
+    uniq, states, idx = snap
+    copies = [_generator_at(g.device, st) for g, st in zip(uniq, states)]
+    return [None if i is None else copies[i] for i in idx], copies
+
+
 class _Recompute:
     """One mirrored segment of one training walk: its input tensors (kept
-    for the recompute), the generator state at its start, the handles the
-    graph holds, and, once recomputed in the backward, the tensor of each
-    live handle.  A handle dies with the graph node that saved it (after
-    that node's backward), and its tensor with it: the copies live from
-    the first unpack to the last backward that reads them."""
+    for the recompute), the generator states at its start, the handles
+    the graph holds, and, once recomputed in the backward, the tensor of
+    each live handle.  ``run(local, rngs)`` runs the segment again over
+    ``local`` (input key -> tensor), adding the values it makes, with
+    ``rngs`` (the generators' copies, or None).  A handle dies with the
+    graph node that saved it (after that node's backward), and its
+    tensor with it: the copies live from the first unpack to the last
+    backward that reads them."""
 
-    __slots__ = ("nodes", "ext_keys", "ext_vals", "ext_grad", "aux_values",
-                 "is_train", "rng_device", "rng_state", "n_saves", "handles",
-                 "cache", "run_node", "__weakref__")
+    __slots__ = ("run", "ext_keys", "ext_vals", "ext_grad", "snap",
+                 "n_saves", "handles", "cache", "__weakref__")
 
-    def __init__(self, nodes, ext_keys, ext_vals, aux_values, is_train,
-                 rng, run_node):
-        self.nodes = nodes
+    def __init__(self, run, ext_keys, ext_vals, rngs):
+        self.run = run
         self.ext_keys = ext_keys
         # detached copies and requires_grad flags: no reference to their
         # history
         self.ext_vals = [_keep(v) for v in ext_vals]
         self.ext_grad = [v.requires_grad for v in ext_vals]
-        self.aux_values = aux_values
-        self.is_train = is_train
-        self.run_node = run_node
-        self.rng_device = self.rng_state = None
-        if rng is not None and any(getattr(n.op, "need_rng", False)
-                                   for n in nodes):
-            self.rng_device, self.rng_state = rng.device, rng.get_state()
+        self.snap = _snapshot(rngs) if rngs is not None \
+            and any(g is not None for g in rngs) else None
         self.n_saves = 0
         self.handles = weakref.WeakSet()
         self.cache = weakref.WeakKeyDictionary()
@@ -206,10 +228,12 @@ class _Recompute:
         self.handles.add(h)
         return h
 
-    def generator(self):
-        if self.rng_state is None:
-            return None
-        return _generator_at(self.rng_device, self.rng_state)
+    def generators(self):
+        """Each member's copy of its generator at the segment's start,
+        and the distinct copies (None, None when it draws nothing)."""
+        if self.snap is None:
+            return None, None
+        return _replay(self.snap)
 
     def _recompute(self):
         """Run the segment again from its inputs (detached, with their
@@ -226,12 +250,9 @@ class _Recompute:
         for k, v, g in zip(self.ext_keys, self.ext_vals, self.ext_grad):
             d = v.detach()
             local[k] = d.requires_grad_(g) if d.is_floating_point() else d
-        gen = self.generator()
         with torch.enable_grad(), \
                 torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            for node in self.nodes:
-                self.run_node(node, local, self.aux_values, {}, gen,
-                              self.is_train, None)
+            self.run(local, self.generators()[0])
         for h in list(self.handles):
             self.cache[h] = saved[h.key] if isinstance(h.key, int) \
                 else local[h.key].detach()
@@ -338,6 +359,8 @@ def build_program(symbol):
     forwards = {id(n): functools.partial(n.op.forward,
                                          trace=build_program(n.op._base).trace)
                 for n in op_nodes if hasattr(n.op, "_base")}
+    from .parallel.ring_attention import (current_sequence_parallel,
+                                          sequence_parallel)
     from .parallel.tensor_parallel import TPShards, run_tp
 
     def forward_of(node):
@@ -369,58 +392,92 @@ def build_program(symbol):
             for oname, o in zip(op.list_outputs(), outs):
                 monitor("%s_%s" % (node.name, oname), o)
 
+    def walk(step, values, aux_out, rngs, mirror):
+        """Run every node over the members' ``values`` (one dict a member)
+        by ``step(node, values, aux_out, rngs)``, dropping each value
+        after its last consumer.  With ``mirror``, the mirrored segments
+        run under :class:`_MirrorHooks`: each keeps its inputs, every
+        member's, and its recompute runs ``step`` over the segment's
+        nodes on every member again, from copies of the generators at
+        the segment's start (the callers' generators then move on as if
+        unmirrored), under the sequence-parallel context that was active
+        (a ring inside it rotates as it did); its aux updates are
+        dropped."""
+        n = len(values)
+        hooks = _MirrorHooks() if mirror else None
+        sp_ctx = current_sequence_parallel()
+
+        def segment(nodes):
+            def run(local, gens):
+                vals = [{} for _ in range(n)]
+                for (r, k), v in local.items():
+                    vals[r][k] = v
+                with sequence_parallel(sp_ctx) if sp_ctx is not None \
+                        else contextlib.nullcontext():
+                    for node in nodes:
+                        step(node, vals, [{} for _ in range(n)],
+                             gens or rngs)
+                for r in range(n):
+                    for k, v in vals[r].items():
+                        local[(r, k)] = v
+            return run
+
+        pos, cur, copies, end = 0, rngs, None, -1
+        with torch.autograd.graph.saved_tensors_hooks(hooks.pack,
+                                                      hooks.unpack) \
+                if mirror else contextlib.nullcontext():
+            while pos < len(op_nodes):
+                if mirror and pos in seg_at:
+                    nodes, ext = seg_at[pos]
+                    ext_keys = [(r, k) for r in range(n) for k in ext]
+                    hooks.inputs = [values[r][k] for r, k in ext_keys]
+                    draws = any(getattr(m.op, "need_rng", False)
+                                for m in nodes)
+                    rec = _Recompute(segment(nodes), ext_keys, hooks.inputs,
+                                     rngs if draws else None)
+                    hooks.current, end = rec, pos + len(nodes)
+                    gens, copies = rec.generators()
+                    cur = gens or rngs
+                node = op_nodes[pos]
+                step(node, values, aux_out, cur)
+                if mirror and hooks.current is not None:
+                    for r in range(n):
+                        for i in range(node.num_outputs):
+                            o = values[r].get((id(node), i))
+                            if isinstance(o, torch.Tensor):
+                                hooks.produced[o] = (hooks.current,
+                                                     (r, (id(node), i)))
+                for key in frees[pos]:
+                    for r in range(n):
+                        values[r].pop(key, None)
+                pos += 1
+                if pos == end:
+                    if copies:
+                        for g, c in zip(hooks.current.snap[0], copies):
+                            g.set_state(c.get_state())
+                    hooks.current, hooks.inputs = None, ()
+                    cur, copies, end = rngs, None, -1
+
     def trace(arg_values, aux_values, rng, is_train, monitor=None,
               mirror=True):
         values = {}
         aux_out = dict(aux_values)
         for node in variables:
             values[(id(node), 0)] = arg_values[node.name]
+
+        def step(node, vals, aux_outs, rngs):
+            run_node(node, vals[0], aux_values, aux_outs[0], rngs[0],
+                     is_train, monitor)
         # a monitor observes every op output (a recompute would report
         # them twice): monitored walks run unmirrored, as in the JAX
         # package; so do walks that record no gradient
-        hooks = _MirrorHooks() if (n_mirrored and mirror and monitor is None
-                                   and torch.is_grad_enabled()) else None
-        if hooks is None:
-            for pos, node in enumerate(op_nodes):
-                run_node(node, values, aux_values, aux_out, rng, is_train,
-                         monitor)
-                for key in frees[pos]:
-                    values.pop(key, None)
-        else:
-            with torch.autograd.graph.saved_tensors_hooks(hooks.pack,
-                                                          hooks.unpack):
-                _mirrored_walk(hooks, values, aux_values, aux_out, rng,
-                               is_train)
+        walk(step, [values], [aux_out], [rng],
+             bool(n_mirrored and mirror and monitor is None
+                  and torch.is_grad_enabled()))
         return [values[(id(n), i)] for n, i in heads], aux_out
 
-    def _mirrored_walk(hooks, values, aux_values, aux_out, rng, is_train):
-        pos, gen, end = 0, rng, -1
-        while pos < len(op_nodes):
-            if pos in seg_at:
-                nodes, ext = seg_at[pos]
-                hooks.inputs = [values[k] for k in ext]
-                rec = _Recompute(nodes, ext, hooks.inputs, aux_values,
-                                 is_train, rng, run_node)
-                hooks.current, end = rec, pos + len(nodes)
-                gen = rec.generator() or rng
-            node = op_nodes[pos]
-            run_node(node, values, aux_values, aux_out, gen, is_train, None)
-            if hooks.current is not None:
-                rec = hooks.current
-                for i in range(node.num_outputs):
-                    o = values.get((id(node), i))
-                    if isinstance(o, torch.Tensor):
-                        hooks.produced[o] = (rec, (id(node), i))
-            for key in frees[pos]:
-                values.pop(key, None)
-            pos += 1
-            if pos == end:
-                if gen is not rng and rng is not None:
-                    rng.set_state(gen.get_state())
-                hooks.current, hooks.inputs, gen, end = None, (), rng, -1
-
     def trace_replicas(arg_lists, aux_lists, rngs, is_train, group,
-                       sharded=()):
+                       sharded=(), seq=None):
         """The lockstep walk over a batch split across replicas: each
         node runs on every replica (``arg_lists[r]``, ``aux_lists[r]``:
         name -> tensor on ``group.devices[r]``) before the next node
@@ -438,17 +495,27 @@ def build_program(symbol):
         (its third result says which outputs are replicated: one flag,
         or one an output), and a loss head whose backward is
         its own (``injects_grad``) reads a replicated input on replica 0
-        alone.  Returns ``(outputs, aux_out, replicated)``: the heads of
-        each replica, each replica's aux updates, and whether each head
-        is replicated."""
-        if n_mirrored and torch.is_grad_enabled():
-            raise MXNetError(
-                "mirroring (force_mirroring, MXNET_BACKWARD_DO_MIRROR) "
-                "under data parallelism is not ported yet (ROADMAP.md "
-                "queue 1 item 3)")
+        alone.
+
+        ``seq``: a :class:`~.parallel.sequence_parallel.SeqWalk` when the
+        sharded inputs are split over an sp axis too: every node that
+        reads a value split over sp runs through
+        :func:`~.parallel.sequence_parallel.run_sp` (per token, its sp
+        form, or a raise naming the op), and ``seq.head_dims`` gets each
+        head's sequence dimension.
+
+        Mirrored segments (``force_mirroring``, ``MXNET_BACKWARD_DO_MIRROR``)
+        run under the saved-tensor hooks of :func:`build_program`'s walk,
+        with every replica's share of a segment in one recompute: the
+        backward runs the segment again on every replica in lockstep
+        (a ring inside it rotates as it did), under the sequence-parallel
+        context that was active.  Returns ``(outputs, aux_out,
+        replicated)``: the heads of each replica, each replica's aux
+        updates, and whether each head is replicated."""
+        from .parallel.sequence_parallel import run_sp
         n = len(arg_lists)
         values = [{} for _ in range(n)]
-        rep = {}
+        rep, lay = {}, {}
         aux_out = [dict(a) for a in aux_lists]
         sharded = set(sharded)
         for node in variables:
@@ -456,8 +523,15 @@ def build_program(symbol):
             for r in range(n):
                 values[r][key] = arg_lists[r][node.name]
             rep[key] = node.name not in sharded
+            if seq is not None and not rep[key]:
+                if node.name not in seq.seq_dims:
+                    raise MXNetError(
+                        "sequence parallelism: input %s is split over the "
+                        "batch but has no sequence axis" % node.name)
+                lay[key] = seq.seq_dims[node.name]
         scope = _device_scopes(group)
-        for pos, node in enumerate(op_nodes):
+
+        def step(node, values, aux_out, rngs):
             op = node.op
             keys = [(id(c), ci) for c, ci in node.inputs]
             all_rep = all(rep[k] for k in keys)
@@ -467,23 +541,30 @@ def build_program(symbol):
             aux_in = [[aux_lists[r][a] for a in aux_names]
                       for r in range(n)]
             keyed = rngs if getattr(op, "need_rng", False) else [None] * n
-            got = None
-            if not all_rep and hasattr(op, "forward_replicas"):
-                got = op.forward_replicas(ins, aux_in, is_train, keyed,
-                                          group)
-            if got is None:
-                fwd = forward_of(node)
-                outs, updates = [], []
-                for r in range(n):
-                    x = ins[r]
-                    if all_rep and r and getattr(op, "injects_grad", False):
-                        x = [t.detach() for t in x]
-                    with scope(r):
-                        o, u = fwd(x, aux_in[r], is_train, keyed[r])
-                    outs.append(o)
-                    updates.append(u)
-                got = (outs, updates, all_rep)
-            outs, updates, out_rep = got
+            out_lays = None
+            if seq is not None and not all_rep:
+                outs, updates, out_rep, out_lays = run_sp(
+                    op, node.name, ins, [lay.get(k) for k in keys], aux_in,
+                    is_train, keyed, group, forward_of(node), scope, seq)
+            else:
+                got = None
+                if not all_rep and hasattr(op, "forward_replicas"):
+                    got = op.forward_replicas(ins, aux_in, is_train, keyed,
+                                              group)
+                if got is None:
+                    fwd = forward_of(node)
+                    outs, updates = [], []
+                    for r in range(n):
+                        x = ins[r]
+                        if all_rep and r \
+                                and getattr(op, "injects_grad", False):
+                            x = [t.detach() for t in x]
+                        with scope(r):
+                            o, u = fwd(x, aux_in[r], is_train, keyed[r])
+                        outs.append(o)
+                        updates.append(u)
+                    got = (outs, updates, all_rep)
+                outs, updates, out_rep = got
             for r in range(n):
                 for i, o in enumerate(outs[r]):
                     values[r][(id(node), i)] = o
@@ -493,11 +574,15 @@ def build_program(symbol):
             for i in range(node.num_outputs):
                 rep[(id(node), i)] = out_rep[i] \
                     if isinstance(out_rep, (list, tuple)) else out_rep
-            for key in frees[pos]:
-                for r in range(n):
-                    values[r].pop(key, None)
+                if out_lays is not None:
+                    lay[(id(node), i)] = out_lays[i]
+
+        walk(step, values, aux_out, rngs,
+             bool(n_mirrored and torch.is_grad_enabled()))
         heads_out = [[values[r][(id(h), i)] for h, i in heads]
                      for r in range(n)]
+        if seq is not None:
+            seq.head_dims = [lay.get((id(h), i)) for h, i in heads]
         return heads_out, aux_out, [rep[(id(h), i)] for h, i in heads]
 
     prog = Program(trace, needs_rng, segments, n_mirrored)

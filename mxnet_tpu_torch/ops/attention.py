@@ -96,6 +96,22 @@ def _tp_out(op, g, o_parts, wo, bo, dropout=None):
     return y if tp.is_split(bo) else y + bo
 
 
+def _gathered_attention(qs, ks, vs, causal):
+    """Plain attention of each member's q chunk over the whole sequence:
+    k and v gathered over the ring onto the member's device (copies that
+    carry their gradients back), the causal mask at the chunk's
+    offset."""
+    from ..parallel.collectives import send
+    out = []
+    chunk = qs[0].shape[-2]
+    for i, q in enumerate(qs):
+        k = torch.cat([send(t, q.device) for t in ks], dim=-2)
+        v = torch.cat([send(t, q.device) for t in vs], dim=-2)
+        out.append(attention_reference(q, k, v, causal=causal,
+                                       q_offset=i * chunk))
+    return out
+
+
 class _LayerNormParam(ParamStruct):
     axis = Field(int, default=-1)
     eps = Field(float, default=1e-5)
@@ -194,6 +210,48 @@ class MultiHeadAttention(OperatorProperty):
         o = o.transpose(1, 2).reshape(B, S, E)
         o = self._dropout(o, is_train, rng)
         return [torch.matmul(o, wo.t()) + bo], None
+
+    def forward_replicas(self, ins, aux, is_train, rngs, group):
+        """The lockstep walk (``executor.trace_replicas``) hands it every
+        member's inputs at once.  Under a sequence-parallel context
+        (``parallel.ring_attention.sequence_parallel``) each member holds
+        its ``(B/dp, S/sp, E)`` block: it projects its q, k and v, the
+        sp members of each dp replica run ring attention over their
+        chunks (every hop the flash forward: the CUDA kernel on a card),
+        and each member projects its output.  With ``use_flash=False``
+        each member gathers k and v over its ring and runs
+        :func:`attention_reference` at its chunk's offset, as the JAX
+        package's GSPMD all-gathers them.  Without a context: None (each
+        member's own forward)."""
+        from ..parallel.ring_attention import (current_sequence_parallel,
+                                               ring_attention)
+        ctx = current_sequence_parallel()
+        if ctx is None or ctx.size <= 1:
+            return None
+        H = self.param.num_heads
+        causal = self.param.causal
+        qkv = []
+        for x, wqkv, bqkv, _wo, _bo in ins:
+            B, S, E = x.shape
+            t = torch.matmul(x, wqkv.t()) + bqkv
+            qkv.append([h.reshape(B, S, H, E // H).transpose(1, 2)
+                        for h in t.split(E, dim=-1)])
+        o = [None] * len(ins)
+        for ring in ctx.rings():
+            qs, ks, vs = ([qkv[m][i] for m in ring] for i in range(3))
+            if self.param.use_flash:
+                got = ring_attention(qs, ks, vs, causal=causal, members=ring)
+            else:
+                got = _gathered_attention(qs, ks, vs, causal)
+            for m, g in zip(ring, got):
+                o[m] = g
+        outs = []
+        for m, (x, _w, _b, wo, bo) in enumerate(ins):
+            B, S, E = x.shape
+            y = self._dropout(o[m].transpose(1, 2).reshape(B, S, E),
+                              is_train, rngs[m])
+            outs.append([torch.matmul(y, wo.t()) + bo])
+        return outs, None, False
 
     def _dropout(self, o, is_train, rng):
         if is_train and self.param.dropout > 0.0 and rng is not None:

@@ -317,14 +317,16 @@ class _ReshapeParam(ParamStruct):
 class Reshape(OperatorProperty):
     param_cls = _ReshapeParam
 
-    def _target(self, in_shape):
+    def _target(self, in_shape, shape=None):
+        """The output shape for ``in_shape`` (``shape``: the ``shape``
+        attr rewritten by the sequence-parallel form)."""
         p = self.param
         if p.shape is None and p.target_shape is None:
             raise MXNetError("Reshape needs shape or target_shape")
         size = int(_np.prod(in_shape, dtype=_np.int64))
         if p.shape is not None:
             out = [in_shape[i] if s == 0 else s
-                   for i, s in enumerate(p.shape)]
+                   for i, s in enumerate(shape or p.shape)]
         else:
             out = list(p.target_shape)
             if p.keep_highest:
@@ -345,6 +347,14 @@ class Reshape(OperatorProperty):
 
     def forward(self, inputs, aux, is_train, rng):
         return [inputs[0].reshape(self._target(tuple(inputs[0].shape)))], None
+
+    def forward_sp(self, ins, lays, walk):
+        """Each member's block reshaped (``sequence_parallel``): a target
+        that names the whole sequence (the LM's ``(-1, seq_len, dim)``)
+        takes the member's ``S/sp`` there."""
+        from ..parallel.sequence_parallel import reshape_target
+        out, jo = reshape_target(self, ins[0][0], lays[0], walk)
+        return [[x[0].reshape(out)] for x in ins], [jo]
 
     def infer_sharding(self, in_specs, in_shapes, out_shapes, mesh_shape):
         return {"out": [reshape_carry(in_specs[0], in_shapes[0],

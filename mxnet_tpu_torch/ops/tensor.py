@@ -55,6 +55,9 @@ def _make_binary(op_name, fn, aliases=()):
         def forward_tp(self, inputs, aux, is_train, rng):
             return [_binary_tp(self.op_name, fn, inputs[0], inputs[1])], None
 
+        def forward_sp(self, ins, lays, walk):
+            return _binary_sp(self.op_name, fn, ins, lays, walk)
+
     _Binary.__name__ = "Op" + op_name
     return _Binary
 
@@ -90,6 +93,43 @@ def _binary_tp(op_name, fn, lhs, rhs):
         parts.append(fn(x, y))
     nd = parts[0].dim()
     return tp.gather(g, parts, a.dim + nd - len(a.shape))
+
+
+def _binary_sp(op_name, fn, ins, lays, walk):
+    """A broadcasting binary op with an operand split over sp
+    (``parallel/sequence_parallel.py``): two split operands combine
+    member by member; a replicated operand that spans the whole sequence
+    (the LM's position table, broadcast over the batch) gives each
+    member the rows of its own positions, so the table's gradient is
+    each member's rows and sums over the members as a replicated
+    parameter's does.  Elementwise, so the result is the whole op's bit
+    for bit."""
+    from ..parallel import sequence_parallel as sp
+    la, lb = lays
+    a, b = ins[0]
+    nd = max(a.dim(), b.dim())
+    if la is not None and lb is not None:
+        if a.shape != b.shape or la != lb:
+            raise sp.unsupported(op_name, "two operands split over sp "
+                                 "differently: %s and %s"
+                                 % (tuple(a.shape), tuple(b.shape)))
+        return [[fn(x, y)] for x, y in ins], [la]
+    first = la is not None
+    x, y = (a, b) if first else (b, a)
+    j = la if first else lb
+    jr = j + nd - x.dim()
+    bd = jr - (nd - y.dim())
+    if bd >= 0 and y.shape[bd] != 1 and x.shape[j] != walk.chunk:
+        raise sp.unsupported(op_name, "a replicated operand against rows "
+                             "that merge the batch with the sequence")
+    outs = []
+    for r, (u, v) in enumerate(ins):
+        if first:
+            v = sp.slice_rows(walk, r, v, bd)
+        else:
+            u = sp.slice_rows(walk, r, u, bd)
+        outs.append([fn(u, v)])
+    return outs, [jr]
 
 
 _make_binary("_Plus", torch.add,
@@ -191,6 +231,15 @@ class ExpandDims(OperatorProperty):
             ax += len(x.shape) + 1
         return [x.map(lambda t: torch.unsqueeze(t, ax),
                       dim=x.dim + (1 if ax <= x.dim else 0))], None
+
+    def forward_sp(self, ins, lays, walk):
+        """A value split over sp stays split: each member's block gains
+        the axis, and the sequence dimension moves past it."""
+        ax = self.param.axis
+        if ax < 0:
+            ax += ins[0][0].dim() + 1
+        return ([[torch.unsqueeze(x[0], ax)] for x in ins],
+                [lays[0] + (1 if ax <= lays[0] else 0)])
 
 
 # ----------------------------------------------------------------------

@@ -5,14 +5,14 @@ The port of ``mxnet_tpu/parallel``: meshes of one or several devices
 of a process and the processes of a ``torch.distributed`` group), the
 sharding policy and arrays placed on a mesh (``sharding``), the
 collectives between mesh members (``collectives``), :class:`ShardedTrainer`
-(dp, ZeRO-1, FSDP, expert parallelism over an ``ep`` axis and tensor
-parallelism over a ``tp`` axis, ``tensor_parallel``),
+(dp, ZeRO-1, FSDP, expert parallelism over an ``ep`` axis, tensor
+parallelism over a ``tp`` axis, ``tensor_parallel``, and sequence
+parallelism over an ``sp`` axis, ``sequence_parallel``),
 :class:`ShardedPredictor`, the microbatched pipeline over a ``pp`` axis
 (``pipeline``: :class:`GPipeTrainer`, GPipe and 1F1B), the
-flash-attention function of training (``ring_attention``), and the
-bucket planners of the gradient reduction and the fused optimizer sweep
-(``overlap``).  Sequence parallelism comes with a later multi-GPU slice
-(ROADMAP.md queue 1 item 3 (c)).
+flash-attention function of training and ring attention over an sp
+group (``ring_attention``), and the bucket planners of the gradient
+reduction and the fused optimizer sweep (``overlap``).
 """
 from .mesh import (Mesh, make_mesh, auto_mesh, local_device_count,  # noqa: F401
                    LogicalMesh, remesh)

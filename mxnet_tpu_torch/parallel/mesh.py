@@ -9,15 +9,16 @@ collectives of ``parallel/collectives.py`` between them) and the
 processes of a ``torch.distributed`` group (one context each, started by
 a ``dist_*`` kvstore from ``tools/launch.py``'s env).  ``ep`` (expert
 parallelism: ``ShardedTrainer`` over an MoE graph), ``pp`` (pipeline
-parallelism: ``parallel.pipeline.GPipeTrainer``) and ``tp`` (tensor
+parallelism: ``parallel.pipeline.GPipeTrainer``), ``tp`` (tensor
 parallelism: ``ShardedTrainer``, ``ShardedPredictor`` and the
 generation engine over split weights, ``parallel/tensor_parallel.py``)
-span the cards of one process; across processes they raise (ROADMAP.md
-queue 1 item 3 (k)).  ``sp`` with a size above 1 comes with a later
-multi-GPU slice (ROADMAP queue 1 item 3 (c)) and raises.
+and ``sp`` (sequence parallelism: ``ShardedTrainer(seq_axis=...)`` and
+``ShardedPredictor(seq_axis=...)``, ring attention over each sp group,
+``parallel/sequence_parallel.py``) span the cards of one process;
+across processes they raise (ROADMAP.md queue 1 item 3 (k)).
 :meth:`Mesh.axis_members` and :meth:`Mesh.axis_group` give the
 sub-groups along one axis: the tp group of a member (the members that
-differ from it only in their tp index) and its dp group.
+differ from it only in their tp index), its sp ring and its dp group.
 
 Unlike a JAX mesh, a mesh here may name one context twice, or two
 contexts of one device (``[gpu(0), gpu(0)]``, ``[cpu(0), cpu(1)]``):
@@ -39,10 +40,6 @@ __all__ = ["Mesh", "make_mesh", "auto_mesh", "local_device_count",
            "LogicalMesh", "remesh", "AXIS_ORDER"]
 
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
-
-#: the axes not ported yet: what each is, and its ROADMAP.md item
-_LATER = {"sp": ("sequence parallelism (ring attention over NCCL)",
-                 "3 (c)")}
 
 
 def _as_context(d):
@@ -137,21 +134,15 @@ def _check_axes(names, sizes, world):
     for a, s in zip(names, sizes):
         if s <= 1 or a == "dp":
             continue
-        if a in _LATER:
-            what, item = _LATER[a]
-            raise MXNetError(
-                "make_mesh: axis %s=%d: %s is not ported yet; it comes "
-                "with a later multi-GPU slice (ROADMAP.md queue 1 item %s)"
-                % (a, s, what, item))
-        if a not in ("ep", "pp", "tp"):
+        if a not in ("ep", "pp", "sp", "tp"):
             raise MXNetError("make_mesh: unknown mesh axis %r (the axes "
                              "are %s)" % (a, ", ".join(AXIS_ORDER)))
         if world > 1:
             raise MXNetError(
                 "make_mesh: axis %s=%d across the %d processes of a "
                 "torch.distributed group is not ported yet (ROADMAP.md "
-                "queue 1 item 3 (k)); run ep, pp and tp on the cards of "
-                "one process" % (a, s, world))
+                "queue 1 item 3 (k)); run ep, pp, sp and tp on the cards "
+                "of one process" % (a, s, world))
 
 
 def _world():

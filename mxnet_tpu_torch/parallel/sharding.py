@@ -69,13 +69,17 @@ class _Shard:
         self.data = data
 
 
-def _split_dim(spec, mesh):
-    """``(dim, axis)``: the one dimension sharded over a mesh axis of
-    size above 1, or ``(None, None)``."""
-    for dim, e in enumerate(spec):
-        if e is not None and mesh.shape.get(e, 1) > 1:
-            return dim, e
-    return None, None
+def _split_dims(spec, mesh):
+    """``[(dim, axis)]``: the dimensions sharded over a mesh axis of size
+    above 1 (a batch over dp and sp has two)."""
+    return [(dim, e) for dim, e in enumerate(spec)
+            if isinstance(e, str) and mesh.shape.get(e, 1) > 1]
+
+
+def _local_parts(mesh, axis):
+    """How many parts of an axis one process holds: dp's replicas are
+    split over the processes of a group, the other axes are local."""
+    return mesh.shape[axis] // (mesh.num_processes if axis == "dp" else 1)
 
 
 class ShardedArray:
@@ -84,12 +88,20 @@ class ShardedArray:
     ``shards[r]`` lives on ``mesh.devices[r]``; where ``spec`` shards a
     dimension over an axis it holds member r's part of that dimension
     (its index along the axis; over dp, replica r of process p is part
-    ``p * local + r``), else the whole array."""
+    ``p * local + r``), else the whole array.
 
-    def __init__(self, shards, mesh, spec, shape):
+    ``seq``: a value of a sequence-parallel walk (``(pre, post)``,
+    ``parallel/sequence_parallel.py``): flattened, each dp part of it is
+    ``(pre, S, post)`` and member r holds the ``(pre, S/sp, post)``
+    block of its sp index.  Its global value interleaves the blocks (an
+    LM head ``(B*S, V)`` comes out in ``(B, S)`` row order, as the JAX
+    package's), rather than concatenating them on one dimension."""
+
+    def __init__(self, shards, mesh, spec, shape, seq=None):
         self.shards = list(shards)
         self.sharding = NamedSharding(mesh, spec)
         self.shape = tuple(int(d) for d in shape)
+        self.seq = seq
 
     @property
     def dtype(self):
@@ -103,19 +115,36 @@ class ShardedArray:
 
     def global_tensor(self, device=None):
         """The global value on ``device`` (default: the first replica's):
-        the local shards concatenated (one process's part only, in a
-        process group of several)."""
+        the local shards concatenated along every split dimension (one
+        process's part only, in a process group of several)."""
         device = device or self.shards[0].device
         mesh = self.sharding.mesh
-        dim, axis = _split_dim(self.sharding.spec, mesh)
-        if dim is None:
-            return self.shards[0].to(device)
-        if len(mesh.axis_names) == 1:
-            parts = self.shards
-        else:
-            others = {a: 0 for a in mesh.axis_names if a != axis}
-            parts = [self.shards[i] for i in mesh.members(**others)]
-        return torch.cat([s.to(device) for s in parts], dim=dim)
+        if self.seq is not None:
+            return self._interleaved(device)
+        split = _split_dims(self.sharding.spec, mesh)
+
+        def assemble(rest, fixed):
+            if not rest:
+                idx = mesh.members(**fixed)[0]
+                return self.shards[idx].to(device)
+            (dim, axis), tail = rest[0], rest[1:]
+            return torch.cat([assemble(tail, dict(fixed, **{axis: c}))
+                              for c in range(_local_parts(mesh, axis))],
+                             dim=dim)
+        return assemble(split, {})
+
+    def _interleaved(self, device):
+        mesh = self.sharding.mesh
+        pre, post = self.seq
+        n_dp = _local_parts(mesh, "dp") if "dp" in mesh.shape else 1
+        parts = []
+        for i in range(n_dp):
+            ring = mesh.members(dp=i)
+            parts.append(torch.cat(
+                [self.shards[r].to(device).reshape(pre, -1, post)
+                 for r in ring], dim=1))
+        whole = torch.cat(parts, dim=0)
+        return whole.reshape(-1, *self.shape[1:]) if self.shape else whole
 
     def asnumpy(self):
         return self.global_tensor().detach().cpu().numpy()
@@ -131,9 +160,10 @@ class ShardedArray:
 
 def place(value, mesh, spec, part_of_process=False):
     """A tensor, numpy array or NDArray placed on ``mesh`` with ``spec``:
-    split over dp where the spec says so, copied to every replica
-    otherwise.  ``part_of_process``: ``value`` is this process's part of
-    the global array (its dp rows), as a process of a group passes it."""
+    split along every dimension the spec shards (over dp, over sp, ...),
+    copied to every replica otherwise.  ``part_of_process``: ``value`` is
+    this process's part of the global array (its dp rows), as a process
+    of a group passes it."""
     from .. import ndarray as nd
     if isinstance(value, nd.NDArray):
         value = value.data
@@ -144,27 +174,33 @@ def place(value, mesh, spec, part_of_process=False):
         arr = _np.ascontiguousarray(arr)
         value = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
-    dim, axis = _split_dim(spec, mesh)
+    split = _split_dims(spec, mesh)
     shape = list(value.shape)
-    if dim is None:
+    if not split:
         shards = [value.to(d) for d in mesh.devices]
         if len(set(s.data_ptr() for s in shards)) < len(shards):
             shards = [shards[0]] + [s.clone() for s in shards[1:]]
         return ShardedArray(shards, mesh, spec, shape)
-    if mesh.num_processes > 1:
-        if not part_of_process:
-            import torch.distributed as dist
-            rows = value.shape[dim] // mesh.num_processes
-            value = value.narrow(dim, dist.get_rank() * rows, rows)
-        shape[dim] = value.shape[dim] * mesh.num_processes
-    parts_n = mesh.shape[axis] // mesh.num_processes
-    if value.shape[dim] % parts_n:
-        raise ValueError("place: dimension %d of %s does not divide over "
-                         "%d %s members" % (dim, tuple(value.shape),
-                                             parts_n, axis))
-    parts = torch.chunk(value, parts_n, dim=dim)
-    shards = [parts[mesh.coords(i)[axis]].to(d).contiguous()
-              for i, d in enumerate(mesh.devices)]
+    parts = {}
+    for dim, axis in split:
+        if axis == "dp" and mesh.num_processes > 1:
+            if not part_of_process:
+                import torch.distributed as dist
+                rows = value.shape[dim] // mesh.num_processes
+                value = value.narrow(dim, dist.get_rank() * rows, rows)
+            shape[dim] = value.shape[dim] * mesh.num_processes
+        n = _local_parts(mesh, axis)
+        if value.shape[dim] % n:
+            raise ValueError("place: dimension %d of %s does not divide "
+                             "over %d %s members" % (dim, tuple(value.shape),
+                                                     n, axis))
+        parts[axis] = (dim, value.shape[dim] // n)
+    shards = []
+    for i, d in enumerate(mesh.devices):
+        t, coords = value, mesh.coords(i)
+        for axis, (dim, size) in parts.items():
+            t = t.narrow(dim, coords[axis] * size, size)
+        shards.append(t.to(d).contiguous())
     return ShardedArray(shards, mesh, spec, shape)
 
 

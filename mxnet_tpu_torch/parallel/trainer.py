@@ -119,10 +119,28 @@ FLOPs, counted from the graph's shapes at the last step
 MFU at the card's peak for ``compute_dtype`` (``trainer_cost``) and the
 sentinel's counters.
 
-``seq_axis`` (ring attention), ``rules`` that split a parameter over
-an axis other than tp, ``remat`` and the sentinel on several devices
-belong to later slices (ROADMAP.md queue 1 item 3) and raise; none is
-ignored.
+On a mesh with an ``sp`` axis and ``seq_axis`` set (sequence
+parallelism; members in row-major ``(dp, sp)`` order) the batch's axis
+``seq_axis`` is split over sp as axis 0 is over dp, the labels too, so
+that the per token loss lines up (:meth:`batch_sharding`; the JAX
+package's ``batch_pspec``).  Every member walks the graph on its own
+``(B/dp, S/sp)`` block (``parallel/sequence_parallel.py``: the ops are
+per token, have a sequence-parallel form, or raise naming the op), and
+``MultiHeadAttention`` runs ring attention over the sp members of each
+dp replica (``ring_attention.ring_attention``: every hop the flash
+forward).  The replicated parameters' gradients are summed over every dp
+x sp member through the dp step's buckets, the loss heads' normalizers
+sum over every member, each member updates its own copy (its own sweep),
+and the heads come back in the global row order of the JAX step
+(``ShardedArray`` interleaves the members' blocks).  Mirrored layers
+(``mirror_blocks``) recompute every member's share of a segment in
+lockstep, the ring included (``executor.trace_replicas``).  ``zero1``,
+``fsdp``, ``tp`` and ``ep`` together with sp, and an sp axis without
+``seq_axis``, are not ported (ROADMAP.md queue 1 item 3 (c2)) and raise.
+
+``rules`` that split a parameter over an axis other than tp, ``remat``
+and the sentinel on several devices belong to later slices (ROADMAP.md
+queue 1 item 3) and raise; none is ignored.
 
 :class:`ShardedPredictor` is the serving-side counterpart: the forward
 of a symbol on a dp, dp x ep or dp x tp mesh, from host parameters or a
@@ -233,8 +251,8 @@ def _remat(trace):
 
 
 class ShardedTrainer:
-    """Train a Symbol's loss graph on one device or a dp x ep or dp x tp
-    mesh.
+    """Train a Symbol's loss graph on one device or a dp x ep, dp x tp or
+    dp x sp mesh.
 
     Parameters
     ----------
@@ -242,8 +260,11 @@ class ShardedTrainer:
     optimizer : ``mxnet_tpu_torch.optimizer.Optimizer``.
     mesh : a mesh from ``parallel.make_mesh`` (data parallelism over its
         ``dp`` axis, expert parallelism over ``ep``, tensor parallelism
-        over ``tp``), or None.
+        over ``tp``, sequence parallelism over ``sp``), or None.
     data_names / label_names : input argument names.
+    seq_axis : the batch arrays' sequence axis, split over ``sp`` (ring
+        attention); no effect on a mesh without an sp axis, as in the JAX
+        package.
     compute_dtype : dtype of the forward and backward (params, opt state
         and aux stay in their own dtype; gradients arrive in it).
     ctx : the device (a context, a ``torch.device`` or a string); None
@@ -271,8 +292,6 @@ class ShardedTrainer:
                  cast_exempt=(), zero1=False, fsdp=False, sentinel=None,
                  loss_scale_init=2.0 ** 15, loss_scale_growth=200,
                  step_timeout_s=None, ctx=None):
-        if seq_axis is not None:
-            raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
         from .. import resilience as _resilience
         self.sentinel = _resilience.sentinel_enabled() if sentinel is None \
             else bool(sentinel)
@@ -285,6 +304,10 @@ class ShardedTrainer:
         self.dp = mesh.shape.get("dp", 1) if mesh is not None else 1
         self.ep = mesh.shape.get("ep", 1) if mesh is not None else 1
         self.tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+        #: the sp axis's size (sequence parallelism over seq_axis)
+        self.sp = mesh.shape.get("sp", 1) if mesh is not None else 1
+        if self.sp > 1:
+            _check_sp(self.sp, seq_axis, zero1, fsdp, self.tp, self.ep)
         if self.tp > 1 and self.ep > 1:
             raise MXNetError("ShardedTrainer: tp=%d together with ep=%d is "
                              "not ported yet (ROADMAP.md queue 1 item 3 "
@@ -306,7 +329,7 @@ class ShardedTrainer:
                              % ("zero1=True" if zero1 else "fsdp=True",
                                 self.ep))
         #: one device: plain tensors, no mesh collectives
-        self._single = self.dp == 1 and self._mp == 1
+        self._single = self.dp == 1 and self._mp == 1 and self.sp == 1
         if not self._single and remat:
             raise _not_ported("remat=True on a mesh of several devices",
                               _MULTI_GPU)
@@ -337,7 +360,8 @@ class ShardedTrainer:
         if self.mesh is None:
             from .mesh import Mesh
             self.mesh = Mesh([self.device], ("dp",), [1])
-        self.group = self.mesh.replica_group() if self.dp > 1 else None
+        self.group = self.mesh.replica_group() \
+            if self.dp * self.sp > 1 else None
         # the members that walk the graph: every member of a dp mesh, the
         # first of each dp replica's ep or tp group otherwise
         self._walkers = self.mesh.members(ep=0, tp=0)
@@ -469,7 +493,8 @@ class ShardedTrainer:
         return NamedSharding(self.mesh, spec)
 
     def batch_sharding(self, shape):
-        """A batch tensor: axis 0 split over dp."""
+        """A batch tensor: axis 0 split over dp, and with an sp axis the
+        axis ``seq_axis`` over sp (the labels' too)."""
         from .sharding import NamedSharding, batch_pspec
         return NamedSharding(self.mesh, batch_pspec(shape, self.mesh,
                                                     self.seq_axis))
@@ -849,9 +874,9 @@ class ShardedTrainer:
         """Forward in ``compute_dtype`` with ``is_train=False``."""
         if not self._single:
             with torch.no_grad():
-                outs, _aux, reps = self._walk(params, aux, batch, rng,
-                                              False)
-            return self._outputs(outs, reps)
+                outs, _aux, reps, dims = self._walk(params, aux, batch, rng,
+                                                    False)
+            return self._outputs(outs, reps, dims)
         with torch.no_grad():
             args = self._to_compute(params)
             args.update(self._batch_to_compute(batch, params))
@@ -910,7 +935,12 @@ class ShardedTrainer:
 
     def _walk(self, params, aux, batch, rng, is_train, leaves=None):
         """The lockstep walk of the walkers: ``(outputs, aux_out,
-        replicated)`` (``Program.trace_replicas``)."""
+        replicated, dims)`` (``Program.trace_replicas``; ``dims``: for
+        each head split over sp, its sequence dimension and its block's
+        ``(pre, post)`` (``SeqWalk.runs``), else None)."""
+        import contextlib
+        from .ring_attention import sequence_parallel
+        from .sequence_parallel import SeqWalk
         from .sharding import ShardedArray
 
         def shard(v, r):
@@ -940,14 +970,29 @@ class ShardedTrainer:
         if group is None:
             from .collectives import ReplicaGroup
             group = ReplicaGroup(devices)
-        return self._trace_replicas(
-            args, auxs, rngs, is_train, group,
-            sharded=self.data_names + self.label_names)
+        seq, scope = None, contextlib.nullcontext()
+        if self.sp > 1:
+            seq = SeqWalk(self.mesh,
+                          batch[self.data_names[0]].shape[self.seq_axis],
+                          {k: self.seq_axis for k, v in batch.items()
+                           if len(v.shape) > self.seq_axis})
+            scope = sequence_parallel(self.mesh)
+        with scope:
+            outs, aux_out, reps = self._trace_replicas(
+                args, auxs, rngs, is_train, group,
+                sharded=self.data_names + self.label_names, seq=seq)
+        dims = [None] * len(reps)
+        if seq is not None:
+            dims = [None if j is None else (j,) + seq.runs(outs[0][i], j)
+                    for i, j in enumerate(seq.head_dims)]
+        return outs, aux_out, reps, dims
 
-    def _outputs(self, outs, reps):
+    def _outputs(self, outs, reps, dims):
         """Heads as :class:`~.sharding.ShardedArray`s: split on axis 0,
         or replicated.  On an ep or tp mesh every member of a dp replica
-        holds its walker's output."""
+        holds its walker's output.  Under sp a head split over the
+        sequence (``dims``) assembles its members' blocks interleaved, in
+        the global row order (``ShardedArray``'s ``seq``)."""
         from .sharding import ShardedArray, P
         # members are in (dp, ep or tp) order: member i walks with walker
         # i // (ep * tp)
@@ -956,7 +1001,9 @@ class ShardedTrainer:
         for i, rep in enumerate(reps):
             shards = [outs[owner[r]][i].detach() for r in range(len(owner))]
             nd_ = shards[0].dim()
-            if rep:
+            if dims[i] is not None:
+                got.append(self._seq_output(shards, *dims[i]))
+            elif rep:
                 got.append(ShardedArray(shards, self.mesh,
                                         P(*([None] * nd_)), shards[0].shape))
             else:
@@ -966,6 +1013,23 @@ class ShardedTrainer:
                                         P("dp", *([None] * (nd_ - 1))),
                                         shape))
         return got
+
+    def _seq_output(self, shards, j, pre, post):
+        """A head split over sp at dimension ``j`` of each member's
+        block, whose runs are ``(pre, post)``: its global shape (the
+        sequence dimension ``sp`` times the block's, the batch ``dp``
+        times) and its interleaved assembly."""
+        from .sharding import ShardedArray, P
+        t = shards[0]
+        shape = list(t.shape)
+        shape[j] *= self.sp
+        shape[0] *= self.dp
+        spec = [None] * t.dim()
+        spec[j] = "sp"
+        if self.dp > 1:
+            spec[0] = ("dp", "sp") if j == 0 else "dp"
+        return ShardedArray(shards, self.mesh, P(*spec), shape,
+                            seq=(pre, post))
 
     def _step_dp(self, params, opt_state, aux, batch, rng):
         """The step on a dp mesh, with ep or tp: the walkers' gradients of
@@ -994,8 +1058,8 @@ class ShardedTrainer:
         reducer = GradBuckets([leaves[w] for w in self._walkers], plan,
                               functools.partial(self._reduce_bucket, layout))
         with torch.enable_grad():
-            outs, aux_out, reps = self._walk(params, aux, batch, rng, True,
-                                             leaves=leaves)
+            outs, aux_out, reps, dims = self._walk(params, aux, batch, rng,
+                                                   True, leaves=leaves)
             heads, hgrads = [], []
             for o_r, g_r in zip(outs, _executor.replica_head_grads(outs,
                                                                    reps)):
@@ -1024,7 +1088,7 @@ class ShardedTrainer:
                         aux[k].dtype), self.mesh.devices[r])
                      for r in range(n)],
                     self.mesh, aux[k].sharding.spec, aux[k].shape)
-        return params, opt_state, aux, self._outputs(outs, reps)
+        return params, opt_state, aux, self._outputs(outs, reps, dims)
 
     def _reduce_slices(self, leaves, split, grads):
         """The gradients of the split leaves (``split``) summed over the
@@ -1375,17 +1439,21 @@ class ShardedTrainer:
 class ShardedPredictor(object):
     """Mesh-sharded inference: the serving-side counterpart of
     :class:`ShardedTrainer` (the port of the JAX package's
-    ``ShardedPredictor``).  The batch is split over dp, the parameters
-    placed as the trainer places them (an MoE expert stack split over
-    ep, the tp policy's splits over tp), and the forward runs with
+    ``ShardedPredictor``).  The batch is split over dp (and with
+    ``seq_axis`` its sequence over sp: the trainer's walk, the ring
+    included, forward only), the parameters placed as the trainer places
+    them (an MoE expert stack split over ep, the tp policy's splits over
+    tp), and the forward runs with
     ``is_train=False``; the loss layers' label slots are bound as
     zeros.
 
     Parameters
     ----------
     symbol : inference symbol (loss heads fine: they run is_train=False).
-    mesh : a mesh from ``parallel.make_mesh`` with dp and ep or tp axes
-        (tp splits the parameters by the tp policy, as the trainer does).
+    mesh : a mesh from ``parallel.make_mesh`` with dp and ep, tp or sp
+        axes (tp splits the parameters by the tp policy, as the trainer
+        does).
+    seq_axis : as :class:`ShardedTrainer`'s.
     arg_params / aux_params : host dicts (e.g. from
         ``model.load_checkpoint``: numpy arrays or NDArrays).
     compute_dtype : dtype of the forward; floating outputs come back
@@ -1397,8 +1465,6 @@ class ShardedPredictor(object):
                  label_names=("softmax_label",), compute_dtype=None):
         from ..model import _host
         from ..optimizer import SGD
-        if seq_axis is not None:
-            raise _not_ported("seq_axis (ring attention)", _MULTI_GPU)
         self.symbol = symbol
         self.mesh = mesh
         self.data_names = tuple(data_names)
@@ -1417,7 +1483,8 @@ class ShardedPredictor(object):
         self._tr = ShardedTrainer(symbol, SGD(), mesh,
                                   data_names=self.data_names,
                                   label_names=tuple(self._slots),
-                                  rules=rules, compute_dtype=compute_dtype)
+                                  rules=rules, seq_axis=seq_axis,
+                                  compute_dtype=compute_dtype)
         self.compute_dtype = self._tr.compute_dtype
         self.params = self._tr.place_params(
             {n: _host(v) for n, v in arg_params.items()
@@ -1495,6 +1562,23 @@ class ShapeDtypeStruct(object):
     def __repr__(self):
         return "ShapeDtypeStruct(shape=%s, dtype=%s)" % (self.shape,
                                                          self.dtype)
+
+
+def _check_sp(sp, seq_axis, zero1, fsdp, tp, ep):
+    """What sequence parallelism does not carry yet raises, naming its
+    item."""
+    what = None
+    if seq_axis is None:
+        what = "an sp axis without seq_axis (the sequence axis to split)"
+    elif zero1 or fsdp:
+        what = "%s with seq_axis" % ("zero1=True" if zero1 else "fsdp=True")
+    elif tp > 1 or ep > 1:
+        what = "seq_axis together with %s=%d" % (
+            ("tp", tp) if tp > 1 else ("ep", ep))
+    if what is not None:
+        raise MXNetError("ShardedTrainer: %s on an sp=%d mesh is not ported "
+                         "yet (ROADMAP.md queue 1 item 3 (c2)); run sequence "
+                         "parallelism on a dp x sp mesh" % (what, sp))
 
 
 def _model_split(params):

@@ -12,14 +12,20 @@ when a CUDA device is present, the CUDA activity (CUPTI); ``'stop'``
 writes one Chrome trace (``trace-<pid>-<n>.json``, viewable at
 ``chrome://tracing`` or https://ui.perfetto.dev) into the configured
 directory and returns its path.  ``mode='cpu'`` traces the host alone.
-When the card is asked for, the first ``'run'`` of a process traces a
-few small kernels first (up to three tries); if CUPTI records no device
-activity, ``'run'`` raises rather than record a host-only trace under
-the name of a device trace.  CUPTI drops records of a session now and
-then (on an H100 under PyTorch 2.11, most often in a short session: the
-first kernels of a few milliseconds, or all of them), so each session
-waits :data:`FLUSH_S` after a synchronize before it stops, and a trace
-of a few kernels that lacks one is no proof that it did not run.
+When the card is asked for, the first ``'run'`` of a process traces
+:data:`PROBE_KERNELS` small kernels first (up to three tries); if CUPTI
+records no device activity, ``'run'`` raises rather than record a
+host-only trace under the name of a device trace.
+
+CUPTI leaves the first kernels of a session without timestamps once the
+process has run a CUDA profiler session and then much CUDA work (on an
+H100 under PyTorch 2.11, the first 11-22 kernel records of about half
+the sessions, with start and end 0); kineto then drops them as outside
+the session's window.  So the probe launches many more kernels
+than that, and every CUDA session starts with :data:`LEAD_IN` tiny
+kernels of its own (``mx.profiler.lead_in`` in the trace), which take
+those records so that the caller's first kernels keep theirs.  Each
+session also waits :data:`FLUSH_S` after a synchronize before it stops.
 
 :class:`annotate` names a region in the trace
 (``torch.profiler.record_function``, plus an NVTX range on a CUDA
@@ -42,8 +48,13 @@ _config = {"filename": "mxtpu_profile", "mode": "symbolic"}
 #: seconds a session waits, after a synchronize, for CUPTI's records
 FLUSH_S = 0.1
 _PROBE_TRIES = 3
+#: kernels of one probe session: far more than CUPTI leaves without
+#: timestamps at the start of a session
+PROBE_KERNELS = 256
+#: tiny kernels that open every CUDA session, ahead of the caller's
+LEAD_IN = 64
 _state = {"state": "stop", "prof": None, "cuda": False, "n": 0,
-          "cupti": None}
+          "cupti": None, "probe": []}
 
 
 def profiler_set_config(mode="symbolic", filename="mxtpu_profile"):
@@ -78,6 +89,12 @@ def profiler_set_state(state="stop"):
                     "traces the host alone)")
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
+            if cuda:
+                with torch.profiler.record_function("mx.profiler.lead_in"):
+                    x = torch.zeros(1, device="cuda")
+                    for _ in range(LEAD_IN):
+                        x.add_(1)
+                    torch.cuda.synchronize()
             _state.update(state="run", prof=prof, cuda=cuda)
         return None
     if state != "stop":
@@ -99,19 +116,26 @@ def profiler_set_state(state="stop"):
     return path
 
 
+def probe_session(torch, acts):
+    """One probe session: :data:`PROBE_KERNELS` small kernels traced,
+    :data:`FLUSH_S` after a synchronize; the device events recorded."""
+    with torch.profiler.profile(activities=acts) as probe:
+        x = torch.ones(1 << 20, device="cuda")
+        for _ in range(PROBE_KERNELS - 1):
+            x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(FLUSH_S)
+    return sum(1 for ev in probe.events()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+
+
 def _cupti_traces(torch, acts):
-    """Does a trace of a few small kernels hold an event that ran on the
-    card, in one of :data:`_PROBE_TRIES` tries?  A yes is kept for the
-    process."""
+    """Does a probe session hold an event that ran on the card, in one
+    of :data:`_PROBE_TRIES` tries?  A yes is kept for the process; each
+    try's count of device events is kept in ``_state["probe"]``."""
     for _ in range(0 if _state["cupti"] else _PROBE_TRIES):
-        with torch.profiler.profile(activities=acts) as probe:
-            x = torch.ones(1 << 20, device="cuda")
-            for _k in range(4):
-                x = x * 2
-            torch.cuda.synchronize()
-            time.sleep(FLUSH_S)
-        if any(str(getattr(ev, "device_type", "")).endswith("CUDA")
-               for ev in probe.events()):
+        _state["probe"].append(probe_session(torch, acts))
+        if _state["probe"][-1]:
             _state["cupti"] = True
             break
     return bool(_state["cupti"])

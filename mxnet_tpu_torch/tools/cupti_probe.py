@@ -2,10 +2,10 @@
 """How often the profiler's CUPTI probe finds no device event, over fresh
 processes on the card.
 
-``mxnet_tpu_torch.profiler.profiler_set_state("run")`` first traces a few
-small kernels (``profiler._cupti_traces``, up to ``_PROBE_TRIES`` tries,
-each waiting ``FLUSH_S`` after a synchronize) and raises when CUPTI
-recorded no device event in any of them.  This script starts
+``mxnet_tpu_torch.profiler.profiler_set_state("run")`` first traces
+``PROBE_KERNELS`` small kernels (``profiler.probe_session``, up to
+``_PROBE_TRIES`` tries, each waiting ``FLUSH_S`` after a synchronize) and
+raises when CUPTI recorded no device event in any of them.  This script starts
 ``--processes`` fresh Python processes a condition (``--parallel`` at a
 time) and, in each, counts the device events of every try of the probe
 (all of them, not stopping at the first that sees one) and then calls
@@ -73,15 +73,7 @@ def child(condition):
         before = [_session(torch, acts, 50) for _ in range(8)]
     tries = []
     for _ in range(profiler._PROBE_TRIES):
-        with torch.profiler.profile(activities=acts) as probe:
-            x = torch.ones(1 << 20, device="cuda")
-            for _k in range(4):
-                x = x * 2
-            torch.cuda.synchronize()
-            time.sleep(profiler.FLUSH_S)
-        tries.append(sum(1 for ev in probe.events()
-                         if str(getattr(ev, "device_type", ""))
-                         .endswith("CUDA")))
+        tries.append(profiler.probe_session(torch, acts))
     error = None
     try:
         profiler.profiler_set_config(filename=os.path.join(

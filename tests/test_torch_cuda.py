@@ -1870,3 +1870,144 @@ def test_tp_engine_on_the_card_launches_each_members_heads(cuda):
     steps = eng.stats()["decode_steps"]
     assert fd.flash_decode_attention.launches_by_heads == {2: steps * 2 * 2}
     assert set(q.quantized_matmul.launches_by_rows) == {128, 256, 64}
+
+
+def _sp_lm(mx, mesh, mirror=False, steps=1, seq=128, compute_dtype=None):
+    """The LM (vocab 64, 2 layers, 2 heads, dim 64) at ``seq``, batch 2,
+    ``steps`` SGD-momentum steps from one seeded start; returns the
+    global parameters after, the first step's outputs and the trainer."""
+    rng = np.random.RandomState(3)
+    dims = dict(vocab_size=64, num_layers=2, num_heads=2, dim=64,
+                seq_len=seq)
+    sym = mx.models.transformer.get_symbol(mirror_blocks=mirror, **dims)
+    shapes, _, _ = sym.infer_shape(data=(2, seq), softmax_label=(2, seq))
+    params = {n: (rng.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    batch = {"data": rng.randint(0, 64, (2, seq)).astype(np.float32),
+             "softmax_label": rng.randint(0, 64, (2, seq))
+             .astype(np.float32)}
+    opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                              rescale_grad=1.0 / (2 * seq))
+    tr = mx.parallel.ShardedTrainer(
+        sym, opt, mesh, seq_axis=1 if mesh.shape.get("sp", 1) > 1 else None,
+        compute_dtype=compute_dtype)
+    p = tr.place_params(params)
+    st = {k: torch.zeros(v.shape, device="cuda") for k, v in params.items()}
+    if mesh.size > 1:
+        from mxnet_tpu_torch.parallel.sharding import P, place
+        st = {k: place(v, mesh, P(*([None] * v.dim())))
+              for k, v in st.items()}
+    b = tr.shard_batch(batch)
+    first = None
+    for _ in range(steps):
+        p, st, _a, out = tr.step(p, st, {}, b)
+        if first is None:
+            first = out[0] if isinstance(out[0], torch.Tensor) \
+                else out[0].global_tensor()
+    torch.cuda.synchronize()
+    whole = {k: v if isinstance(v, torch.Tensor) else v.global_tensor()
+             for k, v in p.items()}
+    return whole, first, tr
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, None)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_hops_launch_the_flash_kernel(cuda, dtype, atol, causal):
+    """Every ring hop that is not skipped is one launch of
+    ``csrc/flash_attention.cu`` on its member's card (two members on the
+    first card, and one a card where there are two), and the ring's
+    output is one-card attention's: float32 within 2e-5 of the plain
+    version, bfloat16 within a bfloat16 ulp of the float32 ring."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ring_attention as ra
+    rng = np.random.RandomState(1)
+    q, k, v = [torch.from_numpy(rng.randn(2, 4, 256, 64).astype(np.float32))
+               .to(cuda) for _ in range(3)]
+    want = fa.flash_attention_forward_reference(q, k, v, causal=causal)[0]
+    layouts = [[cuda, cuda]]
+    if torch.cuda.device_count() > 1:
+        layouts.append([cuda, torch.device("cuda", 1)])
+    for devs in layouts:
+        chunks = [[c.to(d, dtype) for c, d in zip(t.chunk(2, dim=2), devs)]
+                  for t in (q, k, v)]
+        ra.reset_ring_counts()
+        before = fa.flash_attention_forward.launches
+        got = ra.ring_attention(*chunks, causal=causal)
+        torch.cuda.synchronize()
+        hops = ra.ring_counts()["hops"]
+        assert hops == ({0: 1, 1: 2} if causal else {0: 2, 1: 2})
+        assert fa.flash_attention_forward.launches - before \
+            == sum(hops.values())
+        got = torch.cat([o.to(cuda).float() for o in got], dim=2)
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= atol
+        else:
+            ulp = want.abs() * 2.0 ** -7 + 2e-2
+            assert bool(((got - want).abs() <= ulp).all())
+
+
+def test_sp_step_on_the_card_matches_one_card(cuda):
+    """The LM at dp=1 x sp=2 on the first card (and, with two cards, one
+    member a card) against the one-card step from the same weights: the
+    outputs and the parameters after two steps within 1e-5 of the
+    largest; every member's flash forward a hop and its own sweeps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_opt as fo
+    import os
+    os.environ["MXTPU_FUSED_OPT"] = "kernel"
+    try:
+        one, o1, _t = _sp_lm(mx, mx.parallel.make_mesh([mx.gpu(0)], dp=1),
+                             steps=2)
+        layouts = [[mx.gpu(0)] * 2]
+        if torch.cuda.device_count() > 1:
+            layouts.append([mx.gpu(0), mx.gpu(1)])
+        for ctxs in layouts:
+            mesh = mx.parallel.make_mesh(ctxs, dp=1, sp=2)
+            fa_before = fa.flash_attention_forward.launches
+            fo_before = fo.sweep.launches
+            got, o2, tr = _sp_lm(mx, mesh, steps=2)
+            member = {k: torch.empty(v.shape) for k, v in one.items()}
+            buckets = len(fo.plan_buckets(member))
+            # causal: member 0 one hop, member 1 two, a layer a step
+            assert fa.flash_attention_forward.launches - fa_before \
+                == 2 * 2 * 3
+            assert fo.sweep.launches - fo_before == buckets * 2 * 2
+            assert float((o2 - o1).abs().max()) <= 1e-5
+            for k in one:
+                err = float((got[k] - one[k]).abs().max())
+                assert err <= 1e-5 * max(1.0, float(one[k].abs().max())), k
+    finally:
+        os.environ.pop("MXTPU_FUSED_OPT", None)
+
+
+def test_mirrored_sp_step_frees_its_segments(cuda):
+    """The mirrored sp step on the card equals the unmirrored one bit for
+    bit, and with the garbage collector off every segment's record (so
+    every recomputed copy, the ring's included) is gone once the step has
+    run."""
+    import gc
+    import weakref
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import executor as E
+    mesh = mx.parallel.make_mesh([mx.gpu(0)] * 2, dp=1, sp=2)
+    plain, _o, _t = _sp_lm(mx, mesh)
+    made = []
+    init = E._Recompute.__init__
+
+    def tracking(self, *a, **k):
+        init(self, *a, **k)
+        made.append(weakref.ref(self))
+    E._Recompute.__init__ = tracking
+    gc.disable()
+    try:
+        got, _o, _t = _sp_lm(mx, mesh, mirror=True)
+        assert len(made) == 2           # one segment a layer
+        assert all(r() is None for r in made)
+    finally:
+        gc.enable()
+        E._Recompute.__init__ = init
+    for k in plain:
+        assert torch.equal(got[k], plain[k]), k

@@ -119,16 +119,24 @@ def test_flash_cpu_wrapper_is_plain_version():
 
 
 def test_sequence_parallel_context_raises():
-    """Ring attention is the multi-GPU slice's: an active sp context
-    raises instead of silently running one-device attention."""
+    """An active sp context no longer raises (sequence parallelism is
+    ported): on a one-member sp ring it runs the ring, one hop, which is
+    the flash forward itself; a mesh across processes still raises,
+    naming its item (ring attention over a process group)."""
     from mxnet_tpu_torch.parallel import make_mesh
     import mxnet_tpu_torch as mx
     mesh = make_mesh([mx.cpu()], sp=1)
     q, k, v = map(torch.from_numpy, _qkv(5, S=32))
+    tra.reset_ring_counts()
     with tra.sequence_parallel(mesh):
-        with pytest.raises(MXNetError, match="multi-GPU"):
-            tra.sharded_self_attention(q, k, v, causal=True)
+        got = tra.sharded_self_attention(q, k, v, causal=True)
+    assert tra.ring_counts()["hops"] == {0: 1}
+    assert torch.equal(got, tra.flash_attention(q, k, v, causal=True))
     assert tra.sharded_self_attention(q, k, v).shape == q.shape
+    mesh.num_processes = 2
+    with tra.sequence_parallel(mesh):
+        with pytest.raises(MXNetError, match=r"3 \(k\)"):
+            tra.sharded_self_attention(q, k, v, causal=True)
 
 
 # ----------------------------------------------------------------------

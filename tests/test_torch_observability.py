@@ -550,9 +550,79 @@ def test_profiler_refuses_a_host_only_trace_of_the_card(monkeypatch):
     monkeypatch.setattr(torch, "ones", lambda *a, **k: torch.zeros(1))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     prof.profiler_set_config(mode="symbolic")
+    monkeypatch.setitem(prof._state, "probe", [])
     with pytest.raises(MXNetError, match="CUPTI"):
         prof.profiler_set_state("run")
     assert not prof.running() and len(probes) == prof._PROBE_TRIES
+    assert prof._state["probe"] == [0] * prof._PROBE_TRIES
+
+
+def test_profiler_card_session_probes_then_opens_with_its_lead_in(
+        monkeypatch, tmp_path):
+    """Asked for the card, ``'run'`` probes with ``PROBE_KERNELS`` kernels
+    (a try that records a device event passes, and is kept), then opens
+    the session with ``LEAD_IN`` kernels of its own, ahead of the
+    caller's, under the ``mx.profiler.lead_in`` range."""
+    import torch
+    prof = tmx.profiler
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(prof._state, "cupti", None)
+    monkeypatch.setitem(prof._state, "probe", [])
+    monkeypatch.setattr(prof, "FLUSH_S", 0.0)
+    sessions, ranges, made = [], [], []
+
+    class _Dev(object):
+        device_type = "DeviceType.CUDA"
+
+    class _Session(object):
+        def __init__(self, activities):
+            sessions.append(activities)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [_Dev()]             # CUPTI recorded a kernel
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                f.write("{}")
+
+    class _Range(object):
+        def __init__(self, name):
+            ranges.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def _made(fill):
+        def make(*a, **k):
+            made.append(torch.full((1,), float(fill)))
+            return made[-1]
+        return make
+
+    monkeypatch.setattr(torch.profiler, "profile", _Session)
+    monkeypatch.setattr(torch.profiler, "record_function", _Range)
+    monkeypatch.setattr(torch, "ones", _made(1))
+    monkeypatch.setattr(torch, "zeros", _made(0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    prof.profiler_set_config(mode="symbolic", filename=str(tmp_path))
+    prof.profiler_set_state("run")
+    assert prof.running() and prof._state["cupti"]
+    assert prof._state["probe"] == [1] and len(sessions) == 2
+    probe, lead_in = made
+    assert probe.item() == prof.PROBE_KERNELS       # 1 + (PROBE_KERNELS-1)
+    assert lead_in.item() == prof.LEAD_IN
+    assert ranges == ["mx.profiler.lead_in"]
+    path = prof.profiler_set_state("stop")
+    assert not prof.running() and os.path.dirname(path) == str(tmp_path)
+    prof.profiler_set_config(filename="mxtpu_profile")
 
 
 # ----------------------------------------------------------------------

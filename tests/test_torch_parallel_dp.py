@@ -96,8 +96,8 @@ def _pair(sym_fn, opt_kw, shapes, batch, steps, devices=8, zero1=False,
 
 
 def test_make_mesh_shapes():
-    """The JAX twin's shapes over 8 CPU contexts, tp included; sp above
-    1 raises, naming the slice that brings it."""
+    """The JAX twin's shapes over 8 CPU contexts, tp and sp included
+    (sp raised before the sequence-parallel slice ported it)."""
     assert len(jax.devices()) == 8
     mesh = tpar.make_mesh(CPUS, dp=8)
     assert dict(mesh.shape) == dict(jpar.make_mesh(dp=8).shape) == {"dp": 8}
@@ -111,8 +111,8 @@ def test_make_mesh_shapes():
     assert dict(tpar.make_mesh(CPUS, dp=4, tp=2).shape) == \
         dict(jpar.make_mesh(dp=4, tp=2).shape) == {"dp": 4, "tp": 2}
     assert tpar.make_mesh(CPUS, dp=-1, tp=2).shape["dp"] == 4
-    with pytest.raises(MXNetError, match="sequence parallelism"):
-        tpar.make_mesh(CPUS, dp=4, sp=2)
+    assert dict(tpar.make_mesh(CPUS, dp=4, sp=2).shape) == \
+        dict(jpar.make_mesh(dp=4, sp=2).shape) == {"dp": 4, "sp": 2}
     assert dict(tpar.auto_mesh(devices=CPUS).shape) == \
         dict(jpar.auto_mesh().shape)
     # the same context twice is a mesh of two replicas on one device
@@ -374,12 +374,17 @@ def test_transformer_lm_dp_matches_single_device():
 
 
 def test_trainer_raises_what_later_slices_bring():
-    """seq_axis, a rule that splits a parameter over dp (outside fsdp)
-    and remat on several devices raise, naming their slice."""
+    """A rule that splits a parameter over dp (outside fsdp) and remat
+    on several devices raise, naming their slice; seq_axis (which raised
+    before the sequence-parallel slice) does nothing without an sp axis,
+    as in the JAX package, and with ZeRO-1 on a dp x sp mesh raises,
+    naming item 3 (c2)."""
     mesh = tpar.make_mesh(CPUS[:2], dp=2)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
-    with pytest.raises(MXNetError, match="seq_axis"):
-        tpar.ShardedTrainer(_mlp(tmx), opt, mesh, seq_axis=1)
+    assert tpar.ShardedTrainer(_mlp(tmx), opt, mesh, seq_axis=1).sp == 1
+    with pytest.raises(MXNetError, match=r"seq_axis.*3 \(c2\)"):
+        tpar.ShardedTrainer(_mlp(tmx), opt, tpar.make_mesh(
+            CPUS[:4], dp=2, sp=2), seq_axis=1, zero1=True)
     with pytest.raises(MXNetError, match="remat"):
         tpar.ShardedTrainer(_mlp(tmx), opt, mesh, remat=True)
     rules = tpar.ShardingRules([(r"fc1_weight",

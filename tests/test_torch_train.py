@@ -171,8 +171,9 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     and the checkpoint methods, which raised before the resilience slice,
     now build; so do ``remat`` and the mirrored symbol (``mirror_blocks``),
     ``zero1`` and ``fsdp`` (inert on one device, as in the JAX package), a
-    dp mesh of two contexts and, since the tensor-parallel slice, a tp
-    axis, while an sp axis still raises, naming its slice."""
+    dp mesh of two contexts, since the tensor-parallel slice a tp axis,
+    and since the sequence-parallel slice ``seq_axis`` (a no-op on one
+    device, as in the JAX package) and an sp axis, which raised before."""
     sym = ttf.get_symbol(**DIMS)
     opt = tmx.optimizer.create("sgd", learning_rate=0.1)
     if not torch.cuda.is_available():
@@ -180,8 +181,7 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
             TTrainer(sym, opt)
     assert not TTrainer(sym, opt, ctx=tmx.cpu(), zero1=True).zero1
     assert not TTrainer(sym, opt, ctx=tmx.cpu(), fsdp=True).fsdp
-    with pytest.raises(MXNetError, match="not ported"):
-        TTrainer(sym, opt, ctx=tmx.cpu(), seq_axis=1)
+    assert TTrainer(sym, opt, ctx=tmx.cpu(), seq_axis=1).seq_axis == 1
     assert TTrainer(sym, opt, ctx=tmx.cpu(), sentinel=True).sentinel
     assert TTrainer(sym, opt, ctx=tmx.cpu(),
                     step_timeout_s=5.0).step_timeout_s == 5.0
@@ -204,8 +204,8 @@ def test_trainer_refuses_what_later_slices_bring(monkeypatch):
     assert mesh.size == 2 and TTrainer(sym, opt, mesh, zero1=True).zero1
     assert TTrainer(sym, opt, tmx.parallel.make_mesh(
         [tmx.cpu(), tmx.cpu()], dp=1, tp=2)).tp == 2
-    with pytest.raises(MXNetError, match="multi-GPU"):
-        tmx.parallel.make_mesh([tmx.cpu(), tmx.cpu()], dp=1, sp=2)
+    assert TTrainer(sym, opt, tmx.parallel.make_mesh(
+        [tmx.cpu(), tmx.cpu()], dp=1, sp=2), seq_axis=1).sp == 2
 
 
 def test_training_symbol_matches_jax():
